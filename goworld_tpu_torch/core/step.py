@@ -1,0 +1,191 @@
+"""The per-Space tick, the port of ``goworld_tpu/core/step.py``:
+
+apply client inputs -> run behaviors -> integrate movement -> AOI sweep
+-> interest deltas -> sync and attr record collection.
+
+All inputs and outputs are fixed-capacity tensors on one device, and the
+tick never waits on the host: counts stay 0-d device tensors (true
+demand, which may exceed their caps) for the host to read when it wants
+them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from goworld_tpu_torch.core.state import (
+    SpaceState,
+    WorldConfig,
+    check_ported,
+    resolve_device,
+)
+from goworld_tpu_torch.models.random_walk import random_walk_step
+from goworld_tpu_torch.ops import prng
+from goworld_tpu_torch.ops.aoi import ROADMAP_HINT, grid_neighbors_flags
+from goworld_tpu_torch.ops.delta import interest_pairs
+from goworld_tpu_torch.ops.integrate import apply_pos_inputs, integrate
+from goworld_tpu_torch.ops.sync import collect_attr_deltas, collect_sync
+
+
+@dataclasses.dataclass(frozen=True)
+class TickInputs:
+    """Per-tick host->device batch of client position syncs."""
+
+    pos_sync_idx: torch.Tensor   # i32[IC] target slots (unique)
+    pos_sync_vals: torch.Tensor  # f32[IC, 4] x, y, z, yaw
+    pos_sync_n: torch.Tensor     # i32 0-d
+
+    @staticmethod
+    def empty(cfg: WorldConfig, device="cuda") -> "TickInputs":
+        dev = resolve_device(device)
+        ic = cfg.input_cap
+        return TickInputs(
+            pos_sync_idx=torch.zeros(ic, dtype=torch.int32, device=dev),
+            pos_sync_vals=torch.zeros((ic, 4), dtype=torch.float32,
+                                      device=dev),
+            pos_sync_n=torch.zeros((), dtype=torch.int32, device=dev),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class TickOutputs:
+    """Per-tick device->host batch. Counts are true demand and may
+    exceed their caps; the host watches them for overflow."""
+
+    enter_w: torch.Tensor    # i32[EC] watcher slots
+    enter_j: torch.Tensor    # i32[EC] entered-neighbor slots
+    enter_n: torch.Tensor    # i32
+    leave_w: torch.Tensor
+    leave_j: torch.Tensor
+    leave_n: torch.Tensor
+    delta_rows_n: torch.Tensor  # i32 rows whose AOI list changed
+    sync_w: torch.Tensor     # i32[SC] watcher slots (has_client only)
+    sync_j: torch.Tensor     # i32[SC] subject slots
+    sync_vals: torch.Tensor  # f32[SC, 4]
+    sync_n: torch.Tensor
+    attr_e: torch.Tensor     # i32[AC] entity slots
+    attr_i: torch.Tensor     # i32[AC] attr column
+    attr_v: torch.Tensor     # f32[AC]
+    attr_n: torch.Tensor
+    alive_count: torch.Tensor  # i32
+    # AOI-cap overflow gauges; both zero <=> this tick's sweep was exact
+    aoi_demand_max: torch.Tensor
+    aoi_over_k_rows: torch.Tensor
+    aoi_cell_max: torch.Tensor
+    aoi_over_cap_cells: torch.Tensor
+    # Verlet skin telemetry: 1 and 0.0 every tick while no skin runs
+    aoi_rebuilt: torch.Tensor
+    aoi_skin_slack: torch.Tensor
+
+
+def compute_velocity(cfg: WorldConfig, key, state: SpaceState):
+    """Per-entity velocity update for ``cfg.behavior`` (random_walk is
+    the one behavior ported)."""
+    if cfg.behavior != "random_walk":
+        raise NotImplementedError(
+            f"behavior={cfg.behavior!r} {ROADMAP_HINT}")
+    return random_walk_step(key, state.vel, state.npc_moving,
+                            cfg.npc_speed, cfg.turn_prob)
+
+
+def tick_body(cfg: WorldConfig, state: SpaceState, inputs: TickInputs,
+              policy=None) -> tuple[SpaceState, TickOutputs]:
+    """One tick of one Space. Returns a new state and the outputs; the
+    lanes of ``state`` are not modified. See :func:`make_tick`."""
+    if policy is not None:
+        raise NotImplementedError(f"the mlp policy {ROADMAP_HINT}")
+    if state.pos.dim() != 2:
+        raise NotImplementedError(f"n_spaces > 1 {ROADMAP_HINT}")
+    n = cfg.capacity
+
+    # 1. client inputs (scatter)
+    pos, yaw, touched = apply_pos_inputs(
+        state.pos, state.yaw,
+        inputs.pos_sync_idx, inputs.pos_sync_vals, inputs.pos_sync_n,
+    )
+
+    # 2. behaviors
+    keys = prng.split(state.rng)
+    rng, k_behave = keys[0], keys[1]
+    vel = compute_velocity(cfg, k_behave, state)
+
+    # 3. integrate + world clamp
+    pos, moved = integrate(pos, vel, state.npc_moving, cfg.dt,
+                           cfg.bounds_min, cfg.bounds_max)
+    # state.dirty carries host-set pending force-syncs (spawn), consumed
+    # here and cleared below
+    dirty = (moved | touched | state.dirty) & state.alive
+
+    # 4. AOI sweep; the dirty and has_client bits ride the packed words
+    flag_bits = dirty.to(torch.int32) \
+        | (state.has_client.to(torch.int32) << 1)
+    nbr, nbr_cnt, nbr_fl, aoi_stats = grid_neighbors_flags(
+        cfg.grid, pos, state.alive, watch_radius=state.aoi_radius,
+        flag_bits=flag_bits, with_stats=True,
+    )
+
+    # 5. interest deltas -> bounded enter/leave pair lists
+    (enter_w, enter_j, enter_n, leave_w, leave_j, leave_n,
+     delta_rows_n) = interest_pairs(
+        state.nbr, nbr, n, cfg.enter_cap, cfg.leave_cap,
+        min(cfg.delta_rows_cap_eff, n), adaptive=cfg.adaptive_extract,
+    )
+
+    # 6. position sync records, then hot-attr deltas
+    sync_w, sync_j, sync_vals, sync_n = collect_sync(
+        nbr, dirty, state.has_client, pos, yaw, cfg.sync_cap,
+        nbr_dirty=(nbr_fl & 1).bool(), adaptive=cfg.adaptive_extract,
+    )
+    attr_e, attr_i, attr_v, attr_n = collect_attr_deltas(
+        state.hot_attrs, state.attr_dirty, cfg.attr_sync_cap,
+        adaptive=cfg.adaptive_extract,
+    )
+
+    dev = pos.device
+    new_state = state.replace(
+        pos=pos,
+        yaw=yaw,
+        vel=vel,
+        nbr=nbr,
+        nbr_cnt=nbr_cnt,
+        nbr_client_cnt=((nbr_fl >> 1) & 1).sum(dim=1, dtype=torch.int32),
+        dirty=torch.zeros_like(state.dirty),
+        attr_dirty=torch.zeros_like(state.attr_dirty),
+        rng=rng,
+        tick=state.tick + 1,
+    )
+    outputs = TickOutputs(
+        enter_w=enter_w, enter_j=enter_j, enter_n=enter_n,
+        leave_w=leave_w, leave_j=leave_j, leave_n=leave_n,
+        delta_rows_n=delta_rows_n,
+        sync_w=sync_w, sync_j=sync_j, sync_vals=sync_vals, sync_n=sync_n,
+        attr_e=attr_e, attr_i=attr_i, attr_v=attr_v, attr_n=attr_n,
+        alive_count=state.alive.sum(dtype=torch.int32),
+        aoi_demand_max=aoi_stats[0], aoi_over_k_rows=aoi_stats[1],
+        aoi_cell_max=aoi_stats[2], aoi_over_cap_cells=aoi_stats[3],
+        aoi_rebuilt=torch.ones((), dtype=torch.int32, device=dev),
+        aoi_skin_slack=torch.zeros((), dtype=torch.float32, device=dev),
+    )
+    return new_state, outputs
+
+
+def make_tick(cfg: WorldConfig, device="cuda"):
+    """Build the tick function for a WorldConfig on ``device`` (the card
+    unless the caller asks for the CPU).
+
+    Returns ``tick(state, inputs, policy=None) -> (state, outputs)``.
+    A config this port does not run yet raises ``NotImplementedError``
+    here, before any tick.
+    """
+    check_ported(cfg)
+    dev = resolve_device(device)
+
+    def tick(state: SpaceState, inputs: TickInputs, policy=None):
+        if state.device.type != dev.type:
+            raise ValueError(
+                f"state lives on {state.device}, the tick on {dev}")
+        return tick_body(cfg, state, inputs, policy)
+
+    return tick

@@ -1,0 +1,620 @@
+"""Batched AOI (area-of-interest) neighbor search, the port of
+``goworld_tpu/ops/aoi.py``.
+
+Interest is Chebyshev in the XZ plane: B is in A's AOI iff ``|dx| <=
+r`` and ``|dz| <= r``. One uniform-grid sweep per tick:
+
+1. bin entities into ``radius``-sized cells with one always-empty border
+   ring (``_cell_rows``),
+2. order slots by cell row with a stable sort (``_sort_cells``),
+3. lay the sorted entities out as a component-major view with sentinel
+   padding, and find each query's three contiguous z-triple runs
+   (``_build_ranges``, ``_query_runs``),
+4. back half: per query, the candidates of the 3x3 window are ranked by
+   packed (quantized distance, id, flags) keys and the k smallest kept.
+
+The back half comes in two forms with bit-identical results:
+``sweep_impl="ranges"`` in plain torch ops block by block, and
+``sweep_impl="fused"`` as one CUDA kernel (``csrc/aoi_fused.cu``,
+wrapper :func:`sweep_fused_cuda`). ``sort_impl="pallas"`` names the
+CUDA counting sort (the knob keeps the JAX package's value names so that
+one config means the same on both sides).
+
+Slot words (``(id << 2) | flags``) stay an int32 tensor beside the float
+coordinates: as float32 bit patterns every one of them is subnormal, and
+a float op under flush-to-zero would zero the ids.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from goworld_tpu_torch import kernels
+from goworld_tpu_torch.ops.sort import (
+    counting_sort_cells,
+    counting_sort_cells_cuda,
+    row_starts,
+)
+from goworld_tpu_torch.utils import consts
+
+# Packed ranking keys (n < 2^21 path), as in the JAX package:
+#   with flags:    key = (qd8 << 23) | (id << 2) | flags,   qd8  in [1, 254]
+#   without flags: key = (qd10 << 21) | id,                 qd10 in [0, 1023]
+_ID_BITS = consts.AOI_ID_BITS
+_ID_MASK = (1 << _ID_BITS) - 1
+_WORD_MASK = (1 << 23) - 1
+_QD_MAX = 254
+
+ROADMAP_HINT = "not ported yet; see ROADMAP.md Queue A"
+
+
+def _log2_ceil(x: float) -> int:
+    """Exact ceil(log2(x)) for positive floats (frexp, no log
+    rounding)."""
+    m, e = math.frexp(x)
+    return e - 1 if m == 0.5 else e
+
+
+@dataclasses.dataclass(frozen=True)
+class GridSpec:
+    """Static AOI configuration, field for field the JAX package's
+    ``GridSpec`` with the same knob names, value sets and validation.
+
+    The world is the XZ rectangle ``[origin, origin + extent)``;
+    positions outside clamp into the edge cells. Knob values this port
+    does not run yet are accepted here (so one config means the same on
+    both sides) and rejected with ``NotImplementedError`` by the sweep.
+    """
+
+    radius: float
+    origin_x: float = 0.0
+    origin_z: float = 0.0
+    extent_x: float = 1024.0
+    extent_z: float = 1024.0
+    k: int = consts.DEFAULT_MAX_NEIGHBORS
+    cell_cap: int = consts.DEFAULT_CELL_CAP
+    row_block: int = consts.DEFAULT_ROW_BLOCK
+    topk_impl: str = consts.DEFAULT_TOPK_IMPL
+    sweep_impl: str = consts.DEFAULT_SWEEP_IMPL
+    sort_impl: str = consts.DEFAULT_SORT_IMPL
+    skin: float = consts.DEFAULT_AOI_SKIN
+    verlet_cap: int = 0
+    rebuild_every_max: int = 0
+    precision: str = consts.DEFAULT_PRECISION
+
+    def __post_init__(self):
+        if self.topk_impl not in ("exact", "sort", "f32", "approx"):
+            raise ValueError(
+                f"topk_impl must be exact|sort|f32|approx, "
+                f"got {self.topk_impl!r}"
+            )
+        if self.sweep_impl not in ("table", "ranges", "cellrow",
+                                   "shift", "fused"):
+            raise ValueError(
+                f"sweep_impl must be table|ranges|cellrow|shift|fused, "
+                f"got {self.sweep_impl!r}"
+            )
+        if self.sort_impl not in ("argsort", "counting", "pallas"):
+            raise ValueError(
+                f"sort_impl must be argsort|counting|pallas, "
+                f"got {self.sort_impl!r}"
+            )
+        if not self.skin >= 0.0:
+            raise ValueError(
+                f"skin must be >= 0 (0 disables Verlet reuse), "
+                f"got {self.skin!r}"
+            )
+        if self.verlet_cap < 0 or 0 < self.verlet_cap < self.k:
+            raise ValueError(
+                f"verlet_cap must be 0 (= auto k + k//2) or >= k "
+                f"(={self.k}), got {self.verlet_cap!r}"
+            )
+        if self.rebuild_every_max < 0:
+            raise ValueError(
+                f"rebuild_every_max must be >= 0 (0 = displacement-"
+                f"driven only), got {self.rebuild_every_max!r}"
+            )
+        if self.precision not in ("off", "q16"):
+            raise ValueError(
+                f"precision must be off|q16, got {self.precision!r}"
+            )
+        if self.precision != "off":
+            if self.origin_x != 0.0 or self.origin_z != 0.0:
+                raise ValueError(
+                    "precision=q16 requires origin_x == origin_z == 0 "
+                    "(lattice arithmetic is origin-free; shift the "
+                    f"world), got ({self.origin_x!r}, {self.origin_z!r})"
+                )
+            step = self.quant_step
+            if not step > 0.0 or not math.isfinite(step):
+                raise ValueError(
+                    f"precision=q16 rejected: degenerate lattice step "
+                    f"{step!r} from extents ({self.extent_x!r}, "
+                    f"{self.extent_z!r})"
+                )
+            if step > self.radius / 4.0:
+                raise ValueError(
+                    f"precision=q16 rejected: int16 lattice step "
+                    f"{step!r} over extent "
+                    f"{max(self.extent_x, self.extent_z)!r} exceeds "
+                    f"radius/4 ({self.radius / 4.0!r}) — at 2^"
+                    f"{consts.PRECISION_POS_BITS} points/axis this "
+                    "resolution could flip a cell assignment or reach "
+                    "comparison vs the f32 world; shrink the extent or "
+                    "raise the radius"
+                )
+        if self.skin > 0 and self.verlet_cap_eff > 9 * self.cell_cap:
+            raise ValueError(
+                f"verlet_cap (effective {self.verlet_cap_eff}) must be "
+                f"<= 9*cell_cap ({9 * self.cell_cap}) — raise cell_cap "
+                f"or lower verlet_cap/k"
+            )
+
+    @property
+    def cell_size(self) -> float:
+        """Grid cell edge (``radius + skin``; under precision=q16 rounded
+        up to a power-of-two multiple of the lattice step)."""
+        if self.precision != "off":
+            return self.quant_step * (1 << self.quant_cell_shift)
+        return self.radius + self.skin
+
+    @property
+    def quant_step(self) -> float:
+        """precision=q16 lattice step: the smallest power of two with
+        <= 2^PRECISION_POS_BITS lattice points across the larger
+        extent."""
+        ext = max(self.extent_x, self.extent_z)
+        return 2.0 ** (_log2_ceil(ext) - consts.PRECISION_POS_BITS)
+
+    @property
+    def quant_cell_shift(self) -> int:
+        """log2(cell edge / lattice step) under precision=q16."""
+        return max(0, _log2_ceil(
+            (self.radius + self.skin) / self.quant_step))
+
+    @property
+    def quant_bits(self) -> int:
+        """Lattice points/axis as bits (0 when precision is off)."""
+        return consts.PRECISION_POS_BITS if self.precision != "off" \
+            else 0
+
+    @property
+    def verlet_cap_eff(self) -> int:
+        """``verlet_cap`` resolved: 0 = auto ``k + k//2``."""
+        return self.verlet_cap if self.verlet_cap > 0 \
+            else self.k + self.k // 2
+
+    @property
+    def cells_x(self) -> int:
+        return max(1, int(-(-self.extent_x // self.cell_size)))
+
+    @property
+    def cells_z(self) -> int:
+        return max(1, int(-(-self.extent_z // self.cell_size)))
+
+
+def check_ported(spec: GridSpec) -> None:
+    """Raise ``NotImplementedError`` for a knob value this port does not
+    run yet. It never substitutes another path."""
+    if spec.skin > 0.0:
+        raise NotImplementedError(f"Verlet skin (skin > 0) {ROADMAP_HINT}")
+    if spec.precision != "off":
+        raise NotImplementedError(f"precision='q16' {ROADMAP_HINT}")
+    if spec.sweep_impl not in ("ranges", "fused"):
+        raise NotImplementedError(
+            f"sweep_impl={spec.sweep_impl!r} {ROADMAP_HINT}")
+    if spec.topk_impl == "approx":
+        raise NotImplementedError(f"topk_impl='approx' {ROADMAP_HINT}")
+
+
+def _f32(x: float, dev) -> torch.Tensor:
+    """A 0-d float32 tensor made on ``dev`` by a fill (no host copy)."""
+    return torch.full((), x, dtype=torch.float32, device=dev)
+
+
+def _cell_rows(spec: GridSpec, pos, alive, watch_radius):
+    """Front half, stage 1: per-entity padded cell-row ids.
+
+    The divide is by a 0-d float32 tensor: a divide by a Python scalar
+    may become a multiply by its reciprocal on the card, which can move
+    a floor across a cell edge."""
+    dev = pos.device
+    czp = spec.cells_z + 2
+    cxp = spec.cells_x + 2
+    n_rows = cxp * czp
+    if watch_radius is not None:
+        # radius-0 entities leave the candidate pool here
+        alive = alive & (watch_radius > 0.0)
+    cs = _f32(spec.cell_size, dev)
+
+    def cell(col, origin, cells):
+        # clamp in float before the cast, so no out-of-range float is
+        # ever converted (same result as the JAX cast-then-clip)
+        c = torch.floor((pos[:, col] - origin) / cs)
+        return torch.clamp(c, 0, cells - 1).to(torch.int32)
+
+    cx = cell(0, spec.origin_x, spec.cells_x)
+    cz = cell(2, spec.origin_z, spec.cells_z)
+    row = (cx + 1) * czp + (cz + 1)
+    srow = torch.where(alive, row, n_rows).to(torch.int32)
+    return cx, cz, srow, alive, czp, n_rows
+
+
+def _sort_cells(n_rows: int, srow, sort_impl: str):
+    """Front half, stage 2: slots ordered by cell row. Every impl is
+    stable and therefore gives the same result."""
+    if sort_impl == "pallas":
+        return counting_sort_cells_cuda(srow, n_rows)
+    if sort_impl == "counting":
+        return counting_sort_cells(srow, n_rows)
+    order = torch.argsort(srow, stable=True).to(torch.int32)
+    return order, srow[order.long()]
+
+
+def _sorted_src(pos, flag_bits, order):
+    """Front half, stage 3: sorted x, z and packed slot words. The word
+    carries the slot id plus the caller's flag bits, so consumers never
+    gather them per neighbor. Returns (px, pz, word, table sentinel)."""
+    n = pos.shape[0]
+    idx = torch.arange(n, dtype=torch.int32, device=pos.device)
+    if flag_bits is not None:
+        word = (idx << 2) | (flag_bits.to(torch.int32) & 3)
+        table_sentinel = n << 2
+    else:
+        word = idx
+        table_sentinel = n
+    o = order.long()
+    return pos[o, 0], pos[o, 2], word[o], table_sentinel
+
+
+def _build_ranges(cc: int, n_rows: int, srow, px, pz, word,
+                  table_sentinel: int):
+    """Front half, stage 4: row_start offsets plus the padded
+    component-major sorted view: ``s_xz`` f32[2, n + 3cc] and ``s_w``
+    i32[n + 3cc], with 3cc sentinel lanes so that every run is in
+    bounds."""
+    row_start = row_starts(srow, n_rows)
+    dev = px.device
+    pad = torch.full((3 * cc,), math.inf, dtype=torch.float32, device=dev)
+    s_xz = torch.stack([torch.cat([px, pad]), torch.cat([pz, pad])])
+    s_w = torch.cat([word, torch.full((3 * cc,), table_sentinel,
+                                      dtype=torch.int32, device=dev)])
+    return row_start, s_xz, s_w
+
+
+def _query_runs(cx, cz, alive, row_start, czp: int):
+    """Each query's three z-triple runs ``[lo, hi)`` of the sorted view,
+    one per x offset; excluded queries read an empty border run."""
+    dxs = torch.arange(-1, 2, dtype=torch.int32, device=cx.device)
+    starts = (cx[:, None] + dxs[None, :] + 1) * czp + cz[:, None]
+    starts = torch.where(alive[:, None], starts, 0).long()
+    return row_start[starts], row_start[starts + 3]
+
+
+def _invalid_key_int(topk_impl) -> int:
+    """Sentinel ranking key: +inf's bit pattern for the float-domain
+    ranking ("f32"), INT32_MAX otherwise."""
+    return 0x7F800000 if topk_impl in ("approx", "f32") else 2**31 - 1
+
+
+def _key_code(spec: GridSpec, want_flags: bool, qmax: float):
+    """The packed-key encoding as plain numbers: (id_shift, qd_shift,
+    qd_cap, qd_bias, scale as float32, invalid_key). ``scale`` is the
+    float32 that JAX rounds ``levels / qmax`` to before the multiply."""
+    invalid = _invalid_key_int(spec.topk_impl)
+    if want_flags or spec.topk_impl in ("approx", "f32"):
+        code = (23, _QD_MAX - 1, 1, np.float32(253.0 / qmax))
+    else:
+        code = (_ID_BITS, 1023, 0, np.float32(1024.0 / qmax))
+    return (2 if want_flags else 0, *code, invalid)
+
+
+def _pack_keys(dist, valid, cand_w, code):
+    """Pack (quantized distance, word) into one int32 ranking key;
+    invalid lanes get the invalid key."""
+    _id_shift, qd_shift, qd_cap, qd_bias, scale, invalid = code
+    d = torch.where(valid, dist, 0.0)
+    qd = torch.clamp_max(
+        (d * float(scale)).to(torch.int32),
+        qd_cap) + qd_bias
+    return torch.where(valid, (qd << qd_shift) | cand_w, invalid)
+
+
+def _window_keys(s_xz, s_w, lo, hi, pos, reach, rows, cc, sentinel, code):
+    """Packed keys int32[B, 9cc] and validity of the candidates of query
+    ``rows``: the three runs of each query, lanes past a run's end
+    masked (they may hold entities of other cells)."""
+    b = rows.shape[0]
+    lanes3 = torch.arange(3 * cc, device=lo.device)
+    idx = (lo[:, :, None].long() + lanes3).reshape(b, 9 * cc)
+    in_range = (lanes3[None, None, :] < (hi - lo)[:, :, None]) \
+        .reshape(b, 9 * cc)
+    cand_px = torch.where(in_range, s_xz[0][idx], math.inf)
+    cand_pz = s_xz[1][idx]
+    cand_w = torch.where(in_range, s_w[idx], sentinel << code[0])
+    dist = torch.maximum((cand_px - pos[rows, 0][:, None]).abs(),
+                         (cand_pz - pos[rows, 2][:, None]).abs())
+    cand_id = cand_w >> code[0]
+    valid = ((cand_id != sentinel) & (dist <= reach[rows][:, None])
+             & (cand_id != rows[:, None]))
+    return _pack_keys(dist, valid, cand_w, code), valid
+
+
+def _pad_k(top, k, invalid):
+    """Keep exactly k ranked columns (invalid keys pad when there are
+    fewer candidate lanes than k)."""
+    if top.shape[1] >= k:
+        return top[:, :k]
+    fill = torch.full((top.shape[0], k - top.shape[1]), invalid,
+                      dtype=top.dtype, device=top.device)
+    return torch.cat([top, fill], dim=1)
+
+
+def _rank_packed(packed, k, topk_impl):
+    """The k smallest keys per row in ascending order. The three exact
+    rankings give the same values (valid keys are unique); each is
+    written as the JAX package lowers it."""
+    kk = min(k, packed.shape[1])
+    if topk_impl == "exact":
+        top = torch.topk(packed, kk, dim=1, largest=False).values
+    elif topk_impl == "f32":
+        fk = packed.view(torch.float32)
+        top = torch.topk(fk, kk, dim=1, largest=False).values \
+            .view(torch.int32)
+    else:
+        top = torch.sort(packed, dim=1).values[:, :kk]
+    return _pad_k(top, k, _invalid_key_int(topk_impl))
+
+
+def _unpack_top(top, invalid_key, want_flags, sentinel):
+    """Ranked keys to (nbr ascending ids, cnt, flags-or-None)."""
+    ok = top < invalid_key
+    if want_flags:
+        combo = torch.sort(
+            torch.where(ok, top & _WORD_MASK, sentinel << 2), dim=-1
+        ).values
+        nbr = combo >> 2
+        fl = torch.where(nbr == sentinel, 0, combo & 3)
+    else:
+        nbr = torch.sort(torch.where(ok, top & _ID_MASK, sentinel),
+                         dim=-1).values
+        fl = None
+    return nbr, ok.sum(-1, dtype=torch.int32), fl
+
+
+def _blocks(q: int, row_block: int, dev):
+    rb = max(1, min(row_block, q))
+    for s in range(0, q, rb):
+        yield torch.arange(s, min(s + rb, q), device=dev)
+
+
+def sweep_fused_plain(s_xz, s_w, lo, hi, pos, reach, k, cc, code,
+                      with_stats, row_block=consts.DEFAULT_ROW_BLOCK):
+    """Plain version of :func:`sweep_fused_cuda`: the ``ranges`` back
+    half, block by block, keeping the k smallest keys of each row."""
+    q = lo.shape[0]
+    sentinel = pos.shape[0]
+    invalid = code[-1]
+    tops, dems = [], []
+    for rows in _blocks(q, row_block, lo.device):
+        keys, valid = _window_keys(s_xz, s_w, lo[rows], hi[rows], pos,
+                                   reach, rows, cc, sentinel, code)
+        tops.append(_pad_k(torch.sort(keys, dim=1).values, k, invalid))
+        dems.append(valid.sum(1, dtype=torch.int32))
+    top = torch.cat(tops) if tops else lo.new_zeros((0, k))
+    dem = (torch.cat(dems) if dems else lo.new_zeros(0)) \
+        if with_stats else None
+    return top, dem
+
+
+def sweep_fused_cuda(s_xz, s_w, lo, hi, pos, reach, k, cc, code,
+                     with_stats, row_block=consts.DEFAULT_ROW_BLOCK):
+    """The fused back half (window gather, key pack, top-k) as the CUDA
+    kernel of ``csrc/aoi_fused.cu`` for tensors on the card; the plain
+    version :func:`sweep_fused_plain` for tensors on the CPU.
+
+    Args:
+      s_xz: f32[2, L] sorted x and z rows; s_w: i32[L] packed slot
+        words (L = n + 3cc, the last 3cc lanes sentinels).
+      lo, hi: i32[Q, 3] run bounds of each query row.
+      pos: f32[n, 3] positions (queries are rows 0..Q-1); reach: f32[n].
+      k: kept keys per row; cc: cell_cap (9*cc <= 256 on the card).
+      code: the key encoding from ``_key_code``.
+      with_stats: also return the demand vector i32[Q].
+      row_block: rows per block of the plain version only.
+
+    Returns (top i32[Q, k] ascending ranked keys, dem i32[Q] or None).
+    """
+    n = pos.shape[0]
+    q = lo.shape[0]
+    s_len = s_w.shape[0]
+    kernels.require(s_xz, "s_xz", torch.float32, (2, s_len))
+    kernels.require(s_w, "s_w", torch.int32, (n + 3 * cc,))
+    kernels.require(lo, "lo", torch.int32, (q, 3))
+    kernels.require(hi, "hi", torch.int32, (q, 3))
+    kernels.require(pos, "pos", torch.float32, (n, 3))
+    kernels.require(reach, "reach", torch.float32, (n,))
+    if not 0 < q <= n < (1 << _ID_BITS):
+        raise ValueError(f"need 0 < Q <= n < 2^{_ID_BITS}, got {q}, {n}")
+    devs = {t.device for t in (s_xz, s_w, lo, hi, pos, reach)}
+    if len(devs) != 1:
+        raise ValueError(f"inputs on several devices: {devs}")
+    dev = devs.pop()
+    if dev.type == "cpu":
+        return sweep_fused_plain(s_xz, s_w, lo, hi, pos, reach, k, cc,
+                                 code, with_stats, row_block)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if not (1 <= cc and 9 * cc <= 256):
+        raise ValueError(f"the fused kernel takes 9*cell_cap <= 256, "
+                         f"got cell_cap={cc}")
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    id_shift, qd_shift, qd_cap, qd_bias, scale, invalid = code
+    top = torch.empty((q, k), dtype=torch.int32, device=dev)
+    dem = torch.empty(q, dtype=torch.int32, device=dev) \
+        if with_stats else None
+    err = kernels.lib().gw_sweep_fused(
+        s_xz.data_ptr(), s_w.data_ptr(), s_len, lo.data_ptr(),
+        hi.data_ptr(), pos.data_ptr(), reach.data_ptr(), q, k, cc, n,
+        id_shift, qd_shift, qd_cap, qd_bias, float(scale), invalid,
+        top.data_ptr(), dem.data_ptr() if with_stats else None,
+        kernels.stream_handle(dev))
+    kernels.check(err, "sweep_fused_cuda")
+    kernels.LAUNCHES["sweep_fused"] += 1
+    return top, dem
+
+
+def _cell_occupancy_stats(srow, n_rows: int, cc: int):
+    """(cell_max, over_cap_cells) from the unclipped per-cell
+    occupancy."""
+    occ = torch.zeros(n_rows + 1, dtype=torch.int32, device=srow.device)
+    occ.index_add_(0, srow.long(), torch.ones_like(srow))
+    occ = occ[:n_rows]
+    return occ.max().to(torch.int32), (occ > cc).sum(dtype=torch.int32)
+
+
+class FrontHalf(NamedTuple):
+    """What the sweep's front half hands its back half."""
+
+    srow: torch.Tensor      # i32[N] padded cell row (n_rows = excluded)
+    n_rows: int
+    s_xz: torch.Tensor      # f32[2, N + 3cc] sorted x, z
+    s_w: torch.Tensor       # i32[N + 3cc] sorted packed slot words
+    lo: torch.Tensor        # i32[Q, 3] run starts
+    hi: torch.Tensor        # i32[Q, 3] run ends
+    reach: torch.Tensor     # f32[N] per-watcher reach
+    code: tuple             # key encoding (_key_code)
+    cell_stats: tuple | None  # (cell_max, over_cap_cells) under stats
+
+
+def front_half(spec: GridSpec, pos, alive, query_rows, watch_radius,
+               flag_bits, with_stats=False,
+               reach_pad: float = 0.0) -> FrontHalf:
+    """Cell rows, the cell sort and the sorted view with each query's
+    runs: everything the back half reads."""
+    check_ported(spec)
+    n = pos.shape[0]
+    if n >= (1 << _ID_BITS):
+        raise NotImplementedError(
+            f"the wide-id sweep (capacity >= 2^{_ID_BITS}) {ROADMAP_HINT}")
+    q = n if query_rows is None else query_rows
+    cc = spec.cell_cap
+    dev = pos.device
+    cx, cz, srow, alive, czp, n_rows = _cell_rows(
+        spec, pos, alive, watch_radius)
+    cell_stats = _cell_occupancy_stats(srow, n_rows, cc) \
+        if with_stats else None
+    order, _sorted_row = _sort_cells(n_rows, srow, spec.sort_impl)
+    px, pz, word, table_sentinel = _sorted_src(pos, flag_bits, order)
+    row_start, s_xz, s_w = _build_ranges(cc, n_rows, srow, px, pz, word,
+                                         table_sentinel)
+    lo, hi = _query_runs(cx[:q], cz[:q], alive[:q], row_start, czp)
+    if watch_radius is None:
+        reach = torch.full((n,), spec.radius + reach_pad,
+                           dtype=torch.float32, device=dev)
+    else:
+        reach = torch.clamp_max(watch_radius.to(torch.float32),
+                                _f32(spec.radius, dev)) \
+            + _f32(reach_pad, dev)
+    code = _key_code(spec, flag_bits is not None, spec.radius + reach_pad)
+    return FrontHalf(srow, n_rows, s_xz, s_w, lo, hi, reach, code,
+                     cell_stats)
+
+
+def _sweep(spec: GridSpec, pos, alive, query_rows, watch_radius,
+           flag_bits, with_stats=False, reach_pad: float = 0.0):
+    fh = front_half(spec, pos, alive, query_rows, watch_radius, flag_bits,
+                    with_stats, reach_pad)
+    k, cc = spec.k, spec.cell_cap
+    sentinel = pos.shape[0]
+    if spec.sweep_impl == "fused":
+        top, dem = sweep_fused_cuda(fh.s_xz, fh.s_w, fh.lo, fh.hi, pos,
+                                    fh.reach, k, cc, fh.code, with_stats,
+                                    spec.row_block)
+    else:
+        tops, dems = [], []
+        for rows in _blocks(fh.lo.shape[0], spec.row_block, pos.device):
+            keys, valid = _window_keys(fh.s_xz, fh.s_w, fh.lo[rows],
+                                       fh.hi[rows], pos, fh.reach, rows,
+                                       cc, sentinel, fh.code)
+            tops.append(_rank_packed(keys, k, spec.topk_impl))
+            dems.append(valid.sum(1, dtype=torch.int32))
+        top = torch.cat(tops)
+        dem = torch.cat(dems)
+    nbr, cnt, fl = _unpack_top(top, fh.code[-1], flag_bits is not None,
+                               sentinel)
+    stats = None
+    if with_stats:
+        stats = (dem.max().to(torch.int32),
+                 (dem > k).sum(dtype=torch.int32), *fh.cell_stats)
+    return nbr, cnt, fl, stats
+
+
+def grid_neighbors(spec: GridSpec, pos, alive, query_rows=None,
+                   watch_radius=None):
+    """AOI neighbor lists for every entity.
+
+    Args:
+      spec: grid configuration.
+      pos: f32[N, 3] positions; AOI uses x and z.
+      alive: bool[N] slot-occupied mask.
+      query_rows: if set, only rows [0, query_rows) get lists while all
+        N entities stay candidates.
+      watch_radius: optional f32[N] per-entity AOI distance; <= 0
+        excludes the entity from AOI entirely, otherwise it watches
+        within ``min(watch_radius, spec.radius)``.
+
+    Returns nbr int32[Q, k] (ascending, padded with sentinel N) and cnt
+    int32[Q].
+    """
+    nbr, cnt, _, _ = _sweep(spec, pos, alive, query_rows, watch_radius,
+                            None)
+    return nbr, cnt
+
+
+def grid_neighbors_flags(spec: GridSpec, pos, alive, query_rows=None,
+                         watch_radius=None, flag_bits=None,
+                         with_stats=False):
+    """:func:`grid_neighbors` plus each neighbor's 2 flag bits (int32[Q,
+    k], 0 on sentinel lanes); with ``with_stats`` also the 4 gauges
+    ``(demand_max, over_k_rows, cell_max, over_cap_cells)``."""
+    if flag_bits is None:
+        raise ValueError("grid_neighbors_flags requires flag_bits")
+    nbr, cnt, fl, stats = _sweep(spec, pos, alive, query_rows,
+                                 watch_radius, flag_bits, with_stats)
+    if with_stats:
+        return nbr, cnt, fl, stats
+    return nbr, cnt, fl
+
+
+def neighbors_oracle(pos, alive, radius, watch_radius=None):
+    """NumPy reference (unbounded, uncapped) for tests: a list of
+    neighbor-id sets, with the per-entity radius semantics of
+    :func:`grid_neighbors`."""
+    pos = np.asarray(pos)
+    alive = np.asarray(alive)
+    n = pos.shape[0]
+    if watch_radius is None:
+        participates = alive
+        reach = np.full(n, radius, np.float64)
+    else:
+        wr = np.asarray(watch_radius, np.float64)
+        participates = alive & (wr > 0)
+        reach = np.minimum(wr, radius)
+    out = []
+    for i in range(n):
+        if not participates[i]:
+            out.append(set())
+            continue
+        dx = np.abs(pos[:, 0] - pos[i, 0])
+        dz = np.abs(pos[:, 2] - pos[i, 2])
+        mask = (np.maximum(dx, dz) <= reach[i]) & participates
+        mask[i] = False
+        out.append(set(np.nonzero(mask)[0].tolist()))
+    return out

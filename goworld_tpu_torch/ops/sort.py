@@ -1,0 +1,119 @@
+"""Stable sort of entity slots by grid-cell row, the port of
+``goworld_tpu/ops/sort.py``.
+
+The AOI sweep's front half orders slots by cell row. Every path here is
+STABLE, so each gives exactly ``argsort(srow, stable=True)`` and
+``srow[order]``, including which entities a ``cell_cap`` overflow
+drops:
+
+* :func:`counting_sort_cells` is the plain version: the JAX package's
+  chunked counting sort (bin offsets from a histogram and cumsum, then
+  each element's rank among earlier equal keys, chunk by chunk).
+* :func:`counting_sort_cells_cuda` is the kernel's wrapper
+  (``csrc/counting_sort.cu``, an LSD radix sort of stable counting
+  passes). It takes the plain version for a CPU tensor only.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from goworld_tpu_torch import kernels
+
+DEFAULT_CHUNK = 2048
+
+
+def row_starts(srow: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """Exclusive-cumsum bin offsets: ``row_starts[r]`` is the first
+    sorted position of cell row ``r``; the dump bin ``n_rows`` (dead
+    entities) sorts last. int32[n_rows + 1]."""
+    counts = torch.zeros(n_rows + 1, dtype=torch.int32, device=srow.device)
+    counts.index_add_(0, srow.long(), torch.ones_like(srow))
+    return torch.cat([
+        counts.new_zeros(1),
+        torch.cumsum(counts[:-1], 0, dtype=torch.int32),
+    ])
+
+
+def _finish(srow: torch.Tensor, dst: torch.Tensor, n: int):
+    """Invert the destination map into (order, sorted_row). ``dst`` is a
+    permutation of [0, len(dst)); padded elements land at n and past."""
+    m = dst.shape[0]
+    order = torch.empty(m, dtype=torch.int32, device=srow.device)
+    order[dst.long()] = torch.arange(m, dtype=torch.int32,
+                                     device=srow.device)
+    order = order[:n]
+    return order, srow[order.long()]
+
+
+def counting_sort_cells(
+    srow: torch.Tensor, n_rows: int, chunk: int = DEFAULT_CHUNK
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stable counting sort of slot ids by cell row (plain torch ops).
+
+    Args:
+      srow: int32[n] cell-row keys in ``[0, n_rows]`` (``n_rows`` is the
+        dump bin for dead entities and sorts last).
+      n_rows: bin count.
+      chunk: elements per step of the rank pass; any value gives the
+        same result.
+
+    Returns (order, sorted_row): a stable argsort of ``srow`` and
+    ``srow[order]``, both int32[n].
+    """
+    n = srow.shape[0]
+    dev = srow.device
+    starts = row_starts(srow, n_rows)
+    c = max(1, min(chunk, n))
+    nb = -(-n // c)
+    pad = nb * c - n
+    keys_all = torch.cat([
+        srow, torch.full((pad,), n_rows, dtype=torch.int32, device=dev)])
+    tri = torch.tril(torch.ones(c, c, dtype=torch.bool, device=dev), -1)
+    fill = torch.zeros(n_rows + 1, dtype=torch.int32, device=dev)
+    dst = []
+    for b in range(nb):
+        keys = keys_all[b * c:(b + 1) * c]
+        kl = keys.long()
+        # within-chunk stable rank: earlier elements of the same key
+        r = ((keys[:, None] == keys[None, :]) & tri).sum(
+            dim=1, dtype=torch.int32)
+        dst.append(starts[kl] + fill[kl] + r)
+        fill.index_add_(0, kl, torch.ones_like(keys))
+    return _finish(srow, torch.cat(dst), n)
+
+
+def counting_sort_cells_cuda(
+    srow: torch.Tensor, n_rows: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`counting_sort_cells` as the CUDA kernel of
+    ``csrc/counting_sort.cu`` for a tensor on the card; the plain
+    version for a tensor on the CPU. Keys outside ``[0, n_rows]`` are
+    not checked on the card (that would stall the host) and sort
+    wrongly."""
+    if srow.dim() != 1:
+        raise ValueError(f"srow: expected 1-D, got {tuple(srow.shape)}")
+    kernels.require(srow, "srow", torch.int32)
+    if n_rows < 0 or n_rows >= 2**31 - 1:
+        raise ValueError(f"n_rows out of range: {n_rows}")
+    if srow.device.type == "cpu":
+        return counting_sort_cells(srow, n_rows)
+    if srow.device.type != "cuda":
+        raise ValueError(f"srow: unsupported device {srow.device}")
+    so = kernels.lib()
+    n = srow.shape[0]
+    bits = max(1, n_rows.bit_length())
+    dev = srow.device
+    tmp_k = torch.empty(2 * n, dtype=torch.int32, device=dev)
+    tmp_v = torch.empty(2 * n, dtype=torch.int32, device=dev)
+    hist = torch.empty(so.gw_counting_sort_hist_len(n, bits),
+                       dtype=torch.int32, device=dev)
+    order = torch.empty(n, dtype=torch.int32, device=dev)
+    sorted_row = torch.empty(n, dtype=torch.int32, device=dev)
+    err = so.gw_counting_sort(
+        srow.data_ptr(), n, bits, tmp_k.data_ptr(), tmp_v.data_ptr(),
+        hist.data_ptr(), order.data_ptr(), sorted_row.data_ptr(),
+        kernels.stream_handle(dev))
+    kernels.check(err, "counting_sort_cells_cuda")
+    kernels.LAUNCHES["counting_sort"] += 1
+    return order, sorted_row

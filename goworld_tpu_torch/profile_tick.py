@@ -1,0 +1,145 @@
+"""Where one tick's time goes on the card.
+
+    python -m goworld_tpu_torch.profile_tick [--n 1048576] [--ticks 20]
+                                             [--out chiprun_out]
+
+Runs the bench world of :mod:`goworld_tpu_torch.workload` through
+``make_tick`` and reports, as one JSON line on stdout:
+
+* ``stages``: mean ms per tick of each of the tick's six stages, and of
+  the sweep's parts (front half, fused kernel, unpack), from CUDA events
+  recorded around the stage functions (wrapped for this run only); the
+  events sit on the device timeline, so a stage's time includes any wait
+  for the host to launch its work;
+* ``kernels_top``: the device kernels with the most time over a short
+  profiled window (torch.profiler), and ``busy_ms`` / ``idle_share``:
+  the summed kernel time against the window's tick time.
+
+The full profiler table goes to ``<out>/profile_tick.txt``. Needs a CUDA
+card; there is no CPU mode.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+from goworld_tpu_torch.core import step
+from goworld_tpu_torch.core.step import make_tick
+from goworld_tpu_torch.ops import aoi
+from goworld_tpu_torch.workload import bench_world, slice_config
+
+STAGES = [
+    ("1 input scatter", step, "apply_pos_inputs"),
+    ("2 behavior", step, "compute_velocity"),
+    ("3 integrate", step, "integrate"),
+    ("4 aoi sweep", step, "grid_neighbors_flags"),
+    ("4a sweep front half", aoi, "front_half"),
+    ("4b fused sweep kernel", aoi, "sweep_fused_cuda"),
+    ("4c unpack top-k", aoi, "_unpack_top"),
+    ("5 interest deltas", step, "interest_pairs"),
+    ("6 sync records", step, "collect_sync"),
+    ("6 attr records", step, "collect_attr_deltas"),
+]
+
+
+def _timed(fn, name, marks):
+    def wrapper(*args, **kwargs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn(*args, **kwargs)
+        b.record()
+        marks.append((name, a, b))
+        return out
+    return wrapper
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--n", type=int, default=1 << 20)
+    ap.add_argument("--ticks", type=int, default=20)
+    ap.add_argument("--out", default="chiprun_out")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_tick needs a CUDA card", file=sys.stderr)
+        return 2
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True, timeout=60).stdout.strip().splitlines()[0]
+    cfg = slice_config(args.n)
+    st, inputs = bench_world(cfg, seed=0, device="cuda")
+    tick = make_tick(cfg)
+    for _ in range(3):
+        st, _out = tick(st, inputs)
+    torch.cuda.synchronize()
+
+    marks = []
+    saved = [(mod, attr, getattr(mod, attr)) for _, mod, attr in STAGES]
+    for name, mod, attr in STAGES:
+        setattr(mod, attr, _timed(getattr(mod, attr), name, marks))
+    tick_ms = []
+    try:
+        for _ in range(args.ticks):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            st, _out = tick(st, inputs)
+            b.record()
+            tick_ms.append((a, b))
+        torch.cuda.synchronize()
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+    stages = {}
+    for name, a, b in marks:
+        stages[name] = stages.get(name, 0.0) + a.elapsed_time(b)
+    stages = {k: v / args.ticks for k, v in stages.items()}
+    tick_mean = sum(a.elapsed_time(b) for a, b in tick_ms) / args.ticks
+    top_level = sum(v for k, v in stages.items() if k[1] == " ")
+    stages["other (rng split, flags, new state)"] = tick_mean - top_level
+
+    window = 5
+    act = [torch.profiler.ProfilerActivity.CPU,
+           torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=act) as prof:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(window):
+            st, _out = tick(st, inputs)
+        b.record()
+        torch.cuda.synchronize()
+    window_ms = a.elapsed_time(b)
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_time_total", 0) > 0
+              and e.device_type == torch.autograd.DeviceType.CUDA]
+    events.sort(key=lambda e: e.device_time_total, reverse=True)
+    busy_ms = sum(e.device_time_total for e in events) / 1e3
+    top = [{"kernel": e.key[:90], "calls_per_tick": e.count / window,
+            "ms_per_tick": e.device_time_total / 1e3 / window}
+           for e in events[:15]]
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "profile_tick.txt").write_text(
+        f"{card}\n" + prof.key_averages().table(
+            sort_by="device_time_total", row_limit=60))
+    print(json.dumps({
+        "gpu": card, "n": args.n, "ticks": args.ticks,
+        "tick_ms_mean": tick_mean, "stages_ms": stages,
+        "window_ticks": window, "window_ms": window_ms,
+        "busy_ms": busy_ms,
+        "idle_share": 1.0 - busy_ms / window_ms if window_ms else None,
+        "kernels_top": top,
+    }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,184 @@
+"""The port's AOI sweep against the JAX package's on the same numpy
+inputs: grid_neighbors_flags under fused+pallas (the CUDA kernels' plain
+versions on the CPU) against JAX's fused+pallas (Pallas in interpret
+mode) and ranges+argsort, bit for bit in nbr, cnt, flags and the four
+gauges; one check against the brute-force oracle; GridSpec knobs and
+properties mean the same on both sides."""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from goworld_tpu.ops import aoi as jaoi
+from goworld_tpu_torch.ops import aoi as taoi
+
+N = 600
+EXTENT = 300.0
+RADIUS = 25.0
+
+
+def _world(seed=0, clump=True):
+    rng = np.random.default_rng(seed)
+    pos = np.zeros((N, 3), np.float32)
+    # a dense clump beside a uniform spread: some cells overflow small
+    # caps, most do not
+    pos[:, 0] = rng.uniform(0, EXTENT, N)
+    pos[:, 2] = rng.uniform(0, EXTENT, N)
+    if clump:
+        pos[:80, 0] = rng.uniform(100, 120, 80)
+        pos[:80, 2] = rng.uniform(100, 120, 80)
+    pos[:, 1] = rng.uniform(-5, 5, N)
+    alive = rng.random(N) < 0.9
+    wr = np.full(N, np.inf, np.float32)
+    wr[rng.random(N) < 0.1] = 0.0          # out of AOI entirely
+    wr[rng.random(N) < 0.2] = 12.5         # finite watch radius
+    fb = rng.integers(0, 4, N).astype(np.int32)
+    return pos, alive, wr, fb
+
+
+POS, ALIVE, WR, FB = _world()
+
+# (k, cell_cap): roomy caps, then caps the clump overflows
+REGIMES = {"roomy": (32, 12), "overflow": (8, 2)}
+
+
+def _specs(regime, topk):
+    k, cc = REGIMES[regime]
+    kw = dict(radius=RADIUS, extent_x=EXTENT, extent_z=EXTENT, k=k,
+              cell_cap=cc, row_block=256, topk_impl=topk,
+              sweep_impl="fused", sort_impl="pallas")
+    return jaoi.GridSpec(**kw), taoi.GridSpec(**kw)
+
+
+def _port(spec, watch=True):
+    out = taoi.grid_neighbors_flags(
+        spec, torch.tensor(POS), torch.tensor(ALIVE),
+        watch_radius=torch.tensor(WR) if watch else None,
+        flag_bits=torch.tensor(FB), with_stats=True)
+    return [o.numpy() for o in out[:3]] + [[int(s) for s in out[3]]]
+
+
+def _jax(spec, watch=True):
+    out = jaoi.grid_neighbors_flags(
+        spec, jnp.asarray(POS), jnp.asarray(ALIVE),
+        watch_radius=jnp.asarray(WR) if watch else None,
+        flag_bits=jnp.asarray(FB), with_stats=True)
+    return [np.asarray(o) for o in out[:3]] + [[int(s) for s in out[3]]]
+
+
+def _assert_same(got, ref):
+    for g, r in zip(got[:3], ref[:3]):
+        assert g.dtype == r.dtype and g.shape == r.shape
+        assert np.array_equal(g, r)
+    assert got[3] == ref[3]
+
+
+@pytest.mark.parametrize("topk", ["sort", "exact", "f32"])
+@pytest.mark.parametrize("regime", sorted(REGIMES))
+def test_fused_pallas_matches_jax_fused_and_ranges(regime, topk):
+    jspec, tspec = _specs(regime, topk)
+    got = _port(tspec)
+    _assert_same(got, _jax(jspec))
+    _assert_same(got, _jax(dataclasses.replace(
+        jspec, sweep_impl="ranges", sort_impl="argsort")))
+    if regime == "overflow":
+        assert got[3][1] > 0 and got[3][3] > 0  # both caps overflowed
+
+
+@pytest.mark.parametrize("sort_impl", ["argsort", "counting"])
+def test_port_ranges_matches_jax_ranges(sort_impl):
+    jspec, tspec = _specs("overflow", "sort")
+    jspec = dataclasses.replace(jspec, sweep_impl="ranges",
+                                sort_impl=sort_impl)
+    tspec = dataclasses.replace(tspec, sweep_impl="ranges",
+                                sort_impl=sort_impl)
+    _assert_same(_port(tspec, watch=False), _jax(jspec, watch=False))
+
+
+def test_fused_below_caps_matches_oracle():
+    pos, alive, wr, fb = _world(1, clump=False)
+    _, tspec = _specs("roomy", "sort")
+    nbr, cnt, _, stats = taoi.grid_neighbors_flags(
+        tspec, torch.tensor(pos), torch.tensor(alive),
+        watch_radius=torch.tensor(wr), flag_bits=torch.tensor(fb),
+        with_stats=True)
+    assert int(stats[1]) == 0 and int(stats[3]) == 0
+    oracle = taoi.neighbors_oracle(pos, alive, RADIUS, wr)
+    assert oracle == jaoi.neighbors_oracle(pos, alive, RADIUS, wr)
+    nbr, cnt = nbr.numpy(), cnt.numpy()
+    assert sum(len(s) for s in oracle) > N
+    assert [set(r[r < N].tolist()) for r in nbr] == oracle
+    assert cnt.tolist() == [len(s) for s in oracle]
+
+
+def test_grid_neighbors_without_flags_matches_jax():
+    kw = dict(radius=RADIUS, extent_x=EXTENT, extent_z=EXTENT, k=16,
+              cell_cap=8, row_block=128, sweep_impl="fused",
+              sort_impl="pallas")
+    ref = jaoi.grid_neighbors(jaoi.GridSpec(**kw), jnp.asarray(POS),
+                              jnp.asarray(ALIVE), 500, jnp.asarray(WR))
+    got = taoi.grid_neighbors(taoi.GridSpec(**kw), torch.tensor(POS),
+                              torch.tensor(ALIVE), 500, torch.tensor(WR))
+    for g, r in zip(got, ref):
+        assert np.array_equal(g.numpy(), np.asarray(r))
+
+
+SPECS = [
+    dict(radius=50.0, extent_x=29560.0, extent_z=29560.0, k=32,
+         cell_cap=12),
+    dict(radius=7.0, origin_x=-3.0, extent_x=100.0, extent_z=33.0),
+    dict(radius=25.0, skin=4.0, extent_x=300.0, extent_z=300.0),
+    dict(radius=50.0, precision="q16", extent_x=4096.0, extent_z=2000.0),
+]
+PROPS = ["cell_size", "cells_x", "cells_z", "quant_step",
+         "quant_cell_shift", "quant_bits", "verlet_cap_eff"]
+
+
+@pytest.mark.parametrize("kw", SPECS)
+def test_gridspec_properties_match(kw):
+    j, t = jaoi.GridSpec(**kw), taoi.GridSpec(**kw)
+    assert [getattr(t, p) for p in PROPS] == [getattr(j, p) for p in PROPS]
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(topk_impl="nope"), dict(sweep_impl="nope"),
+    dict(sort_impl="nope"), dict(skin=-1.0), dict(verlet_cap=3),
+    dict(rebuild_every_max=-1), dict(precision="q8"),
+    dict(precision="q16", origin_x=1.0),
+    dict(precision="q16", extent_x=1e7),
+    dict(skin=1.0, cell_cap=1),
+])
+def test_gridspec_validation_matches(kw):
+    full = dict(radius=25.0, k=16, cell_cap=4, extent_x=300.0,
+                extent_z=300.0)
+    full.update(kw)
+    with pytest.raises(ValueError) as jerr:
+        jaoi.GridSpec(**full)
+    with pytest.raises(ValueError) as terr:
+        taoi.GridSpec(**full)
+    assert str(terr.value) == str(jerr.value)
+
+
+@pytest.mark.parametrize("bad", ["s_w_float", "lo_int64", "pos_strided",
+                                 "lo_shape"])
+def test_sweep_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    _, spec = _specs("roomy", "sort")
+    pos, alive = torch.tensor(POS), torch.tensor(ALIVE)
+    fh = taoi.front_half(spec, pos, alive, None, None, torch.tensor(FB))
+    args = dict(s_xz=fh.s_xz, s_w=fh.s_w, lo=fh.lo, hi=fh.hi, pos=pos,
+                reach=fh.reach)
+    if bad == "s_w_float":
+        args["s_w"] = fh.s_w.view(torch.float32)
+    elif bad == "lo_int64":
+        args["lo"] = fh.lo.long()
+    elif bad == "pos_strided":
+        args["pos"] = torch.cat([pos, pos], 1)[:, ::2]
+    else:
+        args["lo"] = fh.lo[:, :2].contiguous()
+    with pytest.raises((TypeError, ValueError)):
+        taoi.sweep_fused_cuda(k=spec.k, cc=spec.cell_cap, code=fh.code,
+                              with_stats=False, **args)

@@ -1,0 +1,128 @@
+"""The port package stands alone: it imports neither JAX nor the JAX
+package, its entry points run on the card unless asked for the CPU, and
+configs it does not run yet are refused rather than substituted."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from goworld_tpu_torch.core import state as tstate
+from goworld_tpu_torch.core.step import TickInputs, make_tick
+from goworld_tpu_torch.ops.aoi import GridSpec
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "goworld_tpu_torch"
+MODULES = sorted(
+    ".".join(p.relative_to(ROOT).with_suffix("").parts)
+    for p in PKG.rglob("*.py")
+)
+FORBIDDEN = ("jax", "jaxlib", "flax", "goworld_tpu")
+
+
+def test_importing_every_module_leaves_jax_out():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
+        "                                    'goworld_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+@pytest.mark.parametrize(
+    "path",
+    [str(p.relative_to(ROOT)) for p in sorted(PKG.rglob("*.py"))]
+    + ["chip_smoke.py"],
+)
+def test_source_imports_nothing_of_jax(path):
+    tree = ast.parse((ROOT / path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, (path, name)
+
+
+CFG = tstate.WorldConfig(capacity=64, grid=GridSpec(radius=10.0, k=8,
+                                                    cell_cap=4))
+
+
+@pytest.mark.parametrize("entry", ["create_state", "make_tick",
+                                   "inputs_empty"])
+def test_entry_points_default_to_cuda_and_never_fall_back(entry,
+                                                          monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    call = {
+        "create_state": lambda **kw: tstate.create_state(CFG, **kw),
+        "make_tick": lambda **kw: make_tick(CFG, **kw),
+        "inputs_empty": lambda **kw: TickInputs.empty(CFG, **kw),
+    }[entry]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()
+    call(device="cpu")  # the CPU only when asked for
+
+
+@pytest.mark.parametrize("change", [
+    dict(grid=GridSpec(radius=10.0, skin=2.0)),
+    dict(grid=GridSpec(radius=10.0, precision="q16")),
+    dict(grid=GridSpec(radius=10.0, sweep_impl="table")),
+    dict(grid=GridSpec(radius=10.0, sweep_impl="cellrow")),
+    dict(grid=GridSpec(radius=10.0, sweep_impl="shift")),
+    dict(grid=GridSpec(radius=10.0, topk_impl="approx")),
+    dict(behavior="mlp"),
+    dict(behavior="btree"),
+    dict(scenario=object()),
+], ids=["skin", "q16", "table", "cellrow", "shift", "approx", "mlp",
+        "btree", "scenario"])
+def test_unported_configs_raise_not_implemented(change):
+    cfg = tstate.WorldConfig(capacity=64, **change)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_tick(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tstate.create_state(cfg, device="cpu")
+
+
+def test_stacked_spaces_raise_not_implemented():
+    st = tstate.create_state(CFG, device="cpu")
+    stacked = st.replace(pos=st.pos[None].repeat(2, 1, 1))
+    with pytest.raises(NotImplementedError, match="n_spaces"):
+        make_tick(CFG, device="cpu")(stacked,
+                                     TickInputs.empty(CFG, device="cpu"))
+
+
+# modules the tick runs; none may make the host wait on the card
+TICK_MODULES = ["core/step.py", "models/random_walk.py", "ops/aoi.py",
+                "ops/delta.py", "ops/extract.py", "ops/integrate.py",
+                "ops/prng.py", "ops/sort.py", "ops/sync.py"]
+# host-side helpers outside the tick
+EXEMPT = {"neighbors_oracle", "prng_key"}
+SYNCING = {"item", "cpu", "numpy", "tolist", "nonzero", "tensor"}
+
+
+@pytest.mark.parametrize("path", TICK_MODULES)
+def test_tick_modules_never_wait_on_the_card(path):
+    tree = ast.parse((PKG / path).read_text())
+    for fn in ast.walk(tree):
+        if not isinstance(fn, ast.FunctionDef) or fn.name in EXEMPT:
+            continue
+        for node in ast.walk(fn):
+            if isinstance(node, ast.Call) and isinstance(
+                    node.func, ast.Attribute):
+                assert node.func.attr not in SYNCING, (
+                    path, fn.name, node.func.attr, node.lineno)
