@@ -13,13 +13,30 @@ is caught:
    then ``grid_neighbors_flags`` under fused+pallas against
    ranges+argsort on the card for the sort, exact and f32 rankings, and
    at a small size against the brute-force oracle;
-5. the main path: the 2^20-entity bench world through ``create_state``
-   and ``make_tick`` for TICKS ticks with the 4096-record input stream,
-   checking the launch counts, events, records, and one tick against
-   the same tick run on the kernels' plain versions;
-6. a ``kernels`` JSON line: per kernel its launches on the main path,
-   time, plain time, library time and bound;
-7. the result line ``{"ok": true, "device": {...}}``.
+5. the single-Space path: the 2^20-entity bench world through
+   ``create_state`` and ``make_tick`` for TICKS ticks with the
+   4096-record input stream, checking the launch counts, events,
+   records, and one tick against the same tick run on the kernels'
+   plain versions;
+6. the sweep and sort kernels timed at that path's shapes;
+7. the halo ship kernel against its plain version at halo_cap 4096 for
+   every shift and ``recv_ok`` pattern the 1D (8 tiles) and 2D (2x2)
+   exchanges pass, then ``exchange_halo_2d`` under "async" against
+   "ppermute" on the megaspace world;
+8. the megaspace path: the 2^20-entity 2x2 megaspace through
+   ``create_mega_state`` and ``make_mega_tick`` for MEGA_TICKS ticks,
+   checking launch counts, events, records, ghosts, migrations and
+   conservation, one tick against the same tick on the plain versions
+   (ppermute ship, ranges sweep, counting sort), and one tick under the
+   sync guard;
+9. the fused sweep at the megaspace shape (queries Q < n rows: local
+   rows over local + ghost rows) against its plain version, and the
+   ship kernel's times;
+10. a small 2x2 megaspace against a brute-force interest oracle, across
+    every kind of tile border (x, z, corner);
+11. a ``kernels`` JSON line: per kernel its launches on its path, time,
+    plain time, library time and bound;
+12. the result line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -36,17 +53,31 @@ import numpy as np
 import torch
 
 from goworld_tpu_torch import kernels
+from goworld_tpu_torch.core.state import WorldConfig
 from goworld_tpu_torch.core.step import make_tick
 from goworld_tpu_torch.ops import aoi
-from goworld_tpu_torch.ops.aoi import grid_neighbors_flags
+from goworld_tpu_torch.ops.aoi import GridSpec, grid_neighbors_flags
 from goworld_tpu_torch.ops.sort import (
     counting_sort_cells,
     counting_sort_cells_cuda,
 )
-from goworld_tpu_torch.workload import bench_world, slice_config
+from goworld_tpu_torch.parallel import halo
+from goworld_tpu_torch.parallel.megaspace import (
+    MegaConfig,
+    tile_shifts,
+    make_mega_tick,
+)
+from goworld_tpu_torch.workload import (
+    bench_world,
+    mega_config,
+    mega_world,
+    slice_config,
+)
 
 N = 1 << 20
 TICKS = 24
+MEGA_DEV = 4          # 2x2 tiles, as bench.py's multichip world on 4 chips
+MEGA_TICKS = 16
 SEED = 0
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and the
 # float32 CUDA-core rate, used for the kernels' 32-bit integer work too
@@ -77,12 +108,351 @@ def same(a, b) -> bool:
         torch.equal(a, b))
 
 
+def bound(nbytes, nops):
+    """(least ms, what bounds it) against the card's peaks."""
+    tb, to = nbytes / PEAK_BYTES_S * 1e3, nops / PEAK_OPS_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
 def gpu_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+def same_bits(a, b) -> bool:
+    """Bit-for-bit equality (float lanes compared as their bits)."""
+    if a is None or b is None:
+        return a is None and b is None
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return bool(torch.equal(a, b))
+
+
+def lanes(obj) -> dict:
+    """The tensor lanes of a state or outputs dataclass, nested ``base``
+    flattened."""
+    out = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if dataclasses.is_dataclass(v):
+            out.update({f"{f.name}.{k}": x for k, x in lanes(v).items()})
+        else:
+            out[f.name] = v
+    return out
+
+
+def ring_cases():
+    """(n_dev, shift, recv_ok) of every ship ``exchange_halo`` (8 tiles)
+    and ``exchange_halo_2d`` (2x2) make, plus all-on and all-off."""
+    tz = 2
+    ix = [t // tz for t in range(4)]
+    iz = [t % tz for t in range(4)]
+    return [
+        (4, -tz, [i < 1 for i in ix]), (4, tz, [i > 0 for i in ix]),
+        (4, -1, [i < tz - 1 for i in iz]), (4, 1, [i > 0 for i in iz]),
+        (8, -1, [t < 7 for t in range(8)]), (8, 1, [t > 0 for t in range(8)]),
+        (4, 3, [True] * 4), (4, 1, [False] * 4),
+    ]
+
+
+def halo_parity(dev, mc: MegaConfig) -> None:
+    """[7] the ship kernel against its plain version, then the 2D
+    exchange under both impls at the megaspace shape."""
+    rng = np.random.default_rng(SEED + 21)
+    n_cases = 0
+    h = mc.halo_cap
+    for n_dev, shift, ok in ring_cases():
+        bufs = torch.tensor(
+            rng.integers(-2**31, 2**31, (n_dev, h, 5)).astype(np.int32),
+            device=dev)
+        got = halo.ship_ring_cuda(bufs, shift, ok)
+        want = halo.ship_ring_plain(bufs, shift, ok)
+        torch.cuda.synchronize()
+        if not same(got, want):
+            fail(f"ship kernel != plain (n_dev={n_dev}, h={h}, "
+                 f"shift={shift}, recv_ok={ok})")
+        n_cases += 1
+    st, _ = mega_world(mc, N, SEED, dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    dirty = (torch.rand(st.alive.shape, generator=gen, device=dev) < 0.5) \
+        & st.alive
+    yaw = torch.rand(st.yaw.shape, generator=gen, device=dev) * 6.0 - 3.0
+    visible = st.alive & (st.aoi_radius > 0.0)
+    outs = {impl: halo.exchange_halo_2d(
+        mc.shape, mc.cfg.capacity, st.pos, yaw, dirty, visible, mc.tile_w,
+        mc.tile_d, mc.cfg.grid.radius, mc.halo_cap, impl=impl)
+        for impl in halo.HALO_IMPLS}
+    names = ("gpos", "gyaw", "gdirty", "gvalid", "ggid", "strip_demand")
+    for name, a, b in zip(names, outs["async"], outs["ppermute"]):
+        if not same_bits(a, b):
+            fail(f"exchange_halo_2d {name}: async != ppermute")
+    per_tile = outs["async"][3].sum(1).tolist()
+    if min(per_tile) == 0:
+        fail(f"a tile received no ghosts: {per_tile}")
+    print(f"[7] halo: ship kernel == plain bit for bit in {n_cases} cases "
+          f"(2x2 shifts +-2 +-1, 8 tiles +-1, all/none; h={h}); "
+          f"exchange_halo_2d async == ppermute on "
+          f"every output at the megaspace shape, ghosts per tile "
+          f"{per_tile}, strip_demand {outs['async'][5].tolist()}",
+          flush=True)
+
+
+def mega_path(dev, mc: MegaConfig, tag: str) -> dict:
+    """[8] the megaspace path, [9] the sweep at Q < n and the ship's
+    times; returns the ship kernel's row of the kernels line."""
+    n = mc.cfg.capacity
+    g = mc.cfg.grid
+    n_dev = mc.n_dev
+    st0, inputs = mega_world(mc, N, SEED, dev)
+    tick = make_mega_tick(mc, device=dev)
+    # one untimed tick in which any op that makes the host wait on the
+    # card raises
+    torch.cuda.set_sync_debug_mode("error")
+    tick(st0, inputs)
+    torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(MEGA_TICKS)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(MEGA_TICKS)]
+    gauges, first, snapshot = [], None, None
+    st = st0
+    kernels.reset_launches()
+    wall0 = time.perf_counter()
+    for t in range(MEGA_TICKS):
+        if t == MEGA_TICKS // 2:
+            snapshot = st
+        starts[t].record()
+        st, out = tick(st, inputs)
+        ends[t].record()
+        if t == 0:
+            first = out
+        b = out.base
+        gauges.append(torch.stack([
+            b.enter_n.sum(), b.sync_n.min(), b.sync_n.sum(),
+            out.arr_n.sum(), out.migrate_dropped.sum(),
+            out.halo_demand.max(), out.global_alive.min(),
+            out.global_alive.max(), out.migrate_demand.max(),
+            b.leave_n.sum(), b.aoi_over_k_rows.sum(),
+            b.aoi_over_cap_cells.sum()]).to(torch.int64))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - wall0
+    launches = dict(kernels.LAUNCHES)
+    want = {k: n_dev * MEGA_TICKS for k in launches}
+    if launches != want:
+        fail(f"megaspace launches {launches} in {MEGA_TICKS} ticks, want "
+             f"{n_dev} of each a tick")
+    gv = torch.stack(gauges).cpu().numpy()
+    (enter, sync_min, sync_sum, arr, dropped, hdem, ga_min, ga_max,
+     mdem, leave, over_k, over_cap) = gv.T
+    if enter[0] <= 0:
+        fail("no enter events on tick 1")
+    if (sync_min <= 0).any():
+        fail("a tile produced no sync records in some tick")
+    if (dropped != 0).any():
+        fail(f"migrate_dropped {dropped.tolist()}")
+    if (hdem > mc.halo_cap).any():
+        fail(f"halo_demand {hdem.tolist()} over halo_cap {mc.halo_cap}")
+    if (ga_min != N).any() or (ga_max != N).any():
+        fail(f"global_alive left {N}: {ga_min.tolist()} {ga_max.tolist()}")
+    ej, en = first.base.enter_j, first.base.enter_n
+    live = torch.arange(ej.shape[1], device=dev)[None, :] < en[:, None]
+    d_idx = torch.arange(n_dev, device=dev)[:, None]
+    cross = int((live & (ej >= 0) & (ej // n != d_idx)).sum())
+    if cross <= 0:
+        fail("no ghost entered any tile's AOI on tick 1")
+    for lane in (st.pos, st.vel):
+        if not torch.isfinite(lane).all():
+            fail("non-finite positions or velocities")
+    arrived = int(arr.sum())
+    migr = (f"arrivals {arrived} over the run" if arrived > 0 else
+            f"no arrival over the run (migrate_demand max "
+            f"{int(mdem.max())}, halo_demand max {int(hdem.max())})")
+    ms = np.array([a.elapsed_time(b) for a, b in zip(starts, ends)])
+    steady = ms[1:]
+    p50 = float(np.percentile(steady, 50))
+    p99 = float(np.percentile(steady, 99))
+
+    # one tick again on the plain versions, same input state
+    st_k, out_k = tick(snapshot, inputs)
+    plain = dataclasses.replace(mc, halo_impl="ppermute", cfg=dataclasses
+                                .replace(mc.cfg, grid=dataclasses.replace(
+                                    g, sweep_impl="ranges",
+                                    sort_impl="counting")))
+    st_p, out_p = make_mega_tick(plain, device=dev)(snapshot, inputs)
+    for what, a, b in (("state", st_k, st_p), ("output", out_k, out_p)):
+        la, lb = lanes(a), lanes(b)
+        for name in la:
+            if not same_bits(la[name], lb[name]):
+                fail(f"megaspace {what} lane {name}: kernels != plain "
+                     f"versions")
+    print(f"[8] megaspace path: {MEGA_TICKS} ticks of {N} entities on "
+          f"{mc.shape[0]}x{mc.shape[1]} tiles (capacity {n} a tile, "
+          f"halo_cap {mc.halo_cap}), launches {launches} "
+          f"({ {k: v / MEGA_TICKS for k, v in launches.items()} } a tick); "
+          f"tick 1 enter_n={int(enter[0])} (cross-tile {cross}) "
+          f"sync_n={int(sync_sum[0])}; last tick sync_n={int(sync_sum[-1])}"
+          f" leave_n={int(leave[-1])}; {migr}; halo_demand max "
+          f"{int(hdem.max())}; migrate_dropped 0; global_alive {N} every "
+          f"tick; AOI over_k_rows max {int(over_k.max())} over_cap_cells "
+          f"max {int(over_cap.max())}; tick {MEGA_TICKS // 2 + 1} "
+          f"bit-identical on ppermute+ranges+counting; one tick under the "
+          f"sync guard; ms/tick p50={p50:.3f} p99={p99:.3f} (ticks "
+          f"2-{MEGA_TICKS}, CUDA events) wall "
+          f"{wall * 1e3 / MEGA_TICKS:.3f} ms/tick; "
+          f"{N / (p50 / 1e3):.4g} entity-ticks/s {tag}", flush=True)
+
+    # [9] the fused sweep at the megaspace shape: tile 0's local rows
+    # query local + ghost rows
+    gen = torch.Generator(device=dev).manual_seed(9)
+    dirty = (torch.rand(st.alive.shape, generator=gen, device=dev) < 0.5) \
+        & st.alive
+    visible = st.alive & (st.aoi_radius > 0.0)
+    gpos, gyaw, gdirty, gvalid, ggid, _ = halo.exchange_halo_2d(
+        mc.shape, n, st.pos, st.yaw, dirty, visible, mc.tile_w, mc.tile_d,
+        g.radius, mc.halo_cap, impl="async")
+    shifts = tile_shifts(mc, dev)
+    pos_ext = torch.cat([st.pos[0], gpos[0]]) - shifts[0]
+    ghosts = gpos.shape[1]
+    flags = torch.cat([dirty[0], gdirty[0]]).to(torch.int32) | (torch.cat([
+        st.has_client[0], torch.zeros(ghosts, dtype=torch.bool, device=dev)
+    ]).to(torch.int32) << 1)
+    wr = torch.cat([st.aoi_radius[0], torch.full(
+        (ghosts,), float("inf"), device=dev)])
+    fh = aoi.front_half(g, pos_ext, torch.cat([st.alive[0], gvalid[0]]), n,
+                        wr, flags, with_stats=True)
+    args = (fh.s_xz, fh.s_w, fh.lo, fh.hi, pos_ext, fh.reach, g.k,
+            g.cell_cap, fh.code, True)
+    top_k, dem_k = aoi.sweep_fused_cuda(*args)
+    top_p, dem_p = aoi.sweep_fused_plain(*args, row_block=g.row_block)
+    torch.cuda.synchronize()
+    if not (fh.lo.shape[0] == n < pos_ext.shape[0]):
+        fail("the megaspace sweep check did not run Q < n")
+    if not (same(top_k, top_p) and same(dem_k, dem_p)):
+        bad = int((top_k != top_p).any(1).sum())
+        fail(f"fused sweep at Q={n} < n={pos_ext.shape[0]} differs from "
+             f"its plain version in {bad} rows")
+
+    # the ship kernel's times: tile strips of the megaspace shape, the
+    # phase-1 eastward ship
+    h = mc.halo_cap
+    bufs = halo._pack_strip(gpos[:, :h], gyaw[:, :h], gdirty[:, :h],
+                            gvalid[:, :h], ggid[:, :h])
+    tz = mc.shape[1]
+    ok = [t // tz > 0 for t in range(n_dev)]
+    k_out = halo.ship_ring_cuda(bufs, tz, ok)
+    p_out = halo.ship_ring_plain(bufs, tz, ok)
+    err = int((k_out.long() - p_out.long()).abs().max())
+    ship_ms = time_ms(lambda: halo.ship_ring_cuda(bufs, tz, ok), 200)
+    ship_plain = time_ms(lambda: halo.ship_ring_plain(bufs, tz, ok), 50)
+    ship_lib = time_ms(lambda: torch.roll(bufs, tz, 0), 200)
+    if err != 0:
+        fail("ship kernel differs from its plain version at timing inputs")
+    # the kernel's own device time (the event-timed loop above is set by
+    # the host's launch rate)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(50):
+            halo.ship_ring_cuda(bufs, tz, ok)
+        torch.cuda.synchronize()
+    ship_dev_us = sum(e.device_time_total for e in prof.key_averages()
+                      if "halo_ship" in e.key) / 50
+    # the strips of receiving tiles are read, every tile's block is
+    # written (zeros where recv_ok is false); one select a word
+    strip_bytes = bufs[0].numel() * bufs.element_size()
+    nbytes = (sum(ok) + n_dev) * strip_bytes
+    bms, by = bound(nbytes, bufs.numel())
+    print(f"[9] fused sweep == plain at the megaspace shape (Q={n} local "
+          f"queries over n={pos_ext.shape[0]} local + ghost rows, tile 0); "
+          f"ship kernel {ship_ms:.5f} ms a call (device time "
+          f"{ship_dev_us:.2f} us a launch, torch.profiler), plain "
+          f"{ship_plain:.5f} ms, "
+          f"torch.roll {ship_lib:.5f} ms, bound {bms:.6f} ms ({by}) at "
+          f"i32{list(bufs.shape)} {tag}", flush=True)
+    return {
+        "name": "ship_ring_cuda", "route": "cuda",
+        "source": "goworld_tpu_torch/csrc/halo_ship.cu",
+        "replaces": "goworld_tpu/parallel/halo.py:91",
+        "launches": launches["halo_ship"], "max_abs_err": err,
+        "ms": ship_ms, "plain_ms": ship_plain, "bound_ms": bms,
+        "bound_by": by, "library_ms": ship_lib,
+    }
+
+
+def small_oracle(dev) -> None:
+    """[10] 2x2 tiles of 4096 entities, below every cap: after each of 3
+    ticks every tile's interest lists equal a brute-force search over
+    all tiles, in the watcher tile's shifted float32 frame as the sweep
+    computes it. A few entities sit around the corner point so that
+    pairs cross every kind of border."""
+    r, tw, per = 50.0, 1200.0, 4096
+    cap = per + 512
+    grid = GridSpec(radius=r, extent_x=tw + 2 * r, extent_z=tw + 2 * r,
+                    k=64, cell_cap=28, row_block=cap, sweep_impl="fused",
+                    sort_impl="pallas", topk_impl="sort", skin=0.0)
+    cfg = WorldConfig(capacity=cap, grid=grid, npc_speed=5.0,
+                      enter_cap=65536, leave_cap=65536, sync_cap=65536,
+                      attr_sync_cap=4096, input_cap=4096,
+                      delta_rows_cap=65536)
+    mc = MegaConfig(cfg=cfg, n_dev=4, tile_w=tw, halo_cap=512,
+                    migrate_cap=256, mesh_shape=(2, 2), tile_d=tw,
+                    halo_impl="async")
+    st, inputs = mega_world(mc, 4 * per, SEED + 3, dev)
+    rng = np.random.default_rng(SEED + 4)
+    pos = st.pos.cpu().numpy()
+    for d in range(4):
+        sx, sz = (1 if d // 2 else -1), (1 if d % 2 else -1)
+        pos[d, 300:308, 0] = tw + sx * rng.uniform(1, 20, 8)
+        pos[d, 300:308, 2] = tw + sz * rng.uniform(1, 20, 8)
+    st = st.replace(pos=torch.tensor(pos, device=dev))
+    tick = make_mega_tick(mc, device=dev)
+    shifts = tile_shifts(mc, dev).cpu().numpy()
+    kinds = {"x": 0, "z": 0, "corner": 0}
+    rows = 0
+    for _ in range(3):
+        st, out = tick(st, inputs)
+        b = out.base
+        if int(b.aoi_over_k_rows.sum()) or int(b.aoi_over_cap_cells.sum()) \
+                or int(out.halo_demand.max()) > mc.halo_cap \
+                or int(out.migrate_dropped.sum()) \
+                or int(out.migrate_demand.max()) > mc.migrate_cap:
+            fail("small oracle megaspace hit a cap")
+        pos = st.pos.cpu().numpy()
+        alive = st.alive.cpu().numpy()
+        nbr = st.nbr.cpu().numpy()
+        cnt = st.nbr_cnt.cpu().numpy()
+        gid = np.arange(4)[:, None] * cap + np.arange(cap)[None, :]
+        all_pos, all_gid = pos[alive], gid[alive]
+        for d in range(4):
+            other = all_pos - shifts[d]
+            mine = pos[d] - shifts[d]
+            for i in range(cap):
+                got = nbr[d, i, :cnt[d, i]]
+                if not alive[d, i]:
+                    if cnt[d, i] or (nbr[d, i] != mc.gid_sentinel).any():
+                        fail(f"dead slot {d}:{i} has neighbors")
+                    continue
+                near = np.maximum(np.abs(other[:, 0] - mine[i, 0]),
+                                  np.abs(other[:, 2] - mine[i, 2])) \
+                    <= np.float32(r)
+                want = np.sort(all_gid[near & (all_gid != d * cap + i)])
+                if not np.array_equal(got, want):
+                    fail(f"tile {d} slot {i}: {len(got)} neighbors, oracle "
+                         f"{len(want)}")
+                rows += 1
+                e = want // cap
+                ex, ez = e // 2 != d // 2, e % 2 != d % 2
+                kinds["x"] += int((ex & ~ez).sum())
+                kinds["z"] += int((~ex & ez).sum())
+                kinds["corner"] += int((ex & ez).sum())
+    if min(kinds.values()) == 0:
+        fail(f"the oracle world lacks a kind of border pair: {kinds}")
+    print(f"[10] small megaspace oracle: 2x2 tiles of {per}, 3 ticks, "
+          f"{rows} interest lists equal the brute force; cross-tile pairs "
+          f"{kinds}", flush=True)
 
 
 def main() -> int:
@@ -205,9 +575,9 @@ def main() -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - wall0
     launches = dict(kernels.LAUNCHES)
-    for name, count in launches.items():
-        if count != TICKS:
-            fail(f"{name} launched {count} times in {TICKS} ticks")
+    if launches != {"sweep_fused": TICKS, "counting_sort": TICKS,
+                    "halo_ship": 0}:
+        fail(f"single-Space path launches {launches} in {TICKS} ticks")
     gv = torch.stack(gauges).cpu().numpy()
     if gv[0, 0] <= 0:
         fail("no enter events on tick 1")
@@ -233,7 +603,7 @@ def main() -> int:
     for f in dataclasses.fields(out_k):
         if not same(getattr(out_k, f.name), getattr(out_p, f.name)):
             fail(f"output lane {f.name}: kernels != plain versions")
-    print(f"[5] main path: {TICKS} ticks of {N} entities, launches "
+    print(f"[5] single-Space path: {TICKS} ticks of {N} entities, launches "
           f"{launches}; tick 1 enter_n={int(gv[0, 0])} "
           f"leave_n={int(gv[0, 1])} sync_n={int(gv[0, 2])}; last tick "
           f"sync_n={int(gv[-1, 2])} delta_rows_n={int(gv[-1, 4])}; "
@@ -280,10 +650,6 @@ def main() -> int:
     sort_bytes = 12 * N
     sort_ops = passes * 12 * N  # digit extract, histogram, rank, scatter
 
-    def bound(nbytes, nops):
-        tb, to = nbytes / PEAK_BYTES_S * 1e3, nops / PEAK_OPS_S * 1e3
-        return (tb, "bytes") if tb >= to else (to, "operations")
-
     rows = []
     for name, src, rep, err, kms, pms, lms, nb, no in (
             ("sweep_fused_cuda", "goworld_tpu_torch/csrc/aoi_fused.cu",
@@ -303,11 +669,17 @@ def main() -> int:
         })
         if err != 0:
             fail(f"{name} differs from its plain version at timing inputs")
-    print(f"[6] kernel times on the next line, launches per tick: "
-          f"{ {k: v / TICKS for k, v in launches.items()} } {tag}",
-          flush=True)
-    print(json.dumps({"kernels": rows}), flush=True)
+    print(f"[6] sweep and sort timed at the single-Space shapes, launches "
+          f"per tick: { {k: v / TICKS for k, v in launches.items()} } "
+          f"{tag}", flush=True)
 
+    mc = mega_config(N, MEGA_DEV)
+    halo_parity(dev, mc)
+    rows.append(mega_path(dev, mc, tag))
+    small_oracle(dev)
+
+    print(f"[11] kernel times on the next line {tag}", flush=True)
+    print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

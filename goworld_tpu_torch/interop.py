@@ -9,6 +9,12 @@ lanes change representation on the way:
 
 Random walk has no learned weights, so this converter is all that
 carries a world across.
+
+A megaspace's stacked state is the same ``SpaceState`` with a leading
+``[n_dev]`` axis on every lane (``rng`` is then ``[n_dev, 2]`` and
+``tick`` ``[n_dev]``): :func:`state_from_numpy` and
+:func:`state_to_numpy` carry it as they are. :func:`multi_inputs_from_
+numpy` and :func:`mega_outputs_to_numpy` carry its inputs and outputs.
 """
 
 from __future__ import annotations
@@ -20,6 +26,8 @@ import torch
 
 from goworld_tpu_torch.core.state import SpaceState, resolve_device
 from goworld_tpu_torch.core.step import TickInputs, TickOutputs
+from goworld_tpu_torch.parallel.megaspace import MegaTickOutputs
+from goworld_tpu_torch.parallel.step import MultiTickInputs
 
 _ABSENT_OK = ("aoi_cache", "behavior_id")
 
@@ -68,6 +76,31 @@ def inputs_from_numpy(arrays: dict, device="cuda") -> TickInputs:
 
 
 def outputs_to_numpy(outputs: TickOutputs) -> dict:
-    """The lanes of ``outputs`` as numpy arrays."""
+    """The lanes of ``outputs`` as numpy arrays (lanes that are None,
+    as the megaspace's skin telemetry, are left out)."""
     return {f.name: getattr(outputs, f.name).detach().cpu().numpy()
-            for f in dataclasses.fields(TickOutputs)}
+            for f in dataclasses.fields(TickOutputs)
+            if getattr(outputs, f.name) is not None}
+
+
+def multi_inputs_from_numpy(arrays: dict, device="cuda") -> MultiTickInputs:
+    """``MultiTickInputs`` on ``device`` from numpy lanes: ``arrays``
+    holds ``base`` (the ``TickInputs`` lanes with a leading [n_dev]
+    axis), ``migrate_target`` and ``migrate_tag``."""
+    dev = resolve_device(device)
+    return MultiTickInputs(
+        base=inputs_from_numpy(arrays["base"], device=dev),
+        migrate_target=torch.tensor(np.asarray(arrays["migrate_target"]),
+                                    device=dev),
+        migrate_tag=torch.tensor(np.asarray(arrays["migrate_tag"]),
+                                 device=dev),
+    )
+
+
+def mega_outputs_to_numpy(outputs: MegaTickOutputs) -> dict:
+    """The lanes of megaspace ``outputs`` as numpy arrays; ``base`` is
+    the dict of :func:`outputs_to_numpy`."""
+    out = {f.name: getattr(outputs, f.name).detach().cpu().numpy()
+           for f in dataclasses.fields(MegaTickOutputs) if f.name != "base"}
+    out["base"] = outputs_to_numpy(outputs.base)
+    return out

@@ -35,7 +35,7 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
-LAUNCHES = {"sweep_fused": 0, "counting_sort": 0}
+LAUNCHES = {"sweep_fused": 0, "counting_sort": 0, "halo_ship": 0}
 
 
 def reset_launches() -> None:
@@ -117,6 +117,9 @@ def lib() -> ctypes.CDLL:
     so.gw_counting_sort_hist_len.restype = i
     so.gw_counting_sort.argtypes = [p, i, i, p, p, p, p, p, p]
     so.gw_counting_sort.restype = i
+    pp = ctypes.POINTER(p)
+    so.gw_halo_ship.argtypes = [pp, pp, i, i, i, ctypes.c_ulonglong, p]
+    so.gw_halo_ship.restype = i
     return so
 
 

@@ -18,26 +18,35 @@ SMALL_TIER_ROWS = 16384
 
 
 def _flatnonzero(flat: torch.Tensor, size: int, fill: int) -> torch.Tensor:
-    """``jnp.flatnonzero(flat, size=size, fill_value=fill)`` as int32."""
+    """``jnp.flatnonzero(flat, size=size, fill_value=fill)`` as int32, of
+    each row of a ``[..., M]`` mask."""
     dev = flat.device
-    pos = torch.cumsum(flat, 0, dtype=torch.int32) - 1
+    pos = torch.cumsum(flat, -1, dtype=torch.int32) - 1
     # set bits past ``size`` and unset bits land in a dump slot
     tgt = torch.where(flat & (pos < size), pos, size).long()
-    out = torch.full((size + 1,), fill, dtype=torch.int32, device=dev)
-    out.scatter_(0, tgt, torch.arange(flat.shape[0], dtype=torch.int32,
-                                      device=dev))
-    return out[:size]
+    out = torch.full((*flat.shape[:-1], size + 1), fill, dtype=torch.int32,
+                     device=dev)
+    out.scatter_(-1, tgt, torch.arange(flat.shape[-1], dtype=torch.int32,
+                                       device=dev).expand(flat.shape))
+    return out[..., :size]
+
+
+def bounded_extract_batched(mask: torch.Tensor, cap: int):
+    """:func:`bounded_extract` of each row of a ``[..., M]`` mask at once
+    (the JAX package vmaps the 1-D form): returns (flat int32[..., cap]
+    indices into each row, valid bool[..., cap], count int32[...])."""
+    flat = _flatnonzero(mask, cap, 0)
+    count = mask.sum(-1, dtype=torch.int32)
+    valid = torch.arange(cap, dtype=torch.int32, device=mask.device) \
+        < torch.clamp_max(count, cap)[..., None]
+    return flat, valid, count
 
 
 def bounded_extract(mask: torch.Tensor, cap: int):
     """Returns (flat int32[cap] indices into mask.ravel(), valid
     bool[cap], count int32). Entries past ``count`` point at 0 and are
     invalid."""
-    flat = _flatnonzero(mask.reshape(-1), cap, 0)
-    count = mask.sum(dtype=torch.int32)
-    valid = torch.arange(cap, dtype=torch.int32, device=mask.device) \
-        < torch.clamp_max(count, cap)
-    return flat, valid, count
+    return bounded_extract_batched(mask.reshape(-1), cap)
 
 
 def two_tier(count, small: int, full: int, tier_fn, adaptive: bool = True):

@@ -1,12 +1,15 @@
 """Where one tick's time goes on the card.
 
     python -m goworld_tpu_torch.profile_tick [--n 1048576] [--ticks 20]
+                                             [--mega TILES]
                                              [--out chiprun_out]
 
 Runs the bench world of :mod:`goworld_tpu_torch.workload` through
-``make_tick`` and reports, as one JSON line on stdout:
+``make_tick`` (with ``--mega``, the megaspace bench world over TILES
+tiles through ``make_mega_tick``) and reports, as one JSON line on
+stdout:
 
-* ``stages``: mean ms per tick of each of the tick's six stages, and of
+* ``stages``: mean ms per tick of each of the tick's stages, and of
   the sweep's parts (front half, fused kernel, unpack), from CUDA events
   recorded around the stage functions (wrapped for this run only); the
   events sit on the device timeline, so a stage's time includes any wait
@@ -32,7 +35,15 @@ import torch
 from goworld_tpu_torch.core import step
 from goworld_tpu_torch.core.step import make_tick
 from goworld_tpu_torch.ops import aoi
-from goworld_tpu_torch.workload import bench_world, slice_config
+from goworld_tpu_torch.parallel import halo, megaspace
+from goworld_tpu_torch.parallel import migrate as mig
+from goworld_tpu_torch.parallel.megaspace import make_mega_tick
+from goworld_tpu_torch.workload import (
+    bench_world,
+    mega_config,
+    mega_world,
+    slice_config,
+)
 
 STAGES = [
     ("1 input scatter", step, "apply_pos_inputs"),
@@ -45,6 +56,28 @@ STAGES = [
     ("5 interest deltas", step, "interest_pairs"),
     ("6 sync records", step, "collect_sync"),
     ("6 attr records", step, "collect_attr_deltas"),
+]
+
+# the megaspace tick's stages; each runs once per tile (the halo once)
+MEGA_STAGES = [
+    ("1 input scatter", megaspace, "apply_pos_inputs"),
+    ("2 behavior", megaspace, "compute_velocity"),
+    ("3 integrate", megaspace, "integrate"),
+    ("4 migrate pack", mig, "pack_emigrants"),
+    ("4 migrate despawn", mig, "despawn_departed"),
+    ("4 migrate insert", mig, "insert_arrivals"),
+    ("5 halo exchange", megaspace, "exchange_halo_2d"),
+    ("5 halo exchange 1d", megaspace, "exchange_halo"),
+    ("5a ship kernel", halo, "ship_ring_cuda"),
+    ("6 aoi sweep", megaspace, "grid_neighbors_flags"),
+    ("6a sweep front half", aoi, "front_half"),
+    ("6b fused sweep kernel", aoi, "sweep_fused_cuda"),
+    ("6c unpack top-k", aoi, "_unpack_top"),
+    ("7 interest deltas", megaspace, "interest_pairs"),
+    ("8 sync records", megaspace, "collect_sync"),
+    ("8 attr records", megaspace, "collect_attr_deltas"),
+    ("9 stack tiles", megaspace, "stack_states"),
+    ("9 stack outputs", megaspace, "_stack_outputs"),
 ]
 
 
@@ -64,6 +97,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1 << 20)
     ap.add_argument("--ticks", type=int, default=20)
+    ap.add_argument("--mega", type=int, default=0, metavar="TILES",
+                    help="profile the megaspace tick over TILES tiles")
     ap.add_argument("--out", default="chiprun_out")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -73,16 +108,23 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True, timeout=60).stdout.strip().splitlines()[0]
-    cfg = slice_config(args.n)
-    st, inputs = bench_world(cfg, seed=0, device="cuda")
-    tick = make_tick(cfg)
+    if args.mega:
+        mc = mega_config(args.n, args.mega)
+        st, inputs = mega_world(mc, args.n, seed=0, device="cuda")
+        tick = make_mega_tick(mc)
+        stage_list = MEGA_STAGES
+    else:
+        cfg = slice_config(args.n)
+        st, inputs = bench_world(cfg, seed=0, device="cuda")
+        tick = make_tick(cfg)
+        stage_list = STAGES
     for _ in range(3):
         st, _out = tick(st, inputs)
     torch.cuda.synchronize()
 
     marks = []
-    saved = [(mod, attr, getattr(mod, attr)) for _, mod, attr in STAGES]
-    for name, mod, attr in STAGES:
+    saved = [(mod, attr, getattr(mod, attr)) for _, mod, attr in stage_list]
+    for name, mod, attr in stage_list:
         setattr(mod, attr, _timed(getattr(mod, attr), name, marks))
     tick_ms = []
     try:
@@ -103,7 +145,8 @@ def main(argv=None) -> int:
     stages = {k: v / args.ticks for k, v in stages.items()}
     tick_mean = sum(a.elapsed_time(b) for a, b in tick_ms) / args.ticks
     top_level = sum(v for k, v in stages.items() if k[1] == " ")
-    stages["other (rng split, flags, new state)"] = tick_mean - top_level
+    stages["other (rng split, flags, new state, Python)"] = \
+        tick_mean - top_level
 
     window = 5
     act = [torch.profiler.ProfilerActivity.CPU,
@@ -127,11 +170,12 @@ def main(argv=None) -> int:
            for e in events[:15]]
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    (out / "profile_tick.txt").write_text(
+    (out / f"profile_tick{'_mega' if args.mega else ''}.txt").write_text(
         f"{card}\n" + prof.key_averages().table(
             sort_by="device_time_total", row_limit=60))
     print(json.dumps({
-        "gpu": card, "n": args.n, "ticks": args.ticks,
+        "gpu": card, "n": args.n, "mega_tiles": args.mega,
+        "ticks": args.ticks,
         "tick_ms_mean": tick_mean, "stages_ms": stages,
         "window_ticks": window, "window_ms": window_ms,
         "busy_ms": busy_ms,

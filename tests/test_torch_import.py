@@ -6,6 +6,7 @@ import ast
 import os
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import pytest
@@ -14,6 +15,12 @@ import torch
 from goworld_tpu_torch.core import state as tstate
 from goworld_tpu_torch.core.step import TickInputs, make_tick
 from goworld_tpu_torch.ops.aoi import GridSpec
+from goworld_tpu_torch.parallel.megaspace import (
+    MegaConfig,
+    create_mega_state,
+    make_mega_tick,
+)
+from goworld_tpu_torch.parallel.step import MultiTickInputs
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "goworld_tpu_torch"
@@ -63,8 +70,18 @@ CFG = tstate.WorldConfig(capacity=64, grid=GridSpec(radius=10.0, k=8,
                                                     cell_cap=4))
 
 
+def _mega(**world):
+    cfg = tstate.WorldConfig(
+        capacity=64, grid=GridSpec(radius=10.0, extent_x=80.0,
+                                   extent_z=80.0, k=8, cell_cap=4),
+        **world)
+    return MegaConfig(cfg=cfg, n_dev=4, tile_w=60.0, mesh_shape=(2, 2),
+                      tile_d=60.0, halo_impl="async")
+
+
 @pytest.mark.parametrize("entry", ["create_state", "make_tick",
-                                   "inputs_empty"])
+                                   "inputs_empty", "create_mega_state",
+                                   "make_mega_tick", "multi_inputs_empty"])
 def test_entry_points_default_to_cuda_and_never_fall_back(entry,
                                                           monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -72,6 +89,10 @@ def test_entry_points_default_to_cuda_and_never_fall_back(entry,
         "create_state": lambda **kw: tstate.create_state(CFG, **kw),
         "make_tick": lambda **kw: make_tick(CFG, **kw),
         "inputs_empty": lambda **kw: TickInputs.empty(CFG, **kw),
+        "create_mega_state": lambda **kw: create_mega_state(_mega(), **kw),
+        "make_mega_tick": lambda **kw: make_mega_tick(_mega(), **kw),
+        "multi_inputs_empty": lambda **kw: MultiTickInputs.empty(
+            CFG, 4, **kw),
     }[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()
@@ -98,6 +119,24 @@ def test_unported_configs_raise_not_implemented(change):
         tstate.create_state(cfg, device="cpu")
 
 
+@pytest.mark.parametrize("case", ["scenario", "mlp", "btree", "devices"])
+@pytest.mark.parametrize("entry", ["create_mega_state", "make_mega_tick"])
+def test_unported_megaspace_configs_raise_not_implemented(case, entry):
+    kw = {}
+    if case == "scenario":
+        mc = _mega(scenario=types.SimpleNamespace(
+            behavior_names=("random_walk",)))
+    elif case == "devices":
+        mc = _mega()
+        kw = dict(devices=["cuda:0", "cuda:1"])
+    else:
+        mc = _mega(behavior=case)
+    fn = create_mega_state if entry == "create_mega_state" \
+        else make_mega_tick
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fn(mc, device="cpu", **kw)
+
+
 def test_stacked_spaces_raise_not_implemented():
     st = tstate.create_state(CFG, device="cpu")
     stacked = st.replace(pos=st.pos[None].repeat(2, 1, 1))
@@ -109,7 +148,9 @@ def test_stacked_spaces_raise_not_implemented():
 # modules the tick runs; none may make the host wait on the card
 TICK_MODULES = ["core/step.py", "models/random_walk.py", "ops/aoi.py",
                 "ops/delta.py", "ops/extract.py", "ops/integrate.py",
-                "ops/prng.py", "ops/sort.py", "ops/sync.py"]
+                "ops/prng.py", "ops/sort.py", "ops/sync.py",
+                "parallel/halo.py", "parallel/migrate.py",
+                "parallel/megaspace.py"]
 # host-side helpers outside the tick
 EXEMPT = {"neighbors_oracle", "prng_key"}
 SYNCING = {"item", "cpu", "numpy", "tolist", "nonzero", "tensor"}
