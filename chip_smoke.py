@@ -9,16 +9,23 @@ is caught:
 2. build the CUDA kernels from ``goworld_tpu_torch/csrc`` with nvcc;
 3. the counting-sort kernel against its plain version and a stable
    argsort at 2^20 keys (bench keys, then skewed keys), bit for bit;
+   then at n = 1, 4095, 4097 and 311,296 and at key widths of 1, 21 and
+   31 bits against a stable argsort (and the plain version wherever its
+   n_rows + 1 tables fit);
 4. the fused-sweep kernel against its plain version at 2^20 queries,
-   then ``grid_neighbors_flags`` under fused+pallas against
-   ranges+argsort on the card for the sort, exact and f32 rankings, and
-   at a small size against the brute-force oracle;
+   then at k = 8 and 64, cell_cap 3, 4 and 28 (one and eight keys a
+   lane), without flag bits, and on a clustered world where most rows
+   have demand > 32; then ``grid_neighbors_flags`` under fused+pallas
+   against ranges+argsort on the card for the sort, exact and f32
+   rankings, and at a small size against the brute-force oracle;
 5. the single-Space path: the 2^20-entity bench world through
    ``create_state`` and ``make_tick`` for TICKS ticks with the
    4096-record input stream, checking the launch counts, events,
    records, and one tick against the same tick run on the kernels'
    plain versions;
-6. the sweep and sort kernels timed at that path's shapes;
+6. the sweep and sort kernels timed at that path's shapes, by CUDA
+   events over back-to-back calls and by their own device time
+   (torch.profiler), with their kernel launches a call;
 7. the halo ship kernel against its plain version at halo_cap 4096 for
    every shift and ``recv_ok`` pattern the 1D (8 tiles) and 2D (2x2)
    exchanges pass, then ``exchange_halo_2d`` under "async" against
@@ -31,11 +38,12 @@ is caught:
    sync guard;
 9. the fused sweep at the megaspace shape (queries Q < n rows: local
    rows over local + ghost rows) against its plain version, and the
-   ship kernel's times;
+   ship kernel's times (events and device time);
 10. a small 2x2 megaspace against a brute-force interest oracle, across
     every kind of tile border (x, z, corner);
 11. a ``kernels`` JSON line: per kernel its launches on its path, time,
-    plain time, library time and bound;
+    device time, kernel launches a call, plain time, library time and
+    bound;
 12. the result line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.
@@ -60,6 +68,7 @@ from goworld_tpu_torch.ops.aoi import GridSpec, grid_neighbors_flags
 from goworld_tpu_torch.ops.sort import (
     counting_sort_cells,
     counting_sort_cells_cuda,
+    radix_plan,
 )
 from goworld_tpu_torch.parallel import halo
 from goworld_tpu_torch.parallel.megaspace import (
@@ -101,6 +110,26 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def device_ms(fn, reps: int) -> tuple[float, float]:
+    """(device ms a call, kernel launches a call) of ``fn()`` from
+    torch.profiler: every device activity of ``reps`` calls (kernels and
+    memsets) summed, over ``reps``; memsets are not counted as
+    launches."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    us = sum(e.device_time_total for e in ev)
+    launches = sum(e.count for e in ev
+                   if not e.key.startswith(("Memset", "Memcpy")))
+    return us / 1e3 / reps, launches / reps
 
 
 def same(a, b) -> bool:
@@ -335,6 +364,8 @@ def mega_path(dev, mc: MegaConfig, tag: str) -> dict:
         bad = int((top_k != top_p).any(1).sum())
         fail(f"fused sweep at Q={n} < n={pos_ext.shape[0]} differs from "
              f"its plain version in {bad} rows")
+    tile_sweep_ms = time_ms(lambda: aoi.sweep_fused_cuda(*args), 20)
+    tile_sweep_dev, _ = device_ms(lambda: aoi.sweep_fused_cuda(*args), 20)
 
     # the ship kernel's times: tile strips of the megaspace shape, the
     # phase-1 eastward ship
@@ -353,22 +384,19 @@ def mega_path(dev, mc: MegaConfig, tag: str) -> dict:
         fail("ship kernel differs from its plain version at timing inputs")
     # the kernel's own device time (the event-timed loop above is set by
     # the host's launch rate)
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(50):
-            halo.ship_ring_cuda(bufs, tz, ok)
-        torch.cuda.synchronize()
-    ship_dev_us = sum(e.device_time_total for e in prof.key_averages()
-                      if "halo_ship" in e.key) / 50
+    ship_dev, ship_lpc = device_ms(lambda: halo.ship_ring_cuda(bufs, tz, ok),
+                                   50)
     # the strips of receiving tiles are read, every tile's block is
     # written (zeros where recv_ok is false); one select a word
     strip_bytes = bufs[0].numel() * bufs.element_size()
     nbytes = (sum(ok) + n_dev) * strip_bytes
     bms, by = bound(nbytes, bufs.numel())
     print(f"[9] fused sweep == plain at the megaspace shape (Q={n} local "
-          f"queries over n={pos_ext.shape[0]} local + ghost rows, tile 0); "
+          f"queries over n={pos_ext.shape[0]} local + ghost rows, tile 0), "
+          f"{tile_sweep_ms:.5f} ms a call (device {tile_sweep_dev:.5f} ms); "
           f"ship kernel {ship_ms:.5f} ms a call (device time "
-          f"{ship_dev_us:.2f} us a launch, torch.profiler), plain "
+          f"{ship_dev * 1e3:.2f} us a call, {ship_lpc:g} kernel, "
+          f"torch.profiler), plain "
           f"{ship_plain:.5f} ms, "
           f"torch.roll {ship_lib:.5f} ms, bound {bms:.6f} ms ({by}) at "
           f"i32{list(bufs.shape)} {tag}", flush=True)
@@ -377,7 +405,8 @@ def mega_path(dev, mc: MegaConfig, tag: str) -> dict:
         "source": "goworld_tpu_torch/csrc/halo_ship.cu",
         "replaces": "goworld_tpu/parallel/halo.py:91",
         "launches": launches["halo_ship"], "max_abs_err": err,
-        "ms": ship_ms, "plain_ms": ship_plain, "bound_ms": bms,
+        "ms": ship_ms, "device_ms": ship_dev, "launches_per_call": ship_lpc,
+        "plain_ms": ship_plain, "bound_ms": bms,
         "bound_by": by, "library_ms": ship_lib,
     }
 
@@ -495,8 +524,30 @@ def main() -> int:
         if not (same(o_k, o_p) and same(s_k, s_p) and same(o_k, o_a)
                 and same(s_k, keys[o_a.long()])):
             fail(f"counting sort differs from its plain version ({name})")
+    # tail tiles, a single key, the megaspace tile's key count, and key
+    # widths of 1, 19, 21 and 31 bits
+    shapes = []
+    for n, n_rows in ((1, 1), (4095, fh.n_rows), (4097, 1),
+                      (311_296, fh.n_rows), (N, (1 << 21) - 3),
+                      (N, 2**31 - 2)):
+        keys = torch.tensor(rng.integers(0, n_rows + 1, n).astype(np.int32),
+                            device=dev)
+        o_k, s_k = counting_sort_cells_cuda(keys, n_rows)
+        o_a = torch.argsort(keys, stable=True).to(torch.int32)
+        ok = same(o_k, o_a) and same(s_k, keys[o_a.long()])
+        if n_rows < 1 << 24:  # the plain version's n_rows + 1 tables fit
+            o_p, s_p = counting_sort_cells(keys, n_rows)
+            ok = ok and same(o_k, o_p) and same(s_k, s_p)
+        torch.cuda.synchronize()
+        if not ok:
+            fail(f"counting sort differs from a stable argsort at n={n}, "
+                 f"n_rows={n_rows}")
+        shapes.append(f"{n}x{n_rows.bit_length()}b"
+                      f"{radix_plan(n_rows.bit_length())}")
     print(f"[3] sort parity: bit-exact at n={N}, n_rows={fh.n_rows} "
-          f"(bench and skewed keys)", flush=True)
+          f"(bench and skewed keys, plan (passes, digit bits) "
+          f"{radix_plan(fh.n_rows.bit_length())}); against a stable "
+          f"argsort at n x key bits (plan) {', '.join(shapes)}", flush=True)
 
     # [4] sweep parity at the slice shape, then the whole sweep
     args = (fh.s_xz, fh.s_w, fh.lo, fh.hi, st0.pos, fh.reach, g.k,
@@ -507,6 +558,49 @@ def main() -> int:
     if not (same(top_k, top_p) and same(dem_k, dem_p)):
         bad = int((top_k != top_p).any(1).sum())
         fail(f"fused sweep differs from its plain version in {bad} rows")
+    variants = []
+    for k, cc, flagged in ((8, 12, True), (64, 12, True), (32, 3, True),
+                           (32, 4, True), (32, 28, True), (32, 12, False)):
+        gv = dataclasses.replace(g, k=k, cell_cap=cc)
+        fv = aoi.front_half(gv, st0.pos, st0.alive, None, st0.aoi_radius,
+                            flag_bits if flagged else None, with_stats=True)
+        av = (fv.s_xz, fv.s_w, fv.lo, fv.hi, st0.pos, fv.reach, k, cc,
+              fv.code, True)
+        if not all(same(x, y) for x, y in zip(
+                aoi.sweep_fused_cuda(*av),
+                aoi.sweep_fused_plain(*av, row_block=g.row_block))):
+            fail(f"fused sweep differs from its plain version at k={k}, "
+                 f"cell_cap={cc}, id_shift={fv.code[0]}")
+        variants.append(f"k{k}/cc{cc}/shift{fv.code[0]}")
+    # a clustered world: ~10 entities a cell, so most rows have more valid
+    # candidates than a warp has lanes and take the overflow rounds
+    cn, cext = 1 << 18, 8100.0
+    crng = np.random.default_rng(SEED + 13)
+    cpos = np.zeros((cn, 3), np.float32)
+    cpos[:, 0] = crng.uniform(0, cext, cn)
+    cpos[:, 2] = crng.uniform(0, cext, cn)
+    cpos = torch.tensor(cpos, device=dev)
+    calive = torch.tensor(crng.random(cn) < 0.95, device=dev)
+    cflags = torch.tensor(crng.integers(0, 4, cn).astype(np.int32),
+                          device=dev)
+    over = []
+    for k, cc in ((32, 28), (64, 12)):
+        cg = dataclasses.replace(g, extent_x=cext, extent_z=cext, k=k,
+                                 cell_cap=cc)
+        fc = aoi.front_half(cg, cpos, calive, None, None, cflags,
+                            with_stats=True)
+        ac = (fc.s_xz, fc.s_w, fc.lo, fc.hi, cpos, fc.reach, k, cc, fc.code,
+              True)
+        top_k, dem_k = aoi.sweep_fused_cuda(*ac)
+        top_p, dem_p = aoi.sweep_fused_plain(*ac, row_block=g.row_block)
+        share = float((dem_p > 32).float().mean())
+        if not (same(top_k, top_p) and same(dem_k, dem_p)):
+            fail(f"fused sweep differs from its plain version on the "
+                 f"clustered world (k={k}, cell_cap={cc})")
+        if share <= 0.1:
+            fail(f"the clustered world has only {share:.3f} of rows with "
+                 f"demand > 32")
+        over.append(f"k{k}/cc{cc}: {share:.3f} of rows over 32")
     flag_bits = (torch.rand(N, generator=torch.Generator(device=dev)
                             .manual_seed(3), device=dev) < 0.5)\
         .to(torch.int32) | (st0.has_client.to(torch.int32) << 1)
@@ -541,9 +635,10 @@ def main() -> int:
     got = [set(r[r < 4096].tolist()) for r in snbr]
     if got != oracle:
         fail("fused sweep disagrees with the brute-force oracle")
-    print(f"[4] sweep parity: kernel == plain at n={N} (keys, demand); "
-          f"fused+pallas == ranges+argsort for sort/exact/f32; "
-          f"oracle exact at n=4096", flush=True)
+    print(f"[4] sweep parity: kernel == plain at n={N} (keys, demand), "
+          f"also at {', '.join(variants)}; on a clustered world of {cn} "
+          f"({'; '.join(over)}); fused+pallas == ranges+argsort for "
+          f"sort/exact/f32; oracle exact at n=4096", flush=True)
 
     # [5] the main path
     tick = make_tick(cfg, device=dev)
@@ -645,33 +740,48 @@ def main() -> int:
     sort_plain = time_ms(
         lambda: counting_sort_cells(fh.srow, fh.n_rows), 3, 1)
     sort_lib = time_ms(lambda: torch.argsort(fh.srow, stable=True), 20)
+    sweep_dev, sweep_lpc = device_ms(lambda: aoi.sweep_fused_cuda(*args), 20)
+    sort_dev, sort_lpc = device_ms(
+        lambda: counting_sort_cells_cuda(fh.srow, fh.n_rows), 20)
+    lib_dev, _ = device_ms(lambda: torch.argsort(fh.srow, stable=True), 20)
     bits = max(1, fh.n_rows.bit_length())
+    plan = radix_plan(bits)
+    if sweep_lpc != 1 or sort_lpc > plan[0] + 1:
+        fail(f"kernel launches a call: sweep {sweep_lpc}, sort {sort_lpc} "
+             f"(plan {plan} allows {plan[0] + 1})")
     passes = -(-bits // 8)
     sort_bytes = 12 * N
     sort_ops = passes * 12 * N  # digit extract, histogram, rank, scatter
 
     rows = []
-    for name, src, rep, err, kms, pms, lms, nb, no in (
+    for name, src, rep, err, kms, dms, lpc, pms, lms, nb, no in (
             ("sweep_fused_cuda", "goworld_tpu_torch/csrc/aoi_fused.cu",
-             "goworld_tpu/ops/aoi.py:919", sweep_err, sweep_ms,
-             sweep_plain, None, sweep_bytes, sweep_ops),
+             "goworld_tpu/ops/aoi.py:919", sweep_err, sweep_ms, sweep_dev,
+             sweep_lpc, sweep_plain, None, sweep_bytes, sweep_ops),
             ("counting_sort_cells_cuda",
              "goworld_tpu_torch/csrc/counting_sort.cu",
-             "goworld_tpu/ops/sort.py:157", sort_err, sort_ms, sort_plain,
-             sort_lib, sort_bytes, sort_ops)):
+             "goworld_tpu/ops/sort.py:157", sort_err, sort_ms, sort_dev,
+             sort_lpc, sort_plain, sort_lib, sort_bytes, sort_ops)):
         bms, by = bound(nb, no)
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": launches["sweep_fused" if "sweep" in name
                                  else "counting_sort"],
-            "max_abs_err": err, "ms": kms, "plain_ms": pms,
+            "max_abs_err": err, "ms": kms, "device_ms": dms,
+            "launches_per_call": lpc, "plain_ms": pms,
             "bound_ms": bms, "bound_by": by, "library_ms": lms,
         })
         if err != 0:
             fail(f"{name} differs from its plain version at timing inputs")
     print(f"[6] sweep and sort timed at the single-Space shapes, launches "
-          f"per tick: { {k: v / TICKS for k, v in launches.items()} } "
-          f"{tag}", flush=True)
+          f"per tick: { {k: v / TICKS for k, v in launches.items()} }; "
+          f"sweep {sweep_ms:.5f} ms a call (device {sweep_dev:.5f} ms, "
+          f"{sweep_lpc:g} kernel); sort {sort_ms:.5f} ms a call (device "
+          f"{sort_dev:.5f} ms, {sort_lpc:g} kernels, plan {plan}) against "
+          f"torch.argsort(stable=True) {sort_lib:.5f} ms (device "
+          f"{lib_dev:.5f} ms): sort "
+          f"{'<=' if sort_ms <= sort_lib else '>'} argsort {tag}",
+          flush=True)
 
     mc = mega_config(N, MEGA_DEV)
     halo_parity(dev, mc)

@@ -9,23 +9,39 @@
 // ascending order (invalid keys pad the tail), and under stats the count
 // of valid candidates (the demand gauge).
 //
-// What bounds it on this card: bytes. At 2^20 queries the kernel reads
-// lo/hi (24 MB), the query positions and reach (16 MB) and the sorted
-// view (12.6 MB, which fits the 50 MB L2 so its re-reads by
-// neighbouring queries mostly hit there), and writes the [N, k] keys
-// (134 MB at k = 32): about 190 MB, some 57 us at 3.35 TB/s. The
-// selection is integer work in registers, about 3.5 k operations a
-// query.
+// What bounds it on this card: instruction issue and the latency of each
+// warp's chain of dependent reads, not bytes or stores. The call moves
+// ~190 MB (the [N, k] keys are 134 MB of it at k = 32), some 57 us at
+// 3.35 TB/s, and a copy without the key stores is only ~1% faster; a
+// bench query has ~27 in-range candidates among the 108 lanes of its
+// 3x3 window and ~12 valid ones. So the design spends few instructions
+// a row and keeps the run reads in L1:
 //
-// Why this design: the [N, 9*cell_cap] candidate and key arrays never
-// exist in device memory. One warp owns one query row. Its lanes load the
-// three runs, which are contiguous in the sorted view, so the loads
-// coalesce; each lane keeps ceil(9*cell_cap / 32) keys in registers. Then
-// k rounds of a warp-wide minimum (__reduce_min_sync) each emit the
-// smallest key left, and the lane that holds it retires it. Valid keys
-// are unique (their id bits differ), so each round retires exactly one
-// lane, and once the minimum is the invalid key every later output is
-// invalid: the loop stops there. This gives sort(keys)[:k] exactly.
+// 1. Rows are walked in cell order. Work item i handles row
+//    s_w[i] >> id_shift (skipped when >= q): the sorted view's slot words
+//    are a permutation of [0, n), so every query row is visited once.
+//    A warp takes 32 consecutive items, i.e. ~10 neighbouring cells along
+//    z; the three rows of a cell read the same three runs and the next
+//    cell shares two of them, so most run reads hit L1. The output stays
+//    indexed by row, one full 128-byte line a row at k = 32.
+// 2. Candidates are packed onto the lanes: candidate c is the c-th
+//    in-range lane of the row's three runs, so the bench row's ~27
+//    candidates take one round of 32 lanes instead of four rounds over
+//    the 108 lanes of the 3x3 window, with no divide. A row's run
+//    bounds, position and reach come in with one load a lane, spread by
+//    shuffles, and are fetched while the row before is worked on.
+// 3. Selection without k rounds: the valid keys are compacted across the
+//    warp by ballot and prefix popcount into 32 shared-memory slots; when
+//    the row's demand is <= 32 (all but ~1 row in 2^20 at the bench
+//    shape) one key a lane is sorted by the 15-step bitonic network of
+//    __shfl_xor_sync compare-exchanges, cut after the first stage whose
+//    blocks hold all `demand` keys (10 steps at demand <= 16), and
+//    written with one coalesced store (the invalid key pads the rest). A
+//    row with demand > 32 takes the warp-minimum rounds on its register
+//    keys instead, on a warp-uniform branch of the same kernel. Valid
+//    keys are unique (their id bits differ), so both give
+//    sort(keys)[:k] exactly. The demand gauge is the sum of the ballots'
+//    popcounts, the count of valid candidates the plain version sums.
 //
 // Exactness traps kept here: the slot words come in as an int32 array
 // (as float bit patterns they would be subnormal and a flush-to-zero
@@ -38,7 +54,9 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRowsPerBlock = kThreads / 32;
+constexpr int kWarps = kThreads / 32;
+constexpr int kItemsPerWarp = 32;
+constexpr unsigned kFull = 0xffffffffu;
 
 struct KeyCode {
   int id_shift;     // slot id = word >> id_shift (2 when flags ride it)
@@ -49,41 +67,81 @@ struct KeyCode {
   int invalid_key;  // ranks above every valid key
 };
 
+// PER: rounds of 32 candidates a row can need (9 * cell_cap / 32)
 template <int PER>
 __global__ void __launch_bounds__(kThreads)
 sweep_fused_kernel(const float* __restrict__ spx,
                    const float* __restrict__ spz,
-                   const int* __restrict__ sw,
+                   const int* __restrict__ sw, int n_items,
                    const int* __restrict__ lo,
                    const int* __restrict__ hi,
                    const float* __restrict__ pos,
                    const float* __restrict__ reach, int q, int k, int cc,
                    int sentinel, KeyCode code, int* __restrict__ top,
                    int* __restrict__ dem) {
+  __shared__ int packed[kWarps][32];
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
-  if (row >= q) return;  // the whole warp leaves together
+  const int warp = threadIdx.x >> 5;
+  const unsigned lanemask_lt = (1u << lane) - 1u;
+  const int first = (blockIdx.x * kWarps + warp) * kItemsPerWarp;
+  if (first >= n_items) return;  // the whole warp leaves together
   const int run = 3 * cc;
-  const float qx = pos[3 * row];
-  const float qz = pos[3 * row + 2];
-  const float qr = reach[row];
-  int lo3[3], len3[3];
+  const int items = min(kItemsPerWarp, n_items - first);
+  const int words = lane < items ? sw[first + lane] : 0;
+  auto row_of = [&](int t) {
+    return __shfl_sync(kFull, words, t) >> code.id_shift;
+  };
+  // a row's run starts (lanes 0-2), run ends (3-5), x and z (6-7) and
+  // reach (8), one word a lane
+  auto fetch = [&](int row) {
+    int v = 0;
+    if (row < q) {
+      if (lane < 3) {
+        v = lo[3 * row + lane];
+      } else if (lane < 6) {
+        v = hi[3 * row + lane - 3];
+      } else if (lane < 8) {
+        v = __float_as_int(pos[3 * row + 2 * (lane - 6)]);
+      } else if (lane == 8) {
+        v = __float_as_int(reach[row]);
+      }
+    }
+    return v;
+  };
+  int next_row = row_of(0);
+  int next = fetch(next_row);
+  for (int t = 0; t < items; ++t) {
+    const int row = next_row;
+    const int v = next;
+    if (t + 1 < items) {  // the next row's words load under this one
+      next_row = row_of(t + 1);
+      next = fetch(next_row);
+    }
+    if (row >= q) continue;  // a row past the queries (a ghost)
+    // lanes 0-2: how many lanes of each run are in range (<= 3*cell_cap)
+    const int len = min(__shfl_down_sync(kFull, v, 3) - v, run);
+    const int lo0 = __shfl_sync(kFull, v, 0);
+    const int lo1 = __shfl_sync(kFull, v, 1);
+    const int lo2 = __shfl_sync(kFull, v, 2);
+    const int n0 = __shfl_sync(kFull, len, 0);
+    const int n01 = n0 + __shfl_sync(kFull, len, 1);
+    const int total = n01 + __shfl_sync(kFull, len, 2);
+    const float qx = __int_as_float(__shfl_sync(kFull, v, 6));
+    const float qz = __int_as_float(__shfl_sync(kFull, v, 7));
+    const float qr = __int_as_float(__shfl_sync(kFull, v, 8));
+    // candidate c = 32 r + lane is the c-th in-range lane of the three
+    // runs taken in order; a round past `total` is skipped
+    int keys[PER];
+    int demand = 0;
 #pragma unroll
-  for (int dx = 0; dx < 3; ++dx) {
-    lo3[dx] = lo[3 * row + dx];
-    len3[dx] = hi[3 * row + dx] - lo3[dx];
-  }
-  int keys[PER];
-  int nvalid = 0;
-#pragma unroll
-  for (int j = 0; j < PER; ++j) {
-    const int c = lane + 32 * j;
-    int key = code.invalid_key;
-    if (c < 3 * run) {
-      const int dx = c / run;
-      const int off = c - dx * run;
-      if (off < len3[dx]) {
-        const int s = lo3[dx] + off;
+    for (int r = 0; r < PER; ++r) {
+      keys[r] = code.invalid_key;
+      if (32 * r >= total) continue;
+      const int c = 32 * r + lane;
+      bool ok = false;
+      if (c < total) {
+        const int s = c < n0 ? lo0 + c : c < n01 ? lo1 + c - n0
+                                                 : lo2 + c - n01;
         const int w = sw[s];
         const int cid = w >> code.id_shift;
         const float dist = fmaxf(fabsf(__fsub_rn(spx[s], qx)),
@@ -91,31 +149,60 @@ sweep_fused_kernel(const float* __restrict__ spx,
         if (cid != sentinel && dist <= qr && cid != row) {
           int qd = __float2int_rz(__fmul_rn(dist, code.scale));
           qd = min(qd, code.qd_cap) + code.qd_bias;
-          key = (qd << code.qd_shift) | w;
-          ++nvalid;
+          keys[r] = (qd << code.qd_shift) | w;
+          ok = true;
         }
       }
+      // compaction: the valid keys, in (r, lane) order, into slots 0..31
+      const unsigned m = __ballot_sync(kFull, ok);
+      const int at = demand + __popc(m & lanemask_lt);
+      if (ok && at < 32) packed[warp][at] = keys[r];
+      demand += __popc(m);
     }
-    keys[j] = key;
-  }
-  if (dem != nullptr) {
-    const int total = __reduce_add_sync(0xffffffffu, nvalid);
-    if (lane == 0) dem[row] = total;
-  }
-  int* out = top + static_cast<size_t>(row) * k;
-  for (int r = 0; r < k; ++r) {
-    int m = keys[0];
+    __syncwarp();
+    if (dem != nullptr && lane == 0) dem[row] = demand;
+    int* out = top + static_cast<size_t>(row) * k;
+    if (demand <= 32) {
+      int x = lane < demand ? packed[warp][lane] : code.invalid_key;
+      // bitonic sort of the 32 lanes, ascending: after the stage of
+      // `size`, blocks of `size` lanes are sorted, up where
+      // (lane & size) == 0, and the lower lane of each pair keeps the
+      // minimum there. The valid keys sit in lanes 0..demand-1 and the
+      // rest hold the invalid key, so the stages stop once one block
+      // holds them all.
 #pragma unroll
-    for (int j = 1; j < PER; ++j) m = min(m, keys[j]);
-    m = __reduce_min_sync(0xffffffffu, m);
-    if (m == code.invalid_key) {
-      for (int rr = r + lane; rr < k; rr += 32) out[rr] = code.invalid_key;
-      break;
+      for (int size = 2; size <= 32; size <<= 1) {
+        if (size / 2 >= demand) break;
+#pragma unroll
+        for (int stride = size >> 1; stride > 0; stride >>= 1) {
+          const int y = __shfl_xor_sync(kFull, x, stride);
+          const bool up = (lane & size) == 0;
+          const bool lower = (lane & stride) == 0;
+          x = lower == up ? min(x, y) : max(x, y);
+        }
+      }
+      if (lane < k) out[lane] = x;
+      for (int r = 32 + lane; r < k; r += 32) out[r] = code.invalid_key;
+    } else {
+      // more valid keys than lanes: k rounds of a warp-wide minimum; the
+      // lane that holds it retires it, and an invalid minimum ends the row
+      for (int r = 0; r < k; ++r) {
+        int m = keys[0];
+#pragma unroll
+        for (int j = 1; j < PER; ++j) m = min(m, keys[j]);
+        m = __reduce_min_sync(kFull, m);
+        if (m == code.invalid_key) {
+          for (int rr = r + lane; rr < k; rr += 32)
+            out[rr] = code.invalid_key;
+          break;
+        }
+        if (lane == (r & 31)) out[r] = m;
+#pragma unroll
+        for (int j = 0; j < PER; ++j)
+          if (keys[j] == m) keys[j] = code.invalid_key;
+      }
     }
-    if (lane == (r & 31)) out[r] = m;
-#pragma unroll
-    for (int j = 0; j < PER; ++j)
-      if (keys[j] == m) keys[j] = code.invalid_key;
+    __syncwarp();  // every lane has read `packed` before the next row
   }
 }
 
@@ -124,10 +211,12 @@ void launch(const float* s_xz, const int* s_w, int s_len, const int* lo,
             const int* hi, const float* pos, const float* reach, int q,
             int k, int cc, int sentinel, KeyCode code, int* top, int* dem,
             cudaStream_t stream) {
-  const int blocks = (q + kRowsPerBlock - 1) / kRowsPerBlock;
+  const int n_items = s_len - 3 * cc;
+  const int per_block = kWarps * kItemsPerWarp;
+  const int blocks = (n_items + per_block - 1) / per_block;
   sweep_fused_kernel<PER><<<blocks, kThreads, 0, stream>>>(
-      s_xz, s_xz + s_len, s_w, lo, hi, pos, reach, q, k, cc, sentinel, code,
-      top, dem);
+      s_xz, s_xz + s_len, s_w, n_items, lo, hi, pos, reach, q, k, cc,
+      sentinel, code, top, dem);
 }
 
 }  // namespace
@@ -135,10 +224,12 @@ void launch(const float* s_xz, const int* s_w, int s_len, const int* lo,
 extern "C" {
 
 // s_xz: f32 [2, s_len] sorted x / z rows (3*cc sentinel lanes at the
-// end); s_w: i32 [s_len] packed slot words; lo, hi: i32 [q, 3] run
-// bounds; pos: f32 [>= q, 3]; reach: f32 [>= q]; top: i32 [q, k] out;
-// dem: i32 [q] out, or null to skip the demand gauge. Returns the CUDA
-// error code of the launch (cudaErrorInvalidValue when 9*cc > 256).
+// end); s_w: i32 [s_len] packed slot words, whose first s_len - 3*cc
+// ids (word >> id_shift) are a permutation of the rows; lo, hi: i32
+// [q, 3] run bounds; pos: f32 [>= q, 3]; reach: f32 [>= q]; top: i32
+// [q, k] out; dem: i32 [q] out, or null to skip the demand gauge.
+// Returns the CUDA error code of the launch (cudaErrorInvalidValue when
+// 9*cc > 256).
 int gw_sweep_fused(const float* s_xz, const int* s_w, int s_len,
                    const int* lo, const int* hi, const float* pos,
                    const float* reach, int q, int k, int cc, int sentinel,
@@ -148,7 +239,7 @@ int gw_sweep_fused(const float* s_xz, const int* s_w, int s_len,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const KeyCode code{id_shift, qd_shift, qd_cap, qd_bias, scale,
                      invalid_key};
-  if (q <= 0) return static_cast<int>(cudaGetLastError());
+  if (q <= 0 || s_len <= 3 * cc) return static_cast<int>(cudaGetLastError());
   const int per = (9 * cc + 31) / 32;
 #define GW_SWEEP_CASE(P)                                                  \
   case P:                                                                 \

@@ -113,9 +113,10 @@ def lib() -> ctypes.CDLL:
     so.gw_sweep_fused.argtypes = [
         p, p, i, p, p, p, p, i, i, i, i, i, i, i, i, f, i, p, p, p]
     so.gw_sweep_fused.restype = i
-    so.gw_counting_sort_hist_len.argtypes = [i, i]
-    so.gw_counting_sort_hist_len.restype = i
-    so.gw_counting_sort.argtypes = [p, i, i, p, p, p, p, p, p]
+    so.gw_counting_sort_scratch_len.argtypes = [i, i, i]
+    so.gw_counting_sort_scratch_len.restype = ctypes.c_longlong
+    so.gw_counting_sort.argtypes = [
+        p, i, i, i, p, ctypes.c_longlong, p, p, p]
     so.gw_counting_sort.restype = i
     pp = ctypes.POINTER(p)
     so.gw_halo_ship.argtypes = [pp, pp, i, i, i, ctypes.c_ulonglong, p]

@@ -418,6 +418,11 @@ def sweep_fused_cuda(s_xz, s_w, lo, hi, pos, reach, k, cc, code,
     kernel of ``csrc/aoi_fused.cu`` for tensors on the card; the plain
     version :func:`sweep_fused_plain` for tensors on the CPU.
 
+    The kernel walks the rows in cell order: work item ``i < n``
+    handles row ``s_w[i] >> id_shift``. So the first n ids of ``s_w``
+    must be a permutation of ``[0, n)``, as :func:`front_half` makes
+    them (dead and excluded slots included, in the dump bin).
+
     Args:
       s_xz: f32[2, L] sorted x and z rows; s_w: i32[L] packed slot
         words (L = n + 3cc, the last 3cc lanes sentinels).

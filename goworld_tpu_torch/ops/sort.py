@@ -10,8 +10,10 @@ drops:
   chunked counting sort (bin offsets from a histogram and cumsum, then
   each element's rank among earlier equal keys, chunk by chunk).
 * :func:`counting_sort_cells_cuda` is the kernel's wrapper
-  (``csrc/counting_sort.cu``, an LSD radix sort of stable counting
-  passes). It takes the plain version for a CPU tensor only.
+  (``csrc/counting_sort.cu``, a one-sweep LSD radix sort: one histogram
+  kernel for all passes, then one scatter kernel a pass with decoupled
+  look-back). :func:`radix_plan` picks its passes and digit width. It
+  takes the plain version for a CPU tensor only.
 """
 
 from __future__ import annotations
@@ -21,6 +23,10 @@ import torch
 from goworld_tpu_torch import kernels
 
 DEFAULT_CHUNK = 2048
+# widest digit of the radix kernel's plan: the bench's 19-bit keys sort
+# in 3 passes of 7 bits (128 bins a pass), which beat 2 passes of 10 bits
+# and 4 of 5 on an H100 (``ablate_kernels``, PERF.md)
+RADIX_MAX_DIGIT_BITS = 8
 
 
 def row_starts(srow: torch.Tensor, n_rows: int) -> torch.Tensor:
@@ -83,6 +89,16 @@ def counting_sort_cells(
     return _finish(srow, torch.cat(dst), n)
 
 
+def radix_plan(key_bits: int) -> tuple[int, int]:
+    """(passes, digit_bits) of the radix kernel for keys of ``key_bits``
+    bits: the fewest passes of at most ``RADIX_MAX_DIGIT_BITS`` bits,
+    with the bits spread evenly over them (19 bits: 3 passes of 7)."""
+    if not 1 <= key_bits <= 31:
+        raise ValueError(f"key_bits must be in [1, 31], got {key_bits}")
+    passes = -(-key_bits // RADIX_MAX_DIGIT_BITS)
+    return passes, -(-key_bits // passes)
+
+
 def counting_sort_cells_cuda(
     srow: torch.Tensor, n_rows: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -90,7 +106,7 @@ def counting_sort_cells_cuda(
     ``csrc/counting_sort.cu`` for a tensor on the card; the plain
     version for a tensor on the CPU. Keys outside ``[0, n_rows]`` are
     not checked on the card (that would stall the host) and sort
-    wrongly."""
+    wrongly; the kernel takes fewer than 2^30 keys."""
     if srow.dim() != 1:
         raise ValueError(f"srow: expected 1-D, got {tuple(srow.shape)}")
     kernels.require(srow, "srow", torch.int32)
@@ -102,18 +118,17 @@ def counting_sort_cells_cuda(
         raise ValueError(f"srow: unsupported device {srow.device}")
     so = kernels.lib()
     n = srow.shape[0]
-    bits = max(1, n_rows.bit_length())
     dev = srow.device
-    tmp_k = torch.empty(2 * n, dtype=torch.int32, device=dev)
-    tmp_v = torch.empty(2 * n, dtype=torch.int32, device=dev)
-    hist = torch.empty(so.gw_counting_sort_hist_len(n, bits),
-                       dtype=torch.int32, device=dev)
-    order = torch.empty(n, dtype=torch.int32, device=dev)
-    sorted_row = torch.empty(n, dtype=torch.int32, device=dev)
+    passes, digit_bits = radix_plan(max(1, n_rows.bit_length()))
+    # one scratch block: ping-pong keys and slots, the digit table, the
+    # tickets and the look-back records
+    slen = so.gw_counting_sort_scratch_len(n, passes, digit_bits)
+    scratch = torch.empty(slen, dtype=torch.int32, device=dev)
+    out = torch.empty((2, n), dtype=torch.int32, device=dev)
+    order, sorted_row = out[0], out[1]
     err = so.gw_counting_sort(
-        srow.data_ptr(), n, bits, tmp_k.data_ptr(), tmp_v.data_ptr(),
-        hist.data_ptr(), order.data_ptr(), sorted_row.data_ptr(),
-        kernels.stream_handle(dev))
+        srow.data_ptr(), n, passes, digit_bits, scratch.data_ptr(), slen,
+        order.data_ptr(), sorted_row.data_ptr(), kernels.stream_handle(dev))
     kernels.check(err, "counting_sort_cells_cuda")
     kernels.LAUNCHES["counting_sort"] += 1
     return order, sorted_row

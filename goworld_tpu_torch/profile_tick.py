@@ -16,7 +16,10 @@ stdout:
   for the host to launch its work;
 * ``kernels_top``: the device kernels with the most time over a short
   profiled window (torch.profiler), and ``busy_ms`` / ``idle_share``:
-  the summed kernel time against the window's tick time.
+  the summed kernel time against the window's tick time;
+* ``csrc_kernels``: device ms and calls a tick of each kernel built from
+  ``csrc/`` (the ``__global__`` functions of its sources), and
+  ``memset_ms_per_tick``.
 
 The full profiler table goes to ``<out>/profile_tick.txt``. Needs a CUDA
 card; there is no CPU mode.
@@ -26,12 +29,14 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
 
 import torch
 
+from goworld_tpu_torch import kernels
 from goworld_tpu_torch.core import step
 from goworld_tpu_torch.core.step import make_tick
 from goworld_tpu_torch.ops import aoi
@@ -79,6 +84,14 @@ MEGA_STAGES = [
     ("9 stack tiles", megaspace, "stack_states"),
     ("9 stack outputs", megaspace, "_stack_outputs"),
 ]
+
+
+def _csrc_kernel_names() -> set[str]:
+    """Names of the ``__global__`` functions in ``csrc/*.cu``."""
+    pat = re.compile(
+        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)")
+    return {name for src in kernels.CSRC.glob("*.cu")
+            for name in pat.findall(src.read_text())}
 
 
 def _timed(fn, name, marks):
@@ -168,6 +181,17 @@ def main(argv=None) -> int:
     top = [{"kernel": e.key[:90], "calls_per_tick": e.count / window,
             "ms_per_tick": e.device_time_total / 1e3 / window}
            for e in events[:15]]
+    csrc, ours = {}, _csrc_kernel_names()
+    for e in events:
+        key = e.key.removeprefix("void ")
+        name = key.split("::", 1)[-1].split("(")[0].split("<")[0]
+        if key.startswith("(anonymous namespace)::") and name in ours:
+            row = csrc.setdefault(name, {"ms_per_tick": 0.0,
+                                         "calls_per_tick": 0.0})
+            row["ms_per_tick"] += e.device_time_total / 1e3 / window
+            row["calls_per_tick"] += e.count / window
+    memset_ms = sum(e.device_time_total for e in events
+                    if e.key.startswith("Memset")) / 1e3 / window
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     (out / f"profile_tick{'_mega' if args.mega else ''}.txt").write_text(
@@ -180,7 +204,8 @@ def main(argv=None) -> int:
         "window_ticks": window, "window_ms": window_ms,
         "busy_ms": busy_ms,
         "idle_share": 1.0 - busy_ms / window_ms if window_ms else None,
-        "kernels_top": top,
+        "kernels_top": top, "csrc_kernels": csrc,
+        "memset_ms_per_tick": memset_ms,
     }), flush=True)
     return 0
 

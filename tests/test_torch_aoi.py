@@ -3,7 +3,10 @@ inputs: grid_neighbors_flags under fused+pallas (the CUDA kernels' plain
 versions on the CPU) against JAX's fused+pallas (Pallas in interpret
 mode) and ranges+argsort, bit for bit in nbr, cnt, flags and the four
 gauges; one check against the brute-force oracle; GridSpec knobs and
-properties mean the same on both sides."""
+properties mean the same on both sides. The fused kernel's cell-order
+walk (every query row visited once, the megaspace's Q < n included) and
+a lane-level model of its selection (ballot compaction, the 15-step
+bitonic network, the overflow rounds) against a sort."""
 
 import dataclasses
 
@@ -182,3 +185,127 @@ def test_sweep_wrapper_rejects_what_the_kernel_does_not_take(bad):
     with pytest.raises((TypeError, ValueError)):
         taoi.sweep_fused_cuda(k=spec.k, cc=spec.cell_cap, code=fh.code,
                               with_stats=False, **args)
+
+
+def _walk_rows(fh, n):
+    """The rows the kernel's work items 0..n-1 visit, in order."""
+    return (fh.s_w[:n] >> fh.code[0]).tolist()
+
+
+@pytest.mark.parametrize("flags", [True, False], ids=["id_shift2",
+                                                       "id_shift0"])
+def test_cell_order_walk_visits_every_row_once_bench(flags):
+    from goworld_tpu_torch.workload import bench_world, slice_config
+
+    cfg = slice_config(1024)
+    st, _ = bench_world(cfg, seed=3, device="cpu")
+    alive = st.alive.clone()
+    alive[::7] = False                   # dead slots sort into the dump bin
+    fb = st.has_client.to(torch.int32) << 1 if flags else None
+    fh = taoi.front_half(cfg.grid, st.pos, alive, None, st.aoi_radius, fb)
+    assert fh.code[0] == (2 if flags else 0)
+    rows = _walk_rows(fh, 1024)
+    assert sorted(rows) == list(range(1024))
+    # the walk is in cell order: rows of one cell are consecutive items
+    srow = fh.srow[torch.tensor(rows)]
+    assert bool((srow[1:] >= srow[:-1]).all())
+
+
+@pytest.mark.parametrize("flags", [True, False], ids=["id_shift2",
+                                                       "id_shift0"])
+def test_cell_order_walk_visits_every_row_once_megaspace_tile(flags):
+    from goworld_tpu_torch.parallel import halo
+    from goworld_tpu_torch.parallel.megaspace import tile_shifts
+    from goworld_tpu_torch.workload import mega_config, mega_world
+
+    mc = mega_config(4096, 4)
+    g, n = mc.cfg.grid, mc.cfg.capacity
+    st, _ = mega_world(mc, 4096, seed=2, device="cpu")
+    dirty = st.alive.clone()
+    visible = st.alive & (st.aoi_radius > 0.0)
+    gpos, _, gdirty, gvalid, _, _ = halo.exchange_halo_2d(
+        mc.shape, n, st.pos, st.yaw, dirty, visible, mc.tile_w, mc.tile_d,
+        g.radius, mc.halo_cap, impl="async")
+    assert int(gvalid[0].sum()) > 0     # tile 0 has ghosts
+    pos_ext = torch.cat([st.pos[0], gpos[0]]) - tile_shifts(mc, "cpu")[0]
+    n_ext = pos_ext.shape[0]
+    alive_ext = torch.cat([st.alive[0], gvalid[0]])
+    fb = torch.cat([dirty[0], gdirty[0]]).to(torch.int32) if flags else None
+    wr = torch.cat([st.aoi_radius[0],
+                    torch.full((n_ext - n,), float("inf"))])
+    fh = taoi.front_half(g, pos_ext, alive_ext, n, wr, fb)
+    assert fh.lo.shape[0] == n < n_ext
+    rows = _walk_rows(fh, n_ext)
+    assert sorted(rows) == list(range(n_ext))
+    queries = [r for r in rows if r < n]   # what the kernel does not skip
+    assert sorted(queries) == list(range(n))
+
+
+def _lane_select(keys, valid, k, invalid):
+    """The kernel's selection for one row, lane by lane. ``keys`` and
+    ``valid`` are [PER, 32]: candidate lane c = lane + 32 j sits at
+    [j, lane]. Returns (top keys [k], demand, bitonic steps run)."""
+    per = keys.shape[0]
+    lane = torch.arange(32)
+    demand = 0
+    packed = torch.full((32,), invalid, dtype=keys.dtype)
+    for j in range(per):                      # ballot compaction
+        m = valid[j]
+        at = demand + torch.cumsum(m.long(), 0) - m.long()  # popc(m & lt)
+        put = m & (at < 32)
+        packed[at[put]] = keys[j][put]
+        demand += int(m.sum())
+    out = torch.full((k,), invalid, dtype=keys.dtype)
+    steps = 0
+    if demand <= 32:
+        x = torch.where(lane < demand, packed, invalid)
+        size = 2
+        while size <= 32 and size // 2 < demand:   # the kernel's early stop
+            stride = size >> 1
+            while stride > 0:
+                y = x[lane ^ stride]              # __shfl_xor_sync
+                up = (lane & size) == 0
+                lower = (lane & stride) == 0
+                x = torch.where(lower == up, torch.minimum(x, y),
+                                torch.maximum(x, y))
+                steps += 1
+                stride >>= 1
+            size <<= 1
+        out[:min(k, 32)] = x[:min(k, 32)]
+        return out, demand, steps
+    regs = torch.where(valid, keys, invalid)
+    for r in range(k):                        # the overflow rounds
+        m = int(regs.min())
+        if m == invalid:
+            break
+        out[r] = m
+        regs = torch.where(regs == m, invalid, regs)
+    return out, demand, steps
+
+
+@pytest.mark.parametrize("k", [1, 8, 32, 64])
+@pytest.mark.parametrize("demand", [0, 1, 2, 5, 16, 17, 31, 32, 33, 108])
+@pytest.mark.parametrize("invalid", [2**31 - 1, 0x7F800000],
+                         ids=["i32", "f32"])
+def test_lane_selection_model_equals_sort(demand, k, invalid):
+    rng = np.random.default_rng(demand * 100 + k)
+    per, lanes = 4, 108                       # cell_cap 12: 9 * 12 lanes
+    keys = np.full(per * 32, invalid, np.int64)
+    valid = np.zeros(per * 32, bool)
+    at = rng.choice(lanes, demand, replace=False)
+    # unique valid keys below the invalid one, as (qd << 23) | word
+    vals = rng.choice(254 << 23, demand, replace=False)
+    keys[at], valid[at] = vals, True
+    # lanes past a run's end hold the invalid key too
+    keys_t = torch.tensor(keys.reshape(per, 32))
+    valid_t = torch.tensor(valid.reshape(per, 32))
+    got, dem, steps = _lane_select(keys_t, valid_t, k, invalid)
+    want = torch.sort(torch.tensor(keys)).values[:k]
+    want = torch.cat([want, torch.full((k - want.shape[0],), invalid,
+                                       dtype=want.dtype)])
+    assert dem == demand
+    # stages of 2, 4, 8, 16, 32 lanes: 1 + 2 + 3 + 4 + 5 steps, cut after
+    # the first whose blocks hold all the valid keys
+    want_steps = {0: 0, 1: 0, 2: 1, 5: 6, 16: 10, 17: 15, 31: 15, 32: 15}
+    assert steps == want_steps.get(demand, 0)
+    assert torch.equal(got, want)
