@@ -15,17 +15,18 @@ is caught:
 4. the fused-sweep kernel against its plain version at 2^20 queries,
    then at k = 8 and 64, cell_cap 3, 4 and 28 (one and eight keys a
    lane), without flag bits, and on a clustered world where most rows
-   have demand > 32; then ``grid_neighbors_flags`` under fused+pallas
-   against ranges+argsort on the card for the sort, exact and f32
-   rankings, and at a small size against the brute-force oracle;
+   have demand > 32, each time checking that the sorted slot ids it
+   walks are a permutation of the rows; then ``grid_neighbors_flags``
+   under fused+pallas against ranges+argsort on the card for the sort,
+   exact and f32 rankings, and at a small size against the brute-force
+   oracle;
 5. the single-Space path: the 2^20-entity bench world through
    ``create_state`` and ``make_tick`` for TICKS ticks with the
    4096-record input stream, checking the launch counts, events,
    records, and one tick against the same tick run on the kernels'
    plain versions;
-6. the sweep and sort kernels timed at that path's shapes, by CUDA
-   events over back-to-back calls and by their own device time
-   (torch.profiler), with their kernel launches a call;
+6. the sweep and sort kernels timed at that path's shapes by CUDA
+   events over back-to-back calls, and their bounds;
 7. the halo ship kernel against its plain version at halo_cap 4096 for
    every shift and ``recv_ok`` pattern the 1D (8 tiles) and 2D (2x2)
    exchanges pass, then ``exchange_halo_2d`` under "async" against
@@ -37,13 +38,17 @@ is caught:
    (ppermute ship, ranges sweep, counting sort), and one tick under the
    sync guard;
 9. the fused sweep at the megaspace shape (queries Q < n rows: local
-   rows over local + ghost rows) against its plain version, and the
+   rows over local + ghost rows, whose sorted slot ids are checked to be
+   a permutation of them) against its plain version, and the
    ship kernel's times (events and device time);
 10. a small 2x2 megaspace against a brute-force interest oracle, across
     every kind of tile border (x, z, corner);
-11. a ``kernels`` JSON line: per kernel its launches on its path, time,
-    device time, kernel launches a call, plain time, library time and
-    bound;
+11. the sweep's and sort's own device time and kernel launches a call
+    (torch.profiler, read here because a profiler session slows every
+    later launch of the timed ticks), then a ``kernels`` JSON line: per
+    kernel its launches on its path, time, device time, kernel launches
+    a call, plain time, library time and bound (the sweep's also by the
+    all-lanes count of earlier runs: ``bound_ms_window_lanes``);
 12. the result line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.
@@ -112,29 +117,19 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return a.elapsed_time(b) / reps
 
 
-def device_ms(fn, reps: int) -> tuple[float, float]:
-    """(device ms a call, kernel launches a call) of ``fn()`` from
-    torch.profiler: every device activity of ``reps`` calls (kernels and
-    memsets) summed, over ``reps``; memsets are not counted as
-    launches."""
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages()
-          if e.device_type == torch.autograd.DeviceType.CUDA]
-    us = sum(e.device_time_total for e in ev)
-    launches = sum(e.count for e in ev
-                   if not e.key.startswith(("Memset", "Memcpy")))
-    return us / 1e3 / reps, launches / reps
-
-
 def same(a, b) -> bool:
     return a.shape == b.shape and a.dtype == b.dtype and bool(
         torch.equal(a, b))
+
+
+def visits_every_row(fh) -> bool:
+    """Whether the sorted view's first n slot ids (n rows, before the
+    3*cell_cap sentinel lanes) are a permutation of [0, n): the fused
+    kernel walks its rows by them and writes only the rows they name."""
+    n = fh.srow.numel()
+    ids = torch.sort(fh.s_w[:n] >> fh.code[0]).values
+    return bool(torch.equal(ids, torch.arange(n, dtype=ids.dtype,
+                                              device=ids.device)))
 
 
 def bound(nbytes, nops):
@@ -360,12 +355,14 @@ def mega_path(dev, mc: MegaConfig, tag: str) -> dict:
     torch.cuda.synchronize()
     if not (fh.lo.shape[0] == n < pos_ext.shape[0]):
         fail("the megaspace sweep check did not run Q < n")
+    if not visits_every_row(fh):
+        fail("the megaspace tile's sorted slot ids are not a permutation "
+             "of its local + ghost rows")
     if not (same(top_k, top_p) and same(dem_k, dem_p)):
         bad = int((top_k != top_p).any(1).sum())
         fail(f"fused sweep at Q={n} < n={pos_ext.shape[0]} differs from "
              f"its plain version in {bad} rows")
     tile_sweep_ms = time_ms(lambda: aoi.sweep_fused_cuda(*args), 20)
-    tile_sweep_dev, _ = device_ms(lambda: aoi.sweep_fused_cuda(*args), 20)
 
     # the ship kernel's times: tile strips of the megaspace shape, the
     # phase-1 eastward ship
@@ -382,10 +379,13 @@ def mega_path(dev, mc: MegaConfig, tag: str) -> dict:
     ship_lib = time_ms(lambda: torch.roll(bufs, tz, 0), 200)
     if err != 0:
         fail("ship kernel differs from its plain version at timing inputs")
-    # the kernel's own device time (the event-timed loop above is set by
-    # the host's launch rate)
-    ship_dev, ship_lpc = device_ms(lambda: halo.ship_ring_cuda(bufs, tz, ok),
-                                   50)
+    # the kernels' own device times (the event-timed ship loop above is
+    # set by the host's launch rate), read after every event timing: a
+    # profiler session slows the launches that follow it
+    ship_dev, ship_lpc = kernels.device_ms(
+        lambda: halo.ship_ring_cuda(bufs, tz, ok), 50)
+    tile_sweep_dev, _ = kernels.device_ms(
+        lambda: aoi.sweep_fused_cuda(*args), 20)
     # the strips of receiving tiles are read, every tile's block is
     # written (zeros where recv_ok is false); one select a word
     strip_bytes = bufs[0].numel() * bufs.element_size()
@@ -409,6 +409,25 @@ def mega_path(dev, mc: MegaConfig, tag: str) -> dict:
         "plain_ms": ship_plain, "bound_ms": bms,
         "bound_by": by, "library_ms": ship_lib,
     }
+
+
+def device_times(profiled: dict, rows: list, plan) -> str:
+    """Fill the rows' ``device_ms`` and ``launches_per_call`` from
+    torch.profiler and check the launches a call. A profiler session
+    leaves the card's profiling interface attached, which slows every
+    later launch of the host-bound ticks, so this runs after [5] and
+    [8] have been timed (as the ship's reading in [9] does)."""
+    got = {name: kernels.device_ms(fn, 20)
+           for name, fn in profiled.items()}
+    for row in rows:
+        row["device_ms"], row["launches_per_call"] = got[row["name"]]
+    sweep_lpc = got["sweep_fused_cuda"][1]
+    sort_lpc = got["counting_sort_cells_cuda"][1]
+    if sweep_lpc != 1 or sort_lpc > plan[0] + 1:
+        fail(f"kernel launches a call: sweep {sweep_lpc}, sort {sort_lpc} "
+             f"(plan {plan} allows {plan[0] + 1})")
+    return ", ".join(f"{name} {ms:.5f} ms ({lpc:g} kernels)"
+                     for name, (ms, lpc) in got.items())
 
 
 def small_oracle(dev) -> None:
@@ -555,6 +574,8 @@ def main() -> int:
     top_k, dem_k = aoi.sweep_fused_cuda(*args)
     top_p, dem_p = aoi.sweep_fused_plain(*args, row_block=g.row_block)
     torch.cuda.synchronize()
+    if not visits_every_row(fh):
+        fail("the sorted slot ids are not a permutation of the rows")
     if not (same(top_k, top_p) and same(dem_k, dem_p)):
         bad = int((top_k != top_p).any(1).sum())
         fail(f"fused sweep differs from its plain version in {bad} rows")
@@ -566,7 +587,7 @@ def main() -> int:
                             flag_bits if flagged else None, with_stats=True)
         av = (fv.s_xz, fv.s_w, fv.lo, fv.hi, st0.pos, fv.reach, k, cc,
               fv.code, True)
-        if not all(same(x, y) for x, y in zip(
+        if not visits_every_row(fv) or not all(same(x, y) for x, y in zip(
                 aoi.sweep_fused_cuda(*av),
                 aoi.sweep_fused_plain(*av, row_block=g.row_block))):
             fail(f"fused sweep differs from its plain version at k={k}, "
@@ -594,7 +615,8 @@ def main() -> int:
         top_k, dem_k = aoi.sweep_fused_cuda(*ac)
         top_p, dem_p = aoi.sweep_fused_plain(*ac, row_block=g.row_block)
         share = float((dem_p > 32).float().mean())
-        if not (same(top_k, top_p) and same(dem_k, dem_p)):
+        if not (visits_every_row(fc) and same(top_k, top_p)
+                and same(dem_k, dem_p)):
             fail(f"fused sweep differs from its plain version on the "
                  f"clustered world (k={k}, cell_cap={cc})")
         if share <= 0.1:
@@ -717,6 +739,8 @@ def main() -> int:
                         flag_bits, with_stats=True)
     args = (fh.s_xz, fh.s_w, fh.lo, fh.hi, st.pos, fh.reach, g.k,
             g.cell_cap, fh.code, True)
+    if not visits_every_row(fh):
+        fail("the sorted slot ids are not a permutation of the rows")
     k_top, k_dem = aoi.sweep_fused_cuda(*args)
     p_top, p_dem = aoi.sweep_fused_plain(*args, row_block=g.row_block)
     sweep_err = int((k_top.long() - p_top.long()).abs().max()) + int(
@@ -728,10 +752,19 @@ def main() -> int:
     s_len = fh.s_w.numel()
     sweep_bytes = (12 * s_len + 24 * N + 12 * N + 4 * N  # in
                    + 4 * g.k * N + 4 * N)                # out
-    # per candidate lane: 5 distance, 3 validity, 6 key-pack operations;
-    # per selection round (min(demand, k) + 1 a row): 2 per lane
-    rounds = int((torch.clamp_max(k_dem, g.k) + 1).sum())
-    sweep_ops = 14 * n_lanes * N + 2 * n_lanes * rounds
+    # the work this run's inputs need: 5 distance, 3 validity and 6
+    # key-pack operations per in-range candidate (a run's lanes up to
+    # 3*cell_cap), and d*log2(d) compares to order a row's d valid keys
+    cand = int(torch.clamp(fh.hi - fh.lo, 0, 3 * g.cell_cap).sum())
+    d = p_dem.double()
+    sweep_ops = 14 * cand + float((d * torch.log2(d.clamp_min(1))).sum())
+    # the count of earlier bounds, kept beside it so that times before
+    # and after the kernel's redesign read against one yardstick: every
+    # lane of the 3x3 window, and 2 per lane per selection round
+    # (min(demand, k) + 1 rounds a row)
+    rounds = int((torch.clamp_max(p_dem, g.k) + 1).sum())
+    window_ops = 14 * n_lanes * N + 2 * n_lanes * rounds
+    window_bms, _ = bound(sweep_bytes, window_ops)
     o_k, s_k = counting_sort_cells_cuda(fh.srow, fh.n_rows)
     o_p, s_p = counting_sort_cells(fh.srow, fh.n_rows)
     sort_err = int((o_k - o_p).abs().max()) + int((s_k - s_p).abs().max())
@@ -740,47 +773,46 @@ def main() -> int:
     sort_plain = time_ms(
         lambda: counting_sort_cells(fh.srow, fh.n_rows), 3, 1)
     sort_lib = time_ms(lambda: torch.argsort(fh.srow, stable=True), 20)
-    sweep_dev, sweep_lpc = device_ms(lambda: aoi.sweep_fused_cuda(*args), 20)
-    sort_dev, sort_lpc = device_ms(
-        lambda: counting_sort_cells_cuda(fh.srow, fh.n_rows), 20)
-    lib_dev, _ = device_ms(lambda: torch.argsort(fh.srow, stable=True), 20)
-    bits = max(1, fh.n_rows.bit_length())
-    plan = radix_plan(bits)
-    if sweep_lpc != 1 or sort_lpc > plan[0] + 1:
-        fail(f"kernel launches a call: sweep {sweep_lpc}, sort {sort_lpc} "
-             f"(plan {plan} allows {plan[0] + 1})")
-    passes = -(-bits // 8)
+    plan = radix_plan(max(1, fh.n_rows.bit_length()))
+    # read by torch.profiler after the megaspace path (see device_times)
+    profiled = {
+        "sweep_fused_cuda": lambda: aoi.sweep_fused_cuda(*args),
+        "counting_sort_cells_cuda":
+            lambda: counting_sort_cells_cuda(fh.srow, fh.n_rows),
+        "torch.argsort": lambda: torch.argsort(fh.srow, stable=True)}
     sort_bytes = 12 * N
-    sort_ops = passes * 12 * N  # digit extract, histogram, rank, scatter
+    sort_ops = plan[0] * 12 * N  # digit extract, histogram, rank, scatter
 
     rows = []
-    for name, src, rep, err, kms, dms, lpc, pms, lms, nb, no in (
+    for name, src, rep, err, kms, pms, lms, nb, no in (
             ("sweep_fused_cuda", "goworld_tpu_torch/csrc/aoi_fused.cu",
-             "goworld_tpu/ops/aoi.py:919", sweep_err, sweep_ms, sweep_dev,
-             sweep_lpc, sweep_plain, None, sweep_bytes, sweep_ops),
+             "goworld_tpu/ops/aoi.py:919", sweep_err, sweep_ms,
+             sweep_plain, None, sweep_bytes, sweep_ops),
             ("counting_sort_cells_cuda",
              "goworld_tpu_torch/csrc/counting_sort.cu",
-             "goworld_tpu/ops/sort.py:157", sort_err, sort_ms, sort_dev,
-             sort_lpc, sort_plain, sort_lib, sort_bytes, sort_ops)):
+             "goworld_tpu/ops/sort.py:157", sort_err, sort_ms,
+             sort_plain, sort_lib, sort_bytes, sort_ops)):
         bms, by = bound(nb, no)
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": launches["sweep_fused" if "sweep" in name
                                  else "counting_sort"],
-            "max_abs_err": err, "ms": kms, "device_ms": dms,
-            "launches_per_call": lpc, "plain_ms": pms,
+            "max_abs_err": err, "ms": kms, "device_ms": None,
+            "launches_per_call": None, "plain_ms": pms,
             "bound_ms": bms, "bound_by": by, "library_ms": lms,
         })
+        if "sweep" in name:
+            rows[-1]["bound_ms_window_lanes"] = window_bms
         if err != 0:
             fail(f"{name} differs from its plain version at timing inputs")
     print(f"[6] sweep and sort timed at the single-Space shapes, launches "
           f"per tick: { {k: v / TICKS for k, v in launches.items()} }; "
-          f"sweep {sweep_ms:.5f} ms a call (device {sweep_dev:.5f} ms, "
-          f"{sweep_lpc:g} kernel); sort {sort_ms:.5f} ms a call (device "
-          f"{sort_dev:.5f} ms, {sort_lpc:g} kernels, plan {plan}) against "
-          f"torch.argsort(stable=True) {sort_lib:.5f} ms (device "
-          f"{lib_dev:.5f} ms): sort "
-          f"{'<=' if sort_ms <= sort_lib else '>'} argsort {tag}",
+          f"sweep {sweep_ms:.5f} ms a call (bound "
+          f"{rows[0]['bound_ms']:.5f} ms by {rows[0]['bound_by']} for "
+          f"{cand / N:.2f} in-range candidates a row, {window_bms:.5f} ms "
+          f"by the all-lanes count); sort {sort_ms:.5f} ms a call (plan "
+          f"{plan}) against torch.argsort(stable=True) {sort_lib:.5f} ms: "
+          f"sort {'<=' if sort_ms <= sort_lib else '>'} argsort {tag}",
           flush=True)
 
     mc = mega_config(N, MEGA_DEV)
@@ -788,7 +820,10 @@ def main() -> int:
     rows.append(mega_path(dev, mc, tag))
     small_oracle(dev)
 
-    print(f"[11] kernel times on the next line {tag}", flush=True)
+    dev_ms = device_times(profiled, rows[:2], plan)
+    print(f"[11] device time a call (torch.profiler, after the timed "
+          f"paths): {dev_ms}; kernel times on the next line {tag}",
+          flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

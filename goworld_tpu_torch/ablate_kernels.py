@@ -9,13 +9,14 @@ front half of the bench world and prints one JSON line: per copy its
 device time a call (torch.profiler, every device activity of the call)
 and whether its output equals the shipped kernel's. An ablation that
 drops work answers wrongly on purpose; it only shows what that work
-costs. Needs a CUDA card and nvcc; there is no CPU mode.
+costs. The substitutions match the sources' text exactly, so an edit
+to a source can make one miss: the script then stops and names it.
+Needs a CUDA card and nvcc; there is no CPU mode.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import subprocess
 import sys
@@ -80,24 +81,8 @@ def _build(src: str, subs, tmp: Path, tag: int):
     return proc, so
 
 
-def _device_ms(fn, reps: int = 20) -> float:
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) \
-        / 1e3 / reps
-
-
 def _sweep_call(so, fh, pos, g):
-    lib = ctypes.CDLL(str(so))
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.gw_sweep_fused.argtypes = [
-        p, p, i, p, p, p, p, i, i, i, i, i, i, i, i, f, i, p, p, p]
+    lib = kernels.load(so, ["gw_sweep_fused"])
     q = fh.lo.shape[0]
     # filled, so that a copy that skips stores cannot match by chance
     top = torch.full((q, g.k), -1, dtype=torch.int32, device=pos.device)
@@ -116,12 +101,8 @@ def _sweep_call(so, fh, pos, g):
 
 
 def _sort_call(so, srow, plan):
-    lib = ctypes.CDLL(str(so))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.gw_counting_sort.argtypes = [
-        p, i, i, i, p, ctypes.c_longlong, p, p, p]
-    lib.gw_counting_sort_scratch_len.argtypes = [i, i, i]
-    lib.gw_counting_sort_scratch_len.restype = ctypes.c_longlong
+    lib = kernels.load(so, ["gw_counting_sort_scratch_len",
+                            "gw_counting_sort"])
     n = srow.shape[0]
     slen = lib.gw_counting_sort_scratch_len(n, *plan)
     scratch = torch.empty(slen, dtype=torch.int32, device=srow.device)
@@ -173,7 +154,8 @@ def main(argv=None) -> int:
             same = all(torch.equal(a, b) for a, b in zip(out, ref[kind]))
             rows.append({"ablation": name, "plan": plan or (
                 shipped_plan if kind == "sort" else None),
-                "device_ms": _device_ms(call), "same_output": same})
+                "device_ms": kernels.device_ms(call, 20)[0],
+                "same_output": same})
     print(json.dumps({"gpu": card, "n": args.n, "ablations": rows}),
           flush=True)
     return 0

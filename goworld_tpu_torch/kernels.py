@@ -11,7 +11,8 @@ Nothing here falls back: a missing ``nvcc`` or a failed build raises.
 Only a wrapper given CPU tensors takes its kernel's plain version.
 
 ``LAUNCHES`` counts the kernel launches of each wrapper; a wrapper adds
-one where it launches its kernel and nowhere else.
+one where it launches its kernel and nowhere else. :func:`device_ms`
+reads a call's own time on the card.
 """
 
 from __future__ import annotations
@@ -104,24 +105,32 @@ def build() -> tuple[Path, float, str]:
     return out, time.perf_counter() - t0, "\n".join(log)
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# (argument types, result type) of each C entry point
+SIGNATURES = {
+    "gw_sweep_fused": ([_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                        _I, _I, ctypes.c_float, _I, _P, _P, _P], _I),
+    "gw_counting_sort_scratch_len": ([_I, _I, _I], ctypes.c_longlong),
+    "gw_counting_sort": ([_P, _I, _I, _I, _P, ctypes.c_longlong, _P, _P, _P],
+                         _I),
+    "gw_halo_ship": ([ctypes.POINTER(_P), ctypes.POINTER(_P), _I, _I, _I,
+                      ctypes.c_ulonglong, _P], _I),
+}
+
+
+def load(path: Path, names=tuple(SIGNATURES)) -> ctypes.CDLL:
+    """Load a kernel library and type its C entry points ``names``."""
+    so = ctypes.CDLL(str(path))
+    for name in names:
+        fn = getattr(so, name)
+        fn.argtypes, fn.restype = SIGNATURES[name]
+    return so
+
+
 @functools.cache
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
-    path, _, _ = build()
-    so = ctypes.CDLL(str(path))
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    so.gw_sweep_fused.argtypes = [
-        p, p, i, p, p, p, p, i, i, i, i, i, i, i, i, f, i, p, p, p]
-    so.gw_sweep_fused.restype = i
-    so.gw_counting_sort_scratch_len.argtypes = [i, i, i]
-    so.gw_counting_sort_scratch_len.restype = ctypes.c_longlong
-    so.gw_counting_sort.argtypes = [
-        p, i, i, i, p, ctypes.c_longlong, p, p, p]
-    so.gw_counting_sort.restype = i
-    pp = ctypes.POINTER(p)
-    so.gw_halo_ship.argtypes = [pp, pp, i, i, i, ctypes.c_ulonglong, p]
-    so.gw_halo_ship.restype = i
-    return so
+    return load(build()[0])
 
 
 def stream_handle(device: torch.device) -> int:
@@ -145,3 +154,26 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype,
             f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def device_ms(fn, reps: int) -> tuple[float, float]:
+    """(device ms a call, kernel launches a call) of ``fn()`` from
+    torch.profiler: every device activity of ``reps`` calls (kernels and
+    memsets) summed, over ``reps``, after one call that is not profiled;
+    memsets and copies are not counted as launches. The profiling
+    interface stays attached after the session and slows every later
+    launch from the host, so time by events before this, not after."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    us = sum(e.device_time_total for e in ev)
+    launches = sum(e.count for e in ev
+                   if not e.key.startswith(("Memset", "Memcpy")))
+    return us / 1e3 / reps, launches / reps
+

@@ -9,6 +9,12 @@ Runs the bench world of :mod:`goworld_tpu_torch.workload` through
 tiles through ``make_mega_tick``) and reports, as one JSON line on
 stdout:
 
+* ``tick_ms_mean``, ``tick_ms_p50``, ``tick_ms_p99``: the ticks' times
+  by CUDA events (the stage events below included);
+  ``tick_ms_p50_p99_unwrapped``: as many ticks before the stages are
+  wrapped, and ``tick_ms_p50_p99_after_profiler``: as many after the
+  profiled window (a torch.profiler session slows the host's later
+  launches, so these two tell what it costs a host-bound tick);
 * ``stages``: mean ms per tick of each of the tick's stages, and of
   the sweep's parts (front half, fused kernel, unpack), from CUDA events
   recorded around the stage functions (wrapped for this run only); the
@@ -106,6 +112,27 @@ def _timed(fn, name, marks):
     return wrapper
 
 
+def _tick_times(tick, st, inputs, n):
+    """Run ``n`` ticks; (state after them, each tick's ms by CUDA
+    events as f64[n])."""
+    ev = []
+    for _ in range(n):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        st, _out = tick(st, inputs)
+        b.record()
+        ev.append((a, b))
+    torch.cuda.synchronize()
+    return st, torch.tensor([a.elapsed_time(b) for a, b in ev],
+                            dtype=torch.float64)
+
+
+def _p50_p99(ms) -> list[float]:
+    return ms.quantile(torch.tensor([0.5, 0.99], dtype=torch.float64)
+                       ).tolist()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1 << 20)
@@ -134,21 +161,14 @@ def main(argv=None) -> int:
     for _ in range(3):
         st, _out = tick(st, inputs)
     torch.cuda.synchronize()
+    st, before = _tick_times(tick, st, inputs, args.ticks)
 
     marks = []
     saved = [(mod, attr, getattr(mod, attr)) for _, mod, attr in stage_list]
     for name, mod, attr in stage_list:
         setattr(mod, attr, _timed(getattr(mod, attr), name, marks))
-    tick_ms = []
     try:
-        for _ in range(args.ticks):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            st, _out = tick(st, inputs)
-            b.record()
-            tick_ms.append((a, b))
-        torch.cuda.synchronize()
+        st, per_tick = _tick_times(tick, st, inputs, args.ticks)
     finally:
         for mod, attr, fn in saved:
             setattr(mod, attr, fn)
@@ -156,7 +176,8 @@ def main(argv=None) -> int:
     for name, a, b in marks:
         stages[name] = stages.get(name, 0.0) + a.elapsed_time(b)
     stages = {k: v / args.ticks for k, v in stages.items()}
-    tick_mean = sum(a.elapsed_time(b) for a, b in tick_ms) / args.ticks
+    tick_mean = float(per_tick.mean())
+    tick_p50, tick_p99 = _p50_p99(per_tick)
     top_level = sum(v for k, v in stages.items() if k[1] == " ")
     stages["other (rng split, flags, new state, Python)"] = \
         tick_mean - top_level
@@ -173,6 +194,7 @@ def main(argv=None) -> int:
         b.record()
         torch.cuda.synchronize()
     window_ms = a.elapsed_time(b)
+    st, after = _tick_times(tick, st, inputs, args.ticks)
     events = [e for e in prof.key_averages()
               if getattr(e, "device_time_total", 0) > 0
               and e.device_type == torch.autograd.DeviceType.CUDA]
@@ -200,7 +222,11 @@ def main(argv=None) -> int:
     print(json.dumps({
         "gpu": card, "n": args.n, "mega_tiles": args.mega,
         "ticks": args.ticks,
-        "tick_ms_mean": tick_mean, "stages_ms": stages,
+        "tick_ms_mean": tick_mean, "tick_ms_p50": tick_p50,
+        "tick_ms_p99": tick_p99,
+        "tick_ms_p50_p99_unwrapped": _p50_p99(before),
+        "tick_ms_p50_p99_after_profiler": _p50_p99(after),
+        "stages_ms": stages,
         "window_ticks": window, "window_ms": window_ms,
         "busy_ms": busy_ms,
         "idle_share": 1.0 - busy_ms / window_ms if window_ms else None,
