@@ -27,10 +27,13 @@ is caught:
    plain versions;
 6. the sweep and sort kernels timed at that path's shapes by CUDA
    events over back-to-back calls, and their bounds;
-7. the halo ship kernel against its plain version at halo_cap 4096 for
-   every shift and ``recv_ok`` pattern the 1D (8 tiles) and 2D (2x2)
-   exchanges pass, then ``exchange_halo_2d`` under "async" against
-   "ppermute" on the megaspace world;
+7. the halo phase kernel against its plain version bit for bit at
+   halo_cap 4096 in 84 cases (both 2D phases at 2x2 and 4x2, the 1D
+   phase of 8 tiles and one tile shipping to itself; the layout's
+   receivers, all and none; counts 0, H, > H and random; NaN, -0.0 and
+   inf words; gids up to the meta bound), then ``exchange_halo_2d`` on
+   the megaspace world and ``exchange_halo`` over 8 tiles under "async"
+   against "ppermute", with 2 and 1 kernel launches a call;
 8. the megaspace path: the 2^20-entity 2x2 megaspace through
    ``create_mega_state`` and ``make_mega_tick`` for MEGA_TICKS ticks,
    checking launch counts, events, records, ghosts, migrations and
@@ -39,8 +42,10 @@ is caught:
    sync guard;
 9. the fused sweep at the megaspace shape (queries Q < n rows: local
    rows over local + ghost rows, whose sorted slot ids are checked to be
-   a permutation of them) against its plain version, and the
-   ship kernel's times (events and device time);
+   a permutation of them) against its plain version, and the phase
+   kernel's times on the two phases of one exchange of the megaspace
+   state (events, then device time), beside one ``exchange_halo_2d``
+   under each halo impl (events, device time and kernels a call);
 10. a small 2x2 megaspace against a brute-force interest oracle, across
     every kind of tile border (x, z, corner);
 11. the sweep's and sort's own device time and kernel launches a call
@@ -156,6 +161,11 @@ def same_bits(a, b) -> bool:
     return bool(torch.equal(a, b))
 
 
+def words(t: torch.Tensor) -> torch.Tensor:
+    """A lane's 32-bit words (float lanes as their bits) as int64."""
+    return (t.view(torch.int32) if t.is_floating_point() else t).long()
+
+
 def lanes(obj) -> dict:
     """The tensor lanes of a state or outputs dataclass, nested ``base``
     flattened."""
@@ -169,60 +179,140 @@ def lanes(obj) -> dict:
     return out
 
 
-def ring_cases():
-    """(n_dev, shift, recv_ok) of every ship ``exchange_halo`` (8 tiles)
-    and ``exchange_halo_2d`` (2x2) make, plus all-on and all-off."""
-    tz = 2
-    ix = [t // tz for t in range(4)]
-    iz = [t % tz for t in range(4)]
-    return [
-        (4, -tz, [i < 1 for i in ix]), (4, tz, [i > 0 for i in ix]),
-        (4, -1, [i < tz - 1 for i in iz]), (4, 1, [i > 0 for i in iz]),
-        (8, -1, [t < 7 for t in range(8)]), (8, 1, [t > 0 for t in range(8)]),
-        (4, 3, [True] * 4), (4, 1, [False] * 4),
-    ]
+def phase_cases(dev, h: int, m: int):
+    """(label, src, strips, out, col0) of ship phases at halo_cap h over
+    m own rows a tile: both 2D phases at 2x2 and 4x2, the 1D phase of 8
+    tiles and one tile shipping to itself (shift 0, both segments), each
+    with the layout's receivers, all and none, and counts of 0, H, > H
+    and random. Lanes hold NaN payloads, -0.0 and infinities and gids up
+    to ``meta_gid_bound()``; the block's columns [0, col0) hold an earlier
+    phase's rows (the second segment) and flat rows past each count are
+    garbage the kernel must not read."""
+    one = (halo.Ring(1, (True,)), halo.Ring(-1, (True,)))
+    layouts = {
+        "2x2-x": (4, halo.rings_2d(2, 2)[0], 0, 4 * h),
+        "2x2-z": (4, halo.rings_2d(2, 2)[1], 2 * h, 4 * h),
+        "4x2-x": (8, halo.rings_2d(4, 2)[0], 0, 4 * h),
+        "4x2-z": (8, halo.rings_2d(4, 2)[1], 2 * h, 4 * h),
+        "1d8": (8, halo.rings_1d(8), 0, 2 * h),
+        "one-tile": (1, one, 0, 2 * h),
+        "one-tile-z": (1, one, 2 * h, 4 * h),
+    }
+    rng = np.random.default_rng(SEED + 21)
+    bound = halo.meta_gid_bound()
+    special = np.array([0x7FC01234, 0xFFA00001, 0x80000000, 0x7F800000,
+                        0xFF800000, 0x00000001], np.uint32)
+
+    def f32(shape):
+        x = rng.normal(0, 1e4, shape).astype(np.float32)
+        bits = x.reshape(-1).view(np.uint32)
+        bits[rng.choice(bits.size, 64, replace=False)] = np.resize(special,
+                                                                   64)
+        return x
+
+    def lanes(n_dev, rows, with_valid):
+        gid = rng.integers(0, bound + 1, (n_dev, rows)).astype(np.int32)
+        gid.reshape(-1)[:2] = [bound, 0]
+        out = [f32((n_dev, rows, 3)), f32((n_dev, rows)),
+               rng.random((n_dev, rows)) < 0.5]
+        if with_valid:
+            out.append(rng.random((n_dev, rows)) < 0.7)
+        return [torch.tensor(x, device=dev) for x in (*out, gid)]
+
+    for name, (n_dev, rings, col0, g) in layouts.items():
+        src, out = lanes(n_dev, m, False), lanes(n_dev, g, True)
+        for recv in ("layout", "all", "none"):
+            rs = rings if recv == "layout" else tuple(
+                halo.Ring(r.shift, (recv == "all",) * n_dev) for r in rings)
+            for counts in ("random", "zero", "full", "over"):
+                strips = []
+                for ring in rs:
+                    cnt = {"random": rng.integers(0, 3 * h // 2, n_dev),
+                           "zero": np.zeros(n_dev, np.int64),
+                           "full": np.full(n_dev, h),
+                           "over": rng.integers(h + 1, m + col0 + 1, n_dev),
+                           }[counts]
+                    flat = rng.integers(-5, 10 ** 6, (n_dev, h + 1)) \
+                        .astype(np.int32)
+                    for t in range(n_dev):
+                        take = min(int(cnt[t]), h)
+                        flat[t, :take] = np.sort(rng.choice(
+                            m + col0, take, replace=False))
+                    strips.append((ring, torch.tensor(flat, device=dev)[:, :h],
+                                   torch.tensor(cnt.astype(np.int32),
+                                                device=dev)))
+                yield f"{name}/{recv}/{counts}", src, strips, out, col0
 
 
 def halo_parity(dev, mc: MegaConfig) -> None:
-    """[7] the ship kernel against its plain version, then the 2D
-    exchange under both impls at the megaspace shape."""
-    rng = np.random.default_rng(SEED + 21)
-    n_cases = 0
+    """[7] the phase kernel against its plain version, then the 1D and
+    2D exchanges under both impls."""
     h = mc.halo_cap
-    for n_dev, shift, ok in ring_cases():
-        bufs = torch.tensor(
-            rng.integers(-2**31, 2**31, (n_dev, h, 5)).astype(np.int32),
-            device=dev)
-        got = halo.ship_ring_cuda(bufs, shift, ok)
-        want = halo.ship_ring_plain(bufs, shift, ok)
+    n_cases = 0
+    for label, src, strips, out, col0 in phase_cases(dev, h, 4 * h):
+        got = [o.clone() for o in out]
+        want = [o.clone() for o in out]
+        kernels.reset_launches()
+        halo.ship_phase(src, strips, got, col0)
+        halo.ship_phase_plain(src, strips, want, col0)
         torch.cuda.synchronize()
-        if not same(got, want):
-            fail(f"ship kernel != plain (n_dev={n_dev}, h={h}, "
-                 f"shift={shift}, recv_ok={ok})")
+        if kernels.LAUNCHES["halo_ship_phase"] != 1:
+            fail(f"ship_phase launched {kernels.LAUNCHES} ({label})")
+        for name, a, b in zip(("gpos", "gyaw", "gdirty", "gvalid", "ggid"),
+                              got, want):
+            if not same_bits(a, b):
+                fail(f"phase kernel != plain in {name} ({label}, h={h})")
         n_cases += 1
+    names = ("gpos", "gyaw", "gdirty", "gvalid", "ggid", "strip_demand")
+    # the 2D exchange at the megaspace shape
     st, _ = mega_world(mc, N, SEED, dev)
     gen = torch.Generator(device=dev).manual_seed(5)
     dirty = (torch.rand(st.alive.shape, generator=gen, device=dev) < 0.5) \
         & st.alive
     yaw = torch.rand(st.yaw.shape, generator=gen, device=dev) * 6.0 - 3.0
     visible = st.alive & (st.aoi_radius > 0.0)
-    outs = {impl: halo.exchange_halo_2d(
-        mc.shape, mc.cfg.capacity, st.pos, yaw, dirty, visible, mc.tile_w,
-        mc.tile_d, mc.cfg.grid.radius, mc.halo_cap, impl=impl)
-        for impl in halo.HALO_IMPLS}
-    names = ("gpos", "gyaw", "gdirty", "gvalid", "ggid", "strip_demand")
+    outs, launches = {}, {}
+    for impl in halo.HALO_IMPLS:
+        kernels.reset_launches()
+        outs[impl] = halo.exchange_halo_2d(
+            mc.shape, mc.cfg.capacity, st.pos, yaw, dirty, visible,
+            mc.tile_w, mc.tile_d, mc.cfg.grid.radius, mc.halo_cap, impl=impl)
+        launches[impl] = kernels.LAUNCHES["halo_ship_phase"]
     for name, a, b in zip(names, outs["async"], outs["ppermute"]):
         if not same_bits(a, b):
             fail(f"exchange_halo_2d {name}: async != ppermute")
     per_tile = outs["async"][3].sum(1).tolist()
     if min(per_tile) == 0:
         fail(f"a tile received no ghosts: {per_tile}")
-    print(f"[7] halo: ship kernel == plain bit for bit in {n_cases} cases "
-          f"(2x2 shifts +-2 +-1, 8 tiles +-1, all/none; h={h}); "
-          f"exchange_halo_2d async == ppermute on "
-          f"every output at the megaspace shape, ghosts per tile "
-          f"{per_tile}, strip_demand {outs['async'][5].tolist()}",
-          flush=True)
+    # the 1D exchange over 8 x-strip tiles of 32,768 entities
+    n1, w1, r1 = 1 << 15, 1000.0, 50.0
+    pos1 = torch.rand((8, n1, 3), generator=gen, device=dev) * w1
+    pos1[..., 0] += torch.arange(8, device=dev)[:, None] * w1
+    dirty1 = torch.rand((8, n1), generator=gen, device=dev) < 0.5
+    alive1 = torch.rand((8, n1), generator=gen, device=dev) < 0.9
+    yaw1 = torch.rand((8, n1), generator=gen, device=dev) * 6.0 - 3.0
+    outs1 = {}
+    for impl in halo.HALO_IMPLS:
+        kernels.reset_launches()
+        outs1[impl] = halo.exchange_halo(8, pos1, yaw1, dirty1, alive1, w1,
+                                         r1, h, impl=impl)
+        launches[f"{impl} 1d"] = kernels.LAUNCHES["halo_ship_phase"]
+    for name, a, b in zip(names, outs1["async"], outs1["ppermute"]):
+        if not same_bits(a, b):
+            fail(f"exchange_halo {name}: async != ppermute")
+    if not outs1["async"][3].any(1)[1:-1].all():
+        fail("an inner 1D tile received no ghosts")
+    want = {"async": 2, "ppermute": 0, "async 1d": 1, "ppermute 1d": 0}
+    if launches != want:
+        fail(f"phase kernel launches a call {launches}, want {want}")
+    print(f"[7] halo: phase kernel == plain bit for bit in {n_cases} cases "
+          f"(2x2 and 4x2 phases x/z, 8 tiles 1D, one tile to itself; "
+          f"receivers of the layout/all/none; counts random/0/H/>H; NaN, "
+          f"-0.0, inf words; gids to {halo.meta_gid_bound()}; h={h}); "
+          f"exchange_halo_2d async == ppermute on every output at the "
+          f"megaspace shape, ghosts per tile {per_tile}, strip_demand "
+          f"{outs['async'][5].tolist()}; exchange_halo (8 tiles) async == "
+          f"ppermute; launches a call {launches}", flush=True)
 
 
 def mega_path(dev, mc: MegaConfig, tag: str) -> dict:
@@ -265,10 +355,12 @@ def mega_path(dev, mc: MegaConfig, tag: str) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - wall0
     launches = dict(kernels.LAUNCHES)
-    want = {k: n_dev * MEGA_TICKS for k in launches}
+    want = {"sweep_fused": n_dev * MEGA_TICKS,
+            "counting_sort": n_dev * MEGA_TICKS,
+            "halo_ship_phase": 2 * MEGA_TICKS}
     if launches != want:
         fail(f"megaspace launches {launches} in {MEGA_TICKS} ticks, want "
-             f"{n_dev} of each a tick")
+             f"{want}")
     gv = torch.stack(gauges).cpu().numpy()
     (enter, sync_min, sync_sum, arr, dropped, hdem, ga_min, ga_max,
      mdem, leave, over_k, over_cap) = gv.T
@@ -364,50 +456,99 @@ def mega_path(dev, mc: MegaConfig, tag: str) -> dict:
              f"its plain version in {bad} rows")
     tile_sweep_ms = time_ms(lambda: aoi.sweep_fused_cuda(*args), 20)
 
-    # the ship kernel's times: tile strips of the megaspace shape, the
-    # phase-1 eastward ship
-    h = mc.halo_cap
-    bufs = halo._pack_strip(gpos[:, :h], gyaw[:, :h], gdirty[:, :h],
-                            gvalid[:, :h], ggid[:, :h])
-    tz = mc.shape[1]
-    ok = [t // tz > 0 for t in range(n_dev)]
-    k_out = halo.ship_ring_cuda(bufs, tz, ok)
-    p_out = halo.ship_ring_plain(bufs, tz, ok)
-    err = int((k_out.long() - p_out.long()).abs().max())
-    ship_ms = time_ms(lambda: halo.ship_ring_cuda(bufs, tz, ok), 200)
-    ship_plain = time_ms(lambda: halo.ship_ring_plain(bufs, tz, ok), 50)
-    ship_lib = time_ms(lambda: torch.roll(bufs, tz, 0), 200)
+    # the phase kernel's times at the megaspace shape: the two phases of
+    # one exchange of this state, captured at the wrapper
+    phases = []
+
+    def capture(*a):
+        phases.append(a)
+        ship(*a)
+
+    ship = halo.ship_phase
+    halo.ship_phase = capture
+    try:
+        exchange = (mc.shape, n, st.pos, st.yaw, dirty, visible, mc.tile_w,
+                    mc.tile_d, g.radius, mc.halo_cap)
+        halo.exchange_halo_2d(*exchange, impl="async")
+    finally:
+        halo.ship_phase = ship
+    if [p[3] for p in phases] != [0, 2 * mc.halo_cap]:
+        fail(f"exchange_halo_2d shipped phases at columns "
+             f"{[p[3] for p in phases]}")
+    plain_out = [o.clone() for o in phases[0][2]]
+    for src, strips, out, col0 in phases:
+        ship(src, strips, out, col0)
+        halo.ship_phase_plain(src, strips, plain_out, col0)
+    torch.cuda.synchronize()
+    err = max(int((words(a) - words(b)).abs().max())
+              for a, b in zip(phases[0][2], plain_out))
     if err != 0:
-        fail("ship kernel differs from its plain version at timing inputs")
-    # the kernels' own device times (the event-timed ship loop above is
-    # set by the host's launch rate), read after every event timing: a
-    # profiler session slows the launches that follow it
-    ship_dev, ship_lpc = kernels.device_ms(
-        lambda: halo.ship_ring_cuda(bufs, tz, ok), 50)
+        fail("phase kernel differs from its plain version at timing inputs")
+
+    def both(fn):
+        return lambda: [fn(*p) for p in phases]
+
+    def exchange_with(impl):
+        return lambda: halo.exchange_halo_2d(*exchange, impl=impl)
+
+    # events first: ms a phase (a call), the plain version, one exchange
+    # under each impl; torch.roll of one packed phase-1 strip buffer, only
+    # as context
+    ship_ms = time_ms(both(ship), 100) / 2
+    ship_plain = time_ms(both(halo.ship_phase_plain), 20) / 2
+    ex = {impl: {"ms": time_ms(exchange_with(impl), 50)}
+          for impl in halo.HALO_IMPLS}
+    h = mc.halo_cap
+    gp, gy, gd, gv, gg = phases[0][2]
+    bufs = halo._pack_strip(gp[:, :h], gy[:, :h], gd[:, :h], gv[:, :h],
+                            gg[:, :h])
+    roll_ms = time_ms(lambda: torch.roll(bufs, mc.shape[1], 0), 200)
+    # the device times after every event timing: a profiler session
+    # slows the launches that follow it
+    ship_dev, ship_lpc = (x / 2 for x in kernels.device_ms(both(ship), 50))
+    for impl, row in ex.items():
+        row["device_ms"], row["kernels_per_call"] = kernels.device_ms(
+            exchange_with(impl), 20)
     tile_sweep_dev, _ = kernels.device_ms(
         lambda: aoi.sweep_fused_cuda(*args), 20)
-    # the strips of receiving tiles are read, every tile's block is
-    # written (zeros where recv_ok is false); one select a word
-    strip_bytes = bufs[0].numel() * bufs.element_size()
-    nbytes = (sum(ok) + n_dev) * strip_bytes
-    bms, by = bound(nbytes, bufs.numel())
+    # bytes a phase needs: every live row's flat word, pos, dirty and gid
+    # (and yaw where dirty) read once, the counts, and every row of the
+    # phase's 2H columns of the five lanes written (22 B)
+    nbytes = 0
+    for _, strips, out, col0 in phases:
+        cols = slice(col0, col0 + 2 * h)
+        live = int(out[3][:, cols].sum())
+        nbytes += live * (4 + 12 + 1 + 4) + int(out[2][:, cols].sum()) * 4 \
+            + 2 * n_dev * 4 + n_dev * 2 * h * 22
+    bms, by = bound(nbytes / 2, n_dev * 2 * h)
     print(f"[9] fused sweep == plain at the megaspace shape (Q={n} local "
           f"queries over n={pos_ext.shape[0]} local + ghost rows, tile 0), "
           f"{tile_sweep_ms:.5f} ms a call (device {tile_sweep_dev:.5f} ms); "
-          f"ship kernel {ship_ms:.5f} ms a call (device time "
+          f"phase kernel {ship_ms:.5f} ms a call (device time "
           f"{ship_dev * 1e3:.2f} us a call, {ship_lpc:g} kernel, "
-          f"torch.profiler), plain "
-          f"{ship_plain:.5f} ms, "
-          f"torch.roll {ship_lib:.5f} ms, bound {bms:.6f} ms ({by}) at "
-          f"i32{list(bufs.shape)} {tag}", flush=True)
+          f"torch.profiler), plain {ship_plain:.5f} ms, bound "
+          f"{bms:.6f} ms ({by}; {nbytes / 2:.0f} B a phase); one "
+          f"exchange_halo_2d a call: " + ", ".join(
+              f"{impl} {r['ms']:.5f} ms, device {r['device_ms']:.5f} ms in "
+              f"{r['kernels_per_call']:g} kernels" for impl, r in ex.items())
+          + f"; torch.roll of a "
+          f"packed strip i32{list(bufs.shape)} {roll_ms:.5f} ms (context) "
+          f"{tag}", flush=True)
     return {
-        "name": "ship_ring_cuda", "route": "cuda",
+        "name": "ship_phase", "route": "cuda",
         "source": "goworld_tpu_torch/csrc/halo_ship.cu",
         "replaces": "goworld_tpu/parallel/halo.py:91",
-        "launches": launches["halo_ship"], "max_abs_err": err,
+        "launches": launches["halo_ship_phase"],
+        "launches_per_tick": launches["halo_ship_phase"] / MEGA_TICKS,
+        "max_abs_err": err,
         "ms": ship_ms, "device_ms": ship_dev, "launches_per_call": ship_lpc,
         "plain_ms": ship_plain, "bound_ms": bms,
-        "bound_by": by, "library_ms": ship_lib,
+        "bound_by": by, "library_ms": None,
+        "library_note": "no one PyTorch call ships a phase (gather, ring "
+                        "shift, fill and in-place write); the yardstick is "
+                        "one async exchange_halo_2d",
+        "exchange": ex,
+        "roll_ms_context": roll_ms,
     }
 
 
@@ -693,7 +834,7 @@ def main() -> int:
     wall = time.perf_counter() - wall0
     launches = dict(kernels.LAUNCHES)
     if launches != {"sweep_fused": TICKS, "counting_sort": TICKS,
-                    "halo_ship": 0}:
+                    "halo_ship_phase": 0}:
         fail(f"single-Space path launches {launches} in {TICKS} ticks")
     gv = torch.stack(gauges).cpu().numpy()
     if gv[0, 0] <= 0:

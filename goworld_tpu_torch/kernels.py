@@ -36,7 +36,7 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
-LAUNCHES = {"sweep_fused": 0, "counting_sort": 0, "halo_ship": 0}
+LAUNCHES = {"sweep_fused": 0, "counting_sort": 0, "halo_ship_phase": 0}
 
 
 def reset_launches() -> None:
@@ -106,6 +106,7 @@ def build() -> tuple[Path, float, str]:
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_L, _U = ctypes.c_longlong, ctypes.c_ulonglong
 # (argument types, result type) of each C entry point
 SIGNATURES = {
     "gw_sweep_fused": ([_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -113,8 +114,8 @@ SIGNATURES = {
     "gw_counting_sort_scratch_len": ([_I, _I, _I], ctypes.c_longlong),
     "gw_counting_sort": ([_P, _I, _I, _I, _P, ctypes.c_longlong, _P, _P, _P],
                          _I),
-    "gw_halo_ship": ([ctypes.POINTER(_P), ctypes.POINTER(_P), _I, _I, _I,
-                      ctypes.c_ulonglong, _P], _I),
+    "gw_halo_ship_phase": ([_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I,
+                            _I, _I, *[_P, _L, _P, _I, _U] * 2, _P], _I),
 }
 
 

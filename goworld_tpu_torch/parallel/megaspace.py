@@ -15,8 +15,9 @@ leading ``[n_dev]`` axis on every lane). The tick loops over tiles in
 Python and runs the single-Space ops and kernels on each tile's view;
 the exchange points act on all tiles at once: the migration
 ``all_to_all`` is a transpose of the stacked send buffers, the
-``psum`` a sum, and the halo ship the CUDA kernel of
-``csrc/halo_ship.cu``. Tiles on several cards are not ported yet.
+``psum`` a sum, and each halo exchange phase one launch of the CUDA
+kernel of ``csrc/halo_ship.cu``. Tiles on several cards are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -67,7 +68,7 @@ class MegaConfig:
     world's z extent. 2D (``mesh_shape=(tx, tz)``): tile ``d`` is ``(d //
     tz, d % tz)`` of size ``tile_w x tile_d`` and ``extent_z = tile_d +
     2 * radius``. ``halo_impl`` is "ppermute" (each lane shipped plain)
-    or "async" (packed strips through the ship kernel).
+    or "async" (the phase kernel, one launch an exchange phase).
     """
 
     cfg: WorldConfig

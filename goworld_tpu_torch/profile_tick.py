@@ -3,6 +3,7 @@
     python -m goworld_tpu_torch.profile_tick [--n 1048576] [--ticks 20]
                                              [--mega TILES]
                                              [--out chiprun_out]
+    PYTHONPATH=DIR python goworld_tpu_torch/profile_tick.py ...
 
 Runs the bench world of :mod:`goworld_tpu_torch.workload` through
 ``make_tick`` (with ``--mega``, the megaspace bench world over TILES
@@ -20,6 +21,9 @@ stdout:
   recorded around the stage functions (wrapped for this run only); the
   events sit on the device timeline, so a stage's time includes any wait
   for the host to launch its work;
+* ``halo_exchange`` (``--mega``): per ``halo_impl``, the device ms
+  and kernel launches a call of the halo exchange of one more tick,
+  called alone under torch.profiler after the profiled window;
 * ``kernels_top``: the device kernels with the most time over a short
   profiled window (torch.profiler), and ``busy_ms`` / ``idle_share``:
   the summed kernel time against the window's tick time;
@@ -27,8 +31,11 @@ stdout:
   ``csrc/`` (the ``__global__`` functions of its sources), and
   ``memset_ms_per_tick``.
 
-The full profiler table goes to ``<out>/profile_tick.txt``. Needs a CUDA
-card; there is no CPU mode.
+The full profiler table goes to ``<out>/profile_tick.txt``. Run as a
+file with another checkout's root first on ``PYTHONPATH``, it measures
+that checkout's package with this instrument (a stage whose function
+that package lacks is left out), so two versions compare on one card.
+Needs a CUDA card; there is no CPU mode.
 """
 
 from __future__ import annotations
@@ -79,7 +86,7 @@ MEGA_STAGES = [
     ("4 migrate insert", mig, "insert_arrivals"),
     ("5 halo exchange", megaspace, "exchange_halo_2d"),
     ("5 halo exchange 1d", megaspace, "exchange_halo"),
-    ("5a ship kernel", halo, "ship_ring_cuda"),
+    ("5a phase kernel", halo, "ship_phase"),
     ("6 aoi sweep", megaspace, "grid_neighbors_flags"),
     ("6a sweep front half", aoi, "front_half"),
     ("6b fused sweep kernel", aoi, "sweep_fused_cuda"),
@@ -110,6 +117,27 @@ def _timed(fn, name, marks):
         marks.append((name, a, b))
         return out
     return wrapper
+
+
+def _halo_exchange(tick, st, inputs) -> dict:
+    """Per ``halo_impl``, ``[device ms, kernel launches]`` a call of the
+    halo exchange of one more tick, called alone (after every event
+    timing: the profiler is attached by now anyway)."""
+    calls = []
+    saved = [(attr, getattr(megaspace, attr))
+             for attr in ("exchange_halo_2d", "exchange_halo")]
+    for attr, fn in saved:
+        setattr(megaspace, attr, lambda *a, fn=fn, **kw: calls.append(
+            (fn, a, kw)) or fn(*a, **kw))
+    try:
+        tick(st, inputs)
+    finally:
+        for attr, fn in saved:
+            setattr(megaspace, attr, fn)
+    fn, a, kw = calls[0]
+    return {impl: list(kernels.device_ms(
+        lambda impl=impl: fn(*a, **{**kw, "impl": impl}), 5))
+        for impl in halo.HALO_IMPLS}
 
 
 def _tick_times(tick, st, inputs, n):
@@ -163,6 +191,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     st, before = _tick_times(tick, st, inputs, args.ticks)
 
+    stage_list = [s for s in stage_list if hasattr(s[1], s[2])]
     marks = []
     saved = [(mod, attr, getattr(mod, attr)) for _, mod, attr in stage_list]
     for name, mod, attr in stage_list:
@@ -195,6 +224,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
     window_ms = a.elapsed_time(b)
     st, after = _tick_times(tick, st, inputs, args.ticks)
+    halo_dev = _halo_exchange(tick, st, inputs) if args.mega else None
     events = [e for e in prof.key_averages()
               if getattr(e, "device_time_total", 0) > 0
               and e.device_type == torch.autograd.DeviceType.CUDA]
@@ -225,6 +255,7 @@ def main(argv=None) -> int:
         "tick_ms_mean": tick_mean, "tick_ms_p50": tick_p50,
         "tick_ms_p99": tick_p99,
         "tick_ms_p50_p99_unwrapped": _p50_p99(before),
+        "halo_exchange": halo_dev,
         "tick_ms_p50_p99_after_profiler": _p50_p99(after),
         "stages_ms": stages,
         "window_ticks": window, "window_ms": window_ms,

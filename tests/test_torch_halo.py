@@ -4,8 +4,12 @@ ship kernel's plain version on the CPU) against JAX's under
 ``shard_map`` on 8 CPU devices, with both ``halo_impl`` values (JAX's
 async Pallas ship in interpret mode); 1D strips of 8 tiles and 2D 4x2
 tiles, across dirty and alive fractions and ``halo_cap`` overflow. Also
-the strip pack round trip, the ship's ring semantics and the
-``meta_gid_bound`` guard."""
+the strip pack round trip, the ring semantics, the phase wrapper
+``ship_phase`` (its plain version on the CPU) against the parent
+composition (gather, pack, ring, unpack, cat) in every parity case,
+what the wrapper rejects, and the ``meta_gid_bound`` guard."""
+
+import zlib
 
 import jax
 import jax.numpy as jnp
@@ -162,23 +166,207 @@ def test_ship_ring_plain_is_the_ring(n_dev, dtype):
             want = bufs[(t - shift) % n_dev] if ok[t] \
                 else torch.zeros_like(bufs[0])
             assert torch.equal(out[t], want)
-        if dtype == torch.int32:
-            assert torch.equal(thalo.ship_ring_cuda(bufs, shift, ok), out)
+        ring = thalo.Ring(shift, tuple(ok))
+        assert ring.mask == sum(1 << t for t in range(n_dev) if ok[t])
     assert thalo.ship_ring_plain(bufs, 1, [True] * n_dev).dtype == dtype
 
 
-@pytest.mark.parametrize("bad", ["float", "2d", "strided", "recv_ok"])
-def test_ship_ring_cuda_rejects_what_the_kernel_does_not_take(bad):
-    bufs = torch.zeros((4, 8, 5), dtype=torch.int32)
-    arg, ok = {
-        "float": (bufs.float(), [True] * 4),
-        "2d": (bufs.reshape(4, 40), [True] * 4),
-        "strided": (torch.zeros((4, 8, 10), dtype=torch.int32)[..., ::2],
-                    [True] * 4),
-        "recv_ok": (bufs, [True] * 3),
-    }[bad]
+# ---- the phase: ship_phase (its plain version on the CPU) against the
+# parent's composition: gather, pack, ring, unpack, cat
+
+H = 16
+M = 40
+# (n_dev, rings, col0, ghost columns G): both 2D phases at 2x2 and 4x2,
+# the 1D phase of 8 tiles, and one tile sending to itself (shift 0)
+LAYOUTS = {
+    "2x2-x": (4, thalo.rings_2d(2, 2)[0], 0, 4 * H),
+    "2x2-z": (4, thalo.rings_2d(2, 2)[1], 2 * H, 4 * H),
+    "4x2-x": (8, thalo.rings_2d(4, 2)[0], 0, 4 * H),
+    "4x2-z": (8, thalo.rings_2d(4, 2)[1], 2 * H, 4 * H),
+    "1d8": (8, thalo.rings_1d(8), 0, 2 * H),
+    "one-tile": (1, (thalo.Ring(1, (True,)), thalo.Ring(-1, (True,))), 0,
+                 2 * H),
+    "one-tile-z": (1, (thalo.Ring(1, (True,)), thalo.Ring(-1, (True,))),
+                   2 * H, 4 * H),
+}
+
+
+def _odd_f32(rng, shape):
+    """f32 words with NaN payloads, -0.0 and infinities among them."""
+    x = rng.normal(0, 1e3, shape).astype(np.float32)
+    bits = x.reshape(-1).view(np.uint32)
+    special = np.array([0x7FC01234, 0xFFA00001, 0x80000000, 0x7F800000,
+                        0xFF800000, 0x00000001], np.uint32)
+    at = rng.choice(bits.size, min(bits.size, 3 * special.size),
+                    replace=False)
+    bits[at] = np.resize(special, at.size)
+    return x
+
+
+def _phase_inputs(layout, recv, counts, seed):
+    """(src, strips, out) as numpy-made tensors: own lanes of M rows, a
+    ghost block whose columns [0, col0) hold an earlier phase's rows,
+    flat rows drawn from both segments with garbage past each count."""
+    n_dev, rings, col0, g = LAYOUTS[layout]
+    rng = np.random.default_rng(seed)
+    bound = thalo.meta_gid_bound()
+
+    def lanes(rows, with_valid):
+        gid = rng.integers(0, bound + 1, (n_dev, rows)).astype(np.int32)
+        gid.reshape(-1)[:2] = [bound, 0]
+        out = [_odd_f32(rng, (n_dev, rows, 3)), _odd_f32(rng, (n_dev, rows)),
+               rng.random((n_dev, rows)) < 0.5]
+        if with_valid:
+            out.append(rng.random((n_dev, rows)) < 0.7)
+        return [torch.tensor(x) for x in (*out, gid)]
+
+    src = lanes(M, False)
+    out = lanes(g, True)
+    if recv != "layout":
+        rings = tuple(thalo.Ring(r.shift, (recv == "all",) * n_dev)
+                      for r in rings)
+    strips = []
+    for ring in rings:
+        cnt = {"random": rng.integers(0, 3 * H // 2, n_dev),
+               "zero": np.zeros(n_dev, np.int64),
+               "full": np.full(n_dev, H),
+               "over": rng.integers(H + 1, M + col0 + 1, n_dev)}[counts]
+        # extraction's layout: rows of H + 1 words, the first H used
+        flat = rng.integers(-5, 10 ** 6, (n_dev, H + 1)).astype(np.int32)
+        for t in range(n_dev):
+            take = min(int(cnt[t]), H)
+            flat[t, :take] = np.sort(rng.choice(M + col0, take,
+                                                replace=False))
+        strips.append((ring, torch.tensor(flat)[:, :H],
+                       torch.tensor(cnt.astype(np.int32))))
+    return src, tuple(strips), out, col0
+
+
+def _parent_phase(src, strips, out, col0):
+    """The parent's ship of one phase: each direction's strip gathered
+    from the own rows and the earlier ghost columns, packed, shipped,
+    unpacked, its gid normalised, then concatenated into the block."""
+    pos, yaw, dirty, gid = (
+        torch.cat([s, o[:, :col0]], dim=1)
+        for s, o in zip(src, (out[0], out[1], out[2], out[4])))
+    m = pos.shape[1]
+    parts = []
+    for ring, flat, count in strips:
+        valid = torch.arange(H) < torch.clamp_max(count, H)[:, None]
+        slots = torch.where(valid, flat, m - 1).long()
+        sel_dirty = torch.gather(dirty, 1, slots) & valid
+        sel_pos = torch.gather(pos, 1, slots[..., None].expand(-1, -1, 3))
+        pack = (torch.where(valid[..., None], sel_pos, 0.0),
+                torch.where(sel_dirty, torch.gather(yaw, 1, slots), 0.0),
+                sel_dirty, valid,
+                torch.where(valid, torch.gather(gid, 1, slots), -1))
+        shipped = list(thalo._unpack_strip(thalo.ship_ring_plain(
+            thalo._pack_strip(*pack), ring.shift, list(ring.recv_ok))))
+        shipped[4] = torch.where(shipped[3], shipped[4], 0)
+        parts.append(shipped)
+    end = col0 + 2 * H
+    return [torch.cat([o[:, :col0], parts[0][i], parts[1][i], o[:, end:]],
+                      dim=1) for i, o in enumerate(out)]
+
+
+def _same_bits(got, want):
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and g.shape == w.shape, i
+        if g.is_floating_point():
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w), f"lane {i}: {(g != w).sum()} words differ"
+
+
+@pytest.mark.parametrize("counts", ["random", "zero", "full", "over"])
+@pytest.mark.parametrize("recv", ["layout", "all", "none"])
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_ship_phase_matches_parent_composition(layout, recv, counts):
+    seed = zlib.crc32(f"{layout}/{recv}/{counts}".encode())
+    src, strips, out, col0 = _phase_inputs(layout, recv, counts, seed)
+    want = _parent_phase(src, strips, out, col0)
+    got = [o.clone() for o in out]
+    thalo.ship_phase(src, strips, got, col0)
+    _same_bits(got, want)
+    block = got[3][:, col0:col0 + 2 * H]
+    if recv == "none" or counts == "zero":
+        assert not block.any()
+    elif recv == "all" and counts in ("full", "over"):
+        assert block.all()
+
+
+@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("two_d", [False, True], ids=["1d", "2d"])
+def test_exchange_async_equals_ppermute_on_random_worlds(seed, two_d):
+    world = _world(100 + seed, 0.5, 0.8, two_d)
+    cap = [3, 8, 16, 64][seed]
+    _assert_bits(_port("async", two_d, cap, world),
+                 _port("ppermute", two_d, cap, world))
+
+
+@pytest.mark.parametrize("two_d", [False, True], ids=["1d", "2d"])
+def test_exchange_ships_one_phase_call_a_phase(two_d, monkeypatch):
+    calls = []
+    ship = thalo.ship_phase
+
+    def counted(src, strips, out, col0):
+        calls.append(col0)
+        ship(src, strips, out, col0)
+
+    monkeypatch.setattr(thalo, "ship_phase", counted)
+    _port("async", two_d, 16, _world(5, 0.5, 0.8, two_d))
+    assert calls == ([0, 32] if two_d else [0])
+
+
+def _bad_phase(bad):
+    src, strips, out, col0 = _phase_inputs("2x2-z", "layout", "random", 1)
+    src, out, strips = list(src), list(out), [list(s) for s in strips]
+    if bad == "pos-f64":
+        src[0] = src[0].double()
+    elif bad == "dirty-u8":
+        src[2] = src[2].to(torch.uint8)
+    elif bad == "gid-i64":
+        out[4] = out[4].long()
+    elif bad == "strided-yaw":
+        src[1] = torch.zeros((4, 2 * M))[:, ::2]
+    elif bad == "strided-gpos":
+        out[0] = torch.zeros((4, 4 * H, 6))[..., ::2]
+    elif bad == "flat-i64":
+        strips[0][1] = strips[0][1].long()
+    elif bad == "flat-shape":
+        strips[1][1] = strips[1][1][:, :H - 1]
+    elif bad == "flat-column":
+        strips[0][1] = torch.zeros((4, H, 2), dtype=torch.int32)[..., 0]
+    elif bad == "count-shape":
+        strips[0][2] = strips[0][2][:3]
+    elif bad == "recv-length":
+        strips[1][0] = thalo.Ring(1, (True,) * 3)
+    elif bad == "too-many-tiles":
+        n = thalo.MAX_SHIP_TILES + 1
+        src = [torch.zeros((n, M, 3)), torch.zeros((n, M)),
+               torch.zeros((n, M), dtype=torch.bool),
+               torch.zeros((n, M), dtype=torch.int32)]
+        out = [torch.zeros((n, 4 * H, 3)), torch.zeros((n, 4 * H)),
+               torch.zeros((n, 4 * H), dtype=torch.bool),
+               torch.zeros((n, 4 * H), dtype=torch.bool),
+               torch.zeros((n, 4 * H), dtype=torch.int32)]
+        strips = [[thalo.Ring(1, (True,) * n),
+                   torch.zeros((n, H), dtype=torch.int32),
+                   torch.zeros(n, dtype=torch.int32)] for _ in range(2)]
+    elif bad == "columns":
+        col0 = 2 * H + 1
+    elif bad == "one-strip":
+        strips = strips[:1]
+    return src, strips, out, col0
+
+
+@pytest.mark.parametrize("bad", [
+    "pos-f64", "dirty-u8", "gid-i64", "strided-yaw", "strided-gpos",
+    "flat-i64", "flat-shape", "flat-column", "count-shape", "recv-length",
+    "too-many-tiles", "columns", "one-strip"])
+def test_ship_phase_rejects_what_the_kernel_does_not_take(bad):
+    src, strips, out, col0 = _bad_phase(bad)
     with pytest.raises((TypeError, ValueError)):
-        thalo.ship_ring_cuda(arg, 1, ok)
+        thalo.ship_phase(src, strips, out, col0)
 
 
 def test_meta_gid_bound_guard_matches_jax():
