@@ -44,17 +44,37 @@ is caught:
    rows over local + ghost rows, whose sorted slot ids are checked to be
    a permutation of them) against its plain version, and the phase
    kernel's times on the two phases of one exchange of the megaspace
-   state (events, then device time), beside one ``exchange_halo_2d``
-   under each halo impl (events, device time and kernels a call);
+   state by events, beside one ``exchange_halo_2d`` under each halo
+   impl (their device times and kernels a call are read in [12]);
 10. a small 2x2 megaspace against a brute-force interest oracle, across
     every kind of tile border (x, z, corner);
-11. the sweep's and sort's own device time and kernel launches a call
-    (torch.profiler, read here because a profiler session slows every
-    later launch of the timed ticks), then a ``kernels`` JSON line: per
-    kernel its launches on its path, time, device time, kernel launches
-    a call, plain time, library time and bound (the sweep's also by the
-    all-lanes count of earlier runs: ``bound_ms_window_lanes``);
-12. the result line ``{"ok": true, "device": {...}}``.
+11. the serving World: ``workload.serve_world`` populates a World of
+    2^20 slots through ``Space.create_entity`` (its time and the host's
+    RSS before and after printed), then WORLD_TICKS ``World.tick``s of
+    the game's traffic, each staging 4096 client syncs (each a step from
+    where its player stands), 1024 hot-attr sets (some twice) and 64
+    destroys and creates, checking one sweep and one sort launch a tick
+    and printing ``World.tick`` p50/p99 beside [5]'s, the mean of its
+    four spans, the records and events decoded against their true counts
+    and the rows whose interest list changed against their cap; then
+    STRESS_TICKS ticks whose syncs teleport to uniform points (the
+    bench's input stream), printed apart; one more tick whose step runs
+    under the sync guard on a clone held bit for bit against
+    ``make_tick`` on the plain versions (ranges/argsort), its fetched
+    outputs, positions and yaws bit for bit against plain ``.cpu()``
+    copies; and twin Worlds of 2^16 slots, one on the kernels and one on
+    the plain versions, equal in sinks, hooks and state for TWIN_TICKS
+    ticks of walking and teleporting syncs in turns;
+12. every torch.profiler read, here after every timed path because a
+    profiler session slows every later launch of the host-bound ticks:
+    the sweep's and sort's own device time and kernel launches a call,
+    the megaspace tile sweep's, the phase kernel's and one exchange's
+    under each impl; then a ``kernels`` JSON line: per
+    kernel its launches on its paths (and by path), time, device time,
+    kernel launches a call, plain time, library time and bound (the
+    sweep's also by the all-lanes count of earlier runs:
+    ``bound_ms_window_lanes``);
+13. the result line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -62,7 +82,9 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
+import resource
 import subprocess
 import sys
 import time
@@ -70,7 +92,7 @@ import time
 import numpy as np
 import torch
 
-from goworld_tpu_torch import kernels
+from goworld_tpu_torch import interop, kernels
 from goworld_tpu_torch.core.state import WorldConfig
 from goworld_tpu_torch.core.step import make_tick
 from goworld_tpu_torch.ops import aoi
@@ -86,10 +108,12 @@ from goworld_tpu_torch.parallel.megaspace import (
     tile_shifts,
     make_mega_tick,
 )
+from goworld_tpu_torch.utils import metrics
 from goworld_tpu_torch.workload import (
     bench_world,
     mega_config,
     mega_world,
+    serve_world,
     slice_config,
 )
 
@@ -97,6 +121,10 @@ N = 1 << 20
 TICKS = 24
 MEGA_DEV = 4          # 2x2 tiles, as bench.py's multichip world on 4 chips
 MEGA_TICKS = 16
+WORLD_TICKS = 16
+STRESS_TICKS = 8
+TWIN_N = 1 << 16
+TWIN_TICKS = 8
 SEED = 0
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and the
 # float32 CUDA-core rate, used for the kernels' 32-bit integer work too
@@ -503,14 +531,6 @@ def mega_path(dev, mc: MegaConfig, tag: str) -> dict:
     bufs = halo._pack_strip(gp[:, :h], gy[:, :h], gd[:, :h], gv[:, :h],
                             gg[:, :h])
     roll_ms = time_ms(lambda: torch.roll(bufs, mc.shape[1], 0), 200)
-    # the device times after every event timing: a profiler session
-    # slows the launches that follow it
-    ship_dev, ship_lpc = (x / 2 for x in kernels.device_ms(both(ship), 50))
-    for impl, row in ex.items():
-        row["device_ms"], row["kernels_per_call"] = kernels.device_ms(
-            exchange_with(impl), 20)
-    tile_sweep_dev, _ = kernels.device_ms(
-        lambda: aoi.sweep_fused_cuda(*args), 20)
     # bytes a phase needs: every live row's flat word, pos, dirty and gid
     # (and yaw where dirty) read once, the counts, and every row of the
     # phase's 2H columns of the five lanes written (22 B)
@@ -523,25 +543,22 @@ def mega_path(dev, mc: MegaConfig, tag: str) -> dict:
     bms, by = bound(nbytes / 2, n_dev * 2 * h)
     print(f"[9] fused sweep == plain at the megaspace shape (Q={n} local "
           f"queries over n={pos_ext.shape[0]} local + ghost rows, tile 0), "
-          f"{tile_sweep_ms:.5f} ms a call (device {tile_sweep_dev:.5f} ms); "
-          f"phase kernel {ship_ms:.5f} ms a call (device time "
-          f"{ship_dev * 1e3:.2f} us a call, {ship_lpc:g} kernel, "
-          f"torch.profiler), plain {ship_plain:.5f} ms, bound "
+          f"{tile_sweep_ms:.5f} ms a call; phase kernel {ship_ms:.5f} ms a "
+          f"call, plain {ship_plain:.5f} ms, bound "
           f"{bms:.6f} ms ({by}; {nbytes / 2:.0f} B a phase); one "
           f"exchange_halo_2d a call: " + ", ".join(
-              f"{impl} {r['ms']:.5f} ms, device {r['device_ms']:.5f} ms in "
-              f"{r['kernels_per_call']:g} kernels" for impl, r in ex.items())
+              f"{impl} {r['ms']:.5f} ms" for impl, r in ex.items())
           + f"; torch.roll of a "
-          f"packed strip i32{list(bufs.shape)} {roll_ms:.5f} ms (context) "
-          f"{tag}", flush=True)
-    return {
+          f"packed strip i32{list(bufs.shape)} {roll_ms:.5f} ms (context); "
+          f"device times in [12] {tag}", flush=True)
+    row = {
         "name": "ship_phase", "route": "cuda",
         "source": "goworld_tpu_torch/csrc/halo_ship.cu",
         "replaces": "goworld_tpu/parallel/halo.py:91",
         "launches": launches["halo_ship_phase"],
         "launches_per_tick": launches["halo_ship_phase"] / MEGA_TICKS,
         "max_abs_err": err,
-        "ms": ship_ms, "device_ms": ship_dev, "launches_per_call": ship_lpc,
+        "ms": ship_ms, "device_ms": None, "launches_per_call": None,
         "plain_ms": ship_plain, "bound_ms": bms,
         "bound_by": by, "library_ms": None,
         "library_note": "no one PyTorch call ships a phase (gather, ring "
@@ -551,13 +568,35 @@ def mega_path(dev, mc: MegaConfig, tag: str) -> dict:
         "roll_ms_context": roll_ms,
     }
 
+    def read_device() -> str:
+        """The ship's, the exchanges' and the tile sweep's device times
+        (torch.profiler), read in [12] after every timed path."""
+        row["device_ms"], row["launches_per_call"] = (
+            x / 2 for x in kernels.device_ms(both(ship), 50))
+        for impl, r in ex.items():
+            r["device_ms"], r["kernels_per_call"] = kernels.device_ms(
+                exchange_with(impl), 20)
+        sweep_dev, sweep_lpc = kernels.device_ms(
+            lambda: aoi.sweep_fused_cuda(*args), 20)
+        return (f"megaspace tile sweep {sweep_dev:.5f} ms ({sweep_lpc:g} "
+                f"kernels); phase kernel "
+                f"{row['device_ms'] * 1e3:.2f} us a call in "
+                f"{row['launches_per_call']:g} kernel; one exchange_halo_2d "
+                + ", ".join(f"{impl} {r['device_ms']:.5f} ms in "
+                            f"{r['kernels_per_call']:g} kernels"
+                            for impl, r in ex.items()))
+
+    return row, read_device
+
 
 def device_times(profiled: dict, rows: list, plan) -> str:
     """Fill the rows' ``device_ms`` and ``launches_per_call`` from
     torch.profiler and check the launches a call. A profiler session
     leaves the card's profiling interface attached, which slows every
-    later launch of the host-bound ticks, so this runs after [5] and
-    [8] have been timed (as the ship's reading in [9] does)."""
+    later launch of the host-bound ticks, so every profiled read runs
+    here, after every timed path; they also follow each other closely,
+    since the profiler's clock conversion drifts after a process's first
+    session (``probe_profiler.py``)."""
     got = {name: kernels.device_ms(fn, 20)
            for name, fn in profiled.items()}
     for row in rows:
@@ -642,6 +681,244 @@ def small_oracle(dev) -> None:
     print(f"[10] small megaspace oracle: 2x2 tiles of {per}, 3 ticks, "
           f"{rows} interest lists equal the brute force; cross-tile pairs "
           f"{kinds}", flush=True)
+
+def peak_rss_mb() -> float:
+    """This process's peak resident memory, MB (Linux reports KB)."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
+
+
+def rss_mb() -> float:
+    """This process's resident memory now, MB (``/proc/self/statm``)."""
+    with open("/proc/self/statm") as f:
+        pages = int(f.read().split()[1])
+    return pages * resource.getpagesize() / 2**20
+
+
+def release_worlds() -> None:
+    """Collect the Worlds just dropped: ``serve_world`` froze them out
+    of the collector, as a game server does at boot, so they are handed
+    back and collected here, outside every timed or profiled run."""
+    gc.unfreeze()
+    gc.collect()
+
+
+def first_space(obj):
+    """The one Space's lanes of a World's stacked state or outputs."""
+    return type(obj)(**{f.name: None if getattr(obj, f.name) is None
+                        else getattr(obj, f.name)[0]
+                        for f in dataclasses.fields(obj)})
+
+
+def world_ticks(served, n_ticks: int, teleport: bool) -> tuple[list, dict]:
+    """``n_ticks`` of staged traffic (walking syncs, or with ``teleport``
+    the stress stream) and ``World.tick``; (per tick: wall s, span s,
+    decoded and true counts; launch counts of the run). Every tick must
+    launch the sweep and the sort once each and deliver what the World
+    decoded."""
+    w = served.world
+    rows = []
+    kernels.reset_launches()
+    for t in range(n_ticks):
+        staged = served.stage(teleport=teleport)
+        before = dict(kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        w.tick()
+        wall = time.perf_counter() - t0
+        got = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+        if got != {"sweep_fused": 1, "counting_sort": 1,
+                   "halo_ship_phase": 0}:
+            fail(f"World.tick {t + 1} launched {got}")
+        out, ops, sink = w.last_outputs, w.op_stats, served.sink.take()
+        if sink["sync_records"] != ops["sync_records_sent"] or \
+                sink["sync_records"] <= 0:
+            fail(f"World.tick {t + 1}: sync sink got "
+                 f"{sink['sync_records']}, decode sent "
+                 f"{ops['sync_records_sent']}")
+        if int(out.alive_count[0]) != len(w._slot_owner[0]):
+            fail(f"World.tick {t + 1}: {int(out.alive_count[0])} alive rows"
+                 f" for {len(w._slot_owner[0])} entities with slots")
+        cfg = w.cfg
+        rows.append(dict(
+            wall=wall, staged=staged,
+            spans={name: d for name, _, d, _ in
+                   metrics.timeline.records()[-1][2]},
+            sync=(ops["sync_records_sent"],
+                  min(int(out.sync_n[0]), cfg.sync_cap), int(out.sync_n[0])),
+            enter=(ops["aoi_enter_decoded"],
+                   min(int(out.enter_n[0]), cfg.enter_cap),
+                   int(out.enter_n[0])),
+            leave=(ops["aoi_leave_decoded"],
+                   min(int(out.leave_n[0]), cfg.leave_cap),
+                   int(out.leave_n[0])),
+            delta_rows=int(out.delta_rows_n[0]),
+            messages=sink["messages"]))
+    if min(r["enter"][0] for r in rows) <= 0 or any(
+            r[k][0] > r[k][1] for r in rows for k in ("sync", "enter",
+                                                     "leave")):
+        fail("the World decoded no enters, or more than the outputs hold")
+    return rows, dict(kernels.LAUNCHES)
+
+
+def world_summary(rows: list, cfg) -> str:
+    """``World.tick`` p50/p99 over ticks 2.., the mean of its spans, and
+    the records, events and changed interest rows a tick."""
+    steady = rows[1:]
+    wall = np.array([r["wall"] for r in steady]) * 1e3
+    spans = {k: float(np.mean([r["spans"][k] for r in steady])) * 1e3
+             for k in steady[0]["spans"]}
+    mean = {k: " / ".join(map(str, np.mean([r[k] for r in steady], axis=0)
+                               .round(1).tolist()))
+            for k in ("sync", "enter", "leave")}
+    dr = [r["delta_rows"] for r in steady]
+    return (f"World.tick wall p50={np.percentile(wall, 50):.3f} "
+            f"p99={np.percentile(wall, 99):.3f} ms (ticks 2-{len(rows)}); "
+            f"mean span ms " + ", ".join(f"{k} {v:.3f}"
+                                         for k, v in spans.items())
+            + f"; a tick (mean of 2-{len(rows)}), decoded / to cap / true: "
+            f"sync records {mean['sync']}, enters {mean['enter']}, leaves "
+            f"{mean['leave']}; rows whose interest list changed mean "
+            f"{np.mean(dr):.1f} max {max(dr)} of delta_rows_cap "
+            f"{cfg.delta_rows_cap}; client messages of the last tick "
+            f"{rows[-1]['messages']}")
+
+
+def world_phase(dev, bare: tuple[float, float], tag: str) -> dict:
+    """[11] the serving World at 2^20 slots under its game traffic, then
+    the stress stream, its step against the plain versions on a clone,
+    and twin Worlds at 2^16; returns each run's launches."""
+    phase0 = time.perf_counter()
+    rss0 = rss_mb()
+    served = serve_world(N, SEED, dev)
+    w = served.world
+    rss_pop = rss_mb()
+    n_pop = len(w.entities) - 2  # less the nil space and the arena
+    rows, launches = world_ticks(served, WORLD_TICKS, teleport=False)
+    for name in ("pos", "vel"):
+        if not torch.isfinite(getattr(w.state, name)).all():
+            fail(f"non-finite {name} in the World's state")
+    # the hot attr the last tick set twice landed on the device
+    mobs = [w.entities[e] for e in served.mobs[:256]]
+    slots = torch.tensor([e.slot for e in mobs], device=dev)
+    dev_hp = w.state.hot_attrs[0, slots, 0].cpu().numpy()
+    if not np.array_equal(dev_hp, np.array([e.attrs["hp"] for e in mobs],
+                                           np.float32)):
+        fail("the device's hot attrs differ from the entities' hp")
+    print(f"[11] serving World: {n_pop} entities ({served.players.size} "
+          f"players with clients) created through Space.create_entity in "
+          f"{served.populate_s:.2f} s ({served.populate_s / n_pop * 1e6:.1f}"
+          f" us a create); host RSS {rss0:.0f} MB before populating, "
+          f"{rss_pop:.0f} MB after (+{rss_pop - rss0:.0f}); game traffic: "
+          f"{WORLD_TICKS} World.ticks staging {rows[-1]['staged']} each "
+          f"(each sync a step from where its player stands; hp set twice "
+          f"on 64 mobs), launches {launches}, one sweep and one sort a "
+          f"tick; {world_summary(rows, w.cfg)}; [5]'s bare tick "
+          f"p50={bare[0]:.3f} p99={bare[1]:.3f} ms; tick 1 (flushes the "
+          f"population) {rows[0]['wall'] * 1e3:.1f} ms, spans " + ", ".join(
+              f"{k} {v * 1e3:.1f}" for k, v in rows[0]["spans"].items())
+          + f" {tag}", flush=True)
+    stress, stress_launches = world_ticks(served, STRESS_TICKS,
+                                          teleport=True)
+    print(f"[11] serving World, stress stream: {STRESS_TICKS} World.ticks "
+          f"whose syncs teleport their players to uniform points (the "
+          f"bench's input stream), launches {stress_launches}; "
+          f"{world_summary(stress, w.cfg)}; host peak RSS "
+          f"{peak_rss_mb():.0f} MB {tag}", flush=True)
+
+    # one tick whose step runs on a clone too, under the sync guard
+    real, cap = w._step, {}
+
+    def probe(state, inputs, policy=None):
+        cap["state"] = type(state)(**{f.name: getattr(state, f.name).clone()
+                                      for f in dataclasses.fields(state)})
+        cap["inputs"] = type(inputs)(**{
+            f.name: getattr(inputs, f.name).clone()
+            for f in dataclasses.fields(inputs)})
+        torch.cuda.set_sync_debug_mode("error")
+        cap["new"] = real(state, inputs, policy)
+        torch.cuda.set_sync_debug_mode("default")
+        return cap["new"]
+
+    w._step = probe
+    served.stage()
+    w.tick()
+    w._step = real
+    plain = make_tick(slice_config(N, sweep_impl="ranges",
+                                   sort_impl="argsort"), device=dev)
+    st_p, out_p = plain(first_space(cap["state"]),
+                        first_space(cap["inputs"]))
+    st_w, out_w = first_space(cap["new"][0]), first_space(cap["new"][1])
+    for what, a, b in (("state", st_w, st_p), ("output", out_w, out_p)):
+        la, lb = lanes(a), lanes(b)
+        for name in la:
+            if not same_bits(la[name], lb[name]):
+                fail(f"World step {what} lane {name}: kernels != plain "
+                     f"versions (ranges/argsort)")
+    # the World's one-copy fetch against a plain copy of each lane
+    fetched = {f.name: getattr(w.last_outputs, f.name)
+               for f in dataclasses.fields(w.last_outputs)}
+    fetched["state.pos"], fetched["state.yaw"] = w._dget(
+        [w.state.pos, w.state.yaw])
+    plain_copy = dict(lanes(cap["new"][1]), **{
+        "state.pos": w.state.pos, "state.yaw": w.state.yaw})
+    for name, t in plain_copy.items():
+        a, b = np.asarray(fetched[name]), t.cpu().numpy()
+        if a.dtype != b.dtype or a.shape != b.shape or \
+                a.tobytes() != b.tobytes():
+            fail(f"the World's fetch of {name} differs from .cpu()")
+    del served, w, cap, st_p, out_p, st_w, out_w
+    release_worlds()
+
+    # twin Worlds of 2^16 slots: kernels against plain versions
+    twins = {impl: serve_world(TWIN_N, SEED + 1, dev, record_hooks=True,
+                               keep=True, sweep_impl=impl[0],
+                               sort_impl=impl[1])
+             for impl in (("fused", "pallas"), ("ranges", "argsort"))}
+    (kern, plain_w) = twins.values()
+    counts = {"hooks": 0, "sync records": 0, "messages": 0}
+    twin_launches = {}
+    for t in range(TWIN_TICKS):
+        for name, sv in zip(("kernels", "plain"), (kern, plain_w)):
+            sv.stage(teleport=t % 2 == 1)
+            kernels.reset_launches()
+            sv.world.tick()
+            twin_launches.setdefault(name, []).append(
+                kernels.LAUNCHES["sweep_fused"]
+                + kernels.LAUNCHES["counting_sort"])
+        a, b = kern.sink.take()["kept"], plain_w.sink.take()["kept"]
+        if len(a) != len(b) or any(
+                x[0] != y[0] or x[1] != y[1] or not (
+                    all(np.asarray(u).tobytes() == np.asarray(v).tobytes()
+                        for u, v in zip(x[2:], y[2:])) if x[0] == "sync"
+                    else x[2:] == y[2:]) for x, y in zip(a, b)):
+            fail(f"twin Worlds' sinks differ at tick {t + 1}")
+        if kern.hooks != plain_w.hooks:
+            fail(f"twin Worlds' hook calls differ at tick {t + 1}")
+        sa = interop.state_to_numpy(kern.world.state)
+        sb = interop.state_to_numpy(plain_w.world.state)
+        if any(sa[k].tobytes() != sb[k].tobytes() for k in sa):
+            fail(f"twin Worlds' states differ at tick {t + 1}")
+        counts["hooks"] += len(kern.hooks)
+        counts["sync records"] += sum(len(x[2]) for x in a
+                                      if x[0] == "sync")
+        counts["messages"] += sum(1 for x in a if x[0] == "msg")
+        kern.hooks.clear()
+        plain_w.hooks.clear()
+    if twin_launches != {"kernels": [2] * TWIN_TICKS,
+                         "plain": [0] * TWIN_TICKS}:
+        fail(f"twin launches a tick {twin_launches}")
+    del twins, kern, plain_w
+    release_worlds()
+    secs = time.perf_counter() - phase0
+    print(f"[11] World step on the kernels == make_tick on ranges/argsort "
+          f"bit for bit (a clone of its state and flushed inputs, the step "
+          f"under the sync guard); its one-copy fetch of every output lane "
+          f"and of pos and yaw == .cpu() bit for bit; twin Worlds of "
+          f"{TWIN_N} slots (kernels, plain versions) equal in sinks, hooks "
+          f"and state for "
+          f"{TWIN_TICKS} ticks, walking and stress syncs in turns ({counts}); phase {secs:.1f} s {tag}",
+          flush=True)
+    return {"world": launches, "world_stress": stress_launches}
+
 
 
 def main() -> int:
@@ -958,13 +1235,20 @@ def main() -> int:
 
     mc = mega_config(N, MEGA_DEV)
     halo_parity(dev, mc)
-    rows.append(mega_path(dev, mc, tag))
+    ship_row, mega_device = mega_path(dev, mc, tag)
+    rows.append(ship_row)
     small_oracle(dev)
+    world = world_phase(dev, (p50, p99), tag)
+    for row, key in zip(rows[:2], ("sweep_fused", "counting_sort")):
+        row["launches_by_path"] = {"single_space": row["launches"],
+                                   **{p: n[key] for p, n in world.items()}}
+        row["launches"] = sum(row["launches_by_path"].values())
+    rows[2]["launches_by_path"] = {"megaspace": rows[2]["launches"]}
 
     dev_ms = device_times(profiled, rows[:2], plan)
-    print(f"[11] device time a call (torch.profiler, after the timed "
-          f"paths): {dev_ms}; kernel times on the next line {tag}",
-          flush=True)
+    print(f"[12] device time a call (torch.profiler, after the timed "
+          f"paths): {dev_ms}; {mega_device()}; kernel times on the next "
+          f"line {tag}", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

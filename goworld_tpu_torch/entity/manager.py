@@ -1,0 +1,1619 @@
+"""World — the host-side entity manager and tick driver, the port of
+``goworld_tpu/entity/manager.py``.
+
+Reference being rebuilt: ``engine/entity/EntityManager.go`` (type registry,
+id->entity maps, create/load/restore, RPC entry — ``:155-434``) fused with
+the game process's serve loop (``components/game/GameService.go:77-190``):
+the host stages all mutations between ticks, flushes them as vectorized
+scatters, runs ONE device step, and fans the step's event arrays back out
+to Python hooks and client messages.
+
+Everything here is the JAX World's Python and numpy, except its four
+device seams, rewritten for torch:
+
+* the step (:func:`_make_local_tick`): ``make_tick`` on the one Space's
+  view of the stacked ``[1, ...]`` state, its outputs restacked as
+  ``unsqueeze(0)`` views (no copy of the state's lanes);
+* the staging flush (:meth:`World._flush_staging`): every host lane of a
+  flush is built once in numpy, packed into one pinned buffer and copied
+  with one non-blocking copy; the scatters write the real rows only
+  (no padding buckets, since torch compiles nothing per shape), write
+  each (slot, column) once, keeping the last staged value on the host
+  (a CUDA ``index_put_`` with duplicate indices writes them in no fixed
+  order), and never read the device from the host;
+* the output fetch (:meth:`World._fetch`): every output lane in one
+  device-to-host copy and one stream synchronisation, as numpy arrays in
+  the JAX package's types, so the decode (:meth:`World._process_outputs`)
+  is the JAX decode;
+* the lazy per-tick position and yaw caches (:meth:`World.read_pos`,
+  :meth:`World.read_yaw`).
+
+This slice runs one AOI Space on one device (``n_spaces=1``,
+``mesh=None``). The JAX World's other shapes and planes (several spaces,
+a mesh, the megaspace, pipelined decode, live telemetry, the residency
+and audit planes, delta snapshots, the governor's config swap,
+multihost) raise ``NotImplementedError`` naming ROADMAP.md; none is
+substituted by another path.
+
+Slot lifecycle contract (``SURVEY.md#7``): a slot freed by a host despawn
+is flushed before the step, so its watchers' leave events fire in THAT
+step; the slot returns to the free set after those events are processed.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import defaultdict
+from typing import Callable
+
+import numpy as np
+import torch
+
+from goworld_tpu_torch.core.state import (
+    SpaceState,
+    WorldConfig,
+    resolve_device,
+)
+from goworld_tpu_torch.core.step import TickInputs, TickOutputs, make_tick
+from goworld_tpu_torch.entity.attrs import (
+    AttrDelta,
+    ListAttr,
+    MapAttr,
+    load_into,
+    make_root,
+    sever_tree,
+)
+from goworld_tpu_torch.entity.entity import Entity, GameClient
+from goworld_tpu_torch.entity.registry import (
+    RF_OTHER_CLIENT,
+    RF_OWN_CLIENT,
+    Registry,
+)
+from goworld_tpu_torch.entity.space import Space
+from goworld_tpu_torch.entity.timer import Crontab, PostQueue, TimerQueue
+from goworld_tpu_torch.parallel.mesh import create_multi_state, tile_view
+from goworld_tpu_torch.utils import consts, ids, log, metrics, opmon, tracing
+
+logger = log.get("world")
+
+def _refuse(what: str, queue: str = "A1b") -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet; see ROADMAP.md Queue {queue}")
+
+
+def _type_aoi_radius(desc) -> float:
+    """Device aoi_radius for a type (reference EntityTypeDesc.aoiDistance,
+    ``EntityManager.go:24-101``): use_aoi=False types are excluded from AOI
+    entirely (radius 0 — invisible and blind, the service-entity case); an
+    explicit aoi_distance > 0 bounds the type's view; otherwise +inf means
+    "the space's uniform radius" (GridSpec.radius caps the reach)."""
+    if not desc.use_aoi:
+        return 0.0
+    if desc.aoi_distance > 0:
+        return float(desc.aoi_distance)
+    return float("inf")
+
+
+def _lanes_of(obj, fn):
+    """A dataclass of tensor lanes with ``fn`` applied to every lane."""
+    return type(obj)(**{
+        f.name: None if getattr(obj, f.name) is None
+        else fn(getattr(obj, f.name))
+        for f in dataclasses.fields(obj)
+    })
+
+
+def _make_local_tick(cfg: WorldConfig, device):
+    """The step of a one-Space World: ``make_tick`` on the Space's view
+    of the stacked state (lanes ``[1, ...]``), with the new state and
+    the outputs restacked as ``unsqueeze(0)`` views, so no lane of the
+    state is copied. The JAX World donates its carry into the jitted
+    step; here the World holds the only reference to its carry and
+    replaces it each tick, so ``resident`` has nothing to switch."""
+    tick = make_tick(cfg, device=device)
+
+    def step1(state: SpaceState, inputs: TickInputs, policy=None):
+        s1, out = tick(tile_view(state, 0),
+                       _lanes_of(inputs, lambda t: t[0]), policy)
+        return (_lanes_of(s1, lambda t: t.unsqueeze(0)),
+                _lanes_of(out, lambda t: t.unsqueeze(0)))
+
+    return step1
+
+
+def _keep_last(lin: np.ndarray) -> np.ndarray:
+    """Positions of the last occurrence of each value of ``lin``, in
+    ascending order of value: the writes of a staged list that survive
+    when later writes to the same place win."""
+    _, first_of_rev = np.unique(lin[::-1], return_index=True)
+    return lin.size - 1 - first_of_rev
+
+
+class _HostPack:
+    """The host lanes of one flush, packed into one buffer and sent to
+    the device with one copy (pinned and non-blocking on a card). Each
+    lane starts on an 8-byte boundary, so its device view takes its
+    dtype in place."""
+
+    _DTYPES = {np.dtype(np.float32): torch.float32,
+               np.dtype(np.int32): torch.int32,
+               np.dtype(np.int64): torch.int64,
+               np.dtype(np.bool_): torch.bool}
+
+    def __init__(self):
+        self._parts: list[tuple[int, np.ndarray]] = []
+        self._nbytes = 0
+
+    def add(self, a: np.ndarray) -> int:
+        """Queue ``a``; returns its index in :meth:`send`'s list."""
+        a = np.ascontiguousarray(a)
+        self._parts.append((self._nbytes, a))
+        self._nbytes += -(-a.nbytes // 8) * 8
+        return len(self._parts) - 1
+
+    def send(self, device: torch.device) -> list[torch.Tensor]:
+        """Every queued lane on ``device``, in the order added."""
+        host = torch.empty(self._nbytes, dtype=torch.uint8,
+                           pin_memory=device.type == "cuda")
+        buf = host.numpy()
+        for off, a in self._parts:
+            buf[off:off + a.nbytes] = a.reshape(-1).view(np.uint8)
+        dev = host.to(device, non_blocking=True)
+        return [dev[off:off + a.nbytes].view(self._DTYPES[a.dtype])
+                .reshape(a.shape) for off, a in self._parts]
+
+
+class World:
+    """Hosts every entity of one game process on one device.
+
+    Parameters:
+      cfg: the Space's device config.
+      n_spaces: number of AOI shards; this slice runs 1.
+      mesh: must be None (a mesh is not ported yet).
+      clock: injectable time source for timers (tests pass virtual time).
+      device: where the state and the step live: the card unless the
+        caller asks for the CPU; raises when no card is present.
+
+    ``telemetry_live``, ``residency`` and ``audit`` default to True in
+    the JAX World and to False here, where True raises: those planes are
+    not ported yet, and none of them changes what an entity or a client
+    sees. ``resident`` is accepted with its JAX meaning: both values give
+    the same results, and here the World holds the only reference to its
+    carry either way. The JAX World's knobs of the refused shapes
+    (``migrate_cap``, ``halo_cap``, ``halo_impl``, ``mega_shape``, the
+    planes' sampling rates) are not taken.
+    """
+
+    def __init__(
+        self,
+        cfg: WorldConfig,
+        n_spaces: int = 1,
+        *,
+        mesh=None,
+        game_id: int = 1,
+        clock: Callable[[], float] = time.monotonic,
+        seed: int = 0,
+        megaspace: bool = False,
+        pipeline_decode: bool = False,
+        resident: bool = True,
+        telemetry_live: bool = False,
+        snapshot_keyframe_every: int = 0,
+        residency: bool = False,
+        audit: bool = False,
+        device="cuda",
+    ):
+        if mesh is not None:
+            raise _refuse("a World on a mesh", "A8")
+        if megaspace:
+            raise _refuse("the megaspace World", "A8")
+        if n_spaces != 1:
+            raise _refuse(f"n_spaces={n_spaces}", "A7")
+        for name, on in (("pipeline_decode", pipeline_decode),
+                         ("telemetry_live", telemetry_live),
+                         ("residency", residency), ("audit", audit),
+                         ("snapshot_keyframe_every",
+                          snapshot_keyframe_every > 0)):
+            if on:
+                raise _refuse(name)
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.n_spaces = n_spaces
+        self.game_id = game_id
+        self.registry = Registry()
+        self.policy = None  # the mlp behavior is not ported
+        self.state: SpaceState = create_multi_state(
+            cfg, n_spaces, seed=seed, device=self.device)
+        self._step = _make_local_tick(cfg, self.device)
+
+        # host object model
+        self.entities: dict[str, Entity] = {}
+        self.spaces: dict[str, Space] = {}
+        self._slot_owner: list[dict[int, str]] = [
+            {} for _ in range(n_spaces)
+        ]
+        # numpy mirrors of slot -> (entity id, client id, gate), kept
+        # incrementally in lockstep with _slot_owner / client binding:
+        # the sync-record fan-out decodes tens of thousands of records
+        # per tick, and with the mirrors the decode is pure numpy gather
+        # + groupby (see _process_outputs)
+        self._mir_eid = np.zeros((n_spaces, cfg.capacity), "S16")
+        self._mir_cid = np.zeros((n_spaces, cfg.capacity), "S16")
+        self._mir_gate = np.full((n_spaces, cfg.capacity), -1, np.int32)
+        self._free: list[set[int]] = [
+            set(range(cfg.capacity)) for _ in range(n_spaces)
+        ]
+        self._shard_space: list[str | None] = [None] * n_spaces
+        self.nil_space: Space | None = None
+
+        # runtime utils
+        self.timers = TimerQueue(clock)
+        self.post_q = PostQueue()
+        self.crontab = Crontab()
+        self.tick_count = 0
+        self.last_outputs = None  # fetched outputs of the most recent tick
+
+        # staging buffers (flushed as vectorized scatters each tick)
+        self._staged_spawn: list[tuple[int, int, dict]] = []
+        self._staged_despawn: list[tuple[int, int]] = []
+        self._staged_hot: list[tuple[int, int, int, float]] = []
+        self._staged_moving: list[tuple[int, int, bool]] = []
+        self._staged_client: list[tuple[int, int, bool, int]] = []
+        self._staged_pos: dict[tuple[int, int], Entity] = {}
+        # upstream (client->server) pos-sync BATCH path: slot-addressed
+        # staging arrays + a lazily rebuilt eid->(shard,slot) intern
+        # index over the client-bound mirror columns, so a decoded batch
+        # resolves in one searchsorted instead of a per-record dict walk
+        self._batch_pos_mask: np.ndarray | None = None
+        self._batch_pos_vals: np.ndarray | None = None
+        self._batch_pos_any = False
+        self._sync_index: tuple | None = None
+        # host staging of the position-sync inputs (zeroed and refilled
+        # each flush), and the sync fan-out's gather scratch
+        ic = cfg.input_cap
+        self._pin_idx = np.zeros((n_spaces, ic), np.int32)
+        self._pin_vals = np.zeros((n_spaces, ic, 4), np.float32)
+        self._pin_counts = np.zeros((n_spaces,), np.int32)
+        self._scr_cid = np.zeros((cfg.sync_cap,), "S16")
+        self._scr_gate = np.zeros((cfg.sync_cap,), np.int32)
+        self._scr_eid = np.zeros((cfg.sync_cap,), "S16")
+        # (shard, slot, expected_owner_eid): release only applies if the
+        # slot still belongs to that entity
+        self._release_now: list[tuple[int, int, str | None]] = []
+
+        # attr journaling
+        self._dirty_attr_entities: dict[str, list[AttrDelta]] = {}
+
+        # per-tick device read cache
+        self._pos_cache: np.ndarray | None = None
+        self._yaw_cache: np.ndarray | None = None
+
+        # pluggable sinks (the gateway overrides these; defaults capture)
+        self.client_messages: list[tuple[int, str, dict]] = []
+        self.client_sink: Callable[[int, str, dict], None] | None = None
+        # batched downstream sync: sync_sink(gate_id, cids, eids, vals)
+        # replaces per-record "sync" dicts when set (the game-server path)
+        self.sync_sink: Callable[[int, list, list, np.ndarray], None] | None \
+            = None
+        self.filtered_sink = None
+        self.remote_router = None  # cross-process RPC hook
+        # cross-process EnterSpace: called when the target space is not
+        # hosted here (reference requestMigrateTo, Entity.go:1006-1012)
+        self.remote_space_router: Callable[[Entity, str, tuple], None] | None \
+            = None
+        self.storage = None        # persistence backend
+        # periodic per-entity persistence (reference Entity.go:164-177
+        # setupSaveTimer): raw timers, never dumped into migrate data
+        self.save_interval: float = consts.DEFAULT_SAVE_INTERVAL
+        self._save_timers: dict[str, int] = {}
+        self.service_mgr = None    # sharded services
+        # cluster notifications (the game server wires these)
+        self.on_entity_created: Callable[[Entity], None] | None = None
+        self.on_entity_destroyed: Callable[[Entity], None] | None = None
+        self.op_stats: dict[str, float] = defaultdict(float)
+        self._aoi_alarm_tick = -(1 << 30)  # last AOI-overflow alarm tick
+        self._m_aoi_overflow = metrics.counter(
+            "aoi_overflow_total",
+            help="AOI rows truncated to nearest-k + cells past cell_cap",
+        )
+        self._m_aoi_demand = metrics.gauge("aoi_demand_max")
+        self._m_aoi_cell = metrics.gauge("aoi_cell_max")
+        self._m_aoi_rebuild = metrics.counter(
+            "aoi_rebuild_total",
+            help="AOI front-half rebuilds (every tick when skin = 0)",
+        )
+        self._m_aoi_slack = metrics.gauge("aoi_skin_slack")
+
+    # ==================================================================
+    # registration / creation
+    # ==================================================================
+    def register_entity(self, name: str, cls, **kw):
+        return self.registry.register(name, cls, **kw)
+
+    def register_space(self, name: str, cls, **kw):
+        if not issubclass(cls, Space):
+            raise TypeError(f"{cls} must subclass Space")
+        return self.registry.register(name, cls, is_space=True, **kw)
+
+    def _attach(self, e: Entity, eid: str) -> None:
+        e.id = eid
+        e.world = self
+        e.attrs = make_root(lambda d, _e=e: self._on_attr_delta(_e, d))
+        self._setup_save_timer(e)
+
+    def _setup_save_timer(self, e: Entity) -> None:
+        """Schedule the periodic save for a persistent entity (reference
+        ``setupSaveTimer``, ``Entity.go:214-217``)."""
+        if not e._type_desc.is_persistent or self.save_interval <= 0:
+            return
+        if e.id in self._save_timers:
+            return
+        self._save_timers[e.id] = self.timers.add(
+            self.save_interval,
+            lambda _e=e: None if _e.destroyed else self.save_entity(_e),
+            interval=self.save_interval,
+        )
+
+    def create_nil_space(self) -> Space:
+        """The per-game anchor space (reference ``space_ops.go:33-47``)."""
+        if "NilSpace" not in self.registry:
+            self.registry.register("NilSpace", Space, is_space=True,
+                                   use_aoi=False)
+        sp = Space()
+        sp._type_desc = self.registry.get("NilSpace")
+        self._attach(sp, ids.nil_space_id(self.game_id))
+        sp.is_nil_space = True
+        self.entities[sp.id] = sp
+        self.spaces[sp.id] = sp
+        self.nil_space = sp
+        if self.on_entity_created is not None:
+            self.on_entity_created(sp)
+        return sp
+
+    def create_space(
+        self, type_name: str, *, use_aoi: bool | None = None,
+        attrs: dict | None = None, eid: str | None = None, **kw_attrs,
+    ) -> Space:
+        desc = self.registry.get(type_name)
+        if not desc.is_space:
+            raise TypeError(f"{type_name} is not a space type")
+        if desc.megaspace:
+            raise _refuse(f"space type {type_name!r} (megaspace=True)",
+                          "A8")
+        if eid is not None and eid in self.entities:
+            raise ValueError(f"entity id collision: {eid}")
+        sp: Space = desc.cls()
+        sp._type_desc = desc
+        # honor a caller-supplied id (CreateSpaceAnywhere routes by it)
+        self._attach(sp, eid or ids.gen_entity_id())
+        aoi = desc.use_aoi if use_aoi is None else use_aoi
+        if aoi:
+            try:
+                shard = self._shard_space.index(None)
+            except ValueError:
+                raise RuntimeError(
+                    f"no free shard for AOI space ({self.n_spaces} in use); "
+                    "raise n_spaces"
+                ) from None
+            self._shard_space[shard] = sp.id
+            sp.shard = shard
+        self.entities[sp.id] = sp
+        self.spaces[sp.id] = sp
+        # explicit attrs dict first (wire path — attr names there may
+        # collide with parameter names), then kwarg sugar
+        for k, v in {**(attrs or {}), **kw_attrs}.items():
+            sp.attrs[k] = v
+        sp.OnInit()
+        sp.OnSpaceInit()
+        sp.OnAttrsReady()
+        sp.OnCreated()
+        sp.OnSpaceCreated()
+        if self.on_entity_created is not None:
+            self.on_entity_created(sp)
+        return sp
+
+    def create_entity(
+        self,
+        type_name: str,
+        *,
+        space: Space | None = None,
+        pos=(0.0, 0.0, 0.0),
+        eid: str | None = None,
+        client: GameClient | None = None,
+        attrs: dict | None = None,
+        moving: bool = False,
+    ) -> Entity:
+        """Reference ``createEntity`` (``EntityManager.go:201``)."""
+        desc = self.registry.get(type_name)
+        if desc.is_space:
+            raise TypeError(f"use create_space for space type {type_name}")
+        e: Entity = desc.cls()
+        e._type_desc = desc
+        new_id = eid or ids.gen_entity_id()
+        if new_id in self.entities:
+            raise ValueError(f"entity id collision: {new_id}")
+        self._attach(e, new_id)
+        self.entities[e.id] = e
+        if attrs:
+            load_into(e.attrs, attrs)
+        e.OnInit()
+        e.OnAttrsReady()
+        space = space or self.nil_space
+        if space is not None:
+            self._enter_space_local(e, space, pos, moving=moving)
+        if client is not None:
+            self.set_entity_client(e, client)
+        e.OnCreated()
+        if self.on_entity_created is not None:
+            self.on_entity_created(e)
+        return e
+
+    def load_entity(self, type_name: str, eid: str,
+                    cb: Callable[[Entity | None], None] | None = None) -> None:
+        """Async load from storage (reference ``loadEntityLocally``,
+        ``EntityManager.go:307``). Requires a storage backend."""
+        if self.storage is None:
+            raise RuntimeError("no storage backend configured")
+        if eid in self.entities:
+            if cb:
+                self.post_q.post(lambda: cb(self.entities.get(eid)))
+            return
+
+        def _loaded(data: dict | None) -> None:
+            if data is None:
+                logger.warning("load_entity %s %s: not found", type_name, eid)
+                if cb:
+                    cb(None)
+                return
+            if eid in self.entities:  # raced a concurrent load/create
+                if cb:
+                    cb(self.entities[eid])
+                return
+            e = self.create_entity(type_name, eid=eid, attrs=data)
+            e.OnRestored()
+            if cb:
+                cb(e)
+
+        self.storage.load(type_name, eid, _loaded)
+
+    # ==================================================================
+    # slot management
+    # ==================================================================
+    def _alloc_slot(self, shard: int, eid: str) -> int:
+        try:
+            slot = self._free[shard].pop()
+        except KeyError:
+            raise RuntimeError(
+                f"space shard {shard} is full ({self.cfg.capacity} slots)"
+            ) from None
+        self._slot_set(shard, slot, eid)
+        return slot
+
+    def _owner_entity(self, shard: int, slot: int) -> Entity | None:
+        eid = self._slot_owner[shard].get(slot)
+        return self.entities.get(eid) if eid is not None else None
+
+    # -- slot/client numpy mirrors (all _slot_owner writes route here) --
+    def _write_client_cols(self, shard: int, slot: int,
+                           c: GameClient | None) -> None:
+        if c is not None:
+            self._mir_cid[shard, slot] = c.client_id.encode("ascii")
+            self._mir_gate[shard, slot] = c.gate_id
+        else:
+            self._mir_cid[shard, slot] = b""
+            self._mir_gate[shard, slot] = -1
+        # the eid->(shard,slot) intern index over these columns is stale
+        self._sync_index = None
+
+    def _slot_set(self, shard: int, slot: int, eid: str) -> None:
+        self._slot_owner[shard][slot] = eid
+        self._mir_eid[shard, slot] = eid.encode("ascii")
+        e = self.entities.get(eid)
+        self._write_client_cols(shard, slot,
+                                e.client if e is not None else None)
+
+    def _slot_clear(self, shard: int, slot: int) -> None:
+        self._slot_owner[shard].pop(slot, None)
+        self._mir_eid[shard, slot] = b""
+        self._write_client_cols(shard, slot, None)
+
+    def _mirror_client(self, e: Entity) -> None:
+        """Refresh the client columns for an entity's current slot (call
+        after any (re)bind/unbind; no-op for slotless or stale rows)."""
+        if e.shard is None or e.slot is None:
+            return
+        if self._slot_owner[e.shard].get(e.slot) != e.id:
+            return
+        self._write_client_cols(e.shard, e.slot, e.client)
+
+    def _drop_staged_for(self, shard: int, slot: int) -> None:
+        """Forget pending writes aimed at a row being despawned."""
+        self._staged_hot = [
+            x for x in self._staged_hot if (x[0], x[1]) != (shard, slot)
+        ]
+        self._staged_moving = [
+            x for x in self._staged_moving if (x[0], x[1]) != (shard, slot)
+        ]
+        self._staged_client = [
+            x for x in self._staged_client if (x[0], x[1]) != (shard, slot)
+        ]
+        self._staged_pos.pop((shard, slot), None)
+        if self._batch_pos_mask is not None:
+            self._batch_pos_mask[shard, slot] = False
+
+    # ==================================================================
+    # space enter / leave
+    # ==================================================================
+    def enter_space(self, e: Entity, space_id: str, pos) -> None:
+        """Reference ``EnterSpace`` (``Entity.go:956-973``). With one AOI
+        shard no two AOI spaces coexist, so the JAX World's staged
+        device migration between shards never arises: a space change is
+        the host move, run after the current frame."""
+        target = self.spaces.get(space_id)
+        if target is None:
+            if self.remote_space_router is not None:
+                # the space lives on another game process
+                self.remote_space_router(e, space_id, tuple(map(float, pos)))
+                return
+            raise KeyError(f"space {space_id} not found in this world")
+        if e.space is target:
+            e.set_position(pos)
+            return
+        self.post_q.post(lambda: self._move_space_host(e, target, pos))
+
+    def _move_space_host(self, e: Entity, target: Space, pos) -> None:
+        if e.destroyed:
+            return
+        self._leave_space_host(e)
+        self._enter_space_local(e, target, pos)
+
+    def _leave_space_host(self, e: Entity) -> None:
+        src = e.space
+        if src is None:
+            return
+        src.members.discard(e.id)
+        if e.slot is not None:
+            self._drop_staged_for(e.shard, e.slot)
+            self._staged_despawn.append((e.shard, e.slot))
+            e.slot = None
+            e.shard = None
+        e.space = None
+        e.OnLeaveSpace(src)
+        src.OnEntityLeaveSpace(e)
+
+    def _enter_space_local(
+        self, e: Entity, space: Space, pos, moving: bool = False
+    ) -> None:
+        e.space = space
+        space.members.add(e.id)
+        shard = space.shard
+        if shard is not None:
+            slot = self._alloc_slot(shard, e.id)
+            e.slot = slot
+            e.shard = shard
+            hot = [0.0] * self.cfg.attr_width
+            for name, col in e._type_desc.hot_attrs.items():
+                v = e.attrs.get(name)
+                if isinstance(v, (int, float)) and not isinstance(v, bool):
+                    hot[col] = float(v)
+            self._staged_spawn.append((shard, slot, dict(
+                pos=tuple(map(float, pos)),
+                yaw=0.0,
+                type_id=e._type_desc.type_id,
+                npc_moving=moving,
+                has_client=e.client is not None,
+                client_gate=e.client.gate_id if e.client else -1,
+                hot=hot,
+                aoi_radius=_type_aoi_radius(e._type_desc),
+            )))
+        e._pending_pos = tuple(map(float, pos))
+        e.OnEnterSpace()
+        space.OnEntityEnterSpace(e)
+
+    def destroy_entity(self, e: Entity) -> None:
+        """Reference ``destroyEntity`` (``Entity.go:631-651``)."""
+        if e.destroyed:
+            return
+        e.destroyed = True
+        try:
+            e.OnDestroy()
+        except Exception:
+            logger.exception("OnDestroy failed for %s", e)
+        if e._type_desc.is_persistent and self.storage is not None:
+            self.save_entity(e)
+        if e.client is not None:
+            self.set_entity_client(e, None)
+        for tid in list(e.timer_ids):
+            self.timers.cancel(tid)
+        e.timer_ids.clear()
+        save_tid = self._save_timers.pop(e.id, None)
+        if save_tid is not None:
+            self.timers.cancel(save_tid)
+        if isinstance(e, Space):
+            # evict members into the nil space (despawns their rows) so a
+            # new space claiming this shard never sees ghost entities
+            for mid in list(e.members):
+                m = self.entities.get(mid)
+                if m is None or m is e:
+                    continue
+                if self.nil_space is not None:
+                    self._move_space_host(m, self.nil_space, m.position)
+                else:
+                    self._leave_space_host(m)
+            if e.shard is not None:
+                self._shard_space[e.shard] = None
+            e.OnSpaceDestroy()
+            self.spaces.pop(e.id, None)
+        had_slot = e.slot is not None
+        self._leave_space_host(e)
+        if not had_slot:
+            # never on device: nothing will reference it again
+            self.entities.pop(e.id, None)
+        # else: the host object stays mapped until the leave events
+        # referencing its slot have been processed (_process_outputs)
+        #
+        # Break the entity's reference cycles (e -> attrs ->
+        # _root_cb-closure -> e, and every attr child's parent pointer)
+        # so plain refcounting reclaims it. Post-destroy attr mutations
+        # no longer journal, which is correct: the entity is gone to
+        # every client.
+        if e.attrs is not None:
+            sever_tree(e.attrs)
+        if self.on_entity_destroyed is not None:
+            self.on_entity_destroyed(e)
+
+    # ==================================================================
+    # staging entry points (called by Entity)
+    # ==================================================================
+    def stage_pos_set(self, e: Entity) -> None:
+        if e.slot is not None and e.shard is not None:
+            self._staged_pos[(e.shard, e.slot)] = e
+
+    def _sync_pos_index(self) -> tuple:
+        """eid -> (shard, slot) intern index over client-bound live
+        slots, rebuilt lazily after any client (re)bind/unbind or slot
+        change (all of which funnel through ``_write_client_cols``),
+        built and probed with :func:`ids.build_eid_index`."""
+        if self._sync_index is None:
+            sh, sl = np.nonzero(self._mir_gate >= 0)
+            hashed, keys, sorted_eids, order = ids.build_eid_index(
+                self._mir_eid[sh, sl]
+            )
+            self._sync_index = (
+                hashed,
+                keys,
+                sorted_eids,
+                sh[order].astype(np.int32),
+                sl[order].astype(np.int32),
+            )
+        return self._sync_index
+
+    def stage_pos_sync_batch(self, eids, vals) -> int:
+        """Stage a decoded upstream sync batch (S16 eids[N], f32[N,4]
+        x/y/z/yaw) without touching per-entity Python objects: one
+        searchsorted against the intern index resolves every record to
+        its (shard, slot); records for unknown, client-less or slotless
+        entities are dropped (the reference's ``e == nil || e.client ==
+        nil`` skip, ``GameService.go:395-407``). Last write wins per
+        slot, both within a batch and across batches in the same tick.
+        Host reads (``Entity.position``/``yaw``) see staged values
+        immediately via ``_peek_batch_pos``; host-side ``set_position``
+        writes staged the same tick take precedence at flush. Returns
+        the number staged."""
+        hashed, keys, sorted_eids, ish, isl = self._sync_pos_index()
+        eids = np.ascontiguousarray(np.asarray(eids, "S16"))
+        if eids.shape[0] == 0 or keys.size == 0:
+            return 0
+        p, ok = ids.probe_eid_index(hashed, keys, sorted_eids, eids)
+        if not ok.any():
+            return 0
+        sh = ish[p[ok]]
+        sl = isl[p[ok]]
+        v = np.asarray(vals, np.float32).reshape(-1, 4)[ok]
+        if self._batch_pos_mask is None:
+            self._batch_pos_mask = np.zeros(
+                (self.n_spaces, self.cfg.capacity), bool
+            )
+            self._batch_pos_vals = np.zeros(
+                (self.n_spaces, self.cfg.capacity, 4), np.float32
+            )
+        # in-batch duplicates: keep the LAST record per slot (wire
+        # arrival order)
+        sel = _keep_last(sh.astype(np.int64) * self.cfg.capacity + sl)
+        self._batch_pos_mask[sh[sel], sl[sel]] = True
+        self._batch_pos_vals[sh[sel], sl[sel]] = v[sel]
+        self._batch_pos_any = True
+        return int(sel.size)
+
+    def _peek_batch_pos(self, shard: int, slot: int):
+        """Staged-but-unflushed client sync for a slot (or None)."""
+        if self._batch_pos_any and self._batch_pos_mask is not None \
+                and self._batch_pos_mask[shard, slot]:
+            return self._batch_pos_vals[shard, slot]
+        return None
+
+    def set_moving(self, e: Entity, moving: bool) -> None:
+        if e.slot is not None and e.shard is not None:
+            self._staged_moving.append((e.shard, e.slot, moving))
+
+    def stage_hot(self, e: Entity, col: int, val: float) -> None:
+        if e.slot is not None and e.shard is not None:
+            self._staged_hot.append((e.shard, e.slot, col, val))
+
+    def set_entity_client(self, e: Entity, client: GameClient | None) -> None:
+        """Reference ``SetClient`` (``Entity.go:678-720``): bind/unbind and
+        send the client its own entity + currently visible neighbors
+        (``GameClient.go:37-53``: player gets Client attrs, neighbors get
+        AllClients attrs)."""
+        old = e.client
+        e.client = client
+        if client is not None:
+            client.owner = e
+        self._mirror_client(e)
+        if e.slot is not None and e.shard is not None:
+            self._staged_client.append((
+                e.shard, e.slot,
+                client is not None,
+                client.gate_id if client is not None else -1,
+            ))
+        if old is not None and client is None:
+            old.send({"type": "destroy_entity", "eid": e.id,
+                      "is_player": True})
+            e.OnClientDisconnected()
+        elif client is not None:
+            client.send({
+                "type": "create_entity", "eid": e.id,
+                "etype": e.type_name, "is_player": True,
+                "attrs": e.get_client_data(),
+                "pos": list(e.position), "yaw": e.yaw,
+            })
+            for nid in e.interested_in:
+                n = self.entities.get(nid)
+                if n is not None:
+                    client.send({
+                        "type": "create_entity", "eid": n.id,
+                        "etype": n.type_name, "is_player": False,
+                        "attrs": n.get_all_clients_data(),
+                        "pos": list(n.position), "yaw": n.yaw,
+                    })
+            e.OnClientConnected()
+
+    # ==================================================================
+    # attr deltas
+    # ==================================================================
+    def _on_attr_delta(self, e: Entity, d: AttrDelta) -> None:
+        self._dirty_attr_entities.setdefault(e.id, []).append(d)
+        root_key = d.path[0] if d.path else None
+        col = e._type_desc.hot_attrs.get(root_key)
+        if col is not None and isinstance(d.value, (int, float)) \
+                and not isinstance(d.value, bool):
+            self.stage_hot(e, col, float(d.value))
+
+    def _apply_device_attr(self, e: Entity, name: str, v: float,
+                           aud: str | None) -> None:
+        """Write a kernel-mutated hot attr shadowed by a tree node into
+        the host tree WITHOUT echoing it back to the device, journaling
+        the change when ``aud`` (the attr's audience) gives it a
+        recipient."""
+        attrs = e.attrs
+        cb = attrs._root_cb
+        attrs._root_cb = None
+        try:
+            attrs[name] = v
+        finally:
+            attrs._root_cb = cb
+        if aud is not None and (
+                e.client is not None
+                or (aud == "all_clients" and bool(e.interested_by))):
+            self._dirty_attr_entities.setdefault(e.id, []).append(
+                AttrDelta((name,), "set", v)
+            )
+
+    def _drain_attr_journals(self) -> None:
+        for eid, deltas in self._dirty_attr_entities.items():
+            e = self.entities.get(eid)
+            if e is None or e.destroyed:
+                continue
+            has_own = e.client is not None
+            has_watchers = bool(e.interested_by)
+            if not has_own and not has_watchers:
+                # nobody to tell — don't build recs that are dropped
+                continue
+            desc = e._type_desc
+            own: list = []
+            others: list = []
+            for d in deltas:
+                aud = desc.audience_of(d.path[0]) if d.path else None
+                if aud is None:
+                    continue
+                rec = {"path": list(d.path), "op": d.op, "value": d.value}
+                if aud == "all_clients":
+                    own.append(rec)
+                    others.append(rec)
+                else:
+                    own.append(rec)
+            if own and has_own:
+                e.client.send({"type": "attrs", "eid": eid, "deltas": own})
+            if others and has_watchers:
+                for wid in e.interested_by:
+                    w = self.entities.get(wid)
+                    if w is not None and w.client is not None:
+                        w.client.send(
+                            {"type": "attrs", "eid": eid, "deltas": others}
+                        )
+        self._dirty_attr_entities.clear()
+
+    # ==================================================================
+    # RPC
+    # ==================================================================
+    def call(self, eid: str, method: str, *args,
+             from_client: str | None = None) -> None:
+        """Reference ``entity.Call`` (``EntityManager.go:399-412``):
+        local-optimized post, else the remote router (the dispatcher-hop
+        analog, provided by the deployment layer)."""
+        e = self.entities.get(eid)
+        if e is not None and consts.OPTIMIZE_LOCAL_ENTITY_CALL:
+            self.post_q.post(
+                lambda: self._invoke(e, method, args, from_client)
+            )
+        elif self.remote_router is not None:
+            self.remote_router(eid, method, args, from_client)
+        elif e is not None:  # local, but forced through the routed path
+            self.post_q.post(
+                lambda: self._invoke(e, method, args, from_client)
+            )
+        else:
+            logger.warning("call %s.%s: entity not found", eid, method)
+
+    def _invoke(self, e: Entity, method: str, args: tuple,
+                from_client: str | None) -> None:
+        if tracing.active:
+            ctx = tracing.current()
+            if ctx is not None and ctx.sampled:
+                # traced RPC: the method execution gets its own span
+                with tracing.hop("invoke", f"game{self.game_id}", ctx,
+                                 method=method, eid=e.id):
+                    return self._invoke_body(e, method, args,
+                                             from_client)
+        return self._invoke_body(e, method, args, from_client)
+
+    def _invoke_body(self, e: Entity, method: str, args: tuple,
+                     from_client: str | None) -> None:
+        if e.destroyed:
+            return
+        desc = e._type_desc.rpc_descs.get(method)
+        if desc is None:
+            logger.warning("%s has no RPC method %s", e, method)
+            return
+        if from_client is not None:
+            own = e.client is not None and e.client.client_id == from_client
+            need = RF_OWN_CLIENT if own else RF_OTHER_CLIENT
+            if not desc.flags & need:
+                logger.warning(
+                    "client %s not allowed to call %s.%s",
+                    from_client, e, method,
+                )
+                return
+        try:
+            getattr(e, method)(*args)
+        except Exception:
+            logger.exception("RPC %s.%s failed", e, method)
+
+    def call_service(self, name: str, method: str, *args,
+                     shard_key: str | None = None,
+                     shard_index: int | None = None,
+                     all_shards: bool = False) -> None:
+        """CallServiceAny/ShardKey/ShardIndex/All (goworld.go:157-172)."""
+        if self.service_mgr is None:
+            raise RuntimeError("service manager not configured")
+        if all_shards:
+            self.service_mgr.call_all(name, method, *args)
+            return
+        self.service_mgr.call(name, method, args, shard_key=shard_key,
+                              shard_index=shard_index)
+
+    def call_filtered_clients(self, key, op, val, method, args) -> None:
+        if self.filtered_sink is None:
+            logger.warning("call_filtered_clients: no gateway attached")
+            return
+        self.filtered_sink(key, op, val, method, args)
+
+    # ==================================================================
+    # timers
+    # ==================================================================
+    def add_entity_timer(self, e: Entity, delay: float, interval: float,
+                         cb_or_method, args: tuple) -> int:
+        if isinstance(cb_or_method, str):
+            # method-name timers are migration/freeze-safe (Entity.go:271)
+            return self.timers.add(
+                delay, interval=interval, method=cb_or_method,
+                args=(e.id,) + args,
+            )
+        box: dict[str, int] = {}
+
+        def _cb() -> None:
+            if interval <= 0:  # one-shot: forget the tid (no leak)
+                e.timer_ids.discard(box.get("tid", -1))
+            if not e.destroyed:
+                cb_or_method(*args)
+
+        box["tid"] = tid = self.timers.add(
+            delay, interval=interval, cb=_cb
+        )
+        return tid
+
+    def _fire_timer(self, t) -> None:
+        if t.method is not None:
+            eid = t.args[0]
+            e = self.entities.get(eid)
+            if e is None or e.destroyed:
+                return
+            if t.interval <= 0:
+                e.timer_ids.discard(t.tid)
+            fn = getattr(e, t.method, None)
+            if fn is None:
+                logger.warning("timer method %s missing on %s", t.method, e)
+                return
+            fn(*t.args[1:])
+        elif t.cb is not None:
+            t.cb()
+
+    # ==================================================================
+    # client message sink
+    # ==================================================================
+    def client_emit_ok(self, e: Entity | None) -> bool:
+        """Whether this process emits ``e``'s client-bound messages: a
+        single-controller World always does (the multi-controller send
+        dedup of the JAX World is not ported)."""
+        return True
+
+    def send_to_client(self, gate_id: int, client_id: str, msg: dict) -> None:
+        if self.client_sink is not None:
+            self.client_sink(gate_id, client_id, msg)
+        else:
+            self.client_messages.append((gate_id, client_id, msg))
+
+    # ==================================================================
+    # cross-process migration (reference Entity.go:1060-1115,
+    # EntityManager.go:246-305 — GetMigrateData / restoreEntity)
+    # ==================================================================
+    def get_migrate_data(self, e: Entity) -> dict:
+        """Everything needed to recreate the entity on another game: all
+        attrs, client binding, pos/yaw, migration-safe timers."""
+        return {
+            "type": e.type_name,
+            "id": e.id,
+            "attrs": e.attrs.to_dict(),
+            "client": (
+                [e.client.gate_id, e.client.client_id]
+                if e.client is not None else None
+            ),
+            "pos": list(e.position),
+            "yaw": e.yaw,
+            "timers": self.timers.dump(list(e.timer_ids)),
+        }
+
+    def remove_for_migration(self, e: Entity) -> None:
+        """Tear down the local copy WITHOUT destroy semantics — no
+        OnDestroy, no persistence, no client destroy message (the client
+        binding travels in the migrate data; reference
+        ``destroyEntity(isMigrate=true)``, ``Entity.go:631-651``)."""
+        e.OnMigrateOut()
+        for tid in list(e.timer_ids):
+            self.timers.cancel(tid)
+        e.timer_ids.clear()
+        save_tid = self._save_timers.pop(e.id, None)
+        if save_tid is not None:
+            self.timers.cancel(save_tid)  # target game schedules its own
+        e.client = None  # quiet detach; the data carries the binding
+        self._mirror_client(e)
+        e.destroyed = True
+        self._leave_space_host(e)
+        if e.slot is None:
+            self.entities.pop(e.id, None)
+
+    def restore_from_migration(self, data: dict,
+                               space: Space | None = None) -> Entity:
+        """Recreate a migrated-in entity: rebuild attrs, quietly re-assign
+        the client, enter the target space, restore timers, OnMigrateIn."""
+        desc = self.registry.get(data["type"])
+        e: Entity = desc.cls()
+        e._type_desc = desc
+        self._attach(e, data["id"])
+        self.entities[e.id] = e
+        load_into(e.attrs, data["attrs"])
+        if data.get("client"):
+            # direct assignment = the reference's "re-assign client
+            # quietly" (no create_entity resend)
+            e.client = GameClient(
+                data["client"][0], data["client"][1], self, owner=e
+            )
+        sp = space or self.nil_space
+        if sp is not None:
+            self._enter_space_local(e, sp, tuple(data["pos"]))
+        e._pending_yaw = float(data.get("yaw", 0.0))
+        self.stage_pos_set(e)
+        for tid in self.timers.restore(data.get("timers", [])):
+            e.timer_ids.add(tid)
+        e.OnMigrateIn()
+        if self.on_entity_created is not None:
+            self.on_entity_created(e)
+        return e
+
+    # ==================================================================
+    # persistence
+    # ==================================================================
+    def save_entity(self, e: Entity) -> None:
+        if self.storage is None or not e._type_desc.is_persistent:
+            return
+        self.storage.save(e.type_name, e.id, e.get_persistent_data())
+
+    # ==================================================================
+    # planes of the JAX World that this slice refuses
+    # ==================================================================
+    def apply_tick_config(self, *args, **kwargs) -> None:
+        """The governor's live config swap (not ported yet)."""
+        raise _refuse("apply_tick_config (the autotune governor)")
+
+    def workload_signature(self) -> dict | None:
+        """The live workload signature (not ported yet)."""
+        raise _refuse("workload_signature (live telemetry)")
+
+    def window_signature(self) -> dict | None:
+        """The last window's workload signature (not ported yet)."""
+        raise _refuse("window_signature (live telemetry)")
+
+    def cost_report(self):
+        """The compiled step's cost report (not ported yet)."""
+        raise _refuse("cost_report (devprof)")
+
+    # ==================================================================
+    # the tick
+    # ==================================================================
+    def tick(self) -> None:
+        # per-tick phase timeline: a serve loop may open the tick record
+        # itself (so its own spans land in it too); a standalone World
+        # opens its own and must close it even when a phase raises, or
+        # the process-global recorder wedges
+        tl = metrics.timeline
+        self_opened = not tl.is_open
+        if self_opened:
+            tl.begin_tick()
+        try:
+            self._tick_phases(tl)
+        finally:
+            if self_opened:
+                tl.end_tick()
+
+    def _tick_phases(self, tl) -> None:
+        t_start = time.perf_counter()
+        with tl.span("flush_staging"):
+            self.timers.tick(self._fire_timer)
+            self.crontab.tick()
+            self.post_q.tick()
+            inputs = self._flush_staging()
+        self._pos_cache = self._yaw_cache = None
+        t0 = time.perf_counter()
+        with tl.span("device_step"):
+            self.state, outs = self._step(self.state, inputs, self.policy)
+        with tl.span("fetch_outputs"):
+            outs = self._fetch(outs)
+        # launch of the step plus the wait for its outputs: how long
+        # this frame waited on the device
+        dt = time.perf_counter() - t0
+        self.op_stats["device_step_s"] = dt
+        tl.set_tick_args(device_step_ms=round(dt * 1e3, 3),
+                         tick=self.tick_count)
+        with tl.span("decode_fanout"):
+            self.last_outputs = outs  # observability (tests, opmon)
+            self._process_outputs(outs)
+            self._drain_attr_journals()
+            self.post_q.tick()
+        self.tick_count += 1
+        opmon.monitor.record("world.tick", time.perf_counter() - t_start)
+
+    # -- staging flush --------------------------------------------------
+    def _flush_staging(self) -> TickInputs:
+        """Apply every staged mutation to the device state and build the
+        tick's position-sync inputs.
+
+        The JAX World's scatters in the same order (spawn, despawn, hot
+        attrs, moving flags, client bindings, then the inputs), with the
+        same final values: each stage's host lanes are built once in
+        numpy, every (slot, column) written once with its last staged
+        value, all lanes sent in one copy. The host reads nothing back:
+        a position or yaw the inputs must keep is gathered from the
+        state on the device."""
+        cfg = self.cfg
+        pack = _HostPack()
+
+        spawn = None
+        if self._staged_spawn:
+            d = [v for _, _, v in self._staged_spawn]
+            spawn = [pack.add(x) for x in (
+                np.array([s for _, s, _ in self._staged_spawn], np.int64),
+                np.array([x["pos"] for x in d], np.float32).reshape(-1, 3),
+                np.array([x["yaw"] for x in d], np.float32),
+                np.array([x["npc_moving"] for x in d], bool),
+                np.array([x["has_client"] for x in d], bool),
+                np.array([x["client_gate"] for x in d], np.int32),
+                np.array([x["type_id"] for x in d], np.int32),
+                np.array([x["hot"] for x in d], np.float32).reshape(
+                    -1, cfg.attr_width),
+                np.array([x.get("aoi_radius", np.inf) for x in d],
+                         np.float32),
+            )]
+            # the device row now holds the spawn position; clear the host
+            # mirror so Entity.position tracks the live row (unless a
+            # newer set_position is staged — that loop clears its own)
+            for shard_, slot_, _ in self._staged_spawn:
+                if (shard_, slot_) in self._staged_pos:
+                    continue
+                e_ = self._owner_entity(shard_, slot_)
+                if e_ is not None:
+                    e_._pending_pos = None
+                    e_._pending_yaw = None
+            self._staged_spawn.clear()
+
+        despawn = None
+        if self._staged_despawn:
+            despawn = pack.add(np.array(
+                [s for _, s in self._staged_despawn], np.int64))
+            # release AFTER this tick's leave events decode
+            self._release_now.extend(
+                (sh_, sl_, self._slot_owner[sh_].get(sl_))
+                for sh_, sl_ in self._staged_despawn
+            )
+            self._staged_despawn.clear()
+
+        hot = None
+        if self._staged_hot:
+            sl = np.array([x[1] for x in self._staged_hot], np.int64)
+            co = np.array([x[2] for x in self._staged_hot], np.int64)
+            va = np.array([x[3] for x in self._staged_hot], np.float32)
+            keep = _keep_last(sl * cfg.attr_width + co)
+            hot = [pack.add(x[keep]) for x in (sl, co, va)]
+            self._staged_hot.clear()
+
+        moving = None
+        if self._staged_moving:
+            sl = np.array([x[1] for x in self._staged_moving], np.int64)
+            mv = np.array([x[2] for x in self._staged_moving], bool)
+            keep = _keep_last(sl)
+            moving = [pack.add(x[keep]) for x in (sl, mv)]
+            self._staged_moving.clear()
+
+        client = None
+        if self._staged_client:
+            sl = np.array([x[1] for x in self._staged_client], np.int64)
+            hc = np.array([x[2] for x in self._staged_client], bool)
+            cg = np.array([x[3] for x in self._staged_client], np.int32)
+            keep = _keep_last(sl)
+            client = [pack.add(x[keep]) for x in (sl, hc, cg)]
+            self._staged_client.clear()
+
+        # position-sync inputs -> TickInputs [1, IC]
+        ic = cfg.input_cap
+        idx = self._pin_idx
+        vals = self._pin_vals
+        counts = self._pin_counts
+        idx.fill(0)
+        vals.fill(0)
+        counts.fill(0)
+        # rows whose position (a set_yaw alone) or yaw (a set_position
+        # alone) is the device row's current one: gathered on the device
+        fill_pos = np.zeros(ic, bool)
+        fill_yaw = np.zeros(ic, bool)
+        entries = list(self._staged_pos.items())
+        overflow: dict[tuple[int, int], Entity] = {}
+        for (shard, slot), e in entries:
+            c = counts[shard]
+            if c >= ic:
+                # keep it staged so the write lands next tick instead of
+                # silently diverging host (_pending_pos) from device
+                overflow[(shard, slot)] = e
+                continue
+            p = e._pending_pos
+            if p is None:
+                p = self._peek_batch_pos(shard, slot)
+                if p is None:
+                    fill_pos[c] = True
+                    p = (0.0, 0.0, 0.0)
+            y = e._pending_yaw
+            if y is None:
+                fill_yaw[c] = True
+                y = 0.0
+            idx[shard, c] = slot
+            vals[shard, c] = (p[0], p[1], p[2], y)
+            counts[shard] = c + 1
+            e._pending_pos = None
+            e._pending_yaw = None
+        self._staged_pos = overflow
+        if overflow:
+            logger.warning(
+                "pos-sync input overflow: %d updates deferred a tick",
+                len(overflow),
+            )
+
+        # batched client syncs (stage_pos_sync_batch) fill the remaining
+        # input rows; host-side writes staged this tick shadow a client
+        # record for the same slot (the slots of one batch are unique),
+        # and rows that don't fit stay staged for the next tick
+        if self._batch_pos_any:
+            bm = self._batch_pos_mask
+            if entries:
+                hsh = np.array([k[0] for k, _ in entries], np.int32)
+                hsl = np.array([k[1] for k, _ in entries], np.int32)
+                bm[hsh, hsl] = False
+            bsh, bsl = np.nonzero(bm)
+            deferred = 0
+            if bsh.size:
+                bv = self._batch_pos_vals[bsh, bsl]
+                for shard in np.unique(bsh):
+                    m = np.nonzero(bsh == shard)[0]
+                    room = max(ic - int(counts[shard]), 0)
+                    take = m[:room]
+                    k = take.size
+                    if k:
+                        c0 = int(counts[shard])
+                        idx[shard, c0:c0 + k] = bsl[take]
+                        vals[shard, c0:c0 + k] = bv[take]
+                        counts[shard] = c0 + k
+                        bm[shard, bsl[take]] = False
+                    deferred += m.size - k
+            if deferred:
+                logger.warning(
+                    "pos-sync input overflow: %d client sync records "
+                    "deferred a tick", deferred,
+                )
+            self._batch_pos_any = bool(bm.any())
+
+        need_pos, need_yaw = bool(fill_pos.any()), bool(fill_yaw.any())
+        inp = [pack.add(x) for x in (idx, vals, counts)]
+        fills = [pack.add(x) for x in (fill_pos, fill_yaw)] \
+            if need_pos or need_yaw else None
+
+        lanes = pack.send(self.device)
+        st = self.state
+        if spawn is not None:
+            sl, p_, y_, mv, hc, cg, ti, ht, ar = (lanes[i] for i in spawn)
+            st.pos[0].index_copy_(0, sl, p_)
+            st.yaw[0].index_copy_(0, sl, y_)
+            st.vel[0].index_fill_(0, sl, 0.0)
+            st.alive[0].index_fill_(0, sl, True)
+            st.npc_moving[0].index_copy_(0, sl, mv)
+            st.has_client[0].index_copy_(0, sl, hc)
+            st.client_gate[0].index_copy_(0, sl, cg)
+            st.type_id[0].index_copy_(0, sl, ti)
+            st.aoi_radius[0].index_copy_(0, sl, ar)
+            st.gen[0].index_add_(0, sl, torch.ones_like(ti))
+            st.dirty[0].index_fill_(0, sl, True)
+            st.hot_attrs[0].index_copy_(0, sl, ht)
+            st.attr_dirty[0].index_fill_(0, sl, 0)
+        if despawn is not None:
+            sl = lanes[despawn]
+            st.alive[0].index_fill_(0, sl, False)
+            st.has_client[0].index_fill_(0, sl, False)
+            st.client_gate[0].index_fill_(0, sl, -1)
+            st.npc_moving[0].index_fill_(0, sl, False)
+            st.dirty[0].index_fill_(0, sl, False)
+        if hot is not None:
+            sl, co, va = (lanes[i] for i in hot)
+            st.hot_attrs[0].index_put_((sl, co), va)
+        if moving is not None:
+            sl, mv = (lanes[i] for i in moving)
+            st.npc_moving[0].index_copy_(0, sl, mv)
+        if client is not None:
+            sl, hc, cg = (lanes[i] for i in client)
+            st.has_client[0].index_copy_(0, sl, hc)
+            st.client_gate[0].index_copy_(0, sl, cg)
+        d_idx, d_vals, d_counts = (lanes[i] for i in inp)
+        if fills is not None:
+            f_pos, f_yaw = (lanes[i] for i in fills)
+            rows = d_idx[0].long()
+            v = d_vals[0]
+            if need_pos:
+                v[:, :3] = torch.where(f_pos[:, None], st.pos[0][rows],
+                                       v[:, :3])
+            if need_yaw:
+                v[:, 3] = torch.where(f_yaw, st.yaw[0][rows], v[:, 3])
+        return TickInputs(pos_sync_idx=d_idx, pos_sync_vals=d_vals,
+                          pos_sync_n=d_counts)
+
+    # -- output processing ----------------------------------------------
+    def _process_outputs(self, outs) -> None:
+        base = outs
+        cfg = self.cfg
+        # Leaves before enters. The pair-decode loops below run at
+        # event-cap volumes every tick: owner resolution is inlined (two
+        # dict gets, no helper-call overhead; dict.get(None) is safely
+        # None) and the AOI hook call + its exception containment is
+        # skipped for types that don't override the no-op hook. The
+        # override test is cached per CLASS per decode (so post-
+        # registration class patching is honored) with a per-pair
+        # instance-__dict__ check for per-object hook assignment.
+        entities = self.entities
+        leave_hooked: dict[type, bool] = {}
+        enter_hooked: dict[type, bool] = {}
+        # pairs read but not applied (an owner already gone): the
+        # decoded counts of op_stats are the pairs read less these
+        leave_skip = enter_skip = 0
+        leave_read = enter_read = sync_sent = 0
+        shards = range(self.n_spaces)
+        for shard in shards:
+            ln = int(base.leave_n[shard])
+            if ln > cfg.leave_cap:
+                logger.warning(
+                    "shard %d leave overflow: %d > %d", shard, ln,
+                    cfg.leave_cap,
+                )
+            ln = min(ln, cfg.leave_cap)
+            leave_read += ln
+            slot_eid = self._slot_owner[shard].get
+            # .tolist() upfront: plain-int pairs beat per-element numpy
+            # scalar conversions across tens of thousands of events
+            for w, j in zip(base.leave_w[shard][:ln].tolist(),
+                            base.leave_j[shard][:ln].tolist()):
+                we = entities.get(slot_eid(w))
+                je = entities.get(slot_eid(j))
+                if we is None or je is None:
+                    leave_skip += 1
+                    continue
+                we.interested_in.discard(je.id)
+                je.interested_by.discard(we.id)
+                wcls = we.__class__
+                hooked = leave_hooked.get(wcls)
+                if hooked is None:
+                    hooked = leave_hooked[wcls] = (
+                        wcls.OnLeaveAOI is not Entity.OnLeaveAOI)
+                if hooked or "OnLeaveAOI" in we.__dict__:
+                    try:
+                        we.OnLeaveAOI(je)
+                    except Exception:
+                        logger.exception("OnLeaveAOI failed")
+                if we.client is not None and not we.destroyed:
+                    we.client.send({
+                        "type": "destroy_entity", "eid": je.id,
+                        "is_player": False,
+                    })
+        for shard in shards:
+            drn = int(base.delta_rows_n[shard])
+            drc = min(cfg.delta_rows_cap_eff, cfg.capacity)
+            if drn > drc:
+                # the ROW cap overflowed: surplus rows' enter/leave events
+                # are gone and widening enter/leave caps won't help
+                logger.warning(
+                    "shard %d AOI delta rows overflow: %d > %d — widen "
+                    "WorldConfig.delta_rows_cap", shard, drn, drc,
+                )
+            en = int(base.enter_n[shard])
+            if en > cfg.enter_cap:
+                logger.warning(
+                    "shard %d enter overflow: %d > %d", shard, en,
+                    cfg.enter_cap,
+                )
+            en = min(en, cfg.enter_cap)
+            enter_read += en
+            # per-decode payload cache: one subject typically enters
+            # MANY watchers' interest this tick, and its AllClients attr
+            # snapshot + pos/yaw are identical for each — computed once
+            # per subject. The attrs dict is shared read-only across the
+            # sends.
+            payloads: dict[str, tuple] = {}
+            slot_eid = self._slot_owner[shard].get
+            for w, j in zip(base.enter_w[shard][:en].tolist(),
+                            base.enter_j[shard][:en].tolist()):
+                we = entities.get(slot_eid(w))
+                je = entities.get(slot_eid(j))
+                if we is None or je is None:
+                    enter_skip += 1
+                    continue
+                we.interested_in.add(je.id)
+                je.interested_by.add(we.id)
+                wcls = we.__class__
+                hooked = enter_hooked.get(wcls)
+                if hooked is None:
+                    hooked = enter_hooked[wcls] = (
+                        wcls.OnEnterAOI is not Entity.OnEnterAOI)
+                if hooked or "OnEnterAOI" in we.__dict__:
+                    try:
+                        we.OnEnterAOI(je)
+                    except Exception:
+                        logger.exception("OnEnterAOI failed")
+                if we.client is not None and not je.destroyed:
+                    pc = payloads.get(je.id)
+                    if pc is None:
+                        pc = payloads[je.id] = (
+                            je.type_name,
+                            je.get_all_clients_data(),
+                            list(je.position),
+                            je.yaw,
+                        )
+                    we.client.send({
+                        "type": "create_entity", "eid": je.id,
+                        "etype": pc[0], "is_player": False,
+                        "attrs": pc[1], "pos": pc[2], "yaw": pc[3],
+                    })
+        for shard in shards:
+            # position sync records -> watching clients
+            sn = min(int(base.sync_n[shard]), cfg.sync_cap)
+            if sn:
+                ws = base.sync_w[shard][:sn]
+                js = base.sync_j[shard][:sn]
+                vs = base.sync_vals[shard][:sn]
+                if self.sync_sink is not None:
+                    # batched path: one (cids, eids, vals) bundle per
+                    # gate per tick, resolved through the numpy slot
+                    # mirrors (one gather + per-gate groupby); the
+                    # boolean-masked selections COPY, so the scratch
+                    # never escapes this method
+                    cids = np.take(self._mir_cid[shard], ws,
+                                   out=self._scr_cid[:sn])
+                    gates = np.take(self._mir_gate[shard], ws,
+                                    out=self._scr_gate[:sn])
+                    jeids = np.take(self._mir_eid[shard], js,
+                                    out=self._scr_eid[:sn])
+                    ok = (cids != b"") & (jeids != b"")
+                    sync_sent += int(ok.sum())
+                    for gate_id in np.unique(gates[ok]):
+                        m = ok & (gates == gate_id)
+                        self.sync_sink(
+                            int(gate_id), cids[m], jeids[m], vs[m]
+                        )
+                else:
+                    for w, j, v in zip(ws, js, vs):
+                        we = self._owner_entity(shard, int(w))
+                        je = self._owner_entity(shard, int(j))
+                        if we is None or we.client is None or je is None:
+                            continue
+                        sync_sent += 1
+                        we.client.send({
+                            "type": "sync", "eid": je.id,
+                            "pos": [float(v[0]), float(v[1]), float(v[2])],
+                            "yaw": float(v[3]),
+                        })
+            # device-side hot-attr deltas (kernel-mutated attrs)
+            an = min(int(base.attr_n[shard]), cfg.attr_sync_cap)
+            if an:
+                es = base.attr_e[shard][:an]
+                cs = base.attr_i[shard][:an]
+                vs = base.attr_v[shard][:an]
+                slot_eid = self._slot_owner[shard].get
+                dirty = self._dirty_attr_entities
+                for slot, col, v in zip(es.tolist(), cs.tolist(),
+                                        vs.tolist()):
+                    e = entities.get(slot_eid(slot))
+                    if e is None:
+                        continue
+                    info = e._type_desc.hot_attr_by_col.get(col)
+                    if info is None:
+                        continue
+                    name, aud = info
+                    attrs = e.attrs
+                    if isinstance(attrs._d.get(name),
+                                  (MapAttr, ListAttr)):
+                        # a hot attr shadowed by a tree node — take the
+                        # orphaning slow path (same journal policy)
+                        self._apply_device_attr(e, name, v, aud)
+                        continue
+                    attrs._d[name] = v
+                    # journal ONLY deltas someone will receive
+                    if aud is not None and (
+                        e.client is not None
+                        or (aud == "all_clients" and e.interested_by)
+                    ):
+                        dirty.setdefault(e.id, []).append(
+                            AttrDelta((name,), "set", v))
+        self.op_stats["aoi_leave_decoded"] = leave_read - leave_skip
+        self.op_stats["aoi_enter_decoded"] = enter_read - enter_skip
+        self.op_stats["sync_records_sent"] = sync_sent
+
+        # AOI-cap overflow gauges: live worlds must never degrade to
+        # nearest-k / dropped candidates SILENTLY (the go-aoi sweep is
+        # exact at any density, Space.go:244-252). The gauges are
+        # exposed every tick; the alarm is rate-limited.
+        dem_max = int(np.max(base.aoi_demand_max))
+        over_k = int(np.sum(base.aoi_over_k_rows))
+        cell_max = int(np.max(base.aoi_cell_max))
+        over_cap = int(np.sum(base.aoi_over_cap_cells))
+        # interest-migration volume (TRUE demand — may exceed the
+        # enter/leave caps, which the overflow warnings above alarm)
+        enters = int(np.sum(base.enter_n))
+        leaves = int(np.sum(base.leave_n))
+        opmon.expose("aoi_enter_events", enters)
+        opmon.expose("aoi_leave_events", leaves)
+        self.op_stats["aoi_enter_events"] = enters
+        self.op_stats["aoi_leave_events"] = leaves
+        opmon.expose("aoi_demand_max", dem_max)
+        opmon.expose("aoi_over_k_rows", over_k)
+        opmon.expose("aoi_cell_max", cell_max)
+        opmon.expose("aoi_over_cap_cells", over_cap)
+        self.op_stats["aoi_demand_max"] = dem_max
+        self.op_stats["aoi_over_k_rows"] = over_k
+        self.op_stats["aoi_cell_max"] = cell_max
+        self.op_stats["aoi_over_cap_cells"] = over_cap
+        self._m_aoi_demand.set(dem_max)
+        self._m_aoi_cell.set(cell_max)
+        rebuilds = int(np.sum(base.aoi_rebuilt))
+        slack = float(np.min(base.aoi_skin_slack))
+        if rebuilds:
+            self._m_aoi_rebuild.inc(rebuilds)
+        self._m_aoi_slack.set(slack)
+        opmon.expose("aoi_rebuild_last", rebuilds)
+        opmon.expose("aoi_skin_slack", slack)
+        self.op_stats["aoi_rebuild_last"] = rebuilds
+        self.op_stats["aoi_skin_slack"] = slack
+        if over_k or over_cap:
+            self._m_aoi_overflow.inc(over_k + over_cap)
+        if (over_k or over_cap) and \
+                self.tick_count - self._aoi_alarm_tick >= 64:
+            self._aoi_alarm_tick = self.tick_count
+            logger.warning(
+                "AOI cap overflow: %d rows truncated to nearest-%d "
+                "(demand max %d), %d cells past cell_cap=%d (occupancy "
+                "max %d). Interest sets are degraded this tick. "
+                "Re-provision: raise GridSpec.k above the demand max "
+                "and/or cell_cap above the occupancy max.",
+                over_k, self.cfg.grid.k, dem_max,
+                over_cap, self.cfg.grid.cell_cap, cell_max,
+            )
+
+        # release slots whose leave events have now been processed
+        for shard, slot, expect in self._release_now:
+            cur = self._slot_owner[shard].get(slot)
+            if cur == expect:
+                self._slot_clear(shard, slot)
+                self._free[shard].add(slot)
+            # forget destroyed host objects: destroy_entity kept them
+            # alive only for this release point
+            if expect is not None:
+                e = self.entities.get(expect)
+                if e is not None and e.destroyed and e.slot is None:
+                    self.entities.pop(expect, None)
+        self._release_now = []
+
+    # ==================================================================
+    # device reads
+    # ==================================================================
+    def _dget(self, lanes: list[torch.Tensor]) -> list[np.ndarray]:
+        """Host copies of device ``lanes`` (32-bit types), as numpy in
+        the JAX package's types: one concatenation of the lanes' words,
+        one copy to the host and, on a card, one stream synchronisation
+        (the copy goes into pinned memory, non-blocking), whatever the
+        number of lanes."""
+        src = torch.cat([t.detach().reshape(-1).view(torch.int32)
+                         for t in lanes])
+        if self.device.type == "cuda":
+            host = torch.empty(src.shape, dtype=torch.int32,
+                               pin_memory=True)
+            host.copy_(src, non_blocking=True)
+            torch.cuda.current_stream(self.device).synchronize()
+        else:
+            host = src  # torch.cat made it: a copy of every lane
+        words = host.numpy()
+        out, off = [], 0
+        for t in lanes:
+            n = t.numel()
+            a = words[off:off + n]
+            if t.dtype == torch.float32:
+                a = a.view(np.float32)
+            out.append(a.reshape(tuple(t.shape)))
+            off += n
+        return out
+
+    def _fetch(self, outs: TickOutputs) -> TickOutputs:
+        """The step's outputs as numpy lanes, in one transfer."""
+        names = [f.name for f in dataclasses.fields(outs)
+                 if getattr(outs, f.name) is not None]
+        got = self._dget([getattr(outs, n) for n in names])
+        return dataclasses.replace(outs, **dict(zip(names, got)))
+
+    def read_pos(self, shard: int, slot: int) -> np.ndarray:
+        if self._pos_cache is None:
+            self._pos_cache = self._dget([self.state.pos])[0]
+        return self._pos_cache[shard, slot]
+
+    def read_yaw(self, shard: int, slot: int) -> float:
+        if self._yaw_cache is None:
+            self._yaw_cache = self._dget([self.state.yaw])[0]
+        return float(self._yaw_cache[shard, slot])

@@ -163,7 +163,9 @@ def device_ms(fn, reps: int) -> tuple[float, float]:
     memsets) summed, over ``reps``, after one call that is not profiled;
     memsets and copies are not counted as launches. The profiling
     interface stays attached after the session and slows every later
-    launch from the host, so time by events before this, not after."""
+    launch from the host, so time by events before this, not after.
+    Read every profile soon after the process's first session: later
+    sessions lose device events (``probe_profiler.py``)."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(

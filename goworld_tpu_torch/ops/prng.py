@@ -42,7 +42,7 @@ def threefry2x32(k1, k2, x0: torch.Tensor, x1: torch.Tensor):
     return x0, x1
 
 
-def prng_key(seed: int, device="cpu") -> torch.Tensor:
+def prng_key(seed: int, device) -> torch.Tensor:
     """``jax.random.PRNGKey(seed)`` with 64-bit mode off: the seed is
     taken as a 32-bit integer, so the key is ``[0, seed mod 2^32]``."""
     return torch.tensor([0, int(seed) & _M32], dtype=torch.int64,

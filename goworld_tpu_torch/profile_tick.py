@@ -1,7 +1,7 @@
 """Where one tick's time goes on the card.
 
     python -m goworld_tpu_torch.profile_tick [--n 1048576] [--ticks 20]
-                                             [--mega TILES]
+                                             [--mega TILES | --world]
                                              [--out chiprun_out]
     PYTHONPATH=DIR python goworld_tpu_torch/profile_tick.py ...
 
@@ -31,6 +31,19 @@ stdout:
   ``csrc/`` (the ``__global__`` functions of its sources), and
   ``memset_ms_per_tick``.
 
+With ``--world``, the served game of :func:`workload.serve_world` at
+capacity ``--n`` instead: after three ticks (the first flushes the
+population), ``--ticks`` ``World.tick``s with the game's traffic staged
+before each (walking client syncs, :meth:`workload.Served.stage`),
+reporting ``world_tick_ms`` (host wall, mean/p50/p99), ``per_tick``:
+the mean true counts of enters, leaves, sync records and rows whose
+interest list changed (each beside its cap in ``caps``),
+``spans_ms``: mean/p50/p99 of the World's four spans (``flush_staging``,
+``device_step``, ``fetch_outputs``, ``decode_fanout``) from its tick
+timeline, ``step_event_ms``: the step by CUDA events around it, and
+``busy_ms`` / ``idle_share`` / ``kernels_top`` / ``csrc_kernels`` over
+a profiled window of ticks (idle against the ticks' host wall).
+
 The full profiler table goes to ``<out>/profile_tick.txt``. Run as a
 file with another checkout's root first on ``PYTHONPATH``, it measures
 that checkout's package with this instrument (a stage whose function
@@ -45,8 +58,10 @@ import json
 import re
 import subprocess
 import sys
+import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from goworld_tpu_torch import kernels
@@ -56,10 +71,12 @@ from goworld_tpu_torch.ops import aoi
 from goworld_tpu_torch.parallel import halo, megaspace
 from goworld_tpu_torch.parallel import migrate as mig
 from goworld_tpu_torch.parallel.megaspace import make_mega_tick
+from goworld_tpu_torch.utils import metrics
 from goworld_tpu_torch.workload import (
     bench_world,
     mega_config,
     mega_world,
+    serve_world,
     slice_config,
 )
 
@@ -161,12 +178,113 @@ def _p50_p99(ms) -> list[float]:
                        ).tolist()
 
 
+def _stats(ms: list[float]) -> dict:
+    t = torch.tensor(ms, dtype=torch.float64)
+    p50, p99 = _p50_p99(t)
+    return {"mean": float(t.mean()), "p50": p50, "p99": p99}
+
+
+def _device_rows(prof, window: int):
+    """(busy ms over the window, the top kernels, the csrc/ kernels,
+    memset ms a tick) of a profiled window of ``window`` ticks."""
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_time_total", 0) > 0
+              and e.device_type == torch.autograd.DeviceType.CUDA]
+    events.sort(key=lambda e: e.device_time_total, reverse=True)
+    busy_ms = sum(e.device_time_total for e in events) / 1e3
+    top = [{"kernel": e.key[:90], "calls_per_tick": e.count / window,
+            "ms_per_tick": e.device_time_total / 1e3 / window}
+           for e in events[:15]]
+    csrc, ours = {}, _csrc_kernel_names()
+    for e in events:
+        key = e.key.removeprefix("void ")
+        name = key.split("::", 1)[-1].split("(")[0].split("<")[0]
+        if key.startswith("(anonymous namespace)::") and name in ours:
+            row = csrc.setdefault(name, {"ms_per_tick": 0.0,
+                                         "calls_per_tick": 0.0})
+            row["ms_per_tick"] += e.device_time_total / 1e3 / window
+            row["calls_per_tick"] += e.count / window
+    memset_ms = sum(e.device_time_total for e in events
+                    if e.key.startswith("Memset")) / 1e3 / window
+    return busy_ms, top, csrc, memset_ms
+
+
+def _world_main(args, card: str) -> int:
+    """``--world``: where a served World.tick's time goes."""
+    served = serve_world(args.n, seed=0, device="cuda")
+    w = served.world
+    for _ in range(3):
+        served.stage()
+        w.tick()
+    real, events = w._step, []
+
+    def timed(state, inputs, policy=None):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = real(state, inputs, policy)
+        b.record()
+        events.append((a, b))
+        return out
+
+    w._step = timed
+    walls, counts = [], []
+    names = ("enter_n", "leave_n", "sync_n", "delta_rows_n")
+    for _ in range(args.ticks):
+        served.stage()
+        t0 = time.perf_counter()
+        w.tick()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        counts.append([int(getattr(w.last_outputs, k)[0]) for k in names])
+    w._step = real
+    torch.cuda.synchronize()
+    spans: dict[str, list] = {}
+    for rec in metrics.timeline.records()[-args.ticks:]:
+        for name, _, d, _ in rec[2]:
+            spans.setdefault(name, []).append(d * 1e3)
+    window = 5
+    act = [torch.profiler.ProfilerActivity.CPU,
+           torch.profiler.ProfilerActivity.CUDA]
+    wall_ms = 0.0
+    with torch.profiler.profile(activities=act) as prof:
+        for _ in range(window):
+            served.stage()
+            t0 = time.perf_counter()
+            w.tick()
+            wall_ms += (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+    busy_ms, top, csrc, memset_ms = _device_rows(prof, window)
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "profile_tick_world.txt").write_text(
+        f"{card}\n" + prof.key_averages().table(
+            sort_by="device_time_total", row_limit=60))
+    print(json.dumps({
+        "gpu": card, "n": args.n, "world": True,
+        "population": len(w.entities) - 2, "populate_s": served.populate_s,
+        "ticks": args.ticks, "world_tick_ms": _stats(walls),
+        "per_tick": dict(zip(names, np.mean(counts, axis=0).tolist())),
+        "caps": {k: getattr(w.cfg, k.replace("_n", "_cap"))
+                 for k in names},
+        "spans_ms": {k: _stats(v) for k, v in spans.items()},
+        "step_event_ms": _stats([a.elapsed_time(b) for a, b in events]),
+        "window_ticks": window, "window_wall_ms": wall_ms,
+        "busy_ms": busy_ms / window,
+        "idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
+        "kernels_top": top, "csrc_kernels": csrc,
+        "memset_ms_per_tick": memset_ms,
+    }), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1 << 20)
     ap.add_argument("--ticks", type=int, default=20)
     ap.add_argument("--mega", type=int, default=0, metavar="TILES",
                     help="profile the megaspace tick over TILES tiles")
+    ap.add_argument("--world", action="store_true",
+                    help="profile the served World's tick")
     ap.add_argument("--out", default="chiprun_out")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -176,6 +294,8 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True, timeout=60).stdout.strip().splitlines()[0]
+    if args.world:
+        return _world_main(args, card)
     if args.mega:
         mc = mega_config(args.n, args.mega)
         st, inputs = mega_world(mc, args.n, seed=0, device="cuda")
@@ -225,25 +345,7 @@ def main(argv=None) -> int:
     window_ms = a.elapsed_time(b)
     st, after = _tick_times(tick, st, inputs, args.ticks)
     halo_dev = _halo_exchange(tick, st, inputs) if args.mega else None
-    events = [e for e in prof.key_averages()
-              if getattr(e, "device_time_total", 0) > 0
-              and e.device_type == torch.autograd.DeviceType.CUDA]
-    events.sort(key=lambda e: e.device_time_total, reverse=True)
-    busy_ms = sum(e.device_time_total for e in events) / 1e3
-    top = [{"kernel": e.key[:90], "calls_per_tick": e.count / window,
-            "ms_per_tick": e.device_time_total / 1e3 / window}
-           for e in events[:15]]
-    csrc, ours = {}, _csrc_kernel_names()
-    for e in events:
-        key = e.key.removeprefix("void ")
-        name = key.split("::", 1)[-1].split("(")[0].split("<")[0]
-        if key.startswith("(anonymous namespace)::") and name in ours:
-            row = csrc.setdefault(name, {"ms_per_tick": 0.0,
-                                         "calls_per_tick": 0.0})
-            row["ms_per_tick"] += e.device_time_total / 1e3 / window
-            row["calls_per_tick"] += e.count / window
-    memset_ms = sum(e.device_time_total for e in events
-                    if e.key.startswith("Memset")) / 1e3 / window
+    busy_ms, top, csrc, memset_ms = _device_rows(prof, window)
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     (out / f"profile_tick{'_mega' if args.mega else ''}.txt").write_text(

@@ -26,3 +26,8 @@ PRECISION_POS_BITS = 15
 # Packed-key id width: slot ids share an int32 with the quantized
 # distance, so the packed paths (and the fused sweep) need n < 2^AOI_ID_BITS.
 AOI_ID_BITS = 21
+
+# the World's runtime knobs, as in the JAX package
+DEFAULT_SAVE_INTERVAL = 300.0     # periodic entity save, seconds
+OPTIMIZE_LOCAL_ENTITY_CALL = True  # post local RPCs straight to the
+                                   # target instead of the remote router

@@ -10,21 +10,32 @@
   same density over one square world cut into the most-square grid of
   ``n_dev`` tiles, each tile's movers uniform inside it, with a
   tile-local client-sync stream per tile; it runs all three kernels.
+* The served game (:func:`serve_world`): the bench world's config and
+  density hosted by the serving ``World``, populated through
+  ``Space.create_entity``, with a game's per-tick traffic staged through
+  the World's own entry points (:meth:`Served.stage`): client syncs
+  that walk each player a step from where it stands, or, as a stress
+  case, the bench's stream of syncs to uniform points.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import gc
+import time
 
 import numpy as np
 import torch
 
 from goworld_tpu_torch.core.state import WorldConfig, create_state
 from goworld_tpu_torch.core.step import TickInputs
+from goworld_tpu_torch.entity import Entity, GameClient, Space, World
 from goworld_tpu_torch.ops import prng
 from goworld_tpu_torch.ops.aoi import GridSpec
 from goworld_tpu_torch.parallel.megaspace import MegaConfig, create_mega_state
 from goworld_tpu_torch.parallel.step import MultiTickInputs
+from goworld_tpu_torch.utils import ids
 
 CLIENT_FRAC = 0.01
 
@@ -188,3 +199,218 @@ def mega_world(mc: MegaConfig, n_total: int, seed: int, device="cuda"):
                               device=dev),
     ))
     return st, inputs
+
+
+# the served game's per-tick traffic
+SERVE_SYNCS = 4096      # client position syncs (distinct players)
+SERVE_HP_SETS = 1024    # sets of the hot attr, some slots twice
+SERVE_HP_TWICE = 64
+SERVE_CHURN = 64        # destroys and as many creates
+SERVE_SPARE = 4096      # slots left free for the churn
+
+
+class CountingSink:
+    """The served World's ``sync_sink`` and ``client_sink``: the batched
+    game-server path, counting what the World delivers (and keeping it
+    too with ``keep=True``)."""
+
+    def __init__(self, keep: bool = False):
+        self.keep = keep
+        self.sync_records = 0
+        self.sync_batches = 0
+        self.messages: collections.Counter = collections.Counter()
+        self.kept: list = []
+
+    def sync(self, gate_id, cids, eids, vals) -> None:
+        self.sync_records += len(cids)
+        self.sync_batches += 1
+        if self.keep:
+            self.kept.append(("sync", gate_id, cids.copy(), eids.copy(),
+                              vals.copy()))
+
+    def client(self, gate_id, client_id, msg) -> None:
+        self.messages[msg["type"]] += 1
+        if self.keep:
+            self.kept.append(("msg", gate_id, client_id, msg))
+
+    def take(self) -> dict:
+        """Counts (and kept items) since the last take."""
+        out = dict(sync_records=self.sync_records,
+                   sync_batches=self.sync_batches,
+                   messages=dict(self.messages), kept=self.kept)
+        self.sync_records = self.sync_batches = 0
+        self.messages = collections.Counter()
+        self.kept = []
+        return out
+
+
+@dataclasses.dataclass
+class Served:
+    """A populated serving World and the script of its traffic."""
+
+    world: World
+    arena: Space
+    sink: CountingSink
+    hooks: list | None
+    rng: np.random.Generator
+    mobs: list
+    players: np.ndarray      # S16 ids of the client-bound players
+    seed: int
+    populate_s: float
+    player_xz: np.ndarray    # f64[P, 2] where each player stands
+    heading: np.ndarray      # f64[P] each player's walking direction
+    created: int = 0
+
+    def _new_id(self) -> str:
+        self.created += 1
+        return ids.gen_fixed_id(f"serve.{self.seed}.{self.created}")
+
+    def _pos(self, k: int) -> np.ndarray:
+        g = self.world.cfg.grid
+        xz = np.zeros((k, 3), np.float64)
+        xz[:, 0] = self.rng.uniform(0, g.extent_x, k)
+        xz[:, 2] = self.rng.uniform(0, g.extent_z, k)
+        return xz
+
+    def stage(self, teleport: bool = False) -> dict:
+        """Stage one tick's traffic: SERVE_SYNCS client position syncs to
+        distinct players (``stage_pos_sync_batch``), SERVE_HP_SETS sets
+        of the mobs' ``hp`` (SERVE_HP_TWICE mobs set twice), then
+        SERVE_CHURN mob destroys and as many creates.
+
+        A sync walks its player one step of ``npc_speed * dt`` (a mob's
+        step) along its heading from where it stands; a heading turns at
+        random with the random walk's ``turn_prob`` and reflects at the
+        world's edges. With ``teleport`` each sync goes to a uniform
+        point of the extent instead: the bench's input stream, a stress
+        case that changes more interest lists a tick than the World's
+        caps hold."""
+        w, rng = self.world, self.rng
+        cfg, g = w.cfg, w.cfg.grid
+        k = min(SERVE_SYNCS, self.players.size)
+        who = rng.choice(self.players.size, k, replace=False)
+        if teleport:
+            xz = self._pos(k)[:, [0, 2]]
+            self.heading[who] = rng.uniform(0, 2 * np.pi, k)
+        else:
+            turn = rng.random(k) < cfg.turn_prob
+            self.heading[who[turn]] = rng.uniform(0, 2 * np.pi,
+                                                  int(turn.sum()))
+            step = cfg.npc_speed * cfg.dt
+            xz = self.player_xz[who] + step * np.stack(
+                [np.cos(self.heading[who]), np.sin(self.heading[who])], 1)
+            ext = np.array([g.extent_x, g.extent_z])
+            out = (xz < 0) | (xz > ext)
+            xz = np.clip(xz, 0, ext)
+            h = self.heading[who]
+            h = np.where(out[:, 0], np.pi - h, h)
+            self.heading[who] = np.where(out[:, 1], -h, h)
+        self.player_xz[who] = xz
+        vals = np.zeros((k, 4), np.float32)
+        vals[:, [0, 2]] = xz
+        vals[:, 3] = self.heading[who]
+        synced = w.stage_pos_sync_batch(self.players[who], vals)
+        once = SERVE_HP_SETS - SERVE_HP_TWICE
+        pick = rng.choice(len(self.mobs), once, replace=False)
+        hp = rng.integers(1, 100, SERVE_HP_SETS)
+        for i, m in enumerate(np.concatenate([pick, pick[:SERVE_HP_TWICE]])):
+            w.entities[self.mobs[m]].attrs["hp"] = int(hp[i])
+        for m in sorted(rng.choice(len(self.mobs), SERVE_CHURN,
+                                   replace=False), reverse=True):
+            w.entities[self.mobs[m]].destroy()
+            self.mobs[m] = self.mobs[-1]
+            self.mobs.pop()
+        for p in self._pos(SERVE_CHURN):
+            e = self.arena.create_entity("Mob", pos=tuple(p),
+                                         eid=self._new_id(), moving=True,
+                                         attrs={"hp": 100})
+            self.mobs.append(e.id)
+        return dict(syncs=synced, hp_sets=SERVE_HP_SETS,
+                    destroys=SERVE_CHURN, creates=SERVE_CHURN)
+
+
+def _game_types(hooks: list | None):
+    class Mob(Entity):
+        ATTRS = {"hp": "allclients hot:0"}
+
+    class Player(Entity):
+        ATTRS = {"hp": "allclients hot:0"}
+
+    class Arena(Space):
+        pass
+
+    if hooks is not None:
+        def enter(self, other):
+            hooks.append(("enter", self.id, other.id))
+
+        def leave(self, other):
+            hooks.append(("leave", self.id, other.id))
+
+        def space_enter(self, e):
+            hooks.append(("space_enter", e.id))
+
+        for cls in (Mob, Player):
+            cls.OnEnterAOI, cls.OnLeaveAOI = enter, leave
+        Arena.OnEntityEnterSpace = space_enter
+    return Mob, Player, Arena
+
+
+def serve_world(n: int, seed: int, device="cuda", *,
+                record_hooks: bool = False, keep: bool = False,
+                **grid_kw) -> Served:
+    """A served game on ``slice_config(n, **grid_kw)``: one ``World``
+    with one AOI Space ("Arena") and two types, ``Mob`` (a random-walk
+    mover, ``ATTRS={"hp": "allclients hot:0"}``) and ``Player`` (bound to
+    a ``GameClient``, moved by client syncs). ``n - SERVE_SPARE``
+    entities are created through ``Space.create_entity`` at positions
+    uniform over the extent from ``np.random.default_rng(seed)``,
+    CLIENT_FRAC of them players. The sinks count (``keep`` also keeps
+    what they get); with ``record_hooks`` the AOI and space-enter hooks
+    append to ``Served.hooks``.
+
+    The population ends as the JAX package's game server boots
+    (``net/game.py`` ``serve_forever``, ini ``gc_freeze``): one
+    ``gc.collect()`` and ``gc.freeze()`` move the populated world into
+    the collector's permanent generation, so no later collection walks
+    it (a pass over ~10^7 objects stalls a tick for seconds). The
+    freeze is process-wide; ``gc.unfreeze()`` hands the objects back."""
+    cfg = slice_config(n, **grid_kw)
+    hooks = [] if record_hooks else None
+    mob_cls, player_cls, arena_cls = _game_types(hooks)
+    t0 = time.perf_counter()
+    w = World(cfg, seed=seed, device=device)
+    w.register_entity("Mob", mob_cls)
+    w.register_entity("Player", player_cls)
+    w.register_space("Arena", arena_cls)
+    w.create_nil_space()
+    sink = CountingSink(keep)
+    w.sync_sink = sink.sync
+    w.client_sink = sink.client
+    arena = w.create_space("Arena", eid=ids.gen_fixed_id(f"arena.{seed}"))
+    rng = np.random.default_rng(seed)
+    served = Served(world=w, arena=arena, sink=sink, hooks=hooks, rng=rng,
+                    mobs=[], players=np.zeros(0, "S16"), seed=seed,
+                    populate_s=0.0, player_xz=np.zeros((0, 2)),
+                    heading=np.zeros(0))
+    pop = n - SERVE_SPARE
+    pos = served._pos(pop)
+    is_player = rng.random(pop) < CLIENT_FRAC
+    players = []
+    for i in range(pop):
+        p = tuple(pos[i])
+        if is_player[i]:
+            e = arena.create_entity(
+                "Player", pos=p, eid=served._new_id(), attrs={"hp": 100},
+                client=GameClient(0, f"c{i:015d}", w))
+            players.append(e.id)
+        else:
+            e = arena.create_entity("Mob", pos=p, eid=served._new_id(),
+                                    moving=True, attrs={"hp": 100})
+            served.mobs.append(e.id)
+    served.players = np.array(players, "S16")
+    served.player_xz = pos[is_player][:, [0, 2]]
+    served.heading = rng.uniform(0, 2 * np.pi, served.players.size)
+    gc.collect()
+    gc.freeze()
+    served.populate_s = time.perf_counter() - t0
+    return served

@@ -20,14 +20,14 @@ def test_pinned_to_the_partitionable_threefry_mode():
 @pytest.mark.parametrize("seed", SEEDS)
 def test_prng_key(seed):
     ref = np.asarray(jax.random.PRNGKey(seed)).astype(np.int64)
-    assert np.array_equal(prng.prng_key(seed).numpy(), ref)
+    assert np.array_equal(prng.prng_key(seed, "cpu").numpy(), ref)
 
 
 @pytest.mark.parametrize("num", [2, 3, 7])
 @pytest.mark.parametrize("seed", SEEDS)
 def test_split(seed, num):
     ref = np.asarray(jax.random.split(jax.random.PRNGKey(seed), num))
-    got = prng.split(prng.prng_key(seed), num).numpy()
+    got = prng.split(prng.prng_key(seed, "cpu"), num).numpy()
     assert np.array_equal(got, ref.astype(np.int64))
 
 
@@ -42,7 +42,7 @@ def test_split(seed, num):
 def test_uniform_float32_bits(seed, shape, lo, hi):
     key = jax.random.split(jax.random.PRNGKey(seed))[1]
     ref = np.asarray(jax.random.uniform(key, shape, minval=lo, maxval=hi))
-    tkey = prng.split(prng.prng_key(seed))[1]
+    tkey = prng.split(prng.prng_key(seed, "cpu"))[1]
     got = prng.uniform(tkey, shape, lo, hi).numpy()
     assert got.dtype == np.float32 and got.shape == ref.shape
     assert np.array_equal(got.view(np.int32), ref.view(np.int32))

@@ -1,0 +1,603 @@
+"""The port's serving World against the JAX package's, on the CPU.
+
+One scripted game runs on the JAX ``World(..., telemetry_live=False,
+residency=False, audit=False)`` and on the port's ``World(...,
+device="cpu")`` at capacity 256, one Space, under both sweep/sort pairs
+(``ranges``/``argsort`` and ``fused``/``pallas``: the port takes the
+kernels' plain versions on the CPU, the JAX side runs its Pallas kernels
+in interpret mode). Entities carry explicit ids; the service shard and
+the nil space are named alike on both sides.
+
+After every tick the two sides must agree on: the client messages, the
+sync-sink batches (gate, client ids, entity ids, values), the order of
+the OnEnterAOI / OnLeaveAOI / OnEntityEnterSpace hooks and of timer and
+RPC calls (under a fake clock), every entity's slot, position, yaw,
+attrs and interest sets, the fetched outputs and the whole state
+(``interop.state_to_numpy``). All of it bit for bit, except in the last
+case: once random-walk movers run, torch's cos and sin differ from
+XLA's by about one ulp in some headings (as ``test_torch_step.py``
+notes), so there positions, velocities and the values derived from them
+are held to 1e-4, as in ``test_torch_step.py``, and everything else
+stays exact.
+
+The game runs once per sweep/sort pair (a module fixture; each JAX
+World compiles its tick once) and records, per case, what differed and
+what the case did; each case is one test.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import gc
+
+import numpy as np
+import pytest
+import torch
+
+from goworld_tpu import entity as jent
+from goworld_tpu.core.state import WorldConfig as JConfig
+from goworld_tpu.entity.service import ServiceManager as JServices
+from goworld_tpu.ops.aoi import GridSpec as JGrid
+from goworld_tpu_torch import entity as tent
+from goworld_tpu_torch import interop
+from goworld_tpu_torch.core.state import WorldConfig as TConfig
+from goworld_tpu_torch.entity.service import ServiceManager as TServices
+from goworld_tpu_torch.ops.aoi import GridSpec as TGrid
+from goworld_tpu_torch.utils import ids
+
+CAP = 256
+EXTENT = 600.0
+ATOL = 1e-4
+GRID = dict(radius=50.0, extent_x=EXTENT, extent_z=EXTENT, k=32,
+            cell_cap=12, row_block=CAP, topk_impl="sort", skin=0.0,
+            precision="off")
+WORLD = dict(capacity=CAP, npc_speed=5.0, enter_cap=256, leave_cap=256,
+             sync_cap=1024, attr_sync_cap=64, input_cap=64,
+             delta_rows_cap=CAP)
+IMPLS = [("ranges", "argsort"), ("fused", "pallas")]
+CASES = ["spawn", "client_bind_unbind", "pos_sync_batch", "teleport",
+         "hot_attr_twice", "destroy_slot_reuse", "service_call",
+         "migration_round_trip", "enter_overflow", "set_moving"]
+
+
+def eid(name: str) -> str:
+    return ids.gen_fixed_id(f"test_torch_world.{name}")
+
+
+class Clock:
+    def __init__(self):
+        self.t = 1000.0
+
+    def __call__(self) -> float:
+        return self.t
+
+
+def game_types(pkg, log: list) -> dict:
+    """The script's entity types on ``pkg``'s base classes; every hook
+    appends to ``log``."""
+
+    class Mob(pkg.Entity):
+        ATTRS = {"hp": "allclients hot:0", "name": "allclients",
+                 "bag": "client", "gold": "persistent"}
+
+        def OnEnterAOI(self, other):
+            log.append(("enter", self.id, other.id))
+
+        def OnLeaveAOI(self, other):
+            log.append(("leave", self.id, other.id))
+
+        def OnMigrateOut(self):
+            log.append(("migrate_out", self.id))
+
+        def OnMigrateIn(self):
+            log.append(("migrate_in", self.id))
+
+        def Fire(self, x):
+            log.append(("timer", self.id, x))
+
+        def Ping_Client(self, x):
+            log.append(("ping", self.id, x))
+
+    class Player(Mob):
+        pass
+
+    class Arena(pkg.Space):
+        def OnEntityEnterSpace(self, e):
+            log.append(("space_enter", self.id, e.id))
+
+        def OnEntityLeaveSpace(self, e):
+            log.append(("space_leave", self.id, e.id))
+
+    class Shop(pkg.Entity):
+        def Buy(self, who, n):
+            log.append(("buy", who, n))
+
+    return dict(Mob=Mob, Player=Player, Arena=Arena, Shop=Shop)
+
+
+class Side:
+    """One package's game: two Worlds (A hosts the script, B receives
+    the migrant), their hook log, sink batches and fake clock."""
+
+    def __init__(self, pkg, impl):
+        self.pkg = pkg
+        self.log: list = []
+        self.sync: list = []
+        self.clock = Clock()
+        sweep, sort = impl
+        if pkg is jent:
+            cfg = JConfig(grid=JGrid(sweep_impl=sweep, sort_impl=sort,
+                                     **GRID), **WORLD)
+            make = dict(telemetry_live=False, residency=False, audit=False)
+            services = JServices
+        else:
+            cfg = TConfig(grid=TGrid(sweep_impl=sweep, sort_impl=sort,
+                                     **GRID), **WORLD)
+            make = dict(device="cpu")
+            services = TServices
+        types = game_types(pkg, self.log)
+        self.worlds = []
+        for game_id in (1, 2):
+            w = pkg.World(cfg, game_id=game_id, clock=self.clock, seed=3,
+                          **make)
+            for name in ("Mob", "Player"):
+                w.register_entity(name, types[name])
+            w.register_space("Arena", types["Arena"])
+            w.create_nil_space()
+            w.arena = w.create_space("Arena", eid=eid(f"arena{game_id}"))
+            w.sync_sink = (lambda gate, cids, eids, vals, w=w:
+                           self.sync.append((w.game_id, gate, cids.copy(),
+                                             eids.copy(), vals.copy())))
+            self.worlds.append(w)
+        self.a, self.b = self.worlds
+        svc = services(self.a, game_id=1)
+        svc.register("Shop", types["Shop"])
+        svc.start()
+
+    def tick(self):
+        self.clock.t += 1.0 / 60.0
+        for w in self.worlds:
+            w.tick()
+
+    def take(self) -> dict:
+        """What the tick produced, drained from the sinks."""
+        got = dict(log=list(self.log), sync=list(self.sync),
+                   msgs=[list(w.client_messages) for w in self.worlds])
+        self.log.clear()
+        self.sync.clear()
+        for w in self.worlds:
+            w.client_messages.clear()
+        return got
+
+
+def _jax_state(w) -> dict:
+    out = {}
+    for f in dataclasses.fields(w.state):
+        v = getattr(w.state, f.name)
+        if v is not None:
+            out[f.name] = np.asarray(v)
+    return out
+
+
+def _same(a, b, exact: bool) -> bool:
+    """Equality of nested plain values; floats to ATOL unless exact."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            _same(a[k], b[k], exact) for k in a)
+    if isinstance(a, (list, tuple)):
+        return isinstance(b, (list, tuple)) and len(a) == len(b) and all(
+            _same(x, y, exact) for x, y in zip(a, b))
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        a, b = np.asarray(a), np.asarray(b)
+        if a.shape != b.shape or a.dtype != b.dtype:
+            return False
+        if a.dtype.kind == "f" and not exact:
+            return bool(np.allclose(a, b, rtol=0, atol=ATOL))
+        if a.dtype.kind == "f":
+            return a.tobytes() == b.tobytes()
+        return bool(np.array_equal(a, b))
+    if isinstance(a, float) and not exact:
+        return isinstance(b, float) and abs(a - b) <= ATOL
+    return type(a) is type(b) and a == b
+
+
+def diff_worlds(j: Side, t: Side, jgot: dict, tgot: dict,
+                exact: bool) -> list[str]:
+    """Every place the tick's results of the two sides differ."""
+    bad = []
+    if jgot["log"] != tgot["log"]:
+        bad.append(f"hook log {jgot['log']} != {tgot['log']}")
+    if not _same(jgot["msgs"], tgot["msgs"], exact):
+        bad.append("client messages")
+    if not _same(jgot["sync"], tgot["sync"], exact):
+        bad.append("sync batches")
+    for jw, tw in zip(j.worlds, t.worlds):
+        g = jw.game_id
+        # the service shard's id is drawn at random on each side
+        jids = {k for k, e in jw.entities.items() if e.type_name != "Shop"}
+        tids = {k for k, e in tw.entities.items() if e.type_name != "Shop"}
+        if jids != tids or len(jw.entities) != len(tw.entities):
+            bad.append(f"world {g}: entity ids")
+            continue
+        for k in sorted(jids):
+            je, te = jw.entities[k], tw.entities[k]
+            row = (je.slot, je.position, je.yaw, je.attrs.to_dict(),
+                   sorted(je.interested_in), sorted(je.interested_by),
+                   je.client is None or (je.client.gate_id,
+                                         je.client.client_id))
+            trow = (te.slot, te.position, te.yaw, te.attrs.to_dict(),
+                    sorted(te.interested_in), sorted(te.interested_by),
+                    te.client is None or (te.client.gate_id,
+                                          te.client.client_id))
+            if not _same(row, trow, exact):
+                bad.append(f"world {g}: entity {k} {row} != {trow}")
+        jst, tst = _jax_state(jw), interop.state_to_numpy(tw.state)
+        for name, a in tst.items():
+            if not _same(jst[name], a, exact or name not in ("pos", "vel")):
+                bad.append(f"world {g}: state lane {name}")
+        jo = jw.last_outputs
+        for f in dataclasses.fields(tw.last_outputs):
+            a = getattr(tw.last_outputs, f.name)
+            if not _same(np.asarray(getattr(jo, f.name)), a,
+                         exact or f.name != "sync_vals"):
+                bad.append(f"world {g}: output lane {f.name}")
+    return bad
+
+
+def run_game(impl) -> dict:
+    """The script on both packages; per case, the differences of each of
+    its ticks and the facts the case's test checks."""
+    sides = {"jax": Side(jent, impl), "port": Side(tent, impl)}
+    j, t = sides["jax"], sides["port"]
+    rng = np.random.default_rng(7)
+    results = {}
+
+    def both(fn):
+        return {k: fn(s) for k, s in sides.items()}
+
+    def ticks(case, n=1, exact=True):
+        rec = results.setdefault(case, {"diffs": [], "facts": {}})
+        for i in range(n):
+            for s in sides.values():
+                s.tick()
+            jgot, tgot = j.take(), t.take()
+            rec["diffs"] += [f"{case} tick {i}: {d}" for d in diff_worlds(
+                j, t, jgot, tgot, exact)]
+            rec.setdefault("got", []).append(tgot)
+            out = t.a.last_outputs
+            rec.setdefault("events", []).append(
+                (int(out.enter_n[0]), int(out.leave_n[0])))
+        return rec
+
+    # spawn: 60 mobs, 3 players with clients, timers of both kinds
+    mob_pos = rng.uniform(0, EXTENT, (60, 2))
+
+    def spawn(s):
+        a = s.a
+        for i, (x, z) in enumerate(mob_pos):
+            a.arena.create_entity("Mob", pos=(x, 0.0, z), eid=eid(f"m{i}"),
+                                  attrs={"hp": 10 + i, "name": f"m{i}"})
+        for i in range(3):
+            p = a.arena.create_entity(
+                "Player", pos=(100.0 + 40 * i, 0.0, 100.0),
+                eid=eid(f"p{i}"),
+                client=s.pkg.GameClient(1, f"c{i}".ljust(16, "x"), a))
+            p.add_timer(0.05, "Fire", i)
+            p.add_callback(0.1, "Fire", 10 + i)
+        return sorted(e.slot for e in a.entities.values()
+                      if e.slot is not None)
+
+    slots = both(spawn)
+    rec = ticks("spawn", 8)
+    rec["facts"] = dict(slots=slots["port"], same_slots=slots["jax"]
+                        == slots["port"],
+                        enters=sum(e for e, _ in rec["events"]))
+
+    # client bind and unbind
+    def bind(s):
+        s.a.entities[eid("m0")].set_client(s.pkg.GameClient(
+            2, "bind".ljust(16, "x"), s.a))
+        s.a.entities[eid("p2")].set_client(None)
+
+    both(bind)
+    rec = ticks("client_bind_unbind", 2)
+    rec["facts"] = dict(msg_types=sorted({m[2]["type"] for got in rec["got"]
+                                          for m in got["msgs"][0]}))
+
+    # the batched upstream client syncs (a duplicate: the last wins; an
+    # unknown id and a client-less mob are dropped)
+    batch_eids = [eid("p0"), eid("m0"), eid("p1"), eid("p0"), eid("nope"),
+                  eid("m5")]
+    batch_vals = np.array([[10, 0, 10, 1], [20, 1, 20, 2], [30, 0, 30, 3],
+                           [40, 0, 40, 4], [0, 0, 0, 0], [50, 0, 50, 5]],
+                          np.float32)
+    staged = both(lambda s: s.a.stage_pos_sync_batch(
+        np.array(batch_eids, "S16"), batch_vals))
+    rec = ticks("pos_sync_batch", 2)
+    rec["facts"] = dict(staged=staged, p0=t.a.entities[eid("p0")].position)
+
+    # teleport (leaves), a yaw alone (the device keeps the position) and
+    # a position alone (the device keeps the yaw)
+    def teleport(s):
+        s.a.entities[eid("m3")].set_position((590.0, 0.0, 590.0))
+        s.a.entities[eid("m4")].set_yaw(2.5)
+        s.a.entities[eid("m6")].set_yaw(1.25)
+
+    both(teleport)
+    rec = ticks("teleport", 1)
+    both(lambda s: s.a.entities[eid("m6")].set_position((300.0, 0.0, 300.0)))
+    ticks("teleport", 1)
+    rec["facts"] = dict(
+        leaves=sum(1 for got in rec["got"] for x in got["log"]
+                   if x[0] == "leave"),
+        m4=(t.a.entities[eid("m4")].position, t.a.entities[eid("m4")].yaw),
+        m6_yaw=t.a.entities[eid("m6")].yaw)
+
+    # one hot attr set twice in one tick, nested paths and list ops
+    def attrs(s):
+        m = s.a.entities[eid("m1")]
+        m.attrs["hp"] = 5
+        m.attrs["hp"] = 7
+        s.a.entities[eid("m2")].attrs["hp"] = 3.5
+        p = s.a.entities[eid("p0")]
+        p.attrs["bag"] = {"items": [1, 2]}
+        p.attrs.get_map("bag").get_list("items").append(3)
+        p.attrs["hp"] = 1
+        p.attrs["hp"] = 2
+
+    both(attrs)
+    rec = ticks("hot_attr_twice", 2)
+    rec["facts"] = dict(
+        hot=interop.state_to_numpy(t.a.state)["hot_attrs"][
+            0, t.a.entities[eid("m1")].slot, 0],
+        jhot=float(np.asarray(j.a.state.hot_attrs)[
+            0, j.a.entities[eid("m1")].slot, 0]))
+
+    # destroy, then creations until the freed slot is taken again
+    def destroy(s):
+        e = s.a.entities[eid("m7")]
+        slot = e.slot
+        e.destroy()
+        return slot
+
+    freed = both(destroy)
+    rec = ticks("destroy_slot_reuse", 1)
+
+    def refill(s):
+        n = 0
+        while freed["port"] in s.a._free[0]:
+            s.a.arena.create_entity("Mob", pos=(float(5 * n % 590), 0.0,
+                                                 float(n % 7) * 80.0),
+                                    eid=eid(f"fill{n}"))
+            n += 1
+        return n, s.a.entities[eid(f"fill{n - 1}")].slot
+
+    refilled = both(refill)
+    ticks("destroy_slot_reuse", 2)
+
+    def unfill(s):
+        for i in range(refilled["port"][0] - 1):
+            s.a.entities[eid(f"fill{i}")].destroy()
+
+    both(unfill)
+    ticks("destroy_slot_reuse", 1)
+    rec["facts"] = dict(freed=freed, refilled=refilled)
+
+    # a local service call and an entity RPC from its own client
+    def calls(s):
+        s.a.call_service("Shop", "Buy", "p1", 3)
+        s.a.call(eid("p1"), "Ping_Client", 9,
+                 from_client="c1".ljust(16, "x"))
+
+    both(calls)
+    rec = ticks("service_call", 2)
+    rec["facts"] = dict(log=[x for got in rec["got"] for x in got["log"]
+                             if x[0] in ("buy", "ping")])
+
+    # a migration round trip A -> B -> A
+    def out_a(s):
+        e = s.a.entities[eid("p1")]
+        data = s.a.get_migrate_data(e)
+        s.a.remove_for_migration(e)
+        s.b.restore_from_migration(data, space=s.b.arena)
+        return data
+
+    data_ab = both(out_a)
+    rec = ticks("migration_round_trip", 2)
+
+    def back(s):
+        e = s.b.entities[eid("p1")]
+        data = s.b.get_migrate_data(e)
+        s.b.remove_for_migration(e)
+        s.a.restore_from_migration(data, space=s.a.arena)
+        return data
+
+    data_ba = both(back)
+    ticks("migration_round_trip", 2)
+    rec["facts"] = dict(data_ab=data_ab, data_ba=data_ba,
+                        in_a=eid("p1") in t.a.entities,
+                        in_b=eid("p1") in t.b.entities)
+
+    # AOI overflow past enter_cap: a cluster of 30 in one spot
+    def cluster(s):
+        for i in range(30):
+            s.a.arena.create_entity(
+                "Mob", pos=(450.0 + i * 0.5, 0.0, 150.0 + (i % 3)),
+                eid=eid(f"c{i}"))
+
+    both(cluster)
+    rec = ticks("enter_overflow", 2)
+    rec["facts"] = dict(enter_n=rec["events"][0][0])
+
+    # random-walk movers: floats to ATOL from here on
+    def moving(s):
+        for i in (8, 9, 10, 11, 12):
+            s.a.entities[eid(f"m{i}")].set_moving(True)
+        s.a.entities[eid("m12")].set_moving(False)
+
+    both(moving)
+    rec = ticks("set_moving", 4, exact=False)
+    rec["facts"] = dict(moved=t.a.entities[eid("m8")].position,
+                        still=t.a.entities[eid("m12")].position,
+                        m12_start=tuple(float(v) for v in (
+                            mob_pos[12][0], 0.0, mob_pos[12][1])))
+    return results
+
+
+@pytest.fixture(scope="module", params=IMPLS, ids=["ranges", "fused"])
+def game(request):
+    return run_game(request.param)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_scripted_game_matches_jax(game, case):
+    rec = game[case]
+    assert rec["diffs"] == [], rec["diffs"][:5]
+    facts = rec["facts"]
+    if case == "spawn":
+        assert facts["same_slots"] and len(facts["slots"]) == 63
+        assert facts["enters"] > 0
+        timers = [x for got in rec["got"] for x in got["log"]
+                  if x[0] == "timer"]
+        fired = [x[2] for x in timers]
+        assert sorted(fired.count(i) for i in (10, 11, 12)) == [1, 1, 1]
+        assert fired.count(0) == fired.count(2) >= 2
+    elif case == "client_bind_unbind":
+        assert {"create_entity", "destroy_entity"} <= set(
+            facts["msg_types"])
+    elif case == "pos_sync_batch":
+        assert facts["staged"] == {"jax": 3, "port": 3}
+        assert facts["p0"] == (40.0, 0.0, 40.0)
+    elif case == "teleport":
+        assert facts["leaves"] > 0
+        assert facts["m4"][1] == 2.5 and facts["m6_yaw"] == 1.25
+    elif case == "hot_attr_twice":
+        assert facts["hot"] == facts["jhot"] == 7.0
+    elif case == "destroy_slot_reuse":
+        assert facts["freed"]["jax"] == facts["freed"]["port"]
+        assert facts["refilled"]["port"] == (
+            facts["refilled"]["jax"][0], facts["freed"]["port"])
+    elif case == "service_call":
+        assert facts["log"] == [("buy", "p1", 3), ("ping", eid("p1"), 9)]
+    elif case == "migration_round_trip":
+        for k in ("data_ab", "data_ba"):
+            assert facts[k]["jax"] == facts[k]["port"]
+            assert facts[k]["port"]["client"] == [1, "c1".ljust(16, "x")]
+        assert facts["in_a"] and not facts["in_b"]
+    elif case == "enter_overflow":
+        assert facts["enter_n"] > WORLD["enter_cap"]
+    elif case == "set_moving":
+        assert facts["moved"] != facts["still"]
+        assert facts["still"] == pytest.approx(facts["m12_start"])
+
+
+KNOBS = {
+    "mesh": dict(mesh=object()),
+    "megaspace": dict(megaspace=True),
+    "n_spaces": dict(n_spaces=2),
+    "pipeline_decode": dict(pipeline_decode=True),
+    "telemetry_live": dict(telemetry_live=True),
+    "residency": dict(residency=True),
+    "audit": dict(audit=True),
+    "snapshot_keyframe_every": dict(snapshot_keyframe_every=4),
+}
+SMALL = TConfig(capacity=64, grid=TGrid(radius=10.0, k=8, cell_cap=4))
+
+
+@pytest.mark.parametrize("knob", sorted(KNOBS))
+def test_refused_knobs_raise_not_implemented(knob):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tent.World(SMALL, device="cpu", **KNOBS[knob])
+
+
+@pytest.mark.parametrize("method", ["apply_tick_config",
+                                    "workload_signature",
+                                    "window_signature", "cost_report"])
+def test_refused_planes_raise_not_implemented(method):
+    w = tent.World(SMALL, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        getattr(w, method)()
+
+
+@pytest.mark.parametrize("change", [dict(behavior="mlp"),
+                                    dict(grid=TGrid(radius=10.0, skin=2.0))],
+                         ids=["mlp", "skin"])
+def test_unported_configs_raise_not_implemented(change):
+    cfg = dataclasses.replace(SMALL, **change)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tent.World(cfg, device="cpu")
+
+
+def test_world_runs_on_the_card_unless_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tent.World(SMALL)
+    assert tent.World(SMALL, device="cpu").state.pos.device.type == "cpu"
+
+
+def test_tick_records_its_four_spans_and_traced_rpcs():
+    from goworld_tpu_torch.utils import metrics, opmon, tracing
+
+    class Hero(tent.Entity):
+        def Hello(self, x):
+            self.got = x
+
+    w = tent.World(SMALL, device="cpu")
+    w.register_entity("Hero", Hero)
+    w.register_space("Arena", tent.Space)
+    w.create_nil_space()
+    h = w.create_space("Arena").create_entity("Hero", pos=(1.0, 0.0, 1.0))
+    w.call(h.id, "Hello", 5)
+    ctx = tracing.new_trace()
+    with tracing.use(ctx):
+        w.tick()
+    assert h.got == 5
+    spans = [name for name, *_ in metrics.timeline.records()[-1][2]]
+    assert spans == ["flush_staging", "device_step", "fetch_outputs",
+                     "decode_fanout"]
+    assert opmon.monitor.snapshot()["world.tick"]["count"] >= 1
+    rec = [r for r in tracing.recorder.records() if r[2] == ctx.trace_hex]
+    assert [(r[0], r[1], r[4], r[7]["method"]) for r in rec] == [
+        ("invoke", "game1", ctx.span_hex, "Hello")]
+
+
+def test_served_game_twins_agree_on_the_cpu():
+    """The chip phase's served game at a small size, its walking syncs
+    and its teleporting stress stream in turns: the sweep/sort pairs
+    give equal sinks, hooks and states, a walking sync lands one step
+    from where its player stood, and the hot attr set twice a tick lands
+    on the device with its last value."""
+    from goworld_tpu_torch.workload import serve_world
+
+    try:
+        twins = [serve_world(8192, 5, "cpu", record_hooks=True, keep=True,
+                             sweep_impl=sweep, sort_impl=sort)
+                 for sweep, sort in IMPLS]
+    finally:
+        gc.unfreeze()  # serve_world froze the populations, as a server
+    sv0 = twins[0]
+    w0, step = sv0.world, sv0.world.cfg.npc_speed * sv0.world.cfg.dt
+    slots = [w0.entities[e.decode()].slot for e in sv0.players]
+    for t in range(4):  # tick 1 flushes the population
+        before = interop.state_to_numpy(w0.state)["pos"][0, slots][:, [0, 2]]
+        for sv in twins:
+            assert sv.stage(teleport=t == 2)["destroys"] == 64
+            sv.world.tick()
+        after = interop.state_to_numpy(w0.state)["pos"][0, slots][:, [0, 2]]
+        moved = np.abs(after - before).max(axis=1)
+        assert t == 0 or moved.max() > (step if t == 2 else 0)
+        if t in (1, 3):  # one step, give or take float32 rounding of x, z
+            ulp = np.spacing(np.float32(w0.cfg.grid.extent_x))
+            assert moved.max() <= step + 2 * ulp
+        a, b = (sv.sink.take() for sv in twins)
+        assert _same(a["kept"], b["kept"], exact=True)
+        assert a["sync_records"] > 0 and a["messages"]
+        assert twins[0].hooks == twins[1].hooks and twins[0].hooks
+        for sv in twins:
+            sv.hooks.clear()
+        sa, sb = (interop.state_to_numpy(sv.world.state) for sv in twins)
+        assert all(_same(sa[k], sb[k], exact=True) for k in sa)
+    w = twins[0].world
+    mobs = [w.entities[e] for e in twins[0].mobs]
+    hot = interop.state_to_numpy(w.state)["hot_attrs"][0, :, 0]
+    assert [hot[m.slot] for m in mobs] == [m.attrs["hp"] for m in mobs]
