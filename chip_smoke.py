@@ -73,8 +73,32 @@ is caught:
     kernel its launches on its paths (and by path), time, device time,
     kernel launches a call, plain time, library time and bound (the
     sweep's also by the all-lanes count of earlier runs:
-    ``bound_ms_window_lanes``);
-13. the result line ``{"ok": true, "device": {...}}``.
+    ``bound_ms_window_lanes``, and its numbers at the Verlet rebuild's
+    shape: ``verlet_rebuild_shape``, and at the q16 path's:
+    ``q16_rebuild_shape``);
+13. (run before 12) the Verlet skin: the fused sweep at the rebuild's
+    shape (k = verlet_cap_eff 48, no flag bits, reach padded by the
+    skin) against its plain version, under a closed gate (its buffers
+    unchanged byte for byte) and an open one, timed both ways; the
+    input scatter with heavy slot repeats against the host's last write
+    per slot; an uncut world of FLOAT_N entities run FLOAT_TICKS ticks
+    on the card and on the CPU port, bit-equal in every lane; then the
+    bench world uncut (``workload.uncut_config``: skin 4, verlet_cap
+    48, syncs drawn with repeats) for VERLET_TICKS ticks, each beside a
+    skin-0 tick in lockstep and bit-equal to it in every lane and
+    output but the skin gauges and the cell gauges (cells of another
+    size), one gated sweep and one sort launch a tick, the rebuild
+    count and p50/p99 over all, reuse and rebuild ticks;
+14. (run before 12) that world at precision="q16" (cell_cap 12, as
+    13): the gated sweep at this path's rebuild shape (snapped
+    positions, k 48, reach pad 4) against its plain version, gate open
+    and closed; then Q16_TICKS ticks, each beside a twin on the plain
+    path (ranges/counting) and bit-equal to it in every lane; each
+    tick's lists equal ``grid_neighbors_flags`` (precision off, plain
+    path) over the snapped positions on every row no truncation touches
+    (no overflowed run at the last rebuild or in the reference, no full
+    cache row); the velocity lane is bfloat16; p50/p99 as in 13;
+15. the result line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -93,7 +117,7 @@ import numpy as np
 import torch
 
 from goworld_tpu_torch import interop, kernels
-from goworld_tpu_torch.core.state import WorldConfig
+from goworld_tpu_torch.core.state import WorldConfig, map_lane
 from goworld_tpu_torch.core.step import make_tick
 from goworld_tpu_torch.ops import aoi
 from goworld_tpu_torch.ops.aoi import GridSpec, grid_neighbors_flags
@@ -109,12 +133,15 @@ from goworld_tpu_torch.parallel.megaspace import (
     make_mega_tick,
 )
 from goworld_tpu_torch.utils import metrics
+from goworld_tpu_torch.ops.integrate import apply_pos_inputs
 from goworld_tpu_torch.workload import (
     bench_world,
     mega_config,
     mega_world,
     serve_world,
     slice_config,
+    uncut_config,
+    uncut_world,
 )
 
 N = 1 << 20
@@ -125,6 +152,10 @@ WORLD_TICKS = 16
 STRESS_TICKS = 8
 TWIN_N = 1 << 16
 TWIN_TICKS = 8
+VERLET_TICKS = 64     # ~24 ticks between displacement rebuilds at skin 4
+Q16_TICKS = 32
+FLOAT_N = 4096
+FLOAT_TICKS = 8
 SEED = 0
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and the
 # float32 CUDA-core rate, used for the kernels' 32-bit integer work too
@@ -165,6 +196,21 @@ def visits_every_row(fh) -> bool:
                                               device=ids.device)))
 
 
+def sweep_work(fh, dem, k: int, cc: int) -> tuple[int, float, int]:
+    """(bytes, operations, in-range candidates) of one fused sweep call
+    on these inputs: each input read once and each output written once;
+    5 distance, 3 validity and 6 key-pack operations per in-range
+    candidate (a run's lanes up to 3*cell_cap), and d*log2(d) compares
+    to order a row's d valid keys."""
+    n, q = fh.srow.numel(), fh.lo.shape[0]
+    nbytes = (12 * fh.s_w.numel() + 24 * q + 12 * n + 4 * n  # in
+              + 4 * k * q + 4 * q)                           # out
+    cand = int(torch.clamp(fh.hi - fh.lo, 0, 3 * cc).sum())
+    d = dem.double()
+    nops = 14 * cand + float((d * torch.log2(d.clamp_min(1))).sum())
+    return nbytes, nops, cand
+
+
 def bound(nbytes, nops):
     """(least ms, what bounds it) against the card's peaks."""
     tb, to = nbytes / PEAK_BYTES_S * 1e3, nops / PEAK_OPS_S * 1e3
@@ -185,7 +231,8 @@ def same_bits(a, b) -> bool:
     if a.dtype != b.dtype or a.shape != b.shape:
         return False
     if a.is_floating_point():
-        a, b = a.view(torch.int32), b.view(torch.int32)
+        bits = torch.int16 if a.element_size() == 2 else torch.int32
+        a, b = a.view(bits), b.view(bits)
     return bool(torch.equal(a, b))
 
 
@@ -589,7 +636,7 @@ def mega_path(dev, mc: MegaConfig, tag: str) -> dict:
     return row, read_device
 
 
-def device_times(profiled: dict, rows: list, plan) -> str:
+def device_times(profiled: dict, rows: list, plan) -> tuple[dict, str]:
     """Fill the rows' ``device_ms`` and ``launches_per_call`` from
     torch.profiler and check the launches a call. A profiler session
     leaves the card's profiling interface attached, which slows every
@@ -606,8 +653,8 @@ def device_times(profiled: dict, rows: list, plan) -> str:
     if sweep_lpc != 1 or sort_lpc > plan[0] + 1:
         fail(f"kernel launches a call: sweep {sweep_lpc}, sort {sort_lpc} "
              f"(plan {plan} allows {plan[0] + 1})")
-    return ", ".join(f"{name} {ms:.5f} ms ({lpc:g} kernels)"
-                     for name, (ms, lpc) in got.items())
+    return got, ", ".join(f"{name} {ms:.5f} ms ({lpc:g} kernels)"
+                          for name, (ms, lpc) in got.items())
 
 
 def small_oracle(dev) -> None:
@@ -704,8 +751,8 @@ def release_worlds() -> None:
 
 def first_space(obj):
     """The one Space's lanes of a World's stacked state or outputs."""
-    return type(obj)(**{f.name: None if getattr(obj, f.name) is None
-                        else getattr(obj, f.name)[0]
+    return type(obj)(**{f.name: map_lane(getattr(obj, f.name),
+                                         lambda t: t[0])
                         for f in dataclasses.fields(obj)})
 
 
@@ -828,8 +875,7 @@ def world_phase(dev, bare: tuple[float, float], tag: str) -> dict:
     real, cap = w._step, {}
 
     def probe(state, inputs, policy=None):
-        cap["state"] = type(state)(**{f.name: getattr(state, f.name).clone()
-                                      for f in dataclasses.fields(state)})
+        cap["state"] = state.apply(torch.clone)
         cap["inputs"] = type(inputs)(**{
             f.name: getattr(inputs, f.name).clone()
             for f in dataclasses.fields(inputs)})
@@ -919,6 +965,346 @@ def world_phase(dev, bare: tuple[float, float], tag: str) -> dict:
           flush=True)
     return {"world": launches, "world_stress": stress_launches}
 
+
+
+def diff_count(a, b):
+    """Words of two lanes that differ, as a device tensor (floats by
+    their bits; no host sync)."""
+    if a.is_floating_point():
+        bits = torch.int16 if a.element_size() == 2 else torch.int32
+        a, b = a.view(bits), b.view(bits)
+    return (a != b).sum()
+
+
+def pct(ms, sel) -> str:
+    """p50/p99 of the ticks ``sel`` picks, or "none"."""
+    x = ms[sel]
+    if x.size == 0:
+        return "none"
+    return (f"p50={float(np.percentile(x, 50)):.3f} "
+            f"p99={float(np.percentile(x, 99)):.3f} (n={x.size})")
+
+
+def gate_phase(dev, cfg, st, tag, label: str,
+               profiled: dict | None = None) -> dict:
+    """The fused sweep at the Verlet rebuild's shape of ``cfg`` (k =
+    verlet_cap_eff, no flag bits, reach padded by the skin, over the
+    positions snapped as the tick snaps them): the kernel against its
+    plain version, a closed gate leaving its buffers byte for byte, an
+    open one writing the plain version's result; times by events and
+    the bound, counted as in [6]; with ``profiled``, a closed launch
+    joins it, read in [12]."""
+    g = cfg.grid
+    gv = dataclasses.replace(g, k=g.verlet_cap_eff)
+    pos = aoi.quantize_positions(g, st.pos)
+    fh = aoi.front_half(gv, pos, st.alive, None, st.aoi_radius, None,
+                        with_stats=True, reach_pad=g.skin)
+    if not visits_every_row(fh):
+        fail("the rebuild's sorted slot ids are not a permutation")
+    args = (fh.s_xz, fh.s_w, fh.lo, fh.hi, pos, fh.reach, gv.k,
+            gv.cell_cap, fh.code, True)
+    top_k, dem_k = aoi.sweep_fused_cuda(*args)
+    top_p, dem_p = aoi.sweep_fused_plain(*args, row_block=g.row_block)
+    err = int((top_k.long() - top_p.long()).abs().max()) + int(
+        (dem_k - dem_p).abs().max())
+    if err:
+        fail(f"fused sweep at the rebuild shape differs from its plain "
+             f"version ({err})")
+    out = (torch.full_like(top_k, 7), torch.full_like(dem_k, 5))
+    before = [t.clone() for t in out]
+    shut = torch.zeros((), dtype=torch.int32, device=dev)
+    opened = torch.ones((), dtype=torch.int32, device=dev)
+    aoi.sweep_fused_cuda(*args, gate=shut, out=out)
+    if not (same(out[0], before[0]) and same(out[1], before[1])):
+        fail("a closed gate wrote the sweep's buffers")
+    aoi.sweep_fused_cuda(*args, gate=opened, out=out)
+    if not (same(out[0], top_p) and same(out[1], dem_p)):
+        fail("an open gate's sweep differs from the plain version")
+    ms_open = time_ms(
+        lambda: aoi.sweep_fused_cuda(*args, gate=opened, out=out), 20)
+    ms_shut = time_ms(
+        lambda: aoi.sweep_fused_cuda(*args, gate=shut, out=out), 20)
+    ms_plain = time_ms(
+        lambda: aoi.sweep_fused_plain(*args, row_block=g.row_block), 3, 1)
+    nb, no, cand = sweep_work(fh, dem_p, gv.k, gv.cell_cap)
+    bms, by = bound(nb, no)
+    if profiled is not None:
+        profiled["sweep_fused_cuda, gate closed"] = \
+            lambda: aoi.sweep_fused_cuda(*args, gate=shut, out=out)
+    print(f"{label} gated sweep at the rebuild shape (precision "
+          f"{g.precision}, k={gv.k}, cell_cap {gv.cell_cap}, no flag "
+          f"bits, reach pad {g.skin}, {cand / N:.2f} in-range candidates "
+          f"a row, demand max {int(dem_p.max())}): kernel == plain; gate 0 "
+          f"leaves both buffers byte for byte, gate 1 writes the plain "
+          f"result; {ms_open:.5f} ms a call open, {ms_shut:.5f} ms closed, "
+          f"plain {ms_plain:.3f} ms, bound {bms:.5f} ms by {by} {tag}",
+          flush=True)
+    return {"precision": g.precision, "k": gv.k, "cell_cap": gv.cell_cap,
+            "flag_bits": False, "reach_pad": g.skin, "ms": ms_open, "gate_closed_ms": ms_shut, "plain_ms": ms_plain,
+            "bound_ms": bms, "bound_by": by, "max_abs_err": err}
+
+
+def inputs_and_floats(dev, tag) -> None:
+    """[13] the input scatter with heavy repeats against a host-side
+    last write, and a small uncut world run on the card and on the CPU
+    port with every lane (floats included) bit-equal."""
+    rng = np.random.default_rng(SEED + 17)
+    ic, slots = 65536, 4096
+    pos = rng.uniform(0, 1000, (N, 3)).astype(np.float32)
+    yaw = rng.uniform(0, 6, N).astype(np.float32)
+    idx = rng.integers(0, slots, ic).astype(np.int32)
+    idx[rng.random(ic) < 0.05] = -3          # out of range: dropped
+    idx[rng.random(ic) < 0.05] = N + 5
+    vals = rng.uniform(0, 1000, (ic, 4)).astype(np.float32)
+    n_in = 60000
+    got = apply_pos_inputs(*(torch.tensor(a, device=dev) for a in (
+        pos, yaw, idx, vals, np.asarray(n_in, np.int32))))
+    ok = (np.arange(ic) < n_in) & (idx >= 0) & (idx < N)
+    rec = np.flatnonzero(ok)
+    uniq, first_rev = np.unique(idx[rec][::-1], return_index=True)
+    last = rec[::-1][first_rev]
+    want_pos, want_yaw = pos.copy(), yaw.copy()
+    want_pos[uniq] = vals[last, :3]
+    want_yaw[uniq] = vals[last, 3]
+    touched = np.zeros(N, bool)
+    touched[uniq] = True
+    for a, b, name in ((got[0], want_pos, "pos"), (got[1], want_yaw, "yaw"),
+                       (got[2], touched, "touched")):
+        if a.cpu().numpy().tobytes() != b.tobytes():
+            fail(f"apply_pos_inputs with repeated slots: {name} differs "
+                 f"from the host's last write")
+    cfg = uncut_config(FLOAT_N)
+    worlds = {d: uncut_world(cfg, SEED + 3, d)
+              for d in (dev, torch.device("cpu"))}
+    ticks = {d: make_tick(cfg, device=d) for d in worlds}
+    bad, rebuilds = [], 0
+    for t in range(FLOAT_TICKS):
+        new = {d: ticks[d](*worlds[d]) for d in worlds}
+        for d in worlds:
+            worlds[d] = (new[d][0], worlds[d][1])
+        (sa, oa), (sb, ob) = new[dev], new[torch.device("cpu")]
+        rebuilds += int(ob.aoi_rebuilt)
+        for what, a, b in (("state", sa, sb), ("outputs", oa, ob)):
+            la, lb = lanes(a), lanes(b)
+            bad += [f"{what}.{k} @{t + 1}" for k in la
+                    if not same_bits(la[k].cpu(), lb[k])]
+    if bad:
+        fail(f"card and CPU port differ: {bad[:8]}")
+    print(f"[13] inputs and floats: apply_pos_inputs with {n_in} records "
+          f"onto {slots} slots ({uniq.size} hit, repeats and out-of-range "
+          f"slots among them) == the host's last write per slot; an uncut "
+          f"world of {FLOAT_N} (skin {cfg.grid.skin}, syncs with repeats) "
+          f"{FLOAT_TICKS} ticks on the card == on the CPU port in every "
+          f"lane bit for bit, floats and the Verlet cache included "
+          f"({rebuilds} rebuilds) {tag}", flush=True)
+
+
+def verlet_phase(dev, tag, profiled: dict) -> tuple[dict, dict]:
+    """[13] the bench world uncut: 2^20 entities, skin 4, verlet_cap 48,
+    syncs with repeats, VERLET_TICKS ticks, each beside a skin-0 tick in
+    lockstep from the same start (the random walk reads no lists, so
+    the two trajectories coincide); returns the gated sweep's numbers
+    and the path's launches."""
+    cfg = uncut_config(N)
+    flat = dataclasses.replace(cfg, grid=dataclasses.replace(
+        cfg.grid, skin=0.0))
+    st, inputs = uncut_world(cfg, SEED, dev)
+    gate = gate_phase(dev, cfg, st, tag, "[13]", profiled)
+    inputs_and_floats(dev, tag)
+    tick, tick0 = make_tick(cfg, device=dev), make_tick(flat, device=dev)
+    st0 = st.replace(aoi_cache=None)
+    torch.cuda.set_sync_debug_mode("error")
+    tick(st, inputs)
+    torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    skip = {"aoi_cache", "aoi_rebuilt", "aoi_skin_slack",
+            # cells of radius + skin against cells of radius
+            "aoi_cell_max", "aoi_over_cap_cells"}
+    diffs: dict = {}
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(4)]
+          for _ in range(VERLET_TICKS)]
+    gauges, per_tick = [], []
+    kernels.reset_launches()
+    for t in range(VERLET_TICKS):
+        c0 = dict(kernels.LAUNCHES)
+        ev[t][0].record()
+        st, out = tick(st, inputs)
+        ev[t][1].record()
+        c1 = dict(kernels.LAUNCHES)
+        per_tick.append((c1["sweep_fused"] - c0["sweep_fused"],
+                         c1["counting_sort"] - c0["counting_sort"]))
+        ev[t][2].record()
+        st0, out0 = tick0(st0, inputs)
+        ev[t][3].record()
+        for a, b in ((st, st0), (out, out0)):
+            la, lb = lanes(a), lanes(b)
+            for k in la:
+                if k.split(".")[0] not in skip:
+                    diffs[k] = diffs.get(k, 0) + diff_count(la[k], lb[k])
+        gauges.append(torch.stack([
+            out.aoi_rebuilt.float(), out.aoi_skin_slack,
+            out.enter_n.float(), out.sync_n.float(),
+            out.aoi_over_k_rows.float(), out.aoi_over_cap_cells.float(),
+            out0.aoi_over_cap_cells.float(), out.aoi_demand_max.float(),
+            st.aoi_cache.over_v_rows.float()]))
+    torch.cuda.synchronize()
+    launches = {"sweep_fused": sum(p[0] for p in per_tick),
+                "counting_sort": sum(p[1] for p in per_tick)}
+    if per_tick != [(1, 1)] * VERLET_TICKS:
+        fail(f"Verlet path launches a tick {per_tick}, want one gated "
+             f"sweep and one sort")
+    bad = {k: int(v) for k, v in diffs.items() if int(v)}
+    if bad:
+        fail(f"Verlet tick != skin-0 tick in lanes {bad}")
+    gv = torch.stack(gauges).cpu().numpy()
+    reb, slack = gv[:, 0] > 0, gv[:, 1]
+    if not reb[0] or reb.sum() < 2:
+        fail(f"rebuilds {np.flatnonzero(reb).tolist()}: want the first "
+             f"tick and a displacement rebuild")
+    if gv[0, 2] <= 0 or (gv[:, 3] <= 0).any():
+        fail("no enter events on tick 1 or a tick without sync records")
+    for lane in (st.pos, st.vel):
+        if not torch.isfinite(lane).all():
+            fail("non-finite positions or velocities")
+    ms = np.array([e[0].elapsed_time(e[1]) for e in ev])
+    ms0 = np.array([e[2].elapsed_time(e[3]) for e in ev])
+    later = np.arange(VERLET_TICKS) >= 1
+    print(f"[13] bench world uncut: {VERLET_TICKS} ticks of {N} entities, "
+          f"skin {cfg.grid.skin}, verlet_cap {cfg.grid.verlet_cap_eff}, "
+          f"syncs with repeats; launches {launches} (one gated sweep and "
+          f"one sort a tick); rebuilds {int(reb.sum())} at ticks "
+          f"{(np.flatnonzero(reb) + 1).tolist()}; every lane and output "
+          f"(but the skin gauges and the cell gauges of the other cell "
+          f"size) bit-equal to the skin-0 tick in lockstep every tick; "
+          f"min aoi_skin_slack {float(slack.min()):.5f}; gauges max: "
+          f"over_k_rows {int(gv[:, 4].max())}, over_cap_cells "
+          f"{int(gv[:, 5].max())} (skin 0: {int(gv[:, 6].max())}), "
+          f"demand_max {int(gv[:, 7].max())}, over_v_rows "
+          f"{int(gv[:, 8].max())}; ms/tick (CUDA events, ticks 2-"
+          f"{VERLET_TICKS}) all {pct(ms, later)}, reuse "
+          f"{pct(ms, later & ~reb)}, rebuild {pct(ms, later & reb)}, tick "
+          f"1 {ms[0]:.3f}; the skin-0 tick {pct(ms0, later)} {tag}",
+          flush=True)
+    return gate, launches
+
+
+def overflowed_rows(spec: GridSpec, pos, alive, watch_radius):
+    """bool[N]: rows whose sweep under ``spec`` truncates a run (more
+    than 3*cell_cap slots in one of its three z-triples)."""
+    fh = aoi.front_half(spec, pos, alive, None, watch_radius, None)
+    return ((fh.hi - fh.lo) > 3 * spec.cell_cap).any(1)
+
+
+def q16_phase(dev, tag) -> tuple[dict, dict]:
+    """[14] the uncut world at precision="q16" (cell_cap 12, as [13]):
+    the gated sweep at this path's rebuild shape against its plain
+    version; then Q16_TICKS ticks, each beside a twin of the same config
+    on the plain path (``ranges`` sweep, plain counting sort) in
+    lockstep, bit-equal in every lane of state, cache and outputs; and
+    every tick, on the rows that no truncation touches, the lists equal
+    ``grid_neighbors_flags`` (precision off, no skin, plain path) over
+    the snapped positions. A row is left out of that last check when its
+    cache row is full or a run of its sweep overflowed, at the last
+    rebuild (cells of radius + skin, on the lattice) or in the
+    reference's sweep: there Verlet and the skinless sweep truncate
+    different candidates, as the reference package does. The velocity
+    lane is bfloat16. Returns the gated sweep's numbers and the path's
+    launches."""
+    cfg = uncut_config(N, precision="q16")
+    g = cfg.grid
+    plain = dict(sweep_impl="ranges", sort_impl="counting")
+    twin_cfg = dataclasses.replace(cfg, grid=dataclasses.replace(g, **plain))
+    ref_spec = dataclasses.replace(g, precision="off", skin=0.0, **plain)
+    reb_spec = dataclasses.replace(g, k=g.verlet_cap_eff, **plain)
+    st, inputs = uncut_world(cfg, SEED, dev)
+    if st.vel.dtype != torch.bfloat16:
+        fail(f"q16 velocity lane is {st.vel.dtype}")
+    gate = gate_phase(dev, cfg, st, tag, "[14]")
+    tick, twin = make_tick(cfg, device=dev), make_tick(twin_cfg, device=dev)
+    torch.cuda.set_sync_debug_mode("error")
+    tick(st, inputs)
+    torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    st_t = st
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
+          for _ in range(Q16_TICKS)]
+    per_tick, gauges = [], []
+    diffs: dict = {}
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    mism, held, left = zero.clone(), zero.clone(), zero.clone()
+    v = g.verlet_cap_eff
+    kernels.reset_launches()
+    for t in range(Q16_TICKS):
+        c0 = dict(kernels.LAUNCHES)
+        ev[t][0].record()
+        st, out = tick(st, inputs)
+        ev[t][1].record()
+        c1 = dict(kernels.LAUNCHES)
+        per_tick.append((c1["sweep_fused"] - c0["sweep_fused"],
+                         c1["counting_sort"] - c0["counting_sort"]))
+        st_t, out_t = twin(st_t, inputs)
+        for a, b in ((st, st_t), (out, out_t)):
+            la, lb = lanes(a), lanes(b)
+            for k in la:
+                diffs[k] = diffs.get(k, 0) + diff_count(la[k], lb[k])
+        snapped = aoi.quantize_positions(g, st.pos)
+        nbr, cnt, _fl = grid_neighbors_flags(
+            ref_spec, snapped, st.alive, watch_radius=st.aoi_radius,
+            flag_bits=st.has_client.to(torch.int32) << 1)
+        c = st.aoi_cache
+        at_rebuild = torch.stack(
+            [c.ref_x, torch.zeros_like(c.ref_x), c.ref_z], 1)
+        skip = (overflowed_rows(ref_spec, snapped, st.alive, st.aoi_radius)
+                | overflowed_rows(reb_spec, at_rebuild, c.ref_alive,
+                                  c.ref_radius)
+                | (aoi.unpack_ids21(c.cand)[:, v - 1] != N))
+        row_diff = (nbr != st.nbr).any(1) | (cnt != st.nbr_cnt)
+        mism += (row_diff & ~skip).sum()
+        held += (~skip).sum()
+        left += skip.sum()
+        gauges.append(torch.stack([
+            out.aoi_rebuilt.float(), out.aoi_skin_slack,
+            out.sync_n.float(), out.aoi_over_k_rows.float(),
+            c.over_v_rows.float(), c.over_cap_cells.float()]))
+    torch.cuda.synchronize()
+    launches = {"sweep_fused": sum(p[0] for p in per_tick),
+                "counting_sort": sum(p[1] for p in per_tick)}
+    if per_tick != [(1, 1)] * Q16_TICKS:
+        fail(f"q16 path launches a tick {per_tick}")
+    bad = {k: int(n) for k, n in diffs.items() if int(n)}
+    if bad:
+        fail(f"q16 tick on the kernels != its plain-path twin in lanes "
+             f"{bad}")
+    if int(mism):
+        fail(f"q16 lists differ from the f32 sweep over the snapped "
+             f"positions in {int(mism)} rows no truncation touches")
+    if st.vel.dtype != torch.bfloat16 or not torch.isfinite(st.pos).all():
+        fail("q16 state lost its bfloat16 velocity or finite positions")
+    gv = torch.stack(gauges).cpu().numpy()
+    reb = gv[:, 0] > 0
+    if not reb[0] or reb.sum() < 2:
+        fail(f"q16 rebuilds {np.flatnonzero(reb).tolist()}: want the "
+             f"first tick and a displacement rebuild")
+    ms = np.array([e[0].elapsed_time(e[1]) for e in ev])
+    later = np.arange(Q16_TICKS) >= 1
+    print(f"[14] q16: {Q16_TICKS} ticks of the uncut world at "
+          f"precision=q16 (lattice step {g.quant_step}, cells "
+          f"{g.cell_size}, cell_cap {g.cell_cap}), launches {launches}; "
+          f"every lane of state, cache and outputs == the plain-path "
+          f"twin (ranges/counting) every tick; lists == "
+          f"grid_neighbors_flags (precision off, plain path) over the "
+          f"snapped positions on {int(held)} row-ticks, {int(left)} "
+          f"row-ticks left out (a run overflowed or a full cache row); "
+          f"vel {st.vel.dtype}; rebuilds {int(reb.sum())} at ticks "
+          f"{(np.flatnonzero(reb) + 1).tolist()}; min aoi_skin_slack "
+          f"{float(gv[:, 1].min()):.5f}; sync_n last {int(gv[-1, 2])}; "
+          f"over_k_rows max {int(gv[:, 3].max())}, over_v_rows max "
+          f"{int(gv[:, 4].max())}, rebuild over_cap_cells max "
+          f"{int(gv[:, 5].max())}; ms/tick (CUDA events, ticks 2-"
+          f"{Q16_TICKS}) all {pct(ms, later)}, reuse "
+          f"{pct(ms, later & ~reb)}, rebuild {pct(ms, later & reb)}, tick "
+          f"1 {ms[0]:.3f} {tag}", flush=True)
+    return gate, launches
 
 
 def main() -> int:
@@ -1132,12 +1518,11 @@ def main() -> int:
     plain_cfg = dataclasses.replace(cfg, grid=dataclasses.replace(
         g, sweep_impl="ranges", sort_impl="counting"))
     st_p, out_p = make_tick(plain_cfg, device=dev)(snapshot, inputs)
-    for f in dataclasses.fields(st_k):
-        if not same(getattr(st_k, f.name), getattr(st_p, f.name)):
-            fail(f"state lane {f.name}: kernels != plain versions")
-    for f in dataclasses.fields(out_k):
-        if not same(getattr(out_k, f.name), getattr(out_p, f.name)):
-            fail(f"output lane {f.name}: kernels != plain versions")
+    for what, a, b in (("state", st_k, st_p), ("output", out_k, out_p)):
+        la, lb = lanes(a), lanes(b)
+        for name in la:
+            if not same_bits(la[name], lb[name]):
+                fail(f"{what} lane {name}: kernels != plain versions")
     print(f"[5] single-Space path: {TICKS} ticks of {N} entities, launches "
           f"{launches}; tick 1 enter_n={int(gv[0, 0])} "
           f"leave_n={int(gv[0, 1])} sync_n={int(gv[0, 2])}; last tick "
@@ -1167,15 +1552,7 @@ def main() -> int:
     sweep_plain = time_ms(
         lambda: aoi.sweep_fused_plain(*args, row_block=g.row_block), 3, 1)
     n_lanes = 9 * g.cell_cap
-    s_len = fh.s_w.numel()
-    sweep_bytes = (12 * s_len + 24 * N + 12 * N + 4 * N  # in
-                   + 4 * g.k * N + 4 * N)                # out
-    # the work this run's inputs need: 5 distance, 3 validity and 6
-    # key-pack operations per in-range candidate (a run's lanes up to
-    # 3*cell_cap), and d*log2(d) compares to order a row's d valid keys
-    cand = int(torch.clamp(fh.hi - fh.lo, 0, 3 * g.cell_cap).sum())
-    d = p_dem.double()
-    sweep_ops = 14 * cand + float((d * torch.log2(d.clamp_min(1))).sum())
+    sweep_bytes, sweep_ops, cand = sweep_work(fh, p_dem, g.k, g.cell_cap)
     # the count of earlier bounds, kept beside it so that times before
     # and after the kernel's redesign read against one yardstick: every
     # lane of the 3x3 window, and 2 per lane per selection round
@@ -1239,13 +1616,19 @@ def main() -> int:
     rows.append(ship_row)
     small_oracle(dev)
     world = world_phase(dev, (p50, p99), tag)
+    gate, world["verlet"] = verlet_phase(dev, tag, profiled)
+    gate_q16, world["q16"] = q16_phase(dev, tag)
     for row, key in zip(rows[:2], ("sweep_fused", "counting_sort")):
         row["launches_by_path"] = {"single_space": row["launches"],
                                    **{p: n[key] for p, n in world.items()}}
         row["launches"] = sum(row["launches_by_path"].values())
+    rows[0]["verlet_rebuild_shape"] = gate
+    rows[0]["q16_rebuild_shape"] = gate_q16
     rows[2]["launches_by_path"] = {"megaspace": rows[2]["launches"]}
 
-    dev_ms = device_times(profiled, rows[:2], plan)
+    got, dev_ms = device_times(profiled, rows[:2], plan)
+    gate["gate_closed_device_ms"], gate["gate_closed_kernels"] = \
+        got["sweep_fused_cuda, gate closed"]
     print(f"[12] device time a call (torch.profiler, after the timed "
           f"paths): {dev_ms}; {mega_device()}; kernel times on the next "
           f"line {tag}", flush=True)

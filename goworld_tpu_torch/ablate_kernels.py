@@ -94,7 +94,7 @@ def _sweep_call(so, fh, pos, g):
             fh.s_xz.data_ptr(), fh.s_w.data_ptr(), fh.s_w.shape[0],
             fh.lo.data_ptr(), fh.hi.data_ptr(), pos.data_ptr(),
             fh.reach.data_ptr(), q, g.k, g.cell_cap, pos.shape[0], c[0],
-            c[1], c[2], c[3], float(c[4]), c[5], top.data_ptr(),
+            c[1], c[2], c[3], float(c[4]), c[5], None, top.data_ptr(),
             dem.data_ptr(), kernels.stream_handle(pos.device)), "sweep")
         return top, dem
     return call

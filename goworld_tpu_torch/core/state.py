@@ -4,12 +4,16 @@
 The whole population is a dataclass of tensors with a static capacity
 and the JAX package's lane names and types; entity identity on the
 device is (slot, generation). Every lane is int32 / float32 / bool as in
-JAX (which runs with 64-bit mode off), except two carried differently:
+JAX (which runs with 64-bit mode off), except three carried differently:
 
 * ``attr_dirty`` is the JAX uint32 bitmask held as the same bits in an
   int32 lane (torch's uint32 lacks the shifts and masks it needs);
 * ``rng`` is the threefry key, int64 ``[2]`` holding its two uint32
-  words (see :mod:`goworld_tpu_torch.ops.prng`).
+  words (see :mod:`goworld_tpu_torch.ops.prng`);
+* under precision=q16 the Verlet cache's packed ``cand`` words are the
+  JAX uint32 words as int32 bits.
+
+Under precision=q16 the carried ``vel`` lane is bfloat16, as in JAX.
 """
 
 from __future__ import annotations
@@ -20,7 +24,13 @@ from typing import Any
 import torch
 
 from goworld_tpu_torch.ops import prng
-from goworld_tpu_torch.ops.aoi import ROADMAP_HINT, GridSpec
+from goworld_tpu_torch.ops.aoi import (
+    _ID_BITS,
+    ROADMAP_HINT,
+    GridSpec,
+    VerletCache,
+    init_verlet_cache,
+)
 from goworld_tpu_torch.ops.aoi import check_ported as check_grid_ported
 from goworld_tpu_torch.utils import consts
 
@@ -116,27 +126,49 @@ class SpaceState:
     dirty: torch.Tensor        # bool[N]  moved this tick
     rng: torch.Tensor          # int64[2] threefry key words
     tick: torch.Tensor         # i32 0-d
+    # the Verlet AOI cache; None when the grid has no skin (or n >= 2^21,
+    # where the tick keeps the stateless sweep)
+    aoi_cache: VerletCache | None = None
 
     def replace(self, **changes) -> "SpaceState":
         return dataclasses.replace(self, **changes)
+
+    def apply(self, fn) -> "SpaceState":
+        """The state with ``fn`` applied to every tensor lane (the
+        cache's lanes included)."""
+        return SpaceState(**{f.name: map_lane(getattr(self, f.name), fn)
+                             for f in dataclasses.fields(self)})
 
     @property
     def device(self) -> torch.device:
         return self.pos.device
 
 
+def map_lane(value, fn):
+    """``fn`` applied to one lane of a state or outputs dataclass: a
+    tensor, the Verlet cache (each of its lanes) or None."""
+    if value is None:
+        return None
+    if isinstance(value, VerletCache):
+        return value.apply(fn)
+    return fn(value)
+
+
 def create_state(cfg: WorldConfig, seed: int = 0,
                  device="cuda") -> SpaceState:
     """An empty Space of ``cfg.capacity`` slots on ``device`` (the card
-    unless the caller asks for the CPU)."""
+    unless the caller asks for the CPU). With a skin it carries an
+    invalid Verlet cache (the first tick rebuilds); under precision=q16
+    its velocity lane is bfloat16."""
     check_ported(cfg)
     dev = resolve_device(device)
     n, a, k = cfg.capacity, cfg.attr_width, cfg.grid.k
     i32, f32 = torch.int32, torch.float32
+    vel_dtype = torch.bfloat16 if cfg.grid.precision != "off" else f32
     return SpaceState(
         pos=torch.zeros((n, 3), dtype=f32, device=dev),
         yaw=torch.zeros(n, dtype=f32, device=dev),
-        vel=torch.zeros((n, 3), dtype=f32, device=dev),
+        vel=torch.zeros((n, 3), dtype=vel_dtype, device=dev),
         alive=torch.zeros(n, dtype=torch.bool, device=dev),
         npc_moving=torch.zeros(n, dtype=torch.bool, device=dev),
         has_client=torch.zeros(n, dtype=torch.bool, device=dev),
@@ -153,6 +185,9 @@ def create_state(cfg: WorldConfig, seed: int = 0,
         dirty=torch.zeros(n, dtype=torch.bool, device=dev),
         rng=prng.prng_key(seed, dev),
         tick=torch.zeros((), dtype=i32, device=dev),
+        aoi_cache=(init_verlet_cache(cfg.grid, n, dev)
+                   if cfg.grid.skin > 0.0 and n < (1 << _ID_BITS)
+                   else None),
     )
 
 

@@ -23,7 +23,12 @@ from goworld_tpu_torch.core.state import (
 )
 from goworld_tpu_torch.models.random_walk import random_walk_step
 from goworld_tpu_torch.ops import prng
-from goworld_tpu_torch.ops.aoi import ROADMAP_HINT, grid_neighbors_flags
+from goworld_tpu_torch.ops.aoi import (
+    ROADMAP_HINT,
+    grid_neighbors_flags,
+    grid_neighbors_verlet,
+    quantize_positions,
+)
 from goworld_tpu_torch.ops.delta import interest_pairs
 from goworld_tpu_torch.ops.integrate import apply_pos_inputs, integrate
 from goworld_tpu_torch.ops.sync import collect_attr_deltas, collect_sync
@@ -33,7 +38,7 @@ from goworld_tpu_torch.ops.sync import collect_attr_deltas, collect_sync
 class TickInputs:
     """Per-tick host->device batch of client position syncs."""
 
-    pos_sync_idx: torch.Tensor   # i32[IC] target slots (unique)
+    pos_sync_idx: torch.Tensor   # i32[IC] target slots (last record wins)
     pos_sync_vals: torch.Tensor  # f32[IC, 4] x, y, z, yaw
     pos_sync_n: torch.Tensor     # i32 0-d
 
@@ -75,7 +80,9 @@ class TickOutputs:
     aoi_over_k_rows: torch.Tensor
     aoi_cell_max: torch.Tensor
     aoi_over_cap_cells: torch.Tensor
-    # Verlet skin telemetry: 1 and 0.0 every tick while no skin runs
+    # Verlet skin telemetry: aoi_rebuilt i32 0/1 (1 every tick without a
+    # skin: the whole sweep ran); aoi_skin_slack f32 skin/2 minus the max
+    # displacement since the last rebuild (0.0 without a skin)
     aoi_rebuilt: torch.Tensor
     aoi_skin_slack: torch.Tensor
 
@@ -99,6 +106,14 @@ def tick_body(cfg: WorldConfig, state: SpaceState, inputs: TickInputs,
     if state.pos.dim() != 2:
         raise NotImplementedError(f"n_spaces > 1 {ROADMAP_HINT}")
     n = cfg.capacity
+    # precision=q16: positions integrate in float32, but everything AOI
+    # sees (the sweep, the Verlet cache, sync records) is the snapped
+    # lattice view, and the carried velocity lane is bfloat16 (read
+    # promoted here, stored rounded to nearest even below)
+    prec = cfg.grid.precision != "off"
+    vel_dtype = state.vel.dtype
+    if prec:
+        state = state.replace(vel=state.vel.to(torch.float32))
 
     # 1. client inputs (scatter)
     pos, yaw, touched = apply_pos_inputs(
@@ -114,17 +129,37 @@ def tick_body(cfg: WorldConfig, state: SpaceState, inputs: TickInputs,
     # 3. integrate + world clamp
     pos, moved = integrate(pos, vel, state.npc_moving, cfg.dt,
                            cfg.bounds_min, cfg.bounds_max)
+    if prec:
+        # "moved" on the lattice: motion under a lattice step is clean
+        apos = quantize_positions(cfg.grid, pos)
+        aprev = quantize_positions(cfg.grid, state.pos)
+        moved = (apos != aprev).any(dim=1)
+    else:
+        apos = pos
     # state.dirty carries host-set pending force-syncs (spawn), consumed
     # here and cleared below
     dirty = (moved | touched | state.dirty) & state.alive
 
-    # 4. AOI sweep; the dirty and has_client bits ride the packed words
+    # 4. AOI sweep; the dirty and has_client bits ride the packed words.
+    # With a skin, the carried cache is reused while it holds
     flag_bits = dirty.to(torch.int32) \
         | (state.has_client.to(torch.int32) << 1)
-    nbr, nbr_cnt, nbr_fl, aoi_stats = grid_neighbors_flags(
-        cfg.grid, pos, state.alive, watch_radius=state.aoi_radius,
-        flag_bits=flag_bits, with_stats=True,
-    )
+    dev = pos.device
+    if cfg.grid.skin > 0.0 and state.aoi_cache is not None:
+        (nbr, nbr_cnt, nbr_fl, aoi_stats, aoi_cache, aoi_rebuilt,
+         aoi_slack) = grid_neighbors_verlet(
+            cfg.grid, apos, state.alive, state.aoi_cache,
+            watch_radius=state.aoi_radius, flag_bits=flag_bits,
+            with_stats=True,
+        )
+    else:
+        nbr, nbr_cnt, nbr_fl, aoi_stats = grid_neighbors_flags(
+            cfg.grid, apos, state.alive, watch_radius=state.aoi_radius,
+            flag_bits=flag_bits, with_stats=True,
+        )
+        aoi_cache = state.aoi_cache
+        aoi_rebuilt = torch.ones((), dtype=torch.int32, device=dev)
+        aoi_slack = torch.zeros((), dtype=torch.float32, device=dev)
 
     # 5. interest deltas -> bounded enter/leave pair lists
     (enter_w, enter_j, enter_n, leave_w, leave_j, leave_n,
@@ -133,9 +168,10 @@ def tick_body(cfg: WorldConfig, state: SpaceState, inputs: TickInputs,
         min(cfg.delta_rows_cap_eff, n), adaptive=cfg.adaptive_extract,
     )
 
-    # 6. position sync records, then hot-attr deltas
+    # 6. position sync records (the snapped positions under q16), then
+    # hot-attr deltas
     sync_w, sync_j, sync_vals, sync_n = collect_sync(
-        nbr, dirty, state.has_client, pos, yaw, cfg.sync_cap,
+        nbr, dirty, state.has_client, apos, yaw, cfg.sync_cap,
         nbr_dirty=(nbr_fl & 1).bool(), adaptive=cfg.adaptive_extract,
     )
     attr_e, attr_i, attr_v, attr_n = collect_attr_deltas(
@@ -143,11 +179,10 @@ def tick_body(cfg: WorldConfig, state: SpaceState, inputs: TickInputs,
         adaptive=cfg.adaptive_extract,
     )
 
-    dev = pos.device
     new_state = state.replace(
         pos=pos,
         yaw=yaw,
-        vel=vel,
+        vel=vel.to(vel_dtype),
         nbr=nbr,
         nbr_cnt=nbr_cnt,
         nbr_client_cnt=((nbr_fl >> 1) & 1).sum(dim=1, dtype=torch.int32),
@@ -155,6 +190,7 @@ def tick_body(cfg: WorldConfig, state: SpaceState, inputs: TickInputs,
         attr_dirty=torch.zeros_like(state.attr_dirty),
         rng=rng,
         tick=state.tick + 1,
+        aoi_cache=aoi_cache,
     )
     outputs = TickOutputs(
         enter_w=enter_w, enter_j=enter_j, enter_n=enter_n,
@@ -165,8 +201,7 @@ def tick_body(cfg: WorldConfig, state: SpaceState, inputs: TickInputs,
         alive_count=state.alive.sum(dtype=torch.int32),
         aoi_demand_max=aoi_stats[0], aoi_over_k_rows=aoi_stats[1],
         aoi_cell_max=aoi_stats[2], aoi_over_cap_cells=aoi_stats[3],
-        aoi_rebuilt=torch.ones((), dtype=torch.int32, device=dev),
-        aoi_skin_slack=torch.zeros((), dtype=torch.float32, device=dev),
+        aoi_rebuilt=aoi_rebuilt, aoi_skin_slack=aoi_slack,
     )
     return new_state, outputs
 

@@ -43,6 +43,11 @@
 //    sort(keys)[:k] exactly. The demand gauge is the sum of the ballots'
 //    popcounts, the count of valid candidates the plain version sums.
 //
+// 4. A device gate (the Verlet rebuild decision, computed on the card):
+//    every block reads it first and leaves when it is 0, so a tick that
+//    reuses its candidate cache pays one empty launch and the outputs
+//    keep what the last open launch wrote. A null gate always runs.
+//
 // Exactness traps kept here: the slot words come in as an int32 array
 // (as float bit patterns they would be subnormal and a flush-to-zero
 // float op would zero them), the key scale arrives as the float32 the
@@ -77,8 +82,10 @@ sweep_fused_kernel(const float* __restrict__ spx,
                    const int* __restrict__ hi,
                    const float* __restrict__ pos,
                    const float* __restrict__ reach, int q, int k, int cc,
-                   int sentinel, KeyCode code, int* __restrict__ top,
+                   int sentinel, KeyCode code,
+                   const int* __restrict__ gate, int* __restrict__ top,
                    int* __restrict__ dem) {
+  if (gate != nullptr && *gate == 0) return;  // the whole block leaves
   __shared__ int packed[kWarps][32];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -209,14 +216,14 @@ sweep_fused_kernel(const float* __restrict__ spx,
 template <int PER>
 void launch(const float* s_xz, const int* s_w, int s_len, const int* lo,
             const int* hi, const float* pos, const float* reach, int q,
-            int k, int cc, int sentinel, KeyCode code, int* top, int* dem,
-            cudaStream_t stream) {
+            int k, int cc, int sentinel, KeyCode code, const int* gate,
+            int* top, int* dem, cudaStream_t stream) {
   const int n_items = s_len - 3 * cc;
   const int per_block = kWarps * kItemsPerWarp;
   const int blocks = (n_items + per_block - 1) / per_block;
   sweep_fused_kernel<PER><<<blocks, kThreads, 0, stream>>>(
       s_xz, s_xz + s_len, s_w, n_items, lo, hi, pos, reach, q, k, cc,
-      sentinel, code, top, dem);
+      sentinel, code, gate, top, dem);
 }
 
 }  // namespace
@@ -227,15 +234,16 @@ extern "C" {
 // end); s_w: i32 [s_len] packed slot words, whose first s_len - 3*cc
 // ids (word >> id_shift) are a permutation of the rows; lo, hi: i32
 // [q, 3] run bounds; pos: f32 [>= q, 3]; reach: f32 [>= q]; top: i32
-// [q, k] out; dem: i32 [q] out, or null to skip the demand gauge.
-// Returns the CUDA error code of the launch (cudaErrorInvalidValue when
+// [q, k] out; dem: i32 [q] out, or null to skip the demand gauge;
+// gate: i32 on the card, or null: when it reads 0 the launch writes
+// nothing. Returns the CUDA error code of the launch (cudaErrorInvalidValue when
 // 9*cc > 256).
 int gw_sweep_fused(const float* s_xz, const int* s_w, int s_len,
                    const int* lo, const int* hi, const float* pos,
                    const float* reach, int q, int k, int cc, int sentinel,
                    int id_shift, int qd_shift, int qd_cap, int qd_bias,
-                   float scale, int invalid_key, int* top, int* dem,
-                   void* stream) {
+                   float scale, int invalid_key, const int* gate,
+                   int* top, int* dem, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const KeyCode code{id_shift, qd_shift, qd_cap, qd_bias, scale,
                      invalid_key};
@@ -244,7 +252,7 @@ int gw_sweep_fused(const float* s_xz, const int* s_w, int s_len,
 #define GW_SWEEP_CASE(P)                                                  \
   case P:                                                                 \
     launch<P>(s_xz, s_w, s_len, lo, hi, pos, reach, q, k, cc, sentinel,   \
-              code, top, dem, s);                                         \
+              code, gate, top, dem, s);                                   \
     break;
   switch (per) {
     GW_SWEEP_CASE(1)

@@ -53,6 +53,7 @@ import torch
 from goworld_tpu_torch.core.state import (
     SpaceState,
     WorldConfig,
+    map_lane,
     resolve_device,
 )
 from goworld_tpu_torch.core.step import TickInputs, TickOutputs, make_tick
@@ -98,8 +99,7 @@ def _type_aoi_radius(desc) -> float:
 def _lanes_of(obj, fn):
     """A dataclass of tensor lanes with ``fn`` applied to every lane."""
     return type(obj)(**{
-        f.name: None if getattr(obj, f.name) is None
-        else fn(getattr(obj, f.name))
+        f.name: map_lane(getattr(obj, f.name), fn)
         for f in dataclasses.fields(obj)
     })
 

@@ -1,11 +1,18 @@
 """Carry a Space across between the JAX package and this port.
 
 The JAX package's ``SpaceState`` and ``TickInputs`` lanes, as numpy
-arrays keyed by lane name, become this port's tensors, and back. Two
+arrays keyed by lane name, become this port's tensors, and back. Some
 lanes change representation on the way:
 
 * ``attr_dirty``: JAX uint32, here the same bits in int32 (``.view``);
-* ``rng``: the JAX uint32[2] key, here int64[2] holding the two words.
+* ``rng``: the JAX uint32[2] key, here int64[2] holding the two words;
+* ``vel`` under precision=q16: bfloat16 on both sides, carried through
+  its 16-bit pattern (numpy's ``bfloat16`` is ``ml_dtypes``', imported
+  only to hand such a lane back);
+* ``aoi_cache`` (the Verlet cache, a dict of numpy lanes keyed by the
+  ``VerletCache`` field names, or the JAX cache itself): its ``cand``
+  words under precision=q16 are JAX uint32, here int32 bits. A state
+  whose ``vel`` lane is bfloat16 is a q16 state.
 
 Random walk has no learned weights, so this converter is all that
 carries a world across.
@@ -25,17 +32,36 @@ import numpy as np
 import torch
 
 from goworld_tpu_torch.core.state import SpaceState, resolve_device
+from goworld_tpu_torch.ops.aoi import VerletCache
 from goworld_tpu_torch.core.step import TickInputs, TickOutputs
 from goworld_tpu_torch.parallel.megaspace import MegaTickOutputs
 from goworld_tpu_torch.parallel.step import MultiTickInputs
 
-_ABSENT_OK = ("aoi_cache", "behavior_id")
+_ABSENT_OK = ("behavior_id",)
+
+
+def _tensor(a: np.ndarray, dev) -> torch.Tensor:
+    if a.dtype.name == "bfloat16":
+        return torch.tensor(a.view(np.int16), device=dev) \
+            .view(torch.bfloat16)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.tensor(a, device=dev)
+
+
+def _cache_from(cache, dev) -> VerletCache | None:
+    if cache is None:
+        return None
+    get = cache.get if isinstance(cache, dict) \
+        else lambda name: getattr(cache, name)
+    return VerletCache(**{f.name: _tensor(np.asarray(get(f.name)), dev)
+                          for f in dataclasses.fields(VerletCache)})
 
 
 def state_from_numpy(arrays: dict, device="cuda") -> SpaceState:
     """A ``SpaceState`` on ``device`` from numpy lanes keyed by name.
-    The JAX-only lanes ``aoi_cache`` and ``behavior_id`` must be absent
-    or None (their configs are not ported)."""
+    The JAX-only lane ``behavior_id`` must be absent or None (scenario
+    worlds are not ported)."""
     dev = resolve_device(device)
     for name in _ABSENT_OK:
         if arrays.get(name) is not None:
@@ -43,21 +69,43 @@ def state_from_numpy(arrays: dict, device="cuda") -> SpaceState:
                 f"lane {name!r} is not ported (see ROADMAP.md Queue A)")
     lanes = {}
     for f in dataclasses.fields(SpaceState):
+        if f.name == "aoi_cache":
+            lanes[f.name] = _cache_from(arrays.get(f.name), dev)
+            continue
         a = np.asarray(arrays[f.name])
         if f.name == "attr_dirty":
             a = a.astype(np.uint32).view(np.int32)
         elif f.name == "rng":
             a = a.astype(np.uint32).astype(np.int64)
-        lanes[f.name] = torch.tensor(a, device=dev)
+        lanes[f.name] = _tensor(a, dev)
     return SpaceState(**lanes)
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.int16).cpu().numpy().view(ml_dtypes.bfloat16)
+    return t.cpu().numpy()
 
 
 def state_to_numpy(state: SpaceState) -> dict:
     """The lanes of ``state`` as numpy arrays in the JAX package's
-    types."""
+    types; ``aoi_cache`` as a dict of numpy lanes (left out when the
+    state has none)."""
     out = {}
+    q16 = state.vel.dtype == torch.bfloat16
     for f in dataclasses.fields(SpaceState):
-        a = getattr(state, f.name).detach().cpu().numpy()
+        v = getattr(state, f.name)
+        if f.name == "aoi_cache":
+            if v is not None:
+                cache = {c.name: _numpy(getattr(v, c.name))
+                         for c in dataclasses.fields(VerletCache)}
+                if q16:
+                    cache["cand"] = cache["cand"].view(np.uint32)
+                out[f.name] = cache
+            continue
+        a = _numpy(v)
         if f.name == "attr_dirty":
             a = a.view(np.uint32)
         elif f.name == "rng":

@@ -110,7 +110,7 @@ _L, _U = ctypes.c_longlong, ctypes.c_ulonglong
 # (argument types, result type) of each C entry point
 SIGNATURES = {
     "gw_sweep_fused": ([_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                        _I, _I, ctypes.c_float, _I, _P, _P, _P], _I),
+                        _I, _I, ctypes.c_float, _I, _P, _P, _P, _P], _I),
     "gw_counting_sort_scratch_len": ([_I, _I, _I], ctypes.c_longlong),
     "gw_counting_sort": ([_P, _I, _I, _I, _P, ctypes.c_longlong, _P, _P, _P],
                          _I),

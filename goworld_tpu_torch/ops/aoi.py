@@ -23,6 +23,15 @@ one config means the same on both sides).
 Slot words (``(id << 2) | flags``) stay an int32 tensor beside the float
 coordinates: as float32 bit patterns every one of them is subnormal, and
 a float op under flush-to-zero would zero the ids.
+
+``precision="q16"`` sweeps positions snapped onto a power-of-two
+lattice (:func:`quantize_positions`); the ``ranges`` back half then
+streams one packed ``(qx << 16) | qz`` int32 a candidate, with the same
+results. ``skin > 0`` adds Verlet reuse (:func:`grid_neighbors_verlet`):
+a candidate cache rebuilt by a padded sweep when entities have moved
+more than ``skin/2``, and re-ranked at the current positions every
+tick. The JAX package's uint32 words (the packed id cache) are held
+here as the same bits in int32.
 """
 
 from __future__ import annotations
@@ -58,6 +67,87 @@ def _log2_ceil(x: float) -> int:
     rounding)."""
     m, e = math.frexp(x)
     return e - 1 if m == 0.5 else e
+
+
+# precision=q16 lattice quantizer: one for the sweep, the Verlet re-rank
+# and the tick's snap, so the domains never disagree
+def _lattice(spec: "GridSpec", pos: torch.Tensor):
+    """(qx, qz): x and z in lattice steps, floored and clamped to
+    [0, 2^15 - 1], as float32 (exact: a multiply by a power of two)."""
+    hi = float((1 << consts.PRECISION_POS_BITS) - 1)
+    inv = 1.0 / spec.quant_step
+    return tuple(torch.clamp(torch.floor(pos[:, c] * inv), 0.0, hi)
+                 for c in (0, 2))
+
+
+def quantize_positions(spec: "GridSpec", pos: torch.Tensor) -> torch.Tensor:
+    """Snap x and z onto the precision lattice (float32 values on the
+    lattice; y passes through). Identity when precision is off,
+    idempotent otherwise."""
+    if spec.precision == "off":
+        return pos
+    qx, qz = _lattice(spec, pos)
+    step = spec.quant_step
+    return torch.stack([qx * step, pos[:, 1], qz * step], dim=1)
+
+
+def quantize_xz_i32(spec: "GridSpec", pos: torch.Tensor) -> torch.Tensor:
+    """The packed lattice plane: ``(qx << 16) | qz``, one nonnegative
+    int32 an entity (qx, qz < 2^15)."""
+    qx, qz = _lattice(spec, pos)
+    return (qx.to(torch.int32) << 16) | qz.to(torch.int32)
+
+
+def _q16_dist(spec: "GridSpec", qxz_a, qxz_b) -> torch.Tensor:
+    """Chebyshev distance between packed lattice coordinates as the
+    exact float32 ``int_diff * quant_step``: bit for bit
+    ``max(|ax-bx|, |az-bz|)`` over the snapped float32 positions."""
+    dq = torch.maximum(((qxz_a >> 16) - (qxz_b >> 16)).abs(),
+                       ((qxz_a & 0xFFFF) - (qxz_b & 0xFFFF)).abs())
+    return dq.to(torch.float32) * spec.quant_step
+
+
+# 21-bit id triplets: the Verlet cache's cand plane under q16 holds 3
+# ids of <= 21 bits in 2 words (the JAX package's uint32 words, here
+# their int32 bit patterns)
+_ID21_MASK = (1 << 21) - 1
+
+
+def packed_cand_words(v: int) -> int:
+    """Words a row of a packed V-lane candidate cache."""
+    return 2 * ((v + 2) // 3)
+
+
+def pack_ids21(ids: torch.Tensor, pad_value: int) -> torch.Tensor:
+    """int32 ids [..., V] (each < 2^21) to [..., 2*ceil(V/3)] packed
+    words, pad lanes filled with ``pad_value``. Word 0 of a triplet is
+    ``a | (b << 21)`` (its top bit, bit 10 of b, is the int32 sign bit),
+    word 1 ``(b >> 11) | (c << 10)``."""
+    *lead, v = ids.shape
+    pad = (-v) % 3
+    if pad:
+        ids = torch.cat([ids, torch.full((*lead, pad), pad_value,
+                                         dtype=ids.dtype,
+                                         device=ids.device)], dim=-1)
+    t = ids.to(torch.int32).reshape(*lead, -1, 3)
+    a, b, c = t[..., 0], t[..., 1], t[..., 2]
+    w0 = a | ((b & 0x3FF) << 21) \
+        | torch.where((b & 0x400) != 0, -(1 << 31), 0).to(torch.int32)
+    w1 = (b >> 11) | (c << 10)
+    return torch.stack([w0, w1], dim=-1).reshape(*lead, -1)
+
+
+def unpack_ids21(words: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_ids21`; the pad lanes stay (they carry the
+    sentinel and rank as invalid). Every right shift of an int32 word
+    is masked, since ``>>`` sign-extends."""
+    *lead, _w = words.shape
+    t = words.reshape(*lead, -1, 2)
+    w0, w1 = t[..., 0], t[..., 1]
+    a = w0 & _ID21_MASK
+    b = ((w0 >> 21) & 0x7FF) | ((w1 & 0x3FF) << 11)
+    c = (w1 >> 10) & _ID21_MASK
+    return torch.stack([a, b, c], dim=-1).reshape(*lead, -1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -201,10 +291,6 @@ class GridSpec:
 def check_ported(spec: GridSpec) -> None:
     """Raise ``NotImplementedError`` for a knob value this port does not
     run yet. It never substitutes another path."""
-    if spec.skin > 0.0:
-        raise NotImplementedError(f"Verlet skin (skin > 0) {ROADMAP_HINT}")
-    if spec.precision != "off":
-        raise NotImplementedError(f"precision='q16' {ROADMAP_HINT}")
     if spec.sweep_impl not in ("ranges", "fused"):
         raise NotImplementedError(
             f"sweep_impl={spec.sweep_impl!r} {ROADMAP_HINT}")
@@ -325,20 +411,29 @@ def _pack_keys(dist, valid, cand_w, code):
     return torch.where(valid, (qd << qd_shift) | cand_w, invalid)
 
 
-def _window_keys(s_xz, s_w, lo, hi, pos, reach, rows, cc, sentinel, code):
+def _window_keys(s_xz, s_w, lo, hi, pos, reach, rows, cc, sentinel, code,
+                 q16=None):
     """Packed keys int32[B, 9cc] and validity of the candidates of query
     ``rows``: the three runs of each query, lanes past a run's end
-    masked (they may hold entities of other cells)."""
+    masked (they may hold entities of other cells). ``q16`` is
+    ``(spec, sorted packed lattice view, lattice plane)`` under
+    precision=q16: distances then come from the packed words, exactly
+    (only the slot word of a lane past a run's end is masked; its
+    validity never reads coordinates)."""
     b = rows.shape[0]
     lanes3 = torch.arange(3 * cc, device=lo.device)
     idx = (lo[:, :, None].long() + lanes3).reshape(b, 9 * cc)
     in_range = (lanes3[None, None, :] < (hi - lo)[:, :, None]) \
         .reshape(b, 9 * cc)
-    cand_px = torch.where(in_range, s_xz[0][idx], math.inf)
-    cand_pz = s_xz[1][idx]
     cand_w = torch.where(in_range, s_w[idx], sentinel << code[0])
-    dist = torch.maximum((cand_px - pos[rows, 0][:, None]).abs(),
-                         (cand_pz - pos[rows, 2][:, None]).abs())
+    if q16 is not None:
+        spec, s_q, qxz = q16
+        dist = _q16_dist(spec, s_q[idx], qxz[rows][:, None])
+    else:
+        cand_px = torch.where(in_range, s_xz[0][idx], math.inf)
+        cand_pz = s_xz[1][idx]
+        dist = torch.maximum((cand_px - pos[rows, 0][:, None]).abs(),
+                             (cand_pz - pos[rows, 2][:, None]).abs())
     cand_id = cand_w >> code[0]
     valid = ((cand_id != sentinel) & (dist <= reach[rows][:, None])
              & (cand_id != rows[:, None]))
@@ -394,9 +489,12 @@ def _blocks(q: int, row_block: int, dev):
 
 
 def sweep_fused_plain(s_xz, s_w, lo, hi, pos, reach, k, cc, code,
-                      with_stats, row_block=consts.DEFAULT_ROW_BLOCK):
+                      with_stats, row_block=consts.DEFAULT_ROW_BLOCK,
+                      gate=None, out=None):
     """Plain version of :func:`sweep_fused_cuda`: the ``ranges`` back
-    half, block by block, keeping the k smallest keys of each row."""
+    half, block by block, keeping the k smallest keys of each row.
+    Under a gate it computes the result and writes it into ``out`` where
+    the gate is nonzero (``torch.where``), the kernel's dataflow."""
     q = lo.shape[0]
     sentinel = pos.shape[0]
     invalid = code[-1]
@@ -409,11 +507,18 @@ def sweep_fused_plain(s_xz, s_w, lo, hi, pos, reach, k, cc, code,
     top = torch.cat(tops) if tops else lo.new_zeros((0, k))
     dem = (torch.cat(dems) if dems else lo.new_zeros(0)) \
         if with_stats else None
-    return top, dem
+    if gate is None:
+        return top, dem
+    run = gate != 0
+    out[0].copy_(torch.where(run, top, out[0]))
+    if with_stats:
+        out[1].copy_(torch.where(run, dem, out[1]))
+    return out[0], out[1] if with_stats else None
 
 
 def sweep_fused_cuda(s_xz, s_w, lo, hi, pos, reach, k, cc, code,
-                     with_stats, row_block=consts.DEFAULT_ROW_BLOCK):
+                     with_stats, row_block=consts.DEFAULT_ROW_BLOCK,
+                     gate=None, out=None):
     """The fused back half (window gather, key pack, top-k) as the CUDA
     kernel of ``csrc/aoi_fused.cu`` for tensors on the card; the plain
     version :func:`sweep_fused_plain` for tensors on the CPU.
@@ -432,6 +537,14 @@ def sweep_fused_cuda(s_xz, s_w, lo, hi, pos, reach, k, cc, code,
       code: the key encoding from ``_key_code``.
       with_stats: also return the demand vector i32[Q].
       row_block: rows per block of the plain version only.
+      gate: None, or an i32 0-d tensor on the same device: the call
+        then writes ``out`` only where the gate is nonzero. On the card
+        every block reads the gate first and leaves at once when it is
+        0, so a closed gate costs one empty launch and leaves ``out``
+        as it was, byte for byte.
+      out: with a gate, ``(top i32[Q, k], dem i32[Q] or None)``, the
+        buffers written in place. They are read after the call either
+        way, so they must hold valid values (never ``torch.empty``).
 
     Returns (top i32[Q, k] ascending ranked keys, dem i32[Q] or None).
     """
@@ -444,15 +557,22 @@ def sweep_fused_cuda(s_xz, s_w, lo, hi, pos, reach, k, cc, code,
     kernels.require(hi, "hi", torch.int32, (q, 3))
     kernels.require(pos, "pos", torch.float32, (n, 3))
     kernels.require(reach, "reach", torch.float32, (n,))
+    if gate is not None:
+        kernels.require(gate, "gate", torch.int32, ())
+        kernels.require(out[0], "out top", torch.int32, (q, k))
+        if with_stats:
+            kernels.require(out[1], "out dem", torch.int32, (q,))
     if not 0 < q <= n < (1 << _ID_BITS):
         raise ValueError(f"need 0 < Q <= n < 2^{_ID_BITS}, got {q}, {n}")
-    devs = {t.device for t in (s_xz, s_w, lo, hi, pos, reach)}
+    ins = (s_xz, s_w, lo, hi, pos, reach) + (
+        () if gate is None else (gate, *out[:1 + with_stats]))
+    devs = {t.device for t in ins}
     if len(devs) != 1:
         raise ValueError(f"inputs on several devices: {devs}")
     dev = devs.pop()
     if dev.type == "cpu":
         return sweep_fused_plain(s_xz, s_w, lo, hi, pos, reach, k, cc,
-                                 code, with_stats, row_block)
+                                 code, with_stats, row_block, gate, out)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     if not (1 <= cc and 9 * cc <= 256):
@@ -461,13 +581,17 @@ def sweep_fused_cuda(s_xz, s_w, lo, hi, pos, reach, k, cc, code,
     if k < 1:
         raise ValueError(f"k must be >= 1, got {k}")
     id_shift, qd_shift, qd_cap, qd_bias, scale, invalid = code
-    top = torch.empty((q, k), dtype=torch.int32, device=dev)
-    dem = torch.empty(q, dtype=torch.int32, device=dev) \
-        if with_stats else None
+    if gate is None:
+        top = torch.empty((q, k), dtype=torch.int32, device=dev)
+        dem = torch.empty(q, dtype=torch.int32, device=dev) \
+            if with_stats else None
+    else:
+        top, dem = out[0], out[1] if with_stats else None
     err = kernels.lib().gw_sweep_fused(
         s_xz.data_ptr(), s_w.data_ptr(), s_len, lo.data_ptr(),
         hi.data_ptr(), pos.data_ptr(), reach.data_ptr(), q, k, cc, n,
         id_shift, qd_shift, qd_cap, qd_bias, float(scale), invalid,
+        None if gate is None else gate.data_ptr(),
         top.data_ptr(), dem.data_ptr() if with_stats else None,
         kernels.stream_handle(dev))
     kernels.check(err, "sweep_fused_cuda")
@@ -489,20 +613,26 @@ class FrontHalf(NamedTuple):
 
     srow: torch.Tensor      # i32[N] padded cell row (n_rows = excluded)
     n_rows: int
-    s_xz: torch.Tensor      # f32[2, N + 3cc] sorted x, z
+    s_xz: torch.Tensor | None  # f32[2, N + 3cc] sorted x, z (None: s_q)
     s_w: torch.Tensor       # i32[N + 3cc] sorted packed slot words
     lo: torch.Tensor        # i32[Q, 3] run starts
     hi: torch.Tensor        # i32[Q, 3] run ends
     reach: torch.Tensor     # f32[N] per-watcher reach
     code: tuple             # key encoding (_key_code)
     cell_stats: tuple | None  # (cell_max, over_cap_cells) under stats
+    # q16 ``ranges`` only: the sorted packed lattice view i32[N + 3cc]
+    # (0 on the pad lanes) and the lattice plane i32[N]
+    s_q: torch.Tensor | None = None
+    qxz: torch.Tensor | None = None
 
 
 def front_half(spec: GridSpec, pos, alive, query_rows, watch_radius,
                flag_bits, with_stats=False,
                reach_pad: float = 0.0) -> FrontHalf:
     """Cell rows, the cell sort and the sorted view with each query's
-    runs: everything the back half reads."""
+    runs: everything the back half reads. ``pos`` is already snapped
+    under precision=q16 (:func:`_sweep` snaps it); the ``ranges`` back
+    half then reads the packed lattice view in place of x and z."""
     check_ported(spec)
     n = pos.shape[0]
     if n >= (1 << _ID_BITS):
@@ -519,6 +649,12 @@ def front_half(spec: GridSpec, pos, alive, query_rows, watch_radius,
     px, pz, word, table_sentinel = _sorted_src(pos, flag_bits, order)
     row_start, s_xz, s_w = _build_ranges(cc, n_rows, srow, px, pz, word,
                                          table_sentinel)
+    s_q = qxz = None
+    if spec.precision != "off" and spec.sweep_impl == "ranges":
+        qxz = quantize_xz_i32(spec, pos)
+        s_q = torch.cat([qxz[order.long()],
+                         torch.zeros(3 * cc, dtype=torch.int32, device=dev)])
+        s_xz = None
     lo, hi = _query_runs(cx[:q], cz[:q], alive[:q], row_start, czp)
     if watch_radius is None:
         reach = torch.full((n,), spec.radius + reach_pad,
@@ -529,25 +665,38 @@ def front_half(spec: GridSpec, pos, alive, query_rows, watch_radius,
             + _f32(reach_pad, dev)
     code = _key_code(spec, flag_bits is not None, spec.radius + reach_pad)
     return FrontHalf(srow, n_rows, s_xz, s_w, lo, hi, reach, code,
-                     cell_stats)
+                     cell_stats, s_q, qxz)
 
 
 def _sweep(spec: GridSpec, pos, alive, query_rows, watch_radius,
-           flag_bits, with_stats=False, reach_pad: float = 0.0):
+           flag_bits, with_stats=False, reach_pad: float = 0.0,
+           gate=None):
+    """The whole sweep: (nbr, cnt, flags-or-None, stats-or-None). Every
+    impl sweeps the snapped world under precision=q16. ``gate`` (an i32
+    0-d tensor) gates the fused kernel into buffers made for the call
+    and filled with the invalid key and 0: a closed gate returns empty
+    lists, which a caller that selects with the gate discards."""
+    pos = quantize_positions(spec, pos)
     fh = front_half(spec, pos, alive, query_rows, watch_radius, flag_bits,
                     with_stats, reach_pad)
     k, cc = spec.k, spec.cell_cap
     sentinel = pos.shape[0]
     if spec.sweep_impl == "fused":
+        q = fh.lo.shape[0]
+        out = None if gate is None else (
+            torch.full((q, k), fh.code[-1], dtype=torch.int32,
+                       device=pos.device),
+            torch.zeros(q, dtype=torch.int32, device=pos.device))
         top, dem = sweep_fused_cuda(fh.s_xz, fh.s_w, fh.lo, fh.hi, pos,
                                     fh.reach, k, cc, fh.code, with_stats,
-                                    spec.row_block)
+                                    spec.row_block, gate, out)
     else:
+        q16 = None if fh.s_q is None else (spec, fh.s_q, fh.qxz)
         tops, dems = [], []
         for rows in _blocks(fh.lo.shape[0], spec.row_block, pos.device):
             keys, valid = _window_keys(fh.s_xz, fh.s_w, fh.lo[rows],
                                        fh.hi[rows], pos, fh.reach, rows,
-                                       cc, sentinel, fh.code)
+                                       cc, sentinel, fh.code, q16)
             tops.append(_rank_packed(keys, k, spec.topk_impl))
             dems.append(valid.sum(1, dtype=torch.int32))
         top = torch.cat(tops)
@@ -596,6 +745,192 @@ def grid_neighbors_flags(spec: GridSpec, pos, alive, query_rows=None,
     if with_stats:
         return nbr, cnt, fl, stats
     return nbr, cnt, fl
+
+
+# ------------------------------------------------------------------
+# Verlet skin reuse (GridSpec.skin > 0)
+# ------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class VerletCache:
+    """The carried AOI candidate cache of one Space, the JAX package's
+    ``VerletCache`` lane for lane.
+
+    ``cand`` holds, per entity, every candidate within ``min(watch
+    radius, radius) + skin`` at the last rebuild (ascending ids,
+    sentinel N). While no entity has moved more than ``skin/2`` since,
+    it is a superset of every true neighbourhood, so ranking it at the
+    current positions gives what a full sweep gives."""
+
+    cand: torch.Tensor        # i32[N, V] ids; q16: i32[N, 2*ceil(V/3)] packed
+    ref_x: torch.Tensor       # f32[N] x at the last rebuild
+    ref_z: torch.Tensor       # f32[N] z at the last rebuild
+    ref_alive: torch.Tensor   # bool[N] alive set at the last rebuild
+    ref_radius: torch.Tensor  # f32[N] watch radii at the last rebuild
+    age: torch.Tensor         # i32 0-d: ticks since the rebuild
+    valid: torch.Tensor       # bool 0-d: False until the first rebuild
+    cell_max: torch.Tensor        # i32 0-d: max cell occupancy at rebuild
+    over_cap_cells: torch.Tensor  # i32 0-d: cells past cell_cap at rebuild
+    over_v_rows: torch.Tensor     # i32 0-d: rows past verlet_cap at rebuild
+
+    def replace(self, **changes) -> "VerletCache":
+        return dataclasses.replace(self, **changes)
+
+    def apply(self, fn) -> "VerletCache":
+        """The cache with ``fn`` applied to every lane."""
+        return VerletCache(**{f.name: fn(getattr(self, f.name))
+                              for f in dataclasses.fields(self)})
+
+
+def init_verlet_cache(spec: GridSpec, n: int, device) -> VerletCache:
+    """An empty (invalid) cache on ``device``: the first tick rebuilds.
+    Under precision=q16 the cand plane is packed in 21-bit triplets."""
+    v = spec.verlet_cap_eff
+    i32, f32 = torch.int32, torch.float32
+    cand = torch.full((n, v), n, dtype=i32, device=device)
+    if spec.precision != "off":
+        cand = pack_ids21(cand, n)
+
+    def zi():
+        return torch.zeros((), dtype=i32, device=device)
+
+    return VerletCache(
+        cand=cand,
+        ref_x=torch.zeros(n, dtype=f32, device=device),
+        ref_z=torch.zeros(n, dtype=f32, device=device),
+        ref_alive=torch.zeros(n, dtype=torch.bool, device=device),
+        ref_radius=torch.zeros(n, dtype=f32, device=device),
+        age=zi(),
+        valid=torch.zeros((), dtype=torch.bool, device=device),
+        cell_max=zi(),
+        over_cap_cells=zi(),
+        over_v_rows=zi(),
+    )
+
+
+def _rank_candidates(spec: GridSpec, pos, watch_radius, flag_bits, cand,
+                     with_stats: bool):
+    """The back half over cached candidate ids (the reuse re-rank):
+    gather each candidate's current position (and flag bits) by id,
+    test ``dist <= reach`` exactly and rank with the sweep's packed
+    keys. Plain torch ops, as the JAX package's XLA; all rows at once.
+    Returns (nbr, cnt, flags-or-None, demand-or-None)."""
+    n = pos.shape[0]
+    dev = pos.device
+    want_flags = flag_bits is not None
+    q16 = spec.precision != "off"
+    cb = unpack_ids21(cand) if q16 else cand          # [N, >= V]
+    cbc = cb.clamp_max(n - 1).long()
+    if q16:
+        qxz = quantize_xz_i32(spec, pos)
+        dist = _q16_dist(spec, qxz[cbc], qxz[:, None])
+    else:
+        px, pz = pos[:, 0], pos[:, 2]
+        dist = torch.maximum((px[cbc] - px[:, None]).abs(),
+                             (pz[cbc] - pz[:, None]).abs())
+    radius = _f32(spec.radius, dev)
+    if watch_radius is None:
+        reach = radius
+    else:
+        reach = torch.clamp_max(watch_radius.to(torch.float32),
+                                radius)[:, None]
+    valid = (cb != n) & (dist <= reach)
+    w = (cb << 2) | (flag_bits[cbc].to(torch.int32) & 3) if want_flags \
+        else cb
+    code = _key_code(spec, want_flags, spec.radius)
+    top = _rank_packed(_pack_keys(dist, valid, w, code), spec.k,
+                       spec.topk_impl)
+    nbr, cnt, fl = _unpack_top(top, code[-1], want_flags, n)
+    dem = valid.sum(1, dtype=torch.int32) if with_stats else None
+    return nbr, cnt, fl, dem
+
+
+def grid_neighbors_verlet(spec: GridSpec, pos, alive, cache: VerletCache,
+                          watch_radius=None, flag_bits=None,
+                          with_stats=False):
+    """:func:`grid_neighbors_flags` with Verlet reuse of the sweep.
+
+    The rebuild decision is a 0-d device tensor, never read by the
+    host::
+
+      need = cache invalid
+          or 2 * (max alive Chebyshev displacement since rebuild) > skin
+          or the alive set changed
+          or an alive watch radius changed
+          or age >= rebuild_every_max (when > 0)
+
+    JAX runs the rebuild under ``lax.cond``; here its launches are
+    issued every tick. The fused kernel reads ``need`` as its gate and
+    does no work on a reuse tick; the front half before it still runs,
+    and every new cache lane is ``torch.where(need, rebuilt, old)``.
+    The rebuild is the sweep at ``k = verlet_cap_eff`` with reach padded
+    by ``skin`` and no flag bits; every tick then ranks the cached
+    candidates at the current positions and flags.
+
+    Returns ``(nbr, cnt, flags-or-None, stats-or-None, cache', rebuilt
+    i32 0-d, skin_slack f32 0-d)``. ``stats`` keeps the sweep's four
+    gauges: ``over_k_rows`` adds the cache's ``over_v_rows``, the cell
+    gauges are the last rebuild's. ``skin_slack`` is ``skin/2`` minus
+    the displacement (``skin/2`` against an invalid cache).
+    """
+    check_ported(spec)
+    n = pos.shape[0]
+    if spec.skin <= 0.0:
+        raise ValueError(
+            "grid_neighbors_verlet requires spec.skin > 0 "
+            f"(got {spec.skin!r}); use grid_neighbors_flags instead")
+    if n >= (1 << _ID_BITS):
+        raise ValueError(
+            f"Verlet reuse needs n < 2^{_ID_BITS}; got n={n}")
+    dev = pos.device
+    pos = quantize_positions(spec, pos)
+    disp = torch.where(
+        alive,
+        torch.maximum((pos[:, 0] - cache.ref_x).abs(),
+                      (pos[:, 2] - cache.ref_z).abs()),
+        0.0).max()
+    need = ~cache.valid | (2.0 * disp > spec.skin) \
+        | (alive != cache.ref_alive).any()
+    if watch_radius is not None:
+        need = need | (alive & (watch_radius != cache.ref_radius)).any()
+    age = cache.age + 1
+    if spec.rebuild_every_max > 0:
+        need = need | (age >= spec.rebuild_every_max)
+    half = _f32(0.5 * spec.skin, dev)
+    slack = torch.where(cache.valid, half - disp, half)
+
+    spec_v = dataclasses.replace(spec, k=spec.verlet_cap_eff)
+    cand, _cnt, _fl, cstats = _sweep(
+        spec_v, pos, alive, None, watch_radius, None, with_stats=True,
+        reach_pad=spec.skin, gate=need.to(torch.int32))
+    if spec.precision != "off":
+        cand = pack_ids21(cand, n)
+
+    def pick(new, old):
+        return torch.where(need, new, old)
+
+    cache = VerletCache(
+        cand=pick(cand, cache.cand),
+        ref_x=pick(pos[:, 0], cache.ref_x),
+        ref_z=pick(pos[:, 2], cache.ref_z),
+        ref_alive=pick(alive, cache.ref_alive),
+        ref_radius=(cache.ref_radius if watch_radius is None
+                    else pick(watch_radius, cache.ref_radius)),
+        age=pick(torch.zeros_like(age), age),
+        valid=cache.valid | need,
+        cell_max=pick(cstats[2], cache.cell_max),
+        over_cap_cells=pick(cstats[3], cache.over_cap_cells),
+        over_v_rows=pick(cstats[1], cache.over_v_rows),
+    )
+    nbr, cnt, fl, dem = _rank_candidates(spec, pos, watch_radius,
+                                         flag_bits, cache.cand, with_stats)
+    stats = None
+    if with_stats:
+        stats = (dem.max().to(torch.int32),
+                 (dem > spec.k).sum(dtype=torch.int32)
+                 + cache.over_v_rows,
+                 cache.cell_max, cache.over_cap_cells)
+    return nbr, cnt, fl, stats, cache, need.to(torch.int32), slack
 
 
 def neighbors_oracle(pos, alive, radius, watch_radius=None):

@@ -3,6 +3,7 @@ of ``goworld_tpu/ops/integrate.py``."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -24,27 +25,42 @@ def apply_pos_inputs(
 
     Returns (pos, yaw, touched bool[N]).
 
-    The valid slots of one batch must be unique. The JAX package's
-    scatter keeps the last of duplicate writes on the CPU, while a CUDA
-    ``index_put_`` writes duplicates in no fixed order; the host batches
-    at most one record per entity per tick.
+    A slot named by several valid records takes the last of them, as
+    the JAX package's scatter does on the CPU. A CUDA ``index_put_``
+    writes duplicate indices in no fixed order, so the last record of
+    each slot is found first (the highest record index, by an ``amax``
+    scatter) and only those records are written: every slot then gets
+    at most one write.
     """
     n = pos.shape[0]
     ic = idx.shape[0]
     dev = pos.device
-    valid = (
-        (torch.arange(ic, dtype=torch.int32, device=dev) < n_inputs)
-        & (idx >= 0) & (idx < n)
-    )
+    rec = torch.arange(ic, dtype=torch.int32, device=dev)
+    valid = (rec < n_inputs) & (idx >= 0) & (idx < n)
     # dropped records land in an extra dump row, sliced off below
     safe = torch.where(valid, idx, n).long()
+    last = torch.full((n + 1,), -1, dtype=torch.int32, device=dev)
+    last.scatter_reduce_(0, safe, torch.where(valid, rec, -1), "amax")
+    won = valid & (last[safe] == rec)
+    tgt = torch.where(won, safe, n)
     pos2 = torch.cat([pos, pos.new_zeros(1, 3)])
-    pos2[safe] = vals[:, :3]
+    pos2[tgt] = vals[:, :3]
     yaw2 = torch.cat([yaw, yaw.new_zeros(1)])
-    yaw2[safe] = vals[:, 3]
-    touched = torch.zeros(n + 1, dtype=torch.bool, device=dev)
-    touched[safe] = valid
-    return pos2[:n], yaw2[:n], touched[:n]
+    yaw2[tgt] = vals[:, 3]
+    return pos2[:n], yaw2[:n], last[:n] >= 0
+
+
+def _round_odd_sum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a + b`` in float64 rounded to odd: the rounded sum, moved one
+    ulp toward the exact sum when it was inexact and its last bit is
+    even. Rounding that to float32 gives the float32 nearest the exact
+    sum (53 >= 24 + 2 bits), so two roundings act as one."""
+    s = a + b
+    bb = s - a
+    err = (a - (s - bb)) + (b - bb)   # exact: s + err == a + b
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.full_like(s, torch.inf).copysign(err)
+    return torch.where((err != 0) & even, torch.nextafter(s, toward), s)
 
 
 def integrate(
@@ -57,11 +73,17 @@ def integrate(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """pos += vel*dt for moving entities, clamped to world bounds.
 
-    Returns (new_pos, moved bool[N]). Python scalars enter the float32
-    ops as float32, as JAX's weakly typed constants do, and cost no
-    host-to-device copy."""
-    step = torch.where(moving[:, None], vel * dt, 0.0)
-    new_pos = pos + step
+    Returns (new_pos, moved bool[N]). The jitted JAX tick contracts
+    ``pos + vel*dt`` into one fused multiply-add: the float32 nearest
+    the exact ``pos + vel * float32(dt)``. That is computed here in
+    float64, where the float32 product is exact, and rounded once (the
+    sum rounded to odd, then to float32), so the CPU and the card give
+    the JAX bits. Python scalars enter the float32 ops as float32, as
+    JAX's weakly typed constants do, and cost no host-to-device
+    copy."""
+    dt32 = float(np.float32(dt))
+    step = torch.where(moving[:, None], vel.double() * dt32, 0.0)
+    new_pos = _round_odd_sum(pos.double(), step).to(torch.float32)
     new_pos = torch.stack(
         [new_pos[:, i].clamp(bounds_min[i], bounds_max[i])
          for i in range(3)], dim=1)

@@ -195,6 +195,9 @@ def _check_mega_ported(mc: MegaConfig, devices) -> None:
     """Raise ``NotImplementedError`` for what this port does not run
     yet; it never substitutes another placement or path."""
     check_ported(mc.cfg)
+    if mc.cfg.grid.precision != "off":
+        raise NotImplementedError(
+            f"precision='q16' in the megaspace {ROADMAP_HINT}")
     if devices is not None and len(devices) > 1:
         raise NotImplementedError(
             f"tiles on several cards (devices={list(devices)}) "
@@ -260,6 +263,11 @@ def mega_tick_body(mc: MegaConfig, state: SpaceState,
     dev = state.pos.device
     tile_w, tile_d = _f32(mc.tile_w, dev), _f32(mc.tile_d, dev)
     slots = torch.arange(n, dtype=torch.int32, device=dev)
+    # with a skin the tiles keep the stateless sweep (over cells of
+    # radius + skin), as the JAX megaspace does: the Verlet cache lane
+    # rides along untouched
+    aoi_cache = state.aoi_cache
+    state = state.replace(aoi_cache=None)
 
     # 1. inputs, behaviors and integration over the whole world, then
     #    tile targeting and the emigrant pack, tile by tile
@@ -396,7 +404,7 @@ def mega_tick_body(mc: MegaConfig, state: SpaceState,
         halo_demand=halo_demand,
         global_alive=global_alive,
     )
-    return stack_states(new_tiles), outputs
+    return stack_states(new_tiles).replace(aoi_cache=aoi_cache), outputs
 
 
 def make_mega_tick(mc: MegaConfig, device="cuda", devices=None):

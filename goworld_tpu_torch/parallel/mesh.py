@@ -15,21 +15,31 @@ import dataclasses
 import torch
 
 from goworld_tpu_torch.core.state import SpaceState, WorldConfig, create_state
+from goworld_tpu_torch.ops.aoi import VerletCache
+
+
+def _stack(values):
+    if values[0] is None:
+        return None
+    if isinstance(values[0], VerletCache):
+        return VerletCache(**{
+            f.name: torch.stack([getattr(v, f.name) for v in values])
+            for f in dataclasses.fields(VerletCache)})
+    return torch.stack(values)
 
 
 def stack_states(states) -> SpaceState:
     """One ``SpaceState`` whose lanes stack ``states`` on a new leading
     axis."""
     return SpaceState(**{
-        f.name: torch.stack([getattr(s, f.name) for s in states])
+        f.name: _stack([getattr(s, f.name) for s in states])
         for f in dataclasses.fields(SpaceState)
     })
 
 
 def tile_view(state: SpaceState, d: int) -> SpaceState:
     """Tile ``d`` of a stacked state: views, no copies."""
-    return SpaceState(**{f.name: getattr(state, f.name)[d]
-                         for f in dataclasses.fields(SpaceState)})
+    return state.apply(lambda t: t[d])
 
 
 def create_multi_state(cfg: WorldConfig, n_dev: int, seed: int = 0,

@@ -1,7 +1,8 @@
 """Where one tick's time goes on the card.
 
     python -m goworld_tpu_torch.profile_tick [--n 1048576] [--ticks 20]
-                                             [--mega TILES | --world]
+                                             [--mega TILES | --world |
+                                              --uncut [--q16]]
                                              [--out chiprun_out]
     PYTHONPATH=DIR python goworld_tpu_torch/profile_tick.py ...
 
@@ -44,6 +45,13 @@ timeline, ``step_event_ms``: the step by CUDA events around it, and
 ``busy_ms`` / ``idle_share`` / ``kernels_top`` / ``csrc_kernels`` over
 a profiled window of ticks (idle against the ticks' host wall).
 
+With ``--uncut``, the bench world uncut (:func:`workload.uncut_config`:
+the Verlet skin of 4, syncs with repeats), whose sweep stage is
+``grid_neighbors_verlet`` (4a-4c then also count the rebuild branch,
+run every tick, and 4c the re-rank's unpack; 4d is the re-rank); with
+``--q16`` as well, at precision="q16" (the bench's cell_cap of 12),
+as ``chip_smoke.py`` [14] runs it.
+
 The full profiler table goes to ``<out>/profile_tick.txt``. Run as a
 file with another checkout's root first on ``PYTHONPATH``, it measures
 that checkout's package with this instrument (a stage whose function
@@ -78,6 +86,8 @@ from goworld_tpu_torch.workload import (
     mega_world,
     serve_world,
     slice_config,
+    uncut_config,
+    uncut_world,
 )
 
 STAGES = [
@@ -85,9 +95,11 @@ STAGES = [
     ("2 behavior", step, "compute_velocity"),
     ("3 integrate", step, "integrate"),
     ("4 aoi sweep", step, "grid_neighbors_flags"),
+    ("4 aoi sweep, verlet", step, "grid_neighbors_verlet"),
     ("4a sweep front half", aoi, "front_half"),
     ("4b fused sweep kernel", aoi, "sweep_fused_cuda"),
     ("4c unpack top-k", aoi, "_unpack_top"),
+    ("4d verlet re-rank", aoi, "_rank_candidates"),
     ("5 interest deltas", step, "interest_pairs"),
     ("6 sync records", step, "collect_sync"),
     ("6 attr records", step, "collect_attr_deltas"),
@@ -285,6 +297,10 @@ def main(argv=None) -> int:
                     help="profile the megaspace tick over TILES tiles")
     ap.add_argument("--world", action="store_true",
                     help="profile the served World's tick")
+    ap.add_argument("--uncut", action="store_true",
+                    help="profile the bench world uncut (the Verlet skin)")
+    ap.add_argument("--q16", action="store_true",
+                    help="with --uncut: at precision='q16'")
     ap.add_argument("--out", default="chiprun_out")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -301,6 +317,12 @@ def main(argv=None) -> int:
         st, inputs = mega_world(mc, args.n, seed=0, device="cuda")
         tick = make_mega_tick(mc)
         stage_list = MEGA_STAGES
+    elif args.uncut:
+        cfg = uncut_config(args.n, **(dict(precision="q16")
+                                      if args.q16 else {}))
+        st, inputs = uncut_world(cfg, seed=0, device="cuda")
+        tick = make_tick(cfg)
+        stage_list = STAGES
     else:
         cfg = slice_config(args.n)
         st, inputs = bench_world(cfg, seed=0, device="cuda")
@@ -348,12 +370,14 @@ def main(argv=None) -> int:
     busy_ms, top, csrc, memset_ms = _device_rows(prof, window)
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    (out / f"profile_tick{'_mega' if args.mega else ''}.txt").write_text(
+    suffix = "_mega" if args.mega else "_q16" if args.q16 else \
+        "_uncut" if args.uncut else ""
+    (out / f"profile_tick{suffix}.txt").write_text(
         f"{card}\n" + prof.key_averages().table(
             sort_by="device_time_total", row_limit=60))
     print(json.dumps({
         "gpu": card, "n": args.n, "mega_tiles": args.mega,
-        "ticks": args.ticks,
+        "uncut": args.uncut, "q16": args.q16, "ticks": args.ticks,
         "tick_ms_mean": tick_mean, "tick_ms_p50": tick_p50,
         "tick_ms_p99": tick_p99,
         "tick_ms_p50_p99_unwrapped": _p50_p99(before),

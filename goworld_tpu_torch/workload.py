@@ -5,7 +5,9 @@
   sort kernels: every slot holds an alive mover at a uniform position in
   a square world sized for about 12 Chebyshev neighbors at radius 50, 1%
   of them own a client, and every tick carries 4096 client position
-  syncs to distinct slots.
+  syncs to distinct slots. Uncut (:func:`uncut_config`,
+  :func:`uncut_world`) it is the bench's own headline: a Verlet skin of
+  4 and sync slots drawn with repeats, as ``bench.py`` draws them.
 * The megaspace bench world (``bench.py`` ``build_mega(n_total)``): the
   same density over one square world cut into the most-square grid of
   ``n_dev`` tiles, each tile's movers uniform inside it, with a
@@ -38,6 +40,9 @@ from goworld_tpu_torch.parallel.step import MultiTickInputs
 from goworld_tpu_torch.utils import ids
 
 CLIENT_FRAC = 0.01
+# bench.py's BENCH_SKIN_DEFAULT: movers advance 5/60 a tick, so a skin
+# of 4 rebuilds the candidate cache about every 24 ticks
+BENCH_SKIN = 4.0
 
 
 def slice_config(n: int, **grid_kw) -> WorldConfig:
@@ -56,8 +61,26 @@ def slice_config(n: int, **grid_kw) -> WorldConfig:
     )
 
 
+def uncut_config(n: int, **grid_kw) -> WorldConfig:
+    """The bench world uncut: :func:`slice_config` with the bench's
+    Verlet skin (``verlet_cap`` auto: 48 at k = 32)."""
+    return slice_config(n, **{"skin": BENCH_SKIN, **grid_kw})
+
+
 def bench_world(cfg: WorldConfig, seed: int, device="cuda"):
     """(state, inputs) of the bench world on ``device``."""
+    return _world(cfg, seed, device, repeats=False)
+
+
+def uncut_world(cfg: WorldConfig, seed: int, device="cuda"):
+    """(state, inputs) of the bench world uncut on ``device``: as
+    :func:`bench_world`, but the 4096 sync slots are drawn uniformly
+    with repeats (``bench.py`` ``randint``). ``cfg`` is
+    :func:`uncut_config` or a variant of it."""
+    return _world(cfg, seed, device, repeats=True)
+
+
+def _world(cfg: WorldConfig, seed: int, device, repeats: bool):
     n, g = cfg.capacity, cfg.grid
     rng = np.random.default_rng(seed)
     pos = np.zeros((n, 3), np.float32)
@@ -77,7 +100,8 @@ def bench_world(cfg: WorldConfig, seed: int, device="cuda"):
     vals[:ic, 0] = rng.uniform(0, g.extent_x, ic)
     vals[:ic, 2] = rng.uniform(0, g.extent_z, ic)
     idx = np.zeros(cfg.input_cap, np.int32)
-    idx[:ic] = rng.choice(n, ic, replace=False)
+    idx[:ic] = rng.integers(0, n, ic) if repeats \
+        else rng.choice(n, ic, replace=False)
     inputs = TickInputs(
         pos_sync_idx=torch.tensor(idx, device=dev),
         pos_sync_vals=torch.tensor(vals, device=dev),

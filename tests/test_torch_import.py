@@ -3,6 +3,7 @@ package, its entry points run on the card unless asked for the CPU, and
 configs it does not run yet are refused rather than substituted."""
 
 import ast
+import dataclasses
 import os
 import subprocess
 import sys
@@ -112,18 +113,33 @@ def test_entry_points_default_to_cuda_and_never_fall_back(entry,
 ], ids=["skin", "q16", "table", "cellrow", "shift", "approx", "mlp",
         "btree", "scenario"])
 def test_unported_configs_raise_not_implemented(change):
+    """Each config the port does not run raises. The Verlet skin and
+    precision=q16 were refused until they were ported; their two cases
+    now hold that both entry points take them and that a tick runs."""
     cfg = tstate.WorldConfig(capacity=64, **change)
+    if cfg.grid.skin > 0 or cfg.grid.precision != "off":
+        st = tstate.create_state(cfg, device="cpu")
+        st, out = make_tick(cfg, device="cpu")(
+            st, TickInputs.empty(cfg, device="cpu"))
+        assert int(out.aoi_rebuilt) == 1 and int(st.tick) == 1
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_tick(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tstate.create_state(cfg, device="cpu")
 
 
-@pytest.mark.parametrize("case", ["scenario", "mlp", "btree", "devices"])
+@pytest.mark.parametrize("case", ["scenario", "mlp", "btree", "devices",
+                                  "q16"])
 @pytest.mark.parametrize("entry", ["create_mega_state", "make_mega_tick"])
 def test_unported_megaspace_configs_raise_not_implemented(case, entry):
     kw = {}
-    if case == "scenario":
+    if case == "q16":
+        mc = _mega()
+        mc = dataclasses.replace(mc, cfg=dataclasses.replace(
+            mc.cfg, grid=dataclasses.replace(mc.cfg.grid,
+                                             precision="q16")))
+    elif case == "scenario":
         mc = _mega(scenario=types.SimpleNamespace(
             behavior_names=("random_walk",)))
     elif case == "devices":

@@ -6,11 +6,12 @@ of a small world through JAX ``make_mega_tick`` (4 CPU devices under
 carried across by ``interop``, in 1D (4 strips) and 2D (2x2 tiles),
 under both halo impls.
 
-Integer and bool lanes of the state and outputs, every count included,
-must be exact. Float lanes match to atol 1e-4, the single-Space tick's
-tolerance: random_walk's cos and sin differ by about one ulp between
-XLA's CPU and torch, and XLA may fuse pos + vel*dt into one
-multiply-add."""
+Every lane of the state and outputs, every count and float included,
+must be bit-exact: the port's random walk computes XLA's cos and sin
+(glibc's routine) and its integration rounds ``pos + vel*dt`` once, as
+XLA's fused multiply-add does. With a Verlet skin the tiles keep the
+stateless sweep over wider cells and carry the cache lane untouched,
+as the JAX megaspace does."""
 
 import dataclasses
 
@@ -41,13 +42,15 @@ from goworld_tpu_torch.parallel.megaspace import (
 )
 from goworld_tpu_torch.parallel.step import MultiTickInputs
 
-ATOL = 1e-4
-
-
 def _jax_lanes(obj):
-    return {f.name: np.array(getattr(obj, f.name))
-            for f in dataclasses.fields(obj)
-            if getattr(obj, f.name) is not None}
+    out = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if v is None:
+            continue
+        out[f.name] = _jax_lanes(v) if dataclasses.is_dataclass(v) \
+            else np.array(v)
+    return out
 
 
 def _compare(got: dict, ref: dict, what):
@@ -59,12 +62,10 @@ def _compare(got: dict, ref: dict, what):
             continue
         assert g.shape == r.shape and g.dtype == r.dtype, (
             what, name, g.shape, r.shape, g.dtype, r.dtype)
-        if r.dtype.kind == "f":
-            np.testing.assert_allclose(g, r, rtol=0, atol=ATOL,
-                                       err_msg=f"{what} {name}")
-        else:
-            assert np.array_equal(g, r), (
-                what, name, int((g != r).sum()))
+        # bit for bit, floats included
+        assert np.array_equal(np.atleast_1d(g).view(np.uint8),
+                              np.atleast_1d(r).view(np.uint8)), (
+            what, name, int((g != r).sum()))
 
 
 # ---------------------------------------------------------------- migrate
@@ -242,14 +243,14 @@ ALIVE = 200
 N_SYNC, N_HOP = 12, 4
 
 
-def _configs(two_d, impl):
+def _configs(two_d, impl, skin=0.0):
     tx, tz = (2, 2) if two_d else (4, 1)
     n_dev = tx * tz
     world_z = TILE * tz if two_d else 2 * TILE
     grid = dict(radius=RADIUS, extent_x=TILE + 2 * RADIUS,
                 extent_z=(TILE + 2 * RADIUS) if two_d else world_z, k=32,
                 cell_cap=12, row_block=128, sweep_impl="fused",
-                sort_impl="pallas", topk_impl="sort", skin=0.0,
+                sort_impl="pallas", topk_impl="sort", skin=skin,
                 precision="off")
     world = dict(capacity=CAP, npc_speed=30.0, turn_prob=0.2,
                  enter_cap=8192, leave_cap=8192, sync_cap=8192,
@@ -310,12 +311,34 @@ def _mega_world(mc, seed=0):
     return lanes, inputs
 
 
+def _jax_state(mc, lanes):
+    """A JAX stacked state from numpy lanes (the cache lane, as the JAX
+    megaspace creates it, passed as it is)."""
+    cache = jcreate(mc, seed=0).aoi_cache
+    return jstate.SpaceState(
+        **{k: jnp.asarray(v) for k, v in lanes.items()
+           if k != "aoi_cache"}, aoi_cache=cache)
+
+
 @pytest.mark.parametrize("impl", ["ppermute", "async"])
 @pytest.mark.parametrize("two_d", [False, True], ids=["1d", "2d"])
 def test_mega_ticks_match_jax(two_d, impl):
-    jmc, tmc = _configs(two_d, impl)
+    _mega_ticks_match(*_configs(two_d, impl))
+
+
+def test_mega_skin_ticks_match_jax():
+    """A skin of 2 in the 2x2 megaspace: wider cells, the same lists,
+    and the cache lane carried as the JAX megaspace carries it."""
+    jmc, tmc = _configs(True, "async", skin=2.0)
+    assert jcreate(jmc, seed=0).aoi_cache is not None
+    _mega_ticks_match(jmc, tmc)
+
+
+def _mega_ticks_match(jmc, tmc):
     lanes, inputs = _mega_world(jmc)
-    js = jstate.SpaceState(**{k: jnp.asarray(v) for k, v in lanes.items()})
+    lanes["aoi_cache"] = _jax_lanes(jcreate(jmc, seed=0).aoi_cache) \
+        if jmc.cfg.grid.skin > 0 else None
+    js = _jax_state(jmc, lanes)
     ji = JMulti(base=JInputs(**{k: jnp.asarray(v)
                                 for k, v in inputs["base"].items()}),
                 migrate_target=jnp.asarray(inputs["migrate_target"]),

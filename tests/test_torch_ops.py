@@ -1,8 +1,13 @@
 """The port's tick ops against the JAX package's on the same numpy
-inputs, exactly: input scatter, integration, interest deltas and pair
-extraction, sync records and attr deltas, including counts past their
-caps."""
+inputs, exactly: input scatter (repeated slots included), integration
+(against the jitted reference, whose pos + vel*dt is one fused
+multiply-add), the random walk and its cos and sin (every heading it
+can draw), interest deltas and pair extraction, sync records and attr
+deltas, including counts past their caps."""
 
+import math
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -10,8 +15,10 @@ import torch
 
 from goworld_tpu.ops import delta as jdelta
 from goworld_tpu.ops import extract as jextract
+from goworld_tpu.models import random_walk as jwalk
 from goworld_tpu.ops import integrate as jint
 from goworld_tpu.ops import sync as jsync
+from goworld_tpu_torch.models import random_walk as twalk
 from goworld_tpu_torch.ops import delta as tdelta
 from goworld_tpu_torch.ops import extract as textract
 from goworld_tpu_torch.ops import integrate as tint
@@ -60,21 +67,104 @@ def test_apply_pos_inputs(n_inputs):
         _eq(g, r)
 
 
+def test_apply_pos_inputs_keeps_the_last_of_repeated_slots():
+    """4096 records onto 512 slots: every slot named ~8 times, records
+    past n_inputs and out-of-range slots among them; the last valid
+    record of each slot wins, as in the JAX scatter on the CPU."""
+    n, ic = 512, 4096
+    rng = np.random.default_rng(11)
+    pos = rng.uniform(0, 100, (n, 3)).astype(np.float32)
+    yaw = rng.uniform(0, 6, n).astype(np.float32)
+    idx = rng.integers(-16, n + 16, ic).astype(np.int32)
+    vals = rng.uniform(0, 100, (ic, 4)).astype(np.float32)
+    for n_in in (4096, 3000):
+        args = (pos, yaw, idx, vals, np.asarray(n_in, np.int32))
+        ref = jint.apply_pos_inputs(*map(jnp.asarray, args))
+        got = tint.apply_pos_inputs(*map(torch.tensor, args))
+        for g, r in zip(got, ref):
+            _eq(g, r)
+        last = {}
+        for i in range(n_in):
+            if 0 <= idx[i] < n:
+                last[int(idx[i])] = i
+        slots = np.array(sorted(last))
+        assert np.array_equal(got[0].numpy()[slots],
+                              vals[[last[s] for s in slots], :3])
+        assert len(slots) < n_in
+
+
 def test_integrate_clamps_to_the_world():
+    """Bit for bit against the jitted reference: XLA contracts
+    pos + vel*dt into one fused multiply-add, rounded once."""
     rng = np.random.default_rng(1)
     pos = rng.uniform(-1, 101, (N, 3)).astype(np.float32)
     vel = rng.uniform(-50, 50, (N, 3)).astype(np.float32)
     moving = rng.random(N) < 0.7
     args = (1.0 / 60, (0.0, -1e9, 0.0), (100.0, 1e9, 100.0))
-    ref = jint.integrate(jnp.asarray(pos), jnp.asarray(vel),
-                         jnp.asarray(moving), *args)
+    ref = jax.jit(jint.integrate, static_argnums=(3, 4, 5))(
+        jnp.asarray(pos), jnp.asarray(vel), jnp.asarray(moving), *args)
     got = tint.integrate(torch.tensor(pos), torch.tensor(vel),
                          torch.tensor(moving), *args)
-    # pos + vel*dt may be contracted to one FMA by XLA on the CPU; the
-    # positions agree to a float32 rounding, the moved flags exactly
-    np.testing.assert_allclose(got[0].numpy(), np.asarray(ref[0]),
-                               rtol=0, atol=1e-5)
+    _eq(got[0], ref[0])
     _eq(got[1], ref[1])
+
+
+@pytest.mark.parametrize("dt", [1.0 / 60, 0.05])
+def test_integrate_is_one_rounding_at_scale(dt):
+    """2^16 random rows, 90% moving, positions across a bench-sized
+    world: every word equals the jitted reference's."""
+    n = 1 << 16
+    rng = np.random.default_rng(12)
+    pos = rng.uniform(-1, 9363, (n, 3)).astype(np.float32)
+    vel = rng.uniform(-5, 5, (n, 3)).astype(np.float32)
+    moving = rng.random(n) < 0.9
+    args = (dt, (0.0, -1e9, 0.0), (9362.0, 1e9, 9362.0))
+    ref = jax.jit(jint.integrate, static_argnums=(3, 4, 5))(
+        pos, vel, moving, *args)
+    got = tint.integrate(torch.tensor(pos), torch.tensor(vel),
+                         torch.tensor(moving), *args)
+    _eq(got[0], ref[0])
+    _eq(got[1], ref[1])
+
+
+def _headings() -> np.ndarray:
+    """Every heading random_walk_step can draw: the 2^23 uniforms of
+    jax.random (k * 2^-23) times float32(2*pi)."""
+    u = (np.arange(1 << 23, dtype=np.float64) * 2.0 ** -23) \
+        .astype(np.float32)
+    return u * np.float32(2.0 * math.pi)
+
+
+@pytest.mark.parametrize("domain", ["headings", "wide"])
+def test_cos_sin_are_xla_bits(domain):
+    """The port's cos and sin against jax.jit(jnp.cos / jnp.sin) on the
+    CPU: all 2^23 headings, and 2^22 uniform floats in [0, 100)."""
+    if domain == "headings":
+        h = _headings()
+    else:
+        h = np.random.default_rng(13).uniform(0, 100, 1 << 22) \
+            .astype(np.float32)
+    c, s = twalk.cos_sin(torch.from_numpy(h))
+    _eq(c, jax.jit(jnp.cos)(h))
+    _eq(s, jax.jit(jnp.sin)(h))
+
+
+@pytest.mark.parametrize("still", [False, True])
+def test_random_walk_step_is_bit_exact(still):
+    """The jitted reference step on 2^14 movers (or still ones, which
+    all draw a heading)."""
+    n = 1 << 14
+    rng = np.random.default_rng(14)
+    key = jax.random.PRNGKey(21)
+    vel = np.zeros((n, 3), np.float32) if still else \
+        rng.uniform(-5, 5, (n, 3)).astype(np.float32)
+    moving = rng.random(n) < 0.9
+    ref = jax.jit(jwalk.random_walk_step, static_argnums=(3, 4))(
+        key, vel, moving, 5.0, 0.05)
+    tkey = torch.tensor(np.asarray(key).astype(np.int64))
+    got = twalk.random_walk_step(tkey, torch.tensor(vel),
+                                 torch.tensor(moving), 5.0, 0.05)
+    _eq(got, ref)
 
 
 @pytest.mark.parametrize("caps", [(4096, 4096, N), (64, 32, 16)],

@@ -3,10 +3,10 @@
 capacity 1024, with the world carried across by the interop converter,
 for 5 ticks of JAX make_tick against the port's make_tick on the CPU.
 
-Integer and bool lanes of the state and outputs (the rng key included)
-must be exact. Float lanes match to atol 1e-4: random_walk's cos and
-sin differ by about one ulp between XLA's CPU and torch, and XLA may
-fuse pos + vel*dt into one multiply-add."""
+Every lane of the state and outputs (the rng key and the float lanes
+included) must be bit-exact: the port's random walk computes XLA's cos
+and sin (glibc's routine), and its integration rounds ``pos + vel*dt``
+once, as XLA's fused multiply-add does."""
 
 import dataclasses
 
@@ -26,7 +26,6 @@ from goworld_tpu_torch.workload import slice_config
 
 N = 1024
 TICKS = 5
-ATOL = 1e-4
 
 
 def _configs(n=N):
@@ -84,11 +83,8 @@ def _compare(got: dict, ref: dict, what):
     for name, g in got.items():
         r = ref[name]
         assert g.shape == r.shape and g.dtype == r.dtype, (what, name)
-        if r.dtype.kind == "f":
-            np.testing.assert_allclose(g, r, rtol=0, atol=ATOL,
-                                       err_msg=f"{what} {name}")
-        else:
-            assert np.array_equal(g, r), (what, name)
+        assert np.array_equal(np.atleast_1d(g).view(np.uint8),
+                              np.atleast_1d(r).view(np.uint8)), (what, name)
 
 
 def test_slice_ticks_match_jax():

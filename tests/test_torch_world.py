@@ -13,12 +13,12 @@ sync-sink batches (gate, client ids, entity ids, values), the order of
 the OnEnterAOI / OnLeaveAOI / OnEntityEnterSpace hooks and of timer and
 RPC calls (under a fake clock), every entity's slot, position, yaw,
 attrs and interest sets, the fetched outputs and the whole state
-(``interop.state_to_numpy``). All of it bit for bit, except in the last
-case: once random-walk movers run, torch's cos and sin differ from
-XLA's by about one ulp in some headings (as ``test_torch_step.py``
-notes), so there positions, velocities and the values derived from them
-are held to 1e-4, as in ``test_torch_step.py``, and everything else
-stays exact.
+(``interop.state_to_numpy``). All of it bit for bit, the random-walk
+movers of the last case included: the port computes XLA's cos and sin
+and rounds ``pos + vel*dt`` once, as XLA's fused multiply-add does.
+Two more games run the same script on a World with a Verlet skin of 4
+(the bench's), one of them at precision="q16" (snapped positions, a
+bfloat16 velocity plane, a packed candidate cache), held to the same.
 
 The game runs once per sweep/sort pair (a module fixture; each JAX
 World compiles its tick once) and records, per case, what differed and
@@ -47,7 +47,6 @@ from goworld_tpu_torch.utils import ids
 
 CAP = 256
 EXTENT = 600.0
-ATOL = 1e-4
 GRID = dict(radius=50.0, extent_x=EXTENT, extent_z=EXTENT, k=32,
             cell_cap=12, row_block=CAP, topk_impl="sort", skin=0.0,
             precision="off")
@@ -55,6 +54,10 @@ WORLD = dict(capacity=CAP, npc_speed=5.0, enter_cap=256, leave_cap=256,
              sync_cap=1024, attr_sync_cap=64, input_cap=64,
              delta_rows_cap=CAP)
 IMPLS = [("ranges", "argsort"), ("fused", "pallas")]
+# the games: each sweep/sort pair at skin 0, and the kernels' pair with
+# the bench's Verlet skin, in float32 and at q16
+GAMES = [(*impl, 0.0, "off") for impl in IMPLS] + [
+    ("fused", "pallas", 4.0, "off"), ("fused", "pallas", 4.0, "q16")]
 CASES = ["spawn", "client_bind_unbind", "pos_sync_batch", "teleport",
          "hot_attr_twice", "destroy_slot_reuse", "service_call",
          "migration_round_trip", "enter_overflow", "set_moving"]
@@ -124,15 +127,15 @@ class Side:
         self.log: list = []
         self.sync: list = []
         self.clock = Clock()
-        sweep, sort = impl
+        sweep, sort, skin, precision = impl
+        grid = dict(GRID, sweep_impl=sweep, sort_impl=sort, skin=skin,
+                    precision=precision)
         if pkg is jent:
-            cfg = JConfig(grid=JGrid(sweep_impl=sweep, sort_impl=sort,
-                                     **GRID), **WORLD)
+            cfg = JConfig(grid=JGrid(**grid), **WORLD)
             make = dict(telemetry_live=False, residency=False, audit=False)
             services = JServices
         else:
-            cfg = TConfig(grid=TGrid(sweep_impl=sweep, sort_impl=sort,
-                                     **GRID), **WORLD)
+            cfg = TConfig(grid=TGrid(**grid), **WORLD)
             make = dict(device="cpu")
             services = TServices
         types = game_types(pkg, self.log)
@@ -174,42 +177,40 @@ def _jax_state(w) -> dict:
     out = {}
     for f in dataclasses.fields(w.state):
         v = getattr(w.state, f.name)
-        if v is not None:
+        if dataclasses.is_dataclass(v):  # the Verlet cache
+            out[f.name] = {c.name: np.asarray(getattr(v, c.name))
+                           for c in dataclasses.fields(v)}
+        elif v is not None:
             out[f.name] = np.asarray(v)
     return out
 
 
-def _same(a, b, exact: bool) -> bool:
-    """Equality of nested plain values; floats to ATOL unless exact."""
+def _same(a, b) -> bool:
+    """Equality of nested plain values, floats bit for bit."""
     if isinstance(a, dict):
         return isinstance(b, dict) and a.keys() == b.keys() and all(
-            _same(a[k], b[k], exact) for k in a)
+            _same(a[k], b[k]) for k in a)
     if isinstance(a, (list, tuple)):
         return isinstance(b, (list, tuple)) and len(a) == len(b) and all(
-            _same(x, y, exact) for x, y in zip(a, b))
+            _same(x, y) for x, y in zip(a, b))
     if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
         a, b = np.asarray(a), np.asarray(b)
         if a.shape != b.shape or a.dtype != b.dtype:
             return False
-        if a.dtype.kind == "f" and not exact:
-            return bool(np.allclose(a, b, rtol=0, atol=ATOL))
         if a.dtype.kind == "f":
             return a.tobytes() == b.tobytes()
         return bool(np.array_equal(a, b))
-    if isinstance(a, float) and not exact:
-        return isinstance(b, float) and abs(a - b) <= ATOL
     return type(a) is type(b) and a == b
 
 
-def diff_worlds(j: Side, t: Side, jgot: dict, tgot: dict,
-                exact: bool) -> list[str]:
+def diff_worlds(j: Side, t: Side, jgot: dict, tgot: dict) -> list[str]:
     """Every place the tick's results of the two sides differ."""
     bad = []
     if jgot["log"] != tgot["log"]:
         bad.append(f"hook log {jgot['log']} != {tgot['log']}")
-    if not _same(jgot["msgs"], tgot["msgs"], exact):
+    if not _same(jgot["msgs"], tgot["msgs"]):
         bad.append("client messages")
-    if not _same(jgot["sync"], tgot["sync"], exact):
+    if not _same(jgot["sync"], tgot["sync"]):
         bad.append("sync batches")
     for jw, tw in zip(j.worlds, t.worlds):
         g = jw.game_id
@@ -229,17 +230,16 @@ def diff_worlds(j: Side, t: Side, jgot: dict, tgot: dict,
                     sorted(te.interested_in), sorted(te.interested_by),
                     te.client is None or (te.client.gate_id,
                                           te.client.client_id))
-            if not _same(row, trow, exact):
+            if not _same(row, trow):
                 bad.append(f"world {g}: entity {k} {row} != {trow}")
         jst, tst = _jax_state(jw), interop.state_to_numpy(tw.state)
         for name, a in tst.items():
-            if not _same(jst[name], a, exact or name not in ("pos", "vel")):
+            if not _same(jst[name], a):
                 bad.append(f"world {g}: state lane {name}")
         jo = jw.last_outputs
         for f in dataclasses.fields(tw.last_outputs):
             a = getattr(tw.last_outputs, f.name)
-            if not _same(np.asarray(getattr(jo, f.name)), a,
-                         exact or f.name != "sync_vals"):
+            if not _same(np.asarray(getattr(jo, f.name)), a):
                 bad.append(f"world {g}: output lane {f.name}")
     return bad
 
@@ -255,14 +255,14 @@ def run_game(impl) -> dict:
     def both(fn):
         return {k: fn(s) for k, s in sides.items()}
 
-    def ticks(case, n=1, exact=True):
+    def ticks(case, n=1):
         rec = results.setdefault(case, {"diffs": [], "facts": {}})
         for i in range(n):
             for s in sides.values():
                 s.tick()
             jgot, tgot = j.take(), t.take()
             rec["diffs"] += [f"{case} tick {i}: {d}" for d in diff_worlds(
-                j, t, jgot, tgot, exact)]
+                j, t, jgot, tgot)]
             rec.setdefault("got", []).append(tgot)
             out = t.a.last_outputs
             rec.setdefault("events", []).append(
@@ -429,14 +429,14 @@ def run_game(impl) -> dict:
     rec = ticks("enter_overflow", 2)
     rec["facts"] = dict(enter_n=rec["events"][0][0])
 
-    # random-walk movers: floats to ATOL from here on
+    # random-walk movers, still bit for bit
     def moving(s):
         for i in (8, 9, 10, 11, 12):
             s.a.entities[eid(f"m{i}")].set_moving(True)
         s.a.entities[eid("m12")].set_moving(False)
 
     both(moving)
-    rec = ticks("set_moving", 4, exact=False)
+    rec = ticks("set_moving", 4)
     rec["facts"] = dict(moved=t.a.entities[eid("m8")].position,
                         still=t.a.entities[eid("m12")].position,
                         m12_start=tuple(float(v) for v in (
@@ -444,7 +444,8 @@ def run_game(impl) -> dict:
     return results
 
 
-@pytest.fixture(scope="module", params=IMPLS, ids=["ranges", "fused"])
+@pytest.fixture(scope="module", params=GAMES,
+                ids=["ranges", "fused", "fused-skin4", "fused-skin4-q16"])
 def game(request):
     return run_game(request.param)
 
@@ -523,7 +524,16 @@ def test_refused_planes_raise_not_implemented(method):
                                     dict(grid=TGrid(radius=10.0, skin=2.0))],
                          ids=["mlp", "skin"])
 def test_unported_configs_raise_not_implemented(change):
+    """A config the port does not run raises. The Verlet skin was
+    refused until it was ported; its case now holds that the World
+    takes it and ticks."""
     cfg = dataclasses.replace(SMALL, **change)
+    if cfg.grid.skin > 0:
+        w = tent.World(cfg, device="cpu")
+        w.tick()
+        assert w.state.aoi_cache is not None
+        assert int(w.last_outputs.aoi_rebuilt[0]) == 1
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tent.World(cfg, device="cpu")
 
@@ -590,13 +600,13 @@ def test_served_game_twins_agree_on_the_cpu():
             ulp = np.spacing(np.float32(w0.cfg.grid.extent_x))
             assert moved.max() <= step + 2 * ulp
         a, b = (sv.sink.take() for sv in twins)
-        assert _same(a["kept"], b["kept"], exact=True)
+        assert _same(a["kept"], b["kept"])
         assert a["sync_records"] > 0 and a["messages"]
         assert twins[0].hooks == twins[1].hooks and twins[0].hooks
         for sv in twins:
             sv.hooks.clear()
         sa, sb = (interop.state_to_numpy(sv.world.state) for sv in twins)
-        assert all(_same(sa[k], sb[k], exact=True) for k in sa)
+        assert all(_same(sa[k], sb[k]) for k in sa)
     w = twins[0].world
     mobs = [w.entities[e] for e in twins[0].mobs]
     hot = interop.state_to_numpy(w.state)["hot_attrs"][0, :, 0]
