@@ -48,28 +48,45 @@ is caught:
    impl (their device times and kernels a call are read in [12]);
 10. a small 2x2 megaspace against a brute-force interest oracle, across
     every kind of tile border (x, z, corner);
-11. the serving World: ``workload.serve_world`` populates a World of
-    2^20 slots through ``Space.create_entity`` (its time and the host's
-    RSS before and after printed), then WORLD_TICKS ``World.tick``s of
-    the game's traffic, each staging 4096 client syncs (each a step from
-    where its player stands), 1024 hot-attr sets (some twice) and 64
-    destroys and creates, checking one sweep and one sort launch a tick
-    and printing ``World.tick`` p50/p99 beside [5]'s, the mean of its
-    four spans, the records and events decoded against their true counts
-    and the rows whose interest list changed against their cap; then
-    STRESS_TICKS ticks whose syncs teleport to uniform points (the
-    bench's input stream), printed apart; one more tick whose step runs
-    under the sync guard on a clone held bit for bit against
+11. the serving World at its defaults (the live telemetry lanes, the
+    residency plane sampled every 4 ticks, the audit plane every 8, the
+    resident carry): ``workload.serve_world(..., boot=True)`` populates
+    a World of 2^20 slots through ``Space.create_entity``, in batches
+    entered through ticks whose events the caps hold (its time and the
+    host's RSS before and after printed), then WORLD_TICKS
+    ``World.tick``s of the game's traffic, each staging 4096 client
+    syncs (each a step from where its player stands), 1024 hot-attr
+    sets (some twice) and 64 destroys and creates, checking one sweep
+    and one sort launch a tick, that the drained lanes account for every
+    tick (rebuilt and occupancy each sum to the tick count, per_tile is
+    the host's entity count), that a workload signature is served, that
+    every audit sample judged its cohort with 0 mismatches (skips by
+    reason, drops counted), that the census reads 0 re-allocated lanes;
+    printing ``World.tick`` p50/p99 beside [5]'s and the World's
+    without the planes (PERF.md runs AC and AE), the
+    audit-sample ticks apart, the mean of its four spans, the fold's and
+    the carry copy's device time by events, the records and events
+    decoded against their true counts and the rows whose interest list
+    changed against their cap; then STRESS_TICKS ticks whose syncs
+    teleport to uniform points (the bench's input stream), printed
+    apart with the mismatches the audit finds once their dropped events
+    degrade the interest sets; one more tick whose step and fold run
+    under the sync guard, the step on a clone held bit for bit against
     ``make_tick`` on the plain versions (ranges/argsort), its fetched
-    outputs, positions and yaws bit for bit against plain ``.cpu()``
-    copies; and twin Worlds of 2^16 slots, one on the kernels and one on
-    the plain versions, equal in sinks, hooks and state for TWIN_TICKS
-    ticks of walking and teleporting syncs in turns;
+    outputs, positions, yaws and alive flags bit for bit against plain
+    ``.cpu()`` copies; one judged audit sample of the full World timed
+    on a scratch plane (a full world's samples are skipped: its sweep
+    has cells past cell_cap); and twin Worlds of 2^16 slots at their
+    defaults,
+    one on the kernels and one on the plain versions, equal in sinks,
+    hooks, state, telemetry lanes, signatures, audit stats and ledgers
+    for TWIN_TICKS ticks of walking and teleporting syncs in turns;
 12. every torch.profiler read, here after every timed path because a
     profiler session slows every later launch of the host-bound ticks:
     the sweep's and sort's own device time and kernel launches a call,
     the megaspace tile sweep's, the phase kernel's and one exchange's
-    under each impl; then a ``kernels`` JSON line: per
+    under each impl, the World's telemetry fold's and its resident carry
+    copy's (at [11]'s last game tick); then a ``kernels`` JSON line: per
     kernel its launches on its paths (and by path), time, device time,
     kernel launches a call, plain time, library time and bound (the
     sweep's also by the all-lanes count of earlier runs:
@@ -119,7 +136,9 @@ import torch
 from goworld_tpu_torch import interop, kernels
 from goworld_tpu_torch.core.state import WorldConfig, map_lane
 from goworld_tpu_torch.core.step import make_tick
+from goworld_tpu_torch.entity import manager
 from goworld_tpu_torch.ops import aoi
+from goworld_tpu_torch.ops import telemetry as telem
 from goworld_tpu_torch.ops.aoi import GridSpec, grid_neighbors_flags
 from goworld_tpu_torch.ops.sort import (
     counting_sort_cells,
@@ -132,6 +151,7 @@ from goworld_tpu_torch.parallel.megaspace import (
     tile_shifts,
     make_mega_tick,
 )
+from goworld_tpu_torch.utils import audit as audit_mod
 from goworld_tpu_torch.utils import metrics
 from goworld_tpu_torch.ops.integrate import apply_pos_inputs
 from goworld_tpu_torch.workload import (
@@ -150,6 +170,9 @@ MEGA_DEV = 4          # 2x2 tiles, as bench.py's multichip world on 4 chips
 MEGA_TICKS = 16
 WORLD_TICKS = 16
 STRESS_TICKS = 8
+# [11]'s World at its defaults, sampled so that samples land inside its
+# timed ticks
+PLANES = dict(residency_sample_every=4, audit_sample_every=8)
 TWIN_N = 1 << 16
 TWIN_TICKS = 8
 VERLET_TICKS = 64     # ~24 ticks between displacement rebuilds at skin 4
@@ -759,15 +782,16 @@ def first_space(obj):
 def world_ticks(served, n_ticks: int, teleport: bool) -> tuple[list, dict]:
     """``n_ticks`` of staged traffic (walking syncs, or with ``teleport``
     the stress stream) and ``World.tick``; (per tick: wall s, span s,
-    decoded and true counts; launch counts of the run). Every tick must
-    launch the sweep and the sort once each and deliver what the World
-    decoded."""
+    decoded and true counts, whether it took an audit sample; launch
+    counts of the run). Every tick must launch the sweep and the sort
+    once each and deliver what the World decoded."""
     w = served.world
     rows = []
     kernels.reset_launches()
     for t in range(n_ticks):
         staged = served.stage(teleport=teleport)
         before = dict(kernels.LAUNCHES)
+        sample = w.audit is not None and w.audit.want_sample(w.tick_count)
         t0 = time.perf_counter()
         w.tick()
         wall = time.perf_counter() - t0
@@ -786,7 +810,7 @@ def world_ticks(served, n_ticks: int, teleport: bool) -> tuple[list, dict]:
                  f" for {len(w._slot_owner[0])} entities with slots")
         cfg = w.cfg
         rows.append(dict(
-            wall=wall, staged=staged,
+            wall=wall, staged=staged, sample=sample,
             spans={name: d for name, _, d, _ in
                    metrics.timeline.records()[-1][2]},
             sync=(ops["sync_records_sent"],
@@ -807,18 +831,29 @@ def world_ticks(served, n_ticks: int, teleport: bool) -> tuple[list, dict]:
 
 
 def world_summary(rows: list, cfg) -> str:
-    """``World.tick`` p50/p99 over ticks 2.., the mean of its spans, and
-    the records, events and changed interest rows a tick."""
+    """``World.tick`` p50/p99 over ticks 2.., the ticks that took an
+    audit sample and the ticks after them apart, the mean of its spans,
+    and the records, events and changed interest rows a tick."""
     steady = rows[1:]
     wall = np.array([r["wall"] for r in steady]) * 1e3
+    sampled = np.array([r["sample"] for r in steady])
+    after = np.array([r["sample"] for r in rows[:-1]])
     spans = {k: float(np.mean([r["spans"][k] for r in steady])) * 1e3
              for k in steady[0]["spans"]}
+    fetch = np.array([r["spans"]["fetch_outputs"] for r in steady]) * 1e3
     mean = {k: " / ".join(map(str, np.mean([r[k] for r in steady], axis=0)
                                .round(1).tolist()))
             for k in ("sync", "enter", "leave")}
     dr = [r["delta_rows"] for r in steady]
     return (f"World.tick wall p50={np.percentile(wall, 50):.3f} "
             f"p99={np.percentile(wall, 99):.3f} ms (ticks 2-{len(rows)}); "
+            f"audit-sample ticks {np.round(wall[sampled], 3).tolist()} ms,"
+            f" the ticks after them "
+            f"{np.round(wall[after & ~sampled], 3).tolist()} ms, the rest "
+            f"{pct(wall, ~sampled & ~after)} ms; fetch_outputs on the "
+            f"sample ticks (their audit planes ride it) "
+            f"{np.round(fetch[sampled], 3).tolist()} ms, on the rest "
+            f"mean {fetch[~sampled].mean():.3f} ms; "
             f"mean span ms " + ", ".join(f"{k} {v:.3f}"
                                          for k, v in spans.items())
             + f"; a tick (mean of 2-{len(rows)}), decoded / to cap / true: "
@@ -829,17 +864,103 @@ def world_summary(rows: list, cfg) -> str:
             f"{rows[-1]['messages']}")
 
 
-def world_phase(dev, bare: tuple[float, float], tag: str) -> dict:
-    """[11] the serving World at 2^20 slots under its game traffic, then
-    the stress stream, its step against the plain versions on a clone,
-    and twin Worlds at 2^16; returns each run's launches."""
+def event_timed(fn, events: list, keep: dict | None = None):
+    """``fn`` with CUDA events recorded around each call into ``events``
+    (and its last arguments into ``keep``)."""
+    def timed(*args):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn(*args)
+        b.record()
+        events.append((a, b))
+        if keep is not None:
+            keep["args"] = args
+        return out
+
+    return timed
+
+
+def event_ms(events: list) -> str:
+    ms = np.array([a.elapsed_time(b) for a, b in events])
+    return (f"mean {ms.mean():.5f} p50 {np.percentile(ms, 50):.5f} max "
+            f"{ms.max():.5f} ms over {ms.size} calls")
+
+
+def unkeyed(sig: dict | None) -> dict | None:
+    """A signature less its kernel-config key (twins differ in it)."""
+    return None if sig is None else {k: v for k, v in sig.items()
+                                     if k != "config"}
+
+
+def audit_state(w) -> dict:
+    """The audit plane's counts once its worker is idle."""
+    w.audit.drain()
+    snap = w.audit.snapshot(tick=w.tick_count)
+    return dict(oracle=snap["oracle"], probes=snap["probes"],
+                violations=snap["violations_total"],
+                dropped=snap["samples_dropped"])
+
+
+def planes_check(w, label: str) -> str:
+    """[11]'s checks of the planes of a World at its defaults: the
+    lanes account for every tick (rebuilt and occupancy each sum to the
+    tick count, per_tile is the host's count of entities with slots), a
+    signature is served, every audit sample judged its cohort with 0
+    mismatches and 0 violations, and the census reads 0 re-allocated
+    lanes."""
+    lanes = w._telem_lanes
+    ticks = w.tick_count
+    for lane in ("rebuilt", "occupancy"):
+        if sum(lanes[lane]["counts"]) != ticks:
+            fail(f"{label}: lane {lane} holds {sum(lanes[lane]['counts'])}"
+                 f" samples for {ticks} ticks")
+    if lanes["occupancy"]["per_tile"] != [len(w._slot_owner[0])]:
+        fail(f"{label}: per_tile {lanes['occupancy']['per_tile']} != "
+             f"{len(w._slot_owner[0])} entities with slots")
+    sig = w.workload_signature()
+    if sig is None or "error" in sig:
+        fail(f"{label}: no workload signature ({sig})")
+    aud = audit_state(w)
+    o = aud["oracle"]
+    if o["samples"] <= 0 or o["mismatches"] or aud["probes"]["mismatches"] \
+            or aud["violations"]:
+        fail(f"{label}: audit {aud}")
+    census = w.residency.census_snapshot()
+    if census["samples"] <= 0 or census["realloc"] or \
+            census["skipped_deleted"]:
+        fail(f"{label}: census {census}")
+    return (f"lanes hold all {ticks} ticks (per_tile "
+            f"{lanes['occupancy']['per_tile']}), signature {sig['sig']}; "
+            f"audit {o['samples']} samples, {o['entities_checked']} "
+            f"entities judged, 0 mismatches, skipped {o['skipped']}, "
+            f"dropped on a busy worker {aud['dropped']}, probes "
+            f"{aud['probes']}; census {census['samples']} samples, "
+            f"{len(census['aliased'])} lanes, 0 re-allocated")
+
+
+def world_phase(dev, bare: tuple[float, float], tag: str,
+                profiled: dict) -> dict:
+    """[11] the serving World at 2^20 slots at its defaults (the planes
+    on, the carry resident) under its game traffic, then the stress
+    stream, its step and fold under the sync guard against the plain
+    versions on a clone, and twin Worlds at 2^16; returns each run's
+    launches and adds the fold and the carry copy to ``profiled``."""
     phase0 = time.perf_counter()
     rss0 = rss_mb()
-    served = serve_world(N, SEED, dev)
+    served = serve_world(N, SEED, dev, boot=True, world_kw=PLANES)
     w = served.world
     rss_pop = rss_mb()
     n_pop = len(w.entities) - 2  # less the nil space and the arena
+    boot_aud = audit_state(w)
+    if boot_aud["oracle"]["mismatches"] or boot_aud["violations"]:
+        fail(f"audit during the boot: {boot_aud}")
+    fold_ev, carry_ev, fold_args, carry_args = [], [], {}, {}
+    real_fold, real_carry = w._telem_fn, manager._carry_into
+    w._telem_fn = event_timed(real_fold, fold_ev, fold_args)
+    manager._carry_into = event_timed(real_carry, carry_ev, carry_args)
     rows, launches = world_ticks(served, WORLD_TICKS, teleport=False)
+    w._telem_fn, manager._carry_into = real_fold, real_carry
     for name in ("pos", "vel"):
         if not torch.isfinite(getattr(w.state, name)).all():
             fail(f"non-finite {name} in the World's state")
@@ -850,28 +971,63 @@ def world_phase(dev, bare: tuple[float, float], tag: str) -> dict:
     if not np.array_equal(dev_hp, np.array([e.attrs["hp"] for e in mobs],
                                            np.float32)):
         fail("the device's hot attrs differ from the entities' hp")
-    print(f"[11] serving World: {n_pop} entities ({served.players.size} "
-          f"players with clients) created through Space.create_entity in "
-          f"{served.populate_s:.2f} s ({served.populate_s / n_pop * 1e6:.1f}"
-          f" us a create); host RSS {rss0:.0f} MB before populating, "
+    game_planes = planes_check(w, "game traffic")
+    print(f"[11] serving World at its defaults (telemetry, residency every "
+          f"{PLANES['residency_sample_every']}, audit every "
+          f"{PLANES['audit_sample_every']} ticks of "
+          f"{w.audit.cohort}, resident carry): {n_pop} entities "
+          f"({served.players.size} players with clients) created through "
+          f"Space.create_entity and booted through {served.boot_ticks} "
+          f"ticks ({served.boot_events} enter events, none past a cap; "
+          f"audit during the boot {boot_aud['oracle']}) in "
+          f"{served.populate_s:.2f} s; host RSS {rss0:.0f} MB before, "
           f"{rss_pop:.0f} MB after (+{rss_pop - rss0:.0f}); game traffic: "
           f"{WORLD_TICKS} World.ticks staging {rows[-1]['staged']} each "
           f"(each sync a step from where its player stands; hp set twice "
           f"on 64 mobs), launches {launches}, one sweep and one sort a "
-          f"tick; {world_summary(rows, w.cfg)}; [5]'s bare tick "
-          f"p50={bare[0]:.3f} p99={bare[1]:.3f} ms; tick 1 (flushes the "
-          f"population) {rows[0]['wall'] * 1e3:.1f} ms, spans " + ", ".join(
-              f"{k} {v * 1e3:.1f}" for k, v in rows[0]["spans"].items())
-          + f" {tag}", flush=True)
+          f"tick; {world_summary(rows, w.cfg)}; the fold by events "
+          f"{event_ms(fold_ev)}, the resident carry copy by events "
+          f"{event_ms(carry_ev)}; planes: {game_planes}; [5]'s bare tick "
+          f"p50={bare[0]:.3f} p99={bare[1]:.3f} ms; the World.tick "
+          f"without the planes (PERF.md runs AC, AE) p50 191.5, 368.0 p99 "
+          f"249.2, 454.3 ms {tag}", flush=True)
+    # the fold and the carry copy of the last game tick, for [12]
+    acc0 = telem.telemetry_init(False, occupancy=True, device=dev)
+    f_outs = fold_args["args"][1]
+    profiled["World telemetry fold"] = \
+        lambda acc=acc0, o=f_outs: telem.telemetry_update_live(acc, o)
+    c_dst, c_src = carry_args["args"]
+    dst = c_dst.apply(torch.clone)
+    src = dst.replace(**{
+        f.name: getattr(c_src, f.name).clone()
+        for f in dataclasses.fields(c_src)
+        if getattr(c_src, f.name) is not None
+        and getattr(c_src, f.name).data_ptr()
+        != getattr(c_dst, f.name).data_ptr()})
+    profiled["World resident carry copy"] = \
+        lambda d=dst, c=src: manager._carry_into(d, c)
+    del fold_args, carry_args, c_dst, c_src, f_outs
+
+    before = audit_state(w)["oracle"]
     stress, stress_launches = world_ticks(served, STRESS_TICKS,
                                           teleport=True)
+    after = audit_state(w)["oracle"]
     print(f"[11] serving World, stress stream: {STRESS_TICKS} World.ticks "
           f"whose syncs teleport their players to uniform points (the "
           f"bench's input stream), launches {stress_launches}; "
-          f"{world_summary(stress, w.cfg)}; host peak RSS "
-          f"{peak_rss_mb():.0f} MB {tag}", flush=True)
+          f"{world_summary(stress, w.cfg)}; changed rows past "
+          f"delta_rows_cap (their events dropped, the interest sets "
+          f"degraded) on "
+          f"{sum(r['delta_rows'] > w.cfg.delta_rows_cap for r in stress)}"
+          f" of {STRESS_TICKS} ticks, and the audit's samples over the "
+          f"stream found {after['mismatches'] - before['mismatches']} "
+          f"mismatches in "
+          f"{after['entities_checked'] - before['entities_checked']} "
+          f"entities judged; host peak RSS {peak_rss_mb():.0f} MB {tag}",
+          flush=True)
 
-    # one tick whose step runs on a clone too, under the sync guard
+    # one tick whose step and fold run under the sync guard, the step
+    # on a clone too
     real, cap = w._step, {}
 
     def probe(state, inputs, policy=None):
@@ -880,14 +1036,27 @@ def world_phase(dev, bare: tuple[float, float], tag: str) -> dict:
             f.name: getattr(inputs, f.name).clone()
             for f in dataclasses.fields(inputs)})
         torch.cuda.set_sync_debug_mode("error")
-        cap["new"] = real(state, inputs, policy)
-        torch.cuda.set_sync_debug_mode("default")
-        return cap["new"]
+        new = real(state, inputs, policy)
+        # the resident step returns the carry it wrote in place: keep
+        # what it wrote before the next tick writes it again
+        cap["new"] = (new[0].apply(torch.clone), new[1])
+        return new
 
-    w._step = probe
+    def fold_probe(acc, outs):
+        try:
+            return real_fold(acc, outs)
+        except Exception as exc:  # the World would disable its lanes
+            cap["fold_error"] = exc
+            raise
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    w._step, w._telem_fn = probe, fold_probe
     served.stage()
     w.tick()
-    w._step = real
+    w._step, w._telem_fn = real, real_fold
+    if "fold_error" in cap or w._telem_fn is None:
+        fail(f"the fold under the sync guard: {cap.get('fold_error')}")
     plain = make_tick(slice_config(N, sweep_impl="ranges",
                                    sort_impl="argsort"), device=dev)
     st_p, out_p = plain(first_space(cap["state"]),
@@ -902,22 +1071,56 @@ def world_phase(dev, bare: tuple[float, float], tag: str) -> dict:
     # the World's one-copy fetch against a plain copy of each lane
     fetched = {f.name: getattr(w.last_outputs, f.name)
                for f in dataclasses.fields(w.last_outputs)}
-    fetched["state.pos"], fetched["state.yaw"] = w._dget(
-        [w.state.pos, w.state.yaw])
+    fetched["state.pos"], fetched["state.yaw"], fetched["state.alive"] = \
+        w._dget([w.state.pos, w.state.yaw, w.state.alive])
     plain_copy = dict(lanes(cap["new"][1]), **{
-        "state.pos": w.state.pos, "state.yaw": w.state.yaw})
+        "state.pos": w.state.pos, "state.yaw": w.state.yaw,
+        "state.alive": w.state.alive})
     for name, t in plain_copy.items():
         a, b = np.asarray(fetched[name]), t.cpu().numpy()
         if a.dtype != b.dtype or a.shape != b.shape or \
                 a.tobytes() != b.tobytes():
             fail(f"the World's fetch of {name} differs from .cpu()")
-    del served, w, cap, st_p, out_p, st_w, out_w
+    # one judged audit sample at 2^20, timed: a sample of a full world
+    # is skipped above (its sweep has cells past cell_cap every tick, and
+    # the oracle is exact only without), so a scratch plane whose
+    # ledger holds the World's census judges one with that
+    # precondition lifted; its verdicts are timed, not checked
+    real_ap, gauges = w.audit, {k: w.op_stats[k] for k in (
+        "aoi_over_k_rows", "aoi_over_cap_cells")}
+    scratch = audit_mod.AuditPlane("timing", cohort=real_ap.cohort)
+    scratch.ledger.resync({k: e.type_name for k, e in w.entities.items()
+                           if not e.destroyed}, w.tick_count)
+    t0 = time.perf_counter()
+    aud_planes = tuple(w._dget([w.state.pos[0], w.state.alive[0],
+                                w.state.aoi_radius[0]]))
+    t1 = time.perf_counter()
+    w.audit = scratch
+    w.op_stats.update(dict.fromkeys(gauges, 0))
+    w._audit_sample(aud_planes)
+    t2 = time.perf_counter()
+    scratch.drain()
+    t3 = time.perf_counter()
+    w.audit = real_ap
+    w.op_stats.update(gauges)
+    judged = scratch.oracle_stats
+    scratch.close()
+    print(f"[11] one judged audit sample of the World ({N} slots, "
+          f"cohort {real_ap.cohort}), by the host's clock: its planes' "
+          f"fetch alone {(t1 - t0) * 1e3:.3f} ms "
+          f"({sum(a.nbytes for a in aud_planes)} B), the capture on the "
+          f"logic thread {(t2 - t1) * 1e3:.3f} ms, the oracle on the "
+          f"worker {(t3 - t2) * 1e3:.3f} ms ({judged['entities_checked']}"
+          f" entities judged, {judged['mismatches']} mismatches, which "
+          f"the cells past cell_cap allow) {tag}", flush=True)
+    del served, w, cap, st_p, out_p, st_w, out_w, aud_planes
     release_worlds()
 
-    # twin Worlds of 2^16 slots: kernels against plain versions
+    # twin Worlds of 2^16 slots at their defaults: kernels against plain
+    # versions
     twins = {impl: serve_world(TWIN_N, SEED + 1, dev, record_hooks=True,
-                               keep=True, sweep_impl=impl[0],
-                               sort_impl=impl[1])
+                               keep=True, boot=True, world_kw=PLANES,
+                               sweep_impl=impl[0], sort_impl=impl[1])
              for impl in (("fused", "pallas"), ("ranges", "argsort"))}
     (kern, plain_w) = twins.values()
     counts = {"hooks": 0, "sync records": 0, "messages": 0}
@@ -943,6 +1146,17 @@ def world_phase(dev, bare: tuple[float, float], tag: str) -> dict:
         sb = interop.state_to_numpy(plain_w.world.state)
         if any(sa[k].tobytes() != sb[k].tobytes() for k in sa):
             fail(f"twin Worlds' states differ at tick {t + 1}")
+        ka, kb = kern.world, plain_w.world
+        if ka._telem_lanes != kb._telem_lanes or any(
+                unkeyed(getattr(ka, sig)()) != unkeyed(getattr(kb, sig)())
+                for sig in ("workload_signature", "window_signature")):
+            fail(f"twin Worlds' telemetry lanes or signatures differ at "
+                 f"tick {t + 1}")
+        if audit_state(ka) != audit_state(kb) or \
+                ka.audit.ledger.snapshot(tick=t) != \
+                kb.audit.ledger.snapshot(tick=t):
+            fail(f"twin Worlds' audit stats or ledgers differ at tick "
+                 f"{t + 1}")
         counts["hooks"] += len(kern.hooks)
         counts["sync records"] += sum(len(x[2]) for x in a
                                       if x[0] == "sync")
@@ -952,19 +1166,21 @@ def world_phase(dev, bare: tuple[float, float], tag: str) -> dict:
     if twin_launches != {"kernels": [2] * TWIN_TICKS,
                          "plain": [0] * TWIN_TICKS}:
         fail(f"twin launches a tick {twin_launches}")
+    twin_aud = audit_state(kern.world)["oracle"]
     del twins, kern, plain_w
     release_worlds()
     secs = time.perf_counter() - phase0
     print(f"[11] World step on the kernels == make_tick on ranges/argsort "
           f"bit for bit (a clone of its state and flushed inputs, the step "
-          f"under the sync guard); its one-copy fetch of every output lane "
-          f"and of pos and yaw == .cpu() bit for bit; twin Worlds of "
-          f"{TWIN_N} slots (kernels, plain versions) equal in sinks, hooks "
-          f"and state for "
-          f"{TWIN_TICKS} ticks, walking and stress syncs in turns ({counts}); phase {secs:.1f} s {tag}",
+          f"and the telemetry fold under the sync guard); its one-copy "
+          f"fetch of every output lane and of pos, yaw and alive == .cpu() "
+          f"bit for bit; twin Worlds of {TWIN_N} slots at their defaults "
+          f"(kernels, plain versions) equal in sinks, hooks, state, "
+          f"telemetry lanes, workload and window signatures, audit stats "
+          f"and ledgers for {TWIN_TICKS} ticks, walking and stress syncs in "
+          f"turns ({counts}; audit {twin_aud}); phase {secs:.1f} s {tag}",
           flush=True)
     return {"world": launches, "world_stress": stress_launches}
-
 
 
 def diff_count(a, b):
@@ -1615,7 +1831,7 @@ def main() -> int:
     ship_row, mega_device = mega_path(dev, mc, tag)
     rows.append(ship_row)
     small_oracle(dev)
-    world = world_phase(dev, (p50, p99), tag)
+    world = world_phase(dev, (p50, p99), tag, profiled)
     gate, world["verlet"] = verlet_phase(dev, tag, profiled)
     gate_q16, world["q16"] = q16_phase(dev, tag)
     for row, key in zip(rows[:2], ("sweep_fused", "counting_sort")):

@@ -8,12 +8,17 @@ the host stages all mutations between ticks, flushes them as vectorized
 scatters, runs ONE device step, and fans the step's event arrays back out
 to Python hooks and client messages.
 
-Everything here is the JAX World's Python and numpy, except its four
+Everything here is the JAX World's Python and numpy, except its
 device seams, rewritten for torch:
 
 * the step (:func:`_make_local_tick`): ``make_tick`` on the one Space's
   view of the stacked ``[1, ...]`` state, its outputs restacked as
-  ``unsqueeze(0)`` views (no copy of the state's lanes);
+  ``unsqueeze(0)`` views; with ``resident=True`` (the default) the new
+  carry is copied into the old carry's storage (:func:`_carry_into`),
+  so every lane keeps its address from tick to tick;
+* the live telemetry fold (:mod:`goworld_tpu_torch.ops.telemetry`): the
+  tick's health signals folded into device-resident histogram lanes in
+  place, with no host sync;
 * the staging flush (:meth:`World._flush_staging`): every host lane of a
   flush is built once in numpy, packed into one pinned buffer and copied
   with one non-blocking copy; the scatters write the real rows only
@@ -21,19 +26,31 @@ device seams, rewritten for torch:
   each (slot, column) once, keeping the last staged value on the host
   (a CUDA ``index_put_`` with duplicate indices writes them in no fixed
   order), and never read the device from the host;
-* the output fetch (:meth:`World._fetch`): every output lane in one
-  device-to-host copy and one stream synchronisation, as numpy arrays in
-  the JAX package's types, so the decode (:meth:`World._process_outputs`)
-  is the JAX decode;
+* the output fetch (:meth:`World._fetch`): every output lane, the
+  telemetry accumulator and, on an audit sample tick, the audit's
+  ``pos``/``alive``/``aoi_radius`` planes in one device-to-host copy and
+  one stream synchronisation, as numpy arrays in the JAX package's
+  types, so the decode (:meth:`World._process_outputs`) is the JAX
+  decode;
 * the lazy per-tick position and yaw caches (:meth:`World.read_pos`,
   :meth:`World.read_yaw`).
 
+The World runs the JAX World's default planes, host code as it is
+there: the live telemetry lanes with their workload and window
+signatures, the sync-age anchor, the residency plane
+(:mod:`goworld_tpu_torch.utils.residency`: phase marks, bubble, gc, the
+carry's census on ``data_ptr()`` and the caching allocator's stats) and
+the audit plane (:mod:`goworld_tpu_torch.utils.audit`: the entity
+ledger and a rotating cohort judged against a brute-force oracle on a
+worker thread). A plane that fails disables itself and logs, as in the
+reference; a failure of the step is never caught.
+
 This slice runs one AOI Space on one device (``n_spaces=1``,
 ``mesh=None``). The JAX World's other shapes and planes (several spaces,
-a mesh, the megaspace, pipelined decode, live telemetry, the residency
-and audit planes, delta snapshots, the governor's config swap,
-multihost) raise ``NotImplementedError`` naming ROADMAP.md; none is
-substituted by another path.
+a mesh, the megaspace, pipelined decode, delta snapshots, the
+governor's config swap, the step's cost report, multihost) raise
+``NotImplementedError`` naming ROADMAP.md; none is substituted by
+another path.
 
 Slot lifecycle contract (``SURVEY.md#7``): a slot freed by a host despawn
 is flushed before the step, so its watchers' leave events fire in THAT
@@ -44,6 +61,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import weakref
 from collections import defaultdict
 from typing import Callable
 
@@ -73,8 +91,19 @@ from goworld_tpu_torch.entity.registry import (
 )
 from goworld_tpu_torch.entity.space import Space
 from goworld_tpu_torch.entity.timer import Crontab, PostQueue, TimerQueue
+from goworld_tpu_torch.ops import telemetry as telem
 from goworld_tpu_torch.parallel.mesh import create_multi_state, tile_view
-from goworld_tpu_torch.utils import consts, ids, log, metrics, opmon, tracing
+from goworld_tpu_torch.utils import audit as audit_mod
+from goworld_tpu_torch.utils import (
+    consts,
+    devprof,
+    ids,
+    log,
+    metrics,
+    opmon,
+    tracing,
+)
+from goworld_tpu_torch.utils import residency as residency_mod
 
 logger = log.get("world")
 
@@ -104,20 +133,47 @@ def _lanes_of(obj, fn):
     })
 
 
-def _make_local_tick(cfg: WorldConfig, device):
+def _lane_pairs(dst, src):
+    """(carry lane, new lane) of every lane of two state dataclasses
+    (the Verlet cache's lanes included) whose new value lives elsewhere:
+    a lane the step returned as it got it needs no copy."""
+    for f in dataclasses.fields(dst):
+        a, b = getattr(dst, f.name), getattr(src, f.name)
+        if a is None:
+            continue
+        if dataclasses.is_dataclass(a):
+            yield from _lane_pairs(a, b)
+        elif b.data_ptr() != a.data_ptr():
+            yield a, b
+
+
+def _carry_into(dst: SpaceState, src: SpaceState) -> None:
+    """Write the step's new carry ``src`` into the storage of the old
+    carry ``dst``: the resident carry, whose lanes keep their addresses
+    from tick to tick (the reference donates its carry to the jitted
+    step). Enqueued after the step on the same stream."""
+    pairs = list(_lane_pairs(dst, src))
+    if pairs:
+        torch._foreach_copy_([a for a, _ in pairs], [b for _, b in pairs])
+
+
+def _make_local_tick(cfg: WorldConfig, device, resident: bool = True):
     """The step of a one-Space World: ``make_tick`` on the Space's view
-    of the stacked state (lanes ``[1, ...]``), with the new state and
-    the outputs restacked as ``unsqueeze(0)`` views, so no lane of the
-    state is copied. The JAX World donates its carry into the jitted
-    step; here the World holds the only reference to its carry and
-    replaces it each tick, so ``resident`` has nothing to switch."""
+    of the stacked state (lanes ``[1, ...]``), with the outputs
+    restacked as ``unsqueeze(0)`` views. With ``resident`` the new carry
+    is written into the given state's tensors (:func:`_carry_into`) and
+    that state is returned; without it the new lanes are restacked as
+    views and replace the old ones. Both give the same bits."""
     tick = make_tick(cfg, device=device)
 
     def step1(state: SpaceState, inputs: TickInputs, policy=None):
-        s1, out = tick(tile_view(state, 0),
-                       _lanes_of(inputs, lambda t: t[0]), policy)
-        return (_lanes_of(s1, lambda t: t.unsqueeze(0)),
-                _lanes_of(out, lambda t: t.unsqueeze(0)))
+        view = tile_view(state, 0)
+        s1, out = tick(view, _lanes_of(inputs, lambda t: t[0]), policy)
+        outs = _lanes_of(out, lambda t: t.unsqueeze(0))
+        if resident:
+            _carry_into(view, s1)
+            return state, outs
+        return _lanes_of(s1, lambda t: t.unsqueeze(0)), outs
 
     return step1
 
@@ -175,14 +231,17 @@ class World:
       device: where the state and the step live: the card unless the
         caller asks for the CPU; raises when no card is present.
 
-    ``telemetry_live``, ``residency`` and ``audit`` default to True in
-    the JAX World and to False here, where True raises: those planes are
-    not ported yet, and none of them changes what an entity or a client
-    sees. ``resident`` is accepted with its JAX meaning: both values give
-    the same results, and here the World holds the only reference to its
-    carry either way. The JAX World's knobs of the refused shapes
-    (``migrate_cap``, ``halo_cap``, ``halo_impl``, ``mega_shape``, the
-    planes' sampling rates) are not taken.
+    The planes default as in the JAX World: ``telemetry_live``,
+    ``residency`` and ``audit`` on, sampled every
+    ``residency_sample_every`` and ``audit_sample_every`` ticks, the
+    audit judging ``audit_cohort`` entities a sample. ``resident=True``
+    (the default) keeps the carry's storage from tick to tick: the JAX
+    World deletes an old carry so that reading it raises, which torch
+    cannot do, so a reference to ``w.state``'s tensors taken before a
+    tick sees them overwritten by it (``resident=False`` replaces the
+    lanes instead; both give the same bits). The JAX World's knobs of
+    the refused shapes (``migrate_cap``, ``halo_cap``, ``halo_impl``,
+    ``mega_shape``) are not taken.
     """
 
     def __init__(
@@ -197,10 +256,13 @@ class World:
         megaspace: bool = False,
         pipeline_decode: bool = False,
         resident: bool = True,
-        telemetry_live: bool = False,
+        telemetry_live: bool = True,
         snapshot_keyframe_every: int = 0,
-        residency: bool = False,
-        audit: bool = False,
+        residency: bool = True,
+        residency_sample_every: int = 16,
+        audit: bool = True,
+        audit_sample_every: int = 64,
+        audit_cohort: int = 64,
         device="cuda",
     ):
         if mesh is not None:
@@ -210,8 +272,6 @@ class World:
         if n_spaces != 1:
             raise _refuse(f"n_spaces={n_spaces}", "A7")
         for name, on in (("pipeline_decode", pipeline_decode),
-                         ("telemetry_live", telemetry_live),
-                         ("residency", residency), ("audit", audit),
                          ("snapshot_keyframe_every",
                           snapshot_keyframe_every > 0)):
             if on:
@@ -222,9 +282,77 @@ class World:
         self.game_id = game_id
         self.registry = Registry()
         self.policy = None  # the mlp behavior is not ported
+        self.resident = resident
         self.state: SpaceState = create_multi_state(
             cfg, n_spaces, seed=seed, device=self.device)
-        self._step = _make_local_tick(cfg, self.device)
+        self._step = _make_local_tick(cfg, self.device, resident)
+
+        # the step's cost report, as a lazy devprof provider (run only
+        # when asked for; its report raises until it is ported), held
+        # through a weakref: the registry is process-global and must
+        # not pin a discarded World's device state
+        wself = weakref.ref(self)
+
+        def _tick_cost_provider():
+            w = wself()
+            if w is None:
+                return {"name": "world.tick", "error": "world discarded"}
+            return w.cost_report()
+
+        devprof.register_provider("world.tick", _tick_cost_provider)
+
+        # live device-telemetry lanes: one fold a tick accumulates the
+        # tick's signals on the device with no host sync; the drain
+        # rides the tick's one fetch. Feeds the metrics registry on a
+        # cadence and the workload signature over a rotating window.
+        self.telemetry_live = bool(telemetry_live)
+        self._telem_fn = None
+        self._telem_acc = None
+        self._telem_lanes = None    # latest drained cumulative (host)
+        self._telem_win = None      # window-start cumulative (signature)
+        self._telem_win_tick = 0
+        self._telem_last_window = None  # last COMPLETED window's delta
+        # sync-age provenance (utils/syncage.py): (seq, tick-start wall
+        # us, outputs-host-visible wall us) of the tick whose outputs
+        # the host is fanning out, captured at the one fetch
+        self.sync_age_anchor: tuple[int, int, int] | None = None
+        self._telem_feed_mark = None  # last metrics-fed cumulative
+        # negative start: the FIRST drain feeds the registry, then the
+        # cadence holds
+        self._telem_feed_tick = -self.TELEM_FEED_TICKS
+        if self.telemetry_live:
+            try:
+                self._init_live_telemetry()
+            except Exception:
+                # observability must never take serving down
+                logger.exception("live telemetry init failed; disabled")
+                self._telem_fn = self._telem_acc = None
+
+        # serve-loop residency plane: perf_counter marks riding the
+        # tick's structure, sampled census and allocator stats. Built
+        # outside a try: a bad sampling knob fails loudly, only runtime
+        # sampling degrades.
+        self.residency = None
+        if residency:
+            self.residency = residency_mod.register(
+                f"game{game_id}",
+                residency_mod.ResidencyTracker(
+                    f"game{game_id}",
+                    sample_every=residency_sample_every))
+
+        # correctness audit plane: the entity ledger, fed by the
+        # create/destroy/migrate hooks below, and a sampled AOI oracle
+        # judged on a worker thread against planes that rode the
+        # tick's one fetch. Built outside a try, like residency.
+        self.audit = None
+        self._audit_shard = 0
+        if audit:
+            self.audit = audit_mod.register(
+                f"game{game_id}",
+                audit_mod.AuditPlane(
+                    f"game{game_id}",
+                    sample_every=audit_sample_every,
+                    cohort=audit_cohort))
 
         # host object model
         self.entities: dict[str, Entity] = {}
@@ -364,6 +492,9 @@ class World:
         self._attach(sp, ids.nil_space_id(self.game_id))
         sp.is_nil_space = True
         self.entities[sp.id] = sp
+        if self.audit is not None:
+            self.audit.ledger.on_create(sp.id, "NilSpace",
+                                        self.tick_count)
         self.spaces[sp.id] = sp
         self.nil_space = sp
         if self.on_entity_created is not None:
@@ -399,6 +530,9 @@ class World:
             sp.shard = shard
         self.entities[sp.id] = sp
         self.spaces[sp.id] = sp
+        if self.audit is not None:
+            self.audit.ledger.on_create(sp.id, type_name,
+                                        self.tick_count)
         # explicit attrs dict first (wire path — attr names there may
         # collide with parameter names), then kwarg sugar
         for k, v in {**(attrs or {}), **kw_attrs}.items():
@@ -434,6 +568,9 @@ class World:
             raise ValueError(f"entity id collision: {new_id}")
         self._attach(e, new_id)
         self.entities[e.id] = e
+        if self.audit is not None:
+            self.audit.ledger.on_create(e.id, type_name,
+                                        self.tick_count)
         if attrs:
             load_into(e.attrs, attrs)
         e.OnInit()
@@ -615,6 +752,10 @@ class World:
         if e.destroyed:
             return
         e.destroyed = True
+        if self.audit is not None:
+            # the ledger tracks LIVE entities; the host object may
+            # linger in self.entities until its leave events drain
+            self.audit.ledger.on_destroy(e.id, self.tick_count)
         try:
             e.OnDestroy()
         except Exception:
@@ -979,8 +1120,11 @@ class World:
     # ==================================================================
     def get_migrate_data(self, e: Entity) -> dict:
         """Everything needed to recreate the entity on another game: all
-        attrs, client binding, pos/yaw, migration-safe timers."""
-        return {
+        attrs, client binding, pos/yaw, migration-safe timers — plus the
+        audit ownership seq the target's ledger validates against
+        re-delivered or stale ghosts (``remove_for_migration`` commits
+        the matching ledger move, back to back on the logic thread)."""
+        data = {
             "type": e.type_name,
             "id": e.id,
             "attrs": e.attrs.to_dict(),
@@ -992,12 +1136,27 @@ class World:
             "yaw": e.yaw,
             "timers": self.timers.dump(list(e.timer_ids)),
         }
+        if self.audit is not None:
+            data["own_seq"] = self.audit.ledger.next_seq(e.id)
+        return data
 
-    def remove_for_migration(self, e: Entity) -> None:
+    def remove_for_migration(self, e: Entity, target: int = 0,
+                             out_tick: int | None = None) -> None:
         """Tear down the local copy WITHOUT destroy semantics — no
         OnDestroy, no persistence, no client destroy message (the client
         binding travels in the migrate data; reference
-        ``destroyEntity(isMigrate=true)``, ``Entity.go:631-651``)."""
+        ``destroyEntity(isMigrate=true)``, ``Entity.go:631-651``).
+
+        ``target`` names the destination game in the ledger's in-flight
+        record; ``out_tick`` stamps the entity at its own send tick
+        (default: the current tick)."""
+        if self.audit is not None:
+            # ledger move-out: opens an in-flight record the target's
+            # migrate-in must retire within the conservation grace
+            self.audit.ledger.stamp_migrate_out(
+                e.id,
+                self.tick_count if out_tick is None else int(out_tick),
+                target=int(target))
         e.OnMigrateOut()
         for tid in list(e.timer_ids):
             self.timers.cancel(tid)
@@ -1021,6 +1180,10 @@ class World:
         e._type_desc = desc
         self._attach(e, data["id"])
         self.entities[e.id] = e
+        if self.audit is not None:
+            self.audit.ledger.on_migrate_in(
+                e.id, data["type"], data.get("own_seq", 0),
+                self.tick_count)
         load_into(e.attrs, data["attrs"])
         if data.get("client"):
             # direct assignment = the reference's "re-assign client
@@ -1049,22 +1212,111 @@ class World:
         self.storage.save(e.type_name, e.id, e.get_persistent_data())
 
     # ==================================================================
+    # live device telemetry
+    # ==================================================================
+    # cadence constants (ticks): how often the drained lanes feed the
+    # metrics registry, and how often the signature window rotates (the
+    # signature reads the delta since the last rotation, so it always
+    # covers the most recent 1-2 windows)
+    TELEM_FEED_TICKS = 32
+    SIG_WINDOW_TICKS = 256
+
+    def _init_live_telemetry(self) -> None:
+        cfg = self.cfg
+        # the skin lane exists only where the Verlet cache is live in
+        # the step (the state carries a cache, and capacity is inside
+        # the packed-id bound)
+        skin_on = (cfg.grid.skin > 0
+                   and getattr(self.state, "aoi_cache", None) is not None
+                   and cfg.capacity < (1 << consts.AOI_ID_BITS))
+        self._telem_skin_on = skin_on
+        self._telem_half_skin = cfg.grid.skin / 2.0 if skin_on else 0.0
+        self._telem_acc = telem.telemetry_init(
+            skin_on, occupancy=True, n_tiles=self.n_spaces,
+            device=self.device)
+        self._telem_fn = telem.make_fold(half_skin=self._telem_half_skin)
+
+    def _ingest_telemetry(self, acc_host) -> None:
+        """Host half of the live lanes (called with the accumulator
+        copy that rode the tick's fetch): keep the cumulative drain,
+        feed the metrics registry and rotate the signature window on
+        their cadences."""
+        lanes = telem.telemetry_drain(
+            acc_host, self._telem_skin_on, self._telem_half_skin)
+        self._telem_lanes = lanes
+        if self.tick_count - self._telem_feed_tick \
+                >= self.TELEM_FEED_TICKS:
+            self._feed_telemetry_metrics(lanes)
+            self._telem_feed_tick = self.tick_count
+        if self.tick_count - self._telem_win_tick \
+                >= self.SIG_WINDOW_TICKS:
+            # stash the just-COMPLETED window's delta before rotating:
+            # a governor judges whole windows
+            self._telem_last_window = telem.lanes_delta(
+                lanes, self._telem_win)
+            self._telem_win = lanes
+            self._telem_win_tick = self.tick_count
+
+    def _feed_telemetry_metrics(self, lanes: dict) -> None:
+        """Drained lanes -> metrics registry: one histogram per lane
+        (`telemetry_<lane>`; increment = the delta since the last feed)
+        plus per-tile occupancy gauges. The tick_ms lane is skipped (the
+        live wall latency has its own series)."""
+        delta = telem.lanes_delta(lanes, self._telem_feed_mark)
+        for nm, lane in delta.items():
+            if nm == "tick_ms" or not isinstance(lane, dict) \
+                    or "counts" not in lane:
+                continue
+            metrics.histogram(
+                f"telemetry_{nm}", buckets=tuple(lane["edges"]),
+            ).add_counts(lane["counts"])
+        per_tile = (lanes.get("occupancy") or {}).get("per_tile")
+        if per_tile is not None:
+            for i, c in enumerate(per_tile):
+                metrics.gauge("telemetry_tile_occupancy",
+                              tile=str(i)).set(c)
+        self._telem_feed_mark = lanes
+
+    def workload_signature(self) -> dict | None:
+        """The live workload signature over the recent window (the
+        reducer of ops/telemetry.py on the drained-lane delta since the
+        last window rotation), stamped with the resolved kernel-config
+        key. None until the first tick has drained (or when
+        telemetry_live is off)."""
+        if self._telem_lanes is None:
+            return None
+        delta = telem.lanes_delta(self._telem_lanes, self._telem_win)
+        sig = telem.workload_signature(
+            delta, config=devprof.grid_config_key(self.cfg.grid))
+        sig["game_id"] = self.game_id
+        sig["tick"] = self.tick_count
+        sig["window_ticks"] = self.tick_count - self._telem_win_tick
+        return sig
+
+    def window_signature(self) -> dict | None:
+        """The signature of the last COMPLETED rotation window (a
+        governor's decision input). None until the first window has
+        rotated."""
+        if self._telem_last_window is None:
+            return None
+        sig = telem.workload_signature(
+            self._telem_last_window,
+            config=devprof.grid_config_key(self.cfg.grid))
+        sig["game_id"] = self.game_id
+        sig["tick"] = self.tick_count
+        sig["window_ticks"] = self.SIG_WINDOW_TICKS
+        return sig
+
+    # ==================================================================
     # planes of the JAX World that this slice refuses
     # ==================================================================
     def apply_tick_config(self, *args, **kwargs) -> None:
         """The governor's live config swap (not ported yet)."""
         raise _refuse("apply_tick_config (the autotune governor)")
 
-    def workload_signature(self) -> dict | None:
-        """The live workload signature (not ported yet)."""
-        raise _refuse("workload_signature (live telemetry)")
-
-    def window_signature(self) -> dict | None:
-        """The last window's workload signature (not ported yet)."""
-        raise _refuse("window_signature (live telemetry)")
-
     def cost_report(self):
-        """The compiled step's cost report (not ported yet)."""
+        """The compiled step's cost report (not ported yet: it reads an
+        XLA executable's cost analysis, which a torch step has not)."""
         raise _refuse("cost_report (devprof)")
 
     # ==================================================================
@@ -1087,6 +1339,14 @@ class World:
 
     def _tick_phases(self, tl) -> None:
         t_start = time.perf_counter()
+        # serve-loop residency marks: perf_counter instants at the
+        # phase boundaries; nothing here touches the device
+        rt = self.residency
+        if rt is not None:
+            rt.tick_begin()
+        # sync-age epoch: this tick's state is decided by the inputs
+        # flushed below, so the age of what it produces starts HERE
+        age_mark = (self.tick_count, int(time.time() * 1e6))
         with tl.span("flush_staging"):
             self.timers.tick(self._fire_timer)
             self.crontab.tick()
@@ -1096,12 +1356,52 @@ class World:
         t0 = time.perf_counter()
         with tl.span("device_step"):
             self.state, outs = self._step(self.state, inputs, self.policy)
+            if self._telem_fn is not None:
+                # fold THIS tick's outputs into the device lanes, in
+                # place, no host sync; a fold failure disables the
+                # lanes, never the tick
+                try:
+                    self._telem_acc = self._telem_fn(self._telem_acc, outs)
+                except Exception:
+                    logger.exception(
+                        "live telemetry fold failed; disabled")
+                    self._telem_fn = self._telem_acc = None
+        if rt is not None:
+            # the device has work from HERE: closes the previous
+            # inter-dispatch gap
+            rt.mark_dispatch()
+        # audit-oracle cohort planes: on a sample tick the judged
+        # shard's pos/alive/aoi_radius ride the same fetch below
+        aud_req = None
+        ap = self.audit
+        if ap is not None and ap.want_sample(self.tick_count):
+            s = self._audit_shard % self.n_spaces
+            aud_req = (self.state.pos[s], self.state.alive[s],
+                       self.state.aoi_radius[s])
         with tl.span("fetch_outputs"):
-            outs = self._fetch(outs)
+            if rt is not None:
+                rt.mark_fetch()
+            outs, acc_host, aud_host = self._fetch(
+                outs, self._telem_acc, aud_req)
+            if rt is not None:
+                # outputs are host-visible: the device_wait lane ends
+                rt.mark_visible()
+            if acc_host is not None:
+                try:
+                    self._ingest_telemetry(acc_host)
+                except Exception:
+                    logger.exception(
+                        "live telemetry drain failed; disabled")
+                    self._telem_fn = self._telem_acc = None
+        # outputs are host-visible NOW: close the device_tick lane
+        self.sync_age_anchor = (age_mark[0], age_mark[1],
+                                int(time.time() * 1e6))
         # launch of the step plus the wait for its outputs: how long
         # this frame waited on the device
         dt = time.perf_counter() - t0
         self.op_stats["device_step_s"] = dt
+        if rt is not None:
+            rt.observe_device_step(dt)
         tl.set_tick_args(device_step_ms=round(dt * 1e3, 3),
                          tick=self.tick_count)
         with tl.span("decode_fanout"):
@@ -1109,8 +1409,141 @@ class World:
             self._process_outputs(outs)
             self._drain_attr_journals()
             self.post_q.tick()
+        ap = self.audit
+        if ap is not None and ap.want_sample(self.tick_count):
+            # capture the cohort + frozen interest sets HERE (the decode
+            # just made them current), hand the oracle to the worker;
+            # a capture failure disables the plane, never the tick
+            try:
+                self._audit_sample(aud_host)
+            except Exception:
+                logger.exception("audit sampling failed; disabled")
+                self.audit = None
+        if rt is not None:
+            rt.mark_decode_done()
+            if rt.should_sample(self.tick_count):
+                # sampled census (address reads) and allocator stats;
+                # a probe failure disables the plane, never the tick
+                try:
+                    rt.sample_census(self.state)
+                    rt.sample_memory(self.device, self.tick_count)
+                except Exception:
+                    logger.exception(
+                        "residency sampling failed; disabled")
+                    self.residency = None
         self.tick_count += 1
         opmon.monitor.record("world.tick", time.perf_counter() - t_start)
+
+    # -- correctness audit sampling --------------------------------------
+    def _audit_sample(self, aud_host) -> None:
+        """Logic-thread half of one audit sample: decide eligibility
+        (every skip recorded with its reason), run the cohort-bounded
+        mirror probes inline, freeze the cohort's interest sets and the
+        ledger census, and hand the oracle math to the audit worker. No
+        device sync: ``aud_host`` rode the tick's fetch."""
+        ap = self.audit
+        tick = self.tick_count
+        if aud_host is None:
+            ap.skip_sample("no_fetch", tick)
+            return
+        if (self.op_stats.get("aoi_over_k_rows")
+                or self.op_stats.get("aoi_over_cap_cells")):
+            # the oracle's exactness precondition: a sweep that
+            # overflowed k/cell_cap is approximate by design
+            ap.skip_sample("overflow", tick)
+            return
+        s = self._audit_shard % self.n_spaces
+        self._audit_shard += 1
+        owner = dict(self._slot_owner[s])
+        if not owner:
+            ap.skip_sample("empty", tick)
+            return
+        # slots whose device rows lag the host this tick (staged
+        # spawns/despawns/moves from decode callbacks, in-flight
+        # migrations): judging them would manufacture mismatches
+        pending = {sl for sh, sl, _ in self._staged_spawn if sh == s}
+        pending |= {sl for sh, sl in self._staged_despawn if sh == s}
+        pending |= {sl for sh, sl in self._staged_pos if sh == s}
+        eligible = []
+        for slot, eid in owner.items():
+            if slot in pending:
+                continue
+            e = self.entities.get(eid)
+            if (e is None or e.destroyed or e.slot is None
+                    or e._migrating is not None
+                    or e._pending_pos is not None):
+                continue
+            eligible.append(slot)
+        cohort = ap.next_cohort(eligible)
+        if not cohort:
+            ap.skip_sample("empty", tick)
+            return
+        # mirror consistency probes, inline (cohort-bounded): slot->eid
+        # mirror columns, client binding columns, interested_by edges
+        probe_bad = 0
+        for slot in cohort:
+            eid = owner[slot]
+            e = self.entities[eid]
+            if self._mir_eid[s, slot] != eid.encode("ascii"):
+                probe_bad += 1
+                ap.ledger.note_violation(
+                    "mirror_slot",
+                    f"slot mirror [{s},{slot}] holds "
+                    f"{self._mir_eid[s, slot]!r}, host says EntityID "
+                    f"{eid} (tick {tick})", tick)
+            cid = e.client.client_id.encode("ascii") \
+                if e.client is not None else b""
+            gid = e.client.gate_id if e.client is not None else -1
+            if (self._mir_cid[s, slot] != cid
+                    or int(self._mir_gate[s, slot]) != gid):
+                probe_bad += 1
+                ap.ledger.note_violation(
+                    "mirror_client",
+                    f"client mirror [{s},{slot}] diverges for EntityID "
+                    f"{eid}: cols ({self._mir_cid[s, slot]!r}, "
+                    f"{int(self._mir_gate[s, slot])}) vs host "
+                    f"({cid!r}, {gid}) (tick {tick})", tick)
+            for jid in e.interested_in:
+                je = self.entities.get(jid)
+                if je is None or eid not in je.interested_by:
+                    probe_bad += 1
+                    ap.ledger.note_violation(
+                        "interest_symmetry",
+                        f"EntityID {eid} watches {jid} but is not in "
+                        f"its interested_by (tick {tick})", tick)
+        ap.note_probe(len(cohort), probe_bad)
+        # ledger-vs-world census cross-check: both sides frozen NOW on
+        # the logic thread (the worker only diffs)
+        world_live = {eid for eid, e in self.entities.items()
+                      if not e.destroyed}
+        ledger_live = ap.ledger.live_eids()
+        # frozen interest sets for the cohort (the worker must not
+        # chase live sets the next tick is already mutating)
+        interest = {owner[slot]: set(self.entities[owner[slot]]
+                                     .interested_in)
+                    for slot in cohort}
+        pos, alive, wr = aud_host
+        quant_step = quant_hi = None
+        if self.cfg.grid.precision != "off":
+            quant_step = self.cfg.grid.quant_step
+            quant_hi = (1 << consts.PRECISION_POS_BITS) - 1
+        radius = self.cfg.grid.radius
+
+        def _job():
+            diff = sorted(world_live ^ ledger_live)
+            if diff:
+                ap.ledger.note_violation(
+                    "census_divergence",
+                    f"ledger and world census diverge at EntityID "
+                    f"{diff[0]} ({len(diff)} differ; tick {tick})",
+                    tick)
+            ap.judge_sample(
+                tick=tick, pos=pos, alive=alive, watch_radius=wr,
+                radius=radius, cohort_slots=cohort, owner=owner,
+                interest=interest, quant_step=quant_step,
+                quant_hi=quant_hi or 0)
+
+        ap.submit(_job)
 
     # -- staging flush --------------------------------------------------
     def _flush_staging(self) -> TickInputs:
@@ -1576,13 +2009,20 @@ class World:
     # device reads
     # ==================================================================
     def _dget(self, lanes: list[torch.Tensor]) -> list[np.ndarray]:
-        """Host copies of device ``lanes`` (32-bit types), as numpy in
-        the JAX package's types: one concatenation of the lanes' words,
-        one copy to the host and, on a card, one stream synchronisation
-        (the copy goes into pinned memory, non-blocking), whatever the
-        number of lanes."""
-        src = torch.cat([t.detach().reshape(-1).view(torch.int32)
-                         for t in lanes])
+        """Host copies of device ``lanes`` (32-bit or 1-byte types), as
+        numpy in the JAX package's types: one concatenation of the
+        lanes' 32-bit words (a 1-byte lane, such as ``alive``, padded
+        to whole words first), one copy to the host and, on a card, one
+        stream synchronisation (the copy goes into pinned memory,
+        non-blocking), whatever the number of lanes."""
+        words = []
+        for t in lanes:
+            t = t.detach().reshape(-1)
+            if t.element_size() == 1:
+                pad = t.new_zeros(-t.numel() % 4, dtype=torch.uint8)
+                t = torch.cat([t.view(torch.uint8), pad])
+            words.append(t.view(torch.int32))
+        src = torch.cat(words)
         if self.device.type == "cuda":
             host = torch.empty(src.shape, dtype=torch.int32,
                                pin_memory=True)
@@ -1590,23 +2030,40 @@ class World:
             torch.cuda.current_stream(self.device).synchronize()
         else:
             host = src  # torch.cat made it: a copy of every lane
-        words = host.numpy()
+        got = host.numpy()
         out, off = [], 0
         for t in lanes:
             n = t.numel()
-            a = words[off:off + n]
-            if t.dtype == torch.float32:
-                a = a.view(np.float32)
+            if t.element_size() == 1:
+                nw = -(-n // 4)
+                a = got[off:off + nw].view(np.uint8)[:n].view(
+                    np.bool_ if t.dtype == torch.bool else np.uint8)
+            else:
+                nw = n
+                a = got[off:off + n]
+                if t.dtype == torch.float32:
+                    a = a.view(np.float32)
             out.append(a.reshape(tuple(t.shape)))
-            off += n
+            off += nw
         return out
 
-    def _fetch(self, outs: TickOutputs) -> TickOutputs:
-        """The step's outputs as numpy lanes, in one transfer."""
+    def _fetch(self, outs: TickOutputs, acc=None, aud=None) -> tuple:
+        """The step's outputs as numpy lanes, with the telemetry
+        accumulator ``acc`` (a dict of lanes) and the audit planes
+        ``aud`` (a tuple) when given, all in one transfer: (outputs,
+        host accumulator or None, host audit planes or None)."""
         names = [f.name for f in dataclasses.fields(outs)
                  if getattr(outs, f.name) is not None]
-        got = self._dget([getattr(outs, n) for n in names])
-        return dataclasses.replace(outs, **dict(zip(names, got)))
+        lanes = [getattr(outs, n) for n in names]
+        acc_keys = list(acc) if acc is not None else []
+        lanes += [acc[k] for k in acc_keys]
+        lanes += list(aud) if aud is not None else []
+        got = self._dget(lanes)
+        n, m = len(names), len(acc_keys)
+        return (dataclasses.replace(outs, **dict(zip(names, got[:n]))),
+                dict(zip(acc_keys, got[n:n + m])) if acc is not None
+                else None,
+                tuple(got[n + m:]) if aud is not None else None)
 
     def read_pos(self, shard: int, slot: int) -> np.ndarray:
         if self._pos_cache is None:

@@ -1,7 +1,8 @@
 """Where one tick's time goes on the card.
 
     python -m goworld_tpu_torch.profile_tick [--n 1048576] [--ticks 20]
-                                             [--mega TILES | --world |
+                                             [--mega TILES |
+                                              --world [--planes on|off] |
                                               --uncut [--q16]]
                                              [--out chiprun_out]
     PYTHONPATH=DIR python goworld_tpu_torch/profile_tick.py ...
@@ -44,6 +45,14 @@ interest list changed (each beside its cap in ``caps``),
 timeline, ``step_event_ms``: the step by CUDA events around it, and
 ``busy_ms`` / ``idle_share`` / ``kernels_top`` / ``csrc_kernels`` over
 a profiled window of ticks (idle against the ticks' host wall).
+``--planes on`` (the default) builds the World at its defaults: the
+live telemetry fold, the residency and audit planes and the resident
+carry; ``fold_event_ms`` and ``carry_event_ms`` are the fold's and the
+carry copy's device time by CUDA events around them (the step's events
+include the copy), ``audit_tick_ms`` the walls of the ticks that took
+an audit sample. ``--planes off`` builds the World without any of them
+(``resident=False``), as it served before the planes, so the planes'
+cost reads as the difference of two runs.
 
 With ``--uncut``, the bench world uncut (:func:`workload.uncut_config`:
 the Verlet skin of 4, syncs with repeats), whose sweep stage is
@@ -75,6 +84,7 @@ import torch
 from goworld_tpu_torch import kernels
 from goworld_tpu_torch.core import step
 from goworld_tpu_torch.core.step import make_tick
+from goworld_tpu_torch.entity import manager
 from goworld_tpu_torch.ops import aoi
 from goworld_tpu_torch.parallel import halo, megaspace
 from goworld_tpu_torch.parallel import migrate as mig
@@ -221,34 +231,52 @@ def _device_rows(prof, window: int):
     return busy_ms, top, csrc, memset_ms
 
 
+def _event_timed(fn, events: list):
+    """``fn`` with CUDA events recorded around each call into
+    ``events``."""
+    def timed(*args, **kwargs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn(*args, **kwargs)
+        b.record()
+        events.append((a, b))
+        return out
+
+    return timed
+
+
 def _world_main(args, card: str) -> int:
     """``--world``: where a served World.tick's time goes."""
-    served = serve_world(args.n, seed=0, device="cuda")
+    on = args.planes == "on"
+    world_kw = {} if on else dict(telemetry_live=False, residency=False,
+                                  audit=False, resident=False)
+    served = serve_world(args.n, seed=0, device="cuda", world_kw=world_kw)
     w = served.world
     for _ in range(3):
         served.stage()
         w.tick()
     real, events = w._step, []
-
-    def timed(state, inputs, policy=None):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        out = real(state, inputs, policy)
-        b.record()
-        events.append((a, b))
-        return out
-
-    w._step = timed
-    walls, counts = [], []
+    w._step = _event_timed(real, events)
+    fold_events, carry_events = [], []
+    real_fold, real_carry = w._telem_fn, manager._carry_into
+    if real_fold is not None:
+        w._telem_fn = _event_timed(real_fold, fold_events)
+    manager._carry_into = _event_timed(real_carry, carry_events)
+    walls, counts, audit_walls = [], [], []
     names = ("enter_n", "leave_n", "sync_n", "delta_rows_n")
     for _ in range(args.ticks):
         served.stage()
+        sample = w.audit is not None and w.audit.want_sample(w.tick_count)
         t0 = time.perf_counter()
         w.tick()
         walls.append((time.perf_counter() - t0) * 1e3)
+        if sample:
+            audit_walls.append(walls[-1])
         counts.append([int(getattr(w.last_outputs, k)[0]) for k in names])
-    w._step = real
+    w._step, manager._carry_into = real, real_carry
+    if real_fold is not None:
+        w._telem_fn = real_fold
     torch.cuda.synchronize()
     spans: dict[str, list] = {}
     for rec in metrics.timeline.records()[-args.ticks:]:
@@ -268,7 +296,7 @@ def _world_main(args, card: str) -> int:
     busy_ms, top, csrc, memset_ms = _device_rows(prof, window)
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    (out / "profile_tick_world.txt").write_text(
+    (out / f"profile_tick_world_{args.planes}.txt").write_text(
         f"{card}\n" + prof.key_averages().table(
             sort_by="device_time_total", row_limit=60))
     print(json.dumps({
@@ -280,6 +308,14 @@ def _world_main(args, card: str) -> int:
                  for k in names},
         "spans_ms": {k: _stats(v) for k, v in spans.items()},
         "step_event_ms": _stats([a.elapsed_time(b) for a, b in events]),
+        "planes": args.planes,
+        "fold_event_ms": _stats([a.elapsed_time(b)
+                                 for a, b in fold_events])
+        if fold_events else None,
+        "carry_event_ms": _stats([a.elapsed_time(b)
+                                  for a, b in carry_events])
+        if carry_events else None,
+        "audit_tick_ms": audit_walls,
         "window_ticks": window, "window_wall_ms": wall_ms,
         "busy_ms": busy_ms / window,
         "idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
@@ -297,6 +333,9 @@ def main(argv=None) -> int:
                     help="profile the megaspace tick over TILES tiles")
     ap.add_argument("--world", action="store_true",
                     help="profile the served World's tick")
+    ap.add_argument("--planes", choices=("on", "off"), default="on",
+                    help="with --world: the World at its defaults, or "
+                         "without its planes and resident carry")
     ap.add_argument("--uncut", action="store_true",
                     help="profile the bench world uncut (the Verlet skin)")
     ap.add_argument("--q16", action="store_true",

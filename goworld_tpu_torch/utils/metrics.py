@@ -1,9 +1,11 @@
 """Metrics registry and per-tick timeline, the part of
-``goworld_tpu/utils/metrics.py`` that the World uses.
+``goworld_tpu/utils/metrics.py`` that the World and its planes use.
 
-* :class:`Registry` — process-wide counters and gauges keyed by name
-  and labels, the port's own: its series never mix with the JAX
-  package's in one process.
+* :class:`Registry` — process-wide counters, gauges and fixed-bucket
+  histograms keyed by name and labels, the port's own: its series never
+  mix with the JAX package's in one process. The histograms take the
+  drained telemetry lanes (:meth:`Histogram.add_counts`) and back the
+  sync-age and residency trackers.
 * :class:`TickTimeline` — a ring buffer of per-tick phase spans. The
   World opens a tick record and times its four phases in it
   (``flush_staging``, ``device_step``, ``fetch_outputs``,
@@ -12,18 +14,26 @@
   :meth:`TickTimeline.records`.
 
 A span is two ``perf_counter`` calls and one tuple append, so the
-recorder stays on. The histograms, the Prometheus export and the Chrome
-trace export serve the debug HTTP endpoints, which are not ported yet.
+recorder stays on. The Prometheus export and the Chrome trace export
+serve the debug HTTP endpoints, which are not ported yet.
 """
 
 from __future__ import annotations
 
+import bisect
 import threading
 import time
 from collections import deque
+from typing import Any
 
-__all__ = ["Counter", "Gauge", "Registry", "TickTimeline", "REGISTRY",
-           "counter", "gauge", "timeline"]
+__all__ = ["Counter", "Gauge", "Histogram", "Registry", "TickTimeline",
+           "REGISTRY", "counter", "gauge", "histogram", "timeline",
+           "DEFAULT_MS_BUCKETS"]
+
+# latency buckets in milliseconds: sub-ms through the 16 ms roofline
+# frame up to multi-second stalls
+DEFAULT_MS_BUCKETS = (0.25, 0.5, 1.0, 2.0, 4.0, 8.0, 16.0, 33.0, 66.0,
+                      133.0, 266.0, 533.0, 1066.0, 2133.0, 4266.0)
 
 
 class Counter:
@@ -66,37 +76,130 @@ class Gauge:
             return self._v
 
 
+class Histogram:
+    """Fixed-bucket histogram: per-bucket counts + sum + count. Buckets
+    are upper bounds; an implicit ``+Inf`` bucket catches the rest."""
+
+    __slots__ = ("_lock", "_uppers", "_counts", "_sum", "_count")
+
+    def __init__(self, buckets=DEFAULT_MS_BUCKETS):
+        uppers = sorted(float(b) for b in buckets)
+        if not uppers:
+            raise ValueError("histogram needs at least one bucket")
+        self._lock = threading.Lock()
+        self._uppers = uppers
+        self._counts = [0] * (len(uppers) + 1)  # last = +Inf
+        self._sum = 0.0
+        self._count = 0
+
+    def observe(self, v: float) -> None:
+        i = bisect.bisect_left(self._uppers, v)
+        with self._lock:
+            self._counts[i] += 1
+            self._sum += v
+            self._count += 1
+
+    def observe_n(self, v: float, n: int) -> None:
+        """``n`` samples of the same value in one locked update (the
+        record-weighted sync-age lanes)."""
+        if n <= 0:
+            return
+        i = bisect.bisect_left(self._uppers, v)
+        with self._lock:
+            self._counts[i] += n
+            self._sum += v * n
+            self._count += n
+
+    def add_counts(self, counts, sum_: float = 0.0) -> None:
+        """Merge a pre-bucketed count vector (``len(uppers)+1``
+        entries, last = +Inf): the drained telemetry lanes, bucketed on
+        the device with this class's bisect_left-on-upper-edges rule.
+        ``sum_`` is optional: the lanes carry no per-sample sum."""
+        if len(counts) != len(self._uppers) + 1:
+            raise ValueError(
+                f"count vector has {len(counts)} entries, histogram "
+                f"has {len(self._uppers) + 1} buckets"
+            )
+        with self._lock:
+            n = 0
+            for i, c in enumerate(counts):
+                c = int(c)
+                self._counts[i] += c
+                n += c
+            self._count += n
+            self._sum += float(sum_)
+
+    def snapshot(self) -> dict[str, Any]:
+        with self._lock:
+            return {
+                "buckets": list(zip(self._uppers, self._counts)),
+                "inf": self._counts[-1],
+                "sum": self._sum,
+                "count": self._count,
+            }
+
+    @property
+    def count(self) -> int:
+        with self._lock:
+            return self._count
+
+    @property
+    def sum(self) -> float:
+        with self._lock:
+            return self._sum
+
+
 class Registry:
     """Process-wide metric registry. Metrics are created on first use
     and returned again on re-request (same name + labels), so call
-    sites can hold direct references to the hot-path objects."""
+    sites can hold direct references to the hot-path objects. A
+    histogram family keeps the buckets of its first registration."""
 
     def __init__(self):
         self._lock = threading.Lock()
-        # name -> (kind, help, {label-key tuple: metric})
-        self._families: dict[str, tuple[str, str, dict]] = {}
+        # name -> (kind, help, buckets, {label-key tuple: metric})
+        self._families: dict[str, tuple[str, str, tuple | None, dict]] = {}
 
-    def _get(self, kind: str, name: str, help_: str,
+    def _get(self, kind: str, name: str, help_: str, buckets,
              labels: dict[str, str]):
         key = tuple(sorted((k, str(v)) for k, v in labels.items()))
         with self._lock:
             fam = self._families.get(name)
             if fam is None:
-                fam = self._families[name] = (kind, help_, {})
+                fam = self._families[name] = (kind, help_, buckets, {})
             elif fam[0] != kind:
                 raise ValueError(
                     f"metric {name!r} already registered as {fam[0]}")
-            m = fam[2].get(key)
+            m = fam[3].get(key)
             if m is None:
-                m = fam[2][key] = Counter() if kind == "counter" \
-                    else Gauge()
+                if kind == "counter":
+                    m = Counter()
+                elif kind == "gauge":
+                    m = Gauge()
+                else:
+                    m = Histogram(fam[2])
+                fam[3][key] = m
             return m
 
     def counter(self, name: str, help: str = "", **labels) -> Counter:
-        return self._get("counter", name, help, labels)
+        return self._get("counter", name, help, None, labels)
 
     def gauge(self, name: str, help: str = "", **labels) -> Gauge:
-        return self._get("gauge", name, help, labels)
+        return self._get("gauge", name, help, None, labels)
+
+    def histogram(self, name: str, buckets=DEFAULT_MS_BUCKETS,
+                  help: str = "", **labels) -> Histogram:
+        return self._get("histogram", name, help, tuple(buckets), labels)
+
+    def histogram_snapshot(self, name: str) -> list | None:
+        """``[(labels, Histogram.snapshot()), ...]`` for a histogram
+        family, or None when it doesn't exist (or isn't a histogram)."""
+        with self._lock:
+            fam = self._families.get(name)
+            if fam is None or fam[0] != "histogram":
+                return None
+            children = list(fam[3].items())
+        return [(dict(key), m.snapshot()) for key, m in children]
 
 
 
@@ -191,3 +294,7 @@ def counter(name: str, help: str = "", **labels) -> Counter:
 def gauge(name: str, help: str = "", **labels) -> Gauge:
     return REGISTRY.gauge(name, help=help, **labels)
 
+
+def histogram(name: str, buckets=DEFAULT_MS_BUCKETS, help: str = "",
+              **labels) -> Histogram:
+    return REGISTRY.histogram(name, buckets=buckets, help=help, **labels)

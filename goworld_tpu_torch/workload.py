@@ -284,6 +284,8 @@ class Served:
     player_xz: np.ndarray    # f64[P, 2] where each player stands
     heading: np.ndarray      # f64[P] each player's walking direction
     created: int = 0
+    boot_ticks: int = 0      # ticks the population entered through
+    boot_events: int = 0     # their enter events
 
     def _new_id(self) -> str:
         self.created += 1
@@ -381,16 +383,27 @@ def _game_types(hooks: list | None):
 
 def serve_world(n: int, seed: int, device="cuda", *,
                 record_hooks: bool = False, keep: bool = False,
+                boot: bool = False, world_kw: dict | None = None,
                 **grid_kw) -> Served:
     """A served game on ``slice_config(n, **grid_kw)``: one ``World``
-    with one AOI Space ("Arena") and two types, ``Mob`` (a random-walk
-    mover, ``ATTRS={"hp": "allclients hot:0"}``) and ``Player`` (bound to
-    a ``GameClient``, moved by client syncs). ``n - SERVE_SPARE``
+    (at its defaults, the planes on, or with ``world_kw``) with one AOI
+    Space ("Arena") and two types, ``Mob`` (a random-walk mover,
+    ``ATTRS={"hp": "allclients hot:0"}``) and ``Player`` (bound to a
+    ``GameClient``, moved by client syncs). ``n - SERVE_SPARE``
     entities are created through ``Space.create_entity`` at positions
     uniform over the extent from ``np.random.default_rng(seed)``,
     CLIENT_FRAC of them players. The sinks count (``keep`` also keeps
     what they get); with ``record_hooks`` the AOI and space-enter hooks
     append to ``Served.hooks``.
+
+    Without ``boot`` the whole population enters on the first tick the
+    caller runs, whose enter events far exceed ``enter_cap``: the
+    decoded interest sets are then missing most pairs for good (a
+    capped, lossy state that the audit plane reports). With ``boot``
+    the population enters through ticks run here, in batches sized so
+    that a tick's enter events stay within half of ``enter_cap``
+    (:func:`_boot_batch`), and a boot tick whose events overflow any
+    cap raises: the served game starts with exact interest sets.
 
     The population ends as the JAX package's game server boots
     (``net/game.py`` ``serve_forever``, ini ``gc_freeze``): one
@@ -402,7 +415,7 @@ def serve_world(n: int, seed: int, device="cuda", *,
     hooks = [] if record_hooks else None
     mob_cls, player_cls, arena_cls = _game_types(hooks)
     t0 = time.perf_counter()
-    w = World(cfg, seed=seed, device=device)
+    w = World(cfg, seed=seed, device=device, **(world_kw or {}))
     w.register_entity("Mob", mob_cls)
     w.register_entity("Player", player_cls)
     w.register_space("Arena", arena_cls)
@@ -420,17 +433,41 @@ def serve_world(n: int, seed: int, device="cuda", *,
     pos = served._pos(pop)
     is_player = rng.random(pop) < CLIENT_FRAC
     players = []
-    for i in range(pop):
-        p = tuple(pos[i])
-        if is_player[i]:
-            e = arena.create_entity(
-                "Player", pos=p, eid=served._new_id(), attrs={"hp": 100},
-                client=GameClient(0, f"c{i:015d}", w))
-            players.append(e.id)
-        else:
-            e = arena.create_entity("Mob", pos=p, eid=served._new_id(),
-                                    moving=True, attrs={"hp": 100})
-            served.mobs.append(e.id)
+
+    def create(lo: int, hi: int) -> None:
+        for i in range(lo, hi):
+            p = tuple(pos[i])
+            if is_player[i]:
+                e = arena.create_entity(
+                    "Player", pos=p, eid=served._new_id(),
+                    attrs={"hp": 100},
+                    client=GameClient(0, f"c{i:015d}", w))
+                players.append(e.id)
+            else:
+                e = arena.create_entity("Mob", pos=p, eid=served._new_id(),
+                                        moving=True, attrs={"hp": 100})
+                served.mobs.append(e.id)
+
+    if boot:
+        done = 0
+        while done < pop:
+            hi = min(pop, done + _boot_batch(cfg, done))
+            create(done, hi)
+            done = hi
+            w.tick()
+            out = w.last_outputs
+            for lane, cap in (("enter_n", cfg.enter_cap),
+                              ("leave_n", cfg.leave_cap),
+                              ("delta_rows_n", cfg.delta_rows_cap_eff)):
+                if int(getattr(out, lane)[0]) > cap:
+                    raise RuntimeError(
+                        f"boot tick {w.tick_count}: {lane} "
+                        f"{int(getattr(out, lane)[0])} > {cap}")
+            served.boot_ticks += 1
+            served.boot_events += int(out.enter_n[0])
+            sink.take()
+    else:
+        create(0, pop)
     served.players = np.array(players, "S16")
     served.player_xz = pos[is_player][:, [0, 2]]
     served.heading = rng.uniform(0, 2 * np.pi, served.players.size)
@@ -438,3 +475,20 @@ def serve_world(n: int, seed: int, device="cuda", *,
     gc.freeze()
     served.populate_s = time.perf_counter() - t0
     return served
+
+
+def _boot_batch(cfg: WorldConfig, present: int) -> int:
+    """How many entities may enter on one boot tick with ``present``
+    already in: a new entity has ``nb * (present + B) / capacity``
+    neighbours at ``nb`` neighbours a full world (``nb`` = capacity x
+    (2 radius)^2 / extent area; 12 in :func:`slice_config`), and each
+    pair with an entity already present gives two enter events, so B
+    new entities give ``nb * B * (2 present + B) / capacity`` of them;
+    B is the largest batch whose events stay within half of
+    ``enter_cap`` (the other half is left for the movers' own)."""
+    g = cfg.grid
+    n = cfg.capacity
+    nb = n * (2.0 * g.radius) ** 2 / (g.extent_x * g.extent_z)
+    budget = cfg.enter_cap / 2.0
+    b = -present + np.sqrt(present ** 2 + budget * n / nb)
+    return max(1, int(b))

@@ -166,9 +166,11 @@ TICK_MODULES = ["core/step.py", "models/random_walk.py", "ops/aoi.py",
                 "ops/delta.py", "ops/extract.py", "ops/integrate.py",
                 "ops/prng.py", "ops/sort.py", "ops/sync.py",
                 "parallel/halo.py", "parallel/migrate.py",
-                "parallel/megaspace.py"]
-# host-side helpers outside the tick
-EXEMPT = {"neighbors_oracle", "prng_key"}
+                "parallel/megaspace.py", "ops/telemetry.py"]
+# host-side helpers outside the tick (the telemetry lanes' init and
+# drain and its numpy recompute)
+EXEMPT = {"neighbors_oracle", "prng_key", "telemetry_init",
+          "telemetry_drain", "host_histogram"}
 SYNCING = {"item", "cpu", "numpy", "tolist", "nonzero", "tensor"}
 
 

@@ -19,6 +19,12 @@ and rounds ``pos + vel*dt`` once, as XLA's fused multiply-add does.
 Two more games run the same script on a World with a Verlet skin of 4
 (the bench's), one of them at precision="q16" (snapped positions, a
 bfloat16 velocity plane, a packed candidate cache), held to the same.
+Those games turn the planes off on both sides; two more (skin 0 and
+skin 4) run both Worlds at their defaults — live telemetry, residency
+and audit on, sampled every 2 ticks, the signature window rotating
+every 8 — and hold them, after every tick, also to the same drained
+telemetry lanes, workload and window signatures, audit oracle and probe
+stats, entity ledger and sync-age anchor tick.
 
 The game runs once per sweep/sort pair (a module fixture; each JAX
 World compiles its tick once) and records, per case, what differed and
@@ -55,9 +61,16 @@ WORLD = dict(capacity=CAP, npc_speed=5.0, enter_cap=256, leave_cap=256,
              delta_rows_cap=CAP)
 IMPLS = [("ranges", "argsort"), ("fused", "pallas")]
 # the games: each sweep/sort pair at skin 0, and the kernels' pair with
-# the bench's Verlet skin, in float32 and at q16
-GAMES = [(*impl, 0.0, "off") for impl in IMPLS] + [
-    ("fused", "pallas", 4.0, "off"), ("fused", "pallas", 4.0, "q16")]
+# the bench's Verlet skin, in float32 and at q16, the planes off; then
+# the kernels' pair at skin 0 and 4 with both Worlds at their defaults
+GAMES = [(*impl, 0.0, "off", False) for impl in IMPLS] + [
+    ("fused", "pallas", 4.0, "off", False),
+    ("fused", "pallas", 4.0, "q16", False),
+    ("fused", "pallas", 0.0, "off", True),
+    ("fused", "pallas", 4.0, "off", True)]
+# the sampling of the games at the Worlds' defaults
+PLANES = dict(audit_sample_every=2, residency_sample_every=2)
+SIG_WINDOW = 8
 CASES = ["spawn", "client_bind_unbind", "pos_sync_batch", "teleport",
          "hot_attr_twice", "destroy_slot_reuse", "service_call",
          "migration_round_trip", "enter_overflow", "set_moving"]
@@ -127,22 +140,24 @@ class Side:
         self.log: list = []
         self.sync: list = []
         self.clock = Clock()
-        sweep, sort, skin, precision = impl
+        sweep, sort, skin, precision, self.defaults = impl
         grid = dict(GRID, sweep_impl=sweep, sort_impl=sort, skin=skin,
                     precision=precision)
+        make = dict(PLANES) if self.defaults else dict(
+            telemetry_live=False, residency=False, audit=False)
         if pkg is jent:
             cfg = JConfig(grid=JGrid(**grid), **WORLD)
-            make = dict(telemetry_live=False, residency=False, audit=False)
             services = JServices
         else:
             cfg = TConfig(grid=TGrid(**grid), **WORLD)
-            make = dict(device="cpu")
+            make["device"] = "cpu"
             services = TServices
         types = game_types(pkg, self.log)
         self.worlds = []
         for game_id in (1, 2):
             w = pkg.World(cfg, game_id=game_id, clock=self.clock, seed=3,
                           **make)
+            w.SIG_WINDOW_TICKS = SIG_WINDOW
             for name in ("Mob", "Player"):
                 w.register_entity(name, types[name])
             w.register_space("Arena", types["Arena"])
@@ -203,6 +218,38 @@ def _same(a, b) -> bool:
     return type(a) is type(b) and a == b
 
 
+def _ledger(w) -> dict:
+    """The audit ledger's snapshot, less what names the service shard
+    (its id is drawn at random on each side): the all-entity CRC, the
+    Shop type's CRC and the Shop's id."""
+    led = w.audit.ledger
+    snap = led.snapshot(tick=w.tick_count, eids=True)
+    del snap["crc"]
+    snap["census"].get("Shop", {}).pop("crc", None)
+    snap["eids"] = [e for e in snap["eids"] if led._eids[e] != "Shop"]
+    return snap
+
+
+def diff_planes(jw, tw) -> list[str]:
+    """Where the planes of two Worlds at their defaults differ."""
+    g = jw.game_id
+    for w in (jw, tw):
+        w.audit.drain()
+    pairs = {
+        "telemetry lanes": (jw._telem_lanes, tw._telem_lanes),
+        "workload_signature": (jw.workload_signature(),
+                               tw.workload_signature()),
+        "window_signature": (jw.window_signature(), tw.window_signature()),
+        "audit oracle": (jw.audit.oracle_stats, tw.audit.oracle_stats),
+        "audit probes": (jw.audit.probe_stats, tw.audit.probe_stats),
+        "audit ledger": (_ledger(jw), _ledger(tw)),
+        "sync-age anchor tick": (jw.sync_age_anchor[0],
+                                 tw.sync_age_anchor[0]),
+    }
+    return [f"world {g}: {k} {a} != {b}" for k, (a, b) in pairs.items()
+            if not _same(a, b)]
+
+
 def diff_worlds(j: Side, t: Side, jgot: dict, tgot: dict) -> list[str]:
     """Every place the tick's results of the two sides differ."""
     bad = []
@@ -241,6 +288,8 @@ def diff_worlds(j: Side, t: Side, jgot: dict, tgot: dict) -> list[str]:
             a = getattr(tw.last_outputs, f.name)
             if not _same(np.asarray(getattr(jo, f.name)), a):
                 bad.append(f"world {g}: output lane {f.name}")
+        if t.defaults:
+            bad += diff_planes(jw, tw)
     return bad
 
 
@@ -437,6 +486,16 @@ def run_game(impl) -> dict:
 
     both(moving)
     rec = ticks("set_moving", 4)
+    if t.defaults:
+        planes = {}
+        for w in t.worlds:
+            w.audit.drain()
+            planes[w.game_id] = dict(
+                ticks=w.tick_count, lanes=w._telem_lanes,
+                window=w.window_signature(), oracle=w.audit.oracle_stats,
+                ledger=_ledger(w),
+                census=w.residency.census_snapshot())
+        results["planes"] = planes
     rec["facts"] = dict(moved=t.a.entities[eid("m8")].position,
                         still=t.a.entities[eid("m12")].position,
                         m12_start=tuple(float(v) for v in (
@@ -445,7 +504,8 @@ def run_game(impl) -> dict:
 
 
 @pytest.fixture(scope="module", params=GAMES,
-                ids=["ranges", "fused", "fused-skin4", "fused-skin4-q16"])
+                ids=["ranges", "fused", "fused-skin4", "fused-skin4-q16",
+                     "fused-defaults", "fused-skin4-defaults"])
 def game(request):
     return run_game(request.param)
 
@@ -490,6 +550,18 @@ def test_scripted_game_matches_jax(game, case):
     elif case == "set_moving":
         assert facts["moved"] != facts["still"]
         assert facts["still"] == pytest.approx(facts["m12_start"])
+        for p in game.get("planes", {}).values():
+            # every tick in the lanes, every sample judged or skipped
+            # with its reason, the carry resident, the window rotated
+            assert sum(p["lanes"]["rebuilt"]["counts"]) == p["ticks"]
+            assert sum(p["lanes"]["occupancy"]["counts"]) == p["ticks"]
+            o = p["oracle"]
+            assert o["samples"] + sum(o["skipped"].values()) == \
+                -(-p["ticks"] // PLANES["audit_sample_every"])
+            assert o["samples"] > 0
+            assert p["census"]["samples"] > 0
+            assert p["census"]["realloc"] == []
+            assert p["window"]["window_ticks"] == SIG_WINDOW
 
 
 KNOBS = {
@@ -497,9 +569,6 @@ KNOBS = {
     "megaspace": dict(megaspace=True),
     "n_spaces": dict(n_spaces=2),
     "pipeline_decode": dict(pipeline_decode=True),
-    "telemetry_live": dict(telemetry_live=True),
-    "residency": dict(residency=True),
-    "audit": dict(audit=True),
     "snapshot_keyframe_every": dict(snapshot_keyframe_every=4),
 }
 SMALL = TConfig(capacity=64, grid=TGrid(radius=10.0, k=8, cell_cap=4))
@@ -511,9 +580,7 @@ def test_refused_knobs_raise_not_implemented(knob):
         tent.World(SMALL, device="cpu", **KNOBS[knob])
 
 
-@pytest.mark.parametrize("method", ["apply_tick_config",
-                                    "workload_signature",
-                                    "window_signature", "cost_report"])
+@pytest.mark.parametrize("method", ["apply_tick_config", "cost_report"])
 def test_refused_planes_raise_not_implemented(method):
     w = tent.World(SMALL, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
