@@ -115,7 +115,26 @@ is caught:
     path) over the snapped positions on every row no truncation touches
     (no overflowed run at the last rebuild or in the reference, no full
     cache row); the velocity lane is bfloat16; p50/p99 as in 13;
-15. the result line ``{"ok": true, "device": {...}}``.
+15. (run before 12) several Spaces on one card, SPACES x SPACE_N
+    (``workload.multi_config``/``multi_world``: 8 bench worlds of 2^17
+    on a leading [S] axis): the batched sort and sweep against their
+    plain versions (and every Space's sweep against its own launch) bit
+    for bit, timed beside their plain versions, a per-Space
+    ``torch.argsort`` and their bounds; two batched ticks under the sync
+    guard; SPACE_TICKS batched ticks by CUDA events, one sweep and one
+    sort launch a tick, the same a tick as a one-Space batched state;
+    the same ticks again in lockstep with SPACES single-Space ticks,
+    every lane of state and outputs equal on every tick; then
+    ``serve_world(SPACE_N, spaces=SPACES, boot=True)``: a World of
+    SPACES Spaces at its defaults, booted through ticks whose events
+    each Space's caps hold, WORLD_TICKS ``World.tick``s of the game's
+    traffic plus SERVE_MIGRATIONS ``enter_space`` moves between random
+    Spaces a tick (every staged migration applied), p50/p99 and the four
+    spans, the planes checked as in 11, one more tick's step and fold
+    under the sync guard; [12] reads the batched kernels' and the
+    batched tick's device time beside the single-Space 2^20 tick's;
+16. each phase's wall seconds, then the result line ``{"ok": true,
+    "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -135,7 +154,7 @@ import torch
 
 from goworld_tpu_torch import interop, kernels
 from goworld_tpu_torch.core.state import WorldConfig, map_lane
-from goworld_tpu_torch.core.step import make_tick
+from goworld_tpu_torch.core.step import TickInputs, make_tick
 from goworld_tpu_torch.entity import manager
 from goworld_tpu_torch.ops import aoi
 from goworld_tpu_torch.ops import telemetry as telem
@@ -154,10 +173,13 @@ from goworld_tpu_torch.parallel.megaspace import (
 from goworld_tpu_torch.utils import audit as audit_mod
 from goworld_tpu_torch.utils import metrics
 from goworld_tpu_torch.ops.integrate import apply_pos_inputs
+from goworld_tpu_torch.parallel.mesh import tile_view
 from goworld_tpu_torch.workload import (
     bench_world,
     mega_config,
     mega_world,
+    multi_config,
+    multi_world,
     serve_world,
     slice_config,
     uncut_config,
@@ -179,6 +201,11 @@ VERLET_TICKS = 64     # ~24 ticks between displacement rebuilds at skin 4
 Q16_TICKS = 32
 FLOAT_N = 4096
 FLOAT_TICKS = 8
+# [15] several Spaces on one card: 8 x 2^17 = 2^20 entities, BASELINE's
+# 1M target as 8 Spaces
+SPACES = 8
+SPACE_N = 1 << 17
+SPACE_TICKS = 24
 SEED = 0
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and the
 # float32 CUDA-core rate, used for the kernels' 32-bit integer work too
@@ -211,12 +238,13 @@ def same(a, b) -> bool:
 
 def visits_every_row(fh) -> bool:
     """Whether the sorted view's first n slot ids (n rows, before the
-    3*cell_cap sentinel lanes) are a permutation of [0, n): the fused
-    kernel walks its rows by them and writes only the rows they name."""
-    n = fh.srow.numel()
-    ids = torch.sort(fh.s_w[:n] >> fh.code[0]).values
-    return bool(torch.equal(ids, torch.arange(n, dtype=ids.dtype,
-                                              device=ids.device)))
+    3*cell_cap sentinel lanes) are a permutation of [0, n), in each
+    Space under a leading Space axis: the fused kernel walks its rows by
+    them and writes only the rows they name."""
+    n = fh.srow.shape[-1]
+    ids = torch.sort(fh.s_w[..., :n] >> fh.code[0], dim=-1).values
+    return bool((ids == torch.arange(n, dtype=ids.dtype,
+                                     device=ids.device)).all())
 
 
 def sweep_work(fh, dem, k: int, cc: int) -> tuple[int, float, int]:
@@ -225,7 +253,7 @@ def sweep_work(fh, dem, k: int, cc: int) -> tuple[int, float, int]:
     5 distance, 3 validity and 6 key-pack operations per in-range
     candidate (a run's lanes up to 3*cell_cap), and d*log2(d) compares
     to order a row's d valid keys."""
-    n, q = fh.srow.numel(), fh.lo.shape[0]
+    n, q = fh.srow.numel(), fh.lo.numel() // 3
     nbytes = (12 * fh.s_w.numel() + 24 * q + 12 * n + 4 * n  # in
               + 4 * k * q + 4 * q)                           # out
     cand = int(torch.clamp(fh.hi - fh.lo, 0, 3 * cc).sum())
@@ -805,23 +833,33 @@ def world_ticks(served, n_ticks: int, teleport: bool) -> tuple[list, dict]:
             fail(f"World.tick {t + 1}: sync sink got "
                  f"{sink['sync_records']}, decode sent "
                  f"{ops['sync_records_sent']}")
-        if int(out.alive_count[0]) != len(w._slot_owner[0]):
-            fail(f"World.tick {t + 1}: {int(out.alive_count[0])} alive rows"
-                 f" for {len(w._slot_owner[0])} entities with slots")
+        owned = [len(o) for o in w._slot_owner]
+        if out.alive_count.tolist() != owned:
+            fail(f"World.tick {t + 1}: {out.alive_count.tolist()} alive "
+                 f"rows for {owned} entities with slots")
         cfg = w.cfg
+
+        def to_cap(lane, cap):
+            # decodable (each Space's count up to its cap) and true
+            v = getattr(out, lane)
+            return int(np.minimum(v, cap).sum()), int(v.sum())
+
+        migrated = None
+        if "migrations" in staged:
+            migrated = served.migrated()
+            if migrated != staged["migrations"] or w._staged_migrate:
+                fail(f"World.tick {t + 1}: {migrated} of "
+                     f"{staged['migrations']} staged migrations applied")
         rows.append(dict(
-            wall=wall, staged=staged, sample=sample,
+            wall=wall, staged=staged, sample=sample, migrated=migrated,
             spans={name: d for name, _, d, _ in
                    metrics.timeline.records()[-1][2]},
-            sync=(ops["sync_records_sent"],
-                  min(int(out.sync_n[0]), cfg.sync_cap), int(out.sync_n[0])),
+            sync=(ops["sync_records_sent"], *to_cap("sync_n", cfg.sync_cap)),
             enter=(ops["aoi_enter_decoded"],
-                   min(int(out.enter_n[0]), cfg.enter_cap),
-                   int(out.enter_n[0])),
+                   *to_cap("enter_n", cfg.enter_cap)),
             leave=(ops["aoi_leave_decoded"],
-                   min(int(out.leave_n[0]), cfg.leave_cap),
-                   int(out.leave_n[0])),
-            delta_rows=int(out.delta_rows_n[0]),
+                   *to_cap("leave_n", cfg.leave_cap)),
+            delta_rows=int(out.delta_rows_n.max()),
             messages=sink["messages"]))
     if min(r["enter"][0] for r in rows) <= 0 or any(
             r[k][0] > r[k][1] for r in rows for k in ("sync", "enter",
@@ -858,10 +896,10 @@ def world_summary(rows: list, cfg) -> str:
                                          for k, v in spans.items())
             + f"; a tick (mean of 2-{len(rows)}), decoded / to cap / true: "
             f"sync records {mean['sync']}, enters {mean['enter']}, leaves "
-            f"{mean['leave']}; rows whose interest list changed mean "
-            f"{np.mean(dr):.1f} max {max(dr)} of delta_rows_cap "
-            f"{cfg.delta_rows_cap}; client messages of the last tick "
-            f"{rows[-1]['messages']}")
+            f"{mean['leave']}; rows whose interest list changed (the most "
+            f"of a Space) mean {np.mean(dr):.1f} max {max(dr)} of "
+            f"delta_rows_cap {cfg.delta_rows_cap}; client messages of the "
+            f"last tick {rows[-1]['messages']}")
 
 
 def event_timed(fn, events: list, keep: dict | None = None):
@@ -903,21 +941,24 @@ def audit_state(w) -> dict:
 
 
 def planes_check(w, label: str) -> str:
-    """[11]'s checks of the planes of a World at its defaults: the
-    lanes account for every tick (rebuilt and occupancy each sum to the
-    tick count, per_tile is the host's count of entities with slots), a
+    """[11]'s and [15]'s checks of the planes of a World at its
+    defaults: the lanes account for every tick (rebuilt sums to the tick
+    count, occupancy to it times the Spaces, per_tile is the host's
+    count of entities with slots in each Space), a
     signature is served, every audit sample judged its cohort with 0
     mismatches and 0 violations, and the census reads 0 re-allocated
     lanes."""
     lanes = w._telem_lanes
     ticks = w.tick_count
-    for lane in ("rebuilt", "occupancy"):
-        if sum(lanes[lane]["counts"]) != ticks:
+    # occupancy takes one sample a Space a tick
+    for lane, per in (("rebuilt", 1), ("occupancy", w.n_spaces)):
+        if sum(lanes[lane]["counts"]) != ticks * per:
             fail(f"{label}: lane {lane} holds {sum(lanes[lane]['counts'])}"
-                 f" samples for {ticks} ticks")
-    if lanes["occupancy"]["per_tile"] != [len(w._slot_owner[0])]:
+                 f" samples for {ticks} ticks of {per} samples")
+    owned = [len(o) for o in w._slot_owner]
+    if lanes["occupancy"]["per_tile"] != owned:
         fail(f"{label}: per_tile {lanes['occupancy']['per_tile']} != "
-             f"{len(w._slot_owner[0])} entities with slots")
+             f"{owned} entities with slots")
     sig = w.workload_signature()
     if sig is None or "error" in sig:
         fail(f"{label}: no workload signature ({sig})")
@@ -1523,6 +1564,216 @@ def q16_phase(dev, tag) -> tuple[dict, dict]:
     return gate, launches
 
 
+def spaces_phase(dev, bare: tuple[float, float], tag: str,
+                 profiled: dict) -> tuple[dict, dict, tuple]:
+    """[15] several Spaces on one card: the batched sort and sweep
+    against their plain versions at SPACES x SPACE_N, timed; SPACE_TICKS
+    batched ticks by events (two more under the sync guard), their
+    launches against those of a one-Space batched state; the same ticks
+    again in lockstep with SPACES single-Space ticks, every lane equal
+    on every tick; then the served game of SPACES Spaces at its
+    defaults with its migrations between them. Returns (launches by
+    path, the batched shape's kernel numbers, the batched tick's p50 and
+    p99 ms) and adds the batched tick and kernels to ``profiled``."""
+    phase0 = time.perf_counter()
+    cfg = multi_config(SPACES, SPACE_N)
+    g = cfg.grid
+    st0, inputs = multi_world(cfg, SPACES, SEED, dev)
+    flag_bits = st0.has_client.to(torch.int32) << 1
+    fh = aoi.front_half(g, st0.pos, st0.alive, None, st0.aoi_radius,
+                        flag_bits, with_stats=True)
+    if not visits_every_row(fh):
+        fail("[15] a Space's sorted slot ids are not a permutation of its "
+             "rows")
+    o_k, s_k = counting_sort_cells_cuda(fh.srow, fh.n_rows)
+    o_p, s_p = counting_sort_cells(fh.srow, fh.n_rows)
+    o_a = torch.argsort(fh.srow, dim=-1, stable=True).to(torch.int32)
+    if not (same(o_k, o_p) and same(s_k, s_p) and same(o_k, o_a)):
+        fail("[15] the batched sort differs from its plain version or a "
+             "per-Space stable argsort")
+    sort_err = int((o_k - o_p).abs().max()) + int((s_k - s_p).abs().max())
+    args = (fh.s_xz, fh.s_w, fh.lo, fh.hi, st0.pos, fh.reach, g.k,
+            g.cell_cap, fh.code, True)
+    top_k, dem_k = aoi.sweep_fused_cuda(*args)
+    top_p, dem_p = aoi.sweep_fused_plain(*args, row_block=g.row_block)
+    if not (same(top_k, top_p) and same(dem_k, dem_p)):
+        bad = int((top_k != top_p).any(-1).sum())
+        fail(f"[15] the batched sweep differs from its plain version in "
+             f"{bad} rows")
+    for d in range(SPACES):
+        one = aoi.sweep_fused_cuda(*(a[d] for a in args[:6]), *args[6:])
+        if not (same(one[0], top_k[d]) and same(one[1], dem_k[d])):
+            fail(f"[15] the batched sweep's Space {d} differs from its "
+                 f"own launch")
+    sweep_err = int((top_k.long() - top_p.long()).abs().max()) + int(
+        (dem_k - dem_p).abs().max())
+    n_all = SPACES * SPACE_N
+    sweep_ms = time_ms(lambda: aoi.sweep_fused_cuda(*args), 20)
+    sweep_plain = time_ms(
+        lambda: aoi.sweep_fused_plain(*args, row_block=g.row_block), 2, 1)
+    sort_ms = time_ms(
+        lambda: counting_sort_cells_cuda(fh.srow, fh.n_rows), 20)
+    sort_plain = time_ms(
+        lambda: counting_sort_cells(fh.srow, fh.n_rows), 2, 1)
+    sort_lib = time_ms(
+        lambda: torch.argsort(fh.srow, dim=-1, stable=True), 20)
+    plan = radix_plan((SPACES * (fh.n_rows + 1) - 1).bit_length())
+    sw_bytes, sw_ops, cand = sweep_work(fh, dem_p, g.k, g.cell_cap)
+    sw_bound, sw_by = bound(sw_bytes, sw_ops)
+    so_bound, so_by = bound(12 * n_all, plan[0] * 12 * n_all)
+    shape = {
+        "sweep_fused_cuda": dict(
+            spaces=SPACES, rows_a_space=SPACE_N, ms=sweep_ms,
+            plain_ms=sweep_plain, library_ms=None, bound_ms=sw_bound,
+            bound_by=sw_by, max_abs_err=sweep_err),
+        "counting_sort_cells_cuda": dict(
+            spaces=SPACES, rows_a_space=SPACE_N, ms=sort_ms,
+            plain_ms=sort_plain, library_ms=sort_lib, bound_ms=so_bound,
+            bound_by=so_by, max_abs_err=sort_err, plan=list(plan))}
+    profiled[f"sweep_fused_cuda, {SPACES} Spaces"] = \
+        lambda: aoi.sweep_fused_cuda(*args)
+    profiled[f"counting_sort_cells_cuda, {SPACES} Spaces"] = \
+        lambda: counting_sort_cells_cuda(fh.srow, fh.n_rows)
+    print(f"[15] batched kernels at {SPACES} x {SPACE_N}: sort == plain =="
+          f" per-Space stable argsort (plan {plan}), sweep == plain, every "
+          f"Space == its own launch, bit for bit; sweep {sweep_ms:.5f} ms a"
+          f" call (bound {sw_bound:.5f} ms by {sw_by}, {cand / n_all:.2f} "
+          f"in-range candidates a row, plain {sweep_plain:.3f}); sort "
+          f"{sort_ms:.5f} ms (bound {so_bound:.5f} by {so_by}, plain "
+          f"{sort_plain:.3f}) against torch.argsort(dim=-1, stable=True) "
+          f"{sort_lib:.5f} ms {tag}", flush=True)
+    del top_p, dem_p, o_p, s_p
+
+    # the batched tick: two ticks under the sync guard, then the timed
+    # run from a kept copy of the start
+    tick = make_tick(cfg, device=dev)
+    start = st0.apply(torch.clone)
+    torch.cuda.set_sync_debug_mode("error")
+    for _ in range(2):
+        tick(st0, inputs)
+    torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True))
+          for _ in range(SPACE_TICKS)]
+    kernels.reset_launches()
+    st = start
+    gauges = []
+    for a, b in ev:
+        a.record()
+        st, out = tick(st, inputs)
+        b.record()
+        gauges.append(torch.stack([out.enter_n, out.sync_n,
+                                   out.delta_rows_n]))
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    if launches != {"sweep_fused": SPACE_TICKS,
+                    "counting_sort": SPACE_TICKS, "halo_ship_phase": 0}:
+        fail(f"[15] the batched tick launched {launches} in {SPACE_TICKS} "
+             f"ticks")
+    gv = torch.stack(gauges).cpu().numpy()
+    if (gv[0, 0] <= 0).any() or (gv[:, 1] <= 0).any():
+        fail("[15] a Space had no enters on tick 1 or no sync records")
+    ms = np.array([a.elapsed_time(b) for a, b in ev])[1:]
+    p50, p99 = float(np.percentile(ms, 50)), float(np.percentile(ms, 99))
+    keep = (st, inputs)
+    profiled[f"batched tick, {SPACES} Spaces"] = \
+        lambda: tick(keep[0], keep[1])
+    # launches a tick at S = 1 (the same batched path, one Space)
+    st1, in1 = multi_world(cfg, 1, SEED, dev)
+    kernels.reset_launches()
+    for _ in range(4):
+        st1, _ = tick(st1, in1)
+    at_one = {k: v / 4 for k, v in kernels.LAUNCHES.items()}
+    per = {k: v / SPACE_TICKS for k, v in launches.items()}
+    if at_one != per:
+        fail(f"[15] launches a tick depend on S: {at_one} at S=1, {per} "
+             f"at S={SPACES}")
+    del st1, in1
+
+    # the same ticks in lockstep with SPACES single-Space ticks
+    singles = [tile_view(start, d).apply(torch.clone) for d in range(SPACES)]
+    one_in = [TickInputs(**{f.name: getattr(inputs, f.name)[d]
+                            for f in dataclasses.fields(TickInputs)})
+              for d in range(SPACES)]
+    st, diffs = start, []
+    for _ in range(SPACE_TICKS):
+        st, out = tick(st, inputs)
+        for d in range(SPACES):
+            singles[d], o1 = tick(singles[d], one_in[d])
+            la, lb = lanes(tile_view(st, d)), lanes(singles[d])
+            oa = lanes(type(out)(**{f.name: getattr(out, f.name)[d]
+                                    for f in dataclasses.fields(out)}))
+            ob = lanes(o1)
+            diffs += [diff_count(la[k], lb[k]) for k in la
+                      if la[k] is not None or lb[k] is not None]
+            diffs += [diff_count(oa[k], ob[k]) for k in oa]
+    bad = int(torch.stack(diffs).sum())
+    if bad:
+        fail(f"[15] the batched tick differs from {SPACES} single-Space "
+             f"ticks in {bad} words")
+    del singles, start, diffs
+    print(f"[15] batched tick, {SPACES} Spaces x {SPACE_N} (syncs drawn as"
+          f" bench_world draws them, {cfg.input_cap} a Space): "
+          f"{SPACE_TICKS} ticks, launches {launches} (a tick: {per}, the "
+          f"same at S=1); two ticks under the sync guard raised nothing; "
+          f"every lane of state and outputs == {SPACES} single-Space "
+          f"ticks on every one of {SPACE_TICKS} ticks; tick 1 enter_n "
+          f"{gv[0, 0].tolist()}; last tick sync_n {gv[-1, 1].tolist()}, "
+          f"delta_rows_n {gv[-1, 2].tolist()}; ms/tick p50={p50:.3f} "
+          f"p99={p99:.3f} (ticks 2-{SPACE_TICKS}, CUDA events); "
+          f"{n_all / (p50 / 1e3):.4g} entity-ticks/s; [5]'s one Space of "
+          f"{N}: p50={bare[0]:.3f} p99={bare[1]:.3f} {tag}", flush=True)
+
+    # the served game of SPACES Spaces at its defaults
+    served = serve_world(SPACE_N, SEED, dev, boot=True, world_kw=PLANES,
+                         spaces=SPACES)
+    w = served.world
+    n_pop = len(w.entities) - SPACES - 1
+    rows, w_launches = world_ticks(served, WORLD_TICKS, teleport=False)
+    staged = sum(r["staged"]["migrations"] for r in rows)
+    applied = sum(r["migrated"] for r in rows)
+    # one more tick whose batched step and fold run under the sync guard
+    real_step, real_fold, guard = w._step, w._telem_fn, {}
+
+    def guarded(fn):
+        def call(*a):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*a)
+            except Exception as exc:
+                guard["error"] = exc
+                raise
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return call
+
+    w._step, w._telem_fn = guarded(real_step), guarded(real_fold)
+    served.stage()
+    w.tick()
+    w._step, w._telem_fn = real_step, real_fold
+    if guard or w._telem_fn is None:
+        fail(f"[15] the World's step or fold under the sync guard: "
+             f"{guard.get('error')}")
+    planes = planes_check(w, "[15] World")
+    print(f"[15] served World of {SPACES} Spaces x {SPACE_N} slots at its "
+          f"defaults: {n_pop} entities ({served.players.size} players) "
+          f"booted through {served.boot_ticks} ticks "
+          f"({served.boot_events} enter events, none past a Space's cap) "
+          f"in {served.populate_s:.2f} s; {WORLD_TICKS} World.ticks "
+          f"staging {rows[-1]['staged']} each, launches {w_launches}, one "
+          f"sweep and one sort a tick; migrations between Spaces applied "
+          f"{applied} of {staged} staged; "
+          f"{world_summary(rows, w.cfg)}; one more tick's step and fold "
+          f"under the sync guard raised nothing; planes: {planes} "
+          f"{tag}", flush=True)
+    del served, w
+    release_worlds()
+    print(f"[15] phase {time.perf_counter() - phase0:.1f} s", flush=True)
+    return ({"spaces_batched": launches, "spaces_world": w_launches}, shape,
+            (p50, p99))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
@@ -1534,6 +1785,12 @@ def main() -> int:
     card = gpu_line()
     print(f"[1] gpu: {card}", flush=True)
     tag = f"({card})"
+    walls, t_mark = {}, [time.perf_counter()]
+
+    def phase_done(phase: str) -> None:
+        now = time.perf_counter()
+        walls[phase] = round(now - t_mark[0], 1)
+        t_mark[0] = now
 
     path, secs, log = kernels.build()
     kernels.lib()
@@ -1541,6 +1798,7 @@ def main() -> int:
             if "registers" in ln or "spill" in ln]
     print(f"[2] build: {path.name} in {secs:.1f} s; ptxas: "
           f"{' | '.join(regs[:6])}", flush=True)
+    phase_done("[1]-[2]")
 
     cfg = slice_config(N)
     g = cfg.grid
@@ -1583,6 +1841,7 @@ def main() -> int:
                  f"n_rows={n_rows}")
         shapes.append(f"{n}x{n_rows.bit_length()}b"
                       f"{radix_plan(n_rows.bit_length())}")
+    phase_done("[3]")
     print(f"[3] sort parity: bit-exact at n={N}, n_rows={fh.n_rows} "
           f"(bench and skewed keys, plan (passes, digit bits) "
           f"{radix_plan(fh.n_rows.bit_length())}); against a stable "
@@ -1682,6 +1941,8 @@ def main() -> int:
           f"({'; '.join(over)}); fused+pallas == ranges+argsort for "
           f"sort/exact/f32; oracle exact at n=4096", flush=True)
 
+    phase_done("[4]")
+
     # [5] the main path
     tick = make_tick(cfg, device=dev)
     st = st0
@@ -1751,6 +2012,8 @@ def main() -> int:
           f"events) wall {wall * 1e3 / TICKS:.3f} ms/tick; "
           f"{rate:.4g} entity-ticks/s {tag}", flush=True)
 
+    phase_done("[5]")
+
     # [6] kernel times at the main path's shapes (state after the run)
     flag_bits = (st.dirty.to(torch.int32)
                  | (st.has_client.to(torch.int32) << 1))
@@ -1790,7 +2053,9 @@ def main() -> int:
         "sweep_fused_cuda": lambda: aoi.sweep_fused_cuda(*args),
         "counting_sort_cells_cuda":
             lambda: counting_sort_cells_cuda(fh.srow, fh.n_rows),
-        "torch.argsort": lambda: torch.argsort(fh.srow, stable=True)}
+        "torch.argsort": lambda: torch.argsort(fh.srow, stable=True),
+        # the whole single-Space tick, beside [15]'s batched tick
+        f"tick, one Space of {N}": lambda s=st: tick(s, inputs)}
     sort_bytes = 12 * N
     sort_ops = plan[0] * 12 * N  # digit extract, histogram, rank, scatter
 
@@ -1826,28 +2091,59 @@ def main() -> int:
           f"sort {'<=' if sort_ms <= sort_lib else '>'} argsort {tag}",
           flush=True)
 
+    phase_done("[6]")
     mc = mega_config(N, MEGA_DEV)
     halo_parity(dev, mc)
+    phase_done("[7]")
     ship_row, mega_device = mega_path(dev, mc, tag)
     rows.append(ship_row)
+    phase_done("[8]-[9]")
     small_oracle(dev)
+    phase_done("[10]")
     world = world_phase(dev, (p50, p99), tag, profiled)
+    phase_done("[11]")
     gate, world["verlet"] = verlet_phase(dev, tag, profiled)
+    phase_done("[13]")
     gate_q16, world["q16"] = q16_phase(dev, tag)
+    phase_done("[14]")
+    spaces, spaces_shape, spaces_ms = spaces_phase(dev, (p50, p99), tag,
+                                                   profiled)
+    world.update(spaces)
+    phase_done("[15]")
     for row, key in zip(rows[:2], ("sweep_fused", "counting_sort")):
         row["launches_by_path"] = {"single_space": row["launches"],
                                    **{p: n[key] for p, n in world.items()}}
         row["launches"] = sum(row["launches_by_path"].values())
     rows[0]["verlet_rebuild_shape"] = gate
     rows[0]["q16_rebuild_shape"] = gate_q16
+    rows[0]["spaces_shape"] = spaces_shape["sweep_fused_cuda"]
+    rows[1]["spaces_shape"] = spaces_shape["counting_sort_cells_cuda"]
     rows[2]["launches_by_path"] = {"megaspace": rows[2]["launches"]}
 
     got, dev_ms = device_times(profiled, rows[:2], plan)
     gate["gate_closed_device_ms"], gate["gate_closed_kernels"] = \
         got["sweep_fused_cuda, gate closed"]
+    for row in rows[:2]:
+        sh = row["spaces_shape"]
+        sh["device_ms"], sh["launches_per_call"] = \
+            got[f"{row['name']}, {SPACES} Spaces"]
+    if rows[0]["spaces_shape"]["launches_per_call"] != 1 or \
+            rows[1]["spaces_shape"]["launches_per_call"] > \
+            rows[1]["spaces_shape"]["plan"][0] + 1:
+        fail(f"[12] batched kernels' launches a call: "
+             f"{[r['spaces_shape']['launches_per_call'] for r in rows[:2]]}")
+    b8 = got[f"batched tick, {SPACES} Spaces"]
+    b1 = got[f"tick, one Space of {N}"]
     print(f"[12] device time a call (torch.profiler, after the timed "
-          f"paths): {dev_ms}; {mega_device()}; kernel times on the next "
+          f"paths): {dev_ms}; {mega_device()}; device busy a tick: "
+          f"{SPACES} Spaces batched {b8[0]:.3f} ms in {b8[1]:g} kernels "
+          f"(idle share against [15]'s p50 {1 - b8[0] / spaces_ms[0]:.3f}),"
+          f" one Space of {N} {b1[0]:.3f} ms in {b1[1]:g} kernels (against"
+          f" [5]'s p50 {1 - b1[0] / p50:.3f}); kernel times on the next "
           f"line {tag}", flush=True)
+    phase_done("[12]")
+    print(f"[walls] phase seconds {walls}, total "
+          f"{sum(walls.values()):.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

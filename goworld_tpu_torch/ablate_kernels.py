@@ -93,8 +93,8 @@ def _sweep_call(so, fh, pos, g):
         kernels.check(lib.gw_sweep_fused(
             fh.s_xz.data_ptr(), fh.s_w.data_ptr(), fh.s_w.shape[0],
             fh.lo.data_ptr(), fh.hi.data_ptr(), pos.data_ptr(),
-            fh.reach.data_ptr(), q, g.k, g.cell_cap, pos.shape[0], c[0],
-            c[1], c[2], c[3], float(c[4]), c[5], None, top.data_ptr(),
+            fh.reach.data_ptr(), q, g.k, g.cell_cap, pos.shape[0], 1,
+            c[0], c[1], c[2], c[3], float(c[4]), c[5], None, top.data_ptr(),
             dem.data_ptr(), kernels.stream_handle(pos.device)), "sweep")
         return top, dem
     return call
@@ -110,7 +110,8 @@ def _sort_call(so, srow, plan):
 
     def call():
         kernels.check(lib.gw_counting_sort(
-            srow.data_ptr(), n, plan[0], plan[1], scratch.data_ptr(), slen,
+            srow.data_ptr(), n, 1, 0, plan[0], plan[1], scratch.data_ptr(),
+            slen,
             out[0].data_ptr(), out[1].data_ptr(),
             kernels.stream_handle(srow.device)), "sort")
         return out[0], out[1]

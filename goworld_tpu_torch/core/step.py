@@ -7,6 +7,14 @@ All inputs and outputs are fixed-capacity tensors on one device, and the
 tick never waits on the host: counts stay 0-d device tensors (true
 demand, which may exceed their caps) for the host to read when it wants
 them.
+
+Several Spaces tick in one call when every lane of the state and inputs
+carries a leading ``[S]`` axis (``parallel.mesh.create_multi_state``):
+the port of the JAX World's ``jax.vmap(tick_body)``. Each stage runs once
+on the ``[S, ...]`` tensors, each kernel launches once for all Spaces,
+and every output is ``[S, ...]`` with each Space's own caps; nothing
+loops over Spaces. The skin is not run there (the JAX package clears it
+for its vmapped step).
 """
 
 from __future__ import annotations
@@ -99,13 +107,20 @@ def compute_velocity(cfg: WorldConfig, key, state: SpaceState):
 
 def tick_body(cfg: WorldConfig, state: SpaceState, inputs: TickInputs,
               policy=None) -> tuple[SpaceState, TickOutputs]:
-    """One tick of one Space. Returns a new state and the outputs; the
-    lanes of ``state`` are not modified. See :func:`make_tick`."""
+    """One tick of one Space, or of S Spaces at once when every lane
+    carries a leading ``[S]`` axis. Returns a new state and the outputs;
+    the lanes of ``state`` are not modified. See :func:`make_tick`."""
     if policy is not None:
         raise NotImplementedError(f"the mlp policy {ROADMAP_HINT}")
-    if state.pos.dim() != 2:
-        raise NotImplementedError(f"n_spaces > 1 {ROADMAP_HINT}")
     n = cfg.capacity
+    if state.pos.shape[-2:] != (n, 3) or state.pos.dim() > 3:
+        raise ValueError(f"pos: expected [{n}, 3] or [S, {n}, 3], got "
+                         f"{tuple(state.pos.shape)}")
+    if state.pos.dim() == 3 and cfg.grid.skin > 0.0:
+        raise ValueError(
+            "the Verlet skin runs on one Space's lanes: a batched step "
+            "runs without it (make the stacked state and the tick with "
+            "skin=0, as the World does at n_spaces > 1)")
     # precision=q16: positions integrate in float32, but everything AOI
     # sees (the sweep, the Verlet cache, sync records) is the snapped
     # lattice view, and the carried velocity lane is bfloat16 (read
@@ -121,9 +136,9 @@ def tick_body(cfg: WorldConfig, state: SpaceState, inputs: TickInputs,
         inputs.pos_sync_idx, inputs.pos_sync_vals, inputs.pos_sync_n,
     )
 
-    # 2. behaviors
+    # 2. behaviors (one key a Space)
     keys = prng.split(state.rng)
-    rng, k_behave = keys[0], keys[1]
+    rng, k_behave = keys[..., 0, :], keys[..., 1, :]
     vel = compute_velocity(cfg, k_behave, state)
 
     # 3. integrate + world clamp
@@ -133,7 +148,7 @@ def tick_body(cfg: WorldConfig, state: SpaceState, inputs: TickInputs,
         # "moved" on the lattice: motion under a lattice step is clean
         apos = quantize_positions(cfg.grid, pos)
         aprev = quantize_positions(cfg.grid, state.pos)
-        moved = (apos != aprev).any(dim=1)
+        moved = (apos != aprev).any(dim=-1)
     else:
         apos = pos
     # state.dirty carries host-set pending force-syncs (spawn), consumed
@@ -158,8 +173,9 @@ def tick_body(cfg: WorldConfig, state: SpaceState, inputs: TickInputs,
             flag_bits=flag_bits, with_stats=True,
         )
         aoi_cache = state.aoi_cache
-        aoi_rebuilt = torch.ones((), dtype=torch.int32, device=dev)
-        aoi_slack = torch.zeros((), dtype=torch.float32, device=dev)
+        lead = state.tick.shape
+        aoi_rebuilt = torch.ones(lead, dtype=torch.int32, device=dev)
+        aoi_slack = torch.zeros(lead, dtype=torch.float32, device=dev)
 
     # 5. interest deltas -> bounded enter/leave pair lists
     (enter_w, enter_j, enter_n, leave_w, leave_j, leave_n,
@@ -185,7 +201,7 @@ def tick_body(cfg: WorldConfig, state: SpaceState, inputs: TickInputs,
         vel=vel.to(vel_dtype),
         nbr=nbr,
         nbr_cnt=nbr_cnt,
-        nbr_client_cnt=((nbr_fl >> 1) & 1).sum(dim=1, dtype=torch.int32),
+        nbr_client_cnt=((nbr_fl >> 1) & 1).sum(dim=-1, dtype=torch.int32),
         dirty=torch.zeros_like(state.dirty),
         attr_dirty=torch.zeros_like(state.attr_dirty),
         rng=rng,
@@ -198,7 +214,7 @@ def tick_body(cfg: WorldConfig, state: SpaceState, inputs: TickInputs,
         delta_rows_n=delta_rows_n,
         sync_w=sync_w, sync_j=sync_j, sync_vals=sync_vals, sync_n=sync_n,
         attr_e=attr_e, attr_i=attr_i, attr_v=attr_v, attr_n=attr_n,
-        alive_count=state.alive.sum(dtype=torch.int32),
+        alive_count=state.alive.sum(-1, dtype=torch.int32),
         aoi_demand_max=aoi_stats[0], aoi_over_k_rows=aoi_stats[1],
         aoi_cell_max=aoi_stats[2], aoi_over_cap_cells=aoi_stats[3],
         aoi_rebuilt=aoi_rebuilt, aoi_skin_slack=aoi_slack,
@@ -211,6 +227,8 @@ def make_tick(cfg: WorldConfig, device="cuda"):
     unless the caller asks for the CPU).
 
     Returns ``tick(state, inputs, policy=None) -> (state, outputs)``.
+    The tick takes one Space's lanes or S Spaces' stacked ``[S, ...]``
+    lanes (with ``skin=0``), and its outputs have the same leading axis.
     A config this port does not run yet raises ``NotImplementedError``
     here, before any tick.
     """

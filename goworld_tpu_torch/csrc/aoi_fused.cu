@@ -43,7 +43,12 @@
 //    sort(keys)[:k] exactly. The demand gauge is the sum of the ballots'
 //    popcounts, the count of valid candidates the plain version sums.
 //
-// 4. A device gate (the Verlet rebuild decision, computed on the card):
+// 4. Several Spaces in one launch: blockIdx.y is the Space, whose
+//    sorted view, runs, positions, reach and outputs lie at its own
+//    offset (the caller's lanes carry a leading [S] axis). Ids stay
+//    Space-local, so the keys are those of S separate launches.
+//
+// 5. A device gate (the Verlet rebuild decision, computed on the card):
 //    every block reads it first and leaves when it is 0, so a tick that
 //    reuses its candidate cache pays one empty launch and the outputs
 //    keep what the last open launch wrote. A null gate always runs.
@@ -75,9 +80,8 @@ struct KeyCode {
 // PER: rounds of 32 candidates a row can need (9 * cell_cap / 32)
 template <int PER>
 __global__ void __launch_bounds__(kThreads)
-sweep_fused_kernel(const float* __restrict__ spx,
-                   const float* __restrict__ spz,
-                   const int* __restrict__ sw, int n_items,
+sweep_fused_kernel(const float* __restrict__ s_xz,
+                   const int* __restrict__ sw, int s_len, int n_items,
                    const int* __restrict__ lo,
                    const int* __restrict__ hi,
                    const float* __restrict__ pos,
@@ -86,6 +90,17 @@ sweep_fused_kernel(const float* __restrict__ spx,
                    const int* __restrict__ gate, int* __restrict__ top,
                    int* __restrict__ dem) {
   if (gate != nullptr && *gate == 0) return;  // the whole block leaves
+  // this block's Space: every lane at its own offset
+  const size_t space = blockIdx.y;
+  const float* __restrict__ spx = s_xz + space * 2 * s_len;
+  const float* __restrict__ spz = spx + s_len;
+  sw += space * s_len;
+  lo += space * q * 3;
+  hi += space * q * 3;
+  pos += space * sentinel * 3;
+  reach += space * sentinel;
+  top += space * q * k;
+  if (dem != nullptr) dem += space * q;
   __shared__ int packed[kWarps][32];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -216,14 +231,14 @@ sweep_fused_kernel(const float* __restrict__ spx,
 template <int PER>
 void launch(const float* s_xz, const int* s_w, int s_len, const int* lo,
             const int* hi, const float* pos, const float* reach, int q,
-            int k, int cc, int sentinel, KeyCode code, const int* gate,
-            int* top, int* dem, cudaStream_t stream) {
+            int k, int cc, int sentinel, int spaces, KeyCode code,
+            const int* gate, int* top, int* dem, cudaStream_t stream) {
   const int n_items = s_len - 3 * cc;
   const int per_block = kWarps * kItemsPerWarp;
-  const int blocks = (n_items + per_block - 1) / per_block;
+  const dim3 blocks((n_items + per_block - 1) / per_block, spaces);
   sweep_fused_kernel<PER><<<blocks, kThreads, 0, stream>>>(
-      s_xz, s_xz + s_len, s_w, n_items, lo, hi, pos, reach, q, k, cc,
-      sentinel, code, gate, top, dem);
+      s_xz, s_w, s_len, n_items, lo, hi, pos, reach, q, k, cc, sentinel,
+      code, gate, top, dem);
 }
 
 }  // namespace
@@ -236,23 +251,28 @@ extern "C" {
 // [q, 3] run bounds; pos: f32 [>= q, 3]; reach: f32 [>= q]; top: i32
 // [q, k] out; dem: i32 [q] out, or null to skip the demand gauge;
 // gate: i32 on the card, or null: when it reads 0 the launch writes
-// nothing. Returns the CUDA error code of the launch (cudaErrorInvalidValue when
-// 9*cc > 256).
+// nothing. With spaces > 1 every array holds that many Spaces laid end
+// to end (s_xz [spaces, 2, s_len], ..., pos [spaces, sentinel, 3], top
+// [spaces, q, k]), each swept on its own in the same launch. Returns the
+// CUDA error code of the launch (cudaErrorInvalidValue when 9*cc > 256
+// or spaces is out of range).
 int gw_sweep_fused(const float* s_xz, const int* s_w, int s_len,
                    const int* lo, const int* hi, const float* pos,
                    const float* reach, int q, int k, int cc, int sentinel,
-                   int id_shift, int qd_shift, int qd_cap, int qd_bias,
-                   float scale, int invalid_key, const int* gate,
-                   int* top, int* dem, void* stream) {
+                   int spaces, int id_shift, int qd_shift, int qd_cap,
+                   int qd_bias, float scale, int invalid_key,
+                   const int* gate, int* top, int* dem, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const KeyCode code{id_shift, qd_shift, qd_cap, qd_bias, scale,
                      invalid_key};
+  if (spaces < 1 || spaces > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (q <= 0 || s_len <= 3 * cc) return static_cast<int>(cudaGetLastError());
   const int per = (9 * cc + 31) / 32;
 #define GW_SWEEP_CASE(P)                                                  \
   case P:                                                                 \
     launch<P>(s_xz, s_w, s_len, lo, hi, pos, reach, q, k, cc, sentinel,   \
-              code, gate, top, dem, s);                                   \
+              spaces, code, gate, top, dem, s);                           \
     break;
   switch (per) {
     GW_SWEEP_CASE(1)

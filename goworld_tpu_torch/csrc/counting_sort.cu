@@ -42,6 +42,13 @@
 //      at offset + prefix + rank.
 // So a call is passes + 1 kernels and one memset; a composition of
 // stable passes from the low digit up is a stable sort.
+//
+// Several Spaces in one call: the keys are S Spaces' rows laid end to
+// end, n_per each. The kernels read key i of Space s = i / n_per as
+// s * key_stride + row (key_stride = n_rows + 1), so one stable sort of
+// those Space-major keys is the S per-Space sorts laid end to end; the
+// last pass writes each Space's own order and rows back (less s * n_per
+// and s * key_stride). The launches are the same for any S.
 
 #include <cuda_runtime.h>
 
@@ -90,12 +97,21 @@ __device__ __forceinline__ void store_relaxed(unsigned* p, unsigned v) {
                :: "l"(p), "r"(v) : "memory");
 }
 
+// Key i of the caller's rows as a Space-major key: Space i / n_per's
+// rows shifted by key_stride each (key_stride 0: one Space).
+__device__ __forceinline__ int space_key(const int* keys, int i, int n_per,
+                                         int key_stride) {
+  const int k = keys[i];
+  return key_stride != 0 ? k + (i / n_per) * key_stride : k;
+}
+
 // Digit histograms of every pass, then (last block) their exclusive
 // scans in place: hist[p * bins + d] becomes the first output position
 // of digit d in pass p. hist and ticket come in zeroed.
 __global__ void __launch_bounds__(kHistThreads)
-radix_hist(const int* __restrict__ keys, int n, int passes, int dbits,
-           int* __restrict__ hist, unsigned* __restrict__ ticket) {
+radix_hist(const int* __restrict__ keys, int n, int n_per, int key_stride,
+           int passes, int dbits, int* __restrict__ hist,
+           unsigned* __restrict__ ticket) {
   __shared__ int h[kHistMaxEntries];
   __shared__ int warp_sums[kHistThreads / 32];
   __shared__ bool last;
@@ -110,7 +126,9 @@ radix_hist(const int* __restrict__ keys, int n, int passes, int dbits,
 #pragma unroll
     for (int u = 0; u < kHistItems; ++u) {
       const int i = base + u * kHistThreads + threadIdx.x;
-      key[u] = i < n ? static_cast<unsigned>(keys[i]) : 0u;
+      key[u] = i < n ? static_cast<unsigned>(
+                           space_key(keys, i, n_per, key_stride))
+                     : 0u;
     }
 #pragma unroll
     for (int u = 0; u < kHistItems; ++u) {
@@ -157,10 +175,13 @@ radix_hist(const int* __restrict__ keys, int n, int passes, int dbits,
 
 // One stable counting pass by the digit (key >> shift) & (bins - 1).
 // vals_in == nullptr means the identity permutation (the first pass).
-// status (tiles x bins) and ticket come in zeroed.
+// status (tiles x bins) and ticket come in zeroed. stride_in != 0: the
+// keys come in as the caller's rows (the first pass of several Spaces);
+// stride_out != 0: the pass writes Space-local rows and slots (the last).
 __global__ void __launch_bounds__(kThreads)
 radix_scatter(const int* __restrict__ keys_in,
-              const int* __restrict__ vals_in, int n, int shift, int dbits,
+              const int* __restrict__ vals_in, int n, int n_per,
+              int stride_in, int stride_out, int shift, int dbits,
               const int* __restrict__ offsets, unsigned* __restrict__ status,
               unsigned* __restrict__ ticket, int* __restrict__ keys_out,
               int* __restrict__ vals_out) {
@@ -195,7 +216,7 @@ radix_scatter(const int* __restrict__ keys_in,
 #pragma unroll
   for (int j = 0; j < kItems; ++j) {
     const int i = first + 32 * j;
-    key[j] = i < n ? keys_in[i] : 0;
+    key[j] = i < n ? space_key(keys_in, i, n_per, stride_in) : 0;
     val[j] = i < n ? (vals_in != nullptr ? vals_in[i] : i) : 0;
   }
 #pragma unroll
@@ -310,8 +331,9 @@ radix_scatter(const int* __restrict__ keys_in,
   for (int i = threadIdx.x; i < tile_n; i += kThreads) {
     const int k = sh.sorted.keys[i];
     const int dst = out_base[(static_cast<unsigned>(k) >> shift) & mask] + i;
-    keys_out[dst] = k;
-    vals_out[dst] = sh.sorted.vals[i];
+    const int sp = stride_out != 0 ? dst / n_per : 0;
+    keys_out[dst] = k - sp * stride_out;
+    vals_out[dst] = sh.sorted.vals[i] - sp * n_per;
   }
 }
 
@@ -332,21 +354,29 @@ long long gw_counting_sort_scratch_len(int n, int passes, int digit_bits) {
 
 // Stable sort of keys srow[0..n) in [0, 2^(passes * digit_bits)) with
 // n < 2^30: order is the permutation (a stable argsort) and
-// sorted_row = srow[order]. scratch holds scratch_len ints (at least
-// gw_counting_sort_scratch_len). Launches passes + 1 kernels and one
-// memset on `stream`; returns a CUDA error code (cudaErrorInvalidValue
-// for a plan or scratch the kernels do not take).
-int gw_counting_sort(const int* srow, int n, int passes, int digit_bits,
-                     int* scratch, long long scratch_len, int* order,
-                     int* sorted_row, void* stream) {
+// sorted_row = srow[order]. With spaces > 1 and key_stride > 0, srow
+// holds `spaces` Spaces' rows of n / spaces keys each, every key in
+// [0, key_stride), and each Space is sorted on its own: order and
+// sorted_row hold each Space's local slots and rows in its own block
+// (the plan must cover spaces * key_stride - 1). scratch holds
+// scratch_len ints (at least gw_counting_sort_scratch_len). Launches
+// passes + 1 kernels and one memset on `stream`; returns a CUDA error
+// code (cudaErrorInvalidValue for a plan, split or scratch the kernels
+// do not take).
+int gw_counting_sort(const int* srow, int n, int spaces, int key_stride,
+                     int passes, int digit_bits, int* scratch,
+                     long long scratch_len, int* order, int* sorted_row,
+                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n <= 0) return static_cast<int>(cudaGetLastError());
   const int bins = 1 << digit_bits;
   if (digit_bits < 1 || digit_bits > kMaxDigitBits || passes < 1 ||
       (passes - 1) * digit_bits > 31 || passes * bins > kHistMaxEntries ||
-      n >= (1 << 30) ||
+      n >= (1 << 30) || spaces < 1 || n % spaces != 0 || key_stride < 0 ||
+      (spaces > 1) != (key_stride > 0) ||
       scratch_len < gw_counting_sort_scratch_len(n, passes, digit_bits))
     return static_cast<int>(cudaErrorInvalidValue);
+  const int n_per = n / spaces;
   const size_t tiles = tiles_of(n);
   int* tmp_keys = scratch;
   int* tmp_vals = scratch + n;
@@ -359,8 +389,8 @@ int gw_counting_sort(const int* srow, int n, int passes, int digit_bits,
   const int hist_blocks =
       std::min((n + kHistKeysPerBlock - 1) / kHistKeysPerBlock,
                kHistMaxBlocks);
-  radix_hist<<<hist_blocks, kHistThreads, 0, s>>>(srow, n, passes,
-                                                  digit_bits, hist, tickets);
+  radix_hist<<<hist_blocks, kHistThreads, 0, s>>>(
+      srow, n, n_per, key_stride, passes, digit_bits, hist, tickets);
   // pass p writes the outputs when passes - 1 - p is even, the scratch
   // pair otherwise, so the last pass lands in (sorted_row, order)
   const int* kin = srow;
@@ -370,8 +400,10 @@ int gw_counting_sort(const int* srow, int n, int passes, int digit_bits,
     int* kout = to_out ? sorted_row : tmp_keys;
     int* vout = to_out ? order : tmp_vals;
     radix_scatter<<<static_cast<int>(tiles), kThreads, 0, s>>>(
-        kin, vin, n, p * digit_bits, digit_bits, hist + p * bins,
-        status + p * tiles * bins, tickets + 1 + p, kout, vout);
+        kin, vin, n, n_per, p == 0 ? key_stride : 0,
+        p == passes - 1 ? key_stride : 0, p * digit_bits, digit_bits,
+        hist + p * bins, status + p * tiles * bins, tickets + 1 + p, kout,
+        vout);
     kin = kout;
     vin = vout;
   }

@@ -11,21 +11,27 @@ to Python hooks and client messages.
 Everything here is the JAX World's Python and numpy, except its
 device seams, rewritten for torch:
 
-* the step (:func:`_make_local_tick`): ``make_tick`` on the one Space's
-  view of the stacked ``[1, ...]`` state, its outputs restacked as
-  ``unsqueeze(0)`` views; with ``resident=True`` (the default) the new
-  carry is copied into the old carry's storage (:func:`_carry_into`),
-  so every lane keeps its address from tick to tick;
+* the step (:func:`_make_local_tick`): one Space runs ``make_tick`` on
+  its view of the stacked ``[1, ...]`` state, its outputs restacked as
+  ``unsqueeze(0)`` views; several run the batched ``make_tick`` on the
+  ``[S, ...]`` lanes, one launch of each kernel for all Spaces, without
+  the skin (the JAX World vmaps its step there and clears the skin);
+  with ``resident=True`` (the default) the new carry is copied into the
+  old carry's storage (:func:`_carry_into`), so every lane keeps its
+  address from tick to tick;
 * the live telemetry fold (:mod:`goworld_tpu_torch.ops.telemetry`): the
   tick's health signals folded into device-resident histogram lanes in
   place, with no host sync;
 * the staging flush (:meth:`World._flush_staging`): every host lane of a
   flush is built once in numpy, packed into one pinned buffer and copied
   with one non-blocking copy; the scatters write the real rows only
-  (no padding buckets, since torch compiles nothing per shape), write
-  each (slot, column) once, keeping the last staged value on the host
-  (a CUDA ``index_put_`` with duplicate indices writes them in no fixed
-  order), and never read the device from the host;
+  (no padding buckets, since torch compiles nothing per shape), each at
+  its flat row ``shard * capacity + slot``, write each (row, column)
+  once, keeping the last staged value on the host (a CUDA
+  ``index_put_`` with duplicate indices writes them in no fixed order),
+  and never read the device from the host but once, on a tick with
+  staged migrations between Spaces: one gather of every migrating row
+  and one device-to-host copy, as the JAX World's one ``device_get``;
 * the output fetch (:meth:`World._fetch`): every output lane, the
   telemetry accumulator and, on an audit sample tick, the audit's
   ``pos``/``alive``/``aoi_radius`` planes in one device-to-host copy and
@@ -45,10 +51,11 @@ ledger and a rotating cohort judged against a brute-force oracle on a
 worker thread). A plane that fails disables itself and logs, as in the
 reference; a failure of the step is never caught.
 
-This slice runs one AOI Space on one device (``n_spaces=1``,
-``mesh=None``). The JAX World's other shapes and planes (several spaces,
-a mesh, the megaspace, pipelined decode, delta snapshots, the
-governor's config swap, the step's cost report, multihost) raise
+The World hosts ``n_spaces`` AOI Spaces on one device (``mesh=None``),
+with the JAX World's staged device migration between them
+(:meth:`World.enter_space`). The JAX World's other shapes and planes (a
+mesh, the megaspace, pipelined decode, delta snapshots, the governor's
+config swap, the step's cost report, multihost) raise
 ``NotImplementedError`` naming ROADMAP.md; none is substituted by
 another path.
 
@@ -157,13 +164,28 @@ def _carry_into(dst: SpaceState, src: SpaceState) -> None:
         torch._foreach_copy_([a for a, _ in pairs], [b for _, b in pairs])
 
 
-def _make_local_tick(cfg: WorldConfig, device, resident: bool = True):
-    """The step of a one-Space World: ``make_tick`` on the Space's view
-    of the stacked state (lanes ``[1, ...]``), with the outputs
-    restacked as ``unsqueeze(0)`` views. With ``resident`` the new carry
-    is written into the given state's tensors (:func:`_carry_into`) and
-    that state is returned; without it the new lanes are restacked as
-    views and replace the old ones. Both give the same bits."""
+def _make_local_tick(cfg: WorldConfig, n_spaces: int, device,
+                     resident: bool = True):
+    """The step of a World on one device. One Space: ``make_tick`` on
+    the Space's view of the stacked state (lanes ``[1, ...]``), with the
+    outputs restacked as ``unsqueeze(0)`` views, so the Verlet skin runs
+    there. Several: the batched ``make_tick`` on the ``[S, ...]`` lanes,
+    with the skin cleared (as the JAX World's vmapped step clears it;
+    the adaptive extraction tiers too, which the port never chooses).
+    With ``resident`` the new carry is written into the given state's
+    tensors (:func:`_carry_into`) and that state is returned; without it
+    the new lanes replace the old ones. Both give the same bits."""
+    if n_spaces > 1:
+        tick = make_tick(_batched_config(cfg), device=device)
+
+        def step(state: SpaceState, inputs: TickInputs, policy=None):
+            s1, outs = tick(state, inputs, policy)
+            if resident:
+                _carry_into(state, s1)
+                return state, outs
+            return s1, outs
+
+        return step
     tick = make_tick(cfg, device=device)
 
     def step1(state: SpaceState, inputs: TickInputs, policy=None):
@@ -176,6 +198,14 @@ def _make_local_tick(cfg: WorldConfig, device, resident: bool = True):
         return _lanes_of(s1, lambda t: t.unsqueeze(0)), outs
 
     return step1
+
+
+def _batched_config(cfg: WorldConfig) -> WorldConfig:
+    """``cfg`` as the batched step of several Spaces runs it: no skin,
+    no adaptive extraction (the JAX World's ``_make_local_tick``)."""
+    return dataclasses.replace(
+        cfg, adaptive_extract=False,
+        grid=dataclasses.replace(cfg.grid, skin=0.0))
 
 
 def _keep_last(lin: np.ndarray) -> np.ndarray:
@@ -224,8 +254,9 @@ class World:
     """Hosts every entity of one game process on one device.
 
     Parameters:
-      cfg: the Space's device config.
-      n_spaces: number of AOI shards; this slice runs 1.
+      cfg: each Space's device config (shared by all Spaces).
+      n_spaces: number of AOI shards in the stacked state; with more
+        than one the step runs them batched, without the skin.
       mesh: must be None (a mesh is not ported yet).
       clock: injectable time source for timers (tests pass virtual time).
       device: where the state and the step live: the card unless the
@@ -269,8 +300,8 @@ class World:
             raise _refuse("a World on a mesh", "A8")
         if megaspace:
             raise _refuse("the megaspace World", "A8")
-        if n_spaces != 1:
-            raise _refuse(f"n_spaces={n_spaces}", "A7")
+        if n_spaces < 1:
+            raise ValueError(f"n_spaces must be >= 1, got {n_spaces}")
         for name, on in (("pipeline_decode", pipeline_decode),
                          ("snapshot_keyframe_every",
                           snapshot_keyframe_every > 0)):
@@ -283,9 +314,12 @@ class World:
         self.registry = Registry()
         self.policy = None  # the mlp behavior is not ported
         self.resident = resident
+        # the batched step clears the skin: no [capacity, verlet_cap]
+        # caches a Space that it would never touch
+        state_cfg = _batched_config(cfg) if n_spaces > 1 else cfg
         self.state: SpaceState = create_multi_state(
-            cfg, n_spaces, seed=seed, device=self.device)
-        self._step = _make_local_tick(cfg, self.device, resident)
+            state_cfg, n_spaces, seed=seed, device=self.device)
+        self._step = _make_local_tick(cfg, n_spaces, self.device, resident)
 
         # the step's cost report, as a lazy devprof provider (run only
         # when asked for; its report raises until it is ported), held
@@ -388,6 +422,9 @@ class World:
         self._staged_moving: list[tuple[int, int, bool]] = []
         self._staged_client: list[tuple[int, int, bool, int]] = []
         self._staged_pos: dict[tuple[int, int], Entity] = {}
+        # (src shard, src slot, dst shard, eid) of each enter_space
+        # between two AOI Spaces, repacked at the next flush
+        self._staged_migrate: list[tuple[int, int, int, str]] = []
         # upstream (client->server) pos-sync BATCH path: slot-addressed
         # staging arrays + a lazily rebuilt eid->(shard,slot) intern
         # index over the client-bound mirror columns, so a decoded batch
@@ -682,10 +719,11 @@ class World:
     # space enter / leave
     # ==================================================================
     def enter_space(self, e: Entity, space_id: str, pos) -> None:
-        """Reference ``EnterSpace`` (``Entity.go:956-973``). With one AOI
-        shard no two AOI spaces coexist, so the JAX World's staged
-        device migration between shards never arises: a space change is
-        the host move, run after the current frame."""
+        """Reference ``EnterSpace`` (``Entity.go:956-973``): a staged
+        device migration when both spaces are AOI shards (repacked at
+        the next flush, replacing the dispatcher block-and-queue
+        protocol, ``DispatcherService.go:850-891``), else the host move
+        after the current frame."""
         target = self.spaces.get(space_id)
         if target is None:
             if self.remote_space_router is not None:
@@ -696,7 +734,33 @@ class World:
         if e.space is target:
             e.set_position(pos)
             return
-        self.post_q.post(lambda: self._move_space_host(e, target, pos))
+        src = e.space
+        if (
+            src is not None and e.shard is not None
+            and target.shard is not None and e.slot is not None
+        ):
+            e.OnMigrateOut()
+            self._staged_migrate.append(
+                (e.shard, e.slot, target.shard, e.id)
+            )
+            self._drop_staged_for(e.shard, e.slot)
+            src.members.discard(e.id)
+            e.OnLeaveSpace(src)
+            src.OnEntityLeaveSpace(e)
+            # during the migration window the entity has NO device row it
+            # may address: slot ownership of the source row is kept (for
+            # its leave events) in _staged_migrate, and e.slot is
+            # re-pointed by the flush's repack
+            e._migrating = (e.shard, e.slot, target.shard)
+            e.slot = None
+            e.shard = None
+            e.space = target
+            target.members.add(e.id)
+            e._pending_pos = tuple(map(float, pos))
+        else:
+            self.post_q.post(
+                lambda: self._move_space_host(e, target, pos)
+            )
 
     def _move_space_host(self, e: Entity, target: Space, pos) -> None:
         if e.destroyed:
@@ -707,6 +771,7 @@ class World:
     def _leave_space_host(self, e: Entity) -> None:
         src = e.space
         if src is None:
+            self._cancel_migration(e)
             return
         src.members.discard(e.id)
         if e.slot is not None:
@@ -714,9 +779,24 @@ class World:
             self._staged_despawn.append((e.shard, e.slot))
             e.slot = None
             e.shard = None
+        self._cancel_migration(e)
         e.space = None
         e.OnLeaveSpace(src)
         src.OnEntityLeaveSpace(e)
+
+    def _cancel_migration(self, e: Entity) -> None:
+        """Abort an in-window migration (reference ``cancelEnterSpace``,
+        ``Entity.go:1014-1023``): drop the staged request and despawn
+        the still-live source row."""
+        mig = e._migrating
+        if mig is None:
+            return
+        src_sh, src_sl, _dst = mig
+        e._migrating = None
+        self._staged_migrate = [
+            m for m in self._staged_migrate if m[3] != e.id
+        ]
+        self._staged_despawn.append((src_sh, src_sl))
 
     def _enter_space_local(
         self, e: Entity, space: Space, pos, moving: bool = False
@@ -787,8 +867,9 @@ class World:
             self.spaces.pop(e.id, None)
         had_slot = e.slot is not None
         self._leave_space_host(e)
-        if not had_slot:
-            # never on device: nothing will reference it again
+        if not had_slot and e._migrating is None:
+            # never on device (and no row in flight): nothing will
+            # reference it again
             self.entities.pop(e.id, None)
         # else: the host object stays mapped until the leave events
         # referencing its slot have been processed (_process_outputs)
@@ -1168,7 +1249,7 @@ class World:
         self._mirror_client(e)
         e.destroyed = True
         self._leave_space_host(e)
-        if e.slot is None:
+        if e.slot is None and e._migrating is None:
             self.entities.pop(e.id, None)
 
     def restore_from_migration(self, data: dict,
@@ -1550,21 +1631,27 @@ class World:
         """Apply every staged mutation to the device state and build the
         tick's position-sync inputs.
 
-        The JAX World's scatters in the same order (spawn, despawn, hot
-        attrs, moving flags, client bindings, then the inputs), with the
-        same final values: each stage's host lanes are built once in
-        numpy, every (slot, column) written once with its last staged
-        value, all lanes sent in one copy. The host reads nothing back:
-        a position or yaw the inputs must keep is gathered from the
-        state on the device."""
+        The JAX World's scatters in the same order (the migration
+        repack, spawn, despawn, hot attrs, moving flags, client
+        bindings, then the inputs), with the same final values: each
+        stage's host lanes are built once in numpy, every (row, column)
+        written once with its last staged value, all lanes sent in one
+        copy, each row addressed by its flat index ``shard * capacity +
+        slot``. The host reads the device on a tick with migrations
+        only (:meth:`_repack_migrations`); a position or yaw the inputs
+        must keep is gathered from the state on the device."""
         cfg = self.cfg
+        cap = cfg.capacity
         pack = _HostPack()
+        if self._staged_migrate:
+            self._repack_migrations()
 
         spawn = None
         if self._staged_spawn:
             d = [v for _, _, v in self._staged_spawn]
             spawn = [pack.add(x) for x in (
-                np.array([s for _, s, _ in self._staged_spawn], np.int64),
+                np.array([sh * cap + sl for sh, sl, _ in self._staged_spawn],
+                         np.int64),
                 np.array([x["pos"] for x in d], np.float32).reshape(-1, 3),
                 np.array([x["yaw"] for x in d], np.float32),
                 np.array([x["npc_moving"] for x in d], bool),
@@ -1591,7 +1678,8 @@ class World:
         despawn = None
         if self._staged_despawn:
             despawn = pack.add(np.array(
-                [s for _, s in self._staged_despawn], np.int64))
+                [sh * cap + sl for sh, sl in self._staged_despawn],
+                np.int64))
             # release AFTER this tick's leave events decode
             self._release_now.extend(
                 (sh_, sl_, self._slot_owner[sh_].get(sl_))
@@ -1599,33 +1687,36 @@ class World:
             )
             self._staged_despawn.clear()
 
+        def rows_of(staged) -> np.ndarray:
+            return np.array([x[0] * cap + x[1] for x in staged], np.int64)
+
         hot = None
         if self._staged_hot:
-            sl = np.array([x[1] for x in self._staged_hot], np.int64)
+            rw = rows_of(self._staged_hot)
             co = np.array([x[2] for x in self._staged_hot], np.int64)
             va = np.array([x[3] for x in self._staged_hot], np.float32)
-            keep = _keep_last(sl * cfg.attr_width + co)
-            hot = [pack.add(x[keep]) for x in (sl, co, va)]
+            keep = _keep_last(rw * cfg.attr_width + co)
+            hot = [pack.add(x[keep]) for x in (rw, co, va)]
             self._staged_hot.clear()
 
         moving = None
         if self._staged_moving:
-            sl = np.array([x[1] for x in self._staged_moving], np.int64)
+            rw = rows_of(self._staged_moving)
             mv = np.array([x[2] for x in self._staged_moving], bool)
-            keep = _keep_last(sl)
-            moving = [pack.add(x[keep]) for x in (sl, mv)]
+            keep = _keep_last(rw)
+            moving = [pack.add(x[keep]) for x in (rw, mv)]
             self._staged_moving.clear()
 
         client = None
         if self._staged_client:
-            sl = np.array([x[1] for x in self._staged_client], np.int64)
+            rw = rows_of(self._staged_client)
             hc = np.array([x[2] for x in self._staged_client], bool)
             cg = np.array([x[3] for x in self._staged_client], np.int32)
-            keep = _keep_last(sl)
-            client = [pack.add(x[keep]) for x in (sl, hc, cg)]
+            keep = _keep_last(rw)
+            client = [pack.add(x[keep]) for x in (rw, hc, cg)]
             self._staged_client.clear()
 
-        # position-sync inputs -> TickInputs [1, IC]
+        # position-sync inputs -> TickInputs [S, IC]
         ic = cfg.input_cap
         idx = self._pin_idx
         vals = self._pin_vals
@@ -1635,8 +1726,8 @@ class World:
         counts.fill(0)
         # rows whose position (a set_yaw alone) or yaw (a set_position
         # alone) is the device row's current one: gathered on the device
-        fill_pos = np.zeros(ic, bool)
-        fill_yaw = np.zeros(ic, bool)
+        fill_pos = np.zeros((self.n_spaces, ic), bool)
+        fill_yaw = np.zeros((self.n_spaces, ic), bool)
         entries = list(self._staged_pos.items())
         overflow: dict[tuple[int, int], Entity] = {}
         for (shard, slot), e in entries:
@@ -1650,11 +1741,11 @@ class World:
             if p is None:
                 p = self._peek_batch_pos(shard, slot)
                 if p is None:
-                    fill_pos[c] = True
+                    fill_pos[shard, c] = True
                     p = (0.0, 0.0, 0.0)
             y = e._pending_yaw
             if y is None:
-                fill_yaw[c] = True
+                fill_yaw[shard, c] = True
                 y = 0.0
             idx[shard, c] = slot
             vals[shard, c] = (p[0], p[1], p[2], y)
@@ -1708,50 +1799,120 @@ class World:
 
         lanes = pack.send(self.device)
         st = self.state
+
+        def flat(lane):
+            # the stacked lane's rows as one [S * capacity, ...] view
+            return lane.view(-1, *lane.shape[2:])
+
         if spawn is not None:
-            sl, p_, y_, mv, hc, cg, ti, ht, ar = (lanes[i] for i in spawn)
-            st.pos[0].index_copy_(0, sl, p_)
-            st.yaw[0].index_copy_(0, sl, y_)
-            st.vel[0].index_fill_(0, sl, 0.0)
-            st.alive[0].index_fill_(0, sl, True)
-            st.npc_moving[0].index_copy_(0, sl, mv)
-            st.has_client[0].index_copy_(0, sl, hc)
-            st.client_gate[0].index_copy_(0, sl, cg)
-            st.type_id[0].index_copy_(0, sl, ti)
-            st.aoi_radius[0].index_copy_(0, sl, ar)
-            st.gen[0].index_add_(0, sl, torch.ones_like(ti))
-            st.dirty[0].index_fill_(0, sl, True)
-            st.hot_attrs[0].index_copy_(0, sl, ht)
-            st.attr_dirty[0].index_fill_(0, sl, 0)
+            rw, p_, y_, mv, hc, cg, ti, ht, ar = (lanes[i] for i in spawn)
+            flat(st.pos).index_copy_(0, rw, p_)
+            flat(st.yaw).index_copy_(0, rw, y_)
+            flat(st.vel).index_fill_(0, rw, 0.0)
+            flat(st.alive).index_fill_(0, rw, True)
+            flat(st.npc_moving).index_copy_(0, rw, mv)
+            flat(st.has_client).index_copy_(0, rw, hc)
+            flat(st.client_gate).index_copy_(0, rw, cg)
+            flat(st.type_id).index_copy_(0, rw, ti)
+            flat(st.aoi_radius).index_copy_(0, rw, ar)
+            flat(st.gen).index_add_(0, rw, torch.ones_like(ti))
+            flat(st.dirty).index_fill_(0, rw, True)
+            flat(st.hot_attrs).index_copy_(0, rw, ht)
+            flat(st.attr_dirty).index_fill_(0, rw, 0)
         if despawn is not None:
-            sl = lanes[despawn]
-            st.alive[0].index_fill_(0, sl, False)
-            st.has_client[0].index_fill_(0, sl, False)
-            st.client_gate[0].index_fill_(0, sl, -1)
-            st.npc_moving[0].index_fill_(0, sl, False)
-            st.dirty[0].index_fill_(0, sl, False)
+            rw = lanes[despawn]
+            flat(st.alive).index_fill_(0, rw, False)
+            flat(st.has_client).index_fill_(0, rw, False)
+            flat(st.client_gate).index_fill_(0, rw, -1)
+            flat(st.npc_moving).index_fill_(0, rw, False)
+            flat(st.dirty).index_fill_(0, rw, False)
         if hot is not None:
-            sl, co, va = (lanes[i] for i in hot)
-            st.hot_attrs[0].index_put_((sl, co), va)
+            rw, co, va = (lanes[i] for i in hot)
+            flat(st.hot_attrs).index_put_((rw, co), va)
         if moving is not None:
-            sl, mv = (lanes[i] for i in moving)
-            st.npc_moving[0].index_copy_(0, sl, mv)
+            rw, mv = (lanes[i] for i in moving)
+            flat(st.npc_moving).index_copy_(0, rw, mv)
         if client is not None:
-            sl, hc, cg = (lanes[i] for i in client)
-            st.has_client[0].index_copy_(0, sl, hc)
-            st.client_gate[0].index_copy_(0, sl, cg)
+            rw, hc, cg = (lanes[i] for i in client)
+            flat(st.has_client).index_copy_(0, rw, hc)
+            flat(st.client_gate).index_copy_(0, rw, cg)
         d_idx, d_vals, d_counts = (lanes[i] for i in inp)
         if fills is not None:
             f_pos, f_yaw = (lanes[i] for i in fills)
-            rows = d_idx[0].long()
-            v = d_vals[0]
+            rows = d_idx.long()
+            sp = torch.arange(self.n_spaces, device=rows.device)[:, None]
             if need_pos:
-                v[:, :3] = torch.where(f_pos[:, None], st.pos[0][rows],
-                                       v[:, :3])
+                d_vals[..., :3] = torch.where(
+                    f_pos[..., None], st.pos[sp, rows], d_vals[..., :3])
             if need_yaw:
-                v[:, 3] = torch.where(f_yaw, st.yaw[0][rows], v[:, 3])
+                d_vals[..., 3] = torch.where(f_yaw, st.yaw[sp, rows],
+                                             d_vals[..., 3])
         return TickInputs(pos_sync_idx=d_idx, pos_sync_vals=d_vals,
                           pos_sync_n=d_counts)
+
+    def _repack_migrations(self) -> None:
+        """The staged migrations between AOI Spaces as a host repack
+        (the JAX World's local path): one gather of every migrating row
+        and one device-to-host copy, then each entity respawned at a
+        slot of its destination Space (its staged position, else its
+        row's), its source row despawned (so its watchers get their
+        leave events this tick), the hot attrs written during the window
+        written over the row, and the hooks run: ``OnMigrateIn``,
+        ``OnEnterSpace``, the Space's ``OnEntityEnterSpace``."""
+        cap = self.cfg.capacity
+        live = [
+            m for m in self._staged_migrate
+            if (e := self.entities.get(m[3])) is not None
+            and not e.destroyed
+        ]
+        self._staged_migrate.clear()
+        if not live:
+            return
+        st = self.state
+        rw = torch.as_tensor(np.array([sh * cap + sl for sh, sl, _, _ in live],
+                                      np.int64)).to(self.device)
+
+        def rows(lane):
+            return lane.view(-1, *lane.shape[2:]).index_select(0, rw)
+
+        pos, yaw, type_id, moving, has_client, gate, hot = self._dget([
+            rows(st.pos), rows(st.yaw), rows(st.type_id),
+            rows(st.npc_moving), rows(st.has_client), rows(st.client_gate),
+            rows(st.hot_attrs)])
+        for i, (sh_, sl_, dst, eid) in enumerate(live):
+            e = self.entities[eid]
+            e._migrating = None
+            new_slot = self._alloc_slot(dst, eid)
+            pend = e._pending_pos or tuple(pos[i].tolist())
+            self._staged_spawn.append((dst, new_slot, dict(
+                pos=pend, yaw=float(yaw[i]),
+                type_id=int(type_id[i]),
+                npc_moving=bool(moving[i]),
+                has_client=bool(has_client[i]),
+                client_gate=int(gate[i]),
+                hot=hot[i].tolist(),
+                aoi_radius=_type_aoi_radius(e._type_desc),
+            )))
+            # old slot: despawn now; owner mapping stays for this
+            # step's leave events, slot frees after processing
+            self._staged_despawn.append((sh_, sl_))
+            e.slot = new_slot
+            e.shard = dst
+            e._pending_pos = pend
+            # attr writes made during the migration window are only in
+            # the host tree; overwrite the repacked row's hot columns
+            for name, col in e._type_desc.hot_attrs.items():
+                v = e.attrs.get(name)
+                if isinstance(v, (int, float)) \
+                        and not isinstance(v, bool):
+                    self._staged_hot.append((dst, new_slot, col,
+                                             float(v)))
+            e.OnMigrateIn()
+            e.OnEnterSpace()
+            tgt_id = self._shard_space[dst]
+            tgt = self.spaces.get(tgt_id) if tgt_id else None
+            if tgt is not None:
+                tgt.OnEntityEnterSpace(e)
 
     # -- output processing ----------------------------------------------
     def _process_outputs(self, outs) -> None:

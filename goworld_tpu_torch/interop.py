@@ -17,11 +17,15 @@ lanes change representation on the way:
 Random walk has no learned weights, so this converter is all that
 carries a world across.
 
-A megaspace's stacked state is the same ``SpaceState`` with a leading
-``[n_dev]`` axis on every lane (``rng`` is then ``[n_dev, 2]`` and
-``tick`` ``[n_dev]``): :func:`state_from_numpy` and
-:func:`state_to_numpy` carry it as they are. :func:`multi_inputs_from_
-numpy` and :func:`mega_outputs_to_numpy` carry its inputs and outputs.
+Several Spaces (the World's stacked state at ``n_spaces > 1``, the JAX
+package's vmapped step) and a megaspace's tiles are the same
+``SpaceState`` with a leading ``[S]`` axis on every lane (``rng`` is
+then ``[S, 2]`` and ``tick`` ``[S]``): :func:`state_from_numpy` and
+:func:`state_to_numpy` carry it as they are, and so do the inputs
+(:func:`inputs_from_numpy`, :func:`inputs_to_numpy`) and outputs
+(:func:`outputs_from_numpy`, :func:`outputs_to_numpy`), both ways.
+:func:`multi_inputs_from_numpy` and :func:`mega_outputs_to_numpy` carry
+a megaspace's inputs and outputs.
 """
 
 from __future__ import annotations
@@ -121,6 +125,22 @@ def inputs_from_numpy(arrays: dict, device="cuda") -> TickInputs:
         f.name: torch.tensor(np.asarray(arrays[f.name]), device=dev)
         for f in dataclasses.fields(TickInputs)
     })
+
+
+def inputs_to_numpy(inputs: TickInputs) -> dict:
+    """The lanes of ``inputs`` as numpy arrays keyed by name."""
+    return {f.name: getattr(inputs, f.name).detach().cpu().numpy()
+            for f in dataclasses.fields(TickInputs)}
+
+
+def outputs_from_numpy(arrays: dict, device="cuda") -> TickOutputs:
+    """``TickOutputs`` on ``device`` from numpy lanes keyed by name (a
+    lane absent or None stays None)."""
+    dev = resolve_device(device)
+    return TickOutputs(**{
+        f.name: None if arrays.get(f.name) is None
+        else torch.tensor(np.asarray(arrays[f.name]), device=dev)
+        for f in dataclasses.fields(TickOutputs)})
 
 
 def outputs_to_numpy(outputs: TickOutputs) -> dict:

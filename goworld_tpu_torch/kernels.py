@@ -110,10 +110,11 @@ _L, _U = ctypes.c_longlong, ctypes.c_ulonglong
 # (argument types, result type) of each C entry point
 SIGNATURES = {
     "gw_sweep_fused": ([_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                        _I, _I, ctypes.c_float, _I, _P, _P, _P, _P], _I),
+                        _I, _I, _I, ctypes.c_float, _I, _P, _P, _P, _P],
+                       _I),
     "gw_counting_sort_scratch_len": ([_I, _I, _I], ctypes.c_longlong),
-    "gw_counting_sort": ([_P, _I, _I, _I, _P, ctypes.c_longlong, _P, _P, _P],
-                         _I),
+    "gw_counting_sort": ([_P, _I, _I, _I, _I, _I, _P, ctypes.c_longlong, _P,
+                          _P, _P], _I),
     "gw_halo_ship_phase": ([_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I,
                             _I, _I, *[_P, _L, _P, _I, _U] * 2, _P], _I),
 }

@@ -80,14 +80,18 @@ def random_walk_step(
     speed: float,
     turn_prob: float,
 ) -> torch.Tensor:
-    """Return updated velocities f32[N,3] (y velocity stays 0)."""
-    n = vel.shape[0]
-    k_turn, k_head = prng.split(key)
+    """Return updated velocities f32[N,3] (y velocity stays 0). With a
+    leading Space axis (``key [S, 2]``, ``vel [S, N, 3]``, ``moving [S,
+    N]``) each Space draws from its own key: the bits of S separate
+    calls."""
+    n = vel.shape[-2]
+    keys = prng.split(key)
+    k_turn, k_head = keys[..., 0, :], keys[..., 1, :]
     turn = prng.uniform(k_turn, (n,)) < turn_prob
     heading = prng.uniform(k_head, (n,), 0.0, 2.0 * math.pi)
     cos_h, sin_h = cos_sin(heading)
     new_vel = torch.stack(
-        [cos_h * speed, torch.zeros_like(heading), sin_h * speed], dim=1)
-    still = vel.abs().sum(dim=1) < 1e-6
+        [cos_h * speed, torch.zeros_like(heading), sin_h * speed], dim=-1)
+    still = vel.abs().sum(dim=-1) < 1e-6
     pick_new = (turn | still) & moving
-    return torch.where(pick_new[:, None], new_vel, vel)
+    return torch.where(pick_new[..., None], new_vel, vel)

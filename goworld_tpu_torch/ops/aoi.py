@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from goworld_tpu_torch import kernels
+from goworld_tpu_torch.ops.batch import bin_counts, take
 from goworld_tpu_torch.ops.sort import (
     counting_sort_cells,
     counting_sort_cells_cuda,
@@ -76,7 +77,7 @@ def _lattice(spec: "GridSpec", pos: torch.Tensor):
     [0, 2^15 - 1], as float32 (exact: a multiply by a power of two)."""
     hi = float((1 << consts.PRECISION_POS_BITS) - 1)
     inv = 1.0 / spec.quant_step
-    return tuple(torch.clamp(torch.floor(pos[:, c] * inv), 0.0, hi)
+    return tuple(torch.clamp(torch.floor(pos[..., c] * inv), 0.0, hi)
                  for c in (0, 2))
 
 
@@ -88,7 +89,7 @@ def quantize_positions(spec: "GridSpec", pos: torch.Tensor) -> torch.Tensor:
         return pos
     qx, qz = _lattice(spec, pos)
     step = spec.quant_step
-    return torch.stack([qx * step, pos[:, 1], qz * step], dim=1)
+    return torch.stack([qx * step, pos[..., 1], qz * step], dim=-1)
 
 
 def quantize_xz_i32(spec: "GridSpec", pos: torch.Tensor) -> torch.Tensor:
@@ -321,7 +322,7 @@ def _cell_rows(spec: GridSpec, pos, alive, watch_radius):
     def cell(col, origin, cells):
         # clamp in float before the cast, so no out-of-range float is
         # ever converted (same result as the JAX cast-then-clip)
-        c = torch.floor((pos[:, col] - origin) / cs)
+        c = torch.floor((pos[..., col] - origin) / cs)
         return torch.clamp(c, 0, cells - 1).to(torch.int32)
 
     cx = cell(0, spec.origin_x, spec.cells_x)
@@ -338,24 +339,25 @@ def _sort_cells(n_rows: int, srow, sort_impl: str):
         return counting_sort_cells_cuda(srow, n_rows)
     if sort_impl == "counting":
         return counting_sort_cells(srow, n_rows)
-    order = torch.argsort(srow, stable=True).to(torch.int32)
-    return order, srow[order.long()]
+    order = torch.argsort(srow, dim=-1, stable=True).to(torch.int32)
+    return order, take(srow, order, srow.dim() - 1)
 
 
 def _sorted_src(pos, flag_bits, order):
     """Front half, stage 3: sorted x, z and packed slot words. The word
     carries the slot id plus the caller's flag bits, so consumers never
     gather them per neighbor. Returns (px, pz, word, table sentinel)."""
-    n = pos.shape[0]
+    n = pos.shape[-2]
+    nb = pos.dim() - 2
     idx = torch.arange(n, dtype=torch.int32, device=pos.device)
     if flag_bits is not None:
         word = (idx << 2) | (flag_bits.to(torch.int32) & 3)
         table_sentinel = n << 2
     else:
-        word = idx
+        word = idx.expand(pos.shape[:-1])
         table_sentinel = n
-    o = order.long()
-    return pos[o, 0], pos[o, 2], word[o], table_sentinel
+    return (take(pos[..., 0], order, nb), take(pos[..., 2], order, nb),
+            take(word, order, nb), table_sentinel)
 
 
 def _build_ranges(cc: int, n_rows: int, srow, px, pz, word,
@@ -363,13 +365,16 @@ def _build_ranges(cc: int, n_rows: int, srow, px, pz, word,
     """Front half, stage 4: row_start offsets plus the padded
     component-major sorted view: ``s_xz`` f32[2, n + 3cc] and ``s_w``
     i32[n + 3cc], with 3cc sentinel lanes so that every run is in
-    bounds."""
+    bounds (each Space's own tail under a leading Space axis)."""
     row_start = row_starts(srow, n_rows)
     dev = px.device
-    pad = torch.full((3 * cc,), math.inf, dtype=torch.float32, device=dev)
-    s_xz = torch.stack([torch.cat([px, pad]), torch.cat([pz, pad])])
-    s_w = torch.cat([word, torch.full((3 * cc,), table_sentinel,
-                                      dtype=torch.int32, device=dev)])
+    lead = px.shape[:-1]
+    pad = torch.full((*lead, 3 * cc), math.inf, dtype=torch.float32,
+                     device=dev)
+    s_xz = torch.stack([torch.cat([px, pad], -1),
+                        torch.cat([pz, pad], -1)], dim=-2)
+    s_w = torch.cat([word, torch.full((*lead, 3 * cc), table_sentinel,
+                                      dtype=torch.int32, device=dev)], -1)
     return row_start, s_xz, s_w
 
 
@@ -377,9 +382,10 @@ def _query_runs(cx, cz, alive, row_start, czp: int):
     """Each query's three z-triple runs ``[lo, hi)`` of the sorted view,
     one per x offset; excluded queries read an empty border run."""
     dxs = torch.arange(-1, 2, dtype=torch.int32, device=cx.device)
-    starts = (cx[:, None] + dxs[None, :] + 1) * czp + cz[:, None]
-    starts = torch.where(alive[:, None], starts, 0).long()
-    return row_start[starts], row_start[starts + 3]
+    starts = (cx[..., None] + dxs + 1) * czp + cz[..., None]
+    starts = torch.where(alive[..., None], starts, 0)
+    nb = cx.dim() - 1
+    return take(row_start, starts, nb), take(row_start, starts + 3, nb)
 
 
 def _invalid_key_int(topk_impl) -> int:
@@ -421,21 +427,23 @@ def _window_keys(s_xz, s_w, lo, hi, pos, reach, rows, cc, sentinel, code,
     (only the slot word of a lane past a run's end is masked; its
     validity never reads coordinates)."""
     b = rows.shape[0]
+    lead = lo.shape[:-2]
+    nb = len(lead)
     lanes3 = torch.arange(3 * cc, device=lo.device)
-    idx = (lo[:, :, None].long() + lanes3).reshape(b, 9 * cc)
-    in_range = (lanes3[None, None, :] < (hi - lo)[:, :, None]) \
-        .reshape(b, 9 * cc)
-    cand_w = torch.where(in_range, s_w[idx], sentinel << code[0])
+    idx = (lo[..., None].long() + lanes3).reshape(*lead, b, 9 * cc)
+    in_range = (lanes3 < (hi - lo)[..., None]).reshape(*lead, b, 9 * cc)
+    cand_w = torch.where(in_range, take(s_w, idx, nb), sentinel << code[0])
     if q16 is not None:
         spec, s_q, qxz = q16
-        dist = _q16_dist(spec, s_q[idx], qxz[rows][:, None])
+        dist = _q16_dist(spec, take(s_q, idx, nb), qxz[..., rows, None])
     else:
-        cand_px = torch.where(in_range, s_xz[0][idx], math.inf)
-        cand_pz = s_xz[1][idx]
-        dist = torch.maximum((cand_px - pos[rows, 0][:, None]).abs(),
-                             (cand_pz - pos[rows, 2][:, None]).abs())
+        cand_px = torch.where(in_range, take(s_xz[..., 0, :], idx, nb),
+                              math.inf)
+        cand_pz = take(s_xz[..., 1, :], idx, nb)
+        dist = torch.maximum((cand_px - pos[..., rows, 0, None]).abs(),
+                             (cand_pz - pos[..., rows, 2, None]).abs())
     cand_id = cand_w >> code[0]
-    valid = ((cand_id != sentinel) & (dist <= reach[rows][:, None])
+    valid = ((cand_id != sentinel) & (dist <= reach[..., rows, None])
              & (cand_id != rows[:, None]))
     return _pack_keys(dist, valid, cand_w, code), valid
 
@@ -443,26 +451,26 @@ def _window_keys(s_xz, s_w, lo, hi, pos, reach, rows, cc, sentinel, code,
 def _pad_k(top, k, invalid):
     """Keep exactly k ranked columns (invalid keys pad when there are
     fewer candidate lanes than k)."""
-    if top.shape[1] >= k:
-        return top[:, :k]
-    fill = torch.full((top.shape[0], k - top.shape[1]), invalid,
+    if top.shape[-1] >= k:
+        return top[..., :k]
+    fill = torch.full((*top.shape[:-1], k - top.shape[-1]), invalid,
                       dtype=top.dtype, device=top.device)
-    return torch.cat([top, fill], dim=1)
+    return torch.cat([top, fill], dim=-1)
 
 
 def _rank_packed(packed, k, topk_impl):
     """The k smallest keys per row in ascending order. The three exact
     rankings give the same values (valid keys are unique); each is
     written as the JAX package lowers it."""
-    kk = min(k, packed.shape[1])
+    kk = min(k, packed.shape[-1])
     if topk_impl == "exact":
-        top = torch.topk(packed, kk, dim=1, largest=False).values
+        top = torch.topk(packed, kk, dim=-1, largest=False).values
     elif topk_impl == "f32":
         fk = packed.view(torch.float32)
-        top = torch.topk(fk, kk, dim=1, largest=False).values \
+        top = torch.topk(fk, kk, dim=-1, largest=False).values \
             .view(torch.int32)
     else:
-        top = torch.sort(packed, dim=1).values[:, :kk]
+        top = torch.sort(packed, dim=-1).values[..., :kk]
     return _pad_k(top, k, _invalid_key_int(topk_impl))
 
 
@@ -492,20 +500,23 @@ def sweep_fused_plain(s_xz, s_w, lo, hi, pos, reach, k, cc, code,
                       with_stats, row_block=consts.DEFAULT_ROW_BLOCK,
                       gate=None, out=None):
     """Plain version of :func:`sweep_fused_cuda`: the ``ranges`` back
-    half, block by block, keeping the k smallest keys of each row.
+    half, block by block, keeping the k smallest keys of each row (of
+    each Space, under a leading Space axis).
     Under a gate it computes the result and writes it into ``out`` where
     the gate is nonzero (``torch.where``), the kernel's dataflow."""
-    q = lo.shape[0]
-    sentinel = pos.shape[0]
+    q = lo.shape[-2]
+    lead = lo.shape[:-2]
+    sentinel = pos.shape[-2]
     invalid = code[-1]
     tops, dems = [], []
     for rows in _blocks(q, row_block, lo.device):
-        keys, valid = _window_keys(s_xz, s_w, lo[rows], hi[rows], pos,
-                                   reach, rows, cc, sentinel, code)
-        tops.append(_pad_k(torch.sort(keys, dim=1).values, k, invalid))
-        dems.append(valid.sum(1, dtype=torch.int32))
-    top = torch.cat(tops) if tops else lo.new_zeros((0, k))
-    dem = (torch.cat(dems) if dems else lo.new_zeros(0)) \
+        keys, valid = _window_keys(s_xz, s_w, lo[..., rows, :],
+                                   hi[..., rows, :], pos, reach, rows, cc,
+                                   sentinel, code)
+        tops.append(_pad_k(torch.sort(keys, dim=-1).values, k, invalid))
+        dems.append(valid.sum(-1, dtype=torch.int32))
+    top = torch.cat(tops, -2) if tops else lo.new_zeros((*lead, 0, k))
+    dem = (torch.cat(dems, -1) if dems else lo.new_zeros((*lead, 0))) \
         if with_stats else None
     if gate is None:
         return top, dem
@@ -528,6 +539,10 @@ def sweep_fused_cuda(s_xz, s_w, lo, hi, pos, reach, k, cc, code,
     must be a permutation of ``[0, n)``, as :func:`front_half` makes
     them (dead and excluded slots included, in the dump bin).
 
+    Every tensor may carry one leading Space axis of S (``s_xz [S, 2,
+    L]``, ..., ``top [S, Q, k]``): one launch then sweeps every Space,
+    each with its own view, sentinel tail and Space-local ids.
+
     Args:
       s_xz: f32[2, L] sorted x and z rows; s_w: i32[L] packed slot
         words (L = n + 3cc, the last 3cc lanes sentinels).
@@ -548,20 +563,24 @@ def sweep_fused_cuda(s_xz, s_w, lo, hi, pos, reach, k, cc, code,
 
     Returns (top i32[Q, k] ascending ranked keys, dem i32[Q] or None).
     """
-    n = pos.shape[0]
-    q = lo.shape[0]
-    s_len = s_w.shape[0]
-    kernels.require(s_xz, "s_xz", torch.float32, (2, s_len))
-    kernels.require(s_w, "s_w", torch.int32, (n + 3 * cc,))
-    kernels.require(lo, "lo", torch.int32, (q, 3))
-    kernels.require(hi, "hi", torch.int32, (q, 3))
-    kernels.require(pos, "pos", torch.float32, (n, 3))
-    kernels.require(reach, "reach", torch.float32, (n,))
+    n = pos.shape[-2]
+    q = lo.shape[-2]
+    lead = tuple(pos.shape[:-2])
+    if len(lead) > 1:
+        raise ValueError(f"one leading Space axis at most, got {lead}")
+    spaces = lead[0] if lead else 1
+    s_len = s_w.shape[-1]
+    kernels.require(s_xz, "s_xz", torch.float32, (*lead, 2, s_len))
+    kernels.require(s_w, "s_w", torch.int32, (*lead, n + 3 * cc))
+    kernels.require(lo, "lo", torch.int32, (*lead, q, 3))
+    kernels.require(hi, "hi", torch.int32, (*lead, q, 3))
+    kernels.require(pos, "pos", torch.float32, (*lead, n, 3))
+    kernels.require(reach, "reach", torch.float32, (*lead, n))
     if gate is not None:
         kernels.require(gate, "gate", torch.int32, ())
-        kernels.require(out[0], "out top", torch.int32, (q, k))
+        kernels.require(out[0], "out top", torch.int32, (*lead, q, k))
         if with_stats:
-            kernels.require(out[1], "out dem", torch.int32, (q,))
+            kernels.require(out[1], "out dem", torch.int32, (*lead, q))
     if not 0 < q <= n < (1 << _ID_BITS):
         raise ValueError(f"need 0 < Q <= n < 2^{_ID_BITS}, got {q}, {n}")
     ins = (s_xz, s_w, lo, hi, pos, reach) + (
@@ -582,15 +601,15 @@ def sweep_fused_cuda(s_xz, s_w, lo, hi, pos, reach, k, cc, code,
         raise ValueError(f"k must be >= 1, got {k}")
     id_shift, qd_shift, qd_cap, qd_bias, scale, invalid = code
     if gate is None:
-        top = torch.empty((q, k), dtype=torch.int32, device=dev)
-        dem = torch.empty(q, dtype=torch.int32, device=dev) \
+        top = torch.empty((*lead, q, k), dtype=torch.int32, device=dev)
+        dem = torch.empty((*lead, q), dtype=torch.int32, device=dev) \
             if with_stats else None
     else:
         top, dem = out[0], out[1] if with_stats else None
     err = kernels.lib().gw_sweep_fused(
         s_xz.data_ptr(), s_w.data_ptr(), s_len, lo.data_ptr(),
         hi.data_ptr(), pos.data_ptr(), reach.data_ptr(), q, k, cc, n,
-        id_shift, qd_shift, qd_cap, qd_bias, float(scale), invalid,
+        spaces, id_shift, qd_shift, qd_cap, qd_bias, float(scale), invalid,
         None if gate is None else gate.data_ptr(),
         top.data_ptr(), dem.data_ptr() if with_stats else None,
         kernels.stream_handle(dev))
@@ -600,17 +619,17 @@ def sweep_fused_cuda(s_xz, s_w, lo, hi, pos, reach, k, cc, code,
 
 
 def _cell_occupancy_stats(srow, n_rows: int, cc: int):
-    """(cell_max, over_cap_cells) from the unclipped per-cell
-    occupancy."""
-    occ = torch.zeros(n_rows + 1, dtype=torch.int32, device=srow.device)
-    occ.index_add_(0, srow.long(), torch.ones_like(srow))
-    occ = occ[:n_rows]
-    return occ.max().to(torch.int32), (occ > cc).sum(dtype=torch.int32)
+    """(cell_max, over_cap_cells) from the unclipped per-cell occupancy
+    (each Space's, under a leading Space axis)."""
+    occ = bin_counts(srow, n_rows + 1, srow.dim() - 1)[..., :n_rows]
+    return occ.amax(-1).to(torch.int32), \
+        (occ > cc).sum(-1, dtype=torch.int32)
 
 
 class FrontHalf(NamedTuple):
     """What the sweep's front half hands its back half."""
 
+    # every lane may carry a leading Space axis [S, ...]
     srow: torch.Tensor      # i32[N] padded cell row (n_rows = excluded)
     n_rows: int
     s_xz: torch.Tensor | None  # f32[2, N + 3cc] sorted x, z (None: s_q)
@@ -634,7 +653,8 @@ def front_half(spec: GridSpec, pos, alive, query_rows, watch_radius,
     under precision=q16 (:func:`_sweep` snaps it); the ``ranges`` back
     half then reads the packed lattice view in place of x and z."""
     check_ported(spec)
-    n = pos.shape[0]
+    n = pos.shape[-2]
+    lead = pos.shape[:-2]
     if n >= (1 << _ID_BITS):
         raise NotImplementedError(
             f"the wide-id sweep (capacity >= 2^{_ID_BITS}) {ROADMAP_HINT}")
@@ -652,12 +672,14 @@ def front_half(spec: GridSpec, pos, alive, query_rows, watch_radius,
     s_q = qxz = None
     if spec.precision != "off" and spec.sweep_impl == "ranges":
         qxz = quantize_xz_i32(spec, pos)
-        s_q = torch.cat([qxz[order.long()],
-                         torch.zeros(3 * cc, dtype=torch.int32, device=dev)])
+        s_q = torch.cat([take(qxz, order, len(lead)),
+                         torch.zeros((*lead, 3 * cc), dtype=torch.int32,
+                                     device=dev)], -1)
         s_xz = None
-    lo, hi = _query_runs(cx[:q], cz[:q], alive[:q], row_start, czp)
+    lo, hi = _query_runs(cx[..., :q], cz[..., :q], alive[..., :q],
+                         row_start, czp)
     if watch_radius is None:
-        reach = torch.full((n,), spec.radius + reach_pad,
+        reach = torch.full((*lead, n), spec.radius + reach_pad,
                            dtype=torch.float32, device=dev)
     else:
         reach = torch.clamp_max(watch_radius.to(torch.float32),
@@ -680,33 +702,34 @@ def _sweep(spec: GridSpec, pos, alive, query_rows, watch_radius,
     fh = front_half(spec, pos, alive, query_rows, watch_radius, flag_bits,
                     with_stats, reach_pad)
     k, cc = spec.k, spec.cell_cap
-    sentinel = pos.shape[0]
+    sentinel = pos.shape[-2]
+    lead = fh.lo.shape[:-2]
     if spec.sweep_impl == "fused":
-        q = fh.lo.shape[0]
+        q = fh.lo.shape[-2]
         out = None if gate is None else (
-            torch.full((q, k), fh.code[-1], dtype=torch.int32,
+            torch.full((*lead, q, k), fh.code[-1], dtype=torch.int32,
                        device=pos.device),
-            torch.zeros(q, dtype=torch.int32, device=pos.device))
+            torch.zeros((*lead, q), dtype=torch.int32, device=pos.device))
         top, dem = sweep_fused_cuda(fh.s_xz, fh.s_w, fh.lo, fh.hi, pos,
                                     fh.reach, k, cc, fh.code, with_stats,
                                     spec.row_block, gate, out)
     else:
         q16 = None if fh.s_q is None else (spec, fh.s_q, fh.qxz)
         tops, dems = [], []
-        for rows in _blocks(fh.lo.shape[0], spec.row_block, pos.device):
-            keys, valid = _window_keys(fh.s_xz, fh.s_w, fh.lo[rows],
-                                       fh.hi[rows], pos, fh.reach, rows,
-                                       cc, sentinel, fh.code, q16)
+        for rows in _blocks(fh.lo.shape[-2], spec.row_block, pos.device):
+            keys, valid = _window_keys(fh.s_xz, fh.s_w, fh.lo[..., rows, :],
+                                       fh.hi[..., rows, :], pos, fh.reach,
+                                       rows, cc, sentinel, fh.code, q16)
             tops.append(_rank_packed(keys, k, spec.topk_impl))
-            dems.append(valid.sum(1, dtype=torch.int32))
-        top = torch.cat(tops)
-        dem = torch.cat(dems)
+            dems.append(valid.sum(-1, dtype=torch.int32))
+        top = torch.cat(tops, -2)
+        dem = torch.cat(dems, -1)
     nbr, cnt, fl = _unpack_top(top, fh.code[-1], flag_bits is not None,
                                sentinel)
     stats = None
     if with_stats:
-        stats = (dem.max().to(torch.int32),
-                 (dem > k).sum(dtype=torch.int32), *fh.cell_stats)
+        stats = (dem.amax(-1).to(torch.int32),
+                 (dem > k).sum(-1, dtype=torch.int32), *fh.cell_stats)
     return nbr, cnt, fl, stats
 
 
@@ -875,6 +898,10 @@ def grid_neighbors_verlet(spec: GridSpec, pos, alive, cache: VerletCache,
     """
     check_ported(spec)
     n = pos.shape[0]
+    if pos.dim() != 2:
+        raise ValueError(
+            "Verlet reuse runs on one Space's lanes; a batched step "
+            "clears the skin, as the JAX package's vmapped step does")
     if spec.skin <= 0.0:
         raise ValueError(
             "grid_neighbors_verlet requires spec.skin > 0 "

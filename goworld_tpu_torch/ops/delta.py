@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import torch
 
+from goworld_tpu_torch.ops.batch import take
 from goworld_tpu_torch.ops.extract import (
     _flatnonzero,
     bounded_extract,
@@ -21,6 +22,15 @@ def _not_in(a: torch.Tensor, b: torch.Tensor, sentinel) -> torch.Tensor:
     from a (all-pairs compare over a's lane)."""
     found = (b[:, :, None] == a[:, None, :]).any(dim=2)
     return (b != sentinel) & ~found
+
+
+def _in_sorted(rows: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """Whether each entry of ``values [..., R, k]`` occurs in the same
+    row of ``rows [..., R, k]``, whose rows are sorted ascending: one
+    binary search an entry (the [R, k, k] all-pairs compare's result,
+    without its k^2 bytes a row)."""
+    at = torch.searchsorted(rows, values).clamp_max(rows.shape[-1] - 1)
+    return rows.gather(-1, at) == values
 
 
 def interest_delta(old_nbr, new_nbr, sentinel):
@@ -45,31 +55,36 @@ def interest_pairs(old_nbr, new_nbr, sentinel, enter_cap: int,
                    leave_cap: int, row_cap: int, adaptive: bool = True):
     """Changed-rows-only interest diff plus pair extraction: the same
     pairs, order and drop policy as ``interest_delta`` and two
-    ``masked_pairs`` calls, with the k^2 compare run only on up to
-    ``row_cap`` rows whose list changed.
+    ``masked_pairs`` calls, with the membership test run only on up to
+    ``row_cap`` rows whose list changed (a binary search in the other
+    sorted list, :func:`_in_sorted`).
+
+    Lists with a leading Space axis (``[S, N, k]``) are S Spaces: the
+    rows, pairs and caps are each Space's own, compacted along its rows,
+    never over the flat array.
 
     Returns (enter_w, enter_j, enter_n, leave_w, leave_j, leave_n,
     changed_n); ``changed_n`` is the true number of changed rows (the
     row-cap overflow signal)."""
-    n, k = old_nbr.shape
-    changed = (old_nbr != new_nbr).any(dim=1)
-    changed_total = changed.sum(dtype=torch.int32)
+    *lead, n, k = old_nbr.shape
+    nb = len(lead)
+    changed = (old_nbr != new_nbr).any(dim=-1)
+    changed_total = changed.sum(-1, dtype=torch.int32)
 
     def tier(rcap):
         rows = _flatnonzero(changed, rcap, n)
         rows_c = torch.clamp_max(rows, n - 1)
-        row_ok = (rows < n)[:, None]
-        old_s = old_nbr[rows_c.long()]
-        new_s = new_nbr[rows_c.long()]
-        eq = new_s[:, :, None] == old_s[:, None, :]
-        enter_m = row_ok & (new_s != sentinel) & ~eq.any(dim=2)
-        leave_m = row_ok & (old_s != sentinel) & ~eq.any(dim=1)
+        row_ok = (rows < n)[..., None]
+        old_s = take(old_nbr, rows_c, nb)
+        new_s = take(new_nbr, rows_c, nb)
+        enter_m = row_ok & (new_s != sentinel) & ~_in_sorted(old_s, new_s)
+        leave_m = row_ok & (old_s != sentinel) & ~_in_sorted(new_s, old_s)
 
         def pairs(mask, values, cap):
-            flat, valid, count = bounded_extract(mask, cap)
-            watcher = torch.where(valid, rows_c[(flat // k).long()], -1)
-            subject = torch.where(valid, values.reshape(-1)[flat.long()],
-                                  -1)
+            flat, valid, count = bounded_extract(mask, cap, nb)
+            watcher = torch.where(valid, take(rows_c, flat // k, nb), -1)
+            subject = torch.where(
+                valid, take(values.reshape(*lead, -1), flat, nb), -1)
             return watcher, subject, count
 
         return (*pairs(enter_m, new_s, enter_cap),

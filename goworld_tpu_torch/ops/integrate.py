@@ -6,6 +6,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from goworld_tpu_torch.ops.batch import space_base
+
 
 def apply_pos_inputs(
     pos: torch.Tensor,
@@ -23,31 +25,40 @@ def apply_pos_inputs(
       vals: f32[IC,4] (x, y, z, yaw).
       n_inputs: int32 0-d tensor, number of valid records.
 
+    Every argument may carry a leading Space axis (``pos [S, N, 3]``,
+    ``idx [S, IC]``, ``n_inputs [S]``): each Space takes its own
+    records, as S separate calls would.
+
     Returns (pos, yaw, touched bool[N]).
 
     A slot named by several valid records takes the last of them, as
     the JAX package's scatter does on the CPU. A CUDA ``index_put_``
     writes duplicate indices in no fixed order, so the last record of
     each slot is found first (the highest record index, by an ``amax``
-    scatter) and only those records are written: every slot then gets
-    at most one write.
+    scatter on the flat index ``s * N + slot``) and only those records
+    are written: every slot then gets at most one write.
     """
-    n = pos.shape[0]
-    ic = idx.shape[0]
+    n = pos.shape[-2]
+    lead = idx.shape[:-1]
+    ic = idx.shape[-1]
     dev = pos.device
+    rows = yaw.numel()  # N, or S * N
     rec = torch.arange(ic, dtype=torch.int32, device=dev)
-    valid = (rec < n_inputs) & (idx >= 0) & (idx < n)
+    valid = (rec < n_inputs[..., None]) & (idx >= 0) & (idx < n)
+    flat = idx + space_base(lead, n, dev) if lead else idx
     # dropped records land in an extra dump row, sliced off below
-    safe = torch.where(valid, idx, n).long()
-    last = torch.full((n + 1,), -1, dtype=torch.int32, device=dev)
-    last.scatter_reduce_(0, safe, torch.where(valid, rec, -1), "amax")
+    safe = torch.where(valid, flat, rows).long()
+    last = torch.full((rows + 1,), -1, dtype=torch.int32, device=dev)
+    last.scatter_reduce_(0, safe.reshape(-1),
+                         torch.where(valid, rec, -1).reshape(-1), "amax")
     won = valid & (last[safe] == rec)
-    tgt = torch.where(won, safe, n)
-    pos2 = torch.cat([pos, pos.new_zeros(1, 3)])
-    pos2[tgt] = vals[:, :3]
-    yaw2 = torch.cat([yaw, yaw.new_zeros(1)])
-    yaw2[tgt] = vals[:, 3]
-    return pos2[:n], yaw2[:n], last[:n] >= 0
+    tgt = torch.where(won, safe, rows)
+    pos2 = torch.cat([pos.reshape(rows, 3), pos.new_zeros(1, 3)])
+    pos2[tgt] = vals[..., :3]
+    yaw2 = torch.cat([yaw.reshape(rows), yaw.new_zeros(1)])
+    yaw2[tgt] = vals[..., 3]
+    return (pos2[:rows].reshape(pos.shape), yaw2[:rows].reshape(yaw.shape),
+            (last[:rows] >= 0).reshape(yaw.shape))
 
 
 def _round_odd_sum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -71,7 +82,8 @@ def integrate(
     bounds_min: tuple[float, float, float],
     bounds_max: tuple[float, float, float],
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """pos += vel*dt for moving entities, clamped to world bounds.
+    """pos += vel*dt for moving entities, clamped to world bounds (one
+    Space ``[N, 3]`` or several ``[S, N, 3]``).
 
     Returns (new_pos, moved bool[N]). The jitted JAX tick contracts
     ``pos + vel*dt`` into one fused multiply-add: the float32 nearest
@@ -82,10 +94,10 @@ def integrate(
     JAX's weakly typed constants do, and cost no host-to-device
     copy."""
     dt32 = float(np.float32(dt))
-    step = torch.where(moving[:, None], vel.double() * dt32, 0.0)
+    step = torch.where(moving[..., None], vel.double() * dt32, 0.0)
     new_pos = _round_odd_sum(pos.double(), step).to(torch.float32)
     new_pos = torch.stack(
-        [new_pos[:, i].clamp(bounds_min[i], bounds_max[i])
-         for i in range(3)], dim=1)
-    moved = ((new_pos - pos).abs() > 1e-7).any(dim=1)
+        [new_pos[..., i].clamp(bounds_min[i], bounds_max[i])
+         for i in range(3)], dim=-1)
+    moved = ((new_pos - pos).abs() > 1e-7).any(dim=-1)
     return new_pos, moved

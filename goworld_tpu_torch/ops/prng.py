@@ -7,7 +7,9 @@ threefry2x32 hash and the ``PRNGKey`` / ``split`` / ``uniform`` recipes
 of jax in its ``jax_threefry_partitionable=True`` mode (the default of
 the jax this repo pins).
 
-A key is an int64 tensor ``[2]`` holding the two uint32 words. All
+A key is an int64 tensor ``[2]`` holding the two uint32 words, or
+``[S, 2]``: one key a Space, each split and drawn from on its own, as
+the JAX package's vmapped step does. All
 arithmetic runs in int64 masked to 32 bits, because torch's uint32
 tensors lack most arithmetic. Everything here is ordinary tensor ops on
 the key's device; nothing is a kernel.
@@ -50,29 +52,34 @@ def prng_key(seed: int, device) -> torch.Tensor:
 
 
 def _counter_bits(key: torch.Tensor, size: int):
-    """Hash the 64-bit iota ``0..size-1`` (high word 0 below 2^32)."""
+    """Hash the 64-bit iota ``0..size-1`` (high word 0 below 2^32) under
+    each key of ``key [..., 2]``: two ``[..., size]`` words."""
     lo = torch.arange(size, dtype=torch.int64, device=key.device)
-    return threefry2x32(key[0], key[1], torch.zeros_like(lo), lo)
+    return threefry2x32(key[..., 0, None], key[..., 1, None],
+                        torch.zeros_like(lo), lo)
 
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """``jax.random.split(key, num)``: int64 ``[num, 2]``."""
+    """``jax.random.split(key, num)`` of each key of ``key [..., 2]``:
+    int64 ``[..., num, 2]``."""
     b0, b1 = _counter_bits(key, num)
-    return torch.stack([b0, b1], dim=1)
+    return torch.stack([b0, b1], dim=-1)
 
 
 def random_bits32(key: torch.Tensor, shape) -> torch.Tensor:
-    """``jax.random.bits(key, shape, uint32)`` as int64 values."""
+    """``jax.random.bits(key, shape, uint32)`` of each key of ``key
+    [..., 2]``, as int64 values ``[..., *shape]``."""
     size = 1
     for d in shape:
         size *= int(d)
     b0, b1 = _counter_bits(key, size)
-    return (b0 ^ b1).reshape(tuple(shape))
+    return (b0 ^ b1).reshape(*key.shape[:-1], *shape)
 
 
 def uniform(key: torch.Tensor, shape, minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
-    """``jax.random.uniform(key, shape, float32, minval, maxval)``.
+    """``jax.random.uniform(key, shape, float32, minval, maxval)`` of
+    each key of ``key [..., 2]``.
 
     XLA contracts ``floats * (maxval - minval) + minval`` into one fused
     multiply-add. Torch has no float32 FMA op, so the product is taken

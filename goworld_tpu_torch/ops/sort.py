@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from goworld_tpu_torch import kernels
+from goworld_tpu_torch.ops.batch import bin_counts, row_cumsum, space_base
 
 DEFAULT_CHUNK = 2048
 # widest digit of the radix kernel's plan: the bench's 19-bit keys sort
@@ -32,13 +33,13 @@ RADIX_MAX_DIGIT_BITS = 8
 def row_starts(srow: torch.Tensor, n_rows: int) -> torch.Tensor:
     """Exclusive-cumsum bin offsets: ``row_starts[r]`` is the first
     sorted position of cell row ``r``; the dump bin ``n_rows`` (dead
-    entities) sorts last. int32[n_rows + 1]."""
-    counts = torch.zeros(n_rows + 1, dtype=torch.int32, device=srow.device)
-    counts.index_add_(0, srow.long(), torch.ones_like(srow))
+    entities) sorts last. int32[n_rows + 1]; ``[S, n_rows + 1]``, each
+    Space's own, for ``srow [S, N]``."""
+    counts = bin_counts(srow, n_rows + 1, srow.dim() - 1)
     return torch.cat([
-        counts.new_zeros(1),
-        torch.cumsum(counts[:-1], 0, dtype=torch.int32),
-    ])
+        counts.new_zeros((*counts.shape[:-1], 1)),
+        row_cumsum(counts[..., :-1]),
+    ], -1)
 
 
 def _finish(srow: torch.Tensor, dst: torch.Tensor, n: int):
@@ -66,7 +67,20 @@ def counting_sort_cells(
 
     Returns (order, sorted_row): a stable argsort of ``srow`` and
     ``srow[order]``, both int32[n].
+
+    ``srow [S, n]`` holds S Spaces' keys: each is sorted on its own, as
+    one sort of the Space-major keys ``s * (n_rows + 1) + row`` (whose
+    stable sort is the S sorts laid end to end), returned as
+    Space-local ``[S, n]`` orders and rows.
     """
+    if srow.dim() == 2:
+        spaces, per = srow.shape
+        stride = n_rows + 1
+        flat = (srow + space_base((spaces,), stride, srow.device)) \
+            .reshape(-1)
+        order, sorted_row = counting_sort_cells(flat, spaces * stride - 1,
+                                                chunk)
+        return _space_local(order, sorted_row, spaces, per, stride)
     n = srow.shape[0]
     dev = srow.device
     starts = row_starts(srow, n_rows)
@@ -89,6 +103,15 @@ def counting_sort_cells(
     return _finish(srow, torch.cat(dst), n)
 
 
+def _space_local(order, sorted_row, spaces: int, per: int, stride: int):
+    """The flat sort of Space-major keys as Space-local ``[S, n]``
+    orders and rows."""
+    dev = order.device
+    return (order.reshape(spaces, per) - space_base((spaces,), per, dev),
+            sorted_row.reshape(spaces, per)
+            - space_base((spaces,), stride, dev))
+
+
 def radix_plan(key_bits: int) -> tuple[int, int]:
     """(passes, digit_bits) of the radix kernel for keys of ``key_bits``
     bits: the fewest passes of at most ``RADIX_MAX_DIGIT_BITS`` bits,
@@ -106,29 +129,39 @@ def counting_sort_cells_cuda(
     ``csrc/counting_sort.cu`` for a tensor on the card; the plain
     version for a tensor on the CPU. Keys outside ``[0, n_rows]`` are
     not checked on the card (that would stall the host) and sort
-    wrongly; the kernel takes fewer than 2^30 keys."""
-    if srow.dim() != 1:
-        raise ValueError(f"srow: expected 1-D, got {tuple(srow.shape)}")
+    wrongly; the kernel takes fewer than 2^30 keys in all.
+
+    ``srow [S, n]`` sorts S Spaces in one call (passes + 1 kernels,
+    whatever S is): the kernels read Space s's keys as ``s * (n_rows +
+    1) + row`` and write Space-local orders and rows."""
+    if srow.dim() not in (1, 2):
+        raise ValueError(f"srow: expected [n] or [S, n], got "
+                         f"{tuple(srow.shape)}")
     kernels.require(srow, "srow", torch.int32)
-    if n_rows < 0 or n_rows >= 2**31 - 1:
-        raise ValueError(f"n_rows out of range: {n_rows}")
+    spaces = srow.shape[0] if srow.dim() == 2 else 1
+    stride = n_rows + 1
+    if n_rows < 0 or spaces * stride > 2**31 - 1:
+        raise ValueError(f"n_rows out of range: {n_rows} ({spaces} "
+                         f"Spaces)")
     if srow.device.type == "cpu":
         return counting_sort_cells(srow, n_rows)
     if srow.device.type != "cuda":
         raise ValueError(f"srow: unsupported device {srow.device}")
     so = kernels.lib()
-    n = srow.shape[0]
+    n = srow.numel()
     dev = srow.device
-    passes, digit_bits = radix_plan(max(1, n_rows.bit_length()))
+    passes, digit_bits = radix_plan(max(1, (spaces * stride - 1)
+                                        .bit_length()))
     # one scratch block: ping-pong keys and slots, the digit table, the
     # tickets and the look-back records
     slen = so.gw_counting_sort_scratch_len(n, passes, digit_bits)
     scratch = torch.empty(slen, dtype=torch.int32, device=dev)
-    out = torch.empty((2, n), dtype=torch.int32, device=dev)
+    out = torch.empty((2, *srow.shape), dtype=torch.int32, device=dev)
     order, sorted_row = out[0], out[1]
     err = so.gw_counting_sort(
-        srow.data_ptr(), n, passes, digit_bits, scratch.data_ptr(), slen,
-        order.data_ptr(), sorted_row.data_ptr(), kernels.stream_handle(dev))
+        srow.data_ptr(), n, spaces, stride if spaces > 1 else 0, passes,
+        digit_bits, scratch.data_ptr(), slen, order.data_ptr(),
+        sorted_row.data_ptr(), kernels.stream_handle(dev))
     kernels.check(err, "counting_sort_cells_cuda")
     kernels.LAUNCHES["counting_sort"] += 1
     return order, sorted_row

@@ -4,6 +4,7 @@
                                              [--mega TILES |
                                               --world [--planes on|off] |
                                               --uncut [--q16]]
+                                             [--spaces S]
                                              [--out chiprun_out]
     PYTHONPATH=DIR python goworld_tpu_torch/profile_tick.py ...
 
@@ -54,6 +55,13 @@ an audit sample. ``--planes off`` builds the World without any of them
 (``resident=False``), as it served before the planes, so the planes'
 cost reads as the difference of two runs.
 
+With ``--spaces S``, ``--n`` slots split over S Spaces of ``--n / S``
+each (:func:`workload.multi_config`): without ``--world`` the batched
+tick of :func:`workload.multi_world` (one launch of each kernel a tick
+for all S), with it the served game of S Spaces with its migrations
+between them (``per_tick`` then sums the Spaces' counts, each beside
+its per-Space cap).
+
 With ``--uncut``, the bench world uncut (:func:`workload.uncut_config`:
 the Verlet skin of 4, syncs with repeats), whose sweep stage is
 ``grid_neighbors_verlet`` (4a-4c then also count the rebuild branch,
@@ -94,6 +102,8 @@ from goworld_tpu_torch.workload import (
     bench_world,
     mega_config,
     mega_world,
+    multi_config,
+    multi_world,
     serve_world,
     slice_config,
     uncut_config,
@@ -251,7 +261,8 @@ def _world_main(args, card: str) -> int:
     on = args.planes == "on"
     world_kw = {} if on else dict(telemetry_live=False, residency=False,
                                   audit=False, resident=False)
-    served = serve_world(args.n, seed=0, device="cuda", world_kw=world_kw)
+    served = serve_world(args.n // args.spaces, seed=0, device="cuda",
+                         world_kw=world_kw, spaces=args.spaces)
     w = served.world
     for _ in range(3):
         served.stage()
@@ -273,7 +284,8 @@ def _world_main(args, card: str) -> int:
         walls.append((time.perf_counter() - t0) * 1e3)
         if sample:
             audit_walls.append(walls[-1])
-        counts.append([int(getattr(w.last_outputs, k)[0]) for k in names])
+        counts.append([int(getattr(w.last_outputs, k).sum())
+                       for k in names])
     w._step, manager._carry_into = real, real_carry
     if real_fold is not None:
         w._telem_fn = real_fold
@@ -296,11 +308,12 @@ def _world_main(args, card: str) -> int:
     busy_ms, top, csrc, memset_ms = _device_rows(prof, window)
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    (out / f"profile_tick_world_{args.planes}.txt").write_text(
+    spaces = f"_spaces{args.spaces}" if args.spaces > 1 else ""
+    (out / f"profile_tick_world_{args.planes}{spaces}.txt").write_text(
         f"{card}\n" + prof.key_averages().table(
             sort_by="device_time_total", row_limit=60))
     print(json.dumps({
-        "gpu": card, "n": args.n, "world": True,
+        "gpu": card, "n": args.n, "world": True, "spaces": args.spaces,
         "population": len(w.entities) - 2, "populate_s": served.populate_s,
         "ticks": args.ticks, "world_tick_ms": _stats(walls),
         "per_tick": dict(zip(names, np.mean(counts, axis=0).tolist())),
@@ -340,8 +353,15 @@ def main(argv=None) -> int:
                     help="profile the bench world uncut (the Verlet skin)")
     ap.add_argument("--q16", action="store_true",
                     help="with --uncut: at precision='q16'")
+    ap.add_argument("--spaces", type=int, default=1,
+                    help="split --n over this many Spaces (the batched "
+                         "tick; with --world, a World of that many)")
     ap.add_argument("--out", default="chiprun_out")
     args = ap.parse_args(argv)
+    if args.spaces < 1 or args.n % args.spaces:
+        ap.error("--spaces must divide --n")
+    if args.spaces > 1 and (args.mega or args.uncut):
+        ap.error("--spaces runs the skin-0 bench world or --world")
     if not torch.cuda.is_available():
         print("profile_tick needs a CUDA card", file=sys.stderr)
         return 2
@@ -360,6 +380,11 @@ def main(argv=None) -> int:
         cfg = uncut_config(args.n, **(dict(precision="q16")
                                       if args.q16 else {}))
         st, inputs = uncut_world(cfg, seed=0, device="cuda")
+        tick = make_tick(cfg)
+        stage_list = STAGES
+    elif args.spaces > 1:
+        cfg = multi_config(args.spaces, args.n // args.spaces)
+        st, inputs = multi_world(cfg, args.spaces, seed=0, device="cuda")
         tick = make_tick(cfg)
         stage_list = STAGES
     else:
@@ -410,12 +435,14 @@ def main(argv=None) -> int:
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     suffix = "_mega" if args.mega else "_q16" if args.q16 else \
-        "_uncut" if args.uncut else ""
+        "_uncut" if args.uncut else \
+        f"_spaces{args.spaces}" if args.spaces > 1 else ""
     (out / f"profile_tick{suffix}.txt").write_text(
         f"{card}\n" + prof.key_averages().table(
             sort_by="device_time_total", row_limit=60))
     print(json.dumps({
         "gpu": card, "n": args.n, "mega_tiles": args.mega,
+        "spaces": args.spaces,
         "uncut": args.uncut, "q16": args.q16, "ticks": args.ticks,
         "tick_ms_mean": tick_mean, "tick_ms_p50": tick_p50,
         "tick_ms_p99": tick_p99,

@@ -8,6 +8,10 @@
   syncs to distinct slots. Uncut (:func:`uncut_config`,
   :func:`uncut_world`) it is the bench's own headline: a Verlet skin of
   4 and sync slots drawn with repeats, as ``bench.py`` draws them.
+* Several Spaces on one card (:func:`multi_config`, :func:`multi_world`):
+  S bench worlds of ``n_per`` slots each, stacked on a leading ``[S]``
+  axis for the batched tick (the JAX World's vmapped local step), each
+  Space with its own key (``seed * S + d``), positions and syncs.
 * The megaspace bench world (``bench.py`` ``build_mega(n_total)``): the
   same density over one square world cut into the most-square grid of
   ``n_dev`` tiles, each tile's movers uniform inside it, with a
@@ -17,7 +21,11 @@
   ``Space.create_entity``, with a game's per-tick traffic staged through
   the World's own entry points (:meth:`Served.stage`): client syncs
   that walk each player a step from where it stands, or, as a stress
-  case, the bench's stream of syncs to uniform points.
+  case, the bench's stream of syncs to uniform points. With ``spaces >
+  1`` one World hosts an Arena a Space, and each tick also moves
+  SERVE_MIGRATIONS entities between two random Spaces (``enter_space``),
+  as a game process hosting several zone maps sees its players walk
+  between zones.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ from goworld_tpu_torch.entity import Entity, GameClient, Space, World
 from goworld_tpu_torch.ops import prng
 from goworld_tpu_torch.ops.aoi import GridSpec
 from goworld_tpu_torch.parallel.megaspace import MegaConfig, create_mega_state
+from goworld_tpu_torch.parallel.mesh import create_multi_state
 from goworld_tpu_torch.parallel.step import MultiTickInputs
 from goworld_tpu_torch.utils import ids
 
@@ -106,6 +115,54 @@ def _world(cfg: WorldConfig, seed: int, device, repeats: bool):
         pos_sync_idx=torch.tensor(idx, device=dev),
         pos_sync_vals=torch.tensor(vals, device=dev),
         pos_sync_n=torch.tensor(ic, dtype=torch.int32, device=dev),
+    )
+    return st, inputs
+
+
+def multi_config(spaces: int, n_per: int, **grid_kw) -> WorldConfig:
+    """The config of each of ``spaces`` Spaces of ``n_per`` slots on one
+    card: :func:`slice_config` of ``n_per`` (the bench's density, extent
+    ``sqrt(n_per * 10000 / 12)`` a Space; caps are each Space's own).
+    The World and :func:`multi_world` stack ``spaces`` of them."""
+    if spaces < 1:
+        raise ValueError(f"spaces must be >= 1, got {spaces}")
+    return slice_config(n_per, **grid_kw)
+
+
+def multi_world(cfg: WorldConfig, spaces: int, seed: int, device="cuda"):
+    """(stacked state, stacked inputs) of ``spaces`` bench worlds, every
+    lane ``[S, ...]``: Space d keyed ``seed * S + d`` (as
+    ``create_multi_state`` keys it), its movers and ``min(input_cap,
+    n)`` syncs to distinct slots drawn as :func:`bench_world` draws
+    them, from one numpy generator."""
+    n, g = cfg.capacity, cfg.grid
+    rng = np.random.default_rng(seed)
+    st = create_multi_state(cfg, spaces, seed=seed, device=device)
+    dev = st.device
+    pos = np.zeros((spaces, n, 3), np.float32)
+    pos[..., 0] = rng.uniform(0, g.extent_x, (spaces, n))
+    pos[..., 2] = rng.uniform(0, g.extent_z, (spaces, n))
+    st = st.replace(
+        pos=torch.tensor(pos, device=dev),
+        alive=torch.ones((spaces, n), dtype=torch.bool, device=dev),
+        npc_moving=torch.ones((spaces, n), dtype=torch.bool, device=dev),
+        has_client=torch.tensor(rng.random((spaces, n)) < CLIENT_FRAC,
+                                device=dev),
+        client_gate=torch.zeros((spaces, n), dtype=torch.int32,
+                                device=dev),
+    )
+    ic = min(cfg.input_cap, n)
+    vals = np.zeros((spaces, cfg.input_cap, 4), np.float32)
+    vals[:, :ic, 0] = rng.uniform(0, g.extent_x, (spaces, ic))
+    vals[:, :ic, 2] = rng.uniform(0, g.extent_z, (spaces, ic))
+    idx = np.zeros((spaces, cfg.input_cap), np.int32)
+    for d in range(spaces):
+        idx[d, :ic] = rng.choice(n, ic, replace=False)
+    inputs = TickInputs(
+        pos_sync_idx=torch.tensor(idx, device=dev),
+        pos_sync_vals=torch.tensor(vals, device=dev),
+        pos_sync_n=torch.full((spaces,), ic, dtype=torch.int32,
+                              device=dev),
     )
     return st, inputs
 
@@ -230,7 +287,8 @@ SERVE_SYNCS = 4096      # client position syncs (distinct players)
 SERVE_HP_SETS = 1024    # sets of the hot attr, some slots twice
 SERVE_HP_TWICE = 64
 SERVE_CHURN = 64        # destroys and as many creates
-SERVE_SPARE = 4096      # slots left free for the churn
+SERVE_SPARE = 4096      # slots left free for the churn (a Space)
+SERVE_MIGRATIONS = 256  # enter_space moves between Spaces, with spaces > 1
 
 
 class CountingSink:
@@ -273,7 +331,7 @@ class Served:
     """A populated serving World and the script of its traffic."""
 
     world: World
-    arena: Space
+    arena: Space             # the first Space's Arena
     sink: CountingSink
     hooks: list | None
     rng: np.random.Generator
@@ -286,6 +344,8 @@ class Served:
     created: int = 0
     boot_ticks: int = 0      # ticks the population entered through
     boot_events: int = 0     # their enter events
+    arenas: list = dataclasses.field(default_factory=list)  # a Space each
+    migrating: list = dataclasses.field(default_factory=list)
 
     def _new_id(self) -> str:
         self.created += 1
@@ -310,7 +370,13 @@ class Served:
         world's edges. With ``teleport`` each sync goes to a uniform
         point of the extent instead: the bench's input stream, a stress
         case that changes more interest lists a tick than the World's
-        caps hold."""
+        caps hold.
+
+        With several Spaces, after the destroys, SERVE_MIGRATIONS
+        entities (mobs and players alike) each ``enter_space`` another
+        random Space at a uniform point, which the World repacks at its
+        next flush (:meth:`migrated` counts those that arrived); the
+        creates then land in random Spaces."""
         w, rng = self.world, self.rng
         cfg, g = w.cfg, w.cfg.grid
         k = min(SERVE_SYNCS, self.players.size)
@@ -346,13 +412,53 @@ class Served:
             w.entities[self.mobs[m]].destroy()
             self.mobs[m] = self.mobs[-1]
             self.mobs.pop()
+        staged = dict(syncs=synced, hp_sets=SERVE_HP_SETS,
+                      destroys=SERVE_CHURN, creates=SERVE_CHURN)
+        several = len(self.arenas) > 1
+        if several:
+            # before the creates: a row whose spawn is still staged has
+            # nothing on the device for the repack to read
+            staged["migrations"] = self._migrate(SERVE_MIGRATIONS)
         for p in self._pos(SERVE_CHURN):
-            e = self.arena.create_entity("Mob", pos=tuple(p),
-                                         eid=self._new_id(), moving=True,
-                                         attrs={"hp": 100})
+            arena = self.arenas[rng.integers(len(self.arenas))] \
+                if several else self.arena
+            e = arena.create_entity("Mob", pos=tuple(p),
+                                    eid=self._new_id(), moving=True,
+                                    attrs={"hp": 100})
             self.mobs.append(e.id)
-        return dict(syncs=synced, hp_sets=SERVE_HP_SETS,
-                    destroys=SERVE_CHURN, creates=SERVE_CHURN)
+        return staged
+
+    def _migrate(self, k: int) -> int:
+        """Stage ``k`` moves of distinct entities, each into another
+        random Space at a uniform point; returns how many went staged
+        (both Spaces AOI shards: all of them)."""
+        w, rng = self.world, self.rng
+        n_mobs = len(self.mobs)
+        pick = rng.choice(n_mobs + self.players.size, k, replace=False)
+        targets = rng.integers(1, len(self.arenas), k)
+        where = self._pos(k)
+        self.migrating = []
+        for i, t, p in zip(pick, targets, where):
+            if i < n_mobs:
+                e = w.entities[self.mobs[i]]
+            else:
+                j = i - n_mobs
+                e = w.entities[self.players[j].decode()]
+                self.player_xz[j] = p[[0, 2]]
+            dst = self.arenas[(e.space.shard + t) % len(self.arenas)]
+            e.enter_space(dst.id, tuple(p))
+            if e._migrating is not None:
+                self.migrating.append((e.id, dst.shard))
+        return len(self.migrating)
+
+    def migrated(self) -> int:
+        """How many of the last tick's staged moves arrived: the entity
+        holds a row of its destination Space and no migration."""
+        w = self.world
+        return sum(1 for eid, dst in self.migrating
+                   if (e := w.entities.get(eid)) is not None
+                   and e._migrating is None and e.shard == dst
+                   and e.slot is not None)
 
 
 def _game_types(hooks: list | None):
@@ -384,7 +490,7 @@ def _game_types(hooks: list | None):
 def serve_world(n: int, seed: int, device="cuda", *,
                 record_hooks: bool = False, keep: bool = False,
                 boot: bool = False, world_kw: dict | None = None,
-                **grid_kw) -> Served:
+                spaces: int = 1, **grid_kw) -> Served:
     """A served game on ``slice_config(n, **grid_kw)``: one ``World``
     (at its defaults, the planes on, or with ``world_kw``) with one AOI
     Space ("Arena") and two types, ``Mob`` (a random-walk mover,
@@ -405,6 +511,11 @@ def serve_world(n: int, seed: int, device="cuda", *,
     (:func:`_boot_batch`), and a boot tick whose events overflow any
     cap raises: the served game starts with exact interest sets.
 
+    With ``spaces > 1`` the World hosts that many Spaces of ``n`` slots
+    (``World(cfg, n_spaces=spaces)``), an Arena each, each populated as
+    above; a boot tick enters a batch into every Space, its caps checked
+    in every Space.
+
     The population ends as the JAX package's game server boots
     (``net/game.py`` ``serve_forever``, ini ``gc_freeze``): one
     ``gc.collect()`` and ``gc.freeze()`` move the populated world into
@@ -415,7 +526,7 @@ def serve_world(n: int, seed: int, device="cuda", *,
     hooks = [] if record_hooks else None
     mob_cls, player_cls, arena_cls = _game_types(hooks)
     t0 = time.perf_counter()
-    w = World(cfg, seed=seed, device=device, **(world_kw or {}))
+    w = World(cfg, spaces, seed=seed, device=device, **(world_kw or {}))
     w.register_entity("Mob", mob_cls)
     w.register_entity("Player", player_cls)
     w.register_space("Arena", arena_cls)
@@ -423,21 +534,28 @@ def serve_world(n: int, seed: int, device="cuda", *,
     sink = CountingSink(keep)
     w.sync_sink = sink.sync
     w.client_sink = sink.client
-    arena = w.create_space("Arena", eid=ids.gen_fixed_id(f"arena.{seed}"))
+    arenas = [w.create_space("Arena",
+                             eid=ids.gen_fixed_id(f"arena.{seed}"
+                                                  + (f".{d}" if d else "")))
+              for d in range(spaces)]
+    arena = arenas[0]
     rng = np.random.default_rng(seed)
     served = Served(world=w, arena=arena, sink=sink, hooks=hooks, rng=rng,
                     mobs=[], players=np.zeros(0, "S16"), seed=seed,
                     populate_s=0.0, player_xz=np.zeros((0, 2)),
-                    heading=np.zeros(0))
+                    heading=np.zeros(0), arenas=arenas)
     pop = n - SERVE_SPARE
-    pos = served._pos(pop)
-    is_player = rng.random(pop) < CLIENT_FRAC
+    pos = served._pos(pop * spaces)
+    is_player = rng.random(pop * spaces) < CLIENT_FRAC
     players = []
+    player_xz = []
 
-    def create(lo: int, hi: int) -> None:
-        for i in range(lo, hi):
+    def create(lo: int, hi: int, d: int = 0) -> None:
+        arena = arenas[d]
+        for i in range(d * pop + lo, d * pop + hi):
             p = tuple(pos[i])
             if is_player[i]:
+                player_xz.append(pos[i, [0, 2]])
                 e = arena.create_entity(
                     "Player", pos=p, eid=served._new_id(),
                     attrs={"hp": 100},
@@ -452,24 +570,26 @@ def serve_world(n: int, seed: int, device="cuda", *,
         done = 0
         while done < pop:
             hi = min(pop, done + _boot_batch(cfg, done))
-            create(done, hi)
+            for d in range(spaces):
+                create(done, hi, d)
             done = hi
             w.tick()
             out = w.last_outputs
             for lane, cap in (("enter_n", cfg.enter_cap),
                               ("leave_n", cfg.leave_cap),
                               ("delta_rows_n", cfg.delta_rows_cap_eff)):
-                if int(getattr(out, lane)[0]) > cap:
+                if int(getattr(out, lane).max()) > cap:
                     raise RuntimeError(
                         f"boot tick {w.tick_count}: {lane} "
-                        f"{int(getattr(out, lane)[0])} > {cap}")
+                        f"{getattr(out, lane).tolist()} > {cap}")
             served.boot_ticks += 1
-            served.boot_events += int(out.enter_n[0])
+            served.boot_events += int(out.enter_n.sum())
             sink.take()
     else:
-        create(0, pop)
+        for d in range(spaces):
+            create(0, pop, d)
     served.players = np.array(players, "S16")
-    served.player_xz = pos[is_player][:, [0, 2]]
+    served.player_xz = np.array(player_xz, np.float64).reshape(-1, 2)
     served.heading = rng.uniform(0, 2 * np.pi, served.players.size)
     gc.collect()
     gc.freeze()

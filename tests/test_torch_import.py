@@ -154,16 +154,33 @@ def test_unported_megaspace_configs_raise_not_implemented(case, entry):
 
 
 def test_stacked_spaces_raise_not_implemented():
-    st = tstate.create_state(CFG, device="cpu")
-    stacked = st.replace(pos=st.pos[None].repeat(2, 1, 1))
-    with pytest.raises(NotImplementedError, match="n_spaces"):
-        make_tick(CFG, device="cpu")(stacked,
-                                     TickInputs.empty(CFG, device="cpu"))
+    """Stacked Spaces were refused until the batched step was ported;
+    the case now holds that a stacked state ticks in one call with
+    ``[S]`` outputs, that a state stacked in one lane only is rejected,
+    and that the skin is refused on a batched state (the World clears
+    it, as the JAX package's vmapped step does)."""
+    from goworld_tpu_torch.parallel.mesh import create_multi_state
+    from goworld_tpu_torch.parallel.step import MultiTickInputs
+
+    st = create_multi_state(CFG, 2, device="cpu")
+    inputs = MultiTickInputs.empty(CFG, 2, device="cpu").base
+    st2, out = make_tick(CFG, device="cpu")(st, inputs)
+    assert tuple(out.enter_n.shape) == (2,)
+    assert st2.tick.tolist() == [1, 1]
+    one = tstate.create_state(CFG, device="cpu")
+    with pytest.raises(RuntimeError):
+        make_tick(CFG, device="cpu")(
+            one.replace(pos=one.pos[None].repeat(2, 1, 1)),
+            TickInputs.empty(CFG, device="cpu"))
+    skin = dataclasses.replace(CFG, grid=dataclasses.replace(
+        CFG.grid, skin=2.0))
+    with pytest.raises(ValueError, match="skin"):
+        make_tick(skin, device="cpu")(st, inputs)
 
 
 # modules the tick runs; none may make the host wait on the card
 TICK_MODULES = ["core/step.py", "models/random_walk.py", "ops/aoi.py",
-                "ops/delta.py", "ops/extract.py", "ops/integrate.py",
+                "ops/batch.py", "ops/delta.py", "ops/extract.py", "ops/integrate.py",
                 "ops/prng.py", "ops/sort.py", "ops/sync.py",
                 "parallel/halo.py", "parallel/migrate.py",
                 "parallel/megaspace.py", "ops/telemetry.py"]

@@ -73,11 +73,20 @@ def test_wrapper_takes_the_plain_version_on_cpu(n, n_rows, chunk, dead,
 
 @pytest.mark.parametrize("bad", ["int64", "2d", "strided"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    """Since the sort took a Space axis, a 2-D ``[S, n]`` tensor is S
+    Spaces; the "2d" case now holds that a batch whose Space-major keys
+    ``s * (n_rows + 1) + row`` pass 31 bits is refused (a 3-D tensor
+    too)."""
     srow = torch.zeros(64, dtype=torch.int32)
-    arg = {"int64": srow.long(), "2d": srow.reshape(8, 8),
-           "strided": torch.zeros(128, dtype=torch.int32)[::2]}[bad]
+    arg, n_rows = {"int64": (srow.long(), 4),
+                   "2d": (srow.reshape(8, 8), 2**29),
+                   "strided": (torch.zeros(128, dtype=torch.int32)[::2],
+                               4)}[bad]
     with pytest.raises((TypeError, ValueError)):
-        counting_sort_cells_cuda(arg, 4)
+        counting_sort_cells_cuda(arg, n_rows)
+    if bad == "2d":
+        with pytest.raises(ValueError):
+            counting_sort_cells_cuda(srow.reshape(2, 4, 8), 4)
 
 
 # the kernel's limits (csrc/counting_sort.cu): digits of 1-8 bits, a

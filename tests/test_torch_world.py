@@ -29,6 +29,14 @@ stats, entity ledger and sync-age anchor tick.
 The game runs once per sweep/sort pair (a module fixture; each JAX
 World compiles its tick once) and records, per case, what differed and
 what the case did; each case is one test.
+
+A second script runs one World of several AOI Spaces (``n_spaces`` 2
+and 4; the batched step on the port, the vmapped step on JAX), with
+migrations between Spaces through ``enter_space``: a plain crossing, one
+cancelled and one destroyed inside the migration window, one on the same
+tick as client syncs, one whose hot attr is written inside the window;
+at skin 0 under both pairs, with a skin of 4 (cleared by both Worlds'
+batched steps) and at the defaults. It is held to the same agreement.
 """
 
 from __future__ import annotations
@@ -107,6 +115,12 @@ def game_types(pkg, log: list) -> dict:
 
         def OnMigrateIn(self):
             log.append(("migrate_in", self.id))
+
+        def OnEnterSpace(self):
+            log.append(("entered_space", self.id))
+
+        def OnLeaveSpace(self, space):
+            log.append(("left_space", self.id, space.id))
 
         def Fire(self, x):
             log.append(("timer", self.id, x))
@@ -269,11 +283,13 @@ def diff_worlds(j: Side, t: Side, jgot: dict, tgot: dict) -> list[str]:
             continue
         for k in sorted(jids):
             je, te = jw.entities[k], tw.entities[k]
-            row = (je.slot, je.position, je.yaw, je.attrs.to_dict(),
+            row = (je.shard, je.slot, je.position, je.yaw,
+                   je.attrs.to_dict(),
                    sorted(je.interested_in), sorted(je.interested_by),
                    je.client is None or (je.client.gate_id,
                                          je.client.client_id))
-            trow = (te.slot, te.position, te.yaw, te.attrs.to_dict(),
+            trow = (te.shard, te.slot, te.position, te.yaw,
+                    te.attrs.to_dict(),
                     sorted(te.interested_in), sorted(te.interested_by),
                     te.client is None or (te.client.gate_id,
                                           te.client.client_id))
@@ -564,6 +580,224 @@ def test_scripted_game_matches_jax(game, case):
             assert p["window"]["window_ticks"] == SIG_WINDOW
 
 
+class MultiSide(Side):
+    """One package's several-Space game: one World hosting an Arena a
+    Space, its hook log, sink batches and fake clock."""
+
+    def __init__(self, pkg, game):
+        self.pkg = pkg
+        self.log: list = []
+        self.sync: list = []
+        self.clock = Clock()
+        n_spaces, sweep, sort, skin, self.defaults = game
+        grid = dict(GRID, sweep_impl=sweep, sort_impl=sort, skin=skin)
+        make = dict(PLANES) if self.defaults else dict(
+            telemetry_live=False, residency=False, audit=False)
+        if pkg is jent:
+            cfg = JConfig(grid=JGrid(**grid), **WORLD)
+        else:
+            cfg = TConfig(grid=TGrid(**grid), **WORLD)
+            make["device"] = "cpu"
+        types = game_types(pkg, self.log)
+        w = pkg.World(cfg, n_spaces, game_id=1, clock=self.clock, seed=3,
+                      **make)
+        w.SIG_WINDOW_TICKS = SIG_WINDOW
+        for name in ("Mob", "Player"):
+            w.register_entity(name, types[name])
+        w.register_space("Arena", types["Arena"])
+        w.create_nil_space()
+        self.arenas = [w.create_space("Arena", eid=eid(f"multi.arena{d}"))
+                       for d in range(n_spaces)]
+        w.sync_sink = (lambda gate, cids, eids, vals:
+                       self.sync.append((gate, cids.copy(), eids.copy(),
+                                         vals.copy())))
+        self.worlds = [w]
+        self.a = w
+
+
+def run_multi_game(game) -> dict:
+    """The several-Space script on both packages; per case, the
+    differences of each of its ticks and the facts its test checks."""
+    sides = {"jax": MultiSide(jent, game), "port": MultiSide(tent, game)}
+    j, t = sides["jax"], sides["port"]
+    n_spaces = game[0]
+    rng = np.random.default_rng(11)
+    results = {}
+
+    def both(fn):
+        return {k: fn(s) for k, s in sides.items()}
+
+    def ticks(case, n=1):
+        rec = results.setdefault(case, {"diffs": [], "facts": {}})
+        for i in range(n):
+            for s in sides.values():
+                s.tick()
+            jgot, tgot = j.take(), t.take()
+            rec["diffs"] += [f"{case} tick {i}: {d}" for d in diff_worlds(
+                j, t, jgot, tgot)]
+            rec.setdefault("got", []).append(tgot)
+            out = t.a.last_outputs
+            rec.setdefault("events", []).append(
+                (out.enter_n.tolist(), out.leave_n.tolist()))
+        return rec
+
+    def hooks(rec, who):
+        return [x for got in rec["got"] for x in got["log"]
+                if x[1] == eid(who) or (len(x) > 2 and x[2] == eid(who))]
+
+    mob_pos = rng.uniform(0, EXTENT, (n_spaces, 24, 2))
+
+    def spawn(s):
+        w = s.a
+        for d, arena in enumerate(s.arenas):
+            for i, (x, z) in enumerate(mob_pos[d]):
+                arena.create_entity("Mob", pos=(x, 0.0, z),
+                                    eid=eid(f"s{d}m{i}"), moving=i % 6 == 0,
+                                    attrs={"hp": 10 + i, "name": f"m{i}"})
+            for i in range(2):
+                arena.create_entity(
+                    "Player", pos=(100.0 + 30 * i, 0.0, 100.0 + 20 * d),
+                    eid=eid(f"s{d}p{i}"),
+                    client=s.pkg.GameClient(1, f"c{d}{i}".ljust(16, "x"),
+                                            w))
+
+    both(spawn)
+    rec = ticks("spawn", 3)
+    rec["facts"] = dict(shards=sorted({e.shard for e in t.a.entities.values()
+                                       if e.slot is not None}),
+                        enters=rec["events"][0][0])
+
+    last = n_spaces - 1
+
+    def enter(s):
+        w = s.a
+        # a mob lands beside the players of Space 1
+        w.entities[eid("s0m1")].enter_space(s.arenas[1].id,
+                                            (110.0, 0.0, 125.0))
+        # a player walks next to the other player of the last Space
+        w.entities[eid("s0p0")].enter_space(s.arenas[last].id,
+                                            (125.0, 0.0, 100.0 + 20 * last))
+        return w.entities[eid("s0m1")].slot
+
+    mid_window = both(enter)
+    rec = ticks("enter_space", 3)
+    rec["facts"] = dict(
+        mid_window=mid_window,
+        m1=(t.a.entities[eid("s0m1")].shard, t.a.entities[eid("s0m1")].space
+            is t.arenas[1]),
+        p0=t.a.entities[eid("s0p0")].shard,
+        hooks_m1=hooks(rec, "s0m1"),
+        hooks_p0=hooks(rec, "s0p0"),
+        msgs=[m[2]["type"] for got in rec["got"] for m in got["msgs"][0]])
+
+    def cancel(s):
+        w = s.a
+        e = w.entities[eid("s0m2")]
+        e.enter_space(s.arenas[1].id, (50.0, 0.0, 50.0))
+        e.enter_space(w.nil_space.id, (1.0, 0.0, 1.0))
+
+    both(cancel)
+    rec = ticks("cancel_in_window", 2)
+    rec["facts"] = dict(
+        slot=t.a.entities[eid("s0m2")].slot,
+        space=t.a.entities[eid("s0m2")].space is t.a.nil_space,
+        hooks=hooks(rec, "s0m2"))
+
+    def destroy(s):
+        w = s.a
+        e = w.entities[eid("s1m3")]
+        e.enter_space(s.arenas[0].id, (60.0, 0.0, 60.0))
+        e.destroy()
+
+    both(destroy)
+    rec = ticks("destroy_in_window", 2)
+    rec["facts"] = dict(gone=eid("s1m3") not in t.a.entities,
+                        staged=len(t.a._staged_migrate))
+
+    def with_sync(s):
+        w = s.a
+        w.entities[eid("s1p0")].enter_space(s.arenas[0].id,
+                                            (140.0, 0.0, 110.0))
+        return w.stage_pos_sync_batch(
+            np.array([eid("s1p1"), eid("s0p1"), eid("s0p0")], "S16"),
+            np.array([[150, 0, 150, 1], [160, 0, 160, 2],
+                      [170, 0, 170, 3]], np.float32))
+
+    staged = both(with_sync)
+    rec = ticks("migrate_with_sync", 2)
+    rec["facts"] = dict(staged=staged,
+                        p1=t.a.entities[eid("s1p1")].position,
+                        p0=t.a.entities[eid("s1p0")].shard,
+                        syncs=sum(len(x[1]) for got in rec["got"]
+                                  for x in got["sync"]))
+
+    def attr(s):
+        w = s.a
+        e = w.entities[eid(f"s{last}m4")]
+        e.enter_space(s.arenas[0].id, (80.0, 0.0, 80.0))
+        e.attrs["hp"] = 77
+
+    both(attr)
+    rec = ticks("attr_in_window", 2)
+    m4 = t.a.entities[eid(f"s{last}m4")]
+    rec["facts"] = dict(
+        hot=float(interop.state_to_numpy(t.a.state)["hot_attrs"][
+            m4.shard, m4.slot, 0]),
+        shard=m4.shard)
+    return results
+
+
+MULTI_GAMES = [(2, "ranges", "argsort", 0.0, False),
+               (2, "fused", "pallas", 0.0, False),
+               (4, "fused", "pallas", 0.0, False),
+               (2, "fused", "pallas", 4.0, False),
+               (2, "fused", "pallas", 0.0, True)]
+MULTI_CASES = ["spawn", "enter_space", "cancel_in_window",
+               "destroy_in_window", "migrate_with_sync", "attr_in_window"]
+
+
+@pytest.fixture(scope="module", params=MULTI_GAMES,
+                ids=["s2-ranges", "s2-fused", "s4-fused", "s2-fused-skin4",
+                     "s2-fused-defaults"])
+def multi_game(request):
+    return run_multi_game(request.param)
+
+
+@pytest.mark.parametrize("case", MULTI_CASES)
+def test_several_spaces_game_matches_jax(multi_game, case):
+    rec = multi_game[case]
+    assert rec["diffs"] == [], rec["diffs"][:5]
+    facts = rec["facts"]
+    if case == "spawn":
+        assert len(facts["shards"]) >= 2
+        assert all(e > 0 for e in facts["enters"])
+    elif case == "enter_space":
+        assert facts["mid_window"] == {"jax": None, "port": None}
+        assert facts["m1"] == (1, True) and facts["p0"] >= 1
+        # the source Space's hooks in the window, then at the flush:
+        # OnMigrateIn, OnEnterSpace, OnEntityEnterSpace
+        kinds = [x[0] for x in facts["hooks_m1"]]
+        assert kinds[:6] == ["migrate_out", "left_space", "space_leave",
+                             "migrate_in", "entered_space", "space_enter"]
+        assert "enter" in kinds
+        # the player leaves its old neighbour's interest (the source
+        # row's despawn) and enters its new one's
+        kinds = [x[0] for x in facts["hooks_p0"]]
+        assert "leave" in kinds and "enter" in kinds
+        assert {"create_entity", "destroy_entity"} <= set(facts["msgs"])
+    elif case == "cancel_in_window":
+        assert facts["slot"] is None and facts["space"]
+        assert "migrate_in" not in [x[0] for x in facts["hooks"]]
+    elif case == "destroy_in_window":
+        assert facts["gone"] and facts["staged"] == 0
+    elif case == "migrate_with_sync":
+        assert facts["staged"] == {"jax": 3, "port": 3}
+        assert facts["p1"] == (150.0, 0.0, 150.0) and facts["p0"] == 0
+        assert facts["syncs"] > 0
+    elif case == "attr_in_window":
+        assert facts["hot"] == 77.0 and facts["shard"] == 0
+
+
 KNOBS = {
     "mesh": dict(mesh=object()),
     "megaspace": dict(megaspace=True),
@@ -576,6 +810,16 @@ SMALL = TConfig(capacity=64, grid=TGrid(radius=10.0, k=8, cell_cap=4))
 
 @pytest.mark.parametrize("knob", sorted(KNOBS))
 def test_refused_knobs_raise_not_implemented(knob):
+    """Each knob of a shape the port does not run raises. Several
+    Spaces (``n_spaces``) were refused until the batched step was
+    ported; that case now holds that the World takes them and ticks
+    with ``[S]`` outputs."""
+    if knob == "n_spaces":
+        w = tent.World(SMALL, device="cpu", **KNOBS[knob])
+        w.tick()
+        assert tuple(w.state.pos.shape) == (2, SMALL.capacity, 3)
+        assert w.last_outputs.enter_n.shape == (2,)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tent.World(SMALL, device="cpu", **KNOBS[knob])
 
@@ -678,3 +922,37 @@ def test_served_game_twins_agree_on_the_cpu():
     mobs = [w.entities[e] for e in twins[0].mobs]
     hot = interop.state_to_numpy(w.state)["hot_attrs"][0, :, 0]
     assert [hot[m.slot] for m in mobs] == [m.attrs["hp"] for m in mobs]
+
+
+def test_served_several_spaces_twins_agree_on_the_cpu():
+    """The chip phase's served game of several Spaces at a small size:
+    the sweep/sort pairs give equal sinks, hooks and states while the
+    game moves SERVE_MIGRATIONS entities between Spaces a tick, every
+    staged migration arrives, and each Space's alive rows are its
+    entities."""
+    from goworld_tpu_torch.workload import SERVE_MIGRATIONS, serve_world
+
+    try:
+        twins = [serve_world(4096 + 1024, 6, "cpu", record_hooks=True,
+                             keep=True, spaces=3, sweep_impl=sweep,
+                             sort_impl=sort)
+                 for sweep, sort in IMPLS]
+    finally:
+        gc.unfreeze()  # serve_world froze the populations, as a server
+    for t in range(3):
+        for sv in twins:
+            staged = sv.stage()
+            assert staged["migrations"] == SERVE_MIGRATIONS
+            sv.world.tick()
+            assert sv.migrated() == SERVE_MIGRATIONS
+            w = sv.world
+            assert w.last_outputs.alive_count.tolist() == [
+                len(o) for o in w._slot_owner]
+        a, b = (sv.sink.take() for sv in twins)
+        assert _same(a["kept"], b["kept"]) and a["sync_records"] > 0
+        assert twins[0].hooks == twins[1].hooks and twins[0].hooks
+        for sv in twins:
+            sv.hooks.clear()
+        sa, sb = (interop.state_to_numpy(sv.world.state) for sv in twins)
+        assert all(_same(sa[k], sb[k]) for k in sa)
+        assert sa["pos"].shape == (3, 4096 + 1024, 3)
