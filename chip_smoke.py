@@ -134,13 +134,32 @@ is caught:
     under the sync guard; [12] reads the batched kernels' and the
     batched tick's device time beside the single-Space 2^20 tick's;
 16. each phase's wall seconds, then the result line ``{"ok": true,
-    "device": {...}}``.
+    "device": {...}}``;
+17. (run before 12) NPC behaviors, BASELINE config 5: the policy kernel
+    ``npc_mlp`` (``csrc/npc_mlp.cu``) against its plain version bit for
+    bit at 2^20 rows of config 5's observations and at 1, 31 and 4097
+    rows of extreme observations (+-3e38, 0, -0.0) under
+    ``init_policy(5)`` and random weights, bf16 tanh on the card against
+    the CPU's on all 65536 inputs, its time, plain time, cuBLAS bf16
+    chain time (not bit-equal) and bound; an uncut world of FLOAT_N
+    entities FLOAT_TICKS ticks under btree, mlp and the mixed scenario
+    on the card and on the CPU port, bit-equal in every lane; the bench
+    world uncut under btree and then mlp for BEHAVIOR_TICKS ticks (one
+    sweep, one sort and, for mlp, one npc_mlp launch a tick; one tick
+    under the sync guard; one tick against its plain twin), p50/p99 and
+    the behavior stage's time beside the random walk's; every registry
+    scenario SCN_TICKS ticks at SCN_N against its plain twin and mixed at
+    2^20 for MIXED_TICKS ticks; the 2x2 megaspace under mlp for
+    MEGA_TICKS ticks beside its plain twin tick; twin served Worlds of
+    2^16 slots under mlp (kernels, plain versions) equal in sinks and
+    state. [12] reads npc_mlp's device time.
 
 Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -154,9 +173,17 @@ import torch
 
 from goworld_tpu_torch import interop, kernels
 from goworld_tpu_torch.core.state import WorldConfig, map_lane
-from goworld_tpu_torch.core.step import TickInputs, make_tick
+from goworld_tpu_torch.core.step import (
+    TickInputs,
+    compute_velocity,
+    make_tick,
+)
 from goworld_tpu_torch.entity import manager
-from goworld_tpu_torch.ops import aoi
+from goworld_tpu_torch.models import npc_policy
+from goworld_tpu_torch.models.npc_policy import build_obs, init_policy
+from goworld_tpu_torch.ops import aoi, prng
+from goworld_tpu_torch.ops.mlp import npc_mlp, npc_mlp_plain, tanh_bf16
+from goworld_tpu_torch.scenarios.spec import scenario_names
 from goworld_tpu_torch.ops import telemetry as telem
 from goworld_tpu_torch.ops.aoi import GridSpec, grid_neighbors_flags
 from goworld_tpu_torch.ops.sort import (
@@ -175,11 +202,15 @@ from goworld_tpu_torch.utils import metrics
 from goworld_tpu_torch.ops.integrate import apply_pos_inputs
 from goworld_tpu_torch.parallel.mesh import tile_view
 from goworld_tpu_torch.workload import (
+    POLICY_SEED,
+    behavior_config,
+    behavior_world,
     bench_world,
     mega_config,
     mega_world,
     multi_config,
     multi_world,
+    scenario_config,
     serve_world,
     slice_config,
     uncut_config,
@@ -207,10 +238,19 @@ SPACES = 8
 SPACE_N = 1 << 17
 SPACE_TICKS = 24
 SEED = 0
-# published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and the
-# float32 CUDA-core rate, used for the kernels' 32-bit integer work too
+# [17] behaviors and scenarios
+BEHAVIOR_TICKS = 24
+MIXED_TICKS = 16
+SCN_N = 4096
+SCN_TICKS = 4
+BEHAVIOR_WORLD_N = 1 << 16
+BEHAVIOR_WORLD_TICKS = 4
+# published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, the
+# float32 CUDA-core rate (used for the kernels' 32-bit integer work too)
+# and the dense bf16 tensor-core rate (the policy's bf16 products)
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
+PEAK_BF16_S = 989e12
 
 
 def fail(msg: str) -> None:
@@ -262,9 +302,10 @@ def sweep_work(fh, dem, k: int, cc: int) -> tuple[int, float, int]:
     return nbytes, nops, cand
 
 
-def bound(nbytes, nops):
-    """(least ms, what bounds it) against the card's peaks."""
-    tb, to = nbytes / PEAK_BYTES_S * 1e3, nops / PEAK_OPS_S * 1e3
+def bound(nbytes, nops, peak_ops=PEAK_OPS_S):
+    """(least ms, what bounds it) against the card's peaks, the
+    operations at ``peak_ops`` a second."""
+    tb, to = nbytes / PEAK_BYTES_S * 1e3, nops / peak_ops * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -483,7 +524,7 @@ def mega_path(dev, mc: MegaConfig, tag: str) -> dict:
     launches = dict(kernels.LAUNCHES)
     want = {"sweep_fused": n_dev * MEGA_TICKS,
             "counting_sort": n_dev * MEGA_TICKS,
-            "halo_ship_phase": 2 * MEGA_TICKS}
+            "halo_ship_phase": 2 * MEGA_TICKS, "npc_mlp": 0}
     if launches != want:
         fail(f"megaspace launches {launches} in {MEGA_TICKS} ticks, want "
              f"{want}")
@@ -825,7 +866,7 @@ def world_ticks(served, n_ticks: int, teleport: bool) -> tuple[list, dict]:
         wall = time.perf_counter() - t0
         got = {k: kernels.LAUNCHES[k] - before[k] for k in before}
         if got != {"sweep_fused": 1, "counting_sort": 1,
-                   "halo_ship_phase": 0}:
+                   "halo_ship_phase": 0, "npc_mlp": 0}:
             fail(f"World.tick {t + 1} launched {got}")
         out, ops, sink = w.last_outputs, w.op_stats, served.sink.take()
         if sink["sync_records"] != ops["sync_records_sent"] or \
@@ -1226,7 +1267,10 @@ def world_phase(dev, bare: tuple[float, float], tag: str,
 
 def diff_count(a, b):
     """Words of two lanes that differ, as a device tensor (floats by
-    their bits; no host sync)."""
+    their bits; no host sync); lanes that are None count as equal to
+    None."""
+    if a is None or b is None:
+        return torch.tensor(int((a is None) != (b is None)))
     if a.is_floating_point():
         bits = torch.int16 if a.element_size() == 2 else torch.int32
         a, b = a.view(bits), b.view(bits)
@@ -1344,7 +1388,8 @@ def inputs_and_floats(dev, tag) -> None:
         for what, a, b in (("state", sa, sb), ("outputs", oa, ob)):
             la, lb = lanes(a), lanes(b)
             bad += [f"{what}.{k} @{t + 1}" for k in la
-                    if not same_bits(la[k].cpu(), lb[k])]
+                    if not same_bits(None if la[k] is None
+                                     else la[k].cpu(), lb[k])]
     if bad:
         fail(f"card and CPU port differ: {bad[:8]}")
     print(f"[13] inputs and floats: apply_pos_inputs with {n_in} records "
@@ -1668,7 +1713,7 @@ def spaces_phase(dev, bare: tuple[float, float], tag: str,
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     if launches != {"sweep_fused": SPACE_TICKS,
-                    "counting_sort": SPACE_TICKS, "halo_ship_phase": 0}:
+                    "counting_sort": SPACE_TICKS, "halo_ship_phase": 0, "npc_mlp": 0}:
         fail(f"[15] the batched tick launched {launches} in {SPACE_TICKS} "
              f"ticks")
     gv = torch.stack(gauges).cpu().numpy()
@@ -1772,6 +1817,332 @@ def spaces_phase(dev, bare: tuple[float, float], tag: str,
     print(f"[15] phase {time.perf_counter() - phase0:.1f} s", flush=True)
     return ({"spaces_batched": launches, "spaces_world": w_launches}, shape,
             (p50, p99))
+
+
+def nan_same(a, b) -> bool:
+    """Bit-for-bit equality with every NaN taken as equal (a NaN's
+    payload is the rounding routine's, not the function's)."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(na, nb)) and same_bits(
+        torch.where(na, 0.0, a), torch.where(nb, 0.0, b))
+
+
+def kept_same(a, b) -> bool:
+    """Two sinks' kept records equal (sync records by their bytes)."""
+    return len(a) == len(b) and all(
+        x[0] == y[0] and x[1] == y[1] and (
+            all(np.asarray(u).tobytes() == np.asarray(v).tobytes()
+                for u, v in zip(x[2:], y[2:])) if x[0] == "sync"
+            else x[2:] == y[2:]) for x, y in zip(a, b))
+
+
+def mlp_weights(pol):
+    return (pol.w1, pol.b1, pol.w2, pol.b2, pol.w3, pol.b3)
+
+
+def tick_run(tick, st, inputs, pol, n_ticks: int, want: dict):
+    """``n_ticks`` ticks timed by CUDA events, each tick's launches
+    checked against ``want``; returns (state, p50, p99, snapshot)."""
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(n_ticks)]
+    per, snapshot = [], None
+    for t in range(n_ticks):
+        if t == n_ticks // 2:
+            snapshot = st
+        c0 = dict(kernels.LAUNCHES)
+        ev[t][0].record()
+        st, out = tick(st, inputs, pol)
+        ev[t][1].record()
+        per.append({k: kernels.LAUNCHES[k] - c0[k] for k in c0})
+    torch.cuda.synchronize()
+    if any(p != want for p in per):
+        fail(f"launches a tick {per[:2]}..., want {want}")
+    for lane in (st.pos, st.vel):
+        if not torch.isfinite(lane).all():
+            fail("non-finite positions or velocities")
+    ms = np.array([a.elapsed_time(b) for a, b in ev])[1:]
+    return st, float(np.percentile(ms, 50)), float(np.percentile(ms, 99)), \
+        snapshot
+
+
+@contextlib.contextmanager
+def mlp_held_to_plain():
+    """Within the block, every policy forward pass the path makes (the
+    wrapper as ``models.npc_policy.policy_accel`` calls it) also runs its
+    plain version on the same observation and weights; yields a list of
+    (rows, bit-equal) for each call. The plain run launches nothing."""
+    seen, real = [], npc_policy.npc_mlp
+
+    def held(obs, *ws):
+        out = real(obs, *ws)
+        seen.append((obs.shape[0], nan_same(out, npc_mlp_plain(obs, *ws))))
+        return out
+    npc_policy.npc_mlp = held
+    try:
+        yield seen
+    finally:
+        npc_policy.npc_mlp = real
+
+
+def plain_twin(cfg):
+    """``cfg`` on the plain versions of the sweep and the sort."""
+    return dataclasses.replace(cfg, grid=dataclasses.replace(
+        cfg.grid, sweep_impl="ranges", sort_impl="counting"))
+
+
+def check_twin(what: str, a, b) -> None:
+    for x, y in ((a[0], b[0]), (a[1], b[1])):
+        la, lb = lanes(x), lanes(y)
+        for name in la:
+            if not same_bits(la[name], lb[name]):
+                fail(f"{what}: lane {name} differs from the plain twin")
+
+
+def behavior_phase(dev, tag, profiled: dict, walk: tuple) -> tuple:
+    """[17] NPC behaviors (BASELINE config 5) and the scenario mixes:
+    the npc_mlp kernel against its plain version, the card against the
+    CPU port, config 5 at 2^20 under btree and mlp, the seven registry
+    scenarios, the megaspace and a served World under mlp. Returns the
+    kernel's row of the kernels line, the launches of each path and the
+    megaspace's p50 under mlp."""
+    phase0 = time.perf_counter()
+    pol = init_policy(POLICY_SEED, device=dev)
+    ws = mlp_weights(pol)
+    h = pol.hidden
+    # the kernel at config 5's observations: the uncut world after one
+    # mlp tick, so the neighbor summary is live
+    cfg = behavior_config(N, "mlp")
+    g = cfg.grid
+    st, inputs, _ = behavior_world(cfg, SEED, dev)
+    tick = make_tick(cfg, device=dev)
+    st1, _ = tick(st, inputs, pol)
+    obs = build_obs(st1.pos, st1.vel, st1.yaw, st1.nbr, st1.nbr_cnt,
+                    (g.extent_x, g.extent_z))
+    if not nan_same(npc_mlp(obs, *ws), npc_mlp_plain(obs, *ws)):
+        fail("[17] npc_mlp differs from its plain version at config 5")
+    rng = np.random.default_rng(SEED + 17)
+    odd = {}
+    for rows in (1, 31, 4097):
+        x = rng.standard_normal((rows, 10)) * rng.choice(
+            [1e-3, 1.0, 30.0, 1e30], (rows, 10))
+        x[rng.random((rows, 10)) < 0.05] = 0.0
+        x[rng.random((rows, 10)) < 0.05] = -0.0
+        x[rng.random((rows, 10)) < 0.02] = 3e38
+        x[rng.random((rows, 10)) < 0.02] = -3e38
+        xo = torch.tensor(x.astype(np.float32), device=dev)
+        for wname, pw in (("init_policy(5)", ws), ("random", tuple(
+                torch.tensor(rng.standard_normal(tuple(w.shape)),
+                             dtype=torch.float32, device=dev)
+                .to(torch.bfloat16) for w in ws))):
+            a, b = npc_mlp(xo, *pw), npc_mlp_plain(xo, *pw)
+            odd[f"{rows}/{wname}"] = nan_same(a, b)
+    if not all(odd.values()):
+        fail(f"[17] npc_mlp differs from its plain version: {odd}")
+    # tanh over every bf16 value: the card's float64 tanh == the CPU's
+    allb = torch.arange(65536, dtype=torch.int32).to(torch.int16) \
+        .view(torch.bfloat16).float()
+    if not nan_same(tanh_bf16(allb.to(dev)).cpu(), tanh_bf16(allb)):
+        fail("[17] bf16 tanh on the card differs from the CPU's")
+    mlp_ms = time_ms(lambda: npc_mlp(obs, *ws), 20)
+    mlp_plain = time_ms(lambda: npc_mlp_plain(obs, *ws), 2, 1)
+
+    def cublas():
+        x = obs.to(torch.bfloat16)
+        x = torch.tanh(x @ ws[0] + ws[1])
+        x = torch.tanh(x @ ws[2] + ws[3])
+        return (x @ ws[4] + ws[5]).float()
+    mlp_lib = time_ms(cublas, 20)
+    mlp_ops = 2 * (10 * h + h * h + 3 * h) * N
+    mlp_bytes = N * (10 + 3) * 4 + sum(w.numel() * 2 for w in ws)
+    # the operands are bf16: the bound is the tensor cores' rate; the
+    # float32 CUDA-core rate bounds only this design, which keeps XLA's
+    # summation order (no mma)
+    bms, by = bound(mlp_bytes, mlp_ops, PEAK_BF16_S)
+    bms_fp32 = bound(mlp_bytes, mlp_ops)[0]
+    # read first in [12]: a profiler session long after the process's
+    # first one drops device events (probe_profiler.py)
+    rest = list(profiled.items())
+    profiled.clear()
+    profiled["npc_mlp"] = lambda: npc_mlp(obs, *ws)
+    profiled.update(rest)
+    print(f"[17] npc_mlp: == its plain version bit for bit at {N} rows of "
+          f"config 5's observations and at {sorted(odd)} (extremes "
+          f"+-3e38, 0, -0.0, NaN as NaN); bf16 tanh card == CPU on all "
+          f"65536 inputs; {mlp_ms:.4f} ms a call (bound {bms:.4f} ms by "
+          f"{by} at the bf16 tensor-core rate; {bms_fp32:.4f} ms at the "
+          f"float32 CUDA-core rate, the bound of a design in XLA's "
+          f"order), plain {mlp_plain:.2f} ms, cuBLAS bf16 chain (not "
+          f"bit-equal) {mlp_lib:.4f} ms {tag}", flush=True)
+
+    # the card against the CPU port, every lane
+    launches = {}
+    for name in ("btree", "mlp", "mixed"):
+        c = scenario_config(FLOAT_N, name) if name == "mixed" \
+            else behavior_config(FLOAT_N, name)
+        sides = []
+        for d in (dev, torch.device("cpu")):
+            s, i, p = behavior_world(c, SEED, d)
+            tk = make_tick(c, device=d)
+            for _ in range(FLOAT_TICKS):
+                s, o = tk(s, i, p)
+            sides.append((s, o))
+        la, lb = lanes(sides[0][0]), lanes(sides[1][0])
+        la.update({f"out.{k}": v for k, v in lanes(sides[0][1]).items()})
+        lb.update({f"out.{k}": v for k, v in lanes(sides[1][1]).items()})
+        bad = [k for k in la if not same_bits(
+            la[k], None if lb[k] is None else lb[k].to(dev))]
+        if bad:
+            fail(f"[17] {name}: the card differs from the CPU port in "
+                 f"{bad}")
+    print(f"[17] card == CPU port: {FLOAT_N} entities uncut, "
+          f"{FLOAT_TICKS} ticks under btree, mlp and mixed, every lane "
+          f"and output bit for bit {tag}", flush=True)
+
+    # config 5 at full width
+    stage = {}
+    for name in ("btree", "mlp"):
+        c = behavior_config(N, name)
+        s0, i, p = behavior_world(c, SEED, dev)
+        tk = make_tick(c, device=dev)
+        torch.cuda.set_sync_debug_mode("error")
+        tk(s0, i, p)
+        torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        want = {"sweep_fused": 1, "counting_sort": 1,
+                "halo_ship_phase": 0, "npc_mlp": int(name == "mlp")}
+        kernels.reset_launches()
+        s, p50, p99, snap = tick_run(tk, s0, i, p, BEHAVIOR_TICKS, want)
+        launches[f"config5_{name}"] = dict(kernels.LAUNCHES)
+        check_twin(f"[17] config 5 {name}", tk(snap, i, p),
+                   make_tick(plain_twin(c), device=dev)(snap, i, p))
+        key = prng.split(s.rng)[1]
+        ext = (c.grid.extent_x, c.grid.extent_z)
+        stage[name] = time_ms(lambda c=c, s=s, p=p: compute_velocity(
+            c, key, s.pos, s.yaw, s, p, ext, s.nbr, s.nbr_cnt), 10)
+        if name == "btree":
+            walk_cfg = dataclasses.replace(c, behavior="random_walk")
+            stage["random_walk"] = time_ms(lambda s=s: compute_velocity(
+                walk_cfg, key, s.pos, s.yaw, s, None, ext, s.nbr,
+                s.nbr_cnt), 10)
+        print(f"[17] config 5 {name}: {BEHAVIOR_TICKS} ticks of {N} "
+              f"entities uncut (skin {c.grid.skin}), launches a tick "
+              f"{want}; one tick under the sync guard; tick "
+              f"{BEHAVIOR_TICKS // 2 + 1} == its plain twin (ranges/"
+              f"counting) bit for bit; ms/tick p50={p50:.3f} "
+              f"p99={p99:.3f} (CUDA events, ticks 2-{BEHAVIOR_TICKS}; "
+              f"[5]'s random walk at skin 0 p50={walk[0]:.3f}) {tag}",
+              flush=True)
+    print(f"[17] behavior stage ms a tick (compute_velocity, events, the "
+          f"state after the run): "
+          f"{ {k: round(v, 4) for k, v in stage.items()} } {tag}",
+          flush=True)
+
+    # every registry scenario, small, beside its plain twin; mixed at
+    # full width
+    for name in scenario_names():
+        c = scenario_config(SCN_N, name)
+        s, i, p = behavior_world(c, SEED, dev)
+        tk, tp = make_tick(c, device=dev), \
+            make_tick(plain_twin(c), device=dev)
+        sp = s
+        for _ in range(SCN_TICKS):
+            a, b = tk(s, i, p), tp(sp, i, p)
+            check_twin(f"[17] scenario {name}", a, b)
+            s, sp = a[0], b[0]
+    c = scenario_config(N, "mixed")
+    s0, i, p = behavior_world(c, SEED, dev)
+    tk = make_tick(c, device=dev)
+    tk(s0, i, p)
+    kernels.reset_launches()
+    want = {"sweep_fused": 1, "counting_sort": 1, "halo_ship_phase": 0,
+            "npc_mlp": 0}
+    s, p50, p99, snap = tick_run(tk, s0, i, p, MIXED_TICKS, want)
+    launches["mixed"] = dict(kernels.LAUNCHES)
+    check_twin("[17] mixed at 2^20", tk(snap, i, p),
+               make_tick(plain_twin(c), device=dev)(snap, i, p))
+    print(f"[17] scenarios: all {len(scenario_names())} "
+          f"({', '.join(scenario_names())}) {SCN_TICKS} ticks at {SCN_N} "
+          f"== their plain twins; mixed at {N}: {MIXED_TICKS} ticks, "
+          f"p50={p50:.3f} p99={p99:.3f} ms, tick {MIXED_TICKS // 2 + 1} "
+          f"== its plain twin {tag}", flush=True)
+
+    # the 2x2 megaspace under mlp
+    mc = mega_config(N, MEGA_DEV)
+    mc = dataclasses.replace(mc, cfg=dataclasses.replace(mc.cfg,
+                                                         behavior="mlp"))
+    s0, i = mega_world(mc, N, SEED, dev)
+    tk = make_mega_tick(mc, device=dev)
+    tk(s0, i, pol)
+    kernels.reset_launches()
+    want = {"sweep_fused": MEGA_DEV, "counting_sort": MEGA_DEV,
+            "halo_ship_phase": 2, "npc_mlp": MEGA_DEV}
+    s, p50, p99, snap = tick_run(tk, s0, i, pol, MEGA_TICKS, want)
+    launches["megaspace_mlp"] = dict(kernels.LAUNCHES)
+    plain = dataclasses.replace(mc, halo_impl="ppermute",
+                                cfg=plain_twin(mc.cfg))
+    with mlp_held_to_plain() as held:
+        got = tk(snap, i, pol)
+    if [r for r, _ in held] != [mc.cfg.capacity] * MEGA_DEV or \
+            not all(ok for _, ok in held):
+        fail(f"[17] megaspace mlp: npc_mlp against its plain version on "
+             f"the tiles' observations (rows, equal): {held}")
+    check_twin("[17] megaspace mlp", got,
+               make_mega_tick(plain, device=dev)(snap, i, pol))
+    # its device busy a tick, read in [12] against this p50
+    profiled["megaspace tick, mlp"] = \
+        lambda tk=tk, snap=snap, i=i: tk(snap, i, pol)
+    mega_p50 = p50
+    print(f"[17] megaspace 2x2 under mlp: {MEGA_TICKS} ticks of {N}, "
+          f"launches a tick {want}; tick {MEGA_TICKS // 2 + 1}: npc_mlp "
+          f"== its plain version on each tile's {mc.cfg.capacity} "
+          f"observation rows, the tick == its plain twin (ppermute/"
+          f"ranges/counting); p50={p50:.3f} "
+          f"p99={p99:.3f} ms {tag}", flush=True)
+
+    # a served World under mlp, kernels against the plain versions
+    twins = [serve_world(BEHAVIOR_WORLD_N, SEED + 3, dev, keep=True,
+                         boot=True, behavior="mlp",
+                         sweep_impl=a, sort_impl=b)
+             for a, b in (("fused", "pallas"), ("ranges", "argsort"))]
+    kernels.reset_launches()
+    for t in range(BEHAVIOR_WORLD_TICKS):
+        for sv in twins:
+            sv.stage()
+            with mlp_held_to_plain() as held:
+                sv.world.tick()
+            if [r for r, _ in held] != [BEHAVIOR_WORLD_N] or not held[0][1]:
+                fail(f"[17] served World mlp: npc_mlp against its plain "
+                     f"version on the World's observations at tick "
+                     f"{t + 1} (rows, equal): {held}")
+        ka, kb = (sv.sink.take()["kept"] for sv in twins)
+        sa, sb = (interop.state_to_numpy(sv.world.state) for sv in twins)
+        if not kept_same(ka, kb) or any(
+                sa[k].tobytes() != sb[k].tobytes() for k in sa):
+            fail(f"[17] served mlp twin Worlds differ at tick {t + 1}")
+    launches["world_mlp"] = dict(kernels.LAUNCHES)
+    if launches["world_mlp"]["npc_mlp"] != 2 * BEHAVIOR_WORLD_TICKS:
+        fail(f"[17] served World launches {launches['world_mlp']}")
+    del twins
+    release_worlds()
+    print(f"[17] served World of {BEHAVIOR_WORLD_N} slots under mlp: "
+          f"{BEHAVIOR_WORLD_TICKS} ticks, npc_mlp == its plain version on "
+          f"every tick's {BEHAVIOR_WORLD_N} observation rows, kernel and "
+          f"plain-version twins equal in sinks and state; phase "
+          f"{time.perf_counter() - phase0:.1f} s {tag}", flush=True)
+    row = {
+        "name": "npc_mlp", "route": "cuda",
+        "source": "goworld_tpu_torch/csrc/npc_mlp.cu",
+        "replaces": "goworld_tpu/models/npc_policy.py:109 (policy_accel, "
+                    "plain XLA dots; no TPU kernel)",
+        "launches": sum(v["npc_mlp"] for v in launches.values()),
+        "launches_by_path": {k: v["npc_mlp"] for k, v in launches.items()},
+        "max_abs_err": 0, "ms": mlp_ms, "device_ms": None,
+        "launches_per_call": None, "plain_ms": mlp_plain,
+        "bound_ms": bms, "bound_by": by, "library_ms": mlp_lib,
+        "bound_ms_fp32_cuda_cores": bms_fp32,
+    }
+    return row, launches, mega_p50
+
 
 
 def main() -> int:
@@ -1974,7 +2345,7 @@ def main() -> int:
     wall = time.perf_counter() - wall0
     launches = dict(kernels.LAUNCHES)
     if launches != {"sweep_fused": TICKS, "counting_sort": TICKS,
-                    "halo_ship_phase": 0}:
+                    "halo_ship_phase": 0, "npc_mlp": 0}:
         fail(f"single-Space path launches {launches} in {TICKS} ticks")
     gv = torch.stack(gauges).cpu().numpy()
     if gv[0, 0] <= 0:
@@ -2110,6 +2481,11 @@ def main() -> int:
                                                    profiled)
     world.update(spaces)
     phase_done("[15]")
+    mlp_row, beh_launches, mega_mlp_p50 = behavior_phase(
+        dev, tag, profiled, (p50, p99))
+    rows.append(mlp_row)
+    world.update({f"behaviors_{k}": v for k, v in beh_launches.items()})
+    phase_done("[17]")
     for row, key in zip(rows[:2], ("sweep_fused", "counting_sort")):
         row["launches_by_path"] = {"single_space": row["launches"],
                                    **{p: n[key] for p, n in world.items()}}
@@ -2121,6 +2497,9 @@ def main() -> int:
     rows[2]["launches_by_path"] = {"megaspace": rows[2]["launches"]}
 
     got, dev_ms = device_times(profiled, rows[:2], plan)
+    mlp_row["device_ms"], mlp_row["launches_per_call"] = got["npc_mlp"]
+    if mlp_row["launches_per_call"] != 1:
+        fail(f"[12] npc_mlp kernels a call: {mlp_row['launches_per_call']}")
     gate["gate_closed_device_ms"], gate["gate_closed_kernels"] = \
         got["sweep_fused_cuda, gate closed"]
     for row in rows[:2]:
@@ -2134,12 +2513,15 @@ def main() -> int:
              f"{[r['spaces_shape']['launches_per_call'] for r in rows[:2]]}")
     b8 = got[f"batched tick, {SPACES} Spaces"]
     b1 = got[f"tick, one Space of {N}"]
+    bm = got["megaspace tick, mlp"]
     print(f"[12] device time a call (torch.profiler, after the timed "
           f"paths): {dev_ms}; {mega_device()}; device busy a tick: "
           f"{SPACES} Spaces batched {b8[0]:.3f} ms in {b8[1]:g} kernels "
           f"(idle share against [15]'s p50 {1 - b8[0] / spaces_ms[0]:.3f}),"
           f" one Space of {N} {b1[0]:.3f} ms in {b1[1]:g} kernels (against"
-          f" [5]'s p50 {1 - b1[0] / p50:.3f}); kernel times on the next "
+          f" [5]'s p50 {1 - b1[0] / p50:.3f}), the megaspace under mlp "
+          f"{bm[0]:.3f} ms in {bm[1]:g} kernels (against [17]'s p50 "
+          f"{1 - bm[0] / mega_mlp_p50:.3f}); kernel times on the next "
           f"line {tag}", flush=True)
     phase_done("[12]")
     print(f"[walls] phase seconds {walls}, total "

@@ -32,14 +32,19 @@ from goworld_tpu_torch.ops.aoi import (
     init_verlet_cache,
 )
 from goworld_tpu_torch.ops.aoi import check_ported as check_grid_ported
+from goworld_tpu_torch.scenarios.spec import (
+    assign_behavior_ids,
+    assign_watch_radii,
+)
 from goworld_tpu_torch.utils import consts
 
 
 @dataclasses.dataclass(frozen=True)
 class WorldConfig:
     """Static per-Space configuration, the JAX package's ``WorldConfig``
-    field for field. ``scenario`` holds the JAX package's scenario spec
-    when one is set; this port runs none yet."""
+    field for field. ``scenario`` is a
+    :class:`goworld_tpu_torch.scenarios.spec.ScenarioSpec` (a behavior
+    mix over a per-entity ``behavior_id`` lane) or None."""
 
     capacity: int = consts.DEFAULT_CAPACITY
     attr_width: int = 8
@@ -81,14 +86,20 @@ class WorldConfig:
         return (g.origin_x + g.extent_x, 1e9, g.origin_z + g.extent_z)
 
 
+def has_behaviors(cfg: WorldConfig) -> bool:
+    """True when the config runs more than the random walk: the btree or
+    mlp behavior, or a scenario mix."""
+    return cfg.behavior != "random_walk" or cfg.scenario is not None
+
+
 def check_ported(cfg: WorldConfig) -> None:
     """Raise ``NotImplementedError`` for a config this port does not run
     yet (see ROADMAP.md Queue A); it never substitutes another path."""
-    if cfg.behavior != "random_walk":
+    if cfg.grid.precision != "off" and (
+            cfg.behavior == "mlp" or (cfg.scenario is not None
+                                      and cfg.scenario.needs_policy)):
         raise NotImplementedError(
-            f"behavior={cfg.behavior!r} {ROADMAP_HINT}")
-    if cfg.scenario is not None:
-        raise NotImplementedError(f"scenario worlds {ROADMAP_HINT}")
+            f"precision='q16' with the mlp policy {ROADMAP_HINT}")
     check_grid_ported(cfg.grid)
 
 
@@ -129,6 +140,10 @@ class SpaceState:
     # the Verlet AOI cache; None when the grid has no skin (or n >= 2^21,
     # where the tick keeps the stateless sweep)
     aoi_cache: VerletCache | None = None
+    # i32[N] per-entity scenario behavior (an index into
+    # cfg.scenario.mix); None without a scenario. It belongs to the slot:
+    # a respawn keeps it
+    behavior_id: torch.Tensor | None = None
 
     def replace(self, **changes) -> "SpaceState":
         return dataclasses.replace(self, **changes)
@@ -165,6 +180,16 @@ def create_state(cfg: WorldConfig, seed: int = 0,
     n, a, k = cfg.capacity, cfg.attr_width, cfg.grid.k
     i32, f32 = torch.int32, torch.float32
     vel_dtype = torch.bfloat16 if cfg.grid.precision != "off" else f32
+    scn = cfg.scenario
+    if scn is not None:
+        # the mix and the watch radii, drawn on the host once
+        behavior_id = torch.from_numpy(
+            assign_behavior_ids(scn, n, seed)).to(dev)
+        aoi_radius = torch.from_numpy(
+            assign_watch_radii(scn, n, seed)).to(dev)
+    else:
+        behavior_id = None
+        aoi_radius = torch.full((n,), float("inf"), dtype=f32, device=dev)
     return SpaceState(
         pos=torch.zeros((n, 3), dtype=f32, device=dev),
         yaw=torch.zeros(n, dtype=f32, device=dev),
@@ -181,13 +206,14 @@ def create_state(cfg: WorldConfig, seed: int = 0,
         nbr_cnt=torch.zeros(n, dtype=i32, device=dev),
         nbr_client_cnt=torch.zeros(n, dtype=i32, device=dev),
         nbr_mean_off=torch.zeros((n, 3), dtype=f32, device=dev),
-        aoi_radius=torch.full((n,), float("inf"), dtype=f32, device=dev),
+        aoi_radius=aoi_radius,
         dirty=torch.zeros(n, dtype=torch.bool, device=dev),
         rng=prng.prng_key(seed, dev),
         tick=torch.zeros((), dtype=i32, device=dev),
         aoi_cache=(init_verlet_cache(cfg.grid, n, dev)
                    if cfg.grid.skin > 0.0 and n < (1 << _ID_BITS)
                    else None),
+        behavior_id=behavior_id,
     )
 
 

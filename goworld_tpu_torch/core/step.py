@@ -27,7 +27,18 @@ from goworld_tpu_torch.core.state import (
     SpaceState,
     WorldConfig,
     check_ported,
+    has_behaviors,
     resolve_device,
+)
+from goworld_tpu_torch.models.behavior_tree import (
+    btree_velocity,
+    features_from_neighbors,
+    features_from_summary,
+)
+from goworld_tpu_torch.models.npc_policy import (
+    build_obs,
+    build_obs_from_features,
+    policy_accel,
 )
 from goworld_tpu_torch.models.random_walk import random_walk_step
 from goworld_tpu_torch.ops import prng
@@ -40,6 +51,10 @@ from goworld_tpu_torch.ops.aoi import (
 from goworld_tpu_torch.ops.delta import interest_pairs
 from goworld_tpu_torch.ops.integrate import apply_pos_inputs, integrate
 from goworld_tpu_torch.ops.sync import collect_attr_deltas, collect_sync
+from goworld_tpu_torch.scenarios.behaviors import (
+    capped_step,
+    scenario_velocity,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,12 +110,37 @@ class TickOutputs:
     aoi_skin_slack: torch.Tensor
 
 
-def compute_velocity(cfg: WorldConfig, key, state: SpaceState):
-    """Per-entity velocity update for ``cfg.behavior`` (random_walk is
-    the one behavior ported)."""
-    if cfg.behavior != "random_walk":
-        raise NotImplementedError(
-            f"behavior={cfg.behavior!r} {ROADMAP_HINT}")
+def compute_velocity(cfg: WorldConfig, key, pos, yaw, state: SpaceState,
+                     policy, world_extent: tuple[float, float],
+                     nbr=None, nbr_cnt=None):
+    """Per-entity velocity update for ``cfg.behavior`` (shared by the
+    single-Space tick and the megaspace's tiles). ``nbr``/``nbr_cnt``
+    are one Space's slot neighbor lists for the btree features and the
+    mlp observation; None in the megaspace, whose gid lists cannot
+    gather positions: the features then come from the summary lanes the
+    previous tick's sweep left (``nbr_mean_off``, ``nbr_client_cnt``)."""
+    if cfg.behavior == "btree":
+        if nbr is None:
+            feats = features_from_summary(
+                state.nbr_cnt, state.nbr_client_cnt, state.nbr_mean_off)
+        else:
+            feats = features_from_neighbors(pos, state.has_client, nbr,
+                                            nbr_cnt)
+        return btree_velocity(key, feats, state.vel, state.npc_moving,
+                              cfg.npc_speed, cfg.turn_prob)
+    if cfg.behavior == "mlp":
+        if policy is None:
+            raise ValueError("behavior='mlp' needs an MLPPolicy")
+        if nbr is None:
+            obs = build_obs_from_features(
+                pos, state.vel, yaw, state.nbr_cnt, state.nbr_mean_off,
+                cfg.grid.k, world_extent)
+        else:
+            obs = build_obs(pos, state.vel, yaw, nbr, nbr_cnt,
+                            world_extent)
+        vel = capped_step(state.vel, policy_accel(policy, obs), cfg.dt,
+                          cfg.npc_speed)
+        return torch.where(state.npc_moving[:, None], vel, 0.0)
     return random_walk_step(key, state.vel, state.npc_moving,
                             cfg.npc_speed, cfg.turn_prob)
 
@@ -110,12 +150,14 @@ def tick_body(cfg: WorldConfig, state: SpaceState, inputs: TickInputs,
     """One tick of one Space, or of S Spaces at once when every lane
     carries a leading ``[S]`` axis. Returns a new state and the outputs;
     the lanes of ``state`` are not modified. See :func:`make_tick`."""
-    if policy is not None:
-        raise NotImplementedError(f"the mlp policy {ROADMAP_HINT}")
     n = cfg.capacity
     if state.pos.shape[-2:] != (n, 3) or state.pos.dim() > 3:
         raise ValueError(f"pos: expected [{n}, 3] or [S, {n}, 3], got "
                          f"{tuple(state.pos.shape)}")
+    if state.pos.dim() == 3 and has_behaviors(cfg):
+        raise NotImplementedError(
+            f"behaviors and scenarios on the batched [S, ...] tick "
+            f"{ROADMAP_HINT}")
     if state.pos.dim() == 3 and cfg.grid.skin > 0.0:
         raise ValueError(
             "the Verlet skin runs on one Space's lanes: a batched step "
@@ -136,14 +178,36 @@ def tick_body(cfg: WorldConfig, state: SpaceState, inputs: TickInputs,
         inputs.pos_sync_idx, inputs.pos_sync_vals, inputs.pos_sync_n,
     )
 
-    # 2. behaviors (one key a Space)
+    # 2. behaviors (one key a Space). A scenario steps its mix through
+    # one pass over the behavior lane
     keys = prng.split(state.rng)
     rng, k_behave = keys[..., 0, :], keys[..., 1, :]
-    vel = compute_velocity(cfg, k_behave, state)
+    tele = None
+    if cfg.scenario is not None:
+        vel, tele_pos, tele = scenario_velocity(cfg, k_behave, pos, yaw,
+                                                state, policy)
+    else:
+        vel = compute_velocity(
+            cfg, k_behave, pos, yaw, state, policy,
+            (cfg.grid.extent_x, cfg.grid.extent_z),
+            nbr=state.nbr, nbr_cnt=state.nbr_cnt)
 
-    # 3. integrate + world clamp
+    # 3. integrate + world clamp. Under the btree or a scenario mix the
+    # reference contracts pos + vel*dt only where the velocity is the
+    # carried one; a mix of the mlp member alone contracts every row
+    # (measured; ROADMAP.md Queue C4)
+    fused = None
+    if cfg.behavior == "btree" or (
+            cfg.scenario is not None
+            and cfg.scenario.behavior_names != ("mlp",)):
+        fused = ~(vel != state.vel).any(dim=-1)
     pos, moved = integrate(pos, vel, state.npc_moving, cfg.dt,
-                           cfg.bounds_min, cfg.bounds_max)
+                           cfg.bounds_min, cfg.bounds_max, fused=fused)
+    if tele is not None:
+        # teleports override the integrated position before the sweep,
+        # so the Verlet gate sees the whole jump on this tick
+        pos = torch.where(tele[:, None], tele_pos, pos)
+        moved = moved | tele
     if prec:
         # "moved" on the lattice: motion under a lattice step is clean
         apos = quantize_positions(cfg.grid, pos)
@@ -226,7 +290,9 @@ def make_tick(cfg: WorldConfig, device="cuda"):
     """Build the tick function for a WorldConfig on ``device`` (the card
     unless the caller asks for the CPU).
 
-    Returns ``tick(state, inputs, policy=None) -> (state, outputs)``.
+    Returns ``tick(state, inputs, policy=None) -> (state, outputs)``;
+    ``policy`` is an ``MLPPolicy`` (``models.npc_policy``) when
+    ``cfg.behavior == 'mlp'`` or the scenario's mix has the mlp member.
     The tick takes one Space's lanes or S Spaces' stacked ``[S, ...]``
     lanes (with ``skin=0``), and its outputs have the same leading axis.
     A config this port does not run yet raises ``NotImplementedError``

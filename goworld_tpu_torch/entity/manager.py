@@ -78,10 +78,12 @@ import torch
 from goworld_tpu_torch.core.state import (
     SpaceState,
     WorldConfig,
+    has_behaviors,
     map_lane,
     resolve_device,
 )
 from goworld_tpu_torch.core.step import TickInputs, TickOutputs, make_tick
+from goworld_tpu_torch.models.npc_policy import init_policy
 from goworld_tpu_torch.entity.attrs import (
     AttrDelta,
     ListAttr,
@@ -307,12 +309,20 @@ class World:
                           snapshot_keyframe_every > 0)):
             if on:
                 raise _refuse(name)
+        if n_spaces > 1 and has_behaviors(cfg):
+            raise _refuse("behaviors and scenarios at n_spaces > 1", "A item 3")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.n_spaces = n_spaces
         self.game_id = game_id
         self.registry = Registry()
-        self.policy = None  # the mlp behavior is not ported
+        # the MLPPolicy when cfg.behavior == 'mlp' (or a scenario mix has
+        # the mlp member), drawn from the World's seed as the JAX World
+        # draws it; callers may replace it before the first tick
+        self.policy = None
+        if cfg.behavior == "mlp" or (
+                cfg.scenario is not None and cfg.scenario.needs_policy):
+            self.policy = init_policy(seed, device=self.device)
         self.resident = resident
         # the batched step clears the skin: no [capacity, verlet_cap]
         # caches a Space that it would never touch

@@ -14,8 +14,10 @@ lanes change representation on the way:
   words under precision=q16 are JAX uint32, here int32 bits. A state
   whose ``vel`` lane is bfloat16 is a q16 state.
 
-Random walk has no learned weights, so this converter is all that
-carries a world across.
+A scenario world's ``behavior_id`` lane (int32, or absent/None without
+a scenario) crosses as it is. The mlp behavior's weights cross by
+:func:`policy_from_numpy` and :func:`policy_to_numpy` (bf16 lanes as
+``ml_dtypes`` arrays or their uint16 words).
 
 Several Spaces (the World's stacked state at ``n_spaces > 1``, the JAX
 package's vmapped step) and a megaspace's tiles are the same
@@ -38,10 +40,12 @@ import torch
 from goworld_tpu_torch.core.state import SpaceState, resolve_device
 from goworld_tpu_torch.ops.aoi import VerletCache
 from goworld_tpu_torch.core.step import TickInputs, TickOutputs
+from goworld_tpu_torch.models.npc_policy import MLPPolicy
 from goworld_tpu_torch.parallel.megaspace import MegaTickOutputs
 from goworld_tpu_torch.parallel.step import MultiTickInputs
 
-_ABSENT_OK = ("behavior_id",)
+_OPTIONAL = ("aoi_cache", "behavior_id")
+_POLICY_LANES = ("w1", "b1", "w2", "b2", "w3", "b3")
 
 
 def _tensor(a: np.ndarray, dev) -> torch.Tensor:
@@ -63,18 +67,16 @@ def _cache_from(cache, dev) -> VerletCache | None:
 
 
 def state_from_numpy(arrays: dict, device="cuda") -> SpaceState:
-    """A ``SpaceState`` on ``device`` from numpy lanes keyed by name.
-    The JAX-only lane ``behavior_id`` must be absent or None (scenario
-    worlds are not ported)."""
+    """A ``SpaceState`` on ``device`` from numpy lanes keyed by name
+    (``aoi_cache`` and ``behavior_id`` may be absent or None)."""
     dev = resolve_device(device)
-    for name in _ABSENT_OK:
-        if arrays.get(name) is not None:
-            raise NotImplementedError(
-                f"lane {name!r} is not ported (see ROADMAP.md Queue A)")
     lanes = {}
     for f in dataclasses.fields(SpaceState):
         if f.name == "aoi_cache":
             lanes[f.name] = _cache_from(arrays.get(f.name), dev)
+            continue
+        if f.name in _OPTIONAL and arrays.get(f.name) is None:
+            lanes[f.name] = None
             continue
         a = np.asarray(arrays[f.name])
         if f.name == "attr_dirty":
@@ -96,7 +98,7 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
 def state_to_numpy(state: SpaceState) -> dict:
     """The lanes of ``state`` as numpy arrays in the JAX package's
     types; ``aoi_cache`` as a dict of numpy lanes (left out when the
-    state has none)."""
+    state has none, as ``behavior_id`` is)."""
     out = {}
     q16 = state.vel.dtype == torch.bfloat16
     for f in dataclasses.fields(SpaceState):
@@ -109,6 +111,8 @@ def state_to_numpy(state: SpaceState) -> dict:
                     cache["cand"] = cache["cand"].view(np.uint32)
                 out[f.name] = cache
             continue
+        if v is None:
+            continue
         a = _numpy(v)
         if f.name == "attr_dirty":
             a = a.view(np.uint32)
@@ -116,6 +120,29 @@ def state_to_numpy(state: SpaceState) -> dict:
             a = a.astype(np.uint32)
         out[f.name] = a
     return out
+
+
+def policy_from_numpy(arrays, device="cuda") -> MLPPolicy:
+    """An ``MLPPolicy`` on ``device`` from the JAX package's parameters:
+    a dict (or an object with the attributes) of ``w1 b1 w2 b2 w3 b3``,
+    each a bf16 array (``ml_dtypes``) or its uint16 words."""
+    dev = resolve_device(device)
+    get = arrays.get if isinstance(arrays, dict) \
+        else lambda name: getattr(arrays, name)
+    lanes = {}
+    for name in _POLICY_LANES:
+        a = np.asarray(get(name))
+        if a.dtype.name != "bfloat16" and a.dtype != np.uint16:
+            raise TypeError(f"{name}: expected bf16 or uint16 words, got "
+                            f"{a.dtype}")
+        lanes[name] = torch.tensor(a.view(np.int16), device=dev) \
+            .view(torch.bfloat16)
+    return MLPPolicy(**lanes)
+
+
+def policy_to_numpy(policy: MLPPolicy) -> dict:
+    """The policy's lanes as ``ml_dtypes`` bf16 arrays keyed by name."""
+    return {name: _numpy(getattr(policy, name)) for name in _POLICY_LANES}
 
 
 def inputs_from_numpy(arrays: dict, device="cuda") -> TickInputs:

@@ -36,7 +36,8 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
-LAUNCHES = {"sweep_fused": 0, "counting_sort": 0, "halo_ship_phase": 0}
+LAUNCHES = {"sweep_fused": 0, "counting_sort": 0, "halo_ship_phase": 0,
+            "npc_mlp": 0}
 
 
 def reset_launches() -> None:
@@ -117,6 +118,9 @@ SIGNATURES = {
                           _P, _P], _I),
     "gw_halo_ship_phase": ([_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I,
                             _I, _I, *[_P, _L, _P, _I, _U] * 2, _P], _I),
+    "gw_npc_mlp_max_hidden": ([], _I),
+    "gw_npc_mlp": ([_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+                   _I),
 }
 
 

@@ -81,6 +81,7 @@ def integrate(
     dt: float,
     bounds_min: tuple[float, float, float],
     bounds_max: tuple[float, float, float],
+    fused: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """pos += vel*dt for moving entities, clamped to world bounds (one
     Space ``[N, 3]`` or several ``[S, N, 3]``).
@@ -92,10 +93,19 @@ def integrate(
     sum rounded to odd, then to float32), so the CPU and the card give
     the JAX bits. Python scalars enter the float32 ops as float32, as
     JAX's weakly typed constants do, and cost no host-to-device
-    copy."""
+    copy.
+
+    ``fused`` (bool[N], or None for all rows) marks the rows the
+    reference contracts; elsewhere the product is rounded to float32
+    before the add. A tick whose behavior fuses its velocity select into
+    the integration (the btree and the scenario mixes) contracts only
+    the rows that kept their carried velocity (``core/step.py``)."""
     dt32 = float(np.float32(dt))
     step = torch.where(moving[..., None], vel.double() * dt32, 0.0)
     new_pos = _round_odd_sum(pos.double(), step).to(torch.float32)
+    if fused is not None:
+        plain = pos + torch.where(moving[..., None], vel * dt32, 0.0)
+        new_pos = torch.where(fused[..., None], new_pos, plain)
     new_pos = torch.stack(
         [new_pos[..., i].clamp(bounds_min[i], bounds_max[i])
          for i in range(3)], dim=-1)

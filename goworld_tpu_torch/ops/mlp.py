@@ -1,0 +1,92 @@
+"""The NPC policy's forward pass: the plain version and the wrapper of
+its CUDA kernel (``csrc/npc_mlp.cu``).
+
+The JAX package evaluates its bf16 MLP (``models/npc_policy.py``
+``policy_accel``) as plain XLA dots. On the CPU every dot is a float32
+dot of the bf16 values in XLA's order (:func:`ops.xla_order.dot_f32`),
+rounded to bf16; the bias is added in float32 and rounded to bf16;
+tanh runs on that and is rounded to bf16; the last layer's bias sum
+stays float32. The two functions here compute exactly that:
+
+* :func:`npc_mlp_plain` in torch ops (tanh in float64, rounded to
+  float32, then to bf16: over every bf16 input this is XLA's float32
+  tanh rounded to bf16);
+* :func:`npc_mlp`, the kernel for a tensor on the card, the plain
+  version for a tensor on the CPU. No matmul library runs on the card:
+  its summation order is not XLA's.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from goworld_tpu_torch import kernels
+from goworld_tpu_torch.ops.xla_order import dot_f32, dot_lanes
+
+OBS_DIM = 10
+ACT_DIM = 3
+
+
+def _bf(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def tanh_bf16(x: torch.Tensor) -> torch.Tensor:
+    """bf16-rounded ``tanh`` of float32 ``x`` (bf16 values), through
+    float64 and float32 as the kernel rounds."""
+    return _bf(torch.tanh(x.double()).to(torch.float32))
+
+
+def layer_lanes(rows: int, hidden: int) -> tuple[int, int, int]:
+    """XLA's partial sums of the three dots over ``rows`` rows."""
+    return (dot_lanes(rows, OBS_DIM, hidden), dot_lanes(rows, hidden, hidden),
+            dot_lanes(rows, hidden, ACT_DIM))
+
+
+def npc_mlp_plain(obs, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
+    """f32[N, 3]: the policy's forward pass over ``obs`` f32[N, 10]
+    (bf16 weights ``w1 [10, H]``, ``w2 [H, H]``, ``w3 [H, 3]`` and
+    biases), in plain torch ops with XLA's bits."""
+    l1, l2, l3 = layer_lanes(obs.shape[0], w1.shape[1])
+    f = [t.to(torch.float32) for t in (w1, b1, w2, b2, w3, b3)]
+    x = _bf(obs.to(torch.float32))
+    x = tanh_bf16(_bf(_bf(dot_f32(x, f[0], l1)) + f[1]))
+    x = tanh_bf16(_bf(_bf(dot_f32(x, f[2], l2)) + f[3]))
+    return _bf(dot_f32(x, f[4], l3)) + f[5]
+
+
+def npc_mlp(obs, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
+    """:func:`npc_mlp_plain` as the kernel of ``csrc/npc_mlp.cu`` for
+    tensors on the card (one launch over all rows), the plain version
+    for tensors on the CPU."""
+    if obs.dim() != 2 or obs.shape[1] != OBS_DIM:
+        raise ValueError(f"obs: expected [N, {OBS_DIM}], got "
+                         f"{tuple(obs.shape)}")
+    n = obs.shape[0]
+    h = w1.shape[1]
+    shapes = {"w1": (OBS_DIM, h), "b1": (h,), "w2": (h, h), "b2": (h,),
+              "w3": (h, ACT_DIM), "b3": (ACT_DIM,)}
+    ws = dict(w1=w1, b1=b1, w2=w2, b2=b2, w3=w3, b3=b3)
+    for name, t in ws.items():
+        kernels.require(t, name, torch.bfloat16, shapes[name])
+        if t.device != obs.device:
+            raise ValueError(f"{name} lives on {t.device}, obs on "
+                             f"{obs.device}")
+    kernels.require(obs, "obs", torch.float32)
+    if obs.device.type == "cpu":
+        return npc_mlp_plain(obs, w1, b1, w2, b2, w3, b3)
+    if obs.device.type != "cuda":
+        raise ValueError(f"obs: unsupported device {obs.device}")
+    so = kernels.lib()
+    if h > so.gw_npc_mlp_max_hidden():
+        raise ValueError(f"hidden {h} exceeds the kernel's "
+                         f"{so.gw_npc_mlp_max_hidden()}")
+    out = torch.empty((n, ACT_DIM), dtype=torch.float32, device=obs.device)
+    l1, l2, l3 = layer_lanes(n, h)
+    err = so.gw_npc_mlp(obs.data_ptr(), n, h, *(t.data_ptr() for t in
+                                                 ws.values()),
+                        l1, l2, l3, out.data_ptr(),
+                        kernels.stream_handle(obs.device))
+    kernels.check(err, "npc_mlp")
+    kernels.LAUNCHES["npc_mlp"] += 1
+    return out

@@ -20,6 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from goworld_tpu_torch.ops.integrate import _round_odd_sum
+
 _M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 
@@ -83,13 +85,14 @@ def uniform(key: torch.Tensor, shape, minval: float = 0.0,
 
     XLA contracts ``floats * (maxval - minval) + minval`` into one fused
     multiply-add. Torch has no float32 FMA op, so the product is taken
-    exactly in float64 (24-bit by 24-bit mantissas fit its 53 bits), the
-    sum is rounded there and then to float32. With ``minval == 0``, the
-    case the tick uses, this is the plain float32 product exactly."""
+    exactly in float64 (24-bit by 24-bit mantissas fit its 53 bits) and
+    the sum rounded once (to odd in float64, then to float32). With
+    ``minval == 0`` this is the plain float32 product exactly."""
     bits = random_bits32(key, shape)
     fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
     floats = fbits.view(torch.float32) - 1.0
     lo = float(np.float32(minval))
     span = float(np.float32(maxval) - np.float32(minval))
-    out = (floats.double() * span + lo).float()
+    prod = floats.double() * span
+    out = _round_odd_sum(prod, torch.full_like(prod, lo)).float()
     return torch.clamp_min(out, lo)

@@ -1,0 +1,141 @@
+"""The float orders of the JAX package's jitted CPU code, in torch ops.
+
+The port's bit rule holds the card's float lanes to the CPU port's and
+both to the JAX package's. XLA's CPU backend fixes each float result by
+an order of operations that its source does not state. The orders here
+were read off the compiled programs (their HLO and LLVM IR) and held
+against them bit for bit (``tests/test_torch_behaviors.py``):
+
+* :func:`fma32`: LLVM contracts ``a * b + c`` into one fused
+  multiply-add.
+* :func:`mul_recip`: XLA rewrites a divide by a constant into a
+  multiply by its float32 reciprocal.
+* :func:`sqrt32`: XLA's float32 square root is correctly rounded.
+* :func:`dot_f32`: a float32 dot ``[N, K] x [K, M]`` sums its products
+  in k order when the output is wide (M >= 64) or has one row, and
+  otherwise (mostly) in 4 (M <= 16) or 2 (M 17-63) interleaved partial
+  sums (k mod L) added pairwise, with the ``K mod L`` last terms summed
+  apart and added last (:func:`dot_lanes`).
+* :func:`sum_k`: a reduce over the neighbor axis ``[N, k, 3] -> [N,
+  3]``. Above k 32 XLA splits the axis into windows of 32 (the axis
+  padded by ``pad // 2`` zeros in front), sums each window in order and
+  the window sums in order. Up to 32 the reduce is fused into its
+  consumer's loop and LLVM picks the order: in k order when the fusion
+  has several outputs or k <= 16, else (a fusion whose one output is
+  the sum, k 24 or 32) in 8 interleaved partial sums (k mod 8) added as
+  halves (lane i with lane i + 4, then i + 2, then i + 1). The caller
+  says which fusion it mirrors (``vectorized``).
+
+Every function takes CPU or CUDA tensors and runs the same ops on both,
+so the card gives the CPU's bits.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from goworld_tpu_torch.ops.integrate import _round_odd_sum
+
+
+def fma32(a: torch.Tensor, b, c) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once, as a fused multiply-add: the
+    product is exact in float64, the sum rounded to odd there and then
+    to float32. ``b`` and ``c`` may be Python numbers, taken as float32
+    as JAX's weak typing takes them."""
+    p = a.double() * (b.double() if torch.is_tensor(b) else as_f32(b))
+    cc = c.double() if torch.is_tensor(c) \
+        else torch.full_like(p, as_f32(c))
+    return _round_odd_sum(p, cc).to(torch.float32)
+
+
+def sqrt32(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root. torch's float32 ``sqrt``
+    on the CPU is not (it differs from XLA's in about 1 of 160 values);
+    the float64 root rounded to float32 is, on either device."""
+    return torch.sqrt(x.double()).to(torch.float32)
+
+
+def mul_recip(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c`` for a constant ``c`` as XLA computes it: a multiply by
+    the float32 reciprocal ``1 / float32(c)``."""
+    r = float(np.float32(1.0) / np.float32(c))
+    return x * r
+
+
+def as_f32(v) -> float:
+    """A Python number rounded to the nearest float32."""
+    return float(np.float32(v))
+
+
+def dot_lanes(rows: int, depth: int, cols: int) -> int:
+    """Interleaved partial sums of XLA's CPU float32 dot ``[rows, depth]
+    x [depth, cols]`` (1: k order). Measured on the policy's shapes
+    (depth 10, 16, 128; cols 3, 8, 16, 32, 64, 128): 2 or 3 rows sum in
+    k order but for a 16 x 16 weight (4 partial sums), 1 row always in
+    k order."""
+    if rows == 1 or cols >= 64:
+        return 1
+    if rows < 4:
+        return 4 if depth % 4 == 0 and 16 <= cols < 32 else 1
+    return 2 if cols >= 32 else 4
+
+
+def dot_f32(x: torch.Tensor, w: torch.Tensor, lanes: int) -> torch.Tensor:
+    """``x [N, K] @ w [K, M]`` in float32 in XLA's order with ``lanes``
+    partial sums (:func:`dot_lanes`). Each product is rounded on its own
+    (a bfloat16 by bfloat16 product is exact)."""
+    n, kk = x.shape
+    kv = kk - kk % lanes
+    parts = []
+    for lane in range(lanes):
+        acc = x.new_zeros(n, w.shape[1])
+        for k in range(lane, kv, lanes):
+            acc = acc + x[:, k:k + 1] * w[k]
+        parts.append(acc)
+    while len(parts) > 1:
+        parts = [parts[i] + parts[i + 1] for i in range(0, len(parts), 2)]
+    out = parts[0]
+    if kv < kk:
+        tail = x.new_zeros(n, w.shape[1])
+        for k in range(kv, kk):
+            tail = tail + x[:, k:k + 1] * w[k]
+        out = out + tail
+    return out
+
+
+def _seq(x: torch.Tensor) -> torch.Tensor:
+    acc = torch.zeros_like(x[:, 0])
+    for j in range(x.shape[1]):
+        acc = acc + x[:, j]
+    return acc
+
+
+def sum_k(x: torch.Tensor, vectorized: bool) -> torch.Tensor:
+    """``x [N, k, C] -> [N, C]``: the sum over axis 1 in the order of
+    XLA's CPU reduce of the neighbor axis (module docstring);
+    ``vectorized`` when the reference's fusion has the sum as its one
+    output."""
+    n, k, c = x.shape
+    if k <= 16 or (k <= 32 and not vectorized):
+        return _seq(x)
+    if k <= 32:
+        kv = k - k % 8
+        acc = x.new_zeros(n, 8, c)
+        for j in range(0, kv, 8):
+            acc = acc + x[:, j:j + 8]
+        while acc.shape[1] > 1:
+            h = acc.shape[1] // 2
+            acc = acc[:, :h] + acc[:, h:]
+        out = acc[:, 0]
+        for j in range(kv, k):
+            out = out + x[:, j]
+        return out
+    nw = -(-k // 32)
+    pad = nw * 32 - k
+    lo = pad // 2
+    xp = torch.cat([x.new_zeros(n, lo, c), x, x.new_zeros(n, pad - lo, c)],
+                   1)
+    sums = torch.stack([_seq(xp[:, 32 * i:32 * (i + 1)])
+                        for i in range(nw)], 1)
+    return _seq(sums)

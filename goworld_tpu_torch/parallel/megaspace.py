@@ -33,6 +33,7 @@ from goworld_tpu_torch.core.state import (
     resolve_device,
 )
 from goworld_tpu_torch.core.step import TickOutputs, compute_velocity
+from goworld_tpu_torch.models.npc_policy import neighbor_mean_offset
 from goworld_tpu_torch.ops import prng
 from goworld_tpu_torch.ops.aoi import (
     ROADMAP_HINT,
@@ -55,6 +56,7 @@ from goworld_tpu_torch.parallel.mesh import (
     tile_view,
 )
 from goworld_tpu_torch.parallel.step import MultiTickInputs
+from goworld_tpu_torch.scenarios.behaviors import scenario_velocity
 
 
 @dataclasses.dataclass(frozen=True)
@@ -252,8 +254,6 @@ def mega_tick_body(mc: MegaConfig, state: SpaceState,
     """One megaspace tick over stacked tiles. Returns a new state and
     the outputs; the lanes of ``state`` are not modified. See
     :func:`make_mega_tick`."""
-    if policy is not None:
-        raise NotImplementedError(f"the mlp policy {ROADMAP_HINT}")
     cfg = mc.cfg
     n = cfg.capacity
     n_dev = mc.n_dev
@@ -280,10 +280,32 @@ def mega_tick_body(mc: MegaConfig, state: SpaceState,
             base.pos_sync_n[d])
         keys = prng.split(st.rng)
         rng, k_behave = keys[0], keys[1]
-        vel = compute_velocity(cfg, k_behave, st)
+        # gid neighbor lists cannot gather positions: the behaviors read
+        # the summary lanes the previous tick's sweep left, and the
+        # scenario schedule is anchored to the world's bounds
+        tele = fused = None
+        if cfg.scenario is not None:
+            vel, tele_pos, tele = scenario_velocity(
+                cfg, k_behave, pos, yaw, st, policy,
+                bounds=(0.0, 0.0, mc.world_x, mc.world_z),
+                features=(st.nbr_mean_off,
+                          st.nbr_client_cnt.to(torch.float32),
+                          torch.zeros_like(st.nbr_mean_off)))
+        else:
+            vel = compute_velocity(cfg, k_behave, pos, yaw, st, policy,
+                                   (mc.world_x, mc.world_z))
+        if cfg.behavior == "btree" or (
+                cfg.scenario is not None and len(cfg.scenario.mix) > 1):
+            # measured: the reference's tile step rounds vel * dt before
+            # the add under the btree and a mix (ROADMAP.md Queue C)
+            fused = torch.zeros_like(st.npc_moving)
         pos, moved = integrate(pos, vel, st.npc_moving, cfg.dt,
                                (0.0, -1e9, 0.0),
-                               (mc.world_x, 1e9, mc.world_z))
+                               (mc.world_x, 1e9, mc.world_z), fused=fused)
+        if tele is not None:
+            # a cross-tile teleport migrates on this tick
+            pos = torch.where(tele[:, None], tele_pos, pos)
+            moved = moved | tele
         st = st.replace(pos=pos, yaw=yaw, vel=vel, rng=rng)
         dirty = (moved | touched | st.dirty) & st.alive
 
@@ -334,6 +356,9 @@ def mega_tick_body(mc: MegaConfig, state: SpaceState,
     #      coordinates (ghosts are candidates, never watchers), gid
     #      translation, interest diff, sync and attr records
     p_ext = n + ghost_rows
+    wants_features = (cfg.behavior in ("mlp", "btree")
+                      if cfg.scenario is None
+                      else cfg.scenario.needs_features)
     inf_w = torch.full((ghost_rows,), float("inf"), dtype=torch.float32,
                        device=dev)
     no_client = torch.zeros(ghost_rows, dtype=torch.bool, device=dev)
@@ -350,6 +375,11 @@ def mega_tick_body(mc: MegaConfig, state: SpaceState,
             | (hc_ext.to(torch.int32) << 1),
             with_stats=True,
         )
+        # next tick's behavior features, while nbr_ext still indexes
+        # pos_ext (the gid translation below loses the positions)
+        mean_off = (neighbor_mean_offset(pos_ext, st.pos, nbr_ext, nbr_cnt,
+                                         p_ext)
+                    if wants_features else st.nbr_mean_off)
         gid_ext = torch.cat([d * n + slots, ggid[d]])
         nbr_gid = torch.where(
             nbr_ext == p_ext, gsent,
@@ -373,6 +403,7 @@ def mega_tick_body(mc: MegaConfig, state: SpaceState,
             nbr_cnt=nbr_cnt,
             nbr_client_cnt=((nbr_fl >> 1) & 1).sum(dim=1,
                                                   dtype=torch.int32),
+            nbr_mean_off=mean_off,
             dirty=torch.zeros_like(st.dirty),
             attr_dirty=torch.zeros_like(st.attr_dirty),
             tick=st.tick + 1,

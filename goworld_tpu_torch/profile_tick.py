@@ -4,6 +4,8 @@
                                              [--mega TILES |
                                               --world [--planes on|off] |
                                               --uncut [--q16]]
+                                             [--behavior btree|mlp |
+                                              --scenario NAME]
                                              [--spaces S]
                                              [--out chiprun_out]
     PYTHONPATH=DIR python goworld_tpu_torch/profile_tick.py ...
@@ -62,6 +64,11 @@ for all S), with it the served game of S Spaces with its migrations
 between them (``per_tick`` then sums the Spaces' counts, each beside
 its per-Space cap).
 
+With ``--behavior btree|mlp`` (BASELINE config 5) or ``--scenario
+NAME`` the bench world runs that behavior (uncut with ``--uncut``, else
+at skin 0) and the behavior stage splits into its features, the
+policy's forward pass (the npc_mlp kernel) and the rest.
+
 With ``--uncut``, the bench world uncut (:func:`workload.uncut_config`:
 the Verlet skin of 4, syncs with repeats), whose sweep stage is
 ``grid_neighbors_verlet`` (4a-4c then also count the rebuild branch,
@@ -79,6 +86,7 @@ Needs a CUDA card; there is no CPU mode.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import re
 import subprocess
@@ -99,11 +107,14 @@ from goworld_tpu_torch.parallel import migrate as mig
 from goworld_tpu_torch.parallel.megaspace import make_mega_tick
 from goworld_tpu_torch.utils import metrics
 from goworld_tpu_torch.workload import (
+    behavior_config,
+    behavior_world,
     bench_world,
     mega_config,
     mega_world,
     multi_config,
     multi_world,
+    scenario_config,
     serve_world,
     slice_config,
     uncut_config,
@@ -113,6 +124,10 @@ from goworld_tpu_torch.workload import (
 STAGES = [
     ("1 input scatter", step, "apply_pos_inputs"),
     ("2 behavior", step, "compute_velocity"),
+    ("2 behavior, scenario", step, "scenario_velocity"),
+    ("2a features (btree)", step, "features_from_neighbors"),
+    ("2a features (mlp observation)", step, "build_obs"),
+    ("2b forward (npc_mlp)", step, "policy_accel"),
     ("3 integrate", step, "integrate"),
     ("4 aoi sweep", step, "grid_neighbors_flags"),
     ("4 aoi sweep, verlet", step, "grid_neighbors_verlet"),
@@ -353,6 +368,11 @@ def main(argv=None) -> int:
                     help="profile the bench world uncut (the Verlet skin)")
     ap.add_argument("--q16", action="store_true",
                     help="with --uncut: at precision='q16'")
+    ap.add_argument("--behavior", choices=("random_walk", "btree", "mlp"),
+                    default="random_walk",
+                    help="BASELINE config 5: the btree or mlp behavior")
+    ap.add_argument("--scenario", default=None,
+                    help="a registry scenario (scenarios/spec.py)")
     ap.add_argument("--spaces", type=int, default=1,
                     help="split --n over this many Spaces (the batched "
                          "tick; with --world, a World of that many)")
@@ -360,6 +380,9 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.spaces < 1 or args.n % args.spaces:
         ap.error("--spaces must divide --n")
+    behaviors = args.behavior != "random_walk" or args.scenario is not None
+    if behaviors and (args.mega or args.world or args.spaces > 1):
+        ap.error("--behavior and --scenario profile the single-Space tick")
     if args.spaces > 1 and (args.mega or args.uncut):
         ap.error("--spaces runs the skin-0 bench world or --world")
     if not torch.cuda.is_available():
@@ -376,11 +399,15 @@ def main(argv=None) -> int:
         st, inputs = mega_world(mc, args.n, seed=0, device="cuda")
         tick = make_mega_tick(mc)
         stage_list = MEGA_STAGES
-    elif args.uncut:
-        cfg = uncut_config(args.n, **(dict(precision="q16")
-                                      if args.q16 else {}))
-        st, inputs = uncut_world(cfg, seed=0, device="cuda")
-        tick = make_tick(cfg)
+    elif args.uncut or behaviors:
+        grid_kw = dict(precision="q16") if args.q16 else {}
+        if not args.uncut:
+            grid_kw["skin"] = 0.0
+        cfg = scenario_config(args.n, args.scenario, **grid_kw) \
+            if args.scenario else behavior_config(args.n, args.behavior,
+                                                  **grid_kw)
+        st, inputs, policy = behavior_world(cfg, seed=0, device="cuda")
+        tick = functools.partial(make_tick(cfg), policy=policy)
         stage_list = STAGES
     elif args.spaces > 1:
         cfg = multi_config(args.spaces, args.n // args.spaces)
@@ -437,6 +464,8 @@ def main(argv=None) -> int:
     suffix = "_mega" if args.mega else "_q16" if args.q16 else \
         "_uncut" if args.uncut else \
         f"_spaces{args.spaces}" if args.spaces > 1 else ""
+    if behaviors:
+        suffix += f"_{args.scenario or args.behavior}"
     (out / f"profile_tick{suffix}.txt").write_text(
         f"{card}\n" + prof.key_averages().table(
             sort_by="device_time_total", row_limit=60))
@@ -444,6 +473,7 @@ def main(argv=None) -> int:
         "gpu": card, "n": args.n, "mega_tiles": args.mega,
         "spaces": args.spaces,
         "uncut": args.uncut, "q16": args.q16, "ticks": args.ticks,
+        "behavior": args.behavior, "scenario": args.scenario,
         "tick_ms_mean": tick_mean, "tick_ms_p50": tick_p50,
         "tick_ms_p99": tick_p99,
         "tick_ms_p50_p99_unwrapped": _p50_p99(before),

@@ -8,6 +8,11 @@
   syncs to distinct slots. Uncut (:func:`uncut_config`,
   :func:`uncut_world`) it is the bench's own headline: a Verlet skin of
   4 and sync slots drawn with repeats, as ``bench.py`` draws them.
+* BASELINE config 5 (``bench.py``'s ``btree`` and ``mlp`` variants):
+  the bench world uncut under ``behavior="btree"`` or ``"mlp"``, the mlp
+  policy drawn as ``init_policy(PRNGKey(5))`` at hidden 128
+  (:func:`behavior_config`, :func:`behavior_world`); a registry scenario
+  over the same world (:func:`scenario_config`).
 * Several Spaces on one card (:func:`multi_config`, :func:`multi_world`):
   S bench worlds of ``n_per`` slots each, stacked on a leading ``[S]``
   axis for the batched tick (the JAX World's vmapped local step), each
@@ -74,6 +79,43 @@ def uncut_config(n: int, **grid_kw) -> WorldConfig:
     """The bench world uncut: :func:`slice_config` with the bench's
     Verlet skin (``verlet_cap`` auto: 48 at k = 32)."""
     return slice_config(n, **{"skin": BENCH_SKIN, **grid_kw})
+
+
+# bench.py draws config 5's policy as init_policy(PRNGKey(5))
+POLICY_SEED = 5
+
+
+def behavior_config(n: int, behavior: str, **grid_kw) -> WorldConfig:
+    """BASELINE config 5 as ``bench.py`` builds its ``btree`` and
+    ``mlp`` variants: the bench world uncut (:func:`uncut_config`)
+    under ``behavior``; ``skin=0.0`` gives the lean twin."""
+    return dataclasses.replace(uncut_config(n, **grid_kw),
+                               behavior=behavior)
+
+
+def scenario_config(n: int, name: str, **grid_kw) -> WorldConfig:
+    """The bench world uncut under registry scenario ``name`` (the
+    random walk as ``cfg.behavior``, as ``bench.py`` resolves a scenario
+    name)."""
+    from goworld_tpu_torch.scenarios.spec import resolve_bench_behavior
+
+    behavior, spec = resolve_bench_behavior(name)
+    return dataclasses.replace(uncut_config(n, **grid_kw),
+                               behavior=behavior, scenario=spec)
+
+
+def behavior_world(cfg: WorldConfig, seed: int, device="cuda"):
+    """(state, inputs, policy) of :func:`uncut_world` under ``cfg``'s
+    behavior: the policy (``init_policy(POLICY_SEED)``, hidden 128)
+    when the behavior or the scenario needs it, else None."""
+    from goworld_tpu_torch.models.npc_policy import init_policy
+
+    st, inputs = uncut_world(cfg, seed, device)
+    policy = None
+    if cfg.behavior == "mlp" or (cfg.scenario is not None
+                                 and cfg.scenario.needs_policy):
+        policy = init_policy(POLICY_SEED, device=st.device)
+    return st, inputs, policy
 
 
 def bench_world(cfg: WorldConfig, seed: int, device="cuda"):
@@ -490,7 +532,8 @@ def _game_types(hooks: list | None):
 def serve_world(n: int, seed: int, device="cuda", *,
                 record_hooks: bool = False, keep: bool = False,
                 boot: bool = False, world_kw: dict | None = None,
-                spaces: int = 1, **grid_kw) -> Served:
+                spaces: int = 1, behavior: str = "random_walk",
+                **grid_kw) -> Served:
     """A served game on ``slice_config(n, **grid_kw)``: one ``World``
     (at its defaults, the planes on, or with ``world_kw``) with one AOI
     Space ("Arena") and two types, ``Mob`` (a random-walk mover,
@@ -498,7 +541,8 @@ def serve_world(n: int, seed: int, device="cuda", *,
     ``GameClient``, moved by client syncs). ``n - SERVE_SPARE``
     entities are created through ``Space.create_entity`` at positions
     uniform over the extent from ``np.random.default_rng(seed)``,
-    CLIENT_FRAC of them players. The sinks count (``keep`` also keeps
+    CLIENT_FRAC of them players; the Mobs move by ``behavior`` (the
+    World draws the mlp policy from ``seed``). The sinks count (``keep`` also keeps
     what they get); with ``record_hooks`` the AOI and space-enter hooks
     append to ``Served.hooks``.
 
@@ -522,7 +566,7 @@ def serve_world(n: int, seed: int, device="cuda", *,
     the collector's permanent generation, so no later collection walks
     it (a pass over ~10^7 objects stalls a tick for seconds). The
     freeze is process-wide; ``gc.unfreeze()`` hands the objects back."""
-    cfg = slice_config(n, **grid_kw)
+    cfg = dataclasses.replace(slice_config(n, **grid_kw), behavior=behavior)
     hooks = [] if record_hooks else None
     mob_cls, player_cls, arena_cls = _game_types(hooks)
     t0 = time.perf_counter()

@@ -7,7 +7,6 @@ import dataclasses
 import os
 import subprocess
 import sys
-import types
 from pathlib import Path
 
 import pytest
@@ -15,6 +14,7 @@ import torch
 
 from goworld_tpu_torch.core import state as tstate
 from goworld_tpu_torch.core.step import TickInputs, make_tick
+from goworld_tpu_torch.models.npc_policy import init_policy
 from goworld_tpu_torch.ops.aoi import GridSpec
 from goworld_tpu_torch.parallel.megaspace import (
     MegaConfig,
@@ -22,6 +22,7 @@ from goworld_tpu_torch.parallel.megaspace import (
     make_mega_tick,
 )
 from goworld_tpu_torch.parallel.step import MultiTickInputs
+from goworld_tpu_torch.scenarios.spec import get_scenario
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "goworld_tpu_torch"
@@ -109,19 +110,28 @@ def test_entry_points_default_to_cuda_and_never_fall_back(entry,
     dict(grid=GridSpec(radius=10.0, topk_impl="approx")),
     dict(behavior="mlp"),
     dict(behavior="btree"),
-    dict(scenario=object()),
+    dict(scenario=get_scenario("mixed")),
+    dict(grid=GridSpec(radius=10.0, precision="q16"), behavior="mlp"),
 ], ids=["skin", "q16", "table", "cellrow", "shift", "approx", "mlp",
-        "btree", "scenario"])
+        "btree", "scenario", "q16_mlp"])
 def test_unported_configs_raise_not_implemented(change):
-    """Each config the port does not run raises. The Verlet skin and
-    precision=q16 were refused until they were ported; their two cases
-    now hold that both entry points take them and that a tick runs."""
+    """Each config the port does not run raises. The Verlet skin,
+    precision=q16, the mlp and btree behaviors and scenario worlds were
+    refused until they were ported; their cases now hold that both entry
+    points take them and that a tick runs (q16 with the mlp policy is
+    still refused)."""
     cfg = tstate.WorldConfig(capacity=64, **change)
-    if cfg.grid.skin > 0 or cfg.grid.precision != "off":
+    runs = cfg.behavior != "mlp" or cfg.grid.precision == "off"
+    if runs and (cfg.grid.skin > 0 or cfg.grid.precision != "off"
+                 or cfg.behavior != "random_walk"
+                 or cfg.scenario is not None):
         st = tstate.create_state(cfg, device="cpu")
+        pol = init_policy(5, 16, device="cpu") \
+            if cfg.behavior == "mlp" else None
         st, out = make_tick(cfg, device="cpu")(
-            st, TickInputs.empty(cfg, device="cpu"))
+            st, TickInputs.empty(cfg, device="cpu"), pol)
         assert int(out.aoi_rebuilt) == 1 and int(st.tick) == 1
+        assert (st.behavior_id is None) == (cfg.scenario is None)
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_tick(cfg, device="cpu")
@@ -140,8 +150,7 @@ def test_unported_megaspace_configs_raise_not_implemented(case, entry):
             mc.cfg, grid=dataclasses.replace(mc.cfg.grid,
                                              precision="q16")))
     elif case == "scenario":
-        mc = _mega(scenario=types.SimpleNamespace(
-            behavior_names=("random_walk",)))
+        mc = _mega(scenario=get_scenario("flock"))
     elif case == "devices":
         mc = _mega()
         kw = dict(devices=["cuda:0", "cuda:1"])
@@ -149,6 +158,15 @@ def test_unported_megaspace_configs_raise_not_implemented(case, entry):
         mc = _mega(behavior=case)
     fn = create_mega_state if entry == "create_mega_state" \
         else make_mega_tick
+    if case in ("scenario", "mlp", "btree"):
+        # refused until the behaviors were ported: both entry points now
+        # take them and a tick runs
+        st = create_mega_state(mc, device="cpu")
+        pol = init_policy(5, 16, device="cpu") if case == "mlp" else None
+        st, _ = make_mega_tick(mc, device="cpu")(
+            st, MultiTickInputs.empty(mc.cfg, mc.n_dev, device="cpu"), pol)
+        assert int(st.tick[0]) == 1
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fn(mc, device="cpu", **kw)
 

@@ -149,6 +149,10 @@ def test_state_round_trip(seed):
     ti = interop.inputs_from_numpy(inputs, device="cpu")
     for name, a in inputs.items():
         assert np.array_equal(getattr(ti, name).numpy(), a)
-    with pytest.raises(NotImplementedError):
-        interop.state_from_numpy(dict(lanes, behavior_id=np.zeros(128)),
-                                 device="cpu")
+    # the scenario lane was refused until scenario worlds were ported;
+    # it now crosses both ways
+    bid = np.arange(128, dtype=np.int32) % 3
+    back = interop.state_to_numpy(interop.state_from_numpy(
+        dict(lanes, behavior_id=bid), device="cpu"))
+    assert back["behavior_id"].dtype == np.int32
+    assert np.array_equal(back["behavior_id"], bid)

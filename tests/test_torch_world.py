@@ -835,18 +835,21 @@ def test_refused_planes_raise_not_implemented(method):
                                     dict(grid=TGrid(radius=10.0, skin=2.0))],
                          ids=["mlp", "skin"])
 def test_unported_configs_raise_not_implemented(change):
-    """A config the port does not run raises. The Verlet skin was
-    refused until it was ported; its case now holds that the World
-    takes it and ticks."""
+    """A config the port does not run raises. The Verlet skin and the
+    mlp behavior were refused until they were ported; their cases now
+    hold that the World takes them and ticks (the mlp World with its
+    policy drawn from the seed), and that behaviors stay refused at
+    n_spaces > 1."""
     cfg = dataclasses.replace(SMALL, **change)
+    w = tent.World(cfg, device="cpu")
+    w.tick()
     if cfg.grid.skin > 0:
-        w = tent.World(cfg, device="cpu")
-        w.tick()
         assert w.state.aoi_cache is not None
         assert int(w.last_outputs.aoi_rebuilt[0]) == 1
         return
+    assert w.policy is not None and w.policy.hidden == 128
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tent.World(cfg, device="cpu")
+        tent.World(cfg, n_spaces=2, device="cpu")
 
 
 def test_world_runs_on_the_card_unless_asked(monkeypatch):
