@@ -137,11 +137,15 @@ is caught:
     "device": {...}}``;
 17. (run before 12) NPC behaviors, BASELINE config 5: the policy kernel
     ``npc_mlp`` (``csrc/npc_mlp.cu``) against its plain version bit for
-    bit at 2^20 rows of config 5's observations and at 1, 31 and 4097
-    rows of extreme observations (+-3e38, 0, -0.0) under
-    ``init_policy(5)`` and random weights, bf16 tanh on the card against
-    the CPU's on all 65536 inputs, its time, plain time, cuBLAS bf16
-    chain time (not bit-equal) and bound; an uncut world of FLOAT_N
+    bit at 2^20 rows of config 5's observations, at 1, 2, 3, 31 and 4097
+    rows of extreme observations (+-3e38, 1e30, 0, -0.0, NaN) under
+    ``init_policy(5)`` and random weights at hidden 128 and 16 (every
+    lanes mode of layer_lanes there), and on ``mlp_underflow_case``
+    (layer-2 products below float32's 2^-149 grid: the kernel's rounded
+    layer 2); bf16 tanh on the card against the CPU's on all 65536
+    inputs, through float64 and through the kernel's table; its time,
+    plain time, cuBLAS bf16 chain time (not bit-equal) and bounds at the
+    bf16 tensor-core and the float32 CUDA-core rate; an uncut world of FLOAT_N
     entities FLOAT_TICKS ticks under btree, mlp and the mixed scenario
     on the card and on the CPU port, bit-equal in every lane; the bench
     world uncut under btree and then mlp for BEHAVIOR_TICKS ticks (one
@@ -182,7 +186,8 @@ from goworld_tpu_torch.entity import manager
 from goworld_tpu_torch.models import npc_policy
 from goworld_tpu_torch.models.npc_policy import build_obs, init_policy
 from goworld_tpu_torch.ops import aoi, prng
-from goworld_tpu_torch.ops.mlp import npc_mlp, npc_mlp_plain, tanh_bf16
+from goworld_tpu_torch.ops.mlp import (layer_lanes, npc_mlp, npc_mlp_plain,
+                                      tanh_bf16, tanh_by_table)
 from goworld_tpu_torch.scenarios.spec import scenario_names
 from goworld_tpu_torch.ops import telemetry as telem
 from goworld_tpu_torch.ops.aoi import GridSpec, grid_neighbors_flags
@@ -208,6 +213,7 @@ from goworld_tpu_torch.workload import (
     bench_world,
     mega_config,
     mega_world,
+    mlp_underflow_case,
     multi_config,
     multi_world,
     scenario_config,
@@ -1921,27 +1927,38 @@ def behavior_phase(dev, tag, profiled: dict, walk: tuple) -> tuple:
     if not nan_same(npc_mlp(obs, *ws), npc_mlp_plain(obs, *ws)):
         fail("[17] npc_mlp differs from its plain version at config 5")
     rng = np.random.default_rng(SEED + 17)
-    odd = {}
-    for rows in (1, 31, 4097):
-        x = rng.standard_normal((rows, 10)) * rng.choice(
-            [1e-3, 1.0, 30.0, 1e30], (rows, 10))
-        x[rng.random((rows, 10)) < 0.05] = 0.0
-        x[rng.random((rows, 10)) < 0.05] = -0.0
-        x[rng.random((rows, 10)) < 0.02] = 3e38
-        x[rng.random((rows, 10)) < 0.02] = -3e38
-        xo = torch.tensor(x.astype(np.float32), device=dev)
-        for wname, pw in (("init_policy(5)", ws), ("random", tuple(
-                torch.tensor(rng.standard_normal(tuple(w.shape)),
-                             dtype=torch.float32, device=dev)
-                .to(torch.bfloat16) for w in ws))):
-            a, b = npc_mlp(xo, *pw), npc_mlp_plain(xo, *pw)
-            odd[f"{rows}/{wname}"] = nan_same(a, b)
+    odd, modes = {}, set()
+    for hid in (h, 16):
+        ph = ws if hid == h else mlp_weights(init_policy(POLICY_SEED, hid,
+                                                         device=dev))
+        for rows in (1, 2, 3, 31, 4097):
+            x = rng.standard_normal((rows, 10)) * rng.choice(
+                [1e-3, 1.0, 30.0, 1e30], (rows, 10))
+            x[rng.random((rows, 10)) < 0.05] = 0.0
+            x[rng.random((rows, 10)) < 0.05] = -0.0
+            x[rng.random((rows, 10)) < 0.02] = 3e38
+            x[rng.random((rows, 10)) < 0.02] = -3e38
+            x[rng.random((rows, 10)) < 0.01] = np.nan
+            xo = torch.tensor(x.astype(np.float32), device=dev)
+            modes.add(layer_lanes(rows, hid))
+            for wname, pw in (("init_policy(5)", ph), ("random", tuple(
+                    torch.tensor(rng.standard_normal(tuple(w.shape)),
+                                 dtype=torch.float32, device=dev)
+                    .to(torch.bfloat16) for w in ph))):
+                a, b = npc_mlp(xo, *pw), npc_mlp_plain(xo, *pw)
+                odd[f"h{hid}/{rows}/{wname}"] = nan_same(a, b)
+    # layer-2 products below the 2^-149 grid: the guard's rounded path
+    uobs, uws = mlp_underflow_case(1 << 16, SEED, dev)
+    odd["underflow"] = nan_same(npc_mlp(uobs, *uws),
+                                npc_mlp_plain(uobs, *uws))
     if not all(odd.values()):
         fail(f"[17] npc_mlp differs from its plain version: {odd}")
-    # tanh over every bf16 value: the card's float64 tanh == the CPU's
+    # tanh over every bf16 value: the card's float64 tanh and the
+    # kernel's table on the card == the CPU's float64 tanh
     allb = torch.arange(65536, dtype=torch.int32).to(torch.int16) \
         .view(torch.bfloat16).float()
-    if not nan_same(tanh_bf16(allb.to(dev)).cpu(), tanh_bf16(allb)):
+    if not nan_same(tanh_bf16(allb.to(dev)).cpu(), tanh_bf16(allb)) or \
+            not nan_same(tanh_by_table(allb.to(dev)).cpu(), tanh_bf16(allb)):
         fail("[17] bf16 tanh on the card differs from the CPU's")
     mlp_ms = time_ms(lambda: npc_mlp(obs, *ws), 20)
     mlp_plain = time_ms(lambda: npc_mlp_plain(obs, *ws), 2, 1)
@@ -1967,8 +1984,11 @@ def behavior_phase(dev, tag, profiled: dict, walk: tuple) -> tuple:
     profiled.update(rest)
     print(f"[17] npc_mlp: == its plain version bit for bit at {N} rows of "
           f"config 5's observations and at {sorted(odd)} (extremes "
-          f"+-3e38, 0, -0.0, NaN as NaN); bf16 tanh card == CPU on all "
-          f"65536 inputs; {mlp_ms:.4f} ms a call (bound {bms:.4f} ms by "
+          f"+-3e38, 1e30, 0, -0.0, NaN as NaN; lanes modes "
+          f"{sorted(modes)}; the underflow case through layer 2's "
+          f"rounded path); bf16 tanh card == CPU on all 65536 inputs, "
+          f"by float64 and by the kernel's table; {mlp_ms:.4f} ms a call "
+          f"(bound {bms:.4f} ms by "
           f"{by} at the bf16 tensor-core rate; {bms_fp32:.4f} ms at the "
           f"float32 CUDA-core rate, the bound of a design in XLA's "
           f"order), plain {mlp_plain:.2f} ms, cuBLAS bf16 chain (not "

@@ -1,6 +1,7 @@
-"""Where the sweep and sort kernels' time goes, by ablation on the card.
+"""Where the kernels' time goes, by ablation on the card.
 
     python -m goworld_tpu_torch.ablate_kernels [--n 1048576]
+    python -m goworld_tpu_torch.ablate_kernels --mlp [--mlp-old PATH]
 
 Builds ``csrc/aoi_fused.cu`` and ``csrc/counting_sort.cu`` as they ship
 and in altered copies, one change each (a text substitution of the
@@ -12,6 +13,14 @@ drops work answers wrongly on purpose; it only shows what that work
 costs. The substitutions match the sources' text exactly, so an edit
 to a source can make one miss: the script then stops and names it.
 Needs a CUDA card and nvcc; there is no CPU mode.
+
+``--mlp`` does the same for ``csrc/npc_mlp.cu`` on config 5's
+observations at ``--n`` rows (hidden 128), and for an older
+``npc_mlp.cu`` given by ``--mlp-old`` (its interface has no tanh table:
+the one-thread-per-column design it replaced). Each copy's output is
+held against ``npc_mlp_plain`` on those observations and on
+``workload.mlp_underflow_case`` (layer-2 products below float32's
+2^-149 grid), its time by CUDA events and by the profiler.
 """
 
 from __future__ import annotations
@@ -66,8 +75,49 @@ ABLATIONS = {
 }
 
 
-def _build(src: str, subs, tmp: Path, tag: int):
-    text = (kernels.CSRC / src).read_text()
+# name: (old source?, substitutions) of csrc/npc_mlp.cu or --mlp-old
+MLP_ABLATIONS = {
+    "mlp": (False, []),
+    "mlp, layer 2 always on the rounded mul and add": (
+        False, [("const bool rounded = __syncthreads_or(low);",
+                 "const bool rounded = __syncthreads_or(low) || true;")]),
+    "mlp, layer 2 always FFMA (no guard)": (
+        False, [("const bool rounded = __syncthreads_or(low);",
+                 "const bool rounded = __syncthreads_or(low) && false;")]),
+    "mlp, tanh as the identity (no table lookup)": (
+        False, [("  const uint32_t u = __float_as_uint(x) >> 16;\n  return "
+                 "__uint_as_float(\n      (static_cast<uint32_t>(tab[u & "
+                 "0x7fffu]) | (u & 0x8000u)) << 16);",
+                 "  return x;")]),
+    "mlp, layer 1 by FFMA (wrong on overflow)": (
+        False, [("  tile_dot<L, false>(&s.x0[0][0]",
+                 "  tile_dot<L, true>(&s.x0[0][0]")]),
+    "mlp, k loop unrolled 2": (
+        False, [("#pragma unroll 8\n  for (int k0 = 0;",
+                 "#pragma unroll 2\n  for (int k0 = 0;")]),
+    "mlp, k loop unrolled 4": (
+        False, [("#pragma unroll 8\n  for (int k0 = 0;",
+                 "#pragma unroll 4\n  for (int k0 = 0;")]),
+    "mlp, no output layer": (
+        False, [("    switch (l3) {", "    if (n < 0) switch (l3) {")]),
+    "old": (True, []),
+    "old, fmaf for the rounded mul and add": (
+        True, [("        res[i][r] = __fadd_rn(res[i][r], __fmul_rn(x[r], "
+                "w));", "        res[i][r] = fmaf(x[r], w, res[i][r]);")]),
+    "old, float32 tanhf for the float64 tanh": (
+        True, [("  return round_bf(__double2float_rn(tanh(static_cast<"
+                "double>(x))));", "  return round_bf(tanhf(x));")]),
+    "old, both": (
+        True, [("        res[i][r] = __fadd_rn(res[i][r], __fmul_rn(x[r], "
+                "w));", "        res[i][r] = fmaf(x[r], w, res[i][r]);"),
+               ("  return round_bf(__double2float_rn(tanh(static_cast<"
+                "double>(x))));", "  return round_bf(tanhf(x));")]),
+}
+
+
+def _build(src, subs, tmp: Path, tag: int):
+    text = (src if isinstance(src, Path) else kernels.CSRC / src) \
+        .read_text()
     for old, new in subs:
         if old not in text:
             raise RuntimeError(f"ablation text not in {src}: {old!r}")
@@ -118,9 +168,96 @@ def _sort_call(so, srow, plan):
     return call
 
 
+def _mlp_call(so, old: bool, obs, ws):
+    import ctypes
+
+    from goworld_tpu_torch.ops.mlp import layer_lanes, tanh_table
+
+    lib = ctypes.CDLL(str(so))
+    fn = lib.gw_npc_mlp
+    sig = kernels.SIGNATURES["gw_npc_mlp"][0]
+    fn.argtypes = sig[:12] + sig[13:] if old else sig
+    fn.restype = ctypes.c_int
+    out = torch.full((obs.shape[0], 3), -1.0, device=obs.device)
+    lanes = layer_lanes(obs.shape[0], ws[0].shape[1])
+    table = () if old else (tanh_table(obs.device).data_ptr(),)
+
+    def call():
+        kernels.check(fn(obs.data_ptr(), obs.shape[0], ws[0].shape[1],
+                         *(w.data_ptr() for w in ws), *lanes, *table,
+                         out.data_ptr(), kernels.stream_handle(obs.device)),
+                      "npc_mlp")
+        return out
+    return call
+
+
+def _events_ms(fn, reps: int) -> float:
+    fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def mlp_main(n: int, old_src: Path | None, card: str) -> int:
+    from goworld_tpu_torch.core.step import make_tick
+    from goworld_tpu_torch.models.npc_policy import build_obs
+    from goworld_tpu_torch.ops.mlp import npc_mlp_plain
+    from goworld_tpu_torch.workload import (behavior_config, behavior_world,
+                                            mlp_underflow_case)
+
+    cfg = behavior_config(n, "mlp")
+    st, inputs, pol = behavior_world(cfg, 0, "cuda")
+    st, _ = make_tick(cfg, device="cuda")(st, inputs, pol)
+    obs = build_obs(st.pos, st.vel, st.yaw, st.nbr, st.nbr_cnt,
+                    (cfg.grid.extent_x, cfg.grid.extent_z))
+    ws = tuple(getattr(pol, k) for k in ("w1", "b1", "w2", "b2", "w3", "b3"))
+    cases = {"config 5": (obs, ws),
+             "underflow": mlp_underflow_case(1 << 16, 0, "cuda")}
+    plain = {k: npc_mlp_plain(*v[:1], *v[1]) for k, v in cases.items()}
+    todo = {k: v for k, v in MLP_ABLATIONS.items()
+            if old_src is not None or not v[0]}
+    rows = []
+    with tempfile.TemporaryDirectory() as tmp:
+        builds = {name: _build(old_src if old else "npc_mlp.cu", subs,
+                               Path(tmp), t)
+                  for t, (name, (old, subs)) in enumerate(todo.items())}
+        for name, (old, _) in todo.items():
+            proc, so = builds[name]
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {name!r}:\n{log}")
+            same = {}
+            for case, (x, w) in cases.items():
+                got = _mlp_call(so, old, x, w)().clone()
+                ref = plain[case]
+                same[case] = bool(
+                    torch.equal(got.isnan(), ref.isnan())
+                    and torch.equal(got.nan_to_num().view(torch.int32),
+                                    ref.nan_to_num().view(torch.int32)))
+            call = _mlp_call(so, old, obs, ws)
+            rows.append({"ablation": name, "ms": _events_ms(call, 20),
+                         "device_ms": kernels.device_ms(call, 10)[0],
+                         "same_as_plain": same,
+                         "ptxas": [ln.strip() for ln in log.splitlines()
+                                   if "registers" in ln or "spill" in ln]})
+            print(json.dumps(rows[-1]), flush=True)
+    print(json.dumps({"gpu": card, "n": n, "hidden": pol.hidden,
+                      "mlp_ablations": rows}), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1 << 20)
+    ap.add_argument("--mlp", action="store_true",
+                    help="ablate csrc/npc_mlp.cu instead of the sweep/sort")
+    ap.add_argument("--mlp-old", type=Path, default=None,
+                    help="also ablate this older npc_mlp.cu")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("ablate_kernels needs a CUDA card", file=sys.stderr)
@@ -129,6 +266,8 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True, timeout=60).stdout.strip().splitlines()[0]
+    if args.mlp:
+        return mlp_main(args.n, args.mlp_old, card)
     cfg = slice_config(args.n)
     g = cfg.grid
     st, _ = bench_world(cfg, seed=0, device="cuda")

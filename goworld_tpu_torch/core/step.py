@@ -118,7 +118,11 @@ def compute_velocity(cfg: WorldConfig, key, pos, yaw, state: SpaceState,
     are one Space's slot neighbor lists for the btree features and the
     mlp observation; None in the megaspace, whose gid lists cannot
     gather positions: the features then come from the summary lanes the
-    previous tick's sweep left (``nbr_mean_off``, ``nbr_client_cnt``)."""
+    previous tick's sweep left (``nbr_mean_off``, ``nbr_client_cnt``).
+
+    Returns ``(vel, fused)``: ``fused`` (bool[N], or None for every
+    row) marks the rows whose ``pos + vel * dt`` the jitted reference
+    contracts into one fused multiply-add (:func:`contracted_rows`)."""
     if cfg.behavior == "btree":
         if nbr is None:
             feats = features_from_summary(
@@ -140,9 +144,37 @@ def compute_velocity(cfg: WorldConfig, key, pos, yaw, state: SpaceState,
                             world_extent)
         vel = capped_step(state.vel, policy_accel(policy, obs), cfg.dt,
                           cfg.npc_speed)
-        return torch.where(state.npc_moving[:, None], vel, 0.0)
+        return torch.where(state.npc_moving[:, None], vel, 0.0), None
     return random_walk_step(key, state.vel, state.npc_moving,
-                            cfg.npc_speed, cfg.turn_prob)
+                            cfg.npc_speed, cfg.turn_prob), None
+
+
+# The one member of a scenario whose integrate step the reference
+# contracts on every row, and the one that contracts the rows keeping
+# their carried velocity; every other member, and every mix of several
+# members, rounds vel * dt before the add (ROADMAP.md Queue C4)
+_CONTRACT_ALL = ("hotspot", "flock", "mlp")
+
+
+def contracted_rows(cfg: WorldConfig, vel, state: SpaceState, fused):
+    """The rows whose ``pos + vel * dt`` the jitted reference contracts
+    into one fused multiply-add (None: every row). XLA's CPU backend
+    contracts a multiply into the add only where LLVM's loop unswitching
+    leaves the two in one block with the ``moving`` select folded away,
+    so the rows follow the integrate fusion's form, read off its object
+    code: ``fused`` from :func:`compute_velocity` without a scenario;
+    under a scenario every row for a hotspot, flock or mlp population,
+    the rows that kept their carried velocity for a random walk, and no
+    row for a shrink, teleport or btree population or a mix of several
+    members (its step is a select chain, or a vectorized loop)."""
+    if cfg.scenario is None:
+        return fused
+    names = cfg.scenario.behavior_names
+    if len(names) == 1 and names[0] in _CONTRACT_ALL:
+        return None
+    if names == ("random_walk",):
+        return ~(vel != state.vel).any(dim=-1)
+    return torch.zeros_like(state.npc_moving)
 
 
 def tick_body(cfg: WorldConfig, state: SpaceState, inputs: TickInputs,
@@ -182,25 +214,19 @@ def tick_body(cfg: WorldConfig, state: SpaceState, inputs: TickInputs,
     # one pass over the behavior lane
     keys = prng.split(state.rng)
     rng, k_behave = keys[..., 0, :], keys[..., 1, :]
-    tele = None
+    tele = fused = None
     if cfg.scenario is not None:
         vel, tele_pos, tele = scenario_velocity(cfg, k_behave, pos, yaw,
                                                 state, policy)
     else:
-        vel = compute_velocity(
+        vel, fused = compute_velocity(
             cfg, k_behave, pos, yaw, state, policy,
             (cfg.grid.extent_x, cfg.grid.extent_z),
             nbr=state.nbr, nbr_cnt=state.nbr_cnt)
 
-    # 3. integrate + world clamp. Under the btree or a scenario mix the
-    # reference contracts pos + vel*dt only where the velocity is the
-    # carried one; a mix of the mlp member alone contracts every row
-    # (measured; ROADMAP.md Queue C4)
-    fused = None
-    if cfg.behavior == "btree" or (
-            cfg.scenario is not None
-            and cfg.scenario.behavior_names != ("mlp",)):
-        fused = ~(vel != state.vel).any(dim=-1)
+    # 3. integrate + world clamp, pos + vel*dt contracted on the rows
+    # the reference contracts
+    fused = contracted_rows(cfg, vel, state, fused)
     pos, moved = integrate(pos, vel, state.npc_moving, cfg.dt,
                            cfg.bounds_min, cfg.bounds_max, fused=fused)
     if tele is not None:

@@ -119,8 +119,8 @@ SIGNATURES = {
     "gw_halo_ship_phase": ([_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I,
                             _I, _I, *[_P, _L, _P, _I, _U] * 2, _P], _I),
     "gw_npc_mlp_max_hidden": ([], _I),
-    "gw_npc_mlp": ([_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
-                   _I),
+    "gw_npc_mlp": ([_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
+                    _P], _I),
 }
 
 

@@ -170,7 +170,12 @@ def unit_scale(off, norm, num=None, den=None):
 
 def btree_velocity(key, feats: BTFeatures, vel, npc_moving, speed: float,
                    turn_prob: float, crowd_threshold: int = 12):
-    """Evaluate the monster tree over the population -> f32[N, 3]."""
+    """Evaluate the monster tree over the population -> (f32[N, 3],
+    bool[N]): the velocity, and the rows whose ``pos + vel * dt`` the
+    jitted reference contracts into one fused multiply-add. Its
+    integrate loop is unswitched on the chase condition, then on the
+    wander's pick, and only the pick path (where ``moving`` is then
+    known) leaves the multiply beside the add (ROADMAP.md Queue C4)."""
     conds = {
         "player_in_aoi": feats.client_cnt > 0,
         "crowded": feats.nbr_cnt >= crowd_threshold,
@@ -185,8 +190,10 @@ def btree_velocity(key, feats: BTFeatures, vel, npc_moving, speed: float,
         "chase": toward(feats.client_off, 1.0),
         "separate": toward(feats.mean_off, -1.0, feats.mean_sum,
                            feats.mean_den),
-        "wander": random_walk_step(key, vel, npc_moving, speed, turn_prob),
     }
+    actions["wander"], pick = random_walk_step(key, vel, npc_moving, speed,
+                                               turn_prob, with_pick=True)
     _, acts = eval_tree(monster_tree(), npc_moving, conds)
     out = combine_actions(acts, actions, vel)
-    return torch.where(npc_moving[:, None], out, 0.0)
+    out = torch.where(npc_moving[:, None], out, 0.0)
+    return out, pick & ~conds["player_in_aoi"]

@@ -20,7 +20,7 @@ import torch
 from goworld_tpu_torch.core.state import resolve_device
 from goworld_tpu_torch.models.random_walk import cos_sin
 from goworld_tpu_torch.ops import prng
-from goworld_tpu_torch.ops.mlp import OBS_DIM, npc_mlp
+from goworld_tpu_torch.ops.mlp import OBS_DIM, npc_mlp, tanh_table
 from goworld_tpu_torch.ops.xla_order import mul_recip, sum_k
 
 _LANES = ("w1", "b1", "w2", "b2", "w3", "b3")
@@ -36,6 +36,11 @@ class MLPPolicy:
     b2: torch.Tensor  # bf16[H]
     w3: torch.Tensor  # bf16[H, 3]
     b3: torch.Tensor  # bf16[3]
+
+    def __post_init__(self):
+        # the kernel's tanh table, built once a card, outside the tick
+        if self.w1.device.type == "cuda":
+            tanh_table(self.w1.device)
 
     @property
     def hidden(self) -> int:
@@ -102,17 +107,18 @@ def init_policy(seed: int = 5, hidden: int = 128,
 
 def neighbor_mean_offset(pos_src: torch.Tensor, self_pos: torch.Tensor,
                          nbr: torch.Tensor, nbr_cnt: torch.Tensor,
-                         sentinel: int) -> torch.Tensor:
+                         sentinel: int, lanes_from: int = 18) -> torch.Tensor:
     """f32[N, 3] mean offset to valid neighbors; ``pos_src`` is the
     position table ``nbr`` indexes (the whole population of one Space,
     or a megaspace tile's local and ghost rows). The sum over the
-    neighbor axis runs in XLA's order (:func:`ops.xla_order.sum_k`)."""
+    neighbor axis runs in XLA's order (:func:`ops.xla_order.sum_k`;
+    ``lanes_from`` 17 inside the observation's fusion)."""
     valid = nbr != sentinel
     nbr_c = torch.clamp_max(nbr, pos_src.shape[0] - 1).long()
     npos = pos_src[nbr_c]
     offs = torch.where(valid[:, :, None], npos - self_pos[:, None, :], 0.0)
     cnt = torch.clamp_min(nbr_cnt, 1).to(torch.float32)
-    return sum_k(offs, vectorized=True) / cnt[:, None]
+    return sum_k(offs, True, lanes_from) / cnt[:, None]
 
 
 def build_obs_from_features(pos, vel, yaw, nbr_cnt, mean_off, k: int,
@@ -138,7 +144,7 @@ def build_obs(pos, vel, yaw, nbr, nbr_cnt,
     """f32[N, OBS_DIM]: normalized pos, vel, yaw sin/cos and the
     neighbor summary from the previous tick's lists."""
     n, k = nbr.shape
-    mean_off = neighbor_mean_offset(pos, pos, nbr, nbr_cnt, n)
+    mean_off = neighbor_mean_offset(pos, pos, nbr, nbr_cnt, n, 17)
     return build_obs_from_features(pos, vel, yaw, nbr_cnt, mean_off, k,
                                    world_extent)
 

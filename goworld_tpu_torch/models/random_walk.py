@@ -79,11 +79,13 @@ def random_walk_step(
     moving: torch.Tensor,
     speed: float,
     turn_prob: float,
-) -> torch.Tensor:
+    with_pick: bool = False,
+):
     """Return updated velocities f32[N,3] (y velocity stays 0). With a
     leading Space axis (``key [S, 2]``, ``vel [S, N, 3]``, ``moving [S,
     N]``) each Space draws from its own key: the bits of S separate
-    calls."""
+    calls. ``with_pick`` also returns the rows that drew a new heading
+    (a turn, or a standing row; moving rows only)."""
     n = vel.shape[-2]
     keys = prng.split(key)
     k_turn, k_head = keys[..., 0, :], keys[..., 1, :]
@@ -94,4 +96,5 @@ def random_walk_step(
         [cos_h * speed, torch.zeros_like(heading), sin_h * speed], dim=-1)
     still = vel.abs().sum(dim=-1) < 1e-6
     pick_new = (turn | still) & moving
-    return torch.where(pick_new[..., None], new_vel, vel)
+    out = torch.where(pick_new[..., None], new_vel, vel)
+    return (out, pick_new) if with_pick else out

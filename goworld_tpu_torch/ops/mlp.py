@@ -14,9 +14,24 @@ stays float32. The two functions here compute exactly that:
 * :func:`npc_mlp`, the kernel for a tensor on the card, the plain
   version for a tensor on the CPU. No matmul library runs on the card:
   its summation order is not XLA's.
+
+The kernel is a CUDA-core SGEMM in XLA's order (one output, or one of
+its partial sums, summed by one thread in k order). It sums layer 2 by
+fused multiply-adds: a bf16 x bf16 product has at most 16 significant
+bits, so it is exact in float32 unless it overflows or drops bits below
+2^-149, and then one FFMA gives the bits of the rounded product plus
+the add. Layer 2 multiplies tanh outputs (``|x| <= 1``: no overflow)
+and a row tile falls back on the rounded mul and add where its
+activations and w2 could meet below the 2^-149 grid
+(:func:`fma_exact`); layer 1 (the raw observations, up to +-3e38, where
+a fused ``1.5 * 2**127 * 2 - 3e38`` is finite and the rounded one inf)
+and the 3-column output layer keep the rounded mul and add. Its tanh
+is a lookup into :func:`tanh_table`, built from :func:`tanh_bf16`.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -25,6 +40,9 @@ from goworld_tpu_torch.ops.xla_order import dot_f32, dot_lanes
 
 OBS_DIM = 10
 ACT_DIM = 3
+# a product of bf16 values is on float32's 2^-149 grid when the biased
+# exponent fields (at least 1) of its factors sum to this or more
+EXACT_LO = 119
 
 
 def _bf(x: torch.Tensor) -> torch.Tensor:
@@ -35,6 +53,47 @@ def tanh_bf16(x: torch.Tensor) -> torch.Tensor:
     """bf16-rounded ``tanh`` of float32 ``x`` (bf16 values), through
     float64 and float32 as the kernel rounds."""
     return _bf(torch.tanh(x.double()).to(torch.float32))
+
+
+def _lo_exp(x: torch.Tensor) -> torch.Tensor:
+    """max(E, 1), E the biased exponent field of float32 ``x``."""
+    return torch.clamp_min((x.view(torch.int32) >> 23) & 0xFF, 1)
+
+
+def fma_exact(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Where the kernel's layer 2 may sum ``x * w`` by one fused
+    multiply-add: ``x`` a tanh output (``|x| <= 1``, so the product is
+    at most ``|w|``) and the factors' lowest significand bits at or
+    above 2^-149 (or either factor zero), so the product is exact in
+    float32. The kernel tests the second part per row tile, from the
+    smallest exponent of the tile's nonzero activations and of w2's
+    nonzero words."""
+    on_grid = (_lo_exp(x) + _lo_exp(w) >= EXACT_LO) | (x == 0) | (w == 0)
+    return on_grid & (x.abs() <= 1)
+
+
+@functools.cache
+def _tanh_table(device: torch.device) -> torch.Tensor:
+    mags = torch.arange(32768, dtype=torch.int32, device=device) \
+        .to(torch.int16).view(torch.bfloat16).float()
+    return tanh_bf16(mags).to(torch.bfloat16)
+
+
+def tanh_table(device) -> torch.Tensor:
+    """bf16[32768]: :func:`tanh_bf16` of the bf16 magnitudes (the word
+    ``i`` read as a bf16), built on ``device`` at its first use and kept.
+    The kernel looks up ``|x|`` and applies the sign of ``x`` (tanh_bf16
+    is odd on every bf16 input)."""
+    return _tanh_table(torch.device(device))
+
+
+def tanh_by_table(x: torch.Tensor) -> torch.Tensor:
+    """:func:`tanh_bf16` of float32 ``x`` (bf16 values) as the kernel
+    computes it: the table at ``|x|``, the sign of ``x``."""
+    u = x.view(torch.int32) >> 16
+    t = tanh_table(x.device).view(torch.int16)[(u & 0x7FFF).long()] \
+        .to(torch.int32) & 0xFFFF
+    return ((t | (u & 0x8000)) << 16).view(torch.float32)
 
 
 def layer_lanes(rows: int, hidden: int) -> tuple[int, int, int]:
@@ -85,7 +144,8 @@ def npc_mlp(obs, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
     l1, l2, l3 = layer_lanes(n, h)
     err = so.gw_npc_mlp(obs.data_ptr(), n, h, *(t.data_ptr() for t in
                                                  ws.values()),
-                        l1, l2, l3, out.data_ptr(),
+                        l1, l2, l3, tanh_table(obs.device).data_ptr(),
+                        out.data_ptr(),
                         kernels.stream_handle(obs.device))
     kernels.check(err, "npc_mlp")
     kernels.LAUNCHES["npc_mlp"] += 1

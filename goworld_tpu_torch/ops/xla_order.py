@@ -15,16 +15,22 @@ against them bit for bit (``tests/test_torch_behaviors.py``):
   in k order when the output is wide (M >= 64) or has one row, and
   otherwise (mostly) in 4 (M <= 16) or 2 (M 17-63) interleaved partial
   sums (k mod L) added pairwise, with the ``K mod L`` last terms summed
-  apart and added last (:func:`dot_lanes`).
+  apart and added last (:func:`dot_lanes`, which says where it was
+  measured).
 * :func:`sum_k`: a reduce over the neighbor axis ``[N, k, 3] -> [N,
   3]``. Above k 32 XLA splits the axis into windows of 32 (the axis
   padded by ``pad // 2`` zeros in front), sums each window in order and
   the window sums in order. Up to 32 the reduce is fused into its
   consumer's loop and LLVM picks the order: in k order when the fusion
   has several outputs or k <= 16, else (a fusion whose one output is
-  the sum, k 24 or 32) in 8 interleaved partial sums (k mod 8) added as
-  halves (lane i with lane i + 4, then i + 2, then i + 1). The caller
-  says which fusion it mirrors (``vectorized``).
+  the sum) in 8 interleaved partial sums (k mod 8) added as halves
+  (lane i with lane i + 4, then i + 2, then i + 1) for k 18, 19 and
+  24-32, and for k 20-23 as four 4-lane groups of the first 16 terms
+  added last to first, halved, then a 4-lane epilogue over terms 16-19
+  that starts from that sum in its lane 0, halved, and the rest in
+  order. At k 17 the mean offset's own fusion sums in k order and the
+  observation's in 8 lanes. The caller says which fusion it mirrors
+  (``vectorized``, ``lanes_from``: the least k summed in 8 lanes).
 
 Every function takes CPU or CUDA tensors and runs the same ops on both,
 so the card gives the CPU's bits.
@@ -70,14 +76,19 @@ def as_f32(v) -> float:
 
 def dot_lanes(rows: int, depth: int, cols: int) -> int:
     """Interleaved partial sums of XLA's CPU float32 dot ``[rows, depth]
-    x [depth, cols]`` (1: k order). Measured on the policy's shapes
-    (depth 10, 16, 128; cols 3, 8, 16, 32, 64, 128): 2 or 3 rows sum in
-    k order but for a 16 x 16 weight (4 partial sums), 1 row always in
-    k order."""
+    x [depth, cols]`` (1: k order). Measured at every row count from 1
+    to 79 and at 96-4096 on the policy's shapes at hidden 16 and 128
+    (depth 10, 16, 128; cols 3, 16, 128): 1 row always in k order; 2 or
+    3 rows in k order but for a 16 x 16 weight (4 partial sums); the
+    observation layer (depth 10) in k order up to 50 rows (measured for
+    cols 9-16, 20, 24, 32, 40, 48). Other hidden sizes keep orders not
+    measured here (ROADMAP.md Queue C4)."""
     if rows == 1 or cols >= 64:
         return 1
     if rows < 4:
         return 4 if depth % 4 == 0 and 16 <= cols < 32 else 1
+    if depth == 10 and cols > 8 and rows <= 50:
+        return 1
     return 2 if cols >= 32 else 4
 
 
@@ -111,23 +122,37 @@ def _seq(x: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def sum_k(x: torch.Tensor, vectorized: bool) -> torch.Tensor:
+def _halves(acc: torch.Tensor) -> torch.Tensor:
+    """``[N, L, C] -> [N, C]``: lane i added to lane i + L/2, halving
+    until one lane is left (LLVM's vector reduction)."""
+    while acc.shape[1] > 1:
+        h = acc.shape[1] // 2
+        acc = acc[:, :h] + acc[:, h:]
+    return acc[:, 0]
+
+
+def sum_k(x: torch.Tensor, vectorized: bool,
+          lanes_from: int = 18) -> torch.Tensor:
     """``x [N, k, C] -> [N, C]``: the sum over axis 1 in the order of
     XLA's CPU reduce of the neighbor axis (module docstring);
     ``vectorized`` when the reference's fusion has the sum as its one
-    output."""
+    output, ``lanes_from`` 17 for the observation's fusion."""
     n, k, c = x.shape
-    if k <= 16 or (k <= 32 and not vectorized):
+    if k < min(lanes_from, 18) or (k <= 32 and not vectorized):
         return _seq(x)
+    if 20 <= k <= 23:
+        g = [x[:, 4 * u:4 * u + 4] for u in range(4)]
+        acc = _halves(g[3] + (g[2] + (g[1] + g[0])))
+        out = _halves(torch.cat([(acc + x[:, 16])[:, None], x[:, 17:20]], 1))
+        for j in range(20, k):
+            out = out + x[:, j]
+        return out
     if k <= 32:
         kv = k - k % 8
         acc = x.new_zeros(n, 8, c)
         for j in range(0, kv, 8):
             acc = acc + x[:, j:j + 8]
-        while acc.shape[1] > 1:
-            h = acc.shape[1] // 2
-            acc = acc[:, :h] + acc[:, h:]
-        out = acc[:, 0]
+        out = _halves(acc)
         for j in range(kv, k):
             out = out + x[:, j]
         return out

@@ -32,7 +32,8 @@ from goworld_tpu_torch.core.state import (
     check_ported,
     resolve_device,
 )
-from goworld_tpu_torch.core.step import TickOutputs, compute_velocity
+from goworld_tpu_torch.core.step import (TickOutputs, compute_velocity,
+                                         contracted_rows)
 from goworld_tpu_torch.models.npc_policy import neighbor_mean_offset
 from goworld_tpu_torch.ops import prng
 from goworld_tpu_torch.ops.aoi import (
@@ -292,13 +293,9 @@ def mega_tick_body(mc: MegaConfig, state: SpaceState,
                           st.nbr_client_cnt.to(torch.float32),
                           torch.zeros_like(st.nbr_mean_off)))
         else:
-            vel = compute_velocity(cfg, k_behave, pos, yaw, st, policy,
-                                   (mc.world_x, mc.world_z))
-        if cfg.behavior == "btree" or (
-                cfg.scenario is not None and len(cfg.scenario.mix) > 1):
-            # measured: the reference's tile step rounds vel * dt before
-            # the add under the btree and a mix (ROADMAP.md Queue C)
-            fused = torch.zeros_like(st.npc_moving)
+            vel, fused = compute_velocity(cfg, k_behave, pos, yaw, st,
+                                          policy, (mc.world_x, mc.world_z))
+        fused = contracted_rows(cfg, vel, st, fused)
         pos, moved = integrate(pos, vel, st.npc_moving, cfg.dt,
                                (0.0, -1e9, 0.0),
                                (mc.world_x, 1e9, mc.world_z), fused=fused)

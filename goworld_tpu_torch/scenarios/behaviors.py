@@ -62,6 +62,13 @@ def _vel3(vx, vz):
     return torch.stack([vx, torch.zeros_like(vx), vz], dim=-1)
 
 
+def _phase_rate(period) -> float:
+    """``2 pi / period`` as XLA folds ``2 pi * t / period``: the divide
+    becomes a multiply by the float32 reciprocal, and the two constants
+    multiply in float32 before ``t`` does."""
+    return as_f32(as_f32(_TWO_PI) * mul_recip(1.0, float(period)))
+
+
 def scenario_context(spec: ScenarioSpec, cfg, t: torch.Tensor,
                      bounds: tuple | None = None) -> dict:
     """Phase state for tick ``t`` (0-d int32 on the device): attractor
@@ -70,14 +77,14 @@ def scenario_context(spec: ScenarioSpec, cfg, t: torch.Tensor,
     tf = t.to(torch.float32)
     cx = ox + 0.5 * ex_
     cz = oz + 0.5 * ez_
-    ph = mul_recip(tf * as_f32(_TWO_PI), float(spec.attractor_period))
+    ph = tf * _phase_rate(spec.attractor_period)
     cos_ph, sin_ph = cos_sin(ph)
     ax = fma32(cos_ph, (0.5 - spec.attractor_margin) * ex_, cx)
     az = fma32(sin_ph, (0.5 - spec.attractor_margin) * ez_, cz)
     half = 0.5 * float(min(ex_, ez_))
     prog = torch.clamp_max(mul_recip(tf, float(spec.shrink_over)), 1.0)
     zone_r = fma32(prog, -(1.0 - spec.shrink_min_frac), 1.0) * half
-    wph = mul_recip(tf * as_f32(_TWO_PI), float(spec.flock_wind_period))
+    wph = tf * _phase_rate(spec.flock_wind_period)
     wind_c, wind_s = cos_sin(wph)
     return dict(attractor=(ax, az), zone_c=(cx, cz), zone_r=zone_r,
                 wind=(wind_c, wind_s))
@@ -97,9 +104,10 @@ def _walk_vel(keys, vel, moving, speed: float, turn_prob: float):
 
 
 def _member(name: str, spec: ScenarioSpec, cfg, ctx: dict, policy,
-            bounds: tuple | None):
+            bounds: tuple | None, summary: bool = False):
     """The velocity field of one mix member over all rows:
-    ``fn(keys, ent) -> (vel, dest, teleport)``."""
+    ``fn(keys, ent) -> (vel, dest, teleport)``; ``summary`` when the
+    features come from the summary lanes (the megaspace)."""
     speed = float(cfg.npc_speed)
     turn_prob = float(cfg.turn_prob)
     dt = float(cfg.dt)
@@ -166,6 +174,15 @@ def _member(name: str, spec: ScenarioSpec, cfg, ctx: dict, policy,
             dxv = wx + torch.where(has_nbr, coh * cx, 0.0)
             dzv = wz + torch.where(has_nbr, coh * cz, 0.0)
             ux, uz = _unit_xz(dxv, dzv)
+            if summary:
+                # the reference's z loop over the summary lane fuses the
+                # mean offset's z square, not its x square, and builds
+                # the whole z output from that norm
+                mx, mz = ent["mean_off"][:, 0], ent["mean_off"][:, 2]
+                n1 = unit_norm(mz, mx, 1e-6)
+                dxv = wx + torch.where(has_nbr, coh * (mx / n1), 0.0)
+                dzv = wz + torch.where(has_nbr, coh * (mz / n1), 0.0)
+                uz = dzv / unit_norm(dxv, dzv, 1e-6)
             s = spec.flock_speed_frac * speed
             return masked(_vel3(ux * s, uz * s), ent), *still(ent)
         return run
@@ -213,22 +230,30 @@ def _member(name: str, spec: ScenarioSpec, cfg, ctx: dict, policy,
                 "scenario mix includes 'mlp' but no MLPPolicy was "
                 "passed to the tick (spec.needs_policy)")
 
+        # beside other members the reference's loop is unswitched on
+        # their conditions, and the x component's accel * dt is hoisted
+        # above the branch, away from its add (ROADMAP.md Queue C4)
+        fuse_x = spec.behavior_names == ("mlp",)
+
         def run(keys, ent):
             obs = build_obs_from_features(
                 ent["pos"], ent["vel"], ent["yaw"], ent["nbr_cnt"],
                 ent["mean_off"], cfg.grid.k, (b_ex, b_ez))
             accel = policy_accel(policy, obs)
-            return masked(capped_step(ent["vel"], accel, dt, speed),
+            return masked(capped_step(ent["vel"], accel, dt, speed, fuse_x),
                           ent), *still(ent)
         return run
 
     raise ValueError(f"no kernel for behavior {name!r}")
 
 
-def capped_step(vel, accel, dt: float, speed: float):
+def capped_step(vel, accel, dt: float, speed: float, fuse_x: bool = True):
     """``vel + accel * dt``, its XZ speed capped at ``speed``, with the
-    jitted reference's fused multiply-adds."""
+    jitted reference's fused multiply-adds (on the x component only
+    where ``fuse_x``; else its product is rounded before the add)."""
     v = fma32(accel, dt, vel)
+    if not fuse_x:
+        v = torch.cat([vel[:, :1] + accel[:, :1] * as_f32(dt), v[:, 1:]], 1)
     sp = unit_norm(v[:, 0], v[:, 2], 1e-12)
     cap = torch.full_like(sp, as_f32(speed)) / sp
     return v * torch.clamp_max(cap, 1.0)[:, None]
@@ -282,8 +307,8 @@ def scenario_velocity(cfg, key, pos, yaw, state, policy,
                mean_off=mean_off, nbr_cnt=state.nbr_cnt.to(torch.float32),
                client_cnt=client_cnt, client_off=client_off)
     keys = prng.split(key, n)
-    outs = [_member(b, spec, cfg, ctx, policy, bounds)(keys, ent)
-            for b in names]
+    outs = [_member(b, spec, cfg, ctx, policy, bounds,
+                    features is not None)(keys, ent) for b in names]
     vel, tele_pos, tele = outs[0]
     if len(outs) > 1:
         bid = torch.clamp(state.behavior_id, 0, len(outs) - 1)

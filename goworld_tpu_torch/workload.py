@@ -118,6 +118,29 @@ def behavior_world(cfg: WorldConfig, seed: int, device="cuda"):
     return st, inputs, policy
 
 
+def mlp_underflow_case(rows: int, seed: int, device="cuda"):
+    """(obs, (w1, b1, w2, b2, w3, b3)) whose layer-2 products of the
+    policy fall below float32's 2^-149 grid: observations near 1e-38
+    make layer 1's tanh outputs bf16 values of exponent field 0 or 1,
+    and w2's words lie in [2^-11, 2^-9) (field 116-117), so the factors'
+    lowest bits sum below ``ops.mlp.EXACT_LO`` and the kernel must run
+    layer 2 on the rounded mul and add. Hidden 128, biases zero, w3 ~
+    0.1 N(0, 1)."""
+    hidden = 128
+    rng = np.random.default_rng(seed)
+
+    def bf(a):
+        return torch.tensor(np.asarray(a, np.float32),
+                            device=device).to(torch.bfloat16)
+    obs = torch.tensor((rng.uniform(0.1, 0.2, (rows, 10)) * 1e-38)
+                       .astype(np.float32), device=device)
+    ws = (bf(rng.uniform(0.5, 1.0, (10, hidden))), bf(np.zeros(hidden)),
+          bf(rng.uniform(2.0 ** -11, 2.0 ** -9, (hidden, hidden))),
+          bf(np.zeros(hidden)), bf(rng.standard_normal((hidden, 3)) * 0.1),
+          bf(np.zeros(3)))
+    return obs, ws
+
+
 def bench_world(cfg: WorldConfig, seed: int, device="cuda"):
     """(state, inputs) of the bench world on ``device``."""
     return _world(cfg, seed, device, repeats=False)

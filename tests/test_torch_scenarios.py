@@ -5,13 +5,7 @@ registry's scenarios, the megaspace under the non-btree scenarios, and
 ``run_scenario`` through the serving World.
 
 Tolerance is 0: bit for bit, floats included, each tick started from
-the JAX state. Where a bit is not matched yet, the test states the
-mismatch count it measured as its bound (ROADMAP.md Queue C): the
-reference contracts ``pos + vel * dt`` into a fused multiply-add on
-rows this port does not always predict (positions, and the sync records
-that carry them), its megaspace mix rounds some velocities differently,
-and its attractor's z misses by an ulp where the phase's sine nears
-0."""
+the JAX state."""
 
 import dataclasses
 
@@ -70,11 +64,7 @@ def test_created_lanes_match_jax(name):
             == 0, lane
 
 
-# measured: the attractor's z one ulp apart where sin(phase) nears 0
-CONTEXT_BOUND = {1799: 2}
-
-
-@pytest.mark.parametrize("t", [0, 1, 599, 600, 601, 1799, 5000])
+@pytest.mark.parametrize("t", [0, 1, 9, 13, 599, 600, 601, 1799, 5000])
 def test_scenario_context_matches_jax(t):
     spec = jspec.get_scenario("mixed")
     jcfg, tcfg = tb.configs()
@@ -90,14 +80,7 @@ def test_scenario_context_matches_jax(t):
                 got[key] if isinstance(got[key], tuple)
                 else (got[key],))], np.float32))
             missed += tb._bits_differ(g, r)
-    assert missed <= CONTEXT_BOUND.get(t, 0), missed
-
-
-# measured mismatched position words over the 8 ticks (ROADMAP.md
-# Queue C), 0 where the ticks are bit for bit
-TICK_POS_BOUND = {"hotspot": 4, "shrink": 2, "teleport": 1}
-# the sync records carry those positions
-TICK_SYNC_BOUND = {"hotspot": 1, "teleport": 1}
+    assert missed == 0, missed
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -110,21 +93,15 @@ def test_scenario_ticks_match_jax(name):
     lanes["aoi_radius"] = np.asarray(st.aoi_radius)
     diffs, gauges = tb.run_ticks(jcfg, tcfg, lanes, inputs)
     assert gauges["enter"] > 0 and gauges["sync"] > 0
-    pos = diffs.pop("pos", 0)
-    assert pos <= TICK_POS_BOUND.get(name, 0), pos
-    sync = diffs.pop("out.sync_vals", 0)
-    assert sync <= TICK_SYNC_BOUND.get(name, 0), sync
     assert not diffs, diffs
 
 
 # the members no registry scenario mixes: mlp and btree (a mix with a
-# policy), with their measured (position, velocity) word bounds over 8
-# ticks
+# policy)
 MEMBER_MIXES = {
-    "npc_mix": ((("mlp", 0.3), ("btree", 0.3), ("random_walk", 0.4)),
-                (7, 150)),
-    "mlp_only": ((("mlp", 1.0),), (0, 0)),
-    "btree_only": ((("btree", 1.0),), (7, 0)),
+    "npc_mix": (("mlp", 0.3), ("btree", 0.3), ("random_walk", 0.4)),
+    "mlp_only": (("mlp", 1.0),),
+    "btree_only": (("btree", 1.0),),
 }
 
 
@@ -137,7 +114,7 @@ def test_member_mix_ticks_match_jax(case):
 
     from goworld_tpu_torch.models.npc_policy import init_policy
 
-    mix, (pos_bound, vel_bound) = MEMBER_MIXES[case]
+    mix = MEMBER_MIXES[case]
     jcfg, tcfg = tb.configs(scenario=jspec.ScenarioSpec(name=case, mix=mix))
     tcfg = dataclasses.replace(tcfg, scenario=tspec.ScenarioSpec(
         name=case, mix=mix))
@@ -150,8 +127,6 @@ def test_member_mix_ticks_match_jax(case):
         jinit(jax.random.PRNGKey(5), 128) if pol else None,
         init_policy(5, 128, device="cpu") if pol else None)
     assert gauges["enter"] > 0
-    pos, vel = diffs.pop("pos", 0), diffs.pop("vel", 0)
-    assert pos <= pos_bound and vel <= vel_bound, (pos, vel)
     assert not diffs, diffs
 
 
@@ -185,16 +160,6 @@ def test_teleport_trips_the_verlet_rebuild_on_its_tick():
     assert rebuilt == [1, 1, 1, 1]
 
 
-MEGA_BOUNDS = {
-    # measured (pos, vel, nbr_mean_off, sync_vals) words over 4 ticks
-    "shrink": (11, 0, 0, 24),
-    "teleport": (33, 0, 0, 56),
-    "mixed_radius": (22, 0, 0, 41),
-    "mixed": (0, 65, 0, 0),
-    "flock": (0, 201, 0, 0),
-}
-
-
 @pytest.mark.parametrize("name", [n for n in NAMES
                                   if "btree" not in
                                   tspec.get_scenario(n).behavior_names])
@@ -223,33 +188,22 @@ def test_mega_scenario_ticks_match_jax(name):
     ti = interop.multi_inputs_from_numpy(inputs, device="cpu")
     jtick = tm.jmake(jmc, make_mesh(jmc.n_dev))
     ttick = tm.make_mega_tick(tmc, device="cpu")
-    counts = dict(pos=0, vel=0, nbr_mean_off=0, sync_vals=0)
     for _ in range(4):
         ts = interop.state_from_numpy(tm._jax_lanes(js), device="cpu")
         js, jo = jtick(js, ji, None)
         ts, to = ttick(ts, ti)
         got, ref = interop.state_to_numpy(ts), tm._jax_lanes(js)
         for k in got:
-            if isinstance(got[k], dict):
-                continue
-            n = tb._bits_differ(got[k], ref[k])
-            if k in counts:
-                counts[k] += n
-            else:
-                assert n == 0, k
+            if not isinstance(got[k], dict):
+                assert tb._bits_differ(got[k], ref[k]) == 0, k
         gout = interop.mega_outputs_to_numpy(to)
         rout = tm._jax_lanes(jo)
         for k, v in gout["base"].items():
-            n = tb._bits_differ(v, np.asarray(getattr(jo.base, k)))
-            if k == "sync_vals":
-                counts[k] += n
-            else:
-                assert n == 0, k
+            assert tb._bits_differ(v, np.asarray(getattr(jo.base, k))) \
+                == 0, k
         for k, v in gout.items():
             if k != "base":
                 assert tb._bits_differ(v, rout[k]) == 0, k
-    bound = dict(zip(counts, MEGA_BOUNDS.get(name, (0, 0, 0, 0))))
-    assert all(counts[k] <= bound[k] for k in counts), counts
 
 
 def test_run_scenario_mixed_matches_jax():
@@ -260,3 +214,48 @@ def test_run_scenario_mixed_matches_jax():
     assert t.gauges() == j.gauges()
     assert t.oracle_ok and j.oracle_ok
     assert t.oracle_ticks_checked == j.oracle_ticks_checked == 3
+
+
+def wide_check(n: int, ticks: int) -> dict:
+    """Mismatched words of each behavior and scenario configuration at
+    ``n`` rows over ``ticks`` ticks, each tick from the JAX state (the
+    tests above run 512 x 8). Not collected; run as
+    ``PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_scenarios.py
+    4096 16``."""
+    from goworld_tpu.models.npc_policy import init_policy as jinit
+
+    from goworld_tpu_torch.models.npc_policy import init_policy
+
+    out = {}
+    cases = [("btree", None), ("mlp", None)] + [(s, None) for s in NAMES] \
+        + [(m, MEMBER_MIXES[m]) for m in MEMBER_MIXES]
+    for name, mix in cases:
+        if name in ("btree", "mlp"):
+            jcfg, tcfg = tb.configs(n=n, behavior=name)
+            lanes, inputs = tb.bench_lanes(jcfg)
+            pol = name == "mlp"
+        else:
+            js_, ts_ = ((jspec.ScenarioSpec(name=name, mix=mix),
+                         tspec.ScenarioSpec(name=name, mix=mix)) if mix
+                        else (jspec.get_scenario(name),
+                              tspec.get_scenario(name)))
+            jcfg, tcfg = tb.configs(n=n, scenario=js_)
+            tcfg = dataclasses.replace(tcfg, scenario=ts_)
+            lanes, inputs = tb.bench_lanes(jcfg)
+            st = jstate.create_state(jcfg, seed=1)
+            lanes["behavior_id"] = np.asarray(st.behavior_id)
+            lanes["aoi_radius"] = np.asarray(st.aoi_radius)
+            pol = ts_.needs_policy
+        diffs, _ = tb.run_ticks(
+            jcfg, tcfg, lanes, inputs,
+            jinit(jax.random.PRNGKey(5), 128) if pol else None,
+            init_policy(5, 128, device="cpu") if pol else None, ticks)
+        out[name] = diffs
+        print(name, n, ticks, diffs, flush=True)
+    return out
+
+
+if __name__ == "__main__":
+    import sys
+
+    wide_check(*(int(a) for a in sys.argv[1:3]))
