@@ -125,7 +125,7 @@ is caught:
     sort launch a tick, the same a tick as a one-Space batched state;
     the same ticks again in lockstep with SPACES single-Space ticks,
     every lane of state and outputs equal on every tick; then
-    ``serve_world(SPACE_N, spaces=SPACES, boot=True)``: a World of
+    ``serve_world(SPACE_WORLD_N, spaces=SPACES, boot=True)``: a World of
     SPACES Spaces at its defaults, booted through ticks whose events
     each Space's caps hold, WORLD_TICKS ``World.tick``s of the game's
     traffic plus SERVE_MIGRATIONS ``enter_space`` moves between random
@@ -156,7 +156,35 @@ is caught:
     2^20 for MIXED_TICKS ticks; the 2x2 megaspace under mlp for
     MEGA_TICKS ticks beside its plain twin tick; twin served Worlds of
     2^16 slots under mlp (kernels, plain versions) equal in sinks and
-    state. [12] reads npc_mlp's device time.
+    state. [12] reads npc_mlp's device time;
+18. (run before 12) the World's remaining planes at 2^20 slots: inside
+    11, right after its game ticks, its World with ``pipeline_decode``
+    turned on for WORLD_TICKS ticks of the same traffic (one sweep and
+    one sort launch a tick; the host syncs a tick counted: one wait for
+    the copy of the previous tick's outputs, and the decode's reads of
+    live positions; decoded events against their true counts), p50/p99
+    and the four spans beside 11's eager ones, its planes (lanes a tick
+    behind, the audit's ``pipeline_decode`` skips, the census), one
+    tick's step and fold under the sync guard, then drained and eager
+    again for WORLD_TICKS more ticks, timed (the runs in turns); after
+    11, freeze on that World after its ticks:
+    ``checkpoint_async`` (its capture on the tick thread, its worker,
+    its bytes), a ``SnapshotChain`` keyframe and, 8 ticks on, a delta
+    (each captured on the tick thread and built on the caller), the
+    audit's ``scrub_snapshots`` over both files (0 corrupt); a restore
+    of the delta into a fresh World of 2^20 slots at the uncut config's
+    skin, its poses equal to the source's lattice planes byte for byte,
+    RESTORED_TICKS ticks (one sweep launch a tick, the first a Verlet
+    rebuild); the governor on that World: every default candidate
+    warmed off the tick thread, commits forced through GOVERNOR_SWAPS,
+    each swap's first tick bit for bit against a fresh ``make_tick`` at
+    the target config on a clone of the carried state, each config's
+    launches; under ``table`` its sweep beside ``fused``'s (equal on
+    every row no cell past cell_cap touches, both timed); the World's
+    ``cost_report`` beside ``torch.cuda.max_memory_allocated``; twin
+    Worlds of 2^16 slots, pipelined and eager, equal after the drain in
+    sync records, entity messages, hooks, state, interest sets, ledgers,
+    the pipelined lanes a tick behind the eager ones.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -167,6 +195,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import os
 import resource
 import subprocess
 import sys
@@ -242,6 +271,10 @@ FLOAT_TICKS = 8
 # 1M target as 8 Spaces
 SPACES = 8
 SPACE_N = 1 << 17
+# [15]'s served World of SPACES Spaces: 2^14 slots a Space (was 2^17,
+# whose ~1M-entity boot took 159 s of the run, PERF.md §4); cut so
+# that the run, with [18] at 2^20, stays inside its time limit
+SPACE_WORLD_N = 1 << 14
 SPACE_TICKS = 24
 SEED = 0
 # [17] behaviors and scenarios
@@ -251,6 +284,10 @@ SCN_N = 4096
 SCN_TICKS = 4
 BEHAVIOR_WORLD_N = 1 << 16
 BEHAVIOR_WORLD_TICKS = 4
+# [18] the World's remaining planes
+RESTORED_TICKS = 4
+GOVERNOR_SWAPS = ["skin=0", "sweep=table,skin=0", "sort=counting,skin=0",
+                  "default"]
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, the
 # float32 CUDA-core rate (used for the kernels' 32-bit integer work too)
 # and the dense bf16 tensor-core rate (the policy's bf16 products)
@@ -881,7 +918,10 @@ def world_ticks(served, n_ticks: int, teleport: bool) -> tuple[list, dict]:
                  f"{sink['sync_records']}, decode sent "
                  f"{ops['sync_records_sent']}")
         owned = [len(o) for o in w._slot_owner]
-        if out.alive_count.tolist() != owned:
+        # a pipelined World has decoded the previous tick's outputs,
+        # while its slots hold this tick's creates (checked after its
+        # drain by the caller)
+        if not w.pipeline_decode and out.alive_count.tolist() != owned:
             fail(f"World.tick {t + 1}: {out.alive_count.tolist()} alive "
                  f"rows for {owned} entities with slots")
         cfg = w.cfg
@@ -1028,12 +1068,14 @@ def planes_check(w, label: str) -> str:
 
 
 def world_phase(dev, bare: tuple[float, float], tag: str,
-                profiled: dict) -> dict:
+                profiled: dict, eager: dict) -> tuple[dict, object]:
     """[11] the serving World at 2^20 slots at its defaults (the planes
-    on, the carry resident) under its game traffic, then the stress
+    on, the carry resident) under its game traffic (its p50, p99 and
+    spans into ``eager``; then [18]'s pipelined ticks), then the stress
     stream, its step and fold under the sync guard against the plain
-    versions on a clone, and twin Worlds at 2^16; returns each run's
-    launches and adds the fold and the carry copy to ``profiled``."""
+    versions on a clone, and twin Worlds at 2^16 (with [18]'s third,
+    pipelined); returns each run's launches and the served World (for
+    [18]), and adds the fold and the carry copy to ``profiled``."""
     phase0 = time.perf_counter()
     rss0 = rss_mb()
     served = serve_world(N, SEED, dev, boot=True, world_kw=PLANES)
@@ -1049,6 +1091,12 @@ def world_phase(dev, bare: tuple[float, float], tag: str,
     manager._carry_into = event_timed(real_carry, carry_ev, carry_args)
     rows, launches = world_ticks(served, WORLD_TICKS, teleport=False)
     w._telem_fn, manager._carry_into = real_fold, real_carry
+    wall = np.array([r["wall"] for r in rows[1:]]) * 1e3
+    eager.update(p50=float(np.percentile(wall, 50)),
+                 p99=float(np.percentile(wall, 99)),
+                 spans={k: round(float(np.mean([r["spans"][k]
+                                                for r in rows[1:]])) * 1e3, 3)
+                        for k in rows[1]["spans"]})
     for name in ("pos", "vel"):
         if not torch.isfinite(getattr(w.state, name)).all():
             fail(f"non-finite {name} in the World's state")
@@ -1079,6 +1127,7 @@ def world_phase(dev, bare: tuple[float, float], tag: str,
           f"p50={bare[0]:.3f} p99={bare[1]:.3f} ms; the World.tick "
           f"without the planes (PERF.md runs AC, AE) p50 191.5, 368.0 p99 "
           f"249.2, 454.3 ms {tag}", flush=True)
+    pipe_launches = pipelined_part(served, eager, tag)
     # the fold and the carry copy of the last game tick, for [12]
     acc0 = telem.telemetry_init(False, occupancy=True, device=dev)
     f_outs = fold_args["args"][1]
@@ -1201,20 +1250,27 @@ def world_phase(dev, bare: tuple[float, float], tag: str,
           f"worker {(t3 - t2) * 1e3:.3f} ms ({judged['entities_checked']}"
           f" entities judged, {judged['mismatches']} mismatches, which "
           f"the cells past cell_cap allow) {tag}", flush=True)
-    del served, w, cap, st_p, out_p, st_w, out_w, aud_planes
-    release_worlds()
+    del w, cap, st_p, out_p, st_w, out_w, aud_planes
 
     # twin Worlds of 2^16 slots at their defaults: kernels against plain
     # versions
+    # versions, and ([18]) a third on the kernels with its decode
+    # pipelined
     twins = {impl: serve_world(TWIN_N, SEED + 1, dev, record_hooks=True,
-                               keep=True, boot=True, world_kw=PLANES,
+                               keep=True, boot=True, world_kw=dict(
+                                   PLANES, pipeline_decode=impl[2]),
                                sweep_impl=impl[0], sort_impl=impl[1])
-             for impl in (("fused", "pallas"), ("ranges", "argsort"))}
-    (kern, plain_w) = twins.values()
+             for impl in (("fused", "pallas", False),
+                          ("ranges", "argsort", False),
+                          ("fused", "pallas", True))}
+    (kern, plain_w, pipe) = twins.values()
     counts = {"hooks": 0, "sync records": 0, "messages": 0}
     twin_launches = {}
+    kern_kept, pipe_kept, kern_hooks = [], [], []
     for t in range(TWIN_TICKS):
-        for name, sv in zip(("kernels", "plain"), (kern, plain_w)):
+        lanes_before = kern.world._telem_lanes
+        for name, sv in zip(("kernels", "plain", "pipelined"),
+                            (kern, plain_w, pipe)):
             sv.stage(teleport=t % 2 == 1)
             kernels.reset_launches()
             sv.world.tick()
@@ -1222,6 +1278,9 @@ def world_phase(dev, bare: tuple[float, float], tag: str,
                 kernels.LAUNCHES["sweep_fused"]
                 + kernels.LAUNCHES["counting_sort"])
         a, b = kern.sink.take()["kept"], plain_w.sink.take()["kept"]
+        kern_kept += a
+        pipe_kept += pipe.sink.take()["kept"]
+        kern_hooks += kern.hooks
         if len(a) != len(b) or any(
                 x[0] != y[0] or x[1] != y[1] or not (
                     all(np.asarray(u).tobytes() == np.asarray(v).tobytes()
@@ -1252,10 +1311,15 @@ def world_phase(dev, bare: tuple[float, float], tag: str,
         kern.hooks.clear()
         plain_w.hooks.clear()
     if twin_launches != {"kernels": [2] * TWIN_TICKS,
-                         "plain": [0] * TWIN_TICKS}:
+                         "plain": [0] * TWIN_TICKS,
+                         "pipelined": [2] * TWIN_TICKS}:
         fail(f"twin launches a tick {twin_launches}")
     twin_aud = audit_state(kern.world)["oracle"]
-    del twins, kern, plain_w
+    pipe.world.flush_pending_outputs()
+    pipe_kept += pipe.sink.take()["kept"]
+    check_pipelined_twin(kern, pipe, kern_kept, pipe_kept, kern_hooks,
+                         lanes_before, tag)
+    del twins, kern, plain_w, pipe, kern_kept, pipe_kept, kern_hooks
     release_worlds()
     secs = time.perf_counter() - phase0
     print(f"[11] World step on the kernels == make_tick on ranges/argsort "
@@ -1268,7 +1332,517 @@ def world_phase(dev, bare: tuple[float, float], tag: str,
           f"and ledgers for {TWIN_TICKS} ticks, walking and stress syncs in "
           f"turns ({counts}; audit {twin_aud}); phase {secs:.1f} s {tag}",
           flush=True)
-    return {"world": launches, "world_stress": stress_launches}
+    return {"world": launches, "world_stress": stress_launches,
+            "world_pipelined": pipe_launches}, served
+
+
+def pipelined_ticks(served, n_ticks: int) -> tuple[list, dict, dict]:
+    """:func:`world_ticks` on a pipelined World, counting its host syncs
+    (each tick's wait for the copy of the previous tick's outputs, and
+    the decode's reads of the live positions and headings, which wait
+    for the step in flight, as the reference's decode does: at most one
+    of each a tick), then its drain: the slots' owners against the
+    drained tick's alive rows."""
+    w = served.world
+    served.stage()
+    w.tick()  # primes the pipeline: every timed tick decodes one
+    syncs = {"copy waits": 0, "other reads": 0}  # pos/yaw caches
+    real_finish, real_dget = w._finish_copy, w._dget
+
+    def finish(pending):
+        syncs["copy waits"] += 1
+        return real_finish(pending)
+
+    def dget(lanes_):
+        syncs["other reads"] += 1
+        return real_dget(lanes_)
+
+    w._finish_copy, w._dget = finish, dget
+    rows, launches = world_ticks(served, n_ticks, teleport=False)
+    w._finish_copy, w._dget = real_finish, real_dget
+    if syncs["copy waits"] != n_ticks or \
+            syncs["other reads"] > 2 * n_ticks:
+        fail(f"[18] pipelined World host syncs in {n_ticks} ticks: {syncs}")
+    w.flush_pending_outputs()
+    owned = [len(o) for o in w._slot_owner]
+    if w.last_outputs.alive_count.tolist() != owned:
+        fail(f"[18] drained: {w.last_outputs.alive_count.tolist()} alive "
+             f"rows for {owned} entities with slots")
+    return rows, launches, syncs
+
+
+def window_over_cap(spec: GridSpec, pos, alive, watch_radius):
+    """bool[N]: rows one of whose 9 window cells holds more than
+    cell_cap entities (where the table, which keeps a cell's first
+    cell_cap, and the runs of ``ranges``/``fused`` may part)."""
+    cx, cz, srow, _, czp, n_rows = aoi._cell_rows(spec, pos, alive,
+                                                  watch_radius)
+    occ = torch.zeros(n_rows + 1, dtype=torch.int32, device=pos.device)
+    occ.index_add_(0, srow.long(), torch.ones_like(srow))
+    d = torch.arange(-1, 2, device=pos.device)
+    rows = ((cx[:, None, None] + d[None, :, None] + 1) * czp
+            + cz[:, None, None] + d[None, None, :] + 1)
+    return (occ[rows.reshape(-1, 9).long()] > spec.cell_cap).any(1)
+
+
+def pipelined_part(served, eager: dict, tag: str) -> dict:
+    """[18] the first part, run inside [11] on its World right after its
+    game ticks: the decode pipelined from here (the knob is read each
+    tick; the eager decode has just drained), WORLD_TICKS ticks of the
+    same traffic, the planes, one tick's step and fold under the sync
+    guard; then drained and eager again for WORLD_TICKS more ticks (the
+    runs in turns: eager, pipelined, eager) and [11]'s remaining paths.
+    Returns the pipelined run's launches."""
+    t0 = time.perf_counter()
+    w = served.world
+    before = audit_state(w)["oracle"]
+    census0 = w.residency.census_snapshot()["samples"]
+    w.pipeline_decode = True
+    rows, launches, syncs = pipelined_ticks(served, WORLD_TICKS)
+    # the planes: the lanes lag the decode by one tick's accumulator,
+    # the audit records a skip for every sample tick
+    lanes_ = w._telem_lanes
+    held = w.tick_count - 1
+    if sum(lanes_["rebuilt"]["counts"]) != held or \
+            sum(lanes_["occupancy"]["counts"]) != held:
+        fail(f"[18] pipelined lanes hold {sum(lanes_['rebuilt']['counts'])}"
+             f" samples for {held} drained ticks")
+    aud = audit_state(w)
+    skipped = aud["oracle"]["skipped"].get("pipeline_decode", 0)
+    census = w.residency.census_snapshot()
+    if aud["oracle"]["samples"] != before["samples"] or skipped <= 0 \
+            or aud["violations"]:
+        fail(f"[18] pipelined audit {aud}")
+    if census["samples"] <= census0 or census["realloc"]:
+        fail(f"[18] pipelined census {census}")
+    if w.workload_signature() is None:
+        fail("[18] the pipelined World serves no signature")
+    # one tick whose step and fold run under the sync guard
+    real_step, real_fold, cap = w._step, w._telem_fn, {}
+
+    def guarded(state, inputs, policy=None):
+        torch.cuda.set_sync_debug_mode("error")
+        return real_step(state, inputs, policy)
+
+    def fold_guarded(acc, outs):
+        try:
+            return real_fold(acc, outs)
+        except Exception as exc:  # the World would disable its lanes
+            cap["fold_error"] = exc
+            raise
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    w._step, w._telem_fn = guarded, fold_guarded
+    served.stage()
+    w.tick()
+    w._step, w._telem_fn = real_step, real_fold
+    if "fold_error" in cap or w._telem_fn is None:
+        fail(f"[18] the fold under the sync guard: {cap.get('fold_error')}")
+    w.flush_pending_outputs()
+    served.sink.take()
+    w.pipeline_decode = False
+    # eager again for as many ticks, so that the order of the runs on
+    # the World (eager, pipelined, eager) is seen in their times
+    again, _ = world_ticks(served, WORLD_TICKS, teleport=False)
+    wall = np.array([r["wall"] for r in rows[1:]]) * 1e3
+    p50, p99 = float(np.percentile(wall, 50)), float(np.percentile(wall, 99))
+    wall2 = np.array([r["wall"] for r in again[1:]]) * 1e3
+    spans2 = {k: round(float(np.mean([r["spans"][k] for r in again[1:]]))
+                       * 1e3, 3) for k in again[1]["spans"]}
+    print(f"[18] pipelined decode on [11]'s World right after its game "
+          f"ticks (pipeline_decode turned on between ticks): "
+          f"{WORLD_TICKS} World.ticks of the same traffic, launches "
+          f"{launches}, one sweep and one sort a tick; host syncs {syncs} "
+          f"(a tick: one wait for the copy of the previous tick's outputs,"
+          f" and the decode's reads of the live positions and headings "
+          f"for clients' enter messages, which wait for the step in "
+          f"flight as the reference's do; the step and the fold under the"
+          f" sync guard raise none); {world_summary(rows, w.cfg)}; "
+          f"against [11]'s eager World.tick p50={eager['p50']:.3f} "
+          f"p99={eager['p99']:.3f} ms, spans {eager['spans']}: p50 "
+          f"{p50 - eager['p50']:+.3f} ms, p99 {p99 - eager['p99']:+.3f} "
+          f"ms; then eager again for {WORLD_TICKS} ticks: p50="
+          f"{np.percentile(wall2, 50):.3f} p99={np.percentile(wall2, 99):.3f}"
+          f" ms, spans {spans2}; planes: lanes hold the {held} drained "
+          f"ticks, the audit "
+          f"skipped {skipped} sample ticks as pipeline_decode, census "
+          f"{census['samples']} samples, 0 re-allocated; "
+          f"{time.perf_counter() - t0:.1f} s {tag}", flush=True)
+    return launches
+
+
+def planes_phase(dev, served, tag: str) -> dict:
+    """[18] the rest, on [11]'s World after its ticks: freeze and the
+    snapshot chain, a restore into a fresh World at the uncut config's
+    skin and the governor's swaps on that World; returns each path's
+    launches."""
+    import shutil
+    import tempfile
+
+    from goworld_tpu_torch import freeze
+    from goworld_tpu_torch.workload import _game_types
+
+    phase0 = time.perf_counter()
+    w = served.world
+    gc.freeze()  # as serve_world left it: [11]'s twins unfroze it
+    # freeze and the snapshot chain on this World, after its ticks
+    out_dir = tempfile.mkdtemp(dir=kernels.BUILD_DIR)
+    t0 = time.perf_counter()
+    handle = freeze.checkpoint_async(w, out_dir)
+    t_ret = time.perf_counter() - t0
+    for _ in range(2):  # the World ticks on while the worker writes
+        served.stage()
+        w.tick()
+    handle.join(900)
+    chain = freeze.SnapshotChain(w, out_dir, keyframe_every=8)
+    recs, chain_ms = {}, {}
+    for step in ("key", "delta"):
+        if step == "delta":
+            for _ in range(8):
+                served.stage()
+                w.tick()
+        t0 = time.perf_counter()
+        captured = chain.capture()
+        t1 = time.perf_counter()
+        data, _tick = chain.complete_capture(captured)
+        kind, rec = chain.build(data)
+        path = chain.write_record(kind, rec)
+        t2 = time.perf_counter()
+        if kind != step:
+            fail(f"[18] the chain wrote a {kind} for a {step}")
+        # a delta resolves against its keyframe's planes alone: the
+        # keyframe's host section (a million records) goes at once
+        recs[step] = rec if step == "delta" else {"kind": "key",
+                                                  "planes": rec["planes"]}
+        del rec
+        chain_ms[step] = ((t1 - t0) * 1e3, (t2 - t1) * 1e3,
+                          os.path.getsize(path))
+    src_ents = len(recs["delta"]["host"]["entities"])
+    shipped = int((np.frombuffer(recs["delta"]["rows"], np.int32) < 0)
+                  .sum())
+    t0 = time.perf_counter()
+    w.audit.scrub_snapshots(out_dir, w.game_id, w.tick_count)
+    scrub_s = time.perf_counter() - t0
+    scrub = dict(w.audit.scrub_stats)
+    if scrub["files"] != 2 or scrub["corrupt"]:
+        fail(f"[18] scrub of the chain: {scrub}")
+    print(f"[18] freeze on [11]'s World after its ticks ({src_ents} "
+          f"entities): checkpoint_async capture on the tick thread "
+          f"{handle.capture_s * 1e3:.1f} ms (returned in "
+          f"{t_ret * 1e3:.1f} ms), worker {handle.worker_s:.2f} s, "
+          f"{handle.nbytes} B; SnapshotChain keyframe capture "
+          f"{chain_ms['key'][0]:.1f} ms on the tick thread, fetch + build "
+          f"+ write {chain_ms['key'][1]:.1f} ms, {chain_ms['key'][2]} B; "
+          f"8 ticks on, delta capture {chain_ms['delta'][0]:.1f} ms, "
+          f"{chain_ms['delta'][1]:.1f} ms, {chain_ms['delta'][2]} B "
+          f"({shipped} of {src_ents} rows shipped); scrub_snapshots "
+          f"{scrub} in {scrub_s:.1f} s {tag}", flush=True)
+    del served, w, handle, chain, captured, data
+    release_worlds()
+
+    # restore into a fresh World of 2^20 slots at the uncut config's skin
+    want = chain_planes(recs)
+    data = freeze.resolve_record(recs["delta"], recs["key"])
+    ucfg = uncut_config(N)
+    rw = manager.World(ucfg, seed=SEED, device=dev, **PLANES)
+    for name, cls in zip(("Mob", "Player", "Arena"), _game_types(None)):
+        (rw.register_space if name == "Arena" else rw.register_entity)(
+            name, cls)
+    rw.create_nil_space()
+    t0 = time.perf_counter()
+    freeze.restore_world(rw, data)
+    restore_s = time.perf_counter() - t0
+    # the restored World's staged poses, quantized as the chain
+    # quantizes them, are the source's lattice planes byte for byte (its
+    # moving flags are staged with the spawns: checked on the device
+    # after the first tick)
+    ents = [rw.entities[e["id"]] for e in data["entities"]]
+    got = staged_planes(ents, freeze.SnapshotChain(rw, out_dir))
+    for nm in ("pos_xz", "pos_y", "yaw"):
+        if got[nm] != want[nm]:
+            fail(f"[18] the restored World's {nm} plane differs from the "
+                 f"source's lattice plane")
+    del ents, got
+    shutil.rmtree(out_dir)
+    restored, rebuilt = [], []
+    for t in range(RESTORED_TICKS):
+        kernels.reset_launches()
+        rw.tick()
+        restored.append(dict(kernels.LAUNCHES))
+        rebuilt.append(int(rw.last_outputs.aoi_rebuilt[0]))
+        if t == 0:
+            ents = [rw.entities[e["id"]] for e in data["entities"]]
+            got = rw.state.npc_moving[0].cpu().numpy()[
+                [e.slot for e in ents]]
+            if got.astype(np.uint8).tobytes() != want["moving"]:
+                fail("[18] the restored World's moving flags differ from "
+                     "the source's plane")
+            del ents, got
+    del want
+    if any(r != {"sweep_fused": 1, "counting_sort": 1,
+                 "halo_ship_phase": 0, "npc_mlp": 0} for r in restored):
+        fail(f"[18] restored World launches a tick {restored}")
+    if rebuilt[0] != 1:
+        fail("[18] the restored World's first tick did not rebuild its "
+             "Verlet cache")
+    # the players never move on their own: their rows hold the restored
+    # lattice positions and headings after the ticks
+    rec_by_id = {e["id"]: e for e in data["entities"]}
+    # (those whose staged pose has landed: the restore stages one a
+    # slot, and input_cap of them land a tick)
+    players = [e for e in rw.entities.values()
+               if e.type_name == "Player" and e.slot is not None
+               and e._pending_pos is None]
+    slots = torch.tensor([e.slot for e in players], device=dev)
+    got_pos = rw.state.pos[0, slots].cpu().numpy()
+    got_yaw = rw.state.yaw[0, slots].cpu().numpy()
+    ref_pos = np.array([rec_by_id[e.id]["pos"] for e in players],
+                       np.float32)
+    ref_yaw = np.array([rec_by_id[e.id]["yaw"] for e in players],
+                       np.float32)
+    if not (np.array_equal(got_pos, ref_pos)
+            and np.array_equal(got_yaw, ref_yaw)):
+        fail("[18] the restored players' rows differ from the source's "
+             "lattice planes")
+    print(f"[18] restore into a fresh World of {N} slots (the uncut "
+          f"config, skin {ucfg.grid.skin}): {len(data['entities'])} "
+          f"entities in {restore_s:.2f} s; its staged poses == the "
+          f"source's lattice planes byte for byte "
+          f"(pos_xz, pos_y, yaw; its device moving flags after the first "
+          f"tick, moving); "
+          f"{RESTORED_TICKS} ticks, launches a tick "
+          f"{restored[-1]}, Verlet rebuilds {rebuilt}; "
+          f"{len(players)} players' rows == their restored lattice pos "
+          f"and yaw ({len(rw._staged_pos)} poses still staged at "
+          f"input_cap {ucfg.input_cap} a tick) {tag}", flush=True)
+    del data, rec_by_id, recs
+    launches_by = {"restored": {k: sum(r[k] for r in restored)
+                                for k in restored[0]}}
+    launches_by.update(governor_swaps(dev, rw, tag))
+    del rw
+    release_worlds()
+    print(f"[18] phase {time.perf_counter() - phase0:.1f} s {tag}",
+          flush=True)
+    return launches_by
+
+
+def staged_planes(ents, chain) -> dict:
+    """The pos_xz, pos_y and yaw planes of ``ents``' staged poses (a
+    restore stages each entity's pose), quantized as
+    ``freeze._extract_planes`` quantizes a record's, in numpy."""
+    from goworld_tpu_torch import freeze
+
+    pos = np.array([e._pending_pos for e in ents], np.float64)
+    yaw = np.array([e._pending_yaw for e in ents], np.float64)
+    (ox, oz), step = chain.origin, chain.step
+    qxz = np.clip(np.floor((pos[:, [0, 2]] - (ox, oz)) / step), 0, 32767)
+    qyaw = (np.round(yaw / freeze.YAW_STEP).astype(np.int64) & 0xFFFF) \
+        .astype(np.uint16).view(np.int16)
+    return {"pos_xz": qxz.astype(np.int16).tobytes(),
+            "pos_y": pos[:, 1].astype(np.float32).tobytes(),
+            "yaw": qyaw.tobytes()}
+
+
+def chain_planes(recs: dict) -> dict:
+    """The quantized planes the chain's delta record resolves to (its
+    rows taken from the keyframe or its own sparse section)."""
+    rows = np.frombuffer(recs["delta"]["rows"], np.int32)
+    ref = rows >= 0
+    out = {}
+    for nm, (dt, wd) in (("pos_xz", (np.int16, 2)),
+                         ("pos_y", (np.float32, 1)),
+                         ("yaw", (np.int16, 1)), ("moving", (np.uint8, 1))):
+        kp = np.frombuffer(recs["key"]["planes"][nm], dt).reshape(-1, wd)
+        sp = np.frombuffer(recs["delta"]["sparse"][nm], dt).reshape(-1, wd)
+        o = np.zeros((rows.size, wd), dt)
+        o[ref] = kp[rows[ref]]
+        o[~ref] = sp
+        out[nm] = o.tobytes()
+    return out
+
+
+def governor_swaps(dev, rw, tag: str) -> dict:
+    """[18] the governor on ``rw`` (2^20 slots at the uncut config's
+    skin): every default candidate warmed, then commits forced through
+    ``default -> skin=0 -> sweep=table,skin=0 -> sort=counting,skin=0 ->
+    default``; each swap's first tick held bit for bit against a fresh
+    ``make_tick`` at the target config on a clone of the carried state,
+    and the launches of each config's ticks counted; under ``table`` its
+    sweep timed beside ``fused``'s on the same positions; the World's
+    cost report at the end. Returns each config's launches."""
+    from goworld_tpu_torch.autotune import KernelGovernor
+
+    gov = KernelGovernor(rw, name="chip_smoke", up_windows=1,
+                         cooldown_windows=0)
+    t0 = time.perf_counter()
+    gov.warmset.warm_all()
+    warm_all_s = time.perf_counter() - t0
+    warms = {}
+    for lbl in gov.warmset.labels():
+        e = gov.warmset.entry(lbl)
+        if not e.warm:
+            fail(f"[18] warming {lbl}: {e.error}")
+        warms[lbl] = round(e.warm_s, 3)
+    swaps, launches_by, table_line = [], {}, ""
+    for label in GOVERNOR_SWAPS:
+        t0 = time.perf_counter()
+        # a forced commit, as the governor commits a decided, warm swap
+        ev = gov._commit(label, "chip_smoke", pre_p90=None)
+        swap_ms = (time.perf_counter() - t0) * 1e3
+        if ev is None or rw.cfg.grid != gov.warmset.entry(label).cfg.grid:
+            fail(f"[18] the swap to {label} did not commit ({ev})")
+        real, cap = rw._step, {}
+
+        def first(state, inputs, policy=None, real=real, cap=cap):
+            cap["state"] = state.apply(torch.clone)
+            cap["inputs"] = type(inputs)(**{
+                f.name: getattr(inputs, f.name).clone()
+                for f in dataclasses.fields(inputs)})
+            new = real(state, inputs, policy)
+            cap["new"] = (new[0].apply(torch.clone), new[1])
+            return new
+
+        rw._step = first
+        kernels.reset_launches()
+        rw.tick()
+        rw._step = real
+        ticks = [dict(kernels.LAUNCHES)]
+        st_f, out_f = make_tick(rw.cfg, device=dev)(
+            first_space(cap["state"]), first_space(cap["inputs"]))
+        for what, a, b in (("state", first_space(cap["new"][0]), st_f),
+                           ("output", first_space(cap["new"][1]), out_f)):
+            la, lb = lanes(a), lanes(b)
+            for name in la:
+                if not same_bits(la[name], lb[name]):
+                    fail(f"[18] the first tick after the swap to {label}: "
+                         f"{what} lane {name} != a fresh make_tick")
+        del cap, st_f, out_f
+        kernels.reset_launches()
+        rw.tick()
+        ticks.append(dict(kernels.LAUNCHES))
+        g = rw.cfg.grid
+        want = {"sweep_fused": int(g.sweep_impl == "fused"),
+                "counting_sort": int(g.sort_impl == "pallas"),
+                "halo_ship_phase": 0, "npc_mlp": 0}
+        if any(t != want for t in ticks):
+            fail(f"[18] launches a tick under {label}: {ticks}")
+        launches_by[f"governor {label}"] = {
+            k: sum(t[k] for t in ticks) for k in want}
+        swaps.append(f"{label} {swap_ms:.3f} ms")
+        if g.sweep_impl == "table":
+            table_line = table_beside_fused(rw, g)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rw.tick()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    rep = rw.cost_report()
+    if rep.error:
+        fail(f"[18] cost report: {rep.error}")
+    print(f"[18] governor on the restored World ({N} slots, default = "
+          f"skin {gov.warmset.entry('default').cfg.grid.skin}): warmed "
+          f"{gov.warmset.labels()} in {warm_all_s:.2f} s ({warms} s "
+          f"each, off the tick thread's stream); forced commits "
+          f"{' -> '.join(['default'] + GOVERNOR_SWAPS)}, tick-thread ms "
+          f"a swap: {', '.join(swaps)}; each swap's first tick == a fresh "
+          f"make_tick at its config on a clone of the carried state, bit "
+          f"for bit; launches {launches_by}; swap log {gov.log_lines()}; "
+          f"{table_line}; cost_report: bytes_accessed "
+          f"{rep.bytes_accessed:.6g}, flops {rep.flops:.6g}, argument "
+          f"{rep.argument_size} B, output {rep.output_size} B, aliased "
+          f"{rep.alias_size} B, peak {rep.peak_hbm_bytes} B, against "
+          f"torch.cuda.max_memory_allocated {peak} B over one tick {tag}",
+          flush=True)
+    return launches_by
+
+
+def table_beside_fused(rw, g: GridSpec) -> str:
+    """``sweep_impl="table"`` and ``fused`` on the World's positions at
+    its config: equal in every output lane on each row no cell past
+    cell_cap touches (the table keeps a cell's first cell_cap, the runs
+    more), and their ms by CUDA events."""
+    st = first_space(rw.state)
+    flags = st.dirty.to(torch.int32) | (st.has_client.to(torch.int32) << 1)
+    fused = dataclasses.replace(g, sweep_impl="fused")
+
+    def run(spec):
+        return grid_neighbors_flags(spec, st.pos, st.alive,
+                                    watch_radius=st.aoi_radius,
+                                    flag_bits=flags, with_stats=True)
+
+    a, b = run(g), run(fused)
+    ok = ~window_over_cap(g, st.pos, st.alive, st.aoi_radius)
+    for x, y in zip(a[:3], b[:3]):
+        if not torch.equal(x[ok], y[ok]):
+            fail("[18] the table sweep differs from fused on a row below "
+                 "the caps")
+    if not all(int(x) == int(y) for x, y in zip(a[3][2:], b[3][2:])):
+        fail("[18] the table sweep's cell gauges differ from fused's")
+    table_ms = time_ms(lambda: run(g), 5, 1)
+    fused_ms = time_ms(lambda: run(fused), 5, 1)
+    return (f"under table, grid_neighbors_flags {table_ms:.3f} ms beside "
+            f"fused's {fused_ms:.3f} ms by events, equal in every output "
+            f"lane on the {int(ok.sum())} rows no cell past cell_cap "
+            f"touches ({int((~ok).sum())} rows apart)")
+
+
+def check_pipelined_twin(eager, pipe, eager_kept: list, pipe_kept: list,
+                         eager_hooks: list, lanes_before, tag: str) -> None:
+    """[18] [11]'s twin of 2^16 slots on the kernels against a third
+    twin whose decode is pipelined, after the pipelined one's drain: the
+    same sinks and hooks (as multisets: the pipelined decode runs a tick
+    later), state, interest sets and ledgers; its drained lanes are the
+    eager one's a tick earlier."""
+    def key(x):
+        if x[0] == "sync":
+            return (x[0], x[1], *(np.asarray(u).tobytes() for u in x[2:]))
+        # an enter message's pose and attrs are read at its decode, a
+        # tick later when pipelined, as the reference's are
+        return (x[0], x[1], x[2], x[3]["type"], x[3].get("eid"))
+
+    # a decode sends no enter message of a subject destroyed since (a
+    # tick later when pipelined), and attr deltas go to the watchers of
+    # the decode that drains them: the messages of destroyed subjects
+    # and the attr deltas are left out, every sync record is compared
+    gone = {e for sv in (eager, pipe) for e, x in sv.world.entities.items()
+            if x.destroyed} | {x[3].get("eid") for kept in (eager_kept,
+                                                           pipe_kept)
+                               for x in kept if x[0] == "msg"
+                               and x[3].get("eid") not in
+                               eager.world.entities}
+
+    def kept(items):
+        return sorted(key(x) for x in items if x[0] == "sync" or (
+            x[3]["type"] != "attrs" and x[3].get("eid") not in gone))
+
+    n_sink = len(kept(pipe_kept))
+    if kept(eager_kept) != kept(pipe_kept):
+        fail("[18] pipelined and eager twins' sinks differ")
+    if sorted(map(repr, eager_hooks)) != sorted(map(repr, pipe.hooks)):
+        fail("[18] pipelined and eager twins' hook calls differ")
+    sa = interop.state_to_numpy(eager.world.state)
+    sb = interop.state_to_numpy(pipe.world.state)
+    if any(sa[k].tobytes() != sb[k].tobytes() for k in sa):
+        fail("[18] pipelined and eager twins' states differ")
+    ia = {e.id: frozenset(e.interested_in)
+          for e in eager.world.entities.values()}
+    ib = {e.id: frozenset(e.interested_in)
+          for e in pipe.world.entities.values()}
+    if ia != ib:
+        fail("[18] pipelined and eager twins' interest sets differ")
+    if eager.world.audit.ledger.snapshot(tick=0) != \
+            pipe.world.audit.ledger.snapshot(tick=0):
+        fail("[18] pipelined and eager twins' ledgers differ")
+    if pipe.world._telem_lanes != lanes_before:
+        fail("[18] the pipelined twin's lanes are not the eager one's a "
+             "tick earlier")
+    print(f"[18] [11]'s twin Worlds of {TWIN_N} slots on the kernels, one "
+          f"with its decode pipelined, {TWIN_TICKS} ticks: after the drain "
+          f"the same {n_sink} sink items (every sync record; the entity "
+          f"messages of subjects not destroyed) and the same hooks (as "
+          f"multisets), state, interest sets and ledgers; the pipelined "
+          f"lanes are the eager ones a tick earlier {tag}", flush=True)
 
 
 def diff_count(a, b):
@@ -1777,8 +2351,8 @@ def spaces_phase(dev, bare: tuple[float, float], tag: str,
           f"{N}: p50={bare[0]:.3f} p99={bare[1]:.3f} {tag}", flush=True)
 
     # the served game of SPACES Spaces at its defaults
-    served = serve_world(SPACE_N, SEED, dev, boot=True, world_kw=PLANES,
-                         spaces=SPACES)
+    served = serve_world(SPACE_WORLD_N, SEED, dev, boot=True,
+                         world_kw=PLANES, spaces=SPACES)
     w = served.world
     n_pop = len(w.entities) - SPACES - 1
     rows, w_launches = world_ticks(served, WORLD_TICKS, teleport=False)
@@ -1807,7 +2381,8 @@ def spaces_phase(dev, bare: tuple[float, float], tag: str,
         fail(f"[15] the World's step or fold under the sync guard: "
              f"{guard.get('error')}")
     planes = planes_check(w, "[15] World")
-    print(f"[15] served World of {SPACES} Spaces x {SPACE_N} slots at its "
+    print(f"[15] served World of {SPACES} Spaces x {SPACE_WORLD_N} slots "
+          f"at its "
           f"defaults: {n_pop} entities ({served.players.size} players) "
           f"booted through {served.boot_ticks} ticks "
           f"({served.boot_events} enter events, none past a Space's cap) "
@@ -1879,9 +2454,10 @@ def mlp_held_to_plain():
     (rows, bit-equal) for each call. The plain run launches nothing."""
     seen, real = [], npc_policy.npc_mlp
 
-    def held(obs, *ws):
-        out = real(obs, *ws)
-        seen.append((obs.shape[0], nan_same(out, npc_mlp_plain(obs, *ws))))
+    def held(obs, *ws, per_row=False):
+        out = real(obs, *ws, per_row=per_row)
+        seen.append((obs.shape[0],
+                     nan_same(out, npc_mlp_plain(obs, *ws, per_row))))
         return out
     npc_policy.npc_mlp = held
     try:
@@ -2491,8 +3067,12 @@ def main() -> int:
     phase_done("[8]-[9]")
     small_oracle(dev)
     phase_done("[10]")
-    world = world_phase(dev, (p50, p99), tag, profiled)
+    eager = {}
+    world, served = world_phase(dev, (p50, p99), tag, profiled, eager)
     phase_done("[11]")
+    world.update(planes_phase(dev, served, tag))
+    del served
+    phase_done("[18]")
     gate, world["verlet"] = verlet_phase(dev, tag, profiled)
     phase_done("[13]")
     gate_q16, world["q16"] = q16_phase(dev, tag)

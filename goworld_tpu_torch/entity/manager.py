@@ -37,7 +37,10 @@ device seams, rewritten for torch:
   ``pos``/``alive``/``aoi_radius`` planes in one device-to-host copy and
   one stream synchronisation, as numpy arrays in the JAX package's
   types, so the decode (:meth:`World._process_outputs`) is the JAX
-  decode;
+  decode; with ``pipeline_decode`` the copy of tick N's outputs and
+  accumulator rides a copy stream into pinned memory while tick N + 1
+  runs (:meth:`World._start_copy`), and tick N + 1's fetch waits for
+  that copy's event alone;
 * the lazy per-tick position and yaw caches (:meth:`World.read_pos`,
   :meth:`World.read_yaw`).
 
@@ -53,11 +56,12 @@ reference; a failure of the step is never caught.
 
 The World hosts ``n_spaces`` AOI Spaces on one device (``mesh=None``),
 with the JAX World's staged device migration between them
-(:meth:`World.enter_space`). The JAX World's other shapes and planes (a
-mesh, the megaspace, pipelined decode, delta snapshots, the governor's
-config swap, the step's cost report, multihost) raise
-``NotImplementedError`` naming ROADMAP.md; none is substituted by
-another path.
+(:meth:`World.enter_space`), and the JAX World's other planes: the
+pipelined decode, the keyframe cadence of the snapshot chain
+(:mod:`goworld_tpu_torch.freeze`), the governor's config swap
+(:meth:`World.apply_tick_config`) and the step's cost report. Its other
+shapes (a mesh, the megaspace, multihost) raise ``NotImplementedError``
+naming ROADMAP.md; none is substituted by another path.
 
 Slot lifecycle contract (``SURVEY.md#7``): a slot freed by a host despawn
 is flushed before the step, so its watchers' leave events fire in THAT
@@ -210,6 +214,43 @@ def _batched_config(cfg: WorldConfig) -> WorldConfig:
         grid=dataclasses.replace(cfg.grid, skin=0.0))
 
 
+def _pack_words(lanes: list[torch.Tensor]) -> torch.Tensor:
+    """Every lane's 32-bit words in one int32 tensor made by one
+    concatenation (a 1-byte lane, such as ``alive``, padded to whole
+    words first)."""
+    words = []
+    for t in lanes:
+        t = t.detach().reshape(-1)
+        if t.element_size() == 1:
+            pad = t.new_zeros(-t.numel() % 4, dtype=torch.uint8)
+            t = torch.cat([t.view(torch.uint8), pad])
+        words.append(t.view(torch.int32))
+    return torch.cat(words)
+
+
+def _unpack_words(got: np.ndarray, lanes) -> list[np.ndarray]:
+    """The lanes of :func:`_pack_words`'s words ``got`` (host int32) as
+    numpy in the JAX package's types; ``lanes`` gives each lane's shape
+    and dtype (tensors, or ``(shape, dtype)`` pairs)."""
+    out, off = [], 0
+    for t in lanes:
+        shape, dtype = (tuple(t.shape), t.dtype) if torch.is_tensor(t) \
+            else t
+        n = int(np.prod(shape, dtype=np.int64))
+        if dtype in (torch.bool, torch.uint8, torch.int8):
+            nw = -(-n // 4)
+            a = got[off:off + nw].view(np.uint8)[:n].view(
+                np.bool_ if dtype == torch.bool else np.uint8)
+        else:
+            nw = n
+            a = got[off:off + n]
+            if dtype == torch.float32:
+                a = a.view(np.float32)
+        out.append(a.reshape(shape))
+        off += nw
+    return out
+
+
 def _keep_last(lin: np.ndarray) -> np.ndarray:
     """Positions of the last occurrence of each value of ``lin``, in
     ascending order of value: the writes of a staged list that survive
@@ -260,6 +301,11 @@ class World:
       n_spaces: number of AOI shards in the stacked state; with more
         than one the step runs them batched, without the skin.
       mesh: must be None (a mesh is not ported yet).
+      pipeline_decode: decode each tick's outputs during the next tick
+        (host events and client sends lag one tick; despawned slots are
+        released a decode later; :meth:`flush_pending_outputs` drains).
+        Read each tick: it may be turned on between ticks, and off
+        after :meth:`flush_pending_outputs`.
       clock: injectable time source for timers (tests pass virtual time).
       device: where the state and the step live: the card unless the
         caller asks for the CPU; raises when no card is present.
@@ -267,7 +313,11 @@ class World:
     The planes default as in the JAX World: ``telemetry_live``,
     ``residency`` and ``audit`` on, sampled every
     ``residency_sample_every`` and ``audit_sample_every`` ticks, the
-    audit judging ``audit_cohort`` entities a sample. ``resident=True``
+    audit judging ``audit_cohort`` entities a sample (none under
+    ``pipeline_decode``, which decodes a tick late and so lags the
+    positions the oracle would read: every sample is a recorded skip).
+    ``snapshot_keyframe_every`` is kept for the snapshot chain's
+    callers. ``resident=True``
     (the default) keeps the carry's storage from tick to tick: the JAX
     World deletes an old carry so that reading it raises, which torch
     cannot do, so a reference to ``w.state``'s tensors taken before a
@@ -304,14 +354,21 @@ class World:
             raise _refuse("the megaspace World", "A8")
         if n_spaces < 1:
             raise ValueError(f"n_spaces must be >= 1, got {n_spaces}")
-        for name, on in (("pipeline_decode", pipeline_decode),
-                         ("snapshot_keyframe_every",
-                          snapshot_keyframe_every > 0)):
-            if on:
-                raise _refuse(name)
         if n_spaces > 1 and has_behaviors(cfg):
             raise _refuse("behaviors and scenarios at n_spaces > 1", "A item 3")
         self.device = resolve_device(device)
+        # delta-compressed snapshot cadence (freeze.SnapshotChain): every
+        # Nth checkpoint a full quantized keyframe, the rest plane deltas
+        # against it; 0 = whole snapshots. Kept for the chain's callers.
+        self.snapshot_keyframe_every = max(0, int(snapshot_keyframe_every))
+        # pipelined decode (see _tick_phases): the decode of tick N runs
+        # while the card computes tick N + 1; its copies ride a stream
+        # of their own
+        self.pipeline_decode = bool(pipeline_decode)
+        self._pending_outs = None     # (copy, split) of the last tick
+        self._pending_telem = None    # host accumulator left by a drain
+        self._age_pending_mark: tuple[int, int] | None = None
+        self._copy_stream = None      # made at the first pipelined copy
         self.cfg = cfg
         self.n_spaces = n_spaces
         self.game_id = game_id
@@ -332,9 +389,8 @@ class World:
         self._step = _make_local_tick(cfg, n_spaces, self.device, resident)
 
         # the step's cost report, as a lazy devprof provider (run only
-        # when asked for; its report raises until it is ported), held
-        # through a weakref: the registry is process-global and must
-        # not pin a discarded World's device state
+        # when asked for), held through a weakref: the registry is
+        # process-global and must not pin a discarded World's device state
         wself = weakref.ref(self)
 
         def _tick_cost_provider():
@@ -453,8 +509,10 @@ class World:
         self._scr_gate = np.zeros((cfg.sync_cap,), np.int32)
         self._scr_eid = np.zeros((cfg.sync_cap,), "S16")
         # (shard, slot, expected_owner_eid): release only applies if the
-        # slot still belongs to that entity
+        # slot still belongs to that entity; under pipeline_decode a
+        # despawn's release waits one decode more (_release_next)
         self._release_now: list[tuple[int, int, str | None]] = []
+        self._release_next: list[tuple[int, int, str | None]] = []
 
         # attr journaling
         self._dirty_attr_entities: dict[str, list[AttrDelta]] = {}
@@ -900,6 +958,18 @@ class World:
     def stage_pos_set(self, e: Entity) -> None:
         if e.slot is not None and e.shard is not None:
             self._staged_pos[(e.shard, e.slot)] = e
+
+    def stage_pose(self, e: Entity, pos, yaw: float,
+                   moving: bool | None = None) -> None:
+        """Overwrite an entity's authoritative pose from a snapshot and
+        stage the device-row write (the restore path; flushed with the
+        position inputs on the next tick). ``moving=None`` leaves the
+        moving flag unstaged."""
+        e._pending_pos = tuple(map(float, pos))
+        e._pending_yaw = float(yaw)
+        self.stage_pos_set(e)
+        if moving is not None:
+            self.set_moving(e, bool(moving))
 
     def _sync_pos_index(self) -> tuple:
         """eid -> (shard, slot) intern index over client-bound live
@@ -1399,16 +1469,71 @@ class World:
         return sig
 
     # ==================================================================
-    # planes of the JAX World that this slice refuses
+    # live tick-config swap (autotune governor)
     # ==================================================================
-    def apply_tick_config(self, *args, **kwargs) -> None:
-        """The governor's live config swap (not ported yet)."""
-        raise _refuse("apply_tick_config (the autotune governor)")
+    def apply_tick_config(self, cfg2, step, *, telem_fold=None,
+                          telem_acc0=None, telem_skin_on: bool = False,
+                          telem_half_skin: float = 0.0) -> None:
+        """Swap the resolved tick config BETWEEN ticks — the autotune
+        governor's commit path (:mod:`goworld_tpu_torch.autotune`).
+        ``step`` is the candidate's built and warmed step
+        (:func:`_make_local_tick` at ``cfg2``, run once off the tick
+        thread by the warm set, so nothing builds or first-launches
+        here), ``cfg2`` its resolved WorldConfig. State carries over
+        untouched except the Verlet cache, which is dropped or
+        re-allocated invalid when the skin (or any cache-shaping knob)
+        flips — the next tick rebuilds, so the swap is exact from its
+        first tick.
+
+        The live telemetry lanes follow the new config's lane set: the
+        warmed fold and a copy of its zeroed accumulator swap in when
+        given, else the lanes re-initialize; either way the signature
+        window restarts — a window must never straddle two configs."""
+        if self.n_spaces != 1:
+            raise ValueError(
+                "apply_tick_config serves single-shard non-mesh worlds")
+        from goworld_tpu_torch.autotune.warmset import carry_state
+
+        # a pipelined decode holding last tick's outputs must drain
+        # first: they belong to the OLD config
+        self.flush_pending_outputs()
+        self._pending_telem = None
+        self.state = carry_state(self.state, self.cfg, cfg2, stacked=True)
+        self.cfg = cfg2
+        self._step = step
+        if self._telem_fn is not None or telem_fold is not None:
+            if telem_fold is not None and telem_acc0 is not None:
+                self._telem_fn = telem_fold
+                # folds write the accumulator in place: the entry's zeroed
+                # one stays zeroed for a later swap back
+                self._telem_acc = telem.telemetry_clone(telem_acc0)
+                self._telem_skin_on = bool(telem_skin_on)
+                self._telem_half_skin = float(telem_half_skin)
+            elif self.telemetry_live:
+                try:
+                    self._init_live_telemetry()
+                except Exception:
+                    logger.exception(
+                        "live telemetry re-init failed on swap; disabled")
+                    self._telem_fn = self._telem_acc = None
+            # fresh window: drained lanes/marks of the old lane set must
+            # never delta against the new accumulator
+            self._telem_lanes = None
+            self._telem_win = None
+            self._telem_win_tick = self.tick_count
+            self._telem_last_window = None
+            self._telem_feed_mark = None
 
     def cost_report(self):
-        """The compiled step's cost report (not ported yet: it reads an
-        XLA executable's cost analysis, which a torch step has not)."""
-        raise _refuse("cost_report (devprof)")
+        """The step's cost report (:func:`devprof.cost_report`): the
+        kernels' work and the roofline model's bytes at this World's
+        config, and its state's, inputs' and outputs' bytes. Built from
+        shapes; errors are folded into the report, never raised."""
+        return devprof.cost_report(
+            self.cfg, self.n_spaces, self.state, policy=self.policy,
+            resident=self.resident, name="world.tick",
+            config=devprof.grid_config_key(self.cfg.grid),
+            n=self.cfg.capacity * self.n_spaces)
 
     # ==================================================================
     # the tick
@@ -1462,33 +1587,63 @@ class World:
             # inter-dispatch gap
             rt.mark_dispatch()
         # audit-oracle cohort planes: on a sample tick the judged
-        # shard's pos/alive/aoi_radius ride the same fetch below
+        # shard's pos/alive/aoi_radius ride the same fetch below (not
+        # under pipelining, where the audit skips its samples)
         aud_req = None
         ap = self.audit
-        if ap is not None and ap.want_sample(self.tick_count):
+        if (ap is not None and not self.pipeline_decode
+                and ap.want_sample(self.tick_count)):
             s = self._audit_shard % self.n_spaces
             aud_req = (self.state.pos[s], self.state.alive[s],
                        self.state.aoi_radius[s])
-        with tl.span("fetch_outputs"):
-            if rt is not None:
-                rt.mark_fetch()
-            outs, acc_host, aud_host = self._fetch(
-                outs, self._telem_acc, aud_req)
-            if rt is not None:
-                # outputs are host-visible: the device_wait lane ends
-                rt.mark_visible()
-            if acc_host is not None:
-                try:
-                    self._ingest_telemetry(acc_host)
-                except Exception:
-                    logger.exception(
-                        "live telemetry drain failed; disabled")
-                    self._telem_fn = self._telem_acc = None
-        # outputs are host-visible NOW: close the device_tick lane
-        self.sync_age_anchor = (age_mark[0], age_mark[1],
-                                int(time.time() * 1e6))
-        # launch of the step plus the wait for its outputs: how long
-        # this frame waited on the device
+        aud_host = None
+        if self.pipeline_decode:
+            # PIPELINED decode: tick N's outputs and accumulator start
+            # their copy to the host now, on the copy stream, while tick
+            # N - 1's (copied while this tick's step ran) are fetched and
+            # decoded below. The frame pays max(device, host decode)
+            # instead of their sum; host-visible events and client sends
+            # lag one tick, and despawn releases one decode more
+            # (_release_next). Freeze and swap paths call
+            # flush_pending_outputs() first. Nothing to decode on the
+            # first tick.
+            lanes, split = self._fetch_lanes(outs, self._telem_acc, None)
+            pending, self._pending_outs = self._pending_outs, (
+                self._start_copy(lanes), split)
+            # the outputs fetched below are the PREVIOUS tick's: the age
+            # anchor follows them
+            age_mark, self._age_pending_mark = \
+                self._age_pending_mark, age_mark
+            with tl.span("fetch_outputs"):
+                if rt is not None:
+                    rt.mark_fetch()
+                outs = acc_host = None
+                if pending is not None:
+                    outs, acc_host, _ = pending[1](
+                        self._finish_copy(pending[0]))
+                elif self._pending_telem is not None:
+                    acc_host = self._pending_telem
+                self._pending_telem = None
+                if rt is not None:
+                    rt.mark_visible()
+                self._ingest_host_telemetry(acc_host)
+        else:
+            with tl.span("fetch_outputs"):
+                if rt is not None:
+                    rt.mark_fetch()
+                outs, acc_host, aud_host = self._fetch(
+                    outs, self._telem_acc, aud_req)
+                if rt is not None:
+                    # outputs are host-visible: the device_wait lane ends
+                    rt.mark_visible()
+                self._ingest_host_telemetry(acc_host)
+        if outs is not None and age_mark is not None:
+            # outputs are host-visible NOW: close the device_tick lane
+            self.sync_age_anchor = (age_mark[0], age_mark[1],
+                                    int(time.time() * 1e6))
+        # launch of the step plus the wait for its outputs (under
+        # pipelining, the previous tick's): how long this frame waited
+        # on the device
         dt = time.perf_counter() - t0
         self.op_stats["device_step_s"] = dt
         if rt is not None:
@@ -1496,9 +1651,8 @@ class World:
         tl.set_tick_args(device_step_ms=round(dt * 1e3, 3),
                          tick=self.tick_count)
         with tl.span("decode_fanout"):
-            self.last_outputs = outs  # observability (tests, opmon)
-            self._process_outputs(outs)
-            self._drain_attr_journals()
+            if outs is not None:
+                self._decode_outputs(outs)
             self.post_q.tick()
         ap = self.audit
         if ap is not None and ap.want_sample(self.tick_count):
@@ -1525,6 +1679,40 @@ class World:
         self.tick_count += 1
         opmon.monitor.record("world.tick", time.perf_counter() - t_start)
 
+    def _ingest_host_telemetry(self, acc_host) -> None:
+        """Feed a fetched accumulator to the live lanes; a drain
+        failure disables them, never the tick."""
+        if acc_host is None:
+            return
+        try:
+            self._ingest_telemetry(acc_host)
+        except Exception:
+            logger.exception("live telemetry drain failed; disabled")
+            self._telem_fn = self._telem_acc = None
+
+    def _decode_outputs(self, outs) -> None:
+        """The host half of a tick: record and decode fetched outputs.
+        Shared by the tick and :meth:`flush_pending_outputs`, so the
+        pipelined and eager decodes cannot drift."""
+        self.last_outputs = outs  # observability (tests, opmon)
+        self._process_outputs(outs)
+        self._drain_attr_journals()
+
+    def flush_pending_outputs(self) -> None:
+        """Drain the pipelined decode (a no-op when pipelining is off or
+        nothing is pending): wait for the last tick's copy and decode
+        it. Freeze, checkpoint, config-swap and shutdown paths call it
+        first: a snapshot must not lose a tick's client sends and
+        interest updates. The accumulator that rode the same copy is
+        fed to the live lanes at the next tick's fetch, where the JAX
+        World fetches it."""
+        pending, self._pending_outs = self._pending_outs, None
+        if pending is None:
+            return
+        outs, acc_host, _ = pending[1](self._finish_copy(pending[0]))
+        self._pending_telem = acc_host
+        self._decode_outputs(outs)
+
     # -- correctness audit sampling --------------------------------------
     def _audit_sample(self, aud_host) -> None:
         """Logic-thread half of one audit sample: decide eligibility
@@ -1534,6 +1722,11 @@ class World:
         device sync: ``aud_host`` rode the tick's fetch."""
         ap = self.audit
         tick = self.tick_count
+        if self.pipeline_decode:
+            # the decoded interest sets are tick N-1's while state.pos
+            # is tick N's: the oracle would judge mismatched epochs
+            ap.skip_sample("pipeline_decode", tick)
+            return
         if aud_host is None:
             ap.skip_sample("no_fetch", tick)
             return
@@ -1690,8 +1883,14 @@ class World:
             despawn = pack.add(np.array(
                 [sh * cap + sl for sh, sl in self._staged_despawn],
                 np.int64))
-            # release AFTER this tick's leave events decode
-            self._release_now.extend(
+            # release AFTER this tick's leave events decode: at the end
+            # of this tick's decode, or of the next one when the decode
+            # is pipelined (this tick's outputs decode next tick; a
+            # release now would let a reused slot take the old entity's
+            # pending leave events)
+            rel = (self._release_next if self.pipeline_decode
+                   else self._release_now)
+            rel.extend(
                 (sh_, sl_, self._slot_owner[sh_].get(sl_))
                 for sh_, sl_ in self._staged_despawn
             )
@@ -2174,7 +2373,8 @@ class World:
                 e = self.entities.get(expect)
                 if e is not None and e.destroyed and e.slot is None:
                     self.entities.pop(expect, None)
-        self._release_now = []
+        self._release_now = self._release_next
+        self._release_next = []
 
     # ==================================================================
     # device reads
@@ -2186,14 +2386,7 @@ class World:
         to whole words first), one copy to the host and, on a card, one
         stream synchronisation (the copy goes into pinned memory,
         non-blocking), whatever the number of lanes."""
-        words = []
-        for t in lanes:
-            t = t.detach().reshape(-1)
-            if t.element_size() == 1:
-                pad = t.new_zeros(-t.numel() % 4, dtype=torch.uint8)
-                t = torch.cat([t.view(torch.uint8), pad])
-            words.append(t.view(torch.int32))
-        src = torch.cat(words)
+        src = _pack_words(lanes)
         if self.device.type == "cuda":
             host = torch.empty(src.shape, dtype=torch.int32,
                                pin_memory=True)
@@ -2201,40 +2394,73 @@ class World:
             torch.cuda.current_stream(self.device).synchronize()
         else:
             host = src  # torch.cat made it: a copy of every lane
-        got = host.numpy()
-        out, off = [], 0
-        for t in lanes:
-            n = t.numel()
-            if t.element_size() == 1:
-                nw = -(-n // 4)
-                a = got[off:off + nw].view(np.uint8)[:n].view(
-                    np.bool_ if t.dtype == torch.bool else np.uint8)
-            else:
-                nw = n
-                a = got[off:off + n]
-                if t.dtype == torch.float32:
-                    a = a.view(np.float32)
-            out.append(a.reshape(tuple(t.shape)))
-            off += nw
-        return out
+        return _unpack_words(host.numpy(), lanes)
+
+    def _start_copy(self, lanes: list[torch.Tensor]) -> tuple:
+        """The pipelined drain's copy of ``lanes``: their words packed by
+        one concatenation on the compute stream (a snapshot, so the next
+        tick may write every lane, the telemetry accumulator's folds in
+        place included, in stream order after it), then, on a card,
+        copied into pinned memory on the World's copy stream once an
+        event recorded after the packing has passed. The packed buffer
+        is marked as used by the copy stream, so the caching allocator
+        cannot hand its memory to the next tick while the copy is in
+        flight. Returns ``(host words, copy event or None, shapes)`` for
+        :meth:`_finish_copy`; nothing here waits."""
+        src = _pack_words(lanes)
+        meta = [(tuple(t.shape), t.dtype) for t in lanes]
+        if self.device.type != "cuda":
+            return src, None, meta
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        cs = self._copy_stream
+        packed = torch.cuda.Event()
+        packed.record(torch.cuda.current_stream(self.device))
+        cs.wait_event(packed)
+        host = torch.empty(src.shape, dtype=torch.int32, pin_memory=True)
+        with torch.cuda.stream(cs):
+            host.copy_(src, non_blocking=True)
+        src.record_stream(cs)
+        done = torch.cuda.Event()
+        done.record(cs)
+        return host, done, meta
+
+    @staticmethod
+    def _finish_copy(pending: tuple) -> list[np.ndarray]:
+        """The lanes of a :meth:`_start_copy` as numpy, after waiting for
+        its copy event: the pipelined tick's one host sync."""
+        host, done, meta = pending
+        if done is not None:
+            done.synchronize()
+        return _unpack_words(host.numpy(), meta)
 
     def _fetch(self, outs: TickOutputs, acc=None, aud=None) -> tuple:
         """The step's outputs as numpy lanes, with the telemetry
         accumulator ``acc`` (a dict of lanes) and the audit planes
         ``aud`` (a tuple) when given, all in one transfer: (outputs,
         host accumulator or None, host audit planes or None)."""
+        lanes, split = self._fetch_lanes(outs, acc, aud)
+        return split(self._dget(lanes))
+
+    @staticmethod
+    def _fetch_lanes(outs: TickOutputs, acc, aud) -> tuple:
+        """The lanes :meth:`_fetch` reads and the function that splits
+        their host copies into its triple."""
         names = [f.name for f in dataclasses.fields(outs)
                  if getattr(outs, f.name) is not None]
         lanes = [getattr(outs, n) for n in names]
         acc_keys = list(acc) if acc is not None else []
         lanes += [acc[k] for k in acc_keys]
         lanes += list(aud) if aud is not None else []
-        got = self._dget(lanes)
         n, m = len(names), len(acc_keys)
-        return (dataclasses.replace(outs, **dict(zip(names, got[:n]))),
-                dict(zip(acc_keys, got[n:n + m])) if acc is not None
-                else None,
-                tuple(got[n + m:]) if aud is not None else None)
+
+        def split(got):
+            return (dataclasses.replace(outs, **dict(zip(names, got[:n]))),
+                    dict(zip(acc_keys, got[n:n + m])) if acc is not None
+                    else None,
+                    tuple(got[n + m:]) if aud is not None else None)
+
+        return lanes, split
 
     def read_pos(self, shard: int, slot: int) -> np.ndarray:
         if self._pos_cache is None:

@@ -20,8 +20,13 @@ import torch
 from goworld_tpu_torch.core.state import resolve_device
 from goworld_tpu_torch.models.random_walk import cos_sin
 from goworld_tpu_torch.ops import prng
-from goworld_tpu_torch.ops.mlp import OBS_DIM, npc_mlp, tanh_table
-from goworld_tpu_torch.ops.xla_order import mul_recip, sum_k
+from goworld_tpu_torch.ops.mlp import (
+    OBS_DIM,
+    check_hidden,
+    npc_mlp,
+    tanh_table,
+)
+from goworld_tpu_torch.ops.xla_order import mul_recip, rsqrt_table, sum_k
 
 _LANES = ("w1", "b1", "w2", "b2", "w3", "b3")
 
@@ -38,9 +43,11 @@ class MLPPolicy:
     b3: torch.Tensor  # bf16[3]
 
     def __post_init__(self):
-        # the kernel's tanh table, built once a card, outside the tick
+        # the kernel's tanh table and the speed cap's rsqrt table, made
+        # once a card, outside the tick
         if self.w1.device.type == "cuda":
             tanh_table(self.w1.device)
+            rsqrt_table(self.w1.device)
 
     @property
     def hidden(self) -> int:
@@ -86,7 +93,10 @@ def init_policy(seed: int = 5, hidden: int = 128,
     """``init_policy(jax.random.PRNGKey(seed), hidden)`` of the JAX
     package, bit for bit, on ``device`` (the card unless the caller
     asks for the CPU): each weight a bf16 normal draw times
-    ``bf16(1 / sqrt(fan_in))`` rounded to bf16, biases zero."""
+    ``bf16(1 / sqrt(fan_in))`` rounded to bf16, biases zero. Raises
+    ``NotImplementedError`` at a hidden size whose dot orders are not
+    read yet (:func:`goworld_tpu_torch.ops.mlp.check_hidden`)."""
+    check_hidden(hidden)
     dev = resolve_device(device)
     keys = prng.split(prng.prng_key(seed, "cpu"), 3)
 
@@ -149,7 +159,11 @@ def build_obs(pos, vel, yaw, nbr, nbr_cnt,
                                    world_extent)
 
 
-def policy_accel(params: MLPPolicy, obs: torch.Tensor) -> torch.Tensor:
+def policy_accel(params: MLPPolicy, obs: torch.Tensor,
+                 per_row: bool = False) -> torch.Tensor:
     """Batched forward pass -> f32[N, 3] acceleration: the kernel of
-    ``csrc/npc_mlp.cu`` on the card, its plain version on the CPU."""
-    return npc_mlp(obs.contiguous(), *(getattr(params, k) for k in _LANES))
+    ``csrc/npc_mlp.cu`` on the card, its plain version on the CPU.
+    ``per_row`` sums each row as a one-row dot, as the reference's
+    vmapped scenario member does (its dots are batched matvecs)."""
+    return npc_mlp(obs.contiguous(), *(getattr(params, k) for k in _LANES),
+                   per_row=per_row)

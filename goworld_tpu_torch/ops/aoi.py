@@ -44,7 +44,7 @@ import numpy as np
 import torch
 
 from goworld_tpu_torch import kernels
-from goworld_tpu_torch.ops.batch import bin_counts, take
+from goworld_tpu_torch.ops.batch import bin_counts, space_base, take
 from goworld_tpu_torch.ops.sort import (
     counting_sort_cells,
     counting_sort_cells_cuda,
@@ -292,7 +292,7 @@ class GridSpec:
 def check_ported(spec: GridSpec) -> None:
     """Raise ``NotImplementedError`` for a knob value this port does not
     run yet. It never substitutes another path."""
-    if spec.sweep_impl not in ("ranges", "fused"):
+    if spec.sweep_impl not in ("ranges", "fused", "table"):
         raise NotImplementedError(
             f"sweep_impl={spec.sweep_impl!r} {ROADMAP_HINT}")
     if spec.topk_impl == "approx":
@@ -378,6 +378,52 @@ def _build_ranges(cc: int, n_rows: int, srow, px, pz, word,
     return row_start, s_xz, s_w
 
 
+def _build_table(cc: int, n_rows: int, sorted_row, row_start, px, pz,
+                 word, table_sentinel: int):
+    """Front half, stage 4 of ``sweep_impl="table"``: the dense per-cell
+    table, each cell's first ``cc`` entities in sort order (their rank
+    in the cell is the sorted position less the cell's start) with
+    their x, z and packed word side by side, +inf and the sentinel word
+    in empty lanes. Returns ``(x, z)`` f32[n_rows, cc] and the words
+    i32[n_rows, cc] (each Space's own under a leading Space axis)."""
+    n = sorted_row.shape[-1]
+    nb = sorted_row.dim() - 1
+    lead = sorted_row.shape[:-1]
+    dev = sorted_row.device
+    rank = torch.arange(n, dtype=torch.int32, device=dev) \
+        - take(row_start, sorted_row, nb)
+    valid = (rank < cc) & (sorted_row < n_rows)
+    size = n_rows * cc + 1           # the last lane takes the rest
+    flat = torch.where(valid, sorted_row * cc + rank, n_rows * cc) \
+        + space_base(lead, size, dev)
+    flat = flat.reshape(-1).long()
+
+    def table(src, empty):
+        t = torch.full((flat.numel() // n * size,), empty, dtype=src.dtype,
+                       device=dev)
+        t.scatter_(0, flat, src.reshape(-1))
+        return t.reshape(*lead, size)[..., :-1].reshape(*lead, n_rows, cc)
+
+    return (table(px, math.inf), table(pz, math.inf),
+            table(word, table_sentinel))
+
+
+def _table_window(table, cx, cz, alive, rows, czp: int):
+    """The candidates of query ``rows`` read from the table: the three
+    z-triples of cells around each query's cell (an excluded query reads
+    the border rows at 0, all empty), 9 rows of ``cc`` lanes in the
+    reference's order. Returns (x, z, words), each ``[..., B, 9cc]``."""
+    nb = cx.dim() - 1
+    dxs = torch.arange(-1, 2, dtype=torch.int32, device=cx.device)
+    starts = (cx[..., rows, None] + dxs + 1) * czp + cz[..., rows, None]
+    starts = torch.where(alive[..., rows, None], starts, 0)
+    r9 = (starts[..., None] + torch.arange(3, dtype=torch.int32,
+                                           device=cx.device))
+    r9 = r9.reshape(*r9.shape[:-2], 9)
+    return tuple(take(t, r9, nb).reshape(*r9.shape[:-1], -1)
+                 for t in table)
+
+
 def _query_runs(cx, cz, alive, row_start, czp: int):
     """Each query's three z-triple runs ``[lo, hi)`` of the sorted view,
     one per x offset; excluded queries read an empty border run."""
@@ -442,10 +488,26 @@ def _window_keys(s_xz, s_w, lo, hi, pos, reach, rows, cc, sentinel, code,
         cand_pz = take(s_xz[..., 1, :], idx, nb)
         dist = torch.maximum((cand_px - pos[..., rows, 0, None]).abs(),
                              (cand_pz - pos[..., rows, 2, None]).abs())
+    return _cand_keys(dist, cand_w, reach, rows, sentinel, code)
+
+
+def _cand_keys(dist, cand_w, reach, rows, sentinel, code):
+    """Packed keys and validity of candidate words ``cand_w`` at
+    Chebyshev distances ``dist`` from query ``rows``."""
     cand_id = cand_w >> code[0]
     valid = ((cand_id != sentinel) & (dist <= reach[..., rows, None])
              & (cand_id != rows[:, None]))
     return _pack_keys(dist, valid, cand_w, code), valid
+
+
+def _table_keys(table, cx, cz, alive, czp, pos, reach, rows, sentinel,
+                code):
+    """:func:`_window_keys` over the table of ``sweep_impl="table"``."""
+    cand_px, cand_pz, cand_w = _table_window(table, cx, cz, alive, rows,
+                                             czp)
+    dist = torch.maximum((cand_px - pos[..., rows, 0, None]).abs(),
+                         (cand_pz - pos[..., rows, 2, None]).abs())
+    return _cand_keys(dist, cand_w, reach, rows, sentinel, code)
 
 
 def _pad_k(top, k, invalid):
@@ -643,6 +705,10 @@ class FrontHalf(NamedTuple):
     # (0 on the pad lanes) and the lattice plane i32[N]
     s_q: torch.Tensor | None = None
     qxz: torch.Tensor | None = None
+    # ``table`` only: the per-cell table (:func:`_build_table`) and the
+    # queries' cells (cx, cz, alive, czp) its window reads
+    table: tuple | None = None
+    cells: tuple | None = None
 
 
 def front_half(spec: GridSpec, pos, alive, query_rows, watch_radius,
@@ -665,10 +731,15 @@ def front_half(spec: GridSpec, pos, alive, query_rows, watch_radius,
         spec, pos, alive, watch_radius)
     cell_stats = _cell_occupancy_stats(srow, n_rows, cc) \
         if with_stats else None
-    order, _sorted_row = _sort_cells(n_rows, srow, spec.sort_impl)
+    order, sorted_row = _sort_cells(n_rows, srow, spec.sort_impl)
     px, pz, word, table_sentinel = _sorted_src(pos, flag_bits, order)
     row_start, s_xz, s_w = _build_ranges(cc, n_rows, srow, px, pz, word,
                                          table_sentinel)
+    table = cells = None
+    if spec.sweep_impl == "table":
+        table = _build_table(cc, n_rows, sorted_row, row_start, px, pz,
+                             word, table_sentinel)
+        cells = (cx, cz, alive, czp)
     s_q = qxz = None
     if spec.precision != "off" and spec.sweep_impl == "ranges":
         qxz = quantize_xz_i32(spec, pos)
@@ -687,7 +758,7 @@ def front_half(spec: GridSpec, pos, alive, query_rows, watch_radius,
             + _f32(reach_pad, dev)
     code = _key_code(spec, flag_bits is not None, spec.radius + reach_pad)
     return FrontHalf(srow, n_rows, s_xz, s_w, lo, hi, reach, code,
-                     cell_stats, s_q, qxz)
+                     cell_stats, s_q, qxz, table, cells)
 
 
 def _sweep(spec: GridSpec, pos, alive, query_rows, watch_radius,
@@ -717,9 +788,13 @@ def _sweep(spec: GridSpec, pos, alive, query_rows, watch_radius,
         q16 = None if fh.s_q is None else (spec, fh.s_q, fh.qxz)
         tops, dems = [], []
         for rows in _blocks(fh.lo.shape[-2], spec.row_block, pos.device):
-            keys, valid = _window_keys(fh.s_xz, fh.s_w, fh.lo[..., rows, :],
-                                       fh.hi[..., rows, :], pos, fh.reach,
-                                       rows, cc, sentinel, fh.code, q16)
+            if fh.table is not None:
+                keys, valid = _table_keys(fh.table, *fh.cells, pos,
+                                          fh.reach, rows, sentinel, fh.code)
+            else:
+                keys, valid = _window_keys(
+                    fh.s_xz, fh.s_w, fh.lo[..., rows, :], fh.hi[..., rows, :],
+                    pos, fh.reach, rows, cc, sentinel, fh.code, q16)
             tops.append(_rank_packed(keys, k, spec.topk_impl))
             dems.append(valid.sum(-1, dtype=torch.int32))
         top = torch.cat(tops, -2)

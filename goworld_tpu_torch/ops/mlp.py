@@ -43,6 +43,8 @@ ACT_DIM = 3
 # a product of bf16 values is on float32's 2^-149 grid when the biased
 # exponent fields (at least 1) of its factors sum to this or more
 EXACT_LO = 119
+# the hidden sizes whose dot orders were read off the reference's code
+MEASURED_HIDDEN = (16, 128)
 
 
 def _bf(x: torch.Tensor) -> torch.Tensor:
@@ -96,17 +98,30 @@ def tanh_by_table(x: torch.Tensor) -> torch.Tensor:
     return ((t | (u & 0x8000)) << 16).view(torch.float32)
 
 
+def check_hidden(hidden: int) -> None:
+    """Raise for a hidden size whose dot orders are not read yet."""
+    if hidden not in MEASURED_HIDDEN:
+        raise NotImplementedError(
+            f"the policy at hidden {hidden}: XLA's dot orders are read "
+            f"at hidden {MEASURED_HIDDEN} only; see ROADMAP.md Queue C4")
+
+
 def layer_lanes(rows: int, hidden: int) -> tuple[int, int, int]:
-    """XLA's partial sums of the three dots over ``rows`` rows."""
+    """XLA's partial sums of the three dots over ``rows`` rows (1 for a
+    batch of one-row dots, as a vmapped member's)."""
+    check_hidden(hidden)
     return (dot_lanes(rows, OBS_DIM, hidden), dot_lanes(rows, hidden, hidden),
             dot_lanes(rows, hidden, ACT_DIM))
 
 
-def npc_mlp_plain(obs, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
+def npc_mlp_plain(obs, w1, b1, w2, b2, w3, b3,
+                  per_row: bool = False) -> torch.Tensor:
     """f32[N, 3]: the policy's forward pass over ``obs`` f32[N, 10]
     (bf16 weights ``w1 [10, H]``, ``w2 [H, H]``, ``w3 [H, 3]`` and
-    biases), in plain torch ops with XLA's bits."""
-    l1, l2, l3 = layer_lanes(obs.shape[0], w1.shape[1])
+    biases), in plain torch ops with XLA's bits. ``per_row``: each row
+    summed as a one-row dot (the reference's batched dot of a vmapped
+    member)."""
+    l1, l2, l3 = layer_lanes(1 if per_row else obs.shape[0], w1.shape[1])
     f = [t.to(torch.float32) for t in (w1, b1, w2, b2, w3, b3)]
     x = _bf(obs.to(torch.float32))
     x = tanh_bf16(_bf(_bf(dot_f32(x, f[0], l1)) + f[1]))
@@ -114,7 +129,8 @@ def npc_mlp_plain(obs, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
     return _bf(dot_f32(x, f[4], l3)) + f[5]
 
 
-def npc_mlp(obs, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
+def npc_mlp(obs, w1, b1, w2, b2, w3, b3,
+            per_row: bool = False) -> torch.Tensor:
     """:func:`npc_mlp_plain` as the kernel of ``csrc/npc_mlp.cu`` for
     tensors on the card (one launch over all rows), the plain version
     for tensors on the CPU."""
@@ -133,7 +149,7 @@ def npc_mlp(obs, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
                              f"{obs.device}")
     kernels.require(obs, "obs", torch.float32)
     if obs.device.type == "cpu":
-        return npc_mlp_plain(obs, w1, b1, w2, b2, w3, b3)
+        return npc_mlp_plain(obs, w1, b1, w2, b2, w3, b3, per_row)
     if obs.device.type != "cuda":
         raise ValueError(f"obs: unsupported device {obs.device}")
     so = kernels.lib()
@@ -141,7 +157,7 @@ def npc_mlp(obs, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
         raise ValueError(f"hidden {h} exceeds the kernel's "
                          f"{so.gw_npc_mlp_max_hidden()}")
     out = torch.empty((n, ACT_DIM), dtype=torch.float32, device=obs.device)
-    l1, l2, l3 = layer_lanes(n, h)
+    l1, l2, l3 = layer_lanes(1 if per_row else n, h)
     err = so.gw_npc_mlp(obs.data_ptr(), n, h, *(t.data_ptr() for t in
                                                  ws.values()),
                         l1, l2, l3, tanh_table(obs.device).data_ptr(),

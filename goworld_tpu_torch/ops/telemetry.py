@@ -164,6 +164,25 @@ def telemetry_init(skin_on: bool, mega: bool = False,
     return acc
 
 
+def telemetry_clone(acc: TelemetryAcc) -> TelemetryAcc:
+    """A copy of ``acc`` whose counts, running sum and ``occ_last`` are
+    fresh device tensors (one clone each; the edges, offsets and addends
+    shared, since no fold writes them): a fold into the copy leaves
+    ``acc`` as it was."""
+    out = TelemetryAcc()
+    out.counts = acc.counts.clone()
+    base = acc.counts.data_ptr()
+    size = acc.counts.element_size()
+    for nm, v in acc.items():
+        if nm in ("tick_ms_sum", "occ_last"):
+            out[nm] = v.clone()
+        else:
+            off = (v.data_ptr() - base) // size
+            out[nm] = out.counts[off:off + v.numel()]
+    out.bounds, out.offsets, out.ones = acc.bounds, acc.offsets, acc.ones
+    return out
+
+
 def _bucket_add_vec(acc_vec, edges, values):
     """Add one sample to ``acc_vec`` for every element of ``values``
     (``edges`` a float32 tensor of upper edges; duplicates add)."""

@@ -11,6 +11,8 @@ against them bit for bit (``tests/test_torch_behaviors.py``):
 * :func:`mul_recip`: XLA rewrites a divide by a constant into a
   multiply by its float32 reciprocal.
 * :func:`sqrt32`: XLA's float32 square root is correctly rounded.
+* :func:`rsqrt_x86`: its reciprocal square root is not: the CPU's
+  table estimate and two Newton steps.
 * :func:`dot_f32`: a float32 dot ``[N, K] x [K, M]`` sums its products
   in k order when the output is wide (M >= 64) or has one row, and
   otherwise (mostly) in 4 (M <= 16) or 2 (M 17-63) interleaved partial
@@ -38,10 +40,20 @@ so the card gives the CPU's bits.
 
 from __future__ import annotations
 
+import functools
+from pathlib import Path
+
 import numpy as np
 import torch
 
 from goworld_tpu_torch.ops.integrate import _round_odd_sum
+
+# vrsqrtps's estimate on the reference's CPU (an Intel Xeon with
+# AVX-512): int32[2, 1024], the result bits at exponent field 128 (row
+# 0) and 127 (row 1) for each value of the top 10 mantissa bits, the
+# only input bits besides the exponent that move it (read by running
+# the instruction on every exponent parity and mantissa)
+_VRSQRTPS = Path(__file__).with_name("vrsqrtps_table.npy")
 
 
 def fma32(a: torch.Tensor, b, c) -> torch.Tensor:
@@ -60,6 +72,34 @@ def sqrt32(x: torch.Tensor) -> torch.Tensor:
     on the CPU is not (it differs from XLA's in about 1 of 160 values);
     the float64 root rounded to float32 is, on either device."""
     return torch.sqrt(x.double()).to(torch.float32)
+
+
+@functools.cache
+def _rsqrt_table(device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.load(_VRSQRTPS)).reshape(-1).to(device)
+
+
+def rsqrt_table(device) -> torch.Tensor:
+    """int32[2048]: the estimate table of :func:`rsqrt_x86`, loaded onto
+    ``device`` at its first use and kept."""
+    return _rsqrt_table(torch.device(device))
+
+
+def rsqrt_x86(x: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU float32 ``rsqrt`` of positive ``x`` (its
+    ``add_rsqrt_fusion``): the estimate of ``vrsqrtps`` (a lookup of the
+    CPU's table by exponent parity and top 10 mantissa bits, the
+    exponent halved) refined by two Newton steps ``y + (-y/2) * (x*y*y -
+    1)``, each as the machine code has it: ``x*y`` and ``-y/2`` rounded,
+    then two fused multiply-adds. +inf gives the estimate, 0."""
+    bits = x.view(torch.int32)
+    e = (bits >> 23) & 0xFF
+    par = e & 1
+    t = rsqrt_table(x.device)[par * 1024 + ((bits >> 13) & 0x3FF)]
+    y = (t - (((e - 128 + par) >> 1) << 23)).view(torch.float32)
+    for _ in range(2):
+        y = fma32(y * -0.5, fma32(x * y, y, -1.0), y)
+    return torch.where(torch.isinf(x), 0.0, y)
 
 
 def mul_recip(x: torch.Tensor, c: float) -> torch.Tensor:
@@ -82,7 +122,8 @@ def dot_lanes(rows: int, depth: int, cols: int) -> int:
     3 rows in k order but for a 16 x 16 weight (4 partial sums); the
     observation layer (depth 10) in k order up to 50 rows (measured for
     cols 9-16, 20, 24, 32, 40, 48). Other hidden sizes keep orders not
-    measured here (ROADMAP.md Queue C4)."""
+    measured here (ROADMAP.md Queue C4); the policy refuses them
+    (:func:`goworld_tpu_torch.ops.mlp.layer_lanes`)."""
     if rows == 1 or cols >= 64:
         return 1
     if rows < 4:

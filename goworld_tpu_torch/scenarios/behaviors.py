@@ -37,7 +37,7 @@ from goworld_tpu_torch.models.npc_policy import (
 )
 from goworld_tpu_torch.models.random_walk import cos_sin
 from goworld_tpu_torch.ops import prng
-from goworld_tpu_torch.ops.xla_order import as_f32, fma32, mul_recip
+from goworld_tpu_torch.ops.xla_order import as_f32, fma32, mul_recip, rsqrt_x86
 from goworld_tpu_torch.scenarios.spec import ScenarioSpec
 
 _TWO_PI = 2.0 * math.pi
@@ -234,12 +234,15 @@ def _member(name: str, spec: ScenarioSpec, cfg, ctx: dict, policy,
         # their conditions, and the x component's accel * dt is hoisted
         # above the branch, away from its add (ROADMAP.md Queue C4)
         fuse_x = spec.behavior_names == ("mlp",)
+        # beside other members the reference vmaps a switch, and its
+        # dots become batched one-row matvecs (summed in k order)
+        per_row = len(spec.behavior_names) > 1
 
         def run(keys, ent):
             obs = build_obs_from_features(
                 ent["pos"], ent["vel"], ent["yaw"], ent["nbr_cnt"],
                 ent["mean_off"], cfg.grid.k, (b_ex, b_ez))
-            accel = policy_accel(policy, obs)
+            accel = policy_accel(policy, obs, per_row)
             return masked(capped_step(ent["vel"], accel, dt, speed, fuse_x),
                           ent), *still(ent)
         return run
@@ -250,12 +253,14 @@ def _member(name: str, spec: ScenarioSpec, cfg, ctx: dict, policy,
 def capped_step(vel, accel, dt: float, speed: float, fuse_x: bool = True):
     """``vel + accel * dt``, its XZ speed capped at ``speed``, with the
     jitted reference's fused multiply-adds (on the x component only
-    where ``fuse_x``; else its product is rounded before the add)."""
+    where ``fuse_x``; else its product is rounded before the add). XLA
+    rewrites ``speed / sqrt(s)`` into ``speed * rsqrt(s)`` and computes
+    the rsqrt from the CPU's table estimate (:func:`rsqrt_x86`)."""
     v = fma32(accel, dt, vel)
     if not fuse_x:
         v = torch.cat([vel[:, :1] + accel[:, :1] * as_f32(dt), v[:, 1:]], 1)
-    sp = unit_norm(v[:, 0], v[:, 2], 1e-12)
-    cap = torch.full_like(sp, as_f32(speed)) / sp
+    s = fma32(v[:, 0], v[:, 0], v[:, 2] * v[:, 2]) + 1e-12
+    cap = rsqrt_x86(s) * as_f32(speed)
     return v * torch.clamp_max(cap, 1.0)[:, None]
 
 

@@ -27,12 +27,13 @@ violation ring. Honesty rules: a tick whose sweep ran degraded
 (overflow gauges nonzero) or whose sample could not be judged is
 recorded as SKIPPED with its reason, never silently passed; the plane
 itself must never take serving down — worker failures are logged and
-the job dropped. The snapshot scrub reads delta snapshots, which are not
-ported yet (ROADMAP Queue A1b).
+the job dropped. The snapshot scrub CRC-walks the SnapshotChain files
+(:mod:`goworld_tpu_torch.freeze`).
 """
 
 from __future__ import annotations
 
+import os
 import queue
 import threading
 import zlib
@@ -628,12 +629,37 @@ class AuditPlane:
     # -- SnapshotChain scrub -------------------------------------------
     def scrub_snapshots(self, directory: str, game_id: int,
                         tick: int) -> None:
-        """CRC-walk the world's SnapshotChain files: the reference reads
-        them back with its freeze module, and delta snapshots are not
-        ported yet."""
-        raise NotImplementedError(
-            "the SnapshotChain scrub (delta snapshots) is not ported yet; "
-            "see ROADMAP.md Queue A1b")
+        """CRC-walk the world's SnapshotChain files (worker thread).
+        ``read_freeze_file`` already refuses a damaged keyframe/delta
+        (per-plane CRCs); here that refusal becomes a named violation
+        instead of a surprise at the next ``-restore`` boot."""
+        from goworld_tpu_torch import freeze as _freeze
+
+        files = [
+            os.path.join(directory, _freeze.chain_key_filename(game_id)),
+            os.path.join(directory,
+                         _freeze.chain_delta_filename(game_id)),
+        ]
+        walked = corrupt = 0
+        err = None
+        for path in files:
+            if not os.path.exists(path):
+                continue
+            walked += 1
+            try:
+                _freeze.read_freeze_file(path)
+            except Exception as exc:
+                corrupt += 1
+                err = f"{os.path.basename(path)}: {exc}"
+                self.ledger.note_violation(
+                    "snapshot_crc",
+                    f"SnapshotChain scrub failed: {err}", tick)
+        with self._lock:
+            self.scrub_stats["walks"] += 1
+            self.scrub_stats["files"] += walked
+            self.scrub_stats["corrupt"] += corrupt
+            if err:
+                self.scrub_stats["last_error"] = err
 
     # -- reading -------------------------------------------------------
     def take_violation(self) -> str | None:

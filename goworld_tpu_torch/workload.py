@@ -641,6 +641,9 @@ def serve_world(n: int, seed: int, device="cuda", *,
                 create(done, hi, d)
             done = hi
             w.tick()
+            # a pipelined World decodes each boot tick at once, so that
+            # its caps are checked on its own outputs
+            w.flush_pending_outputs()
             out = w.last_outputs
             for lane, cap in (("enter_n", cfg.enter_cap),
                               ("leave_n", cfg.leave_cap),

@@ -101,6 +101,63 @@ def test_port_ranges_matches_jax_ranges(sort_impl):
     _assert_same(_port(tspec, watch=False), _jax(jspec, watch=False))
 
 
+@pytest.mark.parametrize("watch", [True, False])
+@pytest.mark.parametrize("sort_impl", ["argsort", "counting", "pallas"])
+@pytest.mark.parametrize("regime", sorted(REGIMES))
+def test_port_table_matches_jax_table(regime, sort_impl, watch):
+    """``sweep_impl="table"`` (the per-cell table, then the window read
+    from it) against the JAX package's table sweep, under every sort."""
+    jspec, tspec = _specs(regime, "sort")
+    jspec = dataclasses.replace(jspec, sweep_impl="table",
+                                sort_impl="argsort")
+    tspec = dataclasses.replace(tspec, sweep_impl="table",
+                                sort_impl=sort_impl)
+    _assert_same(_port(tspec, watch), _jax(jspec, watch))
+
+
+@pytest.mark.parametrize("topk", ["sort", "exact", "f32"])
+def test_port_table_equals_ranges_and_fused_below_caps(topk):
+    """Below the caps every impl gives the same lists, flags and
+    gauges: the table equals ``ranges`` and ``fused`` bit for bit."""
+    pos, alive, wr, fb = _world(1, clump=False)
+    _, tspec = _specs("roomy", topk)
+
+    def run(impl):
+        out = taoi.grid_neighbors_flags(
+            dataclasses.replace(tspec, sweep_impl=impl),
+            torch.tensor(pos), torch.tensor(alive),
+            watch_radius=torch.tensor(wr), flag_bits=torch.tensor(fb),
+            with_stats=True)
+        return [o.numpy() for o in out[:3]] + [[int(s) for s in out[3]]]
+
+    got = run("table")
+    assert got[3][1] == 0 and got[3][3] == 0
+    for impl in ("ranges", "fused"):
+        _assert_same(got, run(impl))
+
+
+def test_port_table_batched_matches_each_space():
+    """The table under a leading Space axis: each Space's lists as its
+    own sweep's."""
+    _, tspec = _specs("overflow", "sort")
+    tspec = dataclasses.replace(tspec, sweep_impl="table",
+                                sort_impl="counting")
+    worlds = [_world(s) for s in (0, 1)]
+    stack = [torch.tensor(np.stack([w[i] for w in worlds]))
+             for i in range(4)]
+    got = taoi.grid_neighbors_flags(tspec, stack[0], stack[1],
+                                    watch_radius=stack[2],
+                                    flag_bits=stack[3], with_stats=True)
+    for s, w in enumerate(worlds):
+        one = taoi.grid_neighbors_flags(
+            tspec, *(torch.tensor(x) for x in w[:2]),
+            watch_radius=torch.tensor(w[2]), flag_bits=torch.tensor(w[3]),
+            with_stats=True)
+        for a, b in zip(got[:3], one[:3]):
+            assert torch.equal(a[s], b)
+        assert [int(x[s]) for x in got[3]] == [int(x) for x in one[3]]
+
+
 def test_fused_below_caps_matches_oracle():
     pos, alive, wr, fb = _world(1, clump=False)
     _, tspec = _specs("roomy", "sort")

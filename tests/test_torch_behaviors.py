@@ -539,3 +539,19 @@ def test_mega_btree_ticks_match_jax():
                 assert _bits_differ(got[k], ref[k]) == 0, k
         for k, v in interop.outputs_to_numpy(to.base).items():
             assert _bits_differ(v, np.asarray(getattr(jo.base, k))) == 0, k
+
+
+@pytest.mark.parametrize("hidden", [10, 20, 64])
+def test_unmeasured_hidden_size_raises(hidden):
+    """XLA's dot orders are read at hidden 16 and 128 only: the policy
+    refuses another size rather than guess an order (ROADMAP C4)."""
+    with pytest.raises(NotImplementedError, match="Queue C4"):
+        tpol.init_policy(5, hidden, device="cpu")
+    rng = np.random.default_rng(hidden)
+    shapes = ((10, hidden), (hidden,), (hidden, hidden), (hidden,),
+              (hidden, 3), (3,))
+    pol = tpol.MLPPolicy(*(_t(rng.standard_normal(s).astype(np.float32))
+                           .to(torch.bfloat16) for s in shapes))
+    obs = _t(rng.standard_normal((8, 10)).astype(np.float32))
+    with pytest.raises(NotImplementedError, match="Queue C4"):
+        tpol.policy_accel(pol, obs)

@@ -116,13 +116,14 @@ def test_entry_points_default_to_cuda_and_never_fall_back(entry,
         "btree", "scenario", "q16_mlp"])
 def test_unported_configs_raise_not_implemented(change):
     """Each config the port does not run raises. The Verlet skin,
-    precision=q16, the mlp and btree behaviors and scenario worlds were
-    refused until they were ported; their cases now hold that both entry
-    points take them and that a tick runs (q16 with the mlp policy is
-    still refused)."""
+    precision=q16, the table sweep, the mlp and btree behaviors and
+    scenario worlds were refused until they were ported; their cases now
+    hold that both entry points take them and that a tick runs (q16 with
+    the mlp policy is still refused)."""
     cfg = tstate.WorldConfig(capacity=64, **change)
     runs = cfg.behavior != "mlp" or cfg.grid.precision == "off"
     if runs and (cfg.grid.skin > 0 or cfg.grid.precision != "off"
+                 or cfg.grid.sweep_impl == "table"
                  or cfg.behavior != "random_walk"
                  or cfg.scenario is not None):
         st = tstate.create_state(cfg, device="cpu")

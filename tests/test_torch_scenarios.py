@@ -214,48 +214,3 @@ def test_run_scenario_mixed_matches_jax():
     assert t.gauges() == j.gauges()
     assert t.oracle_ok and j.oracle_ok
     assert t.oracle_ticks_checked == j.oracle_ticks_checked == 3
-
-
-def wide_check(n: int, ticks: int) -> dict:
-    """Mismatched words of each behavior and scenario configuration at
-    ``n`` rows over ``ticks`` ticks, each tick from the JAX state (the
-    tests above run 512 x 8). Not collected; run as
-    ``PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_scenarios.py
-    4096 16``."""
-    from goworld_tpu.models.npc_policy import init_policy as jinit
-
-    from goworld_tpu_torch.models.npc_policy import init_policy
-
-    out = {}
-    cases = [("btree", None), ("mlp", None)] + [(s, None) for s in NAMES] \
-        + [(m, MEMBER_MIXES[m]) for m in MEMBER_MIXES]
-    for name, mix in cases:
-        if name in ("btree", "mlp"):
-            jcfg, tcfg = tb.configs(n=n, behavior=name)
-            lanes, inputs = tb.bench_lanes(jcfg)
-            pol = name == "mlp"
-        else:
-            js_, ts_ = ((jspec.ScenarioSpec(name=name, mix=mix),
-                         tspec.ScenarioSpec(name=name, mix=mix)) if mix
-                        else (jspec.get_scenario(name),
-                              tspec.get_scenario(name)))
-            jcfg, tcfg = tb.configs(n=n, scenario=js_)
-            tcfg = dataclasses.replace(tcfg, scenario=ts_)
-            lanes, inputs = tb.bench_lanes(jcfg)
-            st = jstate.create_state(jcfg, seed=1)
-            lanes["behavior_id"] = np.asarray(st.behavior_id)
-            lanes["aoi_radius"] = np.asarray(st.aoi_radius)
-            pol = ts_.needs_policy
-        diffs, _ = tb.run_ticks(
-            jcfg, tcfg, lanes, inputs,
-            jinit(jax.random.PRNGKey(5), 128) if pol else None,
-            init_policy(5, 128, device="cpu") if pol else None, ticks)
-        out[name] = diffs
-        print(name, n, ticks, diffs, flush=True)
-    return out
-
-
-if __name__ == "__main__":
-    import sys
-
-    wide_check(*(int(a) for a in sys.argv[1:3]))

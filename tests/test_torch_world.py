@@ -811,14 +811,22 @@ SMALL = TConfig(capacity=64, grid=TGrid(radius=10.0, k=8, cell_cap=4))
 @pytest.mark.parametrize("knob", sorted(KNOBS))
 def test_refused_knobs_raise_not_implemented(knob):
     """Each knob of a shape the port does not run raises. Several
-    Spaces (``n_spaces``) were refused until the batched step was
-    ported; that case now holds that the World takes them and ticks
-    with ``[S]`` outputs."""
-    if knob == "n_spaces":
+    Spaces (``n_spaces``), the pipelined decode and the snapshot chain's
+    keyframe cadence were refused until they were ported; those cases
+    now hold that the World takes them and ticks (the pipelined World
+    decoding one tick late)."""
+    if knob in ("n_spaces", "pipeline_decode", "snapshot_keyframe_every"):
         w = tent.World(SMALL, device="cpu", **KNOBS[knob])
         w.tick()
-        assert tuple(w.state.pos.shape) == (2, SMALL.capacity, 3)
-        assert w.last_outputs.enter_n.shape == (2,)
+        if knob == "n_spaces":
+            assert tuple(w.state.pos.shape) == (2, SMALL.capacity, 3)
+            assert w.last_outputs.enter_n.shape == (2,)
+        elif knob == "pipeline_decode":
+            assert w.pipeline_decode and w.last_outputs is None
+            w.tick()
+            assert w.last_outputs.enter_n.shape == (1,)
+        else:
+            assert w.snapshot_keyframe_every == 4
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tent.World(SMALL, device="cpu", **KNOBS[knob])
@@ -826,9 +834,70 @@ def test_refused_knobs_raise_not_implemented(knob):
 
 @pytest.mark.parametrize("method", ["apply_tick_config", "cost_report"])
 def test_refused_planes_raise_not_implemented(method):
+    """The governor's config swap and the step's cost report were
+    refused until they were ported: a swap to the World's own config
+    keeps it ticking, and the report has the JAX report's fields and
+    config key, with no error."""
+    from goworld_tpu.entity.manager import World as JWorld
+    from goworld_tpu.utils.devprof import CostReport as JReport
+    from goworld_tpu_torch.utils.devprof import CostReport
+
     w = tent.World(SMALL, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(w, method)()
+    if method == "apply_tick_config":
+        w.tick()
+        w.apply_tick_config(w.cfg, w._step)
+        w.tick()
+        assert w.tick_count == 2 and w.workload_signature() is not None
+        return
+    rep = w.cost_report()
+    assert rep.error is None
+    assert [f.name for f in dataclasses.fields(CostReport)] == \
+        [f.name for f in dataclasses.fields(JReport)]
+    jcfg = JConfig(capacity=64, grid=JGrid(radius=10.0, k=8, cell_cap=4))
+    jrep = JWorld(jcfg, telemetry_live=False, residency=False,
+                  audit=False).cost_report()
+    assert rep.config == jrep.config and rep.key == jrep.key
+    assert rep.name == jrep.name and rep.n == jrep.n
+    assert rep.flops > 0 and rep.bytes_accessed > 0
+    assert rep.argument_size > 0 and rep.peak_hbm_bytes > 0
+
+
+def test_cost_report_counts_the_step_from_shapes():
+    """The output bytes of the cost model are a real tick's output
+    lanes' bytes, at one Space and at two; the roofline model equals the
+    reference's; a broken state folds into the report's error."""
+    import goworld_tpu.utils.devprof as jdev
+    from goworld_tpu_torch.utils import devprof
+
+    for spaces in (1, 2):
+        w = tent.World(SMALL, n_spaces=spaces, device="cpu")
+        _, outs = w._step(w.state, w._flush_staging(), w.policy)
+        nbytes = sum(getattr(outs, f.name).numel()
+                     * getattr(outs, f.name).element_size()
+                     for f in dataclasses.fields(outs))
+        assert devprof.output_bytes(SMALL, spaces) == nbytes
+        rep = w.cost_report()
+        assert rep.output_size - rep.alias_size == nbytes
+    for kw in ({"sort_impl": "argsort", "sweep_impl": "ranges", "skin": 0.0},
+               {"sort_impl": "counting", "sweep_impl": "table",
+                "skin": 0.0},
+               {"sort_impl": "argsort", "sweep_impl": "fused", "skin": 0.0},
+               {"sort_impl": "counting", "sweep_impl": "ranges",
+                "skin": 4.0, "verlet_cap": 48},
+               {"sort_impl": "pallas", "sweep_impl": "fused", "skin": 4.0,
+                "precision": "q16"}):
+        kw = dict(kw, k=32, cell_cap=12, radius=50.0, extent_x=10000.0,
+                  extent_z=10000.0)
+        assert devprof.roofline_model_bytes(131072, kw) == \
+            jdev.roofline_model_bytes(131072, kw)
+    rep = devprof.cost_report(SMALL, 1, None, name="broken")
+    assert rep.error and rep.flops is None
+    devprof.reset()
+    w = tent.World(SMALL, device="cpu")
+    snap = devprof.snapshot(analyze=True)
+    assert "error" not in snap["reports"]["world.tick"]
+    assert snap["reports"]["world.tick"]["key"] == w.cost_report().key
+    devprof.reset()
 
 
 @pytest.mark.parametrize("change", [dict(behavior="mlp"),
