@@ -184,26 +184,63 @@ is caught:
     ``cost_report`` beside ``torch.cuda.max_memory_allocated``; twin
     Worlds of 2^16 slots, pipelined and eager, equal after the drain in
     sync records, entity messages, hooks, state, interest sets, ledgers,
-    the pipelined lanes a tick behind the eager ones.
+    the pipelined lanes a tick behind the eager ones;
+    then (run after 17) a finding: ``workload.underflow_world``'s 4
+    ticks (``tests/test_torch_cap.py``'s underflow case, 512 rows) on
+    the card against the CPU port, which flushes subnormals as XLA's
+    CPU runtime does, the card restarted from the CPU port's state each
+    tick: the words that differ, by lane (printed, not a failure: CUDA
+    keeps subnormals, ROADMAP C4);
+19. (run before 12) the served game through the port's normal entry:
+    the port's ``ClusterHarness`` (2 dispatchers and 1 gate over TCP on
+    ephemeral ports) and an ini naming them (GAME_SLOTS slots, one
+    Space, ``aoi_sweep_impl = fused``, ``aoi_sort_impl = pallas``,
+    ``workload.serve_world``'s radius, extent, k and cell_cap (the fused
+    kernel takes ``9 * cell_cap <= 256``; the ini default is 32),
+    filesystem storage and kvdb, the rest at the defaults); the game registered through
+    ``import goworld_tpu_torch as gw`` (``Account``, ``Avatar``,
+    ``Monster``, ``Arena``) with an ``on_boot`` callback that enters
+    GAME_MONSTERS random-walking Monsters through ticks whose events fit
+    the caps; ``gw.run([...], block=False)`` and ``server.pump();
+    server.tick()`` in a loop; GAME_BOTS strict ``BotClient``s through
+    the gate, GAME_GROUP a spot where the Monsters are densest, each
+    logging in, walking with position syncs for GAME_WALK_S seconds,
+    saying one line and disconnecting. It fails unless every login
+    reaches an Avatar, the strict mirrors report 0 errors, every bot's
+    mirror equals its Avatar's interest set on the server at the end of
+    the window (with a Monster in it), every ``OnSay`` reaches each
+    client the server holds as the speaker's watcher (its group among
+    them), and every game tick launches one sweep and one sort; it
+    prints the boot time, the logins' wall time, the game tick's host
+    wall time p50/p99 over the window with the World's four spans and
+    ``fan_out``, and the tick count. Then ``server.request_freeze()``
+    reaches ``frozen`` with a freeze file on disk, and a fresh World of
+    the same ini restores through ``GameServer(restore=True)``: its
+    entities, attrs, positions and yaws equal the frozen World's, and
+    its first tick runs.
 
 Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import asyncio
 import contextlib
 import dataclasses
 import gc
 import json
 import os
 import resource
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
+import goworld_tpu_torch as gw
 from goworld_tpu_torch import interop, kernels
 from goworld_tpu_torch.core.state import WorldConfig, map_lane
 from goworld_tpu_torch.core.step import (
@@ -250,6 +287,7 @@ from goworld_tpu_torch.workload import (
     slice_config,
     uncut_config,
     uncut_world,
+    underflow_world,
 )
 
 N = 1 << 20
@@ -2741,6 +2779,425 @@ def behavior_phase(dev, tag, profiled: dict, walk: tuple) -> tuple:
 
 
 
+
+# ---------------------------------------------------------------- [19]
+# the served game through the port's normal entry, gw.run()
+GAME_SLOTS = 1 << 20      # the width of [11]'s World
+GAME_MONSTERS = 1 << 17   # random-walking Monsters booted before serving
+GAME_BOTS = 64            # strict BotClients through the gate
+GAME_GROUP = 4            # bots logged in together, inside one AOI
+GAME_WALK_S = 3.0         # seconds the bots walk with position syncs
+GAME_BOOT_BUDGET_S = 30.0  # the boot's limit; past it, halve the Monsters
+
+
+class GameAccount(gw.Entity):
+    """The boot entity (``tests/test_cluster.py``'s ``Account``): its
+    ``Login_Client`` creates an Avatar in the Arena at the client's
+    spot and hands it the client."""
+
+    ATTRS = {"status": "client"}
+
+    def OnClientConnected(self):
+        self.attrs["status"] = "online"
+
+    def Login_Client(self, name, x, z):
+        avatar = self.world.create_entity(
+            "Avatar", space=self.world.arena, pos=(float(x), 0.0, float(z)))
+        avatar.attrs["name"] = name
+        self.give_client_to(avatar)
+        self.destroy()
+
+
+class GameAvatar(gw.Entity):
+    """A player: ``Say_Client`` calls ``OnSay`` on every client that
+    sees it, and records whose clients the server holds as watchers."""
+
+    ATTRS = {"name": "allclients", "level": "client"}
+
+    def OnClientConnected(self):
+        self.attrs["level"] = 1
+
+    def Say_Client(self, text):
+        ents = self.world.entities
+        seen = sorted(w for w in self.interested_by
+                      if w in ents and ents[w].client is not None)
+        self.world.said.append((self.id, text, seen))
+        self.call_all_clients("OnSay", self.id, text)
+
+
+class GameMonster(gw.Entity):
+    ATTRS = {"hp": "allclients"}
+
+
+class GameArena(gw.Space):
+    pass
+
+
+def boot_monsters(world, pop: int, seed: int, log: dict) -> None:
+    """The served game's boot (an ``on_boot`` callback of ``gw.run``):
+    the Arena, then ``pop`` Monsters uniform over the extent, entered in
+    batches through ticks whose events stay within half of
+    ``enter_cap`` at the population's own density (``workload``'s
+    ``_boot_batch`` rule), each boot tick's caps checked."""
+    t0 = time.perf_counter()
+    world.arena = world.create_space("Arena")
+    world.said = []
+    cfg, g = world.cfg, world.cfg.grid
+    rng = np.random.default_rng(seed)
+    pos = np.zeros((pop, 3))
+    pos[:, 0] = rng.uniform(0, g.extent_x, pop)
+    pos[:, 2] = rng.uniform(0, g.extent_z, pop)
+    nb = pop * (2.0 * g.radius) ** 2 / (g.extent_x * g.extent_z)
+    done = ticks = events = 0
+    while done < pop:
+        hi = min(pop, done + max(1, int(
+            -done + np.sqrt(done ** 2 + cfg.enter_cap / 2.0 * pop / nb))))
+        for i in range(done, hi):
+            world.arena.create_entity("Monster", pos=tuple(pos[i]),
+                                      moving=True, attrs={"hp": 100})
+        done = hi
+        before = dict(kernels.LAUNCHES)
+        world.tick()
+        if world.device.type == "cuda":
+            check_game_launches(before, f"boot tick {ticks + 1}")
+        out = world.last_outputs
+        for lane, cap in (("enter_n", cfg.enter_cap),
+                          ("leave_n", cfg.leave_cap),
+                          ("delta_rows_n", cfg.delta_rows_cap_eff)):
+            if int(getattr(out, lane).max()) > cap:
+                fail(f"[19] boot tick {ticks + 1}: {lane} > {cap}")
+        ticks += 1
+        events += int(out.enter_n.sum())
+    log.update(seconds=time.perf_counter() - t0, ticks=ticks,
+               events=events, monsters=pop)
+
+
+def check_game_launches(before: dict, what: str) -> None:
+    got = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+    if got != {"sweep_fused": 1, "counting_sort": 1, "halo_ship_phase": 0,
+               "npc_mlp": 0}:
+        fail(f"[19] {what} launched {got}")
+
+
+def game_spots(world, groups: int, size: int, seed: int) -> list:
+    """Where the bots log in: ``groups`` spots where the Monsters are
+    densest (the cells of side ``radius`` holding the most), ``size``
+    bots a spot a few units apart, so that each bot has Monsters and
+    its group in its AOI."""
+    r = world.cfg.grid.radius
+    alive = world.state.alive[0].cpu().numpy()
+    xz = world.state.pos[0][:, [0, 2]].cpu().numpy()[alive]
+    cell = np.floor(xz / r).astype(np.int64)
+    key = cell[:, 0] * (1 << 20) + cell[:, 1]
+    uniq, inv, cnt = np.unique(key, return_inverse=True, return_counts=True)
+    spots = []
+    rng = np.random.default_rng(seed)
+    for c in np.argsort(-cnt, kind="stable")[:groups]:
+        x, z = xz[inv == c].mean(0)
+        spots += [(float(x + rng.uniform(-3, 3)), float(z + rng.uniform(-3, 3)))
+                  for _ in range(size)]
+    return spots
+
+
+async def bots_login(bots, spots) -> float:
+    """Connect every bot, wait for its Account, log it in at its spot
+    and wait for its Avatar: the logins' wall seconds."""
+    t0 = time.perf_counter()
+    await asyncio.gather(*(b.connect() for b in bots))
+    for b in bots:
+        b._recv_task = asyncio.ensure_future(b._recv_loop())
+    await asyncio.wait_for(asyncio.gather(
+        *(b.player_ready.wait() for b in bots)), 120)
+    for b, (x, z) in zip(bots, spots):
+        b.call_server("Login_Client", f"bot{b.bot_id}", x, z)
+    for _ in range(2400):
+        if all(b.player is not None and b.player.type_name == "Avatar"
+               for b in bots):
+            break
+        await asyncio.sleep(0.05)
+    return time.perf_counter() - t0
+
+
+async def bots_walk(bots, seconds: float) -> None:
+    """Every bot random-walks with position syncs for ``seconds``."""
+    for b in bots:
+        b._stop = False
+    moves = [asyncio.ensure_future(b._move_loop()) for b in bots]
+    await asyncio.sleep(seconds)
+    for b in bots:
+        b._stop = True
+    for m in moves:
+        m.cancel()
+    await asyncio.gather(*moves, return_exceptions=True)
+
+
+async def bots_say(bots, world) -> None:
+    """Every bot says one line; wait until the server recorded each say
+    and every client it names as a watcher got the ``OnSay``."""
+    for b in bots:
+        b.call_server("Say_Client", f"hello from bot{b.bot_id}")
+    by_eid = {b.player.eid: b for b in bots}
+    for _ in range(2400):
+        said = list(world.said)
+        if len(said) == len(bots) and all(
+                any(m == "OnSay" and a == [sp, text]
+                    for _, m, a in by_eid[w].rpc_log)
+                for sp, text, seen in said for w in [sp, *seen]):
+            return
+        await asyncio.sleep(0.05)
+
+
+async def bots_leave(bots) -> None:
+    for b in bots:
+        await b.conn.close()
+        b._recv_task.cancel()
+        if getattr(b, "_hb_task", None) is not None:
+            b._hb_task.cancel()
+
+
+def served_game_phase(dev, tag: str, slots: int = GAME_SLOTS,
+                      monsters: int = GAME_MONSTERS,
+                      n_bots: int = GAME_BOTS) -> dict:
+    """[19] (see the module docstring): launches of the served game's
+    ticks (boot, serving, the restored World's first)."""
+    from goworld_tpu_torch import api
+    from goworld_tpu_torch import freeze as freeze_mod
+    from goworld_tpu_torch.net.botclient import BotClient
+    from goworld_tpu_torch.net.game import GameServer
+    from goworld_tpu_torch.net.standalone import ClusterHarness
+
+    phase0 = time.perf_counter()
+    kernels.reset_launches()
+    grid = slice_config(slots).grid
+    extent = grid.extent_x
+    harness = ClusterHarness(n_dispatchers=2, n_gates=1, desired_games=1,
+                             position_sync_interval_ms=50)
+    harness.start()
+    home = os.getcwd()
+    tmp = tempfile.mkdtemp(prefix="served_game_")
+    rt = None
+    try:
+        os.chdir(tmp)
+        disp = "".join(f"[dispatcher{i + 1}]\nhost = {h}\nport = {p}\n\n"
+                       for i, (h, p) in enumerate(harness.dispatcher_addrs))
+        with open("goworld_tpu.ini", "w") as f:
+            f.write(
+                f"{disp}[game_common]\nboot_entity = Account\n"
+                f"capacity = {slots}\nn_spaces = 1\naoi_radius = 50.0\n"
+                f"extent_x = {extent}\nextent_z = {extent}\n"
+                f"aoi_k = {grid.k}\naoi_cell_cap = {grid.cell_cap}\n"
+                "aoi_sweep_impl = fused\naoi_sort_impl = pallas\n"
+                "position_sync_interval_ms = 50\n\n[game1]\n\n[gate1]\n"
+                f"host = {harness.gate_addrs[0][0]}\n"
+                f"port = {harness.gate_addrs[0][1]}\n\n"
+                "[storage]\nkind = filesystem\ndirectory = entity_storage\n"
+                "\n[kvdb]\nkind = filesystem\npath = kvdb_data\n")
+        gw.register_entity("Account", GameAccount)
+        gw.register_entity("Avatar", GameAvatar)
+        gw.register_entity("Monster", GameMonster)
+        gw.register_space("Arena", GameArena)
+        boot = {}
+        gw.on_boot(lambda w: boot_monsters(w, monsters, SEED, boot))
+        rt = gw.run(["-gid", "1", "-configfile", "goworld_tpu.ini"],
+                    block=False, device=dev.type)
+        server, world = rt.server, rt.world
+        if world.device.type != dev.type or \
+                world.cfg.grid.sweep_impl != "fused" or \
+                world.cfg.grid.sort_impl != "pallas":
+            fail(f"[19] gw.run built {world.device} "
+                 f"{world.cfg.grid.sweep_impl}/{world.cfg.grid.sort_impl}")
+        if "seconds" not in boot:
+            fail("[19] the on_boot callback failed (logged above)")
+        if boot["seconds"] > GAME_BOOT_BUDGET_S:
+            print(f"[19] note: the boot of {monsters} Monsters took "
+                  f"{boot['seconds']:.1f} s, over {GAME_BOOT_BUDGET_S} s",
+                  flush=True)
+        gc.collect()
+        gc.freeze()   # as serve_forever does at boot (ini gc_freeze)
+        tl = metrics.timeline
+        rows = []
+
+        def game_tick(timed: bool) -> None:
+            before = dict(kernels.LAUNCHES)
+            tl.begin_tick()
+            t0 = time.perf_counter()
+            with tl.span("drain_inputs"):
+                server.pump()
+            server.tick()
+            wall = time.perf_counter() - t0
+            tl.end_tick()
+            if dev.type == "cuda":
+                check_game_launches(before, f"game tick {len(rows) + 1}")
+            rows.append((timed, wall, {name: d for name, _, d, _ in
+                                       tl.records()[-1][2]}))
+
+        def tick_until(fut, timed: bool, limit: float = 300.0):
+            t_end = time.perf_counter() + limit
+            while not fut.done():
+                if time.perf_counter() > t_end:
+                    fail("[19] the bots did not finish within "
+                         f"{limit:.0f} s")
+                game_tick(timed)
+            return fut.result(timeout=1)
+
+        bots = [BotClient(*harness.gate_addrs[0], bot_id=i, strict=True,
+                          speed=1.0, move_interval=0.1, seed=SEED + i)
+                for i in range(n_bots)]
+        spots = game_spots(world, n_bots // GAME_GROUP, GAME_GROUP, SEED)
+        login_s = tick_until(harness.submit(bots_login(bots, spots)), False)
+        avatars = {b.player.eid: b for b in bots if b.player is not None
+                   and b.player.type_name == "Avatar"}
+        if len(avatars) != n_bots:
+            fail(f"[19] {len(avatars)} of {n_bots} logins reached an "
+                 "Avatar")
+        t_win = time.perf_counter()
+        tick_until(harness.submit(bots_walk(bots, GAME_WALK_S)), True)
+        tick_until(harness.submit(bots_say(bots, world)), True)
+        win_s = time.perf_counter() - t_win
+        # the end of the window: two more ticks, then the card rests
+        # while the gate's last flushes reach the bots
+        for _ in range(2):
+            game_tick(False)
+        time.sleep(1.0)
+        errors = [e for b in bots for e in b.errors]
+        if errors:
+            fail(f"[19] strict mirrors report {len(errors)} errors: "
+                 f"{errors[:4]}")
+        ents = world.entities
+        mons, mism = [], []
+        for eid, b in avatars.items():
+            want = {eid, *ents[eid].interested_in}
+            got = set(b.entities)
+            if got != want:
+                mism.append((b.bot_id, len(got ^ want)))
+            mons.append(sum(ents[e].type_name == "Monster" for e in want
+                            if e in ents))
+        if mism:
+            fail(f"[19] bot mirrors differ from the server's interest "
+                 f"sets: (bot, words) {mism[:8]}")
+        if min(mons) < 1:
+            fail(f"[19] a bot has no Monster in its AOI: {mons}")
+        said = list(world.said)
+        groups = {eid: {a for a, b2 in avatars.items()
+                        if b2.bot_id // GAME_GROUP == b.bot_id // GAME_GROUP}
+                  for eid, b in avatars.items()}
+        deliveries = 0
+        for sp, text, seen in said:
+            for w in [sp, *seen]:
+                if not any(m == "OnSay" and a == [sp, text]
+                           for _, m, a in avatars[w].rpc_log):
+                    fail(f"[19] OnSay of {sp} did not reach {w}")
+                deliveries += 1
+            if not groups[sp] <= {sp, *seen}:
+                fail(f"[19] {sp}'s group is not in its AOI at its say")
+        if len(said) != n_bots:
+            fail(f"[19] {len(said)} of {n_bots} says reached the server")
+        tick_until(harness.submit(bots_leave(bots)), False)
+        for _ in range(200):
+            if all(ents[e].client is None for e in avatars):
+                break
+            game_tick(False)
+        if any(ents[e].client is not None for e in avatars):
+            fail("[19] the server still binds a client after the bots left")
+        # freeze (the SIGHUP path): every dispatcher acks, then the
+        # serve loop's freeze writes the file and stops the server
+        server.request_freeze()
+        for _ in range(2000):
+            if server.run_state == "freezing":
+                server._do_freeze()
+                break
+            game_tick(False)
+        path = os.path.join(tmp, freeze_mod.freeze_filename(1))
+        if server.run_state != "frozen" or not os.path.isfile(path):
+            fail(f"[19] freeze: run state {server.run_state}, file "
+                 f"{os.path.isfile(path)}")
+        frozen = {e.id: (e.type_name, e.attrs.to_dict(), e.position,
+                         e.yaw) for e in ents.values()
+                  if not e.destroyed and e.slot is not None}
+        # a fresh World of the same ini restores through the server
+        t0 = time.perf_counter()
+        gc_ = rt.world   # keep the frozen World for the comparison
+        w2 = api._build_world(api.config_mod.load("goworld_tpu.ini")
+                              .games[1], 1, dev.type)
+        api._apply_registrations(w2)
+        gs2 = GameServer(1, w2, [], restore=True, freeze_dir=tmp)
+        restore_s = time.perf_counter() - t0
+        back = {e.id: (e.type_name, e.attrs.to_dict(), e.position, e.yaw)
+                for e in w2.entities.values()
+                if not e.destroyed and e.slot is not None}
+        if back != frozen:
+            diff = [k for k in frozen if back.get(k) != frozen[k]]
+            fail(f"[19] the restored World differs from the frozen one in "
+                 f"{len(diff) + len(set(back) - set(frozen))} entities")
+        before = dict(kernels.LAUNCHES)
+        gs2.tick()
+        if dev.type == "cuda":
+            check_game_launches(before, "the restored World's first tick")
+        launches = dict(kernels.LAUNCHES)
+        win = [w for t, w, _ in rows if t]
+        wall = np.array(win) * 1e3
+        spans = {k: float(np.mean([s.get(k, 0.0) for t, _, s in rows if t]))
+                 * 1e3 for k in rows[-1][2]}
+        print(f"[19] served game through gw.run() (ini: {slots} slots, "
+              f"fused/pallas, 2 dispatchers, 1 gate over TCP): boot of "
+              f"{boot['monsters']} Monsters in {boot['seconds']:.2f} s over "
+              f"{boot['ticks']} ticks ({boot['events']} enter events); "
+              f"{n_bots}/{n_bots} logins in {login_s:.2f} s; window "
+              f"{win_s:.2f} s: {len(win)} game ticks (pump + tick) p50 "
+              f"{np.percentile(wall, 50):.3f} p99 "
+              f"{np.percentile(wall, 99):.3f} ms, mean span ms "
+              + ", ".join(f"{k} {v:.3f}" for k, v in spans.items())
+              + f"; {len(rows)} game ticks in all, 1 sweep + 1 sort launch "
+              f"each (launches {launches}); strict mirrors 0 errors; every "
+              f"mirror == its Avatar's interest set (Monsters a bot min "
+              f"{min(mons)} mean {np.mean(mons):.1f}); {len(said)} says, "
+              f"{deliveries} OnSay deliveries; frozen to "
+              f"{os.path.getsize(path)} B, restored {len(back)} entities "
+              f"in {restore_s:.2f} s, equal, first tick ran; phase "
+              f"{time.perf_counter() - phase0:.1f} s {tag}", flush=True)
+        del gc_, w2, gs2
+        return launches
+    finally:
+        os.chdir(home)
+        if rt is not None:
+            rt.server.stop()
+            rt.storage.shutdown()
+            rt.workers.wait_clear()
+        harness.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+        release_worlds()
+
+
+def underflow_on_card(dev, tag: str) -> dict:
+    """``workload.underflow_world``'s 4 ticks (``tests/test_torch_cap.py``'s
+    underflow case, 512 rows) on the card against the CPU port, which
+    flushes subnormals as XLA's CPU runtime does: each tick the card
+    restarts from the CPU port's state (as the test restarts the port
+    from JAX's), and the words that differ are counted by lane."""
+    cfg, st_c, in_c, pol_c = underflow_world(512, device="cpu")
+    _, _, in_g, pol_g = underflow_world(512, device=dev)
+    tick_c, tick_g = make_tick(cfg, device="cpu"), make_tick(cfg, device=dev)
+    diffs = {}
+    for _ in range(4):
+        st_g = interop.state_from_numpy(interop.state_to_numpy(st_c), dev)
+        st_c, out_c = tick_c(st_c, in_c, pol_c)
+        st_g, out_g = tick_g(st_g, in_g, pol_g)
+        for what, a, b in (("", st_c, st_g), ("out.", out_c, out_g)):
+            la, lb = lanes(a), lanes(b)
+            for name, x in la.items():
+                if x is None or name.startswith("aoi_cache"):
+                    continue
+                n = int((words(x) != words(lb[name].cpu())).sum())
+                if n:
+                    diffs[what + name] = diffs.get(what + name, 0) + n
+    print(f"[17] finding, the underflow case on the card (512 rows, 4 "
+          f"ticks, the card restarted from the CPU port's state each "
+          f"tick): the card's tick differs from the CPU port's (which "
+          f"flushes subnormals) in {sum(diffs.values())} words, by lane "
+          f"{diffs or 'none'} {tag}", flush=True)
+    return diffs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
@@ -3085,7 +3542,10 @@ def main() -> int:
         dev, tag, profiled, (p50, p99))
     rows.append(mlp_row)
     world.update({f"behaviors_{k}": v for k, v in beh_launches.items()})
+    underflow_on_card(dev, tag)
     phase_done("[17]")
+    world["served_game"] = served_game_phase(dev, tag)
+    phase_done("[19]")
     for row, key in zip(rows[:2], ("sweep_fused", "counting_sort")):
         row["launches_by_path"] = {"single_space": row["launches"],
                                    **{p: n[key] for p, n in world.items()}}

@@ -55,6 +55,7 @@ from goworld_tpu_torch.scenarios.behaviors import (
     capped_step,
     scenario_velocity,
 )
+from goworld_tpu_torch.utils.fpenv import flushed
 
 
 @dataclasses.dataclass(frozen=True)
@@ -331,6 +332,7 @@ def make_tick(cfg: WorldConfig, device="cuda"):
         if state.device.type != dev.type:
             raise ValueError(
                 f"state lives on {state.device}, the tick on {dev}")
-        return tick_body(cfg, state, inputs, policy)
+        with flushed(dev):
+            return tick_body(cfg, state, inputs, policy)
 
     return tick

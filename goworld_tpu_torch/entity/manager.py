@@ -114,9 +114,11 @@ from goworld_tpu_torch.utils import (
     log,
     metrics,
     opmon,
+    overload,
     tracing,
 )
 from goworld_tpu_torch.utils import residency as residency_mod
+from goworld_tpu_torch.utils.fpenv import flushed
 
 logger = log.get("world")
 
@@ -544,6 +546,14 @@ class World:
         self.on_entity_created: Callable[[Entity], None] | None = None
         self.on_entity_destroyed: Callable[[Entity], None] | None = None
         self.op_stats: dict[str, float] = defaultdict(float)
+        # overload degradation (utils/overload.py): when > 1 the
+        # position-sync fan-out serves each entity cohort every Nth
+        # tick (cohort = subject slot % stride) — the GameServer's
+        # governor sets it in DEGRADED and restores 1 on recovery
+        self.sync_stride = 1
+        # one controller: the JAX World's multi-controller mode (its
+        # process_allgather fetches) is not ported
+        self._multihost = False
         self._aoi_alarm_tick = -(1 << 30)  # last AOI-overflow alarm tick
         self._m_aoi_overflow = metrics.counter(
             "aoi_overflow_total",
@@ -1570,7 +1580,7 @@ class World:
             inputs = self._flush_staging()
         self._pos_cache = self._yaw_cache = None
         t0 = time.perf_counter()
-        with tl.span("device_step"):
+        with tl.span("device_step"), flushed(self.device):
             self.state, outs = self._step(self.state, inputs, self.policy)
             if self._telem_fn is not None:
                 # fold THIS tick's outputs into the device lanes, in
@@ -2244,7 +2254,25 @@ class World:
                 ws = base.sync_w[shard][:sn]
                 js = base.sync_j[shard][:sn]
                 vs = base.sync_vals[shard][:sn]
-                if self.sync_sink is not None:
+                if self.sync_stride > 1:
+                    # DEGRADED fan-out: serve one entity cohort per
+                    # tick (subject slot mod stride) — each entity
+                    # still syncs every `stride` ticks with its LATEST
+                    # position, so nothing is lost, only thinned. A
+                    # mask over the host arrays already fetched; every
+                    # skipped record counted (shed_total{sync,stride})
+                    keep = (js % self.sync_stride) == (
+                        self.tick_count % self.sync_stride
+                    )
+                    dropped = int(sn - int(keep.sum()))
+                    if dropped:
+                        overload.shed_counter(
+                            overload.CLASS_SYNC, "stride").inc(dropped)
+                    ws, js, vs = ws[keep], js[keep], vs[keep]
+                    sn = len(js)
+                if not sn:
+                    pass
+                elif self.sync_sink is not None:
                     # batched path: one (cids, eids, vals) bundle per
                     # gate per tick, resolved through the numpy slot
                     # mirrors (one gather + per-gate groupby); the

@@ -58,6 +58,7 @@ from goworld_tpu_torch.parallel.mesh import (
 )
 from goworld_tpu_torch.parallel.step import MultiTickInputs
 from goworld_tpu_torch.scenarios.behaviors import scenario_velocity
+from goworld_tpu_torch.utils.fpenv import flushed
 
 
 @dataclasses.dataclass(frozen=True)
@@ -459,6 +460,7 @@ def make_mega_tick(mc: MegaConfig, device="cuda", devices=None):
             raise ValueError(
                 f"expected a stacked state of {mc.n_dev} tiles, got pos "
                 f"{tuple(state.pos.shape)}")
-        return mega_tick_body(mc, state, inputs, shifts, policy)
+        with flushed(dev):
+            return mega_tick_body(mc, state, inputs, shifts, policy)
 
     return tick

@@ -1,39 +1,76 @@
-"""Metrics registry and per-tick timeline, the part of
-``goworld_tpu/utils/metrics.py`` that the World and its planes use.
+"""Unified telemetry: metrics registry + per-tick timeline recorder.
+
+The port's copy of ``goworld_tpu/utils/metrics.py``, with a registry of
+its own: its series never mix with the JAX package's in one process.
+
+The reference engine ships opmon + expvar + pprof on every process
+(``engine/binutil/binutil.go:17-75``); :mod:`opmon` rebuilds the op
+table and gwvar map, but nothing gave the live serve loops the per-tick
+phase attribution that ``bench.py`` produces offline. This module is
+that attribution as an always-on subsystem:
 
 * :class:`Registry` — process-wide counters, gauges and fixed-bucket
-  histograms keyed by name and labels, the port's own: its series never
-  mix with the JAX package's in one process. The histograms take the
-  drained telemetry lanes (:meth:`Histogram.add_counts`) and back the
-  sync-age and residency trackers.
-* :class:`TickTimeline` — a ring buffer of per-tick phase spans. The
-  World opens a tick record and times its four phases in it
-  (``flush_staging``, ``device_step``, ``fetch_outputs``,
-  ``decode_fanout``), with the step's dispatch time folded in as tick
-  args; ``profile_tick --world`` reads them back with
-  :meth:`TickTimeline.records`.
+  histograms. Lock-protected, labels rendered as name suffixes
+  (``name{k="v"}``), exported in Prometheus text exposition format
+  (served by ``debug_http`` as ``/metrics``).
+* :class:`TickTimeline` — a ring buffer of per-tick phase spans
+  (drain-inputs / device-step / fetch-outputs / fan-out, with the
+  jitted step's timing folded in as tick args), exportable as Chrome
+  ``chrome://tracing`` / Perfetto JSON (served as ``/trace``).
 
-A span is two ``perf_counter`` calls and one tuple append, so the
-recorder stays on. The Prometheus export and the Chrome trace export
-serve the debug HTTP endpoints, which are not ported yet.
+Overhead budget: one span is two ``perf_counter`` calls and one tuple
+append; a full game tick records ~6 spans — microseconds against the
+16 ms frame (< 0.1%), so the recorder stays on unconditionally.
+
+Metric naming scheme (see docs/OBSERVABILITY.md):
+``<subsystem>_<what>_<unit|total>`` — e.g. ``tick_latency_ms``,
+``aoi_overflow_total``, ``gate_packet_handle_ms``,
+``dispatcher_route_total{msgtype="..."}``.
 """
 
 from __future__ import annotations
 
 import bisect
+import json
+import os
 import threading
 import time
 from collections import deque
 from typing import Any
 
-__all__ = ["Counter", "Gauge", "Histogram", "Registry", "TickTimeline",
-           "REGISTRY", "counter", "gauge", "histogram", "timeline",
-           "DEFAULT_MS_BUCKETS"]
+__all__ = [
+    "Counter", "Gauge", "Histogram", "Registry", "TickTimeline",
+    "REGISTRY", "counter", "gauge", "histogram", "timeline",
+    "DEFAULT_MS_BUCKETS", "DEFAULT_SIZE_BUCKETS",
+    "parse_prometheus_text",
+]
 
 # latency buckets in milliseconds: sub-ms through the 16 ms roofline
 # frame up to multi-second stalls
 DEFAULT_MS_BUCKETS = (0.25, 0.5, 1.0, 2.0, 4.0, 8.0, 16.0, 33.0, 66.0,
                       133.0, 266.0, 533.0, 1066.0, 2133.0, 4266.0)
+# size buckets (records per batch, queue depths, ...)
+DEFAULT_SIZE_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024,
+                        4096, 16384, 65536)
+
+
+def _fmt(v: float) -> str:
+    """Prometheus sample value: integral floats print as integers."""
+    f = float(v)
+    return str(int(f)) if f.is_integer() else repr(f)
+
+
+def _escape(v: str) -> str:
+    return v.replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+
+
+def _render_labels(labels: dict[str, str]) -> str:
+    if not labels:
+        return ""
+    inner = ",".join(
+        f'{k}="{_escape(str(v))}"' for k, v in sorted(labels.items())
+    )
+    return "{" + inner + "}"
 
 
 class Counter:
@@ -70,6 +107,14 @@ class Gauge:
         with self._lock:
             self._v = float(v)
 
+    def inc(self, n: float = 1.0) -> None:
+        with self._lock:
+            self._v += n
+
+    def dec(self, n: float = 1.0) -> None:
+        with self._lock:
+            self._v -= n
+
     @property
     def value(self) -> float:
         with self._lock:
@@ -100,8 +145,9 @@ class Histogram:
             self._count += 1
 
     def observe_n(self, v: float, n: int) -> None:
-        """``n`` samples of the same value in one locked update (the
-        record-weighted sync-age lanes)."""
+        """``n`` samples of the same value in one locked update — the
+        record-weighted sync-age lanes observe one value per BATCH but
+        must weight it by the records delivered (one bisect, not n)."""
         if n <= 0:
             return
         i = bisect.bisect_left(self._uppers, v)
@@ -112,9 +158,13 @@ class Histogram:
 
     def add_counts(self, counts, sum_: float = 0.0) -> None:
         """Merge a pre-bucketed count vector (``len(uppers)+1``
-        entries, last = +Inf): the drained telemetry lanes, bucketed on
-        the device with this class's bisect_left-on-upper-edges rule.
-        ``sum_`` is optional: the lanes carry no per-sample sum."""
+        entries, last = +Inf) — the in-graph telemetry lanes drain
+        into the live registry through this (the device accumulator
+        shares the bisect_left-on-upper-edges semantics of
+        ``observe``, so merged counts are bit-compatible). ``sum_``
+        is optional: lanes carry no per-sample sum, so quantiles stay
+        exact while the ``_sum`` series only covers host-observed
+        samples."""
         if len(counts) != len(self._uppers) + 1:
             raise ValueError(
                 f"count vector has {len(counts)} entries, histogram "
@@ -149,16 +199,25 @@ class Histogram:
             return self._sum
 
 
+class _Family:
+    __slots__ = ("kind", "help", "buckets", "children")
+
+    def __init__(self, kind: str, help_: str, buckets):
+        self.kind = kind
+        self.help = help_
+        self.buckets = buckets
+        # label-key tuple -> (labels dict, metric)
+        self.children: dict[tuple, tuple[dict, Any]] = {}
+
+
 class Registry:
     """Process-wide metric registry. Metrics are created on first use
     and returned again on re-request (same name + labels), so call
-    sites can hold direct references to the hot-path objects. A
-    histogram family keeps the buckets of its first registration."""
+    sites can hold direct references to the hot-path objects."""
 
     def __init__(self):
         self._lock = threading.Lock()
-        # name -> (kind, help, buckets, {label-key tuple: metric})
-        self._families: dict[str, tuple[str, str, tuple | None, dict]] = {}
+        self._families: dict[str, _Family] = {}
 
     def _get(self, kind: str, name: str, help_: str, buckets,
              labels: dict[str, str]):
@@ -166,20 +225,23 @@ class Registry:
         with self._lock:
             fam = self._families.get(name)
             if fam is None:
-                fam = self._families[name] = (kind, help_, buckets, {})
-            elif fam[0] != kind:
+                fam = self._families[name] = _Family(kind, help_, buckets)
+            elif fam.kind != kind:
                 raise ValueError(
-                    f"metric {name!r} already registered as {fam[0]}")
-            m = fam[3].get(key)
-            if m is None:
+                    f"metric {name!r} already registered as {fam.kind}"
+                )
+            child = fam.children.get(key)
+            if child is None:
                 if kind == "counter":
-                    m = Counter()
+                    m: Any = Counter()
                 elif kind == "gauge":
                     m = Gauge()
                 else:
-                    m = Histogram(fam[2])
-                fam[3][key] = m
-            return m
+                    m = Histogram(fam.buckets)
+                child = fam.children[key] = (
+                    {k: str(v) for k, v in labels.items()}, m,
+                )
+            return child[1]
 
     def counter(self, name: str, help: str = "", **labels) -> Counter:
         return self._get("counter", name, help, None, labels)
@@ -191,18 +253,70 @@ class Registry:
                   help: str = "", **labels) -> Histogram:
         return self._get("histogram", name, help, tuple(buckets), labels)
 
+    def expose_text(self) -> str:
+        """Prometheus text exposition format, version 0.0.4."""
+        out: list[str] = []
+        with self._lock:
+            # snapshot the children lists too: _get inserts new children
+            # concurrently (e.g. the dispatcher's lazy per-msgtype route
+            # counters) and dict iteration would die mid-scrape
+            fams = [
+                (name, fam.kind, fam.help, list(fam.children.values()))
+                for name, fam in sorted(self._families.items())
+            ]
+        for name, kind, help_, children in fams:
+            if help_:
+                out.append(f"# HELP {name} {_escape(help_)}")
+            out.append(f"# TYPE {name} {kind}")
+            for labels, m in children:
+                if kind in ("counter", "gauge"):
+                    out.append(
+                        f"{name}{_render_labels(labels)} {_fmt(m.value)}"
+                    )
+                    continue
+                snap = m.snapshot()
+                cum = 0
+                for upper, cnt in snap["buckets"]:
+                    cum += cnt
+                    lb = dict(labels, le=_fmt(upper))
+                    out.append(
+                        f"{name}_bucket{_render_labels(lb)} {cum}"
+                    )
+                lb = dict(labels, le="+Inf")
+                out.append(
+                    f"{name}_bucket{_render_labels(lb)} {snap['count']}"
+                )
+                out.append(
+                    f"{name}_sum{_render_labels(labels)} "
+                    f"{_fmt(snap['sum'])}"
+                )
+                out.append(
+                    f"{name}_count{_render_labels(labels)} "
+                    f"{snap['count']}"
+                )
+        return "\n".join(out) + "\n" if out else ""
+
     def histogram_snapshot(self, name: str) -> list | None:
         """``[(labels, Histogram.snapshot()), ...]`` for a histogram
-        family, or None when it doesn't exist (or isn't a histogram)."""
+        family, or None when it doesn't exist (or isn't a histogram).
+        The devprof ``/costs`` SLO verdict reads ``tick_latency_ms``
+        through this instead of poking family internals."""
         with self._lock:
             fam = self._families.get(name)
-            if fam is None or fam[0] != "histogram":
+            if fam is None or fam.kind != "histogram":
                 return None
-            children = list(fam[3].items())
-        return [(dict(key), m.snapshot()) for key, m in children]
+            children = list(fam.children.values())
+        return [(dict(labels), m.snapshot()) for labels, m in children]
+
+    def reset(self) -> None:
+        """Drop every registered metric (tests)."""
+        with self._lock:
+            self._families.clear()
 
 
-
+# =======================================================================
+# per-tick phase timeline
+# =======================================================================
 class _Span:
     """``with timeline.span("device_step"): ...`` — records a phase span
     into the currently open tick. No-op when no tick is open."""
@@ -236,9 +350,9 @@ _NULL_SPAN = _Span(None, "", None)
 
 
 class TickTimeline:
-    """Ring buffer of per-tick phase spans. One open tick at a time; the
-    logic thread opens and closes ticks and records spans, any thread
-    may read the records."""
+    """Ring buffer of per-tick phase spans, exportable as Chrome trace
+    JSON. One open tick at a time; the logic thread opens/closes ticks
+    and records spans, any thread may snapshot (``/trace``)."""
 
     def __init__(self, capacity: int = 512):
         self.capacity = capacity
@@ -261,7 +375,8 @@ class TickTimeline:
         return _Span(self, name, args or None)
 
     def set_tick_args(self, **kw) -> None:
-        """Fold extra attribution into the open tick's args."""
+        """Fold extra attribution (e.g. the jitted step's phase timing)
+        into the open tick's args."""
         if self._open is not None:
             self._open[3].update(kw)
 
@@ -276,13 +391,60 @@ class TickTimeline:
         return dur
 
     def records(self) -> list:
-        """(wall_us, seconds, [(span, start s, seconds, args)], args)
-        per closed tick, oldest first."""
         with self._lock:
             return list(self._recs)
 
+    def clear(self) -> None:
+        with self._lock:
+            self._recs.clear()
+        self._open = None
+
+    def coverage(self) -> float:
+        """Fraction of recorded tick wall time covered by phase spans
+        (spans are sequential, never nested)."""
+        recs = self.records()
+        total = sum(r[1] for r in recs)
+        if total <= 0:
+            return 0.0
+        covered = sum(s[2] for r in recs for s in r[2])
+        return covered / total
+
+    def chrome_trace(self, process_name: str = "goworld_tpu") -> dict:
+        """Chrome ``chrome://tracing`` / Perfetto JSON object format:
+        one ``tick`` umbrella event per tick (tick args attached) with
+        its phase spans nested inside on the same track."""
+        pid = os.getpid()
+        events: list[dict] = [{
+            "name": "process_name", "ph": "M", "pid": pid, "tid": 0,
+            "args": {"name": process_name},
+        }, {
+            "name": "thread_name", "ph": "M", "pid": pid, "tid": 0,
+            "args": {"name": "logic"},
+        }]
+        for wall_us, dur, spans, args in self.records():
+            events.append({
+                "name": "tick", "ph": "X", "ts": wall_us,
+                "dur": dur * 1e6, "pid": pid, "tid": 0,
+                "args": args or {},
+            })
+            for name, start, sdur, sargs in spans:
+                ev = {
+                    "name": name, "ph": "X",
+                    "ts": wall_us + start * 1e6, "dur": sdur * 1e6,
+                    "pid": pid, "tid": 0,
+                }
+                if sargs:
+                    ev["args"] = sargs
+                events.append(ev)
+        return {"traceEvents": events, "displayTimeUnit": "ms"}
+
+    def chrome_trace_json(self, process_name: str = "goworld_tpu") -> str:
+        return json.dumps(self.chrome_trace(process_name))
 
 
+# =======================================================================
+# process-wide instances + scrape-side parsing
+# =======================================================================
 REGISTRY = Registry()
 timeline = TickTimeline()
 
@@ -298,3 +460,20 @@ def gauge(name: str, help: str = "", **labels) -> Gauge:
 def histogram(name: str, buckets=DEFAULT_MS_BUCKETS, help: str = "",
               **labels) -> Histogram:
     return REGISTRY.histogram(name, buckets=buckets, help=help, **labels)
+
+
+def parse_prometheus_text(text: str) -> dict[str, float]:
+    """Parse Prometheus text exposition into ``{series: value}`` where
+    ``series`` is the name with its label suffix verbatim. Shared by
+    ``tools/scrape_metrics.py``, ``cli.py status`` and the tests."""
+    out: dict[str, float] = {}
+    for line in text.splitlines():
+        line = line.strip()
+        if not line or line.startswith("#"):
+            continue
+        series, _, val = line.rpartition(" ")
+        try:
+            out[series] = float(val)
+        except ValueError:
+            continue
+    return out

@@ -1,4 +1,5 @@
-"""MessagePack for the freeze files, in plain Python.
+"""MessagePack for the freeze files, storage, kvdb and packet payloads,
+in plain Python.
 
 The JAX package writes its snapshots with ``msgpack.packb(data,
 use_bin_type=True)`` and reads them with ``msgpack.unpackb(raw,
@@ -148,25 +149,28 @@ def _str(b: bytes, i: int, n: int):
         raise UnpackError(str(exc)) from exc
 
 
-def _arr(b: bytes, i: int, n: int):
+def _arr(b: bytes, i: int, n: int, strict: bool):
     out = []
     for _ in range(n):
-        v, i = _unpack(b, i)
+        v, i = _unpack(b, i, strict)
         out.append(v)
     return out, i
 
 
-def _map(b: bytes, i: int, n: int):
+def _map(b: bytes, i: int, n: int, strict: bool):
     out = {}
     for _ in range(n):
-        k, i = _unpack(b, i)
+        k, i = _unpack(b, i, strict)
+        if strict and type(k) not in (str, bytes):
+            raise UnpackError(f"{type(k).__name__} is not allowed for map "
+                              "key when strict_map_key=True")
         if isinstance(k, list):
             raise UnpackError("unhashable map key")
-        out[k], i = _unpack(b, i)
+        out[k], i = _unpack(b, i, strict)
     return out, i
 
 
-def _unpack(b: bytes, i: int):
+def _unpack(b: bytes, i: int, strict: bool):
     """(the object at ``b[i:]``, the index after it)."""
     if i >= len(b):
         raise UnpackError("truncated data")
@@ -179,9 +183,9 @@ def _unpack(b: bytes, i: int):
     if 0xA0 <= c <= 0xBF:
         return _str(b, i, c & 0x1F)
     if 0x80 <= c <= 0x8F:
-        return _map(b, i, c & 0x0F)
+        return _map(b, i, c & 0x0F, strict)
     if 0x90 <= c <= 0x9F:
-        return _arr(b, i, c & 0x0F)
+        return _arr(b, i, c & 0x0F, strict)
     if c == 0xC0:
         return None, i
     if c == 0xC2 or c == 0xC3:
@@ -201,15 +205,17 @@ def _unpack(b: bytes, i: int):
     if kind == "bin":
         return b[j:_take(b, j, n)], j + n
     if kind == "arr":
-        return _arr(b, j, n)
-    return _map(b, j, n)
+        return _arr(b, j, n, strict)
+    return _map(b, j, n, strict)
 
 
-def unpackb(raw: bytes):
-    """``msgpack.unpackb(raw, raw=False, strict_map_key=False)``: one
-    object, or :class:`UnpackError` when ``raw`` is not exactly one."""
+def unpackb(raw: bytes, strict_map_key: bool = False):
+    """``msgpack.unpackb(raw, raw=False, strict_map_key=...)``: one
+    object, or :class:`UnpackError` when ``raw`` is not exactly one (or,
+    with ``strict_map_key``, holds a map key that is not str or bytes,
+    as msgpack's default refuses)."""
     raw = bytes(raw)
-    obj, i = _unpack(raw, 0)
+    obj, i = _unpack(raw, 0, strict_map_key)
     if i != len(raw):
         raise UnpackError(f"{len(raw) - i} extra bytes after the object")
     return obj

@@ -1,42 +1,59 @@
-"""End-to-end sync-age plane, the port's copy of
-``goworld_tpu/utils/syncage.py`` (host only; it touches no tensor).
+"""End-to-end sync-age plane: how stale is a position update when it
+leaves a gate toward a client? (The port's copy of
+``goworld_tpu/utils/syncage.py``, with trackers of its own.)
 
-How stale is a position update when it leaves a gate toward a client?
-Between the device tick that computed a position and the gate flushing
-it to a socket sit four host hops: output fetch + decode, the game's
-per-gate encode, the dispatcher forward, and the gate's per-client
-regroup/flush. This module makes that path legible:
+Every SLO verdict before this module measured only the DEVICE tick
+(``tick_latency_ms`` / the bench scan-marginal). But the paper's target
+— "AOI-sync p99 < 16 ms" — is about what a *client* observes, and
+between the device tick that computed a position and the gate flushing
+it to a socket sit four host-side hops: output fetch + decode, the
+game's per-gate encode, the dispatcher forward, and the gate's
+per-client regroup/flush. This module makes that whole path legible:
 
 * :class:`SyncAgeStamp` — a fixed 45-byte per-BATCH stamp (one per
   sync fan-out packet, never per record) carrying the device-tick
-  epoch that produced the batch (a per-tick ``seq`` plus a host wall
-  anchor the World captures at the tick's existing fetch, its
-  ``sync_age_anchor``) and one wall instant per hop boundary.
-* :class:`AgeTracker` — the gate-side accumulator: a stamp plus its
-  delivery instant become AGE-AT-DELIVERY observations in fixed-bucket
-  histograms — ``sync_age_ms`` (end to end) plus one
-  ``sync_age_hop_ms{hop=...}`` lane per hop — weighted by the records
-  delivered.
+  epoch that produced the batch (a per-tick monotonic ``seq`` plus a
+  host wall anchor captured at the tick's EXISTING fetch-outputs
+  transfer — zero extra device syncs) and one wall instant per hop
+  boundary. It rides the wire as a flagged trailer exactly like the
+  tracing context (``net/packet.py`` ``AGE_FLAG``): packets without a
+  stamp are byte-identical to the pre-stamp wire.
+* :class:`AgeTracker` — the gate-side accumulator: at flush time it
+  turns a stamp + delivery instant into AGE-AT-DELIVERY observations
+  in fixed-bucket histograms — ``sync_age_ms`` (end-to-end) plus one
+  ``sync_age_hop_ms{hop=...}`` lane per hop — weighted by the number
+  of records delivered (a 10K-record batch arriving late is 10K stale
+  updates, not one).
 
 Hop lanes (each pair of adjacent instants; they sum EXACTLY to the
 end-to-end age by construction):
 
 ====================  ==================================================
 ``device_tick``       tick start -> outputs host-visible (device step +
-                      the blocking fetch)
+                      the blocking fetch; under ``pipeline_decode`` the
+                      anchors follow the outputs one tick back, so the
+                      lane honestly includes the pipeline skew)
 ``drain_decode``      outputs host-visible -> sync flush begins (host
                       decode + AOI fan-out staging)
 ``encode``            flush begins -> packet handed to the socket
-``dispatcher``        game send -> dispatcher forward
-``gate_flush``        dispatcher forward -> gate per-client send
+                      (per-gate concat + batch/delta encode)
+``dispatcher``        game send -> dispatcher forward (wire leg + any
+                      dispatcher pend-queue residence)
+``gate_flush``        dispatcher forward -> gate per-client send (wire
+                      leg + delta decode + per-client regroup)
 ====================  ==================================================
 
-Instants are ``time.time()`` microseconds. A lane that comes out
-negative (clock warp across processes) clamps to zero and is counted
-in ``sync_age_clock_warp_total`` instead of poisoning a histogram. The
-wire, the gate and the dispatcher are not ported yet (ROADMAP Queue
-A1c); the World stamps its anchor, and the stamp and tracker are here
-for them.
+Clock honesty: instants are ``time.time()`` microseconds from three
+processes. On one host (every test/bench deployment) they share a
+clock; across hosts the deployment aggregator
+(``tools/obs_aggregate.py``) measures pairwise wall offsets through
+the existing ``/clock`` anchors and stamps the worst skew next to its
+verdict, so cross-process ages are never silently trusted. A lane that
+comes out negative (clock warp) clamps to zero and is counted in
+``sync_age_clock_warp_total`` instead of poisoning a histogram.
+
+Jax-free; shared by net/game, net/dispatcher, net/gate, debug_http
+(``/syncage``), bench.py and the aggregator.
 """
 
 from __future__ import annotations
@@ -73,8 +90,9 @@ def now_us() -> int:
 def ptiles(edges, counts) -> dict[str, Any]:
     """Reduce a count vector to ``{samples, p50/p90/p99_ms}`` with the
     interpolated estimator (non-finite quantiles stringify as
-    ``"inf"``). The one home for the percentile convention, shared by
-    :class:`AgeTracker` and the residency plane."""
+    ``"inf"``). The ONE home for the percentile convention — shared by
+    :class:`AgeTracker`, the deployment aggregator
+    (``tools/obs_aggregate.py``) and the bench ``sync_age`` block."""
     from goworld_tpu_torch.utils import devprof
 
     total = sum(counts)
@@ -152,9 +170,12 @@ class SyncAgeStamp:
 class AgeTracker:
     """Gate-side sync-age accumulator: fixed-bucket histograms for the
     end-to-end age and every hop lane, record-weighted, plus a
-    windowed p99 reader for a breach trigger. All series live in the
-    process metrics registry; :meth:`snapshot` serves the raw count
-    vectors, which merge exactly (``Histogram.add_counts``)."""
+    windowed p99 reader for the flight-recorder breach trigger. All
+    series live in the process metrics registry (scraped at
+    ``/metrics``); :meth:`snapshot` serves the raw count vectors at
+    ``/syncage`` so the deployment aggregator can merge histograms
+    exactly (``Histogram.add_counts``) instead of re-parsing
+    Prometheus text."""
 
     def __init__(self, target_ms: float = DEFAULT_TARGET_MS,
                  name: str = "gate"):
@@ -267,9 +288,9 @@ class AgeTracker:
 
 
 # =======================================================================
-# process-local registry (the ``/syncage`` payload). Weak values: the
-# tracker belongs to its gate, and a discarded gate must not be pinned
-# by the registry.
+# process-local registry (served by debug_http /syncage). Weak values:
+# the tracker belongs to its GateService and a discarded gate must not
+# be pinned by the registry (the flightrec/devprof convention).
 # =======================================================================
 _reg_lock = threading.Lock()
 _trackers: "weakref.WeakValueDictionary[str, AgeTracker]" = \

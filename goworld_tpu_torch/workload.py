@@ -141,6 +141,58 @@ def mlp_underflow_case(rows: int, seed: int, device="cuda"):
     return obs, ws
 
 
+def underflow_world(n: int, device="cuda"):
+    """``(cfg, state, inputs, policy)``: the mlp world of ``n`` rows
+    whose observations are near 1e-38, driven by
+    :func:`mlp_underflow_case`'s weights (w1's rows of cos(yaw) and the
+    neighbor count zeroed), as ``tests/test_torch_cap.py``'s underflow
+    case builds it: the bench layout (every slot an alive mover, 1% with
+    a client, 8 at least, headings in (-7, 7)) from
+    ``np.random.default_rng(0)`` on ``create_state(cfg, seed=1)``, then
+    positions, headings and velocities scaled down from
+    ``default_rng(3)``, and no position syncs. Its float ops underflow
+    into subnormals, which XLA's CPU runtime flushes
+    (``utils/fpenv.py``)."""
+    from goworld_tpu_torch import interop
+    from goworld_tpu_torch.models.npc_policy import MLPPolicy
+
+    cfg = dataclasses.replace(slice_config(n, row_block=256),
+                              behavior="mlp")
+    g = cfg.grid
+    lanes = interop.state_to_numpy(create_state(cfg, seed=1, device="cpu"))
+    rng = np.random.default_rng(0)
+    lanes["pos"][:, 0] = rng.uniform(0, g.extent_x, n)
+    lanes["pos"][:, 2] = rng.uniform(0, g.extent_z, n)
+    lanes["yaw"][:] = rng.uniform(-7, 7, n)
+    lanes["alive"][:] = True
+    lanes["npc_moving"][:] = True
+    lanes["has_client"][:] = rng.random(n) < CLIENT_FRAC
+    lanes["has_client"][:8] = True
+    idx = np.zeros(cfg.input_cap, np.int32)
+    idx[:64] = rng.choice(n, 64, replace=False)
+    vals = np.zeros((cfg.input_cap, 4), np.float32)
+    vals[:64, 0] = rng.uniform(0, g.extent_x, 64)
+    vals[:64, 2] = rng.uniform(0, g.extent_z, 64)
+    vals[:64, 3] = rng.uniform(0, 6, 64)
+    rng = np.random.default_rng(3)
+    for c in (0, 2):
+        lanes["pos"][:, c] = rng.uniform(0.1, 0.2, n).astype(np.float32) \
+            * np.float32(1e-35)
+    lanes["yaw"][:] = rng.uniform(0.1, 0.2, n).astype(np.float32) \
+        * np.float32(1e-38)
+    lanes["vel"][:] = rng.uniform(0.1, 0.2, (n, 3)).astype(np.float32) \
+        * np.float32(1e-37)
+    inputs = interop.inputs_from_numpy(dict(
+        pos_sync_idx=idx, pos_sync_vals=vals,
+        pos_sync_n=np.asarray(0, np.int32)), device=device)
+    _, ws = mlp_underflow_case(4, 0, device=device)
+    ws = list(ws)
+    ws[0] = ws[0].clone()
+    ws[0][6:8] = 0
+    return (cfg, interop.state_from_numpy(lanes, device=device), inputs,
+            MLPPolicy(*ws))
+
+
 def bench_world(cfg: WorldConfig, seed: int, device="cuda"):
     """(state, inputs) of the bench world on ``device``."""
     return _world(cfg, seed, device, repeats=False)

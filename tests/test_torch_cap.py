@@ -6,8 +6,9 @@ worker takes it beside that one's).
 The cap: XLA computes ``speed / sqrt(s)`` as ``speed * rsqrt(s)`` with
 ``vrsqrtps``'s table estimate and two Newton steps
 (``ops/xla_order.py`` ``rsqrt_x86``), held on a million values and
-through 4 ticks with the cap binding. The flush: a strict xfail with its
-measured words."""
+through 4 ticks with the cap binding. The flush: the underflow case,
+bit for bit, with the port's CPU tick under ``utils/fpenv.py``'s
+flush-to-zero scope, at 512 rows and at 16,384 on the intra-op pool."""
 
 import jax
 import jax.numpy as jnp
@@ -81,36 +82,130 @@ def test_speed_cap_binding_matches_jax(case):
     assert not diffs, diffs
 
 
-@pytest.mark.xfail(strict=True, reason=(
-    "XLA's CPU runtime flushes subnormal results to zero in every float "
-    "op of the tick (the policy's, the step's and the integrate's); the "
-    "port keeps them: 4377 pos and 5253 vel words differ over 4 ticks "
-    "at 512 rows (ROADMAP C4)"))
-def test_underflow_case_through_tick_matches_jax():
+def _underflow_data(n: int):
     """``workload.mlp_underflow_case``'s weights as the policy of an mlp
-    world whose observations are near 1e-38 (positions, headings and
-    velocities scaled down; w1's rows of cos(yaw) and the neighbor count
-    zeroed), 4 ticks of the jitted JAX tick against the port's."""
+    world of ``n`` rows whose observations are near 1e-38 (positions,
+    headings and velocities scaled down; w1's rows of cos(yaw) and the
+    neighbor count zeroed): (configs, lanes, inputs, weights)."""
     from goworld_tpu_torch import workload
 
-    jcfg, tcfg = configs(behavior="mlp")
+    jcfg, tcfg = configs(n, behavior="mlp")
     lanes, inputs = bench_lanes(jcfg)
     rng = np.random.default_rng(3)
     tiny = np.float32(1e-35)
     for c in (0, 2):
-        lanes["pos"][:, c] = rng.uniform(0.1, 0.2, N).astype(np.float32) \
+        lanes["pos"][:, c] = rng.uniform(0.1, 0.2, n).astype(np.float32) \
             * tiny
-    lanes["yaw"][:] = rng.uniform(0.1, 0.2, N).astype(np.float32) \
+    lanes["yaw"][:] = rng.uniform(0.1, 0.2, n).astype(np.float32) \
         * np.float32(1e-38)
-    lanes["vel"][:] = rng.uniform(0.1, 0.2, (N, 3)).astype(np.float32) \
+    lanes["vel"][:] = rng.uniform(0.1, 0.2, (n, 3)).astype(np.float32) \
         * np.float32(1e-37)
     inputs["pos_sync_n"] = np.asarray(0, np.int32)
     _, ws = workload.mlp_underflow_case(4, 0, device="cpu")
     ws = list(ws)
     ws[0] = ws[0].clone()
     ws[0][6:8] = 0
+    return jcfg, tcfg, lanes, inputs, ws
+
+
+def _underflow_diffs(n: int) -> dict:
+    """4 ticks of the jitted JAX tick against the port's on the
+    underflow case: the differing words of each lane."""
+    jcfg, tcfg, lanes, inputs, ws = _underflow_data(n)
     jp = jpol.MLPPolicy(*(jnp.asarray(w.float().numpy())
                           .astype(jnp.bfloat16) for w in ws))
     diffs, _ = run_ticks(jcfg, tcfg, lanes, inputs, jp,
                          tpol.MLPPolicy(*ws), 4)
+    return diffs
+
+
+def test_underflow_world_is_the_tests_data():
+    """``workload.underflow_world``, which ``chip_smoke.py`` runs on the
+    card against the CPU port, builds this file's underflow case: the
+    same config, lanes, inputs and weights, bit for bit."""
+    from goworld_tpu_torch import interop, workload
+
+    _, tcfg, lanes, inputs, ws = _underflow_data(N)
+    cfg, st, ti, pol = workload.underflow_world(N, device="cpu")
+    assert cfg == tcfg
+    got = interop.state_to_numpy(st)
+    for name, want in lanes.items():
+        assert _bits_differ(got[name], want) == 0, name
+    for name, want in inputs.items():
+        assert np.array_equal(getattr(ti, name).numpy(), want), name
+    for a, b in zip((pol.w1, pol.b1, pol.w2, pol.b2, pol.w3, pol.b3), ws):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+def test_underflow_case_through_tick_matches_jax():
+    """The underflow case at 512 rows: XLA's CPU runtime flushes
+    subnormal results and inputs to zero in every float op of the tick,
+    and so does the port's CPU tick (``utils/fpenv.py``)."""
+    diffs = _underflow_diffs(N)
     assert not diffs, diffs
+
+
+def _subnormals_kept() -> int:
+    """How many of 2^20 products ``1.5e-38 * 0.5`` stay nonzero: every
+    one where the threads that compute them keep subnormals."""
+    y = torch.full((1 << 20,), 1.5e-38, dtype=torch.float32) * 0.5
+    return int((y != 0).sum())
+
+
+def _on_fresh_thread(fn):
+    """``fn()``'s result, run on a new thread: one whose intra-op pool
+    has not started yet (libgomp keeps a pool a master thread)."""
+    import threading
+
+    out: dict = {}
+
+    def run():
+        try:
+            out["v"] = fn()
+        except BaseException as exc:  # raised again below
+            out["e"] = exc
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join(timeout=600)
+    assert not t.is_alive()
+    if "e" in out:
+        raise out["e"]
+    return out["v"]
+
+
+@pytest.mark.parametrize("pool", ["started_before", "started_inside"])
+def test_underflow_case_16k_rows_on_the_pool_matches_jax(pool):
+    """The underflow case at 16,384 rows, so that ATen splits the
+    elementwise ops over the intra-op pool's threads: the flush reaches
+    each of them, whether a parallel op started the pool before the
+    tick's scope or the scope starts it. After the scope every thread
+    keeps subnormals again, as the JAX package and numpy expect."""
+    def body():
+        if pool == "started_before":
+            assert _subnormals_kept() == 1 << 20
+        diffs = _underflow_diffs(16384)
+        return diffs, _subnormals_kept()
+
+    diffs, kept = _on_fresh_thread(body)
+    assert not diffs, diffs
+    assert kept == 1 << 20
+
+
+def test_flush_scope_is_scoped():
+    """Inside ``fpenv.flushed()`` every thread of the pool flushes; on
+    exit the caller, its pool and numpy keep subnormals as before."""
+    from goworld_tpu_torch.utils import fpenv
+
+    def body():
+        before = _subnormals_kept()
+        with fpenv.flushed():
+            inside = _subnormals_kept()
+            with fpenv.flushed("cpu"):
+                nested = _subnormals_kept()
+            after_nested = _subnormals_kept()
+        a = np.full(1 << 10, 1.5e-38, np.float32) * np.float32(0.5)
+        return before, inside, nested, after_nested, \
+            _subnormals_kept(), int((a != 0).sum())
+
+    assert _on_fresh_thread(body) == (1 << 20, 0, 0, 0, 1 << 20, 1 << 10)

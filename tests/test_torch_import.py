@@ -30,7 +30,9 @@ MODULES = sorted(
     ".".join(p.relative_to(ROOT).with_suffix("").parts)
     for p in PKG.rglob("*.py")
 )
-FORBIDDEN = ("jax", "jaxlib", "flax", "goworld_tpu")
+# msgpack is not installed where the port runs: its payloads go through
+# utils/mpack.py
+FORBIDDEN = ("jax", "jaxlib", "flax", "goworld_tpu", "msgpack")
 
 
 def test_importing_every_module_leaves_jax_out():
@@ -40,13 +42,52 @@ def test_importing_every_module_leaves_jax_out():
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
-        "                                    'goworld_tpu'))\n"
+        "                                    'goworld_tpu', 'msgpack'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def _run(code: str) -> subprocess.CompletedProcess:
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    return subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+
+
+def test_package_import_alone_loads_and_builds_nothing():
+    """``import goworld_tpu_torch`` imports none of its modules: no
+    kernel build, no torch, no JAX."""
+    res = _run(
+        "import sys\n"
+        "import goworld_tpu_torch\n"
+        "mods = sorted(m for m in sys.modules\n"
+        "              if m.split('.')[0] in ('goworld_tpu_torch', 'torch',\n"
+        "                                     'jax', 'goworld_tpu'))\n"
+        "print(mods)\n"
+        "sys.exit(0 if mods == ['goworld_tpu_torch'] else 1)\n")
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_facade_resolution_leaves_jax_out_and_builds_nothing():
+    """The lazy facade's names (``gw.run``, ``gw.Entity``, ``gw.config``,
+    ``gw.net``, ``gw.storage``) resolve through the port alone: no JAX,
+    no JAX package, no msgpack, and no kernel library loaded."""
+    res = _run(
+        "import sys\n"
+        "import goworld_tpu_torch as gw\n"
+        "assert callable(gw.run) and gw.Entity is gw.api.Entity\n"
+        "gw.config, gw.net, gw.storage, gw.kvdb, gw.register_entity\n"
+        "import goworld_tpu_torch.net.game, goworld_tpu_torch.net.gate\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'flax', 'goworld_tpu', 'msgpack'))\n"
+        "from goworld_tpu_torch import kernels\n"
+        "built = kernels.lib.cache_info().currsize\n"
+        "print(bad, built)\n"
+        "sys.exit(1 if bad or built else 0)\n")
     assert res.returncode == 0, res.stdout + res.stderr
 
 
