@@ -141,8 +141,9 @@ is caught:
     rows of extreme observations (+-3e38, 1e30, 0, -0.0, NaN) under
     ``init_policy(5)`` and random weights at hidden 128 and 16 (every
     lanes mode of layer_lanes there), and on ``mlp_underflow_case``
-    (layer-2 products below float32's 2^-149 grid: the kernel's rounded
-    layer 2); bf16 tanh on the card against the CPU's on all 65536
+    (layer-2 products straddling 2^-126, which the flush zeroes: the
+    kernel's rounded layer 2); bf16 tanh on the card against the CPU's
+    on all 65536
     inputs, through float64 and through the kernel's table; its time,
     plain time, cuBLAS bf16 chain time (not bit-equal) and bounds at the
     bf16 tensor-core and the float32 CUDA-core rate; an uncut world of FLOAT_N
@@ -185,12 +186,15 @@ is caught:
     Worlds of 2^16 slots, pipelined and eager, equal after the drain in
     sync records, entity messages, hooks, state, interest sets, ledgers,
     the pipelined lanes a tick behind the eager ones;
-    then (run after 17) a finding: ``workload.underflow_world``'s 4
-    ticks (``tests/test_torch_cap.py``'s underflow case, 512 rows) on
-    the card against the CPU port, which flushes subnormals as XLA's
-    CPU runtime does, the card restarted from the CPU port's state each
-    tick: the words that differ, by lane (printed, not a failure: CUDA
-    keeps subnormals, ROADMAP C4);
+    then (run after 17) the subnormal gate: ``workload.underflow_world``'s
+    4 ticks (``tests/test_torch_cap.py``'s underflow case, 512 rows)
+    under mlp and under the random walk on the card against the CPU
+    port, which gives XLA's flushed bits, the card restarted from the
+    CPU port's state each tick: 0 differing words or the run fails; the
+    flush helpers of ``ops/xla_order.py`` on float32's edge words and at
+    the tininess edge, card == CPU; ``npc_mlp`` and its plain version on
+    ``mlp_underflow_case`` == the CPU port's plain version under the
+    flush scope;
 19. (run before 12) the served game through the port's normal entry:
     the port's ``ClusterHarness`` (2 dispatchers and 1 gate over TCP on
     ephemeral ports) and an ini naming them (GAME_SLOTS slots, one
@@ -217,7 +221,29 @@ is caught:
     reaches ``frozen`` with a freeze file on disk, and a fresh World of
     the same ini restores through ``GameServer(restore=True)``: its
     entities, attrs, positions and yaws equal the frozen World's, and
-    its first tick runs.
+    its first tick runs;
+20. (run before 12) this slice: the batched tick of SPACES x SPACE_N
+    under btree, mlp (``init_policy(5)``, hidden 128) and the mixed
+    scenario, SLICE_TICKS ticks by events each beside [15]'s random
+    walk, one sweep, one sort and (mlp) one ``npc_mlp`` launch a tick
+    for all Spaces, two ticks under the sync guard, one tick against
+    its plain twin, SLICE_LOCKSTEP ticks in lockstep with single-Space
+    ticks (every lane equal); SLICE_FLOAT_SPACES Spaces of FLOAT_N under
+    the three on the card and the CPU port for FLOAT_TICKS ticks,
+    bit-equal in every lane; ``serve_world(SPACE_WORLD_N, spaces=SPACES,
+    boot=True)`` with its Mobs under mlp for SLICE_WORLD_TICKS
+    ``World.tick``s of [15]'s traffic (every staged migration applied),
+    p50/p99 and spans, and kernel/plain twin Worlds of SLICE_TWIN_N
+    slots a Space equal in sinks, hooks and state; the bench world
+    uncut at q16 under mlp for SLICE_Q16_TICKS ticks (the velocity lane
+    bfloat16, one tick against its plain twin); at 2^20, skin 0,
+    ``cellrow`` == ``table``, ``approx`` == ``f32`` under ``ranges`` and
+    ``fused``, ``shift`` == ``table`` on every row no cell past
+    cell_cap touches, each sweep's ms by events beside ``fused``'s; and
+    ``shift`` on a clustered world of FLOAT_N (cells past cell_cap) on
+    the card == the CPU port's. [12] reads the torch kernels a tick of
+    [5], of [17]'s config 5 under mlp and of [20]'s batched tick under
+    mlp.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -242,6 +268,7 @@ import torch
 
 import goworld_tpu_torch as gw
 from goworld_tpu_torch import interop, kernels
+from goworld_tpu_torch.core import step as step_mod
 from goworld_tpu_torch.core.state import WorldConfig, map_lane
 from goworld_tpu_torch.core.step import (
     TickInputs,
@@ -322,6 +349,15 @@ SCN_N = 4096
 SCN_TICKS = 4
 BEHAVIOR_WORLD_N = 1 << 16
 BEHAVIOR_WORLD_TICKS = 4
+# [20] this slice: behaviors and scenarios on several Spaces, q16 under
+# the policy, the shift/cellrow sweeps and approx
+SLICE_TICKS = 16
+SLICE_LOCKSTEP = 2
+SLICE_FLOAT_SPACES = 3
+SLICE_WORLD_TICKS = 8
+SLICE_TWIN_N = 1 << 13   # SERVE_SPARE (4096) of each Space stay free
+SLICE_TWIN_TICKS = 4
+SLICE_Q16_TICKS = 16
 # [18] the World's remaining planes
 RESTORED_TICKS = 4
 GOVERNOR_SWAPS = ["skin=0", "sweep=table,skin=0", "sort=counting,skin=0",
@@ -814,9 +850,9 @@ def device_times(profiled: dict, rows: list, plan) -> tuple[dict, str]:
     torch.profiler and check the launches a call. A profiler session
     leaves the card's profiling interface attached, which slows every
     later launch of the host-bound ticks, so every profiled read runs
-    here, after every timed path; they also follow each other closely,
-    since the profiler's clock conversion drifts after a process's first
-    session (``probe_profiler.py``)."""
+    here, after every timed path. Each read keeps a session only where
+    its marker kernels show that it lost no event of the calls, and
+    takes it again with a longer lead where it did (``kernels.device_ms``)."""
     got = {name: kernels.device_ms(fn, 20)
            for name, fn in profiled.items()}
     for row in rows:
@@ -929,12 +965,14 @@ def first_space(obj):
                         for f in dataclasses.fields(obj)})
 
 
-def world_ticks(served, n_ticks: int, teleport: bool) -> tuple[list, dict]:
+def world_ticks(served, n_ticks: int, teleport: bool,
+                mlp: bool = False) -> tuple[list, dict]:
     """``n_ticks`` of staged traffic (walking syncs, or with ``teleport``
     the stress stream) and ``World.tick``; (per tick: wall s, span s,
     decoded and true counts, whether it took an audit sample; launch
     counts of the run). Every tick must launch the sweep and the sort
-    once each and deliver what the World decoded."""
+    once each (and ``npc_mlp`` once under ``mlp``) and deliver what the
+    World decoded."""
     w = served.world
     rows = []
     kernels.reset_launches()
@@ -947,7 +985,7 @@ def world_ticks(served, n_ticks: int, teleport: bool) -> tuple[list, dict]:
         wall = time.perf_counter() - t0
         got = {k: kernels.LAUNCHES[k] - before[k] for k in before}
         if got != {"sweep_fused": 1, "counting_sort": 1,
-                   "halo_ship_phase": 0, "npc_mlp": 0}:
+                   "halo_ship_phase": 0, "npc_mlp": int(mlp)}:
             fail(f"World.tick {t + 1} launched {got}")
         out, ops, sink = w.last_outputs, w.op_stats, served.sink.take()
         if sink["sync_records"] != ops["sync_records_sent"] or \
@@ -2123,8 +2161,12 @@ def q16_phase(dev, tag) -> tuple[dict, dict]:
     lockstep, bit-equal in every lane of state, cache and outputs; and
     every tick, on the rows that no truncation touches, the lists equal
     ``grid_neighbors_flags`` (precision off, no skin, plain path) over
-    the snapped positions. A row is left out of that last check when its
-    cache row is full or a run of its sweep overflowed, at the last
+    the snapped positions the tick's sweep saw (the AOI view: the
+    integrate with its product rounded, as XLA recomputes it in the
+    fusions that snap it; the stored positions keep the contracted
+    rows; :func:`q16_card_vs_cpu` holds that view against the CPU
+    port). A row is left out of that last check when its cache row is
+    full or a run of its sweep overflowed, at the last
     rebuild (cells of radius + skin, on the lattice) or in the
     reference's sweep: there Verlet and the skinless sweep truncate
     different candidates, as the reference package does. The velocity
@@ -2153,12 +2195,21 @@ def q16_phase(dev, tag) -> tuple[dict, dict]:
     zero = torch.zeros((), dtype=torch.int64, device=dev)
     mism, held, left = zero.clone(), zero.clone(), zero.clone()
     v = g.verlet_cap_eff
+    # the positions the tick hands its sweep
+    seen, real_sweep = {}, step_mod.grid_neighbors_verlet
+
+    def recording(spec, pos, *a, **kw):
+        seen["pos"] = pos
+        return real_sweep(spec, pos, *a, **kw)
+
+    step_mod.grid_neighbors_verlet = recording
     kernels.reset_launches()
     for t in range(Q16_TICKS):
         c0 = dict(kernels.LAUNCHES)
         ev[t][0].record()
         st, out = tick(st, inputs)
         ev[t][1].record()
+        aoi_view = seen["pos"]
         c1 = dict(kernels.LAUNCHES)
         per_tick.append((c1["sweep_fused"] - c0["sweep_fused"],
                          c1["counting_sort"] - c0["counting_sort"]))
@@ -2167,7 +2218,7 @@ def q16_phase(dev, tag) -> tuple[dict, dict]:
             la, lb = lanes(a), lanes(b)
             for k in la:
                 diffs[k] = diffs.get(k, 0) + diff_count(la[k], lb[k])
-        snapped = aoi.quantize_positions(g, st.pos)
+        snapped = aoi.quantize_positions(g, aoi_view)
         nbr, cnt, _fl = grid_neighbors_flags(
             ref_spec, snapped, st.alive, watch_radius=st.aoi_radius,
             flag_bits=st.has_client.to(torch.int32) << 1)
@@ -2187,6 +2238,7 @@ def q16_phase(dev, tag) -> tuple[dict, dict]:
             out.sync_n.float(), out.aoi_over_k_rows.float(),
             c.over_v_rows.float(), c.over_cap_cells.float()]))
     torch.cuda.synchronize()
+    step_mod.grid_neighbors_verlet = real_sweep
     launches = {"sweep_fused": sum(p[0] for p in per_tick),
                 "counting_sort": sum(p[1] for p in per_tick)}
     if per_tick != [(1, 1)] * Q16_TICKS:
@@ -2213,7 +2265,7 @@ def q16_phase(dev, tag) -> tuple[dict, dict]:
           f"every lane of state, cache and outputs == the plain-path "
           f"twin (ranges/counting) every tick; lists == "
           f"grid_neighbors_flags (precision off, plain path) over the "
-          f"snapped positions on {int(held)} row-ticks, {int(left)} "
+          f"snapped AOI view on {int(held)} row-ticks, {int(left)} "
           f"row-ticks left out (a run overflowed or a full cache row); "
           f"vel {st.vel.dtype}; rebuilds {int(reb.sum())} at ticks "
           f"{(np.flatnonzero(reb) + 1).tolist()}; min aoi_skin_slack "
@@ -2224,7 +2276,46 @@ def q16_phase(dev, tag) -> tuple[dict, dict]:
           f"{Q16_TICKS}) all {pct(ms, later)}, reuse "
           f"{pct(ms, later & ~reb)}, rebuild {pct(ms, later & reb)}, tick "
           f"1 {ms[0]:.3f} {tag}", flush=True)
+    q16_card_vs_cpu(dev, tag)
     return gate, launches
+
+
+def q16_card_vs_cpu(dev, tag) -> None:
+    """[14] the q16 tick on the card against the CPU port, which the
+    tests hold to the JAX package bit for bit: uncut worlds of FLOAT_N
+    at precision="q16" under the random walk, btree, mlp and the mixed
+    scenario, FLOAT_TICKS ticks each, every lane of state and outputs
+    equal on every tick. This holds the AOI view (the rounded
+    integrate, snapped) on the card, and every tick's sweep over it."""
+    cfgs = {"random_walk": uncut_config(FLOAT_N, precision="q16"),
+            "btree": behavior_config(FLOAT_N, "btree", precision="q16"),
+            "mlp": behavior_config(FLOAT_N, "mlp", precision="q16"),
+            "mixed": scenario_config(FLOAT_N, "mixed", precision="q16")}
+    cpu = torch.device("cpu")
+    rebuilds = {}
+    for name, cfg in cfgs.items():
+        worlds = {d: behavior_world(cfg, SEED + 5, d) for d in (dev, cpu)}
+        ticks = {d: make_tick(cfg, device=d) for d in worlds}
+        bad, rebuilds[name] = [], 0
+        for t in range(FLOAT_TICKS):
+            new = {}
+            for d, (s_, i_, p_) in worlds.items():
+                new[d] = ticks[d](s_, i_, p_)
+                worlds[d] = (new[d][0], i_, p_)
+            (sa, oa), (sb, ob) = new[dev], new[cpu]
+            rebuilds[name] += int(ob.aoi_rebuilt)
+            for what, a, b in (("state", sa, sb), ("outputs", oa, ob)):
+                la, lb = lanes(a), lanes(b)
+                bad += [f"{what}.{k} @{t + 1}" for k in la
+                        if not same_bits(None if la[k] is None
+                                         else la[k].cpu(), lb[k])]
+        if bad:
+            fail(f"[14] q16 {name}: the card differs from the CPU port "
+                 f"in {bad[:8]}")
+    print(f"[14] q16 card == CPU port: {FLOAT_N} entities uncut at "
+          f"precision=q16, {FLOAT_TICKS} ticks under {sorted(cfgs)}, every "
+          f"lane and output bit for bit on every tick (rebuilds "
+          f"{rebuilds}) {tag}", flush=True)
 
 
 def spaces_phase(dev, bare: tuple[float, float], tag: str,
@@ -2355,27 +2446,11 @@ def spaces_phase(dev, bare: tuple[float, float], tag: str,
     del st1, in1
 
     # the same ticks in lockstep with SPACES single-Space ticks
-    singles = [tile_view(start, d).apply(torch.clone) for d in range(SPACES)]
-    one_in = [TickInputs(**{f.name: getattr(inputs, f.name)[d]
-                            for f in dataclasses.fields(TickInputs)})
-              for d in range(SPACES)]
-    st, diffs = start, []
-    for _ in range(SPACE_TICKS):
-        st, out = tick(st, inputs)
-        for d in range(SPACES):
-            singles[d], o1 = tick(singles[d], one_in[d])
-            la, lb = lanes(tile_view(st, d)), lanes(singles[d])
-            oa = lanes(type(out)(**{f.name: getattr(out, f.name)[d]
-                                    for f in dataclasses.fields(out)}))
-            ob = lanes(o1)
-            diffs += [diff_count(la[k], lb[k]) for k in la
-                      if la[k] is not None or lb[k] is not None]
-            diffs += [diff_count(oa[k], ob[k]) for k in oa]
-    bad = int(torch.stack(diffs).sum())
+    bad = lockstep_singles(tick, start, inputs, None, SPACE_TICKS)
     if bad:
         fail(f"[15] the batched tick differs from {SPACES} single-Space "
              f"ticks in {bad} words")
-    del singles, start, diffs
+    del start
     print(f"[15] batched tick, {SPACES} Spaces x {SPACE_N} (syncs drawn as"
           f" bench_world draws them, {cfg.input_cap} a Space): "
           f"{SPACE_TICKS} ticks, launches {launches} (a tick: {per}, the "
@@ -2561,7 +2636,7 @@ def behavior_phase(dev, tag, profiled: dict, walk: tuple) -> tuple:
                     .to(torch.bfloat16) for w in ph))):
                 a, b = npc_mlp(xo, *pw), npc_mlp_plain(xo, *pw)
                 odd[f"h{hid}/{rows}/{wname}"] = nan_same(a, b)
-    # layer-2 products below the 2^-149 grid: the guard's rounded path
+    # layer-2 products straddling 2^-126: the guard's rounded path
     uobs, uws = mlp_underflow_case(1 << 16, SEED, dev)
     odd["underflow"] = nan_same(npc_mlp(uobs, *uws),
                                 npc_mlp_plain(uobs, *uws))
@@ -2590,8 +2665,7 @@ def behavior_phase(dev, tag, profiled: dict, walk: tuple) -> tuple:
     # summation order (no mma)
     bms, by = bound(mlp_bytes, mlp_ops, PEAK_BF16_S)
     bms_fp32 = bound(mlp_bytes, mlp_ops)[0]
-    # read first in [12]: a profiler session long after the process's
-    # first one drops device events (probe_profiler.py)
+    # read first in [12]
     rest = list(profiled.items())
     profiled.clear()
     profiled["npc_mlp"] = lambda: npc_mlp(obs, *ws)
@@ -2649,6 +2723,10 @@ def behavior_phase(dev, tag, profiled: dict, walk: tuple) -> tuple:
         launches[f"config5_{name}"] = dict(kernels.LAUNCHES)
         check_twin(f"[17] config 5 {name}", tk(snap, i, p),
                    make_tick(plain_twin(c), device=dev)(snap, i, p))
+        if name == "mlp":
+            # its torch kernels a tick, read in [12]
+            profiled["config 5 tick, mlp"] = \
+                lambda tk=tk, s=s, i=i, p=p: tk(s, i, p)
         key = prng.split(s.rng)[1]
         ext = (c.grid.extent_x, c.grid.extent_z)
         stage[name] = time_ms(lambda c=c, s=s, p=p: compute_velocity(
@@ -3168,34 +3246,348 @@ def served_game_phase(dev, tag: str, slots: int = GAME_SLOTS,
         release_worlds()
 
 
+# ---------------------------------------------------------------- [20]
+
+def slice_configs(base) -> dict:
+    """``base`` under the btree, the mlp policy and the mixed scenario."""
+    from goworld_tpu_torch.scenarios.spec import resolve_bench_behavior
+
+    behavior, spec = resolve_bench_behavior("mixed")
+    return {"btree": dataclasses.replace(base, behavior="btree"),
+            "mlp": dataclasses.replace(base, behavior="mlp"),
+            "mixed": dataclasses.replace(base, behavior=behavior,
+                                         scenario=spec)}
+
+
+def lockstep_singles(tick, start, inputs, pol, n_ticks: int) -> int:
+    """``n_ticks`` batched ticks from ``start`` beside one single-Space
+    tick a Space on its view; the words that differ."""
+    spaces = start.pos.shape[0]
+    singles = [tile_view(start, d).apply(torch.clone) for d in range(spaces)]
+    one_in = [TickInputs(**{f.name: getattr(inputs, f.name)[d]
+                            for f in dataclasses.fields(TickInputs)})
+              for d in range(spaces)]
+    st, diffs = start, []
+    for _ in range(n_ticks):
+        st, out = tick(st, inputs, pol)
+        for d in range(spaces):
+            singles[d], o1 = tick(singles[d], one_in[d], pol)
+            la, lb = lanes(tile_view(st, d)), lanes(singles[d])
+            oa = lanes(type(out)(**{f.name: getattr(out, f.name)[d]
+                                    for f in dataclasses.fields(out)}))
+            ob = lanes(o1)
+            diffs += [diff_count(la[k], lb[k]) for k in la
+                      if la[k] is not None or lb[k] is not None]
+            diffs += [diff_count(oa[k], ob[k]) for k in oa]
+    return int(torch.stack(diffs).sum())
+
+
+def slice_phase(dev, tag, profiled: dict, walk: tuple) -> dict:
+    """[20] this slice on the card: the batched tick of SPACES x SPACE_N
+    under btree, mlp and mixed (SLICE_TICKS ticks by events, launches a
+    tick, two ticks under the sync guard, one tick against its plain
+    twin, SLICE_LOCKSTEP ticks in lockstep with single-Space ticks);
+    SLICE_FLOAT_SPACES Spaces of FLOAT_N on the card and the CPU port,
+    bit-equal; the served World of SPACES Spaces under mlp with its
+    migrations, and its kernel/plain twins; the bench world uncut at q16
+    under mlp; the sweep impls at 2^20 and on a clustered world. Returns
+    the launches by path. ``walk`` is [15]'s random-walk p50/p99."""
+    phase0 = time.perf_counter()
+    launches = {}
+    pol = init_policy(POLICY_SEED, device=dev)
+    base = multi_config(SPACES, SPACE_N)
+    for name, cfg in slice_configs(base).items():
+        p = pol if name == "mlp" else None
+        st0, inputs = multi_world(cfg, SPACES, SEED, dev)
+        start = st0.apply(torch.clone)
+        tick = make_tick(cfg, device=dev)
+        torch.cuda.set_sync_debug_mode("error")
+        for _ in range(2):
+            tick(st0, inputs, p)
+        torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        want = {"sweep_fused": 1, "counting_sort": 1, "halo_ship_phase": 0,
+                "npc_mlp": int(name == "mlp")}
+        kernels.reset_launches()
+        st, p50, p99, snap = tick_run(tick, start.apply(torch.clone), inputs,
+                                      p, SLICE_TICKS, want)
+        launches[f"spaces_{name}"] = dict(kernels.LAUNCHES)
+        with mlp_held_to_plain() as held:
+            got = tick(snap, inputs, p)
+        if name == "mlp" and (held != [(SPACES * SPACE_N, True)]):
+            fail(f"[20] {SPACES} Spaces mlp: npc_mlp against its plain "
+                 f"version on the batched observations (rows, equal): "
+                 f"{held}")
+        check_twin(f"[20] {SPACES} Spaces {name}", got,
+                   make_tick(plain_twin(cfg), device=dev)(snap, inputs, p))
+        bad = lockstep_singles(tick, start, inputs, p, SLICE_LOCKSTEP)
+        if bad:
+            fail(f"[20] {name}: the batched tick differs from {SPACES} "
+                 f"single-Space ticks in {bad} words")
+        if name == "mlp":
+            keep = (st, inputs)
+            profiled[f"batched tick, {SPACES} Spaces, mlp"] = \
+                lambda k=keep, tk=tick: tk(k[0], k[1], pol)
+        print(f"[20] batched tick, {SPACES} Spaces x {SPACE_N} under "
+              f"{name}: {SLICE_TICKS} ticks, launches a tick {want}; two "
+              f"ticks under the sync guard; tick {SLICE_TICKS // 2 + 1} =="
+              f" its plain twin (ranges/counting; under mlp npc_mlp == its "
+              f"plain version on all {SPACES * SPACE_N} rows); "
+              f"{SLICE_LOCKSTEP} ticks "
+              f"== {SPACES} single-Space ticks in every lane; ms/tick "
+              f"p50={p50:.3f} p99={p99:.3f} (CUDA events, ticks "
+              f"2-{SLICE_TICKS}; [15]'s random walk p50={walk[0]:.3f} "
+              f"p99={walk[1]:.3f}) {tag}", flush=True)
+        del st0, start, st, snap
+    # several Spaces on the card against the CPU port, every lane
+    small = multi_config(SLICE_FLOAT_SPACES, FLOAT_N)
+    for name, cfg in slice_configs(small).items():
+        sides = []
+        for d in (dev, torch.device("cpu")):
+            s_, i_ = multi_world(cfg, SLICE_FLOAT_SPACES, SEED, d)
+            p = init_policy(POLICY_SEED, device=d) if name == "mlp" \
+                else None
+            tk = make_tick(cfg, device=d)
+            for _ in range(FLOAT_TICKS):
+                s_, o_ = tk(s_, i_, p)
+            sides.append((s_, o_))
+        la, lb = lanes(sides[0][0]), lanes(sides[1][0])
+        la.update({f"out.{k}": v for k, v in lanes(sides[0][1]).items()})
+        lb.update({f"out.{k}": v for k, v in lanes(sides[1][1]).items()})
+        bad = [k for k in la if not same_bits(
+            la[k], None if lb[k] is None else lb[k].to(dev))]
+        if bad:
+            fail(f"[20] {SLICE_FLOAT_SPACES} Spaces {name}: the card "
+                 f"differs from the CPU port in {bad}")
+    print(f"[20] card == CPU port: {SLICE_FLOAT_SPACES} Spaces x "
+          f"{FLOAT_N}, {FLOAT_TICKS} ticks under btree, mlp and mixed, "
+          f"every lane and output bit for bit {tag}", flush=True)
+
+    # the served World of SPACES Spaces, its Mobs under mlp
+    served = serve_world(SPACE_WORLD_N, SEED, dev, boot=True,
+                         world_kw=PLANES, spaces=SPACES, behavior="mlp")
+    w = served.world
+    n_pop = len(w.entities) - SPACES - 1
+    rows, w_launches = world_ticks(served, SLICE_WORLD_TICKS,
+                                   teleport=False, mlp=True)
+    launches["spaces_world_mlp"] = w_launches
+    staged = sum(r["staged"]["migrations"] for r in rows)
+    applied = sum(r["migrated"] for r in rows)
+    print(f"[20] served World of {SPACES} Spaces x {SPACE_WORLD_N} slots "
+          f"under mlp at its defaults: {n_pop} entities booted through "
+          f"{served.boot_ticks} ticks in {served.populate_s:.2f} s; "
+          f"{SLICE_WORLD_TICKS} World.ticks of [15]'s traffic, launches "
+          f"{w_launches} (one sweep, one sort and one npc_mlp a tick); "
+          f"migrations applied {applied} of {staged} staged; "
+          f"{world_summary(rows, w.cfg)} {tag}", flush=True)
+    del served, w
+    release_worlds()
+    twins = [serve_world(SLICE_TWIN_N, SEED + 5, dev, keep=True, boot=True,
+                         record_hooks=True, spaces=SPACES, behavior="mlp",
+                         sweep_impl=a, sort_impl=b)
+             for a, b in (("fused", "pallas"), ("ranges", "argsort"))]
+    for t in range(SLICE_TWIN_TICKS):
+        for sv in twins:
+            sv.stage()
+            sv.world.tick()
+        ka, kb = (sv.sink.take()["kept"] for sv in twins)
+        sa, sb = (interop.state_to_numpy(sv.world.state) for sv in twins)
+        if not kept_same(ka, kb) or twins[0].hooks != twins[1].hooks or \
+                any(sa[k].tobytes() != sb[k].tobytes() for k in sa):
+            fail(f"[20] the served mlp twins of {SPACES} Spaces differ at "
+                 f"tick {t + 1}")
+    print(f"[20] twin Worlds of {SPACES} Spaces x {SLICE_TWIN_N} under mlp"
+          f" with migrations, kernels and plain versions: equal in sinks, "
+          f"hooks and state for {SLICE_TWIN_TICKS} ticks {tag}", flush=True)
+    del twins
+    release_worlds()
+
+    # the bench world uncut at q16 under mlp
+    cfg = behavior_config(N, "mlp", precision="q16")
+    s0, i, p = behavior_world(cfg, SEED, dev)
+    tk = make_tick(cfg, device=dev)
+    tk(s0, i, p)
+    kernels.reset_launches()
+    want = {"sweep_fused": 1, "counting_sort": 1, "halo_ship_phase": 0,
+            "npc_mlp": 1}
+    s, p50, p99, snap = tick_run(tk, s0, i, p, SLICE_Q16_TICKS, want)
+    launches["q16_mlp"] = dict(kernels.LAUNCHES)
+    if s.vel.dtype != torch.bfloat16:
+        fail(f"[20] q16 mlp: velocity lane {s.vel.dtype}")
+    check_twin("[20] q16 mlp", tk(snap, i, p),
+               make_tick(plain_twin(cfg), device=dev)(snap, i, p))
+    print(f"[20] bench world uncut at q16 under mlp: {SLICE_Q16_TICKS} "
+          f"ticks of {N}, launches a tick {want}, the velocity lane "
+          f"bfloat16, tick {SLICE_Q16_TICKS // 2 + 1} == its plain twin; "
+          f"ms/tick p50={p50:.3f} p99={p99:.3f} {tag}", flush=True)
+    del s0, s, snap
+
+    # the sweep impls at 2^20, skin 0
+    g = slice_config(N).grid
+    st, _ = bench_world(slice_config(N), SEED, dev)
+    flags = st.dirty.to(torch.int32) | (st.has_client.to(torch.int32) << 1)
+
+    def sweep(**kw):
+        spec = dataclasses.replace(g, **kw)
+        return lambda: grid_neighbors_flags(
+            spec, st.pos, st.alive, watch_radius=st.aoi_radius,
+            flag_bits=flags, with_stats=True)
+
+    def equal(a, b, rows=None):
+        if rows is not None:
+            return all(torch.equal(x[rows], y[rows])
+                       for x, y in zip(a[:3], b[:3]))
+        return all(torch.equal(x, y) for x, y in zip(a[:3], b[:3])) and \
+            all(int(x) == int(y) for x, y in zip(a[3], b[3]))
+
+    runs = {k: sweep(**kw) for k, kw in (
+        ("fused", {}), ("table", dict(sweep_impl="table")),
+        ("cellrow", dict(sweep_impl="cellrow")),
+        ("shift", dict(sweep_impl="shift")),
+        ("ranges_f32", dict(sweep_impl="ranges", topk_impl="f32")),
+        ("ranges_approx", dict(sweep_impl="ranges", topk_impl="approx")),
+        ("fused_f32", dict(topk_impl="f32")),
+        ("fused_approx", dict(topk_impl="approx")))}
+    got = {k: f() for k, f in runs.items()}
+    ok = ~window_over_cap(g, st.pos, st.alive, st.aoi_radius)
+    checks = {
+        "cellrow == table": equal(got["cellrow"], got["table"]),
+        "approx == f32 (ranges)": equal(got["ranges_approx"],
+                                        got["ranges_f32"]),
+        "approx == f32 (fused)": equal(got["fused_approx"],
+                                       got["fused_f32"]),
+        "shift == table below the caps": equal(got["shift"], got["table"],
+                                               ok)}
+    if not all(checks.values()):
+        fail(f"[20] sweep impls at {N}: {checks}")
+    del got
+    ms = {k: time_ms(f, 5, 1) for k, f in runs.items()}
+    # a clustered world of 4096 (cells past cell_cap): shift on the card
+    # == the CPU port's shift
+    crng = np.random.default_rng(SEED + 31)
+    cn = FLOAT_N
+    cg = slice_config(cn, sweep_impl="shift").grid
+    cpos = np.zeros((cn, 3), np.float32)
+    cpos[:, 0] = crng.uniform(0, cg.extent_x, cn)
+    cpos[:, 2] = crng.uniform(0, cg.extent_z, cn)
+    cpos[:cn // 3, 0] = 200.0 + crng.uniform(0, 150, cn // 3)
+    cpos[:cn // 3, 2] = 200.0 + crng.uniform(0, 150, cn // 3)
+    calive = crng.random(cn) < 0.95
+    cflags = crng.integers(0, 4, cn).astype(np.int32)
+    cradius = np.where(crng.random(cn) < 0.2, 20.0, np.inf) \
+        .astype(np.float32)
+    outs = [grid_neighbors_flags(
+        cg, *(torch.tensor(x, device=d) for x in (cpos, calive)),
+        watch_radius=torch.tensor(cradius, device=d),
+        flag_bits=torch.tensor(cflags, device=d), with_stats=True)
+        for d in (dev, "cpu")]
+    over = int(outs[1][3][3])
+    if over <= 0 or not all(same_bits(x.cpu(), y) for x, y in
+                            zip(outs[0][:3], outs[1][:3])) or \
+            [int(x) for x in outs[0][3]] != [int(x) for x in outs[1][3]]:
+        fail(f"[20] shift on the clustered world: the card differs from "
+             f"the CPU port ({over} cells past cell_cap)")
+    print(f"[20] sweep impls at {N}, skin 0: "
+          f"{ {k: v for k, v in checks.items()} } ({int(ok.sum())} rows "
+          f"below the caps, {int((~ok).sum())} apart); "
+          f"grid_neighbors_flags ms by events "
+          f"{ {k: round(v, 3) for k, v in ms.items()} }; shift on a "
+          f"clustered world of {cn} ({over} cells past cell_cap): card =="
+          f" CPU port bit for bit; phase {time.perf_counter() - phase0:.1f}"
+          f" s {tag}", flush=True)
+    return launches
+
+
 def underflow_on_card(dev, tag: str) -> dict:
-    """``workload.underflow_world``'s 4 ticks (``tests/test_torch_cap.py``'s
-    underflow case, 512 rows) on the card against the CPU port, which
-    flushes subnormals as XLA's CPU runtime does: each tick the card
+    """[17] the subnormal gate: ``workload.underflow_world``'s 4 ticks
+    (``tests/test_torch_cap.py``'s underflow case, 512 rows) under mlp
+    and under the random walk, on the card against the CPU port, which
+    gives the jitted JAX tick's flushed bits: each tick the card
     restarts from the CPU port's state (as the test restarts the port
-    from JAX's), and the words that differ are counted by lane."""
-    cfg, st_c, in_c, pol_c = underflow_world(512, device="cpu")
-    _, _, in_g, pol_g = underflow_world(512, device=dev)
-    tick_c, tick_g = make_tick(cfg, device="cpu"), make_tick(cfg, device=dev)
-    diffs = {}
-    for _ in range(4):
-        st_g = interop.state_from_numpy(interop.state_to_numpy(st_c), dev)
-        st_c, out_c = tick_c(st_c, in_c, pol_c)
-        st_g, out_g = tick_g(st_g, in_g, pol_g)
-        for what, a, b in (("", st_c, st_g), ("out.", out_c, out_g)):
-            la, lb = lanes(a), lanes(b)
-            for name, x in la.items():
-                if x is None or name.startswith("aoi_cache"):
-                    continue
-                n = int((words(x) != words(lb[name].cpu())).sum())
-                if n:
-                    diffs[what + name] = diffs.get(what + name, 0) + n
-    print(f"[17] finding, the underflow case on the card (512 rows, 4 "
-          f"ticks, the card restarted from the CPU port's state each "
-          f"tick): the card's tick differs from the CPU port's (which "
-          f"flushes subnormals) in {sum(diffs.values())} words, by lane "
-          f"{diffs or 'none'} {tag}", flush=True)
-    return diffs
+    from JAX's), and every word of every lane must agree. Then the
+    flush helpers on float32's edge words and at the tininess edge, on
+    the card against the CPU, and ``npc_mlp`` on ``mlp_underflow_case``
+    against the CPU port's plain version under the flush scope. Returns
+    the differing words by behavior (all 0, else the run fails)."""
+    from goworld_tpu_torch.ops import xla_order as xo
+    from goworld_tpu_torch.utils import fpenv
+
+    words_by = {}
+    for behavior in ("mlp", "random_walk"):
+        cfg, st_c, in_c, pol_c = underflow_world(512, device="cpu",
+                                                 behavior=behavior)
+        _, _, in_g, pol_g = underflow_world(512, device=dev,
+                                            behavior=behavior)
+        tick_c = make_tick(cfg, device="cpu")
+        tick_g = make_tick(cfg, device=dev)
+        diffs = {}
+        for _ in range(4):
+            st_g = interop.state_from_numpy(interop.state_to_numpy(st_c),
+                                            dev)
+            st_c, out_c = tick_c(st_c, in_c, pol_c)
+            st_g, out_g = tick_g(st_g, in_g, pol_g)
+            for what, a, b in (("", st_c, st_g), ("out.", out_c, out_g)):
+                la, lb = lanes(a), lanes(b)
+                for name, x in la.items():
+                    if x is None or name.startswith("aoi_cache"):
+                        continue
+                    n = int((words(x) != words(lb[name].cpu())).sum())
+                    if n:
+                        diffs[what + name] = diffs.get(what + name, 0) + n
+        words_by[behavior] = diffs
+    # the helpers at float32's edges: the card's ops == the CPU's
+    bits = np.array([0x00800000, 0x80800000, 0x007FFFFF, 0x807FFFFF,
+                     0x00000001, 0x80000001, 0x0, 0x80000000, 0x7FC00000,
+                     0x7F800000, 0xFF800000, 0x7F7FFFFF, 0x3F800000],
+                    np.uint32).view(np.float32)
+    rng = np.random.default_rng(SEED + 29)
+    a = (rng.uniform(1, 2, 1 << 16) * np.exp2(rng.integers(-70, -55,
+                                                           1 << 16)))
+    b = (rng.uniform(1, 2, 1 << 16) * np.exp2(rng.integers(-70, -55,
+                                                           1 << 16)))
+    a, b = a.astype(np.float32), b.astype(np.float32)
+    # exact float64 values at and around the tininess edge
+    t = 2.0 ** -126
+    edge = np.array([t - 2.0 ** -150, t - 2.0 ** -151, t - 2.0 ** -151
+                     - 2.0 ** -170, t - 2.0 ** -151 + 2.0 ** -170,
+                     2.0 ** -150, t], np.float64)
+    edge = np.concatenate([edge, -edge])
+
+    def helpers(d):
+        x, pa, pb = (torch.tensor(v, device=d) for v in (bits, a, b))
+        # a / (1 / b) and the fused residual of a * b: quotients and
+        # sums that land around 2^-126 too
+        return (xo.ftz(x), xo.mul32(pa, pb),
+                xo.div32(pa, (1.0 / pb.double()).float()),
+                xo.fma32(pa, pb, -xo.mul32(pa, pb)),
+                xo.round_ftz(torch.tensor(edge, device=d)))
+
+    with fpenv.flushed():
+        want = helpers("cpu")
+    got = helpers(dev)
+    # a NaN stays a NaN; its payload is the device's
+    helper_ok = [nan_same(g.cpu(), w) for g, w in zip(got, want)]
+    # npc_mlp's .ftz ops against the CPU port's flushed plain version
+    uobs, uws = mlp_underflow_case(4096, SEED, dev)
+    with fpenv.flushed():
+        cpu_plain = npc_mlp_plain(uobs.cpu(), *(w.cpu() for w in uws))
+    mlp_ok = nan_same(npc_mlp(uobs, *uws).cpu(), cpu_plain) and nan_same(
+        npc_mlp_plain(uobs, *uws).cpu(), cpu_plain)
+    print(f"[17] the subnormal gate: the underflow case on the card (512 "
+          f"rows, 4 ticks, the card restarted from the CPU port's state "
+          f"each tick) differs from the CPU port's flushed tick in "
+          f"{sum(words_by['mlp'].values())} words under mlp "
+          f"{words_by['mlp'] or ''} and "
+          f"{sum(words_by['random_walk'].values())} under the random walk"
+          f" {words_by['random_walk'] or ''}; the flush helpers (ftz, "
+          f"mul32, div32, fma32, round_ftz at the tininess edge) card == "
+          f"CPU {helper_ok}; npc_mlp and its plain version on "
+          f"mlp_underflow_case (4096 rows) == the CPU port's flushed plain"
+          f" version: {mlp_ok} {tag}", flush=True)
+    if any(words_by.values()) or not all(helper_ok) or not mlp_ok:
+        fail("[17] the card does not flush subnormals as the CPU port "
+             "does")
+    return words_by
 
 
 def main() -> int:
@@ -3546,6 +3938,12 @@ def main() -> int:
     phase_done("[17]")
     world["served_game"] = served_game_phase(dev, tag)
     phase_done("[19]")
+    slice_launches = slice_phase(dev, tag, profiled, spaces_ms)
+    world.update({f"slice_{k}": v for k, v in slice_launches.items()})
+    mlp_row["launches_by_path"].update(
+        {f"slice_{k}": v["npc_mlp"] for k, v in slice_launches.items()})
+    mlp_row["launches"] = sum(mlp_row["launches_by_path"].values())
+    phase_done("[20]")
     for row, key in zip(rows[:2], ("sweep_fused", "counting_sort")):
         row["launches_by_path"] = {"single_space": row["launches"],
                                    **{p: n[key] for p, n in world.items()}}
@@ -3574,6 +3972,8 @@ def main() -> int:
     b8 = got[f"batched tick, {SPACES} Spaces"]
     b1 = got[f"tick, one Space of {N}"]
     bm = got["megaspace tick, mlp"]
+    c5 = got["config 5 tick, mlp"]
+    b8m = got[f"batched tick, {SPACES} Spaces, mlp"]
     print(f"[12] device time a call (torch.profiler, after the timed "
           f"paths): {dev_ms}; {mega_device()}; device busy a tick: "
           f"{SPACES} Spaces batched {b8[0]:.3f} ms in {b8[1]:g} kernels "
@@ -3581,8 +3981,14 @@ def main() -> int:
           f" one Space of {N} {b1[0]:.3f} ms in {b1[1]:g} kernels (against"
           f" [5]'s p50 {1 - b1[0] / p50:.3f}), the megaspace under mlp "
           f"{bm[0]:.3f} ms in {bm[1]:g} kernels (against [17]'s p50 "
-          f"{1 - bm[0] / mega_mlp_p50:.3f}); kernel times on the next "
-          f"line {tag}", flush=True)
+          f"{1 - bm[0] / mega_mlp_p50:.3f}); torch kernels a tick with "
+          f"the subnormal flush: [5] {b1[1]:g} (before it: 1199), [17] "
+          f"config 5 under mlp {c5[1]:g} in {c5[0]:.3f} ms (before it: not "
+          f"read; its "
+          f"megaspace tick under mlp 4163.95), [20] {SPACES} Spaces under "
+          f"mlp {b8m[1]:g} in {b8m[0]:.3f} ms; profiled reads taken again"
+          f" for lost events: {kernels.PROFILE_REREADS}; kernel times "
+          f"on the next line {tag}", flush=True)
     phase_done("[12]")
     print(f"[walls] phase seconds {walls}, total "
           f"{sum(walls.values()):.1f} s", flush=True)

@@ -26,12 +26,10 @@ import torch
 from goworld_tpu_torch.ops import prng
 from goworld_tpu_torch.ops.aoi import (
     _ID_BITS,
-    ROADMAP_HINT,
     GridSpec,
     VerletCache,
     init_verlet_cache,
 )
-from goworld_tpu_torch.ops.aoi import check_ported as check_grid_ported
 from goworld_tpu_torch.scenarios.spec import (
     assign_behavior_ids,
     assign_watch_radii,
@@ -84,23 +82,6 @@ class WorldConfig:
     def bounds_max(self) -> tuple[float, float, float]:
         g = self.grid
         return (g.origin_x + g.extent_x, 1e9, g.origin_z + g.extent_z)
-
-
-def has_behaviors(cfg: WorldConfig) -> bool:
-    """True when the config runs more than the random walk: the btree or
-    mlp behavior, or a scenario mix."""
-    return cfg.behavior != "random_walk" or cfg.scenario is not None
-
-
-def check_ported(cfg: WorldConfig) -> None:
-    """Raise ``NotImplementedError`` for a config this port does not run
-    yet (see ROADMAP.md Queue A); it never substitutes another path."""
-    if cfg.grid.precision != "off" and (
-            cfg.behavior == "mlp" or (cfg.scenario is not None
-                                      and cfg.scenario.needs_policy)):
-        raise NotImplementedError(
-            f"precision='q16' with the mlp policy {ROADMAP_HINT}")
-    check_grid_ported(cfg.grid)
 
 
 def resolve_device(device) -> torch.device:
@@ -175,7 +156,6 @@ def create_state(cfg: WorldConfig, seed: int = 0,
     unless the caller asks for the CPU). With a skin it carries an
     invalid Verlet cache (the first tick rebuilds); under precision=q16
     its velocity lane is bfloat16."""
-    check_ported(cfg)
     dev = resolve_device(device)
     n, a, k = cfg.capacity, cfg.attr_width, cfg.grid.k
     i32, f32 = torch.int32, torch.float32

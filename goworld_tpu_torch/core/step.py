@@ -14,7 +14,15 @@ the port of the JAX World's ``jax.vmap(tick_body)``. Each stage runs once
 on the ``[S, ...]`` tensors, each kernel launches once for all Spaces,
 and every output is ``[S, ...]`` with each Space's own caps; nothing
 loops over Spaces. The skin is not run there (the JAX package clears it
-for its vmapped step).
+for its vmapped step). The behaviors see the S Spaces' rows in a row
+(:func:`flat_spaces`): one policy launch for all ``S * N`` rows, each
+Space drawing from its own key.
+
+The behavior and integrate stages flush subnormals as XLA's CPU runtime
+does, with explicit ops that run on every device
+(:func:`goworld_tpu_torch.ops.xla_order.ftz`); the CPU tick also runs
+under :func:`goworld_tpu_torch.utils.fpenv.flushed` for the ops they do
+not reach.
 """
 
 from __future__ import annotations
@@ -26,8 +34,6 @@ import torch
 from goworld_tpu_torch.core.state import (
     SpaceState,
     WorldConfig,
-    check_ported,
-    has_behaviors,
     resolve_device,
 )
 from goworld_tpu_torch.models.behavior_tree import (
@@ -43,14 +49,15 @@ from goworld_tpu_torch.models.npc_policy import (
 from goworld_tpu_torch.models.random_walk import random_walk_step
 from goworld_tpu_torch.ops import prng
 from goworld_tpu_torch.ops.aoi import (
-    ROADMAP_HINT,
     grid_neighbors_flags,
     grid_neighbors_verlet,
     quantize_positions,
 )
+from goworld_tpu_torch.ops.batch import space_base
 from goworld_tpu_torch.ops.delta import interest_pairs
 from goworld_tpu_torch.ops.integrate import apply_pos_inputs, integrate
 from goworld_tpu_torch.ops.sync import collect_attr_deltas, collect_sync
+from goworld_tpu_torch.ops.xla_order import ftz
 from goworld_tpu_torch.scenarios.behaviors import (
     capped_step,
     scenario_velocity,
@@ -123,27 +130,30 @@ def compute_velocity(cfg: WorldConfig, key, pos, yaw, state: SpaceState,
 
     Returns ``(vel, fused)``: ``fused`` (bool[N], or None for every
     row) marks the rows whose ``pos + vel * dt`` the jitted reference
-    contracts into one fused multiply-add (:func:`contracted_rows`)."""
+    contracts into one fused multiply-add (:func:`contracted_rows`).
+    The float lanes are read flushed (:func:`ops.xla_order.ftz`); the
+    random walk's select keeps the carried velocity's bits."""
     if cfg.behavior == "btree":
         if nbr is None:
             feats = features_from_summary(
-                state.nbr_cnt, state.nbr_client_cnt, state.nbr_mean_off)
+                state.nbr_cnt, state.nbr_client_cnt,
+                ftz(state.nbr_mean_off))
         else:
-            feats = features_from_neighbors(pos, state.has_client, nbr,
-                                            nbr_cnt)
+            feats = features_from_neighbors(ftz(pos), state.has_client,
+                                            nbr, nbr_cnt)
         return btree_velocity(key, feats, state.vel, state.npc_moving,
                               cfg.npc_speed, cfg.turn_prob)
     if cfg.behavior == "mlp":
         if policy is None:
             raise ValueError("behavior='mlp' needs an MLPPolicy")
+        pos, vel = ftz(pos), ftz(state.vel)
         if nbr is None:
             obs = build_obs_from_features(
-                pos, state.vel, yaw, state.nbr_cnt, state.nbr_mean_off,
+                pos, vel, yaw, state.nbr_cnt, ftz(state.nbr_mean_off),
                 cfg.grid.k, world_extent)
         else:
-            obs = build_obs(pos, state.vel, yaw, nbr, nbr_cnt,
-                            world_extent)
-        vel = capped_step(state.vel, policy_accel(policy, obs), cfg.dt,
+            obs = build_obs(pos, vel, yaw, nbr, nbr_cnt, world_extent)
+        vel = capped_step(vel, policy_accel(policy, obs), cfg.dt,
                           cfg.npc_speed)
         return torch.where(state.npc_moving[:, None], vel, 0.0), None
     return random_walk_step(key, state.vel, state.npc_moving,
@@ -159,7 +169,7 @@ _CONTRACT_ALL = ("hotspot", "flock", "mlp")
 
 def contracted_rows(cfg: WorldConfig, vel, state: SpaceState, fused):
     """The rows whose ``pos + vel * dt`` the jitted reference contracts
-    into one fused multiply-add (None: every row). XLA's CPU backend
+    into one fused multiply-add (None: every row, False: no row). XLA's CPU backend
     contracts a multiply into the add only where LLVM's loop unswitching
     leaves the two in one block with the ``moving`` select folded away,
     so the rows follow the integrate fusion's form, read off its object
@@ -167,15 +177,39 @@ def contracted_rows(cfg: WorldConfig, vel, state: SpaceState, fused):
     under a scenario every row for a hotspot, flock or mlp population,
     the rows that kept their carried velocity for a random walk, and no
     row for a shrink, teleport or btree population or a mix of several
-    members (its step is a select chain, or a vectorized loop)."""
+    members (its step is a select chain, or a vectorized loop). Under
+    precision q16 the btree's loop, reading the bfloat16 carry, keeps
+    the moving select beside every add: no row."""
     if cfg.scenario is None:
+        if cfg.behavior == "btree" and cfg.grid.precision != "off":
+            return False
         return fused
     names = cfg.scenario.behavior_names
     if len(names) == 1 and names[0] in _CONTRACT_ALL:
         return None
     if names == ("random_walk",):
         return ~(vel != state.vel).any(dim=-1)
-    return torch.zeros_like(state.npc_moving)
+    return False
+
+
+def flat_spaces(state: SpaceState, pos, yaw):
+    """The behavior stage's view of S Spaces' lanes ``[S, N, ...]``: one
+    population of ``S * N`` rows, Space s's row i at ``s * N + i``, its
+    neighbor ids moved into its own rows (the sentinel N becomes ``S *
+    N``). Returns ``(state, pos, yaw)`` with the lanes the behaviors
+    read flattened (``tick`` stays ``[S]``)."""
+    s, n = pos.shape[:2]
+
+    def flat(t):
+        return None if t is None else t.reshape(s * n, *t.shape[2:])
+
+    base = space_base((s,), n, pos.device)[..., None]
+    nbr = torch.where(state.nbr == n, s * n, state.nbr + base)
+    fields = ("vel", "alive", "npc_moving", "has_client", "nbr_cnt",
+              "nbr_client_cnt", "nbr_mean_off", "behavior_id")
+    return (state.replace(nbr=flat(nbr), **{f: flat(getattr(state, f))
+                                           for f in fields}),
+            flat(pos), flat(yaw))
 
 
 def tick_body(cfg: WorldConfig, state: SpaceState, inputs: TickInputs,
@@ -187,10 +221,6 @@ def tick_body(cfg: WorldConfig, state: SpaceState, inputs: TickInputs,
     if state.pos.shape[-2:] != (n, 3) or state.pos.dim() > 3:
         raise ValueError(f"pos: expected [{n}, 3] or [S, {n}, 3], got "
                          f"{tuple(state.pos.shape)}")
-    if state.pos.dim() == 3 and has_behaviors(cfg):
-        raise NotImplementedError(
-            f"behaviors and scenarios on the batched [S, ...] tick "
-            f"{ROADMAP_HINT}")
     if state.pos.dim() == 3 and cfg.grid.skin > 0.0:
         raise ValueError(
             "the Verlet skin runs on one Space's lanes: a batched step "
@@ -212,32 +242,53 @@ def tick_body(cfg: WorldConfig, state: SpaceState, inputs: TickInputs,
     )
 
     # 2. behaviors (one key a Space). A scenario steps its mix through
-    # one pass over the behavior lane
+    # one pass over the behavior lane. Several Spaces' rows go through
+    # as one population (flat_spaces)
     keys = prng.split(state.rng)
     rng, k_behave = keys[..., 0, :], keys[..., 1, :]
     tele = fused = None
+    b_state, b_pos, b_yaw = flat_spaces(state, pos, yaw) \
+        if pos.dim() == 3 else (state, pos, yaw)
     if cfg.scenario is not None:
-        vel, tele_pos, tele = scenario_velocity(cfg, k_behave, pos, yaw,
-                                                state, policy)
+        vel, tele_pos, tele = scenario_velocity(cfg, k_behave, b_pos,
+                                                b_yaw, b_state, policy)
+        tele_pos, tele = tele_pos.reshape(pos.shape), \
+            tele.reshape(pos.shape[:-1])
     else:
         vel, fused = compute_velocity(
-            cfg, k_behave, pos, yaw, state, policy,
+            cfg, k_behave, b_pos, b_yaw, b_state, policy,
             (cfg.grid.extent_x, cfg.grid.extent_z),
-            nbr=state.nbr, nbr_cnt=state.nbr_cnt)
+            nbr=b_state.nbr, nbr_cnt=b_state.nbr_cnt)
+        if fused is not None:
+            fused = fused.reshape(pos.shape[:-1])
+    vel = vel.reshape(pos.shape)
 
     # 3. integrate + world clamp, pos + vel*dt contracted on the rows
     # the reference contracts
     fused = contracted_rows(cfg, vel, state, fused)
-    pos, moved = integrate(pos, vel, state.npc_moving, cfg.dt,
-                           cfg.bounds_min, cfg.bounds_max, fused=fused)
+    out = integrate(pos, vel, state.npc_moving, cfg.dt, cfg.bounds_min,
+                    cfg.bounds_max, fused=fused,
+                    rounded=prec and fused is not False)
+    pos, moved = out[:2]
     if tele is not None:
         # teleports override the integrated position before the sweep,
         # so the Verlet gate sees the whole jump on this tick
-        pos = torch.where(tele[:, None], tele_pos, pos)
+        pos = torch.where(tele[..., None], tele_pos, pos)
         moved = moved | tele
     if prec:
-        # "moved" on the lattice: motion under a lattice step is clean
-        apos = quantize_positions(cfg.grid, pos)
+        # "moved" on the lattice: motion under a lattice step is clean.
+        # XLA recomputes the integrate inside each fusion that snaps it
+        # (the sweep's lattice, the sync records, the moved test), where
+        # the moving select sits between vel * dt and the add, so there
+        # no row is contracted; only the stored position keeps the rows
+        # contracted_rows names
+        # (pos itself where no row is)
+        ppos = pos
+        if len(out) == 3:
+            ppos = out[2]
+            if tele is not None:
+                ppos = torch.where(tele[..., None], tele_pos, ppos)
+        apos = quantize_positions(cfg.grid, ppos)
         aprev = quantize_positions(cfg.grid, state.pos)
         moved = (apos != aprev).any(dim=-1)
     else:
@@ -322,10 +373,7 @@ def make_tick(cfg: WorldConfig, device="cuda"):
     ``cfg.behavior == 'mlp'`` or the scenario's mix has the mlp member.
     The tick takes one Space's lanes or S Spaces' stacked ``[S, ...]``
     lanes (with ``skin=0``), and its outputs have the same leading axis.
-    A config this port does not run yet raises ``NotImplementedError``
-    here, before any tick.
     """
-    check_ported(cfg)
     dev = resolve_device(device)
 
     def tick(state: SpaceState, inputs: TickInputs, policy=None):

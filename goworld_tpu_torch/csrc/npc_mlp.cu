@@ -8,8 +8,14 @@
 // every dot is a float32 dot of the bf16 values, rounded to bf16; the
 // bias is added in float32 and the sum rounded to bf16; tanh runs on
 // that value and is rounded to bf16; the last layer's bias sum stays
-// float32. The dot's order is XLA's (ops/xla_order.py dot_lanes): the
-// products of output column c summed in k order (lanes == 1), or in
+// float32. XLA's CPU runtime runs it under flush-to-zero and
+// denormals-are-zero, so every float op here is its .ftz form (mul_ftz,
+// add_ftz, fma_ftz): a subnormal input reads as a zero of its sign and
+// a subnormal result becomes one. Each product of bf16 values and each
+// sum of flushed values is exact when it is that small, so where the
+// GPU and x86 detect tininess (before or after rounding) cannot differ.
+// The dot's order is XLA's (ops/xla_order.py dot_lanes): the products
+// of output column c summed in k order (lanes == 1), or in
 // `lanes` partial sums over k mod lanes added pairwise, the K mod lanes
 // last terms summed apart and added last. It replaces no TPU kernel:
 // the JAX package leaves these dots to XLA, and no matmul library on
@@ -31,22 +37,23 @@
 //   holds by construction; the partials are added pairwise and the K
 //   mod L tail last, as dot_f32 does.
 // * Exact FFMA. A bf16 x bf16 product has at most 16 significant bits,
-//   so it is exact in float32 while it neither overflows nor drops bits
-//   below 2^-149; there fmaf(x, w, acc) rounds once what __fmul_rn then
-//   __fadd_rn round twice, to the same bits, in one issue slot instead
-//   of two. A product of bf16 values whose lowest significand bits sit
-//   at 2^(max(Ex,1)-134) and 2^(max(Ew,1)-134) (E the biased exponent
-//   field) is on the 2^-149 grid when max(Ex,1) + max(Ew,1) >= 119
-//   (kExactLo). Layer 2 multiplies tanh outputs (|x| <= 1, so every
-//   product is at most |w|: no overflow) and takes FFMA unless a row
-//   tile's activations could fall below that grid: the smallest such
-//   exponent of the nonzero w2 words is found once a block, that of the
-//   tile's nonzero activations as layer 1 writes them, and the tile
-//   then runs layer 2 on the rounded mul and add (the same template, a
-//   uniform branch). Layer 1 multiplies the raw observations (up to
-//   +-3e38: 1.5 2^127 x 2 + -3e38 gives 2.104e38 as one FFMA and inf as
-//   a mul and an add) and the output layer is 3 columns at lanes 4;
-//   both keep the rounded mul and add (about 9% of the products).
+//   so it is exact in float32 while it neither overflows nor falls
+//   below 2^-126 (where the flushed mul zeroes it and a fused one would
+//   keep it); there fma_ftz(x, w, acc) rounds once what mul_ftz then
+//   add_ftz round twice, to the same bits, in one issue slot instead of
+//   two. A product of normal bf16 values is at least 2^(Ex+Ew-254) (E
+//   the biased exponent field), so at least 2^-126 when Ex + Ew >= 128
+//   (kExactLo); a subnormal factor reads as zero either way. Layer 2
+//   multiplies tanh outputs (|x| <= 1, so every product is at most |w|:
+//   no overflow) and takes FFMA unless a row tile's activations could
+//   meet w2 below 2^-126: the smallest exponent of the normal w2 words
+//   is found once a block, that of the tile's nonzero activations as
+//   layer 1 writes them, and the tile then runs layer 2 on the rounded
+//   mul and add (the same template, a uniform branch). Layer 1
+//   multiplies the raw observations (up to +-3e38: 1.5 2^127 x 2 +
+//   -3e38 gives 2.104e38 as one FFMA and inf as a mul and an add) and
+//   the output layer is 3 columns at lanes 4; both keep the rounded mul
+//   and add (about 9% of the products).
 // * tanh by a table. tanh's input is always a bf16 value; the wrapper
 //   builds tanh_bf16 (float64 tanh rounded to float32, then bf16: the
 //   function this kernel computed before) over the 32,768 magnitudes
@@ -70,7 +77,7 @@ constexpr int kMaxH = 128;   // widest hidden layer
 constexpr int kObs = 10;
 constexpr int kOut = 3;
 constexpr int kTanh = 32768; // bf16 magnitudes
-constexpr int kExactLo = 119;
+constexpr int kExactLo = 128;
 
 struct Smem {
   float act[kMaxH][kLda];    // a layer's activations, k-major
@@ -82,16 +89,36 @@ struct Smem {
   float b1[kMaxH];
   float b2[kMaxH];
   float b3[4];
-  int wexp;                  // min max(E, 1) over nonzero w2 words
+  int wexp;                  // min E over normal w2 words
 };
+
+// The float ops of XLA's CPU runtime under flush-to-zero and
+// denormals-are-zero.
+__device__ __forceinline__ float mul_ftz(float a, float b) {
+  float r;
+  asm("mul.rn.ftz.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float add_ftz(float a, float b) {
+  float r;
+  asm("add.rn.ftz.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float fma_ftz(float a, float b, float c) {
+  float r;
+  asm("fma.rn.ftz.f32 %0, %1, %2, %3;" : "=f"(r) : "f"(a), "f"(b), "f"(c));
+  return r;
+}
 
 __device__ __forceinline__ float round_bf(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// max(E, 1) of a float32 holding a bf16 value
-__device__ __forceinline__ int lo_exp(float x) {
-  return max(static_cast<int>((__float_as_uint(x) >> 23) & 0xffu), 1);
+// E, the biased exponent field of a float32
+__device__ __forceinline__ int exp_field(float x) {
+  return static_cast<int>((__float_as_uint(x) >> 23) & 0xffu);
 }
 
 __device__ __forceinline__ float tanh_lookup(const uint16_t* tab, float x) {
@@ -103,9 +130,9 @@ __device__ __forceinline__ float tanh_lookup(const uint16_t* tab, float x) {
 template <bool kFma>
 __device__ __forceinline__ float mac(float x, float w, float acc) {
   if constexpr (kFma) {
-    return fmaf(x, w, acc);
+    return fma_ftz(x, w, acc);
   } else {
-    return __fadd_rn(acc, __fmul_rn(x, w));
+    return add_ftz(acc, mul_ftz(x, w));
   }
 }
 
@@ -173,10 +200,10 @@ __device__ __forceinline__ void tile_dot(const float* __restrict__ a,
       if constexpr (L == 1) {
         acc[r][c] = part[0][r][c];
       } else if constexpr (L == 2) {
-        acc[r][c] = __fadd_rn(part[0][r][c], part[1][r][c]);
+        acc[r][c] = add_ftz(part[0][r][c], part[1][r][c]);
       } else {
-        acc[r][c] = __fadd_rn(__fadd_rn(part[0][r][c], part[1][r][c]),
-                              __fadd_rn(part[2][r][c], part[3][r][c]));
+        acc[r][c] = add_ftz(add_ftz(part[0][r][c], part[1][r][c]),
+                            add_ftz(part[2][r][c], part[3][r][c]));
       }
     }
   if (kv < K) {
@@ -200,13 +227,13 @@ __device__ __forceinline__ void tile_dot(const float* __restrict__ a,
 #pragma unroll
     for (int r = 0; r < 8; ++r)
 #pragma unroll
-      for (int c = 0; c < C; ++c) acc[r][c] = __fadd_rn(acc[r][c], tail[r][c]);
+      for (int c = 0; c < C; ++c) acc[r][c] = add_ftz(acc[r][c], tail[r][c]);
   }
 }
 
 // tanh(bf16(bf16(acc) + b)) into act[col][rows] for the thread's
 // columns below h; with kCheck, whether a nonzero value lies below thr
-// (its max(E, 1) below the tile's bound: layer 2 then runs rounded).
+// (below the tile's bound: layer 2 then runs rounded).
 template <int L, bool kCheck>
 __device__ __forceinline__ bool store_hidden(Smem& s, float acc[8][8 / L],
                                              const float* bias, int h,
@@ -221,7 +248,7 @@ __device__ __forceinline__ bool store_hidden(Smem& s, float acc[8][8 / L],
 #pragma unroll
     for (int r = 0; r < 8; ++r) {
       v[r] = tanh_lookup(s.tanh_mag,
-                         round_bf(__fadd_rn(round_bf(acc[r][j]), b)));
+                         round_bf(add_ftz(round_bf(acc[r][j]), b)));
       if (kCheck) low |= v[r] != 0.0f && fabsf(v[r]) < thr;
     }
     *reinterpret_cast<float4*>(&s.act[col][r0]) =
@@ -271,9 +298,9 @@ __device__ __forceinline__ void layer3(const Smem& s, int h, int base, int n,
 #pragma unroll
     for (int j = 0; j < kPer; ++j) {
       const float x = s.act[k][r + j * kStride];
-      p[j][0] = __fadd_rn(p[j][0], __fmul_rn(x, w.x));
-      p[j][1] = __fadd_rn(p[j][1], __fmul_rn(x, w.y));
-      p[j][2] = __fadd_rn(p[j][2], __fmul_rn(x, w.z));
+      p[j][0] = add_ftz(p[j][0], mul_ftz(x, w.x));
+      p[j][1] = add_ftz(p[j][1], mul_ftz(x, w.y));
+      p[j][2] = add_ftz(p[j][2], mul_ftz(x, w.z));
     }
   }
 #pragma unroll
@@ -282,8 +309,8 @@ __device__ __forceinline__ void layer3(const Smem& s, int h, int base, int n,
     for (int j = 0; j < kPer; ++j)
 #pragma unroll
       for (int c = 0; c < kOut; ++c)
-        p[j][c] = __fadd_rn(p[j][c],
-                            __shfl_xor_sync(0xffffffffu, p[j][c], off));
+        p[j][c] = add_ftz(p[j][c],
+                          __shfl_xor_sync(0xffffffffu, p[j][c], off));
   if (l != 0) return;
 #pragma unroll
   for (int j = 0; j < kPer; ++j) {
@@ -294,17 +321,17 @@ __device__ __forceinline__ void layer3(const Smem& s, int h, int base, int n,
         const float x = s.act[k][rj];
 #pragma unroll
         for (int c = 0; c < kOut; ++c)
-          t[c] = __fadd_rn(t[c], __fmul_rn(x, s.w3[k][c]));
+          t[c] = add_ftz(t[c], mul_ftz(x, s.w3[k][c]));
       }
 #pragma unroll
-      for (int c = 0; c < kOut; ++c) p[j][c] = __fadd_rn(p[j][c], t[c]);
+      for (int c = 0; c < kOut; ++c) p[j][c] = add_ftz(p[j][c], t[c]);
     }
     const int row = base + rj;
     if (row < n) {
 #pragma unroll
       for (int c = 0; c < kOut; ++c)
         out[static_cast<int64_t>(row) * kOut + c] =
-            __fadd_rn(round_bf(p[j][c]), s.b3[c]);
+            add_ftz(round_bf(p[j][c]), s.b3[c]);
     }
   }
 }
@@ -330,7 +357,7 @@ npc_mlp_kernel(const float* __restrict__ obs, int n, int h,
     const int k = t / kMaxH, c = t % kMaxH;
     const float v = (k < h && c < h) ? __bfloat162float(w2[k * h + c]) : 0.0f;
     s.w2[k][c] = v;
-    if (v != 0.0f) wmin = min(wmin, lo_exp(v));
+    if (exp_field(v) != 0) wmin = min(wmin, exp_field(v));
   }
   atomicMin(&s.wexp, wmin);
   for (int t = tid; t < kObs * kMaxH; t += kThreads) {
@@ -353,7 +380,7 @@ npc_mlp_kernel(const float* __restrict__ obs, int n, int h,
     for (int t = tid; t < kTanh * 2 / 16; t += kThreads) dst[t] = src[t];
   }
   __syncthreads();
-  // an activation with max(E, 1) < lo is |x| < 2^(lo - 127) (lo >= 2)
+  // an activation with E < lo is |x| < 2^(lo - 127) (lo >= 2)
   const int lo = kExactLo - s.wexp;
   const float thr =
       lo >= 2 ? __uint_as_float(static_cast<uint32_t>(lo) << 23) : 0.0f;

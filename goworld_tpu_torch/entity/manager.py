@@ -82,7 +82,6 @@ import torch
 from goworld_tpu_torch.core.state import (
     SpaceState,
     WorldConfig,
-    has_behaviors,
     map_lane,
     resolve_device,
 )
@@ -356,8 +355,6 @@ class World:
             raise _refuse("the megaspace World", "A8")
         if n_spaces < 1:
             raise ValueError(f"n_spaces must be >= 1, got {n_spaces}")
-        if n_spaces > 1 and has_behaviors(cfg):
-            raise _refuse("behaviors and scenarios at n_spaces > 1", "A item 3")
         self.device = resolve_device(device)
         # delta-compressed snapshot cadence (freeze.SnapshotChain): every
         # Nth checkpoint a full quantized keyframe, the rest plane deltas

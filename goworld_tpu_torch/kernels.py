@@ -162,26 +162,66 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype,
         raise ValueError(f"{name}: must be contiguous")
 
 
+# A torch.profiler session after a process's first may lose the device
+# events of its first launches, a few or all of them, and a host sleep
+# first does not help (``probe_profiler.py``). So a read launches lead
+# marker kernels (``torch.cuda._sleep``'s) before its calls and one after
+# them, keeps the session only where a lead marker and the last marker
+# show (``whole_session``), and else reads again with a longer lead.
+PROFILE_LEADS = (32, 128, 512, 2048)
+_MARKER = "spin_kernel"
+# reads taken again because a session lost events, since the process began
+PROFILE_REREADS = 0
+
+
+def whole_session(is_marker: list[bool]) -> bool:
+    """Whether a session's device events, in order of start, kept all of
+    the calls between its markers: it lost at most a prefix of its lead
+    markers (at least one shows before the first other event) and kept
+    its last marker (the one marker after that event). A session that
+    ran no other event needs its last marker and one lead marker."""
+    if not is_marker or not is_marker[0]:
+        return False
+    if all(is_marker):
+        return len(is_marker) >= 2
+    first = is_marker.index(False)
+    return sum(is_marker[first:]) == 1
+
+
 def device_ms(fn, reps: int) -> tuple[float, float]:
     """(device ms a call, kernel launches a call) of ``fn()`` from
     torch.profiler: every device activity of ``reps`` calls (kernels and
     memsets) summed, over ``reps``, after one call that is not profiled;
-    memsets and copies are not counted as launches. The profiling
-    interface stays attached after the session and slows every later
-    launch from the host, so time by events before this, not after.
-    Read every profile soon after the process's first session: later
-    sessions lose device events (``probe_profiler.py``)."""
+    memsets and copies are not counted as launches, nor the markers. The
+    profiling interface stays attached after the session and slows every
+    later launch from the host, so time by events before this, not after.
+    Raises when no lead of ``PROFILE_LEADS`` keeps a whole session."""
+    global PROFILE_REREADS
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+    for i, lead in enumerate(PROFILE_LEADS):
+        PROFILE_REREADS += i > 0
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(lead):
+                torch.cuda._sleep(1)
+            for _ in range(reps):
+                fn()
+            torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+        kept = sorted((e for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA),
+                      key=lambda e: e.time_range.start)
+        if whole_session([_MARKER in e.name for e in kept]):
+            break
+    else:
+        raise RuntimeError(
+            f"torch.profiler lost device events of every session up to a "
+            f"lead of {lead} markers")
     ev = [e for e in prof.key_averages()
-          if e.device_type == torch.autograd.DeviceType.CUDA]
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and _MARKER not in e.key]
     us = sum(e.device_time_total for e in ev)
     launches = sum(e.count for e in ev
                    if not e.key.startswith(("Memset", "Memcpy")))
     return us / 1e3 / reps, launches / reps
-

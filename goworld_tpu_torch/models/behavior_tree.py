@@ -24,7 +24,14 @@ import dataclasses
 import torch
 
 from goworld_tpu_torch.models.random_walk import random_walk_step
-from goworld_tpu_torch.ops.xla_order import fma32, sqrt32, sum_k
+from goworld_tpu_torch.ops.xla_order import (
+    div32,
+    fma32,
+    ftz,
+    mul32,
+    sqrt32,
+    sum_k,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,13 +129,14 @@ def features_from_neighbors(pos, has_client, nbr, nbr_cnt,
     (``argmin``'s tie rule); a row with no client neighbor reads lane 0
     and is zeroed. ``vectorized``: the mean offset's sum is the only
     output of its fusion in the reference (its client lanes unused;
-    :func:`ops.xla_order.sum_k`)."""
+    :func:`ops.xla_order.sum_k`). ``pos`` is flushed
+    (:func:`ops.xla_order.ftz`), and so is every float it gives."""
     n = pos.shape[0]
     valid = nbr != n
     nbr_c = torch.clamp_max(nbr, n - 1).long()
     npos = pos[nbr_c]
     offs = torch.where(valid[:, :, None],
-                       npos - pos[:nbr.shape[0], None, :], 0.0)
+                       ftz(npos - pos[:nbr.shape[0], None, :]), 0.0)
     is_client = valid & has_client[nbr_c]
     cheb = torch.maximum(offs[:, :, 0].abs(), offs[:, :, 2].abs())
     key = torch.where(is_client, cheb, torch.inf)
@@ -141,22 +149,24 @@ def features_from_neighbors(pos, has_client, nbr, nbr_cnt,
     total = sum_k(offs, vectorized)
     return BTFeatures(nbr_cnt=nbr_cnt, client_cnt=client_cnt,
                       client_off=client_off,
-                      mean_off=total / denom[:, None],
+                      mean_off=div32(total, denom[:, None]),
                       mean_sum=total, mean_den=denom)
 
 
 def features_from_summary(nbr_cnt, nbr_client_cnt, nbr_mean_off):
     """The megaspace's features: its gid neighbor lists cannot gather
     positions, so chase heads along the mean neighbor offset (the JAX
-    package's documented approximation)."""
+    package's documented approximation); ``nbr_mean_off`` flushed."""
     return BTFeatures(nbr_cnt=nbr_cnt, client_cnt=nbr_client_cnt,
                       client_off=nbr_mean_off, mean_off=nbr_mean_off)
 
 
 def unit_norm(dx: torch.Tensor, dz: torch.Tensor, eps: float):
     """``sqrt(dx * dx + dz * dz + eps)`` with the jitted reference's
-    fused multiply-add (``dz * dz`` rounded, ``dx * dx`` fused)."""
-    return sqrt32(fma32(dx, dx, dz * dz) + eps)
+    fused multiply-add (``dz * dz`` rounded, ``dx * dx`` fused), under
+    flush-to-zero (the sum with ``eps`` and the root are never
+    subnormal)."""
+    return sqrt32(fma32(dx, dx, mul32(dz, dz)) + eps)
 
 
 def unit_scale(off, norm, num=None, den=None):
@@ -164,8 +174,9 @@ def unit_scale(off, norm, num=None, den=None):
     den`` built in the same tick, ``num / (den * norm)``, as XLA's
     simplifier rewrites a divide of a divide."""
     if num is None:
-        return off / norm[:, None]
-    return num / (den * norm)[:, None]
+        return div32(off, norm[:, None])
+    # den >= 1 and norm >= sqrt(eps): their product is never subnormal
+    return div32(num, (den * norm)[:, None])
 
 
 def btree_velocity(key, feats: BTFeatures, vel, npc_moving, speed: float,
@@ -183,7 +194,7 @@ def btree_velocity(key, feats: BTFeatures, vel, npc_moving, speed: float,
 
     def toward(off, sign, num=None, den=None):
         norm = unit_norm(off[:, 0], off[:, 2], 1e-6)
-        s = unit_scale(off, norm, num, den) * (sign * speed)
+        s = mul32(unit_scale(off, norm, num, den), sign * speed)
         return torch.stack([s[:, 0], s[:, 1] * 0.0, s[:, 2]], dim=1)
 
     actions = {

@@ -26,7 +26,13 @@ from goworld_tpu_torch.ops.mlp import (
     npc_mlp,
     tanh_table,
 )
-from goworld_tpu_torch.ops.xla_order import mul_recip, rsqrt_table, sum_k
+from goworld_tpu_torch.ops.xla_order import (
+    div32,
+    ftz,
+    mul_recip,
+    rsqrt_table,
+    sum_k,
+)
 
 _LANES = ("w1", "b1", "w2", "b2", "w3", "b3")
 
@@ -120,22 +126,25 @@ def neighbor_mean_offset(pos_src: torch.Tensor, self_pos: torch.Tensor,
                          sentinel: int, lanes_from: int = 18) -> torch.Tensor:
     """f32[N, 3] mean offset to valid neighbors; ``pos_src`` is the
     position table ``nbr`` indexes (the whole population of one Space,
-    or a megaspace tile's local and ghost rows). The sum over the
-    neighbor axis runs in XLA's order (:func:`ops.xla_order.sum_k`;
-    ``lanes_from`` 17 inside the observation's fusion)."""
+    or a megaspace tile's local and ghost rows), both flushed
+    (:func:`ops.xla_order.ftz`). The sum over the neighbor axis runs in
+    XLA's order (:func:`ops.xla_order.sum_k`; ``lanes_from`` 17 inside
+    the observation's fusion)."""
     valid = nbr != sentinel
     nbr_c = torch.clamp_max(nbr, pos_src.shape[0] - 1).long()
     npos = pos_src[nbr_c]
-    offs = torch.where(valid[:, :, None], npos - self_pos[:, None, :], 0.0)
+    offs = torch.where(valid[:, :, None],
+                       ftz(npos - self_pos[:, None, :]), 0.0)
     cnt = torch.clamp_min(nbr_cnt, 1).to(torch.float32)
-    return sum_k(offs, True, lanes_from) / cnt[:, None]
+    return div32(sum_k(offs, True, lanes_from), cnt[:, None])
 
 
 def build_obs_from_features(pos, vel, yaw, nbr_cnt, mean_off, k: int,
                             world_extent: tuple[float, float]):
     """f32[N, OBS_DIM] from precomputed neighbor features (the
     megaspace path, whose gid neighbor lists cannot gather positions
-    locally)."""
+    locally). The float inputs are flushed (:func:`ops.xla_order.ftz`),
+    and so is every entry of the observation."""
     ex, ez = world_extent
     cos_y, sin_y = cos_sin(yaw)
     return torch.cat([
@@ -152,7 +161,8 @@ def build_obs_from_features(pos, vel, yaw, nbr_cnt, mean_off, k: int,
 def build_obs(pos, vel, yaw, nbr, nbr_cnt,
               world_extent: tuple[float, float]) -> torch.Tensor:
     """f32[N, OBS_DIM]: normalized pos, vel, yaw sin/cos and the
-    neighbor summary from the previous tick's lists."""
+    neighbor summary from the previous tick's lists (``pos`` and
+    ``vel`` flushed, :func:`ops.xla_order.ftz`)."""
     n, k = nbr.shape
     mean_off = neighbor_mean_offset(pos, pos, nbr, nbr_cnt, n, 17)
     return build_obs_from_features(pos, vel, yaw, nbr_cnt, mean_off, k,

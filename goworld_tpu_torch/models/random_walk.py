@@ -13,6 +13,7 @@ import math
 import torch
 
 from goworld_tpu_torch.ops import prng
+from goworld_tpu_torch.ops.xla_order import ftz, mul32, round_ftz
 
 # XLA's CPU backend lowers float32 cos and sin to calls of the C
 # library's cosf and sinf. glibc's (sysdeps/ieee754/flt-32/s_sinf.c,
@@ -46,9 +47,11 @@ def cos_sin(h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     same for every heading ``random_walk_step`` can draw (all 2^23 of
     them) and for 2^22 floats in [0, 100) (``tests/test_torch_ops.py``).
     Below 2^-12 glibc returns 1 and ``h`` outright; the polynomials
-    round to the same floats there.
+    round to the same floats there. A subnormal ``h`` reads as a zero
+    of its sign and a subnormal result is flushed, as under XLA's CPU
+    runtime (:func:`ops.xla_order.ftz`).
     """
-    x = h.double()
+    x = ftz(h).double()
     # quadrant: round(x * 2/pi), by a scaled truncation as glibc does
     n = ((x * _HPI_INV).to(torch.int32) + 0x800000) >> 24
     nd = n.double()
@@ -70,7 +73,7 @@ def cos_sin(h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     c = torch.where(odd, sin_p, cos_p)
     s = torch.where(neg_sin, -s, s)
     c = torch.where(neg_cos, -c, c)
-    return c.to(torch.float32), s.to(torch.float32)
+    return round_ftz(c), round_ftz(s)
 
 
 def random_walk_step(
@@ -83,17 +86,23 @@ def random_walk_step(
 ):
     """Return updated velocities f32[N,3] (y velocity stays 0). With a
     leading Space axis (``key [S, 2]``, ``vel [S, N, 3]``, ``moving [S,
-    N]``) each Space draws from its own key: the bits of S separate
+    N]``), or S Spaces' rows in a row (``key [S, 2]``, ``vel [S * N,
+    3]``), each Space draws from its own key: the bits of S separate
     calls. ``with_pick`` also returns the rows that drew a new heading
     (a turn, or a standing row; moving rows only)."""
     n = vel.shape[-2]
+    if key.dim() == vel.dim():
+        n //= key.shape[0]
     keys = prng.split(key)
     k_turn, k_head = keys[..., 0, :], keys[..., 1, :]
-    turn = prng.uniform(k_turn, (n,)) < turn_prob
-    heading = prng.uniform(k_head, (n,), 0.0, 2.0 * math.pi)
+    turn = (prng.uniform(k_turn, (n,)) < turn_prob).reshape(vel.shape[:-1])
+    heading = prng.uniform(k_head, (n,), 0.0, 2.0 * math.pi) \
+        .reshape(vel.shape[:-1])
     cos_h, sin_h = cos_sin(heading)
-    new_vel = torch.stack(
-        [cos_h * speed, torch.zeros_like(heading), sin_h * speed], dim=-1)
+    new_vel = torch.stack([mul32(cos_h, speed), torch.zeros_like(heading),
+                           mul32(sin_h, speed)], dim=-1)
+    # a subnormal component moves no sum across 1e-6: no flush needed;
+    # the select keeps the carried bits, as XLA's does
     still = vel.abs().sum(dim=-1) < 1e-6
     pick_new = (turn | still) & moving
     out = torch.where(pick_new[..., None], new_vel, vel)

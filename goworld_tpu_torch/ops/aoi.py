@@ -16,9 +16,15 @@ r`` and ``|dz| <= r``. One uniform-grid sweep per tick:
 The back half comes in two forms with bit-identical results:
 ``sweep_impl="ranges"`` in plain torch ops block by block, and
 ``sweep_impl="fused"`` as one CUDA kernel (``csrc/aoi_fused.cu``,
-wrapper :func:`sweep_fused_cuda`). ``sort_impl="pallas"`` names the
-CUDA counting sort (the knob keeps the JAX package's value names so that
-one config means the same on both sides).
+wrapper :func:`sweep_fused_cuda`). The table impls read a dense per-cell
+table instead of the runs: ``"table"`` three windows a query,
+``"cellrow"`` one premerged row a query (bit-identical to ``"table"``),
+and ``"shift"`` (:func:`_sweep_shift`) cell-major, the table slots as
+the queries (identical to ``"table"`` while no cell is past
+``cell_cap``; past it the overflowed entities lose their lists too).
+``sort_impl="pallas"`` names the CUDA counting sort (the knob keeps the
+JAX package's value names so that one config means the same on both
+sides).
 
 Slot words (``(id << 2) | flags``) stay an int32 tensor beside the float
 coordinates: as float32 bit patterns every one of them is subnormal, and
@@ -289,27 +295,22 @@ class GridSpec:
         return max(1, int(-(-self.extent_z // self.cell_size)))
 
 
-def check_ported(spec: GridSpec) -> None:
-    """Raise ``NotImplementedError`` for a knob value this port does not
-    run yet. It never substitutes another path."""
-    if spec.sweep_impl not in ("ranges", "fused", "table"):
-        raise NotImplementedError(
-            f"sweep_impl={spec.sweep_impl!r} {ROADMAP_HINT}")
-    if spec.topk_impl == "approx":
-        raise NotImplementedError(f"topk_impl='approx' {ROADMAP_HINT}")
-
-
 def _f32(x: float, dev) -> torch.Tensor:
     """A 0-d float32 tensor made on ``dev`` by a fill (no host copy)."""
     return torch.full((), x, dtype=torch.float32, device=dev)
 
 
 def _cell_rows(spec: GridSpec, pos, alive, watch_radius):
-    """Front half, stage 1: per-entity padded cell-row ids.
+    """Front half, stage 1: per-entity padded cell-row ids, the first
+    stage of every sweep impl. The wide-id sweep (capacity >= 2^21) is
+    refused here.
 
     The divide is by a 0-d float32 tensor: a divide by a Python scalar
     may become a multiply by its reciprocal on the card, which can move
     a floor across a cell edge."""
+    if pos.shape[-2] >= (1 << _ID_BITS):
+        raise NotImplementedError(
+            f"the wide-id sweep (capacity >= 2^{_ID_BITS}) {ROADMAP_HINT}")
     dev = pos.device
     czp = spec.cells_z + 2
     cxp = spec.cells_x + 2
@@ -378,14 +379,14 @@ def _build_ranges(cc: int, n_rows: int, srow, px, pz, word,
     return row_start, s_xz, s_w
 
 
-def _build_table(cc: int, n_rows: int, sorted_row, row_start, px, pz,
-                 word, table_sentinel: int):
-    """Front half, stage 4 of ``sweep_impl="table"``: the dense per-cell
+def _build_table(cc: int, n_rows: int, sorted_row, row_start, comps):
+    """Front half, stage 4 of the table impls: the dense per-cell
     table, each cell's first ``cc`` entities in sort order (their rank
-    in the cell is the sorted position less the cell's start) with
-    their x, z and packed word side by side, +inf and the sentinel word
-    in empty lanes. Returns ``(x, z)`` f32[n_rows, cc] and the words
-    i32[n_rows, cc] (each Space's own under a leading Space axis)."""
+    in the cell is the sorted position less the cell's start). ``comps``
+    is ``[(sorted lane, empty value), ...]`` (x and z with +inf, the
+    packed words with the sentinel word, ``shift``'s watch radii with
+    0); returns each as ``[n_rows, cc]`` (each Space's own under a
+    leading Space axis)."""
     n = sorted_row.shape[-1]
     nb = sorted_row.dim() - 1
     lead = sorted_row.shape[:-1]
@@ -404,8 +405,37 @@ def _build_table(cc: int, n_rows: int, sorted_row, row_start, px, pz,
         t.scatter_(0, flat, src.reshape(-1))
         return t.reshape(*lead, size)[..., :-1].reshape(*lead, n_rows, cc)
 
-    return (table(px, math.inf), table(pz, math.inf),
-            table(word, table_sentinel))
+    return tuple(table(src, empty) for src, empty in comps)
+
+
+def _merge_windows(table, spec: "GridSpec", czp: int):
+    """``sweep_impl="cellrow"``: the 9 windows of every true cell
+    premerged into one row, ``[cells_x * cells_z + 1, 9cc]`` a
+    component, by 9 static slices of the padded table, in the table's
+    window order; the last row, all empty, is the one dead and excluded
+    queries read (the border rows the table impl reads for them)."""
+    cxs, czs = spec.cells_x, spec.cells_z
+
+    def merge(t):
+        lead, cc = t.shape[:-2], t.shape[-1]
+        t3 = t.reshape(*lead, cxs + 2, czp, cc)
+        m = torch.cat([t3[..., dx:dx + cxs, dz:dz + czs, :]
+                       for dx in range(3) for dz in range(3)], -1)
+        m = m.reshape(*lead, cxs * czs, 9 * cc)
+        # row 0 of the padded table is a border row: always empty
+        dump = t[..., :1, :].repeat_interleave(9, -1)
+        return torch.cat([m, dump], -2)
+
+    return tuple(merge(t) for t in table)
+
+
+def _cellrow_window(merged, spec: "GridSpec", cx, cz, alive, rows):
+    """The candidates of query ``rows``: one row of the premerged block
+    a query, by its cell (the dump row for a dead or excluded query)."""
+    nb = cx.dim() - 1
+    rq = torch.where(alive[..., rows], cx[..., rows] * spec.cells_z
+                     + cz[..., rows], spec.cells_x * spec.cells_z)
+    return tuple(take(t, rq, nb) for t in merged)
 
 
 def _table_window(table, cx, cz, alive, rows, czp: int):
@@ -501,10 +531,15 @@ def _cand_keys(dist, cand_w, reach, rows, sentinel, code):
 
 
 def _table_keys(table, cx, cz, alive, czp, pos, reach, rows, sentinel,
-                code):
-    """:func:`_window_keys` over the table of ``sweep_impl="table"``."""
-    cand_px, cand_pz, cand_w = _table_window(table, cx, cz, alive, rows,
-                                             czp)
+                code, cellrow=None):
+    """:func:`_window_keys` over the table of ``sweep_impl="table"``, or
+    over the premerged block of ``"cellrow"`` (``cellrow`` the spec)."""
+    if cellrow is not None:
+        cand_px, cand_pz, cand_w = _cellrow_window(table, cellrow, cx, cz,
+                                                   alive, rows)
+    else:
+        cand_px, cand_pz, cand_w = _table_window(table, cx, cz, alive,
+                                                 rows, czp)
     dist = torch.maximum((cand_px - pos[..., rows, 0, None]).abs(),
                          (cand_pz - pos[..., rows, 2, None]).abs())
     return _cand_keys(dist, cand_w, reach, rows, sentinel, code)
@@ -523,11 +558,16 @@ def _pad_k(top, k, invalid):
 def _rank_packed(packed, k, topk_impl):
     """The k smallest keys per row in ascending order. The three exact
     rankings give the same values (valid keys are unique); each is
-    written as the JAX package lowers it."""
+    written as the JAX package lowers it. ``"approx"`` is the JAX
+    package's ``lax.approx_min_k`` over the keys bitcast to float32 (its
+    key encoding is ``"f32"``'s): on a TPU that lowering may miss a
+    neighbor (its recall target is 0.98), on the CPU it is the exact k
+    smallest, and so it is here, on every device: its outputs equal
+    ``"f32"``'s."""
     kk = min(k, packed.shape[-1])
     if topk_impl == "exact":
         top = torch.topk(packed, kk, dim=-1, largest=False).values
-    elif topk_impl == "f32":
+    elif topk_impl in ("f32", "approx"):
         fk = packed.view(torch.float32)
         top = torch.topk(fk, kk, dim=-1, largest=False).values \
             .view(torch.int32)
@@ -705,8 +745,9 @@ class FrontHalf(NamedTuple):
     # (0 on the pad lanes) and the lattice plane i32[N]
     s_q: torch.Tensor | None = None
     qxz: torch.Tensor | None = None
-    # ``table`` only: the per-cell table (:func:`_build_table`) and the
-    # queries' cells (cx, cz, alive, czp) its window reads
+    # ``table`` and ``cellrow`` only: the per-cell table
+    # (:func:`_build_table`; ``cellrow``: premerged, :func:`_merge_windows`)
+    # and the queries' cells (cx, cz, alive, czp) its window reads
     table: tuple | None = None
     cells: tuple | None = None
 
@@ -718,12 +759,8 @@ def front_half(spec: GridSpec, pos, alive, query_rows, watch_radius,
     runs: everything the back half reads. ``pos`` is already snapped
     under precision=q16 (:func:`_sweep` snaps it); the ``ranges`` back
     half then reads the packed lattice view in place of x and z."""
-    check_ported(spec)
     n = pos.shape[-2]
     lead = pos.shape[:-2]
-    if n >= (1 << _ID_BITS):
-        raise NotImplementedError(
-            f"the wide-id sweep (capacity >= 2^{_ID_BITS}) {ROADMAP_HINT}")
     q = n if query_rows is None else query_rows
     cc = spec.cell_cap
     dev = pos.device
@@ -736,9 +773,12 @@ def front_half(spec: GridSpec, pos, alive, query_rows, watch_radius,
     row_start, s_xz, s_w = _build_ranges(cc, n_rows, srow, px, pz, word,
                                          table_sentinel)
     table = cells = None
-    if spec.sweep_impl == "table":
-        table = _build_table(cc, n_rows, sorted_row, row_start, px, pz,
-                             word, table_sentinel)
+    if spec.sweep_impl in ("table", "cellrow"):
+        table = _build_table(cc, n_rows, sorted_row, row_start,
+                             [(px, math.inf), (pz, math.inf),
+                              (word, table_sentinel)])
+        if spec.sweep_impl == "cellrow":
+            table = _merge_windows(table, spec, czp)
         cells = (cx, cz, alive, czp)
     s_q = qxz = None
     if spec.precision != "off" and spec.sweep_impl == "ranges":
@@ -770,6 +810,9 @@ def _sweep(spec: GridSpec, pos, alive, query_rows, watch_radius,
     and filled with the invalid key and 0: a closed gate returns empty
     lists, which a caller that selects with the gate discards."""
     pos = quantize_positions(spec, pos)
+    if spec.sweep_impl == "shift":
+        return _sweep_shift(spec, pos, alive, query_rows, watch_radius,
+                            flag_bits, with_stats, reach_pad)
     fh = front_half(spec, pos, alive, query_rows, watch_radius, flag_bits,
                     with_stats, reach_pad)
     k, cc = spec.k, spec.cell_cap
@@ -789,8 +832,9 @@ def _sweep(spec: GridSpec, pos, alive, query_rows, watch_radius,
         tops, dems = [], []
         for rows in _blocks(fh.lo.shape[-2], spec.row_block, pos.device):
             if fh.table is not None:
-                keys, valid = _table_keys(fh.table, *fh.cells, pos,
-                                          fh.reach, rows, sentinel, fh.code)
+                keys, valid = _table_keys(
+                    fh.table, *fh.cells, pos, fh.reach, rows, sentinel,
+                    fh.code, spec if spec.sweep_impl == "cellrow" else None)
             else:
                 keys, valid = _window_keys(
                     fh.s_xz, fh.s_w, fh.lo[..., rows, :], fh.hi[..., rows, :],
@@ -805,6 +849,110 @@ def _sweep(spec: GridSpec, pos, alive, query_rows, watch_radius,
     if with_stats:
         stats = (dem.amax(-1).to(torch.int32),
                  (dem > k).sum(-1, dtype=torch.int32), *fh.cell_stats)
+    return nbr, cnt, fl, stats
+
+
+def _sweep_shift(spec: GridSpec, pos, alive, query_rows, watch_radius,
+                 flag_bits, with_stats=False, reach_pad: float = 0.0):
+    """``sweep_impl="shift"``, the JAX package's ``_sweep_shift``:
+    cell-major. The queries are the table slots themselves, each of the
+    9 windows of every query cell a static slice of the padded table
+    (x blocks of ``row_block`` query slots, the table padded with empty
+    x rows to whole blocks), the watch radii a fourth table component;
+    one scatter takes the finished lists back to slot order (empty
+    slots, rows at or past ``query_rows`` and the entities past
+    ``cell_cap``, which are in no slot, to a dump row). So past
+    ``cell_cap`` an overflowed entity keeps an empty list. Returns what
+    :func:`_sweep` returns."""
+    n = pos.shape[-2]
+    lead = pos.shape[:-2]
+    nb = len(lead)
+    q = n if query_rows is None else query_rows
+    k, cc = spec.k, spec.cell_cap
+    dev = pos.device
+    want_flags = flag_bits is not None
+    _cx, _cz, srow, _alive, czp, n_rows = _cell_rows(spec, pos, alive,
+                                                      watch_radius)
+    cell_stats = _cell_occupancy_stats(srow, n_rows, cc) \
+        if with_stats else None
+    order, sorted_row = _sort_cells(n_rows, srow, spec.sort_impl)
+    px, pz, word, table_sentinel = _sorted_src(pos, flag_bits, order)
+    comps = [(px, math.inf), (pz, math.inf), (word, table_sentinel)]
+    if watch_radius is not None:
+        comps.append((take(watch_radius.to(torch.float32), order, nb), 0.0))
+    tables = _build_table(cc, n_rows, sorted_row,
+                          row_starts(srow, n_rows), comps)
+    cxs, czs = spec.cells_x, spec.cells_z
+    xb = max(1, min(cxs, spec.row_block // max(1, czs * cc)))
+    blocks = -(-cxs // xb)
+    pad_x = blocks * xb + 2 - (cxs + 2)
+    t3 = []
+    for t, (_, empty) in zip(tables, comps):
+        t = t.reshape(*lead, cxs + 2, czp, cc)
+        if pad_x > 0:
+            t = torch.cat([t, torch.full((*lead, pad_x, czp, cc), empty,
+                                         dtype=t.dtype, device=dev)], -3)
+        t3.append(t)
+    code = _key_code(spec, want_flags, spec.radius + reach_pad)
+    id_shift = code[0]
+    sentinel = n
+    outs = []
+    for b in range(blocks):
+        slab = [t[..., b * xb:b * xb + xb + 2, :, :] for t in t3]
+        qs = [t[..., 1:1 + xb, 1:1 + czs, :] for t in slab]
+        qpx, qpz, qw = qs[:3]
+        qid = qw >> id_shift
+        if watch_radius is not None:
+            reach = torch.clamp_max(qs[3], _f32(spec.radius, dev)) \
+                + _f32(reach_pad, dev)
+        else:
+            reach = torch.full_like(qpx, spec.radius + reach_pad)
+        keys, dems = [], []
+        for dx in range(3):
+            for dz in range(3):
+                cpx, cpz, cw = (t[..., dx:dx + xb, dz:dz + czs, :]
+                                for t in slab[:3])
+                cid = cw >> id_shift
+                dist = torch.maximum(
+                    (qpx[..., :, None] - cpx[..., None, :]).abs(),
+                    (qpz[..., :, None] - cpz[..., None, :]).abs())
+                valid = ((cid[..., None, :] != sentinel)
+                         & (dist <= reach[..., :, None])
+                         & (cid[..., None, :] != qid[..., :, None]))
+                keys.append(_pack_keys(dist, valid,
+                                       cw[..., None, :].expand_as(dist),
+                                       code))
+                dems.append(valid.sum(-1, dtype=torch.int32))
+        rows = xb * czs * cc
+        top = _rank_packed(torch.cat(keys, -1).reshape(*lead, rows, 9 * cc),
+                           k, spec.topk_impl)
+        dem = torch.stack(dems).sum(0, dtype=torch.int32)
+        outs.append((qid.reshape(*lead, rows), top,
+                     dem.reshape(*lead, rows)))
+    qid = torch.cat([o[0] for o in outs], -1)
+    top = torch.cat([o[1] for o in outs], -2)
+    dem = torch.cat([o[2] for o in outs], -1)
+    nbr_s, cnt_s, fl_s = _unpack_top(top, code[-1], want_flags, sentinel)
+    # one scatter back to slot order; the dump row n takes the rest
+    tgt = (torch.where(qid < q, qid, n)
+           + space_base(lead, n + 1, dev)).reshape(-1).long()
+    spaces = qid.numel() // qid.shape[-1]
+
+    def unsort(src, fill):
+        out = torch.full((spaces * (n + 1), *src.shape[nb + 1:]), fill,
+                         dtype=src.dtype, device=dev)
+        out[tgt] = src.reshape(-1, *src.shape[nb + 1:])
+        return out.reshape(*lead, n + 1, *src.shape[nb + 1:]) \
+            .narrow(nb, 0, q)
+
+    nbr = unsort(nbr_s, sentinel)
+    cnt = unsort(cnt_s, 0)
+    fl = unsort(fl_s, 0) if want_flags else None
+    stats = None
+    if with_stats:
+        d = unsort(dem, 0)
+        stats = (d.amax(-1).to(torch.int32),
+                 (d > k).sum(-1, dtype=torch.int32), *cell_stats)
     return nbr, cnt, fl, stats
 
 
@@ -971,7 +1119,6 @@ def grid_neighbors_verlet(spec: GridSpec, pos, alive, cache: VerletCache,
     gauges are the last rebuild's. ``skin_slack`` is ``skin/2`` minus
     the displacement (``skin/2`` against an invalid cache).
     """
-    check_ported(spec)
     n = pos.shape[0]
     if pos.dim() != 2:
         raise ValueError(

@@ -7,6 +7,12 @@ import numpy as np
 import torch
 
 from goworld_tpu_torch.ops.batch import space_base
+from goworld_tpu_torch.ops.xla_order import (
+    ftz,
+    mul32,
+    round_ftz,
+    round_odd_sum,
+)
 
 
 def apply_pos_inputs(
@@ -61,19 +67,6 @@ def apply_pos_inputs(
             (last[:rows] >= 0).reshape(yaw.shape))
 
 
-def _round_odd_sum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a + b`` in float64 rounded to odd: the rounded sum, moved one
-    ulp toward the exact sum when it was inexact and its last bit is
-    even. Rounding that to float32 gives the float32 nearest the exact
-    sum (53 >= 24 + 2 bits), so two roundings act as one."""
-    s = a + b
-    bb = s - a
-    err = (a - (s - bb)) + (b - bb)   # exact: s + err == a + b
-    even = (s.view(torch.int64) & 1) == 0
-    toward = torch.full_like(s, torch.inf).copysign(err)
-    return torch.where((err != 0) & even, torch.nextafter(s, toward), s)
-
-
 def integrate(
     pos: torch.Tensor,
     vel: torch.Tensor,
@@ -81,8 +74,9 @@ def integrate(
     dt: float,
     bounds_min: tuple[float, float, float],
     bounds_max: tuple[float, float, float],
-    fused: torch.Tensor | None = None,
-) -> tuple[torch.Tensor, torch.Tensor]:
+    fused: torch.Tensor | bool | None = None,
+    rounded: bool = False,
+):
     """pos += vel*dt for moving entities, clamped to world bounds (one
     Space ``[N, 3]`` or several ``[S, N, 3]``).
 
@@ -93,21 +87,37 @@ def integrate(
     sum rounded to odd, then to float32), so the CPU and the card give
     the JAX bits. Python scalars enter the float32 ops as float32, as
     JAX's weakly typed constants do, and cost no host-to-device
-    copy.
+    copy. Subnormal positions and velocities read as zeros, and a
+    subnormal result is flushed, as XLA's CPU runtime does
+    (:func:`ops.xla_order.ftz`).
 
-    ``fused`` (bool[N], or None for all rows) marks the rows the
-    reference contracts; elsewhere the product is rounded to float32
-    before the add. A tick whose behavior fuses its velocity select into
-    the integration (the btree and the scenario mixes) contracts only
-    the rows that kept their carried velocity (``core/step.py``)."""
+    ``fused`` (bool[N]; None for every row, False for none) marks the
+    rows the reference contracts; elsewhere the product is rounded to
+    float32 before the add. A tick whose behavior fuses its velocity
+    select into the integration (the btree and the scenario mixes)
+    contracts only the rows that kept their carried velocity
+    (``core/step.py``). ``rounded`` also returns, third, the clamped
+    positions with no row contracted (the q16 tick's AOI view)."""
     dt32 = float(np.float32(dt))
-    step = torch.where(moving[..., None], vel.double() * dt32, 0.0)
-    new_pos = _round_odd_sum(pos.double(), step).to(torch.float32)
-    if fused is not None:
-        plain = pos + torch.where(moving[..., None], vel * dt32, 0.0)
-        new_pos = torch.where(fused[..., None], new_pos, plain)
-    new_pos = torch.stack(
-        [new_pos[..., i].clamp(bounds_min[i], bounds_max[i])
-         for i in range(3)], dim=-1)
+    pos_d, vel_d = ftz(pos), ftz(vel)
+    plain = None
+    if fused is not None or rounded:
+        plain = ftz(pos_d + torch.where(moving[..., None],
+                                        mul32(vel_d, dt32), 0.0))
+    if fused is False:
+        new_pos = plain
+    else:
+        step = torch.where(moving[..., None], vel_d.double() * dt32, 0.0)
+        new_pos = round_ftz(round_odd_sum(pos_d.double(), step))
+        if fused is not None:
+            new_pos = torch.where(fused[..., None], new_pos, plain)
+
+    def clamp(p):
+        return torch.stack([p[..., i].clamp(bounds_min[i], bounds_max[i])
+                            for i in range(3)], dim=-1)
+
+    new_pos = clamp(new_pos)
     moved = ((new_pos - pos).abs() > 1e-7).any(dim=-1)
-    return new_pos, moved
+    if not rounded:
+        return new_pos, moved
+    return new_pos, moved, clamp(plain)

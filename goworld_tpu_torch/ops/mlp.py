@@ -6,7 +6,11 @@ The JAX package evaluates its bf16 MLP (``models/npc_policy.py``
 dot of the bf16 values in XLA's order (:func:`ops.xla_order.dot_f32`),
 rounded to bf16; the bias is added in float32 and rounded to bf16;
 tanh runs on that and is rounded to bf16; the last layer's bias sum
-stays float32. The two functions here compute exactly that:
+stays float32. XLA's CPU runtime runs all of it under flush-to-zero and
+denormals-are-zero: a subnormal observation, weight or bias reads as
+zero, and every product and sum that falls below 2^-126 is flushed
+(each is exact when it does: a product of bf16 values has 16
+significant bits). The two functions here compute exactly that:
 
 * :func:`npc_mlp_plain` in torch ops (tanh in float64, rounded to
   float32, then to bf16: over every bf16 input this is XLA's float32
@@ -16,17 +20,19 @@ stays float32. The two functions here compute exactly that:
   its summation order is not XLA's.
 
 The kernel is a CUDA-core SGEMM in XLA's order (one output, or one of
-its partial sums, summed by one thread in k order). It sums layer 2 by
-fused multiply-adds: a bf16 x bf16 product has at most 16 significant
-bits, so it is exact in float32 unless it overflows or drops bits below
-2^-149, and then one FFMA gives the bits of the rounded product plus
-the add. Layer 2 multiplies tanh outputs (``|x| <= 1``: no overflow)
-and a row tile falls back on the rounded mul and add where its
-activations and w2 could meet below the 2^-149 grid
-(:func:`fma_exact`); layer 1 (the raw observations, up to +-3e38, where
-a fused ``1.5 * 2**127 * 2 - 3e38`` is finite and the rounded one inf)
-and the 3-column output layer keep the rounded mul and add. Its tanh
-is a lookup into :func:`tanh_table`, built from :func:`tanh_bf16`.
+its partial sums, summed by one thread in k order), every float op its
+``.ftz`` form. It sums layer 2 by fused multiply-adds: a bf16 x bf16
+product has at most 16 significant bits, so it is exact in float32
+unless it overflows or falls below 2^-126 (where the flushed mul
+zeroes it and a fused one would keep it), and then one FFMA gives the
+bits of the flushed product plus the add. Layer 2 multiplies tanh
+outputs (``|x| <= 1``: no overflow) and a row tile falls back on the
+rounded mul and add where its activations and w2 could meet below
+2^-126 (:func:`fma_exact`); layer 1 (the raw observations, up to
++-3e38, where a fused ``1.5 * 2**127 * 2 - 3e38`` is finite and the
+rounded one inf) and the 3-column output layer keep the rounded mul and
+add. Its tanh is a lookup into :func:`tanh_table`, built from
+:func:`tanh_bf16`.
 """
 
 from __future__ import annotations
@@ -36,13 +42,14 @@ import functools
 import torch
 
 from goworld_tpu_torch import kernels
-from goworld_tpu_torch.ops.xla_order import dot_f32, dot_lanes
+from goworld_tpu_torch.ops.xla_order import dot_f32, dot_lanes, ftz
 
 OBS_DIM = 10
 ACT_DIM = 3
-# a product of bf16 values is on float32's 2^-149 grid when the biased
-# exponent fields (at least 1) of its factors sum to this or more
-EXACT_LO = 119
+# a product of normal bf16 values is at least 2^-126 (so no flush
+# touches it, and it is exact) when the biased exponent fields of its
+# factors sum to this or more
+EXACT_LO = 128
 # the hidden sizes whose dot orders were read off the reference's code
 MEASURED_HIDDEN = (16, 128)
 
@@ -57,21 +64,21 @@ def tanh_bf16(x: torch.Tensor) -> torch.Tensor:
     return _bf(torch.tanh(x.double()).to(torch.float32))
 
 
-def _lo_exp(x: torch.Tensor) -> torch.Tensor:
-    """max(E, 1), E the biased exponent field of float32 ``x``."""
-    return torch.clamp_min((x.view(torch.int32) >> 23) & 0xFF, 1)
+def _exp(x: torch.Tensor) -> torch.Tensor:
+    """E, the biased exponent field of float32 ``x``."""
+    return (x.view(torch.int32) >> 23) & 0xFF
 
 
 def fma_exact(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Where the kernel's layer 2 may sum ``x * w`` by one fused
-    multiply-add: ``x`` a tanh output (``|x| <= 1``, so the product is
-    at most ``|w|``) and the factors' lowest significand bits at or
-    above 2^-149 (or either factor zero), so the product is exact in
-    float32. The kernel tests the second part per row tile, from the
-    smallest exponent of the tile's nonzero activations and of w2's
-    nonzero words."""
-    on_grid = (_lo_exp(x) + _lo_exp(w) >= EXACT_LO) | (x == 0) | (w == 0)
-    return on_grid & (x.abs() <= 1)
+    multiply-add under flush-to-zero: ``x`` a tanh output (``|x| <= 1``,
+    so the product is at most ``|w|``) and the product at least 2^-126,
+    so exact and untouched by the flush, or zero (a factor zero or
+    subnormal, which the ``.ftz`` forms read as zero). The kernel tests
+    the second part per row tile, from the smallest exponent of the
+    tile's nonzero activations and of w2's normal words."""
+    zero = (_exp(x) == 0) | (_exp(w) == 0)
+    return (zero | (_exp(x) + _exp(w) >= EXACT_LO)) & (x.abs() <= 1)
 
 
 @functools.cache
@@ -108,7 +115,8 @@ def check_hidden(hidden: int) -> None:
 
 def layer_lanes(rows: int, hidden: int) -> tuple[int, int, int]:
     """XLA's partial sums of the three dots over ``rows`` rows (1 for a
-    batch of one-row dots, as a vmapped member's)."""
+    batch of one-row dots, as a vmapped member's; ``S * N`` for the
+    batched tick of S Spaces, :func:`ops.xla_order.dot_lanes`)."""
     check_hidden(hidden)
     return (dot_lanes(rows, OBS_DIM, hidden), dot_lanes(rows, hidden, hidden),
             dot_lanes(rows, hidden, ACT_DIM))
@@ -122,11 +130,11 @@ def npc_mlp_plain(obs, w1, b1, w2, b2, w3, b3,
     summed as a one-row dot (the reference's batched dot of a vmapped
     member)."""
     l1, l2, l3 = layer_lanes(1 if per_row else obs.shape[0], w1.shape[1])
-    f = [t.to(torch.float32) for t in (w1, b1, w2, b2, w3, b3)]
-    x = _bf(obs.to(torch.float32))
-    x = tanh_bf16(_bf(_bf(dot_f32(x, f[0], l1)) + f[1]))
-    x = tanh_bf16(_bf(_bf(dot_f32(x, f[2], l2)) + f[3]))
-    return _bf(dot_f32(x, f[4], l3)) + f[5]
+    f = [ftz(t.to(torch.float32)) for t in (w1, b1, w2, b2, w3, b3)]
+    x = ftz(_bf(obs.to(torch.float32)))
+    x = tanh_bf16(_bf(ftz(_bf(dot_f32(x, f[0], l1)) + f[1])))
+    x = tanh_bf16(_bf(ftz(_bf(dot_f32(x, f[2], l2)) + f[3])))
+    return ftz(_bf(dot_f32(x, f[4], l3)) + f[5])
 
 
 def npc_mlp(obs, w1, b1, w2, b2, w3, b3,

@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from goworld_tpu_torch.ops.integrate import _round_odd_sum
+from goworld_tpu_torch.ops.xla_order import round_odd_sum
 
 _M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -94,5 +94,5 @@ def uniform(key: torch.Tensor, shape, minval: float = 0.0,
     lo = float(np.float32(minval))
     span = float(np.float32(maxval) - np.float32(minval))
     prod = floats.double() * span
-    out = _round_odd_sum(prod, torch.full_like(prod, lo)).float()
+    out = round_odd_sum(prod, torch.full_like(prod, lo)).float()
     return torch.clamp_min(out, lo)

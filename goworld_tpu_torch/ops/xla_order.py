@@ -6,6 +6,19 @@ an order of operations that its source does not state. The orders here
 were read off the compiled programs (their HLO and LLVM IR) and held
 against them bit for bit (``tests/test_torch_behaviors.py``):
 
+* :func:`ftz`, :func:`round_ftz`, :func:`mul32`, :func:`div32`: XLA's
+  CPU runtime runs under flush-to-zero and denormals-are-zero, and a
+  TPU's float units keep no subnormals; CUDA keeps them. So the
+  behavior and integrate stages flush explicitly, on every device: a
+  subnormal float32 input reads as a zero of its sign (:func:`ftz` on
+  each lane read from the state), and a result whose magnitude, rounded
+  to 24 bits with an unbounded exponent, is below 2^-126 becomes a
+  zero of its sign (x86 detects tininess after rounding). A sum or
+  difference of float32 values at or above 2^-126 is exact when it is
+  that small, so :func:`ftz` after the float32 op flushes it; a product
+  or quotient is taken in float64 (exact, or rounded harmlessly twice)
+  and rounded by :func:`round_ftz`, which tests the float64 value
+  against the tininess threshold before the cast.
 * :func:`fma32`: LLVM contracts ``a * b + c`` into one fused
   multiply-add.
 * :func:`mul_recip`: XLA rewrites a divide by a constant into a
@@ -35,7 +48,8 @@ against them bit for bit (``tests/test_torch_behaviors.py``):
   (``vectorized``, ``lanes_from``: the least k summed in 8 lanes).
 
 Every function takes CPU or CUDA tensors and runs the same ops on both,
-so the card gives the CPU's bits.
+so the card gives the CPU's bits. Their float inputs are flushed
+(:func:`ftz`) by the caller; their results are flushed here.
 """
 
 from __future__ import annotations
@@ -46,7 +60,6 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from goworld_tpu_torch.ops.integrate import _round_odd_sum
 
 # vrsqrtps's estimate on the reference's CPU (an Intel Xeon with
 # AVX-512): int32[2, 1024], the result bits at exponent field 128 (row
@@ -56,15 +69,73 @@ from goworld_tpu_torch.ops.integrate import _round_odd_sum
 _VRSQRTPS = Path(__file__).with_name("vrsqrtps_table.npy")
 
 
+# the smallest normal float32
+TINY = 2.0 ** -126
+# a float64 value rounds to a float32 below 2^-126, with an unbounded
+# exponent, exactly when its magnitude is below this midpoint of
+# 2^-126 - 2^-150 and 2^-126 (the tie rounds to 2^-126, the even one)
+_TINY_AFTER = 2.0 ** -126 - 2.0 ** -151
+
+
+def ftz(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` with each subnormal replaced by a zero of its sign
+    (inf and normal values kept, a NaN kept a NaN: its payload is the
+    device's, as after any float op on the card): denormals-are-zero on
+    an input, flush-to-zero on a result that is exact when tiny (a sum,
+    or a product of bf16 values)."""
+    return x * (x.abs() >= TINY)
+
+
+def round_ftz(v: torch.Tensor) -> torch.Tensor:
+    """float64 ``v`` rounded to float32 as x86 rounds under
+    flush-to-zero: a zero of its sign where the rounded magnitude would
+    fall below 2^-126 (tininess after rounding), else the nearest
+    float32."""
+    return (v * (v.abs() >= _TINY_AFTER)).to(torch.float32)
+
+
+def round_odd_sum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a + b`` in float64 rounded to odd: the rounded sum, moved one
+    ulp toward the exact sum when it was inexact and its last bit is
+    even. Rounding that to float32 gives the float32 nearest the exact
+    sum (53 >= 24 + 2 bits), so two roundings act as one."""
+    s = a + b
+    bb = s - a
+    err = (a - (s - bb)) + (b - bb)   # exact: s + err == a + b
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.full_like(s, torch.inf).copysign(err)
+    return torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+
+
+def _f64(x) -> torch.Tensor | float:
+    return x.double() if torch.is_tensor(x) else as_f32(x)
+
+
+def mul32(a: torch.Tensor, b) -> torch.Tensor:
+    """float32 ``a * b`` under flush-to-zero: the product is exact in
+    float64. ``b`` may be a Python number, taken as float32."""
+    return round_ftz(a.double() * _f64(b))
+
+
+def div32(a, b) -> torch.Tensor:
+    """float32 ``a / b`` (either may be a Python number, not both) under
+    flush-to-zero: a quotient rounded to float64 and then to float32 is
+    the correctly rounded float32 one (53 >= 2 * 24 + 2 bits), and a
+    quotient is never within a float64 ulp of the tininess threshold
+    unless it equals it."""
+    return round_ftz(_f64(a) / _f64(b))
+
+
 def fma32(a: torch.Tensor, b, c) -> torch.Tensor:
-    """float32 ``a * b + c`` rounded once, as a fused multiply-add: the
-    product is exact in float64, the sum rounded to odd there and then
-    to float32. ``b`` and ``c`` may be Python numbers, taken as float32
-    as JAX's weak typing takes them."""
-    p = a.double() * (b.double() if torch.is_tensor(b) else as_f32(b))
+    """float32 ``a * b + c`` rounded once, as a fused multiply-add, under
+    flush-to-zero: the product is exact in float64, the sum rounded to
+    odd there (which keeps the tininess test exact) and then to float32.
+    ``b`` and ``c`` may be Python numbers, taken as float32 as JAX's
+    weak typing takes them."""
+    p = a.double() * _f64(b)
     cc = c.double() if torch.is_tensor(c) \
         else torch.full_like(p, as_f32(c))
-    return _round_odd_sum(p, cc).to(torch.float32)
+    return round_ftz(round_odd_sum(p, cc))
 
 
 def sqrt32(x: torch.Tensor) -> torch.Tensor:
@@ -104,9 +175,10 @@ def rsqrt_x86(x: torch.Tensor) -> torch.Tensor:
 
 def mul_recip(x: torch.Tensor, c: float) -> torch.Tensor:
     """``x / c`` for a constant ``c`` as XLA computes it: a multiply by
-    the float32 reciprocal ``1 / float32(c)``."""
+    the float32 reciprocal ``1 / float32(c)`` (under flush-to-zero for
+    a tensor ``x``)."""
     r = float(np.float32(1.0) / np.float32(c))
-    return x * r
+    return mul32(x, r) if torch.is_tensor(x) else x * r
 
 
 def as_f32(v) -> float:
@@ -121,8 +193,14 @@ def dot_lanes(rows: int, depth: int, cols: int) -> int:
     (depth 10, 16, 128; cols 3, 16, 128): 1 row always in k order; 2 or
     3 rows in k order but for a 16 x 16 weight (4 partial sums); the
     observation layer (depth 10) in k order up to 50 rows (measured for
-    cols 9-16, 20, 24, 32, 40, 48). Other hidden sizes keep orders not
-    measured here (ROADMAP.md Queue C4); the policy refuses them
+    cols 9-16, 20, 24, 32, 40, 48). Under the World's vmap over S
+    Spaces (read off the optimized HLO of ``_make_local_tick(cfg,
+    n_spaces=S)`` at S = 2, 3 and 8, 512 rows a Space, hidden 16 and
+    128) the policy's dots are one dot over all ``S * 512`` rows
+    (``f32[S*512, K]``), so ``rows`` is ``S * N`` there; a mix member's
+    dots stay batched one-row matvecs (batch dims ``[S, N]``), summed in
+    k order. Other hidden sizes keep orders not measured here
+    (ROADMAP.md Queue C4); the policy refuses them
     (:func:`goworld_tpu_torch.ops.mlp.layer_lanes`)."""
     if rows == 1 or cols >= 64:
         return 1
@@ -133,33 +211,53 @@ def dot_lanes(rows: int, depth: int, cols: int) -> int:
     return 2 if cols >= 32 else 4
 
 
+def _least_nonzero(t: torch.Tensor) -> torch.Tensor:
+    a = t.abs()
+    return torch.where(a > 0, a, torch.inf).amin().double()
+
+
 def dot_f32(x: torch.Tensor, w: torch.Tensor, lanes: int) -> torch.Tensor:
-    """``x [N, K] @ w [K, M]`` in float32 in XLA's order with ``lanes``
-    partial sums (:func:`dot_lanes`). Each product is rounded on its own
-    (a bfloat16 by bfloat16 product is exact)."""
+    """``x [N, K] @ w [K, M]`` of bf16 values (flushed) in float32 in
+    XLA's order with ``lanes`` partial sums (:func:`dot_lanes`), under
+    flush-to-zero: each product (exact: a bfloat16 by bfloat16 product
+    has 16 significant bits) and each sum flushed on its own. Where every
+    nonzero product is at least 2^-103 the flushes are skipped: such a
+    product is a multiple of 2^-118, so is every partial sum, and none
+    is subnormal (one host read of two minima, a third of the ops)."""
     n, kk = x.shape
     kv = kk - kk % lanes
+    tiny = not bool(_least_nonzero(x) * _least_nonzero(w) >= 2.0 ** -103)
+    flush = ftz if tiny else (lambda t: t)
+
+    def mac(acc, k):
+        return flush(acc + flush(x[:, k:k + 1] * w[k]))
+
     parts = []
     for lane in range(lanes):
         acc = x.new_zeros(n, w.shape[1])
         for k in range(lane, kv, lanes):
-            acc = acc + x[:, k:k + 1] * w[k]
+            acc = mac(acc, k)
         parts.append(acc)
     while len(parts) > 1:
-        parts = [parts[i] + parts[i + 1] for i in range(0, len(parts), 2)]
+        parts = [flush(parts[i] + parts[i + 1])
+                 for i in range(0, len(parts), 2)]
     out = parts[0]
     if kv < kk:
         tail = x.new_zeros(n, w.shape[1])
         for k in range(kv, kk):
-            tail = tail + x[:, k:k + 1] * w[k]
-        out = out + tail
+            tail = mac(tail, k)
+        out = flush(out + tail)
     return out
+
+
+def _add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return ftz(a + b)
 
 
 def _seq(x: torch.Tensor) -> torch.Tensor:
     acc = torch.zeros_like(x[:, 0])
     for j in range(x.shape[1]):
-        acc = acc + x[:, j]
+        acc = _add(acc, x[:, j])
     return acc
 
 
@@ -168,14 +266,15 @@ def _halves(acc: torch.Tensor) -> torch.Tensor:
     until one lane is left (LLVM's vector reduction)."""
     while acc.shape[1] > 1:
         h = acc.shape[1] // 2
-        acc = acc[:, :h] + acc[:, h:]
+        acc = _add(acc[:, :h], acc[:, h:])
     return acc[:, 0]
 
 
 def sum_k(x: torch.Tensor, vectorized: bool,
           lanes_from: int = 18) -> torch.Tensor:
     """``x [N, k, C] -> [N, C]``: the sum over axis 1 in the order of
-    XLA's CPU reduce of the neighbor axis (module docstring);
+    XLA's CPU reduce of the neighbor axis (module docstring), each sum
+    flushed;
     ``vectorized`` when the reference's fusion has the sum as its one
     output, ``lanes_from`` 17 for the observation's fusion."""
     n, k, c = x.shape
@@ -183,19 +282,20 @@ def sum_k(x: torch.Tensor, vectorized: bool,
         return _seq(x)
     if 20 <= k <= 23:
         g = [x[:, 4 * u:4 * u + 4] for u in range(4)]
-        acc = _halves(g[3] + (g[2] + (g[1] + g[0])))
-        out = _halves(torch.cat([(acc + x[:, 16])[:, None], x[:, 17:20]], 1))
+        acc = _halves(_add(g[3], _add(g[2], _add(g[1], g[0]))))
+        out = _halves(torch.cat([_add(acc, x[:, 16])[:, None],
+                                 x[:, 17:20]], 1))
         for j in range(20, k):
-            out = out + x[:, j]
+            out = _add(out, x[:, j])
         return out
     if k <= 32:
         kv = k - k % 8
         acc = x.new_zeros(n, 8, c)
         for j in range(0, kv, 8):
-            acc = acc + x[:, j:j + 8]
+            acc = _add(acc, x[:, j:j + 8])
         out = _halves(acc)
         for j in range(kv, k):
-            out = out + x[:, j]
+            out = _add(out, x[:, j])
         return out
     nw = -(-k // 32)
     pad = nw * 32 - k

@@ -29,7 +29,6 @@ import torch
 from goworld_tpu_torch.core.state import (
     SpaceState,
     WorldConfig,
-    check_ported,
     resolve_device,
 )
 from goworld_tpu_torch.core.step import (TickOutputs, compute_velocity,
@@ -198,7 +197,6 @@ class MegaTickOutputs:
 def _check_mega_ported(mc: MegaConfig, devices) -> None:
     """Raise ``NotImplementedError`` for what this port does not run
     yet; it never substitutes another placement or path."""
-    check_ported(mc.cfg)
     if mc.cfg.grid.precision != "off":
         raise NotImplementedError(
             f"precision='q16' in the megaspace {ROADMAP_HINT}")

@@ -14,7 +14,10 @@ position before the sweep, so the Verlet skin's device gate sees the
 jump on that tick. Each row draws from its own key
 (``jax.random.split(key, n)``) as the vmapped members do, and every
 float op takes the jitted reference's order
-(:mod:`goworld_tpu_torch.ops.xla_order`).
+(:mod:`goworld_tpu_torch.ops.xla_order`), under flush-to-zero as XLA's
+CPU runtime runs it: the members read flushed positions, velocities and
+features, and flush each float result that can fall below 2^-126 (a
+random walk's select keeps the carried velocity's bits, as XLA's does).
 
 The phase schedule (hotspot attractor, shrink-zone radius, flock wind)
 is a function of the tick counter on the device
@@ -37,7 +40,15 @@ from goworld_tpu_torch.models.npc_policy import (
 )
 from goworld_tpu_torch.models.random_walk import cos_sin
 from goworld_tpu_torch.ops import prng
-from goworld_tpu_torch.ops.xla_order import as_f32, fma32, mul_recip, rsqrt_x86
+from goworld_tpu_torch.ops.xla_order import (
+    as_f32,
+    div32,
+    fma32,
+    ftz,
+    mul32,
+    mul_recip,
+    rsqrt_x86,
+)
 from goworld_tpu_torch.scenarios.spec import ScenarioSpec
 
 _TWO_PI = 2.0 * math.pi
@@ -55,7 +66,7 @@ def _bounds(cfg, bounds: tuple | None) -> tuple:
 
 def _unit_xz(dx, dz, eps: float = 1e-6):
     norm = unit_norm(dx, dz, eps)
-    return dx / norm, dz / norm
+    return div32(dx, norm), div32(dz, norm)
 
 
 def _vel3(vx, vz):
@@ -92,12 +103,13 @@ def scenario_context(spec: ScenarioSpec, cfg, t: torch.Tensor,
 
 def _walk_vel(keys, vel, moving, speed: float, turn_prob: float):
     """Per-entity random walk (each row its own key): keep heading,
-    draw a new one with ``turn_prob`` or when stopped."""
+    draw a new one with ``turn_prob`` or when stopped. ``vel`` is the
+    carried lane, unflushed: the select keeps its bits."""
     sub = prng.split(keys)
     turn = prng.uniform(sub[:, 0], ()) < turn_prob
     heading = prng.uniform(sub[:, 1], (), 0.0, _TWO_PI)
     cos_h, sin_h = cos_sin(heading)
-    new_vel = _vel3(cos_h * speed, sin_h * speed)
+    new_vel = _vel3(mul32(cos_h, speed), mul32(sin_h, speed))
     stopped = vel.abs().sum(dim=-1) < 1e-6
     pick = (turn | stopped) & moving
     return torch.where(pick[:, None], new_vel, vel)
@@ -116,22 +128,22 @@ def _member(name: str, spec: ScenarioSpec, cfg, ctx: dict, policy,
     hi_x, hi_z = b_ox + b_ex - 1e-3, b_oz + b_ez - 1e-3
 
     def still(ent):
-        return ent["pos"], torch.zeros_like(ent["moving"])
+        return ent["pos_raw"], torch.zeros_like(ent["moving"])
 
     def masked(vel, ent):
         return torch.where(ent["moving"][:, None], vel, 0.0)
 
     if name == "random_walk":
         def run(keys, ent):
-            return (_walk_vel(keys, ent["vel"], ent["moving"], speed,
+            return (_walk_vel(keys, ent["vel_raw"], ent["moving"], speed,
                               turn_prob), *still(ent))
         return run
 
     if name == "hotspot":
         def run(keys, ent):
             ax, az = ctx["attractor"]
-            dx = ax - ent["pos"][:, 0]
-            dz = az - ent["pos"][:, 2]
+            dx = ftz(ax - ent["pos"][:, 0])
+            dz = ftz(az - ent["pos"][:, 2])
             dist = unit_norm(dx, dz, 1e-12)
             ux, uz = _unit_xz(dx, dz)
             # the radial step never overshoots the attractor
@@ -139,27 +151,28 @@ def _member(name: str, spec: ScenarioSpec, cfg, ctx: dict, policy,
                                 mul_recip(dist, dt))
             if spec.hotspot_jitter > 0.0:
                 jh = prng.uniform(keys, (), 0.0, _TWO_PI)
-                cj, sj = cos_sin(jh)
-                js = spec.hotspot_jitter * speed
-                vx = fma32(ux, eff, cj * js)
-                vz = fma32(uz, eff, sj * js)
+                jc, js = cos_sin(jh)
+                jx = mul32(jc, spec.hotspot_jitter * speed)
+                jz = mul32(js, spec.hotspot_jitter * speed)
+                vx = fma32(ux, eff, jx)
+                vz = fma32(uz, eff, jz)
             else:
-                vx, vz = ux * eff, uz * eff
+                vx, vz = mul32(ux, eff), mul32(uz, eff)
             return masked(_vel3(vx, vz), ent), *still(ent)
         return run
 
     if name == "shrink":
         def run(keys, ent):
             cx, cz = ctx["zone_c"]
-            dx = cx - ent["pos"][:, 0]
-            dz = cz - ent["pos"][:, 2]
+            dx = ftz(cx - ent["pos"][:, 0])
+            dz = ftz(cz - ent["pos"][:, 2])
             outside = unit_norm(dx, dz, 1e-12) > ctx["zone_r"]
             # the reference fuses the norm's squares differently for
             # the two components
-            ux = dx / unit_norm(dx, dz, 1e-6)
-            uz = dz / unit_norm(dz, dx, 1e-6)
-            inward = _vel3(ux * speed, uz * speed)
-            wander = _walk_vel(keys, ent["vel"], ent["moving"],
+            ux = div32(dx, unit_norm(dx, dz, 1e-6))
+            uz = div32(dz, unit_norm(dz, dx, 1e-6))
+            inward = _vel3(mul32(ux, speed), mul32(uz, speed))
+            wander = _walk_vel(keys, ent["vel_raw"], ent["moving"],
                                0.4 * speed, turn_prob)
             vel = torch.where(outside[:, None], inward, wander)
             return masked(vel, ent), *still(ent)
@@ -171,8 +184,8 @@ def _member(name: str, spec: ScenarioSpec, cfg, ctx: dict, policy,
             cx, cz = _unit_xz(ent["mean_off"][:, 0], ent["mean_off"][:, 2])
             coh = spec.flock_coherence
             has_nbr = ent["nbr_cnt"] > 0
-            dxv = wx + torch.where(has_nbr, coh * cx, 0.0)
-            dzv = wz + torch.where(has_nbr, coh * cz, 0.0)
+            dxv = ftz(wx + torch.where(has_nbr, mul32(cx, coh), 0.0))
+            dzv = ftz(wz + torch.where(has_nbr, mul32(cz, coh), 0.0))
             ux, uz = _unit_xz(dxv, dzv)
             if summary:
                 # the reference's z loop over the summary lane fuses the
@@ -180,23 +193,26 @@ def _member(name: str, spec: ScenarioSpec, cfg, ctx: dict, policy,
                 # the whole z output from that norm
                 mx, mz = ent["mean_off"][:, 0], ent["mean_off"][:, 2]
                 n1 = unit_norm(mz, mx, 1e-6)
-                dxv = wx + torch.where(has_nbr, coh * (mx / n1), 0.0)
-                dzv = wz + torch.where(has_nbr, coh * (mz / n1), 0.0)
-                uz = dzv / unit_norm(dxv, dzv, 1e-6)
+                dxv = ftz(wx + torch.where(has_nbr,
+                                           mul32(div32(mx, n1), coh), 0.0))
+                dzv = ftz(wz + torch.where(has_nbr,
+                                           mul32(div32(mz, n1), coh), 0.0))
+                uz = div32(dzv, unit_norm(dxv, dzv, 1e-6))
             s = spec.flock_speed_frac * speed
-            return masked(_vel3(ux * s, uz * s), ent), *still(ent)
+            return masked(_vel3(mul32(ux, s), mul32(uz, s)), ent), \
+                *still(ent)
         return run
 
     if name == "teleport":
         def run(keys, ent):
             sub = prng.split(keys, 4)
-            vel = _walk_vel(sub[:, 0], ent["vel"], ent["moving"], speed,
-                            turn_prob)
+            vel = _walk_vel(sub[:, 0], ent["vel_raw"], ent["moving"],
+                            speed, turn_prob)
             tele = (prng.uniform(sub[:, 1], ()) < spec.teleport_prob) \
                 & ent["moving"]
             nx = prng.uniform(sub[:, 2], (), lo_x, hi_x)
             nz = prng.uniform(sub[:, 3], (), lo_z, hi_z)
-            dest = torch.stack([nx, ent["pos"][:, 1], nz], dim=-1)
+            dest = torch.stack([nx, ent["pos_raw"][:, 1], nz], dim=-1)
             # a teleporting entity keeps no momentum into the new cell
             vel = torch.where(tele[:, None], 0.0, vel)
             return vel, dest, tele
@@ -208,14 +224,15 @@ def _member(name: str, spec: ScenarioSpec, cfg, ctx: dict, policy,
                 # chase's norm fuses its squares per component (as
                 # shrink's), separate's as the other members'
                 dx, dz = off[:, 0], off[:, 2]
-                ux = dx / unit_norm(dx, dz, 1e-6)
-                uz = dz / unit_norm(dz, dx, 1e-6) if split \
-                    else dz / unit_norm(dx, dz, 1e-6)
-                return _vel3(ux * (sign * speed), uz * (sign * speed))
+                ux = div32(dx, unit_norm(dx, dz, 1e-6))
+                uz = div32(dz, unit_norm(dz, dx, 1e-6)) if split \
+                    else div32(dz, unit_norm(dx, dz, 1e-6))
+                return _vel3(mul32(ux, sign * speed),
+                             mul32(uz, sign * speed))
 
             chase = ent["client_cnt"] > 0
             crowded = ent["nbr_cnt"] >= 12
-            wander = _walk_vel(keys, ent["vel"], ent["moving"], speed,
+            wander = _walk_vel(keys, ent["vel_raw"], ent["moving"], speed,
                                turn_prob)
             vel = torch.where(
                 chase[:, None], toward(ent["client_off"], 1.0, True),
@@ -255,13 +272,16 @@ def capped_step(vel, accel, dt: float, speed: float, fuse_x: bool = True):
     jitted reference's fused multiply-adds (on the x component only
     where ``fuse_x``; else its product is rounded before the add). XLA
     rewrites ``speed / sqrt(s)`` into ``speed * rsqrt(s)`` and computes
-    the rsqrt from the CPU's table estimate (:func:`rsqrt_x86`)."""
+    the rsqrt from the CPU's table estimate (:func:`rsqrt_x86`). ``vel``
+    and ``accel`` are flushed (:func:`ops.xla_order.ftz`), and so is
+    each result (``s`` is at least 1e-12, so its rsqrt is normal)."""
     v = fma32(accel, dt, vel)
     if not fuse_x:
-        v = torch.cat([vel[:, :1] + accel[:, :1] * as_f32(dt), v[:, 1:]], 1)
-    s = fma32(v[:, 0], v[:, 0], v[:, 2] * v[:, 2]) + 1e-12
-    cap = rsqrt_x86(s) * as_f32(speed)
-    return v * torch.clamp_max(cap, 1.0)[:, None]
+        v = torch.cat([ftz(vel[:, :1] + mul32(accel[:, :1], dt)),
+                       v[:, 1:]], 1)
+    s = fma32(v[:, 0], v[:, 0], mul32(v[:, 2], v[:, 2])) + 1e-12
+    cap = mul32(rsqrt_x86(s), speed)
+    return mul32(v, torch.clamp_max(cap, 1.0)[:, None])
 
 
 def _neighbor_features(pos, has_client, nbr, nbr_cnt, want_client: bool):
@@ -278,6 +298,17 @@ def _neighbor_features(pos, has_client, nbr, nbr_cnt, want_client: bool):
     return f.mean_off, f.client_cnt.to(torch.float32), f.client_off
 
 
+def _per_row(ctx: dict, per: int) -> dict:
+    """Each Space's phase values ``[S]`` repeated over its ``per`` rows."""
+    def rows(v):
+        if isinstance(v, tuple):
+            return tuple(rows(x) for x in v)
+        if not torch.is_tensor(v):
+            return v
+        return v[:, None].expand(-1, per).reshape(-1)
+    return {k: rows(v) for k, v in ctx.items()}
+
+
 def scenario_velocity(cfg, key, pos, yaw, state, policy,
                       bounds: tuple | None = None,
                       features: tuple | None = None):
@@ -288,7 +319,9 @@ def scenario_velocity(cfg, key, pos, yaw, state, policy,
     grid extents for the phase schedule and the teleport targets;
     ``features`` = (mean_off f32[N, 3], client_cnt f32[N], client_off
     f32[N, 3]) replaces the neighbor-list gather. The megaspace passes
-    both."""
+    both. With ``key [S, 2]`` the rows are S Spaces' rows in a row
+    (``core/step.py`` ``flat_spaces``): each Space splits its own key
+    into per-entity keys and reads its own tick's phase."""
     spec: ScenarioSpec = cfg.scenario
     if state.behavior_id is None:
         raise ValueError(
@@ -297,21 +330,28 @@ def scenario_velocity(cfg, key, pos, yaw, state, policy,
     n = pos.shape[0]
     dev = pos.device
     names = spec.behavior_names
+    per = n // key.shape[0] if key.dim() == 2 else n
     ctx = scenario_context(spec, cfg, state.tick, bounds)
+    if key.dim() == 2:
+        ctx = _per_row(ctx, per)
+    pos_d = ftz(pos)
     if features is not None:
         mean_off, client_cnt, client_off = features
     elif spec.needs_features:
         mean_off, client_cnt, client_off = _neighbor_features(
-            pos, state.has_client, state.nbr, state.nbr_cnt,
+            pos_d, state.has_client, state.nbr, state.nbr_cnt,
             "btree" in names)
     else:
         mean_off = torch.zeros((n, 3), dtype=torch.float32, device=dev)
         client_cnt = torch.zeros(n, dtype=torch.float32, device=dev)
         client_off = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-    ent = dict(pos=pos, vel=state.vel, yaw=yaw, moving=state.npc_moving,
+    # the members' float ops read flushed lanes; selects keep the raw
+    # bits of the carried position and velocity
+    ent = dict(pos=pos_d, vel=ftz(state.vel), pos_raw=pos,
+               vel_raw=state.vel, yaw=yaw, moving=state.npc_moving,
                mean_off=mean_off, nbr_cnt=state.nbr_cnt.to(torch.float32),
                client_cnt=client_cnt, client_off=client_off)
-    keys = prng.split(key, n)
+    keys = prng.split(key, per).reshape(n, 2)
     outs = [_member(b, spec, cfg, ctx, policy, bounds,
                     features is not None)(keys, ent) for b in names]
     vel, tele_pos, tele = outs[0]

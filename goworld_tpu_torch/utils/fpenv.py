@@ -25,9 +25,11 @@ round. The caller leaves the scope exactly as it entered; the pool's
 threads leave it in the caller's environment, which is theirs unless
 something set one of them apart (a pool started under another mode).
 
-Tensors on the card are not touched: CUDA keeps subnormals in
-PyTorch's elementwise kernels and in a kernel built without
-``-ftz=true`` (``ROADMAP.md`` Queue C4).
+Tensors on the card are not touched (CUDA keeps subnormals): there the
+behavior and integrate stages flush with explicit ops, which run on the
+CPU too (``ops/xla_order.py`` ``ftz``, ``round_ftz``), and
+``csrc/npc_mlp.cu`` runs its float ops in their ``.ftz`` forms. This
+scope covers the CPU's other ops.
 """
 
 from __future__ import annotations

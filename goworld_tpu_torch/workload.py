@@ -120,19 +120,19 @@ def behavior_world(cfg: WorldConfig, seed: int, device="cuda"):
 
 def mlp_underflow_case(rows: int, seed: int, device="cuda"):
     """(obs, (w1, b1, w2, b2, w3, b3)) whose layer-2 products of the
-    policy fall below float32's 2^-149 grid: observations near 1e-38
-    make layer 1's tanh outputs bf16 values of exponent field 0 or 1,
-    and w2's words lie in [2^-11, 2^-9) (field 116-117), so the factors'
-    lowest bits sum below ``ops.mlp.EXACT_LO`` and the kernel must run
-    layer 2 on the rounded mul and add. Hidden 128, biases zero, w3 ~
-    0.1 N(0, 1)."""
+    policy straddle 2^-126, where XLA's CPU runtime flushes them:
+    observations near 2e-36 make layer 1's tanh outputs bf16 values near
+    2^-115, and w2's words lie in [2^-11, 2^-9) (field 116-117), so the
+    exponent fields of many factor pairs sum below ``ops.mlp.EXACT_LO``
+    and the kernel must run layer 2 on the flushed mul and add. Hidden
+    128, biases zero, w3 ~ 0.1 N(0, 1)."""
     hidden = 128
     rng = np.random.default_rng(seed)
 
     def bf(a):
         return torch.tensor(np.asarray(a, np.float32),
                             device=device).to(torch.bfloat16)
-    obs = torch.tensor((rng.uniform(0.1, 0.2, (rows, 10)) * 1e-38)
+    obs = torch.tensor((rng.uniform(0.1, 0.2, (rows, 10)) * 1.5e-35)
                        .astype(np.float32), device=device)
     ws = (bf(rng.uniform(0.5, 1.0, (10, hidden))), bf(np.zeros(hidden)),
           bf(rng.uniform(2.0 ** -11, 2.0 ** -9, (hidden, hidden))),
@@ -141,7 +141,7 @@ def mlp_underflow_case(rows: int, seed: int, device="cuda"):
     return obs, ws
 
 
-def underflow_world(n: int, device="cuda"):
+def underflow_world(n: int, device="cuda", behavior: str = "mlp"):
     """``(cfg, state, inputs, policy)``: the mlp world of ``n`` rows
     whose observations are near 1e-38, driven by
     :func:`mlp_underflow_case`'s weights (w1's rows of cos(yaw) and the
@@ -152,12 +152,13 @@ def underflow_world(n: int, device="cuda"):
     positions, headings and velocities scaled down from
     ``default_rng(3)``, and no position syncs. Its float ops underflow
     into subnormals, which XLA's CPU runtime flushes
-    (``utils/fpenv.py``)."""
+    (``utils/fpenv.py``). ``behavior="random_walk"`` gives its twin: the
+    same lanes and inputs under the random walk (policy None)."""
     from goworld_tpu_torch import interop
     from goworld_tpu_torch.models.npc_policy import MLPPolicy
 
     cfg = dataclasses.replace(slice_config(n, row_block=256),
-                              behavior="mlp")
+                              behavior=behavior)
     g = cfg.grid
     lanes = interop.state_to_numpy(create_state(cfg, seed=1, device="cpu"))
     rng = np.random.default_rng(0)
@@ -185,12 +186,14 @@ def underflow_world(n: int, device="cuda"):
     inputs = interop.inputs_from_numpy(dict(
         pos_sync_idx=idx, pos_sync_vals=vals,
         pos_sync_n=np.asarray(0, np.int32)), device=device)
+    state = interop.state_from_numpy(lanes, device=device)
+    if behavior != "mlp":
+        return cfg, state, inputs, None
     _, ws = mlp_underflow_case(4, 0, device=device)
     ws = list(ws)
     ws[0] = ws[0].clone()
     ws[0][6:8] = 0
-    return (cfg, interop.state_from_numpy(lanes, device=device), inputs,
-            MLPPolicy(*ws))
+    return cfg, state, inputs, MLPPolicy(*ws)
 
 
 def bench_world(cfg: WorldConfig, seed: int, device="cuda"):

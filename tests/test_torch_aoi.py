@@ -18,6 +18,10 @@ import torch
 from goworld_tpu.ops import aoi as jaoi
 from goworld_tpu_torch.ops import aoi as taoi
 
+# one intra-op thread a test process: parallel test workers' pools
+# would otherwise oversubscribe the host's cores
+torch.set_num_threads(1)
+
 N = 600
 EXTENT = 300.0
 RADIUS = 25.0
@@ -136,12 +140,15 @@ def test_port_table_equals_ranges_and_fused_below_caps(topk):
         _assert_same(got, run(impl))
 
 
-def test_port_table_batched_matches_each_space():
-    """The table under a leading Space axis: each Space's lists as its
-    own sweep's."""
-    _, tspec = _specs("overflow", "sort")
-    tspec = dataclasses.replace(tspec, sweep_impl="table",
-                                sort_impl="counting")
+@pytest.mark.parametrize("impl", ["table", "cellrow", "shift", "approx"])
+def test_port_table_batched_matches_each_space(impl):
+    """The table impls (and ``approx`` under ``ranges``) under a leading
+    Space axis: each Space's lists as its own sweep's, past the caps
+    too."""
+    _, tspec = _specs("overflow", "approx" if impl == "approx" else "sort")
+    tspec = dataclasses.replace(
+        tspec, sweep_impl="ranges" if impl == "approx" else impl,
+        sort_impl="counting")
     worlds = [_world(s) for s in (0, 1)]
     stack = [torch.tensor(np.stack([w[i] for w in worlds]))
              for i in range(4)]
@@ -156,6 +163,69 @@ def test_port_table_batched_matches_each_space():
         for a, b in zip(got[:3], one[:3]):
             assert torch.equal(a[s], b)
         assert [int(x[s]) for x in got[3]] == [int(x) for x in one[3]]
+
+
+# shift, cellrow and approx (under ranges and under fused) against the
+# JAX package's same impl: with flags and watch radii, without flags
+# (grid_neighbors), without watch radii, and at query_rows < n
+VARIANTS = ["flags_watch", "noflags_watch", "flags_nowatch", "rows450"]
+
+
+def _run_variant(pkg, spec, variant):
+    t = torch.tensor if pkg is taoi else jnp.asarray
+    q = 450 if variant == "rows450" else None
+    wr = None if variant == "flags_nowatch" else t(WR)
+    if variant == "noflags_watch":
+        out = pkg.grid_neighbors(spec, t(POS), t(ALIVE), watch_radius=wr)
+        return [np.asarray(o) for o in out]
+    out = pkg.grid_neighbors_flags(spec, t(POS), t(ALIVE), query_rows=q,
+                                   watch_radius=wr, flag_bits=t(FB),
+                                   with_stats=True)
+    return [np.asarray(o) for o in out[:3]] + [[int(x) for x in out[3]]]
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("regime", sorted(REGIMES))
+@pytest.mark.parametrize("impl", ["shift", "cellrow", "approx_ranges",
+                                  "approx_fused"])
+def test_port_sweep_impls_match_jax_same_impl(impl, regime, variant):
+    """``shift``, ``cellrow`` and ``approx`` bit for bit against the JAX
+    package's same impl, below the caps and past them (the clump
+    overflows ``cell_cap`` 2: ``shift`` then drops the overflowed
+    entities as watchers too), with and without flag bits and watch
+    radii, and at ``query_rows < n`` (the megaspace tile's shape)."""
+    topk = "approx" if impl.startswith("approx") else "sort"
+    sweep = impl.split("_")[1] if topk == "approx" else impl
+    jspec, tspec = _specs(regime, topk)
+    jspec = dataclasses.replace(jspec, sweep_impl=sweep,
+                                sort_impl="argsort")
+    tspec = dataclasses.replace(tspec, sweep_impl=sweep)
+    got = _run_variant(taoi, tspec, variant)
+    ref = _run_variant(jaoi, jspec, variant)
+    for g, r in zip(got, ref):
+        if isinstance(g, list):
+            assert g == r
+        else:
+            assert g.dtype == r.dtype and np.array_equal(g, r)
+    if regime == "overflow" and len(got) == 4:
+        assert got[3][3] > 0  # cells past cell_cap
+
+
+@pytest.mark.parametrize("regime", sorted(REGIMES))
+def test_port_cellrow_equals_table_and_approx_equals_f32(regime):
+    """In the port, ``cellrow`` equals ``table`` and ``approx`` equals
+    ``f32`` (under ``ranges`` and ``fused``) bit for bit in both
+    regimes."""
+    _, tspec = _specs(regime, "sort")
+
+    def run(**kw):
+        return _run_variant(taoi, dataclasses.replace(tspec, **kw),
+                            "flags_watch")
+
+    _assert_same(run(sweep_impl="cellrow"), run(sweep_impl="table"))
+    for sweep in ("ranges", "fused"):
+        _assert_same(run(sweep_impl=sweep, topk_impl="approx"),
+                     run(sweep_impl=sweep, topk_impl="f32"))
 
 
 def test_fused_below_caps_matches_oracle():

@@ -16,6 +16,7 @@ import dataclasses
 import os
 import time
 
+import numpy as np
 import pytest
 import torch
 
@@ -26,6 +27,10 @@ from goworld_tpu_torch import api
 from goworld_tpu_torch import config as tconfig
 from goworld_tpu_torch.net.botclient import BotClient
 from goworld_tpu_torch.net.standalone import ClusterHarness
+
+# one intra-op thread a test process: parallel test workers' pools
+# would otherwise oversubscribe the host's cores
+torch.set_num_threads(1)
 
 WAIT = 120
 EXAMPLE_INI = os.path.join(os.path.dirname(__file__), "..", "examples",
@@ -85,11 +90,11 @@ def _ini(path, harness, **game) -> str:
     for i, (h, p) in enumerate(harness.dispatcher_addrs if harness
                                else [("127.0.0.1", 1)]):
         lines += [f"[dispatcher{i + 1}]", f"host = {h}", f"port = {p}"]
-    lines += ["[game_common]", "boot_entity = Account", "capacity = 256",
-              "aoi_radius = 50.0", "extent_x = 200.0", "extent_z = 200.0",
-              "aoi_sweep_impl = fused", "aoi_sort_impl = pallas",
-              "aoi_cell_cap = 12", "aoi_k = 32"]
-    lines += [f"{k} = {v}" for k, v in game.items()]
+    common = dict(boot_entity="Account", capacity=256, aoi_radius=50.0,
+                  extent_x=200.0, extent_z=200.0, aoi_sweep_impl="fused",
+                  aoi_sort_impl="pallas", aoi_cell_cap=12, aoi_k=32)
+    lines += ["[game_common]"]
+    lines += [f"{k} = {v}" for k, v in {**common, **game}.items()]
     lines += ["[game1]", "[storage]", "kind = filesystem",
               f"directory = {path}/entity_storage", "[kvdb]",
               "kind = filesystem", f"path = {path}/kvdb_data"]
@@ -278,3 +283,55 @@ def test_governor_and_flight_recorder_drive_through_the_server():
     assert gs._gov_last_win == w._telem_win_tick > 0
     assert gs.governor.snapshot()["signature"] is not None
     assert gs.flightrec.snapshot()["frames_recorded"] == 40
+
+
+@pytest.mark.parametrize("game", [
+    dict(aoi_sweep_impl="shift"), dict(aoi_sweep_impl="cellrow"),
+    dict(aoi_topk_impl="approx"), dict(aoi_topk_impl="approx",
+                                       aoi_sweep_impl="ranges"),
+    dict(n_spaces=3, behavior="btree"), dict(n_spaces=2, behavior="mlp"),
+    dict(n_spaces=3, scenario="mixed"),
+], ids=["shift", "cellrow", "approx_fused", "approx_ranges",
+        "spaces_btree", "spaces_mlp", "spaces_mixed"])
+def test_run_boots_the_ported_ini_knobs(tmp_path, fresh_api, game):
+    """The sweep and top-k knobs an ini may name (``aoi_sweep_impl =
+    shift|cellrow``, ``aoi_topk_impl = approx``) and several Spaces with
+    NPC behaviors or a scenario boot through ``gw.run`` (no new key):
+    the World takes the ini's values and ticks with entities in it."""
+    gw.register_entity("Account", Account)
+    gw.register_entity("Avatar", Avatar)
+    gw.register_space("Arena", Arena)
+
+    def boot(w):
+        w.arena = w.create_space("Arena")
+        rng = np.random.default_rng(0)
+        for _ in range(24):
+            w.create_entity("Avatar", space=w.arena, moving=True,
+                            pos=(float(rng.uniform(0, 200)), 0.0,
+                                 float(rng.uniform(0, 200))))
+
+    gw.on_boot(boot)
+    harness = ClusterHarness(n_dispatchers=1, n_gates=1, desired_games=1)
+    harness.start(timeout=WAIT)
+    rt = None
+    try:
+        rt = gw.run(["-gid", "1", "-configfile",
+                     _ini(str(tmp_path), harness, **game)], block=False,
+                    device="cpu")
+        w = rt.world
+        g = w.cfg.grid
+        assert g.sweep_impl == game.get("aoi_sweep_impl", "fused")
+        assert g.topk_impl == game.get("aoi_topk_impl", g.topk_impl)
+        assert w.n_spaces == game.get("n_spaces", 1)
+        assert w.cfg.behavior == game.get("behavior", "random_walk")
+        assert (w.cfg.scenario is None) == ("scenario" not in game)
+        for _ in range(3):
+            w.tick()
+        assert int(w.last_outputs.alive_count.sum()) == 24
+        assert any(e.interested_in for e in w.entities.values())
+    finally:
+        if rt is not None:
+            rt.server.stop()
+            rt.storage.shutdown()
+            rt.workers.wait_clear()
+        harness.stop()

@@ -38,6 +38,10 @@ from goworld_tpu_torch.entity.manager import _make_local_tick as tlocal
 from goworld_tpu_torch.ops.aoi import GridSpec as TGrid
 from goworld_tpu_torch.utils import ids, metrics
 
+# one intra-op thread a test process: parallel test workers' pools
+# would otherwise oversubscribe the host's cores
+torch.set_num_threads(1)
+
 CAP = 128
 GRID = dict(radius=25.0, extent_x=200.0, extent_z=200.0, k=16,
             cell_cap=16, row_block=CAP, topk_impl="sort", skin=4.0)

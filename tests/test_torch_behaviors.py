@@ -32,8 +32,12 @@ from goworld_tpu_torch.models import behavior_tree as tbt
 from goworld_tpu_torch.models import npc_policy as tpol
 from goworld_tpu_torch.ops import mlp as tmlp
 from goworld_tpu_torch.ops import prng
-from goworld_tpu_torch.ops.xla_order import dot_f32, dot_lanes, fma32
+from goworld_tpu_torch.ops.xla_order import dot_f32, dot_lanes, fma32, ftz
 from goworld_tpu_torch.workload import slice_config
+
+# one intra-op thread a test process: parallel test workers' pools
+# would otherwise oversubscribe the host's cores
+torch.set_num_threads(1)
 
 N = 512
 TICKS = 8
@@ -158,9 +162,11 @@ def _bf16_at(rng, exps: np.ndarray) -> torch.Tensor:
 def test_fma_guard_is_sufficient():
     """Wherever ``fma_exact`` (the kernel's layer-2 guard) holds, one
     fused multiply-add gives the bits of the rounded product plus the
-    add, over bf16 pairs at every exponent sum from -160 to +130 with
-    random float32 accumulators; at least one overflow and one
-    underflow case differ, so the guard is needed on both sides."""
+    add, both under flush-to-zero as XLA's CPU runtime runs them (every
+    input and result flushed, ``ftz``), over bf16 pairs at every
+    exponent sum from -160 to +130 with random float32 accumulators; at
+    least one overflow and one underflow case differ, so the guard is
+    needed on both sides."""
     rng = np.random.default_rng(10)
     overflow = underflow = guarded = 0
     for esum in range(-160, 131):
@@ -170,8 +176,9 @@ def test_fma_guard_is_sufficient():
         x, w = _bf16_at(rng, ex[ok]), _bf16_at(rng, ew[ok])
         acc = torch.tensor(rng.standard_normal(x.numel()) * np.exp2(
             rng.integers(-150, 128, x.numel()).astype(np.float64))).float()
+        x, w, acc = ftz(x), ftz(w), ftz(acc)
         fused = fma32(x, w, acc)
-        rounded = x * w + acc
+        rounded = ftz(ftz(x * w) + acc)
         same = (fused.view(torch.int32) == rounded.view(torch.int32)) \
             | (torch.isnan(fused) & torch.isnan(rounded))
         exact = tmlp.fma_exact(x, w)
@@ -184,29 +191,29 @@ def test_fma_guard_is_sufficient():
 
 
 def test_underflow_case_needs_layer_2s_rounded_path():
-    """``workload.mlp_underflow_case`` (observations near 1e-38, w2
-    below 2^-9): some of its layer-2 products fall outside
-    ``fma_exact``, and a layer 2 summed by fused multiply-adds gives
-    other outputs than the plain version, so the kernel's guard must
-    take its rounded path there (``chip_smoke.py`` [17] holds the
-    kernel to the plain version on it). The JAX package's CPU code
-    flushes subnormal results to zero, so its outputs here are zeros:
-    the case checks the kernel, not the reference's bits."""
+    """``workload.mlp_underflow_case`` (observations near 2e-36, w2
+    below 2^-9): some of its layer-2 products fall below 2^-126, outside
+    ``fma_exact``, and a layer 2 summed by fused multiply-adds (which
+    keep such a product until the sum) gives other outputs than the
+    plain version, which flushes each product as XLA's CPU runtime
+    does, so the kernel's guard must take its rounded path there
+    (``chip_smoke.py`` [17] holds the kernel to the plain version on
+    it)."""
     from goworld_tpu_torch.workload import mlp_underflow_case
 
     obs, ws = mlp_underflow_case(4096, 0, "cpu")
     got = tmlp.npc_mlp(obs, *ws)
     assert bool((got != 0).all())
-    f = [w.float() for w in ws]
+    f = [ftz(w.float()) for w in ws]
     l1, l2, l3 = tmlp.layer_lanes(obs.shape[0], f[0].shape[1])
-    h1 = tmlp.tanh_bf16(tmlp._bf(tmlp._bf(dot_f32(tmlp._bf(obs), f[0], l1))
-                                 + f[1]))
+    h1 = tmlp.tanh_bf16(tmlp._bf(ftz(tmlp._bf(dot_f32(
+        ftz(tmlp._bf(obs)), f[0], l1)) + f[1])))
     assert not bool(tmlp.fma_exact(h1[:, :, None], f[2][None]).all())
     acc = torch.zeros(obs.shape[0], f[2].shape[1])
     for k in range(f[2].shape[0]):
         acc = fma32(h1[:, k:k + 1], f[2][k], acc)
-    h2 = tmlp.tanh_bf16(tmlp._bf(tmlp._bf(acc) + f[3]))
-    fused = tmlp._bf(dot_f32(h2, f[4], l3)) + f[5]
+    h2 = tmlp.tanh_bf16(tmlp._bf(ftz(tmlp._bf(acc) + f[3])))
+    fused = ftz(tmlp._bf(dot_f32(h2, f[4], l3)) + f[5])
     assert _bits_differ(fused.numpy(), got.numpy()) > 0
 
 

@@ -8,7 +8,17 @@ The cap: XLA computes ``speed / sqrt(s)`` as ``speed * rsqrt(s)`` with
 (``ops/xla_order.py`` ``rsqrt_x86``), held on a million values and
 through 4 ticks with the cap binding. The flush: the underflow case,
 bit for bit, with the port's CPU tick under ``utils/fpenv.py``'s
-flush-to-zero scope, at 512 rows and at 16,384 on the intra-op pool."""
+flush-to-zero scope, at 512 rows and at 16,384 on the intra-op pool;
+then under mlp and under the random walk with that scope replaced by a
+null context, so that the explicit flushes of the behavior and
+integrate stages (``ops/xla_order.py`` ``ftz``, ``round_ftz``, the ops
+the card runs too) alone give the JAX bits; and the flush helpers on
+float32's edge words against numpy under the scope."""
+
+import contextlib
+
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +32,10 @@ from goworld_tpu_torch.models import npc_policy as tpol
 
 from test_torch_behaviors import (N, _bits_differ, _t, bench_lanes,
                                   configs, run_ticks)
+
+# one intra-op thread a test process: parallel test workers' pools
+# would otherwise oversubscribe the host's cores
+torch.set_num_threads(1)
 
 
 def test_rsqrt_matches_xla_on_random_and_edge_inputs():
@@ -82,14 +96,15 @@ def test_speed_cap_binding_matches_jax(case):
     assert not diffs, diffs
 
 
-def _underflow_data(n: int):
+def _underflow_data(n: int, behavior: str = "mlp"):
     """``workload.mlp_underflow_case``'s weights as the policy of an mlp
     world of ``n`` rows whose observations are near 1e-38 (positions,
     headings and velocities scaled down; w1's rows of cos(yaw) and the
-    neighbor count zeroed): (configs, lanes, inputs, weights)."""
+    neighbor count zeroed): (configs, lanes, inputs, weights); the same
+    lanes under ``behavior``."""
     from goworld_tpu_torch import workload
 
-    jcfg, tcfg = configs(n, behavior="mlp")
+    jcfg, tcfg = configs(n, behavior=behavior)
     lanes, inputs = bench_lanes(jcfg)
     rng = np.random.default_rng(3)
     tiny = np.float32(1e-35)
@@ -108,10 +123,12 @@ def _underflow_data(n: int):
     return jcfg, tcfg, lanes, inputs, ws
 
 
-def _underflow_diffs(n: int) -> dict:
+def _underflow_diffs(n: int, behavior: str = "mlp") -> dict:
     """4 ticks of the jitted JAX tick against the port's on the
     underflow case: the differing words of each lane."""
-    jcfg, tcfg, lanes, inputs, ws = _underflow_data(n)
+    jcfg, tcfg, lanes, inputs, ws = _underflow_data(n, behavior)
+    if behavior != "mlp":
+        return run_ticks(jcfg, tcfg, lanes, inputs, None, None, 4)[0]
     jp = jpol.MLPPolicy(*(jnp.asarray(w.float().numpy())
                           .astype(jnp.bfloat16) for w in ws))
     diffs, _ = run_ticks(jcfg, tcfg, lanes, inputs, jp,
@@ -128,6 +145,14 @@ def test_underflow_world_is_the_tests_data():
     _, tcfg, lanes, inputs, ws = _underflow_data(N)
     cfg, st, ti, pol = workload.underflow_world(N, device="cpu")
     assert cfg == tcfg
+    rcfg, rst, rti, rpol = workload.underflow_world(N, device="cpu",
+                                                    behavior="random_walk")
+    assert rcfg == dataclasses.replace(tcfg, behavior="random_walk")
+    assert rpol is None
+    for name, want in interop.state_to_numpy(rst).items():
+        assert _bits_differ(want, interop.state_to_numpy(st)[name]) == 0
+    for name in inputs:
+        assert torch.equal(getattr(rti, name), getattr(ti, name))
     got = interop.state_to_numpy(st)
     for name, want in lanes.items():
         assert _bits_differ(got[name], want) == 0, name
@@ -152,9 +177,10 @@ def _subnormals_kept() -> int:
     return int((y != 0).sum())
 
 
-def _on_fresh_thread(fn):
+def _on_fresh_thread(fn, threads: int = 1):
     """``fn()``'s result, run on a new thread: one whose intra-op pool
-    has not started yet (libgomp keeps a pool a master thread)."""
+    of ``threads`` threads has not started yet (libgomp keeps a pool a
+    master thread)."""
     import threading
 
     out: dict = {}
@@ -165,9 +191,14 @@ def _on_fresh_thread(fn):
         except BaseException as exc:  # raised again below
             out["e"] = exc
 
-    t = threading.Thread(target=run)
-    t.start()
-    t.join(timeout=600)
+    before = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        t = threading.Thread(target=run)
+        t.start()
+        t.join(timeout=600)
+    finally:
+        torch.set_num_threads(before)
     assert not t.is_alive()
     if "e" in out:
         raise out["e"]
@@ -187,7 +218,7 @@ def test_underflow_case_16k_rows_on_the_pool_matches_jax(pool):
         diffs = _underflow_diffs(16384)
         return diffs, _subnormals_kept()
 
-    diffs, kept = _on_fresh_thread(body)
+    diffs, kept = _on_fresh_thread(body, threads=4)
     assert not diffs, diffs
     assert kept == 1 << 20
 
@@ -208,4 +239,106 @@ def test_flush_scope_is_scoped():
         return before, inside, nested, after_nested, \
             _subnormals_kept(), int((a != 0).sum())
 
-    assert _on_fresh_thread(body) == (1 << 20, 0, 0, 0, 1 << 20, 1 << 10)
+    assert _on_fresh_thread(body, threads=4) == \
+        (1 << 20, 0, 0, 0, 1 << 20, 1 << 10)
+
+
+@pytest.mark.parametrize("rows", [N, 16384])
+@pytest.mark.parametrize("behavior", ["mlp", "random_walk"])
+@pytest.mark.parametrize("scope", ["fpenv", "null"])
+def test_underflow_world_flushes_explicitly(scope, behavior, rows,
+                                            monkeypatch):
+    """``workload.underflow_world`` and its random-walk twin, 4 ticks,
+    bit for bit against the jitted JAX tick: under ``fpenv.flushed`` as
+    the tick runs, and with that scope replaced by a null context, so
+    that the behavior and integrate stages' explicit flushes alone (the
+    ops the card runs) give XLA's flushed bits."""
+    from goworld_tpu_torch.core import step
+
+    if scope == "null":
+        monkeypatch.setattr(step, "flushed",
+                            lambda *a: contextlib.nullcontext())
+    diffs = _on_fresh_thread(lambda: _underflow_diffs(rows, behavior))
+    assert not diffs, diffs
+
+
+def _edge_words() -> np.ndarray:
+    """float32 edge words: +-2^-126, the largest and smallest subnormal
+    of each sign, +-0.0, NaN, +-inf, the largest finite and a few
+    ordinary values."""
+    bits = np.array([0x00800000, 0x80800000, 0x007FFFFF, 0x807FFFFF,
+                     0x00000001, 0x80000001, 0x00400000, 0x0, 0x80000000,
+                     0x7FC00000, 0x7F800000, 0xFF800000, 0x7F7FFFFF,
+                     0x3F800000, 0xBF000001, 0x00800001], np.uint32)
+    return bits.view(np.float32)
+
+
+def test_flush_helpers_on_edge_words():
+    """``ftz`` on float32's edge words equals numpy's ``x * 1`` under the
+    flush scope (DAZ reads a subnormal as a zero of its sign); products
+    and quotients by ``mul32``/``div32`` and ``round_ftz`` of float64
+    values equal numpy's float32 ops under the scope, at the tininess
+    edge too: an exact value just below 2^-126 that rounds up to it is
+    kept (x86 detects tininess after rounding), one that rounds to the
+    float32 below it is flushed; signs kept."""
+    from goworld_tpu_torch.ops import xla_order as xo
+    from goworld_tpu_torch.utils import fpenv
+
+    x = _edge_words()
+    tiny = np.float32(2.0 ** -126)
+    # products whose exact value sits at the edge: (1 - 2^-24) * 2^-126
+    # rounds to 2^-126 - 2^-150 (flushed); (1 - 2^-25) * 2^-126 is the
+    # tie, which rounds to 2^-126 (kept); just above and below it
+    a = np.array([1 - 2.0 ** -24, 1 - 2.0 ** -25, 1 - 2.0 ** -25
+                  + 2.0 ** -48, 1 - 2.0 ** -25 - 2.0 ** -48, 0.75, 1.5],
+                 np.float64)
+    pa = np.float32(1 + 2.0 ** -23) * np.ones(6, np.float32)
+    pb = (a / (1 + 2.0 ** -23) * 2.0 ** -126).astype(np.float32)
+    d64 = np.concatenate([a * 2.0 ** -126, -a * 2.0 ** -126,
+                          [2.0 ** -126 - 2.0 ** -151,
+                           2.0 ** -126 - 2.0 ** -151 - 2.0 ** -170]])
+
+    def body():
+        with fpenv.flushed():
+            got = (xo.ftz(torch.from_numpy(x)).numpy(),
+                   xo.mul32(torch.from_numpy(pa), torch.from_numpy(pb))
+                   .numpy(),
+                   xo.div32(torch.from_numpy(pb), torch.from_numpy(pa))
+                   .numpy(),
+                   xo.round_ftz(torch.from_numpy(d64)).numpy(),
+                   xo.mul32(torch.from_numpy(-pa), torch.from_numpy(pb))
+                   .numpy())
+        return got
+
+    got = _on_fresh_thread(body)
+    with np.errstate(all="ignore"):
+        # numpy's own float32 ops under the processor's flush mode
+        with _numpy_flushed():
+            want = (x * np.float32(1.0), pa * pb, pb / pa,
+                    d64.astype(np.float32), -pa * pb)
+    for g, w in zip(got, want):
+        assert np.array_equal(g.view(np.uint32), w.view(np.uint32))
+    # the edge itself: kept at the tie, flushed below it
+    r = got[3]
+    assert r[1] == tiny and r[0] == 0 and r[-2] == tiny and r[-1] == 0
+    assert np.signbit(got[0][[1, 3, 5, 8]]).all()
+    assert (got[0][[2, 3, 4, 5, 6]] == 0).all()
+
+
+@contextlib.contextmanager
+def _numpy_flushed():
+    """FTZ and DAZ on the calling thread, for numpy's float ops."""
+    from goworld_tpu_torch.utils import fpenv
+
+    _, libm, _ = fpenv._libs()
+    import ctypes
+
+    saved = ctypes.create_string_buffer(fpenv._FENV_BYTES)
+    assert libm.fegetenv(saved) == 0
+    flush = ctypes.create_string_buffer(fpenv._flushing(saved.raw),
+                                        fpenv._FENV_BYTES)
+    assert libm.fesetenv(flush) == 0
+    try:
+        yield
+    finally:
+        libm.fesetenv(saved)

@@ -14,6 +14,7 @@ import threading
 import time
 
 import pytest
+import torch
 
 import goworld_tpu.core.state as jstate
 import goworld_tpu.entity as jent
@@ -29,6 +30,10 @@ import goworld_tpu_torch.net.standalone as tstandalone
 import goworld_tpu_torch.ops.aoi as taoi
 from goworld_tpu_torch.entity.space import Space
 from goworld_tpu_torch.net.botclient import BotClient
+
+# one intra-op thread a test process: parallel test workers' pools
+# would otherwise oversubscribe the host's cores
+torch.set_num_threads(1)
 
 # waits sized for six loaded test workers
 WAIT = 120

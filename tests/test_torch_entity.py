@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import numpy as np
 import pytest
+import torch
 
 from goworld_tpu.entity import attrs as jattrs
 from goworld_tpu.entity import registry as jregistry
@@ -23,6 +24,10 @@ from goworld_tpu_torch.entity import attrs as tattrs
 from goworld_tpu_torch.entity import registry as tregistry
 from goworld_tpu_torch.entity import timer as ttimer
 from goworld_tpu_torch.utils import ids as tids
+
+# one intra-op thread a test process: parallel test workers' pools
+# would otherwise oversubscribe the host's cores
+torch.set_num_threads(1)
 
 PAIRS = {"jax": (jattrs, jregistry, jtimer, jids),
          "port": (tattrs, tregistry, ttimer, tids)}

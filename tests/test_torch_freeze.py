@@ -18,6 +18,7 @@ import time
 import msgpack
 import numpy as np
 import pytest
+import torch
 
 from goworld_tpu import entity as jent
 from goworld_tpu import freeze as jfreeze
@@ -28,6 +29,10 @@ from goworld_tpu_torch import freeze
 from goworld_tpu_torch.core.state import WorldConfig as TConfig
 from goworld_tpu_torch.ops.aoi import GridSpec as TGrid
 from goworld_tpu_torch.utils import ids, mpack
+
+# one intra-op thread a test process: parallel test workers' pools
+# would otherwise oversubscribe the host's cores
+torch.set_num_threads(1)
 
 GRID = dict(radius=30.0, extent_x=120.0, extent_z=120.0, k=8,
             cell_cap=16, row_block=64, topk_impl="sort")

@@ -30,6 +30,7 @@ import itertools
 
 import numpy as np
 import pytest
+import torch
 
 from goworld_tpu import entity as jent
 from goworld_tpu.core.state import WorldConfig as JConfig
@@ -45,6 +46,10 @@ from goworld_tpu_torch.net import game as tgame
 from goworld_tpu_torch.net import packet as tpacket
 from goworld_tpu_torch.ops.aoi import GridSpec as TGrid
 from goworld_tpu_torch.utils import ids as tids
+
+# one intra-op thread a test process: parallel test workers' pools
+# would otherwise oversubscribe the host's cores
+torch.set_num_threads(1)
 
 CAP = 256
 EXTENT = 600.0

@@ -28,6 +28,10 @@ from goworld_tpu_torch.ops.aoi import GridSpec
 from goworld_tpu_torch.parallel import halo as thalo
 from goworld_tpu_torch.parallel.megaspace import MegaConfig
 
+# one intra-op thread a test process: parallel test workers' pools
+# would otherwise oversubscribe the host's cores
+torch.set_num_threads(1)
+
 N_DEV = 8
 N = 64
 TILE_W = TILE_D = 100.0

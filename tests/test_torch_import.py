@@ -15,7 +15,7 @@ import torch
 from goworld_tpu_torch.core import state as tstate
 from goworld_tpu_torch.core.step import TickInputs, make_tick
 from goworld_tpu_torch.models.npc_policy import init_policy
-from goworld_tpu_torch.ops.aoi import GridSpec
+from goworld_tpu_torch.ops.aoi import GridSpec, grid_neighbors
 from goworld_tpu_torch.parallel.megaspace import (
     MegaConfig,
     create_mega_state,
@@ -23,6 +23,10 @@ from goworld_tpu_torch.parallel.megaspace import (
 )
 from goworld_tpu_torch.parallel.step import MultiTickInputs
 from goworld_tpu_torch.scenarios.spec import get_scenario
+
+# one intra-op thread a test process: parallel test workers' pools
+# would otherwise oversubscribe the host's cores
+torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "goworld_tpu_torch"
@@ -153,32 +157,33 @@ def test_entry_points_default_to_cuda_and_never_fall_back(entry,
     dict(behavior="btree"),
     dict(scenario=get_scenario("mixed")),
     dict(grid=GridSpec(radius=10.0, precision="q16"), behavior="mlp"),
+    dict(capacity=1 << 21),
 ], ids=["skin", "q16", "table", "cellrow", "shift", "approx", "mlp",
-        "btree", "scenario", "q16_mlp"])
+        "btree", "scenario", "q16_mlp", "wide_id"])
 def test_unported_configs_raise_not_implemented(change):
-    """Each config the port does not run raises. The Verlet skin,
-    precision=q16, the table sweep, the mlp and btree behaviors and
-    scenario worlds were refused until they were ported; their cases now
-    hold that both entry points take them and that a tick runs (q16 with
-    the mlp policy is still refused)."""
-    cfg = tstate.WorldConfig(capacity=64, **change)
-    runs = cfg.behavior != "mlp" or cfg.grid.precision == "off"
-    if runs and (cfg.grid.skin > 0 or cfg.grid.precision != "off"
-                 or cfg.grid.sweep_impl == "table"
-                 or cfg.behavior != "random_walk"
-                 or cfg.scenario is not None):
-        st = tstate.create_state(cfg, device="cpu")
-        pol = init_policy(5, 16, device="cpu") \
-            if cfg.behavior == "mlp" else None
-        st, out = make_tick(cfg, device="cpu")(
-            st, TickInputs.empty(cfg, device="cpu"), pol)
-        assert int(out.aoi_rebuilt) == 1 and int(st.tick) == 1
-        assert (st.behavior_id is None) == (cfg.scenario is None)
+    """Each config the port does not run raises NotImplementedError
+    naming ROADMAP: the wide-id sweep (capacity >= 2^21), refused by the
+    first stage every sweep impl shares, so each impl raises. The
+    Verlet skin, precision=q16, the table, cellrow and shift sweeps, the
+    approx top-k, the mlp and btree behaviors, scenario worlds and q16
+    with the mlp policy were refused until they were ported; their cases
+    now hold that both entry points take them and that a tick runs."""
+    if change.get("capacity", 0) >= 1 << 21:
+        n = change["capacity"]
+        for impl in ("ranges", "fused", "table", "cellrow", "shift"):
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                grid_neighbors(GridSpec(radius=10.0, sweep_impl=impl),
+                               torch.zeros(n, 3),
+                               torch.ones(n, dtype=torch.bool))
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_tick(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tstate.create_state(cfg, device="cpu")
+    cfg = tstate.WorldConfig(capacity=64, **change)
+    st = tstate.create_state(cfg, device="cpu")
+    pol = init_policy(5, 16, device="cpu") \
+        if cfg.behavior == "mlp" else None
+    st, out = make_tick(cfg, device="cpu")(
+        st, TickInputs.empty(cfg, device="cpu"), pol)
+    assert int(out.aoi_rebuilt) == 1 and int(st.tick) == 1
+    assert (st.behavior_id is None) == (cfg.scenario is None)
 
 
 @pytest.mark.parametrize("case", ["scenario", "mlp", "btree", "devices",
@@ -262,3 +267,21 @@ def test_tick_modules_never_wait_on_the_card(path):
                     node.func, ast.Attribute):
                 assert node.func.attr not in SYNCING, (
                     path, fn.name, node.func.attr, node.lineno)
+
+
+@pytest.mark.parametrize("kept, whole", [
+    ([], False),
+    ([True], False),
+    ([True, True], True),                       # calls with no device work
+    ([True, True, False, False, True], True),   # nothing lost
+    ([True, False, False, True], True),         # part of the lead lost
+    ([False, False, True], False),              # the lead and a call lost
+    ([True, False, False], False),              # the last marker lost
+    ([True, False, True, False], True),         # a side stream's late event
+    ([True, False, True, False, True], False),  # a marker amid the calls
+])
+def test_profiled_read_keeps_only_whole_sessions(kept, whole):
+    """``kernels.device_ms`` keeps a profiler session only where the lead
+    markers absorbed any loss at its start and the last marker shows."""
+    from goworld_tpu_torch import kernels
+    assert kernels.whole_session(kept) is whole

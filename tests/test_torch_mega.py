@@ -42,6 +42,10 @@ from goworld_tpu_torch.parallel.megaspace import (
 )
 from goworld_tpu_torch.parallel.step import MultiTickInputs
 
+# one intra-op thread a test process: parallel test workers' pools
+# would otherwise oversubscribe the host's cores
+torch.set_num_threads(1)
+
 def _jax_lanes(obj):
     out = {}
     for f in dataclasses.fields(obj):

@@ -33,6 +33,10 @@ from goworld_tpu_torch.ops.sort import (
 )
 from goworld_tpu_torch.parallel.mesh import tile_view
 
+# one intra-op thread a test process: parallel test workers' pools
+# would otherwise oversubscribe the host's cores
+torch.set_num_threads(1)
+
 N = 256
 TICKS = 5
 IMPLS = [("ranges", "argsort"), ("fused", "pallas")]
@@ -116,9 +120,11 @@ def _bits_equal(got: dict, ref: dict, what):
                               np.atleast_1d(r).view(np.uint8)), (what, name)
 
 
-def _run_both(jcfg, tcfg, lanes, inputs, ticks=TICKS):
-    """Tick both packages' batched steps from the same stacked lanes;
-    compare every lane after every tick; return the port's outputs."""
+def _run_both(jcfg, tcfg, lanes, inputs, ticks=TICKS, jpolicy=None,
+              tpolicy=None):
+    """Tick both packages' batched steps from the same stacked lanes
+    (with the packages' policies under mlp); compare every lane after
+    every tick; return the port's final state and outputs."""
     s = lanes["pos"].shape[0]
     jstep = jlocal_tick(jcfg, s)
     js = jstate.SpaceState(**{k: jnp.asarray(v) for k, v in lanes.items()})
@@ -128,8 +134,8 @@ def _run_both(jcfg, tcfg, lanes, inputs, ticks=TICKS):
     ti = interop.inputs_from_numpy(inputs, device="cpu")
     outs = []
     for t in range(ticks):
-        js, jo = jstep(js, ji, None)
-        ts, to = tstep(ts, ti)
+        js, jo = jstep(js, ji, jpolicy)
+        ts, to = tstep(ts, ti, tpolicy)
         _bits_equal(interop.state_to_numpy(ts), _jax_lanes(js),
                     f"state {t}")
         _bits_equal(interop.outputs_to_numpy(to), _jax_lanes(jo),
@@ -279,3 +285,71 @@ def test_interop_carries_stacked_lanes_both_ways():
     to = interop.outputs_from_numpy(jout, device="cpu")
     assert to.enter_n.shape == (3,)
     _bits_equal(interop.outputs_to_numpy(to), jout, "outputs")
+
+
+# ------------------------------------------------- behaviors on [S, ...]
+
+def stacked_bench(jcfg, spaces: int, scenario: bool = False):
+    """S bench Spaces (``test_torch_behaviors.bench_lanes``, one seed a
+    Space, each with its own key), stacked: (lanes, inputs); under a
+    scenario each Space's behavior lane and watch radii as
+    ``create_state`` draws them from its seed."""
+    from test_torch_behaviors import bench_lanes
+
+    worlds = []
+    for d in range(spaces):
+        lanes, inputs = bench_lanes(jcfg, seed=d)
+        lanes["rng"] = np.array([0, d + 11], np.uint32)
+        if scenario:
+            st = jstate.create_state(jcfg, seed=d + 1)
+            lanes["behavior_id"] = np.asarray(st.behavior_id)
+            lanes["aoi_radius"] = np.asarray(st.aoi_radius)
+        worlds.append((lanes, inputs))
+    return _stack(worlds)
+
+
+@pytest.mark.parametrize("spaces", [2, 3, 8])
+@pytest.mark.parametrize("case", ["btree", "mlp_h16", "mlp_h128"])
+def test_batched_behavior_ticks_match_jax_vmapped_step(case, spaces):
+    """The btree and the mlp policy (hidden 16 and 128) on the batched
+    tick, 512 rows a Space, 8 ticks, bit for bit against the JAX World's
+    vmapped step (``_make_local_tick(cfg, n_spaces=S)``): each Space's
+    own key, the btree's features over Space-local neighbor ids, and
+    one policy pass over all ``S * 512`` rows, whose dots XLA lowers as
+    one dot over those rows (``ops/xla_order.py`` ``dot_lanes``)."""
+    import jax
+
+    from goworld_tpu.models import npc_policy as jpol
+    from goworld_tpu_torch.models import npc_policy as tpol
+    from test_torch_behaviors import configs
+
+    behavior, _, hidden = case.partition("_h")
+    jcfg, tcfg = configs(512, behavior=behavior)
+    lanes, inputs = stacked_bench(jcfg, spaces)
+    jp = tp = None
+    if hidden:
+        jp = jpol.init_policy(jax.random.PRNGKey(5), int(hidden))
+        tp = tpol.init_policy(5, int(hidden), device="cpu")
+    ts, outs = _run_both(jcfg, tcfg, lanes, inputs, 8, jp, tp)
+    assert (outs[0]["enter_n"] > 0).all() and (outs[-1]["sync_n"] > 0).all()
+    assert bool((ts.vel != 0).any())
+
+
+@pytest.mark.parametrize("impl", [("shift", "pallas", "sort"),
+                                  ("cellrow", "counting", "sort"),
+                                  ("ranges", "argsort", "approx"),
+                                  ("fused", "pallas", "approx")],
+                         ids=["shift", "cellrow", "approx_ranges",
+                              "approx_fused"])
+def test_batched_sweep_impls_match_jax_vmapped_step(impl):
+    """``shift``, ``cellrow`` and ``approx`` on ``[S, ...]`` lanes: 3
+    Spaces (one crowded past ``cell_cap``), 4 ticks, every lane of the
+    state and the outputs bit for bit against the JAX World's vmapped
+    step under the same impl."""
+    sweep, sort, topk = impl
+    jcfg, tcfg = _configs(sweep, sort, grid=dict(topk_impl=topk))
+    lanes, inputs = _stack([_space(jcfg, 60), _space(jcfg, 61, "cluster"),
+                            _space(jcfg, 62)])
+    _, outs = _run_both(jcfg, tcfg, lanes, inputs, ticks=4)
+    assert outs[0]["aoi_over_cap_cells"][1] > 0
+    assert (outs[0]["enter_n"] > 0).all()

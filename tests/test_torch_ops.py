@@ -24,6 +24,10 @@ from goworld_tpu_torch.ops import extract as textract
 from goworld_tpu_torch.ops import integrate as tint
 from goworld_tpu_torch.ops import sync as tsync
 
+# one intra-op thread a test process: parallel test workers' pools
+# would otherwise oversubscribe the host's cores
+torch.set_num_threads(1)
+
 N, K = 300, 8
 
 

@@ -12,6 +12,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from goworld_tpu import entity as jent
 from goworld_tpu.core.state import WorldConfig as JConfig
@@ -21,6 +22,10 @@ from goworld_tpu_torch import interop
 from goworld_tpu_torch.core.state import WorldConfig as TConfig
 from goworld_tpu_torch.ops.aoi import GridSpec as TGrid
 from goworld_tpu_torch.utils import ids
+
+# one intra-op thread a test process: parallel test workers' pools
+# would otherwise oversubscribe the host's cores
+torch.set_num_threads(1)
 
 GRID = dict(radius=12.0, extent_x=200.0, extent_z=200.0, k=16,
             cell_cap=32, topk_impl="sort")

@@ -26,6 +26,10 @@ from goworld_tpu_torch.utils import metrics as tmetrics
 from goworld_tpu_torch.utils import residency as tres
 from goworld_tpu_torch.utils import syncage as tsync
 
+# one intra-op thread a test process: parallel test workers' pools
+# would otherwise oversubscribe the host's cores
+torch.set_num_threads(1)
+
 _names = itertools.count()
 
 

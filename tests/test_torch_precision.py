@@ -31,6 +31,10 @@ from goworld_tpu_torch.core import state as tstate
 from goworld_tpu_torch.core.step import TickInputs, make_tick
 from goworld_tpu_torch.ops import aoi as taoi
 
+# one intra-op thread a test process: parallel test workers' pools
+# would otherwise oversubscribe the host's cores
+torch.set_num_threads(1)
+
 N = 500
 EXTENT = 300.0
 RADIUS = 25.0
@@ -157,11 +161,15 @@ def test_precision_validation_messages():
 
 
 @pytest.mark.parametrize("sort_impl", ["argsort", "pallas"])
-@pytest.mark.parametrize("sweep_impl", ["ranges", "fused"])
+@pytest.mark.parametrize("sweep_impl", ["ranges", "fused", "shift",
+                                        "cellrow", "approx"])
 def test_q16_sweep_matches_jax(sweep_impl, sort_impl):
     """grid_neighbors_flags under q16 with the gauges: the port's lists,
     counts, flags and gauges equal JAX's, and the snapped oracle's."""
-    js, ts = _specs(sweep_impl, sort_impl=sort_impl)
+    kw = dict(sort_impl=sort_impl)
+    if sweep_impl == "approx":
+        sweep_impl, kw["topk_impl"] = "ranges", "approx"
+    js, ts = _specs(sweep_impl, **kw)
     ref = jaoi.grid_neighbors_flags(
         js, jnp.asarray(POS), jnp.asarray(ALIVE),
         flag_bits=jnp.asarray(FB), with_stats=True)
@@ -215,7 +223,8 @@ def _verlet_pair(spec_j, spec_t, pos, alive, cj, ct):
 
 
 @pytest.mark.parametrize("sort_impl", ["argsort", "counting"])
-@pytest.mark.parametrize("sweep_impl", ["ranges", "fused"])
+@pytest.mark.parametrize("sweep_impl", ["ranges", "fused", "shift",
+                                        "cellrow"])
 def test_q16_verlet_rebuild_and_reuse_exact(sweep_impl, sort_impl):
     """The packed-cand Verlet path under q16: a cold rebuild and a reuse
     tick equal JAX's in every output and cache lane and the snapped
@@ -343,3 +352,98 @@ def test_bf16_vel_rounds_to_nearest_even_and_crosses_interop():
     assert back["vel"].dtype == ml_dtypes.bfloat16
     assert back["aoi_cache"]["cand"].dtype == np.uint32
     _same_lanes(back, lanes, "round trip")
+
+
+@pytest.mark.parametrize("case", ["skin0", "skin4", "spaces3"])
+def test_q16_mlp_ticks_match_jax(case):
+    """precision="q16" under the mlp policy (hidden 128), 6 ticks of 512
+    rows a Space: the policy's float32 velocity stored into the
+    bfloat16 carry as the JAX tick stores it, on one Space at skin 0
+    and at skin 4 (the q16 Verlet cache), and on 3 Spaces' ``[S, ...]``
+    lanes against the JAX World's vmapped step; every lane of the state
+    (the cache included) and the outputs bit for bit."""
+    import dataclasses
+
+    import jax
+
+    from goworld_tpu.entity.manager import _make_local_tick as jlocal
+    from goworld_tpu.models import npc_policy as jpol
+    from goworld_tpu_torch.models import npc_policy as tpol
+    from test_torch_behaviors import bench_lanes, configs
+
+    skin = 4.0 if case == "skin4" else 0.0
+    spaces = 3 if case == "spaces3" else 0
+    jcfg, tcfg = configs(512, behavior="mlp")
+    jcfg, tcfg = (dataclasses.replace(c, grid=dataclasses.replace(
+        c.grid, precision="q16", skin=skin)) for c in (jcfg, tcfg))
+    plain = dataclasses.replace(jcfg, grid=dataclasses.replace(
+        jcfg.grid, skin=0.0))
+    worlds = [bench_lanes(plain, seed=d) for d in range(max(spaces, 1))]
+    if spaces:
+        for d, (lanes, _) in enumerate(worlds):
+            lanes["rng"] = np.array([0, d + 11], np.uint32)
+        lanes = {k: np.stack([w[0][k] for w in worlds]) for k in worlds[0][0]}
+        inputs = {k: np.stack([w[1][k] for w in worlds])
+                  for k in worlds[0][1]}
+        js = jstate.SpaceState(**{k: jnp.asarray(v)
+                                  for k, v in lanes.items()})
+        jtick = jlocal(jcfg, spaces)
+    else:
+        lanes, inputs = worlds[0]
+        js = jstate.create_state(jcfg, seed=1).replace(
+            **{k: jnp.asarray(v) for k, v in lanes.items()})
+        jtick = jmake_tick(jcfg)
+    assert js.vel.dtype == jnp.bfloat16
+    ts = interop.state_from_numpy(
+        {k: ({c: np.asarray(a) for c, a in v.items()}
+             if isinstance(v, dict) else np.asarray(v))
+         for k, v in _lanes(js).items()}, device="cpu")
+    ji = JInputs(**{k: jnp.asarray(v) for k, v in inputs.items()})
+    ti = interop.inputs_from_numpy(inputs, device="cpu")
+    ttick = make_tick(tcfg, device="cpu")
+    jp = jpol.init_policy(jax.random.PRNGKey(5), 128)
+    tp = tpol.init_policy(5, 128, device="cpu")
+    for t in range(6):
+        js, jo = jtick(js, ji, jp)
+        ts, to = ttick(ts, ti, tp)
+        _same_lanes(interop.state_to_numpy(ts), _lanes(js), f"state {t}")
+        _same_lanes(interop.outputs_to_numpy(to), _lanes(jo),
+                    f"outputs {t}")
+    assert ts.vel.dtype == torch.bfloat16
+    assert bool((ts.vel != 0).any())
+
+
+def test_q16_aoi_view_snaps_the_rounded_integrate():
+    """Under q16 XLA recomputes the integrate inside each fusion that
+    snaps it (the sweep's lattice, the sync records, the moved test),
+    where the moving select keeps the product ``vel * dt`` apart from
+    the add, while the stored position contracts it: 512 random-walk
+    movers at lattice edges ``x = B`` with a carried velocity of
+    ``-60 * 2^-17`` (``vel * dt`` rounds to ``-2^-17``, half the ulp of
+    x, a tie that rounds back to B, while the fused sum rounds below B)
+    snap to other cells from the two, and the port equals JAX bit for
+    bit over 2 ticks."""
+    import dataclasses
+
+    from test_torch_behaviors import bench_lanes, configs, run_ticks
+
+    jcfg, tcfg = configs(512)
+    jcfg, tcfg = (dataclasses.replace(c, grid=dataclasses.replace(
+        c.grid, precision="q16")) for c in (jcfg, tcfg))
+    step, dt = jcfg.grid.quant_step, np.float32(jcfg.dt)
+    lanes, inputs = bench_lanes(jcfg)
+    rng = np.random.default_rng(1)
+    x = (step * rng.integers(int(130 / step), int(250 / step), 512)) \
+        .astype(np.float32)
+    vx = np.float32(-60 * 2.0 ** -17)
+    fused = (x.astype(np.float64) + float(vx) * float(dt)).astype(np.float32)
+    rounded = x + np.float32(vx * dt)
+    assert (np.floor(fused / step) != np.floor(rounded / step)).all()
+    lanes["pos"][:, 0] = x
+    lanes["vel"][:] = 0
+    lanes["vel"][:, 0] = np.full(512, vx, np.float32) \
+        .astype(ml_dtypes.bfloat16)
+    inputs["pos_sync_n"] = np.asarray(0, np.int32)
+    diffs, gauges = run_ticks(jcfg, tcfg, lanes, inputs, None, None, 2)
+    assert gauges["enter"] > 0
+    assert not diffs, diffs

@@ -5,8 +5,13 @@ jax."""
 import jax
 import numpy as np
 import pytest
+import torch
 
 from goworld_tpu_torch.ops import prng
+
+# one intra-op thread a test process: parallel test workers' pools
+# would otherwise oversubscribe the host's cores
+torch.set_num_threads(1)
 
 SEEDS = [0, 1, 42, 2**31 - 1, 123456789]
 

@@ -13,6 +13,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from goworld_tpu.core import state as jstate
 from goworld_tpu.core.step import TickInputs as JInputs
@@ -26,6 +27,10 @@ from goworld_tpu_torch.scenarios import spec as tspec
 from goworld_tpu_torch.scenarios.runner import run_scenario as trun
 
 import test_torch_behaviors as tb
+
+# one intra-op thread a test process: parallel test workers' pools
+# would otherwise oversubscribe the host's cores
+torch.set_num_threads(1)
 
 NAMES = tspec.scenario_names()
 
@@ -214,3 +219,34 @@ def test_run_scenario_mixed_matches_jax():
     assert t.gauges() == j.gauges()
     assert t.oracle_ok and j.oracle_ok
     assert t.oracle_ticks_checked == j.oracle_ticks_checked == 3
+
+
+@pytest.mark.parametrize("name,spaces", [
+    (n, s) for n in NAMES for s in (2, 3, 8)] + [
+    (m, 8) for m in sorted(MEMBER_MIXES)])
+def test_batched_scenario_ticks_match_jax_vmapped_step(name, spaces):
+    """Every registry scenario at S = 2, 3 and 8 and every member mix at
+    S = 8 on the batched tick, 512 rows a Space, 8 ticks, bit for bit
+    against the JAX World's vmapped step: each Space splits its own key
+    into per-entity keys and reads its own tick's phase, the
+    ``behavior_id`` select, teleports, mixed watch radii, and the npc
+    mix's one-row matvecs now ``[S, N]`` of them (summed in k order)."""
+    from goworld_tpu.models.npc_policy import init_policy as jinit
+    from test_torch_multispace import _run_both, stacked_bench
+
+    from goworld_tpu_torch.models.npc_policy import init_policy
+
+    if name in MEMBER_MIXES:
+        jspec_ = jspec.ScenarioSpec(name=name, mix=MEMBER_MIXES[name])
+        tspec_ = tspec.ScenarioSpec(name=name, mix=MEMBER_MIXES[name])
+    else:
+        jspec_, tspec_ = jspec.get_scenario(name), tspec.get_scenario(name)
+    jcfg, tcfg = tb.configs(scenario=jspec_)
+    tcfg = dataclasses.replace(tcfg, scenario=tspec_)
+    lanes, inputs = stacked_bench(jcfg, spaces, scenario=True)
+    pol = tspec_.needs_policy
+    _, outs = _run_both(
+        jcfg, tcfg, lanes, inputs, 8,
+        jinit(jax.random.PRNGKey(5), 128) if pol else None,
+        init_policy(5, 128, device="cpu") if pol else None)
+    assert (outs[0]["enter_n"] > 0).all()

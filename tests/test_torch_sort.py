@@ -22,6 +22,10 @@ from goworld_tpu_torch.ops.sort import (
     row_starts,
 )
 
+# one intra-op thread a test process: parallel test workers' pools
+# would otherwise oversubscribe the host's cores
+torch.set_num_threads(1)
+
 CASES = [
     # (n, n_rows, chunk, dead_frac, distinct keys): duplicate-heavy, one
     # bin, n not a multiple of the chunk, chunk past n, many dead slots

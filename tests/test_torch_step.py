@@ -14,6 +14,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from goworld_tpu.core import state as jstate
 from goworld_tpu.core.step import TickInputs as JInputs
@@ -23,6 +24,10 @@ from goworld_tpu_torch import interop
 from goworld_tpu_torch.core import state as tstate
 from goworld_tpu_torch.core.step import TickInputs, make_tick
 from goworld_tpu_torch.workload import slice_config
+
+# one intra-op thread a test process: parallel test workers' pools
+# would otherwise oversubscribe the host's cores
+torch.set_num_threads(1)
 
 N = 1024
 TICKS = 5

@@ -30,6 +30,10 @@ from goworld_tpu_torch.ops.aoi import GridSpec
 from goworld_tpu_torch.parallel.megaspace import MegaTickOutputs as TMega
 from goworld_tpu_torch.utils import devprof as tdevprof
 
+# one intra-op thread a test process: parallel test workers' pools
+# would otherwise oversubscribe the host's cores
+torch.set_num_threads(1)
+
 FOLDS = 32
 # counts at the edges, between them and past the last one
 COUNTS = np.array([0, 1, 4, 16, 64, 256, 1024, 4096, 16384, 65536, 262144,

@@ -32,6 +32,10 @@ from goworld_tpu_torch.core import state as tstate
 from goworld_tpu_torch.core.step import make_tick
 from goworld_tpu_torch.ops import aoi as taoi
 
+# one intra-op thread a test process: parallel test workers' pools
+# would otherwise oversubscribe the host's cores
+torch.set_num_threads(1)
+
 N = 500
 EXTENT = 300.0
 
@@ -136,7 +140,7 @@ def _holds_parity(out, ref):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("impl", ["ranges", "fused"])
+@pytest.mark.parametrize("impl", ["ranges", "fused", "shift", "cellrow"])
 def test_random_walk_zero_divergence_with_reuse(impl):
     """30 small-step ticks: the port equals JAX every tick, its lists,
     counts and flags equal the per-tick sweep's, and most ticks reuse

@@ -14,6 +14,7 @@ import dataclasses
 import jax
 import numpy as np
 import pytest
+import torch
 
 from goworld_tpu.core import state as jstate
 from goworld_tpu.scenarios import spec as jspec
@@ -21,6 +22,10 @@ from goworld_tpu_torch.scenarios import spec as tspec
 
 import test_torch_behaviors as tb
 from test_torch_scenarios import MEMBER_MIXES, NAMES
+
+# one intra-op thread a test process: parallel test workers' pools
+# would otherwise oversubscribe the host's cores
+torch.set_num_threads(1)
 
 WIDE = (4096, 16)
 WIDE_CASES = ["btree", "mlp"] + list(NAMES) + sorted(MEMBER_MIXES)

@@ -11,6 +11,7 @@ import math
 import msgpack
 import numpy as np
 import pytest
+import torch
 from hypothesis import given, settings
 from hypothesis import strategies as hs
 
@@ -29,6 +30,10 @@ from goworld_tpu_torch.net import proto as tproto
 from goworld_tpu_torch.utils import mpack
 from goworld_tpu_torch.utils import syncage as tsyncage
 from goworld_tpu_torch.utils import tracing as ttracing
+
+# one intra-op thread a test process: parallel test workers' pools
+# would otherwise oversubscribe the host's cores
+torch.set_num_threads(1)
 
 _scalars = (hs.none() | hs.booleans()
             | hs.integers(-(1 << 63), (1 << 64) - 1)

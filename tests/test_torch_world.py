@@ -59,6 +59,10 @@ from goworld_tpu_torch.entity.service import ServiceManager as TServices
 from goworld_tpu_torch.ops.aoi import GridSpec as TGrid
 from goworld_tpu_torch.utils import ids
 
+# one intra-op thread a test process: parallel test workers' pools
+# would otherwise oversubscribe the host's cores
+torch.set_num_threads(1)
+
 CAP = 256
 EXTENT = 600.0
 GRID = dict(radius=50.0, extent_x=EXTENT, extent_z=EXTENT, k=32,
@@ -589,14 +593,15 @@ class MultiSide(Side):
         self.log: list = []
         self.sync: list = []
         self.clock = Clock()
-        n_spaces, sweep, sort, skin, self.defaults = game
+        n_spaces, sweep, sort, skin, self.defaults, *beh = game
         grid = dict(GRID, sweep_impl=sweep, sort_impl=sort, skin=skin)
         make = dict(PLANES) if self.defaults else dict(
             telemetry_live=False, residency=False, audit=False)
+        world = dict(WORLD, behavior=beh[0]) if beh else WORLD
         if pkg is jent:
-            cfg = JConfig(grid=JGrid(**grid), **WORLD)
+            cfg = JConfig(grid=JGrid(**grid), **world)
         else:
-            cfg = TConfig(grid=TGrid(**grid), **WORLD)
+            cfg = TConfig(grid=TGrid(**grid), **world)
             make["device"] = "cpu"
         types = game_types(pkg, self.log)
         w = pkg.World(cfg, n_spaces, game_id=1, clock=self.clock, seed=3,
@@ -652,7 +657,7 @@ def run_multi_game(game) -> dict:
         for d, arena in enumerate(s.arenas):
             for i, (x, z) in enumerate(mob_pos[d]):
                 arena.create_entity("Mob", pos=(x, 0.0, z),
-                                    eid=eid(f"s{d}m{i}"), moving=i % 6 == 0,
+                                    eid=eid(f"s{d}m{i}"), moving=i % 6 < 2,
                                     attrs={"hp": 10 + i, "name": f"m{i}"})
             for i in range(2):
                 arena.create_entity(
@@ -751,14 +756,16 @@ MULTI_GAMES = [(2, "ranges", "argsort", 0.0, False),
                (2, "fused", "pallas", 0.0, False),
                (4, "fused", "pallas", 0.0, False),
                (2, "fused", "pallas", 4.0, False),
-               (2, "fused", "pallas", 0.0, True)]
+               (2, "fused", "pallas", 0.0, True),
+               (3, "fused", "pallas", 0.0, False, "btree"),
+               (3, "fused", "pallas", 0.0, False, "mlp")]
 MULTI_CASES = ["spawn", "enter_space", "cancel_in_window",
                "destroy_in_window", "migrate_with_sync", "attr_in_window"]
 
 
 @pytest.fixture(scope="module", params=MULTI_GAMES,
                 ids=["s2-ranges", "s2-fused", "s4-fused", "s2-fused-skin4",
-                     "s2-fused-defaults"])
+                     "s2-fused-defaults", "s3-fused-btree", "s3-fused-mlp"])
 def multi_game(request):
     return run_multi_game(request.param)
 
@@ -907,8 +914,8 @@ def test_unported_configs_raise_not_implemented(change):
     """A config the port does not run raises. The Verlet skin and the
     mlp behavior were refused until they were ported; their cases now
     hold that the World takes them and ticks (the mlp World with its
-    policy drawn from the seed), and that behaviors stay refused at
-    n_spaces > 1."""
+    policy drawn from the seed), at n_spaces = 2 too, where behaviors
+    were refused until they were ported on the batched step."""
     cfg = dataclasses.replace(SMALL, **change)
     w = tent.World(cfg, device="cpu")
     w.tick()
@@ -917,8 +924,9 @@ def test_unported_configs_raise_not_implemented(change):
         assert int(w.last_outputs.aoi_rebuilt[0]) == 1
         return
     assert w.policy is not None and w.policy.hidden == 128
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tent.World(cfg, n_spaces=2, device="cpu")
+    w2 = tent.World(cfg, n_spaces=2, device="cpu")
+    w2.tick()
+    assert w2.policy is not None and w2.state.pos.shape[0] == 2
 
 
 def test_world_runs_on_the_card_unless_asked(monkeypatch):
