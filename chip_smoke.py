@@ -173,8 +173,8 @@ is caught:
     its bytes), a ``SnapshotChain`` keyframe and, 8 ticks on, a delta
     (each captured on the tick thread and built on the caller), the
     audit's ``scrub_snapshots`` over both files (0 corrupt); a restore
-    of the delta into a fresh World of 2^20 slots at the uncut config's
-    skin, its poses equal to the source's lattice planes byte for byte,
+    of the delta's first RESTORE_N records into a fresh World of 2^20
+    slots at the uncut config's skin, its poses equal to the source's lattice planes byte for byte,
     RESTORED_TICKS ticks (one sweep launch a tick, the first a Verlet
     rebuild); the governor on that World: every default candidate
     warmed off the tick thread, commits forced through GOVERNOR_SWAPS,
@@ -243,7 +243,44 @@ is caught:
     ``shift`` on a clustered world of FLOAT_N (cells past cell_cap) on
     the card == the CPU port's. [12] reads the torch kernels a tick of
     [5], of [17]'s config 5 under mlp and of [20]'s batched tick under
-    mlp.
+    mlp;
+21. (run before 12) the World on a mesh and the megaspace World, every
+    shard on the card (``parallel.mesh.make_mesh``): (a)
+    ``make_multi_tick`` at SPACES x SPACE_N ([15]'s worlds): MESH_TICKS
+    ticks without migration requests in lockstep with [15]'s batched
+    tick (every lane equal, no arrival), then, from the same worlds
+    with 1/8 of each shard's rows free (MESH_FULL_FREE in MESH_FULL),
+    MESH_TICKS ticks of MESH_MIGRATIONS requests (8 a shard into
+    MESH_FULL, so arrivals are dropped) against the plain twin
+    (ranges/argsort) in every lane and output, one sweep and one sort
+    launch a tick, two ticks under the sync guard, p50/p99 by events;
+    (b) [15]'s World on a mesh of SPACES (``serve_world(...,
+    mesh=True)``): WORLD_TICKS ``World.tick``s of the game's traffic and
+    SERVE_MIGRATIONS ``enter_space`` moves a tick riding the step's
+    exchange, every move arrived and each moved entity's (shard, slot)
+    an alive row of its type it owns on the card, p50/p99 and spans;
+    (c) the megaspace World through ``gw.run()``: an ini shaped like
+    ``examples/megaspace_demo/goworld_tpu.ini`` (``mesh_devices``
+    SPACES, ``megaspace = true``, ``mega_shape`` 4x2, btree) at
+    ``workload.mega_config``'s radius, world extent and halo_cap,
+    MEGA_GAME_SLOTS slots a tile, ``fused``/``pallas``, ``halo_impl =
+    async``; MEGA_GAME_MONSTERS btree Monsters booted in ticks whose
+    events fit the caps; MEGA_GAME_BOTS strict bots in groups of
+    MEGA_GAME_GROUP at tile corners, each walking across the borders
+    it faces for MEGA_GAME_WALK_S s; it fails unless every game tick
+    launches SPACES sweeps, SPACES sorts and 2 phase kernels, no
+    arrival is dropped and no halo overflows, every Avatar keeps its
+    EntityID and crosses a border, the strict mirrors report 0 errors
+    and equal the interest sets, the interest sets equal a brute-force
+    oracle over the fetched positions (Avatars past k apart), and the
+    freeze through the dispatchers and ``GameServer(restore=True)``
+    into a fresh megaspace World restore every entity, whose first
+    tick runs; (d) megaspace twins of SPACES x MEGA_TWIN_N (kernels,
+    ``async``; plain versions, ``ppermute``) equal in sinks, hooks,
+    state, telemetry lanes, signatures, audit stats and ledgers for
+    MEGA_TWIN_TICKS ticks, and a megaspace World and a World on a mesh
+    of SPACES x CARD_CPU_N on the card == the CPU port in every lane
+    of state and outputs for CARD_CPU_TICKS ticks.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -298,7 +335,11 @@ from goworld_tpu_torch.parallel.megaspace import (
 from goworld_tpu_torch.utils import audit as audit_mod
 from goworld_tpu_torch.utils import metrics
 from goworld_tpu_torch.ops.integrate import apply_pos_inputs
-from goworld_tpu_torch.parallel.mesh import tile_view
+from goworld_tpu_torch.parallel.mesh import make_mesh, tile_view
+from goworld_tpu_torch.parallel.step import (
+    MultiTickInputs,
+    make_multi_tick,
+)
 from goworld_tpu_torch.workload import (
     POLICY_SEED,
     behavior_config,
@@ -322,11 +363,13 @@ TICKS = 24
 MEGA_DEV = 4          # 2x2 tiles, as bench.py's multichip world on 4 chips
 MEGA_TICKS = 16
 WORLD_TICKS = 16
-STRESS_TICKS = 8
+# cut from 8, with TWIN_N and RESTORE_N, to keep the run with [21]
+# inside its limit (PERF.md §4)
+STRESS_TICKS = 4
 # [11]'s World at its defaults, sampled so that samples land inside its
 # timed ticks
 PLANES = dict(residency_sample_every=4, audit_sample_every=8)
-TWIN_N = 1 << 16
+TWIN_N = 1 << 15
 TWIN_TICKS = 8
 VERLET_TICKS = 64     # ~24 ticks between displacement rebuilds at skin 4
 Q16_TICKS = 32
@@ -360,6 +403,9 @@ SLICE_TWIN_TICKS = 4
 SLICE_Q16_TICKS = 16
 # [18] the World's remaining planes
 RESTORED_TICKS = 4
+# [18] restores the first RESTORE_N records of the resolved delta (of
+# ~1M) into its World of 2^20 slots
+RESTORE_N = 1 << 18
 GOVERNOR_SWAPS = ["skin=0", "sweep=table,skin=0", "sort=counting,skin=0",
                   "default"]
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, the
@@ -966,13 +1012,17 @@ def first_space(obj):
 
 
 def world_ticks(served, n_ticks: int, teleport: bool,
-                mlp: bool = False) -> tuple[list, dict]:
+                mlp: bool = False, want: dict | None = None,
+                after=None) -> tuple[list, dict]:
     """``n_ticks`` of staged traffic (walking syncs, or with ``teleport``
     the stress stream) and ``World.tick``; (per tick: wall s, span s,
     decoded and true counts, whether it took an audit sample; launch
     counts of the run). Every tick must launch the sweep and the sort
-    once each (and ``npc_mlp`` once under ``mlp``) and deliver what the
-    World decoded."""
+    once each (and ``npc_mlp`` once under ``mlp``; or ``want``) and
+    deliver what the World decoded; ``after()`` runs after each tick.
+    A World on a mesh reads its step's ``base`` outputs, and its alive
+    rows are its entities with slots less the source rows of this
+    tick's migrations (owned until their leave events decode)."""
     w = served.world
     rows = []
     kernels.reset_launches()
@@ -984,10 +1034,12 @@ def world_ticks(served, n_ticks: int, teleport: bool,
         w.tick()
         wall = time.perf_counter() - t0
         got = {k: kernels.LAUNCHES[k] - before[k] for k in before}
-        if got != {"sweep_fused": 1, "counting_sort": 1,
-                   "halo_ship_phase": 0, "npc_mlp": int(mlp)}:
+        if got != (want or {"sweep_fused": 1, "counting_sort": 1,
+                            "halo_ship_phase": 0, "npc_mlp": int(mlp)}):
             fail(f"World.tick {t + 1} launched {got}")
         out, ops, sink = w.last_outputs, w.op_stats, served.sink.take()
+        mesh_out = out
+        out = getattr(out, "base", out)
         if sink["sync_records"] != ops["sync_records_sent"] or \
                 sink["sync_records"] <= 0:
             fail(f"World.tick {t + 1}: sync sink got "
@@ -997,7 +1049,13 @@ def world_ticks(served, n_ticks: int, teleport: bool,
         # a pipelined World has decoded the previous tick's outputs,
         # while its slots hold this tick's creates (checked after its
         # drain by the caller)
-        if not w.pipeline_decode and out.alive_count.tolist() != owned:
+        if w.mesh is not None:
+            if int(mesh_out.global_alive[0]) != sum(owned) \
+                    - len(w._release_now):
+                fail(f"World.tick {t + 1}: {int(mesh_out.global_alive[0])}"
+                     f" alive rows for {sum(owned)} entities with slots "
+                     f"less {len(w._release_now)} departed")
+        elif not w.pipeline_decode and out.alive_count.tolist() != owned:
             fail(f"World.tick {t + 1}: {out.alive_count.tolist()} alive "
                  f"rows for {owned} entities with slots")
         cfg = w.cfg
@@ -1013,6 +1071,8 @@ def world_ticks(served, n_ticks: int, teleport: bool,
             if migrated != staged["migrations"] or w._staged_migrate:
                 fail(f"World.tick {t + 1}: {migrated} of "
                      f"{staged['migrations']} staged migrations applied")
+        if after is not None:
+            after()
         rows.append(dict(
             wall=wall, staged=staged, sample=sample, migrated=migrated,
             spans={name: d for name, _, d, _ in
@@ -1617,9 +1677,14 @@ def planes_phase(dev, served, tag: str) -> dict:
     del served, w, handle, chain, captured, data
     release_worlds()
 
-    # restore into a fresh World of 2^20 slots at the uncut config's skin
-    want = chain_planes(recs)
+    # restore the first RESTORE_N records into a fresh World of 2^20
+    # slots at the uncut config's skin; the planes are the records' rows
+    # in order, so theirs are each plane's first RESTORE_N rows
+    widths = {"pos_xz": 4, "pos_y": 4, "yaw": 2, "moving": 1}
+    want = {nm: p[:RESTORE_N * widths[nm]]
+            for nm, p in chain_planes(recs).items()}
     data = freeze.resolve_record(recs["delta"], recs["key"])
+    data["entities"] = data["entities"][:RESTORE_N]
     ucfg = uncut_config(N)
     rw = manager.World(ucfg, seed=SEED, device=dev, **PLANES)
     for name, cls in zip(("Mob", "Player", "Arena"), _game_types(None)):
@@ -1682,8 +1747,9 @@ def planes_phase(dev, served, tag: str) -> dict:
         fail("[18] the restored players' rows differ from the source's "
              "lattice planes")
     print(f"[18] restore into a fresh World of {N} slots (the uncut "
-          f"config, skin {ucfg.grid.skin}): {len(data['entities'])} "
-          f"entities in {restore_s:.2f} s; its staged poses == the "
+          f"config, skin {ucfg.grid.skin}): the first "
+          f"{len(data['entities'])} entities of the delta in "
+          f"{restore_s:.2f} s; its staged poses == the "
           f"source's lattice planes byte for byte "
           f"(pos_xz, pos_y, yaw; its device moving flags after the first "
           f"tick, moving); "
@@ -2950,11 +3016,12 @@ def boot_monsters(world, pop: int, seed: int, log: dict) -> None:
                events=events, monsters=pop)
 
 
-def check_game_launches(before: dict, what: str) -> None:
+def check_game_launches(before: dict, what: str, want: dict | None = None,
+                        label: str = "[19]") -> None:
     got = {k: kernels.LAUNCHES[k] - before[k] for k in before}
-    if got != {"sweep_fused": 1, "counting_sort": 1, "halo_ship_phase": 0,
-               "npc_mlp": 0}:
-        fail(f"[19] {what} launched {got}")
+    if got != (want or {"sweep_fused": 1, "counting_sort": 1,
+                        "halo_ship_phase": 0, "npc_mlp": 0}):
+        fail(f"{label} {what} launched {got}")
 
 
 def game_spots(world, groups: int, size: int, seed: int) -> list:
@@ -3590,6 +3657,642 @@ def underflow_on_card(dev, tag: str) -> dict:
     return words_by
 
 
+# ---------------------------------------------------------------- [21]
+
+MESH_TICKS = 24          # (a) lockstep ticks and migration ticks
+MESH_MIGRATIONS = 256    # (a) migration requests a tick, 32 a shard
+MESH_FULL = SPACES - 1   # (a) the shard kept nearly full
+MESH_FULL_FREE = 16      # (a) its free slots at the start
+MEGA_GAME_SLOTS = 1 << 17   # (c) slots a tile: 2^20 in all
+MEGA_GAME_SHAPE = (4, 2)
+MEGA_GAME_MONSTERS = 1 << 17
+MEGA_GAME_BOTS = 16
+MEGA_GAME_GROUP = 4
+MEGA_GAME_WALK_S = 3.0
+MEGA_TWIN_N = 1 << 13    # (d) kernel/plain twins: 8 tiles of 2^13
+MEGA_TWIN_TICKS = 8
+CARD_CPU_N = 1024        # (d) card against the CPU port: 8 x 1024
+CARD_CPU_SPARE = 256
+CARD_CPU_TICKS = 4
+MEGA_LAUNCHES = {"sweep_fused": SPACES, "counting_sort": SPACES,
+                 "halo_ship_phase": 2, "npc_mlp": 0}
+
+
+def mesh_requests(rng, n: int, tick: int, dev):
+    """(target, tag) i32[SPACES, n] of one tick: 32 rows a shard asked
+    to move to another shard, 8 of them into MESH_FULL; tags unique."""
+    tgt = np.full((SPACES, n), -1, np.int32)
+    tag = np.full((SPACES, n), -1, np.int32)
+    per = MESH_MIGRATIONS // SPACES
+    t = 0
+    for d in range(SPACES):
+        rows = rng.choice(n, per, replace=False)
+        dst = (d + rng.integers(1, SPACES, per)) % SPACES
+        if d != MESH_FULL:
+            dst[:8] = MESH_FULL
+        tgt[d, rows] = dst
+        tag[d, rows] = np.arange(t, t + per) + tick * MESH_MIGRATIONS
+        t += per
+    return (torch.from_numpy(tgt).to(dev), torch.from_numpy(tag).to(dev))
+
+
+def mesh_tick_part(dev, tag) -> tuple[dict, str]:
+    """[21] (a): ``make_multi_tick`` at 8 x 2^17 ([15]'s worlds): with
+    no migration requests in lockstep with the batched tick, every lane
+    equal; with MESH_MIGRATIONS requests a tick, some into a shard kept
+    nearly full, against its plain twin (ranges/argsort) in every lane
+    and output; two ticks under the sync guard; p50/p99 by events."""
+    cfg = multi_config(SPACES, SPACE_N)
+    n = cfg.capacity
+    st0, inputs = multi_world(cfg, SPACES, SEED, dev)
+    mesh = make_mesh(SPACES, device=dev)
+    mtick = make_multi_tick(cfg, mesh)
+    btick = make_tick(cfg, device=dev)
+    none = torch.full((SPACES, n), -1, dtype=torch.int32, device=dev)
+    idle = MultiTickInputs(base=inputs, migrate_target=none,
+                           migrate_tag=none)
+    sm, sb = st0.apply(torch.clone), st0
+    diffs = []
+    kernels.reset_launches()
+    for _ in range(MESH_TICKS):
+        sm, om = mtick(sm, idle)
+        sb, ob = btick(sb, inputs)
+        la, lb = lanes(sm), lanes(sb)
+        diffs += [diff_count(la[k], lb[k]) for k in la
+                  if la[k] is not None or lb[k] is not None]
+        oa, obb = lanes(om.base), lanes(ob)
+        diffs += [diff_count(oa[k], obb[k]) for k in oa]
+        diffs += [om.arr_n.sum(), om.migrate_dropped.sum(),
+                  (om.global_alive != sm.alive.sum()).sum()]
+    lock_launches = dict(kernels.LAUNCHES)
+    bad = int(torch.stack(diffs).sum())
+    if bad:
+        fail(f"[21] make_multi_tick without requests differs from the "
+             f"batched tick in {bad} words")
+    if lock_launches != {"sweep_fused": 2 * MESH_TICKS,
+                         "counting_sort": 2 * MESH_TICKS,
+                         "halo_ship_phase": 0, "npc_mlp": 0}:
+        fail(f"[21] lockstep launches {lock_launches}")
+    del sm, sb, om, ob, la, lb, oa, obb, diffs
+
+    # free rows: 1/8 of every shard's, MESH_FULL_FREE of MESH_FULL's
+    rng = np.random.default_rng(SEED + 21)
+    dead = np.zeros((SPACES, n), bool)
+    for d in range(SPACES):
+        k = MESH_FULL_FREE if d == MESH_FULL else n // 8
+        dead[d, rng.choice(n, k, replace=False)] = True
+    dead_t = torch.from_numpy(dead).to(dev)
+    start = st0.replace(
+        alive=st0.alive & ~dead_t, npc_moving=st0.npc_moving & ~dead_t,
+        has_client=st0.has_client & ~dead_t,
+        client_gate=torch.where(dead_t, -1, st0.client_gate))
+    del st0
+    reqs = [mesh_requests(rng, n, t, dev) for t in range(MESH_TICKS)]
+    plain_cfg = dataclasses.replace(cfg, grid=dataclasses.replace(
+        cfg.grid, sweep_impl="ranges", sort_impl="argsort"))
+    ptick = make_multi_tick(plain_cfg, mesh)
+    # two ticks under the sync guard, from a copy of the start
+    guard = start.apply(torch.clone)
+    torch.cuda.set_sync_debug_mode("error")
+    for t in range(2):
+        guard, _ = mtick(guard, MultiTickInputs(inputs, *reqs[t]))
+    torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    del guard
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True))
+          for _ in range(MESH_TICKS)]
+    sk, sp = start, start.apply(torch.clone)
+    diffs, gauges = [], []
+    for t, (a, b) in enumerate(ev):
+        mi = MultiTickInputs(inputs, *reqs[t])
+        kernels.reset_launches()
+        a.record()
+        sk, ok = mtick(sk, mi)
+        b.record()
+        got = dict(kernels.LAUNCHES)
+        if got != {"sweep_fused": 1, "counting_sort": 1,
+                   "halo_ship_phase": 0, "npc_mlp": 0}:
+            fail(f"[21] make_multi_tick {t + 1} launched {got}")
+        sp, op = ptick(sp, mi)
+        la, lb = lanes(sk), lanes(sp)
+        diffs += [diff_count(la[k], lb[k]) for k in la
+                  if la[k] is not None or lb[k] is not None]
+        oa, obb = lanes(ok), lanes(op)
+        diffs += [diff_count(oa[k], obb[k]) for k in oa]
+        gauges.append(torch.stack([
+            ok.arr_n.sum(), ok.migrate_dropped.sum(),
+            ok.migrate_demand.sum(), ok.global_alive[0],
+            ok.base.enter_n.sum()]))
+    torch.cuda.synchronize()
+    bad = int(torch.stack(diffs).sum())
+    if bad:
+        fail(f"[21] make_multi_tick with migrations differs from its "
+             f"plain twin in {bad} words")
+    gv = torch.stack(gauges).cpu().numpy()
+    alive0 = int((~dead).sum())
+    if gv[:, 1].max() <= 0 or gv[:, 0].min() <= 0:
+        fail(f"[21] migrations: arrivals a tick {gv[:, 0].tolist()}, "
+             f"dropped {gv[:, 1].tolist()}")
+    # every request either arrived or was dropped; the mesh keeps its
+    # population less the dropped arrivals
+    if int(gv[-1, 3]) != alive0 - int(gv[:, 1].sum()):
+        fail(f"[21] global_alive {int(gv[-1, 3])} != {alive0} less "
+             f"{int(gv[:, 1].sum())} dropped")
+    ms = np.array([a.elapsed_time(b) for a, b in ev])[1:]
+    p50, p99 = float(np.percentile(ms, 50)), float(np.percentile(ms, 99))
+    del sk, sp, ok, op, la, lb, oa, obb, diffs, reqs, start
+    text = (f"(a) make_multi_tick at {SPACES} x {SPACE_N}: {MESH_TICKS} "
+            f"ticks without requests == the batched tick in every lane "
+            f"and output (launches {lock_launches} for both); "
+            f"{MESH_TICKS} ticks of {MESH_MIGRATIONS} requests == the "
+            f"plain twin (ranges/argsort) in every lane, arrivals a tick "
+            f"{int(gv[:, 0].min())}-{int(gv[:, 0].max())}, dropped at the "
+            f"nearly full shard {gv[:, 1].astype(int).tolist()}, "
+            f"global_alive {alive0} -> {int(gv[-1, 3])}; 1 sweep + 1 sort "
+            f"launch a tick; two ticks under the sync guard raised "
+            f"nothing; ms/tick p50={p50:.3f} p99={p99:.3f} (ticks "
+            f"2-{MESH_TICKS}, CUDA events)")
+    return ({"mesh_lockstep": lock_launches,
+             "mesh_migrations": {"sweep_fused": MESH_TICKS,
+                                 "counting_sort": MESH_TICKS,
+                                 "halo_ship_phase": 0, "npc_mlp": 0}},
+            text)
+
+
+def mesh_world_part(dev, tag) -> tuple[dict, str]:
+    """[21] (b): [15]'s World of SPACES Spaces built on a mesh of SPACES
+    (``make_mesh``): the game's traffic and SERVE_MIGRATIONS moves a
+    tick riding the step's exchange, every move arrived and each moved
+    entity's (shard, slot) an alive row of its type on the card."""
+    served = serve_world(SPACE_WORLD_N, SEED, dev, boot=True,
+                         world_kw=PLANES, spaces=SPACES, mesh=True)
+    w = served.world
+    n_pop = len(w.entities) - SPACES - 1
+    checked = [0]
+
+    def moves_on_card():
+        moved = [(w.entities[eid], dst) for eid, dst in served.migrating
+                 if eid in w.entities]
+        if not moved:
+            return
+        sh = torch.tensor([e.shard for e, _ in moved], device=dev)
+        sl = torch.tensor([e.slot for e, _ in moved], device=dev)
+        alive, tid = w._dget([w.state.alive[sh, sl],
+                              w.state.type_id[sh, sl]])
+        for (e, dst), a, ti in zip(moved, alive, tid):
+            if e.shard != dst or not a or ti != e._type_desc.type_id \
+                    or w._slot_owner[e.shard].get(e.slot) != e.id:
+                fail(f"[21] moved entity {e.id} at ({e.shard}, {e.slot}) "
+                     f"wanted shard {dst}: row alive {bool(a)}, type {ti}")
+        checked[0] += len(moved)
+
+    rows, launches = world_ticks(served, WORLD_TICKS, teleport=False,
+                                 after=moves_on_card)
+    staged = sum(r["staged"]["migrations"] for r in rows)
+    applied = sum(r["migrated"] for r in rows)
+    planes = (f"lanes hold {sum(w._telem_lanes['rebuilt']['counts'])} "
+              f"ticks, signature {w.workload_signature()['sig']}, audit "
+              f"skips {audit_state(w)['oracle']['skipped']}")
+    text = (f"(b) World of {SPACES} Spaces x {SPACE_WORLD_N} on a mesh of "
+            f"{SPACES}: {n_pop} entities booted in {served.boot_ticks} "
+            f"ticks; {WORLD_TICKS} World.ticks, launches {launches}; "
+            f"moves riding the step's exchange: {applied} of {staged} "
+            f"arrived, {checked[0]} rows checked on the card (alive, "
+            f"type, owner); {world_summary(rows, w.cfg)}; planes: "
+            f"{planes}")
+    del served, w
+    release_worlds()
+    return {"mesh_world": launches}, text
+
+
+class GameMegaArena(gw.Space):
+    pass
+
+
+def mega_boot(world, pop: int, extent: float, seed: int,
+              log: dict) -> None:
+    """(c)'s boot (``on_boot``): the megaspace Arena, then ``pop`` btree
+    Monsters uniform over the world, entered in batches whose enter
+    events stay within half of a tile's ``enter_cap`` spread over the
+    tiles, each boot tick's caps checked on every tile."""
+    t0 = time.perf_counter()
+    world.arena = world.create_space("Arena")
+    world.said = []
+    cfg, g = world.cfg, world.cfg.grid
+    tiles = world.n_spaces
+    rng = np.random.default_rng(seed)
+    pos = np.zeros((pop, 3))
+    pos[:, 0] = rng.uniform(0, extent, pop)
+    pos[:, 2] = rng.uniform(0, extent, pop)
+    nb = pop * (2.0 * g.radius) ** 2 / (extent * extent)
+    budget = cfg.enter_cap / 4.0 * tiles
+    done = ticks = events = 0
+    while done < pop:
+        hi = min(pop, done + max(1, int(
+            -done + np.sqrt(done ** 2 + budget * pop / nb))))
+        for i in range(done, hi):
+            world.arena.create_entity("Monster", pos=tuple(pos[i]),
+                                      moving=True, attrs={"hp": 100})
+        done = hi
+        before = dict(kernels.LAUNCHES)
+        world.tick()
+        check_game_launches(before, f"boot tick {ticks + 1}",
+                            MEGA_LAUNCHES, "[21]")
+        out = world.last_outputs
+        for lane, cap in (("enter_n", cfg.enter_cap),
+                          ("leave_n", cfg.leave_cap),
+                          ("delta_rows_n", cfg.delta_rows_cap_eff)):
+            if int(getattr(out.base, lane).max()) > cap:
+                fail(f"[21] boot tick {ticks + 1}: {lane} > {cap}")
+        ticks += 1
+        events += int(out.base.enter_n.sum())
+    log.update(seconds=time.perf_counter() - t0, ticks=ticks,
+               events=events, monsters=pop)
+
+
+def corner_spots(mc_shape, tile_w: float, tile_d: float) -> list:
+    """(c)'s bots: MEGA_GAME_GROUP bots a group, 3 units off a point
+    where tiles meet on both axes (the 4 x 2 grid's three inner corners,
+    then a point of the middle x border), each heading across it."""
+    tx, tz = mc_shape
+    points = [(i * tile_w, j * tile_d) for j in range(1, tz)
+              for i in range(1, tx)]
+    points.append((tile_w * (tx // 2), tile_d / 2))
+    groups = MEGA_GAME_BOTS // MEGA_GAME_GROUP
+    spots = []
+    for x, z in points[:groups]:
+        for sx, sz in ((1, 1), (1, -1), (-1, 1), (-1, -1)):
+            spots.append((x + 3.0 * sx, z + 3.0 * sz, -sx, -sz))
+    return spots
+
+
+async def bots_cross(bots, spots, seconds: float, step: float) -> None:
+    """Every bot walks straight across the border its spot faces, one
+    ``step`` each 0.1 s with a position sync, for ``seconds``."""
+    t_end = time.perf_counter() + seconds
+    while time.perf_counter() < t_end:
+        for b, (_, _, dx, dz) in zip(bots, spots):
+            x, y, z = b.player.pos
+            x, z = x + step * dx, z + step * dz
+            b.player.pos = (x, y, z)
+            b.send_position(x, y, z, 0.0)
+        await asyncio.sleep(0.1)
+
+
+def mega_game_part(dev, tag) -> tuple[dict, str]:
+    """[21] (c): the megaspace World through ``gw.run()`` (see the
+    module docstring). Returns the launches of its game ticks."""
+    from goworld_tpu_torch import api
+    from goworld_tpu_torch import freeze as freeze_mod
+    from goworld_tpu_torch.net.botclient import BotClient
+    from goworld_tpu_torch.net.game import GameServer
+    from goworld_tpu_torch.net.standalone import ClusterHarness
+
+    api._reset_for_tests()
+    api._boot_callbacks.clear()
+    kernels.reset_launches()
+    tx, tz = MEGA_GAME_SHAPE
+    mc = mega_config(SPACES * MEGA_GAME_SLOTS, SPACES)
+    extent = float(int((SPACES * MEGA_GAME_SLOTS * 10000 / 12) ** 0.5))
+    tile_w, tile_d = extent / tx, extent / tz
+    harness = ClusterHarness(n_dispatchers=2, n_gates=1, desired_games=1,
+                             position_sync_interval_ms=50)
+    harness.start()
+    home = os.getcwd()
+    tmp = tempfile.mkdtemp(prefix="mega_game_")
+    rt = None
+    try:
+        os.chdir(tmp)
+        disp = "".join(f"[dispatcher{i + 1}]\nhost = {h}\nport = {p}\n\n"
+                       for i, (h, p) in enumerate(harness.dispatcher_addrs))
+        with open("goworld_tpu.ini", "w") as f:
+            f.write(
+                f"{disp}[game_common]\nboot_entity = Account\n"
+                f"capacity = {MEGA_GAME_SLOTS}\nmesh_devices = {SPACES}\n"
+                f"megaspace = true\nmega_shape = {tx}x{tz}\n"
+                f"extent_x = {extent}\nextent_z = {extent}\n"
+                f"aoi_radius = {mc.cfg.grid.radius}\nbehavior = btree\n"
+                f"aoi_k = {mc.cfg.grid.k}\n"
+                f"aoi_cell_cap = {mc.cfg.grid.cell_cap}\n"
+                "aoi_sweep_impl = fused\naoi_sort_impl = pallas\n"
+                f"halo_impl = async\nhalo_cap = {mc.halo_cap}\n"
+                f"migrate_cap = {mc.migrate_cap}\n"
+                "position_sync_interval_ms = 50\n\n[game1]\n\n[gate1]\n"
+                f"host = {harness.gate_addrs[0][0]}\n"
+                f"port = {harness.gate_addrs[0][1]}\n\n"
+                "[storage]\nkind = filesystem\ndirectory = entity_storage\n"
+                "\n[kvdb]\nkind = filesystem\npath = kvdb_data\n")
+        gw.register_entity("Account", GameAccount)
+        gw.register_entity("Avatar", GameAvatar)
+        gw.register_entity("Monster", GameMonster)
+        gw.register_space("Arena", GameMegaArena, megaspace=True)
+        boot = {}
+        gw.on_boot(lambda w: mega_boot(w, MEGA_GAME_MONSTERS, extent, SEED,
+                                       boot))
+        rt = gw.run(["-gid", "1", "-configfile", "goworld_tpu.ini"],
+                    block=False, device=dev.type)
+        server, world = rt.server, rt.world
+        m = world.mega
+        if world.device.type != dev.type or m is None or \
+                m.shape != MEGA_GAME_SHAPE or m.halo_impl != "async" or \
+                world.cfg.grid.sweep_impl != "fused" or \
+                world.cfg.behavior != "btree":
+            fail(f"[21] gw.run built {world.device} mega {m}")
+        if "seconds" not in boot:
+            fail("[21] the on_boot callback failed (logged above)")
+        gc.collect()
+        gc.freeze()
+        tl = metrics.timeline
+        rows, crossings = [], {}
+
+        def game_tick(timed: bool) -> None:
+            before = dict(kernels.LAUNCHES)
+            tl.begin_tick()
+            t0 = time.perf_counter()
+            with tl.span("drain_inputs"):
+                server.pump()
+            server.tick()
+            wall = time.perf_counter() - t0
+            tl.end_tick()
+            check_game_launches(before, f"game tick {len(rows) + 1}",
+                                MEGA_LAUNCHES, "[21]")
+            out = world.last_outputs
+            if int(out.migrate_dropped.sum()) or \
+                    int(out.halo_demand.max()) > m.halo_cap:
+                fail(f"[21] game tick {len(rows) + 1}: dropped "
+                     f"{out.migrate_dropped.tolist()}, halo demand "
+                     f"{out.halo_demand.tolist()}")
+            for eid, shard in crossings.items():
+                e = world.entities.get(eid)
+                if e is None or e.id != eid or e.slot is None:
+                    fail(f"[21] Avatar {eid} lost its row or its id")
+                if e.shard != shard[-1]:
+                    shard.append(e.shard)
+            rows.append((timed, wall, {name: d for name, _, d, _ in
+                                       tl.records()[-1][2]}))
+
+        def tick_until(fut, timed: bool, limit: float = 300.0):
+            t_end = time.perf_counter() + limit
+            while not fut.done():
+                if time.perf_counter() > t_end:
+                    fail(f"[21] the bots did not finish within "
+                         f"{limit:.0f} s")
+                game_tick(timed)
+            return fut.result(timeout=1)
+
+        bots = [BotClient(*harness.gate_addrs[0], bot_id=i, strict=True,
+                          seed=SEED + i) for i in range(MEGA_GAME_BOTS)]
+        spots = corner_spots(MEGA_GAME_SHAPE, tile_w, tile_d)
+        login_s = tick_until(harness.submit(bots_login(
+            bots, [(x, z) for x, z, _, _ in spots])), False)
+        avatars = {b.player.eid: b for b in bots if b.player is not None
+                   and b.player.type_name == "Avatar"}
+        if len(avatars) != MEGA_GAME_BOTS:
+            fail(f"[21] {len(avatars)} of {MEGA_GAME_BOTS} logins reached "
+                 "an Avatar")
+        for eid in avatars:
+            crossings[eid] = [world.entities[eid].shard]
+        t_win = time.perf_counter()
+        tick_until(harness.submit(bots_cross(bots, spots, MEGA_GAME_WALK_S,
+                                             0.5)), True)
+        win_s = time.perf_counter() - t_win
+        for _ in range(2):
+            game_tick(False)
+        time.sleep(1.0)
+        errors = [e for b in bots for e in b.errors]
+        if errors:
+            fail(f"[21] strict mirrors report {len(errors)} errors: "
+                 f"{errors[:4]}")
+        hops = {eid: len(s) - 1 for eid, s in crossings.items()}
+        if min(hops.values()) < 1:
+            fail(f"[21] Avatars that crossed no border: "
+                 f"{[e for e, h in hops.items() if h < 1]}")
+        ents = world.entities
+        mism = [(b.bot_id, len(set(b.entities) ^ {eid, *ents[eid]
+                                                  .interested_in}))
+                for eid, b in avatars.items()
+                if set(b.entities) != {eid, *ents[eid].interested_in}]
+        if mism:
+            fail(f"[21] bot mirrors differ from the server's interest "
+                 f"sets: (bot, words) {mism[:8]}")
+        # the Avatars' interest sets against a brute-force oracle over
+        # the fetched positions (the last tick's, which its sweep read)
+        pos, alive = world._dget([world.state.pos, world.state.alive])
+        owner = world._slot_owner
+        live = [(sh, sl, eid) for sh in range(world.n_spaces)
+                for sl, eid in owner[sh].items() if alive[sh, sl]]
+        xz = np.array([pos[sh, sl][[0, 2]] for sh, sl, _ in live])
+        ids_ = [eid for _, _, eid in live]
+        r, k = world.cfg.grid.radius, world.cfg.grid.k
+        over_k = 0
+        for eid in avatars:
+            e = ents[eid]
+            p = pos[e.shard, e.slot][[0, 2]]
+            near = np.flatnonzero(np.abs(xz - p).max(1) <= r)
+            want = {ids_[i] for i in near} - {eid}
+            if len(want) > k:
+                over_k += 1   # nearest-k by design past k
+                continue
+            if e.interested_in != want:
+                fail(f"[21] Avatar {eid}: {len(e.interested_in)} in its "
+                     f"interest set, the oracle {len(want)}, "
+                     f"{len(e.interested_in ^ want)} differ")
+        tick_until(harness.submit(bots_leave(bots)), False)
+        for _ in range(200):
+            if all(ents[e].client is None for e in avatars):
+                break
+            game_tick(False)
+        server.request_freeze()
+        for _ in range(2000):
+            if server.run_state == "freezing":
+                server._do_freeze()
+                break
+            game_tick(False)
+        path = os.path.join(tmp, freeze_mod.freeze_filename(1))
+        if server.run_state != "frozen" or not os.path.isfile(path):
+            fail(f"[21] freeze: run state {server.run_state}, file "
+                 f"{os.path.isfile(path)}")
+        frozen = {e.id: (e.type_name, e.attrs.to_dict(), e.position,
+                         e.yaw) for e in ents.values()
+                  if not e.destroyed and e.slot is not None}
+        t0 = time.perf_counter()
+        w2 = api._build_world(api.config_mod.load("goworld_tpu.ini")
+                              .games[1], 1, dev.type)
+        api._apply_registrations(w2)
+        gs2 = GameServer(1, w2, [], restore=True, freeze_dir=tmp)
+        restore_s = time.perf_counter() - t0
+        back = {e.id: (e.type_name, e.attrs.to_dict(), e.position, e.yaw)
+                for e in w2.entities.values()
+                if not e.destroyed and e.slot is not None}
+        if back != frozen or w2.mega is None:
+            diff = [kk for kk in frozen if back.get(kk) != frozen[kk]]
+            fail(f"[21] the restored megaspace World differs from the "
+                 f"frozen one in {len(diff) + len(set(back) - set(frozen))}"
+                 f" entities")
+        before = dict(kernels.LAUNCHES)
+        gs2.tick()
+        check_game_launches(before, "the restored World's first tick",
+                            MEGA_LAUNCHES, "[21]")
+        launches = dict(kernels.LAUNCHES)
+        win = [wl for t, wl, _ in rows if t]
+        wall = np.array(win) * 1e3
+        spans = {kk: float(np.mean([sp.get(kk, 0.0) for t, _, sp in rows
+                                    if t])) * 1e3 for kk in rows[-1][2]}
+        text = (f"(c) the megaspace World through gw.run() (ini: "
+                f"{SPACES} tiles {tx}x{tz} of {MEGA_GAME_SLOTS} slots, "
+                f"world {extent:.0f}^2, radius {r}, btree, fused/pallas, "
+                f"halo async, halo_cap {m.halo_cap}; 2 dispatchers, 1 gate)"
+                f": boot of {boot['monsters']} Monsters in "
+                f"{boot['seconds']:.2f} s over {boot['ticks']} ticks "
+                f"({boot['events']} enter events); {MEGA_GAME_BOTS} logins "
+                f"in {login_s:.2f} s; window {win_s:.2f} s: {len(win)} "
+                f"game ticks p50 {np.percentile(wall, 50):.3f} p99 "
+                f"{np.percentile(wall, 99):.3f} ms, mean span ms "
+                + ", ".join(f"{kk} {v:.3f}" for kk, v in spans.items())
+                + f"; {len(rows)} game ticks, each {MEGA_LAUNCHES} "
+                f"(launches {launches}); border crossings an Avatar "
+                f"{sorted(hops.values())}, every EntityID kept, 0 dropped;"
+                f" strict mirrors 0 errors, == interest sets; oracle == "
+                f"interest sets for {MEGA_GAME_BOTS - over_k} Avatars "
+                f"({over_k} past k); frozen to {os.path.getsize(path)} B, "
+                f"restored {len(back)} entities in {restore_s:.2f} s, "
+                f"equal, first tick ran")
+        del w2, gs2
+        return {"mega_game": launches}, text
+    finally:
+        os.chdir(home)
+        if rt is not None:
+            rt.server.stop()
+            rt.storage.shutdown()
+            rt.workers.wait_clear()
+        harness.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+        api._reset_for_tests()
+        api._boot_callbacks.clear()
+        release_worlds()
+
+
+def twin_diff(a, b, t: int, what: str) -> None:
+    """Fail where two served Worlds differ after their tick ``t``:
+    sinks, hooks, state, telemetry lanes and signatures, audit stats and
+    ledgers."""
+    ka, kb = a.sink.take()["kept"], b.sink.take()["kept"]
+    if len(ka) != len(kb) or any(
+            x[0] != y[0] or x[1] != y[1] or not (
+                all(np.asarray(u).tobytes() == np.asarray(v).tobytes()
+                    for u, v in zip(x[2:], y[2:])) if x[0] == "sync"
+                else x[2:] == y[2:]) for x, y in zip(ka, kb)):
+        fail(f"[21] {what}: sinks differ at tick {t + 1}")
+    if a.hooks != b.hooks:
+        fail(f"[21] {what}: hooks differ at tick {t + 1}")
+    a.hooks.clear()
+    b.hooks.clear()
+    sa = interop.state_to_numpy(a.world.state)
+    sb = interop.state_to_numpy(b.world.state)
+    bad = [k for k in sa if sa[k].tobytes() != sb[k].tobytes()]
+    if bad:
+        fail(f"[21] {what}: state lanes {bad} differ at tick {t + 1}")
+    wa, wb = a.world, b.world
+    if wa._telem_lanes != wb._telem_lanes or any(
+            unkeyed(getattr(wa, sig)()) != unkeyed(getattr(wb, sig)())
+            for sig in ("workload_signature", "window_signature")):
+        fail(f"[21] {what}: telemetry lanes or signatures differ at tick "
+             f"{t + 1}")
+    if audit_state(wa) != audit_state(wb) or \
+            wa.audit.ledger.snapshot(tick=t) != \
+            wb.audit.ledger.snapshot(tick=t):
+        fail(f"[21] {what}: audit stats or ledgers differ at tick {t + 1}")
+    return len(ka)
+
+
+def twins_part(dev, tag) -> tuple[dict, str]:
+    """[21] (d): megaspace twins of 8 x MEGA_TWIN_N, kernels (fused,
+    pallas, async) against plain versions (ranges, argsort, ppermute),
+    MEGA_TWIN_TICKS ticks; then a megaspace World and a World on a mesh
+    of 8 x CARD_CPU_N on the card and on the CPU port, CARD_CPU_TICKS
+    ticks, every lane equal."""
+    kw = dict(record_hooks=True, keep=True, boot=True, world_kw=PLANES,
+              mega_shape=MEGA_GAME_SHAPE)
+    kern = serve_world(MEGA_TWIN_N, SEED + 2, dev, halo_impl="async", **kw)
+    plain = serve_world(MEGA_TWIN_N, SEED + 2, dev, halo_impl="ppermute",
+                        sweep_impl="ranges", sort_impl="argsort", **kw)
+    records = 0
+    twin_launches = {"kernels": [], "plain": []}
+    for t in range(MEGA_TWIN_TICKS):
+        for name, sv in (("kernels", kern), ("plain", plain)):
+            sv.stage(teleport=t % 2 == 1)
+            kernels.reset_launches()
+            sv.world.tick()
+            twin_launches[name].append(dict(kernels.LAUNCHES))
+        records += twin_diff(kern, plain, t, "megaspace twins")
+    if twin_launches != {
+            "kernels": [MEGA_LAUNCHES] * MEGA_TWIN_TICKS,
+            "plain": [dict.fromkeys(MEGA_LAUNCHES, 0)] * MEGA_TWIN_TICKS}:
+        fail(f"[21] megaspace twins' launches {twin_launches}")
+    n_pop = len(kern.world.entities) - 2
+    del kern, plain
+    release_worlds()
+    # the card against the CPU port, megaspace and mesh
+    compared = []
+    for shape in ("mega", "mesh"):
+        kw = dict(keep=True, boot=True, world_kw=PLANES,
+                  spare=CARD_CPU_SPARE)
+        if shape == "mega":
+            kw.update(mega_shape=MEGA_GAME_SHAPE)
+        else:
+            kw.update(spaces=SPACES, mesh=True)
+        card = serve_world(CARD_CPU_N, SEED + 3, dev, **kw)
+        cpu = serve_world(CARD_CPU_N, SEED + 3, "cpu", **kw)
+        for t in range(CARD_CPU_TICKS):
+            for sv in (card, cpu):
+                sv.stage()
+                sv.world.tick()
+            sa = interop.state_to_numpy(card.world.state)
+            sb = interop.state_to_numpy(cpu.world.state)
+            bad = [k for k in sa if sa[k].tobytes() != sb[k].tobytes()]
+            oa, ob = (lanes(sv.world.last_outputs) for sv in (card, cpu))
+            bad += [f"outputs {k}" for k in oa if (oa[k] is None) != (
+                ob[k] is None) or oa[k] is not None
+                and np.asarray(oa[k]).tobytes()
+                != np.asarray(ob[k]).tobytes()]
+            if bad:
+                fail(f"[21] {shape} World of {SPACES} x {CARD_CPU_N}: the "
+                     f"card != the CPU port in lanes {bad} at tick "
+                     f"{t + 1}")
+        compared.append(f"{shape} {len(card.world.entities)} entities")
+        del card, cpu
+        release_worlds()
+    text = (f"(d) megaspace twins of {SPACES} x {MEGA_TWIN_N} ({n_pop} "
+            f"entities; kernels fused/pallas/async, launches a tick "
+            f"{MEGA_LAUNCHES}; plain ranges/argsort/ppermute, none) equal "
+            f"in sinks ({records} records), hooks, state, telemetry lanes,"
+            f" signatures, audit stats and ledgers for {MEGA_TWIN_TICKS} "
+            f"ticks, walking and stress syncs in turns; {SPACES} x "
+            f"{CARD_CPU_N} on the card == the CPU port in every lane, "
+            f"floats included, {CARD_CPU_TICKS} ticks ({', '.join(compared)})")
+    return {"mega_twins": {k: MEGA_TWIN_TICKS * v
+                           for k, v in MEGA_LAUNCHES.items()}}, text
+
+
+def mesh_phase(dev, tag) -> dict:
+    """[21] the World on a mesh and the megaspace World on the card:
+    (a) ``make_multi_tick``, (b) the World on a mesh, (c) the megaspace
+    World through ``gw.run()``, (d) twins. Returns launches by path."""
+    phase0 = time.perf_counter()
+    launches = {}
+    for part in (mesh_tick_part, mesh_world_part, mega_game_part,
+                 twins_part):
+        t0 = time.perf_counter()
+        got, text = part(dev, tag)
+        launches.update(got)
+        print(f"[21] {text}; {time.perf_counter() - t0:.1f} s {tag}",
+              flush=True)
+    print(f"[21] phase {time.perf_counter() - phase0:.1f} s {tag}",
+          flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
@@ -3944,6 +4647,8 @@ def main() -> int:
         {f"slice_{k}": v["npc_mlp"] for k, v in slice_launches.items()})
     mlp_row["launches"] = sum(mlp_row["launches_by_path"].values())
     phase_done("[20]")
+    world.update(mesh_phase(dev, tag))
+    phase_done("[21]")
     for row, key in zip(rows[:2], ("sweep_fused", "counting_sort")):
         row["launches_by_path"] = {"single_space": row["launches"],
                                    **{p: n[key] for p, n in world.items()}}
@@ -3952,7 +4657,10 @@ def main() -> int:
     rows[0]["q16_rebuild_shape"] = gate_q16
     rows[0]["spaces_shape"] = spaces_shape["sweep_fused_cuda"]
     rows[1]["spaces_shape"] = spaces_shape["counting_sort_cells_cuda"]
-    rows[2]["launches_by_path"] = {"megaspace": rows[2]["launches"]}
+    rows[2]["launches_by_path"] = {"megaspace": rows[2]["launches"], **{
+        p: n["halo_ship_phase"] for p, n in world.items()
+        if n.get("halo_ship_phase")}}
+    rows[2]["launches"] = sum(rows[2]["launches_by_path"].values())
 
     got, dev_ms = device_times(profiled, rows[:2], plan)
     mlp_row["device_ms"], mlp_row["launches_per_call"] = got["npc_mlp"]

@@ -166,14 +166,18 @@ def _refuse(what: str, item: str = "8") -> NotImplementedError:
 
 def _governor_eligible(gc: config_mod.GameConfig, gid: int) -> bool:
     """[gameN] governor = true, gated to the shapes the swap machinery
-    serves (single-shard, telemetry on) — an ineligible config warns
-    loudly and boots static, never crashes. The governor_table override
+    serves (single-shard, non-mesh, non-megaspace, telemetry on) — an
+    ineligible config warns loudly and boots static, never crashes. The governor_table override
     is validated HERE, at boot, so a typo fails before the process
     serves (the GridSpec convention)."""
     if not gc.governor:
         return False
     why = None
-    if gc.n_spaces > 1:
+    if gc.megaspace:
+        why = "megaspace games keep their static tile config"
+    elif gc.mesh_devices > 1:
+        why = "mesh games keep their static config"
+    elif gc.n_spaces > 1:
         why = ("the batched n_spaces > 1 step carries no skin "
                "branches to swap")
     elif not gc.telemetry_live:
@@ -191,11 +195,6 @@ def _governor_eligible(gc: config_mod.GameConfig, gid: int) -> bool:
 def _check_ported(gc: config_mod.GameConfig, cfg) -> None:
     """Every ini setting this port does not run raises here, before
     anything is built."""
-    if gc.megaspace:
-        raise _refuse("megaspace = true (the megaspace World)", "6")
-    if gc.mesh_devices > 1:
-        raise _refuse(f"mesh_devices = {gc.mesh_devices} (the World on a "
-                      "mesh)", "6")
     if gc.small_tier_rows:
         raise _refuse("small_tier_rows (the two-tier extraction)", "4")
     if gc.http_port:
@@ -208,10 +207,24 @@ def _check_ported(gc: config_mod.GameConfig, cfg) -> None:
 
 def _build_world(gc: config_mod.GameConfig, gid: int,
                  device="cuda") -> World:
+    """The game's World from its ini section. ``mesh_devices > 1``
+    builds the World on a mesh of that many shards, and ``megaspace``
+    one Space over them as tiles (the tile grid derived from the
+    world extents and ``mega_shape``); every shard lives on the one
+    card ``device`` names (:func:`goworld_tpu_torch.parallel.mesh.
+    make_mesh`), so the JAX package's warning and single-device path
+    for a host with too few devices has no counterpart here. The
+    pipelined decode is forced off for both shapes, as in the JAX
+    package."""
     from goworld_tpu_torch.core.state import WorldConfig
     from goworld_tpu_torch.ops.aoi import GridSpec
 
     aoi_skin = gc.aoi_skin
+    if gc.megaspace and aoi_skin > 0:
+        # the megaspace step queries ghost rows through the stateless
+        # sweep; there is no carried cache to reuse there
+        logger.warning("aoi_skin ignored for megaspace games")
+        aoi_skin = 0.0
     if aoi_skin > 0 and gc.capacity >= (1 << consts.AOI_ID_BITS):
         # the Verlet reuse path rides the packed-id fast path
         logger.warning(
@@ -219,16 +232,72 @@ def _build_world(gc: config_mod.GameConfig, gid: int,
             gc.capacity, consts.AOI_ID_BITS,
         )
         aoi_skin = 0.0
-    grid = GridSpec(radius=gc.aoi_radius, extent_x=gc.extent_x,
-                    extent_z=gc.extent_z,
-                    sweep_impl=gc.aoi_sweep_impl,
-                    topk_impl=gc.aoi_topk_impl,
-                    sort_impl=gc.aoi_sort_impl,
-                    skin=aoi_skin,
-                    verlet_cap=gc.aoi_verlet_cap,
-                    rebuild_every_max=gc.aoi_rebuild_every_max,
-                    precision=gc.precision,
-                    **_grid_caps(gc))
+    precision = gc.precision
+    if gc.megaspace and precision != "off":
+        # the tile grids keep float32, as in the JAX package: say so
+        # rather than silently change the tiles' layout
+        logger.warning("precision=%s ignored for megaspace games "
+                       "(quantized halo packing staged)", precision)
+        precision = "off"
+    kernel_kw = dict(
+        sort_impl=gc.aoi_sort_impl,
+        skin=aoi_skin,
+        verlet_cap=gc.aoi_verlet_cap,
+        rebuild_every_max=gc.aoi_rebuild_every_max,
+        precision=precision,
+    )
+    mega_shape = None
+    if gc.megaspace:
+        # user config speaks WORLD extents; the megaspace grid is the
+        # TILE grid in tile-shifted coordinates (extent = tile + 2R on
+        # each tiled axis — parallel/megaspace.py MegaConfig contract)
+        if gc.mesh_devices < 2:
+            raise ValueError(
+                "megaspace = true requires mesh_devices > 1 "
+                f"(got {gc.mesh_devices})"
+            )
+        n_dev = gc.mesh_devices
+        if gc.mega_shape:
+            try:
+                parts = [int(v) for v in
+                         gc.mega_shape.lower().split("x") if v != ""]
+                if len(parts) == 1:      # "8" = 1D x-strips
+                    tx, tz = parts[0], 1
+                elif len(parts) == 2:
+                    tx, tz = parts
+                else:
+                    raise ValueError
+            except ValueError:
+                raise ValueError(
+                    f"mega_shape {gc.mega_shape!r} must be \"N\" (1D "
+                    "x-strips) or \"TXxTZ\" (2D tiles), e.g. 8 or 4x2"
+                ) from None
+        else:
+            tx, tz = n_dev, 1
+        if tx * tz != n_dev:
+            raise ValueError(
+                f"mega_shape {gc.mega_shape!r} needs {tx * tz} devices "
+                f"but mesh_devices = {n_dev}"
+            )
+        tile_w = gc.extent_x / tx
+        grid = GridSpec(
+            radius=gc.aoi_radius,
+            extent_x=tile_w + 2 * gc.aoi_radius,
+            extent_z=(gc.extent_z / tz + 2 * gc.aoi_radius) if tz > 1
+            else gc.extent_z,
+            sweep_impl=gc.aoi_sweep_impl,
+            topk_impl=gc.aoi_topk_impl,
+            **kernel_kw,
+            **_grid_caps(gc),
+        )
+        mega_shape = (tx, tz)
+    else:
+        grid = GridSpec(radius=gc.aoi_radius, extent_x=gc.extent_x,
+                        extent_z=gc.extent_z,
+                        sweep_impl=gc.aoi_sweep_impl,
+                        topk_impl=gc.aoi_topk_impl,
+                        **kernel_kw,
+                        **_grid_caps(gc))
     scenario = None
     if gc.scenario:
         from goworld_tpu_torch.scenarios.spec import get_scenario
@@ -241,9 +310,20 @@ def _build_world(gc: config_mod.GameConfig, gid: int,
         behavior=gc.behavior,
         scenario=scenario,
     )
+    mesh = None
+    if gc.mesh_devices > 1:
+        from goworld_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(gc.mesh_devices, device=device)
     w = World(
-        wc, n_spaces=max(gc.n_spaces, 1), game_id=gid,
-        pipeline_decode=gc.pipeline_decode,
+        wc, n_spaces=max(gc.n_spaces, 1)
+        if not gc.megaspace else gc.mesh_devices,
+        mesh=mesh, game_id=gid,
+        megaspace=gc.megaspace, mega_shape=mega_shape,
+        halo_cap=gc.halo_cap, migrate_cap=gc.migrate_cap,
+        halo_impl=gc.halo_impl,
+        pipeline_decode=gc.pipeline_decode and mesh is None
+        and not gc.megaspace,
         resident=gc.resident,
         telemetry_live=gc.telemetry_live,
         snapshot_keyframe_every=gc.snapshot_keyframe_every,

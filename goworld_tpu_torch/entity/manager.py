@@ -59,9 +59,25 @@ with the JAX World's staged device migration between them
 (:meth:`World.enter_space`), and the JAX World's other planes: the
 pipelined decode, the keyframe cadence of the snapshot chain
 (:mod:`goworld_tpu_torch.freeze`), the governor's config swap
-(:meth:`World.apply_tick_config`) and the step's cost report. Its other
-shapes (a mesh, the megaspace, multihost) raise ``NotImplementedError``
-naming ROADMAP.md; none is substituted by another path.
+(:meth:`World.apply_tick_config`) and the step's cost report.
+
+Its two mesh shapes run with every shard on the one card
+(:func:`goworld_tpu_torch.parallel.mesh.make_mesh`):
+
+* ``mesh=make_mesh(S)``: S AOI Spaces under
+  :func:`goworld_tpu_torch.parallel.step.make_multi_tick`; an
+  ``enter_space`` between two of them rides the step's own exchange
+  (tagged requests, arrival records re-pointing the entity,
+  :meth:`World._process_arrivals`), not the host repack of
+  ``mesh=None``;
+* ``megaspace=True`` (with a mesh): one logical Space over S tiles
+  (:mod:`goworld_tpu_torch.parallel.megaspace`), entities routed to the
+  tile of their position and re-pointed from the device's own
+  border-crossing records (:meth:`World._mega_collect_arrivals`).
+
+Shards on several cards, q16 in the megaspace and the multi-controller
+World raise ``NotImplementedError`` naming ROADMAP.md; none is
+substituted by another path.
 
 Slot lifecycle contract (``SURVEY.md#7``): a slot freed by a host despawn
 is flushed before the step, so its watchers' leave events fire in THAT
@@ -104,7 +120,17 @@ from goworld_tpu_torch.entity.registry import (
 from goworld_tpu_torch.entity.space import Space
 from goworld_tpu_torch.entity.timer import Crontab, PostQueue, TimerQueue
 from goworld_tpu_torch.ops import telemetry as telem
-from goworld_tpu_torch.parallel.mesh import create_multi_state, tile_view
+from goworld_tpu_torch.parallel.megaspace import (
+    MegaConfig,
+    create_mega_state,
+    make_mega_tick,
+)
+from goworld_tpu_torch.parallel.mesh import (
+    create_multi_state,
+    shard_state,
+    tile_view,
+)
+from goworld_tpu_torch.parallel.step import MultiTickInputs, make_multi_tick
 from goworld_tpu_torch.utils import audit as audit_mod
 from goworld_tpu_torch.utils import (
     consts,
@@ -120,11 +146,6 @@ from goworld_tpu_torch.utils import residency as residency_mod
 from goworld_tpu_torch.utils.fpenv import flushed
 
 logger = log.get("world")
-
-def _refuse(what: str, queue: str = "A1b") -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet; see ROADMAP.md Queue {queue}")
-
 
 def _type_aoi_radius(desc) -> float:
     """Device aoi_radius for a type (reference EntityTypeDesc.aoiDistance,
@@ -205,6 +226,47 @@ def _make_local_tick(cfg: WorldConfig, n_spaces: int, device,
         return _lanes_of(s1, lambda t: t.unsqueeze(0)), outs
 
     return step1
+
+
+def _resident_step(step, resident: bool):
+    """A mesh or megaspace step (which returns new lanes) with the
+    resident carry: the new lanes written into the given state's
+    tensors (:func:`_carry_into`), that state returned."""
+    if not resident:
+        return step
+
+    def run(state: SpaceState, inputs, policy=None):
+        s1, outs = step(state, inputs, policy)
+        _carry_into(state, s1)
+        return state, outs
+
+    return run
+
+
+def _flat_lanes(obj, prefix=()):
+    """(path, tensor) of every lane of an outputs dataclass, a nested
+    ``base`` included, lanes that are None left out."""
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if v is None:
+            continue
+        if dataclasses.is_dataclass(v):
+            yield from _flat_lanes(v, prefix + (f.name,))
+        else:
+            yield prefix + (f.name,), v
+
+
+def _with_lanes(obj, values: dict, prefix=()):
+    """``obj`` with the lanes at the paths of ``values`` replaced."""
+    kw = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        path = prefix + (f.name,)
+        if dataclasses.is_dataclass(v):
+            kw[f.name] = _with_lanes(v, values, path)
+        elif path in values:
+            kw[f.name] = values[path]
+    return dataclasses.replace(obj, **kw)
 
 
 def _batched_config(cfg: WorldConfig) -> WorldConfig:
@@ -298,10 +360,19 @@ class World:
     """Hosts every entity of one game process on one device.
 
     Parameters:
-      cfg: each Space's device config (shared by all Spaces).
+      cfg: each Space's device config (shared by all Spaces; under
+        ``megaspace`` the tile grid in tile-shifted coordinates).
       n_spaces: number of AOI shards in the stacked state; with more
-        than one the step runs them batched, without the skin.
-      mesh: must be None (a mesh is not ported yet).
+        than one and no mesh the step runs them batched, without the
+        skin.
+      mesh: a :func:`goworld_tpu_torch.parallel.mesh.make_mesh` of
+        ``n_spaces`` shards: the Spaces tick under ``make_multi_tick``
+        (the skin kept, each shard its own cache) and migrate through
+        its exchange. Every shard lives on the mesh's card, which must
+        be ``device``'s.
+      megaspace: one Space over the mesh's shards as tiles (x strips,
+        or XZ tiles when ``mega_shape=(tx, tz)``); ``migrate_cap``,
+        ``halo_cap`` and ``halo_impl`` as in ``MegaConfig``.
       pipeline_decode: decode each tick's outputs during the next tick
         (host events and client sends lag one tick; despawned slots are
         released a decode later; :meth:`flush_pending_outputs` drains).
@@ -318,14 +389,13 @@ class World:
     ``pipeline_decode``, which decodes a tick late and so lags the
     positions the oracle would read: every sample is a recorded skip).
     ``snapshot_keyframe_every`` is kept for the snapshot chain's
-    callers. ``resident=True``
+    callers. The audit skips every sample of a mesh or megaspace World,
+    as the JAX World does. ``resident=True``
     (the default) keeps the carry's storage from tick to tick: the JAX
     World deletes an old carry so that reading it raises, which torch
     cannot do, so a reference to ``w.state``'s tensors taken before a
     tick sees them overwritten by it (``resident=False`` replaces the
-    lanes instead; both give the same bits). The JAX World's knobs of
-    the refused shapes (``migrate_cap``, ``halo_cap``, ``halo_impl``,
-    ``mega_shape``) are not taken.
+    lanes instead; both give the same bits).
     """
 
     def __init__(
@@ -337,7 +407,11 @@ class World:
         game_id: int = 1,
         clock: Callable[[], float] = time.monotonic,
         seed: int = 0,
+        migrate_cap: int = 256,
         megaspace: bool = False,
+        halo_cap: int = 1024,
+        halo_impl: str = "ppermute",
+        mega_shape: tuple[int, int] | None = None,
         pipeline_decode: bool = False,
         resident: bool = True,
         telemetry_live: bool = True,
@@ -349,12 +423,20 @@ class World:
         audit_cohort: int = 64,
         device="cuda",
     ):
-        if mesh is not None:
-            raise _refuse("a World on a mesh", "A8")
-        if megaspace:
-            raise _refuse("the megaspace World", "A8")
         if n_spaces < 1:
             raise ValueError(f"n_spaces must be >= 1, got {n_spaces}")
+        if mesh is not None:
+            cards = {torch.device(d) for d in mesh.devices.ravel()}
+            if len(cards) > 1:
+                raise NotImplementedError(
+                    f"a World whose shards live on several cards "
+                    f"({sorted(map(str, cards))}) is not ported yet; see "
+                    "ROADMAP.md Queue A item 6")
+            if torch.device(device).type != mesh.device.type:
+                raise ValueError(
+                    f"the mesh lives on {mesh.device}, the World on "
+                    f"{device}")
+            device = mesh.device
         self.device = resolve_device(device)
         # delta-compressed snapshot cadence (freeze.SnapshotChain): every
         # Nth checkpoint a full quantized keyframe, the rest plane deltas
@@ -372,6 +454,22 @@ class World:
         self.n_spaces = n_spaces
         self.game_id = game_id
         self.registry = Registry()
+        self.mesh = mesh
+        self._migrate_cap = migrate_cap
+        self.mega = None    # MegaConfig when megaspace=True
+        # the pipelined decode: only the non-mesh shape qualifies (the
+        # mesh and megaspace decodes have same-tick couplings: the
+        # staged-migration tags, the tile arrivals)
+        if self.pipeline_decode and (mesh is not None or megaspace):
+            raise ValueError(
+                "pipeline_decode requires a single-device, "
+                "non-megaspace World"
+            )
+        if mesh is not None and mesh.devices.size != n_spaces:
+            raise ValueError(
+                f"mesh has {mesh.devices.size} devices but "
+                f"n_spaces={n_spaces}"
+            )
         # the MLPPolicy when cfg.behavior == 'mlp' (or a scenario mix has
         # the mlp member), drawn from the World's seed as the JAX World
         # draws it; callers may replace it before the first tick
@@ -380,12 +478,44 @@ class World:
                 cfg.scenario is not None and cfg.scenario.needs_policy):
             self.policy = init_policy(seed, device=self.device)
         self.resident = resident
-        # the batched step clears the skin: no [capacity, verlet_cap]
-        # caches a Space that it would never touch
-        state_cfg = _batched_config(cfg) if n_spaces > 1 else cfg
-        self.state: SpaceState = create_multi_state(
-            state_cfg, n_spaces, seed=seed, device=self.device)
-        self._step = _make_local_tick(cfg, n_spaces, self.device, resident)
+        if megaspace:
+            # ONE logical space spans the whole mesh as tiles: x strips,
+            # or XZ tiles when mega_shape=(tx, tz) is given. cfg.grid is
+            # the TILE grid in tile-shifted coordinates: extent_x =
+            # tile_w + 2*radius (and extent_z = tile_d + 2*radius in 2D)
+            if mesh is None:
+                raise ValueError("megaspace=True requires a mesh")
+            tile_w = cfg.grid.extent_x - 2.0 * cfg.grid.radius
+            tile_d = 0.0
+            if mega_shape is not None and mega_shape[1] > 1:
+                tile_d = cfg.grid.extent_z - 2.0 * cfg.grid.radius
+            self.mega = MegaConfig(
+                cfg=cfg, n_dev=n_spaces, tile_w=tile_w,
+                halo_cap=halo_cap, migrate_cap=migrate_cap,
+                mesh_shape=mega_shape, tile_d=tile_d,
+                halo_impl=halo_impl,
+            )
+            self.state: SpaceState = shard_state(
+                create_mega_state(self.mega, seed=seed, device=self.device),
+                mesh)
+            self._step = _resident_step(
+                make_mega_tick(self.mega, device=self.device), resident)
+        elif mesh is not None:
+            # under the mesh each shard keeps the skin (its own cache
+            # and rebuild gate), as the JAX World's shard_map step does
+            self.state = shard_state(create_multi_state(
+                cfg, n_spaces, seed=seed, device=self.device), mesh)
+            self._step = _resident_step(
+                make_multi_tick(cfg, mesh, migrate_cap=migrate_cap),
+                resident)
+        else:
+            # the batched step clears the skin: no [capacity,
+            # verlet_cap] caches a Space that it would never touch
+            state_cfg = _batched_config(cfg) if n_spaces > 1 else cfg
+            self.state = create_multi_state(
+                state_cfg, n_spaces, seed=seed, device=self.device)
+            self._step = _make_local_tick(cfg, n_spaces, self.device,
+                                          resident)
 
         # the step's cost report, as a lazy devprof provider (run only
         # when asked for), held through a weakref: the registry is
@@ -488,8 +618,11 @@ class World:
         self._staged_client: list[tuple[int, int, bool, int]] = []
         self._staged_pos: dict[tuple[int, int], Entity] = {}
         # (src shard, src slot, dst shard, eid) of each enter_space
-        # between two AOI Spaces, repacked at the next flush
+        # between two AOI Spaces: repacked at the next flush, or, on a
+        # mesh, tagged into the step's migration requests (tag ->
+        # (eid, src shard, src slot) in _migrate_tags)
         self._staged_migrate: list[tuple[int, int, int, str]] = []
+        self._migrate_tags: dict[int, tuple[str, int, int]] = {}
         # upstream (client->server) pos-sync BATCH path: slot-addressed
         # staging arrays + a lazily rebuilt eid->(shard,slot) intern
         # index over the client-bound mirror columns, so a decoded batch
@@ -620,9 +753,6 @@ class World:
         desc = self.registry.get(type_name)
         if not desc.is_space:
             raise TypeError(f"{type_name} is not a space type")
-        if desc.megaspace:
-            raise _refuse(f"space type {type_name!r} (megaspace=True)",
-                          "A8")
         if eid is not None and eid in self.entities:
             raise ValueError(f"entity id collision: {eid}")
         sp: Space = desc.cls()
@@ -630,7 +760,27 @@ class World:
         # honor a caller-supplied id (CreateSpaceAnywhere routes by it)
         self._attach(sp, eid or ids.gen_entity_id())
         aoi = desc.use_aoi if use_aoi is None else use_aoi
-        if aoi:
+        if desc.megaspace:
+            if self.mega is None:
+                raise RuntimeError(
+                    f"space type {type_name!r} declares megaspace=True but "
+                    "the World was not built with megaspace=True"
+                )
+            if any(s is not None for s in self._shard_space):
+                raise RuntimeError(
+                    "megaspace claims every shard: destroy other AOI "
+                    "spaces (or the previous megaspace) first"
+                )
+            for i in range(self.n_spaces):
+                self._shard_space[i] = sp.id
+            sp.is_mega = True
+        elif aoi:
+            if self.mega is not None:
+                raise RuntimeError(
+                    "a megaspace World hosts exactly one AOI space (the "
+                    "megaspace); register the space type with "
+                    "megaspace=True or use host-only spaces"
+                )
             try:
                 shard = self._shard_space.index(None)
             except ValueError:
@@ -862,10 +1012,17 @@ class World:
     def _cancel_migration(self, e: Entity) -> None:
         """Abort an in-window migration (reference ``cancelEnterSpace``,
         ``Entity.go:1014-1023``): drop the staged request and despawn
-        the still-live source row."""
+        the still-live source row.
+
+        Only while the request is still staged on the host; once the
+        row is in flight in a mesh step (``_migrate_tags``), the source
+        row has already departed in the step and
+        :meth:`_process_arrivals` reconciles through ``e.destroyed``."""
         mig = e._migrating
         if mig is None:
             return
+        if not any(m[3] == e.id for m in self._staged_migrate):
+            return  # in flight on the device; the arrivals own it
         src_sh, src_sl, _dst = mig
         e._migrating = None
         self._staged_migrate = [
@@ -873,12 +1030,37 @@ class World:
         ]
         self._staged_despawn.append((src_sh, src_sl))
 
+    def _tile_of(self, pos) -> int:
+        """Owning tile (= shard) of a world position in megaspace mode
+        (1D x strips or 2D XZ tiles; ``MegaConfig.tile_of``)."""
+        return self.mega.tile_of(float(pos[0]), float(pos[2]))
+
+    def _enter_space_or_park(
+        self, e: Entity, space: Space, pos, moving: bool = False
+    ) -> bool:
+        """Enter ``space``; if its shard has no free slot, park the
+        entity in the nil space instead of crashing the world loop.
+        Capacity is checked up front (unwinding membership and hooks
+        that already ran would be worse). Returns True on a real
+        entry."""
+        shard = self._tile_of(pos) if space.is_mega else space.shard
+        if shard is not None and not self._free[shard]:
+            logger.error(
+                "respawn of %s failed (%s full); parked in nil space",
+                e.id, space.id,
+            )
+            if self.nil_space is not None:
+                self._enter_space_local(e, self.nil_space, pos)
+            return False
+        self._enter_space_local(e, space, pos, moving=moving)
+        return True
+
     def _enter_space_local(
         self, e: Entity, space: Space, pos, moving: bool = False
     ) -> None:
         e.space = space
         space.members.add(e.id)
-        shard = space.shard
+        shard = self._tile_of(pos) if space.is_mega else space.shard
         if shard is not None:
             slot = self._alloc_slot(shard, e.id)
             e.slot = slot
@@ -936,7 +1118,11 @@ class World:
                     self._move_space_host(m, self.nil_space, m.position)
                 else:
                     self._leave_space_host(m)
-            if e.shard is not None:
+            if e.is_mega:
+                self._shard_space = [
+                    None if s == e.id else s for s in self._shard_space
+                ]
+            elif e.shard is not None:
                 self._shard_space[e.shard] = None
             e.OnSpaceDestroy()
             self.spaces.pop(e.id, None)
@@ -947,7 +1133,9 @@ class World:
             # reference it again
             self.entities.pop(e.id, None)
         # else: the host object stays mapped until the leave events
-        # referencing its slot have been processed (_process_outputs)
+        # referencing its slot have been processed (_process_outputs),
+        # or until _process_arrivals drops its in-flight row (destroyed
+        # mid-migration)
         #
         # Break the entity's reference cycles (e -> attrs ->
         # _root_cb-closure -> e, and every attr child's parent pointer)
@@ -1391,18 +1579,22 @@ class World:
 
     def _init_live_telemetry(self) -> None:
         cfg = self.cfg
+        mega = self.mega is not None
         # the skin lane exists only where the Verlet cache is live in
         # the step (the state carries a cache, and capacity is inside
-        # the packed-id bound)
-        skin_on = (cfg.grid.skin > 0
+        # the packed-id bound; the megaspace's tiles keep the stateless
+        # sweep)
+        skin_on = (not mega and cfg.grid.skin > 0
                    and getattr(self.state, "aoi_cache", None) is not None
                    and cfg.capacity < (1 << consts.AOI_ID_BITS))
+        self._telem_mega = mega
         self._telem_skin_on = skin_on
         self._telem_half_skin = cfg.grid.skin / 2.0 if skin_on else 0.0
         self._telem_acc = telem.telemetry_init(
-            skin_on, occupancy=True, n_tiles=self.n_spaces,
+            skin_on, mega=mega, occupancy=True, n_tiles=self.n_spaces,
             device=self.device)
-        self._telem_fn = telem.make_fold(half_skin=self._telem_half_skin)
+        self._telem_fn = telem.make_fold(mega=mega,
+                                         half_skin=self._telem_half_skin)
 
     def _ingest_telemetry(self, acc_host) -> None:
         """Host half of the live lanes (called with the accumulator
@@ -1410,7 +1602,8 @@ class World:
         feed the metrics registry and rotate the signature window on
         their cadences."""
         lanes = telem.telemetry_drain(
-            acc_host, self._telem_skin_on, self._telem_half_skin)
+            acc_host, self._telem_skin_on, self._telem_half_skin,
+            mega=self._telem_mega)
         self._telem_lanes = lanes
         if self.tick_count - self._telem_feed_tick \
                 >= self.TELEM_FEED_TICKS:
@@ -1496,7 +1689,8 @@ class World:
         warmed fold and a copy of its zeroed accumulator swap in when
         given, else the lanes re-initialize; either way the signature
         window restarts — a window must never straddle two configs."""
-        if self.n_spaces != 1:
+        if self.mega is not None or self.mesh is not None \
+                or self.n_spaces != 1:
             raise ValueError(
                 "apply_tick_config serves single-shard non-mesh worlds")
         from goworld_tpu_torch.autotune.warmset import carry_state
@@ -1516,6 +1710,7 @@ class World:
                 self._telem_acc = telem.telemetry_clone(telem_acc0)
                 self._telem_skin_on = bool(telem_skin_on)
                 self._telem_half_skin = float(telem_half_skin)
+                self._telem_mega = False
             elif self.telemetry_live:
                 try:
                     self._init_live_telemetry()
@@ -1540,7 +1735,8 @@ class World:
             self.cfg, self.n_spaces, self.state, policy=self.policy,
             resident=self.resident, name="world.tick",
             config=devprof.grid_config_key(self.cfg.grid),
-            n=self.cfg.capacity * self.n_spaces)
+            n=self.cfg.capacity * self.n_spaces,
+            migrate_cap=None if self.mesh is None else self._migrate_cap)
 
     # ==================================================================
     # the tick
@@ -1598,7 +1794,8 @@ class World:
         # under pipelining, where the audit skips its samples)
         aud_req = None
         ap = self.audit
-        if (ap is not None and not self.pipeline_decode
+        if (ap is not None and self.mega is None and self.mesh is None
+                and not self.pipeline_decode
                 and ap.want_sample(self.tick_count)):
             s = self._audit_shard % self.n_spaces
             aud_req = (self.state.pos[s], self.state.alive[s],
@@ -1729,6 +1926,12 @@ class World:
         device sync: ``aud_host`` rode the tick's fetch."""
         ap = self.audit
         tick = self.tick_count
+        if self.mega is not None:
+            ap.skip_sample("megaspace", tick)
+            return
+        if self.mesh is not None:
+            ap.skip_sample("mesh", tick)
+            return
         if self.pipeline_decode:
             # the decoded interest sets are tick N-1's while state.pos
             # is tick N's: the oracle would judge mismatched epochs
@@ -1849,11 +2052,13 @@ class World:
         copy, each row addressed by its flat index ``shard * capacity +
         slot``. The host reads the device on a tick with migrations
         only (:meth:`_repack_migrations`); a position or yaw the inputs
-        must keep is gathered from the state on the device."""
+        must keep is gathered from the state on the device. On a mesh
+        the staged migrations become the step's tagged requests instead
+        (``MultiTickInputs``, sent in the same copy)."""
         cfg = self.cfg
         cap = cfg.capacity
         pack = _HostPack()
-        if self._staged_migrate:
+        if self._staged_migrate and self.mesh is None:
             self._repack_migrations()
 
         spawn = None
@@ -2012,6 +2217,19 @@ class World:
         inp = [pack.add(x) for x in (idx, vals, counts)]
         fills = [pack.add(x) for x in (fill_pos, fill_yaw)] \
             if need_pos or need_yaw else None
+        migrate = None
+        if self.mesh is not None:
+            # the staged migrations as the step's tagged requests; the
+            # tags name (eid, source row) for _process_arrivals
+            mt = np.full((self.n_spaces, cap), -1, np.int32)
+            tags = np.full((self.n_spaces, cap), -1, np.int32)
+            self._migrate_tags = {}
+            for i, (sh_, sl_, dst, eid_) in enumerate(self._staged_migrate):
+                mt[sh_, sl_] = dst
+                tags[sh_, sl_] = i
+                self._migrate_tags[i] = (eid_, sh_, sl_)
+            self._staged_migrate.clear()
+            migrate = [pack.add(x) for x in (mt, tags)]
 
         lanes = pack.send(self.device)
         st = self.state
@@ -2063,8 +2281,12 @@ class World:
             if need_yaw:
                 d_vals[..., 3] = torch.where(f_yaw, st.yaw[sp, rows],
                                              d_vals[..., 3])
-        return TickInputs(pos_sync_idx=d_idx, pos_sync_vals=d_vals,
+        base = TickInputs(pos_sync_idx=d_idx, pos_sync_vals=d_vals,
                           pos_sync_n=d_counts)
+        if migrate is None:
+            return base
+        return MultiTickInputs(base=base, migrate_target=lanes[migrate[0]],
+                               migrate_tag=lanes[migrate[1]])
 
     def _repack_migrations(self) -> None:
         """The staged migrations between AOI Spaces as a host repack
@@ -2131,10 +2353,28 @@ class World:
                 tgt.OnEntityEnterSpace(e)
 
     # -- output processing ----------------------------------------------
+    def _owner_subject(self, shard: int, j: int) -> Entity | None:
+        """Resolve a subject id from tick outputs: a local slot for normal
+        spaces, a GLOBAL gid (= tile * capacity + slot) in megaspace mode,
+        where neighbors may live on adjacent tiles (ghosts)."""
+        if self.mega is not None:
+            tile, slot = divmod(j, self.cfg.capacity)
+            if tile >= self.n_spaces:
+                return None  # gid sentinel
+            return self._owner_entity(tile, slot)
+        return self._owner_entity(shard, j)
+
     def _process_outputs(self, outs) -> None:
-        base = outs
+        base = outs.base if self.mesh is not None else outs
         cfg = self.cfg
-        # Leaves before enters. The pair-decode loops below run at
+        mega = self.mega is not None
+        mega_pending = self._mega_collect_arrivals(outs) if mega else None
+        # Leaves before enters, across all shards: a megaspace border-hop
+        # emits leave(old slot, X) on the source tile and enter(new slot,
+        # X) on the destination tile for a subject X visible from both;
+        # both slots resolve to the same host entity, so enters must be
+        # applied last for the final interest set to be correct.
+        # The pair-decode loops below run at
         # event-cap volumes every tick: owner resolution is inlined (two
         # dict gets, no helper-call overhead; dict.get(None) is safely
         # None) and the AOI hook call + its exception containment is
@@ -2165,7 +2405,8 @@ class World:
             for w, j in zip(base.leave_w[shard][:ln].tolist(),
                             base.leave_j[shard][:ln].tolist()):
                 we = entities.get(slot_eid(w))
-                je = entities.get(slot_eid(j))
+                je = (self._owner_subject(shard, j) if mega
+                      else entities.get(slot_eid(j)))
                 if we is None or je is None:
                     leave_skip += 1
                     continue
@@ -2186,6 +2427,12 @@ class World:
                         "type": "destroy_entity", "eid": je.id,
                         "is_player": False,
                     })
+        if mega_pending is not None:
+            # re-point tile-migrated entities AFTER the leave decode (their
+            # new slots may be rows host-despawned this tick, whose leave
+            # events reference the previous owner) but BEFORE the enter
+            # decode (arrivals' enter events reference their new slots)
+            self._mega_apply_arrivals(mega_pending, outs)
         for shard in shards:
             drn = int(base.delta_rows_n[shard])
             drc = min(cfg.delta_rows_cap_eff, cfg.capacity)
@@ -2214,7 +2461,8 @@ class World:
             for w, j in zip(base.enter_w[shard][:en].tolist(),
                             base.enter_j[shard][:en].tolist()):
                 we = entities.get(slot_eid(w))
-                je = entities.get(slot_eid(j))
+                je = (self._owner_subject(shard, j) if mega
+                      else entities.get(slot_eid(j)))
                 if we is None or je is None:
                     enter_skip += 1
                     continue
@@ -2279,9 +2527,19 @@ class World:
                                    out=self._scr_cid[:sn])
                     gates = np.take(self._mir_gate[shard], ws,
                                     out=self._scr_gate[:sn])
-                    jeids = np.take(self._mir_eid[shard], js,
-                                    out=self._scr_eid[:sn])
-                    ok = (cids != b"") & (jeids != b"")
+                    if mega:
+                        # subjects are gids: tile * capacity + slot
+                        tiles = js // cfg.capacity
+                        ok_sub = tiles < self.n_spaces
+                        jeids = self._mir_eid[
+                            np.minimum(tiles, self.n_spaces - 1),
+                            js % cfg.capacity,
+                        ]
+                    else:
+                        ok_sub = True
+                        jeids = np.take(self._mir_eid[shard], js,
+                                        out=self._scr_eid[:sn])
+                    ok = (cids != b"") & (jeids != b"") & ok_sub
                     sync_sent += int(ok.sum())
                     for gate_id in np.unique(gates[ok]):
                         m = ok & (gates == gate_id)
@@ -2291,7 +2549,7 @@ class World:
                 else:
                     for w, j, v in zip(ws, js, vs):
                         we = self._owner_entity(shard, int(w))
-                        je = self._owner_entity(shard, int(j))
+                        je = self._owner_subject(shard, int(j))
                         if we is None or we.client is None or je is None:
                             continue
                         sync_sent += 1
@@ -2332,6 +2590,8 @@ class World:
                     ):
                         dirty.setdefault(e.id, []).append(
                             AttrDelta((name,), "set", v))
+        if self.mesh is not None and not mega:
+            self._process_arrivals(outs)
         self.op_stats["aoi_leave_decoded"] = leave_read - leave_skip
         self.op_stats["aoi_enter_decoded"] = enter_read - enter_skip
         self.op_stats["sync_records_sent"] = sync_sent
@@ -2362,15 +2622,16 @@ class World:
         self.op_stats["aoi_over_cap_cells"] = over_cap
         self._m_aoi_demand.set(dem_max)
         self._m_aoi_cell.set(cell_max)
-        rebuilds = int(np.sum(base.aoi_rebuilt))
-        slack = float(np.min(base.aoi_skin_slack))
-        if rebuilds:
-            self._m_aoi_rebuild.inc(rebuilds)
-        self._m_aoi_slack.set(slack)
-        opmon.expose("aoi_rebuild_last", rebuilds)
-        opmon.expose("aoi_skin_slack", slack)
-        self.op_stats["aoi_rebuild_last"] = rebuilds
-        self.op_stats["aoi_skin_slack"] = slack
+        if base.aoi_rebuilt is not None:  # None: the megaspace's tiles
+            rebuilds = int(np.sum(base.aoi_rebuilt))
+            slack = float(np.min(base.aoi_skin_slack))
+            if rebuilds:
+                self._m_aoi_rebuild.inc(rebuilds)
+            self._m_aoi_slack.set(slack)
+            opmon.expose("aoi_rebuild_last", rebuilds)
+            opmon.expose("aoi_skin_slack", slack)
+            self.op_stats["aoi_rebuild_last"] = rebuilds
+            self.op_stats["aoi_skin_slack"] = slack
         if over_k or over_cap:
             self._m_aoi_overflow.inc(over_k + over_cap)
         if (over_k or over_cap) and \
@@ -2389,17 +2650,254 @@ class World:
         # release slots whose leave events have now been processed
         for shard, slot, expect in self._release_now:
             cur = self._slot_owner[shard].get(slot)
-            if cur == expect:
+            e = self.entities.get(expect) if expect is not None else None
+            # on a mesh a migrant may arrive back in its own source row
+            # (dead and out of quarantine a tick after it left): that row
+            # is its live one again, not a slot to free. The JAX World
+            # frees it (ROADMAP.md Queue C5)
+            back = e is not None and (e.shard, e.slot) == (shard, slot)
+            if cur == expect and not back:
                 self._slot_clear(shard, slot)
                 self._free[shard].add(slot)
             # forget destroyed host objects: destroy_entity kept them
             # alive only for this release point
-            if expect is not None:
-                e = self.entities.get(expect)
-                if e is not None and e.destroyed and e.slot is None:
-                    self.entities.pop(expect, None)
+            if e is not None and e.destroyed and e.slot is None:
+                self.entities.pop(expect, None)
         self._release_now = self._release_next
         self._release_next = []
+
+    def _mega_collect_arrivals(self, outs) -> list[tuple]:
+        """Megaspace: read the device's own tile-migration records (old
+        gid -> new slot). Unlike :meth:`_process_arrivals` there are no
+        host-staged tags: the device migrates from position and the host
+        follows (the dispatcher-table rewrite of
+        ``DispatcherService.go:877-891`` with the device as the source of
+        truth). Returns pending (new_shard, new_slot, old_sh, old_sl, eid)
+        re-pointings, applied by :meth:`_mega_apply_arrivals` BETWEEN the
+        leave and enter passes: a new slot may be a row another entity
+        was host-despawned from this very tick, whose leave events must
+        decode against the OLD owner, the arrival's enter events against
+        the NEW one."""
+        cap = self.cfg.capacity
+        pending: list[tuple] = []
+        for shard in range(self.n_spaces):
+            an = int(outs.arr_n[shard])
+            for t, s in zip(outs.arr_tag[shard][:an].tolist(),
+                            outs.arr_slot[shard][:an].tolist()):
+                if t < 0 or s < 0:
+                    continue
+                old_sh, old_sl = divmod(t, cap)
+                eid = self._slot_owner[old_sh].get(old_sl)
+                if eid is not None:
+                    pending.append((shard, s, old_sh, old_sl, eid))
+        mdem = outs.migrate_demand
+        if (mdem > self.mega.migrate_cap).any():
+            logger.warning(
+                "megaspace migrate demand %d exceeds migrate_cap %d; "
+                "surplus entities linger on the wrong tile this tick",
+                int(mdem.max()), self.mega.migrate_cap,
+            )
+        hdem = outs.halo_demand
+        if (hdem > self.mega.halo_cap).any():
+            logger.warning(
+                "megaspace halo demand %d exceeds halo_cap %d; some "
+                "cross-border neighbors invisible this tick",
+                int(hdem.max()), self.mega.halo_cap,
+            )
+        return pending
+
+    def _mega_apply_arrivals(self, pending: list[tuple], outs) -> None:
+        for shard, s, old_sh, old_sl, eid in pending:
+            # old slot keeps its owner mapping through THIS step's leave
+            # events; released at the end of _process_outputs
+            self._release_now.append((old_sh, old_sl, eid))
+            self._slot_set(shard, s, eid)
+            self._free[shard].discard(s)
+            e = self.entities.get(eid)
+            if e is not None:
+                e.shard = shard
+                e.slot = s
+                if e.destroyed:
+                    # destroyed while the row hopped tiles: drop it
+                    self._staged_despawn.append((shard, s))
+                    e.slot = None
+                    e.shard = None
+        total_dropped = int(outs.migrate_dropped.sum())
+        if total_dropped:
+            self._mega_reconcile_dropped(total_dropped)
+
+    def _mega_reconcile_dropped(self, total_dropped: int) -> None:
+        """A border-crosser whose destination tile was full departed its
+        source row but never arrived (no record). Without reconciliation
+        its host object keeps addressing a dead row that a later arrival
+        may re-occupy, and staged writes would then corrupt another
+        entity. Find the orphans by comparing host mappings against
+        device liveness (one ``[n_dev, N]`` readback, only on this
+        alarmed path) and respawn them from host knowledge."""
+        logger.error(
+            "megaspace dropped %d border-crossing entities (destination "
+            "tiles full); respawning from host state — raise capacity",
+            total_dropped,
+        )
+        alive, moving, yaw = self._dget([self.state.alive,
+                                         self.state.npc_moving,
+                                         self.state.yaw])
+        expected_dead = {
+            (sh_, sl_) for sh_, sl_, _ in self._release_now
+        } | set(self._staged_despawn)
+        orphans: list[tuple[int, int, str]] = []
+        for sh_ in range(self.n_spaces):
+            for sl_, eid in self._slot_owner[sh_].items():
+                if alive[sh_, sl_] or (sh_, sl_) in expected_dead:
+                    continue
+                e = self.entities.get(eid)
+                if e is None or e.shard != sh_ or e.slot != sl_:
+                    continue
+                orphans.append((sh_, sl_, eid))
+        for sh_, sl_, eid in orphans:
+            e = self.entities[eid]
+            last_pos = tuple(self.read_pos(sh_, sl_).tolist())
+            mv = bool(moving[sh_, sl_])
+            self._slot_clear(sh_, sl_)
+            self._free[sh_].add(sl_)
+            e.slot = None
+            e.shard = None
+            if e.destroyed:
+                self.entities.pop(eid, None)
+                continue
+            sp = e.space
+            if sp is not None:
+                sp.members.discard(eid)
+                e.space = None
+                pos = e._pending_pos or last_pos
+                # the dead row's device-only state (heading, mover flag)
+                # travels with the respawn; velocity regenerates from the
+                # behavior on the next tick
+                if self._enter_space_or_park(e, sp, pos, moving=mv):
+                    e._pending_yaw = float(yaw[sh_, sl_])
+                    self.stage_pos_set(e)
+
+    def _process_arrivals(self, outs) -> None:
+        """Mesh path: re-point migrated entities from the arrival records
+        (the analog of the dispatcher rewriting entityDispatchInfos,
+        ``DispatcherService.go:877-891``) and reconcile requests that did
+        not complete (capacity backpressure)."""
+        resolved: set[int] = set()
+        for shard in range(self.n_spaces):
+            an = int(outs.arr_n[shard])
+            for t, s in zip(outs.arr_tag[shard][:an].tolist(),
+                            outs.arr_slot[shard][:an].tolist()):
+                info = self._migrate_tags.get(t)
+                if info is None:
+                    continue
+                resolved.add(t)
+                eid, src_sh, src_sl = info
+                e = self.entities.get(eid)
+                # source slot: owner cleared after its leave events fire
+                # NEXT step (the departure happened inside this step)
+                self._release_next.append((src_sh, src_sl, eid))
+                if e is None:
+                    continue
+                e._migrating = None
+                e.slot = s
+                e.shard = shard
+                self._slot_set(shard, s, eid)
+                self._free[shard].discard(s)
+                if e.destroyed:
+                    # destroyed mid-flight after the row already moved:
+                    # drop the arrived row
+                    self._staged_despawn.append((shard, s))
+                    e.slot = None
+                    e.shard = None
+                    continue
+                # the arrived row carries source-tick pos/attrs; stage the
+                # requested destination position and any attr writes made
+                # during the migration window
+                if e._pending_pos is not None:
+                    self.stage_pos_set(e)
+                for name, col in e._type_desc.hot_attrs.items():
+                    v = e.attrs.get(name)
+                    if isinstance(v, (int, float)) \
+                            and not isinstance(v, bool):
+                        self.stage_hot(e, col, float(v))
+                e.OnMigrateIn()
+                e.OnEnterSpace()
+                tgt_id = self._shard_space[shard]
+                tgt = self.spaces.get(tgt_id) if tgt_id else None
+                if tgt is not None:
+                    tgt.OnEntityEnterSpace(e)
+            dropped = int(outs.migrate_dropped[shard])
+            if dropped:
+                logger.warning("shard %d dropped %d migrants", shard, dropped)
+
+        # unresolved requests: either the emigrant stayed behind (pack
+        # capacity) or it was dropped at a full destination. ONE
+        # batched alive fetch for the whole loop
+        alive_np = None
+        if any(t not in resolved for t in self._migrate_tags):
+            alive_np = self._dget([self.state.alive])[0]
+        for t, (eid, src_sh, src_sl) in self._migrate_tags.items():
+            if t in resolved:
+                continue
+            e = self.entities.get(eid)
+            if e is None:
+                continue
+            if e.destroyed:
+                # destroyed while unresolved: drop whichever row survived
+                # and forget the entity
+                if bool(alive_np[src_sh, src_sl]):
+                    self._staged_despawn.append((src_sh, src_sl))
+                else:
+                    self._slot_clear(src_sh, src_sl)
+                    self._free[src_sh].add(src_sl)
+                    self.entities.pop(eid, None)
+                e.slot = None
+                e.shard = None
+                e._migrating = None
+                continue
+            still_there = bool(alive_np[src_sh, src_sl])
+            src_id = self._shard_space[src_sh]
+            src = self.spaces.get(src_id) if src_id else None
+            if still_there and src is not None:
+                # stayed behind (pack capacity): revert the host-side
+                # space move and retry next tick
+                intended = e.space
+                if intended is not None:
+                    intended.members.discard(eid)
+                e.space = src
+                src.members.add(eid)
+                e.slot = src_sl
+                e.shard = src_sh
+                e._migrating = None
+                logger.warning("migration of %s deferred (pack cap)", eid)
+                if intended is not None and intended.id in self.spaces:
+                    pos = e._pending_pos or (0.0, 0.0, 0.0)
+                    self.post_q.post(
+                        lambda e=e, sid=intended.id, pos=pos: (
+                            None if e.destroyed
+                            else self.enter_space(e, sid, pos)
+                        )
+                    )
+            else:
+                # departed but dropped at destination: respawn from host
+                # knowledge (hot attrs re-derived from the attr tree)
+                logger.error(
+                    "migrant %s dropped at full destination; respawning",
+                    eid,
+                )
+                self._slot_clear(src_sh, src_sl)
+                self._free[src_sh].add(src_sl)
+                tgt = e.space
+                e.slot = None
+                e.shard = None
+                e._migrating = None
+                if tgt is not None:
+                    tgt.members.discard(eid)
+                    e.space = None
+                    self._enter_space_or_park(
+                        e, tgt, e._pending_pos or (0.0, 0.0, 0.0)
+                    )
+        self._migrate_tags = {}
 
     # ==================================================================
     # device reads
@@ -2468,19 +2966,20 @@ class World:
         return split(self._dget(lanes))
 
     @staticmethod
-    def _fetch_lanes(outs: TickOutputs, acc, aud) -> tuple:
-        """The lanes :meth:`_fetch` reads and the function that splits
+    def _fetch_lanes(outs, acc, aud) -> tuple:
+        """The lanes :meth:`_fetch` reads (every lane of the outputs, a
+        mesh step's ``base`` included) and the function that splits
         their host copies into its triple."""
-        names = [f.name for f in dataclasses.fields(outs)
-                 if getattr(outs, f.name) is not None]
-        lanes = [getattr(outs, n) for n in names]
+        paths = list(_flat_lanes(outs))
+        names = [p for p, _ in paths]
+        lanes = [t for _, t in paths]
         acc_keys = list(acc) if acc is not None else []
         lanes += [acc[k] for k in acc_keys]
         lanes += list(aud) if aud is not None else []
         n, m = len(names), len(acc_keys)
 
         def split(got):
-            return (dataclasses.replace(outs, **dict(zip(names, got[:n]))),
+            return (_with_lanes(outs, dict(zip(names, got[:n]))),
                     dict(zip(acc_keys, got[n:n + m])) if acc is not None
                     else None,
                     tuple(got[n + m:]) if aud is not None else None)

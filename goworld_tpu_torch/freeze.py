@@ -215,11 +215,15 @@ def restore_world(world: World, data: dict) -> None:
         sp._type_desc = desc
         world._attach(sp, sd["id"])
         if sd.get("mega"):
-            raise RuntimeError(
-                f"restore: space {sd['id']} is a megaspace but the "
-                "World was not built with megaspace=True"
-            )
-        if sd.get("use_aoi", True):
+            if world.mega is None:
+                raise RuntimeError(
+                    f"restore: space {sd['id']} is a megaspace but the "
+                    "World was not built with megaspace=True"
+                )
+            for i in range(world.n_spaces):
+                world._shard_space[i] = sp.id
+            sp.is_mega = True
+        elif sd.get("use_aoi", True):
             try:
                 shard = world._shard_space.index(None)
             except ValueError:

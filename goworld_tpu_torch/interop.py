@@ -27,7 +27,11 @@ then ``[S, 2]`` and ``tick`` ``[S]``): :func:`state_from_numpy` and
 (:func:`inputs_from_numpy`, :func:`inputs_to_numpy`) and outputs
 (:func:`outputs_from_numpy`, :func:`outputs_to_numpy`), both ways.
 :func:`multi_inputs_from_numpy` and :func:`mega_outputs_to_numpy` carry
-a megaspace's inputs and outputs.
+a megaspace's inputs and outputs, and a multi-space step's
+(``parallel.step.make_multi_tick``). A JAX World on
+a mesh or a megaspace World keeps the same stacked lanes: gathered to
+numpy (``np.asarray`` of each lane), they cross by
+:func:`state_from_numpy` as they are.
 """
 
 from __future__ import annotations
@@ -42,7 +46,10 @@ from goworld_tpu_torch.ops.aoi import VerletCache
 from goworld_tpu_torch.core.step import TickInputs, TickOutputs
 from goworld_tpu_torch.models.npc_policy import MLPPolicy
 from goworld_tpu_torch.parallel.megaspace import MegaTickOutputs
-from goworld_tpu_torch.parallel.step import MultiTickInputs
+from goworld_tpu_torch.parallel.step import (
+    MultiTickInputs,
+    MultiTickOutputs,
+)
 
 _OPTIONAL = ("aoi_cache", "behavior_id")
 _POLICY_LANES = ("w1", "b1", "w2", "b2", "w3", "b3")
@@ -192,10 +199,11 @@ def multi_inputs_from_numpy(arrays: dict, device="cuda") -> MultiTickInputs:
     )
 
 
-def mega_outputs_to_numpy(outputs: MegaTickOutputs) -> dict:
-    """The lanes of megaspace ``outputs`` as numpy arrays; ``base`` is
-    the dict of :func:`outputs_to_numpy`."""
+def mega_outputs_to_numpy(outputs: MegaTickOutputs | MultiTickOutputs
+                          ) -> dict:
+    """The lanes of megaspace (or multi-space) ``outputs`` as numpy
+    arrays; ``base`` is the dict of :func:`outputs_to_numpy`."""
     out = {f.name: getattr(outputs, f.name).detach().cpu().numpy()
-           for f in dataclasses.fields(MegaTickOutputs) if f.name != "base"}
+           for f in dataclasses.fields(outputs) if f.name != "base"}
     out["base"] = outputs_to_numpy(outputs.base)
     return out

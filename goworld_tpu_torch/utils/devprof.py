@@ -191,12 +191,16 @@ def step_stage_costs(cfg, n_spaces: int = 1,
 def cost_report(cfg, n_spaces: int, state, *, policy=None,
                 resident: bool = True, name: str = "tick",
                 config: dict | None = None,
-                n: int | None = None) -> CostReport:
+                n: int | None = None,
+                migrate_cap: int | None = None) -> CostReport:
     """The :class:`CostReport` of the step of ``cfg`` over ``state``
     (stacked ``[n_spaces, ...]`` lanes) with ``policy``, from shapes
-    alone: nothing here reads the device or waits for it. Failures are
-    folded into ``report.error`` instead of raising — a cost audit must
-    never kill a measurement run."""
+    alone: nothing here reads the device or waits for it. A mesh or
+    megaspace step (``migrate_cap`` given) also takes the migration
+    requests (two i32 lanes a slot) and gives the arrival records (two
+    i32 lanes of ``n_spaces * migrate_cap`` a shard, and four counts a
+    shard). Failures are folded into ``report.error`` instead of
+    raising — a cost audit must never kill a measurement run."""
     rep = CostReport(name=name, config=config, n=n)
     try:
         rep.platform = "gpu" if state.pos.device.type == "cuda" else "cpu"
@@ -213,6 +217,10 @@ def cost_report(cfg, n_spaces: int, state, *, policy=None,
                   for f in ("w1", "b1", "w2", "b2", "w3", "b3")) \
             if policy is not None else 0
         outs = output_bytes(cfg, n_spaces)
+        if migrate_cap is not None:
+            inputs += n_spaces * 8 * cfg.capacity
+            outs += n_spaces * (8 * n_spaces * migrate_cap
+                                + 4 * (3 + n_spaces))
         rep.argument_size = carry + inputs + pol
         rep.output_size = carry + outs
         rep.output_bytes = float(rep.output_size)

@@ -49,7 +49,7 @@ from goworld_tpu_torch.entity import Entity, GameClient, Space, World
 from goworld_tpu_torch.ops import prng
 from goworld_tpu_torch.ops.aoi import GridSpec
 from goworld_tpu_torch.parallel.megaspace import MegaConfig, create_mega_state
-from goworld_tpu_torch.parallel.mesh import create_multi_state
+from goworld_tpu_torch.parallel.mesh import create_multi_state, make_mesh
 from goworld_tpu_torch.parallel.step import MultiTickInputs
 from goworld_tpu_torch.utils import ids
 
@@ -466,16 +466,23 @@ class Served:
     boot_events: int = 0     # their enter events
     arenas: list = dataclasses.field(default_factory=list)  # a Space each
     migrating: list = dataclasses.field(default_factory=list)
+    # the world's (x, z) extent where it is not the grid's: a megaspace's
+    # grid is one tile's, in tile-shifted coordinates
+    extent: tuple | None = None
+
+    def world_extent(self) -> tuple[float, float]:
+        g = self.world.cfg.grid
+        return self.extent or (g.extent_x, g.extent_z)
 
     def _new_id(self) -> str:
         self.created += 1
         return ids.gen_fixed_id(f"serve.{self.seed}.{self.created}")
 
     def _pos(self, k: int) -> np.ndarray:
-        g = self.world.cfg.grid
+        ex, ez = self.world_extent()
         xz = np.zeros((k, 3), np.float64)
-        xz[:, 0] = self.rng.uniform(0, g.extent_x, k)
-        xz[:, 2] = self.rng.uniform(0, g.extent_z, k)
+        xz[:, 0] = self.rng.uniform(0, ex, k)
+        xz[:, 2] = self.rng.uniform(0, ez, k)
         return xz
 
     def stage(self, teleport: bool = False) -> dict:
@@ -511,7 +518,7 @@ class Served:
             step = cfg.npc_speed * cfg.dt
             xz = self.player_xz[who] + step * np.stack(
                 [np.cos(self.heading[who]), np.sin(self.heading[who])], 1)
-            ext = np.array([g.extent_x, g.extent_z])
+            ext = np.array(self.world_extent())
             out = (xz < 0) | (xz > ext)
             xz = np.clip(xz, 0, ext)
             h = self.heading[who]
@@ -611,6 +618,8 @@ def serve_world(n: int, seed: int, device="cuda", *,
                 record_hooks: bool = False, keep: bool = False,
                 boot: bool = False, world_kw: dict | None = None,
                 spaces: int = 1, behavior: str = "random_walk",
+                mesh: bool = False, mega_shape: tuple | None = None,
+                halo_impl: str = "async", spare: int = SERVE_SPARE,
                 **grid_kw) -> Served:
     """A served game on ``slice_config(n, **grid_kw)``: one ``World``
     (at its defaults, the planes on, or with ``world_kw``) with one AOI
@@ -643,15 +652,41 @@ def serve_world(n: int, seed: int, device="cuda", *,
     ``gc.collect()`` and ``gc.freeze()`` move the populated world into
     the collector's permanent generation, so no later collection walks
     it (a pass over ~10^7 objects stalls a tick for seconds). The
-    freeze is process-wide; ``gc.unfreeze()`` hands the objects back."""
+    freeze is process-wide; ``gc.unfreeze()`` hands the objects back.
+
+    ``mesh`` builds the World of ``spaces`` Spaces on a mesh
+    (``parallel.mesh.make_mesh(spaces)``: ``enter_space`` moves ride the
+    step's exchange). ``mega_shape=(tx, tz)`` builds a megaspace World
+    instead: one Arena over ``tx * tz`` tiles of ``n`` slots, each tile
+    :func:`slice_config`'s extent at ``n`` (so the bench's density),
+    ``halo_impl`` shipping the halo, and ``(n - SERVE_SPARE) * tx * tz``
+    entities over the whole world. ``spare`` slots a Space (or tile)
+    stay free for the churn."""
     cfg = dataclasses.replace(slice_config(n, **grid_kw), behavior=behavior)
     hooks = [] if record_hooks else None
     mob_cls, player_cls, arena_cls = _game_types(hooks)
     t0 = time.perf_counter()
-    w = World(cfg, spaces, seed=seed, device=device, **(world_kw or {}))
+    kw = dict(world_kw or {})
+    extent = None
+    tiles = 1
+    if mega_shape is not None:
+        tx, tz = mega_shape
+        tiles = tx * tz
+        g, r = cfg.grid, cfg.grid.radius
+        extent = (tx * g.extent_x, tz * g.extent_z)
+        cfg = dataclasses.replace(cfg, grid=dataclasses.replace(
+            g, extent_x=g.extent_x + 2 * r,
+            extent_z=g.extent_z + 2 * r if tz > 1 else g.extent_z))
+        kw.update(mesh=make_mesh(tiles, device=device), megaspace=True,
+                  mega_shape=mega_shape if tz > 1 else None,
+                  halo_impl=halo_impl)
+        spaces = tiles
+    elif mesh:
+        kw.update(mesh=make_mesh(spaces, device=device))
+    w = World(cfg, spaces, seed=seed, device=device, **kw)
     w.register_entity("Mob", mob_cls)
     w.register_entity("Player", player_cls)
-    w.register_space("Arena", arena_cls)
+    w.register_space("Arena", arena_cls, megaspace=mega_shape is not None)
     w.create_nil_space()
     sink = CountingSink(keep)
     w.sync_sink = sink.sync
@@ -659,14 +694,16 @@ def serve_world(n: int, seed: int, device="cuda", *,
     arenas = [w.create_space("Arena",
                              eid=ids.gen_fixed_id(f"arena.{seed}"
                                                   + (f".{d}" if d else "")))
-              for d in range(spaces)]
+              for d in range(1 if mega_shape else spaces)]
     arena = arenas[0]
     rng = np.random.default_rng(seed)
     served = Served(world=w, arena=arena, sink=sink, hooks=hooks, rng=rng,
                     mobs=[], players=np.zeros(0, "S16"), seed=seed,
                     populate_s=0.0, player_xz=np.zeros((0, 2)),
-                    heading=np.zeros(0), arenas=arenas)
-    pop = n - SERVE_SPARE
+                    heading=np.zeros(0), arenas=arenas, extent=extent)
+    # a megaspace's population is one Arena's: tiles x a Space's
+    pop = (n - spare) * tiles
+    spaces = len(arenas)
     pos = served._pos(pop * spaces)
     is_player = rng.random(pop * spaces) < CLIENT_FRAC
     players = []
@@ -691,7 +728,8 @@ def serve_world(n: int, seed: int, device="cuda", *,
     if boot:
         done = 0
         while done < pop:
-            hi = min(pop, done + _boot_batch(cfg, done))
+            # a megaspace's batch spreads over its tiles
+            hi = min(pop, done + tiles * _boot_batch(cfg, done // tiles))
             for d in range(spaces):
                 create(done, hi, d)
             done = hi
@@ -700,6 +738,7 @@ def serve_world(n: int, seed: int, device="cuda", *,
             # its caps are checked on its own outputs
             w.flush_pending_outputs()
             out = w.last_outputs
+            out = getattr(out, "base", out)
             for lane, cap in (("enter_n", cfg.enter_cap),
                               ("leave_n", cfg.leave_cap),
                               ("delta_rows_n", cfg.delta_rows_cap_eff)):

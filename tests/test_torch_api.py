@@ -4,16 +4,22 @@ The lazy facade against the JAX package's (submodules first, then the
 names of ``api``), the ini's config against the JAX package's, a game
 booted from an ini by ``gw.run([...], block=False, device="cpu")``
 against the port's own dispatchers and gate and played by a strict bot,
-and every setting the port does not run refused with
+every setting the port does not run refused with
 ``NotImplementedError`` naming ROADMAP.md (no card and no
-``device="cpu"`` raises as the World does).
+``device="cpu"`` raises as the World does), and
+``examples/megaspace_demo``'s ini through ``gw.run(device="cpu")``
+against the JAX package's World built from the same ini (its 200
+Monsters' positions and a logged-in Avatar's interest set equal, bit
+for bit).
 """
 
 from __future__ import annotations
 
 import asyncio
 import dataclasses
+import importlib.util
 import os
+import sys
 import time
 
 import numpy as np
@@ -175,7 +181,7 @@ def test_run_from_ini_on_the_cpu(tmp_path, fresh_api):
 
 @pytest.mark.parametrize("game,env,argv", [
     (dict(megaspace="true", mesh_devices=4), {}, []),
-    (dict(mesh_devices=2), {}, []),
+    (dict(mesh_devices=2, n_spaces=2), {}, []),
     (dict(http_port=18080), {}, []),
     (dict(small_tier_rows=512), {}, []),
     (dict(standby_of=2), {}, []),
@@ -186,10 +192,31 @@ def test_run_from_ini_on_the_cpu(tmp_path, fresh_api):
 def test_run_refuses_unported_settings(tmp_path, fresh_api, monkeypatch,
                                        game, env, argv):
     """Each setting the port does not run raises ``NotImplementedError``
-    naming ROADMAP.md before anything is built."""
+    naming ROADMAP.md before anything is built. A megaspace and a mesh
+    were refused until they were ported; those cases now hold that the
+    ini's World takes them and ticks: 4 x-strip tiles of the ini's
+    world, and 2 Spaces on a mesh of 2."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     ini = _ini(str(tmp_path), None, **game)
+    if game.get("mesh_devices"):
+        gc = tconfig.load(ini).games.get(1) or tconfig.GameConfig()
+        w = api._build_world(gc, 1, device="cpu")
+        n = game["mesh_devices"]
+        assert w.mesh is not None and w.mesh.devices.size == n
+        w.register_space("Arena", Arena, megaspace=bool(w.mega))
+        w.register_entity("Avatar", Avatar)
+        w.create_nil_space()
+        arenas = [w.create_space("Arena")
+                  for _ in range(1 if w.mega else n)]
+        for i, a in enumerate(arenas):
+            a.create_entity("Avatar", pos=(10.0 + 60 * i, 0.0, 10.0))
+        w.tick()
+        w.tick()
+        assert w.last_outputs.global_alive.tolist() == [len(arenas)] * n
+        if w.mega is not None:
+            assert w.mega.shape == (4, 1) and w.mega.tile_w == 50.0
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         gw.run(["-gid", "1", "-configfile", ini, *argv], block=False,
                device="cpu")
@@ -335,3 +362,147 @@ def test_run_boots_the_ported_ini_knobs(tmp_path, fresh_api, game):
             rt.storage.shutdown()
             rt.workers.wait_clear()
         harness.stop()
+
+
+DEMO = os.path.join(os.path.dirname(__file__), "..", "examples",
+                    "megaspace_demo")
+
+
+def _load_demo(pkg_api, name: str):
+    """Import one of the megaspace demo's servers fresh, its
+    registrations captured by ``pkg_api``."""
+    pkg_api._reset_for_tests()
+    spec = importlib.util.spec_from_file_location(
+        f"example_megaspace_{name}", os.path.join(DEMO, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_megaspace_demo_through_run_matches_jax(tmp_path, fresh_api):
+    """``examples/megaspace_demo``: its ini (8 tiles of 1024 slots in a
+    4 x 2 layout, the btree) through ``gw.run(device="cpu")`` with the
+    port's copy of its server (``server_torch.py``), against dispatchers
+    and a gate, and a strict bot logging in; and the JAX package's World
+    built from the same ini with ``server.py``'s types, its deployment
+    hook and the login replayed at the port's ticks. After 6 more ticks
+    the 200 Monsters' positions and the Avatar's interest set are equal,
+    every float bit included."""
+    from goworld_tpu import api as japi
+    from goworld_tpu.entity.entity import GameClient as JClient
+
+    ticks_after = 6
+    harness = ClusterHarness(n_dispatchers=2, n_gates=1)
+    harness.start()
+    rt = None
+    mod = _load_demo(api, "server_torch")
+    marks: dict = {}
+    mod.Avatar.OnCreated = lambda self: marks.setdefault(
+        "avatar", self.world.tick_count)
+    gw.on_deployment_ready(lambda: marks.setdefault(
+        "ready", gw.world().tick_count))
+    try:
+        with open(os.path.join(DEMO, "goworld_tpu.ini")) as f:
+            demo = f.read()
+        game = demo[demo.index("[game1]"):demo.index("[gate1]")]
+        lines = []
+        for i, (h, p) in enumerate(harness.dispatcher_addrs):
+            lines += [f"[dispatcher{i + 1}]", f"host = {h}", f"port = {p}"]
+        lines += [game, "[storage]", "kind = filesystem",
+                  f"directory = {tmp_path}/entity_storage", "[kvdb]",
+                  "kind = filesystem", f"path = {tmp_path}/kvdb_data"]
+        ini = os.path.join(str(tmp_path), "goworld_tpu.ini")
+        with open(ini, "w") as f:
+            f.write("\n".join(lines) + "\n")
+        rt = gw.run(["-gid", "1", "-configfile", ini], block=False,
+                    device="cpu")
+        w, gs = rt.world, rt.server
+        assert w.mega is not None and w.mega.shape == (4, 2)
+        assert w.mega.halo_cap == 256 and w.mega.migrate_cap == 64
+        bot = BotClient(*harness.gate_addrs[0], strict=True)
+        fut = harness.submit(_login_as(bot, "hero"))
+        t_end = time.monotonic() + WAIT
+        while (not fut.done() or "avatar" not in marks) \
+                and time.monotonic() < t_end:
+            gs.pump()
+            gs.tick()
+            time.sleep(0.01)
+        fut.result(timeout=1)
+        assert not bot.errors, bot.errors
+        end = marks["avatar"] + ticks_after
+        while w.tick_count < end:
+            gs.pump()
+            gs.tick()
+        assert any(e.client is not None for e in w.entities.values()
+                   if e.type_name == "Avatar")
+        harness.submit(bot.conn.close()).result(timeout=WAIT)
+        port = w
+    finally:
+        if rt is not None:
+            rt.server.stop()
+            rt.storage.shutdown()
+            rt.workers.wait_clear()
+        harness.stop()
+
+    jmod = _load_demo(japi, "server")
+    try:
+        from goworld_tpu import config as jcfg_mod
+
+        gc = jcfg_mod.load(os.path.join(DEMO, "goworld_tpu.ini")).games[1]
+        jw = japi._build_world(gc, 1)
+        japi._apply_registrations(jw)
+        jw.create_nil_space()
+        japi._rt = japi._Runtime(jw, None, None, None, None)
+        while jw.tick_count < marks["ready"]:
+            jw.tick()
+        for cb in japi._ready_callbacks:
+            cb()
+        while jw.tick_count < marks["avatar"]:
+            jw.tick()
+        acc = jw.create_entity("Account")
+        jw.set_entity_client(acc, JClient(1, "hero".ljust(16, "x"), jw))
+        acc.Login_Client("hero")
+        while jw.tick_count < port.tick_count:
+            jw.tick()
+
+    finally:
+        japi._reset_for_tests()
+    del jmod
+
+    def monsters(x):
+        return [e for e in x.entities.values()
+                if e.type_name == "Monster" and not e.destroyed]
+
+    pm, jm = monsters(port), monsters(jw)
+    assert len(pm) == len(jm) == 200
+    pp = np.array([e.position for e in pm], np.float32)
+    jp = np.array([e.position for e in jm], np.float32)
+    assert pp.tobytes() == jp.tobytes()
+    assert (pp != np.array([e.position for e in pm][:1] * 200)).any()
+    index = {e.id: i for i, e in enumerate(pm)}
+    jindex = {e.id: i for i, e in enumerate(jm)}
+    pav = [e for e in port.entities.values() if e.type_name == "Avatar"]
+    jav = [e for e in jw.entities.values() if e.type_name == "Avatar"]
+    assert len(pav) == len(jav) == 1
+    assert pav[0].position == jav[0].position
+    seen = sorted(index[i] for i in pav[0].interested_in)
+    assert seen == sorted(jindex[i] for i in jav[0].interested_in)
+    assert seen, "the Avatar sees no Monster"
+    assert int(port.last_outputs.global_alive[0]) == 201
+
+
+async def _login_as(bot, name: str) -> None:
+    """Log ``bot`` in as ``name``; the connection stays open (the
+    caller closes it), so the Avatar keeps its client."""
+    await bot.connect()
+    recv = asyncio.ensure_future(bot._recv_loop())
+    try:
+        await asyncio.wait_for(bot.player_ready.wait(), WAIT)
+        bot.call_server("Login_Client", name)
+        for _ in range(WAIT * 20):
+            if bot.player is not None and bot.player.type_name == "Avatar":
+                break
+            await asyncio.sleep(0.05)
+    finally:
+        recv.cancel()

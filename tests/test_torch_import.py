@@ -21,6 +21,7 @@ from goworld_tpu_torch.parallel.megaspace import (
     create_mega_state,
     make_mega_tick,
 )
+from goworld_tpu_torch.parallel.mesh import make_mesh
 from goworld_tpu_torch.parallel.step import MultiTickInputs
 from goworld_tpu_torch.scenarios.spec import get_scenario
 
@@ -98,7 +99,7 @@ def test_facade_resolution_leaves_jax_out_and_builds_nothing():
 @pytest.mark.parametrize(
     "path",
     [str(p.relative_to(ROOT)) for p in sorted(PKG.rglob("*.py"))]
-    + ["chip_smoke.py"],
+    + ["chip_smoke.py", "examples/megaspace_demo/server_torch.py"],
 )
 def test_source_imports_nothing_of_jax(path):
     tree = ast.parse((ROOT / path).read_text())
@@ -128,7 +129,8 @@ def _mega(**world):
 
 @pytest.mark.parametrize("entry", ["create_state", "make_tick",
                                    "inputs_empty", "create_mega_state",
-                                   "make_mega_tick", "multi_inputs_empty"])
+                                   "make_mega_tick", "multi_inputs_empty",
+                                   "make_mesh"])
 def test_entry_points_default_to_cuda_and_never_fall_back(entry,
                                                           monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -140,6 +142,7 @@ def test_entry_points_default_to_cuda_and_never_fall_back(entry,
         "make_mega_tick": lambda **kw: make_mega_tick(_mega(), **kw),
         "multi_inputs_empty": lambda **kw: MultiTickInputs.empty(
             CFG, 4, **kw),
+        "make_mesh": lambda **kw: make_mesh(4, **kw),
     }[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()
@@ -248,7 +251,8 @@ TICK_MODULES = ["core/step.py", "models/random_walk.py", "ops/aoi.py",
                 "ops/batch.py", "ops/delta.py", "ops/extract.py", "ops/integrate.py",
                 "ops/prng.py", "ops/sort.py", "ops/sync.py",
                 "parallel/halo.py", "parallel/migrate.py",
-                "parallel/megaspace.py", "ops/telemetry.py"]
+                "parallel/megaspace.py", "parallel/mesh.py",
+                "parallel/step.py", "ops/telemetry.py"]
 # host-side helpers outside the tick (the telemetry lanes' init and
 # drain and its numpy recompute)
 EXEMPT = {"neighbors_oracle", "prng_key", "telemetry_init",

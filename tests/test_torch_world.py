@@ -806,8 +806,8 @@ def test_several_spaces_game_matches_jax(multi_game, case):
 
 
 KNOBS = {
-    "mesh": dict(mesh=object()),
-    "megaspace": dict(megaspace=True),
+    "mesh": dict(mesh=2, n_spaces=2),
+    "megaspace": dict(mesh=2, n_spaces=2, megaspace=True),
     "n_spaces": dict(n_spaces=2),
     "pipeline_decode": dict(pipeline_decode=True),
     "snapshot_keyframe_every": dict(snapshot_keyframe_every=4),
@@ -818,10 +818,21 @@ SMALL = TConfig(capacity=64, grid=TGrid(radius=10.0, k=8, cell_cap=4))
 @pytest.mark.parametrize("knob", sorted(KNOBS))
 def test_refused_knobs_raise_not_implemented(knob):
     """Each knob of a shape the port does not run raises. Several
-    Spaces (``n_spaces``), the pipelined decode and the snapshot chain's
-    keyframe cadence were refused until they were ported; those cases
-    now hold that the World takes them and ticks (the pipelined World
-    decoding one tick late)."""
+    Spaces (``n_spaces``), the pipelined decode, the snapshot chain's
+    keyframe cadence, a mesh and the megaspace were refused until they
+    were ported; those cases now hold that the World takes them and
+    ticks (the pipelined World decoding one tick late, the mesh and
+    megaspace Worlds on a mesh of 2 on the CPU)."""
+    if knob in ("mesh", "megaspace"):
+        from goworld_tpu_torch.parallel.mesh import make_mesh
+
+        kw = dict(KNOBS[knob], mesh=make_mesh(2, device="cpu"))
+        w = tent.World(SMALL, device="cpu", **kw)
+        w.tick()
+        assert tuple(w.state.pos.shape) == (2, SMALL.capacity, 3)
+        assert w.last_outputs.global_alive.tolist() == [0, 0]
+        assert (w.mega is not None) == (knob == "megaspace")
+        return
     if knob in ("n_spaces", "pipeline_decode", "snapshot_keyframe_every"):
         w = tent.World(SMALL, device="cpu", **KNOBS[knob])
         w.tick()
