@@ -51,7 +51,8 @@ is caught:
 11. the serving World at its defaults (the live telemetry lanes, the
     residency plane sampled every 4 ticks, the audit plane every 8, the
     resident carry): ``workload.serve_world(..., boot=True)`` populates
-    a World of 2^20 slots through ``Space.create_entity``, in batches
+    half of a World of 2^20 slots (WORLD_POP) through
+    ``Space.create_entity``, in batches
     entered through ticks whose events the caps hold (its time and the
     host's RSS before and after printed), then WORLD_TICKS
     ``World.tick``s of the game's traffic, each staging 4096 client
@@ -280,7 +281,26 @@ is caught:
     state, telemetry lanes, signatures, audit stats and ledgers for
     MEGA_TWIN_TICKS ticks, and a megaspace World and a World on a mesh
     of SPACES x CARD_CPU_N on the card == the CPU port in every lane
-    of state and outputs for CARD_CPU_TICKS ticks.
+    of state and outputs for CARD_CPU_TICKS ticks;
+22. (run after 21, before 12) the deployment through the ops CLI: [19]'s
+    ini (with the gate's ``ws_port`` and ``kcp_port``, ``compress_codec
+    = snappy``, an ``http_port`` on every process, the overload plane
+    off) and game (DEPLOY_GAME, importing this module) in a temp dir,
+    run by ``python -m goworld_tpu_torch``: ``build`` (the native
+    cores), ``start`` (timed to all started; the game's log names
+    ``cuda:0`` and the card), ``status`` (exit 0, the game's metrics
+    scraped), GAME_BOTS strict bots in [19]'s pattern over DEPLOY_EDGES
+    (TCP and KCP with snappy, WebSocket), ``reload`` (SIGHUP to exit and
+    exit to started timed; the census of the freeze file, read here,
+    equals the restored game's ledger on ``/audit``, type by type), the
+    bots again, ``/profile?seconds=2`` (its Chrome trace holds sweep and
+    sort kernel events), ``stop`` (exit 0), ``status`` (exit 1) and no
+    process left; a round fails unless every login reaches an Avatar,
+    the mirrors report 0 errors and equal the interest sets of the World
+    at rest, every ``OnSay`` arrives, and the round's game ticks
+    launched one sweep and one sort each and nothing else; it prints the
+    boot ticks, the login p50 an edge and the game tick p50/p99 of the
+    ``tick_latency_ms`` histogram of each round.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -369,6 +389,15 @@ STRESS_TICKS = 4
 # [11]'s World at its defaults, sampled so that samples land inside its
 # timed ticks
 PLANES = dict(residency_sample_every=4, audit_sample_every=8)
+# [11]'s population in its World of N slots: half of them (was N - 4096,
+# whose boot took 213-283 s of the run; cut with [12]'s reps of a whole
+# tick so that the run, with [22], stays inside its limit: PERF.md §4).
+# Its 1% players (5242) still take the 4096 client syncs a tick.
+WORLD_POP = N // 2
+# [12] reads a whole tick's device time over PROFILE_TICK_REPS calls, a
+# kernel's over PROFILE_KERNEL_REPS
+PROFILE_TICK_REPS = 5
+PROFILE_KERNEL_REPS = 20
 TWIN_N = 1 << 15
 TWIN_TICKS = 8
 VERLET_TICKS = 64     # ~24 ticks between displacement rebuilds at skin 4
@@ -404,7 +433,7 @@ SLICE_Q16_TICKS = 16
 # [18] the World's remaining planes
 RESTORED_TICKS = 4
 # [18] restores the first RESTORE_N records of the resolved delta (of
-# ~1M) into its World of 2^20 slots
+# WORLD_POP) into its World of 2^20 slots
 RESTORE_N = 1 << 18
 GOVERNOR_SWAPS = ["skin=0", "sweep=table,skin=0", "sort=counting,skin=0",
                   "default"]
@@ -899,8 +928,9 @@ def device_times(profiled: dict, rows: list, plan) -> tuple[dict, str]:
     here, after every timed path. Each read keeps a session only where
     its marker kernels show that it lost no event of the calls, and
     takes it again with a longer lead where it did (``kernels.device_ms``)."""
-    got = {name: kernels.device_ms(fn, 20)
-           for name, fn in profiled.items()}
+    got = {name: kernels.device_ms(
+        fn, PROFILE_TICK_REPS if "tick" in name else PROFILE_KERNEL_REPS)
+        for name, fn in profiled.items()}
     for row in rows:
         row["device_ms"], row["launches_per_call"] = got[row["name"]]
     sweep_lpc = got["sweep_fused_cuda"][1]
@@ -1214,7 +1244,8 @@ def world_phase(dev, bare: tuple[float, float], tag: str,
     [18]), and adds the fold and the carry copy to ``profiled``."""
     phase0 = time.perf_counter()
     rss0 = rss_mb()
-    served = serve_world(N, SEED, dev, boot=True, world_kw=PLANES)
+    served = serve_world(N, SEED, dev, boot=True, world_kw=PLANES,
+                         spare=N - WORLD_POP)
     w = served.world
     rss_pop = rss_mb()
     n_pop = len(w.entities) - 2  # less the nil space and the arena
@@ -4293,6 +4324,539 @@ def mesh_phase(dev, tag) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- [22]
+# the deployment through the port's ops CLI: [19]'s game and ini served
+# by `python -m goworld_tpu_torch start`, with bots on every client edge
+DEPLOY_EDGES = {"tcp": 32, "ws": 16, "kcp": 16}   # strict bots an edge
+DEPLOY_CLI_S = 600.0      # the limit of one CLI call
+DEPLOY_HTTP_S = 60.0      # the limit of one debug-HTTP read
+KERNEL_NAMES = {"sweep_fused": ("sweep_fused_kernel",),
+                "counting_sort": ("radix_hist", "radix_scatter")}
+
+# [22]'s game script: [19]'s types and boot, served by gw.run() (the
+# World on the card). Its serve loop's tick publishes, on the debug
+# HTTP's /vars, the tick count, the kernel launch counts, the enter
+# events so far and the poses still staged (a restore stages every
+# entity's pose, input_cap a tick), taken at one point of the logic
+# thread, the boot's
+# log, the bots' spots (the
+# densest cells, as [19]) and the says; while a PAUSE file exists in
+# its directory it does not tick and publishes every bot Avatar's
+# interest set, so that the checker reads a World at rest, as [19]
+# reads its World between ticks.
+DEPLOY_GAME = '''"""chip_smoke.py [22]'s game: [19]'s, served by the port's CLI."""
+import os
+
+import goworld_tpu_torch as gw
+import chip_smoke as cs
+from goworld_tpu_torch import kernels
+from goworld_tpu_torch.net.game import GameServer
+from goworld_tpu_torch.utils import opmon
+
+BOOT = {{}}
+ENTERS = [0]
+gw.register_entity("Account", cs.GameAccount)
+gw.register_entity("Avatar", cs.GameAvatar)
+gw.register_entity("Monster", cs.GameMonster)
+gw.register_space("Arena", cs.GameArena)
+gw.on_boot(lambda w: cs.boot_monsters(w, {monsters}, cs.SEED, BOOT))
+_tick = GameServer.tick
+_spots = []
+
+
+def interest(w):
+    ents, out = w.entities, {{}}
+    for e in list(ents.values()):
+        if e.type_name == "Avatar" and not e.destroyed \\
+                and e.client is not None:
+            want = sorted({{e.id, *e.interested_in}})
+            out[e.id] = [want, sum(1 for x in want if x in ents
+                                   and ents[x].type_name == "Monster")]
+    return out
+
+
+def tick(self):
+    w = self.world
+    if not hasattr(w, "arena"):   # a restored World: find its Arena
+        w.arena = next(s for s in w.spaces.values()
+                       if s.type_name == "Arena")
+        w.said = []
+    if not _spots:
+        _spots.extend(cs.game_spots(w, {groups}, cs.GAME_GROUP, cs.SEED))
+    if os.path.exists("PAUSE"):
+        v = opmon.vars().get("smoke", {{}})
+        if "interest" not in v:
+            opmon.expose("smoke", dict(v, interest=interest(w)))
+        return
+    _tick(self)
+    ENTERS[0] += int(w.last_outputs.enter_n.sum())
+    opmon.expose("smoke", {{
+        "tick": w.tick_count, "launches": dict(kernels.LAUNCHES),
+        "enters": ENTERS[0], "staged": len(w._staged_pos),
+        "boot": BOOT, "spots": _spots, "said": list(w.said)}})
+
+
+GameServer.tick = tick
+gw.run({run_args})
+'''
+
+
+def deploy_ini(slots: int, ports: dict) -> str:
+    """[19]'s ini on fixed free ports: 2 dispatchers, the game, a gate
+    with TCP, WebSocket and KCP listeners compressing with snappy, a
+    debug HTTP port on every process. The overload plane is off: a 2^20
+    World ticks slower than the 60 Hz target, and the plane would shed
+    the bots' syncs and refuse their logins."""
+    grid = slice_config(slots).grid
+    ext = grid.extent_x
+    disp = "".join(
+        f"[dispatcher{i}]\nhost = 127.0.0.1\nport = {ports[f'd{i}']}\n"
+        f"http_port = {ports[f'hd{i}']}\n\n" for i in (1, 2))
+    return (f"{disp}[game_common]\nboot_entity = Account\n"
+            f"capacity = {slots}\nn_spaces = 1\naoi_radius = 50.0\n"
+            f"extent_x = {ext}\nextent_z = {ext}\naoi_k = {grid.k}\n"
+            f"aoi_cell_cap = {grid.cell_cap}\naoi_sweep_impl = fused\n"
+            "aoi_sort_impl = pallas\nposition_sync_interval_ms = 50\n"
+            f"overload = false\nhttp_port = {ports['hg']}\n\n[game1]\n\n"
+            f"[gate1]\nhost = 127.0.0.1\nport = {ports['tcp']}\n"
+            f"ws_port = {ports['ws']}\nkcp_port = {ports['kcp']}\n"
+            "compress = true\ncompress_codec = snappy\n"
+            f"http_port = {ports['ht']}\n\n[storage]\nkind = filesystem\n"
+            "directory = entity_storage\n\n[kvdb]\nkind = filesystem\n"
+            "path = kvdb_data\n")
+
+
+def free_ports(names) -> dict:
+    import socket
+
+    socks, out = [], {}
+    for name in names:
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        socks.append(s)
+        out[name] = s.getsockname()[1]
+    for s in socks:
+        s.close()
+    return out
+
+
+def start_cli(args: list) -> subprocess.Popen:
+    """Start ``python -m goworld_tpu_torch *args`` from the repo's root,
+    the root on ``PYTHONPATH``; its output merged into one pipe."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    return subprocess.Popen(
+        [sys.executable, "-m", "goworld_tpu_torch", *args], cwd=root,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+
+
+def run_cli(args: list) -> tuple[int, str, float]:
+    """One CLI call: (exit code, output, seconds)."""
+    t0 = time.perf_counter()
+    proc = start_cli(args)
+    out, _ = proc.communicate(timeout=DEPLOY_CLI_S)
+    return proc.returncode, out, time.perf_counter() - t0
+
+
+def http_get(port: int, path: str, timeout: float = DEPLOY_HTTP_S):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=timeout) as r:
+        body = r.read().decode()
+    return json.loads(body) if path != "/metrics" else body
+
+
+def smoke_vars(port: int, want=None) -> dict:
+    """The game's published ``smoke`` var; polled until ``want(var)``
+    holds (every poll bounded)."""
+    t_end = time.perf_counter() + DEPLOY_CLI_S
+    while True:
+        v = http_get(port, "/vars").get("smoke") or {}
+        if want is None or want(v):
+            return v
+        if time.perf_counter() > t_end:
+            fail(f"[22] the game never published what was awaited: "
+                 f"{sorted(v)}")
+        time.sleep(0.05)
+
+
+def tick_hist(port: int) -> dict:
+    """The game's ``tick_latency_ms`` histogram: {le: cumulative}."""
+    series = metrics.parse_prometheus_text(http_get(port, "/metrics"))
+    out = {}
+    for k, v in series.items():
+        if k.startswith("tick_latency_ms_bucket{"):
+            le = k.split('le="', 1)[1].split('"', 1)[0]
+            out[float("inf") if le == "+Inf" else float(le)] = v
+    return out
+
+
+def hist_quantiles(a: dict, b: dict, qs=(0.5, 0.99)) -> tuple:
+    """Quantiles of the ticks between two reads of the histogram, by
+    linear interpolation inside the bucket (Prometheus'
+    ``histogram_quantile``); (n ticks, *quantiles in ms)."""
+    les = sorted(b)
+    cum = [b[le] - a.get(le, 0.0) for le in les]
+    n = cum[-1]
+    out = [n]
+    for q in qs:
+        rank, prev_le, prev = q * n, 0.0, 0.0
+        for le, c in zip(les, cum):
+            if c >= rank:
+                hi = les[-2] if le == float("inf") else le
+                out.append(prev_le + (hi - prev_le) * (
+                    (rank - prev) / (c - prev) if c > prev else 1.0))
+                break
+            prev_le, prev = le, c
+    return tuple(out)
+
+
+async def deploy_round(ports: dict, spots: list, hport: int,
+                       first_id: int, marks: dict) -> dict:
+    """[19]'s pattern over the three edges: every bot logs in at its
+    spot (per-bot seconds from connect to Avatar), walks with position
+    syncs, says a line; the game's tick histogram and published counts
+    are read into ``marks`` ("h1", "v1"); the game rests (PAUSE) while
+    every mirror is read against its Avatar's interest set; then the
+    bots leave."""
+    from goworld_tpu_torch.net.botclient import BotClient
+
+    loop = asyncio.get_running_loop()
+    bots, edge_of = [], {}
+    i = first_id
+    for edge, n in DEPLOY_EDGES.items():
+        kw = dict(ws=True) if edge == "ws" else dict(
+            kcp=edge == "kcp", compress=True, compress_codec="snappy")
+        for _ in range(n):
+            b = BotClient("127.0.0.1", ports[edge], bot_id=i, strict=True,
+                          speed=1.0, move_interval=0.1, seed=SEED + i, **kw)
+            bots.append(b)
+            edge_of[i] = edge
+            i += 1
+    t0 = time.perf_counter()
+    await asyncio.gather(*(b.connect() for b in bots))
+    for b in bots:
+        b._recv_task = asyncio.ensure_future(b._recv_loop())
+    await asyncio.wait_for(asyncio.gather(
+        *(b.player_ready.wait() for b in bots)), DEPLOY_CLI_S)
+    for b, (x, z) in zip(bots, spots):
+        b.call_server("Login_Client", f"bot{b.bot_id}", x, z)
+    login = {}
+    t_end = time.perf_counter() + DEPLOY_CLI_S
+    while len(login) < len(bots) and time.perf_counter() < t_end:
+        for b in bots:
+            if b.bot_id not in login and b.player is not None \
+                    and b.player.type_name == "Avatar":
+                login[b.bot_id] = time.perf_counter() - t0
+        await asyncio.sleep(0.01)
+    if len(login) != len(bots):
+        fail(f"[22] {len(login)} of {len(bots)} logins reached an Avatar")
+    t_win = time.perf_counter()
+    await bots_walk(bots, GAME_WALK_S)
+    for b in bots:
+        b.call_server("Say_Client", f"hello from bot{b.bot_id}")
+    by_eid = {b.player.eid: b for b in bots}
+    said = []
+    for _ in range(int(DEPLOY_CLI_S / 0.1)):
+        said = (await loop.run_in_executor(
+            None, smoke_vars, hport)).get("said", [])
+        if len(said) == len(bots) and all(
+                any(m == "OnSay" and a == [sp, text]
+                    for _, m, a in by_eid[w].rpc_log)
+                for sp, text, seen in said for w in [sp, *seen]
+                if w in by_eid):
+            break
+        await asyncio.sleep(0.1)
+    win_s = time.perf_counter() - t_win
+    marks["h1"] = await loop.run_in_executor(None, tick_hist, hport)
+    marks["v1"] = await loop.run_in_executor(None, smoke_vars, hport)
+    # the World at rest, the gate's last flushes delivered
+    rest = os.path.join(ports["dir"], "PAUSE")
+    open(rest, "w").close()
+    try:
+        v = await loop.run_in_executor(
+            None, smoke_vars, hport, lambda v: "interest" in v)
+        await asyncio.sleep(1.0)
+    finally:
+        os.unlink(rest)
+    errors = [e for b in bots for e in b.errors]
+    if errors:
+        fail(f"[22] strict mirrors report {len(errors)} errors: "
+             f"{errors[:4]}")
+    interest = v["interest"]
+    mism, mons = [], []
+    for eid, b in by_eid.items():
+        if eid not in interest:
+            fail(f"[22] bot{b.bot_id}'s Avatar {eid} holds no client")
+        want, n_mon = interest[eid]
+        if set(b.entities) != set(want):
+            mism.append((b.bot_id, len(set(b.entities) ^ set(want))))
+        mons.append(n_mon)
+    if mism:
+        fail(f"[22] bot mirrors differ from the server's interest sets: "
+             f"(bot, words) {mism[:8]}")
+    if min(mons) < 1:
+        fail(f"[22] a bot has no Monster in its AOI: {mons}")
+    if len(said) != len(bots):
+        fail(f"[22] {len(said)} of {len(bots)} says reached the server")
+    deliveries = 0
+    for sp, text, seen in said:
+        for w in [sp, *seen]:
+            if w in by_eid and not any(
+                    m == "OnSay" and a == [sp, text]
+                    for _, m, a in by_eid[w].rpc_log):
+                fail(f"[22] OnSay of {sp} did not reach {w}")
+            deliveries += w in by_eid
+    await bots_leave(bots)
+    p50 = {e: float(np.percentile([t for i2, t in login.items()
+                                   if edge_of[i2] == e], 50))
+           for e in DEPLOY_EDGES}
+    return dict(login_p50=p50, win_s=win_s, mons=mons,
+                deliveries=deliveries, says=len(said))
+
+
+def trace_kernels(path: str) -> tuple[dict, dict]:
+    """Launches of the sweep and sort kernels in a torch.profiler
+    Chrome trace (its kernel events by name; the sweep's is a template,
+    so its name reads ``void sweep_fused_kernel<...>(...)``), and the
+    trace's event counts by category."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    out = {k: 0 for k in KERNEL_NAMES}
+    cats: dict = {}
+    for e in events:
+        cat = e.get("cat", "")
+        cats[cat] = cats.get(cat, 0) + 1
+        if cat != "kernel":
+            continue
+        name = e.get("name", "")
+        for k, names in KERNEL_NAMES.items():
+            if any(n + "(" in name or n + "<" in name for n in names):
+                out[k] += 1
+    return out, cats
+
+
+def deployment_phase(dev, tag: str, slots: int = GAME_SLOTS,
+                     monsters: int = GAME_MONSTERS) -> dict:
+    """[22] (see the module docstring): the sweep and sort launches of
+    the game's ticks while the bots played, both rounds."""
+    from goworld_tpu_torch import freeze as freeze_mod
+    from goworld_tpu_torch.utils import audit
+
+    phase0 = time.perf_counter()
+    release_worlds()
+    on_card = dev.type == "cuda"
+    where = f"on {dev}"
+    if on_card:
+        torch.cuda.empty_cache()
+        where += f" ({torch.cuda.get_device_name(dev)})"
+    tmp = tempfile.mkdtemp(prefix="deployment_")
+    ports = free_ports(["d1", "d2", "hd1", "hd2", "hg", "ht", "tcp", "ws",
+                        "kcp"])
+    ports["dir"] = tmp
+    n_bots = sum(DEPLOY_EDGES.values())
+    pids: set = set()
+
+    def step(args, want_rc: int, what: str) -> tuple[str, float]:
+        rc, out, secs = run_cli([args[0], tmp, *args[1:]])
+        for name in os.listdir(os.path.join(tmp, "run")) \
+                if os.path.isdir(os.path.join(tmp, "run")) else []:
+            if name.endswith(".pid"):
+                with open(os.path.join(tmp, "run", name)) as f:
+                    pids.add(int(f.read().strip()))
+        if rc != want_rc:
+            logs = ""
+            for name in sorted(os.listdir(os.path.join(tmp, "run"))):
+                if name.endswith(".log"):
+                    with open(os.path.join(tmp, "run", name),
+                              errors="replace") as f:
+                        logs += f"== {name}\n{f.read()[-3000:]}\n"
+            fail(f"[22] {what} exited {rc}, not {want_rc}:\n{out[-3000:]}"
+                 f"\n{logs}")
+        return out, secs
+
+    try:
+        with open(os.path.join(tmp, "goworld_tpu.ini"), "w") as f:
+            f.write(deploy_ini(slots, ports))
+        with open(os.path.join(tmp, "server_torch.py"), "w") as f:
+            f.write(DEPLOY_GAME.format(
+                monsters=monsters, groups=n_bots // GAME_GROUP,
+                # the World on the card, as gw.run() places it by default
+                run_args="" if on_card else 'device="cpu"'))
+        build_out, build_s = step(["build"], 0, "build")
+        _, start_s = step(["start"], 0, "start")
+        with open(os.path.join(tmp, "run", "game1.log")) as f:
+            glog = f.read()
+        if f"started (restore=False) {where}" not in glog:
+            fail(f"[22] the game's log does not say it started {where}:\n"
+                 f"{glog[-2000:]}")
+        status_out, _ = step(["status"], 0, "status")
+        table = [ln.split() for ln in status_out.splitlines()]
+        head = next((r for r in table if r[:1] == ["series"]), [])
+        col = head.index("game1") if "game1" in head else -1
+        if col < 0 or not any(
+                r[:1] == ["tick_latency_ms_count"]
+                and r[col] not in ("-", "0") for r in table):
+            fail(f"[22] status shows no game tick metrics:\n"
+                 f"{status_out[-2000:]}")
+        boot = smoke_vars(ports["hg"], lambda v: v.get("spots"))
+        rounds = []
+        for r in range(2):
+            v0 = smoke_vars(ports["hg"], lambda v: v.get("spots")
+                            and "interest" not in v)
+            h0, marks = tick_hist(ports["hg"]), {}
+            got = asyncio.run(deploy_round(ports, v0["spots"], ports["hg"],
+                                           r * n_bots, marks))
+            h1, v1 = marks["h1"], marks["v1"]
+            got["launches"] = {k: v1["launches"][k] - v0["launches"][k]
+                               for k in v0["launches"]}
+            got["ticks"] = v1["tick"] - v0["tick"]
+            n_k = got["ticks"] if on_card else 0
+            if got["launches"] != {"sweep_fused": n_k, "counting_sort": n_k,
+                                   "halo_ship_phase": 0, "npc_mlp": 0} \
+                    or got["ticks"] <= 0:
+                fail(f"[22] round {r + 1}: {got['ticks']} game ticks "
+                     f"launched {got['launches']}")
+            got["hist"] = hist_quantiles(h0, h1)
+            got["enters"] = (v1["enters"] - v0["enters"]) / got["ticks"]
+            got["at"] = (v0["tick"], v0["staged"])
+            rounds.append(got)
+            if r == 0:
+                # reload: SIGHUP, a fresh freeze file, -restore
+                old = cli_pid(tmp, "game1")
+                t0 = time.perf_counter()
+                proc = start_cli(["reload", tmp])
+                while pid_alive(old) and proc.poll() is None:
+                    time.sleep(0.02)
+                freeze_s = time.perf_counter() - t0
+                out, _ = proc.communicate(timeout=DEPLOY_CLI_S)
+                restore_s = time.perf_counter() - t0 - freeze_s
+                if proc.returncode != 0 or "game1: reloaded" not in out:
+                    fail(f"[22] reload exited {proc.returncode}:\n"
+                         f"{out[-3000:]}")
+                pids.add(cli_pid(tmp, "game1"))
+                # the census of the freeze file against the restored
+                # game's ledger, type by type (the nil space is made
+                # anew at a restore)
+                rec = freeze_mod.read_freeze_file(
+                    os.path.join(tmp, freeze_mod.freeze_filename(1)))
+                by_type: dict = {}
+                for e in rec["spaces"] + rec["entities"]:
+                    by_type.setdefault(e["type"], []).append(e["id"])
+                census = {t: {"count": len(ids),
+                              "crc": audit.crc_fold(ids)}
+                          for t, ids in sorted(by_type.items())}
+                led = http_get(ports["hg"], "/audit")["game1"]["census"]
+                led = {t: c for t, c in led.items() if t != "NilSpace"}
+                if led != census:
+                    fail(f"[22] the restored game's census {led} != the "
+                         f"freeze file's {census}")
+                with open(os.path.join(tmp, "run", "game1.log")) as f:
+                    if f"started (restore=True) {where}" not in f.read():
+                        fail(f"[22] the reloaded game did not restore "
+                             f"{where}")
+        # /profile last before the stop (the profiler hazard)
+        prof = http_get(ports["hg"], "/profile?seconds=2")
+        if not prof.get("started"):
+            fail(f"[22] /profile did not start: {prof}")
+        t_end = time.perf_counter() + DEPLOY_CLI_S
+        traces = []
+        while time.perf_counter() < t_end:
+            st = http_get(ports["hg"], "/profile?status=1")
+            traces = [os.path.join(prof["logdir"], n)
+                      for n in os.listdir(prof["logdir"])] \
+                if os.path.isdir(prof["logdir"]) else []
+            if not st["active"] and traces:
+                break
+            time.sleep(0.2)
+        if len(traces) != 1:
+            fail(f"[22] /profile wrote {traces}")
+        in_trace, cats = trace_kernels(traces[0])
+        if on_card and min(in_trace.values()) < 1:
+            with open(traces[0]) as f:
+                names = sorted({e.get("name", "")[:60] for e in
+                                json.load(f)["traceEvents"]
+                                if e.get("cat") in ("kernel", "gpu_memcpy",
+                                                    "cuda_runtime")})
+            fail(f"[22] the profile holds no sweep or sort launch: "
+                 f"{in_trace}; events by category {cats}; names "
+                 f"{names[:40]}")
+        trace_mb = os.path.getsize(traces[0]) / 2 ** 20
+        _, stop_s = step(["stop"], 0, "stop")
+        step(["status"], 1, "status after stop")
+        alive = [p for p in pids if pid_alive(p)]
+        if alive:
+            fail(f"[22] processes of the deployment still alive: {alive}")
+        launches = {k: sum(r["launches"][k] for r in rounds)
+                    for k in rounds[0]["launches"]}
+        power = gpu_line() if on_card else "the CPU"
+        cores = [ln.strip() for ln in build_out.splitlines()
+                 if ln.strip().endswith(": ok")]
+        print(f"[22] the deployment through the ops CLI "
+              f"(python -m goworld_tpu_torch, ini: {slots} slots, "
+              f"fused/pallas, 2 dispatchers, a gate on TCP + WS + KCP, "
+              f"snappy): build {build_s:.2f} s ({', '.join(cores)}); "
+              f"start to all started {start_s:.2f} s; boot of "
+              f"{boot['boot']['monsters']} Monsters in "
+              f"{boot['boot']['ticks']} ticks "
+              f"({boot['boot']['seconds']:.2f} s); status scraped the "
+              f"game's metrics; freeze (SIGHUP to exit, from the reload "
+              f"call) {freeze_s:.2f} s, restore (exit to started) "
+              f"{restore_s:.2f} s; census of the freeze file == the "
+              f"restored game's ledger; profile trace {trace_mb:.1f} MB "
+              f"with {in_trace} kernel events; stop {stop_s:.2f} s, "
+              f"status 1, no process left ({power})", flush=True)
+        for r, got in enumerate(rounds):
+            n, p50, p99 = got["hist"]
+            print(f"[22] round {r + 1} ({'before' if r == 0 else 'after'} "
+                  f"the reload): {n_bots} strict bots "
+                  f"{dict(DEPLOY_EDGES)}, login p50 s "
+                  + ", ".join(f"{e} {t:.3f}"
+                              for e, t in got["login_p50"].items())
+                  + f"; window {got['win_s']:.2f} s, {got['ticks']} game "
+                  f"ticks, tick_latency_ms histogram p50 {p50:.2f} p99 "
+                  f"{p99:.2f} ms over {n:.0f} ticks, {got['enters']:.0f} "
+                  f"enter events a tick (from the process's tick "
+                  f"{got['at'][0]}, {got['at'][1]} restored poses still "
+                  f"staged); launches "
+                  f"{got['launches']}; mirrors == interest sets (Monsters "
+                  f"a bot min {min(got['mons'])} mean "
+                  f"{np.mean(got['mons']):.1f}); {got['says']} says, "
+                  f"{got['deliveries']} OnSay deliveries ({power})",
+                  flush=True)
+        print(f"[22] wall {time.perf_counter() - phase0:.1f} s ({power})",
+              flush=True)
+        return {"deployment_cli": launches}
+    finally:
+        for p in pids:
+            try:
+                os.kill(p, 9)
+            except OSError:
+                pass
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def cli_pid(server_dir: str, name: str) -> int:
+    with open(os.path.join(server_dir, "run", f"{name}.pid")) as f:
+        return int(f.read().strip())
+
+
+def pid_alive(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except OSError:
+        return False
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(") ", 1)[1].split()[0] != "Z"
+    except (OSError, IndexError):
+        return True
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
@@ -4649,6 +5213,8 @@ def main() -> int:
     phase_done("[20]")
     world.update(mesh_phase(dev, tag))
     phase_done("[21]")
+    world.update(deployment_phase(dev, tag))
+    phase_done("[22]")
     for row, key in zip(rows[:2], ("sweep_fused", "counting_sort")):
         row["launches_by_path"] = {"single_space": row["launches"],
                                    **{p: n[key] for p, n in world.items()}}

@@ -197,8 +197,6 @@ def _check_ported(gc: config_mod.GameConfig, cfg) -> None:
     anything is built."""
     if gc.small_tier_rows:
         raise _refuse("small_tier_rows (the two-tier extraction)", "4")
-    if gc.http_port:
-        raise _refuse("http_port (utils/debug_http.py)")
     if gc.standby_of:
         raise _refuse("standby_of (replication/)")
     if cfg.rebalance:
@@ -350,7 +348,9 @@ def run(argv: list[str] | None = None, *, block: bool = True,
     global _rt
     args = _parse_args(sys.argv[1:] if argv is None else argv)
     if args.daemon:
-        raise _refuse("-d (utils/daemon.py)")
+        from goworld_tpu_torch.utils.daemon import daemonize
+
+        daemonize(args.logfile or f"game{args.gid}.log")
     if args.logfile or args.loglevel:
         log.setup(f"game{args.gid}", level=args.loglevel or "info",
                   logfile=args.logfile or None)
@@ -464,6 +464,18 @@ def run(argv: list[str] | None = None, *, block: bool = True,
 
     server.on_deployment_ready = _fire_ready
 
+    # observability endpoint (reference binutil.go:17-75 serves pprof +
+    # expvar on every process): /metrics, /trace, /profile, /audit, ...
+    if gc.http_port:
+        from goworld_tpu_torch.utils import debug_http
+
+        # /profile captures the tick on the game's logic thread
+        debug_http.set_profile_thread(world.post_q.post)
+        try:
+            debug_http.start(gc.http_port, process_name=f"game{gid}")
+        except OSError:
+            logger.exception("game%d: debug http on port %d failed; "
+                             "continuing without it", gid, gc.http_port)
     if getattr(gc, "trace_sample_rate", 0.0) > 0:
         # self-rooted traces (outbound migrations); inbound traced
         # packets are recorded regardless of the local rate
@@ -498,7 +510,18 @@ def run(argv: list[str] | None = None, *, block: bool = True,
     # supervisor tag consumed by the CLI's readiness wait
     # (reference consts.go:108-112 + start.go:98-114)
     print(consts.SUPERVISOR_STARTED_TAG, flush=True)
-    logger.info("game%d started (restore=%s)", gid, restoring)
+    dev = world.device
+    card = ""
+    if dev.type == "cuda":
+        import torch
+
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        card = f" ({torch.cuda.get_device_name(dev)})"
+    # on the process's own output, beside the tag: the ops CLI's log of
+    # this game names the device the World runs on
+    print(f"game{gid} started (restore={restoring}) on {dev}{card}",
+          flush=True)
     if block:
         try:
             server.serve_forever()

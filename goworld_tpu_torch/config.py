@@ -22,7 +22,10 @@ from goworld_tpu_torch.utils.consts import (
     MAX_RECONNECT_PEND_PACKETS,
 )
 
-DEFAULT_CONFIG_PATHS = ("goworld_tpu_torch.ini", "goworld.ini")
+# the port's own name first, then the JAX package's (the stock server
+# directories' inis), then the reference's
+DEFAULT_CONFIG_PATHS = ("goworld_tpu_torch.ini", "goworld_tpu.ini",
+                        "goworld.ini")
 
 
 @dataclasses.dataclass

@@ -24,9 +24,10 @@ asynchronous writers clone ``pos``/``yaw``/``npc_moving`` on the tick
 thread (:func:`_pin_snapshot_planes`) and copy the clones on their worker
 with a stream and event of their own (:func:`_fetch_planes`). The files
 are MessagePack, written by :mod:`goworld_tpu_torch.utils.mpack`, byte
-for byte the JAX package's. The reference's chaos crashpoint inside the
-atomic write (``faults.maybe_crash``) belongs to the fault plane, which
-is not ported (ROADMAP.md Queue A item 8).
+for byte the JAX package's. The atomic write carries the chaos
+crashpoint ``freeze.write`` (:func:`goworld_tpu_torch.utils.faults.
+maybe_crash`) between the fsync of the ``.tmp`` and the rename, as the
+JAX package's does.
 """
 
 from __future__ import annotations
@@ -46,7 +47,7 @@ from goworld_tpu_torch.entity.manager import (
     _unpack_words,
 )
 from goworld_tpu_torch.entity.space import Space
-from goworld_tpu_torch.utils import log, mpack
+from goworld_tpu_torch.utils import faults, log, mpack
 
 logger = log.get("freeze")
 
@@ -287,6 +288,11 @@ def write_freeze_file(path: str, data: dict) -> None:
         f.write(blob)
         f.flush()
         os.fsync(f.fileno())
+    # chaos crashpoint (`crash:freeze.write:...`): dying HERE — after
+    # the tmp write, before the rename — models the worst mid-freeze
+    # crash; only the .tmp is left and a -restore boot falls back
+    # instead of half-loading
+    faults.maybe_crash("freeze.write")
     os.replace(tmp, path)
     logger.info("froze %d bytes -> %s", len(blob), path)
 

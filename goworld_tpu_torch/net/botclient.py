@@ -18,7 +18,13 @@ import random
 import time
 
 from goworld_tpu_torch.net import codec, proto
-from goworld_tpu_torch.net.packet import Packet, PacketConnection, new_packet
+from goworld_tpu_torch.net.packet import (
+    HEADER_SIZE,
+    Packet,
+    PacketConnection,
+    frame,
+    new_packet,
+)
 from goworld_tpu_torch.utils import log
 
 logger = log.get("bot")
@@ -150,14 +156,57 @@ class MirrorEntity:
                     node2.pop()
 
 
+class WSPacketConnection:
+    """PacketConnection interface over a websocket: one binary WS message
+    per framed packet (matches the gate's ``_serve_ws``, which mirrors the
+    reference's websocket edge, ``GateService.go:121-168``)."""
+
+    def __init__(self, ws):
+        self.ws = ws
+        self._closed = False
+
+    def send(self, p: Packet, release: bool = True) -> None:
+        if not self._closed:
+            data = bytes(frame(p))
+            asyncio.ensure_future(self.ws.send(data))
+        if release:
+            p.release()
+
+    async def drain(self) -> None: ...
+
+    async def recv(self) -> tuple[int, Packet]:
+        msg = await self.ws.recv()
+        if not isinstance(msg, (bytes, bytearray)):
+            raise ConnectionError("non-binary ws message")
+        p = Packet(bytes(msg)[HEADER_SIZE:])
+        return p.read_u16(), p
+
+    async def close(self) -> None:
+        if self._closed:
+            return
+        self._closed = True
+        try:
+            await self.ws.close()
+        except Exception:
+            pass
+
+    @property
+    def closed(self) -> bool:
+        # mirror PacketConnection.closed (the bot's heartbeat loop
+        # keys its liveness check on it); the underlying websocket may
+        # also be closed by the peer without close() ever being called
+        return self._closed or not getattr(self.ws, "open", True)
+
+
 class BotClient:
     """One bot: connects, waits for its player entity, random-walks.
 
-    ``compress``/``tls`` mirror the gate's client-edge transport flags
-    (the reference client reads the same ini the gate does). ``ws`` and
-    ``kcp`` (the reference test_client's ``-ws`` and ``-kcp`` flags)
-    raise ``NotImplementedError``: the port has no WebSocket or KCP edge
-    yet (ROADMAP.md Queue A item 8)."""
+    ``ws=True`` connects through the gate's websocket listener instead of
+    TCP (the reference test_client's ``-ws`` flag); ``kcp=True`` dials the
+    gate's reliable-UDP listener (the ``-kcp`` flag, GateService.go:
+    129-161); ``compress``/``tls`` mirror the gate's client-edge
+    transport flags (the reference client reads the same ini the gate
+    does)."""
 
     def __init__(self, host: str, port: int, *, bot_id: int = 0,
                  strict: bool = False, move_interval: float = 0.1,
@@ -167,17 +216,10 @@ class BotClient:
                  tls: bool = False,
                  nosync: bool = False,
                  profiler: BotProfiler | None = None):
-        if ws or kcp:
-            raise NotImplementedError(
-                "the bot's WebSocket and KCP transports (net/ws.py, "
-                "net/kcp.py) are not ported yet; see ROADMAP.md Queue A "
-                "item 8")
-        if compress and compress_codec == "snappy":
-            raise NotImplementedError(
-                "compress_codec = snappy (net/snappy.py) is not ported "
-                "yet; see ROADMAP.md Queue A item 8")
         self.host = host
         self.port = port
+        self.ws = ws
+        self.kcp = kcp
         self.compress = compress
         self.compress_codec = compress_codec
         self.tls = tls
@@ -224,6 +266,24 @@ class BotClient:
         self._hb_task = asyncio.ensure_future(self._heartbeat_loop())
 
     async def _connect_transport(self) -> None:
+        if self.ws:
+            from goworld_tpu_torch.net import ws as ws_mod
+
+            sock = await ws_mod.connect(
+                f"ws://{self.host}:{self.port}"
+            )
+            self.conn = WSPacketConnection(sock)
+            return
+        if self.kcp:
+            from goworld_tpu_torch.net.kcp import open_kcp_connection
+
+            reader, writer = await open_kcp_connection(
+                self.host, self.port
+            )
+            self.conn = PacketConnection(
+                reader, writer, compress=self.compress,
+                compress_codec=self.compress_codec)
+            return
         ssl_ctx = None
         if self.tls:
             from goworld_tpu_torch.net.transport import client_ssl_context
@@ -394,8 +454,8 @@ async def run_swarm(host: str, port: int, n_bots: int, duration: float,
                     nosync: bool = False,
                     profile: bool = False) -> list[BotClient]:
     """Run N bots concurrently (reference ``test_client -N``; mirrors
-    the ``-strict``/``-kcp``/``-nosync`` flags; ``kcp`` raises as the
-    BotClient's does). ``profile=True`` shares one :class:`BotProfiler`
+    the ``-strict``/``-kcp``/``-nosync`` flags; per-bot ``ws`` is a
+    BotClient option). ``profile=True`` shares one :class:`BotProfiler`
     across the swarm with a per-second report task (the reference's
     ``profile.go`` loop); read ``bots[0].profiler.summary()`` after."""
     profiler = BotProfiler() if profile else None

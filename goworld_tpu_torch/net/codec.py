@@ -1,13 +1,16 @@
-"""Batch codec for the hot sync-record path, on numpy structured arrays.
+"""Batch codec for the hot sync-record path: a C++ core via ctypes, and
+its numpy plain version.
 
 Reference being rebuilt: the per-record encode/decode loops of the position
 sync pipeline (``GateService.go:402-429``, ``DispatcherService.go:770-808``,
 ``GameService.go:395-407``). The reference touches each 16-byte record in Go
-per packet hop; here whole batches are (de)serialised through one numpy
-structured-array view, because the game host feeds the records straight
-into device input buffers. The JAX package also builds a C++ core
-(``native/packet_codec.cpp``) for the same records, byte for byte; the
-port has no native core yet (ROADMAP.md Queue A item 8).
+per packet hop; here whole batches are (de)serialised in one native call,
+because the game host feeds the records straight into device input
+buffers. The core is ``native/packet_codec.cpp``, built at first use by
+:mod:`goworld_tpu_torch.native` (a failed build or load raises), as in the
+JAX package; each ``*_plain`` function is the same transform on numpy
+structured arrays, byte for byte (the tests hold the core to it). An
+empty batch takes the plain path, as in the JAX package.
 
 Public API (all batch-level):
   encode_sync_batch(ids, vals) -> bytes           # N x 32B records
@@ -15,16 +18,50 @@ Public API (all batch-level):
   encode_client_sync_batch(cids, ids, vals) -> bytes   # N x 48B
   decode_client_sync_batch(buf) -> (cids, ids, vals)
   bucket_by_shard(shard_of, n_shards, capacity) -> (idx i32[S,cap], counts)
+  scan_frames(buf) -> ([(payload_offset, payload_size)], consumed)
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import numpy as np
+
+from goworld_tpu_torch import native
 
 SYNC_DTYPE = np.dtype([("eid", "S16"), ("v", "<f4", (4,))])
 CLIENT_SYNC_DTYPE = np.dtype(
     [("cid", "S16"), ("eid", "S16"), ("v", "<f4", (4,))]
 )
+
+_C = ctypes.POINTER(ctypes.c_char)
+_F32 = ctypes.POINTER(ctypes.c_float)
+_I32 = ctypes.POINTER(ctypes.c_int32)
+_I64 = ctypes.POINTER(ctypes.c_int64)
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = native.load("packet_codec")
+    lib.encode_sync_records.argtypes = [_C, _F32, ctypes.c_int32, _C]
+    lib.decode_sync_records.argtypes = [_C, ctypes.c_int32, _C, _F32]
+    lib.encode_client_sync_records.argtypes = [
+        _C, _C, _F32, ctypes.c_int32, _C]
+    lib.decode_client_sync_records.argtypes = [
+        _C, ctypes.c_int32, _C, _C, _F32]
+    lib.scan_frames.argtypes = [
+        _C, ctypes.c_int64, ctypes.c_int64, _I64, _I64, ctypes.c_int32,
+        _I64]
+    lib.scan_frames.restype = ctypes.c_int32
+    lib.bucket_by_shard.argtypes = [
+        _I32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, _I32, _I32]
+    return lib
+
+
+def native_available() -> bool:
+    """True once the C++ core is built and loaded (raises otherwise)."""
+    return _lib() is not None
 
 
 def _as_id_array(ids) -> np.ndarray:
@@ -32,29 +69,67 @@ def _as_id_array(ids) -> np.ndarray:
     return np.ascontiguousarray(a)
 
 
-def encode_sync_batch(ids, vals) -> bytes:
-    """ids: N 16-char ids (list[str] or S16 array); vals: f32[N,4]."""
+def _ptr(a: np.ndarray, kind=_C):
+    return a.ctypes.data_as(kind)
+
+
+def _sync_args(ids, vals):
     ida = _as_id_array(ids)
     va = np.ascontiguousarray(np.asarray(vals, np.float32).reshape(-1, 4))
     n = ida.shape[0]
     if va.shape[0] != n:
         raise ValueError(f"length mismatch: {n} ids, {va.shape[0]} vals")
-    rec = np.empty(n, SYNC_DTYPE)
+    return ida, va
+
+
+def encode_sync_batch(ids, vals) -> bytes:
+    """ids: N 16-char ids (list[str] or S16 array); vals: f32[N,4]."""
+    ida, va = _sync_args(ids, vals)
+    n = ida.shape[0]
+    if not n:
+        return encode_sync_batch_plain(ida, va)
+    out = np.empty(n * 32, np.uint8)
+    _lib().encode_sync_records(_ptr(ida), _ptr(va, _F32), n, _ptr(out))
+    return out.tobytes()
+
+
+def encode_sync_batch_plain(ids, vals) -> bytes:
+    ida, va = _sync_args(ids, vals)
+    rec = np.empty(ida.shape[0], SYNC_DTYPE)
     rec["eid"] = ida
     rec["v"] = va
     return rec.tobytes()
 
 
+def _records(buf, size: int, what: str) -> int:
+    n, rem = divmod(len(buf), size)
+    if rem:
+        raise ValueError(
+            f"{what} length {len(buf)} not a multiple of {size}")
+    return n
+
+
 def decode_sync_batch(buf: bytes | memoryview) -> tuple[np.ndarray, np.ndarray]:
     """-> (ids S16[N], vals f32[N,4])."""
-    n, rem = divmod(len(buf), 32)
-    if rem:
-        raise ValueError(f"sync batch length {len(buf)} not a multiple of 32")
+    n = _records(buf, 32, "sync batch")
+    if not n:
+        return decode_sync_batch_plain(buf)
+    raw = np.ascontiguousarray(np.frombuffer(buf, np.uint8))
+    ids = np.empty(n, "S16")
+    vals = np.empty((n, 4), np.float32)
+    _lib().decode_sync_records(_ptr(raw), n, _ptr(ids), _ptr(vals, _F32))
+    return ids, vals
+
+
+def decode_sync_batch_plain(
+    buf: bytes | memoryview,
+) -> tuple[np.ndarray, np.ndarray]:
+    _records(buf, 32, "sync batch")
     rec = np.frombuffer(buf, SYNC_DTYPE)
     return rec["eid"].copy(), rec["v"].copy()
 
 
-def encode_client_sync_batch(cids, ids, vals) -> bytes:
+def _client_args(cids, ids, vals):
     ca = _as_id_array(cids)
     ida = _as_id_array(ids)
     va = np.ascontiguousarray(np.asarray(vals, np.float32).reshape(-1, 4))
@@ -64,7 +139,23 @@ def encode_client_sync_batch(cids, ids, vals) -> bytes:
             f"length mismatch: {n} cids, {ida.shape[0]} ids, "
             f"{va.shape[0]} vals"
         )
-    rec = np.empty(n, CLIENT_SYNC_DTYPE)
+    return ca, ida, va
+
+
+def encode_client_sync_batch(cids, ids, vals) -> bytes:
+    ca, ida, va = _client_args(cids, ids, vals)
+    n = ca.shape[0]
+    if not n:
+        return encode_client_sync_batch_plain(ca, ida, va)
+    out = np.empty(n * 48, np.uint8)
+    _lib().encode_client_sync_records(
+        _ptr(ca), _ptr(ida), _ptr(va, _F32), n, _ptr(out))
+    return out.tobytes()
+
+
+def encode_client_sync_batch_plain(cids, ids, vals) -> bytes:
+    ca, ida, va = _client_args(cids, ids, vals)
+    rec = np.empty(ca.shape[0], CLIENT_SYNC_DTYPE)
     rec["cid"] = ca
     rec["eid"] = ida
     rec["v"] = va
@@ -74,11 +165,22 @@ def encode_client_sync_batch(cids, ids, vals) -> bytes:
 def decode_client_sync_batch(
     buf: bytes | memoryview,
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    n, rem = divmod(len(buf), 48)
-    if rem:
-        raise ValueError(
-            f"client sync batch length {len(buf)} not a multiple of 48"
-        )
+    n = _records(buf, 48, "client sync batch")
+    if not n:
+        return decode_client_sync_batch_plain(buf)
+    raw = np.ascontiguousarray(np.frombuffer(buf, np.uint8))
+    cids = np.empty(n, "S16")
+    ids = np.empty(n, "S16")
+    vals = np.empty((n, 4), np.float32)
+    _lib().decode_client_sync_records(
+        _ptr(raw), n, _ptr(cids), _ptr(ids), _ptr(vals, _F32))
+    return cids, ids, vals
+
+
+def decode_client_sync_batch_plain(
+    buf: bytes | memoryview,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    _records(buf, 48, "client sync batch")
     rec = np.frombuffer(buf, CLIENT_SYNC_DTYPE)
     return rec["cid"].copy(), rec["eid"].copy(), rec["v"].copy()
 
@@ -94,9 +196,22 @@ def bucket_by_shard(
     """
     so = np.ascontiguousarray(np.asarray(shard_of, np.int32))
     n = so.shape[0]
+    if not n:
+        return bucket_by_shard_plain(so, n_shards, capacity)
     idx = np.zeros((n_shards, capacity), np.int32)
     counts = np.zeros(n_shards, np.int32)
-    for i in range(n):
+    _lib().bucket_by_shard(_ptr(so, _I32), n, n_shards, capacity,
+                           _ptr(idx, _I32), _ptr(counts, _I32))
+    return idx, counts
+
+
+def bucket_by_shard_plain(
+    shard_of: np.ndarray, n_shards: int, capacity: int
+) -> tuple[np.ndarray, np.ndarray]:
+    so = np.ascontiguousarray(np.asarray(shard_of, np.int32))
+    idx = np.zeros((n_shards, capacity), np.int32)
+    counts = np.zeros(n_shards, np.int32)
+    for i in range(so.shape[0]):
         s = so[i]
         if 0 <= s < n_shards and counts[s] < capacity:
             idx[s, counts[s]] = i
@@ -114,6 +229,23 @@ def scan_frames(
     Raises ConnectionError on a malformed size prefix. (Used by sync-mode
     receivers; asyncio paths use readexactly framing in packet.py.)
     """
+    raw = np.ascontiguousarray(np.frombuffer(bytes(buf), np.uint8))
+    offs = np.empty(max_frames, np.int64)
+    sizes = np.empty(max_frames, np.int64)
+    consumed = np.zeros(1, np.int64)
+    cnt = _lib().scan_frames(
+        _ptr(raw), len(buf), max_payload, _ptr(offs, _I64),
+        _ptr(sizes, _I64), max_frames, _ptr(consumed, _I64))
+    if cnt < 0:
+        raise ConnectionError("malformed frame size")
+    return ([(int(offs[i]), int(sizes[i])) for i in range(cnt)],
+            int(consumed[0]))
+
+
+def scan_frames_plain(
+    buf: bytes | bytearray, max_payload: int = 32 * 1024 * 1024,
+    max_frames: int = 4096,
+) -> tuple[list[tuple[int, int]], int]:
     frames = []
     pos = 0
     n = len(buf)

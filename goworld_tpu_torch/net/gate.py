@@ -21,24 +21,21 @@ from collections import defaultdict
 import numpy as np
 
 from goworld_tpu_torch.net import codec, proto
+from goworld_tpu_torch.net import ws as ws_mod
 from goworld_tpu_torch.net.cluster import DispatcherCluster, DispatcherConn
 from goworld_tpu_torch.net.packet import (
     HEADER_SIZE,
     MSGTYPE_MASK,
     Packet,
     PacketConnection,
+    decode_wire,
     frame,
     new_packet,
 )
-from goworld_tpu_torch.utils import consts, flightrec, ids, log, metrics, \
-    opmon, overload, syncage, tracing
+from goworld_tpu_torch.utils import consts, faults, flightrec, ids, log, \
+    metrics, opmon, overload, syncage, tracing
 
 logger = log.get("gate")
-
-
-def _refuse(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet; see ROADMAP.md Queue A item 8")
 
 
 class ClientProxy:
@@ -143,20 +140,23 @@ class GateService:
         flightrec_ring: int = 256,
         flightrec_cooldown_secs: float = flightrec.DEFAULT_COOLDOWN_SECS,
     ):
-        # the client edges the port does not have yet: refused, never
-        # skipped (net/kcp.py, net/ws.py, net/snappy.py)
-        if kcp_port:
-            raise _refuse("kcp_port (the KCP edge, net/kcp.py)")
-        if ws_port:
-            raise _refuse("ws_port (the WebSocket edge, net/ws.py)")
-        if compress and compress_codec == "snappy":
-            raise _refuse("compress_codec = snappy (net/snappy.py)")
         self.gate_id = gate_id
         self.host = host
         self.port = port
+        self.ws_port = ws_port
+        # reliable-UDP client edge (reference GateService.go:129-161
+        # serveKCP with turbo tuning): same framed protocol over
+        # net/kcp.py sessions; 0 = no KCP listener
+        self.kcp_port = kcp_port
+        # KCP sessions self-reap after this many seconds without an
+        # inbound datagram — independent of heartbeat_timeout, which
+        # defaults off; without it a vanished UDP peer (no connection_lost,
+        # no unacked data) would pin its session forever
+        self.kcp_idle_timeout = kcp_idle_timeout
         # client-edge transport options (reference ClientProxy.go:38-53
-        # snappy + TLS; see net/transport.py): zlib compression and TLS
-        # on the TCP listener
+        # snappy + TLS; see net/transport.py for the codec choice and the
+        # KCP deviation note). Compression/TLS apply to the TCP listener;
+        # WebSocket clients get compression from the WS layer itself.
         self.compress = compress
         self.compress_codec = compress_codec
         self.ssl_context = ssl_context
@@ -187,7 +187,10 @@ class GateService:
         # (reference GateService.go:402-429)
         self._sync_pending: dict[int, bytearray] = defaultdict(bytearray)
         self._server: asyncio.AbstractServer | None = None
+        self._ws_server = None
+        self._kcp_server = None
         self.started = asyncio.Event()
+        self.ws_started = asyncio.Event()
         # scrapeable gate series (debug_http /metrics): client packet
         # handle latency and downstream batch sizes (the reference wraps
         # handling in opmon, GateService.go:435-442 — same signal, now
@@ -326,6 +329,26 @@ class GateService:
         tasks = [asyncio.ensure_future(self._flush_loop())]
         if self.heartbeat_timeout > 0:
             tasks.append(asyncio.ensure_future(self._heartbeat_loop()))
+        if self.ws_port:
+            tasks.append(asyncio.ensure_future(self._serve_ws()))
+            await self.ws_started.wait()  # bind before declaring ready
+        if self.kcp_port:
+            from goworld_tpu_torch.net.kcp import start_kcp_server
+
+            # KCP sessions reuse the SAME handler as TCP: the adapters
+            # present (reader, writer) so ClientProxy/PacketConnection
+            # run unchanged (no TLS over KCP — parity with kcp-go, whose
+            # crypto is a kcp-layer option the reference leaves off).
+            # kcp_port=-1 binds an ephemeral UDP port (tests).
+            self._kcp_server = await start_kcp_server(
+                self._handle_client, self.host,
+                max(self.kcp_port, 0),
+                idle_timeout=self.kcp_idle_timeout,
+                # datagram-level fault injection (drop rules on the
+                # gate->client edge exercise the KCP ARQ/retransmit
+                # path; utils/faults.py)
+                loss_hook=faults.kcp_loss_hook("gate->client"),
+            )
         self.started.set()
         logger.info("gate%d listening on %s:%d", self.gate_id, self.host,
                     self.port)
@@ -344,6 +367,8 @@ class GateService:
             for cp in list(self.clients.values()):
                 await cp.conn.close()
             self._server.close()
+            if self._kcp_server is not None:
+                self._kcp_server.close()
             self.cluster.stop()
 
     def _on_dispatcher_lost(self, didx: int) -> None:
@@ -358,6 +383,11 @@ class GateService:
     def bound_port(self) -> int:
         assert self._server is not None
         return self._server.sockets[0].getsockname()[1]
+
+    @property
+    def bound_kcp_port(self) -> int:
+        assert self._kcp_server is not None
+        return self._kcp_server.bound_port
 
     # -- client side -----------------------------------------------------
     def _refuse_new_client(self) -> str | None:
@@ -812,3 +842,78 @@ class GateService:
                                 self.gate_id, cp.client_id)
                     await cp.conn.close()
                     self._drop_client(cp)
+
+    # -- websocket listener ----------------------------------------------
+    async def _serve_ws(self) -> None:
+        """WebSocket edge (reference ``handleWebSocketConn`` ``:121-168``):
+        each binary WS message is one framed packet, over the port's
+        stdlib websocket module (:mod:`goworld_tpu_torch.net.ws`).
+        ``ws_started`` is set whatever the bind does, so ``serve()``
+        never waits on it forever; a failed bind is logged."""
+
+        async def handle(ws):
+            loop = asyncio.get_event_loop()
+            if self._refuse_new_client() is not None:
+                self._m_rejected.inc()
+                await ws.close()
+                return
+            # adapt the websocket into the PacketConnection interface via
+            # an in-memory stream pair
+            reader = asyncio.StreamReader()
+
+            class _WSWriter:
+                def write(self, data: bytes) -> None:
+                    # strip our framing: WS messages are already framed
+                    asyncio.ensure_future(ws.send(bytes(data)))
+
+                async def drain(self) -> None: ...
+                def close(self) -> None:
+                    asyncio.ensure_future(ws.close())
+
+                async def wait_closed(self) -> None: ...
+                def get_extra_info(self, _): return None
+
+            conn = PacketConnection(reader, _WSWriter())  # type: ignore
+            cp = ClientProxy(conn)
+            if self.rate_limit_pps > 0:
+                cp.bucket = overload.TokenBucket(
+                    self.rate_limit_pps, burst=2 * self.rate_limit_pps)
+            if self.rate_limit_bps > 0:
+                cp.byte_bucket = overload.TokenBucket(
+                    self.rate_limit_bps, burst=2 * self.rate_limit_bps)
+            cp.last_heartbeat = loop.time()
+            self.clients[cp.client_id] = cp
+            boot_eid = ids.gen_entity_id()
+            self.cluster.select_by_entity_id(boot_eid).send(
+                proto.pack_notify_client_connected(
+                    boot_eid, cp.client_id, self.gate_id
+                )
+            )
+            try:
+                async for msg in ws:
+                    if not isinstance(msg, (bytes, bytearray)):
+                        continue
+                    # strip size prefix; decode_wire also strips any
+                    # trace trailer like the TCP recv path
+                    mt, p = decode_wire(msg[HEADER_SIZE:])
+                    self._handle_client_packet(cp, mt, p)
+            except Exception:
+                pass
+            finally:
+                self._drop_client(cp)
+
+        try:
+            self._ws_server = await ws_mod.serve(
+                handle, self.host, self.ws_port
+            )
+        except Exception:
+            logger.exception(
+                "gate%d: websocket listener on port %d failed; "
+                "continuing without ws", self.gate_id, self.ws_port,
+            )
+            return
+        finally:
+            # serve() awaits this before declaring ready; never leave it
+            # hanging on a bind failure
+            self.ws_started.set()
+        await asyncio.Future()  # run until cancelled

@@ -277,15 +277,19 @@ class PacketConnection:
     the reference's client edge (``ClientProxy.go:38-53``).
     ``compress_codec`` picks the stream codec:
 
-    * ``"snappy"`` (the default) — the reference's codec; the port has
-      no snappy yet (``net/snappy.py``, ROADMAP.md Queue A), so it
-      raises ``NotImplementedError`` at construction.
+    * ``"snappy"`` (default) — the reference's codec, via the
+      from-scratch framing-format implementation in
+      :mod:`goworld_tpu_torch.net.snappy` (each packet is one or more
+      framed chunks; the stream identifier leads the first send).
     * ``"zlib"`` — one zlib-1 stream with ``Z_SYNC_FLUSH`` at packet
-      boundaries, byte for byte the JAX package's stream.
+      boundaries, byte for byte the JAX package's stream; its shared
+      per-connection dictionary compresses the dominant small packets
+      (heartbeats, 34-byte sync records) better than snappy's per-chunk
+      framing, at more CPU per byte.
 
     Both ends must agree on flag AND codec, exactly like the
-    reference's ini flag; a codec the port cannot provide raises at
-    construction (silent fallback would desync the peer)."""
+    reference's ini flag; a codec the environment cannot provide
+    raises at construction (silent fallback would desync the peer)."""
 
     def __init__(
         self,
@@ -305,13 +309,16 @@ class PacketConnection:
         self.compress = compress
         if compress:
             if compress_codec == "snappy":
-                raise NotImplementedError(
-                    "compress_codec = snappy: net/snappy.py is not ported "
-                    "yet; see ROADMAP.md Queue A (or set compress_codec = "
-                    "zlib on BOTH ends)")
-            if compress_codec == "zlib":
+                from goworld_tpu_torch.net import snappy as _snappy
+
+                _snappy.available()  # builds the core; raises on failure
+                self._comp = _snappy.StreamCompressor()
+                self._decomp = _snappy.StreamDecompressor()
+                self._snappy = True
+            elif compress_codec == "zlib":
                 self._comp = zlib.compressobj(1)
                 self._decomp = zlib.decompressobj()
+                self._snappy = False
             else:
                 raise ValueError(
                     f"compress_codec must be snappy|zlib, "
@@ -325,8 +332,11 @@ class PacketConnection:
         try:
             if self.compress:
                 raw = wire_payload(p)
-                payload = self._comp.compress(raw) \
-                    + self._comp.flush(zlib.Z_SYNC_FLUSH)
+                if self._snappy:
+                    payload = self._comp.compress(raw)
+                else:
+                    payload = self._comp.compress(raw) \
+                        + self._comp.flush(zlib.Z_SYNC_FLUSH)
                 self.writer.write(_SIZE_FMT.pack(len(payload)) + payload)
             elif faults.active and self.edge \
                     and self._faulted_send(p):
@@ -403,18 +413,30 @@ class PacketConnection:
             raise ConnectionError(f"bad packet size {size}")
         body: bytes | bytearray = await self.reader.readexactly(size)
         if self.compress:
-            try:
-                # max_length caps output BEFORE allocation: a crafted
-                # high-ratio stream (decompression bomb) hits the limit
-                # and leaves unconsumed input instead of eating RAM
-                body = self._decomp.decompress(
-                    bytes(body), MAX_PAYLOAD_LENGTH + 1
-                )
-            except zlib.error as exc:
-                raise ConnectionError(f"bad compressed packet: {exc}")
-            if self._decomp.unconsumed_tail \
-                    or len(body) > MAX_PAYLOAD_LENGTH:
-                raise ConnectionError("decompressed packet too large")
+            if self._snappy:
+                try:
+                    # the bound is checked chunk-by-chunk during
+                    # decode, so a bomb stream fails before allocation
+                    body = self._decomp.decompress(
+                        bytes(body), max_out=MAX_PAYLOAD_LENGTH
+                    )
+                except ValueError as exc:
+                    raise ConnectionError(
+                        f"bad compressed packet: {exc}")
+            else:
+                try:
+                    # max_length caps output BEFORE allocation: a
+                    # crafted high-ratio stream (decompression bomb)
+                    # hits the limit and leaves unconsumed input
+                    # instead of eating RAM
+                    body = self._decomp.decompress(
+                        bytes(body), MAX_PAYLOAD_LENGTH + 1
+                    )
+                except zlib.error as exc:
+                    raise ConnectionError(f"bad compressed packet: {exc}")
+                if self._decomp.unconsumed_tail \
+                        or len(body) > MAX_PAYLOAD_LENGTH:
+                    raise ConnectionError("decompressed packet too large")
             if len(body) < 2:
                 raise ConnectionError("short decompressed packet")
         return decode_wire(body)

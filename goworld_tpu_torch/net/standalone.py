@@ -35,17 +35,15 @@ class ClusterHarness:
                  tls_dir: str | None = None,
                  gate_exit_on_dispatcher_loss: bool = False,
                  gate_kwargs: dict | None = None):
-        if with_ws or with_kcp:
-            raise NotImplementedError(
-                "the harness's WebSocket and KCP gate edges (net/ws.py, "
-                "net/kcp.py) are not ported yet; see ROADMAP.md Queue A "
-                "item 8")
         self.host = host
         self.n_dispatchers = n_dispatchers
         self.n_gates = n_gates
         self.desired_games = desired_games
         self.heartbeat_timeout = heartbeat_timeout
         self.position_sync_interval_ms = position_sync_interval_ms
+        self.with_ws = with_ws
+        self.with_kcp = with_kcp
+        self.gate_kcp_addrs: list[tuple[str, int]] = []
         # client-edge transport (reference goworld_actions.ini runs CI
         # with compression+encryption ON)
         self.compress = compress
@@ -60,6 +58,7 @@ class ClusterHarness:
         self.gates: list[GateService] = []
         self.dispatcher_addrs: list[tuple[str, int]] = []
         self.gate_addrs: list[tuple[str, int]] = []
+        self.gate_ws_addrs: list[tuple[str, int]] = []
         self.loop: asyncio.AbstractEventLoop | None = None
         self._thread: threading.Thread | None = None
         self._tasks: list = []
@@ -94,6 +93,13 @@ class ClusterHarness:
             await d.started.wait()
             self.dispatcher_addrs.append((self.host, d.bound_port))
         for i in range(self.n_gates):
+            ws_port = 0
+            if self.with_ws:
+                import socket
+
+                with socket.socket() as s:
+                    s.bind((self.host, 0))
+                    ws_port = s.getsockname()[1]
             ssl_ctx = None
             if self.tls_dir is not None:
                 import os
@@ -106,6 +112,8 @@ class ClusterHarness:
                 ssl_ctx = transport.server_ssl_context(cert, key)
             g = GateService(
                 i + 1, self.host, 0, list(self.dispatcher_addrs),
+                ws_port=ws_port,
+                kcp_port=-1 if self.with_kcp else 0,
                 heartbeat_timeout=self.heartbeat_timeout,
                 position_sync_interval_ms=self.position_sync_interval_ms,
                 compress=self.compress,
@@ -117,6 +125,10 @@ class ClusterHarness:
             self._tasks.append(asyncio.ensure_future(g.serve()))
             await g.started.wait()
             self.gate_addrs.append((self.host, g.bound_port))
+            if self.with_kcp:
+                self.gate_kcp_addrs.append((self.host, g.bound_kcp_port))
+            if ws_port:
+                self.gate_ws_addrs.append((self.host, ws_port))
 
     def submit(self, coro: Coroutine) -> Future:
         """Run a coroutine (e.g. a bot) on the harness loop."""

@@ -4,15 +4,24 @@ Reference parity: the gate optionally wraps every client connection in TLS
 (``components/gate/ClientProxy.go:38-53``; cert/key shipped as ``rsa.crt``
 / ``rsa.key`` at the repo root, ini flags ``encrypt_connection``) and
 snappy compression. Here TLS rides stdlib ``ssl`` over asyncio; stream
-compression is zlib-1 (``compress_codec = zlib``). The JAX package's
-snappy codec and its KCP (reliable-UDP) edge are not ported yet
-(``net/snappy.py``, ``net/kcp.py``; ROADMAP.md Queue A item 8): asking
-for either raises ``NotImplementedError``.
+compression defaults to SNAPPY — the reference's codec, implemented from
+scratch (block + framing formats, :mod:`goworld_tpu_torch.net.snappy`, C++
+core in ``native/snappy_core.cpp``) — with zlib-1 selectable per ini
+(``compress_codec``) for deployments that prefer its shared-dictionary
+ratio on tiny packets.
 
-Fault injection (:mod:`goworld_tpu_torch.utils.faults`) wraps these
-boundaries one layer up: wire faults apply at ``PacketConnection.send``
-above the TLS/compression stream (tampering inside a negotiated stream
-would model a codec bug, not a network fault).
+The third client transport, KCP (reliable-UDP tuned for latency,
+``GateService.go:129-161``), is implemented from scratch in
+:mod:`goworld_tpu_torch.net.kcp` — same wire protocol as the reference's
+kcp-go dependency, adapted to the (reader, writer) seam so
+PacketConnection runs unchanged over it.
+
+Fault injection (:mod:`goworld_tpu_torch.utils.faults`, docs/ROBUSTNESS.md)
+wraps these boundaries one layer up: wire faults apply at
+``PacketConnection.send`` above the TLS/compression stream (tampering
+inside a negotiated stream would model a codec bug, not a network
+fault), and the KCP edge drops whole datagrams through
+``KcpServer``'s ``loss_hook`` so the ARQ path is what gets exercised.
 """
 
 from __future__ import annotations

@@ -182,7 +182,7 @@ def test_run_from_ini_on_the_cpu(tmp_path, fresh_api):
 @pytest.mark.parametrize("game,env,argv", [
     (dict(megaspace="true", mesh_devices=4), {}, []),
     (dict(mesh_devices=2, n_spaces=2), {}, []),
-    (dict(http_port=18080), {}, []),
+    (dict(http_port=0), {}, []),
     (dict(small_tier_rows=512), {}, []),
     (dict(standby_of=2), {}, []),
     ({}, {"GOWORLD_MH_PROCS": "2"}, []),
@@ -195,9 +195,16 @@ def test_run_refuses_unported_settings(tmp_path, fresh_api, monkeypatch,
     naming ROADMAP.md before anything is built. A megaspace and a mesh
     were refused until they were ported; those cases now hold that the
     ini's World takes them and ticks: 4 x-strip tiles of the ini's
-    world, and 2 Spaces on a mesh of 2."""
+    world, and 2 Spaces on a mesh of 2. ``http_port`` and ``-d`` were
+    refused until the debug HTTP and the daemon were ported; those cases
+    now hold that the game boots against dispatchers, serves its debug
+    endpoints on the port, and goes through ``daemonize`` with its log
+    file (recorded here rather than forking the test process)."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
+    if "http_port" in game or argv == ["-d"]:
+        _run_ported_process_setting(tmp_path, monkeypatch, game, argv)
+        return
     ini = _ini(str(tmp_path), None, **game)
     if game.get("mesh_devices"):
         gc = tconfig.load(ini).games.get(1) or tconfig.GameConfig()
@@ -222,6 +229,50 @@ def test_run_refuses_unported_settings(tmp_path, fresh_api, monkeypatch,
                device="cpu")
 
 
+def _run_ported_process_setting(tmp_path, monkeypatch, game, argv):
+    import json
+    import socket
+    import urllib.request
+
+    from goworld_tpu_torch.utils import daemon
+
+    forks: list = []
+    monkeypatch.setattr(daemon, "daemonize", forks.append)
+    if "http_port" in game:
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            game = dict(game, http_port=sk.getsockname()[1])
+    harness = ClusterHarness(n_dispatchers=1, n_gates=1, desired_games=1)
+    harness.start(timeout=WAIT)
+    rt = None
+    try:
+        ini = _ini(str(tmp_path), harness, **game)
+        rt = gw.run(["-gid", "1", "-configfile", ini, *argv], block=False,
+                    device="cpu")
+        assert rt.server.handshake_acks == {1}
+        if argv == ["-d"]:
+            assert forks == ["game1.log"]
+            return
+        assert forks == []
+        base = f"http://127.0.0.1:{game['http_port']}"
+
+        def get(path):
+            with urllib.request.urlopen(base + path, timeout=WAIT) as r:
+                return json.loads(r.read())
+
+        assert get("/healthz") == {"ok": True}
+        assert get("/standby") == {
+            "error": "no standby tracker in this process"}
+        assert get("/rebalance") == {"agents": {}}
+        assert "ROADMAP" in get("/standby?promote=1")["error"]
+    finally:
+        if rt is not None:
+            rt.server.stop()
+            rt.storage.shutdown()
+            rt.workers.wait_clear()
+        harness.stop()
+
+
 def test_run_refuses_rebalance_deployment(tmp_path, fresh_api):
     ini = _ini(str(tmp_path), None)
     with open(ini, "a") as f:
@@ -242,21 +293,28 @@ def test_run_without_a_card_raises(tmp_path, fresh_api):
 
 
 def test_unported_edges_raise():
-    """The client edges and server planes not ported yet refuse."""
+    """The server planes not ported yet refuse. The KCP and WebSocket
+    edges and the snappy codec were refused until they were ported; the
+    gate, the harness and the bot now take them (``tests/
+    test_torch_ws.py`` drives them against the JAX package's)."""
     from goworld_tpu_torch.net import gate, proto
     from goworld_tpu_torch.net.game import GameServer
     from goworld_tpu_torch.net.packet import Packet, new_packet
 
     for kw in (dict(kcp_port=-1), dict(ws_port=1),
                dict(compress=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            gate.GateService(1, "127.0.0.1", 0, [], **kw)
+        g = gate.GateService(1, "127.0.0.1", 0, [], **kw)
+        assert (g.kcp_port, g.ws_port, g.compress_codec) == (
+            kw.get("kcp_port", 0), kw.get("ws_port", 0), "snappy")
     for kw in (dict(with_ws=True), dict(with_kcp=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ClusterHarness(**kw)
+        h = ClusterHarness(**kw)
+        assert (h.with_ws, h.with_kcp) == (
+            kw.get("with_ws", False), kw.get("with_kcp", False))
     for kw in (dict(kcp=True), dict(ws=True), dict(compress=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            BotClient("127.0.0.1", 1, **kw)
+        b = BotClient("127.0.0.1", 1, **kw)
+        assert (b.kcp, b.ws, b.compress) == (
+            kw.get("kcp", False), kw.get("ws", False),
+            kw.get("compress", False))
     from goworld_tpu_torch.core.state import WorldConfig
     from goworld_tpu_torch.entity import World
     from goworld_tpu_torch.ops.aoi import GridSpec

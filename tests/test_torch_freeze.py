@@ -309,6 +309,38 @@ class TestCorruption:
         with pytest.raises(freeze.CorruptSnapshotError):
             freeze.read_freeze_file(str(p))
 
+    def test_crash_mid_freeze_leaves_only_tmp(self, tmp_path):
+        """``crash:freeze.write`` kills the writer between the fsync of
+        the .tmp and the rename, as in the JAX package
+        (tests/test_freeze.py): only the .tmp is left, so a -restore
+        boot sees no partial freeze file."""
+        import subprocess
+        import sys
+
+        from goworld_tpu_torch.utils import faults as faults_mod
+
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        target = str(tmp_path / freeze.freeze_filename(1))
+        env = dict(os.environ, PYTHONPATH=repo,
+                   GOWORLD_FAULTS="crash:freeze.write:1.0")
+        r = subprocess.run(
+            [sys.executable, "-c",
+             "from goworld_tpu_torch.utils import faults; "
+             "faults.install('freezer'); "
+             "from goworld_tpu_torch import freeze; "
+             f"freeze.write_freeze_file({target!r}, "
+             "{'version': 1, 'entities': []})"],
+            env=env, capture_output=True, text=True, timeout=240,
+        )
+        assert r.returncode == faults_mod.KILL_EXIT_CODE, \
+            r.stdout + r.stderr
+        assert not os.path.exists(target)
+        assert os.path.exists(target + ".tmp")
+        assert not freeze.has_restorable_snapshot(1, str(tmp_path))
+        w2 = make_world("port")
+        with pytest.raises(FileNotFoundError):
+            freeze.restore_from_file(w2, str(tmp_path))
+
 
 class TestSnapshotChain:
     def chains(self, tmp_path, every=4):

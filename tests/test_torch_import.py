@@ -99,7 +99,8 @@ def test_facade_resolution_leaves_jax_out_and_builds_nothing():
 @pytest.mark.parametrize(
     "path",
     [str(p.relative_to(ROOT)) for p in sorted(PKG.rglob("*.py"))]
-    + ["chip_smoke.py", "examples/megaspace_demo/server_torch.py"],
+    + ["chip_smoke.py", "examples/megaspace_demo/server_torch.py",
+       "examples/unity_demo/server_torch.py"],
 )
 def test_source_imports_nothing_of_jax(path):
     tree = ast.parse((ROOT / path).read_text())

@@ -207,6 +207,64 @@ def test_sync_codec_batches_match_jax(n):
     assert tcodec.scan_frames(stream) == jcodec.scan_frames(stream)
 
 
+@pytest.mark.parametrize("n", [0, 1, 33, 1000])
+def test_sync_codec_native_core_matches_numpy_and_jax(n):
+    """The port's C++ codec core (``native/packet_codec.cpp``, which the
+    public functions run) against its numpy plain version
+    (``*_plain``), and both against the JAX package's codec: the same
+    bytes, the same decoded arrays, the same buckets and frames, and the
+    same refusal of a malformed frame size."""
+    rng = np.random.default_rng(100 + n)
+    ids, cids, vals = _records(rng, n)
+    assert tcodec.native_available()
+    enc = tcodec.encode_sync_batch(ids, vals)
+    assert enc == tcodec.encode_sync_batch_plain(ids, vals) \
+        == jcodec.encode_sync_batch(ids, vals)
+    cenc = tcodec.encode_client_sync_batch(cids, ids, vals)
+    assert cenc == tcodec.encode_client_sync_batch_plain(cids, ids, vals) \
+        == jcodec.encode_client_sync_batch(cids, ids, vals)
+    for fn, plain, jfn, blob in (
+            (tcodec.decode_sync_batch, tcodec.decode_sync_batch_plain,
+             jcodec.decode_sync_batch, enc),
+            (tcodec.decode_client_sync_batch,
+             tcodec.decode_client_sync_batch_plain,
+             jcodec.decode_client_sync_batch, cenc)):
+        for got, p, want in zip(fn(blob), plain(blob), jfn(blob)):
+            assert np.array_equal(got, p) and np.array_equal(got, want)
+            assert got.dtype == p.dtype == want.dtype
+    shard = rng.integers(-1, 6, n).astype(np.int32)
+    for got, p, want in zip(tcodec.bucket_by_shard(shard, 5, 8),
+                            tcodec.bucket_by_shard_plain(shard, 5, 8),
+                            jcodec.bucket_by_shard(shard, 5, 8)):
+        assert np.array_equal(got, p) and np.array_equal(got, want)
+    frames = [rng.bytes(int(k)) for k in rng.integers(2, 60, 7)]
+    stream = b"".join(len(x).to_bytes(4, "little") + x for x in frames)
+    for cut in (len(stream), len(stream) - 3, 5, 0):
+        got = tcodec.scan_frames(stream[:cut], max_frames=5)
+        assert got == tcodec.scan_frames_plain(stream[:cut], max_frames=5)
+        assert got == jcodec.scan_frames(stream[:cut], max_frames=5)
+    for fn in (tcodec.scan_frames, tcodec.scan_frames_plain,
+               jcodec.scan_frames):
+        with pytest.raises(ConnectionError):
+            fn(b"\x01\x00\x00\x00x")
+    for fn in (tcodec.decode_sync_batch, tcodec.decode_sync_batch_plain):
+        with pytest.raises(ValueError):
+            fn(b"x" * 33)
+
+
+def test_codec_core_builds_from_the_port_sources():
+    """The codec core is built from ``goworld_tpu_torch/native/`` into
+    ``goworld_tpu_torch/_build/`` under a name keyed on its source."""
+    from goworld_tpu_torch import native
+
+    tcodec.native_available()
+    path = native.library_path("packet_codec")
+    assert path.exists()
+    assert path.parent == native.BUILD_DIR
+    assert path.parent.parent == native.SRC_DIR.parent
+    assert (native.SRC_DIR / "packet_codec.cpp").exists()
+
+
 def test_delta_sync_codec_matches_jax():
     """Ten ticks of a walking population through both packages'
     ``DeltaSyncEncoder`` (keyframes, deltas, an int16 overflow, a
@@ -240,33 +298,40 @@ class _Writer:
 
 
 def test_zlib_stream_matches_jax_and_snappy_is_refused():
-    """``compress_codec = zlib`` puts the JAX package's stream on the
-    wire; the port reads it back. Snappy is not ported: it raises."""
-    outs = []
-    for pk in (jpacket, tpacket):
-        rng = np.random.default_rng(2)
-        w = _Writer()
-        conn = pk.PacketConnection(None, w, compress=True,
-                                   compress_codec="zlib")
-        for i in range(20):
-            p = pk.new_packet(jproto.MT_CALL_ENTITY_METHOD)
-            p.append_var_str(f"m{i}")
-            p.append_bytes(rng.bytes(int(rng.integers(0, 200))))
-            conn.send(p)
-        outs.append(bytes(w.data))
-    assert outs[0] == outs[1]
+    """``compress_codec = zlib`` and ``snappy`` each put the JAX
+    package's stream on the wire, and the port reads the JAX stream
+    back. Snappy was refused until the port had its codec; the case now
+    holds that its stream (the default codec) is the JAX package's too,
+    and that an unknown codec still raises."""
+    for codec in ("zlib", "snappy"):
+        outs = []
+        for pk in (jpacket, tpacket):
+            rng = np.random.default_rng(2)
+            w = _Writer()
+            conn = pk.PacketConnection(None, w, compress=True,
+                                       compress_codec=codec)
+            for i in range(20):
+                p = pk.new_packet(jproto.MT_CALL_ENTITY_METHOD)
+                p.append_var_str(f"m{i}")
+                p.append_bytes(rng.bytes(int(rng.integers(0, 200))))
+                conn.send(p)
+            outs.append(bytes(w.data))
+        assert outs[0] == outs[1], codec
 
-    async def read_all():
-        reader = asyncio.StreamReader()
-        reader.feed_data(outs[0])
-        reader.feed_eof()
-        conn = tpacket.PacketConnection(reader, _Writer(), compress=True,
-                                        compress_codec="zlib")
-        return [(await conn.recv())[1].read_var_str() for _ in range(20)]
+        async def read_all():
+            reader = asyncio.StreamReader()
+            reader.feed_data(outs[0])
+            reader.feed_eof()
+            conn = tpacket.PacketConnection(reader, _Writer(), compress=True,
+                                            compress_codec=codec)
+            return [(await conn.recv())[1].read_var_str()
+                    for _ in range(20)]
 
-    assert asyncio.run(read_all()) == [f"m{i}" for i in range(20)]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpacket.PacketConnection(None, _Writer(), compress=True)
+        assert asyncio.run(read_all()) == [f"m{i}" for i in range(20)]
+    assert tpacket.PacketConnection(None, _Writer(), compress=True)._snappy
+    with pytest.raises(ValueError):
+        tpacket.PacketConnection(None, _Writer(), compress=True,
+                                 compress_codec="lz4")
 
 
 def _attr_data(rng):
