@@ -300,7 +300,45 @@ is caught:
     at rest, every ``OnSay`` arrives, and the round's game ticks
     launched one sweep and one sort each and nothing else; it prints the
     boot ticks, the login p50 an edge and the game tick p50/p99 of the
-    ``tick_latency_ms`` histogram of each round.
+    ``tick_latency_ms`` histogram of each round;
+23. (run after 22, before 12) ``examples/test_game`` through the ops CLI
+    on networked stores: the port's ``MiniMongo`` and a three-node
+    ``MiniRedis`` cluster (the slots split in three) on threads of this
+    process, preloaded with TG_PRELOAD Avatar documents and as many
+    ``avatarOf/<name>`` keys: those of the names the bots log in with
+    through ``MongoDBStorage`` and ``RedisClusterKVDB``, the rest in bulk
+    (batched ``insert`` commands, pipelined ``SET``s a node, each in
+    ``MongoDBStorage``'s and ``RedisClusterKVDB``'s layout and slots);
+    the stock ini and ``server_torch.py`` in a temp
+    dir, the ini changed only in its ports (moved to free ones), its
+    stores (``[storage] kind = mongodb``, ``[kvdb] kind =
+    redis_cluster``), the kernels (``aoi_sweep_impl = fused``,
+    ``aoi_sort_impl = pallas`` and ``aoi_cell_cap = 28``, the largest
+    cell the fused kernel takes: the default 32 it refuses) and an
+    ``http_port`` on each process; the entry (TG_ENTRY) runs the stock
+    script for its registrations and publishes the game's tick count,
+    launch counts, placed service shards, mails, live Avatars and the
+    last Avatar save it issued for each id on ``/vars``.
+    ``start``; once every service shard is placed, TG_BOTS strict bots
+    over TCP log in (half with preloaded names, whose logins must find
+    the preloaded Avatar id, half new), subscribe to ``news.*``, one
+    publishes ``news.tpu`` and every subscriber's client receives
+    ``OnPublish``, each sends a mail (the MailService holds them all),
+    and they leave after TG_HOLD_S s; ``reload``; every bot's Avatar is
+    read back from minimongo through a fresh ``MongoDBStorage``, equal
+    to the last save the first game issued for it, and overwritten with
+    level 0 (which the game never writes); the same bots log in again,
+    each name to the same Avatar id, and leave after TG_HOLD_S s;
+    ``stop``, ``status`` 1, no process left and no traceback in a log
+    but the restored game's failed service RPCs (ROADMAP C8: an
+    ``AttributeError`` on the attribute the service's ``OnInit`` makes,
+    counted). Then every new name's key is read back from the cluster
+    through a fresh ``RedisClusterKVDB`` and every bot's Avatar from
+    minimongo, equal to the last save the restored game issued for it;
+    every round's game ticks launched at least one sweep and one sort
+    each. It prints the preload's seconds, the login p50 of each round,
+    the game tick p50/p99 of the ``tick_latency_ms`` histogram and its
+    wall.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -313,8 +351,10 @@ import dataclasses
 import gc
 import json
 import os
+import re
 import resource
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -4461,6 +4501,29 @@ def run_cli(args: list) -> tuple[int, str, float]:
     return proc.returncode, out, time.perf_counter() - t0
 
 
+def cli_step(server_dir: str, pids: set, label: str, args: list,
+             want_rc: int, what: str) -> tuple[str, float]:
+    """One CLI command on ``server_dir`` (output, seconds); the pids of
+    its processes added to ``pids``; it fails, with every process's log,
+    unless the command exits ``want_rc``."""
+    rc, out, secs = run_cli([args[0], server_dir, *args[1:]])
+    rd = os.path.join(server_dir, "run")
+    names = sorted(os.listdir(rd)) if os.path.isdir(rd) else []
+    for name in names:
+        if name.endswith(".pid"):
+            with open(os.path.join(rd, name)) as f:
+                pids.add(int(f.read().strip()))
+    if rc != want_rc:
+        logs = ""
+        for name in names:
+            if name.endswith(".log"):
+                with open(os.path.join(rd, name), errors="replace") as f:
+                    logs += f"== {name}\n{f.read()[-3000:]}\n"
+        fail(f"{label} {what} exited {rc}, not {want_rc}:\n{out[-3000:]}"
+             f"\n{logs}")
+    return out, secs
+
+
 def http_get(port: int, path: str, timeout: float = DEPLOY_HTTP_S):
     import urllib.request
 
@@ -4470,16 +4533,22 @@ def http_get(port: int, path: str, timeout: float = DEPLOY_HTTP_S):
     return json.loads(body) if path != "/metrics" else body
 
 
-def smoke_vars(port: int, want=None) -> dict:
+def smoke_vars(port: int, want=None, label: str = "[22]") -> dict:
     """The game's published ``smoke`` var; polled until ``want(var)``
     holds (every poll bounded)."""
     t_end = time.perf_counter() + DEPLOY_CLI_S
     while True:
-        v = http_get(port, "/vars").get("smoke") or {}
+        try:
+            v = http_get(port, "/vars").get("smoke") or {}
+        except OSError as e:   # the game's debug HTTP not serving yet
+            if time.perf_counter() > t_end:
+                fail(f"{label} the game's debug HTTP: {e}")
+            time.sleep(0.2)
+            continue
         if want is None or want(v):
             return v
         if time.perf_counter() > t_end:
-            fail(f"[22] the game never published what was awaited: "
+            fail(f"{label} the game never published what was awaited: "
                  f"{sorted(v)}")
         time.sleep(0.05)
 
@@ -4662,22 +4731,7 @@ def deployment_phase(dev, tag: str, slots: int = GAME_SLOTS,
     pids: set = set()
 
     def step(args, want_rc: int, what: str) -> tuple[str, float]:
-        rc, out, secs = run_cli([args[0], tmp, *args[1:]])
-        for name in os.listdir(os.path.join(tmp, "run")) \
-                if os.path.isdir(os.path.join(tmp, "run")) else []:
-            if name.endswith(".pid"):
-                with open(os.path.join(tmp, "run", name)) as f:
-                    pids.add(int(f.read().strip()))
-        if rc != want_rc:
-            logs = ""
-            for name in sorted(os.listdir(os.path.join(tmp, "run"))):
-                if name.endswith(".log"):
-                    with open(os.path.join(tmp, "run", name),
-                              errors="replace") as f:
-                        logs += f"== {name}\n{f.read()[-3000:]}\n"
-            fail(f"[22] {what} exited {rc}, not {want_rc}:\n{out[-3000:]}"
-                 f"\n{logs}")
-        return out, secs
+        return cli_step(tmp, pids, "[22]", args, want_rc, what)
 
     try:
         with open(os.path.join(tmp, "goworld_tpu.ini"), "w") as f:
@@ -4694,6 +4748,10 @@ def deployment_phase(dev, tag: str, slots: int = GAME_SLOTS,
         if f"started (restore=False) {where}" not in glog:
             fail(f"[22] the game's log does not say it started {where}:\n"
                  f"{glog[-2000:]}")
+        # `start` returns at the game's STARTED tag, before its serve loop
+        # has timed a tick: status reads the histogram after two
+        first = smoke_vars(ports["hg"], lambda v: "tick" in v)["tick"]
+        smoke_vars(ports["hg"], lambda v: v.get("tick", 0) > first)
         status_out, _ = step(["status"], 0, "status")
         table = [ln.split() for ln in status_out.splitlines()]
         head = next((r for r in table if r[:1] == ["series"]), [])
@@ -4855,6 +4913,478 @@ def pid_alive(pid: int) -> bool:
             return f.read().rsplit(") ", 1)[1].split()[0] != "Z"
     except (OSError, IndexError):
         return True
+
+
+# ---------------------------------------------------------------- [23]
+# examples/test_game through the port's ops CLI on networked stores: the
+# port's minimongo and a three-node miniredis cluster, preloaded with a
+# deployment's persistent store at [19]'s population
+TG_PRELOAD = 1 << 17      # Avatar documents and avatarOf/ keys
+TG_BATCH = 4096           # documents an insert, SETs a pipelined write
+TG_BOTS = 64              # strict bots over TCP; half log in as preloaded
+TG_SPLIT = [(0, 5460), (5461, 10922), (10923, 16383)]   # the cluster's slots
+TG_SHARDS = 10            # OnlineService 3, SpaceService 3, Mail 1, Pubsub 3
+TG_HOLD_S = 2.0           # seconds the bots stay in the game a round
+TG_ENTRY = "smoke_entry.py"
+# [23]'s entry: the stock server_torch.py (its registrations), its serve
+# loop's tick publishing on the debug HTTP's /vars the tick count, the
+# kernel launch counts, the service shards placed here, the mails the
+# MailService holds, the live Avatars and the last Avatar save this
+# process issued for each id (what the store must hold once it drained)
+TG_GAME = '''"""chip_smoke.py [23]'s entry: examples/test_game/server_torch.py as
+it stands, its tick publishing what [23] reads on /vars."""
+import runpy
+
+import goworld_tpu_torch as gw
+from goworld_tpu_torch import kernels
+from goworld_tpu_torch.entity.manager import World
+from goworld_tpu_torch.net.game import GameServer
+from goworld_tpu_torch.utils import opmon
+
+runpy.run_path("server_torch.py")  # the stock game: registrations only
+_tick = GameServer.tick
+_save_entity = World.save_entity
+SAVES = {{}}
+
+
+def save_entity(self, e):
+    _save_entity(self, e)
+    if e.type_name == "Avatar" and self.storage is not None:
+        SAVES[e.id] = e.get_persistent_data()
+
+
+def tick(self):
+    _tick(self)
+    w = self.world
+    svc = w.service_mgr
+    live = [e for e in list(w.entities.values()) if not e.destroyed]
+    # (a restored MailService holds none: the stock type keeps its
+    # mails in a plain attribute that OnInit makes)
+    mails = sum(sum(len(v) for v in getattr(e, "mails", {{}}).values())
+                for e in live if e.type_name == "MailService")
+    opmon.expose("smoke", {{
+        "tick": w.tick_count, "launches": dict(kernels.LAUNCHES),
+        "placed": 0 if svc is None else len(svc._local_shards),
+        "mails": mails,
+        "avatars": sum(e.type_name == "Avatar" for e in live),
+        "saves": dict(SAVES)}})
+
+
+World.save_entity = save_entity
+GameServer.tick = tick
+gw.run({run_args})
+'''
+
+
+def tg_ini(src: str, ports: dict, mongo: str, cluster: str) -> str:
+    """``examples/test_game``'s stock ini with [23]'s changes only: the
+    dispatcher's and gate's ports moved to free ones, an ``http_port`` on
+    each process, the kernels, the networked stores and the entry."""
+    out, sec = [], ""
+    with open(src) as f:
+        lines = f.read().splitlines()
+    for line in lines:
+        head = line.strip()
+        if head.startswith("[") and head.endswith("]"):
+            sec = head[1:-1]
+            out.append(line)
+            extra = {
+                "dispatcher1": [f"http_port = {ports['hd']}"],
+                "game_common": [f"http_port = {ports['hg']}",
+                                "aoi_sweep_impl = fused",
+                                "aoi_sort_impl = pallas",
+                                "aoi_cell_cap = 28"],
+                "gate1": [f"http_port = {ports['ht']}"],
+                "storage": ["kind = mongodb", f"directory = {mongo}"],
+                "kvdb": ["kind = redis_cluster", f"path = {cluster}"],
+            }.get(sec, [])
+            out += extra
+            continue
+        key = head.split("=", 1)[0].strip()
+        if sec in ("storage", "kvdb") and key in ("kind", "directory",
+                                                  "path"):
+            continue
+        if key == "port" and sec in ("dispatcher1", "gate1"):
+            line = f"port = {ports['d' if sec == 'dispatcher1' else 'tcp']}"
+        out.append(line)
+    return "[deployment]\nentry = " + TG_ENTRY + "\n\n" + "\n".join(out) \
+        + "\n"
+
+
+def tg_set_pipelined(addr: str, pairs: list, batch: int) -> None:
+    """``SET key val`` for every pair on one node, ``batch`` commands a
+    write and their ``+OK`` replies read back before the next."""
+    from goworld_tpu_torch.ext.db.resp import parse_addr
+
+    host, port, _ = parse_addr(addr)
+    with socket.create_connection((host, port), timeout=30.0) as s:
+        f = s.makefile("rb")
+        for i in range(0, len(pairs), batch):
+            part = pairs[i:i + batch]
+            s.sendall(b"".join(
+                b"*3\r\n$3\r\nSET\r\n$%d\r\n%s\r\n$%d\r\n%s\r\n"
+                % (len(k), k, len(v), v) for k, v in part))
+            want = b"+OK\r\n" * len(part)
+            got = f.read(len(want))
+            if got != want:
+                fail(f"[23] a pipelined SET on {addr} answered "
+                     f"{got[:200]!r}")
+
+
+def tg_preload(mongo: str, cluster: str, n: int,
+               used: int) -> tuple[dict, list, dict]:
+    """``n`` Avatar documents (level 0, which the game never writes) and
+    their ``avatarOf/<name>`` keys: the ``used`` names the bots log in
+    with through ``MongoDBStorage`` and ``RedisClusterKVDB``, the others
+    in bulk in the same layout (``{_id, data}`` documents in batched
+    ``insert`` commands; ``goworld:``-prefixed keys pipelined to the
+    node that owns their slot); ({name: id}, {what: seconds})."""
+    from goworld_tpu_torch.ext.db.mongowire import MongoClient
+    from goworld_tpu_torch.ext.db.resp import key_slot
+    from goworld_tpu_torch.kvdb import RedisClusterKVDB, RedisKVDB
+    from goworld_tpu_torch.storage import MongoDBStorage
+    from goworld_tpu_torch.utils import ids
+
+    names = {f"pre{i}": ids.gen_entity_id() for i in range(n)}
+    picked = [f"pre{i * n // used}" for i in range(used)]
+    rest = [nm for nm in names if nm not in set(picked)]
+    doc = {nm: {"name": nm, "level": 0, "exp": 0} for nm in names}
+    secs = {}
+    t0 = time.perf_counter()
+    st = MongoDBStorage(mongo)
+    for nm in picked:
+        st.write("Avatar", names[nm], doc[nm])
+    st.close()
+    kv = RedisClusterKVDB(cluster.split(","))
+    for nm in picked:
+        kv.put(f"avatarOf/{nm}", names[nm])
+    kv.close()
+    secs["clients"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mc = MongoClient.from_addr(mongo)
+    for i in range(0, len(rest), TG_BATCH):
+        part = rest[i:i + TG_BATCH]
+        if mc.insert("Avatar", [{"_id": names[nm], "data": doc[nm]}
+                                for nm in part]) != len(part):
+            fail(f"[23] a bulk insert of {len(part)} Avatars fell short")
+    mc.close()
+    secs["mongodb"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    by_node = {addr: [] for addr in cluster.split(",")}
+    for nm in rest:
+        key = (RedisKVDB.PREFIX + f"avatarOf/{nm}").encode()
+        slot = key_slot(key)
+        owner = next(a for a, (lo, hi) in zip(by_node, TG_SPLIT)
+                     if lo <= slot <= hi)
+        by_node[owner].append((key, names[nm].encode()))
+    for addr, pairs in by_node.items():
+        tg_set_pipelined(addr, pairs, TG_BATCH)
+    secs["redis_cluster"] = time.perf_counter() - t0
+    return names, picked, secs
+
+
+async def tg_round(port: int, names: list, first: bool,
+                   label: str) -> dict:
+    """TG_BOTS strict bots log in by ``names`` (per-bot seconds from the
+    login call to the Avatar); on the ``first`` round they subscribe to
+    ``news.*``, bot 0 publishes ``news.tpu`` until every subscriber's
+    client received it, and each sends a mail; they stay TG_HOLD_S
+    seconds and leave."""
+    from goworld_tpu_torch.net.botclient import BotClient
+
+    bots = [BotClient("127.0.0.1", port, bot_id=i, strict=True)
+            for i in range(len(names))]
+    await asyncio.gather(*(b.connect() for b in bots))
+    for b in bots:
+        b._recv_task = asyncio.ensure_future(b._recv_loop())
+    await asyncio.wait_for(asyncio.gather(
+        *(b.player_ready.wait() for b in bots)), DEPLOY_CLI_S)
+    t0 = time.perf_counter()
+    for b, name in zip(bots, names):
+        b.call_server("Login_Client", name)
+    login = {}
+    t_end = t0 + DEPLOY_CLI_S
+    while len(login) < len(bots) and time.perf_counter() < t_end:
+        for b, name in zip(bots, names):
+            if name not in login and b.player is not None \
+                    and b.player.type_name == "Avatar" \
+                    and b.player.attrs.get("name") == name:
+                login[name] = time.perf_counter() - t0
+        await asyncio.sleep(0.01)
+    if len(login) != len(bots):
+        fail(f"{label} {len(login)} of {len(bots)} logins reached their "
+             f"Avatar")
+    got = dict(ids={n: b.player.eid for b, n in zip(bots, names)},
+               login_p50=float(np.percentile(list(login.values()), 50)),
+               publishes=0)
+    if first:
+        for b in bots:
+            b.call_server("Subscribe_Client", "news.*")
+        await asyncio.sleep(1.0)
+
+        def delivered(b):
+            return any(m == "OnPublish" and a == ["news.tpu", "tpu news"]
+                       for _, m, a in b.rpc_log)
+
+        t_end, t_pub = time.perf_counter() + 60.0, 0.0
+        while not all(delivered(b) for b in bots):
+            if time.perf_counter() > t_end:
+                fail(f"{label} OnPublish reached "
+                     f"{sum(map(delivered, bots))} of {len(bots)} "
+                     f"subscribers in {got['publishes']} publishes")
+            if time.perf_counter() - t_pub > 10.0:
+                bots[0].call_server("Publish_Client", "news.tpu",
+                                    "tpu news")
+                got["publishes"] += 1
+                t_pub = time.perf_counter()
+            await asyncio.sleep(0.05)
+        for i, b in enumerate(bots):
+            b.call_server("SendMail_Client", names[(i + 1) % len(bots)],
+                          f"mail from {names[i]}")
+    await asyncio.sleep(TG_HOLD_S)
+    errors = [e for b in bots for e in b.errors]
+    if errors:
+        fail(f"{label} strict mirrors report {len(errors)} errors: "
+             f"{errors[:4]}")
+    got["mails_sent"] = len(bots) if first else 0
+    await bots_leave(bots)
+    return got
+
+
+# ROADMAP C8: the stock services' state lives in attributes their OnInit
+# makes, which a restore does not run; {service: (attribute, methods)}
+TG_C8 = {"OnlineService": ("online", {"NotifyOnline", "NotifyOffline"}),
+         "SpaceService": ("space_loads", {"EnterSpace"}),
+         "MailService": ("mails", {"SendMail"})}
+
+
+def tg_tracebacks(text: str, c8: bool) -> tuple[list, int]:
+    """The traceback blocks of a log, each as (the line logged before
+    it, its exception line); with ``c8`` those of a failed service RPC
+    that ROADMAP C8 explains (an ``AttributeError`` on the attribute the
+    service's OnInit makes, in one of its own methods) are counted and
+    not listed. A chained exception's later block follows no RPC line,
+    so it is listed."""
+    lines = text.splitlines()
+    bad, n_c8 = [], 0
+    for i, line in enumerate(lines):
+        if "Traceback (most recent call last)" not in line:
+            continue
+        head = lines[i - 1] if i else ""
+        j = i + 1
+        while j < len(lines) and (not lines[j] or lines[j][0].isspace()):
+            j += 1
+        exc = lines[j] if j < len(lines) else ""
+        m = re.search(r"RPC <(\w+) [^>]*>\.(\w+) failed$", head)
+        if c8 and m and m.group(1) in TG_C8:
+            attr, methods = TG_C8[m.group(1)]
+            if m.group(2) in methods and re.fullmatch(
+                    rf"AttributeError: '{m.group(1)}' object has no "
+                    rf"attribute '{attr}'(\. Did you mean: '\w+'\?)?", exc):
+                n_c8 += 1
+                continue
+        bad.append((head, exc))
+    return bad, n_c8
+
+
+def tg_read_back(maddr: str, ids_of: dict, saves: dict, what: str) -> float:
+    """Every bot's Avatar from minimongo through a fresh
+    ``MongoDBStorage``, equal to the last save the game issued for it;
+    the seconds the reads took."""
+    from goworld_tpu_torch.storage import MongoDBStorage
+
+    t0 = time.perf_counter()
+    st = MongoDBStorage(maddr)
+    docs = {n: st.read("Avatar", eid) for n, eid in ids_of.items()}
+    st.close()
+    bad = [(n, docs[n], saves.get(eid)) for n, eid in ids_of.items()
+           if docs[n] is None or docs[n] != saves.get(eid)
+           or docs[n].get("name") != n or docs[n].get("level", 0) < 1]
+    if bad:
+        fail(f"[23] Avatars not read back as {what} saved them "
+             f"(name, read, saved): {bad[:4]}")
+    return time.perf_counter() - t0
+
+
+def test_game_phase(dev, tag: str, preload: int = TG_PRELOAD,
+                    n_bots: int = TG_BOTS) -> dict:
+    """[23] (see the module docstring): the sweep and sort launches of the
+    game's ticks in both rounds."""
+    from goworld_tpu_torch.ext.db.minimongo import MiniMongo
+    from goworld_tpu_torch.ext.db.miniredis import MiniRedis
+    from goworld_tpu_torch.kvdb import RedisClusterKVDB
+    from goworld_tpu_torch.storage import MongoDBStorage
+
+    label = "[23]"
+    phase0 = time.perf_counter()
+    on_card = dev.type == "cuda"
+    where = f"on {dev}"
+    if on_card:
+        torch.cuda.empty_cache()
+        where += f" ({torch.cuda.get_device_name(dev)})"
+    root = os.path.dirname(os.path.abspath(__file__))
+    src = os.path.join(root, "examples", "test_game")
+    tmp = tempfile.mkdtemp(prefix="test_game_")
+    ports = free_ports(["d", "hd", "hg", "ht", "tcp"])
+    mongo = MiniMongo().start()
+    nodes = [MiniRedis(cluster_slots=r).start() for r in TG_SPLIT]
+    for n in nodes:
+        n.peers = {m.addr: m.cluster_slots for m in nodes if m is not n}
+    maddr = mongo.addr + "/goworld"
+    cluster = ",".join(n.addr for n in nodes)
+    pids: set = set()
+
+    def step(args, want_rc: int, what: str) -> float:
+        return cli_step(tmp, pids, label, args, want_rc, what)[1]
+
+    try:
+        half = n_bots // 2
+        names, picked, pre_s = tg_preload(maddr, cluster, preload, half)
+        t_pre = time.perf_counter() - phase0
+        shutil.copy(os.path.join(src, "server_torch.py"), tmp)
+        with open(os.path.join(tmp, "goworld_tpu.ini"), "w") as f:
+            f.write(tg_ini(os.path.join(src, "goworld_tpu.ini"), ports,
+                           maddr, cluster))
+        with open(os.path.join(tmp, TG_ENTRY), "w") as f:
+            f.write(TG_GAME.format(
+                run_args="" if on_card else 'device="cpu"'))
+        bot_names = picked + [f"new{i}" for i in range(n_bots - half)]
+        start_s = step(["start"], 0, "start")
+        with open(os.path.join(tmp, "run", "game1.log")) as f:
+            if f"started (restore=False) {where}" not in f.read():
+                fail(f"{label} the game did not start {where}")
+        rounds = []
+        for r in range(2):
+            v0 = smoke_vars(ports["hg"], lambda v: v.get("placed", 0)
+                            >= TG_SHARDS, label)
+            h0 = tick_hist(ports["hg"])
+            got = asyncio.run(tg_round(ports["tcp"], bot_names, r == 0,
+                                       label))
+            # the bots' Avatars destroyed, each save issued
+            v1 = smoke_vars(ports["hg"], lambda v: v.get("mails", 0)
+                            >= got["mails_sent"] and v["avatars"] == 0
+                            and set(got["ids"].values()) <= set(v["saves"]),
+                            label)
+            got["saves"] = v1["saves"]
+            got["hist"] = hist_quantiles(h0, tick_hist(ports["hg"]))
+            got["ticks"] = v1["tick"] - v0["tick"]
+            got["launches"] = {k: v1["launches"][k] - v0["launches"][k]
+                               for k in v0["launches"]}
+            got["mails"] = v1["mails"]
+            n_k = got["ticks"] if on_card else 0
+            if got["ticks"] <= 0 or \
+                    got["launches"]["sweep_fused"] < n_k or \
+                    got["launches"]["counting_sort"] < n_k or \
+                    got["launches"]["halo_ship_phase"] or \
+                    got["launches"]["npc_mlp"]:
+                fail(f"{label} round {r + 1}: {got['ticks']} game ticks "
+                     f"launched {got['launches']}")
+            rounds.append(got)
+            if r == 0:
+                reload_s = step(["reload"], 0, "reload")
+                with open(os.path.join(tmp, "run", "game1.log")) as f:
+                    if f"started (restore=True) {where}" not in f.read():
+                        fail(f"{label} the reloaded game did not restore "
+                             f"{where}")
+                # the first game drained its saves at its freeze: read
+                # them back, then set every bot's Avatar to level 0 (which
+                # the game never writes), so that only the restored
+                # game's saves can pass the read-back after stop
+                read1_s = tg_read_back(maddr, got["ids"], got["saves"],
+                                       "the first game")
+                st = MongoDBStorage(maddr)
+                for name, eid in got["ids"].items():
+                    st.write("Avatar", eid, {"name": name, "level": 0,
+                                             "exp": 0})
+                st.close()
+        stop_s = step(["stop"], 0, "stop")
+        step(["status"], 1, "status after stop")
+        alive = [p for p in pids if pid_alive(p)]
+        if alive:
+            fail(f"{label} processes of the deployment still alive: "
+                 f"{alive}")
+        # no traceback in a log, but for the restored game's service
+        # RPCs that ROADMAP C8 explains: a restore runs OnRestored and not
+        # OnInit (as the JAX package's does), so the stock services lack
+        # the attributes their OnInit makes; counted and printed
+        rd = os.path.join(tmp, "run")
+        restored_rpc_failures = 0
+        for name in sorted(n for n in os.listdir(rd) if n.endswith(".log")):
+            with open(os.path.join(rd, name), errors="replace") as f:
+                text = f.read()
+            before, mark, after = text.partition("started (restore=True)")
+            bad, _ = tg_tracebacks(before, False)
+            if name == "game1.log" and mark:
+                bad_after, restored_rpc_failures = tg_tracebacks(after, True)
+                bad += bad_after
+            if bad:
+                fail(f"{label} {name} holds {len(bad)} traceback(s) "
+                     f"(logged line, exception): {bad[:4]}")
+        first, second = rounds
+        for name in bot_names:
+            if name in names and first["ids"][name] != names[name]:
+                fail(f"{label} {name} logged in to {first['ids'][name]}, "
+                     f"not its preloaded Avatar {names[name]}")
+            if second["ids"][name] != first["ids"][name]:
+                fail(f"{label} {name}'s second login reached "
+                     f"{second['ids'][name]}, not {first['ids'][name]}")
+        # acknowledged writes, read back through fresh clients
+        t0 = time.perf_counter()
+        kv = RedisClusterKVDB(cluster.split(","))
+        new = [n for n in bot_names if n not in names]
+        keys = {n: kv.get(f"avatarOf/{n}") for n in new}
+        kv.close()
+        if keys != {n: first["ids"][n] for n in new}:
+            bad = sorted(n for n in new if keys[n] != first["ids"][n])
+            fail(f"{label} the cluster lost avatarOf/ keys: {bad[:8]}")
+        read_s = time.perf_counter() - t0 + tg_read_back(
+            maddr, second["ids"], second["saves"], "the restored game")
+        if first["mails"] < first["mails_sent"]:
+            fail(f"{label} the MailService holds {first['mails']} of "
+                 f"{first['mails_sent']} mails")
+        launches = {k: sum(r["launches"][k] for r in rounds)
+                    for k in first["launches"]}
+        power = gpu_line() if on_card else "the CPU"
+        print(f"{label} examples/test_game through the ops CLI on mongodb "
+              f"and a 3-node redis cluster (stock ini: capacity 4096, "
+              f"n_spaces 4; fused/pallas, cell_cap 28): preload of "
+              f"{preload} Avatar documents and as many avatarOf/ keys: "
+              f"{half} of each through MongoDBStorage and "
+              f"RedisClusterKVDB {pre_s['clients']:.2f} s, the rest in "
+              f"bulk {pre_s['mongodb']:.2f} s (documents) and "
+              f"{pre_s['redis_cluster']:.2f} s (keys) ({t_pre:.2f} s "
+              f"with the servers' start); start "
+              f"{start_s:.2f} s, reload {reload_s:.2f} s, stop "
+              f"{stop_s:.2f} s, status 1, no process left; {n_bots} "
+              f"strict bots ({n_bots // 2} preloaded names, each on its "
+              f"preloaded Avatar); OnPublish to all {n_bots} subscribers "
+              f"in {first['publishes']} publish(es); {first['mails']} "
+              f"mails held; {len(bot_names)} Avatars read back as the "
+              f"first game saved them in {read1_s:.2f} s; {len(new)} new "
+              f"keys and {len(bot_names)} Avatars read back as the "
+              f"restored game saved them in {read_s:.2f} s; "
+              f"{restored_rpc_failures} service RPCs failed in the "
+              f"restored game (ROADMAP C8) ({power})", flush=True)
+        for r, got in enumerate(rounds):
+            n, p50, p99 = got["hist"]
+            print(f"{label} round {r + 1} ({'before' if r == 0 else 'after'}"
+                  f" the reload): login p50 {got['login_p50']:.3f} s; "
+                  f"{got['ticks']} game ticks, tick_latency_ms histogram "
+                  f"p50 {p50:.2f} p99 {p99:.2f} ms over {n:.0f} ticks; "
+                  f"launches {got['launches']}; every name on the same "
+                  f"Avatar id in both rounds ({power})", flush=True)
+        print(f"{label} wall {time.perf_counter() - phase0:.1f} s "
+              f"({power})", flush=True)
+        return {"test_game_cli": launches}
+    finally:
+        for p in pids:
+            try:
+                os.kill(p, 9)
+            except OSError:
+                pass
+        for srv in [mongo, *nodes]:
+            srv.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main() -> int:
@@ -5215,6 +5745,8 @@ def main() -> int:
     phase_done("[21]")
     world.update(deployment_phase(dev, tag))
     phase_done("[22]")
+    world.update(test_game_phase(dev, tag))
+    phase_done("[23]")
     for row, key in zip(rows[:2], ("sweep_fused", "counting_sort")):
         row["launches_by_path"] = {"single_space": row["launches"],
                                    **{p: n[key] for p, n in world.items()}}

@@ -32,7 +32,9 @@ A server directory contains:
   ``goworld_tpu_torch.run()``: ``[deployment] entry`` names it, else
   ``server_torch.py`` where the directory has one, else ``server.py``.
   ``run()`` puts the World on the card unless the script passes
-  ``device="cpu"``;
+  ``device="cpu"``. A script that imports the JAX package
+  (``goworld_tpu``) is refused with ``ValueError`` naming it, before
+  anything is spawned;
 * ``goworld_tpu_torch.ini``, ``goworld_tpu.ini`` or ``goworld.ini`` — the
   cluster config.
 """
@@ -166,12 +168,53 @@ def _alive(pid: int | None) -> bool:
 def _entry_script(cfg: config_mod.ClusterConfig, server_dir: str) -> str:
     """``[deployment] entry``; without it the port's script
     ``server_torch.py`` where the directory has one, else ``server.py``
-    (the stock example directories hold both packages' scripts)."""
+    (the stock example directories hold both packages' scripts). A
+    script that imports the JAX package is refused (:func:`_check_entry`)."""
     entry = getattr(cfg, "entry", None) or _DEFAULT_ENTRY
     if entry == _DEFAULT_ENTRY and os.path.exists(
             os.path.join(server_dir, "server_torch.py")):
         entry = "server_torch.py"
-    return os.path.join(server_dir, entry)
+    path = os.path.join(server_dir, entry)
+    _check_entry(path)
+    return path
+
+
+def _jax_imports(source: str) -> list[str]:
+    """The modules of the JAX package (``goworld_tpu``, ``goworld_tpu.*``)
+    that a script's source imports."""
+    import ast
+
+    out = []
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and not node.level:
+            names = [node.module or ""]
+        else:
+            continue
+        out += [n for n in names
+                if n == "goworld_tpu" or n.startswith("goworld_tpu.")]
+    return out
+
+
+def _check_entry(path: str) -> None:
+    """Refuse, before anything is spawned, a game script that imports the
+    JAX package: this CLI serves the port (``goworld_tpu_torch``) only."""
+    try:
+        with open(path, encoding="utf-8") as f:
+            source = f.read()
+    except OSError:
+        return  # a missing script is reported by the command itself
+    try:
+        found = _jax_imports(source)
+    except SyntaxError:
+        return  # the game process reports it in its log
+    if found:
+        raise ValueError(
+            f"game script {path} imports the JAX package "
+            f"({', '.join(sorted(set(found)))}); the port's CLI runs "
+            "scripts on goworld_tpu_torch (write a server_torch.py, or "
+            "run it with python -m goworld_tpu)")
 
 
 def _refuse(what: str, item: str) -> NotImplementedError:
@@ -196,10 +239,13 @@ def _check_ported(cfg: config_mod.ClusterConfig) -> None:
 
 
 def _load_checked(server_dir: str) -> tuple[config_mod.ClusterConfig, str]:
-    """(config, its path) of a deployment this port runs."""
+    """(config, its path) of a deployment this port runs, on a game
+    script that imports no JAX (the watchdog's scans would otherwise
+    report the refusal forever)."""
     cfgfile = _find_config(server_dir)
     cfg = config_mod.load(cfgfile)
     _check_ported(cfg)
+    _entry_script(cfg, server_dir)
     return cfg, cfgfile
 
 

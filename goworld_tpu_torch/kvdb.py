@@ -4,12 +4,15 @@ Reference being rebuilt: ``engine/kvdb`` (``kvdb.go:42-200``): a cluster-
 global KV store with pluggable backends, all ops running on a dedicated
 async group (``_kvdb``) with callbacks posted to the logic thread:
 ``Get/Put/GetOrPut/GetRange/NextLargerKey``. Backends here (matching the
-reference's backend iface, ``kvdb/types/kvdb_types.go``): ``memory`` and
+reference's backend iface, ``kvdb/types/kvdb_types.go``): ``memory``,
 ``filesystem`` (a single MessagePack file with ordered keys, written by
 :mod:`goworld_tpu_torch.utils.mpack` byte for byte as the JAX package
-writes it). The JAX package's ``redis``, ``redis_cluster`` and
-``mongodb`` backends ride its ``ext/db`` clients, which the port does not
-have yet: they raise ``NotImplementedError`` naming ROADMAP.md. Transient
+writes it), ``redis`` (RESP, reference ``kvdb/backend/kvdbredis``),
+``redis_cluster`` (slot map + MOVED/ASK redirects, the
+``kvdbrediscluster`` role) and ``mongodb`` (BSON/OP_MSG, the
+``kvdb_mongodb`` layout), over the port's wire clients in
+:mod:`goworld_tpu_torch.ext.db`, the keys and values as the JAX
+package's backends store them. Transient
 backend errors are retried with capped exponential backoff before the
 error reaches the caller's callback (``kvdb_retry_total`` counts
 retries).
@@ -17,6 +20,7 @@ retries).
 
 from __future__ import annotations
 
+import bisect
 import os
 import threading
 import time
@@ -104,15 +108,276 @@ class FilesystemKVDB(KVDBBackend):
             return [(k, self._d[k]) for k in keys]
 
 
+class RedisKVDB(KVDBBackend):
+    """Networked backend over RESP (reference ``kvdb/backend/kvdbredis``;
+    keys are namespaced ``kv:<key>`` so one redis db can host both the
+    kvdb and entity storage). Range queries sweep SCAN and filter/sort
+    client-side — the same shape the reference's redis backend uses
+    (redis has no ordered keyspace)."""
+
+    PREFIX = "kv:"
+
+    def __init__(self, addr: str):
+        from goworld_tpu_torch.ext.db.resp import RespClient
+
+        self._c = RespClient.from_addr(addr)
+
+    def get(self, key):
+        raw = self._c.get(self.PREFIX + key)
+        return None if raw is None else raw.decode()
+
+    def put(self, key, val):
+        self._c.set(self.PREFIX + key, val)
+
+    def get_range(self, begin, end):
+        return _range_on(self._c, begin, end)
+
+    def close(self):
+        self._c.close()
+
+
+def _range_on(client, begin: str, end: str) -> list[tuple[str, str]]:
+    """SCAN-sweep one redis endpoint and return the [begin, end) window,
+    values fetched in a single MGET round-trip."""
+    pre = RedisKVDB.PREFIX
+    keys = sorted(
+        k.decode()[len(pre):] for k in client.scan_keys(pre + "*")
+    )
+    lo = bisect.bisect_left(keys, begin)
+    hi = bisect.bisect_left(keys, end)
+    sel = keys[lo:hi]
+    vals = client.mget([pre + k for k in sel])
+    return [(k, v.decode()) for k, v in zip(sel, vals) if v is not None]
+
+
+class RedisClusterKVDB(KVDBBackend):
+    """Redis CLUSTER-MODE client (the reference's
+    ``kvdb/backend/kvdbrediscluster`` role: horizontal kvdb capacity),
+    from scratch over the RESP client:
+
+    * On connect it asks any reachable node ``CLUSTER SLOTS`` and
+      builds the 16384-entry slot map; keys route by
+      ``CRC16(key) % 16384`` with ``{hashtag}`` semantics — hashing
+      the FULL key as sent (prefix included), so routing agrees with
+      the server's own hash.
+    * ``-MOVED slot host:port`` repairs the slot map and retries at
+      the new owner (new nodes are dialed on demand, so the client
+      follows resharding it was never told about); ``-ASK`` sends
+      ``ASKING`` then retries once at the target WITHOUT a map update,
+      per the migration protocol. Redirect chains are bounded.
+    * Nodes that have cluster support disabled (plain redis/miniredis)
+      fall back to LEGACY client-side sharding:
+      ``CRC16 % len(nodes)`` over the configured endpoints — the
+      pre-round-5 behavior, kept so independent-node deployments work
+      unchanged.
+
+    Range queries fan out to every known node and merge (same
+    architecture as the reference's scan-across-shards)."""
+
+    _MAX_REDIRECTS = 5
+
+    def __init__(self, addrs: list[str]):
+        from goworld_tpu_torch.ext.db import resp
+
+        if not addrs:
+            raise ValueError("redis-cluster needs at least one node")
+        self._resp = resp
+        self._clients: dict[str, resp.RespClient] = {
+            a: resp.RespClient.from_addr(a) for a in addrs
+        }
+        self._seed_addrs = list(addrs)
+        # slot -> addr; None = legacy (cluster support disabled)
+        self._slot_map: list[str] | None = None
+        self._refresh_slot_map()
+
+    # -- topology ------------------------------------------------------
+    def _refresh_slot_map(self) -> None:
+        from goworld_tpu_torch.ext.db.resp import NUM_SLOTS, RespError
+
+        transient: Exception | None = None
+        for addr in list(self._clients):
+            try:
+                entries = self._clients[addr].command(
+                    b"CLUSTER", b"SLOTS")
+            except RespError as e:
+                msg = str(e).lower()
+                if "cluster support disabled" in msg \
+                        or "unknown command" in msg:
+                    # definitively a NON-cluster node -> legacy
+                    # client-side sharding over the seed endpoints
+                    self._slot_map = None
+                    return
+                # transient (-LOADING, permissions, ...): a cluster
+                # node that cannot answer RIGHT NOW must not silently
+                # demote the client to legacy routing — try the next
+                # node, fail loud if none answers
+                transient = e
+                continue
+            except ConnectionError as e:
+                transient = e
+                continue
+            m: list[str | None] = [None] * NUM_SLOTS
+            for lo, hi, node, *_ in entries:
+                host = node[0].decode()
+                naddr = f"{host}:{int(node[1])}"
+                for s in range(int(lo), int(hi) + 1):
+                    m[s] = naddr
+            # unassigned slots route to the seed we asked (they will
+            # MOVED-correct themselves)
+            self._slot_map = [s or addr for s in m]
+            return
+        raise ConnectionError(
+            f"no redis-cluster node could serve CLUSTER SLOTS "
+            f"(last error: {transient})"
+        )
+
+    def _client_for(self, addr: str):
+        c = self._clients.get(addr)
+        if c is None:
+            c = self._clients[addr] = self._resp.RespClient.from_addr(addr)
+        return c
+
+    def _route(self, full_key: bytes, bare_key: bytes):
+        from goworld_tpu_torch.ext.db.resp import crc16, key_slot
+
+        if self._slot_map is None:
+            # legacy mode hashes the BARE key, exactly like the
+            # pre-cluster-protocol client — an existing independent-
+            # node deployment keeps finding its data on the same nodes
+            nodes = [self._clients[a] for a in self._seed_addrs]
+            return nodes[crc16(bare_key) % len(nodes)]
+        return self._client_for(self._slot_map[key_slot(full_key)])
+
+    def _command(self, full_key: bytes, bare_key: bytes, *args):
+        """Run one keyed command with MOVED/ASK redirect handling."""
+        from goworld_tpu_torch.ext.db.resp import RespError, key_slot
+
+        client = self._route(full_key, bare_key)
+        asking = False
+        for _ in range(self._MAX_REDIRECTS):
+            try:
+                if asking:
+                    client.command(b"ASKING")
+                    asking = False
+                return client.command(*args)
+            except RespError as e:
+                words = str(e).split()
+                if len(words) == 3 and words[0] in ("MOVED", "ASK"):
+                    slot, addr = int(words[1]), words[2]
+                    client = self._client_for(addr)
+                    if words[0] == "MOVED" and self._slot_map is not None:
+                        self._slot_map[slot] = addr
+                    asking = words[0] == "ASK"
+                    continue
+                raise
+        raise ConnectionError(
+            f"redis-cluster redirect chain exceeded "
+            f"{self._MAX_REDIRECTS} for slot {key_slot(full_key)}"
+        )
+
+    # -- KVDB backend --------------------------------------------------
+    def get(self, key):
+        bk = key.encode()
+        fk = RedisKVDB.PREFIX.encode() + bk
+        raw = self._command(fk, bk, b"GET", fk)
+        return None if raw is None else raw.decode()
+
+    def put(self, key, val):
+        bk = key.encode()
+        fk = RedisKVDB.PREFIX.encode() + bk
+        self._command(fk, bk, b"SET", fk,
+                      val.encode() if isinstance(val, str) else val)
+
+    def get_range(self, begin, end):
+        from goworld_tpu_torch.ext.db.resp import key_slot
+
+        out: list[tuple[str, str]] = []
+        if self._slot_map is None:
+            for addr in self._seed_addrs:
+                out.extend(_range_on(self._clients[addr], begin, end))
+            out.sort()
+            return out
+        # cluster mode: SCAN is node-local (allowed), but MGET must be
+        # SAME-SLOT only (real cluster redis rejects cross-slot MGET
+        # with -CROSSSLOT) — group each node's matches by slot and
+        # fetch per group through the redirect-capable path, so a
+        # group mid-migration follows its MOVED/ASK. Merge through a
+        # dict keyed by k: during a live slot migration the source and
+        # target node can BOTH report the same key, and the reader must
+        # not see it twice
+        pre = RedisKVDB.PREFIX
+        lo_b, hi_b = begin.encode(), end.encode()
+        merged: dict[str, str] = {}
+        for addr in sorted(set(self._slot_map)):
+            node = self._client_for(addr)
+            keys = [k[len(pre):] for k in node.scan_keys(pre + "*")]
+            sel = sorted(k for k in keys if lo_b <= k < hi_b)
+            groups: dict[int, list[bytes]] = {}
+            for k in sel:
+                fk = pre.encode() + k
+                groups.setdefault(key_slot(fk), []).append(k)
+            for ks in groups.values():
+                fks = [pre.encode() + k for k in ks]
+                vals = self._command(fks[0], ks[0], b"MGET", *fks)
+                merged.update(
+                    (k.decode(), v.decode())
+                    for k, v in zip(ks, vals) if v is not None
+                )
+        return sorted(merged.items())
+
+    def close(self):
+        for c in self._clients.values():
+            c.close()
+
+
+class MongoKVDB(KVDBBackend):
+    """The reference's mongo kvdb engine
+    (``kvdb/backend/kvdb_mongodb/mongodb.go``), same document layout:
+    one collection, ``_id`` = key, value under ``"_"`` (its
+    ``_VAL_KEY``); Put = UpsertId, Get = FindId, Find = range query
+    ``{"_id": {"$gte": begin, "$lt": end}}``. Collection ``__kv__``
+    (the name the reference's own backend test uses). Rides the
+    from-scratch BSON/OP_MSG wire client — works against a real
+    mongod or the in-process minimongo."""
+
+    COLLECTION = "__kv__"
+
+    def __init__(self, addr: str):
+        from goworld_tpu_torch.ext.db.mongowire import MongoClient
+
+        self._c = MongoClient.from_addr(addr)
+
+    def get(self, key):
+        doc = self._c.find_id(self.COLLECTION, key)
+        return None if doc is None else doc.get("_")
+
+    def put(self, key, val):
+        self._c.upsert_id(self.COLLECTION, key, {"_": val})
+
+    def get_range(self, begin, end):
+        docs = self._c.find(
+            self.COLLECTION, {"_id": {"$gte": begin, "$lt": end}},
+            sort={"_id": 1},
+        )
+        return [(d["_id"], d["_"]) for d in docs]
+
+    def close(self):
+        self._c.close()
+
+
 def open_kvdb_backend(kind: str, location: str = "") -> KVDBBackend:
     if kind == "memory":
         return MemoryKVDB()
     if kind == "filesystem":
         return FilesystemKVDB(location or "kvdb_data.mp")
-    if kind in ("redis", "redis_cluster", "redis-cluster", "mongodb"):
-        raise NotImplementedError(
-            f"kvdb kind {kind!r}: the ext/db clients are not ported yet; "
-            "see ROADMAP.md Queue A")
+    if kind == "redis":
+        return RedisKVDB(location or "127.0.0.1:6379")
+    if kind in ("redis_cluster", "redis-cluster"):
+        return RedisClusterKVDB(
+            [a.strip() for a in location.split(",") if a.strip()]
+        )
+    if kind == "mongodb":
+        return MongoKVDB(location or "127.0.0.1:27017/goworld")
     raise ValueError(f"unknown kvdb backend {kind!r}")
 
 

@@ -6,12 +6,16 @@ worker consumes a queue of save/load/exists/list requests against an
 (entity data must not be lost), callbacks are posted back to the logic
 thread, and a queue-length monitor warns on backlog (``:102-110``).
 
-Backends here: ``filesystem`` (one directory per entity type, one
-MessagePack file per entity, written by :mod:`goworld_tpu_torch.utils.mpack`
-byte for byte as the JAX package writes it) and ``memory`` (tests). The
-JAX package's ``mongodb`` and ``redis`` backends ride its ``ext/db``
-clients, which the port does not have yet: they raise
-``NotImplementedError`` naming ROADMAP.md.
+Backends here: ``mongodb`` (the reference's primary backend,
+``backend/mongodb/mongodb.go:27-136``: one collection per entity type
+with ``_id`` = EntityID and the attrs under ``data``, over the BSON +
+OP_MSG client :mod:`goworld_tpu_torch.ext.db.mongowire`; a real mongod or
+the in-process :mod:`goworld_tpu_torch.ext.db.minimongo`), ``redis``
+(RESP; key scheme ``gw:<type>:<eid>``), ``filesystem`` (one directory per
+entity type, one MessagePack file per entity) and ``memory`` (tests).
+Every MessagePack blob is written by :mod:`goworld_tpu_torch.utils.mpack`
+byte for byte as the JAX package writes it, so either package reads the
+other's store.
 """
 
 from __future__ import annotations
@@ -107,15 +111,91 @@ class FilesystemStorage(EntityStorageBackend):
         return [f[:-3] for f in os.listdir(d) if f.endswith(".mp")]
 
 
+class RedisStorage(EntityStorageBackend):
+    """Networked backend over the RESP wire protocol (reference persists
+    to MongoDB, one collection per type with ``_id`` = EntityID,
+    ``backend/mongodb/mongodb.go:27-136``; the key scheme here is the
+    redis equivalent: ``gw:<type>:<eid>`` -> msgpack attr blob). Works
+    against any redis-compatible endpoint, including the in-process
+    :mod:`goworld_tpu_torch.ext.db.miniredis`."""
+
+    PREFIX = "gw"
+
+    def __init__(self, addr: str):
+        from goworld_tpu_torch.ext.db.resp import RespClient
+
+        self._c = RespClient.from_addr(addr)
+
+    def _key(self, type_name: str, eid: str) -> str:
+        return f"{self.PREFIX}:{type_name}:{eid}"
+
+    def write(self, type_name, eid, data):
+        self._c.set(self._key(type_name, eid),
+                    mpack.packb(data))
+
+    def read(self, type_name, eid):
+        raw = self._c.get(self._key(type_name, eid))
+        return None if raw is None else mpack.unpackb(
+            raw, strict_map_key=True)
+
+    def exists(self, type_name, eid):
+        return self._c.exists(self._key(type_name, eid))
+
+    def list_entity_ids(self, type_name):
+        pre = f"{self.PREFIX}:{type_name}:"
+        return sorted(
+            k.decode()[len(pre):]
+            for k in self._c.scan_keys(pre + "*")
+        )
+
+    def close(self):
+        self._c.close()
+
+
+class MongoDBStorage(EntityStorageBackend):
+    """The reference's primary backend
+    (``backend/mongodb/mongodb.go:27-136``), byte-compatible layout:
+    one collection per entity type, ``_id`` = EntityID, attrs under
+    ``data`` (``col.UpsertId(entityID, bson.M{"data": data})``). Rides
+    the from-scratch BSON/OP_MSG client
+    (:mod:`goworld_tpu_torch.ext.db.mongowire`) — no driver needed; any
+    mongod or the in-process minimongo speaks the wire."""
+
+    def __init__(self, addr: str):
+        from goworld_tpu_torch.ext.db.mongowire import MongoClient
+
+        self._c = MongoClient.from_addr(addr)
+
+    def write(self, type_name, eid, data):
+        self._c.upsert_id(type_name, eid, {"data": data})
+
+    def read(self, type_name, eid):
+        doc = self._c.find_id(type_name, eid)
+        return None if doc is None else doc.get("data")
+
+    def exists(self, type_name, eid):
+        return bool(self._c.find(type_name, {"_id": eid},
+                                 projection={"_id": 1}, limit=1))
+
+    def list_entity_ids(self, type_name):
+        return sorted(
+            d["_id"] for d in self._c.find(
+                type_name, {}, projection={"_id": 1})
+        )
+
+    def close(self):
+        self._c.close()
+
+
 def open_backend(kind: str, location: str = "") -> EntityStorageBackend:
     if kind == "memory":
         return MemoryStorage()
     if kind == "filesystem":
         return FilesystemStorage(location or "entity_storage")
-    if kind in ("redis", "mongodb"):
-        raise NotImplementedError(
-            f"storage kind {kind!r}: the ext/db clients are not ported "
-            "yet; see ROADMAP.md Queue A")
+    if kind == "redis":
+        return RedisStorage(location or "127.0.0.1:6379")
+    if kind == "mongodb":
+        return MongoDBStorage(location or "127.0.0.1:27017/goworld")
     raise ValueError(f"unknown storage backend {kind!r}")
 
 

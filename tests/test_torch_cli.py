@@ -352,27 +352,42 @@ gw.run(device="cpu")
 '''
 
 
-async def _unity_login(port: int, name: str, **kw):
+async def _unity_login(port: int, name: str, dst: str, **kw):
+    """Log in and return the attrs the Player arrived with: its create
+    packet's, taken before any later packet is applied. The demo's
+    Monsters hit a Player in their AOI every 100 ms (5 hp a hit), often
+    within 50 ms of its arrival, so its live ``hp`` is 100 only for a
+    moment that a loaded test host can miss."""
     bot = BotClient("127.0.0.1", port, strict=True, **kw)
+    arrived: list = []
+    handle = bot._handle_inner
+
+    def spy(msgtype, pkt):
+        handle(msgtype, pkt)
+        if not arrived and bot.player is not None \
+                and bot.player.type_name == "Player":
+            arrived.append(dict(bot.player.attrs))
+
+    bot._handle_inner = spy
     await bot.connect()
     recv = asyncio.ensure_future(bot._recv_loop())
     try:
         await asyncio.wait_for(bot.player_ready.wait(), WAIT)
         bot.call_server("Login_Client", name)
         for _ in range(WAIT * 20):
-            p = bot.player
-            if p is not None and p.type_name == "Player" \
-                    and p.attrs.get("name") == name \
-                    and p.attrs.get("hp") == 100:
+            if arrived:
                 break
             await asyncio.sleep(0.05)
     finally:
         recv.cancel()
         await bot.conn.close()
-    assert not bot.errors, bot.errors
-    assert bot.player.type_name == "Player"
-    assert (bot.player.attrs.get("name"), bot.player.attrs.get("hp")) == (
-        name, 100)
+    seen = (None if bot.player is None else
+            (bot.player.type_name, dict(bot.player.attrs)))
+    assert not bot.errors, (bot.errors, _logs(dst))
+    assert arrived, (seen, _logs(dst))
+    assert bot.player.type_name == "Player", (seen, _logs(dst))
+    assert (arrived[0].get("name"), arrived[0].get("hp")) == (name, 100), (
+        arrived, seen, _logs(dst))
 
 
 def test_unity_demo_server_torch_from_its_own_ini(tmp_path):
@@ -397,8 +412,8 @@ def test_unity_demo_server_torch_from_its_own_ini(tmp_path):
         f.write(UNITY_CPU)
     try:
         assert cli.main(["start", dst]) == 0, _logs(dst)
-        asyncio.run(_unity_login(ports["15600"], "tcp-hero"))
-        asyncio.run(_unity_login(ports["15601"], "ws-hero", ws=True))
+        asyncio.run(_unity_login(ports["15600"], "tcp-hero", dst))
+        asyncio.run(_unity_login(ports["15601"], "ws-hero", dst, ws=True))
         assert cli.main(["stop", dst]) == 0
     finally:
         _kill_all(dst)
@@ -406,12 +421,56 @@ def test_unity_demo_server_torch_from_its_own_ini(tmp_path):
 
 def test_entry_defaults_to_the_port_script(tmp_path):
     """Without ``[deployment] entry`` a directory holding both packages'
-    scripts runs ``server_torch.py``; one holding only ``server.py``
-    runs that."""
+    scripts runs ``server_torch.py``; one holding only a ``server.py``
+    (on the port) runs that."""
     cfg = cli.config_mod.load(os.path.join(REPO, "examples", "unity_demo",
                                            "goworld_tpu.ini"))
     unity = os.path.join(REPO, "examples", "unity_demo")
     assert cli._entry_script(cfg, unity) == os.path.join(
         unity, "server_torch.py")
-    nil = os.path.join(REPO, "examples", "nil_game")
-    assert cli._entry_script(cfg, nil) == os.path.join(nil, "server.py")
+    only = str(tmp_path / "only")
+    os.makedirs(only)
+    with open(os.path.join(only, "server.py"), "w") as f:
+        f.write(GAME % 'device="cpu"')
+    assert cli._entry_script(cfg, only) == os.path.join(only, "server.py")
+
+
+@pytest.mark.parametrize("source", [
+    "import goworld_tpu as gw\n",
+    "from goworld_tpu.ext.pubsub import PublishSubscribeService\n",
+    "import os, goworld_tpu.api\n",
+    "def f():\n    from goworld_tpu import cli\n",
+], ids=["import", "from_ext", "dotted", "nested"])
+@pytest.mark.parametrize("cmd", ["start", "reload", "watchdog",
+                                 "supervise"])
+def test_jax_script_refused_before_anything_spawns(tmp_path, source, cmd):
+    """A game script that imports the JAX package is refused, naming the
+    script, before anything is spawned; the port's own imports
+    (``goworld_tpu_torch``) are not mistaken for it."""
+    dst, _ = _deployment(tmp_path / "jax")
+    os.unlink(os.path.join(dst, "server_cpu.py"))
+    with open(os.path.join(dst, "goworld_tpu.ini")) as f:
+        text = f.read().replace("entry = server_cpu.py\n", "")
+    with open(os.path.join(dst, "goworld_tpu.ini"), "w") as f:
+        f.write(text)
+    script = os.path.join(dst, "server.py")
+    with open(script, "w") as f:
+        f.write("import goworld_tpu_torch\n" + source)
+    with pytest.raises(ValueError, match=re.escape(script)):
+        cli.main([cmd, dst])
+    assert not os.path.isdir(os.path.join(dst, "run")) or not [
+        f for f in os.listdir(os.path.join(dst, "run"))
+        if f.endswith(".pid")]
+
+
+@pytest.mark.parametrize("example", ["nil_game", "chatroom_demo",
+                                     "test_game", "unity_demo",
+                                     "megaspace_demo"])
+def test_every_stock_example_resolves_to_its_port_script(example):
+    """Every stock example but ``multihost_demo`` (refused, ROADMAP item
+    6.2) has a ``server_torch.py``, which the CLI picks."""
+    d = os.path.join(REPO, "examples", example)
+    cfg = cli.config_mod.load(os.path.join(d, "goworld_tpu.ini"))
+    assert cli._entry_script(cfg, d) == os.path.join(d, "server_torch.py")
+    with pytest.raises(ValueError, match="server.py"):
+        cli._check_entry(os.path.join(d, "server.py"))

@@ -57,6 +57,18 @@ def test_importing_every_module_leaves_jax_out():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
+def test_ext_modules_are_the_jax_package_s_set():
+    """``goworld_tpu_torch.ext`` holds a module for each of the JAX
+    package's ``ext`` modules, and the import check above covers them."""
+    jax_ext = sorted(
+        ".".join(p.relative_to(ROOT).with_suffix("").parts)
+        for p in (ROOT / "goworld_tpu" / "ext").rglob("*.py"))
+    port_ext = [m for m in MODULES if m.startswith("goworld_tpu_torch.ext")]
+    assert port_ext == [m.replace("goworld_tpu.", "goworld_tpu_torch.", 1)
+                        for m in jax_ext]
+    assert len(port_ext) == 10
+
+
 def _run(code: str) -> subprocess.CompletedProcess:
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     return subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -100,7 +112,10 @@ def test_facade_resolution_leaves_jax_out_and_builds_nothing():
     "path",
     [str(p.relative_to(ROOT)) for p in sorted(PKG.rglob("*.py"))]
     + ["chip_smoke.py", "examples/megaspace_demo/server_torch.py",
-       "examples/unity_demo/server_torch.py"],
+       "examples/unity_demo/server_torch.py",
+       "examples/test_game/server_torch.py",
+       "examples/chatroom_demo/server_torch.py",
+       "examples/nil_game/server_torch.py"],
 )
 def test_source_imports_nothing_of_jax(path):
     tree = ast.parse((ROOT / path).read_text())
