@@ -51,7 +51,7 @@ is caught:
 11. the serving World at its defaults (the live telemetry lanes, the
     residency plane sampled every 4 ticks, the audit plane every 8, the
     resident carry): ``workload.serve_world(..., boot=True)`` populates
-    half of a World of 2^20 slots (WORLD_POP) through
+    a quarter of a World of 2^20 slots (WORLD_POP) through
     ``Space.create_entity``, in batches
     entered through ticks whose events the caps hold (its time and the
     host's RSS before and after printed), then WORLD_TICKS
@@ -222,7 +222,12 @@ is caught:
     reaches ``frozen`` with a freeze file on disk, and a fresh World of
     the same ini restores through ``GameServer(restore=True)``: its
     entities, attrs, positions and yaws equal the frozen World's, and
-    its first tick runs;
+    its first tick runs. On a mirror mismatch it prints, for each
+    differing entity, its id and type, its Chebyshev and Euclidean
+    distance to the Avatar, its rank by distance in the Space (the
+    server lists the k nearest) and the tick of its last enter and
+    leave on the server and of its last create and destroy at the bot
+    (ROADMAP C9);
 20. (run before 12) this slice: the batched tick of SPACES x SPACE_N
     under btree, mlp (``init_policy(5)``, hidden 128) and the mixed
     scenario, SLICE_TICKS ticks by events each beside [15]'s random
@@ -338,7 +343,56 @@ is caught:
     every round's game ticks launched at least one sweep and one sort
     each. It prints the preload's seconds, the login p50 of each round,
     the game tick p50/p99 of the ``tick_latency_ms`` histogram and its
-    wall.
+    wall;
+24. (run after 23, before 12) hot-standby replication and the rebalance
+    plane. (a) ``goworld_tpu_torch.tools.chaos_soak.run_failover`` (the
+    JAX soak's failover scenario) on the card at FAILOVER_N entities of
+    the ``mixed`` scenario at the bench world's density and grid
+    (``failover_build_kw``: radius 50, k 32, cell_cap 12,
+    fused/pallas; the soak's skin 4 runs the gated sweep at k 48): a
+    primary under churn and a migration storm streams FAILOVER_TICKS
+    ticks at keyframe cadence FAILOVER_KEYFRAME through the real
+    ``ReplicationWorker`` (each capture on the tick thread under the
+    sync guard; the fetch, diff, disk chain and frames on the worker)
+    into a live standby World (warmed by one tick when empty), the
+    primary dies at the last tick, the standby promotes through the
+    kvreg-arbitrated claim (both stale-claim orders refused, the
+    decision log replayed byte for byte), and the promoted census must
+    equal the primary's at the last applied frame (0 lost, 0
+    duplicated) with the conservation verdict green, no frame torn; a
+    cold restore from the worker's chain is timed beside the warm
+    promotion (reported, not gated); every soak tick launches one sweep
+    and one sort, and so does each promoted tick, run until no pose
+    stays staged (at least FAILOVER_PROMOTED); it prints the frames'
+    bytes a tick beside the client syncs', apply ms a frame p50/p99,
+    keyframes, deltas, dropped captures, the lag from capture to
+    applied in 60 Hz ticks against LAG_BUDGET_TICKS, the promotion in
+    ticks and seconds and the ticks the staged poses took to drain.
+    Then the same sequence at FAILOVER_TWIN_N on the kernels and on
+    the plain versions, and at FAILOVER_CPU_N on the card and on the
+    CPU port (ids from one seeded sequence): every lane of state and
+    outputs, the census and the ledger equal after the promotion and
+    on 3 more ticks. (b) the deployment through the ops CLI: [22]'s ini
+    (a TCP gate) with ``[deployment] rebalance = true``, game1 the
+    primary (STANDBY_MONSTERS Monsters, ``checkpoint_interval = 1``
+    with ``snapshot_keyframe_every = 8``), game2 its standby
+    (``standby_of = 1``), game3 a peer with an empty Arena that takes
+    no boot entity, an ``http_port`` on each (STANDBY_GAME): ``start``,
+    the standby's ``/standby`` verdict, STANDBY_BOTS strict bots log in
+    and walk, ``/rebalance?handoff=3&batch=64`` on game1 (the
+    dispatcher's pause lane set during the move and clear after, the
+    conservation verdict over game3's and game1's ``/audit`` green at
+    every read, ``rebalance_moves_total`` 64), game1 rests (PAUSE)
+    until the standby has applied its last tick, ``kill -9`` game1, one
+    ``watchdog --once`` promotes game2 (no restart of game1;
+    ``game2_promotion.log`` replays byte for byte), game1's chain file
+    that a ``-restore`` would take (the freshest) resolves (an older
+    delta is one a later keyframe superseded), the bots walk on and their mirrors equal the interest sets
+    of the games at rest (entities the handoff moved stay in their old
+    watchers' mirrors: ROADMAP C12, counted apart), ``stop``; it prints
+    the game ticks' p50/p99 of game1 before and after the handoff and
+    of the promoted game2, and the seconds from the kill to the
+    promoted game's first tick.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -429,11 +483,12 @@ STRESS_TICKS = 4
 # [11]'s World at its defaults, sampled so that samples land inside its
 # timed ticks
 PLANES = dict(residency_sample_every=4, audit_sample_every=8)
-# [11]'s population in its World of N slots: half of them (was N - 4096,
-# whose boot took 213-283 s of the run; cut with [12]'s reps of a whole
-# tick so that the run, with [22], stays inside its limit: PERF.md §4).
-# Its 1% players (5242) still take the 4096 client syncs a tick.
-WORLD_POP = N // 2
+# [11]'s population in its World of N slots: a quarter of them (was
+# N - 4096, whose boot took 213-283 s of the run, then half: cut with
+# [12]'s reps of a whole tick so that the run, with [22], stays inside
+# its limit, and again so that it does with [24]: PERF.md §4). Its 1%
+# players (~2600) take that many client syncs a tick (of 4096).
+WORLD_POP = N // 4
 # [12] reads a whole tick's device time over PROFILE_TICK_REPS calls, a
 # kernel's over PROFILE_KERNEL_REPS
 PROFILE_TICK_REPS = 5
@@ -3171,6 +3226,77 @@ async def bots_leave(bots) -> None:
             b._hb_task.cancel()
 
 
+def traced_bot_class():
+    """A ``BotClient`` that stamps, per mirrored entity, the server's
+    tick count at its last create and its last destroy (read off
+    ``TracedBot.tick``, which the game loop sets), for the mirror
+    printout of [19]."""
+    from goworld_tpu_torch.net import proto
+    from goworld_tpu_torch.net.botclient import BotClient
+
+    class TracedBot(BotClient):
+        tick = [0]
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.stamps: dict = {}
+
+        def _handle_inner(self, msgtype, pkt):
+            if msgtype in (proto.MT_CREATE_ENTITY_ON_CLIENT,
+                           proto.MT_DESTROY_ENTITY_ON_CLIENT):
+                eid = bytes(pkt.buf[pkt.rpos:pkt.rpos + 16]).decode(
+                    "ascii", "replace")
+                st = self.stamps.setdefault(eid, [None, None])
+                st[msgtype == proto.MT_DESTROY_ENTITY_ON_CLIENT] = \
+                    self.tick[0]
+            super()._handle_inner(msgtype, pkt)
+
+    return TracedBot
+
+
+def mirror_report(world, avatar, bot, server_stamps: dict) -> list:
+    """Each entity where ``bot``'s mirror and ``avatar``'s interest set
+    differ: its id and type, its distance to the Avatar (the sweep's
+    Chebyshev distance on x, z and the Euclidean one), its rank by
+    that distance among the Space's live rows (1 = nearest; the
+    server's list holds the k nearest, k = the grid's), where it is
+    (server, mirror, both) and the tick of its last enter and leave on
+    the server (``server_stamps``) and of its last create and destroy
+    at the bot."""
+    ents = world.entities
+    want = {avatar.id, *avatar.interested_in}
+    got = set(bot.entities)
+    if avatar.slot is None:
+        return [f"{avatar.id}: no slot"]
+    sh = avatar.shard
+    pos = world.state.pos[sh].cpu().numpy()
+    alive = world.state.alive[sh].cpu().numpy()
+    me = pos[avatar.slot]
+    cheb = np.maximum(np.abs(pos[:, 0] - me[0]), np.abs(pos[:, 2] - me[2]))
+    cheb = np.where(alive, cheb, np.inf)
+    cheb[avatar.slot] = np.inf
+    out = []
+    for eid in sorted(want ^ got):
+        e = ents.get(eid)
+        side = "server only" if eid in want else "mirror only"
+        if e is None or e.slot is None or e.shard != sh:
+            out.append(f"{eid} ({side}): not a live row of the Space "
+                       f"(type {getattr(e, 'type_name', None)}); bot "
+                       f"create/destroy ticks {bot.stamps.get(eid)}")
+            continue
+        p = pos[e.slot]
+        d = float(cheb[e.slot])
+        rank = int((cheb < d).sum()) + 1
+        eu = float(np.hypot(p[0] - me[0], p[2] - me[2]))
+        out.append(
+            f"{eid} {e.type_name} ({side}): chebyshev {d:.3f}, euclid "
+            f"{eu:.3f}, rank {rank} (k {world.cfg.grid.k}, radius "
+            f"{world.cfg.grid.radius}); server enter/leave ticks "
+            f"{server_stamps.get((avatar.id, eid))}; bot create/destroy "
+            f"ticks {bot.stamps.get(eid)}")
+    return out
+
+
 def served_game_phase(dev, tag: str, slots: int = GAME_SLOTS,
                       monsters: int = GAME_MONSTERS,
                       n_bots: int = GAME_BOTS) -> dict:
@@ -3178,10 +3304,10 @@ def served_game_phase(dev, tag: str, slots: int = GAME_SLOTS,
     ticks (boot, serving, the restored World's first)."""
     from goworld_tpu_torch import api
     from goworld_tpu_torch import freeze as freeze_mod
-    from goworld_tpu_torch.net.botclient import BotClient
     from goworld_tpu_torch.net.game import GameServer
     from goworld_tpu_torch.net.standalone import ClusterHarness
 
+    BotClient = traced_bot_class()
     phase0 = time.perf_counter()
     kernels.reset_launches()
     grid = slice_config(slots).grid
@@ -3232,6 +3358,25 @@ def served_game_phase(dev, tag: str, slots: int = GAME_SLOTS,
         gc.freeze()   # as serve_forever does at boot (ini gc_freeze)
         tl = metrics.timeline
         rows = []
+        # (avatar, entity) -> [tick of its last enter, of its last
+        # leave] in the avatar's interest set on the server
+        stamps: dict = {}
+        seen_sets: dict = {}
+
+        def stamp_interest() -> None:
+            t = world.tick_count
+            for b in bots:
+                av = b.player
+                e = world.entities.get(av.eid) if av is not None else None
+                if e is None or e.type_name != "Avatar":
+                    continue
+                now = set(e.interested_in)
+                before_ = seen_sets.get(e.id, set())
+                for x in now - before_:
+                    stamps.setdefault((e.id, x), [None, None])[0] = t
+                for x in before_ - now:
+                    stamps.setdefault((e.id, x), [None, None])[1] = t
+                seen_sets[e.id] = now
 
         def game_tick(timed: bool) -> None:
             before = dict(kernels.LAUNCHES)
@@ -3242,6 +3387,8 @@ def served_game_phase(dev, tag: str, slots: int = GAME_SLOTS,
             server.tick()
             wall = time.perf_counter() - t0
             tl.end_tick()
+            BotClient.tick[0] = world.tick_count
+            stamp_interest()
             if dev.type == "cuda":
                 check_game_launches(before, f"game tick {len(rows) + 1}")
             rows.append((timed, wall, {name: d for name, _, d, _ in
@@ -3289,6 +3436,11 @@ def served_game_phase(dev, tag: str, slots: int = GAME_SLOTS,
             mons.append(sum(ents[e].type_name == "Monster" for e in want
                             if e in ents))
         if mism:
+            # ROADMAP C9: every differing entity, readable
+            for eid, b in avatars.items():
+                for line in mirror_report(world, ents[eid], b, stamps):
+                    print(f"[19] C9 bot{b.bot_id} avatar {eid} at tick "
+                          f"{world.tick_count}: {line}", flush=True)
             fail(f"[19] bot mirrors differ from the server's interest "
                  f"sets: (bot, words) {mism[:8]}")
         if min(mons) < 1:
@@ -5387,6 +5539,659 @@ def test_game_phase(dev, tag: str, preload: int = TG_PRELOAD,
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------- [24]
+# hot-standby replication and the rebalance plane. (a) the failover
+# soak's sequence (goworld_tpu_torch/tools/chaos_soak.py run_failover)
+# at the served game's population on the card's kernels; (b) the
+# deployment through the ops CLI with a standby, a third game and the
+# rebalance plane on.
+# [19]'s population is 2^17; every frame packs and unpacks each
+# entity's host record in Python (PERF.md §4): 2^15 took 62.2 s of
+# soak and [24] 207.7 s with twins at 2^13 / 2^12 (FC), and 2^14 46.4 s
+# and 179.4 s with twins at 2^12 / 2^11 (FD), past [24]'s 150 s
+FAILOVER_N = 1 << 13
+# (the run's other phases took 790 s in FD and ~1150 s on a slower host
+# in FG, whose run passed the 1200 s limit in [23])
+FAILOVER_TICKS = 24         # streamed ticks; the kill at the last
+FAILOVER_KEYFRAME = 8
+FAILOVER_PROMOTED = 8       # promoted ticks at least, on until drained
+FAILOVER_DRAIN_MAX = 64
+FAILOVER_TWIN_N = 1 << 10   # kernel/plain twins
+FAILOVER_CPU_N = 1 << 9     # the card against the CPU port
+LAG_BUDGET_TICKS = 16       # the standby's lag budget (ini default)
+
+
+def failover_build_kw(n: int, plain: bool = False) -> dict:
+    """``build_world``'s arguments for the soak's mixed World of ``n``
+    at the bench world's density and grid (``slice_config``: radius 50,
+    k 32, cell_cap 12, fused/pallas; with the soak's skin 4 the Verlet
+    rebuild runs the gated sweep at k 48) and [19]'s caps; ``plain``
+    puts the sweep and the sort on their plain versions."""
+    g = slice_config(n).grid
+    grid = dict(k=g.k, cell_cap=g.cell_cap, row_block=g.row_block,
+                topk_impl=g.topk_impl, precision=g.precision,
+                sweep_impl="ranges" if plain else g.sweep_impl,
+                sort_impl="counting" if plain else g.sort_impl)
+    c = slice_config(n)
+    caps = dict(enter_cap=c.enter_cap, leave_cap=c.leave_cap,
+                sync_cap=c.sync_cap, attr_sync_cap=c.attr_sync_cap,
+                input_cap=c.input_cap, delta_rows_cap=c.delta_rows_cap)
+    return dict(extent=g.extent_x, radius=g.radius, grid_kw=grid,
+                cfg_kw=caps)
+
+
+@contextlib.contextmanager
+def seeded_ids(key: str):
+    """``ids.gen_entity_id`` as one seeded sequence (two runs of the
+    soak then mint the same ids, as the tests make both packages do)."""
+    from goworld_tpu_torch.utils import ids
+
+    real, seq = ids.gen_entity_id, [0]
+
+    def fixed() -> str:
+        seq[0] += 1
+        return ids.gen_fixed_id(f"{key}.{seq[0]}")
+
+    ids.gen_entity_id = fixed
+    try:
+        yield
+    finally:
+        ids.gen_entity_id = real
+
+
+def sync_guard_for(dev):
+    """A context manager in which any op that makes the host wait on the
+    card raises (a no-op off the card)."""
+    @contextlib.contextmanager
+    def guard():
+        if dev.type == "cuda":
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            yield
+        finally:
+            if dev.type == "cuda":
+                torch.cuda.set_sync_debug_mode("default")
+    return guard
+
+
+def soak_failover(dev, n: int, plain: bool = False, guard=None,
+                  on_build=None) -> tuple[dict, dict]:
+    """``run_failover`` on ``dev`` at ``n``: (report, kept Worlds); it
+    fails unless the soak's verdicts hold and no frame was torn."""
+    from goworld_tpu_torch.tools import chaos_soak as soak
+
+    keep: dict = {}
+    rep = soak.run_failover(
+        SEED, n=n, ticks=FAILOVER_TICKS, keyframe_every=FAILOVER_KEYFRAME,
+        device=dev.type, build_kw=failover_build_kw(n, plain),
+        capture_guard=guard, on_build=on_build, keep=keep)
+    bad = [k for k in ("stream_ok", "promote_ok", "arbitration_ok",
+                       "decision_log_replay_ok", "census_ok",
+                       "conservation_ok", "cold_restore_ok")
+           if rep.get(k) is not True]
+    if rep.get("error") or bad or rep["frames_rejected"] \
+            or not rep["converged"]:
+        side = "plain" if plain else "kernels"
+        fail(f"[24] failover at {n} on {dev} ({side}): error "
+             f"{rep.get('error')}, failed {bad}, torn "
+             f"frames {rep.get('frames_rejected')}; lost "
+             f"{rep.get('lost_eids')} duplicated "
+             f"{rep.get('duplicated_eids')}; "
+             f"{rep.get('conservation_verdict')}")
+    return rep, keep
+
+
+def promoted_view(w) -> dict:
+    """A promoted World as plain values: every lane of its state and
+    last outputs, its census by type and its ledger's snapshot."""
+    # copies: on the CPU ``.cpu()`` aliases the lanes, which the next
+    # tick writes in place
+    view = {f"state.{k}": v.cpu().clone() if torch.is_tensor(v) else v
+            for k, v in lanes(w.state).items()}
+    view.update({f"out.{k}": v.cpu().clone() for k, v in lanes(
+        w.last_outputs).items() if torch.is_tensor(v)})
+    led = w.audit.ledger.snapshot(tick=w.tick_count, eids=True)
+    return {"lanes": view, "ledger": led,
+            "census": sorted((e.id, e.type_name)
+                             for e in w.entities.values()
+                             if not e.destroyed)}
+
+
+def views_differ(a: dict, b: dict) -> list:
+    bad = [k for k in a["lanes"] if not (
+        a["lanes"][k] is None and b["lanes"].get(k) is None
+        or a["lanes"][k] is not None and b["lanes"].get(k) is not None
+        and same_bits(a["lanes"][k], b["lanes"][k]))]
+    if a["census"] != b["census"]:
+        bad.append("census")
+    if a["ledger"] != b["ledger"]:
+        bad.append("ledger")
+    return bad
+
+
+def failover_twins(dev) -> str:
+    """The same sequence at FAILOVER_TWIN_N on the kernels and on the
+    plain versions (every lane, the census and the ledger equal after
+    promotion and on 3 more ticks), and at FAILOVER_CPU_N on the card
+    and on the CPU port (the same)."""
+    out = []
+    for n, sides in ((FAILOVER_TWIN_N, ((dev, False), (dev, True))),
+                     (FAILOVER_CPU_N, ((dev, False),
+                                       (torch.device("cpu"), False)))):
+        views = []
+        for d, plain in sides:
+            with seeded_ids(f"failover.{n}"):
+                rep, keep = soak_failover(d, n, plain)
+                w = keep["standby"]
+                seq = [promoted_view(w)]
+                for _ in range(3):
+                    w.tick()
+                    seq.append(promoted_view(w))
+            views.append((rep, seq))
+            del keep, w
+        (ra, va), (rb, vb) = views
+        for t, (a, b) in enumerate(zip(va, vb)):
+            bad = views_differ(a, b)
+            if bad:
+                fail(f"[24] failover twins at {n} ({sides[1]}) differ at "
+                     f"promoted tick {t}: {bad[:8]}")
+        for k in ("decision_log", "frames_applied", "entities_promoted",
+                  "replication_bytes_per_tick", "frame_kinds"):
+            if ra[k] != rb[k]:
+                fail(f"[24] failover twins at {n}: {k} {ra[k]} != {rb[k]}")
+        out.append(f"{n}: {len(va)} promoted views equal")
+        release_worlds()
+    return "; ".join(out)
+
+
+def failover_part(dev, tag: str, n: int | None = None) -> dict:
+    """[24] (a): ``run_failover`` at ``n`` (FAILOVER_N) on the card's
+    kernels, the captures under the sync guard, then the promoted World
+    ticked on until no pose stays staged; the twins. Returns the
+    launches of its paths."""
+    from goworld_tpu_torch.net import codec
+
+    n = n or FAILOVER_N
+    t0 = time.perf_counter()
+    on_card = dev.type == "cuda"
+    sync = {"bytes": 0, "records": 0}
+
+    def on_build(primary, standby):
+        def sink(gate_id, cids, eids, vals):
+            sync["records"] += len(cids)
+            sync["bytes"] += len(codec.encode_client_sync_batch(
+                np.asarray(cids, "S16"), np.asarray(eids, "S16"),
+                np.asarray(vals, np.float32).reshape(-1, 4)))
+        primary.sync_sink = sink
+
+    kernels.reset_launches()
+    rep, keep = soak_failover(dev, n, guard=sync_guard_for(dev),
+                              on_build=on_build)
+    soak_s = time.perf_counter() - t0
+    soak_launches = dict(kernels.LAUNCHES)
+    # the soak ran: 24 primary ticks, the standby's warm tick, its first
+    # promoted tick and the cold restore's first tick, each 1 + 1
+    want = FAILOVER_TICKS + 3 if on_card else 0
+    if (soak_launches["sweep_fused"], soak_launches["counting_sort"]) \
+            != (want, want):
+        fail(f"[24] the failover soak's ticks launched {soak_launches}, "
+             f"not {want} sweeps and sorts")
+    w = keep["standby"]
+    staged = [len(w._staged_pos)]
+    kernels.reset_launches()
+    ticks = 0
+    while ticks < FAILOVER_PROMOTED or (
+            w._staged_pos and ticks < FAILOVER_DRAIN_MAX):
+        w.tick()
+        ticks += 1
+        staged.append(len(w._staged_pos))
+    promoted = dict(kernels.LAUNCHES)
+    if on_card and (promoted["sweep_fused"], promoted["counting_sort"]) \
+            != (ticks, ticks):
+        fail(f"[24] {ticks} promoted ticks launched {promoted}")
+    drain = next((i for i, s in enumerate(staged) if s == 0), None)
+    if drain is None:
+        fail(f"[24] staged poses after {ticks} promoted ticks: {staged}")
+    apply = np.array(rep["apply_ms_frames"])
+    lag = np.array(rep["frame_lag_ms"]) * 60.0 / 1e3
+    wk = rep["worker"]
+    line = (
+        f"[24] (a) failover at {n} (mixed, skin 4, fused/pallas, k 32 "
+        f"gated at 48): {rep['ticks']} streamed ticks at keyframe cadence "
+        f"{rep['keyframe_every']}, {rep['frame_kinds']['key']} keyframes "
+        f"and {rep['frame_kinds']['delta']} deltas applied, "
+        f"{rep['frames_rejected']} torn, {wk['captures_dropped']} "
+        f"captures dropped, {wk['disk_writes']} chain records on disk "
+        f"from the worker; replication {rep['replication_bytes_per_tick']}"
+        f" B a tick beside the client syncs' {sync['bytes'] / rep['ticks']:.1f}"
+        f" B a tick ({sync['records'] / rep['ticks']:.0f} records); apply "
+        f"ms a frame p50 {np.percentile(apply, 50):.3f} p99 "
+        f"{np.percentile(apply, 99):.3f}; lag capture-to-applied in 60 Hz "
+        f"ticks p50 {np.percentile(lag, 50):.2f} p99 "
+        f"{np.percentile(lag, 99):.2f} against the budget of "
+        f"{LAG_BUDGET_TICKS}; promotion {rep['promotion_latency_ticks']} "
+        f"ticks, {rep['promotion_secs']} s (claim, arbitration and the "
+        f"first promoted tick), cold restore from the worker's chain "
+        f"{rep['cold_restore_secs']} s ({rep['warm_vs_cold_speedup']}x, "
+        f"reported, not gated); {rep['entities_promoted']} entities "
+        f"promoted, 0 lost, 0 duplicated, both stale-claim orders "
+        f"refused, decision log replayed byte for byte, conservation "
+        f"verdict green; the staged poses ({staged[0]}) drained after "
+        f"{drain} promoted ticks; {ticks} promoted ticks launched "
+        f"{promoted}; the captures ran under the sync guard")
+    del keep, w
+    release_worlds()
+    t_tw = time.perf_counter()
+    twins = failover_twins(dev)
+    line += (f"; twins {twins} in {time.perf_counter() - t_tw:.1f} s; "
+             f"the soak {soak_s:.1f} s, (a) {time.perf_counter() - t0:.1f}"
+             f" s {tag}")
+    print(line, flush=True)
+    return {"failover_soak": soak_launches, "failover_promoted": promoted}
+
+
+# Monsters on game1: (a) carries the size. With a standby attached the
+# primary captures every host record a tick, and the handoff pumps
+# every 16 ticks: at 2^14 the tick p50 read 799.5 ms and the handoff
+# 14.45 s (FD)
+STANDBY_MONSTERS = 1 << 12
+STANDBY_BOTS = 16           # strict TCP bots
+STANDBY_HANDOFF = 64        # the JAX default rebalance_batch
+STANDBY_WALK_S = 2.0
+
+# [24] (b)'s game script: [22]'s types; game1 boots the Monsters and
+# game3 an empty Arena, game2 is game1's standby and boots nothing. Its
+# serve loop publishes on /vars what the checker reads: the tick count,
+# the launch counts, the poses still staged, the role, the wall time of
+# the first promoted tick, the dispatcher's pause lane for game1 as the
+# game's kvreg mirror holds it, and the replication worker's counts;
+# while a PAUSE file exists, a serving game does not tick and publishes
+# every bot Avatar's interest set (the World at rest, as [22]).
+STANDBY_GAME = '''"""chip_smoke.py [24]'s game: a primary, its standby, a peer."""
+import os
+import time
+
+import goworld_tpu_torch as gw
+import chip_smoke as cs
+from goworld_tpu_torch import kernels
+from goworld_tpu_torch.net.game import GameServer
+from goworld_tpu_torch.utils import opmon
+
+BOOT = {{}}
+STATE = {{"promoted_at": None, "promoted_tick": None}}
+gw.register_entity("Account", cs.GameAccount)
+gw.register_entity("Avatar", cs.GameAvatar)
+gw.register_entity("Monster", cs.GameMonster)
+gw.register_space("Arena", cs.GameArena)
+
+
+def boot(w):
+    if w.game_id == 1:
+        cs.boot_monsters(w, {monsters}, cs.SEED, BOOT)
+    else:
+        w.arena = w.create_space("Arena")
+        w.said = []
+
+
+gw.on_boot(boot)
+_tick = GameServer.tick
+_spots = []
+
+
+def interest(w):
+    ents, out = w.entities, {{}}
+    for e in list(ents.values()):
+        if e.type_name == "Avatar" and not e.destroyed \\
+                and e.client is not None:
+            out[e.id] = sorted({{e.id, *e.interested_in}})
+    return out
+
+
+def tick(self):
+    w = self.world
+    standby = self._standby_applier is not None and not self._promoted
+    if not standby and getattr(w, "arena", None) is None:
+        w.arena = next((s for s in w.spaces.values()
+                        if s.type_name == "Arena"), None)
+        w.said = []
+    if w.game_id == 1 and not _spots:
+        _spots.extend(cs.game_spots(w, {groups}, cs.GAME_GROUP, cs.SEED))
+    if os.path.exists("PAUSE") and not standby:
+        v = opmon.vars().get("smoke", {{}})
+        if "interest" not in v:
+            opmon.expose("smoke", dict(v, interest=interest(w)))
+        return
+    _tick(self)
+    if self._promoted and STATE["promoted_at"] is None:
+        STATE["promoted_at"] = time.time()
+        STATE["promoted_tick"] = w.tick_count
+    rw = self.repl_worker
+    opmon.expose("smoke", {{
+        "tick": w.tick_count, "launches": dict(kernels.LAUNCHES),
+        "staged": len(w._staged_pos), "boot": BOOT, "spots": _spots,
+        "standby": standby, **STATE,
+        "pause_lane": self.kvreg.get("rebalance/pause/game1"),
+        "worker": rw.stats() if rw is not None else None}})
+
+
+GameServer.tick = tick
+gw.run({run_args})
+'''
+
+
+def standby_ini(slots: int, ports: dict) -> str:
+    """[22]'s ini with a TCP gate only, the rebalance plane on at the
+    JAX defaults, game1's chain checkpoint on the replication worker,
+    game2 its standby and game3 a peer that takes no boot entity."""
+    grid = slice_config(slots).grid
+    ext = grid.extent_x
+    disp = "".join(
+        f"[dispatcher{i}]\nhost = 127.0.0.1\nport = {ports[f'd{i}']}\n"
+        f"http_port = {ports[f'hd{i}']}\n\n" for i in (1, 2))
+    return (f"[deployment]\nrebalance = true\n\n{disp}[game_common]\n"
+            f"boot_entity = Account\ncapacity = {slots}\nn_spaces = 1\n"
+            f"aoi_radius = 50.0\nextent_x = {ext}\nextent_z = {ext}\n"
+            f"aoi_k = {grid.k}\naoi_cell_cap = {grid.cell_cap}\n"
+            "aoi_sweep_impl = fused\naoi_sort_impl = pallas\n"
+            "position_sync_interval_ms = 50\noverload = false\n\n"
+            f"[game1]\nhttp_port = {ports['g1']}\n"
+            "checkpoint_interval = 1\nsnapshot_keyframe_every = 8\n\n"
+            f"[game2]\nhttp_port = {ports['g2']}\nstandby_of = 1\n\n"
+            f"[game3]\nhttp_port = {ports['g3']}\nban_boot_entity = true"
+            f"\n\n[gate1]\nhost = 127.0.0.1\nport = {ports['tcp']}\n"
+            f"http_port = {ports['ht']}\n\n[storage]\nkind = filesystem\n"
+            "directory = entity_storage\n\n[kvdb]\nkind = filesystem\n"
+            "path = kvdb_data\n")
+
+
+def replayed_log(text: bytes) -> bytes:
+    """A promotion log's lines back through ``replay_decisions``."""
+    from goworld_tpu_torch.replication.promote import replay_decisions
+
+    inputs = []
+    for line in text.decode().splitlines():
+        event, *pairs = line.split(" ")
+        inputs.append((event, dict(p.split("=", 1) for p in pairs)))
+    return replay_decisions(inputs)
+
+
+async def standby_login(bots, spots) -> None:
+    await bots_login(bots, spots)
+    if not all(b.player is not None and b.player.type_name == "Avatar"
+               for b in bots):
+        fail("[24] not every bot reached an Avatar")
+
+
+async def standby_mirrors(bots, ports: dict, games: list,
+                          moved: set) -> tuple[int, int]:
+    """The serving games at rest (PAUSE): every bot's mirror against
+    its Avatar's interest set, wherever the Avatar lives; the strict
+    mirrors' errors. An entity the handoff moved to game3 (``moved``)
+    stays in its old watchers' mirrors: the World keeps it in their
+    interest sets, as the JAX World does (ROADMAP.md Queue C12), and
+    the promoted game, which never held it, does not. Such entries are
+    counted apart; any other difference fails. Returns (bots checked,
+    stale entries)."""
+    loop = asyncio.get_running_loop()
+    rest = os.path.join(ports["dir"], "PAUSE")
+    open(rest, "w").close()
+    try:
+        sets: dict = {}
+        for g in games:
+            v = await loop.run_in_executor(
+                None, smoke_vars, ports[g], lambda v: "interest" in v,
+                "[24]")
+            sets.update(v["interest"])
+        await asyncio.sleep(1.0)
+        mism, stale = [], 0
+        for b in bots:
+            want = sets.get(b.player.eid)
+            if want is None:
+                fail(f"[24] bot{b.bot_id}'s Avatar {b.player.eid} holds "
+                     f"no client on {games}")
+            diff = set(b.entities) ^ set(want)
+            c12 = {x for x in diff if x in moved and x in b.entities}
+            stale += len(c12)
+            if diff - c12:
+                mism.append((b.bot_id, [
+                    (x, "mirror only" if x in b.entities else "server only")
+                    for x in sorted(diff - c12)[:3]]))
+        errors = [e for b in bots for e in b.errors]
+        if errors or mism:
+            fail(f"[24] strict mirrors: {len(errors)} errors {errors[:4]}; "
+                 f"(bot, entities) differing from the interest sets "
+                 f"{mism[:8]}")
+    finally:
+        os.unlink(rest)
+    return len(bots), stale
+
+
+def standby_deploy_part(dev, tag: str, slots: int = GAME_SLOTS,
+                        monsters: int = STANDBY_MONSTERS) -> tuple:
+    """[24] (b): the deployment through the ops CLI. Returns the sweep
+    and sort launches of its three game processes and its line."""
+    from goworld_tpu_torch import freeze as freeze_mod
+    from goworld_tpu_torch.net.botclient import BotClient
+
+    t0 = time.perf_counter()
+    on_card = dev.type == "cuda"
+    tmp = tempfile.mkdtemp(prefix="standby_")
+    ports = free_ports(["d1", "d2", "hd1", "hd2", "g1", "g2", "g3", "ht",
+                        "tcp"])
+    ports["dir"] = tmp
+    pids: set = set()
+
+    def step(args, want_rc: int, what: str) -> tuple[str, float]:
+        return cli_step(tmp, pids, "[24]", args, want_rc, what)
+
+    def verdict() -> dict:
+        # the target first, then the donor: an entity read live on the
+        # donor cannot then be read arrived on the target
+        snaps = [http_get(ports["g3"], "/audit")["game3"],
+                 http_get(ports["g1"], "/audit")["game1"]]
+        return audit_mod.conservation_verdict(snaps)
+
+    bots = []
+    try:
+        with open(os.path.join(tmp, "goworld_tpu.ini"), "w") as f:
+            f.write(standby_ini(slots, ports))
+        with open(os.path.join(tmp, "server_torch.py"), "w") as f:
+            f.write(STANDBY_GAME.format(
+                monsters=monsters, groups=STANDBY_BOTS // GAME_GROUP,
+                run_args="" if on_card else 'device="cpu"'))
+        _, start_s = step(["start"], 0, "start")
+        t_sb = time.perf_counter()
+        t_end = t_sb + DEPLOY_CLI_S
+        while True:
+            sb = http_get(ports["g2"], "/standby").get("game2") or {}
+            if sb.get("pass") and sb.get("frames", 0) > 0:
+                break
+            if time.perf_counter() > t_end:
+                fail(f"[24] the standby's verdict never passed: {sb}")
+            time.sleep(0.1)
+        attach_s = time.perf_counter() - t_sb
+        spots = smoke_vars(ports["g1"], lambda v: v.get("spots"),
+                           "[24]")["spots"]
+        bots = [BotClient("127.0.0.1", ports["tcp"], bot_id=i,
+                          strict=True, speed=1.0, move_interval=0.1,
+                          seed=SEED + i) for i in range(STANDBY_BOTS)]
+        loop = asyncio.new_event_loop()
+        loop.run_until_complete(standby_login(bots, spots))
+        h0 = tick_hist(ports["g1"])
+        loop.run_until_complete(bots_walk(bots, STANDBY_WALK_S))
+        h1 = tick_hist(ports["g1"])
+
+        # the manual drain of 64 entities of game1's fullest Space
+        got = http_get(ports["g1"],
+                       f"/rebalance?handoff=3&batch={STANDBY_HANDOFF}")
+        if not got.get("requested"):
+            fail(f"[24] /rebalance?handoff=3 answered {got}")
+        lanes_seen, windows, t_h = set(), 0, time.perf_counter()
+        while True:
+            v = verdict()
+            windows += 1
+            if not v["ok"]:
+                fail(f"[24] conservation during the handoff: "
+                     f"{v['problems'][:4]}")
+            lanes_seen.add(smoke_vars(ports["g1"], None,
+                                      "[24]").get("pause_lane"))
+            agent = http_get(ports["g1"], "/rebalance")["agents"]["game1"]
+            if agent["completed"] or agent["aborted"]:
+                break
+            if time.perf_counter() - t_h > DEPLOY_CLI_S:
+                fail(f"[24] the handoff did not end: {agent}")
+            time.sleep(0.05)
+        handoff_s = time.perf_counter() - t_h
+        if agent["aborted"] or agent["moves_total"] != {
+                f"game1->game3:manual": STANDBY_HANDOFF}:
+            fail(f"[24] the handoff: {agent}")
+        moves = sum(v for k, v in metrics.parse_prometheus_text(
+            http_get(ports["g1"], "/metrics")).items()
+            if k.startswith("rebalance_moves_total{"))
+        lane_after = smoke_vars(
+            ports["g1"], lambda v: v.get("pause_lane") == "0",
+            "[24]")["pause_lane"]
+        if "1" not in lanes_seen or moves != STANDBY_HANDOFF:
+            fail(f"[24] pause lane seen {lanes_seen} (after: "
+                 f"{lane_after}); rebalance_moves_total {moves}")
+        v_end = verdict()
+        if not v_end["ok"]:
+            fail(f"[24] conservation after the handoff: {v_end}")
+        h2 = tick_hist(ports["g1"])
+        loop.run_until_complete(bots_walk(bots, STANDBY_WALK_S))
+        h3 = tick_hist(ports["g1"])
+
+        v1 = smoke_vars(ports["g1"], lambda v: (v.get("worker") or {})
+                        .get("disk_writes", 0) >= 2, "[24]")
+
+        # the kill, the watchdog's promotion. game1 rests (PAUSE) until
+        # the standby has applied its last tick, so the promoted World
+        # starts where the bots' mirrors stand: a promoted standby never
+        # re-syncs its clients (ROADMAP C13)
+        rest = os.path.join(tmp, "PAUSE")
+        open(rest, "w").close()
+        last = smoke_vars(ports["g1"], lambda v: "interest" in v,
+                          "[24]")["tick"]
+        t_end = time.perf_counter() + DEPLOY_HTTP_S
+        while (http_get(ports["g2"], "/standby")["game2"]["applied_tick"]
+               < last):
+            if time.perf_counter() > t_end:
+                fail(f"[24] the standby never applied game1's tick {last}")
+            time.sleep(0.05)
+        g1pid = cli_pid(tmp, "game1")
+        t_kill = time.time()
+        os.kill(g1pid, 9)
+        while pid_alive(g1pid):
+            time.sleep(0.01)
+        os.unlink(rest)
+        wd_out, wd_s = step(["watchdog", "--once"], 0, "watchdog")
+        if "game1: standby game2 PROMOTED" not in wd_out \
+                or "restarted from" in wd_out:
+            fail(f"[24] the watchdog: {wd_out[-2000:]}")
+        v2 = smoke_vars(ports["g2"], lambda v: v.get("promoted_at"),
+                        "[24]")
+        kill_to_tick = v2["promoted_at"] - t_kill
+        if os.path.exists(os.path.join(tmp, "run", "game1.pid")):
+            fail("[24] the dead primary keeps a pid file")
+        with open(os.path.join(tmp, "run", "game1.log")) as f:
+            if f.read().count("started (restore=") != 1:
+                fail("[24] game1 was restarted")
+        # game1's chain, written by its replication worker: the file a
+        # -restore would take (the freshest by mtime) resolves; a delta
+        # older than the keyframe is one a later keyframe superseded
+        cands = freeze_mod.snapshot_candidates(1, tmp)
+        if not cands or os.path.basename(cands[0]) not in (
+                freeze_mod.chain_key_filename(1),
+                freeze_mod.chain_delta_filename(1)):
+            fail(f"[24] game1's snapshot files: {cands}")
+        rec = freeze_mod.read_freeze_file(cands[0])
+        chain = [(os.path.basename(p), "freshest, resolves"
+                  if p == cands[0] else "older") for p in cands]
+        if len(rec["entities"]) < monsters - STANDBY_HANDOFF:
+            fail(f"[24] {cands[0]} holds {len(rec['entities'])} entities")
+        with open(os.path.join(tmp, "game2_promotion.log"), "rb") as f:
+            plog = f.read()
+        if not plog.startswith(b"claim ") or b"\npromoted " not in plog \
+                or replayed_log(plog) != plog:
+            fail(f"[24] game2_promotion.log: {plog!r}")
+        h4 = tick_hist(ports["g2"])
+        loop.run_until_complete(bots_walk(bots, STANDBY_WALK_S))
+        h5 = tick_hist(ports["g2"])
+        moved = set(http_get(ports["g3"], "/audit?eids=1")["game3"]
+                    .get("eids", []))
+        checked, stale = loop.run_until_complete(
+            standby_mirrors(bots, ports, ["g2", "g3"], moved))
+        loop.run_until_complete(bots_leave(bots))
+        bots = []
+        loop.close()
+        launches = {}
+        for g in ("g1", "g2", "g3"):
+            v = v1 if g == "g1" else smoke_vars(ports[g], None, "[24]")
+            for k, n in v["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+        _, stop_s = step(["stop"], 0, "stop")
+        step(["status"], 1, "status after stop")
+        alive = [p for p in pids if pid_alive(p)]
+        if alive:
+            fail(f"[24] processes of the deployment still alive: {alive}")
+        if on_card and not (launches["sweep_fused"] > 0
+                            and launches["sweep_fused"]
+                            == launches["counting_sort"]):
+            fail(f"[24] the deployment's games launched {launches}")
+        q = {k: hist_quantiles(a, b) for k, (a, b) in
+             {"g1_before": (h0, h1), "g1_after_handoff": (h2, h3),
+              "g2_promoted": (h4, h5)}.items()}
+        power = gpu_line() if on_card else "the CPU"
+        line = (
+            f"[24] (b) the deployment through the ops CLI ({slots} slots, "
+            f"{monsters} Monsters on game1, game2 its standby, game3 a "
+            f"peer, rebalance on, chain every 1 s at keyframe 8): start "
+            f"{start_s:.2f} s, the standby's verdict passed "
+            f"{attach_s:.2f} s later ({sb['frames']} frames, "
+            f"{sb['bytes_per_tick']} B a tick); {STANDBY_BOTS} strict "
+            f"bots; the handoff of {STANDBY_HANDOFF} to game3 in "
+            f"{handoff_s:.2f} s, pause lane set then clear, conservation "
+            f"green in {windows} reads, rebalance_moves_total {moves:g}; "
+            f"game1's chain {chain} ({len(rec['entities'])} entities) "
+            f"from the worker "
+            f"({v1['worker']['disk_writes']} writes, "
+            f"{v1['worker']['captures_dropped']} captures dropped); kill "
+            f"-9 to the promoted game's first tick {kill_to_tick:.2f} s "
+            f"(watchdog call {wd_s:.2f} s), no restart, the promotion log "
+            f"replayed byte for byte; {checked} mirrors == the interest "
+            f"sets after it, but {stale} entries of entities the handoff "
+            f"moved (ROADMAP C12); tick_latency_ms p50/p99: "
+            + ", ".join(f"{k} {p50:.2f}/{p99:.2f} ({n:.0f} ticks)"
+                        for k, (n, p50, p99) in q.items())
+            + f"; launches {launches}; stop {stop_s:.2f} s; (b) "
+            f"{time.perf_counter() - t0:.1f} s ({power})")
+        print(line, flush=True)
+        return {"standby_cli": launches}
+    finally:
+        for b in bots:
+            try:
+                b._recv_task.cancel()
+            except Exception:
+                pass
+        for p in pids:
+            try:
+                os.kill(p, 9)
+            except OSError:
+                pass
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def standby_phase(dev, tag: str) -> dict:
+    """[24]: (a) then (b); the launches of their paths."""
+    t0 = time.perf_counter()
+    release_worlds()
+    out = failover_part(dev, tag)
+    out.update(standby_deploy_part(dev, tag))
+    print(f"[24] wall {time.perf_counter() - t0:.1f} s {tag}", flush=True)
+    return out
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
@@ -5747,6 +6552,8 @@ def main() -> int:
     phase_done("[22]")
     world.update(test_game_phase(dev, tag))
     phase_done("[23]")
+    world.update(standby_phase(dev, tag))
+    phase_done("[24]")
     for row, key in zip(rows[:2], ("sweep_fused", "counting_sort")):
         row["launches_by_path"] = {"single_space": row["launches"],
                                    **{p: n[key] for p, n in world.items()}}

@@ -192,15 +192,11 @@ def _governor_eligible(gc: config_mod.GameConfig, gid: int) -> bool:
     return True
 
 
-def _check_ported(gc: config_mod.GameConfig, cfg) -> None:
+def _check_ported(gc: config_mod.GameConfig) -> None:
     """Every ini setting this port does not run raises here, before
     anything is built."""
     if gc.small_tier_rows:
         raise _refuse("small_tier_rows (the two-tier extraction)", "4")
-    if gc.standby_of:
-        raise _refuse("standby_of (replication/)")
-    if cfg.rebalance:
-        raise _refuse("[deployment] rebalance (rebalance/)")
 
 
 def _build_world(gc: config_mod.GameConfig, gid: int,
@@ -357,7 +353,7 @@ def run(argv: list[str] | None = None, *, block: bool = True,
     cfg = config_mod.load(args.configfile)
     gid = args.gid
     gc = cfg.games.get(gid) or config_mod.GameConfig()
-    _check_ported(gc, cfg)
+    _check_ported(gc)
 
     if int(os.environ.get("GOWORLD_MH_PROCS", "1")) > 1:
         raise _refuse("a multi-controller game (GOWORLD_MH_PROCS, "
@@ -425,6 +421,18 @@ def run(argv: list[str] | None = None, *, block: bool = True,
             governor_cooldown_windows=gc.governor_cooldown_windows,
             governor_regret_pct=gc.governor_regret_pct,
             governor_table=gc.governor_table,
+            # hot-standby replication: nonzero standby_of makes this
+            # process a warm mirror of game N
+            standby_of=gc.standby_of,
+            replication_keyframe_every=gc.replication_keyframe_every,
+            replication_queue=gc.replication_queue,
+            replication_lag_budget_ticks=gc.replication_lag_budget_ticks,
+            # self-healing rebalance plane: a DEPLOYMENT knob
+            # ([deployment] rebalance) — every game hosts a handoff
+            # agent so any of them can donate or receive; standbys
+            # mirror, they don't trade entities
+            rebalance_enabled=cfg.rebalance and not gc.standby_of,
+            rebalance_batch=cfg.rebalance_batch,
         )
 
     restoring = args.restore and \
@@ -444,11 +452,20 @@ def run(argv: list[str] | None = None, *, block: bool = True,
             restoring = False
     if not restoring:
         world.create_nil_space()
-        for cb in _boot_callbacks:
-            try:
-                cb(world)
-            except Exception:
-                logger.exception("on_boot callback failed")
+        if gc.standby_of:
+            # a standby boots EMPTY: its population arrives as
+            # replication frames from the primary — running the boot
+            # callbacks here would spawn a second, conflicting world
+            logger.info(
+                "game%d: standby of game%d — skipping boot callbacks, "
+                "mirroring the primary's stream", gid, gc.standby_of,
+            )
+        else:
+            for cb in _boot_callbacks:
+                try:
+                    cb(world)
+                except Exception:
+                    logger.exception("on_boot callback failed")
         server = _mk_server(False)
     svc = server.setup_services()
     _apply_registrations(world, svc=svc, services_only=True)

@@ -21,8 +21,11 @@ Differences from the reference, by design:
 Arguments and exit codes are the JAX package's. What the port does not
 run yet is refused with ``NotImplementedError`` naming ROADMAP.md before
 anything is spawned: a game of several controller processes
-(``mesh_processes > 1``, Queue A item 6) and a hot standby
-(``standby_of``, replication, Queue A item 8). ``status``, ``watch``,
+(``mesh_processes > 1``, Queue A item 6). A hot standby
+(``[gameN] standby_of``) starts with the other games; ``watchdog``
+promotes it through its ``/standby?promote=1`` when its primary dies,
+and falls back to a cold restore when the standby is dead too.
+``status``, ``watch``,
 ``trace`` and ``incidents`` read the processes' debug HTTP through the
 port's own tools (:mod:`goworld_tpu_torch.tools`).
 
@@ -224,18 +227,14 @@ def _refuse(what: str, item: str) -> NotImplementedError:
 
 def _check_ported(cfg: config_mod.ClusterConfig) -> None:
     """Refuse, before anything is spawned, the deployments the port
-    does not run: a game of several controller processes and a hot
-    standby (the game process refuses both as well)."""
+    does not run: a game of several controller processes (the game
+    process refuses it as well)."""
     for gid in sorted(cfg.games):
         gc = cfg.games[gid]
         if getattr(gc, "mesh_processes", 1) > 1:
             raise _refuse(
                 f"game{gid}: mesh_processes = {gc.mesh_processes} (a game "
                 "of several controllers, parallel/multihost.py)", "6")
-        if getattr(gc, "standby_of", 0):
-            raise _refuse(
-                f"game{gid}: standby_of = {gc.standby_of} (the hot "
-                "standby and its promotion, replication/)", "8")
 
 
 def _load_checked(server_dir: str) -> tuple[config_mod.ClusterConfig, str]:
@@ -519,6 +518,44 @@ class RestartBackoff:
         self._state[label] = (fails, now + delay, now, delay)
 
 
+def _standby_for(cfg: config_mod.ClusterConfig, gid: int) -> int | None:
+    """The configured hot standby of game ``gid`` (``[gameN]
+    standby_of = gid``), or None. First configured wins — one standby
+    per primary is the supported topology."""
+    for sgid in sorted(cfg.games):
+        if sgid != gid and getattr(cfg.games[sgid], "standby_of", 0) == gid:
+            return sgid
+    return None
+
+
+def _promote_standby(server_dir: str, cfg: config_mod.ClusterConfig,
+                     gid: int, sgid: int, timeout: float = 3.0) -> bool:
+    """Try to turn game ``gid``'s crash into a warm failover: poke the
+    live standby's debug-http ``/standby?promote=1``. The standby
+    stages a kvreg-arbitrated claim on its logic thread (single-winner
+    — a zombie primary can never split-brain) and resumes ticking from
+    its last applied frame. Returns True iff the standby accepted the
+    request; the caller falls back to cold restore otherwise. The
+    epoch is derived by the standby from the last observed promotion
+    round in kvreg, so repeated scans stay monotonic without
+    supervisor-side state."""
+    import json as _json
+    import urllib.request
+
+    gc = cfg.games.get(sgid)
+    if gc is None or getattr(gc, "http_port", 0) <= 0:
+        return False
+    if not _alive(_read_pid(server_dir, "game", sgid)):
+        return False  # the standby is dead too: cold restore it is
+    url = f"http://127.0.0.1:{gc.http_port}/standby?promote=1"
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as resp:
+            out = _json.loads(resp.read().decode("utf-8", "replace"))
+    except (OSError, ValueError):
+        return False
+    return isinstance(out, dict) and "error" not in out
+
+
 def watch_once(server_dir: str,
                backoff: "RestartBackoff | None" = None) -> list[str]:
     """One supervision scan over the cluster. Dead dispatchers and gates
@@ -528,8 +565,12 @@ def watch_once(server_dir: str,
     restarted with ``-restore`` from the freshest snapshot (a reload's
     freeze file or the periodic ``checkpoint_interval`` checkpoint,
     whichever is newer — ``freeze.latest_snapshot_path``), on the card
-    its script puts the World on. Returns a list of action strings
-    (empty = everything healthy)."""
+    its script puts the World on. Exception: a dead game with a
+    configured LIVE hot standby (``[gameN] standby_of``) is recovered
+    by warm promotion instead — the standby already mirrors the state
+    in memory, so failover costs ticks, not a process boot
+    (``_promote_standby``). Returns a list of action strings (empty =
+    everything healthy)."""
     from goworld_tpu_torch import freeze as freeze_mod
 
     if _in_maintenance(server_dir):
@@ -582,6 +623,32 @@ def watch_once(server_dir: str,
                 f"{backoff.delay_of(f'game{gid}'):.1f}s (backoff)"
             )
             continue
+        # hot standby (replication/): a configured live mirror turns
+        # the crash into a WARM promotion — the state is already on the
+        # standby — instead of a cold restore from disk. The dead
+        # primary is NOT restarted (its EntityIDs now route to the
+        # promoted standby; a restart would re-claim them) — its
+        # pidfile is cleared so later scans treat it as cleanly
+        # stopped.
+        sgid = _standby_for(cfg, gid)
+        if sgid is not None and _promote_standby(server_dir, cfg,
+                                                 gid, sgid):
+            try:
+                os.unlink(_pid_path(server_dir, "game", gid))
+            except OSError:
+                pass
+            if backoff is not None:
+                backoff.attempted(f"game{gid}", True)
+            actions.append(
+                f"game{gid}: standby game{sgid} PROMOTED "
+                "(warm failover; primary not restarted)"
+            )
+            continue
+        if sgid is not None:
+            actions.append(
+                f"game{gid}: standby game{sgid} unreachable; "
+                "falling back to cold restore"
+            )
         snap = freeze_mod.latest_snapshot_path(gid, server_dir)
         ok = _start_game(server_dir, cfg, gid, entry, py, rel_cfg,
                          force_restore=snap is not None)
@@ -799,8 +866,8 @@ def _print_telemetry(targets: list[tuple[str, str]]) -> None:
         print(line)
     # ONE deployment-wide sync-age verdict: the merged end-to-end
     # age-at-delivery vs the paper's 16 ms target, the residency and
-    # conservation lines (tools/obs_aggregate.py); the standby and
-    # rebalance lines print nothing on the port, which runs neither
+    # conservation lines, and the standby and rebalance lines
+    # (tools/obs_aggregate.py)
     agg_tool = _load_tool("obs_aggregate")
     bases = [(label, url.rsplit("/", 1)[0]) for label, url in live]
     if bases:

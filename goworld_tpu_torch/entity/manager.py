@@ -356,6 +356,14 @@ class _HostPack:
                 .reshape(a.shape) for off, a in self._parts]
 
 
+class AdmissionPausedError(RuntimeError):
+    """``create_entity`` into a space whose admission a rebalance
+    handoff paused mid-move (goworld_tpu_torch/rebalance/). Callers
+    place the entity elsewhere or retry after the move completes —
+    silent placement into a draining space would refill the cohort
+    under the handoff."""
+
+
 class World:
     """Hosts every entity of one game process on one device.
 
@@ -586,6 +594,10 @@ class World:
         # host object model
         self.entities: dict[str, Entity] = {}
         self.spaces: dict[str, Space] = {}
+        # spaces currently refusing NEW entity admission (a rebalance
+        # handoff pauses its donor space mid-move so the cohort it is
+        # draining cannot refill under it; goworld_tpu_torch/rebalance/)
+        self._admission_paused: set[str] = set()
         self._slot_owner: list[dict[int, str]] = [
             {} for _ in range(n_spaces)
         ]
@@ -820,6 +832,10 @@ class World:
         moving: bool = False,
     ) -> Entity:
         """Reference ``createEntity`` (``EntityManager.go:201``)."""
+        if space is not None and space.id in self._admission_paused:
+            raise AdmissionPausedError(
+                f"space {space.id} is draining a rebalance handoff; "
+                f"admission paused")
         desc = self.registry.get(type_name)
         if desc.is_space:
             raise TypeError(f"use create_space for space type {type_name}")
@@ -1495,6 +1511,21 @@ class World:
         if self.audit is not None:
             data["own_seq"] = self.audit.ledger.next_seq(e.id)
         return data
+
+    def pause_admission(self, space_id: str, paused: bool = True
+                        ) -> None:
+        """Pause (or resume) NEW-entity admission into a space — the
+        rebalance handoff's mid-move guard. ``create_entity`` into a
+        paused space raises :class:`AdmissionPausedError`; existing
+        entities and migration restores are unaffected (an abort must
+        be able to put the cohort back)."""
+        if paused:
+            self._admission_paused.add(space_id)
+        else:
+            self._admission_paused.discard(space_id)
+
+    def admission_allowed(self, space_id: str) -> bool:
+        return space_id not in self._admission_paused
 
     def remove_for_migration(self, e: Entity, target: int = 0,
                              out_tick: int | None = None) -> None:

@@ -741,12 +741,12 @@ class SnapshotChain:
     see — attr-heavy worlds keep correctness but less of the byte
     win.
 
-    Threading: ``write()`` stays the synchronous whole path. A worker
-    (the reference's replication worker, not ported yet) splits it: the
-    tick thread calls :meth:`capture` (cheap — host records with
-    deferred plane refs), the worker calls :meth:`complete_capture`
-    (the device fetch), :meth:`build` (quantize + diff) and
-    :meth:`write_record` (disk).
+    Threading: ``write()`` stays the synchronous whole path. The
+    replication worker (:mod:`goworld_tpu_torch.replication.worker`)
+    splits it: the tick thread calls :meth:`capture` (cheap — host
+    records with deferred plane refs), the worker calls
+    :meth:`complete_capture` (the device fetch), :meth:`build`
+    (quantize + diff) and :meth:`write_record` (disk).
     The keyframe memory (``_key_planes``/``_key_rows``) is touched
     only by build(), so exactly ONE thread may build — the worker's,
     or the caller's via write(), never both."""

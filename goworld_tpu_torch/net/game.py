@@ -36,11 +36,6 @@ from goworld_tpu_torch.utils import consts, faults, flightrec, log, metrics, \
 logger = log.get("game")
 
 
-def _refuse(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet; see ROADMAP.md Queue A item 8")
-
-
 class GameServer:
     """One game process: a World + connections to every dispatcher."""
 
@@ -79,19 +74,12 @@ class GameServer:
         governor_table: str = "",
         audit_scrub_every: int = 0,
         standby_of: int = 0,
+        replication_keyframe_every: int = 0,
+        replication_queue: int = 4,
+        replication_lag_budget_ticks: int = 16,
         rebalance_enabled: bool = False,
+        rebalance_batch: int = 64,
     ):
-        # the planes the port does not run yet: refused, never skipped
-        if standby_of:
-            raise _refuse("standby_of (hot-standby replication, "
-                          "replication/)")
-        if rebalance_enabled:
-            raise _refuse("rebalance_enabled (rebalance/)")
-        if checkpoint_interval > 0 \
-                and getattr(world, "snapshot_keyframe_every", 0) > 0:
-            raise _refuse("checkpoint_interval with snapshot_keyframe_every "
-                          "(the chain rides replication/'s worker)")
-
         self.game_id = game_id
         self.world = world
         # SnapshotChain CRC-scrub cadence (ticks; 0 = off): every Nth
@@ -304,6 +292,70 @@ class GameServer:
                     "game%d: kernel governor disabled (%s)", game_id,
                     exc,
                 )
+
+        # hot-standby replication (goworld_tpu_torch/replication/):
+        # primary side lazily builds a bounded worker when a standby
+        # subscribes or the chain-checkpoint cadence fires; standby
+        # side ([gameN] standby_of = M) mirrors the primary's frame
+        # stream instead of ticking, until promoted
+        self.standby_of = int(standby_of)
+        self.replication_keyframe_every = int(replication_keyframe_every)
+        self.replication_queue = int(replication_queue)
+        self.repl_worker = None
+        self._repl_subscribers: set[int] = set()
+        self._repl_disk_due = False
+        self._repl_late_frames = 0
+        self._standby_applier = None
+        self.standby_tracker = None
+        self._promoted = False
+        self._promote_pending: int | None = None
+        self._promote_claim: str | None = None
+        self._promote_epoch = 0
+        self._promote_log = None
+        self._repl_attached = False
+        self._repl_resub = 0
+        self._standby_warmed = False
+        if self.standby_of:
+            if world._multihost:
+                raise ValueError(
+                    "standby_of is single-controller only (a multihost "
+                    "group's collectives cannot pause for mirroring)")
+            from goworld_tpu_torch.replication import standby as _standby
+
+            self.standby_tracker = _standby.register(
+                f"game{game_id}",
+                _standby.StandbyTracker(
+                    game_id, self.standby_of,
+                    tick_hz=1.0 / max(tick_interval, 1e-6),
+                    lag_budget_ticks=int(replication_lag_budget_ticks),
+                ),
+            )
+            self._standby_applier = _standby.StandbyApplier(
+                world, self.standby_of, tracker=self.standby_tracker)
+            self.standby_tracker.on_promote = self._request_promotion
+            self.kvreg_watchers.append(self._on_promotion_kvreg)
+
+        # self-healing rebalance plane (goworld_tpu_torch/rebalance/): a
+        # per-game handoff agent drives bounded entity cohorts to an
+        # underloaded peer through the PRODUCTION migration protocol
+        # (wire mode: the agent only initiates _remote_enter_space; the
+        # QUERY_SPACE -> MIGRATE_REQUEST -> REAL_MIGRATE handlers do the
+        # removal, so an abandoned move leaves the entity live on the
+        # source by construction). The agent also answers the
+        # /rebalance?handoff= manual drain.
+        self.rebalance_enabled = bool(rebalance_enabled)
+        self.rebalance_agent = None
+        self._rebalance_pub_tick = 0
+        self._rebalance_paused_pub = False
+        if self.rebalance_enabled:
+            from goworld_tpu_torch import rebalance as _rebalance
+
+            self.rebalance_agent = _rebalance.register(
+                f"game{game_id}",
+                _rebalance.HandoffExecutor(
+                    world, game_id=game_id,
+                    batch=max(1, int(rebalance_batch))))
+            _rebalance.set_handoff_hook(self._request_handoff)
 
         # wire the world's pluggable edges to the cluster
         w = world
@@ -518,6 +570,12 @@ class GameServer:
                 return n
 
     def tick(self) -> None:
+        if self._standby_applier is not None and not self._promoted:
+            # a standby's world evolves ONLY by applied frames (the
+            # pump above already ran the applier); no device tick, no
+            # fan-out, until promotion flips this gate off
+            self._standby_tick()
+            return
         # wall clock measured HERE (not in serve_forever) so manual
         # pump()/tick() loops — tests, embedded harnesses — feed the
         # flight recorder the same SLO signal as the real serve loop
@@ -532,6 +590,12 @@ class GameServer:
         with tl.span("fan_out"):
             self._flush_sync_out()
             self._maybe_checkpoint()
+            self._replication_pump()
+        if self.rebalance_agent is not None:
+            try:
+                self._rebalance_service()
+            except Exception:  # must never break a tick
+                logger.exception("rebalance service failed")
         ap = getattr(self.world, "audit", None)
         if (ap is not None and self.audit_scrub_every > 0
                 and self.world.tick_count % self.audit_scrub_every == 0):
@@ -570,6 +634,81 @@ class GameServer:
     # carries the bubble p99 of the ticks since the previous window —
     # the residency_regression trigger's input (utils/flightrec.py)
     RESIDENCY_WIN_TICKS = 16
+    # rebalance send-window cadence (ticks): a busy handoff agent
+    # initiates at most one rate-limited batch window per this many
+    # ticks, so the migration path never becomes its own overload
+    REBALANCE_PUMP_TICKS = 16
+    # kvreg advert cadence for this game's receiving space
+    REBALANCE_PUB_TICKS = 64
+
+    def _rebalance_service(self) -> None:
+        """Per-tick rebalance housekeeping (logic thread): advertise
+        this game's receiving space in kvreg, pump the active handoff
+        one send window on its cadence, observe wire completions, and
+        publish/clear the deployment-wide admission pause."""
+        agent = self.rebalance_agent
+        w = self.world
+        tick = w.tick_count
+        if self._rebalance_pub_tick == 0 \
+                or tick - self._rebalance_pub_tick \
+                >= self.REBALANCE_PUB_TICKS:
+            self._rebalance_pub_tick = max(1, tick)
+            nil_id = getattr(w.nil_space, "id", None)
+            sid = next(
+                (s for s in sorted(w.spaces) if s != nil_id), None)
+            if sid is not None:
+                self.kvreg_register(
+                    f"rebalance/space/game{self.game_id}", sid,
+                    force=True)
+        if agent.busy:
+            if tick % self.REBALANCE_PUMP_TICKS == 0:
+                agent.pump()
+            agent.wire_poll(self._migrating_out)
+        paused = agent.busy
+        if paused != self._rebalance_paused_pub:
+            self._rebalance_paused_pub = paused
+            self.kvreg_register(
+                f"rebalance/pause/game{self.game_id}",
+                "1" if paused else "0", force=True)
+
+    def _request_handoff(self, target: int,
+                         batch: int | None = None) -> dict:
+        """The ``/rebalance?handoff=GAMEID`` poke (debug-http thread):
+        validate against the kvreg mirror, then post the actual start
+        onto the logic thread — the world is single-threaded, and no
+        World or CUDA call runs on the HTTP thread."""
+        agent = self.rebalance_agent
+        if agent is None:
+            return {"error": "rebalance disabled on this process"}
+        if int(target) == self.game_id:
+            return {"error": "cannot hand off to self"}
+        space = self.kvreg.get(f"rebalance/space/game{int(target)}")
+        if not space:
+            return {"error":
+                    f"game{int(target)} advertises no receiving space"}
+        if agent.busy:
+            return {"error": "a handoff is already in flight"}
+        tgt, sp = int(target), space
+
+        def _start() -> None:
+            if agent.busy:
+                return
+            try:
+                n = agent.start(
+                    tgt, "manual",
+                    send=lambda eid, e: self._remote_enter_space(
+                        e, sp, tuple(e.position)),
+                    batch=batch, detach=False)
+                logger.info(
+                    "game%d: manual handoff of %d entities to game%d "
+                    "(space %s)", self.game_id, n, tgt, sp)
+            except Exception:
+                logger.exception("game%d: manual handoff failed",
+                                 self.game_id)
+
+        self.world.post_q.post(_start)
+        return {"requested": True, "target": f"game{tgt}",
+                "space": sp, "batch": int(batch or agent.batch)}
 
     def _drive_governor(self):
         """One governor observation per rotated signature window: hand
@@ -666,6 +805,12 @@ class GameServer:
             av = ap.take_violation()
             if av is not None:
                 frame["audit_violation"] = av
+        if self.rebalance_agent is not None:
+            # each terminal handoff transition (start/done/abort) fires
+            # the rebalance_action trigger at most once
+            ra = self.rebalance_agent.take_action_note()
+            if ra is not None:
+                frame["rebalance"] = ra
         rt = getattr(w, "residency", None)
         if rt is not None and tick % self.RESIDENCY_WIN_TICKS == 0:
             # windowed bubble verdict on a cadence: the p99 of the host
@@ -736,7 +881,8 @@ class GameServer:
         restarted ``-restore`` without losing the world since the last
         reload. The snapshot is asynchronous
         (``freeze.checkpoint_async``: the tick loop keeps running through
-        the device fetch + file write)."""
+        the device fetch + file write); with ``snapshot_keyframe_every``
+        the delta chain rides the replication worker instead."""
         if self.checkpoint_interval <= 0 or self.run_state != "running":
             return
         from goworld_tpu_torch import freeze as _freeze
@@ -748,20 +894,265 @@ class GameServer:
             return
         self._last_ckpt_mono = now
         try:
-            _freeze.checkpoint_async(w, self.freeze_dir)
+            if getattr(w, "snapshot_keyframe_every", 0) > 0:
+                # delta-compressed chain, routed through the bounded
+                # replication worker: the tick thread stages one cheap
+                # capture in _replication_pump; device fetch,
+                # quantize/diff and the disk write run off-thread
+                self._repl_disk_due = True
+            else:
+                _freeze.checkpoint_async(w, self.freeze_dir)
         except Exception:
             logger.exception("game%d: periodic checkpoint failed",
+                             self.game_id)
+
+    # ==================================================================
+    # hot-standby replication (goworld_tpu_torch/replication/)
+    # ==================================================================
+    # standby re-subscribe cadence (serve-loop iterations) while
+    # unattached or healing from a torn stream
+    REPL_RESUB_TICKS = 64
+
+    def _ensure_repl_worker(self):
+        if self.repl_worker is None:
+            from goworld_tpu_torch import freeze as _freeze
+            from goworld_tpu_torch.replication.worker import \
+                ReplicationWorker
+
+            w = self.world
+            kf = (self.replication_keyframe_every
+                  or getattr(w, "snapshot_keyframe_every", 0) or 8)
+            self.repl_worker = ReplicationWorker(
+                _freeze.SnapshotChain(w, self.freeze_dir,
+                                      keyframe_every=kf),
+                game_id=self.game_id,
+                queue_max=self.replication_queue,
+                send_fn=self._send_repl_frame,
+            )
+        return self.repl_worker
+
+    def _replication_pump(self) -> None:
+        """Tick-thread side of the chain/stream plane: ONE cheap
+        host-record capture per due tick (device planes cloned on the
+        tick's stream behind a recorded event, no host sync), handed to
+        the bounded worker (the device fetch, quantize/diff, disk
+        write and stream send all run off-thread). Queue full = the
+        capture is dropped with a loud counter and the stream degrades
+        to keyframe cadence — never the tick."""
+        stream = bool(self._repl_subscribers)
+        disk = self._repl_disk_due
+        if not stream and not disk:
+            return
+        self._repl_disk_due = False
+        try:
+            worker = self._ensure_repl_worker()
+            worker.submit(worker.chain.capture(),
+                          to_disk=disk, to_stream=stream)
+        except Exception:
+            logger.exception("game%d: replication capture failed",
+                             self.game_id)
+
+    def _send_repl_frame(self, blob: bytes, kind: str,
+                         tick: int) -> None:
+        """Stream send (runs on the WORKER thread): one packet per
+        subscriber, each pinned to a deterministic dispatcher leg so
+        per-standby frame order is preserved end to end."""
+        for sgid in sorted(self._repl_subscribers):
+            conn = self.cluster.conns[sgid % len(self.cluster.conns)]
+            self._send(conn,
+                       proto.pack_replication_frame(sgid, self.game_id,
+                                                    blob))
+
+    def _standby_tick(self) -> None:
+        """The standby's serve-loop body: keep the subscription alive
+        (attach + torn-stream resync both re-request a keyframe) and
+        drive a staged promotion claim on the logic thread."""
+        if not self._standby_warmed:
+            # pre-warm the tick ON the still-empty world: its first
+            # tick builds and loads the kernels and warms the allocator
+            # (shapes are capacity-static, so it is the same step the
+            # promoted tick runs). Without it the first post-promotion
+            # tick pays that cost — what hot standby exists to avoid.
+            # Must run before the first frame applies: a tick would
+            # ADVANCE a populated mirror past its primary.
+            self._standby_warmed = True
+            if not self.world.spaces:
+                try:
+                    self.world.tick()
+                    self.world.tick_count = 0
+                except Exception:
+                    logger.exception(
+                        "game%d: standby warmup tick failed",
+                        self.game_id)
+        self._drop_mirror_client_events()
+        self._repl_resub -= 1
+        dec = self._standby_applier.decoder
+        if self._repl_resub <= 0 and (
+                not self._repl_attached or dec.needs_keyframe):
+            if self.cluster.conns:
+                self._send(
+                    self.cluster.conns[
+                        self.game_id % len(self.cluster.conns)],
+                    proto.pack_replication_subscribe(self.standby_of,
+                                                     self.game_id))
+            self._repl_resub = self.REPL_RESUB_TICKS
+        if self._promote_pending is not None \
+                and self._promote_claim is None:
+            self._claim_promotion()
+
+    def _drop_mirror_client_events(self) -> None:
+        """The primary serves the clients until promotion: what the
+        mirror staged for them (the destroy of a mirrored entity bound
+        to a client, a client binding's create) is dropped, never
+        flushed at the promoted game's first tick — a client would
+        read a stale destroy of an entity it already let go. The JAX
+        package's standby flushes them (ROADMAP.md Queue C10)."""
+        self._events_out.clear()
+        self._events_trace.clear()
+        self._sync_out.clear()
+
+    def _request_promotion(self, epoch: int | None = None) -> dict:
+        """Promotion hook installed on the standby tracker — reached
+        from the debug-http thread (``/standby?promote=1``, the
+        supervisor's poke). Only STAGES the request; the kvreg claim
+        runs on the logic thread (_standby_tick). epoch None = derive
+        from the last observed promotion round."""
+        if self._standby_applier is None:
+            return {"error": "not a standby"}
+        if self._promoted:
+            return {"status": "already_promoted",
+                    "epoch": self._promote_epoch}
+        if self._promote_pending is None:
+            self._promote_pending = -1 if epoch is None else int(epoch)
+        return {"status": "claiming", "epoch": self._promote_pending,
+                "applied_tick":
+                    self._standby_applier.decoder.applied_tick}
+
+    def _claim_promotion(self) -> None:
+        from goworld_tpu_torch.replication import promote as _promote
+
+        key = _promote.claim_key(self.standby_of)
+        epoch = self._promote_pending
+        if epoch is None:
+            return
+        if epoch < 0:
+            cur = _promote.parse_claim(self.kvreg.get(key, ""))
+            epoch = (cur["epoch"] + 1) if cur else 1
+        self._promote_epoch = int(epoch)
+        dec = self._standby_applier.decoder
+        self._promote_claim = _promote.claim_value(
+            self.game_id, self._promote_epoch, dec.applied_seq)
+        self._promote_log = _promote.DecisionLog()
+        self._promote_log.note(
+            "claim", key=key, value=self._promote_claim,
+            applied_tick=dec.applied_tick,
+            applied_seq=dec.applied_seq)
+        self.kvreg_register(key, self._promote_claim)
+
+    def _on_promotion_kvreg(self, key: str, val: str) -> None:
+        """kvreg watcher (logic thread): adjudicate the dispatcher's
+        broadcast for our promotion claim — first-writer-wins plus the
+        epoch guard covering BOTH stale-replay orders
+        (replication/promote.py)."""
+        from goworld_tpu_torch.replication import promote as _promote
+
+        if self._promote_claim is None or self._promoted \
+                or key != _promote.claim_key(self.standby_of):
+            return
+        verdict = _promote.adjudicate(val, self._promote_claim)
+        self._promote_log.note("adjudicate", winner=val,
+                               mine=self._promote_claim,
+                               verdict=verdict)
+        if verdict == "won":
+            self._finish_promotion()
+        elif verdict == "stale_winner":
+            # a replayed stale claim landed first: force-overwrite is
+            # legitimate exactly and only now
+            self._promote_log.note("force_reregister",
+                                   value=self._promote_claim)
+            self.kvreg_register(key, self._promote_claim, force=True)
+        else:
+            self._promote_log.note("stand_down", winner=val)
+            self._write_promotion_log()
+            self._promote_pending = None
+            self._promote_claim = None
+
+    def _finish_promotion(self) -> None:
+        w = self.world
+        dec = self._standby_applier.decoder
+        # frames applied in this pump before the claim's broadcast
+        # staged their mirror events after the last standby tick
+        self._drop_mirror_client_events()
+        self._promoted = True
+        tick = max(int(dec.applied_tick), 0)
+        # resume ticking FROM the last applied frame: staged mirror
+        # state flushes into the device lanes on the first real tick
+        # (the restore_world contract)
+        w.tick_count = max(int(w.tick_count), tick)
+        self.standby_tracker.note_promoted(self._promote_epoch, tick)
+        self._promote_log.note(
+            "promoted", epoch=self._promote_epoch, tick=tick,
+            seq=dec.applied_seq,
+            entities=len([e for e in w.entities.values()
+                          if not e.destroyed]))
+        self._write_promotion_log()
+        # re-point the dispatcher's EntityID routing at this process: a
+        # fresh census handshake over every leg (the dead primary's
+        # routes dropped with its connection, so the census claims
+        # them; conflicts come back as rejects). Clients re-handshake
+        # through the same census path.
+        census = list(w.entities.keys())
+        for conn in self.cluster.conns:
+            self._send(conn, proto.pack_set_game_id(
+                self.game_id, is_reconnect=True, is_restore=True,
+                ban_boot=self.ban_boot, entity_ids=census))
+        if self.flightrec is not None:
+            # fires the standby_promoted trigger: the promotion context
+            # freezes into an incident bundle on OUR side (the dead
+            # primary's ring froze at its crash)
+            self.flightrec.record({
+                "tick": tick,
+                "standby_promoted": (
+                    f"game{self.game_id} epoch {self._promote_epoch} "
+                    f"seq {dec.applied_seq} tick {tick}"),
+            })
+        logger.warning(
+            "game%d: PROMOTED to primary for game%d at epoch %d "
+            "(frame seq %d, tick %d) — resuming ticking",
+            self.game_id, self.standby_of, self._promote_epoch,
+            dec.applied_seq, tick,
+        )
+
+    def _write_promotion_log(self) -> None:
+        """Persist the byte-replayable decision log next to the
+        snapshots (ops read and replay it after the fact)."""
+        if self._promote_log is None:
+            return
+        try:
+            with open(os.path.join(
+                    self.freeze_dir,
+                    f"game{self.game_id}_promotion.log"), "wb") as f:
+                f.write(self._promote_log.dump())
+        except OSError:
+            logger.exception("game%d: promotion log write failed",
                              self.game_id)
 
     # ==================================================================
     # networking thread side
     # ==================================================================
     async def _handshake(self, conn: DispatcherConn) -> None:
+        # an UNPROMOTED standby registers NO entities (its mirror copies
+        # belong to the live primary — claiming them would fork routing)
+        # and is never boot-eligible; promotion re-handshakes with the
+        # real census (_finish_promotion)
+        is_standby = (self._standby_applier is not None
+                      and not self._promoted)
         p = proto.pack_set_game_id(
             self.game_id, is_reconnect=self.deployment_ready,
             is_restore=self._is_restore,
-            ban_boot=self.ban_boot,
-            entity_ids=list(self.world.entities.keys()),
+            ban_boot=self.ban_boot or is_standby,
+            entity_ids=([] if is_standby
+                        else list(self.world.entities.keys())),
         )
         conn.conn.send(p)
         await conn.conn.drain()
@@ -1290,10 +1681,33 @@ class GameServer:
         if msgtype == proto.MT_NOTIFY_GAME_DISCONNECTED:
             self.online_games.discard(pkt.read_u16())
             return
-        if msgtype in (proto.MT_REPLICATION_SUBSCRIBE,
-                       proto.MT_REPLICATION_FRAME):
-            raise _refuse(f"msgtype {msgtype} (hot-standby replication, "
-                          "replication/)")
+        if msgtype == proto.MT_REPLICATION_SUBSCRIBE:
+            pkt.read_u16()  # routing target (this game)
+            sgid = pkt.read_u16()
+            self._repl_subscribers.add(sgid)
+            try:
+                # attach (and torn-stream resync) always restarts the
+                # standby from a self-contained frame
+                self._ensure_repl_worker().request_keyframe()
+            except Exception:
+                logger.exception(
+                    "game%d: replication subscribe from game%d failed",
+                    self.game_id, sgid)
+            return
+        if msgtype == proto.MT_REPLICATION_FRAME:
+            pkt.read_u16()  # routing target (this game)
+            pgid = pkt.read_u16()
+            blob = pkt.read_bytes(pkt.read_u32())
+            if (self._standby_applier is None or self._promoted
+                    or pgid != self.standby_of):
+                # a frame for a role we no longer (or never) hold — a
+                # zombie primary streaming at a promoted standby lands
+                # here, counted, never applied
+                self._repl_late_frames += 1
+                return
+            self._repl_attached = True
+            self._standby_applier.apply(blob)
+            return
         if msgtype == proto.MT_NOTIFY_GATE_DISCONNECTED:
             gate_id = pkt.read_u16()
             for e in list(w.entities.values()):

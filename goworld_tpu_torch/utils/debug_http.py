@@ -71,14 +71,18 @@ port exposes:
   ``?eids=1`` adds the (bounded) sorted EntityID lists for diffing a
   census divergence down to the first differing id; an honest error
   on processes that track no entities
-* ``/standby`` — the hot-standby replication plane. The port has none
-  (``standby_of`` is refused at boot, ROADMAP.md Queue A item 8), so it
-  answers as the JAX package's does in a process that mirrors nothing;
-  ``?promote=1`` is refused with an error naming ROADMAP.md
-* ``/rebalance`` — the self-healing rebalance plane. The port has none
-  (``[deployment] rebalance`` is refused at boot), so it answers with no
-  agents, as the JAX package's does in a process that hosts none;
-  ``?handoff=GAMEID`` is refused with an error naming ROADMAP.md
+* ``/standby`` — the hot-standby replication plane (:mod:`goworld_tpu_torch.
+  replication.standby`): per-standby applied seq/tick, stream bytes,
+  reject counts by torn-stream reason, last-keyframe age and a
+  sync-age-style staleness verdict (lag ticks vs budget);
+  ``?promote=1`` (optionally ``&epoch=E``) is the supervisor's
+  promotion poke; an honest error on processes that mirror nothing
+* ``/rebalance`` — the self-healing rebalance plane (:mod:`goworld_tpu_torch.
+  rebalance`): per-game handoff agents (active job, queue/unacked
+  depth, move/abort counters by cause) and the controller's policy
+  state + decision-log tail where one runs; ``?handoff=GAMEID``
+  (optionally ``&batch=N``) pokes a bounded manual cohort drain on
+  this process's agent
 
 http.server on a daemon thread, one call to :func:`start`.
 """
@@ -286,9 +290,6 @@ def _profile_action(query: dict) -> tuple[dict, int]:
         return (body, 200)
 
 
-_NOT_PORTED = "is not ported yet; see ROADMAP.md Queue A item 8"
-
-
 class _Handler(BaseHTTPRequestHandler):
     def log_message(self, *a):  # keep request noise out of server logs
         pass
@@ -415,22 +416,44 @@ class _Handler(BaseHTTPRequestHandler):
                 and query["eids"][0] not in ("0", "false")
             self._json(audit.snapshot_all(eids=want_eids))
         elif path == "/standby":
-            # hot-standby replication plane: the port runs none, so the
-            # answer is the JAX package's in a process mirroring nothing
+            # hot-standby replication plane (goworld_tpu_torch/
+            # replication/standby registry): per-standby lag/bytes/reject
+            # stats with a sync-age-style staleness verdict; ?promote=1
+            # (optionally &epoch=E) drives the supervisor's promotion
+            # poke — the claim itself runs on the game's logic thread
+            from goworld_tpu_torch.replication import standby
+
             if "promote" in query \
                     and query["promote"][0] not in ("0", "false"):
-                self._json({"error": "standby promotion (replication/) "
-                                     + _NOT_PORTED})
+                ep = query.get("epoch", [None])[0]
+                self._json(standby.request_promotion(
+                    int(ep) if ep not in (None, "") else None))
             else:
-                self._json({"error": "no standby tracker in this process"})
+                self._json(standby.snapshot_all())
         elif path == "/rebalance":
-            # self-healing rebalance plane: the port hosts no agent and
-            # no controller; a manual handoff poke is refused
+            # self-healing rebalance plane (goworld_tpu_torch/rebalance
+            # registry): per-game handoff agents (active job, move/
+            # abort counters) and, on the controller's host, the
+            # policy state + decision log tail; ?handoff=GAMEID
+            # (optionally &batch=N) pokes a bounded cohort handoff on
+            # this process's agent — the operator's manual drain knob,
+            # same bookkeeping as an automated move; the start itself
+            # is posted onto the game's logic thread
+            from goworld_tpu_torch import rebalance
+
             if "handoff" in query and query["handoff"][0]:
-                self._json({"error": "rebalance handoff (rebalance/) "
-                                     + _NOT_PORTED})
+                try:
+                    target = int(query["handoff"][0])
+                except ValueError:
+                    self._json({"error": "handoff wants a game id"},
+                               400)
+                    return
+                batch_q = query.get("batch", [None])[0]
+                self._json(rebalance.request_handoff(
+                    target,
+                    int(batch_q) if batch_q not in (None, "") else None))
             else:
-                self._json({"agents": {}})
+                self._json(rebalance.snapshot())
         elif path == "/incidents":
             # flight-recorder incident bundles (utils/flightrec);
             # ?frames=1 adds the live per-tick frame ring

@@ -5,7 +5,8 @@ names of ``api``), the ini's config against the JAX package's, a game
 booted from an ini by ``gw.run([...], block=False, device="cpu")``
 against the port's own dispatchers and gate and played by a strict bot,
 every setting the port does not run refused with
-``NotImplementedError`` naming ROADMAP.md (no card and no
+``NotImplementedError`` naming ROADMAP.md, a standby and the rebalance
+plane booted through the same entry (no card and no
 ``device="cpu"`` raises as the World does), and
 ``examples/megaspace_demo``'s ini through ``gw.run(device="cpu")``
 against the JAX package's World built from the same ini (its 200
@@ -199,10 +200,14 @@ def test_run_refuses_unported_settings(tmp_path, fresh_api, monkeypatch,
     refused until the debug HTTP and the daemon were ported; those cases
     now hold that the game boots against dispatchers, serves its debug
     endpoints on the port, and goes through ``daemonize`` with its log
-    file (recorded here rather than forking the test process)."""
+    file (recorded here rather than forking the test process).
+    ``standby_of`` was refused until the replication plane was ported;
+    that case now holds that the game boots as a standby: empty (the
+    boot callbacks skipped), its tracker on ``/standby``, and its first
+    tick the warm one, which leaves the tick count at 0."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    if "http_port" in game or argv == ["-d"]:
+    if "http_port" in game or argv == ["-d"] or "standby_of" in game:
         _run_ported_process_setting(tmp_path, monkeypatch, game, argv)
         return
     ini = _ini(str(tmp_path), None, **game)
@@ -238,7 +243,9 @@ def _run_ported_process_setting(tmp_path, monkeypatch, game, argv):
 
     forks: list = []
     monkeypatch.setattr(daemon, "daemonize", forks.append)
-    if "http_port" in game:
+    booted: list = []
+    gw.on_boot(booted.append)
+    if "http_port" in game or "standby_of" in game:
         with socket.socket() as sk:
             sk.bind(("127.0.0.1", 0))
             game = dict(game, http_port=sk.getsockname()[1])
@@ -261,10 +268,26 @@ def _run_ported_process_setting(tmp_path, monkeypatch, game, argv):
                 return json.loads(r.read())
 
         assert get("/healthz") == {"ok": True}
+        if "standby_of" in game:
+            w = rt.world
+            assert booted == [] and list(w.spaces) == [w.nil_space.id]
+            rt.server.pump()
+            rt.server.tick()   # the warm tick on the empty World
+            assert w.tick_count == 0 and rt.server._standby_warmed
+            snap = get("/standby")["game1"]
+            assert (snap["role"], snap["primary_game"],
+                    snap["frames"]) == ("standby", 2, 0)
+            return
+        assert len(booted) == 1
         assert get("/standby") == {
             "error": "no standby tracker in this process"}
         assert get("/rebalance") == {"agents": {}}
-        assert "ROADMAP" in get("/standby?promote=1")["error"]
+        # the planes run on the port: a process that mirrors nothing
+        # and hosts no agent answers the pokes as the JAX package's
+        assert get("/standby?promote=1") == {
+            "error": "no promotable standby in this process"}
+        assert get("/rebalance?handoff=2") == {
+            "error": "no rebalance handoff agent on this process"}
     finally:
         if rt is not None:
             rt.server.stop()
@@ -274,12 +297,49 @@ def _run_ported_process_setting(tmp_path, monkeypatch, game, argv):
 
 
 def test_run_refuses_rebalance_deployment(tmp_path, fresh_api):
-    ini = _ini(str(tmp_path), None)
-    with open(ini, "a") as f:
-        f.write("[deployment]\nrebalance = true\n")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gw.run(["-gid", "1", "-configfile", ini], block=False,
-               device="cpu")
+    """``[deployment] rebalance = true`` was refused until the rebalance
+    plane was ported; the game now boots with its handoff agent
+    registered, advertises its receiving space in kvreg on its first
+    tick, and answers the manual drain poke as the JAX package's."""
+    from goworld_tpu_torch import rebalance
+
+    harness = ClusterHarness(n_dispatchers=1, n_gates=1,
+                             desired_games=1)
+    harness.start(timeout=WAIT)
+    rt = None
+    rebalance.reset()
+    try:
+        ini = _ini(str(tmp_path), harness)
+        with open(ini, "a") as f:
+            f.write("[deployment]\nrebalance = true\n"
+                    "rebalance_batch = 16\n")
+        gw.register_space("Arena", Arena)
+        gw.on_boot(lambda w: w.create_space("Arena"))
+        rt = gw.run(["-gid", "1", "-configfile", ini], block=False,
+                    device="cpu")
+        gs = rt.server
+        assert gs.rebalance_agent is rebalance.get("game1")
+        assert gs.rebalance_agent.batch == 16
+        arena = next(s for s in rt.world.spaces
+                     if s != rt.world.nil_space.id)
+        t_end = time.monotonic() + WAIT
+        while gs.kvreg.get("rebalance/space/game1") != arena:
+            assert time.monotonic() < t_end
+            gs.tick()
+            gs.pump()
+            time.sleep(0.01)
+        assert rebalance.request_handoff(1, 8) == {
+            "error": "cannot hand off to self"}
+        assert rebalance.request_handoff(2, 8) == {
+            "error": "game2 advertises no receiving space"}
+        assert rebalance.snapshot()["agents"]["game1"]["busy"] is False
+    finally:
+        if rt is not None:
+            rt.server.stop()
+            rt.storage.shutdown()
+            rt.workers.wait_clear()
+        harness.stop()
+        rebalance.reset()
 
 
 def test_run_without_a_card_raises(tmp_path, fresh_api):
@@ -322,20 +382,42 @@ def test_unported_edges_raise():
     w = World(WorldConfig(capacity=64, grid=GridSpec(
         radius=20.0, extent_x=100.0, extent_z=100.0)), device="cpu",
         telemetry_live=False, residency=False, audit=False)
-    for kw in (dict(standby_of=2), dict(rebalance_enabled=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            GameServer(1, w, [], **kw)
+    # the standby, the rebalance agent, the chain checkpoint on the
+    # replication worker and the replication msgtypes were refused
+    # until their planes were ported; they now run
+    from goworld_tpu_torch import rebalance
+    from goworld_tpu_torch.replication import standby
+
+    sb = GameServer(2, w, [], standby_of=1)
+    assert standby.snapshot_all()["game2"]["primary_game"] == 1
+    standby.reset()
+    gs = GameServer(1, w, [], rebalance_enabled=True, rebalance_batch=8)
+    assert rebalance.get("game1") is gs.rebalance_agent
+    rebalance.reset()
     w.snapshot_keyframe_every = 4
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GameServer(1, w, [], checkpoint_interval=5.0)
+    gs = GameServer(1, w, [], checkpoint_interval=1e-9, freeze_dir=".")
+    gs._last_ckpt_mono = 0.0
+    gs._maybe_checkpoint()
+    assert gs._repl_disk_due and not getattr(w, "_ckpt_inflight", False)
     w.snapshot_keyframe_every = 0
     gs = GameServer(1, w, [])
     p = new_packet(proto.MT_REPLICATION_SUBSCRIBE)
     p.append_u16(1)
     p.append_u16(2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gs._handle_packet(0, proto.MT_REPLICATION_SUBSCRIBE,
-                          Packet(bytes(p.buf[2:])))
+    gs._handle_packet(0, proto.MT_REPLICATION_SUBSCRIBE,
+                      Packet(bytes(p.buf[2:])))
+    assert gs._repl_subscribers == {2} and gs.repl_worker is not None
+    gs.repl_worker.close()
+    # a frame for a role this game does not hold is counted, not applied
+    p = proto.pack_replication_frame(1, 2, b"frame")
+    gs._handle_packet(0, proto.MT_REPLICATION_FRAME,
+                      Packet(bytes(p.buf[2:])))
+    assert gs._repl_late_frames == 1 and sb._repl_late_frames == 0
+    # a standby stays single-controller, as the JAX package's
+    w._multihost = True
+    with pytest.raises(ValueError, match="single-controller"):
+        GameServer(2, w, [], standby_of=1)
+    w._multihost = False
     assert (w.sync_stride, w._multihost) == (1, False)
 
 

@@ -12,8 +12,9 @@ stop, and a status that reports everything stopped. Then the command
 line against the JAX CLI's (``sample-config`` byte for byte, the exit
 codes on a stopped deployment), ``build`` (the three native cores into
 ``goworld_tpu_torch/_build/``, nothing written under ``goworld_tpu/``),
-``supervise`` freezing on shutdown, the refusals (a game of several
-controllers, a standby), a script without ``device="cpu"`` that cannot
+``supervise`` freezing on shutdown, the refusal of a game of several
+controllers, every command on a deployment with a hot standby (the
+watchdog promoting it), a script without ``device="cpu"`` that cannot
 start without a card, and ``examples/unity_demo/server_torch.py`` from a
 copy of its own ini with a bot over TCP and one over WebSocket.
 
@@ -315,16 +316,86 @@ def test_multihost_demo_refused_before_anything_spawns(tmp_path, cmd):
 
 @pytest.mark.parametrize("cmd", ["start", "reload", "watchdog",
                                  "supervise"])
-def test_standby_refused_before_anything_spawns(tmp_path, cmd):
-    """A hot standby (``standby_of``) and so its promotion, which the
-    JAX watchdog drives through ``/standby?promote=1``, are refused."""
-    dst, _ = _deployment(tmp_path / "sb")
+def test_standby_refused_before_anything_spawns(tmp_path, cmd,
+                                                monkeypatch):
+    """A hot standby (``[game2] standby_of = 1``) was refused until the
+    replication plane was ported; each command now takes the deployment
+    (processes recorded, not spawned). ``start`` and ``supervise``'s
+    start spawn the standby after its primary, as any game; ``reload``
+    of a stopped deployment skips both games; ``watchdog`` with the
+    primary dead and the standby alive pokes the standby's
+    ``/standby?promote=1`` and does not restart the primary (its pid
+    file is cleared), and with the standby dead too it falls back to
+    the primary's cold restore."""
+    import json as _json
+    import subprocess
+    import urllib.request
+
+    dst, ports = _deployment(tmp_path / "sb")
     with open(os.path.join(dst, "goworld_tpu.ini"), "a") as f:
-        f.write("[game2]\nstandby_of = 1\nhttp_port = 0\n")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A "
-                                                  "item 8"):
-        cli.main([cmd, dst])
-    assert not os.path.exists(os.path.join(dst, "run", "dispatcher1.pid"))
+        f.write(f"[game2]\nstandby_of = 1\nhttp_port = "
+                f"{ports['h_game'] + 1}\n")
+    spawned, pokes = [], []
+
+    def spawn(server_dir, role, idx, cmd_):
+        spawned.append(f"{role}{idx}")
+        return 0
+
+    monkeypatch.setattr(cli, "_spawn", spawn)
+    monkeypatch.setattr(cli, "_wait_started", lambda *a, **k: True)
+    if cmd in ("start", "reload"):
+        assert cli.main([cmd, dst]) == 0
+        assert spawned == (["dispatcher1", "game1", "game2", "gate1"]
+                           if cmd == "start" else [])
+        return
+    if cmd == "supervise":
+        stop = threading.Event()
+        stop.set()
+        assert cli.cmd_supervise(dst, interval=0.01, stop=stop) == 0
+        assert spawned == ["dispatcher1", "game1", "game2", "gate1"]
+        return
+
+    class _Resp:
+        def __init__(self, body):
+            self.body = body
+
+        def read(self):
+            return _json.dumps(self.body).encode()
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *a):
+            return False
+
+    def urlopen(url, timeout=None):
+        pokes.append(url)
+        return _Resp({"standby": "game2", "status": "claiming",
+                      "epoch": -1})
+
+    monkeypatch.setattr(urllib.request, "urlopen", urlopen)
+    dead = subprocess.Popen(["true"])
+    dead.wait()
+    os.makedirs(os.path.join(dst, "run"), exist_ok=True)
+    for name, pid in (("game1", dead.pid), ("game2", os.getpid())):
+        with open(os.path.join(dst, "run", f"{name}.pid"), "w") as f:
+            f.write(str(pid))
+    assert cli.watch_once(dst) == [
+        "game1: standby game2 PROMOTED (warm failover; primary not "
+        "restarted)"]
+    assert pokes == [f"http://127.0.0.1:{ports['h_game'] + 1}"
+                     "/standby?promote=1"]
+    assert spawned == []
+    assert not os.path.exists(os.path.join(dst, "run", "game1.pid"))
+    # the standby dead too: the primary's cold restore
+    for name in ("game1", "game2"):
+        with open(os.path.join(dst, "run", f"{name}.pid"), "w") as f:
+            f.write(str(dead.pid))
+    acts = cli.watch_once(dst)
+    assert acts[0] == ("game1: standby game2 unreachable; falling back "
+                       "to cold restore")
+    assert spawned[0] == "game1"
+    assert len(pokes) == 1
 
 
 def test_script_without_a_device_cannot_start_without_a_card(tmp_path):

@@ -3,11 +3,13 @@ the JAX package's (``goworld_tpu.utils.debug_http``).
 
 Two processes, one a package, script the same state (the same fault
 schedule, a World of 64 slots with 12 entities of fixed ids in a space,
-6 ticks on the CPU) and serve it; every endpoint in ``_ENDPOINTS``, the
-profile status, the standby and rebalance pokes and an unknown path
-answer with the same status, content type and body shape (every key of
-every object, the kind of every value), and ``/metrics`` with the same
-series names. ``/profile`` drives torch.profiler: it starts, reports
+6 ticks on the CPU, a standby tracker with a promotion hook and a
+handoff agent with its hook registered) and serve it; every endpoint in
+``_ENDPOINTS``, the profile status, the standby and rebalance pokes and
+an unknown path answer with the same status, content type and body
+shape (every key of every object, the kind of every value), the
+standby and rebalance planes and their pokes with the same bodies, and
+``/metrics`` with the same series names. ``/profile`` drives torch.profiler: it starts, reports
 its status, refuses a second start and a bad ``seconds``, stops and
 writes a Chrome trace; ``?seconds=`` stops it by itself; and the start
 and stop run on the thread the process names."""
@@ -61,6 +63,17 @@ for i in range(12):
                      eid=f"npc{i:013d}")
 for _ in range(6):
     w.tick()
+standby = importlib.import_module(pkg + ".replication.standby")
+rebalance = importlib.import_module(pkg + ".rebalance")
+tr = standby.register("game2", standby.StandbyTracker(
+    2, 1, tick_hz=60.0, clock=lambda: 100.0))
+tr.note_applied("key", tick=6, seq=0, nbytes=900, apply_ms=1.5)
+tr.on_promote = lambda epoch=None: {"status": "claiming",
+                                    "epoch": -1 if epoch is None else epoch}
+rebalance.register("game1", rebalance.HandoffExecutor(w, game_id=1,
+                                                      batch=4))
+rebalance.set_handoff_hook(lambda target, batch: {
+    "requested": True, "target": f"game{target}", "batch": batch})
 srv = dh.start(0, process_name="game1")
 port = srv.server_address[1]
 out = {}
@@ -133,8 +146,11 @@ def test_endpoint_answers_as_jax(bodies, ep):
         assert _series(tbody)
     else:
         assert _shape(tbody) == _shape(jbody)
-    if ep in ("/standby?promote=1", "/rebalance?handoff=2"):
-        assert "ROADMAP" in tbody["error"]
+    if ep in ("/standby", "/standby?promote=1", "/rebalance",
+              "/rebalance?handoff=2"):
+        # the planes and their pokes run on the port: the same bodies
+        assert tbody == jbody
+        assert "error" not in tbody
     if ep == "/audit?eids=1":
         assert tbody == jbody  # the same census of the same ids
 
