@@ -590,7 +590,7 @@ class GameServer:
         with tl.span("fan_out"):
             self._flush_sync_out()
             self._maybe_checkpoint()
-            self._replication_pump()
+        self._replication_pump()
         if self.rebalance_agent is not None:
             try:
                 self._rebalance_service()
@@ -945,9 +945,12 @@ class GameServer:
             return
         self._repl_disk_due = False
         try:
-            worker = self._ensure_repl_worker()
-            worker.submit(worker.chain.capture(),
-                          to_disk=disk, to_stream=stream)
+            # its own span (spans never nest): the capture's share of
+            # the tick on the timeline
+            with metrics.timeline.span("repl_capture"):
+                worker = self._ensure_repl_worker()
+                worker.submit(worker.chain.capture(),
+                              to_disk=disk, to_stream=stream)
         except Exception:
             logger.exception("game%d: replication capture failed",
                              self.game_id)
@@ -974,9 +977,14 @@ class GameServer:
             # promoted tick runs). Without it the first post-promotion
             # tick pays that cost — what hot standby exists to avoid.
             # Must run before the first frame applies: a tick would
-            # ADVANCE a populated mirror past its primary.
+            # ADVANCE a populated mirror past its primary. A served
+            # standby holds its nil space by then (api.run creates it
+            # first), which has no device row: the JAX package's
+            # "no spaces" test skips the warm-up there (ROADMAP.md
+            # Queue C14).
             self._standby_warmed = True
-            if not self.world.spaces:
+            w = self.world
+            if all(e is w.nil_space for e in w.entities.values()):
                 try:
                     self.world.tick()
                     self.world.tick_count = 0

@@ -366,14 +366,13 @@ def run_failover(seed: int, n: int = FAILOVER_SOAK_N,
             keep.update(primary=primary, standby=standby,
                         tracker=tracker, applier=applier,
                         census_by_tick=census_by_tick)
-        # the A/B is reported, not gated: the JAX soak's cold World pays
-        # its tick's jit compile, and a cold World here pays no kernel
-        # build (the process already loaded them), so the in-process
-        # ratio says nothing of a deployment's cold restore, which
-        # also boots a process and builds the kernels
+        # the JAX soak's verdict, the A/B included. On the port the
+        # ratio reads 1.3-8.3x (ROADMAP.md Queue C15): the JAX soak's
+        # cold World pays its tick's jit compile, and a cold World
+        # here pays no kernel build (the process already loaded them)
         report["converged"] = bool(
             stream_ok and promote_ok and arbitration_ok and replay_ok
-            and census_ok and conservation_ok and cold_ok)
+            and census_ok and conservation_ok and ab_ok)
         return report
     except Exception as exc:
         report["error"] = f"{type(exc).__name__}: {str(exc)[:300]}"

@@ -271,9 +271,14 @@ def _run_ported_process_setting(tmp_path, monkeypatch, game, argv):
         if "standby_of" in game:
             w = rt.world
             assert booted == [] and list(w.spaces) == [w.nil_space.id]
+            assert w.last_outputs is None
             rt.server.pump()
             rt.server.tick()   # the warm tick on the empty World
             assert w.tick_count == 0 and rt.server._standby_warmed
+            # the tick really ran (its outputs were fetched and
+            # decoded) on a World that holds only its nil space
+            assert w.last_outputs is not None
+            assert "device_step_s" in w.op_stats
             snap = get("/standby")["game1"]
             assert (snap["role"], snap["primary_game"],
                     snap["frames"]) == ("standby", 2, 0)
