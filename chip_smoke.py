@@ -51,7 +51,7 @@ is caught:
 11. the serving World at its defaults (the live telemetry lanes, the
     residency plane sampled every 4 ticks, the audit plane every 8, the
     resident carry): ``workload.serve_world(..., boot=True)`` populates
-    half of a World of 2^20 slots (WORLD_POP) through
+    a quarter of a World of 2^20 slots (WORLD_POP) through
     ``Space.create_entity``, in batches
     entered through ticks whose events the caps hold (its time and the
     host's RSS before and after printed), then WORLD_TICKS
@@ -396,6 +396,41 @@ is caught:
     game1's serve-loop spans a tick with the capture's share, the lag
     at the kill and the seconds from the kill to the promoted game's
     first tick.
+25. (run after 24, before 12) the game of two controller processes on
+    the card (``goworld_tpu_torch.parallel.multihost``: a gloo group on
+    the loopback, every collective staged through pinned memory). The
+    phase kernel's legs from another process (the remote blocks) held
+    against its plain version at the megaspace's halo_cap in one
+    process; then (a) ``make_mega_tick`` at ``mega_config(MH_MEGA_N,
+    MH_DEV)`` (BASELINE config 4: 4x2 tiles, ``async``, fused/pallas)
+    and [21] (a)'s ``make_multi_tick`` (8 x SPACE_N, its free rows and
+    migration requests) each run MH_TICKS ticks in this process over
+    all 8 shards, then as two controllers of 4 shards spawned as
+    ``chip_smoke.py --mh-step`` processes on the same card; every lane
+    of state and outputs of every tile, every tick, must hash (sha256)
+    equal; it prints each rank's tick p50/p99 by host wall and by
+    events, the cross-process legs' ms, collectives and host syncs a
+    tick, the launches a controller and the one-process wall; (b)
+    ``examples/multihost_demo``'s deployment through the ops CLI: its
+    ini (``mesh_devices = 8``, ``mesh_processes = 2``, ``megaspace``,
+    ``mega_shape = 4x2``, a checkpoint interval) widened to [21] (c)'s
+    grid (radius 50, halo_cap 4096, MH_GAME_SLOTS slots a tile,
+    fused/pallas, ``async``), the game (MH_GAME, importing this module)
+    booting MH_GAME_MONSTERS Monsters through ``on_boot``: ``start``
+    (both ranks' logs name the card), MH_GAME_BOTS strict bots log in
+    along the column 1-2 border (the process boundary), half on each
+    side, and walk across it MH_WALK_S; both controllers rest at one
+    tick while every mirror is read against its Avatar's interest set
+    (published by the controller owning its tile), which must be equal,
+    with an entity of the other controller's tiles in some mirror and
+    no strict error (a client message twice); each rank's game ticks
+    launch one sweep and one sort a local tile and two phase kernels;
+    the staging tripwire ran and saw no divergence; ``reload`` (the
+    leader's freeze, both ranks restore), the bots again, ``stop``,
+    ``status`` 1, no process left, no traceback in the games' logs; it
+    prints start, boot, freeze and restore seconds and per round each
+    rank's tick p50/p99, cross-process legs and host syncs a tick and
+    the mutation log's backlog gauges.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -486,11 +521,11 @@ STRESS_TICKS = 4
 # [11]'s World at its defaults, sampled so that samples land inside its
 # timed ticks
 PLANES = dict(residency_sample_every=4, audit_sample_every=8)
-# [11]'s population in its World of N slots: half of them (was N - 4096,
-# whose boot took 213-283 s of the run; cut with [12]'s reps of a whole
-# tick so that the run, with [22], stays inside its limit: PERF.md §4).
-# Its 1% players (5242) still take the 4096 client syncs a tick.
-WORLD_POP = N // 2
+# [11]'s population in its World of N slots: a quarter of them (was N -
+# 4096, whose boot took 213-283 s of the run, then half; cut each time
+# so that the run stays inside its limit with the phases added since:
+# PERF.md §4). Its 1% players take the 4096 client syncs a tick.
+WORLD_POP = N // 4
 # [12] reads a whole tick's device time over PROFILE_TICK_REPS calls, a
 # kernel's over PROFILE_KERNEL_REPS
 PROFILE_TICK_REPS = 5
@@ -3055,7 +3090,7 @@ def behavior_phase(dev, tag, profiled: dict, walk: tuple) -> tuple:
 # ---------------------------------------------------------------- [19]
 # the served game through the port's normal entry, gw.run()
 GAME_SLOTS = 1 << 20      # the width of [11]'s World
-GAME_MONSTERS = 1 << 17   # random-walking Monsters booted before serving
+GAME_MONSTERS = 1 << 16   # random-walking Monsters booted before serving
 GAME_BOTS = 64            # strict BotClients through the gate
 GAME_GROUP = 4            # bots logged in together, inside one AOI
 GAME_WALK_S = 3.0         # seconds the bots walk with position syncs
@@ -3890,7 +3925,7 @@ MESH_FULL = SPACES - 1   # (a) the shard kept nearly full
 MESH_FULL_FREE = 16      # (a) its free slots at the start
 MEGA_GAME_SLOTS = 1 << 17   # (c) slots a tile: 2^20 in all
 MEGA_GAME_SHAPE = (4, 2)
-MEGA_GAME_MONSTERS = 1 << 17
+MEGA_GAME_MONSTERS = 1 << 16   # (c) cut from 2^17 with [25] (PERF.md §4)
 MEGA_GAME_BOTS = 16
 MEGA_GAME_GROUP = 4
 MEGA_GAME_WALK_S = 3.0
@@ -4096,7 +4131,8 @@ class GameMegaArena(gw.Space):
 
 
 def mega_boot(world, pop: int, extent: float, seed: int,
-              log: dict) -> None:
+              log: dict, launches: dict | None = None,
+              label: str = "[21]") -> None:
     """(c)'s boot (``on_boot``): the megaspace Arena, then ``pop`` btree
     Monsters uniform over the world, entered in batches whose enter
     events stay within half of a tile's ``enter_cap`` spread over the
@@ -4123,13 +4159,13 @@ def mega_boot(world, pop: int, extent: float, seed: int,
         before = dict(kernels.LAUNCHES)
         world.tick()
         check_game_launches(before, f"boot tick {ticks + 1}",
-                            MEGA_LAUNCHES, "[21]")
+                            launches or MEGA_LAUNCHES, label)
         out = world.last_outputs
         for lane, cap in (("enter_n", cfg.enter_cap),
                           ("leave_n", cfg.leave_cap),
                           ("delta_rows_n", cfg.delta_rows_cap_eff)):
             if int(getattr(out.base, lane).max()) > cap:
-                fail(f"[21] boot tick {ticks + 1}: {lane} > {cap}")
+                fail(f"{label} boot tick {ticks + 1}: {lane} > {cap}")
         ticks += 1
         events += int(out.base.enter_n.sum())
     log.update(seconds=time.perf_counter() - t0, ticks=ticks,
@@ -5073,7 +5109,7 @@ def pid_alive(pid: int) -> bool:
 # examples/test_game through the port's ops CLI on networked stores: the
 # port's minimongo and a three-node miniredis cluster, preloaded with a
 # deployment's persistent store at [19]'s population
-TG_PRELOAD = 1 << 17      # Avatar documents and avatarOf/ keys
+TG_PRELOAD = 1 << 16      # Avatar documents and avatarOf/ keys
 TG_BATCH = 4096           # documents an insert, SETs a pipelined write
 TG_BOTS = 64              # strict bots over TCP; half log in as preloaded
 TG_SPLIT = [(0, 5460), (5461, 10922), (10923, 16383)]   # the cluster's slots
@@ -5551,8 +5587,8 @@ def test_game_phase(dev, tag: str, preload: int = TG_PRELOAD,
 # entity's host record in Python (PERF.md §4): 2^15 took 62.2 s of
 # soak and [24] 207.7 s with twins at 2^13 / 2^12 and (b) at 2^14
 # Monsters (FC); with the twins at 2^10 / 2^9 and (b) at 2^12 it fits
-# [24]'s 150 s
-FAILOVER_N = 1 << 15
+# [24]'s 150 s; 2^14 since [25] joined the run (PERF.md §4)
+FAILOVER_N = 1 << 14
 FAILOVER_TICKS = 24         # streamed ticks; the kill at the last
 FAILOVER_KEYFRAME = 8
 FAILOVER_PROMOTED = 8       # promoted ticks at least, on until drained
@@ -6232,6 +6268,660 @@ def standby_phase(dev, tag: str) -> dict:
 
 
 
+MH_PROCS = 2               # controller processes on the one card
+MH_DEV = SPACES            # shards of the global mesh, 4 a controller
+MH_TICKS = 8               # (a) ticks of each step
+MH_MEGA_N = 1 << 20        # (a) BASELINE config 4: 2^20 in 4x2 tiles
+MH_STEP_S = 300.0          # (a) the limit of one controller pair
+MH_GAME_SLOTS = 1 << 17    # (b) slots a tile: [21] (c)'s grid
+MH_GAME_MONSTERS = 1 << 15   # (b) cut from 2^17 to keep the run's limit
+MH_GAME_BOTS = 16          # (b) strict bots, half on each controller
+MH_WALK_S = 3.0
+
+# [25] (b)'s game script: examples/multihost_demo's types ([21] (c)'s
+# classes and megaspace boot, widened), run by the CLI as two
+# controllers. Every tick starts with one all-gather of the PAUSE flag,
+# so both controllers rest at the same tick (a controller resting alone
+# would hold the other in its next collective); at rest each publishes
+# the interest sets of the Avatars on its own tiles (the decode is
+# owner-local) with the shard of every entity in them. Its tick count,
+# launches, the group's host syncs and collective seconds, the mutation
+# log's backlog gauges and the staging tripwire's counts are published
+# on /vars (``smoke``) every tick.
+MH_GAME = '''"""chip_smoke.py [25]'s game: the multihost demo on the card."""
+import os
+
+import torch
+
+import goworld_tpu_torch as gw
+import chip_smoke as cs
+from goworld_tpu_torch import kernels
+from goworld_tpu_torch.net.game import GameServer
+from goworld_tpu_torch.parallel import multihost
+from goworld_tpu_torch.utils import opmon
+
+BOOT = {{}}
+gw.register_entity("Account", cs.GameAccount)
+gw.register_entity("Avatar", cs.GameAvatar)
+gw.register_entity("Monster", cs.GameMonster)
+gw.register_space("Arena", cs.GameMegaArena, megaspace=True)
+gw.on_boot(lambda w: cs.mega_boot(
+    w, {monsters}, {extent}, cs.SEED, BOOT, cs.mh_launches(w), "[25]"))
+_tick = GameServer.tick
+
+
+def interest(w):
+    ents, out = w.entities, {{}}
+    for e in list(ents.values()):
+        if e.type_name == "Avatar" and not e.destroyed \\
+                and e.client is not None and e.shard in w.local_shards:
+            want = sorted({{e.id, *e.interested_in}})
+            out[e.id] = [want, {{x: ents[x].shard for x in want
+                                if x in ents}}]
+    return out
+
+
+def tick(self):
+    w = self.world
+    if not hasattr(w, "arena"):   # a restored World: find its Arena
+        w.arena = next(s for s in w.spaces.values()
+                       if s.type_name == "Arena")
+        w.said = []
+    rest = w._mh_group.all_gather(torch.tensor(
+        [os.path.exists("PAUSE")], dtype=torch.int32)).any()
+    v = opmon.vars().get("smoke", {{}})
+    if rest:
+        if "interest" not in v:
+            opmon.expose("smoke", dict(v, interest=interest(w)))
+        return
+    _tick(self)
+    opmon.expose("smoke", {{
+        "tick": w.tick_count, "launches": dict(kernels.LAUNCHES),
+        "mh": dict(multihost.STATS), "rank": w.mh_rank,
+        "boot": BOOT, "guard": [w.op_stats["spmd_guard_checks"],
+                                w.op_stats["spmd_guard_divergences"]],
+        "backlog": [opmon.vars().get("mh_mutation_backlog_packets"),
+                    opmon.vars().get("mh_mutation_backlog_bytes")]}})
+
+
+GameServer.tick = tick
+gw.run({run_args})
+'''
+
+
+def mh_launches(world) -> dict:
+    """A game tick's launches on one controller of a megaspace World:
+    one sweep and one sort a local tile, one phase kernel an exchange
+    phase; nothing off the card."""
+    n = len(world.local_shards) if world.device.type == "cuda" else 0
+    return {"sweep_fused": n, "counting_sort": n,
+            "halo_ship_phase": 2 if n else 0, "npc_mlp": 0}
+
+
+def mh_step_setup(kind: str, dev, mesh=None, mega_n: int = MH_MEGA_N,
+                  space_n: int = SPACE_N):
+    """(a)'s world: (state, step, inputs of tick t) of the megaspace at
+    mega_config(MH_MEGA_N, MH_DEV) or of [21] (a)'s make_multi_tick
+    world (its free rows and migration requests), over all MH_DEV
+    shards in one process (``mesh`` None) or over this controller's on
+    ``mesh``; the same numpy-seeded world either way."""
+    loc = range(MH_DEV) if mesh is None else mesh.local_shards
+
+    def cut(t):
+        return t[loc.start:loc.stop]
+
+    if kind == "mega":
+        mc = mega_config(mega_n, MH_DEV)
+        st, inputs = mega_world(mc, mega_n, SEED, dev)
+        mine = MultiTickInputs(
+            base=TickInputs(**{f.name: cut(getattr(inputs.base, f.name))
+                               for f in dataclasses.fields(TickInputs)}),
+            migrate_target=cut(inputs.migrate_target),
+            migrate_tag=cut(inputs.migrate_tag))
+        step = make_mega_tick(mc, device=dev, mesh=mesh)
+        return st.apply(cut), step, lambda t: mine
+    cfg = multi_config(MH_DEV, space_n)
+    n = cfg.capacity
+    st0, base = multi_world(cfg, MH_DEV, SEED, dev)
+    rng = np.random.default_rng(SEED + 21)
+    dead = np.zeros((MH_DEV, n), bool)
+    for d in range(MH_DEV):
+        dead[d, rng.choice(n, MESH_FULL_FREE if d == MESH_FULL else n // 8,
+                           replace=False)] = True
+    dead_t = torch.from_numpy(dead).to(dev)
+    st = st0.replace(
+        alive=st0.alive & ~dead_t, npc_moving=st0.npc_moving & ~dead_t,
+        has_client=st0.has_client & ~dead_t,
+        client_gate=torch.where(dead_t, -1, st0.client_gate))
+    reqs = [mesh_requests(rng, n, t, dev) for t in range(MH_TICKS)]
+    mine = TickInputs(**{f.name: cut(getattr(base, f.name))
+                         for f in dataclasses.fields(TickInputs)})
+    step = make_multi_tick(cfg, mesh if mesh is not None
+                           else make_mesh(MH_DEV, device=dev))
+    return (st.apply(cut), step,
+            lambda t: MultiTickInputs(mine, cut(reqs[t][0]),
+                                      cut(reqs[t][1])))
+
+
+def tile_digests(state, outs, tiles) -> dict:
+    """sha256 of every lane of ``state`` and ``outs``, tile by tile
+    (``tiles`` the global indices of the leading axis)."""
+    import hashlib
+
+    got = {}
+    for prefix, obj in (("state", state), ("out", outs)):
+        for name, t in lanes(obj).items():
+            if t is None:
+                continue
+            host = t.detach().cpu().numpy()
+            for i, d in enumerate(tiles):
+                got[f"{prefix}.{name}/{d}"] = hashlib.sha256(
+                    np.ascontiguousarray(host[i]).tobytes()).hexdigest()
+    return got
+
+
+def mh_run_ticks(kind: str, dev, mesh=None, sizes=None) -> tuple:
+    """MH_TICKS ticks of (a)'s step: per tick the digests and (host
+    wall ms, event ms, host syncs, collectives, collective ms, launches
+    of this process); ``sizes`` (mega entities, entities a shard) for a
+    rehearsal off the card (events then read the wall)."""
+    from goworld_tpu_torch.parallel import multihost
+
+    on_card = dev.type == "cuda"
+    st, step, inputs_at = mh_step_setup(kind, dev, mesh,
+                                        *(sizes or (MH_MEGA_N, SPACE_N)))
+    tiles = range(MH_DEV) if mesh is None else mesh.local_shards
+    digests, rows = [], []
+    for t in range(MH_TICKS):
+        inp = inputs_at(t)
+        if on_card:
+            torch.cuda.synchronize(dev)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+        kernels.reset_launches()
+        multihost.reset_stats()
+        w0 = time.perf_counter()
+        if on_card:
+            a.record()
+        st, out = step(st, inp)
+        if on_card:
+            b.record()
+            torch.cuda.synchronize(dev)
+        wall = (time.perf_counter() - w0) * 1e3
+        rows.append((wall, a.elapsed_time(b) if on_card else wall,
+                     multihost.STATS["host_syncs"],
+                     multihost.STATS["collectives"],
+                     multihost.STATS["seconds"] * 1e3,
+                     dict(kernels.LAUNCHES)))
+        digests.append(tile_digests(st, out, tiles))
+    return digests, rows
+
+
+def mh_step_child(argv: list) -> int:
+    """A controller of (a): ``chip_smoke.py --mh-step KIND RANK PORT OUT
+    DEVICE MEGA_N SPACE_N``; joins the group, runs its shards' ticks,
+    writes its digests and times to ``OUT/rankRANK.json``."""
+    from goworld_tpu_torch.parallel import multihost
+
+    kind, rank, port, out = argv[0], int(argv[1]), int(argv[2]), argv[3]
+    dev = torch.device(argv[4], 0) if argv[4] == "cuda" \
+        else torch.device(argv[4])
+    if dev.type == "cuda":
+        kernels.lib()
+    multihost.init_distributed(f"127.0.0.1:{port}", MH_PROCS, rank,
+                               timeout=MH_STEP_S)
+    mesh = multihost.global_mesh(MH_DEV, dev)
+    digests, rows = mh_run_ticks(kind, dev, mesh,
+                                 (int(argv[5]), int(argv[6])))
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump({"digests": digests, "rows": rows}, f)
+    multihost.shutdown()
+    return 0
+
+
+def mh_spawn(argv: list, out: str) -> list:
+    """MH_PROCS processes of this script with ``argv`` + rank + port +
+    ``out``; each one's output into ``out/logRANK``."""
+    port = free_ports(["mh"])["mh"]
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    for rank in range(MH_PROCS):
+        log = open(os.path.join(out, f"log{rank}"), "w")
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), *argv[:2],
+             str(rank), str(port), out, *argv[2:]], cwd=root,
+            stdout=log, stderr=subprocess.STDOUT))
+        log.close()
+    return procs
+
+
+def mh_wait(procs: list, out: str, limit: float, label: str) -> None:
+    """Wait for the controllers; one that fails or outlives ``limit``
+    fails the run (every process killed, every log printed)."""
+    t_end = time.perf_counter() + limit
+    try:
+        while any(p.poll() is None for p in procs):
+            if time.perf_counter() > t_end or any(
+                    p.poll() not in (None, 0) for p in procs):
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode != 0 for p in procs):
+        logs = ""
+        for r in range(len(procs)):
+            with open(os.path.join(out, f"log{r}"), errors="replace") as f:
+                logs += f"== rank {r}\n{f.read()[-4000:]}\n"
+        fail(f"{label} a controller exited "
+             f"{[p.returncode for p in procs]}:\n{logs}")
+
+
+def mh_afar_parity(dev) -> str:
+    """The phase kernel's path for legs that cross processes, held
+    against its plain version on the card at (a)'s megaspace shape:
+    rank 1's tiles of the 4x2 megaspace (tile0 4) ship their x phase with
+    the strips of rank 0's tiles in the remote blocks, built here in one
+    process as the group would deliver them; every ghost word equal."""
+    mc = mega_config(MH_MEGA_N, MH_DEV)
+    st, _ = mega_world(mc, MH_MEGA_N, SEED, dev)
+    n, h = mc.cfg.capacity, mc.halo_cap
+    tx, tz = mc.shape
+    place = halo.Placement(MH_DEV, MH_DEV // 2, MH_DEV // 2, None)
+    d = torch.arange(MH_DEV, dtype=torch.int32, device=dev)
+    ix = d // tz
+    r = float(mc.cfg.grid.radius)
+    tmin = ix.to(torch.float32) * float(mc.tile_w)
+    x = st.pos[..., 0]
+    east = st.alive & (x >= (tmin + float(mc.tile_w) - r)[:, None])
+    west = st.alive & (x < (tmin + r)[:, None])
+    from goworld_tpu_torch.ops.extract import bounded_extract_batched
+
+    ef, _, ed = bounded_extract_batched(east, h)
+    wf, _, wd = bounded_extract_batched(west, h)
+    gid = d[:, None] * n + torch.arange(n, dtype=torch.int32,
+                                        device=dev)[None, :]
+    src = (st.pos, st.yaw, st.dirty, gid)
+    from_west, from_east = halo.rings_2d(tx, tz)[0]
+    loc = slice(4, 8)
+    mine = tuple(t[loc].contiguous() for t in src)
+    strips = ((from_west, ef[loc].contiguous(), ed[loc].contiguous()),
+              (from_east, wf[loc].contiguous(), wd[loc].contiguous()))
+    afar = []
+    for ring, flat, count in ((from_west, ef, ed), (from_east, wf, wd)):
+        block = torch.zeros((4, h, 5), dtype=torch.int32, device=dev)
+        mask = 0
+        for rl in range(4):
+            t = (4 + rl - ring.shift) % MH_DEV
+            if ring.recv_ok[4 + rl] and t < 4:
+                block[rl] = halo._strip_words(src, flat, count, [t])[0]
+                mask |= 1 << rl
+        afar.append((block, mask))
+    outs = [halo._empty_ghosts(4, 4 * h, dev) for _ in range(2)]
+    for o in outs:
+        for t in o:
+            t.zero_()
+    before = kernels.LAUNCHES["halo_ship_phase"]
+    halo.ship_phase(mine, strips, outs[0], 0, place, afar)
+    launched = kernels.LAUNCHES["halo_ship_phase"] - before
+    halo.ship_phase_plain(mine, strips, outs[1], 0, place, afar)
+    torch.cuda.synchronize(dev)
+    bad = sum(diff_count(a, b) for a, b in zip(*outs))
+    if int(bad) or launched != 1:
+        fail(f"[25] the phase kernel's remote legs differ from its plain "
+             f"version in {int(bad)} words ({launched} launches)")
+    legs = bin(afar[0][1]).count("1") + bin(afar[1][1]).count("1")
+    return (f"the phase kernel's remote legs ({legs} receivers of rank 1 "
+            f"fed from rank 0's strips, halo_cap {h}) == its plain "
+            f"version in every ghost word")
+
+
+def mh_steps_part(dev, tag, sizes=(MH_MEGA_N, SPACE_N)) -> tuple:
+    """[25] (a): the two-controller megaspace and make_multi_tick, each
+    bit for bit against the one-process step on the card, tile by tile
+    and tick by tick; their times. ``sizes`` (mega entities, entities a
+    shard) smaller for a rehearsal off the card."""
+    texts, launches = [], {}
+    for kind in ("mega", "multi"):
+        ref, ref_rows = mh_run_ticks(kind, dev, None, sizes)
+        release_worlds()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        out = tempfile.mkdtemp(prefix=f"mh_{kind}_")
+        try:
+            mh_wait(mh_spawn(["--mh-step", kind, dev.type, *map(str, sizes)],
+                             out), out, MH_STEP_S, f"[25] (a) {kind}")
+            got = []
+            for r in range(MH_PROCS):
+                with open(os.path.join(out, f"rank{r}.json")) as f:
+                    got.append(json.load(f))
+        finally:
+            shutil.rmtree(out, ignore_errors=True)
+        for t in range(MH_TICKS):
+            mine = {**got[0]["digests"][t], **got[1]["digests"][t]}
+            if mine.keys() != ref[t].keys():
+                fail(f"[25] {kind} tick {t + 1}: lanes "
+                     f"{sorted(mine.keys() ^ ref[t].keys())[:6]}")
+            bad = sorted(k for k in mine if mine[k] != ref[t][k])
+            if bad:
+                fail(f"[25] {kind} tick {t + 1}: two controllers != one "
+                     f"process in {len(bad)} lane tiles: {bad[:6]}")
+        per = []
+        for r in range(MH_PROCS):
+            rows = got[r]["rows"][1:]
+            wall = np.array([x[0] for x in rows])
+            evs = np.array([x[1] for x in rows])
+            per.append(
+                f"rank {r}: wall p50 {np.percentile(wall, 50):.3f} p99 "
+                f"{np.percentile(wall, 99):.3f}, events p50 "
+                f"{np.percentile(evs, 50):.3f} p99 "
+                f"{np.percentile(evs, 99):.3f} ms, cross-process legs "
+                f"{np.mean([x[4] for x in rows]):.3f} ms in "
+                f"{np.mean([x[3] for x in rows]):g} collectives, "
+                f"{np.mean([x[2] for x in rows]):g} host syncs a tick, "
+                f"launches a tick {rows[0][5]}")
+            for k, v in rows[0][5].items():
+                launches[f"mh_{kind}_rank{r}"] = launches.get(
+                    f"mh_{kind}_rank{r}", {})
+                launches[f"mh_{kind}_rank{r}"][k] = sum(
+                    x[5][k] for x in got[r]["rows"])
+        one = np.array([x[0] for x in ref_rows[1:]])
+        texts.append(
+            f"{kind} ("
+            + (f"mega_config({sizes[0]}, {MH_DEV}): 4x2 tiles of "
+               f"{mega_config(sizes[0], MH_DEV).cfg.capacity} slots, halo "
+               f"async" if kind == "mega" else
+               f"[21] (a)'s {MH_DEV} x {sizes[1]}, migration requests")
+            + "): "
+            f"{MH_TICKS} ticks, every lane of every tile bit-equal to the "
+            f"one-process step; " + "; ".join(per)
+            + f"; one process wall p50 {np.percentile(one, 50):.3f} ms")
+    return launches, "(a) " + " | ".join(texts)
+
+
+def mh_ini(ports: dict, extent: float, mc, slots: int) -> str:
+    """The multihost demo's ini (one dispatcher, one gate, game1 of
+    mesh_devices 8 over mesh_processes 2, a 4x2 megaspace with a
+    periodic checkpoint) widened to [21] (c)'s grid; the overload plane
+    off, as [22]; a debug HTTP port on the game (rank r serves it at
+    port + r) and the gate."""
+    tx, tz = MEGA_GAME_SHAPE
+    return (f"[deployment]\ndispatchers = 1\ngames = 1\ngates = 1\n\n"
+            f"[dispatcher1]\nhost = 127.0.0.1\nport = {ports['d1']}\n\n"
+            f"[game1]\nboot_entity = Account\ncapacity = {slots}\n"
+            f"mesh_devices = {MH_DEV}\nmesh_processes = {MH_PROCS}\n"
+            f"checkpoint_interval = 30\nmegaspace = true\n"
+            f"mega_shape = {tx}x{tz}\nextent_x = {extent}\n"
+            f"extent_z = {extent}\naoi_radius = {mc.cfg.grid.radius}\n"
+            f"aoi_k = {mc.cfg.grid.k}\naoi_cell_cap = {mc.cfg.grid.cell_cap}"
+            f"\naoi_sweep_impl = fused\naoi_sort_impl = pallas\n"
+            f"halo_impl = async\nhalo_cap = {mc.halo_cap}\n"
+            f"migrate_cap = {mc.migrate_cap}\n"
+            "position_sync_interval_ms = 50\noverload = false\n"
+            f"http_port = {ports['hg']}\n\n"
+            f"[gate1]\nhost = 127.0.0.1\nport = {ports['tcp']}\n"
+            f"http_port = {ports['ht']}\n\n[storage]\nkind = filesystem\n"
+            "directory = entity_storage\n\n[kvdb]\nkind = filesystem\n"
+            "path = kvdb_data\n")
+
+
+def mh_spots(tile_w: float, tile_d: float) -> list:
+    """(b)'s bots: MH_GAME_BOTS along the column 1-2 border (the process
+    boundary, x = 2 tile_w), half 3 units west of it heading east (rank
+    0's tiles), half 3 units east heading west (rank 1's)."""
+    half = MH_GAME_BOTS // 2
+    zs = [(i + 0.5) * 2 * tile_d / half for i in range(half)]
+    x = 2 * tile_w
+    return ([(x - 3.0, z, 1, 0) for z in zs]
+            + [(x + 3.0, z, -1, 0) for z in zs])
+
+
+async def mh_round(ports: dict, spots: list, first_id: int,
+                   label: str, marks: dict) -> dict:
+    """One round of (b): the bots log in at their spots, cross the
+    process boundary for MH_WALK_S, each controller's tick histogram
+    and published counts are read into ``marks`` ("h1", "v1"), then the
+    game rests and every mirror is read against its Avatar's interest
+    set (each controller publishes its own tiles' Avatars); the bots
+    leave."""
+    from goworld_tpu_torch.net.botclient import BotClient
+
+    loop = asyncio.get_running_loop()
+    bots = [BotClient("127.0.0.1", ports["tcp"], bot_id=first_id + i,
+                      strict=True, seed=SEED + first_id + i)
+            for i in range(MH_GAME_BOTS)]
+    login_s = await bots_login(bots, [(x, z) for x, z, _, _ in spots])
+    if not all(b.player is not None and b.player.type_name == "Avatar"
+               for b in bots):
+        fail(f"[25] {label}: a login reached no Avatar")
+    await bots_cross(bots, spots, MH_WALK_S, 0.5)
+    marks["h1"] = [await loop.run_in_executor(None, tick_hist,
+                                              ports["hg"] + r)
+                   for r in range(MH_PROCS)]
+    marks["v1"] = [await loop.run_in_executor(None, smoke_vars,
+                                              ports["hg"] + r, None, "[25]")
+                   for r in range(MH_PROCS)]
+    rest = os.path.join(ports["dir"], "PAUSE")
+    open(rest, "w").close()
+    try:
+        views = [await loop.run_in_executor(
+            None, smoke_vars, ports["hg"] + r, lambda v: "interest" in v,
+            "[25]") for r in range(MH_PROCS)]
+        await asyncio.sleep(1.0)
+    finally:
+        os.unlink(rest)
+    errors = [e for b in bots for e in b.errors]
+    if errors:
+        fail(f"[25] {label}: strict mirrors report {len(errors)} errors "
+             f"(a client message twice, or one missing): {errors[:4]}")
+    interest, shard_of = {}, {}
+    for r, v in enumerate(views):
+        for eid, (want, shards) in v["interest"].items():
+            if eid in interest:
+                fail(f"[25] {label}: Avatar {eid} published by both "
+                     "controllers")
+            interest[eid] = (r, want)
+            shard_of.update(shards)
+    mism, far, ranks = [], 0, []
+    for b in bots:
+        eid = b.player.eid
+        if eid not in interest:
+            fail(f"[25] {label}: bot{b.bot_id}'s Avatar is on no "
+                 "controller's tiles")
+        r, want = interest[eid]
+        ranks.append(r)
+        if set(b.entities) != set(want):
+            extra = sorted(set(b.entities) - set(want))
+            gone = sorted(set(want) - set(b.entities))
+            mism.append((b.bot_id, r, b.player.pos,
+                         [(x, b.entities[x].type_name, shard_of.get(x))
+                          for x in extra[:2]],
+                         [(x, shard_of.get(x)) for x in gone[:2]]))
+        # an entity on rank 1's tiles in the mirror of a bot served by
+        # rank 0, or the other way round: the process boundary crossed
+        far += sum(1 for x in b.entities
+                   if shard_of.get(x, -1) // (MH_DEV // MH_PROCS) != r)
+    if mism:
+        fail(f"[25] {label}: bot mirrors differ from the interest sets: "
+             f"(bot, its controller, its pos, [(in the mirror alone, type, "
+             f"shard)], [(in the interest set alone, shard)]) {mism[:8]}")
+    if far < 1 or len(set(ranks)) != MH_PROCS:
+        fail(f"[25] {label}: {far} entities across the process boundary "
+             f"in the mirrors; Avatars by rank {ranks}")
+    await bots_leave(bots)
+    return dict(login_s=login_s, far=far,
+                by_rank=[ranks.count(r) for r in range(MH_PROCS)],
+                seen=sum(len(b.entities) for b in bots))
+
+
+def mh_cli_part(dev, tag, slots: int = MH_GAME_SLOTS,
+                monsters: int = MH_GAME_MONSTERS) -> tuple[dict, str]:
+    """[25] (b): examples/multihost_demo's deployment through the CLI
+    on the card, two controllers; see the module docstring."""
+    on_card = dev.type == "cuda"
+    tx, tz = MEGA_GAME_SHAPE
+    mc = mega_config(MH_DEV * slots, MH_DEV)
+    extent = float(int((MH_DEV * slots * 10000 / 12) ** 0.5))
+    tile_w, tile_d = extent / tx, extent / tz
+    tmp = tempfile.mkdtemp(prefix="mh_deploy_")
+    ports = free_ports(["d1", "hg", "hg1", "ht", "tcp"])
+    ports["dir"] = tmp
+    pids: set = set()
+
+    def step(args, want_rc: int, what: str) -> tuple[str, float]:
+        return cli_step(tmp, pids, "[25]", args, want_rc, what)
+
+    try:
+        with open(os.path.join(tmp, "goworld_tpu.ini"), "w") as f:
+            f.write(mh_ini(ports, extent, mc, slots))
+        with open(os.path.join(tmp, "server_torch.py"), "w") as f:
+            f.write(MH_GAME.format(
+                monsters=monsters, extent=extent,
+                run_args="" if on_card else 'device="cpu"'))
+        _, start_s = step(["start"], 0, "start")
+        boots = [smoke_vars(ports["hg"] + r, lambda v: "tick" in v,
+                            "[25]") for r in range(MH_PROCS)]
+        where = f"on {dev}"
+        for r in range(MH_PROCS):
+            with open(os.path.join(tmp, "run", f"game1c{r}.log")) as f:
+                if f"started (restore=False) {where}" not in f.read():
+                    fail(f"[25] rank {r} did not start {where}")
+        spots = mh_spots(tile_w, tile_d)
+        rounds = []
+        for rnd in range(2):
+            v0 = [smoke_vars(ports["hg"] + r, lambda v: "tick" in v
+                             and "interest" not in v, "[25]")
+                  for r in range(MH_PROCS)]
+            h0 = [tick_hist(ports["hg"] + r) for r in range(MH_PROCS)]
+            marks = {}
+            got = asyncio.run(mh_round(ports, spots, rnd * MH_GAME_BOTS,
+                                       f"round {rnd + 1}", marks))
+            h1, v1 = marks["h1"], marks["v1"]
+            got["hist"] = [hist_quantiles(a, b) for a, b in zip(h0, h1)]
+            # each rank's counts between its own two reads (the ranks
+            # tick in lockstep; the reads of one rank and the other
+            # may fall a tick apart)
+            got["ticks"] = [v1[r]["tick"] - v0[r]["tick"]
+                            for r in range(MH_PROCS)]
+            got["launches"] = [{k: v1[r]["launches"][k]
+                                - v0[r]["launches"][k]
+                                for k in v0[r]["launches"]}
+                               for r in range(MH_PROCS)]
+            got["syncs"] = [(v1[r]["mh"]["host_syncs"]
+                             - v0[r]["mh"]["host_syncs"]) / got["ticks"][r]
+                            for r in range(MH_PROCS)]
+            got["legs_ms"] = [(v1[r]["mh"]["seconds"]
+                               - v0[r]["mh"]["seconds"]) * 1e3
+                              / got["ticks"][r] for r in range(MH_PROCS)]
+            got["backlog"] = [v1[r]["backlog"] for r in range(MH_PROCS)]
+            for r in range(MH_PROCS):
+                n_k = got["ticks"][r] if on_card else 0
+                if got["launches"][r] != {
+                        "sweep_fused": 4 * n_k, "counting_sort": 4 * n_k,
+                        "halo_ship_phase": 2 * n_k, "npc_mlp": 0} \
+                        or got["ticks"][r] < 1:
+                    fail(f"[25] round {rnd + 1}: rank {r}'s "
+                         f"{got['ticks'][r]} game ticks launched "
+                         f"{got['launches'][r]}")
+            for r in range(MH_PROCS):
+                checks, div = v1[r]["guard"]
+                if checks < 1 or div:
+                    fail(f"[25] rank {r}: the staging tripwire ran "
+                         f"{checks} times and saw {div} divergences")
+            rounds.append(got)
+            if rnd == 0:
+                old = [cli_pid(tmp, f"game1c{r}") for r in range(MH_PROCS)]
+                t0 = time.perf_counter()
+                proc = start_cli(["reload", tmp])
+                while any(pid_alive(p) for p in old) \
+                        and proc.poll() is None:
+                    time.sleep(0.02)
+                freeze_s = time.perf_counter() - t0
+                out, _ = proc.communicate(timeout=DEPLOY_CLI_S)
+                restore_s = time.perf_counter() - t0 - freeze_s
+                if proc.returncode != 0 or "game1: reloaded" not in out:
+                    fail(f"[25] reload exited {proc.returncode}:\n"
+                         f"{out[-3000:]}")
+                for r in range(MH_PROCS):
+                    pids.add(cli_pid(tmp, f"game1c{r}"))
+                    with open(os.path.join(tmp, "run",
+                                           f"game1c{r}.log")) as f:
+                        if f"started (restore=True) {where}" not in \
+                                f.read():
+                            fail(f"[25] rank {r} did not restore {where}")
+        logs = ""
+        for r in range(MH_PROCS):
+            with open(os.path.join(tmp, "run", f"game1c{r}.log")) as f:
+                logs += f.read()
+        if "SPMD staging divergence" in logs or "Traceback" in logs:
+            fail(f"[25] a controller logged a divergence or a traceback:"
+                 f"\n{logs[-3000:]}")
+        _, stop_s = step(["stop"], 0, "stop")
+        step(["status"], 1, "status after stop")
+        alive = [p for p in pids if pid_alive(p)]
+        if alive:
+            fail(f"[25] processes of the deployment still alive: {alive}")
+        boot = boots[0]["boot"]
+        text = (f"(b) examples/multihost_demo through the CLI (2 "
+                f"controllers x 4 tiles of {slots} slots, 4x2, world "
+                f"{extent:.0f}^2, radius {mc.cfg.grid.radius}, fused/pallas,"
+                f" halo async, halo_cap {mc.halo_cap}): start {start_s:.2f}"
+                f" s, boot of {boot['monsters']} Monsters in "
+                f"{boot['seconds']:.2f} s over {boot['ticks']} ticks; "
+                f"reload: freeze {freeze_s:.2f} s, restore {restore_s:.2f}"
+                f" s; stop {stop_s:.2f} s, no process left")
+        for i, got in enumerate(rounds):
+            text += (f"; round {i + 1}: {MH_GAME_BOTS} strict bots login "
+                     f"{got['login_s']:.2f} s, Avatars by rank "
+                     f"{got['by_rank']}, game ticks by rank "
+                     f"{got['ticks']}, tick p50/p99 by rank "
+                     + ", ".join(f"{p50:.2f}/{p99:.2f}"
+                                 for _, p50, p99 in got["hist"])
+                     + f" ms, cross-process legs a tick "
+                     + ", ".join(f"{x:.2f}" for x in got["legs_ms"])
+                     + " ms, host syncs a tick "
+                     + ", ".join(f"{x:.2f}" for x in got["syncs"])
+                     + f", mh_mutation_backlog (packets, bytes) "
+                     f"{got['backlog']}; mirrors == interest sets, "
+                     f"{got['far']} entities across the process boundary "
+                     f"in them, 0 strict errors")
+        launches = {k: sum(got["launches"][r][k] for got in rounds
+                           for r in range(MH_PROCS))
+                    for k in rounds[0]["launches"][0]}
+        return {"mh_deployment": launches}, text
+    finally:
+        for p in pids:
+            try:
+                os.kill(p, 9)
+            except OSError:
+                pass
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def multihost_phase(dev, tag) -> dict:
+    """[25]: the game of two controllers on the card (see the module
+    docstring). Returns the launches of its paths."""
+    from goworld_tpu_torch.parallel import multihost
+
+    phase0 = time.perf_counter()
+    release_worlds()
+    torch.cuda.empty_cache()
+    parity = mh_afar_parity(dev)
+    release_worlds()
+    launches, a_text = mh_steps_part(dev, tag)
+    b_launches, b_text = mh_cli_part(dev, tag)
+    launches.update(b_launches)
+    multihost.reset_stats()
+    print(f"[25] two controllers on the card: {parity}; {a_text} {tag}",
+          flush=True)
+    print(f"[25] {b_text} {tag}", flush=True)
+    print(f"[25] wall {time.perf_counter() - phase0:.1f} s {tag}",
+          flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
@@ -6594,6 +7284,8 @@ def main() -> int:
     phase_done("[23]")
     world.update(standby_phase(dev, tag))
     phase_done("[24]")
+    world.update(multihost_phase(dev, tag))
+    phase_done("[25]")
     for row, key in zip(rows[:2], ("sweep_fused", "counting_sort")):
         row["launches_by_path"] = {"single_space": row["launches"],
                                    **{p: n[key] for p, n in world.items()}}
@@ -6653,4 +7345,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mh-step"]:
+        sys.exit(mh_step_child(sys.argv[2:]))
     sys.exit(main())

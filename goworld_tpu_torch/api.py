@@ -306,9 +306,14 @@ def _build_world(gc: config_mod.GameConfig, gid: int,
     )
     mesh = None
     if gc.mesh_devices > 1:
+        from goworld_tpu_torch.parallel import multihost
         from goworld_tpu_torch.parallel.mesh import make_mesh
 
-        mesh = make_mesh(gc.mesh_devices, device=device)
+        # a game of several controllers: after init_distributed the
+        # mesh spans every rank, each holding mesh_devices / procs
+        # shards (the SPMD World runs in multihost mode)
+        mesh = make_mesh(gc.mesh_devices, device=device,
+                         group=multihost.current_group())
     w = World(
         wc, n_spaces=max(gc.n_spaces, 1)
         if not gc.megaspace else gc.mesh_devices,
@@ -355,9 +360,12 @@ def run(argv: list[str] | None = None, *, block: bool = True,
     gc = cfg.games.get(gid) or config_mod.GameConfig()
     _check_ported(gc)
 
-    if int(os.environ.get("GOWORLD_MH_PROCS", "1")) > 1:
-        raise _refuse("a multi-controller game (GOWORLD_MH_PROCS, "
-                      "parallel/multihost.py)", "6")
+    # Multi-controller game: the CLI spawned mesh_processes OS
+    # processes for this gid and passed the shared coordinator through
+    # the env. Join the controller group before the World is built: its
+    # mesh then spans every controller (parallel/multihost.py).
+    mh_procs = int(os.environ.get("GOWORLD_MH_PROCS", "1"))
+    mh_rank = int(os.environ.get("GOWORLD_MH_PROC_ID", "0"))
     # deterministic fault injection (ini [deployment] faults/faults_seed,
     # env GOWORLD_FAULTS/GOWORLD_FAULTS_SEED override; utils/faults.py).
     # Installed before the world build so timed kill rules cover boot;
@@ -365,10 +373,29 @@ def run(argv: list[str] | None = None, *, block: bool = True,
     from goworld_tpu_torch.utils import faults as faults_mod
 
     faults_mod.install(
-        f"game{gid}",
+        f"game{gid}" + (f"c{mh_rank}" if mh_procs > 1 else ""),
         spec=getattr(cfg, "faults", ""),
         seed=getattr(cfg, "faults_seed", 0),
     )
+    if gid >= consts.MH_FOLLOWER_GAME_ID_BASE:
+        raise SystemExit(
+            f"game id {gid} collides with the multihost follower id "
+            f"range (>= {consts.MH_FOLLOWER_GAME_ID_BASE})"
+        )
+    if mh_procs > 1:
+        # follower wire ids are base + gid*64 + rank in a u16 field:
+        # bound both factors so they can never wrap onto real game ids
+        if mh_procs > 64:
+            raise SystemExit("mesh_processes > 64 is not supported")
+        if gid > 500:
+            raise SystemExit(
+                "multihost games need game id <= 500 (follower wire-id "
+                "range)"
+            )
+        from goworld_tpu_torch.parallel.multihost import init_distributed
+
+        init_distributed(os.environ["GOWORLD_MH_COORD"],
+                         num_processes=mh_procs, process_id=mh_rank)
     # storage + kvdb (reference game.go:99-103)
     from goworld_tpu_torch.kvdb import KVDB, open_kvdb_backend
     from goworld_tpu_torch.storage import Storage, open_backend
@@ -388,13 +415,30 @@ def run(argv: list[str] | None = None, *, block: bool = True,
     from goworld_tpu_torch import freeze as freeze_mod
     from goworld_tpu_torch.net.game import GameServer
 
+    # multihost ranks all read the SAME snapshot (the leader wrote it)
+    # and replay restore_world SPMD-identically before the network;
     # a crash-recovery checkpoint counts as a snapshot too (a watchdog
-    # restart passes -restore after a crash with no fresh freeze file)
+    # restart passes -restore after a crash with no fresh freeze file).
+    # Follower controllers need their OWN dispatcher identity (the
+    # dispatcher keys connections by game id; a duplicate id would be
+    # treated as a reconnect and replace the leader's connection) —
+    # but the LOGICAL game keeps gid: the leader registers the world's
+    # entities under it and eid-routed traffic lands there
+    server_gid = (
+        gid if mh_rank == 0
+        else consts.MH_FOLLOWER_GAME_ID_BASE + gid * 64 + mh_rank
+    )
+
     def _mk_server(restore: bool) -> "GameServer":
         return GameServer(
-            gid, world, cfg.dispatcher_addrs(),
+            server_gid, world, cfg.dispatcher_addrs(),
             boot_entity=gc.boot_entity,
-            ban_boot=gc.ban_boot_entity,
+            # followers never take boot entities directly: the leader
+            # alone represents the group in the dispatcher's boot
+            # round-robin, or the logical game would be weighted once
+            # per controller (the boot itself still replicates
+            # group-wide via the mutation log)
+            ban_boot=gc.ban_boot_entity or mh_rank > 0,
             restore=restore,
             checkpoint_interval=gc.checkpoint_interval,
             tick_interval=1.0 / max(1e-3, gc.tick_hz),
@@ -488,8 +532,12 @@ def run(argv: list[str] | None = None, *, block: bool = True,
 
         # /profile captures the tick on the game's logic thread
         debug_http.set_profile_thread(world.post_q.post)
+        # multihost ranks offset the port so every controller is
+        # scrapeable
         try:
-            debug_http.start(gc.http_port, process_name=f"game{gid}")
+            debug_http.start(gc.http_port + (mh_rank if mh_procs > 1
+                                             else 0),
+                             process_name=f"game{gid}")
         except OSError:
             logger.exception("game%d: debug http on port %d failed; "
                              "continuing without it", gid, gc.http_port)

@@ -18,10 +18,14 @@ Differences from the reference, by design:
 * readiness still uses the supervisor tag printed to each process's log
   (reference ``consts.go:108-112`` + ``start.go:98-114``).
 
-Arguments and exit codes are the JAX package's. What the port does not
-run yet is refused with ``NotImplementedError`` naming ROADMAP.md before
-anything is spawned: a game of several controller processes
-(``mesh_processes > 1``, Queue A item 6). A hot standby
+Arguments and exit codes are the JAX package's. A game of several
+controller processes (``[gameN] mesh_processes > 1``) starts as that
+many OS processes (pid labels ``gameNcR``), one controller group with a
+rendezvous port of its own; ``stop``, ``status`` and ``kill`` act on
+each, ``reload`` freezes it through its leader and restarts the whole
+group with ``-restore``, ``watchdog`` tears down a group with a dead
+rank and restarts it whole, and ``start`` refuses to heal a partial
+group. A hot standby
 (``[gameN] standby_of``) starts with the other games; ``watchdog``
 promotes it through its ``/standby?promote=1`` when its primary dies,
 and falls back to a cold restore when the standby is dead too.
@@ -220,30 +224,43 @@ def _check_entry(path: str) -> None:
             "run it with python -m goworld_tpu)")
 
 
-def _refuse(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet; see ROADMAP.md Queue A item {item}")
+def _group_labels(cfg: config_mod.ClusterConfig, gid: int):
+    """(n_procs, pid-labels) for one game: a game with
+    ``mesh_processes > 1`` is ONE logical game run as that many SPMD
+    controller processes (rank-labelled pidfiles ``gameNcR``)."""
+    procs = max(1, getattr(cfg.games[gid], "mesh_processes", 1))
+    return procs, [gid if procs == 1 else f"{gid}c{r}"
+                   for r in range(procs)]
 
 
-def _check_ported(cfg: config_mod.ClusterConfig) -> None:
-    """Refuse, before anything is spawned, the deployments the port
-    does not run: a game of several controller processes (the game
-    process refuses it as well)."""
+def _game_instances(cfg: config_mod.ClusterConfig):
+    """One (gid, rank, n_procs, pid-label) per game OS process."""
+    out = []
     for gid in sorted(cfg.games):
-        gc = cfg.games[gid]
-        if getattr(gc, "mesh_processes", 1) > 1:
-            raise _refuse(
-                f"game{gid}: mesh_processes = {gc.mesh_processes} (a game "
-                "of several controllers, parallel/multihost.py)", "6")
+        procs, labels = _group_labels(cfg, gid)
+        for rank, label in enumerate(labels):
+            out.append((gid, rank, procs, label))
+    return out
+
+
+def _game_labels(cfg: config_mod.ClusterConfig) -> list:
+    return [label for _, _, _, label in _game_instances(cfg)]
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
 
 
 def _load_checked(server_dir: str) -> tuple[config_mod.ClusterConfig, str]:
-    """(config, its path) of a deployment this port runs, on a game
-    script that imports no JAX (the watchdog's scans would otherwise
-    report the refusal forever)."""
+    """(config, its path) of a deployment on a game script that imports
+    no JAX (the watchdog's scans would otherwise report the refusal
+    forever)."""
     cfgfile = _find_config(server_dir)
     cfg = config_mod.load(cfgfile)
-    _check_ported(cfg)
     _entry_script(cfg, server_dir)
     return cfg, cfgfile
 
@@ -251,7 +268,12 @@ def _load_checked(server_dir: str) -> tuple[config_mod.ClusterConfig, str]:
 def _start_game(server_dir: str, cfg, gid: int, entry: str,
                       py: str, rel_cfg: str,
                       force_restore: bool = False) -> bool:
-    """Spawn the game process and wait for its readiness tag."""
+    """Spawn every OS process of one game (the controllers of a game of
+    several) and wait for all their readiness tags. Controllers block
+    in their group's rendezvous until the whole group is up, so
+    spawning precedes any waiting."""
+    procs, labels = _group_labels(cfg, gid)
+    coord = f"127.0.0.1:{_free_port()}" if procs > 1 else None
     # any restorable snapshot counts — the reload freeze file OR the
     # periodic crash-recovery checkpoint (a supervisor start after a
     # crash must not cold-boot past hours of checkpoints). The booting
@@ -262,18 +284,35 @@ def _start_game(server_dir: str, cfg, gid: int, entry: str,
         os.path.exists(os.path.join(server_dir, name))
         for name in (f"game{gid}_freezed.dat", f"game{gid}_checkpoint.dat")
     )
-    cmd = [py, entry, "-gid", str(gid)]
-    if rel_cfg:
-        cmd += ["-configfile", rel_cfg]
-    if restore:
-        cmd.append("-restore")
-    off = _spawn(server_dir, "game", gid, cmd)
-    ok = _wait_started(server_dir, "game", gid, off)
-    print(f"game{gid}: {'started' if ok else 'FAILED'}")
-    return ok
+    waits: list[tuple[str, int]] = []
+    for rank, label in enumerate(labels):
+        cmd = [py, entry, "-gid", str(gid)]
+        if rel_cfg:
+            cmd += ["-configfile", rel_cfg]
+        if restore:
+            cmd.append("-restore")
+        extra_env = None
+        if procs > 1:
+            # one controller group a game; every rank joins it (the
+            # torch.distributed rendezvous on coord) before it builds
+            # the global mesh
+            extra_env = {
+                "GOWORLD_MH_PROCS": str(procs),
+                "GOWORLD_MH_PROC_ID": str(rank),
+                "GOWORLD_MH_COORD": coord,
+            }
+        waits.append((label, _spawn(server_dir, "game", label, cmd,
+                                    extra_env=extra_env)))
+    for lbl, off in waits:
+        ok = _wait_started(server_dir, "game", lbl, off)
+        print(f"game{lbl}: {'started' if ok else 'FAILED'}")
+        if not ok:
+            return False
+    return True
 
 
-def _spawn(server_dir: str, role: str, idx: int, cmd: list[str]) -> int:
+def _spawn(server_dir: str, role: str, idx: int, cmd: list[str],
+           extra_env: dict | None = None) -> int:
     """Start the process; returns the byte offset of its log so readiness
     waits only match tags THIS process printed (logs append across
     restarts — reload would otherwise see the previous run's tag)."""
@@ -287,6 +326,8 @@ def _spawn(server_dir: str, role: str, idx: int, cmd: list[str]) -> int:
     env["PYTHONPATH"] = os.pathsep.join(
         [pkg_root] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else [])
     )
+    if extra_env:
+        env.update(extra_env)
     proc = subprocess.Popen(
         cmd, stdout=logf, stderr=subprocess.STDOUT, cwd=server_dir,
         env=env, start_new_session=True,
@@ -345,9 +386,22 @@ def cmd_start(server_dir: str) -> int:
             return 1
 
     for gid in sorted(cfg.games):
-        if _alive(_read_pid(server_dir, "game", gid)):
-            print(f"game{gid}: already running")
+        procs, labels = _group_labels(cfg, gid)
+        alive = [lb for lb in labels
+                 if _alive(_read_pid(server_dir, "game", lb))]
+        if len(alive) == len(labels):
+            for lb in labels:
+                print(f"game{lb}: already running")
             continue
+        if alive:
+            # a PARTIAL multihost group cannot be healed in place: the
+            # dead ranks would join a brand-new rendezvous the live
+            # ranks never dialed and block until its timeout
+            print(
+                f"game{gid}: controllers {alive} still running — stop "
+                "the whole group before restarting it", file=sys.stderr,
+            )
+            return 1
         if not _start_game(server_dir, cfg, gid, entry, py, rel_cfg):
             return 1
 
@@ -409,7 +463,7 @@ def cmd_stop(server_dir: str, sig=signal.SIGTERM) -> int:
     cfg = config_mod.load(_find_config(server_dir))
     with _maintenance(server_dir):
         ok = _stop_role(server_dir, "gate", sorted(cfg.gates), sig)
-        ok &= _stop_role(server_dir, "game", sorted(cfg.games), sig)
+        ok &= _stop_role(server_dir, "game", _game_labels(cfg), sig)
         ok &= _stop_role(server_dir, "dispatcher",
                          sorted(cfg.dispatchers), sig)
     return 0 if ok else 1
@@ -423,20 +477,24 @@ def cmd_reload(server_dir: str) -> int:
         return _cmd_reload_locked(server_dir)
 
 
-def _freeze_game(server_dir: str, gid: int, timeout: float = 90.0) -> str:
+def _freeze_game(server_dir: str, gid: int, labels: list,
+                 timeout: float = 90.0) -> str:
     """SIGHUP game ``gid`` (reference FreezeSignal: it snapshots to its
-    freeze file and exits) and wait for it to exit; "" when a FRESH
-    freeze file landed, else what went wrong."""
+    freeze file and exits) and wait for every process of it to exit;
+    "" when a FRESH freeze file landed, else what went wrong. A game of
+    several controllers gets the signal on its LEADER; the decision
+    spreads to every controller through the mutation exchange, all of
+    them exit after snapshotting at the same tick, the leader writes."""
     t_sig = time.time()
     try:
-        os.kill(_read_pid(server_dir, "game", gid), signal.SIGHUP)
+        os.kill(_read_pid(server_dir, "game", labels[0]), signal.SIGHUP)
     except (OSError, TypeError):
         return "could not signal the game"
     deadline = time.monotonic() + timeout
-    while time.monotonic() < deadline \
-            and _alive(_read_pid(server_dir, "game", gid)):
+    while time.monotonic() < deadline and any(
+            _alive(_read_pid(server_dir, "game", lb)) for lb in labels):
         time.sleep(0.1)
-    if _alive(_read_pid(server_dir, "game", gid)):
+    if any(_alive(_read_pid(server_dir, "game", lb)) for lb in labels):
         return "freeze did not complete"
     freeze_file = os.path.join(server_dir, f"game{gid}_freezed.dat")
     # the file must be FRESH: a stale snapshot from a previous reload
@@ -455,10 +513,20 @@ def _cmd_reload_locked(server_dir: str) -> int:
     rel_cfg = os.path.basename(cfgfile) if cfgfile else ""
     for gid in sorted(cfg.games):
         _maintenance_touch(server_dir)  # each game can take minutes
-        if not _alive(_read_pid(server_dir, "game", gid)):
+        procs, labels = _group_labels(cfg, gid)
+        alive = [lb for lb in labels
+                 if _alive(_read_pid(server_dir, "game", lb))]
+        if not alive:
             print(f"game{gid}: not running; skipping")
             continue
-        err = _freeze_game(server_dir, gid)
+        if len(alive) < len(labels):
+            # same guard as cmd_start: a partial group can't be healed
+            print(
+                f"game{gid}: only controllers {alive} running — stop "
+                "the whole group first", file=sys.stderr,
+            )
+            return 1
+        err = _freeze_game(server_dir, gid, labels)
         if err:
             print(f"game{gid}: {err}", file=sys.stderr)
             return 1
@@ -545,7 +613,8 @@ def _promote_standby(server_dir: str, cfg: config_mod.ClusterConfig,
     gc = cfg.games.get(sgid)
     if gc is None or getattr(gc, "http_port", 0) <= 0:
         return False
-    if not _alive(_read_pid(server_dir, "game", sgid)):
+    _n, labels = _group_labels(cfg, sgid)
+    if not all(_alive(_read_pid(server_dir, "game", lb)) for lb in labels):
         return False  # the standby is dead too: cold restore it is
     url = f"http://127.0.0.1:{gc.http_port}/standby?promote=1"
     try:
@@ -562,7 +631,10 @@ def watch_once(server_dir: str,
     are respawned in place (they are stateless — games reconnect forever
     to dispatchers, the reference's resilience model,
     ``DispatcherConnMgr.go:63-85``). A game with ANY dead process is
-    restarted with ``-restore`` from the freshest snapshot (a reload's
+    handled as a whole: surviving ranks of a multihost group are torn
+    down cleanly first (a partial group cannot be healed — its
+    rendezvous cannot re-admit a rank, the cmd_start guard), then the
+    whole group restarts with ``-restore`` from the freshest snapshot (a reload's
     freeze file or the periodic ``checkpoint_interval`` checkpoint,
     whichever is newer — ``freeze.latest_snapshot_path``), on the card
     its script puts the World on. Exception: a dead game with a
@@ -613,9 +685,13 @@ def watch_once(server_dir: str,
             )
 
     for gid in sorted(cfg.games):
+        procs, labels = _group_labels(cfg, gid)
         # a crash only: "no pidfile" is never started / cleanly stopped
-        if not _has_pidfile(server_dir, "game", gid) \
-                or _alive(_read_pid(server_dir, "game", gid)):
+        if not any(_has_pidfile(server_dir, "game", lb) for lb in labels):
+            continue
+        alive = [lb for lb in labels
+                 if _alive(_read_pid(server_dir, "game", lb))]
+        if len(alive) == len(labels):
             continue
         if backoff is not None and not backoff.ready(f"game{gid}"):
             actions.append(
@@ -623,6 +699,19 @@ def watch_once(server_dir: str,
                 f"{backoff.delay_of(f'game{gid}'):.1f}s (backoff)"
             )
             continue
+        if alive:
+            actions.append(
+                f"game{gid}: dead rank(s) "
+                f"{sorted(set(map(str, labels)) - set(map(str, alive)))}; "
+                f"tearing down surviving {alive}"
+            )
+            _stop_role(server_dir, "game", alive, signal.SIGTERM,
+                       timeout=15)
+            stragglers = [lb for lb in alive
+                          if _alive(_read_pid(server_dir, "game", lb))]
+            if stragglers:
+                _stop_role(server_dir, "game", stragglers, signal.SIGKILL,
+                           timeout=10)
         # hot standby (replication/): a configured live mirror turns
         # the crash into a WARM promotion — the state is already on the
         # standby — instead of a cold restore from disk. The dead
@@ -633,10 +722,11 @@ def watch_once(server_dir: str,
         sgid = _standby_for(cfg, gid)
         if sgid is not None and _promote_standby(server_dir, cfg,
                                                  gid, sgid):
-            try:
-                os.unlink(_pid_path(server_dir, "game", gid))
-            except OSError:
-                pass
+            for lb in labels:
+                try:
+                    os.unlink(_pid_path(server_dir, "game", lb))
+                except OSError:
+                    pass
             if backoff is not None:
                 backoff.attempted(f"game{gid}", True)
             actions.append(
@@ -688,20 +778,33 @@ def cmd_watchdog(server_dir: str, interval: float = 2.0,
 
 def _freeze_games_for_shutdown(server_dir: str,
                                cfg: config_mod.ClusterConfig) -> bool:
-    """Freeze-on-SIGTERM: SIGHUP every game (dispatchers and gates
-    still up — the freeze ack dance needs them), wait for it to exit,
-    verify a FRESH freeze file landed. The next ``start``/``supervise``
-    boots the games ``-restore`` from it."""
+    """Freeze-on-SIGTERM: SIGHUP every game's leader (dispatchers and
+    gates still up — the freeze ack dance needs them), wait for the
+    whole group to exit, verify a FRESH freeze file landed. The next
+    ``start``/``supervise`` boots the games ``-restore`` from it."""
     ok = True
     for gid in sorted(cfg.games):
-        if not _alive(_read_pid(server_dir, "game", gid)):
+        procs, labels = _group_labels(cfg, gid)
+        alive = [lb for lb in labels
+                 if _alive(_read_pid(server_dir, "game", lb))]
+        if not alive:
             continue
-        err = _freeze_game(server_dir, gid)
-        if not _alive(_read_pid(server_dir, "game", gid)):
-            try:  # the frozen process exited; clear the crash marker
-                os.unlink(_pid_path(server_dir, "game", gid))
-            except OSError:
-                pass
+        if labels[0] not in alive:
+            # partial group with a dead leader: the freeze ack dance
+            # cannot be driven (same stance as cmd_reload's guard) —
+            # skip the freeze; the stop below still runs and the next
+            # start restores from the freshest checkpoint instead
+            print(f"game{gid}: leader rank dead; cannot freeze a "
+                  "partial group", file=sys.stderr)
+            ok = False
+            continue
+        err = _freeze_game(server_dir, gid, labels)
+        for lb in labels:  # frozen processes exited; clear crash marker
+            if not _alive(_read_pid(server_dir, "game", lb)):
+                try:
+                    os.unlink(_pid_path(server_dir, "game", lb))
+                except OSError:
+                    pass
         if err:
             print(f"game{gid}: freeze-on-shutdown failed ({err})",
                   file=sys.stderr)
@@ -752,7 +855,7 @@ def cmd_supervise(server_dir: str, interval: float = 2.0,
             ok = _freeze_games_for_shutdown(server_dir, cfg)
         ok &= _stop_role(server_dir, "gate", sorted(cfg.gates),
                          signal.SIGTERM)
-        ok &= _stop_role(server_dir, "game", sorted(cfg.games),
+        ok &= _stop_role(server_dir, "game", _game_labels(cfg),
                          signal.SIGTERM)
         ok &= _stop_role(server_dir, "dispatcher",
                          sorted(cfg.dispatchers), signal.SIGTERM)
@@ -819,7 +922,7 @@ def cmd_status(server_dir: str) -> int:
     cfg = config_mod.load(_find_config(server_dir))
     rows = (
         [("dispatcher", i) for i in sorted(cfg.dispatchers)]
-        + [("game", i) for i in sorted(cfg.games)]
+        + [("game", label) for label in _game_labels(cfg)]
         + [("gate", i) for i in sorted(cfg.gates)]
     )
     all_up = True

@@ -23,9 +23,9 @@
 //   ggid  [r, c] = v ? gid[t, s] : 0
 //
 // The source has two segments: slot s < M reads the tile's own lanes,
-// slot s >= M reads row s - M of the output block itself (its columns
-// [0, col0), which the previous phase's launch wrote; phase 2 of the 2D
-// exchange sees the phase-1 ghosts so). The columns written, [col0,
+// slot s >= M reads row s - M of the tile's output block itself (its
+// columns [0, col0), which the previous phase's launch wrote; phase 2 of
+// the 2D exchange sees the phase-1 ghosts so). The columns written, [col0,
 // col0 + 2H), never overlap the ones read.
 //
 // What bounds it on this card: launch latency. At the 2^20-entity 2x2
@@ -40,6 +40,17 @@
 // built on the host and the host never waits. Tiles on several cards
 // would need one pointer per tile again (peer placement).
 //
+// A game of several controller processes holds tiles [tile0, tile0 +
+// n_local) of the n_dev here: the lanes above hold those tiles only
+// (tile t at row t - tile0), the ring still turns over all n_dev, and a
+// receiver whose sender lives in another process reads the strip that
+// process gathered and packed, received into the direction's remote
+// block (receiver-indexed, i32[n_local, H, 5] words: pos bits, yaw bits,
+// meta = (gid + 1) << 2 | dirty << 1 | valid; bit rl of the direction's
+// remote mask marks such a receiver). There the row is valid where its
+// meta says so, and the five lanes are written as above. On one
+// controller tile0 = 0, n_local = n_dev and the masks are 0.
+//
 // Grid (row chunks of H, receiver tile, direction), one thread per output
 // row: a warp's stores are contiguous, and flat ascends within a (tile,
 // direction), so a warp's gathers move forward through the source.
@@ -53,10 +64,13 @@ constexpr int kThreads = 256;
 constexpr int kMaxTiles = 64;   // bits of a receiver mask
 
 struct Direction {
-  const int* flat;               // [n_dev, flat_stride], first H used
-  const int* count;              // [n_dev]
+  const int* flat;               // [n_local, flat_stride], first H used
+  const int* count;              // [n_local]
+  const uint32_t* remote;        // [n_local, H, 5] strips from afar
   long long flat_stride;         // elements between tiles' rows
-  unsigned long long recv;       // bit r: tile r receives
+  unsigned long long recv;       // bit r: tile r (of n_dev) receives
+  unsigned long long from_afar;  // bit rl: local receiver rl's sender is
+                                 // another process's tile
   int shift;                     // in [0, n_dev)
 };
 
@@ -73,39 +87,55 @@ struct PhaseParams {
   uint8_t* gvalid;               // [n_dev, g]
   int* ggid;                     // [n_dev, g]
   Direction dir[2];
-  int m, g, h, n_dev, col0;
+  int m, g, h, n_dev, col0, tile0;
 };
 
 __global__ void __launch_bounds__(kThreads)
 halo_ship_phase(const __grid_constant__ PhaseParams p) {
   const int k = blockIdx.z;
-  const int r = blockIdx.y;
+  const int rl = blockIdx.y;     // local receiver
+  const int r = p.tile0 + rl;    // its tile of n_dev
   const Direction& d = p.dir[k];
   int t = r - d.shift;
   if (t < 0) t += p.n_dev;
+  const bool afar = (d.from_afar >> rl) & 1ull;
+  const int tl = t - p.tile0;    // the sender's row here, when it is here
   __shared__ int s_live;         // rows of the strip this receiver takes
   if (threadIdx.x == 0) {
-    const int c = d.count[t];
+    const int c = afar ? p.h : d.count[tl];
     s_live = ((d.recv >> r) & 1ull) ? (c < p.h ? c : p.h) : 0;
   }
   __syncthreads();
   const int j = blockIdx.x * kThreads + threadIdx.x;
   if (j >= p.h) return;
-  const bool v = j < s_live;
+  bool v = j < s_live;
   uint32_t x = 0, y = 0, z = 0, yaw = 0;
   int gid = 0;
   bool dirty = false;
-  if (v) {
-    const long long s = d.flat[t * d.flat_stride + j];
+  if (v && afar) {
+    const uint32_t* w =
+        d.remote + (static_cast<long long>(rl) * p.h + j) * 5;
+    const uint32_t meta = w[4];
+    v = (meta & 1u) != 0;
+    if (v) {
+      x = w[0];
+      y = w[1];
+      z = w[2];
+      dirty = ((meta >> 1) & 1u) != 0;
+      if (dirty) yaw = w[3];
+      gid = static_cast<int>(meta >> 2) - 1;
+    }
+  } else if (v) {
+    const long long s = d.flat[tl * d.flat_stride + j];
     const uint32_t *pos, *yw;
     const uint8_t* dt;
     const int* gd;
     long long row;
     if (s < p.m) {
-      row = static_cast<long long>(t) * p.m + s;
+      row = static_cast<long long>(tl) * p.m + s;
       pos = p.pos; yw = p.yaw; dt = p.dirty; gd = p.gid;
     } else {
-      row = static_cast<long long>(t) * p.g + (s - p.m);
+      row = static_cast<long long>(tl) * p.g + (s - p.m);
       pos = p.gpos; yw = p.gyaw; dt = p.gdirty; gd = p.ggid;
     }
     x = pos[3 * row];
@@ -115,7 +145,7 @@ halo_ship_phase(const __grid_constant__ PhaseParams p) {
     if (dirty) yaw = yw[row];
     gid = gd[row];
   }
-  const long long o = static_cast<long long>(r) * p.g + p.col0 +
+  const long long o = static_cast<long long>(rl) * p.g + p.col0 +
                       static_cast<long long>(k) * p.h + j;
   p.gpos[3 * o] = x;
   p.gpos[3 * o + 1] = y;
@@ -130,24 +160,30 @@ halo_ship_phase(const __grid_constant__ PhaseParams p) {
 
 extern "C" {
 
-// One phase: own lanes pos/yaw/dirty/gid of m rows a tile, the output
-// lanes of g rows a tile (written at columns [col0, col0 + 2h)), and per
-// direction k the extraction (flat_k, its tile stride, count_k), the
-// shift in [0, n_dev) and the receiver bitmask. Returns the CUDA error of
-// the launch (0 = none).
+// One phase: own lanes pos/yaw/dirty/gid of m rows a tile for the
+// n_local tiles from tile0, the output lanes of g rows a tile (written at
+// columns [col0, col0 + 2h)), and per direction k the extraction
+// (flat_k, its tile stride, count_k), the shift in [0, n_dev), the
+// receiver bitmask over the n_dev tiles, and the remote block and mask of
+// the receivers whose sender is another process's (null and 0 on one
+// controller). Returns the CUDA error of the launch (0 = none).
 int gw_halo_ship_phase(const void* pos, const void* yaw, const void* dirty,
                        const void* gid, int m, void* gpos, void* gyaw,
                        void* gdirty, void* gvalid, void* ggid, int g,
-                       int n_dev, int h, int col0,
+                       int n_dev, int tile0, int n_local, int h, int col0,
                        const void* flat0, long long flat_stride0,
                        const void* count0, int shift0,
-                       unsigned long long recv0,
+                       unsigned long long recv0, const void* remote0,
+                       unsigned long long from_afar0,
                        const void* flat1, long long flat_stride1,
                        const void* count1, int shift1,
-                       unsigned long long recv1, void* stream) {
-  if (n_dev < 1 || n_dev > kMaxTiles || m < 0 || h < 0 || col0 < 0 ||
+                       unsigned long long recv1, const void* remote1,
+                       unsigned long long from_afar1, void* stream) {
+  if (n_dev < 1 || n_dev > kMaxTiles || n_local < 1 || tile0 < 0 ||
+      tile0 + n_local > n_dev || m < 0 || h < 0 || col0 < 0 ||
       static_cast<long long>(col0) + 2ll * h > g || shift0 < 0 ||
-      shift0 >= n_dev || shift1 < 0 || shift1 >= n_dev)
+      shift0 >= n_dev || shift1 < 0 || shift1 >= n_dev ||
+      (from_afar0 && !remote0) || (from_afar1 && !remote1))
     return static_cast<int>(cudaErrorInvalidValue);
   if (h == 0) return static_cast<int>(cudaGetLastError());
   PhaseParams p;
@@ -161,15 +197,18 @@ int gw_halo_ship_phase(const void* pos, const void* yaw, const void* dirty,
   p.gvalid = static_cast<uint8_t*>(gvalid);
   p.ggid = static_cast<int*>(ggid);
   p.dir[0] = {static_cast<const int*>(flat0), static_cast<const int*>(count0),
-              flat_stride0, recv0, shift0};
+              static_cast<const uint32_t*>(remote0), flat_stride0, recv0,
+              from_afar0, shift0};
   p.dir[1] = {static_cast<const int*>(flat1), static_cast<const int*>(count1),
-              flat_stride1, recv1, shift1};
+              static_cast<const uint32_t*>(remote1), flat_stride1, recv1,
+              from_afar1, shift1};
   p.m = m;
   p.g = g;
   p.h = h;
   p.n_dev = n_dev;
   p.col0 = col0;
-  const dim3 grid((h + kThreads - 1) / kThreads, n_dev, 2);
+  p.tile0 = tile0;
+  const dim3 grid((h + kThreads - 1) / kThreads, n_local, 2);
   halo_ship_phase<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       p);
   return static_cast<int>(cudaGetLastError());

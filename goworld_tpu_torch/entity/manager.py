@@ -75,9 +75,23 @@ Its two mesh shapes run with every shard on the one card
   tile of their position and re-pointed from the device's own
   border-crossing records (:meth:`World._mega_collect_arrivals`).
 
-Shards on several cards, q16 in the megaspace and the multi-controller
-World raise ``NotImplementedError`` naming ROADMAP.md; none is
-substituted by another path.
+A mesh over several controller processes
+(:func:`goworld_tpu_torch.parallel.multihost.global_mesh`) makes a
+multi-controller World, the JAX World's multihost mode: every
+controller runs the same host program (the same registrations, spawns
+and staged mutations each tick) and holds its own shards' lanes
+(``state`` is ``[n_local, ...]``); a staged write lands where its shard
+lives, the step's outputs are gathered over the group and decoded as
+the JAX World decodes them (bookkeeping over every shard, client fan-out
+and AOI hooks on the owner's controller only, :meth:`World.client_emit_ok`),
+positions and yaws are gathered every tick, auto ids come from a
+deterministic sequence (:meth:`World._gen_eid`), and every 16 ticks a
+signature of the staging is compared across controllers
+(:meth:`World._spmd_guard`).
+
+Shards on several cards and q16 in the megaspace raise
+``NotImplementedError`` naming ROADMAP.md; none is substituted by
+another path.
 
 Slot lifecycle contract (``SURVEY.md#7``): a slot freed by a host despawn
 is flushed before the step, so its watchers' leave events fire in THAT
@@ -433,6 +447,29 @@ class World:
     ):
         if n_spaces < 1:
             raise ValueError(f"n_spaces must be >= 1, got {n_spaces}")
+        # several controller processes (the JAX World's multihost mode):
+        # every controller runs this World as the SAME program
+        # (identical registrations, spawns and staged mutations each
+        # tick, the SPMD contract of parallel/multihost.py); device
+        # reads gather over the group, and CLIENT-FACING event decode
+        # (enter/leave/sync/attr fan-out) covers only this controller's
+        # shards. Bookkeeping (slot ownership, arrivals) stays global so
+        # every controller stages identical follow-up mutations.
+        self._multihost = mesh is not None and mesh.multi_controller
+        if self._multihost:
+            self.local_shards = list(mesh.local_shards)
+            self.mh_rank = mesh.group.rank
+            self._mh_group = mesh.group
+        else:
+            self.local_shards = list(range(n_spaces))
+            self.mh_rank = 0
+            self._mh_group = None
+        # deterministic auto-eid sequence for multihost (see _gen_eid)
+        self._mh_eid_seq = 0
+        # the "every controller is deployment-ready" fact, published by
+        # the GameServer's mutation exchange each tick; standalone
+        # multihost worlds (no cluster plane) are always ready
+        self.mh_group_ready = True
         if mesh is not None:
             cards = {torch.device(d) for d in mesh.devices.ravel()}
             if len(cards) > 1:
@@ -504,15 +541,17 @@ class World:
                 halo_impl=halo_impl,
             )
             self.state: SpaceState = shard_state(
-                create_mega_state(self.mega, seed=seed, device=self.device),
-                mesh)
+                create_mega_state(self.mega, seed=seed, device=self.device,
+                                  shards=mesh.local_shards), mesh)
             self._step = _resident_step(
-                make_mega_tick(self.mega, device=self.device), resident)
+                make_mega_tick(self.mega, device=self.device, mesh=mesh),
+                resident)
         elif mesh is not None:
             # under the mesh each shard keeps the skin (its own cache
             # and rebuild gate), as the JAX World's shard_map step does
             self.state = shard_state(create_multi_state(
-                cfg, n_spaces, seed=seed, device=self.device), mesh)
+                cfg, n_spaces, seed=seed, device=self.device,
+                shards=mesh.local_shards), mesh)
             self._step = _resident_step(
                 make_multi_tick(cfg, mesh, migrate_cap=migrate_cap),
                 resident)
@@ -693,9 +732,6 @@ class World:
         # tick (cohort = subject slot % stride) — the GameServer's
         # governor sets it in DEGRADED and restores 1 on recovery
         self.sync_stride = 1
-        # one controller: the JAX World's multi-controller mode (its
-        # process_allgather fetches) is not ported
-        self._multihost = False
         self._aoi_alarm_tick = -(1 << 30)  # last AOI-overflow alarm tick
         self._m_aoi_overflow = metrics.counter(
             "aoi_overflow_total",
@@ -725,6 +761,27 @@ class World:
         e.world = self
         e.attrs = make_root(lambda d, _e=e: self._on_attr_delta(_e, d))
         self._setup_save_timer(e)
+
+    def _gen_eid(self) -> str:
+        """Auto-generated entity id. Multi-controller worlds draw from a
+        DETERMINISTIC per-world sequence: SPMD-replicated host code (e.g.
+        a replayed client RPC spawning an Avatar) must mint the SAME id
+        on every controller or host/device state forks. Random
+        time+machine+pid ids remain for single-controller worlds
+        (reference ``uuid.go:27-60`` semantics). An id the World already
+        holds is skipped: a World restored from a snapshot starts its
+        sequence from 1 again (the sequence is not in the snapshot), and
+        the JAX World then re-mints the id of an entity it restored
+        (ROADMAP.md Queue C17). The skip depends on the World's entities
+        only, which are the same on every controller."""
+        if not self._multihost:
+            return ids.gen_entity_id()
+        while True:
+            self._mh_eid_seq += 1
+            eid = ids.gen_fixed_id(
+                f"goworld_tpu.mh.{self.game_id}.{self._mh_eid_seq}")
+            if eid not in self.entities:
+                return eid
 
     def _setup_save_timer(self, e: Entity) -> None:
         """Schedule the periodic save for a persistent entity (reference
@@ -770,7 +827,7 @@ class World:
         sp: Space = desc.cls()
         sp._type_desc = desc
         # honor a caller-supplied id (CreateSpaceAnywhere routes by it)
-        self._attach(sp, eid or ids.gen_entity_id())
+        self._attach(sp, eid or self._gen_eid())
         aoi = desc.use_aoi if use_aoi is None else use_aoi
         if desc.megaspace:
             if self.mega is None:
@@ -841,7 +898,7 @@ class World:
             raise TypeError(f"use create_space for space type {type_name}")
         e: Entity = desc.cls()
         e._type_desc = desc
-        new_id = eid or ids.gen_entity_id()
+        new_id = eid or self._gen_eid()
         if new_id in self.entities:
             raise ValueError(f"entity id collision: {new_id}")
         self._attach(e, new_id)
@@ -1100,8 +1157,17 @@ class World:
         e.OnEnterSpace()
         space.OnEntityEnterSpace(e)
 
-    def destroy_entity(self, e: Entity) -> None:
-        """Reference ``destroyEntity`` (``Entity.go:631-651``)."""
+    def destroy_entity(self, e: Entity, stale: bool = False) -> None:
+        """Reference ``destroyEntity`` (``Entity.go:631-651``).
+
+        ``stale``: ``e`` is a copy of an entity that lives on another
+        game (the dispatcher rejected it from this game's census: a
+        promoted standby's mirror of an entity its primary handed off
+        after the standby's last frame). Its row and host object go,
+        but its live twin keeps what it owns: no ``OnDestroy``, no
+        save, no destroy of its client's player and no destroy notice
+        to the dispatcher, which would drop the twin's route (ROADMAP.md
+        Queue C16)."""
         if e.destroyed:
             return
         e.destroyed = True
@@ -1109,14 +1175,19 @@ class World:
             # the ledger tracks LIVE entities; the host object may
             # linger in self.entities until its leave events drain
             self.audit.ledger.on_destroy(e.id, self.tick_count)
-        try:
-            e.OnDestroy()
-        except Exception:
-            logger.exception("OnDestroy failed for %s", e)
-        if e._type_desc.is_persistent and self.storage is not None:
-            self.save_entity(e)
+        if not stale:
+            try:
+                e.OnDestroy()
+            except Exception:
+                logger.exception("OnDestroy failed for %s", e)
+            if e._type_desc.is_persistent and self.storage is not None:
+                self.save_entity(e)
         if e.client is not None:
-            self.set_entity_client(e, None)
+            if stale:
+                e.client = None   # quiet detach: the twin serves it
+                self._mirror_client(e)
+            else:
+                self.set_entity_client(e, None)
         for tid in list(e.timer_ids):
             self.timers.cancel(tid)
         e.timer_ids.clear()
@@ -1160,7 +1231,7 @@ class World:
         # every client.
         if e.attrs is not None:
             sever_tree(e.attrs)
-        if self.on_entity_destroyed is not None:
+        if self.on_entity_destroyed is not None and not stale:
             self.on_entity_destroyed(e)
 
     # ==================================================================
@@ -1475,10 +1546,19 @@ class World:
     # client message sink
     # ==================================================================
     def client_emit_ok(self, e: Entity | None) -> bool:
-        """Whether this process emits ``e``'s client-bound messages: a
-        single-controller World always does (the multi-controller send
-        dedup of the JAX World is not ported)."""
-        return True
+        """Multi-controller send dedup: SPMD host logic (attr journals,
+        call_client, bind-time create_entity) runs on EVERY controller, so
+        exactly one may emit each client-bound message. Rule: the
+        controller owning the entity's shard emits; slotless entities
+        (nil-space boot entities, mid-migration rows) belong to the
+        leader. Single-controller worlds always emit. The owner-local
+        event decode in :meth:`_process_outputs` satisfies this rule by
+        construction (a watcher's events decode on its shard's owner)."""
+        if not self._multihost:
+            return True
+        if e is None or e.shard is None:
+            return self.mh_rank == 0
+        return e.shard in self.local_shards
 
     def send_to_client(self, gate_id: int, client_id: str, msg: dict) -> None:
         if self.client_sink is not None:
@@ -1622,7 +1702,8 @@ class World:
         self._telem_skin_on = skin_on
         self._telem_half_skin = cfg.grid.skin / 2.0 if skin_on else 0.0
         self._telem_acc = telem.telemetry_init(
-            skin_on, mega=mega, occupancy=True, n_tiles=self.n_spaces,
+            skin_on, mega=mega, occupancy=True,
+            n_tiles=len(self.local_shards),
             device=self.device)
         self._telem_fn = telem.make_fold(mega=mega,
                                          half_skin=self._telem_half_skin)
@@ -1798,6 +1879,17 @@ class World:
         # flushed below, so the age of what it produces starts HERE
         age_mark = (self.tick_count, int(time.time() * 1e6))
         with tl.span("flush_staging"):
+            if self._multihost and self.service_mgr is not None \
+                    and self.mh_group_ready \
+                    and self.tick_count % self.service_mgr.MH_CHECK_TICKS \
+                    == 0:
+                # tick-cadence service reconcile (wall timers would fire
+                # at different instants per controller and desync the
+                # deterministic eid sequence; tick_count is
+                # SPMD-consistent, and mh_group_ready comes from the
+                # GameServer's per-tick all-gather, True by construction
+                # for standalone worlds)
+                self.service_mgr.check_services()
             self.timers.tick(self._fire_timer)
             self.crontab.tick()
             self.post_q.tick()
@@ -1872,6 +1964,15 @@ class World:
                     # outputs are host-visible: the device_wait lane ends
                     rt.mark_visible()
                 self._ingest_host_telemetry(acc_host)
+                if self._multihost:
+                    # EAGER pos/yaw refresh: every controller gathers
+                    # them at the same point every tick. A lazy fetch
+                    # would deadlock: read_pos is a collective here, and
+                    # the owner-local decode below reaches it on ONE
+                    # controller only (je.position while building a
+                    # client enter message, a user OnEnterAOI hook)
+                    self._pos_cache, self._yaw_cache = self._dget(
+                        [self.state.pos, self.state.yaw])
         if outs is not None and age_mark is not None:
             # outputs are host-visible NOW: close the device_tick lane
             self.sync_age_anchor = (age_mark[0], age_mark[1],
@@ -2071,6 +2172,51 @@ class World:
         ap.submit(_job)
 
     # -- staging flush --------------------------------------------------
+    def _spmd_guard(self) -> None:
+        """Multi-controller divergence tripwire: every controller must
+        stage IDENTICAL mutations each tick (the SPMD contract; e.g. a
+        user AOI hook that spawns only on the event-owning controller
+        violates it and silently forks device state). Compare a cheap
+        signature of this tick's staging across processes and log
+        loudly on mismatch."""
+        import zlib
+
+        sig = repr((
+            sorted(
+                (s, sl, sorted((k, str(v)) for k, v in d.items()))
+                for s, sl, d in self._staged_spawn
+            ),
+            sorted(self._staged_despawn),
+            sorted(self._staged_hot),
+            sorted(self._staged_moving),
+            sorted(self._staged_client),
+            sorted(
+                (k, e._pending_pos, e._pending_yaw)
+                for k, e in self._staged_pos.items()
+            ),
+            sorted(self._staged_migrate),
+            self._batch_sig(),
+        )).encode()
+        h = torch.tensor([zlib.crc32(sig)], dtype=torch.int64)
+        hs = self._mh_group.all_gather(h).reshape(-1).numpy()
+        self.op_stats["spmd_guard_checks"] += 1
+        if (hs != hs[0]).any():
+            self.op_stats["spmd_guard_divergences"] += 1
+            logger.error(
+                "SPMD staging divergence across controllers (hashes %s): "
+                "device state is forking — all controllers must perform "
+                "identical World mutations each tick "
+                "(parallel/multihost.py contract)", hs,
+            )
+
+    def _batch_sig(self) -> bytes:
+        """Staged-batch-sync content for the SPMD divergence tripwire."""
+        if not self._batch_pos_any or self._batch_pos_mask is None:
+            return b""
+        bsh, bsl = np.nonzero(self._batch_pos_mask)
+        return (bsh.tobytes() + bsl.tobytes()
+                + self._batch_pos_vals[bsh, bsl].tobytes())
+
     def _flush_staging(self) -> TickInputs:
         """Apply every staged mutation to the device state and build the
         tick's position-sync inputs.
@@ -2089,13 +2235,31 @@ class World:
         cfg = self.cfg
         cap = cfg.capacity
         pack = _HostPack()
+        if self._multihost and self.tick_count % 16 == 0:
+            # tick_count is SPMD-consistent, so sampling keeps the
+            # collective uniform across controllers while keeping the
+            # tripwire off the steady-state path (it still catches a
+            # fork within 16 ticks)
+            self._spmd_guard()
         if self._staged_migrate and self.mesh is None:
             self._repack_migrations()
+        # over several controllers a staged write lands where its shard
+        # lives: the rows of this controller's shards, rebased to its
+        # lanes (every row on one controller)
+        lo = self.local_shards[0] * cap
+        hi = lo + len(self.local_shards) * cap
+        here_shards = slice(lo // cap, hi // cap)
+
+        def here(rows, *cols):
+            if not self._multihost:
+                return (rows, *cols)
+            m = (rows >= lo) & (rows < hi)
+            return (rows[m] - lo, *(c[m] for c in cols))
 
         spawn = None
         if self._staged_spawn:
             d = [v for _, _, v in self._staged_spawn]
-            spawn = [pack.add(x) for x in (
+            spawn = [pack.add(x) for x in here(
                 np.array([sh * cap + sl for sh, sl, _ in self._staged_spawn],
                          np.int64),
                 np.array([x["pos"] for x in d], np.float32).reshape(-1, 3),
@@ -2123,9 +2287,9 @@ class World:
 
         despawn = None
         if self._staged_despawn:
-            despawn = pack.add(np.array(
+            despawn = pack.add(here(np.array(
                 [sh * cap + sl for sh, sl in self._staged_despawn],
-                np.int64))
+                np.int64))[0])
             # release AFTER this tick's leave events decode: at the end
             # of this tick's decode, or of the next one when the decode
             # is pipelined (this tick's outputs decode next tick; a
@@ -2148,7 +2312,7 @@ class World:
             co = np.array([x[2] for x in self._staged_hot], np.int64)
             va = np.array([x[3] for x in self._staged_hot], np.float32)
             keep = _keep_last(rw * cfg.attr_width + co)
-            hot = [pack.add(x[keep]) for x in (rw, co, va)]
+            hot = [pack.add(x) for x in here(rw[keep], co[keep], va[keep])]
             self._staged_hot.clear()
 
         moving = None
@@ -2156,7 +2320,7 @@ class World:
             rw = rows_of(self._staged_moving)
             mv = np.array([x[2] for x in self._staged_moving], bool)
             keep = _keep_last(rw)
-            moving = [pack.add(x[keep]) for x in (rw, mv)]
+            moving = [pack.add(x) for x in here(rw[keep], mv[keep])]
             self._staged_moving.clear()
 
         client = None
@@ -2165,7 +2329,8 @@ class World:
             hc = np.array([x[2] for x in self._staged_client], bool)
             cg = np.array([x[3] for x in self._staged_client], np.int32)
             keep = _keep_last(rw)
-            client = [pack.add(x[keep]) for x in (rw, hc, cg)]
+            client = [pack.add(x) for x in here(rw[keep], hc[keep],
+                                                cg[keep])]
             self._staged_client.clear()
 
         # position-sync inputs -> TickInputs [S, IC]
@@ -2245,8 +2410,8 @@ class World:
             self._batch_pos_any = bool(bm.any())
 
         need_pos, need_yaw = bool(fill_pos.any()), bool(fill_yaw.any())
-        inp = [pack.add(x) for x in (idx, vals, counts)]
-        fills = [pack.add(x) for x in (fill_pos, fill_yaw)] \
+        inp = [pack.add(x[here_shards]) for x in (idx, vals, counts)]
+        fills = [pack.add(x[here_shards]) for x in (fill_pos, fill_yaw)] \
             if need_pos or need_yaw else None
         migrate = None
         if self.mesh is not None:
@@ -2260,7 +2425,7 @@ class World:
                 tags[sh_, sl_] = i
                 self._migrate_tags[i] = (eid_, sh_, sl_)
             self._staged_migrate.clear()
-            migrate = [pack.add(x) for x in (mt, tags)]
+            migrate = [pack.add(x[here_shards]) for x in (mt, tags)]
 
         lanes = pack.send(self.device)
         st = self.state
@@ -2305,7 +2470,7 @@ class World:
         if fills is not None:
             f_pos, f_yaw = (lanes[i] for i in fills)
             rows = d_idx.long()
-            sp = torch.arange(self.n_spaces, device=rows.device)[:, None]
+            sp = torch.arange(rows.shape[0], device=rows.device)[:, None]
             if need_pos:
                 d_vals[..., :3] = torch.where(
                     f_pos[..., None], st.pos[sp, rows], d_vals[..., :3])
@@ -2400,6 +2565,9 @@ class World:
         cfg = self.cfg
         mega = self.mega is not None
         mega_pending = self._mega_collect_arrivals(outs) if mega else None
+        # watchers hopping between two controllers' tiles this tick, and
+        # the subjects they see from both rows (see _mh_crossings)
+        crossing = self._mh_crossings(base, mega_pending)
         # Leaves before enters, across all shards: a megaspace border-hop
         # emits leave(old slot, X) on the source tile and enter(new slot,
         # X) on the destination tile for a subject X visible from both;
@@ -2420,7 +2588,8 @@ class World:
         # decoded counts of op_stats are the pairs read less these
         leave_skip = enter_skip = 0
         leave_read = enter_read = sync_sent = 0
-        shards = range(self.n_spaces)
+        # client-facing decode covers this controller's shards only
+        shards = self.local_shards
         for shard in shards:
             ln = int(base.leave_n[shard])
             if ln > cfg.leave_cap:
@@ -2453,7 +2622,10 @@ class World:
                         we.OnLeaveAOI(je)
                     except Exception:
                         logger.exception("OnLeaveAOI failed")
-                if we.client is not None and not we.destroyed:
+                if we.client is not None and not we.destroyed and not (
+                        crossing and we.id in crossing
+                        and crossing[we.id][0] == shard
+                        and je.id in crossing[we.id][2]):
                     we.client.send({
                         "type": "destroy_entity", "eid": je.id,
                         "is_player": False,
@@ -2464,6 +2636,18 @@ class World:
             # events reference the previous owner) but BEFORE the enter
             # decode (arrivals' enter events reference their new slots)
             self._mega_apply_arrivals(mega_pending, outs)
+        for eid, (_, new_sh, _) in crossing.items():
+            # a watcher that arrives from another controller's tile: the
+            # interest set this controller kept for it dates from its
+            # last stay here, and its new row's enter events name every
+            # subject it sees now
+            e = entities.get(eid)
+            if e is not None and new_sh in shards:
+                for x in e.interested_in:
+                    xe = entities.get(x)
+                    if xe is not None:
+                        xe.interested_by.discard(eid)
+                e.interested_in.clear()
         for shard in shards:
             drn = int(base.delta_rows_n[shard])
             drc = min(cfg.delta_rows_cap_eff, cfg.capacity)
@@ -2509,7 +2693,10 @@ class World:
                         we.OnEnterAOI(je)
                     except Exception:
                         logger.exception("OnEnterAOI failed")
-                if we.client is not None and not je.destroyed:
+                if we.client is not None and not je.destroyed and not (
+                        crossing and we.id in crossing
+                        and crossing[we.id][1] == shard
+                        and je.id in crossing[we.id][2]):
                     pc = payloads.get(je.id)
                     if pc is None:
                         pc = payloads[je.id] = (
@@ -2737,6 +2924,42 @@ class World:
             )
         return pending
 
+    def _mh_crossings(self, base, pending) -> dict:
+        """Watchers whose row hops from one controller's tile to
+        another's this tick: ``{eid: (old shard, new shard, ids of the
+        subjects it sees from both rows)}``, the same on every
+        controller (read off the gathered outputs). The old row's leave
+        events decode on the old tile's controller and the new row's
+        enter events on the new tile's, whose client messages travel
+        over two dispatcher connections: a client could read the create
+        of a subject it keeps before its destroy, and lose it. So
+        neither controller sends the pair for a subject seen from both
+        rows; the client keeps it (ROADMAP.md Queue C18). Empty on one
+        controller."""
+        if not self._multihost or not pending:
+            return {}
+        cfg, cap = self.cfg, self.cfg.capacity
+        per = len(self.local_shards)
+        post = {(sh, sl): eid for sh, sl, _, _, eid in pending}
+        out = {}
+        for sh, sl, old_sh, old_sl, eid in pending:
+            if sh // per == old_sh // per:
+                continue
+            ln = min(int(base.leave_n[old_sh]), cfg.leave_cap)
+            lw, lj = base.leave_w[old_sh][:ln], base.leave_j[old_sh][:ln]
+            left = {x.id for j in lj[lw == old_sl].tolist()
+                    if (x := self._owner_subject(old_sh, j)) is not None}
+            en = min(int(base.enter_n[sh]), cfg.enter_cap)
+            ew, ej = base.enter_w[sh][:en], base.enter_j[sh][:en]
+            came = set()
+            for j in ej[ew == sl].tolist():
+                tile, slot = divmod(j, cap)
+                if tile < self.n_spaces:
+                    came.add(post.get((tile, slot))
+                             or self._slot_owner[tile].get(slot))
+            out[eid] = (old_sh, sh, left & came)
+        return out
+
     def _mega_apply_arrivals(self, pending: list[tuple], outs) -> None:
         for shard, s, old_sh, old_sl, eid in pending:
             # old slot keeps its owner mapping through THIS step's leave
@@ -2933,14 +3156,29 @@ class World:
     # ==================================================================
     # device reads
     # ==================================================================
-    def _dget(self, lanes: list[torch.Tensor]) -> list[np.ndarray]:
+    def _dget(self, lanes: list[torch.Tensor],
+              own_from: int | None = None) -> list[np.ndarray]:
         """Host copies of device ``lanes`` (32-bit or 1-byte types), as
         numpy in the JAX package's types: one concatenation of the
         lanes' 32-bit words (a 1-byte lane, such as ``alive``, padded
         to whole words first), one copy to the host and, on a card, one
         stream synchronisation (the copy goes into pinned memory,
-        non-blocking), whatever the number of lanes."""
+        non-blocking), whatever the number of lanes.
+
+        Over several controllers the words are all-gathered instead
+        (every controller reaches this call at the same point, the SPMD
+        contract) and each lane is every rank's part concatenated on its
+        leading shard axis, the global value, as the JAX World's
+        ``process_allgather(tiled=True)``; lanes from ``own_from`` on
+        are this controller's own (the telemetry accumulator)."""
         src = _pack_words(lanes)
+        if self._multihost:
+            got = self._mh_group.all_gather(src, host=True).numpy()
+            parts = [_unpack_words(got[r], lanes)
+                     for r in range(got.shape[0])]
+            k = len(lanes) if own_from is None else own_from
+            return [np.concatenate([p[i] for p in parts]) for i in range(k)] \
+                + parts[self.mh_rank][k:]
         if self.device.type == "cuda":
             host = torch.empty(src.shape, dtype=torch.int32,
                                pin_memory=True)
@@ -2994,7 +3232,7 @@ class World:
         ``aud`` (a tuple) when given, all in one transfer: (outputs,
         host accumulator or None, host audit planes or None)."""
         lanes, split = self._fetch_lanes(outs, acc, aud)
-        return split(self._dget(lanes))
+        return split(self._dget(lanes, len(list(_flat_lanes(outs)))))
 
     @staticmethod
     def _fetch_lanes(outs, acc, aud) -> tuple:

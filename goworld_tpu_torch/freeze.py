@@ -28,6 +28,13 @@ for byte the JAX package's. The atomic write carries the chaos
 crashpoint ``freeze.write`` (:func:`goworld_tpu_torch.utils.faults.
 maybe_crash`) between the fsync of the ``.tmp`` and the rename, as the
 JAX package's does.
+
+A World of several controller processes freezes on every controller at
+the same tick (its game server spreads the decision through the
+mutation exchange); the device snapshot is the World's all-gather, so
+every rank packs the same global snapshot, the leader alone writes it,
+and every rank restores from the leader's file. The asynchronous
+checkpoint refuses such a World, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -502,6 +509,14 @@ def checkpoint_async(world: World, directory: str = ".") -> CheckpointHandle:
     """
     import time
 
+    if getattr(world, "_multihost", False):
+        # a background device fetch would be a one-sided collective
+        # under multi-controller (manager._dget contract); checkpoint
+        # synchronously there instead
+        raise RuntimeError(
+            "checkpoint_async is single-controller only; multihost "
+            "worlds must checkpoint synchronously (freeze_to_file)"
+        )
     if getattr(world, "_ckpt_inflight", False):
         # overlapping checkpoints would race on the same output path;
         # calls come from the logic thread, so a plain flag suffices

@@ -32,6 +32,12 @@ a megaspace's inputs and outputs, and a multi-space step's
 a mesh or a megaspace World keeps the same stacked lanes: gathered to
 numpy (``np.asarray`` of each lane), they cross by
 :func:`state_from_numpy` as they are.
+
+One controller of a game of several
+(:mod:`goworld_tpu_torch.parallel.multihost`) holds its own shards of
+such a global stacked state: :func:`local_shards` cuts the numpy lanes
+of a state, its inputs or a cache to them (``mesh.local_shards``), and
+they cross as above.
 """
 
 from __future__ import annotations
@@ -71,6 +77,16 @@ def _cache_from(cache, dev) -> VerletCache | None:
         else lambda name: getattr(cache, name)
     return VerletCache(**{f.name: _tensor(np.asarray(get(f.name)), dev)
                           for f in dataclasses.fields(VerletCache)})
+
+
+def local_shards(arrays: dict, shards: range) -> dict:
+    """The numpy lanes of a global stacked state, its inputs or its
+    outputs (nested dicts included; None kept) cut to ``shards`` on
+    their leading axis: one controller's part."""
+    return {k: local_shards(v, shards) if isinstance(v, dict)
+            else None if v is None
+            else np.asarray(v)[shards.start:shards.stop]
+            for k, v in arrays.items()}
 
 
 def state_from_numpy(arrays: dict, device="cuda") -> SpaceState:

@@ -24,6 +24,7 @@ import time
 from typing import Callable
 
 import numpy as np
+import torch
 
 from goworld_tpu_torch.entity.entity import Entity, GameClient
 from goworld_tpu_torch.entity.manager import World
@@ -34,6 +35,48 @@ from goworld_tpu_torch.utils import consts, faults, flightrec, log, metrics, \
     opmon, overload, syncage, tracing
 
 logger = log.get("game")
+
+# module-level like the opmon.expose twins (one game per process; tests
+# drive _mh_drain_pending on stubs that bypass __init__)
+_m_mh_backlog_pkts = metrics.gauge("mh_mutation_backlog_packets")
+_m_mh_backlog_bytes = metrics.gauge("mh_mutation_backlog_bytes")
+
+# Dispatcher packets that MUTATE the World. Under a multi-controller
+# (multihost) World these land on ONE controller's dispatcher connection
+# but must be applied on ALL controllers in the same tick (the SPMD
+# contract, parallel/multihost.py) — so they are queued raw and exchanged
+# through a per-tick all-gather before World.tick (see
+# _mh_exchange_mutations). The reference has no analog: its dispatcher
+# star routes each packet to the single game hosting the entity
+# (DispatcherService.go); here one World spans every controller.
+_MH_WORLD_MSGTYPES = frozenset({
+    proto.MT_NOTIFY_CLIENT_CONNECTED,
+    proto.MT_NOTIFY_CLIENT_DISCONNECTED,
+    proto.MT_NOTIFY_GATE_DISCONNECTED,
+    proto.MT_SYNC_POSITION_YAW_FROM_CLIENT,
+    proto.MT_CALL_ENTITY_METHOD,
+    proto.MT_CALL_ENTITY_METHOD_FROM_CLIENT,
+    proto.MT_CREATE_ENTITY_ANYWHERE,
+    proto.MT_LOAD_ENTITY_ANYWHERE,
+    proto.MT_CALL_NIL_SPACES,
+    # kvreg updates drive service-shard decisions (entity/service.py);
+    # logging them makes the kvreg mirror SPMD-consistent at the
+    # tick-driven reconcile points, so every controller of the group
+    # reaches the same claim/create conclusions
+    proto.MT_KVREG_REGISTER,
+})
+
+# The subset of _MH_WORLD_MSGTYPES the dispatcher BROADCASTS to every
+# game connection (the rest are eid/owner-routed and reach exactly one
+# controller). Each of a group's N controllers receives its own copy,
+# so only the LEADER logs them — otherwise the all-gather union would
+# replay every broadcast N times (N nil-space invocations per
+# call_nil_spaces, N-fold kvreg watcher fires, ...).
+_MH_BROADCAST_MSGTYPES = frozenset({
+    proto.MT_KVREG_REGISTER,
+    proto.MT_CALL_NIL_SPACES,
+    proto.MT_NOTIFY_GATE_DISCONNECTED,
+})
 
 
 class GameServer:
@@ -184,6 +227,14 @@ class GameServer:
         # gate's egress span stays linked to the inbound RPC's trace
         self._events_trace: dict[int, tracing.TraceContext] = {}
         self.on_deployment_ready: Callable[[], None] | None = None
+        # multihost World-mutation log (see _MH_WORLD_MSGTYPES)
+        self._mh_pending: list[tuple[int, bytes]] = []
+        self._mh_backlog_ticks = 0  # consecutive ticks with carry-over
+        self._mh_replaying = False
+        self._mh_all_ready = False       # all-gathered group readiness
+        self._mh_leader_game_id = self.game_id  # all-gathered, row 0
+        self._mh_freeze_requested = False  # leader sets; exchange spreads
+        self._mh_ckpt_due = False          # leader's wall-clock verdict
 
         # scrapeable serve-loop series (debug_http /metrics): tick
         # latency distribution, fell-behind backlog, queue depths and
@@ -312,6 +363,10 @@ class GameServer:
         self._promote_claim: str | None = None
         self._promote_epoch = 0
         self._promote_log = None
+        # dispatcher legs whose dispatcher still holds the primary (its
+        # handshake ack listed it, or it connected since): the standby
+        # claims only once every one dropped it (see _standby_tick)
+        self._primary_online_legs: set[int] = set()
         self._repl_attached = False
         self._repl_resub = 0
         self._standby_warmed = False
@@ -491,6 +546,14 @@ class GameServer:
         ``GameService.go:474-478``)."""
         if self.run_state != "running":
             return
+        if self.world._multihost and self.world.mh_rank != 0:
+            # the CLI signals the LEADER; a follower cannot drive the
+            # dispatcher ack dance (its wire id owns no entity routes)
+            logger.warning(
+                "game%d: multihost freeze must be requested on the "
+                "leader controller", self.game_id,
+            )
+            return
         self._freeze_acks.clear()
         p = new_packet(proto.MT_START_FREEZE_GAME)
         for conn in self.cluster.conns:
@@ -521,14 +584,20 @@ class GameServer:
             time.sleep(0.05)
         # snapshot FIRST: OnFreeze hooks may enqueue storage saves, which
         # the drain below must still execute (reference doFreeze ordering).
+        # Multihost: EVERY controller reaches here after the same tick
+        # (the exchange spread the decision) and freeze_world's device
+        # snapshot is an all-gather, so all ranks hold the identical
+        # global snapshot — the LEADER alone writes the file, which every
+        # rank reads back on the -restore start.
         data = _freeze.freeze_world(w)
         if w.storage is not None:
             w.storage.shutdown()
         path = os.path.join(
             self.freeze_dir, _freeze.freeze_filename(w.game_id)
         )
-        _freeze.write_freeze_file(path, data)
-        logger.info("game%d: frozen to %s", self.game_id, path)
+        if not self._mh_follower():
+            _freeze.write_freeze_file(path, data)
+            logger.info("game%d: frozen to %s", self.game_id, path)
         # OnFreeze hooks may have emitted client messages after the
         # first flush — put them on the wire before exiting
         self._flush_sync_out(force=True)
@@ -582,6 +651,13 @@ class GameServer:
         t0 = time.perf_counter()
         tl = metrics.timeline
         rt = getattr(self.world, "residency", None)
+        if self.world._multihost:
+            # the exchange also publishes world.mh_group_ready, which
+            # gates the World's own tick-cadence service reconcile
+            with tl.span("mh_exchange"):
+                self._mh_exchange_mutations()
+            if rt is not None:
+                rt.add_host(time.perf_counter() - t0)
         self.world.tick()
         # everything from here to the end of tick() is useful host work
         # between device dispatches — declared to the residency plane
@@ -882,12 +958,29 @@ class GameServer:
         reload. The snapshot is asynchronous
         (``freeze.checkpoint_async``: the tick loop keeps running through
         the device fetch + file write); with ``snapshot_keyframe_every``
-        the delta chain rides the replication worker instead."""
+        the delta chain rides the replication worker instead. Multihost
+        groups snapshot SYNCHRONOUSLY at the tick the leader's verdict
+        reaches every rank through the mutation exchange: the snapshot's
+        device fetch is a collective every rank must reach at the same
+        tick; all ranks pack the identical global snapshot, the leader
+        writes."""
         if self.checkpoint_interval <= 0 or self.run_state != "running":
             return
         from goworld_tpu_torch import freeze as _freeze
 
         w = self.world
+        if w._multihost:
+            if not self._mh_ckpt_due:
+                return
+            self._mh_ckpt_due = False
+            self._last_ckpt_mono = time.monotonic()
+            data = _freeze.freeze_world(w, run_hooks=False)
+            if not self._mh_follower():
+                _freeze.write_freeze_file(
+                    os.path.join(self.freeze_dir,
+                                 _freeze.checkpoint_filename(w.game_id)),
+                    data)
+            return
         now = time.monotonic()
         if now - self._last_ckpt_mono < self.checkpoint_interval \
                 or getattr(w, "_ckpt_inflight", False):
@@ -1005,7 +1098,15 @@ class GameServer:
                                                      self.game_id))
             self._repl_resub = self.REPL_RESUB_TICKS
         if self._promote_pending is not None \
-                and self._promote_claim is None:
+                and self._promote_claim is None \
+                and not self._primary_online_legs:
+            # a dispatcher drops a dead primary's routes when it reads
+            # that connection to its end, which a backlog of the
+            # primary's frames can delay past a claim: a census taken
+            # before the drop is rejected whole and the drop then leaves
+            # every id without a route, so the claim waits until every
+            # dispatcher reported the primary gone. The JAX standby
+            # claims at once (ROADMAP.md Queue C16).
             self._claim_promotion()
 
     def _drop_mirror_client_events(self) -> None:
@@ -1106,9 +1207,9 @@ class GameServer:
         self._write_promotion_log()
         # re-point the dispatcher's EntityID routing at this process: a
         # fresh census handshake over every leg (the dead primary's
-        # routes dropped with its connection, so the census claims
-        # them; conflicts come back as rejects). Clients re-handshake
-        # through the same census path.
+        # routes dropped with its connection before the claim, so the
+        # census claims them; conflicts come back as rejects). Clients
+        # re-handshake through the same census path.
         census = list(w.entities.keys())
         for conn in self.cluster.conns:
             self._send(conn, proto.pack_set_game_id(
@@ -1146,9 +1247,150 @@ class GameServer:
                              self.game_id)
 
     # ==================================================================
+    # the multihost mutation log
+    # ==================================================================
+    # cap on raw mutation bytes shipped per controller per tick; the
+    # surplus stays queued IN ORDER for the next tick (backpressure —
+    # an unbounded all-gather payload would stall every controller)
+    MH_LOG_BYTES_PER_TICK = 1 << 20
+
+    def _mh_drain_pending(self) -> bytearray:
+        blob = bytearray()
+        import struct as _st
+
+        taken = 0
+        for mt, payload in self._mh_pending:
+            if taken and len(blob) + 6 + len(payload) > \
+                    self.MH_LOG_BYTES_PER_TICK:
+                logger.warning(
+                    "game%d: multihost mutation log full; deferring %d "
+                    "packets to the next tick", self.game_id,
+                    len(self._mh_pending) - taken,
+                )
+                break
+            blob += _st.pack("<HI", mt, len(payload))
+            blob += payload
+            taken += 1
+        del self._mh_pending[:taken]
+        # backlog observability: the ordered carry-over keeps
+        # correctness under overflow, but a backlog that GROWS tick over
+        # tick means the cluster plane produces mutations faster than
+        # 1 MB/controller/tick forever — surfaced as gauges (debug_http
+        # /vars) + a rate-limited alarm, never silently
+        backlog_b = sum(6 + len(p) for _, p in self._mh_pending)
+        opmon.expose("mh_mutation_backlog_packets", len(self._mh_pending))
+        opmon.expose("mh_mutation_backlog_bytes", backlog_b)
+        _m_mh_backlog_pkts.set(len(self._mh_pending))
+        _m_mh_backlog_bytes.set(backlog_b)
+        self.world.op_stats["mh_mutation_backlog_bytes"] = backlog_b
+        if self._mh_pending:
+            self._mh_backlog_ticks += 1
+            if self._mh_backlog_ticks >= 8 \
+                    and self._mh_backlog_ticks % 64 == 8:
+                # the alarm reports what the overload plane is actually
+                # DOING about it (state + per-class sheds since the
+                # last alarm interval)
+                shed_now = overload.shed_snapshot()
+                delta = {
+                    k: v - self._shed_at_alarm.get(k, 0.0)
+                    for k, v in shed_now.items()
+                    if v > self._shed_at_alarm.get(k, 0.0)
+                }
+                self._shed_at_alarm = shed_now
+                logger.warning(
+                    "game%d: multihost mutation backlog sustained for "
+                    "%d ticks (%d packets / %d bytes queued): the "
+                    "cluster plane outruns MH_LOG_BYTES_PER_TICK "
+                    "(%d B/tick) — overload state %s; shed last "
+                    "interval: %s",
+                    self.game_id, self._mh_backlog_ticks,
+                    len(self._mh_pending), backlog_b,
+                    self.MH_LOG_BYTES_PER_TICK,
+                    self.overload.state_name,
+                    delta or "nothing (raise the cap or add controllers)",
+                )
+        else:
+            self._mh_backlog_ticks = 0
+        return blob
+
+    def _mh_exchange_mutations(self) -> None:
+        """Multi-controller mutation exchange: all-gather every
+        controller's queued World-mutating packets and replay the union
+        in process order, so all controllers apply IDENTICAL mutations
+        this tick no matter whose dispatcher connection a packet arrived
+        on. Runs every tick on every controller (the collectives must
+        pair up); the blocking all-gather also keeps the controllers'
+        tick loops in lockstep — the host-plane counterpart of the
+        device step's own collectives."""
+        import struct as _st
+
+        blob = self._mh_drain_pending()
+        # (blob length, deployment-ready flag, game id, freeze
+        # requested, checkpoint due): the extra fields ride the same
+        # collective so every controller derives the SAME "whole group
+        # is ready" fact, the SAME leader game id and the leader's
+        # wall-clock checkpoint verdict at the same tick — wall-clock
+        # facts differ per controller and must never gate SPMD
+        # decisions directly
+        ckpt_due = int(
+            not self._mh_follower()
+            and self.checkpoint_interval > 0
+            and self.run_state == "running"
+            and time.monotonic() - self._last_ckpt_mono
+            >= self.checkpoint_interval
+        )
+        group = self.world._mh_group
+        meta = group.all_gather(torch.tensor(
+            [len(blob), int(self.deployment_ready), self.game_id,
+             int(self._mh_freeze_requested), ckpt_due],
+            dtype=torch.int64)).numpy()
+        self._mh_ckpt_due = bool(meta[:, 4].any())
+        self.world.mh_group_ready = self._mh_all_ready = \
+            bool(meta[:, 1].all())
+        self._mh_leader_game_id = int(meta[0, 2])
+        if meta[:, 3].any() and self.run_state == "running":
+            # coordinated freeze: every controller learns the fact from
+            # the SAME collective, so all of them run _do_freeze after
+            # this very tick and the freeze_world snapshot's own
+            # collectives pair up
+            self.run_state = "freezing"
+        lengths = meta[:, 0]
+        width = int(lengths.max())
+        if width == 0:
+            return
+        padded = np.zeros(width, np.uint8)
+        if blob:
+            padded[: len(blob)] = np.frombuffer(bytes(blob), np.uint8)
+        all_blobs = group.all_gather(torch.from_numpy(padded)).numpy()
+        self._mh_replaying = True
+        try:
+            for pid in range(all_blobs.shape[0]):
+                data = all_blobs[pid].tobytes()[: int(lengths[pid])]
+                off = 0
+                while off + 6 <= len(data):
+                    mt, ln = _st.unpack_from("<HI", data, off)
+                    off += 6
+                    try:
+                        self._handle_packet(
+                            -1, mt, Packet(data[off:off + ln])
+                        )
+                    except Exception:
+                        logger.exception(
+                            "game%d: multihost replay of msgtype %d "
+                            "failed", self.game_id, mt,
+                        )
+                    off += ln
+        finally:
+            self._mh_replaying = False
+
+    # ==================================================================
     # networking thread side
     # ==================================================================
     async def _handshake(self, conn: DispatcherConn) -> None:
+        # multihost followers register NO entities: the leader alone
+        # represents the shared World in the dispatcher's entity table
+        # (eid-routed packets then reach exactly one controller and are
+        # replicated from there via _mh_exchange_mutations)
         # an UNPROMOTED standby registers NO entities (its mirror copies
         # belong to the live primary — claiming them would fork routing)
         # and is never boot-eligible; promotion re-handshakes with the
@@ -1159,7 +1401,7 @@ class GameServer:
             self.game_id, is_reconnect=self.deployment_ready,
             is_restore=self._is_restore,
             ban_boot=self.ban_boot or is_standby,
-            entity_ids=([] if is_standby
+            entity_ids=([] if self._mh_follower() or is_standby
                         else list(self.world.entities.keys())),
         )
         conn.conn.send(p)
@@ -1425,11 +1667,15 @@ class GameServer:
 
     def _remote_call(self, eid: str, method: str, args: tuple,
                      from_client: str | None) -> None:
+        if self._mh_follower():
+            return  # SPMD-replicated call; the leader sends it once
         p = proto.pack_call_entity_method(eid, method, args, from_client)
         self._send(self.cluster.select_by_entity_id(eid), p)
 
     def _filtered_sink(self, key: str, op: str, val: str, method: str,
                        args: tuple) -> None:
+        if self._mh_follower():
+            return
         # a filtered RPC is addressed on the gate via cp.owner_eid,
         # which a create_entity staged THIS tick may set — flush the
         # event bundles first so the broadcast observes them in order
@@ -1438,13 +1684,26 @@ class GameServer:
         p = proto.pack_call_filtered_clients(key, op, val, "", method, args)
         self._send(self.cluster.conns[0], p)
 
+    def _mh_follower(self) -> bool:
+        """True on non-leader controllers of a multihost World. Cluster
+        messages originated by SPMD-replicated host code (entity
+        registration, anywhere-placement, filtered broadcasts) would be
+        sent once per controller; only the leader (rank 0) puts them on
+        the wire. Client-bound traffic is NOT gated here — it is deduped
+        per-entity by World.client_emit_ok (the shard owner emits)."""
+        return self.world._multihost and self.world.mh_rank != 0
+
     def _notify_entity_created(self, e: Entity) -> None:
+        if self._mh_follower():
+            return  # the leader alone owns the dispatcher entity table
         p = new_packet(proto.MT_NOTIFY_CREATE_ENTITY)
         p.append_entity_id(e.id)
         p.append_u16(self.game_id)
         self._send(self.cluster.select_by_entity_id(e.id), p)
 
     def _notify_entity_destroyed(self, e: Entity) -> None:
+        if self._mh_follower():
+            return
         p = new_packet(proto.MT_NOTIFY_DESTROY_ENTITY)
         p.append_entity_id(e.id)
         self._send(self.cluster.select_by_entity_id(e.id), p)
@@ -1458,6 +1717,8 @@ class GameServer:
         the target (``CreateEntityOnGame`` / ``CreateSpaceOnGame``)."""
         from goworld_tpu_torch.utils import ids as _ids
 
+        if self._mh_follower():
+            return  # replicated caller; leader alone requests placement
         eid = _ids.gen_entity_id()
         p = proto.pack_create_entity_anywhere(type_name, attrs or {}, eid,
                                               gameid)
@@ -1465,10 +1726,14 @@ class GameServer:
 
     def load_entity_anywhere(self, type_name: str, eid: str,
                              gameid: int = 0) -> None:
+        if self._mh_follower():
+            return
         p = proto.pack_load_entity_anywhere(type_name, eid, gameid)
         self._send(self.cluster.select_by_entity_id(eid), p)
 
     def kvreg_register(self, key: str, val: str, force: bool = False) -> None:
+        if self._mh_follower():
+            return  # the leader writes once on the whole group's behalf
         p = proto.pack_kvreg_register(key, val, force)
         self._send(self.cluster.select_by_srv_id(key), p)
 
@@ -1488,9 +1753,18 @@ class GameServer:
             self.world, game_id=self.game_id,
             kv_write=lambda k, v: self.kvreg_register(k, v),
             kv_get=self.kvreg.get,
+            # multihost: the whole controller group claims shards as ONE
+            # entity under the LEADER's game id (all-gathered each tick —
+            # unique per group, unlike World.game_id which defaults to 1)
+            claim_token=(
+                (lambda: f"mh:{self._mh_leader_game_id}")
+                if self.world._multihost else None
+            ),
         )
 
     def call_nil_spaces(self, method: str, *args) -> None:
+        if self._mh_follower():
+            return
         p = proto.pack_call_nil_spaces(method, args)
         self._send(self.cluster.conns[0], p)
 
@@ -1537,12 +1811,26 @@ class GameServer:
     def _handle_packet_body(self, didx: int, msgtype: int,
                             pkt: Packet) -> None:
         w = self.world
+        if w._multihost and not self._mh_replaying \
+                and msgtype in _MH_WORLD_MSGTYPES:
+            if msgtype in _MH_BROADCAST_MSGTYPES \
+                    and self._mh_follower():
+                return  # broadcast copy; the leader's is the one logged
+            # defer to the per-tick all-gather so every controller
+            # applies this mutation, in the same order, in the same tick
+            self._mh_pending.append(
+                (msgtype, bytes(memoryview(pkt.buf)[pkt.rpos:]))
+            )
+            return
         if msgtype == proto.MT_SET_GAME_ID_ACK:
             disp_id = pkt.read_u16()
             self.handshake_acks.add(disp_id)
             kv = pkt.read_data()
             rejects = pkt.read_data()
-            self.online_games.update(pkt.read_data())
+            online = pkt.read_data()
+            self.online_games.update(online)
+            if self.standby_of and self.standby_of in online:
+                self._primary_online_legs.add(didx)
             self.kvreg.update(kv)
             for eid in rejects:
                 e = w.entities.get(eid)
@@ -1551,7 +1839,9 @@ class GameServer:
                         "game%d: entity %s rejected by dispatcher; "
                         "destroying stale copy", self.game_id, eid,
                     )
-                    e.destroy()
+                    # the live copy elsewhere keeps its client, storage
+                    # and route (ROADMAP.md Queue C16)
+                    w.destroy_entity(e, stale=True)
             return
         if msgtype == proto.MT_NOTIFY_DEPLOYMENT_READY:
             if not self.deployment_ready:
@@ -1681,13 +1971,24 @@ class GameServer:
             if len(self._freeze_acks) >= len(self.cluster.conns) \
                     and self.run_state == "running":
                 # every dispatcher is now blocking us: safe to snapshot
-                self.run_state = "freezing"
+                if w._multihost:
+                    # spread the decision through the NEXT exchange so
+                    # the whole controller group freezes at one tick
+                    self._mh_freeze_requested = True
+                else:
+                    self.run_state = "freezing"
             return
         if msgtype == proto.MT_NOTIFY_GAME_CONNECTED:
-            self.online_games.add(pkt.read_u16())
+            back = pkt.read_u16()
+            self.online_games.add(back)
+            if self.standby_of and back == self.standby_of:
+                self._primary_online_legs.add(didx)
             return
         if msgtype == proto.MT_NOTIFY_GAME_DISCONNECTED:
-            self.online_games.discard(pkt.read_u16())
+            gone = pkt.read_u16()
+            self.online_games.discard(gone)
+            if self.standby_of and gone == self.standby_of:
+                self._primary_online_legs.discard(didx)
             return
         if msgtype == proto.MT_REPLICATION_SUBSCRIBE:
             pkt.read_u16()  # routing target (this game)

@@ -29,6 +29,16 @@ tiles. Two ship impls, bit-identical (``halo_impl``):
 
 Invalid ghost gids are normalised to 0 and the yaw lane is gated on
 dirty under both impls; that keeps them bit-identical.
+
+Over several controller processes (:class:`Placement`) each controller
+holds tiles ``[tile0, tile0 + n_local)`` and the rings still turn over
+all ``n_dev``. A leg whose sender and receiver live in different
+processes ships the sender's strip gathered and packed
+(:func:`_gather_strip`, :func:`_pack_strip`) through the controller
+group's point-to-point exchange, once a phase for both directions; the
+receiver's phase kernel reads it from the direction's remote block
+(under ``"ppermute"`` it is unpacked there), and does the rest of the
+phase as on one controller.
 """
 
 from __future__ import annotations
@@ -76,6 +86,135 @@ def _unpack_strip(buf: torch.Tensor):
         (meta & 1).bool(),
         (meta >> 2) - 1,
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """Where an exchange's tiles live: this controller holds tiles
+    ``[tile0, tile0 + n_local)`` of ``n_dev``, and ``group`` (a
+    :class:`~goworld_tpu_torch.parallel.multihost.Group`) the rest, each
+    rank ``n_local`` tiles in rank order."""
+
+    n_dev: int
+    tile0: int
+    n_local: int
+    group: object
+
+    @property
+    def rank(self) -> int:
+        return self.group.rank
+
+    def rank_of(self, tile: int) -> int:
+        return tile // self.n_local
+
+
+def placement_of(mesh) -> Placement | None:
+    """The placement of a mesh over several controllers, else None."""
+    if mesh is None or not mesh.multi_controller:
+        return None
+    loc = mesh.local_shards
+    return Placement(mesh.size, loc.start, len(loc), mesh.group)
+
+
+def _legs(place: Placement, ring: "Ring"):
+    """The legs of ``ring`` that cross processes, in receiver order:
+    ``(sends, recvs)`` with sends ``(local sender row, receiver's rank)``
+    and recvs ``(local receiver row, sender's rank)``."""
+    sends, recvs = [], []
+    for r in range(place.n_dev):
+        if not ring.recv_ok[r]:
+            continue
+        t = (r - ring.shift) % place.n_dev
+        rr, tr = place.rank_of(r), place.rank_of(t)
+        if rr == tr:
+            continue
+        if tr == place.rank:
+            sends.append((t - place.tile0, rr))
+        if rr == place.rank:
+            recvs.append((r - place.tile0, tr))
+    return sends, recvs
+
+
+def _rows(x: torch.Tensor, rows) -> torch.Tensor:
+    """Rows ``rows`` (Python ints) of ``x``'s leading axis, stacked by
+    device copies (no index tensor crosses from the host)."""
+    return torch.stack([x[r] for r in rows])
+
+
+def _strip_words(src, flat, count, rows, ghosts=None, col0: int = 0):
+    """The packed strips (i32[len(rows), H, 5]) of local sender rows
+    ``rows``: gathered from ``src`` (and, for slots past its rows, from
+    columns ``[0, col0)`` of ``ghosts`` = (pos, yaw, dirty, gid) of the
+    ghost block) as the one-controller phase gathers them."""
+    sub = [_rows(x, rows) for x in src]
+    if col0:
+        sub = [torch.cat([x, _rows(g, rows)[:, :col0]], dim=1)
+               for x, g in zip(sub, ghosts)]
+    f, c = _rows(flat, rows), _rows(count, rows)
+    h = f.shape[1]
+    valid = torch.arange(h, dtype=torch.int32, device=f.device) \
+        < torch.clamp_max(c, h)[:, None]
+    return _pack_strip(*_gather_strip(sub, f, valid))
+
+
+def ship_afar(place: Placement, dirs, h: int, dev):
+    """The cross-process legs of one phase, both directions in one
+    exchange. ``dirs`` holds per direction ``(ring, words)`` with
+    ``words(rows)`` the packed strips of local sender rows ``rows``.
+    Returns per direction ``(remote block i32[n_local, H, 5] or None,
+    mask)``: bit ``rl`` of the mask marks a local receiver whose strip
+    came from another process, in row ``rl`` of the block."""
+    legs = [_legs(place, ring) for ring, _ in dirs]
+    sends, recvs = {}, {}
+    for (ring, words), (s_k, r_k) in zip(dirs, legs):
+        for q in sorted({q for _, q in s_k}):
+            rows = [row for row, qq in s_k if qq == q]
+            sends.setdefault(q, []).append(words(rows))
+        for p in {p for _, p in r_k}:
+            recvs[p] = recvs.get(p, 0) + sum(1 for _, pp in r_k if pp == p)
+    got = place.group.exchange(
+        {q: torch.cat(parts) for q, parts in sends.items()},
+        {p: ((m, h, 5), torch.int32) for p, m in recvs.items()})
+    taken = {p: 0 for p in got}
+    out = []
+    for _, r_k in legs:
+        if not r_k:
+            out.append((None, 0))
+            continue
+        block = torch.zeros((place.n_local, h, 5), dtype=torch.int32,
+                            device=dev)
+        mask = 0
+        for p in sorted({p for _, p in r_k}):
+            for row, _ in (x for x in r_k if x[1] == p):
+                block[row].copy_(got[p][taken[p]])
+                taken[p] += 1
+                mask |= 1 << row
+        out.append((block, mask))
+    return out
+
+
+def _receive(place: Placement, ring: "Ring", lanes, afar, packed=False):
+    """Each local receiver's strip lanes under ``ring``: the gathered
+    ``lanes`` of a sender held here, the remote block's row of one held
+    afar (unpacked, or as its words where ``lanes`` is the one packed
+    buffer), zeros where the receiver takes none (what
+    :func:`ship_ring_plain` gives on one controller)."""
+    block, mask = afar
+    far = None if not mask else (block,) if packed \
+        else _unpack_strip(block)
+    out = []
+    for li, x in enumerate(lanes):
+        rows = []
+        for rl in range(place.n_local):
+            r = place.tile0 + rl
+            if not ring.recv_ok[r]:
+                rows.append(torch.zeros_like(x[0]))
+            elif (mask >> rl) & 1:
+                rows.append(far[li][rl])
+            else:
+                rows.append(x[(r - ring.shift) % place.n_dev - place.tile0])
+        out.append(torch.stack(rows))
+    return tuple(out)
 
 
 def ship_ring_plain(bufs: torch.Tensor, shift: int, recv_ok) -> torch.Tensor:
@@ -146,12 +285,14 @@ def _gather_strip(src, flat, valid):
     )
 
 
-def ship_phase_plain(src, strips, out, col0: int) -> None:
+def ship_phase_plain(src, strips, out, col0: int, place=None,
+                     afar=None) -> None:
     """Plain version of :func:`ship_phase`: per direction the strip is
     gathered from the own lanes followed by ``out``'s columns ``[0,
     col0)``, packed into one i32[n_dev, H, 5] buffer, shipped by
-    :func:`ship_ring_plain`, unpacked, its gid normalised, and written
-    into ``out``."""
+    :func:`ship_ring_plain` (over several controllers, a receiver whose
+    sender is afar takes its row of the direction's remote block),
+    unpacked, its gid normalised, and written into ``out``."""
     h = strips[0][1].shape[1]
     if col0:
         ghost = (out[0], out[1], out[2], out[4])
@@ -159,20 +300,27 @@ def ship_phase_plain(src, strips, out, col0: int) -> None:
     for k, (ring, flat, count) in enumerate(strips):
         valid = torch.arange(h, dtype=torch.int32, device=flat.device) \
             < torch.clamp_max(count, h)[:, None]
-        lanes = _unpack_strip(ship_ring_plain(
-            _pack_strip(*_gather_strip(src, flat, valid)), ring.shift,
-            ring.recv_ok))
+        words = _pack_strip(*_gather_strip(src, flat, valid))
+        if place is None:
+            words = ship_ring_plain(words, ring.shift, ring.recv_ok)
+        else:
+            words = _receive(place, ring, (words,), afar[k], True)[0]
+        lanes = _unpack_strip(words)
         cols = slice(col0 + k * h, col0 + (k + 1) * h)
         for dst, lane in zip(out[:4], lanes[:4]):
             dst[:, cols] = lane
         out[4][:, cols] = torch.where(lanes[3], lanes[4], 0)
 
 
-def _ship_lanes(src, flat, valid, ring: Ring):
+def _ship_lanes(src, flat, valid, ring: Ring, place=None, afar=None):
     """The ``"ppermute"`` ship of one direction: each lane of the
-    gathered strip through :func:`ship_ring_plain`."""
-    return tuple(ship_ring_plain(x, ring.shift, ring.recv_ok)
-                 for x in _gather_strip(src, flat, valid))
+    gathered strip through :func:`ship_ring_plain` (over several
+    controllers, :func:`_receive` with the direction's remote block)."""
+    lanes = _gather_strip(src, flat, valid)
+    if place is None:
+        return tuple(ship_ring_plain(x, ring.shift, ring.recv_ok)
+                     for x in lanes)
+    return _receive(place, ring, lanes, afar)
 
 
 def _cat(parts, i):
@@ -194,27 +342,35 @@ _OUT = (("gpos", torch.float32, (3,)), ("gyaw", torch.float32, ()),
         ("ggid", torch.int32, ()))
 
 
-def _check_phase(src, strips, out, col0: int) -> None:
+def _check_phase(src, strips, out, col0: int, place=None,
+                 afar=None) -> None:
     """Reject what the phase kernel does not take (on every device, so
     that the CPU runs the same checks)."""
     if len(src) != 4 or len(out) != 5 or len(strips) != 2:
         raise ValueError("a phase takes 4 source lanes, 5 output lanes and "
                          "2 strips")
-    n_dev, m = src[0].shape[:2]
+    n_loc, m = src[0].shape[:2]
+    n_dev = n_loc if place is None else place.n_dev
+    if place is not None and (place.n_local != n_loc or not 0 <= place.tile0
+                              <= n_dev - n_loc):
+        raise ValueError(f"{n_loc} local tiles do not match {place}")
     g = out[0].shape[1]
     dev = src[0].device
-    lanes = [(t, name, dt, (n_dev, m, *tail))
+    lanes = [(t, name, dt, (n_loc, m, *tail))
              for t, (name, dt, tail) in zip(src, _SRC)]
-    lanes += [(t, name, dt, (n_dev, g, *tail))
+    lanes += [(t, name, dt, (n_loc, g, *tail))
               for t, (name, dt, tail) in zip(out, _OUT)]
     h = strips[0][1].shape[-1]
     for k, (ring, flat, count) in enumerate(strips):
-        lanes.append((count, f"count{k}", torch.int32, (n_dev,)))
+        lanes.append((count, f"count{k}", torch.int32, (n_loc,)))
+        if afar is not None and afar[k][1]:
+            lanes.append((afar[k][0], f"remote{k}", torch.int32,
+                          (n_loc, h, 5)))
         if flat.dtype != torch.int32:
             raise TypeError(f"flat{k}: expected torch.int32, got "
                             f"{flat.dtype}")
-        if tuple(flat.shape) != (n_dev, h) or flat.stride(-1) != 1:
-            raise ValueError(f"flat{k}: expected [{n_dev}, {h}] with unit "
+        if tuple(flat.shape) != (n_loc, h) or flat.stride(-1) != 1:
+            raise ValueError(f"flat{k}: expected [{n_loc}, {h}] with unit "
                              f"row stride, got {tuple(flat.shape)} strides "
                              f"{flat.stride()}")
         if flat.device != dev:
@@ -234,11 +390,15 @@ def _check_phase(src, strips, out, col0: int) -> None:
                          f"ghost block's {g}")
 
 
-def ship_phase(src, strips, out, col0: int) -> None:
+def ship_phase(src, strips, out, col0: int, place=None,
+               afar=None) -> None:
     """One exchange phase for all tiles, written in place into the ghost
     block ``out`` at columns ``[col0, col0 + 2H)``. The CUDA kernel of
     ``csrc/halo_ship.cu`` for tensors on the card (one launch); the plain
-    version :func:`ship_phase_plain` for tensors on the CPU.
+    version :func:`ship_phase_plain` for tensors on the CPU. Over
+    several controllers ``place`` (a :class:`Placement`) says which
+    tiles the lanes hold, and ``afar`` gives per direction the remote
+    block and mask of :func:`ship_afar`.
 
     Args:
       src: the tiles' own lanes ``(pos f32[n_dev, M, 3], yaw f32[n_dev,
@@ -253,24 +413,32 @@ def ship_phase(src, strips, out, col0: int) -> None:
         direction k fills columns ``col0 + k*H`` to ``col0 + (k+1)*H``.
       col0: the phase's first output column.
     """
-    _check_phase(src, strips, out, col0)
+    _check_phase(src, strips, out, col0, place, afar)
     dev = src[0].device
     if dev.type == "cpu":
-        ship_phase_plain(src, strips, out, col0)
+        ship_phase_plain(src, strips, out, col0, place, afar)
         return
     if dev.type != "cuda":
         raise ValueError(f"ship_phase: unsupported device {dev}")
-    n_dev, m = src[0].shape[:2]
+    n_loc, m = src[0].shape[:2]
+    n_dev, tile0 = (n_loc, 0) if place is None \
+        else (place.n_dev, place.tile0)
+    afar = afar or ((None, 0), (None, 0))
     (r0, flat0, count0), (r1, flat1, count1) = strips
     if flat0.shape[1] == 0:
         return
+
+    def remote(k):
+        block, mask = afar[k]
+        return (block.data_ptr() if mask else None), mask
+
     err = kernels.lib().gw_halo_ship_phase(
         *(t.data_ptr() for t in src), m, *(t.data_ptr() for t in out),
-        out[0].shape[1], n_dev, flat0.shape[1], col0,
+        out[0].shape[1], n_dev, tile0, n_loc, flat0.shape[1], col0,
         flat0.data_ptr(), flat0.stride(0), count0.data_ptr(),
-        r0.shift % n_dev, r0.mask,
+        r0.shift % n_dev, r0.mask, *remote(0),
         flat1.data_ptr(), flat1.stride(0), count1.data_ptr(),
-        r1.shift % n_dev, r1.mask,
+        r1.shift % n_dev, r1.mask, *remote(1),
         kernels.stream_handle(dev))
     kernels.check(err, "ship_phase")
     kernels.LAUNCHES["halo_ship_phase"] += 1
@@ -297,14 +465,41 @@ def _tile_mins(idx: torch.Tensor, width: float) -> torch.Tensor:
     return idx.to(torch.float32) * _f32(width, idx.device)
 
 
-def _local_gid(n_dev: int, n_per_dev: int, n: int, dev) -> torch.Tensor:
-    d = torch.arange(n_dev, dtype=torch.int32, device=dev)
+def _local_gid(d: torch.Tensor, n_per_dev: int, n: int) -> torch.Tensor:
     return d[:, None] * n_per_dev \
-        + torch.arange(n, dtype=torch.int32, device=dev)[None, :]
+        + torch.arange(n, dtype=torch.int32, device=d.device)[None, :]
+
+
+def _tiles(n_dev: int, place, dev) -> torch.Tensor:
+    """The tile indices of the lanes held here (all ``n_dev`` on one
+    controller)."""
+    t0, n = (0, n_dev) if place is None else (place.tile0, place.n_local)
+    return torch.arange(t0, t0 + n, dtype=torch.int32, device=dev)
+
+
+def _afar(place, src, strips, out=None, col0: int = 0):
+    """:func:`ship_afar` of one phase's ``strips`` (``(ring, flat,
+    count)`` each) gathered from ``src``; None on one controller."""
+    if place is None:
+        return None
+    ghosts = None if out is None else (out[0], out[1], out[2], out[4])
+    dirs = [(ring, lambda rows, f=flat, c=count: _strip_words(
+        src, f, c, rows, ghosts, col0)) for ring, flat, count in strips]
+    return ship_afar(place, dirs, strips[0][1].shape[1], src[0].device)
+
+
+def _ship(src, strips, out, col0: int, place, afar) -> None:
+    """:func:`ship_phase`, its placement passed over several
+    controllers only."""
+    if place is None:
+        ship_phase(src, strips, out, col0)
+    else:
+        ship_phase(src, strips, out, col0, place=place, afar=afar)
 
 
 def exchange_halo(n_dev: int, pos, yaw, dirty, alive, tile_w: float,
-                  radius: float, halo_cap: int, impl: str = "ppermute"):
+                  radius: float, halo_cap: int, impl: str = "ppermute",
+                  place: Placement | None = None):
     """Ship boundary strips of 1D x-strip tiles to their lateral
     neighbors.
 
@@ -315,15 +510,17 @@ def exchange_halo(n_dev: int, pos, yaw, dirty, alive, tile_w: float,
     ghosts, then right-neighbor ghosts): (gpos f32[n_dev, 2H, 3], gyaw,
     gdirty, gvalid, ggid i32 = owner * N + slot), plus ``strip_demand``
     i32[n_dev], the true occupancy of each tile's fuller inward-facing
-    strip (an alarm when it exceeds halo_cap).
+    strip (an alarm when it exceeds halo_cap). Over several controllers
+    (``place``) the lanes hold this controller's tiles and so do the
+    results.
     """
     _check_impl(impl)
     n = pos.shape[1]
     dev = pos.device
-    d = torch.arange(n_dev, dtype=torch.int32, device=dev)
+    d = _tiles(n_dev, place, dev)
     tile_min = _tile_mins(d, tile_w)[:, None]
     x = pos[..., 0]
-    src = (pos, yaw, dirty, _local_gid(n_dev, n, n, dev))
+    src = (pos, yaw, dirty, _local_gid(d, n, n))
 
     left_flat, left_valid, left_demand = bounded_extract_batched(
         alive & (x < tile_min + _f32(radius, dev)), halo_cap)
@@ -338,19 +535,26 @@ def exchange_halo(n_dev: int, pos, yaw, dirty, alive, tile_w: float,
 
     # my right strip is a ghost for tile d+1, my left strip for d-1
     from_left, from_right = rings_1d(n_dev)
+    strips = ((from_left, right_flat, right_demand),
+              (from_right, left_flat, left_demand))
+    afar = _afar(place, src, strips)
     if impl == "async":
-        out = _empty_ghosts(n_dev, 2 * halo_cap, dev)
-        ship_phase(src, ((from_left, right_flat, right_demand),
-                         (from_right, left_flat, left_demand)), out, 0)
+        out = _empty_ghosts(d.shape[0], 2 * halo_cap, dev)
+        _ship(src, strips, out, 0, place, afar)
     else:
-        out = _ghosts([_ship_lanes(src, right_flat, right_valid, from_left),
-                       _ship_lanes(src, left_flat, left_valid, from_right)])
+        afar = afar or (None, None)
+        out = _ghosts([
+            _ship_lanes(src, right_flat, right_valid, from_left, place,
+                        afar[0]),
+            _ship_lanes(src, left_flat, left_valid, from_right, place,
+                        afar[1])])
     return (*out, strip_demand)
 
 
 def exchange_halo_2d(shape: tuple[int, int], n_per_dev: int, pos, yaw,
                      dirty, alive, tile_w: float, tile_d: float,
-                     radius: float, halo_cap: int, impl: str = "ppermute"):
+                     radius: float, halo_cap: int, impl: str = "ppermute",
+                     place: Placement | None = None):
     """Two-phase 8-neighbor halo for 2D (XZ) tiles.
 
     Tile ``d`` is ``(ix, iz) = (d // tz, d % tz)``. Phase 1 ships the
@@ -366,13 +570,13 @@ def exchange_halo_2d(shape: tuple[int, int], n_per_dev: int, pos, yaw,
     n_dev = tx * tz
     n = pos.shape[1]
     dev = pos.device
-    d = torch.arange(n_dev, dtype=torch.int32, device=dev)
+    d = _tiles(n_dev, place, dev)
     ix, iz = d // tz, d % tz
     tmin_x = _tile_mins(ix, tile_w)[:, None]
     tmin_z = _tile_mins(iz, tile_d)[:, None]
     r = _f32(radius, dev)
     x, z = pos[..., 0], pos[..., 2]
-    src = (pos, yaw, dirty, _local_gid(n_dev, n_per_dev, n, dev))
+    src = (pos, yaw, dirty, _local_gid(d, n_per_dev, n))
     (from_west, from_east), (from_north, from_south) = rings_2d(tx, tz)
 
     # phase 1: x strips over the flat axis (stride tz)
@@ -382,10 +586,12 @@ def exchange_halo_2d(shape: tuple[int, int], n_per_dev: int, pos, yaw,
         alive & (x >= tmin_x + _f32(tile_w, dev) - r), halo_cap)
     # phase 2: z strips of local rows plus the phase-1 ghosts
     lo, hi = tmin_z + r, tmin_z + _f32(tile_d, dev) - r
+    phase1 = ((from_west, east_flat, east_dem),
+              (from_east, west_flat, west_dem))
+    afar1 = _afar(place, src, phase1)
     if impl == "async":
-        out = _empty_ghosts(n_dev, 4 * halo_cap, dev)
-        ship_phase(src, ((from_west, east_flat, east_dem),
-                         (from_east, west_flat, west_dem)), out, 0)
+        out = _empty_ghosts(d.shape[0], 4 * halo_cap, dev)
+        _ship(src, phase1, out, 0, place, afar1)
         # the phase-1 ghosts are the block's first 2H columns: only the
         # masks are concatenated
         h2 = 2 * halo_cap
@@ -394,11 +600,16 @@ def exchange_halo_2d(shape: tuple[int, int], n_per_dev: int, pos, yaw,
             [alive & (z < lo), gvalid & (gz < lo)], dim=1), halo_cap)
         south_flat, _, south_dem = bounded_extract_batched(torch.cat(
             [alive & (z >= hi), gvalid & (gz >= hi)], dim=1), halo_cap)
-        ship_phase(src, ((from_north, south_flat, south_dem),
-                         (from_south, north_flat, north_dem)), out, h2)
+        phase2 = ((from_north, south_flat, south_dem),
+                  (from_south, north_flat, north_dem))
+        _ship(src, phase2, out, h2, place,
+              _afar(place, src, phase2, out, h2))
     else:
-        west = _ship_lanes(src, east_flat, east_valid, from_west)
-        east = _ship_lanes(src, west_flat, west_valid, from_east)
+        afar1 = afar1 or (None, None)
+        west = _ship_lanes(src, east_flat, east_valid, from_west, place,
+                           afar1[0])
+        east = _ship_lanes(src, west_flat, west_valid, from_east, place,
+                           afar1[1])
         cpos, cyaw, cdirty, cvalid, cgid = (
             torch.cat([own, w, e], dim=1) for own, w, e in zip(
                 (pos, yaw, dirty, alive, src[3]), west, east))
@@ -408,9 +619,14 @@ def exchange_halo_2d(shape: tuple[int, int], n_per_dev: int, pos, yaw,
         south_flat, south_valid, south_dem = bounded_extract_batched(
             cvalid & (cz >= hi), halo_cap)
         csrc = (cpos, cyaw, cdirty, cgid)
+        afar2 = _afar(place, csrc, ((from_north, south_flat, south_dem),
+                                    (from_south, north_flat, north_dem))) \
+            or (None, None)
         out = _ghosts([west, east,
-                       _ship_lanes(csrc, south_flat, south_valid, from_north),
-                       _ship_lanes(csrc, north_flat, north_valid, from_south)])
+                       _ship_lanes(csrc, south_flat, south_valid, from_north,
+                                   place, afar2[0]),
+                       _ship_lanes(csrc, north_flat, north_valid, from_south,
+                                   place, afar2[1])])
 
     # inward-facing strips only: world-edge outward strips never ship
     strip_demand = torch.stack([

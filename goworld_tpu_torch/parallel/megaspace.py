@@ -18,6 +18,14 @@ the exchange points act on all tiles at once: the migration
 ``psum`` a sum, and each halo exchange phase one launch of the CUDA
 kernel of ``csrc/halo_ship.cu``. Tiles on several cards are not ported
 yet.
+
+Over several controller processes (a mesh of
+:func:`goworld_tpu_torch.parallel.multihost.global_mesh`) each
+controller ticks its own tiles, lanes ``[n_local, ...]``: the
+migration all_to_all sends another rank's blocks through the group, the
+halo legs that cross processes ship their packed strips point to point
+(:mod:`goworld_tpu_torch.parallel.halo`), the phase kernel still runs
+once a phase here, and the psum is the group's all-reduce.
 """
 
 from __future__ import annotations
@@ -49,6 +57,7 @@ from goworld_tpu_torch.parallel.halo import (
     exchange_halo,
     exchange_halo_2d,
     meta_gid_bound,
+    placement_of,
 )
 from goworld_tpu_torch.parallel.mesh import (
     create_multi_state,
@@ -213,12 +222,14 @@ def _placement(device, devices):
 
 
 def create_mega_state(mc: MegaConfig, seed: int = 0, device="cuda",
-                      devices=None) -> SpaceState:
+                      devices=None, shards=None) -> SpaceState:
     """Stacked per-tile state with global-id neighbor lists, on
-    ``device`` (the card unless the caller asks for the CPU)."""
+    ``device`` (the card unless the caller asks for the CPU);
+    ``shards`` (a range of tiles) stacks those tiles only."""
     _check_mega_ported(mc, devices)
     st = create_multi_state(mc.cfg, mc.n_dev, seed,
-                            device=_placement(device, devices))
+                            device=_placement(device, devices),
+                            shards=shards)
     return st.replace(
         nbr=torch.full_like(st.nbr, mc.gid_sentinel),
         nbr_cnt=torch.zeros_like(st.nbr_cnt),
@@ -250,13 +261,16 @@ def tile_shifts(mc: MegaConfig, dev) -> torch.Tensor:
 
 def mega_tick_body(mc: MegaConfig, state: SpaceState,
                    inputs: MultiTickInputs, shifts: torch.Tensor,
-                   policy=None):
-    """One megaspace tick over stacked tiles. Returns a new state and
-    the outputs; the lanes of ``state`` are not modified. See
+                   policy=None, place=None):
+    """One megaspace tick over stacked tiles (over several controllers,
+    ``place``'s tiles of this one). Returns a new state and the outputs;
+    the lanes of ``state`` are not modified. See
     :func:`make_mega_tick`."""
     cfg = mc.cfg
     n = cfg.capacity
     n_dev = mc.n_dev
+    tile0 = 0 if place is None else place.tile0
+    n_loc = state.pos.shape[0]
     tx, tz = mc.shape
     gsent = mc.gid_sentinel
     ghost_rows = mc.ghost_rows
@@ -272,12 +286,13 @@ def mega_tick_body(mc: MegaConfig, state: SpaceState,
     # 1. inputs, behaviors and integration over the whole world, then
     #    tile targeting and the emigrant pack, tile by tile
     tiles, pre_dirty, departed, sends = [], [], [], []
-    for d in range(n_dev):
-        st = tile_view(state, d)
+    for i in range(n_loc):
+        d = tile0 + i
+        st = tile_view(state, i)
         base = inputs.base
         pos, yaw, touched = apply_pos_inputs(
-            st.pos, st.yaw, base.pos_sync_idx[d], base.pos_sync_vals[d],
-            base.pos_sync_n[d])
+            st.pos, st.yaw, base.pos_sync_idx[i], base.pos_sync_vals[i],
+            base.pos_sync_n[i])
         keys = prng.split(st.rng)
         rng, k_behave = keys[0], keys[1]
         # gid neighbor lists cannot gather positions: the behaviors read
@@ -321,15 +336,17 @@ def mega_tick_body(mc: MegaConfig, state: SpaceState,
         sends.append((fbuf, ibuf, demand))
 
     # the all_to_all: tile d receives block d of every sender's buffer
-    recv_f = torch.stack([s[0] for s in sends]).transpose(0, 1)
-    recv_i = torch.stack([s[1] for s in sends]).transpose(0, 1)
+    recv_f, recv_i = mig.exchange_emigrants(
+        torch.stack([s[0] for s in sends]),
+        torch.stack([s[1] for s in sends]),
+        None if place is None else place.group)
     arrivals = []
-    for d in range(n_dev):
-        st, *arr = mig.insert_arrivals(tiles[d], recv_f[d], recv_i[d],
+    for i in range(n_loc):
+        st, *arr = mig.insert_arrivals(tiles[i], recv_f[i], recv_i[i],
                                        nbr_sentinel=gsent,
-                                       quarantine=departed[d])
-        tiles[d] = st
-        pre_dirty[d] = pre_dirty[d] | st.dirty   # arrivals force-sync
+                                       quarantine=departed[i])
+        tiles[i] = st
+        pre_dirty[i] = pre_dirty[i] | st.dirty   # arrivals force-sync
         arrivals.append(arr)
     dirty = torch.stack(pre_dirty)
 
@@ -342,11 +359,12 @@ def mega_tick_body(mc: MegaConfig, state: SpaceState,
     if mc.is_2d:
         gpos, gyaw, gdirty, gvalid, ggid, halo_demand = exchange_halo_2d(
             (tx, tz), n, pos_all, yaw_all, dirty, visible, mc.tile_w,
-            mc.tile_d, cfg.grid.radius, mc.halo_cap, impl=mc.halo_impl)
+            mc.tile_d, cfg.grid.radius, mc.halo_cap, impl=mc.halo_impl,
+            place=place)
     else:
         gpos, gyaw, gdirty, gvalid, ggid, halo_demand = exchange_halo(
             n_dev, pos_all, yaw_all, dirty, visible, mc.tile_w,
-            cfg.grid.radius, mc.halo_cap, impl=mc.halo_impl)
+            cfg.grid.radius, mc.halo_cap, impl=mc.halo_impl, place=place)
 
     # 4-7. per tile: AOI over local + ghost rows in tile-shifted
     #      coordinates (ghosts are candidates, never watchers), gid
@@ -359,13 +377,14 @@ def mega_tick_body(mc: MegaConfig, state: SpaceState,
                        device=dev)
     no_client = torch.zeros(ghost_rows, dtype=torch.bool, device=dev)
     new_tiles, outs = [], []
-    for d in range(n_dev):
-        st = tiles[d]
-        pos_ext = torch.cat([st.pos, gpos[d]])
-        dirty_ext = torch.cat([dirty[d], gdirty[d]])
+    for i in range(n_loc):
+        d = tile0 + i
+        st = tiles[i]
+        pos_ext = torch.cat([st.pos, gpos[i]])
+        dirty_ext = torch.cat([dirty[i], gdirty[i]])
         hc_ext = torch.cat([st.has_client, no_client])
         nbr_ext, nbr_cnt, nbr_fl, aoi_stats = grid_neighbors_flags(
-            cfg.grid, pos_ext - shifts[d], torch.cat([st.alive, gvalid[d]]),
+            cfg.grid, pos_ext - shifts[d], torch.cat([st.alive, gvalid[i]]),
             query_rows=n, watch_radius=torch.cat([st.aoi_radius, inf_w]),
             flag_bits=dirty_ext.to(torch.int32)
             | (hc_ext.to(torch.int32) << 1),
@@ -376,7 +395,7 @@ def mega_tick_body(mc: MegaConfig, state: SpaceState,
         mean_off = (neighbor_mean_offset(pos_ext, st.pos, nbr_ext, nbr_cnt,
                                          p_ext)
                     if wants_features else st.nbr_mean_off)
-        gid_ext = torch.cat([d * n + slots, ggid[d]])
+        gid_ext = torch.cat([d * n + slots, ggid[i]])
         nbr_gid = torch.where(
             nbr_ext == p_ext, gsent,
             gid_ext[torch.clamp_max(nbr_ext, p_ext - 1).long()])
@@ -387,7 +406,7 @@ def mega_tick_body(mc: MegaConfig, state: SpaceState,
             min(cfg.delta_rows_cap_eff, n))
         sync_w, sync_j, sync_vals, sync_n = collect_sync(
             nbr_ext, dirty_ext, st.has_client, pos_ext,
-            torch.cat([st.yaw, gyaw[d]]), cfg.sync_cap,
+            torch.cat([st.yaw, gyaw[i]]), cfg.sync_cap,
             nbr_dirty=(nbr_fl & 1).bool())
         sync_j = torch.where(
             sync_j >= 0,
@@ -420,7 +439,10 @@ def mega_tick_body(mc: MegaConfig, state: SpaceState,
 
     base = _stack_outputs(outs, TickOutputs)
     # the psum: every tile reads the megaspace's total
-    global_alive = base.alive_count.sum(dtype=torch.int32).repeat(n_dev)
+    alive = base.alive_count.sum(dtype=torch.int32)
+    if place is not None:
+        alive = place.group.all_reduce_sum(alive)
+    global_alive = alive.repeat(n_loc)
     outputs = MegaTickOutputs(
         base=base,
         arr_tag=torch.stack([a[0] for a in arrivals]),
@@ -434,31 +456,41 @@ def mega_tick_body(mc: MegaConfig, state: SpaceState,
     return stack_states(new_tiles).replace(aoi_cache=aoi_cache), outputs
 
 
-def make_mega_tick(mc: MegaConfig, device="cuda", devices=None):
+def make_mega_tick(mc: MegaConfig, device="cuda", devices=None,
+                   mesh=None):
     """Build the megaspace tick on ``device`` (the card unless the
     caller asks for the CPU). ``devices`` naming more than one card
     raises ``NotImplementedError``: tiles on several cards are not
-    ported yet.
+    ported yet. ``mesh`` (a mesh over several controller processes,
+    :func:`goworld_tpu_torch.parallel.multihost.global_mesh`, of
+    ``mc.n_dev`` shards) runs this controller's tiles, on the mesh's
+    device.
 
     Returns ``tick(states, inputs, policy=None) -> (states,
-    MegaTickOutputs)`` with leading [n_dev] axes;
-    ``inputs.migrate_target`` is ignored (tile migration follows
-    position). The tick returns new tensors (the JAX package's
-    ``donate`` has no counterpart).
+    MegaTickOutputs)`` with a leading axis of the tiles held here (all
+    ``n_dev`` on one controller); ``inputs.migrate_target`` is ignored
+    (tile migration follows position). The tick returns new tensors
+    (the JAX package's ``donate`` has no counterpart).
     """
     _check_mega_ported(mc, devices)
-    dev = _placement(device, devices)
+    place = placement_of(mesh)
+    if mesh is not None and mesh.size != mc.n_dev:
+        raise ValueError(f"the mesh has {mesh.size} shards, the "
+                         f"megaspace {mc.n_dev} tiles")
+    dev = _placement(device if mesh is None else mesh.device, devices)
     shifts = tile_shifts(mc, dev)
+    n_loc = mc.n_dev if place is None else place.n_local
 
     def tick(state: SpaceState, inputs: MultiTickInputs, policy=None):
         if state.device.type != dev.type:
             raise ValueError(
                 f"state lives on {state.device}, the tick on {dev}")
-        if state.pos.dim() != 3 or state.pos.shape[0] != mc.n_dev:
+        if state.pos.dim() != 3 or state.pos.shape[0] != n_loc:
             raise ValueError(
-                f"expected a stacked state of {mc.n_dev} tiles, got pos "
+                f"expected a stacked state of {n_loc} tiles, got pos "
                 f"{tuple(state.pos.shape)}")
         with flushed(dev):
-            return mega_tick_body(mc, state, inputs, shifts, policy)
+            return mega_tick_body(mc, state, inputs, shifts, policy,
+                                  place)
 
     return tick

@@ -85,6 +85,30 @@ def despawn_departed(state: SpaceState,
     )
 
 
+def exchange_emigrants(fbufs: torch.Tensor, ibufs: torch.Tensor,
+                       group=None):
+    """JAX's ``all_to_all`` of the send buffers: ``fbufs``
+    f32[n_src, n_dev, cap, F] and ``ibufs`` i32[n_src, n_dev, cap,
+    I_FIELDS] stack this controller's tiles' buffers, one block a
+    destination tile; returns the blocks each of this controller's
+    tiles receives, ``[n_dst, n_dev, cap, ...]`` in sender order. On one
+    controller (``group`` None or of one) a transpose; on several the
+    blocks for another rank's tiles go through one
+    :meth:`~goworld_tpu_torch.parallel.multihost.Group.all_to_all` of
+    their words (floats as their bits)."""
+    if group is None or group.size == 1:
+        return fbufs.transpose(0, 1), ibufs.transpose(0, 1)
+    n_src, n_dev = fbufs.shape[:2]
+    nf = fbufs.shape[-1]
+    ranks = group.size
+    nl = n_dev // ranks
+    words = torch.cat([fbufs.contiguous().view(torch.int32), ibufs], dim=-1)
+    blocks = words.view(n_src, ranks, nl, *words.shape[2:]).transpose(0, 1)
+    got = group.all_to_all(blocks.contiguous())
+    got = got.reshape(ranks * n_src, nl, *words.shape[2:]).transpose(0, 1)
+    return got[..., :nf].view(torch.float32), got[..., nf:]
+
+
 def _put(lane: torch.Tensor, slot: torch.Tensor, vals) -> torch.Tensor:
     """``lane.at[slot].set(vals, mode="drop")`` with slot ``n`` the
     dropped index: a new tensor, ``lane`` is not modified. A Python

@@ -14,6 +14,14 @@ Verlet cache and rebuild gate, and the shards tick one after another.
 The all_to_all is a transpose of the stacked send buffers, as in the
 megaspace, and the psum a sum.
 
+On a mesh over several controller processes
+(:func:`goworld_tpu_torch.parallel.multihost.global_mesh`) each
+controller ticks its own shards (lanes ``[n_local, ...]``, batched as
+above), the all_to_all sends the blocks of another rank's shards
+through the group and the psum is the group's all-reduce: the host
+waits for the card there, where the JAX program's cross-process
+collectives block.
+
 Host contract per tick:
   inputs: per-shard TickInputs (client pos syncs routed by the host to
   the owning shard) + per-slot migration requests (target shard, host
@@ -105,17 +113,19 @@ def _stack_outputs(outs) -> TickOutputs:
 
 def multi_tick_body(cfg: WorldConfig, n_dev: int, migrate_cap: int,
                     state: SpaceState, inputs: MultiTickInputs,
-                    policy=None):
-    """One multi-space tick over stacked shards. Returns a new state
-    and the outputs; the lanes of ``state`` are not modified. See
-    :func:`make_multi_tick`."""
+                    policy=None, group=None):
+    """One multi-space tick over stacked shards (this controller's,
+    ``state.pos.shape[0]`` of the ``n_dev``, under a ``group`` of
+    several). Returns a new state and the outputs; the lanes of
+    ``state`` are not modified. See :func:`make_multi_tick`."""
     n = cfg.capacity
+    n_loc = state.pos.shape[0]
     if batched_shards(cfg):
         state, outs = tick_body(cfg, state, inputs.base, policy)
-        shards = [tile_view(state, d) for d in range(n_dev)]
+        shards = [tile_view(state, d) for d in range(n_loc)]
     else:
         shards, per = [], []
-        for d in range(n_dev):
+        for d in range(n_loc):
             st, out = tick_body(
                 cfg, tile_view(state, d),
                 TickInputs(**{f.name: getattr(inputs.base, f.name)[d]
@@ -127,17 +137,18 @@ def multi_tick_body(cfg: WorldConfig, n_dev: int, migrate_cap: int,
 
     # migration: pack -> all_to_all (a transpose) -> insert
     departed, sends = [], []
-    for d in range(n_dev):
+    for d in range(n_loc):
         fbuf, ibuf, gone, demand = mig.pack_emigrants(
             shards[d], inputs.migrate_target[d], inputs.migrate_tag[d],
             n_dev, migrate_cap)
         shards[d] = mig.despawn_departed(shards[d], gone)
         departed.append(gone)
         sends.append((fbuf, ibuf, demand))
-    recv_f = torch.stack([s[0] for s in sends]).transpose(0, 1)
-    recv_i = torch.stack([s[1] for s in sends]).transpose(0, 1)
+    recv_f, recv_i = mig.exchange_emigrants(
+        torch.stack([s[0] for s in sends]),
+        torch.stack([s[1] for s in sends]), group)
     arrivals = []
-    for d in range(n_dev):
+    for d in range(n_loc):
         shards[d], *arr = mig.insert_arrivals(
             shards[d], recv_f[d], recv_i[d], nbr_sentinel=n,
             quarantine=departed[d])
@@ -145,7 +156,10 @@ def multi_tick_body(cfg: WorldConfig, n_dev: int, migrate_cap: int,
 
     new_state = stack_states(shards)
     # the psum: every shard reads the mesh's total
-    global_alive = new_state.alive.sum(dtype=torch.int32).repeat(n_dev)
+    alive = new_state.alive.sum(dtype=torch.int32)
+    if group is not None:
+        alive = group.all_reduce_sum(alive)
+    global_alive = alive.repeat(n_loc)
     outputs = MultiTickOutputs(
         base=outs,
         arr_tag=torch.stack([a[0] for a in arrivals]),
@@ -160,26 +174,30 @@ def multi_tick_body(cfg: WorldConfig, n_dev: int, migrate_cap: int,
 
 def make_multi_tick(cfg: WorldConfig, mesh, migrate_cap: int = 256):
     """Build the multi-space step over ``mesh``
-    (:func:`goworld_tpu_torch.parallel.mesh.make_mesh`), on the mesh's
-    card.
+    (:func:`goworld_tpu_torch.parallel.mesh.make_mesh`, or
+    :func:`goworld_tpu_torch.parallel.multihost.global_mesh` over
+    several controllers), on the mesh's card.
 
     Returns ``step(states, inputs, policy=None) -> (states, outputs)``
-    where every lane carries a leading [n_dev] axis. The step returns
-    new tensors (the JAX package's ``donate`` has no counterpart here;
-    the World copies the new carry into the old one's storage)."""
+    where every lane carries a leading axis of this controller's shards
+    (all ``n_dev`` on one controller). The step returns new tensors
+    (the JAX package's ``donate`` has no counterpart here; the World
+    copies the new carry into the old one's storage)."""
     n_dev = mesh.devices.size
+    n_loc = len(mesh.local_shards)
     dev = mesh.device
+    group = mesh.group if mesh.multi_controller else None
 
     def step(state: SpaceState, inputs: MultiTickInputs, policy=None):
         if state.device.type != dev.type:
             raise ValueError(
                 f"state lives on {state.device}, the step on {dev}")
-        if state.pos.dim() != 3 or state.pos.shape[0] != n_dev:
+        if state.pos.dim() != 3 or state.pos.shape[0] != n_loc:
             raise ValueError(
-                f"expected a stacked state of {n_dev} shards, got pos "
+                f"expected a stacked state of {n_loc} shards, got pos "
                 f"{tuple(state.pos.shape)}")
         with flushed(dev):
             return multi_tick_body(cfg, n_dev, migrate_cap, state,
-                                   inputs, policy)
+                                   inputs, policy, group)
 
     return step

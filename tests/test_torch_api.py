@@ -204,9 +204,16 @@ def test_run_refuses_unported_settings(tmp_path, fresh_api, monkeypatch,
     ``standby_of`` was refused until the replication plane was ported;
     that case now holds that the game boots as a standby: empty (the
     boot callbacks skipped), its tracker on ``/standby``, and its first
-    tick the warm one, which leaves the tick count at 0."""
+    tick the warm one, which leaves the tick count at 0.
+    ``GOWORLD_MH_PROCS`` was refused until the game of several
+    controllers was ported; that case now boots a megaspace game as two
+    controllers through ``gw.run``, rank 0 here and rank 1 a process
+    of its own, which tick in lockstep over their group."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
+    if env:
+        _run_two_controllers(tmp_path, monkeypatch)
+        return
     if "http_port" in game or argv == ["-d"] or "standby_of" in game:
         _run_ported_process_setting(tmp_path, monkeypatch, game, argv)
         return
@@ -232,6 +239,49 @@ def test_run_refuses_unported_settings(tmp_path, fresh_api, monkeypatch,
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         gw.run(["-gid", "1", "-configfile", ini, *argv], block=False,
                device="cpu")
+
+
+def _run_two_controllers(tmp_path, monkeypatch):
+    """Rank 0 of a two-controller megaspace game in this process, rank
+    1 in a worker (``tests/test_torch_multihost.py``), against the
+    port's dispatcher and gate; 3 game ticks each."""
+    import json
+
+    from goworld_tpu_torch.parallel import multihost
+    from tests import test_torch_multihost as tmh
+
+    harness = ClusterHarness(n_dispatchers=1, n_gates=1, desired_games=1)
+    harness.start(timeout=WAIT)
+    ini = _ini(str(tmp_path), harness, megaspace="true", mesh_devices=4,
+               extent_x=400.0)
+    port = tmh.free_port()
+    workers = [tmh.spawn_rank("api", 1, 2, port, str(tmp_path),
+                              (ini, "3"))]
+    rt = None
+    try:
+        monkeypatch.setenv("GOWORLD_MH_PROC_ID", "0")
+        monkeypatch.setenv("GOWORLD_MH_COORD", f"127.0.0.1:{port}")
+        rt = gw.run(["-gid", "1", "-configfile", ini], block=False,
+                    device="cpu")
+        for _ in range(3):
+            rt.server.pump()
+            rt.server.tick()
+        mine = tmh.controller_facts(rt)
+        tmh.finish(workers)
+        with open(tmp_path / "api1.json") as f:
+            other = json.load(f)
+    finally:
+        if rt is not None:
+            rt.server.stop()
+            rt.storage.shutdown()
+            rt.workers.wait_clear()
+        multihost.shutdown()
+        harness.stop()
+    assert mine == {"game_id": 1, "multihost": True, "local_shards": [0, 1],
+                    "rank": 0, "ticks": 3, "ban_boot": False,
+                    "global_alive": [0] * 4}
+    assert other == dict(mine, game_id=30000 + 64 + 1, local_shards=[2, 3],
+                         rank=1, ban_boot=True)
 
 
 def _run_ported_process_setting(tmp_path, monkeypatch, game, argv):

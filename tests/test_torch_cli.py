@@ -12,8 +12,8 @@ stop, and a status that reports everything stopped. Then the command
 line against the JAX CLI's (``sample-config`` byte for byte, the exit
 codes on a stopped deployment), ``build`` (the three native cores into
 ``goworld_tpu_torch/_build/``, nothing written under ``goworld_tpu/``),
-``supervise`` freezing on shutdown, the refusal of a game of several
-controllers, every command on a deployment with a hot standby (the
+``supervise`` freezing on shutdown, every command on a game of several
+controllers (processes recorded), every command on a deployment with a hot standby (the
 watchdog promoting it), a script without ``device="cpu"`` that cannot
 start without a card, and ``examples/unity_demo/server_torch.py`` from a
 copy of its own ini with a bot over TCP and one over WebSocket.
@@ -303,15 +303,70 @@ def test_supervise_freezes_on_shutdown(tmp_path):
 
 @pytest.mark.parametrize("cmd", ["start", "reload", "watchdog",
                                  "supervise"])
-def test_multihost_demo_refused_before_anything_spawns(tmp_path, cmd):
+def test_multihost_demo_refused_before_anything_spawns(tmp_path, cmd,
+                                                       monkeypatch):
+    """``examples/multihost_demo`` (``mesh_processes = 2``) was refused
+    until the game of several controllers was ported; each command now
+    takes it as one group of two controller processes (processes
+    recorded, not spawned; ``tests/test_torch_multihost_cli.py`` runs
+    the demo for real). ``start`` and ``supervise``'s start spawn
+    ``game1c0`` and ``game1c1`` with the group's environment (its size,
+    each rank, one rendezvous address); ``reload`` of a stopped
+    deployment skips the group; ``watchdog`` with rank 1 dead tears down
+    the surviving rank 0 and restarts the whole group."""
+    import subprocess
+
     dst = str(tmp_path / "mh")
     shutil.copytree(os.path.join(REPO, "examples", "multihost_demo"), dst)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A "
-                                                  "item 6"):
-        cli.main([cmd, dst])
-    run = os.path.join(dst, "run")
-    assert not os.path.isdir(run) or not [
-        f for f in os.listdir(run) if f.endswith(".pid")]
+    spawned, envs = [], []
+
+    def spawn(server_dir, role, idx, cmd_, extra_env=None):
+        spawned.append(f"{role}{idx}")
+        envs.append(extra_env)
+        return 0
+
+    monkeypatch.setattr(cli, "_spawn", spawn)
+    monkeypatch.setattr(cli, "_wait_started", lambda *a, **k: True)
+    group = ["dispatcher1", "game1c0", "game1c1", "gate1"]
+
+    def check_group_env():
+        e0, e1 = envs[1], envs[2]
+        assert (e0["GOWORLD_MH_PROCS"], e0["GOWORLD_MH_PROC_ID"]) == ("2",
+                                                                      "0")
+        assert (e1["GOWORLD_MH_PROCS"], e1["GOWORLD_MH_PROC_ID"]) == ("2",
+                                                                      "1")
+        assert e0["GOWORLD_MH_COORD"] == e1["GOWORLD_MH_COORD"]
+        assert e0["GOWORLD_MH_COORD"].startswith("127.0.0.1:")
+
+    if cmd in ("start", "reload"):
+        assert cli.main([cmd, dst]) == 0
+        assert spawned == (group if cmd == "start" else [])
+        if cmd == "start":
+            check_group_env()
+        return
+    if cmd == "supervise":
+        stop = threading.Event()
+        stop.set()
+        assert cli.cmd_supervise(dst, interval=0.01, stop=stop) == 0
+        assert spawned == group
+        check_group_env()
+        return
+    dead = subprocess.Popen(["true"])
+    dead.wait()
+    live = subprocess.Popen(["sleep", "60"])
+    try:
+        os.makedirs(os.path.join(dst, "run"), exist_ok=True)
+        for name, pid in (("game1c0", live.pid), ("game1c1", dead.pid)):
+            with open(os.path.join(dst, "run", f"{name}.pid"), "w") as f:
+                f.write(str(pid))
+        acts = cli.watch_once(dst)
+        assert acts[0] == ("game1: dead rank(s) ['1c1']; tearing down "
+                           "surviving ['1c0']"), acts
+        assert acts[1].startswith("game1: restarted from "), acts
+        assert live.wait(timeout=WAIT) is not None
+        assert spawned == ["game1c0", "game1c1"]
+    finally:
+        live.kill()
 
 
 @pytest.mark.parametrize("cmd", ["start", "reload", "watchdog",
@@ -337,7 +392,7 @@ def test_standby_refused_before_anything_spawns(tmp_path, cmd,
                 f"{ports['h_game'] + 1}\n")
     spawned, pokes = [], []
 
-    def spawn(server_dir, role, idx, cmd_):
+    def spawn(server_dir, role, idx, cmd_, extra_env=None):
         spawned.append(f"{role}{idx}")
         return 0
 
@@ -536,10 +591,10 @@ def test_jax_script_refused_before_anything_spawns(tmp_path, source, cmd):
 
 @pytest.mark.parametrize("example", ["nil_game", "chatroom_demo",
                                      "test_game", "unity_demo",
-                                     "megaspace_demo"])
+                                     "megaspace_demo", "multihost_demo"])
 def test_every_stock_example_resolves_to_its_port_script(example):
-    """Every stock example but ``multihost_demo`` (refused, ROADMAP item
-    6.2) has a ``server_torch.py``, which the CLI picks."""
+    """Every stock example has a ``server_torch.py``, which the CLI
+    picks (``multihost_demo`` too: the case below)."""
     d = os.path.join(REPO, "examples", example)
     cfg = cli.config_mod.load(os.path.join(d, "goworld_tpu.ini"))
     assert cli._entry_script(cfg, d) == os.path.join(d, "server_torch.py")

@@ -22,6 +22,7 @@ import json
 import os
 import signal
 import socket
+import threading
 import time
 import urllib.request
 
@@ -175,17 +176,36 @@ def _kill_all(server_dir: str) -> None:
 
 
 class Session:
-    """A strict bot on its own event loop, driven step by step."""
+    """A strict bot on its own event loop, driven step by step. The loop
+    runs on a thread of its own from connect to close, so the bot keeps
+    reading and heartbeating between the steps, as a real client does:
+    a loop run only inside the steps left the bot silent through the
+    long stretch from its first say to its second (the handoff, the
+    kill, the promotion), and on a loaded host that stretch outlasted
+    the gate's heartbeat_timeout (30 s), which reaped the client and
+    made its next RPC go nowhere (ROADMAP.md Queue C16). Everything
+    that touches the bot runs on that loop."""
 
     def __init__(self, port: int, bot_id: int):
         self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever,
+                                       daemon=True)
+        self.thread.start()
         self.bot = BotClient("127.0.0.1", port, bot_id=bot_id,
                              strict=True)
         self.run(self.bot.connect())
-        self.recv = self.loop.create_task(self.bot._recv_loop())
+
+        async def recv():
+            return asyncio.ensure_future(self.bot._recv_loop())
+        self.recv = self.run(recv())
 
     def run(self, coro):
-        return self.loop.run_until_complete(coro)
+        return asyncio.run_coroutine_threadsafe(coro, self.loop).result()
+
+    def call(self, method: str, *args) -> None:
+        async def send():
+            self.bot.call_server(method, *args)
+        self.run(send())
 
     def wait(self, what: str, fn, limit: float = WAIT):
         async def poll():
@@ -197,22 +217,24 @@ class Session:
 
     def login(self, name: str) -> None:
         self.wait("boot entity", lambda: self.bot.player is not None)
-        self.bot.call_server("Login_Client", name)
+        self.call("Login_Client", name)
         self.wait("Avatar", lambda: self.bot.player is not None
                   and self.bot.player.type_name == "Avatar")
 
     def say(self, text: str) -> str:
-        self.bot.call_server("Say_Client", text)
+        self.call("Say_Client", text)
         self.wait("said", lambda: str(self.bot.player.attrs.get(
             "said", "")).endswith(text))
         return self.bot.player.attrs["said"]
 
     def close(self) -> None:
-        self.recv.cancel()
+        self.loop.call_soon_threadsafe(self.recv.cancel)
         try:
             self.run(self.bot.conn.close())
         except Exception:
             pass
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(WAIT)
         self.loop.close()
 
 

@@ -924,6 +924,122 @@ def test_promoted_standby_flushes_no_mirror_client_message(tmp_path):
     assert len(got["jax"]) == 1     # the stale destroy of the mirror
 
 
+def test_rejected_stale_copy_leaves_its_live_twin_alone(tmp_path):
+    """ROADMAP.md Queue C16: a promoted standby re-handshakes with its
+    census, and the dispatcher rejects the ids it routes to another game
+    (an entity the primary handed off after the standby's last frame).
+    The port's game drops its stale copy quietly: no destroy of the
+    client's player (the live copy on the other game serves that
+    client) and no destroy notice to the dispatcher (which would drop
+    the live copy's route, so its client's next RPC goes nowhere). The
+    JAX package's game sends both; its packets are read here to name
+    the difference."""
+    mp = pytest.MonkeyPatch()
+    seeded_ids(mp)
+    got = {}
+    try:
+        for p in PKGS:
+            game, packet, proto = _game_pkgs(p)
+            w = _mk_world(p, 971)
+            w.create_nil_space()
+            sp = w.create_space("Arena")
+            av = sp.create_entity("Mob", pos=(50.0, 0.0, 50.0))
+            av.set_client(p.ent.GameClient(1, "c-moved000000000", w))
+            watcher = sp.create_entity("Mob", pos=(60.0, 0.0, 50.0))
+            w.tick()
+            gs = game.GameServer(
+                971, w, [("127.0.0.1", 1)], gc_freeze_on_boot=False,
+                flightrec_ring=0, freeze_dir=str(tmp_path))
+            sent = []
+            gs.cluster.conns[0].send = (
+                lambda pk, release=True: sent.append(
+                    packet.wire_payload(pk)))
+            gs.tick()
+            sent.clear()
+            ack = packet.new_packet(proto.MT_SET_GAME_ID_ACK)
+            ack.append_u16(1)
+            ack.append_data({})
+            ack.append_data([av.id])
+            ack.append_data([])
+            gs._handle_packet(0, proto.MT_SET_GAME_ID_ACK,
+                              packet.Packet(bytes(ack.buf[2:])))
+            gs.tick()
+            gs.tick()
+            assert av.destroyed and av.id not in w.entities
+            assert av.id not in watcher.interested_in
+            got[p.name] = sorted({packet.decode_wire(raw)[0]
+                                  for raw in sent} & {
+                proto.MT_NOTIFY_DESTROY_ENTITY,
+                proto.MT_CLIENT_EVENTS_BATCH})
+            p.audit.unregister("game971")
+    finally:
+        mp.undo()
+    assert got["port"] == []
+    assert got["jax"] == sorted([proto.MT_NOTIFY_DESTROY_ENTITY,
+                                 proto.MT_CLIENT_EVENTS_BATCH])
+
+
+def test_standby_claims_after_its_dispatchers_drop_the_primary(tmp_path):
+    """ROADMAP.md Queue C16: a dispatcher drops a dead primary's routes
+    only when it reads that primary's connection to its end, which a
+    backlog of the primary's frames can delay past the standby's claim;
+    a census it takes before the drop is rejected whole, and the drop
+    then leaves every id without a route. The port's standby stages its
+    kvreg claim only once every dispatcher that listed the primary
+    reported its disconnect (``MT_NOTIFY_GAME_DISCONNECTED``), and then
+    sends its census at the promotion; the JAX package's claims while
+    the dispatcher still holds the primary (its packets are read here to
+    name the difference)."""
+    mp = pytest.MonkeyPatch()
+    seeded_ids(mp)
+    got = {}
+    try:
+        for p in PKGS:
+            game, packet, proto = _game_pkgs(p)
+            sb = _mk_world(p, 982)
+            sb.create_nil_space()
+            gs = game.GameServer(
+                982, sb, [("127.0.0.1", 1)], standby_of=981,
+                gc_freeze_on_boot=False, flightrec_ring=0,
+                freeze_dir=str(tmp_path))
+            sent = []
+            gs.cluster.conns[0].send = (
+                lambda pk, release=True: sent.append(
+                    packet.decode_wire(packet.wire_payload(pk))[0]))
+
+            def deliver(pk):
+                gs._handle_packet(0, packet.decode_wire(
+                    packet.wire_payload(pk))[0],
+                    packet.Packet(bytes(pk.buf[2:])))
+
+            ack = packet.new_packet(proto.MT_SET_GAME_ID_ACK)
+            ack.append_u16(1)
+            ack.append_data({})
+            ack.append_data([])
+            ack.append_data([981])          # the primary is online
+            deliver(ack)
+            gs.tick()
+            assert gs._request_promotion(1)["status"] == "claiming"
+            gs.tick()
+            claimed_while_online = gs._promote_claim is not None
+            gone = packet.new_packet(proto.MT_NOTIFY_GAME_DISCONNECTED)
+            gone.append_u16(981)
+            deliver(gone)
+            gs.tick()                       # stages the claim
+            assert gs._promote_claim is not None
+            sent.clear()
+            deliver(proto.pack_kvreg_register(
+                p.promote.claim_key(981), gs._promote_claim, False))
+            assert gs._promoted
+            got[p.name] = (claimed_while_online,
+                           sent.count(proto.MT_SET_GAME_ID))
+            p.audit.unregister("game982")
+    finally:
+        mp.undo()
+    assert got["port"] == (False, 1)
+    assert got["jax"] == (True, 1)
+
+
 def test_disk_chain_resolves_after_a_stream_only_keyframe(tmp_path):
     """ROADMAP.md Queue C11: a standby's attach forces a keyframe that
     only the stream carries; the next checkpoint job writes a delta to
