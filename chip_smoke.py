@@ -740,6 +740,7 @@ def halo_parity(dev, mc: MegaConfig) -> None:
     2D exchanges under both impls."""
     h = mc.halo_cap
     n_cases = 0
+    n_packs = 0
     for label, src, strips, out, col0 in phase_cases(dev, h, 4 * h):
         got = [o.clone() for o in out]
         want = [o.clone() for o in out]
@@ -754,6 +755,24 @@ def halo_parity(dev, mc: MegaConfig) -> None:
             if not same_bits(a, b):
                 fail(f"phase kernel != plain in {name} ({label}, h={h})")
         n_cases += 1
+        if "/layout/" in label:
+            # the pack mode: every tile's strip of both directions as
+            # the words a leg across processes ships
+            n_dev = src[0].shape[0]
+            slots = [[k * n_dev + t for t in range(n_dev)] for k in (0, 1)]
+            ghosts = (out[0], out[1], out[2], out[4])
+            kernels.reset_launches()
+            words = halo.pack_legs(src, strips, slots, 2 * n_dev, ghosts,
+                                   col0)
+            plain = halo.pack_legs_plain(src, strips, slots, 2 * n_dev,
+                                         ghosts, col0)
+            torch.cuda.synchronize()
+            if kernels.LAUNCHES["halo_ship_phase"] != 1 \
+                    or not same_bits(words, plain):
+                fail(f"the phase kernel's pack mode != plain ({label}, "
+                     f"h={h}, {kernels.LAUNCHES['halo_ship_phase']} "
+                     "launches)")
+            n_packs += 1
     names = ("gpos", "gyaw", "gdirty", "gvalid", "ggid", "strip_demand")
     # the 2D exchange at the megaspace shape
     st, _ = mega_world(mc, N, SEED, dev)
@@ -797,6 +816,7 @@ def halo_parity(dev, mc: MegaConfig) -> None:
     if launches != want:
         fail(f"phase kernel launches a call {launches}, want {want}")
     print(f"[7] halo: phase kernel == plain bit for bit in {n_cases} cases "
+          f"(its pack mode in {n_packs} of them, every tile's words) "
           f"(2x2 and 4x2 phases x/z, 8 tiles 1D, one tile to itself; "
           f"receivers of the layout/all/none; counts random/0/H/>H; NaN, "
           f"-0.0, inf words; gids to {halo.meta_gid_bound()}; h={h}); "
@@ -952,7 +972,7 @@ def mega_path(dev, mc: MegaConfig, tag: str) -> dict:
     phases = []
 
     def capture(*a):
-        phases.append(a)
+        phases.append(a[:4])    # one controller: the default placement
         ship(*a)
 
     ship = halo.ship_phase
@@ -6327,8 +6347,12 @@ def tick(self):
         w.arena = next(s for s in w.spaces.values()
                        if s.type_name == "Arena")
         w.said = []
+    before = dict(multihost.STATS)
     rest = w._mh_group.all_gather(torch.tensor(
         [os.path.exists("PAUSE")], dtype=torch.int32)).any()
+    pause = w.__dict__.setdefault("pause", dict.fromkeys(before, 0))
+    for k in before:   # the PAUSE gather's own share, kept apart
+        pause[k] += multihost.STATS[k] - before[k]
     v = opmon.vars().get("smoke", {{}})
     if rest:
         if "interest" not in v:
@@ -6337,7 +6361,8 @@ def tick(self):
     _tick(self)
     opmon.expose("smoke", {{
         "tick": w.tick_count, "launches": dict(kernels.LAUNCHES),
-        "mh": dict(multihost.STATS), "rank": w.mh_rank,
+        "mh": {{k: multihost.STATS[k] - pause[k] for k in pause}},
+        "pause": dict(pause), "rank": w.mh_rank,
         "boot": BOOT, "guard": [w.op_stats["spmd_guard_checks"],
                                 w.op_stats["spmd_guard_divergences"]],
         "backlog": [opmon.vars().get("mh_mutation_backlog_packets"),
@@ -6349,13 +6374,26 @@ gw.run({run_args})
 '''
 
 
+def mh_phase_launches(mc, rank: int) -> int:
+    """The phase kernel's launches in one exchange of megaspace ``mc`` on
+    controller ``rank`` of MH_PROCS: one a phase, and one more (its pack
+    mode) a phase with legs that this controller ships to another."""
+    n_loc = mc.n_dev // MH_PROCS
+    place = halo.Placement(mc.n_dev, rank * n_loc, n_loc, None)
+    phases = (halo.rings_2d(*mc.mesh_shape) if mc.mesh_shape
+              else (halo.rings_1d(mc.n_dev),))
+    return sum(1 + bool(halo.phase_legs(place, rings).n_send)
+               for rings in phases)
+
+
 def mh_launches(world) -> dict:
     """A game tick's launches on one controller of a megaspace World:
-    one sweep and one sort a local tile, one phase kernel an exchange
-    phase; nothing off the card."""
+    one sweep and one sort a local tile, the phase kernel's launches of
+    one exchange (:func:`mh_phase_launches`); nothing off the card."""
     n = len(world.local_shards) if world.device.type == "cuda" else 0
     return {"sweep_fused": n, "counting_sort": n,
-            "halo_ship_phase": 2 if n else 0, "npc_mlp": 0}
+            "halo_ship_phase": mh_phase_launches(world.mega, world.mh_rank)
+            if n else 0, "npc_mlp": 0}
 
 
 def mh_step_setup(kind: str, dev, mesh=None, mega_n: int = MH_MEGA_N,
@@ -6452,7 +6490,9 @@ def mh_run_ticks(kind: str, dev, mesh=None, sizes=None) -> tuple:
                      multihost.STATS["host_syncs"],
                      multihost.STATS["collectives"],
                      multihost.STATS["seconds"] * 1e3,
-                     dict(kernels.LAUNCHES)))
+                     dict(kernels.LAUNCHES),
+                     multihost.STATS["stage_seconds"] * 1e3,
+                     multihost.STATS["wire_seconds"] * 1e3))
         digests.append(tile_digests(st, out, tiles))
     return digests, rows
 
@@ -6521,15 +6561,16 @@ def mh_wait(procs: list, out: str, limit: float, label: str) -> None:
 
 def mh_afar_parity(dev) -> str:
     """The phase kernel's path for legs that cross processes, held
-    against its plain version on the card at (a)'s megaspace shape:
-    rank 1's tiles of the 4x2 megaspace (tile0 4) ship their x phase with
-    the strips of rank 0's tiles in the remote blocks, built here in one
-    process as the group would deliver them; every ghost word equal."""
+    against its plain version on the card at (a)'s megaspace shape, in
+    one process as the group would run it: rank 0's tiles of the 4x2
+    megaspace pack their x phase's crossing legs (the pack mode, one
+    launch) as :func:`halo.pack_legs_plain` (``_strip_words``) does, and
+    rank 1's tiles (tile0 4) ship the phase reading those words as the
+    received block; every word and every ghost word equal."""
     mc = mega_config(MH_MEGA_N, MH_DEV)
     st, _ = mega_world(mc, MH_MEGA_N, SEED, dev)
     n, h = mc.cfg.capacity, mc.halo_cap
     tx, tz = mc.shape
-    place = halo.Placement(MH_DEV, MH_DEV // 2, MH_DEV // 2, None)
     d = torch.arange(MH_DEV, dtype=torch.int32, device=dev)
     ix = d // tz
     r = float(mc.cfg.grid.radius)
@@ -6544,38 +6585,50 @@ def mh_afar_parity(dev) -> str:
     gid = d[:, None] * n + torch.arange(n, dtype=torch.int32,
                                         device=dev)[None, :]
     src = (st.pos, st.yaw, st.dirty, gid)
-    from_west, from_east = halo.rings_2d(tx, tz)[0]
-    loc = slice(4, 8)
-    mine = tuple(t[loc].contiguous() for t in src)
-    strips = ((from_west, ef[loc].contiguous(), ed[loc].contiguous()),
-              (from_east, wf[loc].contiguous(), wd[loc].contiguous()))
-    afar = []
-    for ring, flat, count in ((from_west, ef, ed), (from_east, wf, wd)):
-        block = torch.zeros((4, h, 5), dtype=torch.int32, device=dev)
-        mask = 0
-        for rl in range(4):
-            t = (4 + rl - ring.shift) % MH_DEV
-            if ring.recv_ok[4 + rl] and t < 4:
-                block[rl] = halo._strip_words(src, flat, count, [t])[0]
-                mask |= 1 << rl
-        afar.append((block, mask))
-    outs = [halo._empty_ghosts(4, 4 * h, dev) for _ in range(2)]
+    rings = halo.rings_2d(tx, tz)[0]
+    n_loc = MH_DEV // MH_PROCS
+    places = [halo.Placement(MH_DEV, k * n_loc, n_loc, None)
+              for k in range(MH_PROCS)]
+    legs = [halo.phase_legs(pl, rings) for pl in places]
+
+    def held(k):
+        loc = slice(k * n_loc, (k + 1) * n_loc)
+        return (tuple(t[loc].contiguous() for t in src),
+                tuple((ring, f[loc].contiguous(), c[loc].contiguous())
+                      for ring, f, c in zip(rings, (ef, wf), (ed, wd))))
+
+    src0, strips0 = held(0)
+    kernels.reset_launches()
+    words = halo.pack_legs(src0, strips0, legs[0].send_slots,
+                           legs[0].n_send)
+    packs = kernels.LAUNCHES["halo_ship_phase"]
+    plain = halo.pack_legs_plain(src0, strips0, legs[0].send_slots,
+                                 legs[0].n_send)
+    (q, a, b), = legs[0].send_split
+    if q != 1 or legs[1].recv_rows != ((0, b - a),):
+        fail(f"[25] the x phase's legs do not pair up: {legs}")
+    src1, strips1 = held(1)
+    afar = tuple((words[a:b], t) for t in legs[1].recv_slots)
+    outs = [halo._empty_ghosts(n_loc, 4 * h, dev) for _ in range(2)]
     for o in outs:
         for t in o:
             t.zero_()
-    before = kernels.LAUNCHES["halo_ship_phase"]
-    halo.ship_phase(mine, strips, outs[0], 0, place, afar)
-    launched = kernels.LAUNCHES["halo_ship_phase"] - before
-    halo.ship_phase_plain(mine, strips, outs[1], 0, place, afar)
+    kernels.reset_launches()
+    halo.ship_phase(src1, strips1, outs[0], 0, places[1], afar)
+    launched = kernels.LAUNCHES["halo_ship_phase"]
+    halo.ship_phase_plain(src1, strips1, outs[1], 0, places[1], afar)
     torch.cuda.synchronize(dev)
-    bad = sum(diff_count(a, b) for a, b in zip(*outs))
-    if int(bad) or launched != 1:
-        fail(f"[25] the phase kernel's remote legs differ from its plain "
-             f"version in {int(bad)} words ({launched} launches)")
-    legs = bin(afar[0][1]).count("1") + bin(afar[1][1]).count("1")
-    return (f"the phase kernel's remote legs ({legs} receivers of rank 1 "
-            f"fed from rank 0's strips, halo_cap {h}) == its plain "
-            f"version in every ghost word")
+    bad_words = int(diff_count(words, plain))
+    bad = sum(int(diff_count(x, y)) for x, y in zip(*outs))
+    one = int(dev.type == "cuda")   # a launch on the card
+    if bad_words or bad or packs != one or launched != one:
+        fail(f"[25] the phase kernel's legs across processes differ from "
+             f"its plain version: {bad_words} sent words, {bad} ghost "
+             f"words ({packs} pack and {launched} phase launches)")
+    return (f"the phase kernel's legs across processes at halo_cap {h}: "
+            f"rank 0's pack of its {b - a} crossing strips (one launch) == "
+            f"the plain gather and pack in every word, and rank 1's phase "
+            f"reading them == its plain version in every ghost word")
 
 
 def mh_steps_part(dev, tag, sizes=(MH_MEGA_N, SPACE_N)) -> tuple:
@@ -6618,7 +6671,9 @@ def mh_steps_part(dev, tag, sizes=(MH_MEGA_N, SPACE_N)) -> tuple:
                 f"{np.percentile(wall, 99):.3f}, events p50 "
                 f"{np.percentile(evs, 50):.3f} p99 "
                 f"{np.percentile(evs, 99):.3f} ms, cross-process legs "
-                f"{np.mean([x[4] for x in rows]):.3f} ms in "
+                f"{np.mean([x[4] for x in rows]):.3f} ms (staging "
+                f"{np.mean([x[6] for x in rows]):.3f}, gloo "
+                f"{np.mean([x[7] for x in rows]):.3f}) in "
                 f"{np.mean([x[3] for x in rows]):g} collectives, "
                 f"{np.mean([x[2] for x in rows]):g} host syncs a tick, "
                 f"launches a tick {rows[0][5]}")
@@ -6812,15 +6867,21 @@ def mh_cli_part(dev, tag, slots: int = MH_GAME_SLOTS,
             got["syncs"] = [(v1[r]["mh"]["host_syncs"]
                              - v0[r]["mh"]["host_syncs"]) / got["ticks"][r]
                             for r in range(MH_PROCS)]
-            got["legs_ms"] = [(v1[r]["mh"]["seconds"]
-                               - v0[r]["mh"]["seconds"]) * 1e3
-                              / got["ticks"][r] for r in range(MH_PROCS)]
+            for key, name in (("legs_ms", "seconds"),
+                              ("stage_ms", "stage_seconds"),
+                              ("wire_ms", "wire_seconds")):
+                got[key] = [(v1[r]["mh"][name] - v0[r]["mh"][name]) * 1e3
+                            / got["ticks"][r] for r in range(MH_PROCS)]
+            got["pause_ms"] = [(v1[r]["pause"]["seconds"]
+                                - v0[r]["pause"]["seconds"]) * 1e3
+                               / got["ticks"][r] for r in range(MH_PROCS)]
             got["backlog"] = [v1[r]["backlog"] for r in range(MH_PROCS)]
             for r in range(MH_PROCS):
                 n_k = got["ticks"][r] if on_card else 0
                 if got["launches"][r] != {
                         "sweep_fused": 4 * n_k, "counting_sort": 4 * n_k,
-                        "halo_ship_phase": 2 * n_k, "npc_mlp": 0} \
+                        "halo_ship_phase": mh_phase_launches(mc, r) * n_k,
+                        "npc_mlp": 0} \
                         or got["ticks"][r] < 1:
                     fail(f"[25] round {rnd + 1}: rank {r}'s "
                          f"{got['ticks'][r]} game ticks launched "
@@ -6879,8 +6940,13 @@ def mh_cli_part(dev, tag, slots: int = MH_GAME_SLOTS,
                      f"{got['ticks']}, tick p50/p99 by rank "
                      + ", ".join(f"{p50:.2f}/{p99:.2f}"
                                  for _, p50, p99 in got["hist"])
-                     + f" ms, cross-process legs a tick "
-                     + ", ".join(f"{x:.2f}" for x in got["legs_ms"])
+                     + f" ms, the game's cross-process legs a tick "
+                     + ", ".join(f"{x:.2f} (staging {y:.2f}, gloo {z:.2f})"
+                                 for x, y, z in zip(got["legs_ms"],
+                                                    got["stage_ms"],
+                                                    got["wire_ms"]))
+                     + " ms, the smoke's own PAUSE gather apart "
+                     + ", ".join(f"{x:.2f}" for x in got["pause_ms"])
                      + " ms, host syncs a tick "
                      + ", ".join(f"{x:.2f}" for x in got["syncs"])
                      + f", mh_mutation_backlog (packets, bytes) "

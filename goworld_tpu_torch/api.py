@@ -402,6 +402,8 @@ def run(argv: list[str] | None = None, *, block: bool = True,
     from goworld_tpu_torch.utils.asyncwork import AsyncWorkers
 
     world = _build_world(gc, gid, device)
+    # a fresh nonce a boot in the group's auto ids (World._gen_eid)
+    world.mh_draw_id_nonce()
     workers = AsyncWorkers(world.post_q.post)
     storage = Storage(
         open_backend(cfg.storage.kind, cfg.storage.directory),

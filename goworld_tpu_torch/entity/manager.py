@@ -101,6 +101,7 @@ step; the slot returns to the free set after those events are processed.
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 import weakref
 from collections import defaultdict
@@ -464,8 +465,10 @@ class World:
             self.local_shards = list(range(n_spaces))
             self.mh_rank = 0
             self._mh_group = None
-        # deterministic auto-eid sequence for multihost (see _gen_eid)
+        # deterministic auto-eid sequence for multihost (see _gen_eid),
+        # and the boot nonce a served group mixes into it
         self._mh_eid_seq = 0
+        self._mh_id_nonce = ""
         # the "every controller is deployment-ready" fact, published by
         # the GameServer's mutation exchange each tick; standalone
         # multihost worlds (no cluster plane) are always ready
@@ -769,19 +772,38 @@ class World:
         on every controller or host/device state forks. Random
         time+machine+pid ids remain for single-controller worlds
         (reference ``uuid.go:27-60`` semantics). An id the World already
-        holds is skipped: a World restored from a snapshot starts its
-        sequence from 1 again (the sequence is not in the snapshot), and
-        the JAX World then re-mints the id of an entity it restored
-        (ROADMAP.md Queue C17). The skip depends on the World's entities
-        only, which are the same on every controller."""
+        holds is skipped: the JAX World restored from a snapshot starts
+        its sequence from 1 again (its snapshot drops the sequence) and
+        re-mints the id of an entity it restored (ROADMAP.md Queue C17).
+        The skip depends on the World's entities only, which are the
+        same on every controller. Here the sequence rides in the
+        snapshot, and a served group mixes in its boot nonce
+        (:meth:`mh_draw_id_nonce`), so no boot re-mints the id of an
+        entity that an earlier one destroyed and saved."""
         if not self._multihost:
             return ids.gen_entity_id()
+        base = f"goworld_tpu.mh.{self.game_id}." + (
+            f"{self._mh_id_nonce}." if self._mh_id_nonce else "")
         while True:
             self._mh_eid_seq += 1
-            eid = ids.gen_fixed_id(
-                f"goworld_tpu.mh.{self.game_id}.{self._mh_eid_seq}")
+            eid = ids.gen_fixed_id(f"{base}{self._mh_eid_seq}")
             if eid not in self.entities:
                 return eid
+
+    def mh_draw_id_nonce(self) -> None:
+        """Mix a nonce into the auto-id sequence (:meth:`_gen_eid`): the
+        leader draws it and the group takes the leader's (one
+        all-gather), so every controller mints the same ids. A served
+        group draws one a boot; the JAX World's sequence restarts at 1
+        on every boot, and a persistent entity's new save then lands on
+        the document of the one an earlier boot minted (ROADMAP.md
+        Queue C17)."""
+        if not self._multihost:
+            return
+        mine = torch.frombuffer(bytearray(os.urandom(8)),
+                                dtype=torch.uint8)
+        lead = self._mh_group.all_gather(mine, host=True)[0]
+        self._mh_id_nonce = bytes(lead.tolist()).hex()
 
     def _setup_save_timer(self, e: Entity) -> None:
         """Schedule the periodic save for a persistent entity (reference

@@ -172,7 +172,7 @@ def freeze_world(world: World, *, _snap=None, run_hooks: bool = True
             entities.append(_pack_entity(world, e, snap))
 
     nil = world.nil_space
-    return {
+    out = {
         "version": FREEZE_FORMAT_VERSION,
         "game_id": world.game_id,
         "nil_space": {
@@ -182,6 +182,11 @@ def freeze_world(world: World, *, _snap=None, run_hooks: bool = True
         "spaces": spaces,
         "entities": entities,
     }
+    if world._multihost:
+        # the auto-id sequence goes on from here after a restore (the
+        # JAX snapshot drops it: ROADMAP.md Queue C17)
+        out["mh_eid_seq"] = world._mh_eid_seq
+    return out
 
 
 # =======================================================================
@@ -209,6 +214,8 @@ def restore_world(world: World, data: dict) -> None:
     ):
         raise RuntimeError("restore requires an empty world")
 
+    world._mh_eid_seq = max(world._mh_eid_seq,
+                            int(data.get("mh_eid_seq", 0)))
     # pass 1: nil space (the migration anchor; its id is deterministic
     # from game_id so routing and CallNilSpaces keep working)
     nil = world.nil_space or world.create_nil_space()

@@ -17,6 +17,7 @@ sent as they happen; position sync records batch per gate per tick into one
 from __future__ import annotations
 
 import asyncio
+import collections
 import gc as _gc
 import os
 import threading
@@ -364,9 +365,15 @@ class GameServer:
         self._promote_epoch = 0
         self._promote_log = None
         # dispatcher legs whose dispatcher still holds the primary (its
-        # handshake ack listed it, or it connected since): the standby
-        # claims only once every one dropped it (see _standby_tick)
+        # latest handshake ack listed it, or it connected since): the
+        # standby claims only once every one dropped it, its connection
+        # was lost, or PROMOTE_LEG_WAIT_S passed (see _standby_tick).
+        # Lost legs arrive from the net thread through _lost_legs.
         self._primary_online_legs: set[int] = set()
+        self._lost_legs: collections.deque[int] = collections.deque()
+        self._promote_waiting_since: float | None = None
+        for conn in self.cluster.conns:
+            conn.on_disconnect = self._lost_legs.append
         self._repl_attached = False
         self._repl_resub = 0
         self._standby_warmed = False
@@ -1005,6 +1012,9 @@ class GameServer:
     # standby re-subscribe cadence (serve-loop iterations) while
     # unattached or healing from a torn stream
     REPL_RESUB_TICKS = 64
+    # longest a staged promotion waits for the dispatchers to report the
+    # dead primary gone before it claims all the same
+    PROMOTE_LEG_WAIT_S = 10.0
 
     def _ensure_repl_worker(self):
         if self.repl_worker is None:
@@ -1097,16 +1107,34 @@ class GameServer:
                     proto.pack_replication_subscribe(self.standby_of,
                                                      self.game_id))
             self._repl_resub = self.REPL_RESUB_TICKS
+        while self._lost_legs:
+            # a lost dispatcher drops the dead primary with its routes;
+            # its reconnect's ack says afresh what it holds
+            self._primary_online_legs.discard(self._lost_legs.popleft())
         if self._promote_pending is not None \
-                and self._promote_claim is None \
-                and not self._primary_online_legs:
+                and self._promote_claim is None:
             # a dispatcher drops a dead primary's routes when it reads
             # that connection to its end, which a backlog of the
             # primary's frames can delay past a claim: a census taken
             # before the drop is rejected whole and the drop then leaves
             # every id without a route, so the claim waits until every
-            # dispatcher reported the primary gone. The JAX standby
-            # claims at once (ROADMAP.md Queue C16).
+            # dispatcher reported the primary gone, for at most
+            # PROMOTE_LEG_WAIT_S. The JAX standby claims at once
+            # (ROADMAP.md Queue C16).
+            now = time.monotonic()
+            if self._promote_waiting_since is None:
+                self._promote_waiting_since = now
+            waited = now - self._promote_waiting_since
+            if self._primary_online_legs \
+                    and waited < self.PROMOTE_LEG_WAIT_S:
+                return
+            if self._primary_online_legs:
+                logger.warning(
+                    "game%d: dispatcher legs %s still list game%d after "
+                    "%.1f s; claiming its promotion anyway", self.game_id,
+                    sorted(self._primary_online_legs), self.standby_of,
+                    waited)
+            self._promote_waiting_since = None
             self._claim_promotion()
 
     def _drop_mirror_client_events(self) -> None:
@@ -1831,6 +1859,9 @@ class GameServer:
             self.online_games.update(online)
             if self.standby_of and self.standby_of in online:
                 self._primary_online_legs.add(didx)
+            else:
+                # a dispatcher that (re)connected without the primary
+                self._primary_online_legs.discard(didx)
             self.kvreg.update(kv)
             for eid in rejects:
                 e = w.entities.get(eid)

@@ -33,16 +33,18 @@ dirty under both impls; that keeps them bit-identical.
 Over several controller processes (:class:`Placement`) each controller
 holds tiles ``[tile0, tile0 + n_local)`` and the rings still turn over
 all ``n_dev``. A leg whose sender and receiver live in different
-processes ships the sender's strip gathered and packed
-(:func:`_gather_strip`, :func:`_pack_strip`) through the controller
-group's point-to-point exchange, once a phase for both directions; the
-receiver's phase kernel reads it from the direction's remote block
-(under ``"ppermute"`` it is unpacked there), and does the rest of the
-phase as on one controller.
+processes ships the sender's strip as words: the phase kernel's pack
+mode (:func:`pack_legs`, one launch a phase) gathers and packs every
+such leg of the sender into one send buffer, the controller group's
+point-to-point exchange moves it, once a phase for both directions,
+and the receiver's phase kernel reads it from the received words by a
+slot table (under ``"ppermute"`` it is unpacked there), and does the
+rest of the phase as on one controller.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 
@@ -116,23 +118,69 @@ def placement_of(mesh) -> Placement | None:
     return Placement(mesh.size, loc.start, len(loc), mesh.group)
 
 
-def _legs(place: Placement, ring: "Ring"):
-    """The legs of ``ring`` that cross processes, in receiver order:
-    ``(sends, recvs)`` with sends ``(local sender row, receiver's rank)``
-    and recvs ``(local receiver row, sender's rank)``."""
+def one_controller(n_dev: int) -> Placement:
+    """The placement of ``n_dev`` tiles all held by this process."""
+    return Placement(n_dev, 0, n_dev, None)
+
+
+@dataclasses.dataclass(frozen=True)
+class Legs:
+    """The legs of one phase that cross processes. Per direction, by
+    local tile: ``send_slots`` the row of the send words that tile's
+    strip goes to, ``recv_slots`` the row of the received words its
+    ghosts come from (-1: the leg stays here). The send words are
+    ordered by receiving rank, then direction, then receiver, so that
+    ``send_split`` (rank, first row, end row) cuts one block a rank;
+    the received words are the blocks of ``recv_rows`` (rank, rows) one
+    after another, in the same order on the sender's side."""
+
+    send_slots: tuple[tuple[int, ...], tuple[int, ...]]
+    recv_slots: tuple[tuple[int, ...], tuple[int, ...]]
+    send_split: tuple[tuple[int, int, int], ...]
+    recv_rows: tuple[tuple[int, int], ...]
+
+    @property
+    def n_send(self) -> int:
+        return self.send_split[-1][2] if self.send_split else 0
+
+    @property
+    def n_recv(self) -> int:
+        return sum(m for _, m in self.recv_rows)
+
+
+@functools.cache
+def phase_legs(place: Placement, rings: tuple) -> Legs:
+    """The :class:`Legs` of the phase whose directions are ``rings``."""
+    n, t0 = place.n_local, place.tile0
+    here = range(t0, t0 + n)
+    # (the other rank, direction, receiver tile, local tile): both
+    # sides order a rank's words by direction, then receiver
     sends, recvs = [], []
-    for r in range(place.n_dev):
-        if not ring.recv_ok[r]:
-            continue
-        t = (r - ring.shift) % place.n_dev
-        rr, tr = place.rank_of(r), place.rank_of(t)
-        if rr == tr:
-            continue
-        if tr == place.rank:
-            sends.append((t - place.tile0, rr))
-        if rr == place.rank:
-            recvs.append((r - place.tile0, tr))
-    return sends, recvs
+    for k, ring in enumerate(rings):
+        for r in range(place.n_dev):
+            t = (r - ring.shift) % place.n_dev
+            if not ring.recv_ok[r] or place.rank_of(r) == place.rank_of(t):
+                continue
+            if t in here:
+                sends.append((place.rank_of(r), k, r, t - t0))
+            if r in here:
+                recvs.append((place.rank_of(t), k, r, r - t0))
+    sends.sort()
+    recvs.sort()
+    slots = []
+    for legs in (sends, recvs):
+        table = [[-1] * n for _ in rings]
+        for row, (_, k, _, tl) in enumerate(legs):
+            table[k][tl] = row
+        slots.append(tuple(map(tuple, table)))
+    split, row = [], 0
+    for q in sorted({x[0] for x in sends}):
+        m = sum(1 for x in sends if x[0] == q)
+        split.append((q, row, row + m))
+        row += m
+    rows = tuple((p, sum(1 for x in recvs if x[0] == p))
+                 for p in sorted({x[0] for x in recvs}))
+    return Legs(slots[0], slots[1], tuple(split), rows)
 
 
 def _rows(x: torch.Tensor, rows) -> torch.Tensor:
@@ -157,50 +205,96 @@ def _strip_words(src, flat, count, rows, ghosts=None, col0: int = 0):
     return _pack_strip(*_gather_strip(sub, f, valid))
 
 
-def ship_afar(place: Placement, dirs, h: int, dev):
-    """The cross-process legs of one phase, both directions in one
-    exchange. ``dirs`` holds per direction ``(ring, words)`` with
-    ``words(rows)`` the packed strips of local sender rows ``rows``.
-    Returns per direction ``(remote block i32[n_local, H, 5] or None,
-    mask)``: bit ``rl`` of the mask marks a local receiver whose strip
-    came from another process, in row ``rl`` of the block."""
-    legs = [_legs(place, ring) for ring, _ in dirs]
-    sends, recvs = {}, {}
-    for (ring, words), (s_k, r_k) in zip(dirs, legs):
-        for q in sorted({q for _, q in s_k}):
-            rows = [row for row, qq in s_k if qq == q]
-            sends.setdefault(q, []).append(words(rows))
-        for p in {p for _, p in r_k}:
-            recvs[p] = recvs.get(p, 0) + sum(1 for _, pp in r_k if pp == p)
-    got = place.group.exchange(
-        {q: torch.cat(parts) for q, parts in sends.items()},
-        {p: ((m, h, 5), torch.int32) for p, m in recvs.items()})
-    taken = {p: 0 for p in got}
-    out = []
-    for _, r_k in legs:
-        if not r_k:
-            out.append((None, 0))
-            continue
-        block = torch.zeros((place.n_local, h, 5), dtype=torch.int32,
-                            device=dev)
-        mask = 0
-        for p in sorted({p for _, p in r_k}):
-            for row, _ in (x for x in r_k if x[1] == p):
-                block[row].copy_(got[p][taken[p]])
-                taken[p] += 1
-                mask |= 1 << row
-        out.append((block, mask))
+def pack_legs_plain(src, strips, slots, rows: int, ghosts=None,
+                    col0: int = 0) -> torch.Tensor:
+    """Plain version of :func:`pack_legs`: each crossing leg's strip
+    gathered and packed by :func:`_strip_words` into its row."""
+    h = strips[0][1].shape[1]
+    out = torch.zeros((rows, h, 5), dtype=torch.int32,
+                      device=src[0].device)
+    for (_, flat, count), table in zip(strips, slots):
+        tiles = [tl for tl, s in enumerate(table) if s >= 0]
+        if tiles:
+            out[[table[tl] for tl in tiles]] = _strip_words(
+                src, flat, count, tiles, ghosts, col0)
     return out
+
+
+def pack_legs(src, strips, slots, rows: int, ghosts=None,
+              col0: int = 0) -> torch.Tensor:
+    """The send words of a phase's legs that cross processes:
+    i32[rows, H, 5], row ``slots[k][tile]`` the packed strip that local
+    tile ``tile`` ships in direction k (pos bits, yaw bits, meta), as
+    the phase gathers it: from ``src`` and, for slots past its rows,
+    columns ``[0, col0)`` of ``ghosts`` = (gpos, gyaw, gdirty, ggid) of
+    the ghost block. The phase kernel of ``csrc/halo_ship.cu`` in its
+    pack mode for tensors on the card (one launch); the plain version
+    :func:`pack_legs_plain` for tensors on the CPU."""
+    dev = src[0].device
+    if dev.type == "cpu":
+        return pack_legs_plain(src, strips, slots, rows, ghosts, col0)
+    if dev.type != "cuda":
+        raise ValueError(f"pack_legs: unsupported device {dev}")
+    n_loc, m = src[0].shape[:2]
+    h = strips[0][1].shape[1]
+    ghosts = ghosts if ghosts is not None else src
+    for k, (_, flat, count) in enumerate(strips):
+        kernels.require(count, f"count{k}", torch.int32, (n_loc,))
+        if flat.dtype != torch.int32 or tuple(flat.shape) != (n_loc, h) \
+                or flat.stride(-1) != 1:
+            raise ValueError(f"flat{k}: expected i32[{n_loc}, {h}] with "
+                             "unit row stride")
+    out = torch.empty((rows, h, 5), dtype=torch.int32, device=dev)
+    if rows == 0 or h == 0:
+        return out
+    tables = [(ctypes.c_short * n_loc)(*t) for t in slots]
+    (_, flat0, count0), (_, flat1, count1) = strips
+    err = kernels.lib().gw_halo_pack_legs(
+        *(t.data_ptr() for t in src), m, *(t.data_ptr() for t in ghosts),
+        ghosts[0].shape[1], n_loc, h, col0,
+        flat0.data_ptr(), flat0.stride(0), count0.data_ptr(), tables[0],
+        flat1.data_ptr(), flat1.stride(0), count1.data_ptr(), tables[1],
+        out.data_ptr(), rows, kernels.stream_handle(dev))
+    kernels.check(err, "pack_legs")
+    kernels.LAUNCHES["halo_ship_phase"] += 1
+    return out
+
+
+def no_afar(n_local: int):
+    """The ``afar`` of a phase none of whose legs cross processes."""
+    return ((None, (-1,) * n_local),) * 2
+
+
+def ship_afar(place: Placement, strips, src, ghosts=None, col0: int = 0):
+    """The legs of one phase that cross processes, both directions in
+    one exchange: this controller's strips of them packed by
+    :func:`pack_legs` (one launch) and sent, the other controllers'
+    received. Returns per direction ``(received words i32[rows, H, 5]
+    or None, slots)``: ``slots[tile]`` the row of a local receiver whose
+    strip came from another process, -1 for the others."""
+    legs = phase_legs(place, tuple(ring for ring, _, _ in strips))
+    if not (legs.n_send or legs.n_recv):
+        return no_afar(place.n_local)
+    h = strips[0][1].shape[1]
+    words = pack_legs(src, strips, legs.send_slots, legs.n_send, ghosts,
+                      col0)
+    got = place.group.exchange(
+        {q: words[a:b] for q, a, b in legs.send_split},
+        {p: ((m, h, 5), torch.int32) for p, m in legs.recv_rows})
+    parts = [got[p] for p, _ in legs.recv_rows]
+    remote = (parts[0] if len(parts) == 1 else torch.cat(parts)) \
+        if parts else None
+    return tuple((remote, table) for table in legs.recv_slots)
 
 
 def _receive(place: Placement, ring: "Ring", lanes, afar, packed=False):
     """Each local receiver's strip lanes under ``ring``: the gathered
-    ``lanes`` of a sender held here, the remote block's row of one held
+    ``lanes`` of a sender held here, the received words' row of one held
     afar (unpacked, or as its words where ``lanes`` is the one packed
     buffer), zeros where the receiver takes none (what
     :func:`ship_ring_plain` gives on one controller)."""
-    block, mask = afar
-    far = None if not mask else (block,) if packed \
+    block, slots = afar
+    far = None if block is None else (block,) if packed \
         else _unpack_strip(block)
     out = []
     for li, x in enumerate(lanes):
@@ -209,8 +303,8 @@ def _receive(place: Placement, ring: "Ring", lanes, afar, packed=False):
             r = place.tile0 + rl
             if not ring.recv_ok[r]:
                 rows.append(torch.zeros_like(x[0]))
-            elif (mask >> rl) & 1:
-                rows.append(far[li][rl])
+            elif slots[rl] >= 0:
+                rows.append(far[li][slots[rl]])
             else:
                 rows.append(x[(r - ring.shift) % place.n_dev - place.tile0])
         out.append(torch.stack(rows))
@@ -290,9 +384,10 @@ def ship_phase_plain(src, strips, out, col0: int, place=None,
     """Plain version of :func:`ship_phase`: per direction the strip is
     gathered from the own lanes followed by ``out``'s columns ``[0,
     col0)``, packed into one i32[n_dev, H, 5] buffer, shipped by
-    :func:`ship_ring_plain` (over several controllers, a receiver whose
-    sender is afar takes its row of the direction's remote block),
-    unpacked, its gid normalised, and written into ``out``."""
+    :func:`ship_ring_plain` (over several controllers by
+    :func:`_receive`: a receiver whose sender is afar takes its row of
+    the received words), unpacked, its gid normalised, and written into
+    ``out``."""
     h = strips[0][1].shape[1]
     if col0:
         ghost = (out[0], out[1], out[2], out[4])
@@ -300,11 +395,8 @@ def ship_phase_plain(src, strips, out, col0: int, place=None,
     for k, (ring, flat, count) in enumerate(strips):
         valid = torch.arange(h, dtype=torch.int32, device=flat.device) \
             < torch.clamp_max(count, h)[:, None]
-        words = _pack_strip(*_gather_strip(src, flat, valid))
-        if place is None:
-            words = ship_ring_plain(words, ring.shift, ring.recv_ok)
-        else:
-            words = _receive(place, ring, (words,), afar[k], True)[0]
+        words = _ship_lanes(src, flat, valid, ring, place,
+                            None if afar is None else afar[k], packed=True)
         lanes = _unpack_strip(words)
         cols = slice(col0 + k * h, col0 + (k + 1) * h)
         for dst, lane in zip(out[:4], lanes[:4]):
@@ -312,15 +404,21 @@ def ship_phase_plain(src, strips, out, col0: int, place=None,
         out[4][:, cols] = torch.where(lanes[3], lanes[4], 0)
 
 
-def _ship_lanes(src, flat, valid, ring: Ring, place=None, afar=None):
-    """The ``"ppermute"`` ship of one direction: each lane of the
-    gathered strip through :func:`ship_ring_plain` (over several
-    controllers, :func:`_receive` with the direction's remote block)."""
+def _ship_lanes(src, flat, valid, ring: Ring, place=None, afar=None,
+                packed: bool = False):
+    """The plain ship of one direction: the gathered strip's lanes (or,
+    ``packed``, its words) through :func:`ship_ring_plain` on one
+    controller, through :func:`_receive` with the direction's received
+    words over several."""
     lanes = _gather_strip(src, flat, valid)
-    if place is None:
-        return tuple(ship_ring_plain(x, ring.shift, ring.recv_ok)
-                     for x in lanes)
-    return _receive(place, ring, lanes, afar)
+    if packed:
+        lanes = (_pack_strip(*lanes),)
+    if place is None or place.n_local == place.n_dev:
+        out = tuple(ship_ring_plain(x, ring.shift, ring.recv_ok)
+                    for x in lanes)
+    else:
+        out = _receive(place, ring, lanes, afar, packed)
+    return out[0] if packed else out
 
 
 def _cat(parts, i):
@@ -342,17 +440,16 @@ _OUT = (("gpos", torch.float32, (3,)), ("gyaw", torch.float32, ()),
         ("ggid", torch.int32, ()))
 
 
-def _check_phase(src, strips, out, col0: int, place=None,
-                 afar=None) -> None:
+def _check_phase(src, strips, out, col0: int, place: Placement,
+                 afar) -> None:
     """Reject what the phase kernel does not take (on every device, so
     that the CPU runs the same checks)."""
     if len(src) != 4 or len(out) != 5 or len(strips) != 2:
         raise ValueError("a phase takes 4 source lanes, 5 output lanes and "
                          "2 strips")
     n_loc, m = src[0].shape[:2]
-    n_dev = n_loc if place is None else place.n_dev
-    if place is not None and (place.n_local != n_loc or not 0 <= place.tile0
-                              <= n_dev - n_loc):
+    n_dev = place.n_dev
+    if place.n_local != n_loc or not 0 <= place.tile0 <= n_dev - n_loc:
         raise ValueError(f"{n_loc} local tiles do not match {place}")
     g = out[0].shape[1]
     dev = src[0].device
@@ -363,9 +460,16 @@ def _check_phase(src, strips, out, col0: int, place=None,
     h = strips[0][1].shape[-1]
     for k, (ring, flat, count) in enumerate(strips):
         lanes.append((count, f"count{k}", torch.int32, (n_loc,)))
-        if afar is not None and afar[k][1]:
-            lanes.append((afar[k][0], f"remote{k}", torch.int32,
-                          (n_loc, h, 5)))
+        block, slots = afar[k]
+        if len(slots) != n_loc:
+            raise ValueError(f"slots{k}: {len(slots)} for {n_loc} tiles")
+        if block is not None:
+            lanes.append((block, f"remote{k}", torch.int32,
+                          (block.shape[0], h, 5)))
+        if not all(-1 <= x < (0 if block is None else block.shape[0])
+                   for x in slots):
+            raise ValueError(f"slots{k} {slots} outside the received "
+                             "words")
         if flat.dtype != torch.int32:
             raise TypeError(f"flat{k}: expected torch.int32, got "
                             f"{flat.dtype}")
@@ -396,9 +500,9 @@ def ship_phase(src, strips, out, col0: int, place=None,
     block ``out`` at columns ``[col0, col0 + 2H)``. The CUDA kernel of
     ``csrc/halo_ship.cu`` for tensors on the card (one launch); the plain
     version :func:`ship_phase_plain` for tensors on the CPU. Over
-    several controllers ``place`` (a :class:`Placement`) says which
-    tiles the lanes hold, and ``afar`` gives per direction the remote
-    block and mask of :func:`ship_afar`.
+    several controllers ``place`` (a :class:`Placement`; all tiles here
+    when None) says which tiles the lanes hold, and ``afar`` gives per
+    direction the received words and slots of :func:`ship_afar`.
 
     Args:
       src: the tiles' own lanes ``(pos f32[n_dev, M, 3], yaw f32[n_dev,
@@ -413,6 +517,9 @@ def ship_phase(src, strips, out, col0: int, place=None,
         direction k fills columns ``col0 + k*H`` to ``col0 + (k+1)*H``.
       col0: the phase's first output column.
     """
+    n_loc, m = src[0].shape[:2]
+    place = place or one_controller(n_loc)
+    afar = afar or no_afar(n_loc)
     _check_phase(src, strips, out, col0, place, afar)
     dev = src[0].device
     if dev.type == "cpu":
@@ -420,21 +527,20 @@ def ship_phase(src, strips, out, col0: int, place=None,
         return
     if dev.type != "cuda":
         raise ValueError(f"ship_phase: unsupported device {dev}")
-    n_loc, m = src[0].shape[:2]
-    n_dev, tile0 = (n_loc, 0) if place is None \
-        else (place.n_dev, place.tile0)
-    afar = afar or ((None, 0), (None, 0))
     (r0, flat0, count0), (r1, flat1, count1) = strips
     if flat0.shape[1] == 0:
         return
+    n_dev = place.n_dev
 
     def remote(k):
-        block, mask = afar[k]
-        return (block.data_ptr() if mask else None), mask
+        block, slots = afar[k]
+        return (None if block is None else block.data_ptr(),
+                0 if block is None else block.shape[0],
+                (ctypes.c_short * n_loc)(*slots))
 
     err = kernels.lib().gw_halo_ship_phase(
         *(t.data_ptr() for t in src), m, *(t.data_ptr() for t in out),
-        out[0].shape[1], n_dev, tile0, n_loc, flat0.shape[1], col0,
+        out[0].shape[1], n_dev, place.tile0, n_loc, flat0.shape[1], col0,
         flat0.data_ptr(), flat0.stride(0), count0.data_ptr(),
         r0.shift % n_dev, r0.mask, *remote(0),
         flat1.data_ptr(), flat1.stride(0), count1.data_ptr(),
@@ -470,31 +576,10 @@ def _local_gid(d: torch.Tensor, n_per_dev: int, n: int) -> torch.Tensor:
         + torch.arange(n, dtype=torch.int32, device=d.device)[None, :]
 
 
-def _tiles(n_dev: int, place, dev) -> torch.Tensor:
-    """The tile indices of the lanes held here (all ``n_dev`` on one
-    controller)."""
-    t0, n = (0, n_dev) if place is None else (place.tile0, place.n_local)
-    return torch.arange(t0, t0 + n, dtype=torch.int32, device=dev)
-
-
-def _afar(place, src, strips, out=None, col0: int = 0):
-    """:func:`ship_afar` of one phase's ``strips`` (``(ring, flat,
-    count)`` each) gathered from ``src``; None on one controller."""
-    if place is None:
-        return None
-    ghosts = None if out is None else (out[0], out[1], out[2], out[4])
-    dirs = [(ring, lambda rows, f=flat, c=count: _strip_words(
-        src, f, c, rows, ghosts, col0)) for ring, flat, count in strips]
-    return ship_afar(place, dirs, strips[0][1].shape[1], src[0].device)
-
-
-def _ship(src, strips, out, col0: int, place, afar) -> None:
-    """:func:`ship_phase`, its placement passed over several
-    controllers only."""
-    if place is None:
-        ship_phase(src, strips, out, col0)
-    else:
-        ship_phase(src, strips, out, col0, place=place, afar=afar)
+def _tiles(place: Placement, dev) -> torch.Tensor:
+    """The tile indices of the lanes held here."""
+    return torch.arange(place.tile0, place.tile0 + place.n_local,
+                        dtype=torch.int32, device=dev)
 
 
 def exchange_halo(n_dev: int, pos, yaw, dirty, alive, tile_w: float,
@@ -517,7 +602,8 @@ def exchange_halo(n_dev: int, pos, yaw, dirty, alive, tile_w: float,
     _check_impl(impl)
     n = pos.shape[1]
     dev = pos.device
-    d = _tiles(n_dev, place, dev)
+    place = place or one_controller(n_dev)
+    d = _tiles(place, dev)
     tile_min = _tile_mins(d, tile_w)[:, None]
     x = pos[..., 0]
     src = (pos, yaw, dirty, _local_gid(d, n, n))
@@ -537,12 +623,11 @@ def exchange_halo(n_dev: int, pos, yaw, dirty, alive, tile_w: float,
     from_left, from_right = rings_1d(n_dev)
     strips = ((from_left, right_flat, right_demand),
               (from_right, left_flat, left_demand))
-    afar = _afar(place, src, strips)
+    afar = ship_afar(place, strips, src)
     if impl == "async":
         out = _empty_ghosts(d.shape[0], 2 * halo_cap, dev)
-        _ship(src, strips, out, 0, place, afar)
+        ship_phase(src, strips, out, 0, place, afar)
     else:
-        afar = afar or (None, None)
         out = _ghosts([
             _ship_lanes(src, right_flat, right_valid, from_left, place,
                         afar[0]),
@@ -570,7 +655,8 @@ def exchange_halo_2d(shape: tuple[int, int], n_per_dev: int, pos, yaw,
     n_dev = tx * tz
     n = pos.shape[1]
     dev = pos.device
-    d = _tiles(n_dev, place, dev)
+    place = place or one_controller(n_dev)
+    d = _tiles(place, dev)
     ix, iz = d // tz, d % tz
     tmin_x = _tile_mins(ix, tile_w)[:, None]
     tmin_z = _tile_mins(iz, tile_d)[:, None]
@@ -588,10 +674,10 @@ def exchange_halo_2d(shape: tuple[int, int], n_per_dev: int, pos, yaw,
     lo, hi = tmin_z + r, tmin_z + _f32(tile_d, dev) - r
     phase1 = ((from_west, east_flat, east_dem),
               (from_east, west_flat, west_dem))
-    afar1 = _afar(place, src, phase1)
+    afar1 = ship_afar(place, phase1, src)
     if impl == "async":
         out = _empty_ghosts(d.shape[0], 4 * halo_cap, dev)
-        _ship(src, phase1, out, 0, place, afar1)
+        ship_phase(src, phase1, out, 0, place, afar1)
         # the phase-1 ghosts are the block's first 2H columns: only the
         # masks are concatenated
         h2 = 2 * halo_cap
@@ -602,10 +688,9 @@ def exchange_halo_2d(shape: tuple[int, int], n_per_dev: int, pos, yaw,
             [alive & (z >= hi), gvalid & (gz >= hi)], dim=1), halo_cap)
         phase2 = ((from_north, south_flat, south_dem),
                   (from_south, north_flat, north_dem))
-        _ship(src, phase2, out, h2, place,
-              _afar(place, src, phase2, out, h2))
+        ship_phase(src, phase2, out, h2, place, ship_afar(
+            place, phase2, src, (out[0], out[1], out[2], out[4]), h2))
     else:
-        afar1 = afar1 or (None, None)
         west = _ship_lanes(src, east_flat, east_valid, from_west, place,
                            afar1[0])
         east = _ship_lanes(src, west_flat, west_valid, from_east, place,
@@ -619,9 +704,8 @@ def exchange_halo_2d(shape: tuple[int, int], n_per_dev: int, pos, yaw,
         south_flat, south_valid, south_dem = bounded_extract_batched(
             cvalid & (cz >= hi), halo_cap)
         csrc = (cpos, cyaw, cdirty, cgid)
-        afar2 = _afar(place, csrc, ((from_north, south_flat, south_dem),
-                                    (from_south, north_flat, north_dem))) \
-            or (None, None)
+        afar2 = ship_afar(place, ((from_north, south_flat, south_dem),
+                                  (from_south, north_flat, north_dem)), csrc)
         out = _ghosts([west, east,
                        _ship_lanes(csrc, south_flat, south_valid, from_north,
                                    place, afar2[0]),

@@ -38,15 +38,23 @@ from goworld_tpu_torch.core.state import resolve_device
 DEFAULT_TIMEOUT_S = 120.0
 
 # host syncs the collectives made (one a staged collective on the card)
-# and the seconds spent in them, from the caller's side
-STATS = {"host_syncs": 0, "collectives": 0, "seconds": 0.0}
+# and the seconds spent in them, from the caller's side; of those, the
+# seconds of the device-to-host staging (the copies and the wait for the
+# stream) and of gloo's calls (the wire, and the wait for the peers)
+STATS = {"host_syncs": 0, "collectives": 0, "seconds": 0.0,
+         "stage_seconds": 0.0, "wire_seconds": 0.0}
 
 _GROUP: "Group | None" = None
 
 
 def reset_stats() -> None:
     """Set every count of :data:`STATS` to 0."""
-    STATS.update(host_syncs=0, collectives=0, seconds=0.0)
+    STATS.update(host_syncs=0, collectives=0, seconds=0.0,
+                 stage_seconds=0.0, wire_seconds=0.0)
+
+
+def _add(key: str, t0: float) -> None:
+    STATS[key] += time.perf_counter() - t0
 
 
 class Group:
@@ -64,10 +72,12 @@ class Group:
         t = t.contiguous()
         if t.device.type != "cuda":
             return t
+        t0 = time.perf_counter()
         host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
         host.copy_(t, non_blocking=True)
         torch.cuda.current_stream(t.device).synchronize()
         STATS["host_syncs"] += 1
+        _add("stage_seconds", t0)
         return host
 
     @staticmethod
@@ -103,7 +113,9 @@ class Group:
             src = self._to_host(t)
             out = self._pinned((self.size,) + tuple(t.shape), t.dtype,
                                t.device)
+            t0 = time.perf_counter()
             dist.all_gather(list(out.unbind(0)), src)
+            _add("wire_seconds", t0)
             return out if host else self._back(out, t.device)
         return self._timed(run)
 
@@ -121,7 +133,9 @@ class Group:
         def run():
             src = self._to_host(t)
             out = self._pinned(tuple(t.shape), t.dtype, t.device)
+            t0 = time.perf_counter()
             dist.all_to_all_single(out, src)
+            _add("wire_seconds", t0)
             return self._back(out, t.device)
         return self._timed(run)
 
@@ -133,7 +147,9 @@ class Group:
 
         def run():
             host = self._to_host(t).clone()
+            t0 = time.perf_counter()
             dist.all_reduce(host, op=dist.ReduceOp.SUM)
+            _add("wire_seconds", t0)
             return self._back(host, t.device)
         return self._timed(run)
 
@@ -154,6 +170,7 @@ class Group:
             ops, out = [], {}
             if dev.type == "cuda":
                 # every leg's copy, then one wait
+                t0 = time.perf_counter()
                 hosts = {}
                 for q, t in sends.items():
                     hosts[q] = self._pinned(t.shape, t.dtype, dev)
@@ -161,6 +178,7 @@ class Group:
                 if hosts:
                     torch.cuda.current_stream(dev).synchronize()
                     STATS["host_syncs"] += 1
+                _add("stage_seconds", t0)
             else:
                 hosts = {q: t.contiguous() for q, t in sends.items()}
             for q in sorted(hosts):
@@ -169,8 +187,10 @@ class Group:
                 shape, dtype = recvs[p]
                 out[p] = self._pinned(shape, dtype, dev)
                 ops.append(dist.P2POp(dist.irecv, out[p], p))
+            t0 = time.perf_counter()
             for w in dist.batch_isend_irecv(ops):
                 w.wait()
+            _add("wire_seconds", t0)
             return {p: self._back(h, dev) for p, h in out.items()}
         return self._timed(run)
 

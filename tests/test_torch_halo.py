@@ -312,9 +312,9 @@ def test_exchange_ships_one_phase_call_a_phase(two_d, monkeypatch):
     calls = []
     ship = thalo.ship_phase
 
-    def counted(src, strips, out, col0):
+    def counted(src, strips, out, col0, *placed):
         calls.append(col0)
-        ship(src, strips, out, col0)
+        ship(src, strips, out, col0, *placed)
 
     monkeypatch.setattr(thalo, "ship_phase", counted)
     _port("async", two_d, 16, _world(5, 0.5, 0.8, two_d))
@@ -385,3 +385,53 @@ def test_meta_gid_bound_guard_matches_jax():
                  tile_w=100.0, halo_impl="async")
         mega(cfg=world(capacity=cap, grid=gs(**grid)), n_dev=2,
              tile_w=100.0, halo_impl="ppermute")
+
+
+@pytest.mark.parametrize("layout", [("2d", (4, 2), 2), ("2d", (2, 4), 2),
+                                    ("2d", (4, 4), 4), ("1d", 8, 2),
+                                    ("1d", 8, 4)],
+                         ids=["4x2-2", "2x4-2", "4x4-4", "1d8-2", "1d8-4"])
+def test_phase_legs_pair_up_across_ranks(layout):
+    """Over several controllers a phase's crossing legs move as one
+    block of words a pair of ranks: the rows that rank p's pack writes
+    for rank q (its send slots, cut by ``send_split``) are, row for row,
+    the legs rank q reads from p's block (its receive slots), by
+    direction and receiver tile; and every crossing leg is in one."""
+    kind, shape, size = layout
+    phases = (thalo.rings_2d(*shape) if kind == "2d"
+              else (thalo.rings_1d(shape),))
+    n_dev = shape[0] * shape[1] if kind == "2d" else shape
+    n_loc = n_dev // size
+
+    class Rank:
+        def __init__(self, rank):
+            self.rank = rank
+
+    places = [thalo.Placement(n_dev, r * n_loc, n_loc, Rank(r))
+              for r in range(size)]
+    for rings in phases:
+        legs = [thalo.phase_legs(pl, rings) for pl in places]
+        crossing = sorted(
+            (k, r) for k, ring in enumerate(rings) for r in range(n_dev)
+            if ring.recv_ok[r]
+            and r // n_loc != ((r - ring.shift) % n_dev) // n_loc)
+        paired = []
+        for p, pl in enumerate(places):
+            for q, a, b in legs[p].send_split:
+                sent = sorted(
+                    (row, k, (pl.tile0 + tl + rings[k].shift) % n_dev)
+                    for k in range(2)
+                    for tl, row in enumerate(legs[p].send_slots[k])
+                    if a <= row < b)
+                start = 0
+                for pp, m in legs[q].recv_rows:
+                    if pp == p:
+                        break
+                    start += m
+                got = sorted(
+                    (row, k, places[q].tile0 + rl) for k in range(2)
+                    for rl, row in enumerate(legs[q].recv_slots[k])
+                    if start <= row < start + b - a)
+                assert [x[1:] for x in sent] == [x[1:] for x in got]
+                paired += [x[1:] for x in sent]
+        assert sorted(paired) == crossing

@@ -483,10 +483,33 @@ def _freeze_worker(rank: int, size: int, port: int, workdir: str) -> None:
     from goworld_tpu_torch.parallel import multihost
     from goworld_tpu_torch.utils import mpack
 
+    from goworld_tpu_torch.entity.entity import Entity
+
+    class Hero(Entity):
+        ATTRS = {"gold": "persistent"}
+
+    docs = {}
+
+    class Docs:
+        """The storage's saves, by entity id."""
+
+        def save(self, type_name, eid, data):
+            docs[eid] = dict(data)
+
+    def served(world):
+        world.register_entity("Hero", Hero, persistent=True)
+        world.storage = Docs()
+        return world
+
     group = multihost.init_distributed(f"127.0.0.1:{port}", size, rank,
                                        timeout=GROUP_TIMEOUT)
-    w = _small_mega_world()
+    w = served(_small_mega_world())
     sp = w.create_space("Mega")
+    # a persistent entity saved and destroyed before the freeze
+    hero = w.create_entity("Hero")
+    hero.attrs["gold"] = 1
+    w.save_entity(hero)
+    w.destroy_entity(hero)
     walker = w.create_entity("Npc", space=sp, pos=(398.5, 0.0, 50.0),
                              eid="walker_walker_00")
     watcher = w.create_entity("Npc", space=sp, pos=(406.0, 0.0, 50.0),
@@ -510,8 +533,19 @@ def _freeze_worker(rank: int, size: int, port: int, workdir: str) -> None:
     if rank == 0:
         write_freeze_file(path, snap)
     group.all_gather(torch.zeros(1))        # the leader's file is down
-    w2 = _small_mega_world()
+    w2 = served(_small_mega_world())
     restore_world(w2, read_freeze_file(path))
+    # after the restore, and in a fresh boot with and without its nonce
+    hero2 = w2.create_entity("Hero")
+    hero2.attrs["gold"] = 2
+    w2.save_entity(hero2)
+    w3 = served(_small_mega_world())
+    w3.mh_draw_id_nonce()
+    w3.create_space("Mega")
+    fresh = w3.create_entity("Hero").id
+    w4 = served(_small_mega_world())
+    w4.create_space("Mega")
+    unseeded = w4.create_entity("Hero").id
     walker2 = w2.entities["walker_walker_00"]
     watcher2 = w2.entities["watcher_watcher0"]
     for _ in range(3):
@@ -528,6 +562,8 @@ def _freeze_worker(rank: int, size: int, port: int, workdir: str) -> None:
         "restored_hp": walker2.attrs.get("hp"),
         "restored_watcher_sees": sorted(watcher2.interested_in),
         "restored_alive": int(w2.last_outputs.global_alive[0]),
+        "hero_ids": [hero.id, hero2.id, fresh, unseeded],
+        "hero_doc": docs.get(hero.id),
     }
     with open(os.path.join(workdir, f"freeze{rank}.json"), "w") as f:
         json.dump(out, f)

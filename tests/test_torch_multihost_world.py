@@ -104,6 +104,16 @@ def test_multihost_checkpoint_restore(tmp_path):
     assert r1["restored_watcher_sees"] == r1["pre"]["watcher_sees"] \
         == ["walker_walker_00"]
     assert r0["restored_watcher_sees"] == []
+    # ROADMAP C17: a persistent entity saved and destroyed before the
+    # freeze keeps its id and its document; the restored World's auto
+    # ids go on from the snapshot's sequence, and a fresh boot's nonce
+    # (the same on both ranks) keeps it off the ids of an earlier boot,
+    # which the sequence alone re-mints
+    old, restored, fresh, unseeded = r0["hero_ids"]
+    assert r1["hero_ids"] == r0["hero_ids"]
+    assert len({old, restored, fresh}) == 3
+    assert unseeded == old
+    assert r0["hero_doc"] == r1["hero_doc"] == {"gold": 1}
 
 
 def test_multihost_services(tmp_path):

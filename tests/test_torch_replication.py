@@ -1040,6 +1040,62 @@ def test_standby_claims_after_its_dispatchers_drop_the_primary(tmp_path):
     assert got["jax"] == (True, 1)
 
 
+@pytest.mark.parametrize("case", ["dispatcher_restart", "reack_without",
+                                  "wait_bound"])
+def test_standby_claims_when_a_dispatcher_leg_forgets_the_primary(
+        tmp_path, case, monkeypatch):
+    """ROADMAP.md Queue C16: the standby's wait for the dispatchers to
+    drop the dead primary must end. ``dispatcher_restart``: the
+    dispatcher that listed the primary dies with it and is respawned
+    (the connection is lost, and the new dispatcher's ack lists no
+    primary); ``reack_without``: a later ack of the same leg lists it no
+    more; ``wait_bound``: no dispatcher ever reports the primary gone,
+    and the standby claims once ``PROMOTE_LEG_WAIT_S`` has passed. In
+    each case the claim is staged and the promotion completes."""
+    from goworld_tpu_torch.net import game, packet, proto
+
+    seeded_ids(monkeypatch)
+    sb = _mk_world(T, 992)
+    sb.create_nil_space()
+    gs = game.GameServer(
+        992, sb, [("127.0.0.1", 1)], standby_of=991,
+        gc_freeze_on_boot=False, flightrec_ring=0,
+        freeze_dir=str(tmp_path))
+    gs.cluster.conns[0].send = lambda pk, release=True: None
+
+    def ack(online):
+        pk = packet.new_packet(proto.MT_SET_GAME_ID_ACK)
+        pk.append_u16(1)
+        pk.append_data({})
+        pk.append_data([])
+        pk.append_data(online)
+        gs._handle_packet(0, proto.MT_SET_GAME_ID_ACK,
+                          packet.Packet(bytes(pk.buf[2:])))
+
+    ack([991])                      # the primary is online
+    gs.tick()
+    assert gs._request_promotion(1)["status"] == "claiming"
+    if case == "wait_bound":
+        monkeypatch.setattr(game.GameServer, "PROMOTE_LEG_WAIT_S", 0.05)
+    gs.tick()
+    assert gs._promote_claim is None    # the leg still holds game991
+    if case == "dispatcher_restart":
+        gs.cluster.conns[0].on_disconnect(0)    # as the net thread does
+        ack([])                     # the respawned dispatcher's
+    elif case == "reack_without":
+        ack([])
+    else:
+        time.sleep(0.1)
+    gs.tick()                       # stages the claim
+    assert gs._promote_claim is not None, case
+    gs._handle_packet(0, proto.MT_KVREG_REGISTER, packet.Packet(bytes(
+        proto.pack_kvreg_register(tpromote.claim_key(991),
+                                  gs._promote_claim, False).buf[2:])))
+    assert gs._promoted
+    taudit.unregister("game991")
+    taudit.unregister("game992")
+
+
 def test_disk_chain_resolves_after_a_stream_only_keyframe(tmp_path):
     """ROADMAP.md Queue C11: a standby's attach forces a keyframe that
     only the stream carries; the next checkpoint job writes a delta to
